@@ -1,191 +1,38 @@
-// decode_attention: GQA attention of T <= 8 new tokens over the KV cache.
+// decode_attention: GQA attention of T <= 8 new tokens over a dense KV cache.
 //
-// Replaces crabml_tpu/ops/pallas/decode_attention.py::_kernel_fused (launcher
-// _run_fused, pallas_call at :556). The port writes the step's k/v into the
-// cache in place before attention, so this kernel attends each query row over
-// the cache prefix with a per-row causal bound: row r = t*G + g (token t of
-// the step, q head g of the kv group) sees keys j <= pos[b] + t. That gives
-// the TPU kernel's numbers ("attend the new block from VMEM, write after the
-// layer scan") without its second input block. Online softmax in float32,
-// masking with -1e30 as the JAX package does.
-//
-// Bound on the H100: device-memory bytes (each cached key and value is read
-// once for ~2 flops per element). The TPU grid (B, KV) gives only 8 blocks at
-// B=1 with 8 kv heads, which would leave 124 SMs idle, so the key range is
-// also split across blocks (flash-decoding): grid (KV, B, nsplit), eight warps
-// per block, each warp walking its keys with a 256-byte coalesced load per key
-// (lane l holds head dims 4l..4l+3). Warps merge their (max, sum, acc) in
-// shared memory in a fixed order, blocks write one partial each, and a second
-// small kernel merges the splits, again in a fixed order: no atomics, so
-// results are deterministic.
-#include "common.cuh"
+// The dense instantiations of decode_core.cuh (see its note for the bound and
+// the design). Replaces crabml_tpu/ops/pallas/decode_attention.py::_kernel
+// (launcher _run, pallas_call at :252): the cache already holds the step's
+// keys, k_new is null; and ::_kernel_fused (launcher _run_fused, pallas_call
+// at :556): the step's keys arrive as a separate block and the cache holds
+// only the prefix. The TPU kernel takes the stacked cache and a layer scalar
+// so that a scan never copies the cache; here the wrapper passes the layer's
+// own base pointer, which is a view in PyTorch.
+#include "decode_core.cuh"
 
-namespace {
-
-constexpr int HD = 128;  // head dim: 32 lanes x 4 elements
-constexpr int NW = 8;    // warps per block
-
-template <typename T, int R>
-__global__ void __launch_bounds__(NW * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ pos,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int KV, int S, int T_, int G,
-                    int nsplit, float scale) {
-    __shared__ float sm_m[NW][R];
-    __shared__ float sm_l[NW][R];
-    __shared__ float sm_acc[R][HD];
-
-    const int kv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int TG = T_ * G;
-    const int H = KV * G;
-    const int p0 = pos[b];
-    const int n_keys = p0 + T_;
-    const int per = (n_keys + nsplit - 1) / nsplit;
-    const int j0 = split * per;
-    const int j1 = min(n_keys, j0 + per);
-
-    // query rows, pre-scaled, four head dims per lane
-    float qr[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < TG) {
-            const int t = r / G, g = r % G;
-            f = load4(q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + lane * 4);
-        }
-        qr[r][0] = f.x * scale; qr[r][1] = f.y * scale;
-        qr[r][2] = f.z * scale; qr[r][3] = f.w * scale;
-    }
-    float m[R], l[R], acc[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        m[r] = CRABML_NEG_INF; l[r] = 0.f;
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    }
-
-    const size_t head = ((size_t)b * KV + kv) * S;
-    for (int j = j0 + warp; j < j1; j += NW) {
-        const float4 kj = load4(k + (head + j) * HD + lane * 4);
-        const float4 vj = load4(v + (head + j) * HD + lane * 4);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            if (r < TG) {
-                float s = qr[r][0] * kj.x + qr[r][1] * kj.y + qr[r][2] * kj.z + qr[r][3] * kj.w;
-                s = warp_sum(s);
-                if (j <= p0 + r / G) {  // causal bound of row r
-                    const float m_new = fmaxf(m[r], s);
-                    const float alpha = __expf(m[r] - m_new);
-                    const float p = __expf(s - m_new);
-                    l[r] = l[r] * alpha + p;
-                    acc[r][0] = acc[r][0] * alpha + p * vj.x;
-                    acc[r][1] = acc[r][1] * alpha + p * vj.y;
-                    acc[r][2] = acc[r][2] * alpha + p * vj.z;
-                    acc[r][3] = acc[r][3] * alpha + p * vj.w;
-                    m[r] = m_new;
-                }
-            }
-        }
-    }
-
-    // merge the warps of this block in warp order
-    if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) { sm_m[warp][r] = m[r]; sm_l[warp][r] = l[r]; }
-    }
-    for (int i = threadIdx.x; i < R * HD; i += NW * 32) (&sm_acc[0][0])[i] = 0.f;
-    __syncthreads();
-    float mb[R], fw[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        mb[r] = CRABML_NEG_INF;
-        for (int w = 0; w < NW; ++w) mb[r] = fmaxf(mb[r], sm_m[w][r]);
-        fw[r] = __expf(m[r] - mb[r]);
-    }
-    for (int w = 0; w < NW; ++w) {
-        if (warp == w) {
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) sm_acc[r][lane * 4 + e] += acc[r][e] * fw[r];
-        }
-        __syncthreads();
-    }
-    const size_t pbase = (((size_t)b * KV + kv) * nsplit + split) * R;
-    if (threadIdx.x < R) {
-        const int r = threadIdx.x;
-        float lb = 0.f;
-        for (int w = 0; w < NW; ++w) lb += sm_l[w][r] * __expf(sm_m[w][r] - mb[r]);
-        part_m[pbase + r] = mb[r];
-        part_l[pbase + r] = lb;
-    }
-    for (int i = threadIdx.x; i < R * HD; i += NW * 32)
-        part_acc[pbase * HD + i] = (&sm_acc[0][0])[i];
-}
-
-// merge the splits of one (kv, b): one thread per head dim
-template <typename T, int R>
-__global__ void __launch_bounds__(HD)
-decode_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                      const float* __restrict__ part_acc, T* __restrict__ out,
-                      int KV, int T_, int G, int nsplit) {
-    const int kv = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-    const int TG = T_ * G, H = KV * G;
-    const size_t base = ((size_t)b * KV + kv) * nsplit;
-    for (int r = 0; r < TG; ++r) {
-        float mx = CRABML_NEG_INF;
-        for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[(base + s) * R + r]);
-        float lsum = 0.f, o = 0.f;
-        for (int s = 0; s < nsplit; ++s) {
-            const float f = __expf(part_m[(base + s) * R + r] - mx);
-            lsum += part_l[(base + s) * R + r] * f;
-            o += part_acc[((base + s) * R + r) * HD + d] * f;
-        }
-        const int t = r / G, g = r % G;
-        out[((size_t)(b * T_ + t) * H + kv * G + g) * HD + d] = from_f32<T>(o / fmaxf(lsum, 1e-30f));
-    }
-}
-
-template <typename T, int R>
-int launch(const void* q, const void* k, const void* v, const void* pos, void* part_m,
-           void* part_l, void* part_acc, void* out, int B, int KV, int S, int T_, int G,
-           int nsplit, float scale, cudaStream_t stream) {
-    decode_split_kernel<T, R><<<dim3(KV, B, nsplit), NW * 32, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const int*)pos, (float*)part_m,
-        (float*)part_l, (float*)part_acc, KV, S, T_, G, nsplit, scale);
-    int err = crabml_launch_status();
-    if (err) return err;
-    decode_combine_kernel<T, R><<<dim3(KV, B), HD, 0, stream>>>(
-        (const float*)part_m, (const float*)part_l, (const float*)part_acc, (T*)out,
-        KV, T_, G, nsplit);
-    return crabml_launch_status();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* pos, void* pm,
-             void* pl, void* pa, void* out, int B, int KV, int S, int T_, int G,
-             int nsplit, int R, float scale, cudaStream_t s) {
-    if (R == 4) return launch<T, 4>(q, k, v, pos, pm, pl, pa, out, B, KV, S, T_, G, nsplit, scale, s);
-    if (R == 8) return launch<T, 8>(q, k, v, pos, pm, pl, pa, out, B, KV, S, T_, G, nsplit, scale, s);
-    if (R == 16) return launch<T, 16>(q, k, v, pos, pm, pl, pa, out, B, KV, S, T_, G, nsplit, scale, s);
-    return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// q, out (B, T, KV*G, 128); k, v one layer of the cache (B, KV, S, 128); pos
-// (B,) i32 = valid keys before this step (the step's T keys are already
-// written). part_* are float32 scratch of (B, KV, nsplit, R[, 128]) with
-// R in {4, 8, 16} >= T*G. dtype 0 = bfloat16, 1 = float32.
-extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                const void* pos, void* part_m, void* part_l,
-                                void* part_acc, void* out, int B, int KV, int S, int T,
-                                int G, int nsplit, int R, float scale, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0)
-        return dispatch<bf16>(q, k, v, pos, part_m, part_l, part_acc, out, B, KV, S, T, G,
-                              nsplit, R, scale, s);
-    return dispatch<float>(q, k, v, pos, part_m, part_l, part_acc, out, B, KV, S, T, G,
-                           nsplit, R, scale, s);
+// q, out (B, T, KV*G, 128) bfloat16 (qtype 0) or float32 (1). k, v one layer
+// of the cache (B, KV, S, 128) in the q type (quant 0) or int8 (quant 1, with
+// ks, vs (B, KV, S) float32). k_new, v_new (B, KV, T, 128) in the stored type
+// and ks_new, vs_new (B, KV, T), or null when the cache holds the step's keys.
+// pos (B,) i32 = keys that precede the step. part_* are float32 scratch of
+// (B, KV, nsplit, R[, 128]) with R in {4, 8, 16} >= T*G.
+extern "C" int decode_attention(int qtype, int quant, const void* q, const void* k,
+                                const void* v, const void* ks, const void* vs,
+                                const void* k_new, const void* v_new, const void* ks_new,
+                                const void* vs_new, const void* pos, void* part_m,
+                                void* part_l, void* part_acc, void* out, int B, int KV, int S,
+                                int T, int G, int nsplit, int R, float scale, float softcap,
+                                int win, void* stream) {
+    decode_core::Params p;
+    p.q = q; p.k = k; p.v = v;
+    p.ks = (const float*)ks; p.vs = (const float*)vs;
+    p.k_new = k_new; p.v_new = v_new;
+    p.ks_new = (const float*)ks_new; p.vs_new = (const float*)vs_new;
+    p.pos = (const int*)pos;
+    p.part_m = (float*)part_m; p.part_l = (float*)part_l; p.part_acc = (float*)part_acc;
+    p.out = out;
+    p.B = B; p.KV = KV; p.T = T; p.G = G; p.nsplit = nsplit;
+    p.scale = scale; p.softcap = softcap; p.win = win;
+    decode_core::DenseAddr addr{S};
+    return decode_core::dispatch(p, addr, qtype, quant, R, (cudaStream_t)stream);
 }

@@ -1,15 +1,21 @@
-"""Decode attention (T <= 8 new tokens) over one layer of the KV cache.
+"""Decode attention (T <= 8 new tokens) over one layer of the dense KV cache.
 
-Counterpart of crabml_tpu/ops/pallas/decode_attention.py::
-decode_attention_fused, whose kernel `_kernel_fused` becomes
-csrc/decode_attention.cu (see its note for the bound and design). The port
-writes the step's k/v into the cache in place before calling this, so the
-kernel attends over pos[b] + T keys with a per-row causal bound, which gives
-the TPU kernel's numbers without its separate new-token block.
+Counterpart of crabml_tpu/ops/pallas/decode_attention.py::decode_attention
+(kernel `_kernel`: the cache already holds the step's tokens) and
+::decode_attention_fused (kernel `_kernel_fused`: the step's k/v arrive as a
+separate block and the caller writes them into the cache afterwards). Both
+become csrc/decode_attention.cu, the dense instantiation of
+csrc/decode_core.cuh (see its note for the bound and design). The paged forms
+are in paged_decode_attention.py and share the launcher below.
 
-Cache dtypes bfloat16 and float32 ride the kernel. Softcap and the sliding
-window live in the plain version and raise on the card; an int8 cache is not
-ported (the port's KVCache is bfloat16 or float32).
+The cache is bfloat16 or float32 like q, or int8 with one float32 scale per
+(token, kv head) in k_scale / v_scale (B, KV, S, 1). `softcap` caps the
+scores as cap*tanh(s/cap) before masking; `local_window` > 0 lets a token see
+only the last `local_window` keys up to itself, and keys before the window
+are never read.
+
+On a CPU tensor each wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,16 +25,15 @@ import ctypes
 import torch
 
 from . import _build
-# With the step's tokens already in the cache, decode attention is the same
-# function as prefill attention: row t of sequence b sees keys j <= pos[b] + t.
-from .flash_attention import flash_attention_plain as decode_attention_plain  # noqa: E402
+from .flash_attention import flash_attention_plain
 
-MAX_T = 8  # widest q this path takes per step (decode, speculative verify)
+MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
 HEAD_DIM = 128
 _SPLIT_BLOCKS = 264  # aim for two blocks per SM on the H100's 132 SMs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _row_tile(tg: int) -> int | None:
@@ -38,44 +43,148 @@ def _row_tile(tg: int) -> int | None:
     return None
 
 
-def decode_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0,
-                     window: int = 0) -> torch.Tensor:
-    """Kernel wrapper; plain version for CPU tensors. Softcap and the
-    sliding window are not in the kernel yet and raise on the card."""
-    if not q.is_cuda:
-        return decode_attention_plain(q, k_cache, v_cache, pos, scale, softcap, window)
-    _build.require(not softcap and not window,
-                   "decode_attention: softcap and sliding window are not ported to the kernel")
+def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
+    """Whether the decode kernels take a step of T new tokens: at most MAX_T
+    tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
+    128. Callers send every other attention to the flash kernel."""
+    return T <= MAX_T and H % KV == 0 and hd == HEAD_DIM and _row_tile(T * (H // KV)) is not None
+
+
+def dequantize_kv(a: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """int8 payload (..., S, hd) times its scales (..., S, 1) in float32; a
+    float cache passes through."""
+    return a.float() if scale is None else a.float() * scale.reshape(*a.shape[:-1], 1)
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos, scale: float, k_scale=None, v_scale=None,
+                           softcap: float = 0.0, local_window=None, k_new=None, v_new=None,
+                           ks_new=None, vs_new=None) -> torch.Tensor:
+    """Plain version of every dense form. q (B, T, H, hd); cache (B, KV, S,
+    hd); pos (B,) keys that precede the step. Without k_new the cache holds
+    the step's keys at pos[b]..pos[b]+T-1; with k_new, v_new (B, KV, T, hd)
+    they are spliced in there first. Float32 math, output in q's dtype."""
+    k = dequantize_kv(k_cache, k_scale)
+    v = dequantize_kv(v_cache, v_scale)
+    pos = pos.to(q.device)
+    if k_new is not None:
+        B, T = q.shape[:2]
+        pad = k.new_zeros(B, k.shape[1], T, k.shape[3])
+        k, v = torch.cat([k, pad], dim=2), torch.cat([v, pad], dim=2)
+        at = pos.long()[:, None] + torch.arange(T, device=q.device)[None]  # (B, T)
+        rows = torch.arange(B, device=q.device)[:, None]
+        k[rows, :, at] = dequantize_kv(k_new, ks_new).transpose(1, 2)
+        v[rows, :, at] = dequantize_kv(v_new, vs_new).transpose(1, 2)
+    return flash_attention_plain(q, k, v, pos, scale, softcap, int(local_window or 0))
+
+
+def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_scale, news,
+           softcap: float, win: int, table=None, span: int) -> torch.Tensor:
+    """Check the inputs, launch `entry` of csrc/<entry>.cu and count it under
+    `count`. k, v: one layer, (B, KV, S, hd) dense or (n_pages, KV, 128, hd)
+    with `table`; news = (k_new, v_new, ks_new, vs_new) or None; `span` the
+    most keys a sequence can hold (sizes the key split)."""
     B, T, H, hd = q.shape
-    KV, S = k_cache.shape[1], k_cache.shape[2]
+    KV = k.shape[1]
     G = H // KV
+    _build.require(decode_eligible(T, H, KV, hd),
+                   f"{count}: T={T} H={H} KV={KV} head_dim={hd} (need T<={MAX_T}, T*G<=16, "
+                   f"head_dim {HEAD_DIM})")
     R = _row_tile(T * G)
-    _build.require(T <= MAX_T and H % KV == 0 and R is not None,
-                   f"decode_attention: T={T} H={H} KV={KV} (need T<={MAX_T}, T*G<=16)")
-    _build.require(hd == HEAD_DIM, f"decode_attention: head_dim {hd} (kernel takes {HEAD_DIM})")
-    _build.require(q.dtype in (torch.bfloat16, torch.float32)
-                   and k_cache.dtype == v_cache.dtype == q.dtype,
-                   f"decode_attention: q {q.dtype}, cache {k_cache.dtype} "
-                   "(bf16 or f32, one dtype)")
-    _build.require(k_cache.shape == v_cache.shape == (B, KV, S, hd),
-                   f"decode_attention: cache {tuple(k_cache.shape)} for q {tuple(q.shape)}")
-    for t in (k_cache, v_cache):
+    quant = k.dtype == torch.int8
+    _build.require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == v.dtype
+                   and (quant or k.dtype == q.dtype),
+                   f"{count}: q {q.dtype}, cache {k.dtype}/{v.dtype} "
+                   "(q bf16 or f32; cache in q's dtype or int8)")
+    _build.require(quant == (k_scale is not None) == (v_scale is not None),
+                   f"{count}: an int8 cache needs k_scale and v_scale, a float cache none")
+    _build.require(k.shape == v.shape and k.shape[3] == hd,
+                   f"{count}: cache {tuple(k.shape)} / {tuple(v.shape)} for q {tuple(q.shape)}")
+    tensors = [k, v]
+    if quant:
+        for s in (k_scale, v_scale):
+            _build.require(s.dtype == torch.float32 and s.numel() == k.numel() // hd,
+                           f"{count}: scales must be float32, one per cached row")
+        tensors += [k_scale, v_scale]
+    ptr_new = [None] * 4
+    if news is not None:
+        k_new, v_new, ks_new, vs_new = news
+        _build.require(k_new.shape == v_new.shape == (B, KV, T, hd)
+                       and k_new.dtype == v_new.dtype == k.dtype,
+                       f"{count}: new block {tuple(k_new.shape)} {k_new.dtype} "
+                       f"(need {(B, KV, T, hd)} {k.dtype})")
+        new_t = [k_new, v_new]
+        if quant:
+            _build.require(ks_new is not None and vs_new is not None
+                           and ks_new.dtype == vs_new.dtype == torch.float32
+                           and ks_new.numel() == vs_new.numel() == B * KV * T,
+                           f"{count}: an int8 new block needs float32 ks_new, vs_new (B, KV, T, 1)")
+            new_t += [ks_new, vs_new]
+        new_t = [t.contiguous() for t in new_t]
+        tensors += new_t
+        ptr_new[: len(new_t)] = [t.data_ptr() for t in new_t]
+    if table is not None:
+        _build.require(table.dtype == torch.int32 and table.dim() == 2 and table.shape[0] == B,
+                       f"{count}: table must be int32 (B, max_pages)")
+        tensors.append(table)
+    for t in tensors:
         _build.require(t.is_contiguous() and t.device == q.device,
-                       "decode_attention: cache must be contiguous on q's device")
+                       f"{count}: cache, scales and table must be contiguous on q's device")
     q = q.contiguous()
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    nsplit = max(1, min(-(-_SPLIT_BLOCKS // (B * KV)), S // 32))
+    nsplit = max(1, min(-(-_SPLIT_BLOCKS // (B * KV)), span // 32))
     dev = q.device
     part_m = torch.empty(B, KV, nsplit, R, dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(B, KV, nsplit, R, hd, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
-    lib, fn = _build.entry("decode_attention", "decode_attention", _I, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
-    _build.launches["decode_attention"] += 1
-    err = fn(0 if q.dtype == torch.bfloat16 else 1, q.data_ptr(), k_cache.data_ptr(),
-             v_cache.data_ptr(), pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), B, KV, S, T, G, nsplit, R, float(scale),
-             _build.stream_ptr(q))
-    _build.check(lib, err, "decode_attention")
+    argtypes = [_I, _I] + [_P] * 9 + ([_P] if table is not None else []) + [_P] * 5 \
+        + [_I] * 7 + [_F, _F, _I, _P]
+    lib, fn = _build.entry(entry, entry, *argtypes)
+    args = [0 if q.dtype == torch.bfloat16 else 1, int(quant), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, *ptr_new]
+    if table is not None:
+        args.append(table.data_ptr())
+    args += [pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+             out.data_ptr(), B, KV, table.shape[1] if table is not None else k.shape[2],
+             T, G, nsplit, R, float(scale), float(softcap), int(win), _build.stream_ptr(q)]
+    _build.launches[count] += 1
+    err = fn(*args)
+    _build.check(lib, err, count)
     return out.reshape(B, T, H * hd)
+
+
+def decode_attention(q, k_cache, v_cache, pos, scale: float, k_scale=None, v_scale=None,
+                     softcap: float = 0.0, local_window=None) -> torch.Tensor:
+    """q (B, T, H, hd); k_cache, v_cache one layer (B, KV, S, hd) that already
+    holds the step's tokens at pos[b]..pos[b]+T-1; pos (B,) -> (B, T, H*hd).
+    Row t of sequence b sees keys j <= pos[b] + t."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, pos, scale, k_scale, v_scale,
+                                      softcap, local_window)
+    _build.require(k_cache.dim() == 4 and k_cache.shape[0] == q.shape[0],
+                   f"decode_attention: cache {tuple(k_cache.shape)} for q {tuple(q.shape)}")
+    return launch("decode_attention", "decode_attention", q, k_cache, v_cache, pos, scale,
+                  k_scale=k_scale, v_scale=v_scale, news=None, softcap=softcap,
+                  win=int(local_window or 0), span=k_cache.shape[2])
+
+
+def decode_attention_fused(q, k_cache, v_cache, layer: int, pos, scale: float, k_new, v_new,
+                           k_scale=None, v_scale=None, ks_new=None, vs_new=None,
+                           softcap: float = 0.0, local_window=None) -> torch.Tensor:
+    """q (B, T, H, hd); k_cache, v_cache the stacked cache (L, B, KV, S, hd)
+    holding pos[b] keys of layer `layer`; k_new, v_new (B, KV, T, hd) the
+    step's tokens in the cache's dtype (with ks_new, vs_new (B, KV, T, 1) for
+    int8), attended from their own block: the caller writes them into the
+    cache afterwards. -> (B, T, H*hd)."""
+    k_l, v_l = k_cache[layer], v_cache[layer]
+    ks_l = None if k_scale is None else k_scale[layer]
+    vs_l = None if v_scale is None else v_scale[layer]
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_l, v_l, pos, scale, ks_l, vs_l, softcap,
+                                      local_window, k_new, v_new, ks_new, vs_new)
+    _build.require(k_l.dim() == 4 and k_l.shape[0] == q.shape[0],
+                   f"decode_attention_fused: cache {tuple(k_cache.shape)} for q {tuple(q.shape)}")
+    return launch("decode_attention", "decode_attention_fused", q, k_l, v_l, pos, scale,
+                  k_scale=ks_l, v_scale=vs_l, news=(k_new, v_new, ks_new, vs_new),
+                  softcap=softcap, win=int(local_window or 0), span=k_l.shape[2])

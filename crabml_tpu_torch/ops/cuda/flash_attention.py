@@ -48,7 +48,7 @@ def flash_attention_plain(q, k_cache, v_cache, pos, scale: float, softcap: float
     s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s) * live[:, None, None]
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # a row that sees no key gives 0
     out = torch.einsum("bkgts,bksh->btkgh", p, v_cache.float())
     return out.reshape(B, T, H * hd).to(q.dtype)
 

@@ -8,6 +8,7 @@ import torch
 
 from crabml_tpu.ops.pallas.decode_attention import decode_attention_fused
 from crabml_tpu.ops.pallas.flash_attention import flash_attention as jflash
+from crabml_tpu_torch.models.forward import KVCache
 from crabml_tpu_torch.ops.cuda.decode_attention import decode_attention
 from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention
 
@@ -90,4 +91,95 @@ def test_attention_semantics_match_jax(softcap, window):
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(pos),
             scale, softcap, window)
     np.testing.assert_allclose(flash_attention(*args).numpy(), want, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(decode_attention(*args).numpy(), want, rtol=2e-5, atol=2e-5)
+    got = decode_attention(*args[:5], softcap=softcap, local_window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def _np_q8(a):
+    s = np.maximum(np.abs(a).max(-1, keepdims=True) / np.float32(127.0), np.float32(1e-12))
+    return np.clip(np.rint(a / s), -127, 127).astype(np.int8), s.astype(np.float32)
+
+
+def _dense_case(seed: int, quant: bool, T: int):
+    """A stacked dense cache (L, B, KV, S, hd), q and the step's new block."""
+    L, B, KV, G, S, hd = 2, 3, 2, 2, 384, 128
+    rng = np.random.default_rng(seed)
+    c = {n: rng.standard_normal(shape).astype(np.float32) for n, shape in (
+        ("k", (L, B, KV, S, hd)), ("v", (L, B, KV, S, hd)), ("q", (B, T, KV * G, hd)),
+        ("kn", (B, KV, T, hd)), ("vn", (B, KV, T, hd)))}
+    c.update(ks=None, vs=None, ksn=None, vsn=None)
+    if quant:
+        for n in ("k", "v", "kn", "vn"):
+            c[n], c[n + "s" if len(n) == 1 else n[0] + "sn"] = _np_q8(c[n])
+    return c
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.tensor(a)
+
+
+DECODE_CASES = [(quant, T, softcap, window)
+                for quant in (False, True) for T in (1, 4)
+                for softcap, window in ((0.0, 0), (30.0, 100))]
+DECODE_IDS = [f"{'int8' if qn else 'f32'}-T{T}-cap{int(c)}-win{w}"
+              for qn, T, c, w in DECODE_CASES]
+
+
+@pytest.mark.parametrize("quant,T,softcap,window", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_attention_fused_forms_match_pallas(quant, T, softcap, window):
+    """decode_attention_fused with an int8 cache, the softcap and the sliding
+    window, T in {1, 4}: prefixes 0 (only the new block), a chunk boundary
+    and a ragged one. Tolerance 2e-5 absolute (float32, another order of
+    sums)."""
+    from crabml_tpu_torch.ops.cuda.decode_attention import decode_attention_fused as fused
+
+    c = _dense_case(20 + T, quant, T)
+    pos = np.asarray([0, 128, 300], np.int32)
+    scale, layer = 1.0 / np.sqrt(128), 1
+    want = np.asarray(decode_attention_fused(
+        _j(c["q"]), _j(c["k"]), _j(c["v"]), jnp.int32(layer), _j(pos), scale,
+        k_new=_j(c["kn"]), v_new=_j(c["vn"]), k_scale=_j(c["ks"]), v_scale=_j(c["vs"]),
+        ks_new=_j(c["ksn"]), vs_new=_j(c["vsn"]), softcap=softcap,
+        local_window=jnp.int32(window) if window else None))
+    cache = KVCache.from_numpy(c["k"], c["v"], c["ks"], c["vs"])  # the JAX cache's arrays
+    assert cache.quantized == quant and cache.seq_len == 384
+    got = fused(_t(c["q"]), cache.k, cache.v, layer, _t(pos), scale, _t(c["kn"]),
+                _t(c["vn"]), cache.k_scale, cache.v_scale, _t(c["ksn"]), _t(c["vsn"]),
+                softcap=softcap, local_window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("quant,T,softcap,window", DECODE_CASES, ids=DECODE_IDS)
+def test_decode_attention_forms_match_pallas(quant, T, softcap, window):
+    """decode_attention (the cache already holds the step's tokens) with an
+    int8 cache, the softcap and the sliding window, T in {1, 4}. Tolerance
+    2e-5 absolute, as above."""
+    from crabml_tpu.ops.pallas.decode_attention import decode_attention as jdecode
+
+    c = _dense_case(30 + T, quant, T)
+    pos = np.asarray([0, 128 - T, 300], np.int32)
+    scale, layer = 1.0 / np.sqrt(128), 0
+    sl = {n: None if c[n] is None else c[n][layer] for n in ("k", "v", "ks", "vs")}
+    want = np.asarray(jdecode(
+        _j(c["q"]), _j(sl["k"]), _j(sl["v"]), _j(pos), scale, k_scale=_j(sl["ks"]),
+        v_scale=_j(sl["vs"]), softcap=softcap,
+        local_window=jnp.int32(window) if window else None))
+    got = decode_attention(_t(c["q"]), _t(sl["k"]), _t(sl["v"]), _t(pos), scale, _t(sl["ks"]),
+                           _t(sl["vs"]), softcap=softcap, local_window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+def test_decode_kernels_take_at_most_sixteen_query_rows():
+    """The decode kernels hold T * (q heads per kv head) <= 16 rows; callers
+    route every other step to the flash kernel. At 4 q heads per kv head (the
+    7B shape) a chunk of 5 to 8 tokens is not eligible."""
+    from crabml_tpu_torch.ops.cuda.decode_attention import decode_eligible
+
+    assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 128)] == [1, 2, 3, 4]
+    assert [T for T in range(1, 10) if decode_eligible(T, 8, 8, 128)] == list(range(1, 9))
+    assert not decode_eligible(1, 32, 8, 64) and not decode_eligible(1, 32, 8, 256)
+    assert not decode_eligible(1, 24, 1, 128)  # 24 rows

@@ -13,8 +13,13 @@ import torch
 from crabml_tpu_torch.errors import UnsupportedError
 from crabml_tpu_torch.gguf.constants import GGMLType
 from crabml_tpu_torch.ops.cuda import _build, gemm_quant
-from crabml_tpu_torch.ops.cuda.decode_attention import decode_attention
+from crabml_tpu_torch.models.forward import q8_vec
+from crabml_tpu_torch.ops.cuda.decode_attention import (decode_attention, decode_attention_fused,
+                                                        decode_attention_plain)
 from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
+                                                              paged_decode_attention_fused,
+                                                              paged_decode_attention_plain)
 from crabml_tpu_torch.quant.qtensor import QTensor, to_kernel_layout, to_planar
 from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
 
@@ -123,7 +128,7 @@ def test_decode_attention_matches_plain(cuda, dtype, T, G):
     v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
     pos = torch.tensor([37, 128], dtype=torch.int32, device=cuda)
     got = decode_attention(q, k, v, pos, 1 / math.sqrt(hd))
-    want = flash_attention_plain(q, k, v, pos, 1 / math.sqrt(hd))
+    want = decode_attention_plain(q, k, v, pos, 1 / math.sqrt(hd))
     torch.cuda.synchronize()
     assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
 
@@ -143,6 +148,118 @@ def test_flash_attention_matches_plain(cuda, dtype, T, G, hd):
     assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
 
 
+def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, window=0,
+                 pos=(0, 1, 127, 128, 300, 1000)):
+    """One decode-attention form against its plain version on the card, at
+    ragged prefixes. form: dense | dense_fused | paged | paged_fused; kv: bf16
+    | f32 | int8 (q bf16). Returns (kernel out, plain out, count name)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qdt = torch.float32 if kv == "f32" else torch.bfloat16
+    B, KV, hd, n_slot_pages = len(pos), 2, 128, 9
+    S = n_slot_pages * PAGE
+    fused, paged = form.endswith("fused"), form.startswith("paged")
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q = rand(B, T, KV * G, hd).to(qdt)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n_rows = 64 * PAGE if paged else B * S  # pool of 64 pages, or the dense cache
+    k, v = rand(n_rows // PAGE, KV, PAGE, hd), rand(n_rows // PAGE, KV, PAGE, hd)
+    kn, vn = rand(B, KV, T, hd), rand(B, KV, T, hd)
+    ks = vs = ksn = vsn = None
+    if kv == "int8":
+        (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
+    else:
+        k, v, kn, vn = (a.to(qdt) for a in (k, v, kn, vn))
+    kw = dict(softcap=softcap, local_window=window)
+    if paged:
+        perm = torch.randperm(63, generator=torch.Generator().manual_seed(seed))[: B * n_slot_pages]
+        table = (perm + 1).reshape(B, n_slot_pages).to(dev, torch.int32)
+        for b, p in enumerate(pos):  # unused entries are 0, the scratch page
+            table[b, -(-(p + T) // PAGE):] = 0
+        if fused:
+            got = paged_decode_attention_fused(q, k[None], v[None], table, 0, posv, 0.09, kn, vn,
+                                               None if ks is None else ks[None],
+                                               None if vs is None else vs[None], ksn, vsn, **kw)
+            want = paged_decode_attention_plain(q, k, v, table, posv, 0.09, ks, vs, softcap,
+                                                window, kn, vn, ksn, vsn)
+            return got, want, "paged_decode_attention_fused"
+        # the pool holds the step's tokens: write them through the table first
+        at = posv.long()[:, None] + torch.arange(T, device=dev)[None]
+        pg = table.long().gather(1, at // PAGE)
+        for pool, new in ((k, kn), (v, vn), (ks, ksn), (vs, vsn)):
+            if pool is not None:
+                pool[pg, :, at % PAGE] = new.transpose(1, 2)
+        got = paged_decode_attention(q, k, v, table, posv + T, 0.09, ks, vs, **kw)
+        want = paged_decode_attention_plain(q, k, v, table, posv, 0.09, ks, vs, softcap, window)
+        return got, want, "paged_decode_attention"
+    dense = [None if a is None else a.reshape(B, S // PAGE, KV, PAGE, -1).transpose(1, 2)
+             .reshape(B, KV, S, -1).contiguous() for a in (k, v, ks, vs)]
+    k, v, ks, vs = dense
+    if fused:
+        got = decode_attention_fused(q, k[None], v[None], 0, posv, 0.09, kn, vn,
+                                     None if ks is None else ks[None],
+                                     None if vs is None else vs[None], ksn, vsn, **kw)
+        want = decode_attention_plain(q, k, v, posv, 0.09, ks, vs, softcap, window,
+                                      kn, vn, ksn, vsn)
+        return got, want, "decode_attention_fused"
+    at = posv.long()[:, None] + torch.arange(T, device=dev)[None]
+    rows = torch.arange(B, device=dev)[:, None]
+    for cache, new in ((k, kn), (v, vn), (ks, ksn), (vs, vsn)):
+        if cache is not None:
+            cache[rows, :, at] = new.transpose(1, 2)
+    got = decode_attention(q, k, v, posv, 0.09, ks, vs, **kw)
+    want = decode_attention_plain(q, k, v, posv, 0.09, ks, vs, softcap, window)
+    return got, want, "decode_attention"
+
+
+_FORMS = ["dense", "dense_fused", "paged", "paged_fused"]
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 0), (0.0, 100), (30.0, 70)])
+@pytest.mark.parametrize("T,G", [(1, 4), (4, 4), (8, 1)])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_match_plain(cuda, form, kv, T, G, softcap, window):
+    """Every form of the decode kernel (dense / paged, the step's keys in the
+    cache or in their own block), every stored type, softcap and window, at
+    prefixes 0, 1, a page boundary and ~1,000 and a shuffled table. Tolerance
+    as above: 2^-7 of max|out| for a bfloat16 output (one rounding), 1e-4 for
+    float32 (fast exp, another order of sums). The int8 payload dequantizes
+    exactly on both sides."""
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, G, seed=T * 10 + G, softcap=softcap,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if kv == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_agree_over_seeds(cuda, form):
+    """20 seeds of the int8 form with T = 4 and a window of 200."""
+    for seed in range(20):
+        got, want, _ = _decode_case(form, "int8", 4, 4, seed, window=200,
+                                    pos=(0, 5, 255, 256, 777, 1100))
+        assert _rel(got, want) <= 2.0 ** -7, f"seed {seed}"
+
+
+def test_paged_length_zero_rows_give_zero(cuda):
+    """A sequence of length 0 (an idle slot) reads no page and writes 0."""
+    q = torch.randn(2, 1, 8, 128, device=cuda).to(torch.bfloat16)
+    pool = torch.full((4, 2, PAGE, 128), float("nan"), device=cuda, dtype=torch.bfloat16)
+    pool[1] = 1.0
+    table = torch.tensor([[0, 0], [1, 0]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    out = paged_decode_attention(q, pool, pool, table, lengths, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out[1].float(), torch.ones_like(out[1]).float())
+
+
 def test_wrappers_raise_rather_than_fall_back(cuda):
     qt = _weight(256, 256, 1)
     with pytest.raises(UnsupportedError):
@@ -155,10 +272,18 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(UnsupportedError):
         decode_attention(q, kv, kv, pos, 0.125)  # head dim 64
     q, kv = torch.zeros(1, 1, 4, 128, device=cuda), torch.zeros(1, 2, 128, 128, device=cuda)
-    for attend in (decode_attention, flash_attention):
-        with pytest.raises(UnsupportedError):
-            attend(q, kv, kv, pos, 0.125, softcap=30.0)
-        with pytest.raises(UnsupportedError):
-            attend(q, kv, kv, pos, 0.125, window=64)
-        with pytest.raises(UnsupportedError):
-            attend(q.to(torch.int8), kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)
+    with pytest.raises(UnsupportedError):
+        flash_attention(q, kv, kv, pos, 0.125, softcap=30.0)
+    with pytest.raises(UnsupportedError):
+        flash_attention(q, kv, kv, pos, 0.125, window=64)
+    with pytest.raises(UnsupportedError):
+        decode_attention(q, kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)  # no scales
+    with pytest.raises(UnsupportedError):
+        decode_attention(q, kv.to(torch.bfloat16), kv.to(torch.bfloat16), pos, 0.125)  # mixed
+    with pytest.raises(UnsupportedError):
+        decode_attention(q.to(torch.int8), kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)
+    table = torch.zeros(1, 1, dtype=torch.int64, device=cuda)
+    with pytest.raises(UnsupportedError):
+        paged_decode_attention(q, kv, kv, table, pos + 1, 0.125)  # int64 table
+    with pytest.raises(UnsupportedError):  # pages of 64 rows
+        paged_decode_attention(q, kv[:, :, :64], kv[:, :, :64], table.int(), pos + 1, 0.125)
