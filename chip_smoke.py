@@ -11,8 +11,11 @@ fails:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 7B main path and of 8-slot serving (every form of the
    decode-attention kernel: dense and paged, bfloat16 and int8, softcap,
-   window, the step's keys in the cache or in their own block), with the
-   tolerance printed;
+   window, the step's keys in the cache or in their own block) and of the
+   Mixtral path (the W8 matmul at a 512-row chunk; the grouped Q4_K and W8
+   matmuls on 1,024 (row, slot) pairs over 8 experts, one of them empty and
+   the segments ragged; the int8-activation matmul with a plane per row),
+   with the tolerance printed;
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -36,9 +39,18 @@ fails:
    that the whole run stays well inside its time limit): `ServingEngine(
    n_slots=8, kv_dtype=int8)` and `PagedServingEngine(..., int8 pool)` on 8
    requests each, twice each: done and deterministic.
-Each of the paths 5, 6 and 7 is driven with the kernels' launch counters set
-to 0 just before it and read just after it; a kernel of a path that was never
-launched there fails the run.
+8. MoE forward and MoE paged tick: phases 3 and 4 at the Mixtral-8x7B widths
+   (8 experts, 2 per token) cut to 2 layers, with the W8 planes on the card.
+9. MoE: a synthetic Mixtral-8x7B Q4_K GGUF cut to 8 of 32 layers, context
+   4096; `Runner(path)`, whose default must attach every W8 plane; the
+   ~700-token prompt and 128 greedy tokens, twice, identical; the same file
+   with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
+   16 requests through an 8-slot `PagedServingEngine`, twice, identical.
+The 7B main path's prefill also runs both ways (phase 5), since the Runner's
+default now attaches the W8 planes there too.
+Each of the paths 5, 6, 7 and 9 is driven with the kernels' launch counters
+set to 0 just before it and read just after it; a kernel of a path that was
+never launched there fails the run.
 
 The last three lines are `gpu: <name>, <power limit>` as nvidia-smi reports
 them, the `kernels` JSON object, and {"ok": true, "device": {...}}. Without a
@@ -95,6 +107,12 @@ KERNEL_SOURCES = {
                                "serving"),
     "paged_decode_attention_fused": ("crabml_tpu_torch/csrc/paged_decode_attention.cu",
                                      f"{_DA}:316", "serving"),
+    "qmm_w8": ("crabml_tpu_torch/csrc/qmm_w8.cu", "crabml_tpu/ops/pallas/gemm_quant.py:540",
+               "main"),
+    "qmm_q4k_grouped": ("crabml_tpu_torch/csrc/qmm_q4k.cu",
+                        "crabml_tpu/ops/pallas/gemm_quant.py:836", "moe_q4k"),
+    "qmm_w8_grouped": ("crabml_tpu_torch/csrc/qmm_w8.cu",
+                       "crabml_tpu/ops/pallas/gemm_quant.py:870", "moe"),
 }
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
@@ -104,6 +122,10 @@ SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 UNIQUE_LENGTHS = (64, 100, 150, 230, 320, 450, 600, 700)
 SHARED_TAILS = (30, 1, 4, 8, 60, 100, 200, 444)
 DENSE_LAYERS = 8
+MOE_LAYERS = 8  # of Mixtral-8x7B's 32: with the W8 planes the full depth does not fit beside the pools
+# the MoE paged tick's contexts: short, because the CPU reference dequantizes
+# every expert a prefill uses to float32 (one prompt of 40 tokens uses them all)
+MOE_TICK_LENGTHS = (1, 2, 3, 4, 5, 6, 8, 40)
 PROFILE_PROMPTS = (100, 200, 300, 400, 500, 600, 700, 800)  # the profiled ticks' contexts
 
 
@@ -210,29 +232,166 @@ def check_matmul(timer, name: str, rows: int, m: int, k: int, seed: int) -> dict
         op_type = "int8"
     # the main path's form: bfloat16 out, the float32 sums rounded once
     kernel = lambda: wrapper(x, qt, torch.bfloat16)  # noqa: E731
-    got32, want, got = wrapper(x, qt), plain(), kernel()
+    w_bf16 = dequantize(qt, torch.bfloat16)
+    return _matmul_record(
+        timer, name, f"{rows}x{k} @ ({m}x{k})^T", kernel, plain,
+        lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)", wrapper(x, qt), plain(),
+        kernel(), tol, why,
+        x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2,
+        2.0 * rows * m * k, op_type)
+
+
+def _plane_bytes(qt, names, planes=None) -> int:
+    """Bytes of the named planes of `qt`; of a stack, only the experts in `planes`."""
+    total = 0
+    for n in names:
+        t = qt.planes[n]
+        total += t[0].numel() * t.element_size() * len(planes) if planes is not None \
+            else t.numel() * t.element_size()
+    return total
+
+
+def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, want, got_bf16,
+                   tol, why, nbytes, ops, op_type) -> dict:
+    """Compare, time and report one matmul check (the shared tail of the
+    checks below)."""
+    import torch
+
     torch.cuda.synchronize()
     err = (got32 - want).abs().max().item()
     ref = want.abs().max().item()
-    rounded_once = torch.equal(got, got32.to(torch.bfloat16))
+    rounded_once = torch.equal(got_bf16, got32.to(torch.bfloat16))
     ok = math.isfinite(err) and err <= tol * ref and rounded_once
-    w_bf16 = dequantize(qt, torch.bfloat16)
-    library = lambda: torch.matmul(x, w_bf16.t())  # noqa: E731
-    nbytes = x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2
-    b_ms, b_by = bound_ms(nbytes, 2.0 * rows * m * k, op_type)
+    b_ms, b_by = bound_ms(nbytes, ops, op_type)
     rec = {
-        "shape": f"{rows}x{k} @ ({m}x{k})^T", "max_abs_err": err, "max_abs_ref": ref,
+        "shape": shape, "max_abs_err": err, "max_abs_ref": ref,
         "tolerance": f"float32 out: max_abs_err <= {tol} * max|ref| ({why}); "
                      "bfloat16 out (timed): equal to the float32 out rounded once",
         "bf16_out_rounded_once": rounded_once, "ok": ok,
         "ms": timer(kernel), "plain_ms": timer(plain), "library_ms": timer(library),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    say(f"{name} {shape}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, {rec['tolerance']}) "
+        f"{'ok' if ok else 'FAILED'}; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"{lib_name} {rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rec
+
+
+def check_w8(timer, rows: int, m: int, k: int, seed: int) -> dict:
+    """qmm_w8 at a 512-row prefill chunk of the 7B and Mixtral widths."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import dequantize
+
+    qt = gemm_quant.augment_w8(q4k_weight(m, k, seed, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    p = qt.planes
+    w_bf16 = dequantize(qt, torch.bfloat16)
+    return _matmul_record(
+        timer, "qmm_w8", f"{rows}x{k} @ ({m}x{k})^T",
+        lambda: gemm_quant.qmm_w8(x, qt, torch.bfloat16),
+        lambda: gemm_quant.qmm_w8_plain(x, p["w8"], p["dw"]),
+        lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)",
+        gemm_quant.qmm_w8(x, qt), gemm_quant.qmm_w8_plain(x, p["w8"], p["dw"]),
+        gemm_quant.qmm_w8(x, qt, torch.bfloat16),
+        # the same int8 planes and bf16 x, exact products: only the order of
+        # the float32 sums inside a 512-chunk differs
+        1e-4, "same int8 planes, float32 sums in another order",
+        x.numel() * 2 + _plane_bytes(qt, ("w8", "dw")) + rows * m * 2, 2.0 * rows * m * k, "bf16")
+
+
+# the Mixtral prefill shape: a 512-token chunk is 1,024 (row, slot) pairs over
+# 8 experts; a skewed routing with expert 0 empty and ragged segments
+MOE_EXPERTS, MOE_USED = 8, 2
+GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
+
+
+def q4k_stack(E: int, m: int, k: int, seed: int, w8: bool):
+    """A random stack (E, m, k) of Q4_K experts in kernel layout, bf16 scales."""
+    import numpy as np
+    import torch
+
+    from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.ops.cuda.gemm_quant import augment_w8
+    from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
+    from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
+
+    blocks = q4k_blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
+    qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (E, m, k), "cuda"), torch.bfloat16)
+    return augment_w8(qt) if w8 else qt
+
+
+def check_grouped(timer, name: str, m: int, k: int, seed: int) -> dict:
+    """qmm_q4k_grouped / qmm_w8_grouped on 1,024 sorted pairs. The bound
+    counts the planes of the experts that have rows, read once."""
+    import numpy as np
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import dequantize
+
+    w8 = name == "qmm_w8_grouped"
+    qt = q4k_stack(MOE_EXPERTS, m, k, seed, w8)
+    rows = sum(GROUPED_COUNTS)
+    cuts = np.concatenate([[0], np.cumsum(GROUPED_COUNTS)])
+    offsets = torch.tensor(cuts, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    p = qt.planes
+    wrapper = getattr(gemm_quant, name)
+    if w8:
+        plain = lambda: gemm_quant.qmm_w8_grouped_plain(xs, p["w8"], p["dw"], offsets)  # noqa: E731
+        names, why = ("w8", "dw"), "same int8 planes, float32 sums in another order"
+    else:
+        plain = lambda: gemm_quant.qmm_q4k_grouped_plain(  # noqa: E731
+            xs, p["qs"], p["dsub"], p["msub"], offsets)
+        names, why = ("qs", "dsub", "msub"), "float32 sums in another order"
+    w_bf16 = dequantize(qt, torch.bfloat16)
+    segs = [(e, int(lo), int(hi)) for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])) if hi > lo]
+
+    def library():  # a loop of torch.matmul over the experts' segments
+        return torch.cat([torch.matmul(xs[lo:hi], w_bf16[e].t()) for e, lo, hi in segs])
+
+    used = [e for e, _, _ in segs]
+    rec = _matmul_record(
+        timer, name, f"{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T",
+        lambda: wrapper(xs, qt, offsets, torch.bfloat16), plain, library,
+        "torch.matmul(bf16) per segment", wrapper(xs, qt, offsets), plain(),
+        wrapper(xs, qt, offsets, torch.bfloat16), 1e-4, why,
+        xs.numel() * 2 + _plane_bytes(qt, names, used) + rows * m * 2, 2.0 * rows * m * k, "bf16")
     del w_bf16
-    say(f"{name} {rec['shape']}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-        f"{rec['tolerance']}) {'ok' if ok else 'FAILED'}; {rec['ms']:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, torch.matmul(bf16) {rec['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    return rec
+
+
+def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int) -> dict:
+    """qmm_w4a8 with a plane per row (the MoE decode form): the bound counts
+    each distinct selected plane once."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import dequantize
+
+    qt = q4k_stack(MOE_EXPERTS, m, k, seed, False)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    plane = torch.randint(0, MOE_EXPERTS, (rows,), generator=g, device="cuda").to(torch.int32)
+    p = qt.planes
+    distinct = sorted(set(plane.tolist()))
+    w_rows = dequantize(qt, torch.bfloat16)[plane.long()].transpose(1, 2).contiguous()
+    plain = lambda: gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)  # noqa: E731
+    rec = _matmul_record(
+        timer, "qmm_w4a8", f"{rows}x{k} @ plane-per-row of ({MOE_EXPERTS}x{m}x{k})^T, "
+        f"{len(distinct)} distinct planes",
+        lambda: gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane), plain,
+        lambda: torch.bmm(x[:, None], w_rows), "torch.bmm(bf16, planes gathered beforehand)",
+        gemm_quant.qmm_w4a8(x, qt, plane=plane), plain(),
+        gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane),
+        1e-4, "same int8 activations, float32 group sums in another order",
+        x.numel() * 2 + _plane_bytes(qt, ("qs", "dsub", "msub"), distinct) + rows * m * 2,
+        2.0 * rows * m * k, "int8")
+    del w_rows
     return rec
 
 
@@ -466,6 +625,17 @@ def phase_kernels() -> dict[str, list[dict]]:
     for i, (form, kv, T, softcap, window) in enumerate(forms):
         name, rec = check_decode_form(timer, form, kv, T, 20 + i, softcap, window)
         checks.setdefault(name, []).append(rec)
+    # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
+    # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
+    checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, qkv_m, DIM, 40),
+                        check_w8(timer, PREFILL_CHUNK, DIM, FFN, 41)]
+    for name in ("qmm_q4k_grouped", "qmm_w8_grouped"):
+        checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
+                        check_grouped(timer, name, DIM, FFN, 43)]
+        torch.cuda.empty_cache()
+    checks["qmm_w4a8"] += [check_w4a8_planes(timer, 1, 2 * FFN, DIM, 44),
+                           check_w4a8_planes(timer, 8, 2 * FFN, DIM, 45),
+                           check_w4a8_planes(timer, 8, DIM, FFN, 46)]
     del timer
     torch.cuda.empty_cache()
     return checks
@@ -475,46 +645,65 @@ def phase_kernels() -> dict[str, list[dict]]:
 # phase 3: the whole forward at full width, 2 layers, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_forward(tmp: Path) -> dict:
+def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
+                  w8: bool = False, min_share: float = 1.0) -> dict:
+    """`model` cut to 2 layers: a prompt of `n_prompt` tokens and one decode
+    step, the card (kernels, bfloat16, with the W8 prefill planes when `w8`)
+    against the CPU (plain versions, float32, Q4_K planes only)."""
     import numpy as np
     import torch
 
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.models.config import config_from_gguf
     from crabml_tpu_torch.models.forward import KVCache, forward
-    from crabml_tpu_torch.models.weights import load_weights
+    from crabml_tpu_torch.models.weights import augment_w8_weights, load_weights
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / "synth-7b-2layers.gguf"), "7b", seed=11, layers=2)
+    path = build_synth_gguf(str(tmp / f"synth-{model}-2layers.gguf"), model, seed=seed, layers=2)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
-    tokens = np.random.default_rng(12).integers(3, cfg.vocab_size, (1, 17))
+    tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
     runs = {}
     for dev, dt in ((CARD, torch.bfloat16), ("cpu", torch.float32)):
         w = load_weights(gf, cfg, dev, dt)
-        cache = KVCache.create(cfg, 1, 64, dt, dev)
+        if w8 and dev == CARD:
+            w = augment_w8_weights(w)
+        cache = KVCache.create(cfg, 1, 512, dt, dev)
         outs = []
-        for toks, p in ((tokens[:, :16], 0), (tokens[:, 16:], 16)):
+        for toks, p in ((tokens[:, :n_prompt], 0), (tokens[:, n_prompt:], n_prompt)):
             logits = forward(w, cache, torch.from_numpy(toks).to(dev), torch.tensor([p]), cfg, dt)
             outs.append(logits.float().cpu())
         runs[dev] = outs
         del w, cache
     torch.cuda.empty_cache()
     # bfloat16 weights, activations and cache against float32 through two
-    # layers and the lm_head: each bf16 rounding adds ~2^-9 relative
+    # layers and the lm_head: each bf16 rounding adds ~2^-9 relative; the W8
+    # planes' requantization (max|w|/254 per 512-chunk) is smaller than that.
+    # A mixture of experts adds a discrete step: a token whose second and
+    # third router logits lie within a bfloat16 rounding of each other picks
+    # another expert on the card than in float32, and its logits then differ
+    # as between two models. So the error is taken token by token, and
+    # `min_share` of the tokens must meet the tolerance (all of them for a
+    # dense model).
     tol = 5e-2
-    rec = {"tolerance": f"max|card - cpu| <= {tol} * max|cpu| (bfloat16 against float32)"}
+    rec = {"tolerance": f"max|card - cpu| <= {tol} * max|cpu| for {min_share:.0%} of the tokens "
+                        "(bfloat16 against float32"
+                        + ("; W8 planes on the card only)" if w8 else ")")}
     ok = True
-    for i, what in enumerate(("prefill 16 tokens", "decode step")):
+    for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step")):
         card, cpu = runs[CARD][i], runs["cpu"][i]
         finite = bool(torch.isfinite(card).all())
-        rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+        per_token = (card - cpu).abs().amax(dim=-1).reshape(-1) / cpu.abs().max()
+        rel, median = per_token.max().item(), per_token.median().item()
+        share = (per_token <= tol).float().mean().item()
         top_agree = float((card[0, -1].argmax() == cpu[0, -1].argmax()).item())
-        rec[what] = {"rel_err": rel, "finite": finite, "last_argmax_agrees": top_agree}
-        good = finite and rel <= tol
+        rec[what] = {"rel_err": rel, "median_token_rel_err": median, "share_within": share,
+                     "finite": finite, "last_argmax_agrees": top_agree}
+        good = finite and share >= min_share
         ok &= good
-        say(f"forward 7b widths, 2 layers, {what}: rel err {rel:.3e} "
-            f"({rec['tolerance']}), finite {finite} {'ok' if good else 'FAILED'}")
+        say(f"forward {model} widths, 2 layers, {what}: rel err max {rel:.3e}, median token "
+            f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
+            f"{finite} {'ok' if good else 'FAILED'}")
     rec["ok"] = ok
     os.remove(path)
     return rec
@@ -525,17 +714,64 @@ def phase_forward(tmp: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 def _decode_bound(runner, pos: int) -> tuple[float, float]:
-    """Least ms per decode token: the port's weight planes, the embedding
-    row and the live KV cache read once, over 3.35 TB/s; and the same with
-    the GGUF's own Q4_K bytes (144 per 256 weights) for the matmuls."""
+    """Least ms per decode token: the port's Q4_K weight planes (decode reads
+    no W8 plane), the embedding row and the live KV cache read once, over
+    3.35 TB/s; and the same with the GGUF's own Q4_K bytes (144 per 256
+    weights) for the matmuls. Of a layer's experts a token reads the K it was
+    routed to: K/E of the stacks' bytes, and the whole router."""
     w = runner.weights
-    mats = [w["output"]] + [lw[n] for lw in w["layers"] for n in ("wqkv", "wo", "wgu", "ffn_down")]
-    port = sum(t.numel() * t.element_size() for q in mats for t in q.planes.values())
-    gguf = sum(q.m * q.k // 256 * 144 for q in mats)
     cfg = runner.cfg
+    share = {"wgu_exps": cfg.n_experts_used / max(cfg.n_experts, 1),
+             "ffn_down_exps": cfg.n_experts_used / max(cfg.n_experts, 1)}
+    mats = [(w["output"], 1.0)] + [
+        (lw[n], share.get(n, 1.0)) for lw in w["layers"]
+        for n in ("wqkv", "wo", "wgu", "ffn_down", "wgu_exps", "ffn_down_exps") if n in lw]
+    port = sum(f * _plane_bytes(q, ("qs", "dsub", "msub")) for q, f in mats)
+    port += sum(lw["ffn_gate_inp"].numel() * 2 for lw in w["layers"] if "ffn_gate_inp" in lw)
+    gguf = sum(f * math.prod(q.shape) // 256 * 144 for q, f in mats)
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * pos * cfg.head_dim * runner.cache.k.element_size()
     row = DIM // 256 * 144
     return ((port + kv + row) / HBM_BYTES_PER_S * 1e3, (gguf + kv + row) / HBM_BYTES_PER_S * 1e3)
+
+
+def _prefill_only(runner, prompt: str) -> float:
+    """Prefill tok/s of one warm run."""
+    import torch
+
+    runner.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.prefill(prompt)
+    torch.cuda.synchronize()
+    return len(runner.tokenizer.encode(prompt, bos=True)) / (time.perf_counter() - t0)
+
+
+def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
+    """The same file loaded once more with prefill_w8=False: its prefill
+    against the W8 runner's, in turns inside this one run (W8, Q4_K, Q4_K,
+    W8), and the kernels the Q4_K prefill launched."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+
+    plain = Runner(path, prefill_w8=False)
+    if plain.prefill_w8 or not runner.prefill_w8:
+        fail(f"{what}: prefill_w8 is {runner.prefill_w8} by default and {plain.prefill_w8} when off")
+    _prefill_only(plain, prompt)  # warm
+    _build.launches.clear()
+    rates = {"w8": [_prefill_only(runner, prompt)], "q4k": [_prefill_only(plain, prompt)]}
+    launches = {k: v for k, v in _build.launches.items() if k.startswith("qmm")}
+    _build.launches.clear()
+    rates["q4k"].append(_prefill_only(plain, prompt))
+    launches_q4k = {k: v for k, v in _build.launches.items()}
+    rates["w8"].append(_prefill_only(runner, prompt))
+    say(f"{what} prefill, W8 planes against Q4_K only (tok/s, in turns): W8 "
+        f"{rates['w8'][0]:.1f} and {rates['w8'][1]:.1f}, Q4_K {rates['q4k'][0]:.1f} and "
+        f"{rates['q4k'][1]:.1f}; matmul launches of one W8 and one Q4_K prefill {launches}")
+    del plain
+    torch.cuda.empty_cache()
+    return {"prefill_tok_s": rates, "launches": launches_q4k}
 
 
 def _one_run(runner, prompt: str, launches) -> dict:
@@ -625,6 +861,9 @@ def phase_main(tmp: Path):
     torch.cuda.reset_peak_memory_stats()
     runner = Runner(path)  # the defaults: cuda, bfloat16, the model's 4096-token context
     load_s = runner.metrics.times_ns["load"] / 1e9
+    w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
+    if not runner.prefill_w8:
+        fail("the 7B Runner's default left the W8 prefill planes off")
     prompt = PROMPT_SENTENCE * PROMPT_REPEATS
     n_prompt = len(runner.tokenizer.encode(prompt, bos=True))
     if not PREFILL_CHUNK < n_prompt <= 2 * PREFILL_CHUNK:
@@ -654,13 +893,16 @@ def phase_main(tmp: Path):
             fail(f"kernel {name} was never launched on the main path")
     bound_port, bound_gguf = _decode_bound(runner, n)
     chunks = math.ceil(n_prompt / PREFILL_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    w8_q4k = _prefill_w8_against_q4k(path, runner, prompt, "7B")
     rec = {
-        "load_s": load_s, "synth_s": synth_s, "prompt_tokens": n_prompt, "prefill_chunks": chunks,
+        "load_s": load_s, "load_w8_augment_s": w8_s, "synth_s": synth_s,
+        "prompt_tokens": n_prompt, "prefill_chunks": chunks, "prefill_w8_against_q4k": w8_q4k,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
                  for r in (first, second)],
         "tokens_identical": True, "first_tokens": first["tokens"][:16],
         "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": peak,
         "launches": launches, "decode_profile": profile,
         "launches_per_decode_token": {k: v / first["decoded_steps"]
                                       for k, v in first["launches_decode"].items()},
@@ -673,7 +915,7 @@ def phase_main(tmp: Path):
             f"decode {r['decoded_steps']} steps "
             f"{r['decode_tok_s']:.2f} tok/s = {r['decode_ms_per_token']:.3f} ms/token "
             f"(bound {bound_port:.3f} ms port layout, {bound_gguf:.3f} ms GGUF bytes)")
-    say(f"main path: load {load_s:.2f} s, max_memory_allocated "
+    say(f"main path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), max_memory_allocated "
         f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, 128 greedy tokens identical in both "
         f"runs, launches {launches}")
     return rec, runner, path
@@ -683,26 +925,31 @@ def phase_main(tmp: Path):
 # phase 4: one paged decode tick at full width, 2 layers, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_serving_forward(tmp: Path) -> dict:
+def phase_serving_forward(tmp: Path, model: str = "7b", seed: int = 13,
+                          lengths=(1, 17, 77, 128, 130, 200, 256, 300),  # ragged, two on a page boundary
+                          kvs=("compute", "int8"), w8: bool = False) -> dict:
+    """`model` cut to 2 layers: one paged decode tick over 8 slots prefilled
+    to `lengths`, the card against the CPU as in phase_forward."""
     import numpy as np
     import torch
 
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.models.config import config_from_gguf
-    from crabml_tpu_torch.models.weights import load_weights
+    from crabml_tpu_torch.models.weights import augment_w8_weights, load_weights
     from crabml_tpu_torch.ops.cuda.paged_decode_attention import PAGE
     from crabml_tpu_torch.serving.paged import (PagedKVCache, paged_decode_step,
                                                 paged_prefill_chunk)
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / "synth-7b-2layers-paged.gguf"), "7b", seed=13, layers=2)
+    path = build_synth_gguf(str(tmp / f"synth-{model}-2layers-paged.gguf"), model, seed=seed,
+                            layers=2)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
-    rng = np.random.default_rng(14)
-    lengths = [1, 17, 77, 128, 130, 200, 256, 300]  # ragged, two on a page boundary
+    rng = np.random.default_rng(seed + 1)
+    lengths = list(lengths)
     prompts = [rng.integers(3, cfg.vocab_size, n) for n in lengths]
     step_tokens = rng.integers(3, cfg.vocab_size, len(lengths))
-    pages = np.random.default_rng(15).permutation(np.arange(1, 64))  # scattered through the pool
+    pages = np.random.default_rng(seed + 2).permutation(np.arange(1, 64))  # scattered through the pool
     max_pages = 4
     table = np.zeros((len(lengths), max_pages), np.int32)
     for b, n in enumerate(lengths):
@@ -711,7 +958,9 @@ def phase_serving_forward(tmp: Path) -> dict:
     logits = {}
     for dev, dt in ((CARD, torch.bfloat16), ("cpu", torch.float32)):
         w = load_weights(gf, cfg, dev, dt)
-        for kv in ("compute", "int8"):
+        if w8 and dev == CARD:
+            w = augment_w8_weights(w)
+        for kv in kvs:
             cache = PagedKVCache.create(cfg, 64, len(lengths), max_pages,
                                         torch.int8 if kv == "int8" else dt, dev)
             for b, toks in enumerate(prompts):
@@ -733,14 +982,14 @@ def phase_serving_forward(tmp: Path) -> dict:
     rec = {"tolerance": f"max|card - cpu| <= {tol} * max|cpu| (bfloat16 against float32; the "
                         "int8 pool quantizes on both sides)", "lengths": lengths}
     ok = True
-    for kv in ("compute", "int8"):
+    for kv in kvs:
         card, cpu = logits[CARD, kv], logits["cpu", kv]
         finite = bool(torch.isfinite(card).all())
         rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
         good = finite and rel <= tol and card.shape == (len(lengths), cfg.vocab_size)
         ok &= good
         rec[kv] = {"rel_err": rel, "finite": finite}
-        say(f"paged decode tick, 7b widths, 2 layers, 8 slots at {lengths}, "
+        say(f"paged decode tick, {model} widths, 2 layers, 8 slots at {lengths}, "
             f"{'int8' if kv == 'int8' else 'bfloat16'} pool: rel err {rel:.3e} "
             f"({rec['tolerance']}), finite {finite} {'ok' if good else 'FAILED'}")
     rec["ok"] = ok
@@ -1090,6 +1339,126 @@ def phase_dense_int8(tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the Mixtral mixture-of-experts path
+# ---------------------------------------------------------------------------
+
+def phase_moe(tmp: Path) -> dict:
+    """Mixtral-8x7B widths (hidden 4096, intermediate 14336, 32/8 heads, 8
+    experts, 2 per token, vocab 32000, rope theta 1e6), the depth cut to
+    MOE_LAYERS of 32 and the context to 4096: `Runner(path)` with its default
+    prefill_w8, which must come out on, a ~700-token prompt and 128 greedy
+    tokens twice; the same file with prefill_w8=False, prefill only; and a
+    drain of 16 requests through an 8-slot PagedServingEngine, twice."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / "synth-mixtral.gguf"), "mixtral-8x7b", seed=3,
+                            layers=MOE_LAYERS)
+    synth_s = time.perf_counter() - t0
+    say(f"synthetic Mixtral-8x7B Q4_K GGUF, {MOE_LAYERS} of 32 layers, context 4096: "
+        f"{os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(path)
+    cfg = runner.cfg
+    if (cfg.n_experts, cfg.n_experts_used, cfg.embedding_dim, cfg.hidden_dim) != (8, 2, DIM, FFN):
+        fail(f"not the Mixtral-8x7B widths: {cfg}")
+    if not runner.prefill_w8:
+        fail("the Mixtral Runner's default left the W8 prefill planes off")
+    lw = runner.weights["layers"][0]
+    if not all("w8" in lw[n].planes for n in ("wqkv", "wo", "wgu_exps", "ffn_down_exps")) \
+            or "w8" not in runner.weights["output"].planes:
+        fail("the W8 planes are not fully on")
+    load_s = runner.metrics.times_ns["load"] / 1e9
+    w8_s = runner.metrics.times_ns["load.w8_augment"] / 1e9
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    n_prompt = len(runner.tokenizer.encode(prompt, bos=True))
+
+    _build.launches.clear()  # counts from here on are the MoE path's
+    first = _one_run(runner, prompt, _build.launches)
+    launches = dict(_build.launches)
+    second = _one_run(runner, prompt, _build.launches)
+    if first["tokens"] != second["tokens"]:
+        fail("MoE: the two greedy runs gave different tokens")
+    if len(first["tokens"]) != DECODE_STEPS:
+        fail(f"MoE: generated {len(first['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
+    n = first["end_pos"]
+    if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
+                and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
+        fail("MoE: NaN or inf in the KV cache")
+    for name in ("qmm_w8", "qmm_w8_grouped", "qmm_w4a8", "qmm_q4k", "flash_attention",
+                 "decode_attention_fused"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the MoE path")
+    profile = _profile_decode(runner, prompt, second["decode_ms_per_token"])
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    chunks = math.ceil(n_prompt / PREFILL_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate((first, second)):
+        say(f"MoE path run {i + 1}: prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
+            f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
+            f"{r['decoded_steps']} steps {r['decode_tok_s']:.2f} tok/s = "
+            f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
+            f"{bound_gguf:.3f} ms GGUF bytes, the experts counted at 2 of 8)")
+    say(f"MoE path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, 128 greedy tokens identical in both "
+        f"runs, launches {launches}")
+
+    w8_q4k = _prefill_w8_against_q4k(path, runner, prompt, f"Mixtral ({MOE_LAYERS} layers)")
+    if w8_q4k["launches"].get("qmm_q4k_grouped", 0) <= 0 or w8_q4k["launches"].get("qmm_w8", 0) \
+            or w8_q4k["launches"].get("qmm_w8_grouped", 0):
+        fail(f"the Q4_K-only MoE prefill launched {w8_q4k['launches']}")
+
+    def engine():
+        return PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES,
+                                  seq_len=CTX, seed=7)
+
+    eng = engine()
+    pages_at_start = eng.pages_free()
+    reqs = _serving_requests(runner, seed=23)
+    _build.launches.clear()
+    serving = _drain(eng, reqs)
+    serving["launches"] = dict(_build.launches)
+    _say_run(f"serving, Mixtral widths, {MOE_LAYERS} layers, 8 slots, 256-page bfloat16 pool",
+             serving)
+    if eng.pages_free() != pages_at_start or any(eng._owned):
+        fail(f"MoE serving: pages_free {eng.pages_free()} after the run, {pages_at_start} before")
+    for name in ("qmm_w4a8", "qmm_w8_grouped", "paged_decode_attention_fused"):
+        if serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the MoE serving path")
+    tokens = [list(r.output_tokens) for r in reqs]
+    del eng
+    eng = engine()
+    again = _serving_requests(runner, seed=23)
+    _drain(eng, again)
+    if [list(r.output_tokens) for r in again] != tokens:
+        fail("MoE serving: the second engine with the same seed gave other tokens")
+    say(f"MoE serving: pages back to {pages_at_start}, all 16 requests gave the same tokens in "
+        f"both engines, launches {serving['launches']}")
+    del eng, runner
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return {
+        "layers": MOE_LAYERS, "synth_s": synth_s, "load_s": load_s, "load_w8_augment_s": w8_s,
+        "prompt_tokens": n_prompt, "prefill_chunks": chunks,
+        "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
+                 for r in (first, second)],
+        "tokens_identical": True, "first_tokens": first["tokens"][:16],
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+        "max_memory_allocated": peak, "launches": launches, "decode_profile": profile,
+        "launches_per_decode_token": {k: v / first["decoded_steps"]
+                                      for k, v in first["launches_decode"].items()},
+        "launches_per_prefill_chunk": {k: v / chunks
+                                       for k, v in first["launches_prefill"].items()},
+        "prefill_w8_against_q4k": w8_q4k, "serving": serving,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(checks: dict, paths: dict) -> dict:
     """`paths`: {driven path: its record}; each kernel reports the launches
@@ -1109,6 +1478,9 @@ def kernels_line(checks: dict, paths: dict) -> dict:
             "launches_per_decode_token": main["launches_per_decode_token"].get(name, 0),
             "launches_per_prefill_chunk": main["launches_per_prefill_chunk"].get(name, 0),
             "launches_per_serving_tick": paths["serving"]["launches_per_tick"].get(name, 0),
+            "launches_per_moe_decode_token": paths["moe"]["launches_per_decode_token"].get(name, 0),
+            "launches_per_moe_prefill_chunk":
+                paths["moe"]["launches_per_prefill_chunk"].get(name, 0),
         }
         entry["all_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by", "max_abs_err")}
@@ -1179,6 +1551,15 @@ def main() -> int:
         os.remove(gguf)
         torch.cuda.empty_cache()
         dense = report["dense_int8"] = phase_dense_int8(tmp)
+        report["moe_forward"] = phase_forward(tmp, "mixtral-8x7b", seed=16, n_prompt=300, w8=True,
+                                              min_share=0.9)
+        if not report["moe_forward"]["ok"]:
+            failures.append("MoE forward check")
+        report["moe_serving_forward"] = phase_serving_forward(
+            tmp, "mixtral-8x7b", seed=18, lengths=MOE_TICK_LENGTHS, kvs=("compute",), w8=True)
+        if not report["moe_serving_forward"]["ok"]:
+            failures.append("MoE serving forward check")
+        moe = report["moe"] = phase_moe(tmp)
     except CheckFailed as e:
         failures.append(str(e))
     finally:
@@ -1190,8 +1571,9 @@ def main() -> int:
             say(f"FAILED: {f}")
         return 1
     print(f"gpu: {TAG}")
-    print(json.dumps(kernels_line(checks, {"main": main_rec, "serving": serving["first"],
-                                           "dense_int8": dense})))
+    print(json.dumps(kernels_line(checks, {
+        "main": main_rec, "serving": serving["first"], "dense_int8": dense, "moe": moe,
+        "moe_q4k": moe["prefill_w8_against_q4k"]})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,6 +2,7 @@
 
   python -m crabml_tpu_torch.cli model.gguf -p "Once upon a time" -n 64
   python -m crabml_tpu_torch.cli model.gguf -p "..." -n 16 --device cpu
+  python -m crabml_tpu_torch.cli model.gguf -p "..." --no-prefill-w8
 
 Runs on `cuda` unless `--device` says otherwise; without a card it exits
 with an error rather than falling back to the CPU.
@@ -22,6 +23,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-t", "--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
+    ap.add_argument("--prefill-w8", dest="prefill_w8", action="store_true", default=None,
+                    help="attach the W8 prefill planes (int8 weights beside the Q4_K "
+                         "planes: 8 more bits a weight of device memory). Default: "
+                         "what fits the card's free memory; never on the CPU.")
+    ap.add_argument("--no-prefill-w8", dest="prefill_w8", action="store_false",
+                    help="leave the W8 prefill planes out")
     return ap
 
 
@@ -35,7 +42,8 @@ def main(argv=None) -> int:
 
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     runner = Runner(args.model, compute_dtype=dtype,
-                    sampler=Sampler(temperature=args.temperature), device=args.device)
+                    sampler=Sampler(temperature=args.temperature), device=args.device,
+                    prefill_w8=args.prefill_w8)
     t0 = time.perf_counter()
     print(args.prompt, end="", flush=True)
     for piece in runner.prefill_and_generate(args.prompt, args.steps):

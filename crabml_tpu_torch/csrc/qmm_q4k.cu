@@ -1,8 +1,13 @@
-// qmm_q4k: fused Q4_K dequant + matmul for prefill rows (out = x @ W^T).
+// qmm_q4k: fused Q4_K dequant + matmul for prefill rows (out = x @ W^T), dense
+// and grouped.
 //
-// Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel (launcher _run,
-// pallas_call at :680) for the Q4_K scheme: w = val * dsub + msub per
-// 32-element scale group, f32 accumulation.
+// Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q4_K
+// scheme: w = val * dsub + msub per 32-element scale group, f32 accumulation.
+// The dense entry qmm_q4k_bf16 stands for the launcher _run (pallas_call at
+// :680), the grouped entry qmm_q4k_grouped_bf16 for _run_grouped (:836), where
+// rows sorted by expert multiply their own expert's plane: one kernel, which
+// differs between the two only in where a row tile starts and which plane it
+// reads (qmm_tile.cuh::find_tile).
 //
 // Bound on the H100: at the main path's 512-row prefill chunks the product is
 // compute-bound (7.3 TFLOP per chunk at 7B against ~4.4 GB of weights; the
@@ -17,37 +22,39 @@
 // host into bf16 dsub = d*sc and msub = -dmin*mn, one per 32 elements. The
 // epilogue writes float32 or the bf16 compute dtype, so the model's matmuls
 // need no separate cast. No cp.async pipeline, wgmma or TMA yet: those are
-// the next step for speed.
-#include <mma.h>
+// the next step for speed. The grouped form at the MoE prefill shape (1,024
+// (row, slot) pairs over 8 experts) is bound by the same operations; each
+// expert's planes are read once per 64-row tile of its segment, which L2
+// absorbs only in part.
+#include "qmm_tile.cuh"
 
-#include "common.cuh"
-
-using namespace nvcuda;
+using namespace qmm;
 
 namespace {
-
-constexpr int BM = 64;       // rows of x per block
-constexpr int BN = 128;      // output columns per block
-constexpr int BK = 64;       // k per step: one Q4_K nibble chunk (two scale groups)
-constexpr int LDS = BK + 8;  // padded smem row (bf16): 144 bytes keeps 16-byte and 32-byte alignment
-constexpr int NT = 256;      // 8 warps: 2 (rows) x 4 (columns) of 32x32 warp tiles
 
 template <typename OutT>
 __global__ void __launch_bounds__(NT)
 qmm_q4k_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
                const bf16* __restrict__ dsub, const bf16* __restrict__ msub,
-               OutT* __restrict__ out, int M, int N, int K) {
+               OutT* __restrict__ out, const int* __restrict__ offsets, int n_planes,
+               int M, int N, int K) {
     __shared__ __align__(128) bf16 As[BM][LDS];
     __shared__ __align__(128) bf16 Bs[BN][LDS];
     __shared__ __align__(128) float Cs[NT / 32][16 * 16];
 
+    Tile tile;
+    if (!find_tile(offsets, n_planes, M, blockIdx.y, tile)) return;
+
     const int tid = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
     const int wm = warp / 4, wn = warp % 4;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+    const int n0 = blockIdx.x * BN;
     const int G = K / 32;  // scale groups per weight row
+    qs += (size_t)tile.plane * N * (K / 2);
+    dsub += (size_t)tile.plane * N * G;
+    msub += (size_t)tile.plane * N * G;
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+    Acc acc[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -58,16 +65,7 @@ qmm_q4k_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
     const int col = n0 + bn;
 
     for (int k0 = 0; k0 < K; k0 += BK) {
-        // x tile: 64 rows x 64 bf16 = 512 16-byte vectors, two per thread
-#pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            const int idx = tid + it * NT;
-            const int r = idx / 8, c8 = idx % 8;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (m0 + r < M)
-                v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c8 * 8);
-            *reinterpret_cast<uint4*>(&As[r][c8 * 8]) = v;
-        }
+        load_x_tile(As, x, tile, K, k0, tid);
         // weight tile: 16 packed bytes -> 16 low-group and 16 high-group values
         {
             __align__(16) bf16 lo[16];
@@ -101,38 +99,25 @@ qmm_q4k_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
             dst_hi[1] = reinterpret_cast<uint4*>(hi)[1];
         }
         __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], LDS);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(b[j], &Bs[wn * 32 + j * 16][kk], LDS);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
+        mma_step(acc, As, Bs, wm, wn);
         __syncthreads();
     }
+    store_tile<OutT>(acc, Cs[warp], out, tile, n0, N, wm, wn, lane);
+}
 
-    // epilogue: stage each 16x16 fragment in this warp's smem, write the in-range part
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 256; e += 32) {
-                const int r = m0 + wm * 32 + i * 16 + e / 16;
-                const int cc = n0 + wn * 32 + j * 16 + e % 16;
-                if (r < M && cc < N) out[(size_t)r * N + cc] = from_f32<OutT>(Cs[warp][e]);
-            }
-            __syncwarp();
-        }
+int launch(const void* x, const void* qs, const void* dsub, const void* msub, void* out,
+           int out_bf16, const int* offsets, int n_planes, int tiles, int M, int N, int K,
+           void* stream) {
+    dim3 grid((N + BN - 1) / BN, tiles);
+    cudaStream_t s = (cudaStream_t)stream;
+    const bf16 *xb = (const bf16*)x, *db = (const bf16*)dsub, *mb = (const bf16*)msub;
+    if (out_bf16)
+        qmm_q4k_kernel<bf16><<<grid, NT, 0, s>>>(xb, (const uint8_t*)qs, db, mb, (bf16*)out,
+                                                  offsets, n_planes, M, N, K);
+    else
+        qmm_q4k_kernel<float><<<grid, NT, 0, s>>>(xb, (const uint8_t*)qs, db, mb, (float*)out,
+                                                   offsets, n_planes, M, N, K);
+    return crabml_launch_status();
 }
 
 }  // namespace
@@ -143,12 +128,18 @@ qmm_q4k_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ qs,
 extern "C" int qmm_q4k_bf16(const void* x, const void* qs, const void* dsub,
                             const void* msub, void* out, int out_bf16, int M, int N,
                             int K, void* stream) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    cudaStream_t s = (cudaStream_t)stream;
-    const bf16 *xb = (const bf16*)x, *db = (const bf16*)dsub, *mb = (const bf16*)msub;
-    if (out_bf16)
-        qmm_q4k_kernel<bf16><<<grid, NT, 0, s>>>(xb, (const uint8_t*)qs, db, mb, (bf16*)out, M, N, K);
-    else
-        qmm_q4k_kernel<float><<<grid, NT, 0, s>>>(xb, (const uint8_t*)qs, db, mb, (float*)out, M, N, K);
-    return crabml_launch_status();
+    return launch(x, qs, dsub, msub, out, out_bf16, nullptr, 1, (M + BM - 1) / BM, M, N, K,
+                  stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// qs (n_planes, N, K/2), dsub, msub (n_planes, N, K/32). Every row of out is
+// written: each lies in exactly one segment.
+extern "C" int qmm_q4k_grouped_bf16(const void* x, const void* qs, const void* dsub,
+                                    const void* msub, void* out, int out_bf16,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    return launch(x, qs, dsub, msub, out, out_bf16, (const int*)offsets, n_planes,
+                  grouped_tiles(M, n_planes), M, N, K, stream);
 }

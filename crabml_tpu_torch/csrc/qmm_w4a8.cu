@@ -22,6 +22,14 @@
 // warps, enough to spread over all 132 SMs. The per-lane float sums reduce
 // across the warp once at the end; no atomics, so results are deterministic.
 // The result is written as float32 or as the bf16 compute dtype.
+//
+// Per-row planes (the MoE decode path): with plane_idx given, row b multiplies
+// weight plane plane_idx[b] of a stack (n_planes, N, K). This is the TPU
+// launcher's scalar-prefetched `layer` (gemm_quant.py:701-706) fed an expert
+// id, one id per row here. The rows then share no weights, so the launch puts
+// one row on each blockIdx.y and every warp streams its own row's plane; the
+// index is read on the device and the host never sees a routing value. The
+// bytes are the selected planes only: k/E of the experts at one row.
 #include "common.cuh"
 
 namespace {
@@ -56,15 +64,23 @@ __global__ void __launch_bounds__(WARPS * 32)
 qmm_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
                 const float* __restrict__ sx, const uint8_t* __restrict__ qs,
                 const bf16* __restrict__ dsub, const bf16* __restrict__ msub,
-                OutT* __restrict__ out, int B, int N, int K) {
+                OutT* __restrict__ out, const int* __restrict__ plane_idx, int B, int N,
+                int K) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int col = blockIdx.x * WARPS + warp;
     if (col >= N) return;
     const int G = K / 32;
     const int nseg = K / 32;  // 16-byte segments of packed nibbles per weight row
-    const uint8_t* wrow = qs + (size_t)col * (K / 2);
-    const bf16* drow = dsub + (size_t)col * G;
-    const bf16* mrow = msub + (size_t)col * G;
+    // blockIdx.y: the first of this block's B rows (0 unless rows have planes of their own)
+    const int row0 = blockIdx.y;
+    const size_t wr = (size_t)(plane_idx ? plane_idx[row0] : 0) * N + col;  // weight row
+    xq += (size_t)row0 * K;
+    dx += (size_t)row0 * G;
+    sx += (size_t)row0 * G;
+    out += (size_t)row0 * N;
+    const uint8_t* wrow = qs + wr * (K / 2);
+    const bf16* drow = dsub + wr * G;
+    const bf16* mrow = msub + wr * G;
 
     float acc[NB];
 #pragma unroll
@@ -115,37 +131,42 @@ qmm_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 
 template <int NB>
 void launch(const void* xq, const void* dx, const void* sx, const void* qs,
-            const void* dsub, const void* msub, void* out, int out_bf16, int B, int N,
-            int K, cudaStream_t stream) {
-    const int blocks = (N + WARPS - 1) / WARPS;
+            const void* dsub, const void* msub, void* out, int out_bf16,
+            const int* plane_idx, int rows_y, int B, int N, int K, cudaStream_t stream) {
+    const dim3 blocks((N + WARPS - 1) / WARPS, rows_y);
     const int8_t* xqi = (const int8_t*)xq;
     const float *dxf = (const float*)dx, *sxf = (const float*)sx;
     const bf16 *db = (const bf16*)dsub, *mb = (const bf16*)msub;
     if (out_bf16)
         qmm_w4a8_kernel<NB, bf16><<<blocks, WARPS * 32, 0, stream>>>(
-            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (bf16*)out, B, N, K);
+            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (bf16*)out, plane_idx, B, N, K);
     else
         qmm_w4a8_kernel<NB, float><<<blocks, WARPS * 32, 0, stream>>>(
-            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (float*)out, B, N, K);
+            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (float*)out, plane_idx, B, N, K);
 }
 
 }  // namespace
 
 // x (B, K) bf16; scratch xq (B, K) i8 and dx, sx (B, K/32) f32; qs (N, K/2)
 // u8; dsub, msub (N, K/32) bf16; out (B, N) f32, or bf16 when out_bf16 != 0.
-// 1 <= B <= 16, K % 256 == 0 (checked by the wrapper).
+// 1 <= B <= 16, K % 256 == 0 (checked by the wrapper). plane_idx: null, or (B,)
+// i32 on the device, and then the weight planes are stacks (n_planes, N, ...)
+// of which row b multiplies plane plane_idx[b].
 extern "C" int qmm_w4a8_bf16(const void* x, void* xq, void* dx, void* sx,
                              const void* qs, const void* dsub, const void* msub,
-                             void* out, int out_bf16, int B, int N, int K, void* stream) {
+                             void* out, int out_bf16, const void* plane_idx, int B, int N,
+                             int K, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     quantize_kernel<<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
         (const bf16*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
     const int err = crabml_launch_status();
     if (err) return err;
-    if (B <= 1) launch<1>(xq, dx, sx, qs, dsub, msub, out, out_bf16, B, N, K, s);
-    else if (B <= 2) launch<2>(xq, dx, sx, qs, dsub, msub, out, out_bf16, B, N, K, s);
-    else if (B <= 4) launch<4>(xq, dx, sx, qs, dsub, msub, out, out_bf16, B, N, K, s);
-    else if (B <= 8) launch<8>(xq, dx, sx, qs, dsub, msub, out, out_bf16, B, N, K, s);
-    else launch<16>(xq, dx, sx, qs, dsub, msub, out, out_bf16, B, N, K, s);
+    const int* pi = (const int*)plane_idx;
+    if (pi) launch<1>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, B, 1, N, K, s);
+    else if (B <= 1) launch<1>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
+    else if (B <= 2) launch<2>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
+    else if (B <= 4) launch<4>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
+    else if (B <= 8) launch<8>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
+    else launch<16>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
     return crabml_launch_status();
 }

@@ -1,4 +1,5 @@
-"""The transformer forward pass for dense llama, in torch.
+"""The transformer forward pass for llama, dense or mixture of experts, in
+torch.
 
 Counterpart of crabml_tpu/models/forward.py::forward (and KVCache). The JAX
 version scans stacked layers inside one jit and batches the cache writes of
@@ -9,9 +10,10 @@ each layer's new k/v into the cache in place, one indexed write per tensor.
 The numbers are the same.
 
 Per layer: rmsnorm -> fused q|k|v matmul -> rope -> cache write + attention
--> wo -> rmsnorm -> fused gate|up -> silu(gate)*up -> down; then the final
-norm and the lm_head. `layer_body` holds everything but the cache traffic, so
-the paged steps (serving/paged.py) share it. Attention of a few new tokens
+-> wo -> rmsnorm -> fused gate|up -> silu(gate)*up -> down (or `moe_ffn`, the
+Mixtral router over stacked experts); then the final norm and the lm_head.
+`layer_body` holds everything but the cache traffic, so the paged steps
+(serving/paged.py) share it. Attention of a few new tokens
 (ops.cuda.decode_attention.decode_eligible) takes the decode kernel,
 everything else the flash kernel.
 """
@@ -26,9 +28,11 @@ from ..errors import CacheError, UnsupportedError
 from ..ops.cuda.decode_attention import (decode_attention, decode_attention_fused,
                                          decode_eligible)
 from ..ops.cuda.flash_attention import flash_attention
+from ..ops.cuda.gemm_quant import W4A8_MAX_ROWS, qmatmul_grouped, qmm_w4a8
 from ..ops.matmul import embedding_lookup, qmatmul
 from ..ops.norm import rms_norm
 from ..ops.rope import rope_angles, rotate
+from ..quant.qtensor import QTensor, dequantize
 from .config import ModelConfig
 
 KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
@@ -110,6 +114,129 @@ def _project_gate_up(lw: dict, h: torch.Tensor):
     return qmatmul(h, lw["ffn_gate"]), qmatmul(h, lw["ffn_up"])
 
 
+def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return gate * torch.sigmoid(gate) * up
+
+
+def _expert_gate_up(lw: dict, matmul) -> torch.Tensor:
+    """silu(gate) * up of the experts, `matmul(stack)` being the product with
+    one stack: one call on the fused gate|up stack, or two."""
+    if "wgu_exps" in lw:
+        return _silu_mul(*matmul(lw["wgu_exps"]).chunk(2, dim=-1))
+    return _silu_mul(matmul(lw["ffn_gate_exps"]), matmul(lw["ffn_up_exps"]))
+
+
+def moe_route(lw: dict, h: torch.Tensor, cfg: ModelConfig):
+    """The router: h (R, D) -> (topi (R, K) int64, topw (R, K) float32). The
+    logits are computed in the compute dtype (the router weights were cast
+    down at load) and then taken to float32; the softmax runs over the
+    selected K only. A stable descending sort puts the lower expert first on
+    a tie, as jax.lax.top_k does; torch.topk promises no order, and under
+    bfloat16 two logits do tie."""
+    logits = (h @ lw["ffn_gate_inp"].t()).float()
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    K = cfg.n_experts_used
+    return idx[:, :K], torch.softmax(vals[:, :K], dim=-1)
+
+
+_GROUPED_MIN_ROWS = 64  # the JAX package's: from here on its grouped kernels run
+
+
+def _moe_decode_rows(lw: dict, h: torch.Tensor, topi, topw) -> torch.Tensor:
+    """At most W4A8_MAX_ROWS rows: for each slot j of the top-k, one int8-
+    activation matmul per stack with row b on plane topi[b, j], which the
+    kernel reads on the device. No routing value reaches the host, and only
+    the selected experts' planes are read.
+
+    The JAX package has three regimes here (a gather by a traced plane index
+    at one row, lax.cond per expert, an all-experts mix); they exist to keep
+    unselected experts unread under jit and give these numbers row by row:
+    the kernel quantizes each row by itself, and an unselected expert's
+    routing weight is exactly 0. The slots are summed in top-k order, as JAX
+    does at one row; at more rows it sums in ascending expert order, which
+    differs only in the order of a bfloat16 sum of K terms and so not at all
+    for Mixtral's K = 2."""
+    planes = topi.to(torch.int32).t().contiguous()  # (K, R)
+    weights = topw.to(h.dtype)
+    out = None
+    for j in range(planes.shape[0]):
+        mid = _expert_gate_up(lw, lambda qt: qmm_w4a8(h, qt, h.dtype, planes[j]))
+        y = qmm_w4a8(mid, lw["ffn_down_exps"], h.dtype, planes[j]) * weights[:, j:j + 1]
+        out = y if out is None else out + y
+    return out
+
+
+def _moe_grouped(lw: dict, h: torch.Tensor, topi, topw, cfg: ModelConfig) -> torch.Tensor:
+    """More rows: the (row, slot) pairs sort stably by expert, and the grouped
+    kernels multiply each expert's segment by that expert's planes only. The
+    kernels read the segment offsets on the device, so nothing is padded and
+    the host reads no count. Each row then gathers its K results back and
+    adds them in slot order: an index_add_ would add them by atomics, in an
+    order that changes from run to run.
+
+    From _GROUPED_MIN_ROWS rows on the JAX package runs its grouped kernels,
+    on the W8 planes where they are attached; below, its all-experts mix
+    through the dequant kernel, which gives the numbers of the Q4_K grouped
+    kernel here row by row (an unselected expert's weight is exactly 0)."""
+    R, K, E = h.shape[0], cfg.n_experts_used, cfg.n_experts
+    expert, order = torch.sort(topi.reshape(-1), stable=True)  # (R*K,) pairs by expert
+    offsets = torch.searchsorted(
+        expert, torch.arange(E + 1, device=h.device, dtype=expert.dtype)).to(torch.int32)
+    xs = h.index_select(0, order // K)
+    w8 = R >= _GROUPED_MIN_ROWS
+    mid = _expert_gate_up(lw, lambda qt: qmatmul_grouped(xs, qt, offsets, w8))
+    y = qmatmul_grouped(mid, lw["ffn_down_exps"], offsets, w8)  # (R*K, D), sorted order
+    back = torch.empty_like(order).scatter_(0, order, torch.arange(R * K, device=h.device))
+    y = y.index_select(0, back).reshape(R, K, -1) * topw.to(h.dtype)[..., None]
+    out = y[:, 0]
+    for j in range(1, K):
+        out = out + y[:, j]
+    return out
+
+
+def _expert_stacks(lw: dict) -> list[QTensor]:
+    return [lw[n] for n in ("wgu_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")
+            if n in lw]
+
+
+def moe_ffn_plain(lw: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Plain version of moe_ffn, for any weight kind: every expert computes
+    every row through a dense product and the results mix by routing weight,
+    0 for an unselected expert (the JAX package's _moe_all_experts)."""
+    h = x.reshape(-1, x.shape[-1])
+    topi, topw = moe_route(lw, h, cfg)
+    route = torch.zeros(h.shape[0], cfg.n_experts, dtype=torch.float32, device=h.device)
+    route.scatter_(1, topi, topw)
+
+    def dense(a, qt):  # (R, k) or (E, R, k) @ (E, m, k)^T -> (E, R, m)
+        return torch.matmul(a, dequantize(qt, h.dtype).transpose(1, 2))
+
+    mid = _expert_gate_up(lw, lambda qt: dense(h, qt))
+    y = dense(mid, lw["ffn_down_exps"]) * route.t().to(h.dtype)[..., None]
+    out = y[0]
+    for e in range(1, cfg.n_experts):
+        out = out + y[e]
+    return out.reshape(x.shape)
+
+
+def moe_ffn(lw: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The Mixtral FFN on x (..., D): softmax over the top-k of the router's
+    logits, each selected expert down(silu(gate(x)) * up(x)), weighted after
+    the down matmul in the compute dtype and summed there. Counterpart of
+    crabml_tpu/models/forward.py::moe_ffn. Experts without kernel planes
+    (F32 / F16 files) take the plain version, as such weights take
+    torch.matmul everywhere else."""
+    if not all(qt.kernel_layout for qt in _expert_stacks(lw)):
+        return moe_ffn_plain(lw, x, cfg)
+    h = x.reshape(-1, x.shape[-1])
+    topi, topw = moe_route(lw, h, cfg)
+    if h.shape[0] <= W4A8_MAX_ROWS:
+        out = _moe_decode_rows(lw, h, topi, topw)
+    else:
+        out = _moe_grouped(lw, h, topi, topw, cfg)
+    return out.reshape(x.shape)
+
+
 def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> torch.Tensor:
     """One transformer layer on x (B, T, D). Everything is common to the
     dense and the paged forwards except how k/v reach the cache and how
@@ -127,8 +254,9 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     attn = kv_io(qk[:, :, :H], qk[:, :, H:], v)
     x = x + qmatmul(attn.to(x.dtype), lw["wo"])
     h = rms_norm(x, lw["ffn_norm"], cfg.rms_norm_eps)
-    gate, up = _project_gate_up(lw, h)
-    return x + qmatmul(gate * torch.sigmoid(gate) * up, lw["ffn_down"])
+    if cfg.n_experts:
+        return x + moe_ffn(lw, h, cfg)
+    return x + qmatmul(_silu_mul(*_project_gate_up(lw, h)), lw["ffn_down"])
 
 
 def final_logits(weights: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Counterpart of crabml_tpu/ops/matmul.py under its headline backend `w4a8`:
 Q4_K weights in kernel layout go to the CUDA matmuls (ops/cuda/gemm_quant.py
-routes by row count), and F32/F16 weights, which the JAX package leaves to
-XLA's dense product, take torch.matmul.
+routes by row count and by whether the weight carries W8 prefill planes), and
+F32/F16 weights, which the JAX package leaves to XLA's dense product, take
+torch.matmul.
 """
 
 from __future__ import annotations

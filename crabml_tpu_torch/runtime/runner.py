@@ -8,9 +8,18 @@ prompt never materializes a long activation.
 
 The Runner runs on `cuda` unless the caller passes `device="cpu"`; without a
 card and without that request it raises.
+
+`prefill_w8` decides on the W8 prefill planes (int8 weights beside the Q4_K
+planes, 8 more bits a weight of device memory; chunks of 249 rows or more then
+take the W8 kernels): True attaches them all, False none, and None, the
+default, attaches what fits the card's free memory (`_auto_w8_budget`), which
+on the CPU is nothing.
 """
 
 from __future__ import annotations
+
+import logging
+import os
 
 import torch
 
@@ -18,7 +27,7 @@ from ..errors import CacheError
 from ..gguf.reader import GGUFFile
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.forward import KVCache, forward
-from ..models.weights import load_weights
+from ..models.weights import augment_w8_weights, load_weights
 from ..tokenizer import Tokenizer, Utf8Buf, tokenizer_from_gguf
 from ..utils import resolve_device
 from ..utils.metrics import Metrics
@@ -26,17 +35,64 @@ from .generate import decode_loop
 from .sampler import Sampler
 
 
+log = logging.getLogger("crabml_tpu_torch")
+
+
+def _auto_w8_budget(gf: GGUFFile, cfg: ModelConfig, seq_len: int, kv_itemsize: int,
+                    device: torch.device) -> int | None:
+    """Whether the W8 prefill planes fit the card, decided before loading from
+    the GGUF's header: None (off), -1 (all of them fit) or a byte budget for
+    the largest tensors (models.weights.augment_w8_weights).
+
+    Only on a card, where prefill throughput matters, and only for files over
+    1 GiB: on the CPU and for small test models prefill stays on the exact
+    Q4_K dequant path. The budget is the card's memory less 2 GiB of slack
+    (activations, serving page pools), the file's bytes and the Runner's KV
+    cache. The planes' cost counts every matrix of the file but the embedding,
+    the experts' 3-D tensors included."""
+    if device.type != "cuda":
+        return None
+    wbytes = os.path.getsize(gf.path)
+    if wbytes < (1 << 30):
+        return None
+    full = sum(ti.n_elems for ti in gf.tensor_infos
+               if len(ti.dimensions) >= 2 and "token_embd" not in ti.name)
+    full = int(full * 1.008)  # one float32 scale per 512-chunk
+    kv = 2 * cfg.n_layers * seq_len * cfg.n_kv_heads * cfg.head_dim * kv_itemsize
+    budget = torch.cuda.get_device_properties(device).total_memory - (2 << 30) - wbytes - kv
+    if budget <= 0:
+        log.info("prefill W8 planes off: no device memory to spare (weights %.1f GiB)",
+                 wbytes / 2**30)
+        return None
+    if budget >= full:
+        log.info("prefill W8 planes on (+%.1f GiB of device memory); pass prefill_w8=False "
+                 "to leave them out", full / 2**30)
+        return -1
+    log.info("prefill W8 planes in part: %.1f of %.1f GiB fit, largest tensors first",
+             budget / 2**30, full / 2**30)
+    return budget
+
+
 class Runner:
     MAX_PREFILL_CHUNK = 512  # bounds activation memory per forward
 
     def __init__(self, model: str | GGUFFile, seq_len: int | None = None,
                  compute_dtype=torch.bfloat16,
-                 sampler: Sampler | None = None, seed: int = 0, device=None):
+                 sampler: Sampler | None = None, seed: int = 0, device=None,
+                 prefill_w8: bool | None = None):
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
         self.seq_len = min(seq_len or self.cfg.seq_len, self.cfg.seq_len)
         self.compute_dtype = compute_dtype
+        w8_budget = None  # None = off, -1 = every eligible tensor, > 0 = a byte budget
+        if prefill_w8 is True:
+            w8_budget = -1
+        elif prefill_w8 is None:
+            w8_budget = _auto_w8_budget(gf, self.cfg, self.seq_len,
+                                        torch.empty(0, dtype=compute_dtype).element_size(),
+                                        self.device)
+        self.prefill_w8 = w8_budget is not None
         self.tokenizer: Tokenizer = tokenizer_from_gguf(gf.metadata)
         self.sampler = sampler or Sampler()
         self.metrics = Metrics()
@@ -44,12 +100,20 @@ class Runner:
         self.generator.manual_seed(seed)
         with self.metrics.track("load"):
             self.weights = load_weights(gf, self.cfg, self.device, compute_dtype)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
+            if self.prefill_w8:
+                with self.metrics.track("load.w8_augment"):
+                    self.weights = augment_w8_weights(
+                        self.weights, None if w8_budget == -1 else w8_budget)
+                    self._sync()
         self.cache = KVCache.create(self.cfg, 1, self.seq_len, compute_dtype, self.device)
         self.pos = 0
         self.generated: list[int] = []  # token ids of the current generation
         self._decode_buf = Utf8Buf()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def reset(self):
         self.cache.k.zero_()

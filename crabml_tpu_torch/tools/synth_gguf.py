@@ -1,4 +1,5 @@
-"""Write a full-size synthetic GGUF (llama shape, random Q4_K weights) in seconds.
+"""Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K
+weights) in seconds.
 
 No multi-GB checkpoint ships with the repo, so the port's main path runs on a
 byte-valid GGUF v3 made from a seed. Each Q4_K block (256 weights, 144 bytes)
@@ -12,8 +13,15 @@ the tokenizer is a llama-SPM vocab of specials, byte tokens and synthetic
 pieces. No element is quantized one at a time: the file is random bytes
 patched per block, written tensor by tensor.
 
+A mixture-of-experts shape writes what llama.cpp writes for Mixtral: per layer
+the experts as 3-D tensors `ffn_{gate,up}_exps` (E, hidden, dim) and
+`ffn_down_exps` (E, dim, hidden), the router `ffn_gate_inp` (E, dim) as F32
+(normal, standard deviation 1/sqrt(dim), so the router's logits spread like a
+standard normal), and `llama.expert_count` / `llama.expert_used_count`.
+
 Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
 """
 
 from __future__ import annotations
@@ -27,10 +35,15 @@ from ..gguf.constants import GGMLType
 from ..gguf.writer import GGUFWriter
 
 MODEL_SHAPES = {
-    # (dim, hidden, layers, heads, kv_heads, vocab, ctx)
+    # (dim, hidden, layers, heads, kv_heads, vocab, ctx, experts, experts used, rope base)
     # 7b = the Mistral-7B shape of crabml_tpu/tools/synth_gguf.py
-    "7b": (4096, 14336, 32, 32, 8, 32000, 4096),
-    "tiny": (256, 512, 2, 2, 1, 512, 512),  # head dim 128, K-quant rows
+    "7b": (4096, 14336, 32, 32, 8, 32000, 4096, 0, 0, 10000.0),
+    "tiny": (256, 512, 2, 2, 1, 512, 512, 0, 0, 10000.0),  # head dim 128, K-quant rows
+    # mistralai/Mixtral-8x7B-v0.1 config.json, the context cut to 4096
+    "mixtral-8x7b": (4096, 14336, 32, 32, 8, 32000, 4096, 8, 2, 1e6),
+    # the `mixtral` shape of crabml_tpu/tools/synth_gguf.py
+    "mixtral": (2048, 5632, 16, 16, 8, 32000, 4096, 8, 2, 10000.0),
+    "tiny-moe": (256, 512, 2, 2, 1, 512, 512, 4, 2, 10000.0),  # head dim 128
 }
 
 
@@ -56,7 +69,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
                      verbose: bool = False) -> str:
     """Write the synthetic GGUF of shape `model` (optionally with fewer
     layers) to `path`."""
-    dim, hidden, n_layers, heads, kv_heads, vocab, ctx = MODEL_SHAPES[model]
+    dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
     w = GGUFWriter()
     meta = {
@@ -70,8 +83,12 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         "llama.attention.head_count_kv": kv_heads,
         "llama.attention.layer_norm_rms_epsilon": 1e-5,
         "llama.rope.dimension_count": dim // heads,
+        "llama.rope.freq_base": rope,
         "tokenizer.ggml.model": "llama",
     }
+    if experts:
+        meta["llama.expert_count"] = experts
+        meta["llama.expert_used_count"] = used
     for k, v in meta.items():
         w.add_metadata(k, v)
     tokens, scores = synth_tokenizer(vocab)
@@ -100,9 +117,18 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim))
         add(f"blk.{l}.attn_v.weight", (kv_dim, dim))
         add(f"blk.{l}.attn_output.weight", (dim, dim))
-        add(f"blk.{l}.ffn_gate.weight", (hidden, dim))
-        add(f"blk.{l}.ffn_up.weight", (hidden, dim))
-        add(f"blk.{l}.ffn_down.weight", (dim, hidden))
+        if experts:
+            counter[0] += 1
+            router = np.random.default_rng([seed, counter[0]]).standard_normal((experts, dim))
+            w.add_tensor(f"blk.{l}.ffn_gate_inp.weight", GGMLType.F32, (experts, dim),
+                         (router / np.sqrt(dim)).astype(np.float32))
+            add(f"blk.{l}.ffn_gate_exps.weight", (experts, hidden, dim))
+            add(f"blk.{l}.ffn_up_exps.weight", (experts, hidden, dim))
+            add(f"blk.{l}.ffn_down_exps.weight", (experts, dim, hidden))
+        else:
+            add(f"blk.{l}.ffn_gate.weight", (hidden, dim))
+            add(f"blk.{l}.ffn_up.weight", (hidden, dim))
+            add(f"blk.{l}.ffn_down.weight", (dim, hidden))
         ones(f"blk.{l}.attn_norm.weight", dim)
         ones(f"blk.{l}.ffn_norm.weight", dim)
     ones("output_norm.weight", dim)

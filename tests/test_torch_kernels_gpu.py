@@ -116,6 +116,120 @@ def test_quantize_activation_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, sx.sum(-1), rtol=1e-6, atol=1e-6)
 
 
+def _stack(E, m, k, seed, w8=False):
+    """E random Q4_K weights as one stack (E, m, k), bf16 scales."""
+    blocks = q4k_blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
+    qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (E, m, k), "cuda"), torch.bfloat16)
+    return gemm_quant.augment_w8(qt) if w8 else qt
+
+
+def _offsets(counts):
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("rows,m,k", [(256, 256, 512), (300, 768, 768), (513, 256, 1280),
+                                       (1, 512, 1024)])
+def test_qmm_w8_matches_plain(cuda, rows, m, k):
+    """Tolerance 1e-4 of max|out|: the same int8 planes and bf16 x, exact
+    products, float32 sums in another order. Ragged rows, a column count off
+    the 128-wide tile (it must be a multiple of 256 to carry planes), and k
+    = 768 and 1280, which zero-pad to the next multiple of 512."""
+    qt = gemm_quant.augment_w8(_weight(m, k, rows))
+    x = torch.randn(rows, k, device=cuda).to(torch.bfloat16)
+    before = _build.launches["qmm_w8"]
+    got = gemm_quant.qmm_w8(x, qt)
+    want = gemm_quant.qmm_w8_plain(x, qt.planes["w8"], qt.planes["dw"])
+    torch.cuda.synchronize()
+    assert _build.launches["qmm_w8"] == before + 1
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w8(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+
+
+def test_w8_planes_on_the_card_equal_the_cpu_planes(cuda):
+    """The planes are computed where the weights lie: the card's int8 values
+    and scales equal the CPU's (true division for the scale, multiply by the
+    reciprocal and round half to even for the values)."""
+    blocks = q4k_blocks(np.random.default_rng(3), 512 * 1280, 0.03)
+    on = {}
+    for dev in ("cuda", "cpu"):
+        qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (512, 1280), dev), torch.bfloat16)
+        on[dev] = gemm_quant.augment_w8(qt).planes
+    assert torch.equal(on["cuda"]["w8"].cpu(), on["cpu"]["w8"])
+    assert torch.equal(on["cuda"]["dw"].cpu(), on["cpu"]["dw"])
+
+
+@pytest.mark.parametrize("w8", [False, True], ids=["q4k", "w8"])
+@pytest.mark.parametrize("counts", [(13, 0, 40, 64), (0, 0, 130, 1), (65, 63, 0, 0), (300,)])
+def test_grouped_matmuls_match_plain(cuda, w8, counts):
+    """The grouped forms at segments that are empty, shorter than a tile, one
+    row over a tile and exact tiles; the first and the last expert empty; one
+    expert only. Tolerance 1e-4 of max|out| as for the dense forms. Every row
+    is written (the output starts as NaN)."""
+    E, m, k = len(counts), 256, 768
+    qt = _stack(E, m, k, sum(counts), w8)
+    xs = torch.randn(sum(counts), k, device=cuda).to(torch.bfloat16)
+    off = _offsets(counts)
+    name = "qmm_w8_grouped" if w8 else "qmm_q4k_grouped"
+    before = _build.launches[name]
+    got = getattr(gemm_quant, name)(xs, qt, off)
+    p = qt.planes
+    if w8:
+        want = gemm_quant.qmm_w8_grouped_plain(xs, p["w8"], p["dw"], off)
+    else:
+        want = gemm_quant.qmm_q4k_grouped_plain(xs, p["qs"], p["dsub"], p["msub"], off)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(getattr(gemm_quant, name)(xs, qt, off, torch.bfloat16),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 16])
+def test_qmm_w4a8_per_row_planes_match_plain(cuda, rows):
+    """Row b against plane[b] of a stack, the index read on the device: 1e-4
+    of max|out| against the plain version, and equal to the one-plane kernel
+    on that row and plane."""
+    qt = _stack(4, 320, 1024, rows)
+    x = torch.randn(rows, 1024, device=cuda).to(torch.bfloat16)
+    plane = torch.randint(0, 4, (rows,), device=cuda, dtype=torch.int32)
+    before = _build.launches["qmm_w4a8"]
+    got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
+    p = qt.planes
+    want = gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)
+    torch.cuda.synchronize()
+    assert _build.launches["qmm_w4a8"] == before + 1
+    assert _rel(got, want) <= 1e-4
+    for b, e in enumerate(plane.tolist()):
+        one = QTensor(qt.kind, qt.shape[1:], {n: t[e] for n, t in p.items()})
+        assert torch.equal(gemm_quant.qmm_w4a8(x[b:b + 1], one), got[b:b + 1])
+
+
+def test_moe_ffn_on_the_card_matches_its_plain_version(cuda):
+    """moe_ffn through the kernels (bf16, W8 planes attached) against
+    moe_ffn_plain on the same card, at 1, 8, 40 and 300 rows: int8
+    activations (<= 16 rows) and the W8 requantization (>= 64 rows) each move
+    the result by about 1% of max|out|, bf16 rounding by less."""
+    from crabml_tpu_torch.models.config import ModelConfig
+    from crabml_tpu_torch.models.forward import moe_ffn, moe_ffn_plain
+
+    E, D, HD = 4, 512, 768
+    cfg = ModelConfig(architecture="llama", model_name="m", embedding_dim=D, hidden_dim=HD,
+                      n_layers=1, n_heads=4, n_kv_heads=1, vocab_size=8, seq_len=8,
+                      rms_norm_eps=1e-5, n_experts=E, n_experts_used=2)
+    lw = {"ffn_gate_inp": torch.randn(E, D, device=cuda).to(torch.bfloat16),
+          "wgu_exps": _stack(E, 2 * HD, D, 1, w8=True),
+          "ffn_down_exps": _stack(E, D, HD, 2, w8=True)}
+    for rows in (1, 8, 40, 300):
+        x = torch.randn(rows, D, device=cuda).to(torch.bfloat16)
+        got, want = moe_ffn(lw, x, cfg), moe_ffn_plain(lw, x, cfg)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (rows, D)
+        assert _rel(got, want) <= 4e-2, rows
+        assert torch.equal(got, moe_ffn(lw, x, cfg))  # deterministic
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,G", [(1, 4), (3, 4), (8, 1)])
 def test_decode_attention_matches_plain(cuda, dtype, T, G):
@@ -266,6 +380,18 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         gemm_quant.qmm_q4k(torch.zeros(32, 256, device=cuda), qt)  # float32 x
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(torch.zeros(17, 256, device=cuda, dtype=torch.bfloat16), qt)
+    x = torch.zeros(32, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w8(x, qt)  # no W8 planes
+    stack = _stack(2, 256, 256, 1)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k(x, stack)  # a stack where one plane is expected
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k_grouped(x, qt, _offsets((32,)))  # one plane where a stack is
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k_grouped(x, stack, _offsets((16, 16)).long())  # int64 offsets
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:2], stack, plane=torch.zeros(2, dtype=torch.int64, device=cuda))
     q = torch.zeros(1, 1, 4, 64, device=cuda)
     kv = torch.zeros(1, 2, 128, 64, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
