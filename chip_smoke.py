@@ -9,13 +9,15 @@ fails:
 1. build: every csrc/*.cu kernel compiles with nvcc for sm_90a (one process
    per source, all started together) and loads through ctypes.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the 7B main path and of 8-slot serving (every form of the
-   decode-attention kernel: dense and paged, bfloat16 and int8, softcap,
-   window, the step's keys in the cache or in their own block) and of the
-   Mixtral path (the W8 matmul at a 512-row chunk; the grouped Q4_K and W8
-   matmuls on 1,024 (row, slot) pairs over 8 experts, one of them empty and
-   the segments ragged; the int8-activation matmul with a plane per row),
-   with the tolerance printed;
+   the shapes of the 7B main path (the flash kernel at a first and a second
+   512-token chunk, the second also with a softcap and with a sliding
+   window, and at the ragged 189-token chunk) and of 8-slot serving (every
+   form of the decode-attention kernel: dense and paged, bfloat16 and int8,
+   softcap, window, the step's keys in the cache or in their own block) and
+   of the Mixtral path (the W8 matmul at 189, 512 and 1,024 rows; the
+   grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs over 8 experts,
+   one of them empty and the segments ragged; the int8-activation matmul
+   with a plane per row), with the tolerance printed;
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -44,7 +46,8 @@ fails:
 9. MoE: a synthetic Mixtral-8x7B Q4_K GGUF cut to 8 of 32 layers, context
    4096; `Runner(path)`, whose default must attach every W8 plane; the
    ~700-token prompt and 128 greedy tokens, twice, identical; the same file
-   with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
+   with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
+   report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
@@ -85,6 +88,7 @@ HOLD_CYCLES = 100_000_000  # ~50 ms of spinning at the H100's ~2 GHz clock
 # main-path shapes of the repo's 7b configuration (Mistral-7B widths)
 DIM, FFN, HEADS, KV_HEADS, HEAD_DIM, VOCAB, CTX = 4096, 14336, 32, 8, 128, 32000, 4096
 PREFILL_CHUNK = 512
+RAGGED_CHUNK = 189  # the ~700-token prompt's second chunk
 PROMPT_SENTENCE = "Once upon a time there was a cat. "
 PROMPT_REPEATS = 14  # ~700 tokens with the synthetic vocab: two prefill chunks
 DECODE_STEPS = 128
@@ -278,7 +282,7 @@ def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, 
 
 
 def check_w8(timer, rows: int, m: int, k: int, seed: int) -> dict:
-    """qmm_w8 at a 512-row prefill chunk of the 7B and Mixtral widths."""
+    """qmm_w8 at a prefill chunk's rows of the 7B and Mixtral widths."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
@@ -395,9 +399,10 @@ def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int) -> dict:
     return rec
 
 
-def _sdpa(q, k_cache, v_cache, pos: int, T: int):
+def _sdpa(q, k_cache, v_cache, pos: int, T: int, window: int = 0):
     """One torch.nn.functional.scaled_dot_product_attention call over the
-    live keys with the same causal bounds (the library yardstick)."""
+    live keys with the same causal bounds and the same sliding window in its
+    mask (the library yardstick)."""
     import torch
     import torch.nn.functional as F
 
@@ -405,11 +410,15 @@ def _sdpa(q, k_cache, v_cache, pos: int, T: int):
     qh = q.transpose(1, 2)  # (B, H, T, hd)
     k, v = k_cache[:, :, :n], v_cache[:, :, :n]
     row = pos + torch.arange(T, device=q.device)[:, None]
-    mask = torch.arange(n, device=q.device)[None, :] <= row
+    col = torch.arange(n, device=q.device)[None, :]
+    mask = col <= row
+    if window:
+        mask = mask & (col > row - window)
     return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_attention(timer, name: str, T: int, pos: int, seed: int) -> dict:
+def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: float = 0.0,
+                    window: int = 0) -> dict:
     import torch
 
     from crabml_tpu_torch.ops.cuda import decode_attention as da
@@ -426,35 +435,44 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int) -> dict:
         kn, vn = (c[:, :, pos : pos + T].contiguous() for c in (kc, vc))
         kernel = lambda: da.decode_attention_fused(  # noqa: E731
             q, kc[None], vc[None], 0, posv, scale, kn, vn)
+    elif name == "decode_attention":
+        kernel = lambda: da.decode_attention(q, kc, vc, posv, scale)  # noqa: E731
     else:
-        wrapper = da.decode_attention if name == "decode_attention" else fa.flash_attention
-        kernel = lambda: wrapper(q, kc, vc, posv, scale)  # noqa: E731
-    plain = lambda: fa.flash_attention_plain(q, kc, vc, posv, scale)  # noqa: E731
-    library = lambda: _sdpa(q, kc, vc, pos, T)  # noqa: E731
+        kernel = lambda: fa.flash_attention(q, kc, vc, posv, scale, softcap, window)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, kc, vc, posv, scale, softcap, window)  # noqa: E731
+    # SDPA has no softcap: no library time for that form
+    library = None if softcap else lambda: _sdpa(q, kc, vc, pos, T, window)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     # float32 softmax on both sides; each output rounds to bfloat16 once,
-    # so the two may differ by one bf16 unit (2^-8 relative) of the value
+    # so the two may differ by one bf16 unit (2^-8 relative) of the value.
+    # The flash kernel also rounds the probabilities to bfloat16 for its
+    # second product: errors of 2^-9 a key that average out over a row
     tol = 2.0 ** -7
     ok = math.isfinite(err) and err <= tol * ref
-    n_keys = pos + T
+    # what this run's mask needs: the keys some row sees, read once, and the
+    # live (query, key) pairs
+    first_key = max(0, pos - window + 1) if window else 0
+    n_keys = pos + T - first_key
     qo_bytes = 2 * B * T * HEADS * HEAD_DIM * 2  # q read and out written, bf16
     kv_bytes = 2 * B * KV_HEADS * n_keys * HEAD_DIM * 2  # live keys and values
-    pairs = sum(pos + t + 1 for t in range(T))  # causal (query, key) pairs per head
+    pairs = sum(min(pos + t + 1, window or pos + t + 1) for t in range(T))  # per head
     b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * HEADS * HEAD_DIM * pairs, "bf16")
+    form = (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else "")
     rec = {
-        "shape": f"B={B} T={T} pos={pos} H={HEADS} KV={KV_HEADS} hd={HEAD_DIM} S={S}",
+        "shape": f"B={B} T={T} pos={pos} H={HEADS} KV={KV_HEADS} hd={HEAD_DIM} S={S}{form}",
         "max_abs_err": err, "max_abs_ref": ref,
-        "tolerance": f"max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
-        "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain), "library_ms": timer(library),
+        "tolerance": "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
+        "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
+        "library_ms": timer(library) if library else None,
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    lib = f"{rec['library_ms']:.4f} ms" if library else "none (no softcap in SDPA)"
     say(f"{name} {rec['shape']}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
         f"{rec['tolerance']}) {'ok' if ok else 'FAILED'}; {rec['ms']:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"plain {rec['plain_ms']:.4f} ms, sdpa {lib}, bound {b_ms:.4f} ms ({b_by})")
     return rec
 
 
@@ -608,9 +626,17 @@ def phase_kernels() -> dict[str, list[dict]]:
                      check_matmul(timer, "qmm_w4a8", 1, VOCAB, DIM, 5)],
         "decode_attention": [check_attention(timer, "decode_attention", 1, 1000, 6)],
         "decode_attention_fused": [check_attention(timer, "decode_attention_fused", 1, 1000, 6)],
+        # a first and a second 512-token chunk; the second with the softcap
+        # and with a sliding window; the main path's ragged second chunk
         "flash_attention": [check_attention(timer, "flash_attention", PREFILL_CHUNK, 0, 7),
                             check_attention(timer, "flash_attention", PREFILL_CHUNK,
-                                            PREFILL_CHUNK, 8)],
+                                            PREFILL_CHUNK, 8),
+                            check_attention(timer, "flash_attention", PREFILL_CHUNK,
+                                            PREFILL_CHUNK, 9, softcap=50.0),
+                            check_attention(timer, "flash_attention", PREFILL_CHUNK,
+                                            PREFILL_CHUNK, 10, window=256),
+                            check_attention(timer, "flash_attention", RAGGED_CHUNK,
+                                            PREFILL_CHUNK, 11)],
     }
     # every form of the decode kernel at the 8-slot serving shape; the first
     # record of a name is the one the kernels line reports
@@ -628,7 +654,9 @@ def phase_kernels() -> dict[str, list[dict]]:
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
     checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, qkv_m, DIM, 40),
-                        check_w8(timer, PREFILL_CHUNK, DIM, FFN, 41)]
+                        check_w8(timer, PREFILL_CHUNK, DIM, FFN, 41),
+                        check_w8(timer, RAGGED_CHUNK, qkv_m, DIM, 47),
+                        check_w8(timer, 2 * PREFILL_CHUNK, qkv_m, DIM, 48)]
     for name in ("qmm_q4k_grouped", "qmm_w8_grouped"):
         checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
                         check_grouped(timer, name, DIM, FFN, 43)]
@@ -766,12 +794,15 @@ def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
     rates["q4k"].append(_prefill_only(plain, prompt))
     launches_q4k = {k: v for k, v in _build.launches.items()}
     rates["w8"].append(_prefill_only(runner, prompt))
+    ratio = statistics.mean(rates["w8"]) / statistics.mean(rates["q4k"])
+    wins = "w8" if ratio >= 1.0 else "q4k"
     say(f"{what} prefill, W8 planes against Q4_K only (tok/s, in turns): W8 "
         f"{rates['w8'][0]:.1f} and {rates['w8'][1]:.1f}, Q4_K {rates['q4k'][0]:.1f} and "
-        f"{rates['q4k'][1]:.1f}; matmul launches of one W8 and one Q4_K prefill {launches}")
+        f"{rates['q4k'][1]:.1f}: the {'W8 planes win' if wins == 'w8' else 'Q4_K-only route wins'}"
+        f" ({ratio:.3f}x of Q4_K only); matmul launches of one W8 and one Q4_K prefill {launches}")
     del plain
     torch.cuda.empty_cache()
-    return {"prefill_tok_s": rates, "launches": launches_q4k}
+    return {"prefill_tok_s": rates, "w8_over_q4k": ratio, "wins": wins, "launches": launches_q4k}
 
 
 def _one_run(runner, prompt: str, launches) -> dict:

@@ -2,34 +2,66 @@
 //
 // Replaces crabml_tpu/ops/pallas/flash_attention.py::_kernel (launcher _flash,
 // pallas_call at :139). Each sequence's first new row sits at cache offset
-// pos[b]; row (t, g) of kv group `kv` sees keys j <= pos[b] + t. The G q heads
-// of a kv group are stacked as rows of one block, so every K/V tile is read
-// once per group, and the block keeps a running max, denominator and output
-// accumulator (online softmax) across its key tiles.
+// pos[b]; row (t, g) of kv group `kv` sees keys j <= pos[b] + t and, with a
+// sliding window, j > pos[b] + t - window. The scores may be capped as
+// cap * tanh(s / cap) before masking. The G q heads of a kv group are stacked
+// as rows of one tile, so every K/V tile is read once per group, and a running
+// max, denominator and output accumulator (online softmax) are carried across
+// the key tiles. Key tiles wholly above the diagonal, or wholly outside the
+// window of the block's first row, are not visited. A row that sees no key
+// gives 0.
 //
-// Bound on the H100: at the main path's 512-token chunks attention is a small
-// share of a chunk's work (~2% of the matmul flops at 7B); per layer it moves
-// ~2-4 MB and does ~2 GFLOP, so it is compute-bound for the card's tensor
-// cores but the kernel as written runs on the CUDA cores in float32. Design: a
-// block owns 64 rows (64/G tokens x G heads) and walks 64-key tiles up to its
-// causal bound, skipping tiles wholly above the diagonal. Q, K and V tiles are
-// staged in shared memory as float32 (padded rows avoid bank conflicts); each
-// of the 256 threads computes a 4x4 block of scores and a 4x8 block of the
-// output. Ragged T and S are masked in the kernel. Tensor-core (mma/wgmma)
-// tiles are the next step for speed.
+// Bound on the H100: at the main path's 512-token chunks a layer's attention
+// moves 2-4 MB and does 1-2 GFLOP: microseconds of tensor-core or memory time,
+// so the kernel is bound by how well one wave of blocks keeps the tensor cores
+// fed, not by the card's peak.
+//
+// bfloat16 entry (flash_tc_kernel): both products run on the tensor cores with
+// wgmma (bf16 in, f32 accumulators in registers). A block is two warpgroups;
+// each owns 64 stacked rows (64 / G tokens x G heads) and both walk the same
+// 64-key tiles, so a tile is read once for 128 rows. K and V tiles stay bf16
+// in shared memory in the 128-byte-swizzled layout wgmma reads, in a ring of
+// three stages filled by cp.async two tiles ahead (keys past the block's
+// causal bound are zero-filled, so an unwritten cache row never reaches the
+// arithmetic); one __syncthreads a tile. S = Q K^T reads Q (loaded once,
+// unscaled) and K from shared memory; the f32 scores are scaled, capped,
+// masked and exponentiated in registers (exp2 with log2 e folded into the
+// scale), rounded to bf16 and fed to the second wgmma as its register A
+// operand: P never touches shared memory. V, (keys, hd) row-major, is the
+// MN-major B operand (transposed-B form of the descriptor), one 64-wide block
+// of the head dimension per instruction. Only tiles that cross the diagonal
+// or the window's edge pay for the mask.
+//
+// float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
+// would round the inputs to TF32 or bf16 where the TPU kernel asks for full
+// precision. A block owns 64 rows; Q, K and V tiles are staged in shared
+// memory as float32; each of the 256 threads computes a 4x4 block of scores
+// and a 4x(hd/16) block of the output.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BR = 64;  // rows (tokens x heads) per block
+constexpr int BR = 64;  // rows (tokens x heads) per warpgroup (f32 kernel: per block)
 constexpr int BC = 64;  // keys per tile
-constexpr int NT = 256; // 16 x 16 threads
+constexpr int NT = 256; // threads of a block, both kernels
+constexpr float LOG2E = 1.4426950408889634f;
+
+// First key tile a block visits: with a window, tiles whose last key lies
+// outside the window of the block's first row are skipped.
+__device__ __forceinline__ int first_tile(int first_row_pos, int window) {
+    return window > 0 ? max(0, first_row_pos - window + 1) / BC : 0;
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const int* __restrict__ pos, T* __restrict__ out, int KV, int S, int T_, int G,
-             float scale) {
+             float scale, float softcap, int window) {
     extern __shared__ float smem[];
     float* Qs = smem;                    // [BR][HD + 1]
     float* Ks = Qs + BR * (HD + 1);      // [BC][HD + 1]
@@ -54,7 +86,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
     constexpr int NO = HD / 16;  // output columns per thread
     float m[4], l[4], acc[4][NO];
-    int rbound[4];  // last visible key of each owned row
+    int rbound[4], rfirst[4];  // last and first visible key of each owned row
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         m[i] = CRABML_NEG_INF; l[i] = 0.f;
@@ -62,11 +94,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         for (int j = 0; j < NO; ++j) acc[i][j] = 0.f;
         const int r = ty + 16 * i;
         rbound[i] = p0 + t0 + r % bq;
+        rfirst[i] = window > 0 ? rbound[i] - window + 1 : 0;
     }
     const int last_key = p0 + min(t0 + bq, T_) - 1;  // causal bound of the block
     const int n_tiles = last_key / BC + 1;
 
-    for (int kt = 0; kt < n_tiles; ++kt) {
+    for (int kt = first_tile(p0 + t0, window); kt < n_tiles; ++kt) {
         const int k0 = kt * BC;
         __syncthreads();  // previous tile's readers are done
         for (int i = tid; i < BC * HD; i += NT) {
@@ -99,14 +132,23 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
                 for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kvr[j];
         }
+        if (softcap > 0.f) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s[i][j] = softcap * tanhf(s[i][j] / softcap);
+        }
 
         // online softmax over this tile; a row's 16 owners share a half-warp
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             float mx = CRABML_NEG_INF;
+            bool live[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                if (k0 + tx + 16 * j > rbound[i]) s[i][j] = CRABML_NEG_INF;
+                const int col = k0 + tx + 16 * j;
+                live[j] = col <= rbound[i] && col >= rfirst[i];
+                if (!live[j]) s[i][j] = CRABML_NEG_INF;
                 mx = fmaxf(mx, s[i][j]);
             }
 #pragma unroll
@@ -116,7 +158,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
             float rs = 0.f;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                const float p = (k0 + tx + 16 * j > rbound[i]) ? 0.f : __expf(s[i][j] - m_new);
+                const float p = live[j] ? __expf(s[i][j] - m_new) : 0.f;
                 Ps[(ty + 16 * i) * (BC + 1) + tx + 16 * j] = p;
                 rs += p;
             }
@@ -157,7 +199,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
-           int KV, int S, int T_, int G, float scale, cudaStream_t stream) {
+           int KV, int S, int T_, int G, float scale, float softcap, int window,
+           cudaStream_t stream) {
     const size_t smem = sizeof(float) * (BR * (HD + 1) + BC * (HD + 1) + BC * HD + BR * (BC + 1));
     cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -165,7 +208,235 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
     const int bq = BR / G;
     dim3 grid((T_ + bq - 1) / bq, KV, B);
     flash_kernel<T, HD><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                    (const int*)pos, (T*)out, KV, S, T_, G, scale);
+                                                    (const int*)pos, (T*)out, KV, S, T_, G, scale,
+                                                    softcap, window);
+    return crabml_launch_status();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma, cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int NWG = NT / 128;  // warpgroups of a block, 64 stacked rows each
+constexpr int STAGES = 3;      // K/V tiles in flight (loads run two tiles ahead)
+
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// A tile of 64 rows x HD bf16 lies in shared memory as HD / 64 blocks of 64
+// rows x 128 bytes, each block swizzled: the operand layout of wgmma, K-major
+// when a row is a q row or a key of S = Q K^T, MN-major for V in O += P V.
+template <int HD> struct Tile {
+    static constexpr int BYTES = 64 * HD * 2;
+    static constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
+    static __device__ __forceinline__ uint32_t offset(int r, int c) {
+        return (uint32_t)((c >> 3) * 8192) + wg::swz128(r, c & 7);
+    }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
+                int KV, int S, int T_, int G, float scale, float softcap, int window) {
+    using TL = Tile<HD>;
+    extern __shared__ uint8_t smem_raw[];
+    // 1,024-byte alignment of every tile: [NWG] Q tiles, then STAGES x (K, V)
+    const uint32_t base = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_s = base;
+    const uint32_t kv_s = base + NWG * TL::BYTES;
+
+    const int tid = threadIdx.x;
+    const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int qd = lane % 4, rw = lane / 4;
+    const int bq = BR / G;  // tokens per warpgroup
+    const int kv = blockIdx.y, b = blockIdx.z;
+    const int H = KV * G;
+    const int p0 = pos[b];
+    const int t0_blk = blockIdx.x * NWG * bq;
+    const int t0 = t0_blk + wgi * bq;  // this warpgroup's first token
+    const size_t head = ((size_t)b * KV + kv) * S;
+
+    const int last_key = p0 + min(t0_blk + NWG * bq, T_) - 1;  // causal bound of the block
+    const int kt_begin = first_tile(p0 + t0_blk, window);
+    const int n_tiles = last_key / BC + 1 - kt_begin;
+
+    // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T are zeros
+    for (int i = tid; i < NWG * 64 * TL::CHUNKS; i += NT) {
+        const int w = i / (64 * TL::CHUNKS), r = i / TL::CHUNKS % 64, c = i % TL::CHUNKS;
+        const int g = r / bq, t = t0_blk + w * bq + r % bq;
+        const bool ok = t < T_;
+        const bf16* src = q + ((size_t)(b * T_ + (ok ? t : 0)) * H + kv * G + g) * HD + c * 8;
+        wg::cp_async16(q_s + w * TL::BYTES + TL::offset(r, c), src, ok);
+    }
+    auto load_tile = [&](int i) {  // key tile kt_begin + i into stage i % STAGES
+        const int k0 = (kt_begin + i) * BC;
+        const uint32_t ks = kv_s + (i % STAGES) * 2 * TL::BYTES, vs = ks + TL::BYTES;
+        for (int e = tid; e < 64 * TL::CHUNKS; e += NT) {
+            const int r = e / TL::CHUNKS, c = e % TL::CHUNKS;
+            const int j = k0 + r;
+            const bool ok = j <= last_key;
+            const size_t at = (head + (ok ? j : 0)) * HD + c * 8;
+            wg::cp_async16(ks + TL::offset(r, c), k + at, ok);
+            wg::cp_async16(vs + TL::offset(r, c), v + at, ok);
+        }
+    };
+    load_tile(0);
+    wg::cp_async_commit();
+    if (n_tiles > 1) load_tile(1);
+    wg::cp_async_commit();
+
+    // this thread's two rows of the warpgroup's 64: r_lo = 16 warp + rw, r_lo + 8
+    int row_pos[2], row_first[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + rw + 8 * h;
+        row_pos[h] = p0 + t0 + r % bq;
+        row_first[h] = window > 0 ? row_pos[h] - window + 1 : 0;
+    }
+    const bool wg_idle = t0 >= T_;
+    const int wg_last = p0 + min(t0 + bq, T_) - 1;  // last key any row of the warpgroup sees
+    const int wg_first_row = p0 + t0;
+    const float sc2 = softcap > 0.f ? scale / softcap : scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+
+    float m[2] = {CRABML_NEG_INF, CRABML_NEG_INF}, l[2] = {0.f, 0.f};
+    float o[HD / 64][32];
+#pragma unroll
+    for (int nb = 0; nb < HD / 64; ++nb)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
+
+    const uint64_t q_desc = wg::desc128(q_s + wgi * TL::BYTES);
+
+    for (int i = 0; i < n_tiles; ++i) {
+        wg::cp_async_wait<1>();  // tile i has landed (this thread's part)
+        wg::fence_async_proxy();
+        __syncthreads();  // everyone's part has, and tile i - 1 is no longer read
+        if (i + 2 < n_tiles) load_tile(i + 2);
+        wg::cp_async_commit();
+
+        const int k0 = (kt_begin + i) * BC;
+        // tiles above this warpgroup's diagonal or left of its window: nothing to add
+        if (wg_idle || k0 > wg_last || (window > 0 && k0 + BC - 1 < wg_first_row - window + 1))
+            continue;
+        const uint32_t ks = kv_s + (i % STAGES) * 2 * TL::BYTES, vs = ks + TL::BYTES;
+
+        float s[32];
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t step = (kk / 4) * 8192 + (kk % 4) * 32;
+            wg::Mma<64>::ss<0>(s, q_desc + (step >> 4), wg::desc128(ks + step), kk != 0);
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::pin(s);
+
+        // scores in the log2 domain: scale, cap, mask
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+            float x = s[e] * sc2;
+            if (softcap > 0.f) x = cap2 * tanhf(x);
+            s[e] = x;
+        }
+        const bool masked = k0 + BC - 1 > wg_first_row ||
+                            (window > 0 && k0 < wg_last - window + 1);
+        if (masked) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) {
+                const int col = k0 + 8 * (e / 4) + 2 * qd + (e & 1), h = (e >> 1) & 1;
+                if (col > row_pos[h] || col < row_first[h]) s[e] = CRABML_NEG_INF;
+            }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float mx = CRABML_NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[h], mx);
+            alpha[h] = fast_exp2(m[h] - m_new);
+            m[h] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+            const int h = (e >> 1) & 1;
+            float p = fast_exp2(s[e] - m[h]);
+            if (masked && s[e] == CRABML_NEG_INF) p = 0.f;  // also where the whole row is dead
+            s[e] = p;
+            rs[h] += p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];  // summed over the quad at the end
+#pragma unroll
+        for (int nb = 0; nb < HD / 64; ++nb)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) o[nb][e] *= alpha[(e >> 1) & 1];
+
+        // P as the register A operand: accumulator pairs, 16 keys per k step
+        uint32_t p[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+                p[kk][a] = wg::pack_bf16(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
+
+#pragma unroll
+        for (int nb = 0; nb < HD / 64; ++nb) wg::pin(o[nb]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wg::pin(p[kk]);
+        wg::fence();
+#pragma unroll
+        for (int nb = 0; nb < HD / 64; ++nb)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wg::Mma<64>::rs<1>(o[nb], p[kk], wg::desc128(vs + nb * 8192 + kk * 2048), 1);
+        wg::commit();
+        wg::wait<0>();
+#pragma unroll
+        for (int nb = 0; nb < HD / 64; ++nb) wg::pin(o[nb]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wg::pin(p[kk]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = 16 * warp + rw + 8 * h;
+        const int g = r / bq, t = t0 + r % bq;
+        if (t >= T_) continue;
+        const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        bf16* dst = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + 2 * qd;
+#pragma unroll
+        for (int nb = 0; nb < HD / 64; ++nb)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                *reinterpret_cast<uint32_t*>(dst + nb * 64 + 8 * j) = wg::pack_bf16(
+                    o[nb][4 * j + 2 * h] * inv, o[nb][4 * j + 2 * h + 1] * inv);
+    }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
+              int KV, int S, int T_, int G, float scale, float softcap, int window,
+              cudaStream_t stream) {
+    const size_t smem = (NWG + 2 * STAGES) * Tile<HD>::BYTES + 1024;
+    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const int bq = NWG * (BR / G);  // tokens per block
+    dim3 grid((T_ + bq - 1) / bq, KV, B);
+    flash_tc_kernel<HD><<<grid, NT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)pos, (bf16*)out, KV, S, T_, G,
+        scale, softcap, window);
     return crabml_launch_status();
 }
 
@@ -173,16 +444,19 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G must
-// divide 64; hd is 64 or 128. dtype 0 = bfloat16, 1 = float32.
+// divide 64; hd is 64 or 128. dtype 0 = bfloat16, 1 = float32. softcap 0 = no
+// cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
-                               int G, int hd, float scale, void* stream) {
+                               int G, int hd, float scale, float softcap, int window,
+                               void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (hd == 128)
-        return dtype == 0 ? launch<bf16, 128>(q, k, v, pos, out, B, KV, S, T, G, scale, s)
-                          : launch<float, 128>(q, k, v, pos, out, B, KV, S, T, G, scale, s);
-    if (hd == 64)
-        return dtype == 0 ? launch<bf16, 64>(q, k, v, pos, out, B, KV, S, T, G, scale, s)
-                          : launch<float, 64>(q, k, v, pos, out, B, KV, S, T, G, scale, s);
-    return (int)cudaErrorInvalidValue;
+    if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return hd == 128
+            ? launch_tc<128>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
+            : launch_tc<64>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s);
+    return hd == 128
+        ? launch<float, 128>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
+        : launch<float, 64>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s);
 }

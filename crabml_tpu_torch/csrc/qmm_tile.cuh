@@ -1,11 +1,12 @@
-// The tile loop shared by the tensor-core matmuls (qmm_q4k.cu, qmm_w8.cu).
+// The WMMA tile loop of the Q4_K tensor-core matmul (qmm_q4k.cu, dense and
+// grouped). The W8 matmul runs the wgmma loop of qmm_pipe.cuh instead.
 //
 // A block computes a 64-row x 128-column output tile with eight warps of
 // bf16 WMMA (16x16x16, f32 accumulation), sweeping k in steps of 64 over an x
-// tile and a weight tile staged in shared memory. Each source fills the
-// weight tile its own way (Q4_K dequant, int8 convert); everything else is
-// here, and so is the one thing in which a dense and a grouped matmul differ:
-// which rows a block's tile covers and which weight plane they multiply.
+// tile and a weight tile staged in shared memory. The source fills the
+// weight tile (Q4_K dequant); everything else is here, and so is the one
+// thing in which a dense and a grouped matmul differ: which rows a block's
+// tile covers and which weight plane they multiply.
 //
 // Dense (offsets == nullptr): tile t covers rows [64 t, M) of plane 0.
 // Grouped: the rows are sorted by plane and offsets (n_planes + 1) holds each

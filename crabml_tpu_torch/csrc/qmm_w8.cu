@@ -5,137 +5,120 @@
 // :600), the grouped entry qmm_w8_grouped_bf16 for _run_grouped_w8 (:870),
 // where rows sorted by expert multiply their own expert's planes: one kernel,
 // which differs between the two only in where a row tile starts and which
-// plane it reads (qmm_tile.cuh::find_tile).
+// plane it reads (qmm_pipe.cuh::find_tile).
 //
 // The planes hold the exact dequantized weights requantized to int8 with one
 // float32 scale per (output column, 512-deep k chunk). Per chunk the kernel
 // multiplies bf16 x by the int8 weights converted to bf16 (exact) with f32
 // accumulation, then multiplies the chunk's partial sum by the column's scale
-// in f32 and adds it to the f32 total. The scale belongs to the partial sum,
-// not to the weights, so each warp keeps two sets of accumulators: the
-// chunk's, cleared every 512 elements of k, and the running total.
+// in f32 and adds it to the f32 total, rounded once to the output type at the
+// end. The scale belongs to the partial sum, not to the weights, so each
+// thread keeps two sets of accumulators: the chunk's, which wgmma restarts
+// every 512 elements of k, and the running total.
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks
 // (2 x 512 x 6144 x 4096 against 25 MB of int8 for the fused q|k|v), bytes
 // for the grouped MoE form, where 1,024 (row, slot) pairs read all eight
-// experts' int8 planes. Against qmm_q4k the weight tile costs one convert per
-// element instead of an unpack, a multiply and an add, for twice the bytes;
-// the tile loop, its shared-memory staging and its bf16 WMMA are the same
-// (qmm_tile.cuh), and so are the next steps for speed (cp.async or TMA
-// pipeline, wgmma). The per-chunk scale rides in an accumulator fragment that
-// is loaded from a 16x16 shared tile whose rows all hold the 16 columns'
-// scales: fragments of one type share their element layout, so the update is
-// elementwise in registers.
-#include "qmm_tile.cuh"
-
-using namespace qmm;
+// experts' int8 planes. The design (qmm_pipe.cuh) goes for the tensor cores'
+// rate: wgmma m64 x N x k16 on the output tile transposed, with the weights
+// as the register A operand and the x tile as B in swizzled shared memory,
+// fed by a six-stage cp.async ring that stages the *raw int8* weight tile
+// (half the bytes of a bf16 one). Of the two ways to turn int8 into a wgmma
+// operand, this one (convert in the consumer threads, straight into the
+// A-fragment registers) was taken over dedicated converter warps writing a
+// second bf16 buffer, because the converted weights then cost no
+// shared-memory traffic and no extra synchronization, and the column scale
+// becomes a row scale: two registers a thread instead of a broadcast tile.
+//
+// This file is the weight source of that loop: how an int8 tile is staged and
+// how a thread builds its A fragments from it. A thread owns weight rows c and
+// c + 8 and, in each 8-wide group of k, the pair k = 2 q, 2 q + 1 (q = lane %
+// 4). It reads the 32-bit word that holds its pair (two lanes of a quad share
+// a word: a broadcast) and converts the pair with four integer and bf16
+// instructions, exactly: see convert_pair. The staged tile's 16-byte chunks
+// are XOR-swizzled by row so that the eight rows a warp reads at once fall
+// into different banks.
+#include "qmm_pipe.cuh"
 
 namespace {
 
-constexpr int KSC = 512;  // k elements per scale chunk (gemm_quant.py W8_KSC)
+struct W8Source {
+    static constexpr int TILE_BYTES = qpipe::BW * qpipe::BK;  // int8
+    static constexpr int KSC = 512;  // k elements per scale chunk (gemm_quant.py W8_KSC)
 
-template <typename OutT>
-__global__ void __launch_bounds__(NT)
-qmm_w8_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w8,
-              const float* __restrict__ dw, OutT* __restrict__ out,
-              const int* __restrict__ offsets, int n_planes, int M, int N, int K) {
-    __shared__ __align__(128) bf16 As[BM][LDS];
-    __shared__ __align__(128) bf16 Bs[BN][LDS];
-    __shared__ __align__(128) float Cs[NT / 32][16 * 16];
+    const int8_t* w8;  // (planes, N, K)
+    const float* dw;   // (planes, N, K / KSC)
+    int S8;            // scale chunks per weight row
 
-    Tile tile;
-    if (!find_tile(offsets, n_planes, M, blockIdx.y, tile)) return;
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        S8 = K / KSC;
+        w8 += (size_t)plane * N * K;
+        dw += (size_t)plane * N * S8;
+    }
 
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 4, wn = warp % 4;
-    const int n0 = blockIdx.x * BN;
-    const int S8 = K / KSC;  // scale chunks per weight row
-    w8 += (size_t)tile.plane * N * K;
-    dw += (size_t)tile.plane * N * S8;
+    // 16-byte chunk c (0..3) of tile row r
+    static __device__ __forceinline__ uint32_t chunk(int r, int c) {
+        return (uint32_t)(r * qpipe::BK + ((c ^ ((r >> 1) & 3)) << 4));
+    }
 
-    Acc total[2][2], acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(total[i][j], 0.0f);
-
-    // weight-tile role of this thread: column n, half h of the 64 int8 of a step
-    const int bn = tid / 2, bh = tid % 2;
-    const int col = n0 + bn;
-
-    for (int c = 0; c < S8; ++c) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-        for (int k0 = c * KSC; k0 < (c + 1) * KSC; k0 += BK) {
-            load_x_tile(As, x, tile, K, k0, tid);
-            // weight tile: 32 int8 -> 32 bf16 (every int8 is exact in bf16)
-            {
-                __align__(16) bf16 vals[32];
-                if (col < N) {
-                    const uint4* src = reinterpret_cast<const uint4*>(
-                        w8 + (size_t)col * K + k0 + bh * 32);
-                    const uint4 w0 = src[0], w1 = src[1];
-                    const uint32_t words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-                    for (int wi = 0; wi < 8; ++wi)
-#pragma unroll
-                        for (int bi = 0; bi < 4; ++bi)
-                            vals[wi * 4 + bi] = __float2bfloat16_rn(
-                                (float)(int8_t)((words[wi] >> (8 * bi)) & 0xffu));
-                } else {
-#pragma unroll
-                    for (int e = 0; e < 32; ++e) vals[e] = __float2bfloat16_rn(0.0f);
-                }
-                uint4* dst = reinterpret_cast<uint4*>(&Bs[bn][bh * 32]);
-#pragma unroll
-                for (int v = 0; v < 4; ++v) dst[v] = reinterpret_cast<uint4*>(vals)[v];
-            }
-            __syncthreads();
-            mma_step(acc, As, Bs, wm, wn);
-            __syncthreads();
-        }
-
-        // total += acc * dw[column, c]: mul then add, each rounded, in f32
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            float* Cw = Cs[warp];
-            for (int e = lane; e < 256; e += 32) {
-                const int cc = n0 + wn * 32 + j * 16 + e % 16;
-                Cw[e] = cc < N ? dw[(size_t)cc * S8 + c] : 0.0f;
-            }
-            __syncwarp();
-            Acc scale;
-            wmma::load_matrix_sync(scale, Cw, 16, wmma::mem_row_major);
-            __syncwarp();
+    // A thread copies chunk tid % 4 of tile rows tid / 4 and tid / 4 + 64.
+    struct Stager {
+        const int8_t* src[2];
+        uint32_t dst;
+        bool ok[2];
+        __device__ __forceinline__ void start(uint32_t tile, int k0) const {
 #pragma unroll
             for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int t = 0; t < scale.num_elements; ++t)
-                    total[i][j].x[t] = __fadd_rn(total[i][j].x[t],
-                                                 __fmul_rn(acc[i][j].x[t], scale.x[t]));
+                wg::cp_async16(tile + dst + i * 64 * qpipe::BK, src[i] + k0, ok[i]);
         }
+    };
+    __device__ __forceinline__ Stager stager(int n0, int N, int K, int tid) const {
+        Stager s;
+        const int r = tid / 4, c = tid % 4;
+        s.dst = chunk(r, c);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            s.ok[i] = n0 + r + 64 * i < N;
+            s.src[i] = w8 + (size_t)(s.ok[i] ? n0 + r + 64 * i : 0) * K + c * 16;
+        }
+        return s;
     }
-    store_tile<OutT>(total, Cs[warp], out, tile, n0, N, wm, wn, lane);
-}
 
-int launch(const void* x, const void* w8, const void* dw, void* out, int out_bf16,
-           const int* offsets, int n_planes, int tiles, int M, int N, int K, void* stream) {
-    dim3 grid((N + BN - 1) / BN, tiles);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (out_bf16)
-        qmm_w8_kernel<bf16><<<grid, NT, 0, s>>>((const bf16*)x, (const int8_t*)w8,
-                                                 (const float*)dw, (bf16*)out, offsets,
-                                                 n_planes, M, N, K);
-    else
-        qmm_w8_kernel<float><<<grid, NT, 0, s>>>((const bf16*)x, (const int8_t*)w8,
-                                                  (const float*)dw, (float*)out, offsets,
-                                                  n_planes, M, N, K);
-    return crabml_launch_status();
-}
+    // bytes b0, b1 of w picked by `sel` (two int8) -> one bf16 pair, exactly:
+    // 0x43xx with xx = b & 0x7f is 128 + (b & 0x7f); minus 128, or minus 256
+    // where b is negative, is b, and bf16 holds every integer up to 256.
+    static __device__ __forceinline__ uint32_t convert_pair(uint32_t w, uint32_t sel) {
+        const uint32_t full = __byte_perm(w, 0x43434343u, sel);  // [b0, 0x43, b1, 0x43]
+        uint32_t p = full & 0xFF7FFF7Fu;
+        uint32_t c = (full & 0x00800080u) | 0x43004300u;
+        const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&p),
+                                         *reinterpret_cast<__nv_bfloat162*>(&c));
+        return *reinterpret_cast<const uint32_t*>(&r);
+    }
+
+    // Weight rows c_lo and c_lo + 8; in each 8-wide group of k the pair k = 2 qd,
+    // 2 qd + 1, which is half of the group's 32-bit word qd / 2.
+    __device__ __forceinline__ void fragments(uint32_t (&a)[4][4], const uint8_t* tile, int c_lo,
+                                              int qd) const {
+        const uint32_t b = 2u * (qd & 1);
+        const uint32_t sel = 0x4040u | b | ((b + 1) << 8);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const uint32_t* w = reinterpret_cast<const uint32_t*>(
+                    tile + chunk(c_lo + 8 * h, kk)) + (qd >> 1);
+                a[kk][h] = convert_pair(w[0], sel);      // k = 0..7 of the step
+                a[kk][2 + h] = convert_pair(w[2], sel);  // k = 8..15
+            }
+    }
+
+    __device__ __forceinline__ void scales(float (&sc)[2], int row, int N, int chunk_i) const {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            sc[h] = row + 8 * h < N ? dw[(size_t)(row + 8 * h) * S8 + chunk_i] : 0.f;
+    }
+};
 
 }  // namespace
 
@@ -144,7 +127,8 @@ int launch(const void* x, const void* w8, const void* dw, void* out, int out_bf1
 // padded, and checks shapes and alignment.
 extern "C" int qmm_w8_bf16(const void* x, const void* w8, const void* dw, void* out,
                            int out_bf16, int M, int N, int K, void* stream) {
-    return launch(x, w8, dw, out, out_bf16, nullptr, 1, (M + BM - 1) / BM, M, N, K, stream);
+    const W8Source w{(const int8_t*)w8, (const float*)dw, 0};
+    return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
 }
 
 // The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
@@ -153,6 +137,7 @@ extern "C" int qmm_w8_bf16(const void* x, const void* w8, const void* dw, void* 
 extern "C" int qmm_w8_grouped_bf16(const void* x, const void* w8, const void* dw, void* out,
                                    int out_bf16, const void* offsets, int n_planes, int M,
                                    int N, int K, void* stream) {
-    return launch(x, w8, dw, out, out_bf16, (const int*)offsets, n_planes,
-                  grouped_tiles(M, n_planes), M, N, K, stream);
+    const W8Source w{(const int8_t*)w8, (const float*)dw, 0};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

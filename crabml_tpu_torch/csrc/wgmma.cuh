@@ -1,0 +1,212 @@
+// Warpgroup matrix multiply (wgmma) and asynchronous-copy helpers for sm_90a.
+//
+// Thin wrappers over the PTX that the tensor-core kernels of this directory
+// (flash_attention.cu, qmm_pipe.cuh) are written with. A warpgroup is four
+// consecutive warps; every wgmma here is m64 x N x k16 with bfloat16 inputs
+// and float32 accumulators held in registers.
+//
+// Fragment layouts (thread t of the warpgroup, w = t / 32, r = t % 32 / 4,
+// q = t % 4):
+//   accumulator d[4 j + 2 h + e] = D[16 w + r + 8 h][8 j + 2 q + e]
+//   register A   a[2 g + h]      = A[16 w + r + 8 h][8 g + 2 q + {0, 1}]
+//                                  (two bf16, the lower k in the lower half)
+// so the accumulator of one product, rounded to bf16 pair by pair, is already
+// the A fragment of the next (the softmax's P in flash_attention.cu).
+//
+// Shared-memory operands use the 128-byte swizzle: a tile is rows of 128
+// bytes in groups of eight (1,024 bytes, the alignment of a tile), and the
+// 16-byte chunk c of row r lies at chunk c ^ (r % 8) (`swz128`). The same
+// bytes serve as a K-major operand (a row is one m or n index, 64 bf16 of k;
+// a k16 step advances the start address by 32 bytes) and as an MN-major one
+// (a row is one k index, 64 bf16 of n; a k16 step advances it by 16 rows;
+// `TRANS_B = 1`).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Byte offset of 16-byte chunk `c` (0..7) of 128-byte row `r` under the 128-byte swizzle.
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+    return (uint32_t)(r * 128 + (((c ^ r) & 7) << 4));
+}
+
+// Descriptor of a 128-byte-swizzled tile at shared address `addr` (1,024-byte
+// aligned, plus a whole number of k steps): start address, the unused leading
+// offset, 1,024 bytes between groups of eight rows, swizzle mode 1 (128 B).
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+           ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers across an asynchronous wgmma: the compiler may neither move
+// their uses before this point nor reuse them earlier.
+template <int N> __device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void pin(uint32_t (&a)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// Writes made by ordinary stores or cp.async become visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_proxy() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when `pred` is false.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+    const int bytes = pred ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N> struct Mma;
+
+// m64n8k16: 4 accumulator registers a thread.
+template <> struct Mma<8> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[4], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3}, "
+            "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n16k16: 8 accumulator registers a thread.
+template <> struct Mma<16> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n32k16: 16 accumulator registers a thread.
+template <> struct Mma<32> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+              "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n64k16: 32 accumulator registers a thread.
+template <> struct Mma<64> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+            "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+              "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+              "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+              "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+    // d (+)= A (shared, K-major) . B (shared)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+            "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1, 0, %35;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+              "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+              "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+              "+f"(d[31])
+            : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n128k16: 64 accumulator registers a thread.
+template <> struct Mma<128> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+            "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+            "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+            "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+              "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+              "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+              "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+              "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+              "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+              "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+              "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+              "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+}  // namespace wg

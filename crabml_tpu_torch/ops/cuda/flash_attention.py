@@ -19,7 +19,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-ROWS_PER_BLOCK = 64  # tokens x q heads of one kv group per CUDA block
+ROWS_PER_BLOCK = 64  # tokens x q heads of one kv group per warpgroup (float32: per block)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,12 +55,13 @@ def flash_attention_plain(q, k_cache, v_cache, pos, scale: float, softcap: float
 
 def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0,
                     window: int = 0) -> torch.Tensor:
-    """Kernel wrapper; plain version for CPU tensors. Softcap and the
-    sliding window are not in the kernel yet and raise on the card."""
+    """Kernel wrapper; plain version for CPU tensors. `softcap` (0 = none)
+    and `window` (0 = every earlier key) are launch arguments, so a model
+    with alternating local and global layers passes them per call."""
     if not q.is_cuda:
         return flash_attention_plain(q, k_cache, v_cache, pos, scale, softcap, window)
-    _build.require(not softcap and not window,
-                   "flash_attention: softcap and sliding window are not ported to the kernel")
+    _build.require(softcap >= 0 and window >= 0,
+                   f"flash_attention: softcap {softcap} and window {window} must not be negative")
     B, T, H, hd = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     _build.require(H % KV == 0 and ROWS_PER_BLOCK % (H // KV) == 0,
@@ -79,10 +80,10 @@ def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib, fn = _build.entry("flash_attention", "flash_attention", _I, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+                           _I, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P)
     _build.launches["flash_attention"] += 1
     err = fn(0 if q.dtype == torch.bfloat16 else 1, q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, KV, S, T, H // KV, hd,
-             float(scale), _build.stream_ptr(q))
+             float(scale), float(softcap), int(window), _build.stream_ptr(q))
     _build.check(lib, err, "flash_attention")
     return out.reshape(B, T, H * hd)

@@ -53,22 +53,31 @@ def test_decode_attention_plain_matches_fused_kernel(T):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("pos0", [0, 96], ids=["fresh", "resumed"])
-def test_flash_attention_plain_matches_pallas(pos0):
+FLASH_CASES = [(0, 0.0, 0), (96, 0.0, 0), (0, 30.0, 0), (96, 50.0, 0), (0, 0.0, 48),
+               (96, 0.0, 130), (96, 0.0, 300), (96, 20.0, 40)]
+FLASH_IDS = ["fresh", "resumed"] + [f"pos{p}-cap{int(c)}-win{w}" for p, c, w in FLASH_CASES[2:]]
+
+
+@pytest.mark.parametrize("pos0,softcap,window", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_attention_plain_matches_pallas(pos0, softcap, window):
     """Tolerance 2e-5 (float32 throughout). Ragged prompt lengths are the
-    port's own business; the JAX kernel needs T % 128 == 0."""
+    port's own business; the JAX kernel needs T % 128 == 0. The softcap and
+    the sliding window (narrower than a key block, wider than one so that
+    whole blocks are skipped, and wider than every prefix) against the
+    Pallas kernel's own, in interpret mode."""
     B, T, S, KV, G, hd = 2, 128, 384, 2, 2, 64
     H = KV * G
-    rng = np.random.default_rng(pos0)
-    q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
-    k = rng.standard_normal((B, KV, S, hd)).astype(np.float32)
+    rng = np.random.default_rng(pos0 + int(softcap) + window)
+    q = (rng.standard_normal((B, T, H, hd)) * (2 if softcap else 1)).astype(np.float32)
+    k = (rng.standard_normal((B, KV, S, hd)) * (2 if softcap else 1)).astype(np.float32)
     v = rng.standard_normal((B, KV, S, hd)).astype(np.float32)
     pos = np.asarray([pos0, pos0 // 2], np.int32)
     scale = 1.0 / np.sqrt(hd)
     want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             jnp.asarray(pos), scale, force=True))
+                             jnp.asarray(pos), scale, force=True, softcap=softcap,
+                             local_window=jnp.int32(window) if window else None))
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                          torch.from_numpy(pos), scale)
+                          torch.from_numpy(pos), scale, softcap, window)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 

@@ -20,7 +20,7 @@ from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_att
 from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
                                                               paged_decode_attention_fused,
                                                               paged_decode_attention_plain)
-from crabml_tpu_torch.quant.qtensor import QTensor, to_kernel_layout, to_planar
+from crabml_tpu_torch.quant.qtensor import QTensor, dequantize, to_kernel_layout, to_planar
 from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
 
 pytestmark = pytest.mark.gpu
@@ -128,22 +128,49 @@ def _offsets(counts):
                         device="cuda")
 
 
+def _w8_weight(m, k, seed):
+    """A Q4_K weight with W8 planes; m need not be a multiple of 256 (the
+    planes are attached directly, past augment_w8's eligibility rule)."""
+    qt = _weight(m, k, seed)
+    planes = gemm_quant.w8_planes_from_weights(dequantize(qt))
+    return QTensor(qt.kind, qt.shape, {**qt.planes, **planes})
+
+
 @pytest.mark.parametrize("rows,m,k", [(256, 256, 512), (300, 768, 768), (513, 256, 1280),
-                                       (1, 512, 1024)])
+                                       (1, 512, 1024), (7, 256, 512), (64, 256, 1024),
+                                       (189, 512, 1536), (512, 768, 512), (1000, 256, 2048),
+                                       (37, 320, 512), (130, 200, 1024)])
 def test_qmm_w8_matches_plain(cuda, rows, m, k):
     """Tolerance 1e-4 of max|out|: the same int8 planes and bf16 x, exact
-    products, float32 sums in another order. Ragged rows, a column count off
-    the 128-wide tile (it must be a multiple of 256 to carry planes), and k
-    = 768 and 1280, which zero-pad to the next multiple of 512."""
-    qt = gemm_quant.augment_w8(_weight(m, k, rows))
+    products, float32 sums in another order. Rows from 1 to 1,000 (every
+    width of the tile loop, ragged last tiles), column counts off the
+    128-wide tile (320) and off the 8-wide store (200), and k = 768 and
+    1280, which zero-pad to the next multiple of 512."""
+    qt = _w8_weight(m, k, rows)
     x = torch.randn(rows, k, device=cuda).to(torch.bfloat16)
     before = _build.launches["qmm_w8"]
     got = gemm_quant.qmm_w8(x, qt)
     want = gemm_quant.qmm_w8_plain(x, qt.planes["w8"], qt.planes["dw"])
     torch.cuda.synchronize()
     assert _build.launches["qmm_w8"] == before + 1
+    assert torch.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
     assert torch.equal(gemm_quant.qmm_w8(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+
+
+def test_qmm_w8_converts_every_int8_exactly(cuda):
+    """Each int8 value -127..127 in every position of a 64-deep k step, one
+    hot row of x at a time: the kernel's byte-to-bfloat16 conversion and its
+    fragment order return the plane itself."""
+    m, k = 256, 512
+    vals = (torch.arange(m * k, device=cuda) * 37 % 255 - 127).to(torch.int8).reshape(m, k)
+    qt = QTensor(GGMLType.Q4_K, (m, k), {
+        **_weight(m, k, 0).planes, "w8": vals,
+        "dw": torch.ones(m, 1, dtype=torch.float32, device=cuda)})
+    x = torch.eye(k, device=cuda, dtype=torch.bfloat16)[:128]  # x row i picks k = i
+    got = gemm_quant.qmm_w8(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vals[:, :128].t().float())
 
 
 def test_w8_planes_on_the_card_equal_the_cpu_planes(cuda):
@@ -160,11 +187,13 @@ def test_w8_planes_on_the_card_equal_the_cpu_planes(cuda):
 
 
 @pytest.mark.parametrize("w8", [False, True], ids=["q4k", "w8"])
-@pytest.mark.parametrize("counts", [(13, 0, 40, 64), (0, 0, 130, 1), (65, 63, 0, 0), (300,)])
+@pytest.mark.parametrize("counts", [(13, 0, 40, 64), (0, 0, 130, 1), (65, 63, 0, 0), (300,),
+                                    (1, 37, 0, 129), (0, 300, 0, 0), (128, 128, 8, 9)])
 def test_grouped_matmuls_match_plain(cuda, w8, counts):
     """The grouped forms at segments that are empty, shorter than a tile, one
     row over a tile and exact tiles; the first and the last expert empty; one
-    expert only. Tolerance 1e-4 of max|out| as for the dense forms. Every row
+    expert only; a 1-row and a 37-row segment; every row on one expert of
+    four. Tolerance 1e-4 of max|out| as for the dense forms. Every row
     is written (the output starts as NaN)."""
     E, m, k = len(counts), 256, 768
     qt = _stack(E, m, k, sum(counts), w8)
@@ -248,18 +277,48 @@ def test_decode_attention_matches_plain(cuda, dtype, T, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,G,hd", [(100, 4, 128), (9, 1, 64), (130, 8, 128)])
-def test_flash_attention_matches_plain(cuda, dtype, T, G, hd):
-    """Same tolerance as decode; ragged T and per-sequence offsets."""
+@pytest.mark.parametrize("T,G,hd,softcap,window", [
+    (100, 4, 128, 0.0, 0), (9, 1, 64, 0.0, 0), (130, 8, 128, 0.0, 0),
+    (100, 4, 128, 30.0, 0), (100, 4, 128, 0.0, 48), (130, 8, 128, 20.0, 70),
+    (65, 4, 128, 0.0, 0), (129, 1, 64, 50.0, 100), (129, 1, 128, 0.0, 0),
+    (193, 4, 64, 0.0, 150), (64, 8, 64, 0.0, 0), (257, 2, 128, 0.0, 31)])
+def test_flash_attention_matches_plain(cuda, dtype, T, G, hd, softcap, window):
+    """Same tolerance as decode: 2^-7 of max|out| for bfloat16 (one rounding
+    of the output; the probabilities enter the second product as bfloat16,
+    whose errors average out over a row's keys), 1e-4 for float32. Ragged T
+    (1 mod 64), per-sequence offsets 0 and 37, head dims 64 and 128, 1 to 8
+    q heads a kv head, the softcap, the sliding window (narrower and wider
+    than a key tile) and both."""
     B, KV, S = 2, 2, 384
     q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
     k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
     v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
     pos = torch.tensor([0, 37], dtype=torch.int32, device=cuda)
-    got = flash_attention(q, k, v, pos, 1 / math.sqrt(hd))
-    want = flash_attention_plain(q, k, v, pos, 1 / math.sqrt(hd))
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, 1 / math.sqrt(hd), softcap, window)
+    want = flash_attention_plain(q, k, v, pos, 1 / math.sqrt(hd), softcap, window)
     torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
     assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_attention_ignores_rows_past_the_prefix(cuda, window):
+    """Cache rows past pos + T hold NaN (never written): they are masked
+    keys and must not reach the output. T = 189 at pos 512, the main path's
+    second chunk, at the 7B's 32 / 8 heads."""
+    B, T, KV, G, S, hd = 1, 189, 8, 4, 1024, 128
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([512], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, 0.09, 0.0, window)
+    k[:, :, 512 + T:], v[:, :, 512 + T:] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, 0.09, 0.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 2.0 ** -7
 
 
 def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, window=0,
@@ -399,9 +458,15 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         decode_attention(q, kv, kv, pos, 0.125)  # head dim 64
     q, kv = torch.zeros(1, 1, 4, 128, device=cuda), torch.zeros(1, 2, 128, 128, device=cuda)
     with pytest.raises(UnsupportedError):
-        flash_attention(q, kv, kv, pos, 0.125, softcap=30.0)
+        flash_attention(q, kv, kv, pos, 0.125, window=-1)
     with pytest.raises(UnsupportedError):
-        flash_attention(q, kv, kv, pos, 0.125, window=64)
+        flash_attention(q, kv.to(torch.bfloat16), kv.to(torch.bfloat16), pos, 0.125)  # mixed
+    with pytest.raises(UnsupportedError):  # 3 q heads a kv head do not divide 64 rows
+        flash_attention(torch.zeros(1, 1, 6, 128, device=cuda), kv, kv, pos, 0.125)
+    with pytest.raises(UnsupportedError):
+        flash_attention(torch.zeros(1, 1, 4, 96, device=cuda),
+                        torch.zeros(1, 2, 128, 96, device=cuda),
+                        torch.zeros(1, 2, 128, 96, device=cuda), pos, 0.125)  # head dim 96
     with pytest.raises(UnsupportedError):
         decode_attention(q, kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)  # no scales
     with pytest.raises(UnsupportedError):
