@@ -11,13 +11,13 @@ fails:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 7B main path (the flash kernel at a first and a second
    512-token chunk, the second also with a softcap and with a sliding
-   window, and at the ragged 189-token chunk) and of 8-slot serving (every
-   form of the decode-attention kernel: dense and paged, bfloat16 and int8,
-   softcap, window, the step's keys in the cache or in their own block) and
-   of the Mixtral path (the W8 matmul at 189, 512 and 1,024 rows; the
-   grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs over 8 experts,
-   one of them empty and the segments ragged; the int8-activation matmul
-   with a plane per row), with the tolerance printed;
+   window, and at the ragged 189-token chunk; the Q4_K and W8 matmuls at
+   189, 512 and 1,024 rows) and of 8-slot serving (every form of the
+   decode-attention kernel: dense and paged, bfloat16 and int8, softcap,
+   window, the step's keys in the cache or in their own block) and of the
+   Mixtral path (the grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs
+   over 8 experts, one of them empty and the segments ragged; the
+   int8-activation matmul with a plane per row), with the tolerance printed;
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -619,8 +619,12 @@ def phase_kernels() -> dict[str, list[dict]]:
     timer = Timer(torch)
     qkv_m = (HEADS + 2 * KV_HEADS) * HEAD_DIM
     checks = {
+        # the two 512-row chunks' shapes; the 189-row chunk that the main
+        # path sends to qmm_q4k (245 padded rows < W8_MIN_ROWS); 1,024 rows
         "qmm_q4k": [check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, qkv_m, DIM, 1),
-                    check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, DIM, FFN, 2)],
+                    check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, DIM, FFN, 2),
+                    check_matmul(timer, "qmm_q4k", RAGGED_CHUNK, qkv_m, DIM, 49),
+                    check_matmul(timer, "qmm_q4k", 2 * PREFILL_CHUNK, qkv_m, DIM, 50)],
         "qmm_w4a8": [check_matmul(timer, "qmm_w4a8", 1, qkv_m, DIM, 3),
                      check_matmul(timer, "qmm_w4a8", 1, DIM, FFN, 4),
                      check_matmul(timer, "qmm_w4a8", 1, VOCAB, DIM, 5)],

@@ -1,6 +1,7 @@
 // The pipelined tensor-core tile loop of the quantized prefill matmuls
-// (out = x @ W^T), dense and grouped. qmm_w8.cu runs on it; it is written over
-// a weight source `W` so that other weight formats can.
+// (out = x @ W^T), dense and grouped, written over a weight source `W`:
+// qmm_w8.cu (int8 planes with a scale per 512-deep chunk) and qmm_q4k.cu
+// (Q4_K nibbles with a scale and a minimum per 32 weights) run on it.
 //
 // A block computes a tile of the output *transposed*: out^T = W . x^T, 128
 // weight rows (output columns; 64 per warpgroup, two warpgroups) by up to 128
@@ -13,8 +14,8 @@
 // any multiple of 8: a ragged tail of 37 rows costs a 64-wide instruction, 5
 // rows an 8-wide one (the tile loop is instantiated for N = 8, 16, 32, 64,
 // 128 and a block picks by its row count); and a weight row's per-chunk scale
-// is a row scale of the accumulator, two values a thread, read straight from
-// global memory.
+// (W8) is a row scale of the accumulator, two values a thread, read straight
+// from global memory.
 //
 // Loads: a ring of STAGES k-steps (64 deep) of the x tile (bf16) and the raw
 // weight tile, filled by cp.async by all threads, each copying the same
@@ -22,9 +23,9 @@
 // The loop is software-pipelined: a step's wgmmas are started behind the
 // previous step's and left running while the same threads refill the ring and
 // convert the next step's weights; the tensor cores drain only at the end of
-// a scale chunk. The epilogue transposes the accumulators through the
-// ring's shared memory so that stores to out (rows, N) are 16-byte vectors
-// along a row.
+// a scale chunk (KSC > 0) or of k. The epilogue transposes the accumulators
+// through the ring's shared memory so that stores to out (rows, N) are 16-byte
+// vectors along a row.
 //
 // Tiles: blockIdx.x walks the row tiles and blockIdx.y the 128-column weight
 // tiles, so the blocks that run together are the row tiles of the same few
@@ -38,17 +39,24 @@
 //
 // A weight source provides
 //   TILE_BYTES           staged bytes of a 128-row x 64-deep weight tile
+//   EXTRA_BYTES          shared memory beside the ring that the source keeps
+//                        for data that outlives a ring slot (0 for none)
 //   KSC                  k elements per scale chunk; 0 when the format has
 //                        no scale that applies to partial sums
 //   select_plane(p,N,K)  point at plane p of a stack
-//   stager(n0,N,K,tid)   this thread's part in staging tiles of rows n0..;
-//                        its start(dst,k0) begins the copies at depth k0
-//   fragments(a,tile,row,qd)    the thread's A fragments of the four k16 steps
+//   stager(n0,N,K,tid,extra)    this thread's part in staging tiles of rows
+//                        n0.. (extra: the shared address of its region); its
+//                        start(dst,k0) begins the copies of the step at depth
+//                        k0, the weight tile to shared address dst
+//   fragments(a,tile,extra,it,row,qd)   the thread's A fragments of the four
+//                        k16 steps of step it, whose weight tile is at `tile`
 //   scales(sc,row,N,chunk)      the chunk's scale of weight rows row, row + 8
+//                               (only with KSC > 0)
 // With KSC > 0 a thread keeps two accumulator sets: the chunk's partial sums,
 // which wgmma restarts every KSC elements of k, and the float32 total, to
 // which the partial sums times the row's scale are added (mul, then add, each
-// rounded).
+// rounded). With KSC == 0 the scales are the source's own business (Q4_K
+// applies them while it converts) and one set sums the whole of k.
 #pragma once
 
 #include "common.cuh"
@@ -61,6 +69,7 @@ constexpr int BX = 128;     // rows of x per tile, at most
 constexpr int BK = 64;      // k per ring stage
 constexpr int NT = 256;     // two warpgroups
 constexpr int STAGES = 6;
+constexpr int AHEAD = STAGES - 1;  // a step's tiles are fetched this many steps ahead
 constexpr int X_BYTES = BX * BK * 2;
 constexpr int LDC = BW + 4;  // row of the epilogue's staging tile, in floats
 
@@ -100,7 +109,7 @@ static inline int grouped_tiles(int M, int n_planes) { return dense_tiles(M) + n
 
 template <class W> __host__ __device__ constexpr int stage_bytes() { return X_BYTES + W::TILE_BYTES; }
 template <class W> __host__ __device__ constexpr int smem_bytes() {
-    constexpr int ring = STAGES * stage_bytes<W>(), epi = BX * LDC * 4;
+    constexpr int ring = STAGES * stage_bytes<W>() + W::EXTRA_BYTES, epi = BX * LDC * 4;
     return (ring > epi ? ring : epi) + 1024;  // slack to align the ring to 1,024 bytes
 }
 
@@ -133,7 +142,8 @@ __device__ __forceinline__ void run(const W& w, const bf16* __restrict__ x, void
         xok |= (uint32_t)ok << i;
     }
     const uint32_t xdst = wg::swz128(xr, xc);
-    const typename W::Stager stager = w.stager(n0, N, K, tid);
+    const typename W::Stager stager = w.stager(n0, N, K, tid, smem_s + STAGES * SB);
+    const uint8_t* extra = smem + STAGES * SB;
 
     auto fetch = [&](int it) {  // k step `it` into its ring slot
         const uint32_t xs = smem_s + (it % STAGES) * SB;
@@ -145,7 +155,7 @@ __device__ __forceinline__ void run(const W& w, const bf16* __restrict__ x, void
         stager.start(xs + X_BYTES, k0);
     };
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
+    for (int s = 0; s < AHEAD; ++s) {
         if (s < KT) fetch(s);
         wg::cp_async_commit();
     }
@@ -160,12 +170,14 @@ __device__ __forceinline__ void run(const W& w, const bf16* __restrict__ x, void
     // is waited for. Then the same threads wait for step it + 1's tiles,
     // refill the slot that step it - 1 left and build the A fragments of step
     // it + 1 in the registers that step it - 1 used. The tensor cores drain
-    // only where a chunk's partial sums are read.
+    // only where a chunk's partial sums are read. (Tried on the H100 and not
+    // kept: three groups in flight with a third set of fragments, and the
+    // refill moved ahead of the wait; both made the Q4_K loop slower.)
     uint32_t a[2][4][4];
     wg::cp_async_wait<STAGES - 2>();  // step 0 has landed (this thread's part)
     wg::fence_async_proxy();
     __syncthreads();
-    w.fragments(a[0], smem + X_BYTES, c_lo, qd);
+    w.fragments(a[0], smem + X_BYTES, extra, 0, c_lo, qd);
 
     auto step = [&](int it, uint32_t (&use)[4][4], uint32_t (&fill)[4][4]) {
         const int slot = it % STAGES;
@@ -191,9 +203,10 @@ __device__ __forceinline__ void run(const W& w, const bf16* __restrict__ x, void
             wg::fence_async_proxy();
             __syncthreads();  // everyone's part has, and everyone is past step it - 1
         }
-        if (it + STAGES - 1 < KT) fetch(it + STAGES - 1);  // into the slot of step it - 1
+        if (it + AHEAD < KT) fetch(it + AHEAD);  // into the slot of step it - 1
         wg::cp_async_commit();
-        if (it + 1 < KT) w.fragments(fill, smem + (it + 1) % STAGES * SB + X_BYTES, c_lo, qd);
+        if (it + 1 < KT)
+            w.fragments(fill, smem + (it + 1) % STAGES * SB + X_BYTES, extra, it + 1, c_lo, qd);
 
         if constexpr (W::KSC > 0) {
             if (it % CHUNK_STEPS == CHUNK_STEPS - 1) {

@@ -44,6 +44,7 @@ namespace {
 
 struct W8Source {
     static constexpr int TILE_BYTES = qpipe::BW * qpipe::BK;  // int8
+    static constexpr int EXTRA_BYTES = 0;
     static constexpr int KSC = 512;  // k elements per scale chunk (gemm_quant.py W8_KSC)
 
     const int8_t* w8;  // (planes, N, K)
@@ -72,7 +73,7 @@ struct W8Source {
                 wg::cp_async16(tile + dst + i * 64 * qpipe::BK, src[i] + k0, ok[i]);
         }
     };
-    __device__ __forceinline__ Stager stager(int n0, int N, int K, int tid) const {
+    __device__ __forceinline__ Stager stager(int n0, int N, int K, int tid, uint32_t) const {
         Stager s;
         const int r = tid / 4, c = tid % 4;
         s.dst = chunk(r, c);
@@ -98,8 +99,8 @@ struct W8Source {
 
     // Weight rows c_lo and c_lo + 8; in each 8-wide group of k the pair k = 2 qd,
     // 2 qd + 1, which is half of the group's 32-bit word qd / 2.
-    __device__ __forceinline__ void fragments(uint32_t (&a)[4][4], const uint8_t* tile, int c_lo,
-                                              int qd) const {
+    __device__ __forceinline__ void fragments(uint32_t (&a)[4][4], const uint8_t* tile,
+                                              const uint8_t*, int, int c_lo, int qd) const {
         const uint32_t b = 2u * (qd & 1);
         const uint32_t sel = 0x4040u | b | ((b + 1) << 8);
 #pragma unroll

@@ -1,0 +1,157 @@
+"""Time the Q4_K tile loop with one piece of its work changed at a time.
+
+Each variant is csrc/qmm_q4k.cu and the headers it includes with one edit:
+the tensor-core products, the nibble conversion or the x tile's copies
+removed, the scales copied every step (4 bytes a row) instead of every
+fourth (16 bytes a row), or a ring of 5 or 8 stages instead of 6. A variant
+without a piece computes wrong numbers on purpose: its time says what that
+piece costs inside the loop, which no counter on the card can say here.
+Every variant builds with the port's nvcc flags into crabml_tpu_torch/_build/,
+and each time is the median of ten launches between CUDA events, the L2
+cache flushed before each, at the 7B prefill shapes; the error against
+qmm_q4k_plain is printed beside it.
+
+    python -m crabml_tpu_torch.tools.qmm_ablation    # needs one CUDA card
+
+Prints the card and its power limit, then one JSON line a shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import shutil
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from ..gguf.constants import GGMLType
+from ..ops.cuda import _build, gemm_quant
+from ..quant.qtensor import to_kernel_layout, to_planar
+from .synth_gguf import q4k_blocks
+
+_MMA = """            wg::Mma<NX>::template rs<0>(acc, use[kk], wg::desc128(smem_s + slot * SB + kk * 32),
+                                        !(first && kk == 0));"""
+_CONV = """                a[m >> 1][2 * (m & 1) + h] =
+                    wg::pack_bf16(__fmaf_rn(nib_f32(u0, 0x4B00000Fu), dl, ml),
+                                  __fmaf_rn(nib_f32(u1, 0x4B00000Fu), dl, ml));
+                a[2 + (m >> 1)][2 * (m & 1) + h] =
+                    wg::pack_bf16(__fmaf_rn(nib_f32(u0, 0x4B0000F0u), dh, mh),
+                                  __fmaf_rn(nib_f32(u1, 0x4B0000F0u), dh, mh));"""
+_SC_STEPS = "static constexpr int SC_STEPS = 4;"
+_SC_COPY = "wg::cp_async16(sc_dst + slot, sc + k0 / 32, ok);"
+_CP_ASYNC4 = """__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(dst), "l"(src),
+                 "r"(pred ? 4 : 0) : "memory");
+}
+"""
+_STAGES = "constexpr int STAGES = 6;"
+_XCOPY = "                wg::cp_async16(xs + xdst + i * 4096, xsrc[i] + k0, (xok >> i) & 1);"
+
+# name -> [(file, text, replacement)]
+VARIANTS = {
+    "committed": [],
+    "no_tensor_cores": [("qmm_pipe.cuh", _MMA, "            acc[kk] += __uint_as_float("
+                         "use[kk][0] ^ use[kk][1] ^ use[kk][2] ^ use[kk][3]);")],
+    "no_conversion": [("qmm_q4k.cu", _CONV, "                a[m >> 1][2 * (m & 1) + h] = u0;\n"
+                       "                a[2 + (m >> 1)][2 * (m & 1) + h] = u1;")],
+    "no_x_copies": [("qmm_pipe.cuh", _XCOPY, "                (void)0;")],
+    # the step's 4 bytes a row every step, through L1 (cp.async.cg takes 16
+    # bytes only): the staging this loop had before the scale ring
+    "scales_every_step": [
+        ("qmm_q4k.cu", _SC_STEPS, "static constexpr int SC_STEPS = 1;"),
+        ("qmm_q4k.cu", _SC_COPY, _SC_COPY.replace("wg::cp_async16(", "cp_async4(")),
+        ("qmm_q4k.cu", "namespace {\n", "namespace {\n" + _CP_ASYNC4)],
+    # the ring of x / nibble tiles one stage shorter or two longer
+    "stages_5": [("qmm_pipe.cuh", _STAGES, "constexpr int STAGES = 5;")],
+    "stages_8": [("qmm_pipe.cuh", _STAGES, "constexpr int STAGES = 8;")],
+}
+# (rows, columns, k): the fused q|k|v and the down projection of a 512-row
+# chunk, and the 189-row chunk
+SHAPES = ((512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096))
+
+
+def build(names) -> dict:
+    """{variant: its C entry qmm_q4k_bf16}, built in parallel."""
+    root = _build.BUILD_DIR / "ablation"
+    procs = {}
+    for name in names:
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for src in [*_build.CSRC.glob("*.cuh"), _build.CSRC / "qmm_q4k.cu"]:
+            shutil.copy(src, d / src.name)
+        for fname, old, new in VARIANTS[name]:
+            text = (d / fname).read_text()
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {fname} no longer holds the text it edits")
+            (d / fname).write_text(text.replace(old, new))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
+               str(d / "qmm_q4k.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    entries = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        fn = ctypes.CDLL(str(root / name / "lib.so")).qmm_q4k_bf16
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+    return entries
+
+
+def device_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
+    """Median ms between CUDA events, L2 flushed before each launch; a spin
+    holds the card while the host enqueues them."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    torch.cuda._sleep(100_000_000)
+    for a, b in events:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("qmm_ablation: needs a CUDA card")
+        return 1
+    tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"gpu: {tag}")
+    entries = build(VARIANTS)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for rows, m, k in SHAPES:
+        blocks = q4k_blocks(np.random.default_rng(m + k), m * k, 1.0 / math.sqrt(k))
+        qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (m, k), "cuda"), torch.bfloat16)
+        p = qt.planes
+        x = torch.randn(rows, k, device="cuda").to(torch.bfloat16)
+        want = gemm_quant.qmm_q4k_plain(x, p["qs"], p["dsub"], p["msub"])
+        out = torch.empty(rows, m, dtype=torch.bfloat16, device="cuda")
+        line = {"shape": f"{rows}x{k} @ ({m}x{k})^T"}
+        for name, fn in entries.items():
+            def launch(fn=fn):
+                err = fn(x.data_ptr(), p["qs"].data_ptr(), p["dsub"].data_ptr(),
+                         p["msub"].data_ptr(), out.data_ptr(), 1, rows, m, k,
+                         _build.stream_ptr(x))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+            ms = device_ms(launch, flush)
+            rel = ((out.float() - want).abs().max() / want.abs().max()).item()
+            line[name] = {"ms": ms, "rel_err": rel}
+        print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -69,3 +69,30 @@ def test_qmatmul_routes_by_rows(weight, monkeypatch, rows):
     out = gemm_quant.qmatmul_q4k(torch.zeros(1, rows, K, dtype=torch.bfloat16), qt)
     assert out.shape == (1, rows, M) and out.dtype == torch.bfloat16
     assert called == ["w4a8" if rows <= gemm_quant.W4A8_MAX_ROWS else "q4k"]
+
+
+def _finite_bf16_as_f32() -> np.ndarray:
+    """Every finite bfloat16 value (subnormals and both zeros included) as float32."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    v = bits.view(np.float32)
+    return v[np.isfinite(v)]
+
+
+@pytest.mark.parametrize("nib", range(16))
+def test_q4k_nibble_times_bf16_scale_is_exact_in_float32(nib):
+    """For every finite bf16 dsub whose product stays finite, nib * dsub in
+    float32 equals the float64 product: a 4-bit integer times an 8-bit
+    significand has at most 12 significant bits, and bf16 shares float32's
+    exponent range. So qmm_q4k_plain's multiply-then-add rounds once, as the
+    card's single FFMA (nib * d + m) does. The card forms a high nibble as
+    16 * nib and multiplies it by dsub / 16: that quotient and that product
+    are exact too."""
+    d = _finite_bf16_as_f32()
+    exact = np.float64(nib) * d.astype(np.float64)
+    keep = np.abs(exact) <= np.finfo(np.float32).max
+    d, exact = d[keep], exact[keep]
+    prod = (torch.full((d.size,), float(nib)) * torch.from_numpy(d)).numpy()
+    np.testing.assert_array_equal(prod.astype(np.float64), exact)
+    d16 = d * np.float32(0.0625)
+    np.testing.assert_array_equal(d16.astype(np.float64), d.astype(np.float64) / 16)
+    np.testing.assert_array_equal((np.float32(16 * nib) * d16).astype(np.float64), exact)

@@ -44,10 +44,18 @@ def _rel(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("rows,m,k", [(17, 384, 512), (100, 320, 1024), (513, 256, 256)])
+@pytest.mark.parametrize("rows,m,k", [(17, 384, 512), (100, 320, 1024), (513, 256, 256),
+                                       (256, 256, 512), (300, 768, 768), (513, 256, 1280),
+                                       (1, 512, 1024), (7, 256, 256), (13, 256, 768),
+                                       (64, 256, 1024), (189, 512, 1536), (512, 768, 512),
+                                       (1000, 256, 2048), (37, 320, 512), (130, 200, 1024),
+                                       (17, 384, 14336), (189, 256, 14336)])
 def test_qmm_q4k_matches_plain(cuda, rows, m, k):
     """Tolerance 1e-4 of max|out|: the same bf16 dequant, float32 sums in
-    another order. Ragged rows and a column count off the 128-wide tile."""
+    another order. Rows from 1 to 1,000 (every width of the tile loop, ragged
+    last tiles), column counts off the 128-wide tile (320, 384) and off the
+    8-wide store (200), k from one superblock (256) to 14,336. The bf16
+    output is the float32 output rounded once, bit for bit."""
     qt = _weight(m, k, rows)
     x = torch.randn(rows, k, device=cuda).to(torch.bfloat16)
     before = _build.launches["qmm_q4k"]
@@ -56,7 +64,34 @@ def test_qmm_q4k_matches_plain(cuda, rows, m, k):
     want = gemm_quant.qmm_q4k_plain(x, p["qs"], p["dsub"], p["msub"])
     torch.cuda.synchronize()
     assert _build.launches["qmm_q4k"] == before + 1
+    assert torch.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_q4k(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+
+
+def test_qmm_q4k_converts_every_nibble_exactly(cuda):
+    """Every nibble 0..15 in every byte of a 64-deep k step, in the low and
+    the high half, with a dsub and an msub of their own per row and 32-group,
+    one hot row of x at a time: the kernel's nibble-to-bfloat16 conversion,
+    its fragment order and its choice of scale group return the plain
+    version's bf16 weights exactly."""
+    m, k = 256, 512
+    n = torch.arange(m, device=cuda)[:, None]
+    j = torch.arange(k // 2, device=cuda)[None, :]
+    qs = ((n + j) % 16 | ((n + 3 * j + 5) % 16) << 4).to(torch.uint8)
+    grp = torch.arange(k // 32, device=cuda)[None, :]
+    dsub = (0.01 * (1 + (16 * n + grp) % 61 / 64)).to(torch.bfloat16)
+    msub = (-0.05 * (1 + (3 * n + 5 * grp) % 53 / 64)).to(torch.bfloat16)
+    # neighbouring groups (a step's low and high halves, one step and the next) differ
+    assert (dsub[:, 1:] != dsub[:, :-1]).all() and (msub[:, 1:] != msub[:, :-1]).all()
+    qt = QTensor(GGMLType.Q4_K, (m, k), {"qs": qs, "dsub": dsub, "msub": msub})
+    w = dequantize(qt, torch.bfloat16)
+    x = torch.eye(k, device=cuda, dtype=torch.bfloat16)  # x row i picks k = i
+    got = gemm_quant.qmm_q4k(x, qt)
+    want = gemm_quant.qmm_q4k_plain(x, qs, dsub, msub)
+    torch.cuda.synchronize()
+    assert torch.equal(want, w.t().float())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("rows,m,k", [(1, 300, 768), (3, 512, 256), (16, 256, 1024),
