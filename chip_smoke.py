@@ -17,7 +17,8 @@ fails:
    window, the step's keys in the cache or in their own block) and of the
    Mixtral path (the grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs
    over 8 experts, one of them empty and the segments ragged; the
-   int8-activation matmul with a plane per row), with the tolerance printed;
+   int8-activation matmul with a plane per row; the fused decode form at B=1
+   also at pos 4000 of the 4,096-token cache), with the tolerance printed;
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -30,7 +31,8 @@ fails:
    against the CPU (plain versions, float32).
 5. main: a synthetic 7B Q4_K GGUF, `Runner(path)` on the card in bfloat16,
    a ~700-token prompt (two prefill chunks) and 128 greedy tokens, twice:
-   both runs must give the same tokens.
+   both runs must give the same tokens; then a profiled window of decode
+   steps (device time and launches per 7B decode token).
 6. serving, full width and depth: `PagedServingEngine(runner, n_slots=8,
    n_pages=256, seq_len=4096)`, 16 requests at once (8 share a 256-token
    prefix, 4 are sampled), drained; then a second engine with the same seed,
@@ -541,8 +543,9 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
             q, k, v, table, posv, scale, ks, vs, softcap, window, kn, vn, ksn, vsn)
     elif form == "paged":
         name = "paged_decode_attention"
+        lengths = posv + T
         kernel = lambda: pa.paged_decode_attention(  # noqa: E731
-            q, k, v, table, posv + T, scale, ks, vs, **kw)
+            q, k, v, table, lengths, scale, ks, vs, **kw)
         plain = lambda: pa.paged_decode_attention_plain(  # noqa: E731
             q, k, v, table, posv, scale, ks, vs, softcap, window)
     elif form == "dense_fused":
@@ -613,6 +616,30 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     return name, rec
 
 
+def decode_checks(timer) -> dict[str, list[dict]]:
+    """Every decode-attention form: B=1 at the main path's shape (T=1 at pos
+    1000 of the 4,096-token cache, and the fused form at pos 4000, the long
+    context's bytes), then each form at the 8-slot serving shape. The first
+    record of a name is the one the kernels line reports."""
+    checks = {
+        "decode_attention": [check_attention(timer, "decode_attention", 1, 1000, 6)],
+        "decode_attention_fused": [check_attention(timer, "decode_attention_fused", 1, 1000, 6),
+                                   check_attention(timer, "decode_attention_fused", 1, 4000, 12)],
+    }
+    forms = [("paged_fused", "bf16", 1, 0.0, 0), ("paged_fused", "int8", 1, 0.0, 0),
+             ("paged_fused", "bf16", 4, 0.0, 0), ("paged_fused", "int8", 4, 0.0, 0),
+             ("paged_fused", "bf16", 1, 50.0, 0), ("paged_fused", "bf16", 1, 0.0, 256),
+             ("paged", "bf16", 1, 0.0, 0), ("paged", "int8", 1, 0.0, 0),
+             ("paged", "bf16", 4, 0.0, 0), ("paged", "int8", 4, 0.0, 256),
+             ("dense_fused", "int8", 1, 0.0, 0), ("dense_fused", "bf16", 1, 0.0, 0),
+             ("dense_fused", "int8", 4, 50.0, 0),
+             ("dense", "int8", 1, 0.0, 0), ("dense", "bf16", 4, 0.0, 256)]
+    for i, (form, kv, T, softcap, window) in enumerate(forms):
+        name, rec = check_decode_form(timer, form, kv, T, 20 + i, softcap, window)
+        checks.setdefault(name, []).append(rec)
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -628,8 +655,6 @@ def phase_kernels() -> dict[str, list[dict]]:
         "qmm_w4a8": [check_matmul(timer, "qmm_w4a8", 1, qkv_m, DIM, 3),
                      check_matmul(timer, "qmm_w4a8", 1, DIM, FFN, 4),
                      check_matmul(timer, "qmm_w4a8", 1, VOCAB, DIM, 5)],
-        "decode_attention": [check_attention(timer, "decode_attention", 1, 1000, 6)],
-        "decode_attention_fused": [check_attention(timer, "decode_attention_fused", 1, 1000, 6)],
         # a first and a second 512-token chunk; the second with the softcap
         # and with a sliding window; the main path's ragged second chunk
         "flash_attention": [check_attention(timer, "flash_attention", PREFILL_CHUNK, 0, 7),
@@ -642,19 +667,7 @@ def phase_kernels() -> dict[str, list[dict]]:
                             check_attention(timer, "flash_attention", RAGGED_CHUNK,
                                             PREFILL_CHUNK, 11)],
     }
-    # every form of the decode kernel at the 8-slot serving shape; the first
-    # record of a name is the one the kernels line reports
-    forms = [("paged_fused", "bf16", 1, 0.0, 0), ("paged_fused", "int8", 1, 0.0, 0),
-             ("paged_fused", "bf16", 4, 0.0, 0), ("paged_fused", "int8", 4, 0.0, 0),
-             ("paged_fused", "bf16", 1, 50.0, 0), ("paged_fused", "bf16", 1, 0.0, 256),
-             ("paged", "bf16", 1, 0.0, 0), ("paged", "int8", 1, 0.0, 0),
-             ("paged", "bf16", 4, 0.0, 0), ("paged", "int8", 4, 0.0, 256),
-             ("dense_fused", "int8", 1, 0.0, 0), ("dense_fused", "bf16", 1, 0.0, 0),
-             ("dense_fused", "int8", 4, 50.0, 0),
-             ("dense", "int8", 1, 0.0, 0), ("dense", "bf16", 4, 0.0, 256)]
-    for i, (form, kv, T, softcap, window) in enumerate(forms):
-        name, rec = check_decode_form(timer, form, kv, T, 20 + i, softcap, window)
-        checks.setdefault(name, []).append(rec)
+    checks.update(decode_checks(timer))
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
     checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, qkv_m, DIM, 40),
@@ -953,6 +966,11 @@ def phase_main(tmp: Path):
     say(f"main path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), max_memory_allocated "
         f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, 128 greedy tokens identical in both "
         f"runs, launches {launches}")
+    per_token = rec["launches_per_decode_token"]
+    device = (f"{profile['device_launches_per_token']:.0f} device launches (profile)"
+              if profile["measured"] else "device launches not measured")
+    say(f"launches per 7B decode token: {device}; wrapper launches "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_token.items()) if v))
     return rec, runner, path
 
 

@@ -19,7 +19,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="crabml-tpu-torch")
     ap.add_argument("model", help="path to GGUF model file")
     ap.add_argument("-p", "--prompt", default="Once upon a time")
-    ap.add_argument("-n", "--steps", type=int, default=64)
+    ap.add_argument("-n", "--steps", type=int, default=300)
     ap.add_argument("-t", "--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")

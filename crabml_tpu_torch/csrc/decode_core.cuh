@@ -1,296 +1,528 @@
-// decode_core: the one inner loop of every decode-attention kernel of the port.
+// decode_core: the one loop of every decode-attention kernel of the port.
 //
 // GQA attention of T <= 8 new tokens of each sequence over its cached keys,
 // with four variations that the callers pick:
-//   - where key j of sequence b lives: a dense cache (B, KV, S, 128), or a
-//     page pool (n_pages, KV, 128, 128) reached through a block table
+//   - where key j of sequence b lives: a dense cache (B, KV, S, HD), or a
+//     page pool (n_pages, KV, 128, HD) reached through a block table
 //     (B, max_pages) of physical page numbers (DenseAddr / PagedAddr);
 //   - the stored type: bfloat16, float32, or int8 with one float32 scale per
 //     (token, kv head). The k scale multiplies the score and the v scale the
-//     probability, so the int8 payload is never turned into floats in memory;
+//     probability;
 //   - softcap: s = cap * tanh(s / cap) before masking (0 = off);
-//   - win: a row at position p sees keys p - win < j <= p (0 = off), and the
-//     key range starts at the earliest row's window start, so keys before the
-//     window are never read;
-//   - an optional block of the step's own keys and values (B, KV, T, 128):
+//   - win: a row at position p sees keys p - win < j <= p (0 = off); keys
+//     before the earliest row's window are never read;
+//   - an optional block of the step's own keys and values (B, KV, T, HD):
 //     when given, the cache holds pos[b] keys and keys pos[b]..pos[b]+T-1 come
 //     from the block; when null, the cache already holds them.
-// In every form key j sits at absolute position j and row r = t*G + g (token
-// t of the step, q head g of the kv group) sits at position pos[b] + t, so one
-// test decides what a row sees: j <= pos[b] + t, and j > pos[b] + t - win.
+// Key j sits at absolute position j and row r = t*G + g (token t of the
+// step, q head g of the kv group) at position pos[b] + t, so one test decides
+// what a row sees: j <= pos[b] + t and j > pos[b] + t - win.
 //
 // Replaces crabml_tpu/ops/pallas/decode_attention.py::_kernel (dense and
-// paged) and ::_kernel_fused (dense and paged). The work is bounded by device
-// memory bytes: every live key and value is read once for ~2 flops an
-// element. The TPU grid (B, KV) would give 64 blocks at 8 sequences x 8 kv
-// heads and leave half of the H100's 132 SMs idle at short contexts, so the
-// key range is also split across blocks (flash-decoding): grid (KV, B,
-// nsplit), eight warps a block, each warp walking its keys with one coalesced
-// row load per key (lane l holds head dims 4l..4l+3: 256 bytes a row in
-// bfloat16, 128 in int8, always inside one page), up to eight keys' loads in
-// flight at a time. Warps merge their (max, sum,
-// acc) in shared memory in a fixed order, blocks write one partial each, and
-// a second small kernel merges the splits, again in a fixed order: no
-// atomics, so results are deterministic. Masked scores take -1e30 and weight
-// 0, as in the JAX package; a row with no visible key gives 0.
+// paged) and ::_kernel_fused (dense and paged).
+//
+// Bound: device memory bytes. Every live key and value is read once for ~2
+// flops a byte, so the loop's job is to put enough bytes in flight and to
+// keep the arithmetic of each key from bounding the loop.
+//
+// Design. The work unit is one CHUNK of 128 keys of one (kv head, sequence):
+// in the paged form exactly one page, so a block reads one table entry. The
+// grid (KV, B, n_chunks) is planned on the host from the cache's capacity
+// alone (ops/cuda/decode_attention.py::plan); a block whose chunk holds no
+// key that a row of its sequence sees exits after reading pos. So a long
+// sequence is spread over as many blocks as it has pages, and every working
+// block does the same <= 128 keys, whatever the batch's spread of lengths.
+// A block of NW warps:
+//   1. copies the query rows (zero rows up to 16), the chunk's K and its V
+//      into shared memory with 16-byte cp.async in two groups (K, then V, so
+//      V is in flight while the scores are computed). Keys that no row sees,
+//      before the window or past the live keys, are zero-filled, not loaded:
+//      a probability of 0 times a NaN of a stale row would still be NaN. The
+//      fused form takes the rows of the step's own keys from their block.
+//      int8 is staged as is and converted exactly to the compute type in
+//      shared memory;
+//   2. scores S = Q K^T for the 16 rows and 128 keys. bfloat16: tensor cores,
+//      mma.sync m16n8k16 (bf16 in, f32 out) with operands through ldmatrix,
+//      16 keys a warp. float32: the same tile with FFMA, full precision;
+//   3. softmax over the tile, a warp a row: scale, k scale, softcap, mask,
+//      the row's max and sum in one reduction each; P = exp(s - max) with
+//      the v scale folded in, rounded once to the compute type;
+//   4. O = P V, tensor cores again (ldmatrix.trans for V) or FFMA, each warp
+//      HD / NW output dims;
+//   5. a sequence's only live chunk writes the output. Otherwise each chunk
+//      writes (max, sum, O) to a partial slot and takes a ticket; the last
+//      block of the (b, kv) to arrive merges the chunks in chunk order and
+//      resets the ticket. One launch, no atomics on values: deterministic.
+// Tiles are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8),
+// so ldmatrix and the row-wise float4 reads are free of bank conflicts.
+// Masked scores take -1e30 and weight 0, as in the JAX package; a row with
+// no visible key gives 0.
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"  // wg::smem_u32, cp_async16, cp_async_commit, cp_async_wait
 
 namespace decode_core {
 
-constexpr int HD = 128;   // head dim: 32 lanes x 4 elements
-constexpr int NW = 8;     // warps per block
-constexpr int PAGE = 128; // tokens per page of the paged pool
+constexpr int PAGE = 128;   // rows of a page of the paged pool
+constexpr int CHUNK = 128;  // keys a block takes: one page
+constexpr int ROWS = 16;    // query rows of a tile (T * G <= 16)
+constexpr int NW = 8;       // warps of a block: 16 keys each
+constexpr int NT = NW * 32;
+constexpr int KPL = CHUNK / 32;  // keys a lane in the softmax
+static_assert(CHUNK == 16 * NW && PAGE % CHUNK == 0, "16 keys a warp; chunks tile a page");
 
-// Where key j of (b, kv) lives, in two steps so that a kernel can fetch many
-// table entries before it needs the first: `page` (a load for the paged pool)
-// and `row` (arithmetic): payload at row * 128, scale at row.
+// The row (in HD-element units) of the first key of chunk c of (b, kv).
 struct DenseAddr {
     int S;
-    __device__ __forceinline__ int page(int b, int j) const { return b; }
-    __device__ __forceinline__ size_t row(int page, int kv, int KV, int j) const {
-        return ((size_t)page * KV + kv) * S + j;
+    __device__ __forceinline__ int cap() const { return S; }
+    __device__ __forceinline__ size_t row0(int b, int kv, int KV, int c) const {
+        return ((size_t)b * KV + kv) * S + (size_t)c * CHUNK;
     }
 };
 struct PagedAddr {
     const int* table;  // (B, max_pages) physical page of each logical chunk
     int max_pages;
-    __device__ __forceinline__ int page(int b, int j) const {
-        return table[(size_t)b * max_pages + j / PAGE];
-    }
-    __device__ __forceinline__ size_t row(int page, int kv, int KV, int j) const {
-        return ((size_t)page * KV + kv) * PAGE + j % PAGE;
+    __device__ __forceinline__ int cap() const { return max_pages * PAGE; }
+    __device__ __forceinline__ size_t row0(int b, int kv, int KV, int c) const {
+        const int j0 = c * CHUNK;
+        return ((size_t)table[(size_t)b * max_pages + j0 / PAGE] * KV + kv) * PAGE + j0 % PAGE;
     }
 };
 
 struct Params {
-    const void* q;       // (B, T, KV*G, 128) in the q type
+    const void* q;       // (B, T, KV*G, HD) in the q type
     const void* k;       // cache or pool, in the stored type
     const void* v;
     const float* ks;     // int8 only: one scale per stored row
     const float* vs;
-    const void* k_new;   // (B, KV, T, 128) in the stored type, or null
+    const void* k_new;   // (B, KV, T, HD) in the stored type, or null
     const void* v_new;
     const float* ks_new; // int8 with a new block: (B, KV, T)
     const float* vs_new;
-    const int* pos;      // (B,) keys that precede the step's tokens
-    float* part_m;       // (B, KV, nsplit, R)
-    float* part_l;
-    float* part_acc;     // (B, KV, nsplit, R, 128)
-    void* out;           // (B, T, KV*G, 128) in the q type
-    int B, KV, T, G, nsplit;
+    const int* pos;      // (B,) keys that precede the step's tokens, less pos_bias
+    float* part_m;       // (B, KV, n_chunks, T*G) each chunk's row max
+    float* part_l;       //                            and row sum
+    float* part_acc;     // (B, KV, n_chunks, T*G, HD) and unnormalized output
+    int* ticket;         // (B*KV) zero between launches
+    void* out;           // (B, T, KV*G, HD) in the q type
+    int B, KV, T, G, n_chunks;
     float scale, softcap;
-    int win;
+    int win, pos_bias;   // pos_bias: -T when pos holds each sequence's length
 };
 
-template <typename QT, typename KT, typename Addr, int R>
-__global__ void __launch_bounds__(NW * 32)
-split_kernel(Params p, Addr addr) {
-    __shared__ float sm_m[NW][R];
-    __shared__ float sm_l[NW][R];
-    __shared__ float sm_acc[R][HD];
-    __shared__ int sm_pos[R];
-
-    constexpr bool QUANT = sizeof(KT) == 1;
-    const int kv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int KV = p.KV, T_ = p.T, G = p.G;
-    const int TG = T_ * G;
-    const int H = KV * G;
-    const int p0 = p.pos[b];
-    const int n_keys = max(p0 + T_, 0);
-    const int n_cache = p.k_new ? min(max(p0, 0), n_keys) : n_keys;  // the rest is the new block
+// The keys of sequence b that the step reads; host-side mirror:
+// ops/cuda/decode_attention.py::block_keys.
+//   cached keys: first <= j < n_cache, at the cache's rows
+//   new keys:    max(first, n_cache) <= j < kend, at row j - n_cache of the block
+//   live chunks: c0 <= c < c1
+struct Keys {
+    int p0, n_cache, kend, first, c0, c1;
+};
+__device__ __forceinline__ Keys keys_of(const Params& p, int b, int cap) {
+    Keys r;
+    r.p0 = p.pos[b] + p.pos_bias;
+    const int n_keys = max(r.p0 + p.T, 0);
+    const bool fused = p.k_new != nullptr;
+    r.n_cache = min(fused ? min(max(r.p0, 0), n_keys) : n_keys, cap);
+    r.kend = fused ? min(n_keys, r.n_cache + p.T) : r.n_cache;
     // the earliest row sits at p0 and sees keys j > p0 - win
-    const int first = p.win > 0 ? min(max(p0 + 1 - p.win, 0), n_keys) : 0;
-    const int per = (n_keys - first + p.nsplit - 1) / p.nsplit;
-    const int j0 = first + split * per;
-    const int j1 = min(n_keys, j0 + per);
+    r.first = p.win > 0 ? min(max(r.p0 + 1 - p.win, 0), r.kend) : 0;
+    r.c0 = r.first / CHUNK;
+    r.c1 = (r.kend + CHUNK - 1) / CHUNK;
+    return r;
+}
 
-    const QT* q = (const QT*)p.q;
-    const KT* k = (const KT*)p.k;
-    const KT* v = (const KT*)p.v;
-    const KT* k_new = (const KT*)p.k_new;
-    const KT* v_new = (const KT*)p.v_new;
+// Shared memory of one block, in bytes. CT = the compute type (the q type);
+// a tile row is HD elements of CT.
+template <typename QT, typename KT, int HD>
+struct Layout {
+    static constexpr int ROW = HD * (int)sizeof(QT);
+    static constexpr int SP = HD + 8;                         // f32 pitch of S and O
+    static constexpr int Q = 0;                               // [ROWS][HD] CT; then P
+    static constexpr int K = Q + ROWS * ROW;                  // [CHUNK][HD] CT; then O
+    static constexpr int V = K + CHUNK * ROW;                 // [CHUNK][HD] CT
+    static constexpr int S = V + CHUNK * ROW;                 // [ROWS][SP] f32 scores
+    static constexpr int M = S + ROWS * SP * 4;               // [ROWS] row max
+    static constexpr int L = M + ROWS * 4;                    // [ROWS] row sum
+    static constexpr int KS = L + ROWS * 4;                   // [CHUNK] k scales (int8)
+    static constexpr int VS = KS + CHUNK * 4;                 // [CHUNK] v scales (int8)
+    static constexpr int FLAG = VS + CHUNK * 4;               // the merging block's flag
+    static constexpr int STAGE = FLAG + 16;                   // int8: [2][CHUNK][HD] as stored
+    static constexpr int BYTES = STAGE + (sizeof(KT) == 1 ? 2 * CHUNK * HD : 0);
+    static_assert(ROWS * SP * 4 <= CHUNK * ROW, "O must fit in the K tile it replaces");
+};
 
-    // query rows, pre-scaled, four head dims per lane
-    float qr[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < TG) {
-            const int t = r / G, g = r % G;
-            f = load4(q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + lane * 4);
+// byte offset of 16-byte chunk c of a tile row (row_bytes long)
+__device__ __forceinline__ uint32_t at(int row, int c, int row_bytes) {
+    return (uint32_t)(row * row_bytes + ((c ^ (row & 7)) << 4));
+}
+// byte offset of element e (of `size` bytes) of a tile row
+__device__ __forceinline__ uint32_t elem(int row, int e, int row_bytes, int size) {
+    return at(row, e * size / 16, row_bytes) + e * size % 16;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+// d += A (16x16, row) . B (16x8, col), bfloat16 in, float32 out
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// *ticket += 1 at gpu scope, returning the old value; acq_rel orders the
+// block's writes (made before a __syncthreads) before it and the merging
+// block's reads after it
+__device__ __forceinline__ int ticket_add(int* ticket) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(ticket) : "memory");
+    return old;
+}
+
+// four float32 values stored as four consecutive values of the compute type
+__device__ __forceinline__ void put4(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void put4(bf16* p, float a, float b, float c, float d) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename QT, typename KT, typename Addr, int HD>
+__global__ void __launch_bounds__(NT)
+chunk_kernel(Params p, Addr addr) {
+    extern __shared__ __align__(128) uint8_t smem[];
+    using LY = Layout<QT, KT, HD>;
+    using CT = QT;
+    constexpr bool QUANT = sizeof(KT) == 1;
+    constexpr bool TC = sizeof(CT) == 2;  // tensor cores for bfloat16, FFMA for float32
+    constexpr int ROW = LY::ROW, SP = LY::SP;
+    static_assert(HD % (16 * NW) == 0 || !TC, "HD / NW output dims a warp, in 16s");
+    static_assert(HD % 32 == 0 && NT == 2 * CHUNK, "a thread a key and tensor");
+
+    const int kv = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int KV = p.KV, T_ = p.T, G = p.G, TG = T_ * G, H = KV * G;
+    const Keys kr = keys_of(p, b, addr.cap());
+    const int n_live = max(kr.c1 - kr.c0, 0);
+    QT* out = (QT*)p.out;
+
+    if (c < kr.c0 || c >= kr.c1) {
+        if (n_live == 0 && c == 0)  // no key at all: every row gives 0
+            for (int i = tid; i < TG * HD / 4; i += NT) {
+                const int r = i / (HD / 4), d = i % (HD / 4) * 4, t = r / G, g = r % G;
+                put4(out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + d, 0.f, 0.f, 0.f, 0.f);
+            }
+        return;
+    }
+
+    uint8_t* sQ = smem + LY::Q;
+    uint8_t* sK = smem + LY::K;
+    uint8_t* sV = smem + LY::V;
+    float* sS = reinterpret_cast<float*>(smem + LY::S);
+    float* sM = reinterpret_cast<float*>(smem + LY::M);
+    float* sL = reinterpret_cast<float*>(smem + LY::L);
+    float* sKS = reinterpret_cast<float*>(smem + LY::KS);
+    float* sVS = reinterpret_cast<float*>(smem + LY::VS);
+
+    // ---- 1. stage Q, K, V -------------------------------------------------
+    const int j0 = c * CHUNK;  // absolute position of the chunk's first key
+    const size_t row0 = j0 < kr.n_cache ? addr.row0(b, kv, KV, c) : 0;  // one table entry
+    const long long new0 = ((long long)b * KV + kv) * T_ - kr.n_cache;  // + j: row in the block
+    // the row (in HD-element units) key i of the chunk is read from, or -1
+    auto src_row = [&](int i, bool& cached) -> long long {
+        const int j = j0 + i;
+        cached = j < kr.n_cache;
+        if (j < kr.first || j >= kr.kend) return -1;
+        return cached ? (long long)(row0 + i) : (long long)(new0 + j);
+    };
+    {
+        constexpr int QC = HD * (int)sizeof(QT) / 16;  // 16-byte chunks of a q row
+        const QT* q = (const QT*)p.q;
+        for (int i = tid; i < ROWS * QC; i += NT) {
+            const int r = i / QC, cc = i % QC, t = r / G, g = r % G;
+            const bool ok = r < TG;
+            const QT* src =
+                ok ? q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + cc * (16 / sizeof(QT)) : q;
+            wg::cp_async16(wg::smem_u32(sQ + at(r, cc, ROW)), src, ok);
         }
-        qr[r][0] = f.x * p.scale; qr[r][1] = f.y * p.scale;
-        qr[r][2] = f.z * p.scale; qr[r][3] = f.w * p.scale;
     }
-    float m[R], l[R], acc[R][4];
+    constexpr int KC = HD * (int)sizeof(KT) / 16;  // 16-byte chunks of a stored row
+    auto stage = [&](const KT* cache, const KT* fresh, uint8_t* tile) {
+        for (int i = tid; i < CHUNK * KC; i += NT) {
+            const int r = i / KC, cc = i % KC;
+            bool cached;
+            const long long row = src_row(r, cached);
+            const KT* src =
+                row < 0 ? cache : (cached ? cache : fresh) + row * HD + cc * (16 / sizeof(KT));
+            // int8 lands unconverted in the staging area, row-major
+            const uint32_t dst = QUANT ? wg::smem_u32(tile) + r * HD + cc * 16
+                                       : wg::smem_u32(tile) + at(r, cc, ROW);
+            wg::cp_async16(dst, src, row >= 0);
+        }
+    };
+    uint8_t* k8 = smem + LY::STAGE;
+    uint8_t* v8 = k8 + CHUNK * HD;
+    stage((const KT*)p.k, (const KT*)p.k_new, QUANT ? k8 : sK);
+    wg::cp_async_commit();
+    stage((const KT*)p.v, (const KT*)p.v_new, QUANT ? v8 : sV);
+    wg::cp_async_commit();
+    if constexpr (QUANT) {  // one scale a key and tensor: plain loads, in flight beside the copies
+        const int i = tid % CHUNK;
+        const bool is_v = tid >= CHUNK;
+        bool cached;
+        const long long row = src_row(i, cached);
+        const float* src = is_v ? (cached ? p.vs : p.vs_new) : (cached ? p.ks : p.ks_new);
+        (is_v ? sVS : sKS)[i] = row < 0 ? 0.f : src[row];
+    }
+    // int8 -> compute type, exactly: 16 values a step
+    auto widen = [&](const uint8_t* stage8, uint8_t* tile) {
+        for (int i = tid; i < CHUNK * HD / 16; i += NT) {
+            const int r = i / (HD / 16), e0 = i % (HD / 16) * 16;
+            const int4 raw = *reinterpret_cast<const int4*>(stage8 + r * HD + e0);
+            const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        m[r] = CRABML_NEG_INF; l[r] = 0.f;
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    }
+            for (int u = 0; u < 16; u += 4)
+                put4(reinterpret_cast<CT*>(tile + elem(r, e0 + u, ROW, sizeof(CT))), x[u],
+                     x[u + 1], x[u + 2], x[u + 3]);
+        }
+    };
 
-    // row r sits at sm_pos[r] and sees keys sm_pos[r] - back <= j <= sm_pos[r];
-    // a padding row (r >= TG) sits at -1 and sees none
-    if (threadIdx.x < R) sm_pos[threadIdx.x] = threadIdx.x < TG ? p0 + threadIdx.x / G : -1;
-    const int back = p.win > 0 ? p.win - 1 : 0x3fffffff;
+    wg::cp_async_wait<1>();  // Q and K (this thread's copies)
     __syncthreads();
-
-    // Each warp walks keys j0 + warp, + NW, ...; U of them at a time. At
-    // decode sizes the walk is bound by the latency of two dependent loads a
-    // key (the table entry, then the row), not by bytes, so the loads come
-    // in batches: all U table entries, then all U rows and scales, and only
-    // then the first use of a loaded value. A key past the range loads the
-    // range's last key again and is skipped in the last loop.
-    constexpr int U = R <= 4 ? 8 : (R <= 8 ? 4 : 2);
-    for (int jb = j0 + warp; jb < j1; jb += NW * U) {
-        decltype(load_raw4(k)) kraw[U], vraw[U];
-        float ksj[U], vsj[U];
-        int pg[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u)  // a key of the new block reads an entry it does not use
-            pg[u] = addr.page(b, max(min(min(jb + u * NW, j1 - 1), n_cache - 1), 0));
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int j = min(jb + u * NW, j1 - 1);
-            const bool cached = j < n_cache;
-            const size_t row = cached ? addr.row(pg[u], kv, KV, j)
-                                      : ((size_t)b * KV + kv) * T_ + (j - n_cache);
-            kraw[u] = load_raw4((cached ? k : k_new) + row * HD + lane * 4);
-            vraw[u] = load_raw4((cached ? v : v_new) + row * HD + lane * 4);
-            if (QUANT) {
-                ksj[u] = (cached ? p.ks : p.ks_new)[row];
-                vsj[u] = (cached ? p.vs : p.vs_new)[row];
-            }
-        }
-        // No branch on a key or a row from here to the end of the batch:
-        // masked scores are selected, not skipped, so the R rows' chains
-        // (dot, five shuffle stages, exp, update) are independent
-        // straight-line code that the compiler interleaves.
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int j = jb + u * NW;
-            const float4 kj = to_float4(kraw[u]);
-            float4 vj = to_float4(vraw[u]);
-            if (QUANT) { vj.x *= vsj[u]; vj.y *= vsj[u]; vj.z *= vsj[u]; vj.w *= vsj[u]; }
-            float s[R];
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                s[r] = qr[r][0] * kj.x + qr[r][1] * kj.y + qr[r][2] * kj.z + qr[r][3] * kj.w;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-                for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], o);
-            if (p.softcap != 0.f) {
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    if (QUANT) s[r] *= ksj[u];
-                    s[r] = p.softcap * tanhf(s[r] / p.softcap);
-                }
-            } else if (QUANT) {
-#pragma unroll
-                for (int r = 0; r < R; ++r) s[r] *= ksj[u];
-            }
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                const bool live = j < j1 && j <= sm_pos[r] && j >= sm_pos[r] - back;
-                const float sr = live ? s[r] : CRABML_NEG_INF;
-                const float m_new = fmaxf(m[r], sr);
-                const float alpha = __expf(m[r] - m_new);
-                const float e = live ? __expf(sr - m_new) : 0.f;
-                l[r] = l[r] * alpha + e;
-                acc[r][0] = acc[r][0] * alpha + e * vj.x;
-                acc[r][1] = acc[r][1] * alpha + e * vj.y;
-                acc[r][2] = acc[r][2] * alpha + e * vj.z;
-                acc[r][3] = acc[r][3] * alpha + e * vj.w;
-                m[r] = m_new;
-            }
-        }
-    }
-
-    // merge the warps of this block in warp order
-    if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) { sm_m[warp][r] = m[r]; sm_l[warp][r] = l[r]; }
-    }
-    for (int i = threadIdx.x; i < R * HD; i += NW * 32) (&sm_acc[0][0])[i] = 0.f;
-    __syncthreads();
-    float mb[R], fw[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        mb[r] = CRABML_NEG_INF;
-        for (int w = 0; w < NW; ++w) mb[r] = fmaxf(mb[r], sm_m[w][r]);
-        fw[r] = __expf(m[r] - mb[r]);
-    }
-    for (int w = 0; w < NW; ++w) {
-        if (warp == w) {
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) sm_acc[r][lane * 4 + e] += acc[r][e] * fw[r];
-        }
+    if constexpr (QUANT) {
+        widen(k8, sK);
         __syncthreads();
     }
-    const size_t pbase = (((size_t)b * KV + kv) * p.nsplit + split) * R;
-    if (threadIdx.x < R) {
-        const int r = threadIdx.x;
-        float lb = 0.f;
-        for (int w = 0; w < NW; ++w) lb += sm_l[w][r] * __expf(sm_m[w][r] - mb[r]);
-        p.part_m[pbase + r] = mb[r];
-        p.part_l[pbase + r] = lb;
-    }
-    for (int i = threadIdx.x; i < R * HD; i += NW * 32)
-        p.part_acc[pbase * HD + i] = (&sm_acc[0][0])[i];
-}
 
-// merge the splits of one query row of one (kv, b): one thread per head dim
-template <typename QT, int R>
-__global__ void __launch_bounds__(HD)
-combine_kernel(Params p) {
-    const int kv = blockIdx.x, b = blockIdx.y, r = blockIdx.z, d = threadIdx.x;
-    const int KV = p.KV, T_ = p.T, G = p.G, nsplit = p.nsplit;
-    const int H = KV * G;
-    const size_t base = ((size_t)b * KV + kv) * nsplit;
-    float mx = CRABML_NEG_INF;
-    for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, p.part_m[(base + s) * R + r]);
-    float lsum = 0.f, o = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-        const float f = __expf(p.part_m[(base + s) * R + r] - mx);
-        lsum += p.part_l[(base + s) * R + r] * f;
-        o += p.part_acc[((base + s) * R + r) * HD + d] * f;
+    // ---- 2. scores S = Q K^T ---------------------------------------------
+    if constexpr (TC) {
+        // warp w: keys 16w..16w+15 (two n8 tiles), all 16 rows, HD / 16 k steps
+        float acc[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            uint32_t a[4], bq[4];
+            ldsm_x4(wg::smem_u32(sQ) + at(lane % 16, 2 * kk + lane / 16, ROW), a);
+            ldsm_x4(wg::smem_u32(sK) + at(16 * warp + lane % 8 + (lane / 16) * 8,
+                                      2 * kk + (lane / 8) % 2, ROW), bq);
+            mma16816(acc[0], a, bq[0], bq[1]);
+            mma16816(acc[1], a, bq[2], bq[3]);
+        }
+        const int g = lane / 4, col = 16 * warp + 2 * (lane % 4);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+            *reinterpret_cast<float2*>(sS + g * SP + col + 8 * nt) =
+                make_float2(acc[nt][0], acc[nt][1]);
+            *reinterpret_cast<float2*>(sS + (g + 8) * SP + col + 8 * nt) =
+                make_float2(acc[nt][2], acc[nt][3]);
+        }
+    } else {
+        // thread: key tid % 128 against 8 rows (rows 8..15 only when T*G > 8)
+        const int j = tid % CHUNK, r0 = tid / CHUNK * 8;
+        if (r0 < TG) {
+            float s[8] = {};
+            for (int cc = 0; cc < HD / 4; ++cc) {
+                const float4 k4 = *reinterpret_cast<const float4*>(sK + at(j, cc, ROW));
+#pragma unroll
+                for (int r = 0; r < 8; ++r) {
+                    const float4 q4 = *reinterpret_cast<const float4*>(sQ + at(r0 + r, cc, ROW));
+                    s[r] += q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < 8; ++r) sS[(r0 + r) * SP + j] = s[r];
+        }
     }
-    const int t = r / G, g = r % G;
-    ((QT*)p.out)[((size_t)(b * T_ + t) * H + kv * G + g) * HD + d] =
-        from_f32<QT>(o / fmaxf(lsum, 1e-30f));
-}
+    __syncthreads();
 
-template <typename QT, typename KT, typename Addr, int R>
-int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
-    split_kernel<QT, KT, Addr, R><<<dim3(p.KV, p.B, p.nsplit), NW * 32, 0, stream>>>(p, addr);
-    int err = crabml_launch_status();
-    if (err) return err;
-    combine_kernel<QT, R><<<dim3(p.KV, p.B, p.T * p.G), HD, 0, stream>>>(p);
-    return crabml_launch_status();
+    // ---- 3. softmax over the tile, one warp a row --------------------------
+    // P (in the compute type, the v scale folded in) replaces Q
+    const int back = p.win > 0 ? p.win : 0x3fffffff;
+    for (int r = warp; r < TG; r += NW) {
+        const int rpos = kr.p0 + r / G;  // the row's position
+        float s[KPL];
+        bool live[KPL];
+        float mx = CRABML_NEG_INF;
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+            const int i = KPL * lane + e, j = j0 + i;
+            float x = sS[r * SP + i] * p.scale;
+            if constexpr (QUANT) x *= sKS[i];
+            if (p.softcap != 0.f) x = p.softcap * tanhf(x / p.softcap);
+            live[e] = j < kr.kend && j <= rpos && j > rpos - back;
+            s[e] = live[e] ? x : CRABML_NEG_INF;
+            mx = fmaxf(mx, s[e]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+            const int i = KPL * lane + e;
+            float pr = live[e] ? __expf(s[e] - mx) : 0.f;
+            sum += pr;
+            if constexpr (QUANT) pr *= sVS[i];
+            *reinterpret_cast<CT*>(sQ + elem(r, i, ROW, sizeof(CT))) = from_f32<CT>(pr);
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) { sM[r] = mx; sL[r] = sum; }
+    }
+    wg::cp_async_wait<0>();  // V
+    __syncthreads();
+    if constexpr (QUANT) {
+        widen(v8, sV);
+        __syncthreads();
+    }
+
+    // ---- 4. O = P V --------------------------------------------------------
+    float* sO = reinterpret_cast<float*>(sK);  // K is dead
+    if constexpr (TC) {
+        constexpr int DW = HD / NW;  // output dims of a warp, in 16s
+        float acc[DW / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < CHUNK / 16; ++kk) {
+            uint32_t a[4];
+            ldsm_x4(wg::smem_u32(sQ) + at(lane % 16, 2 * kk + lane / 16, ROW), a);
+#pragma unroll
+            for (int dg = 0; dg < DW / 16; ++dg) {
+                uint32_t bv[4];
+                ldsm_x4_t(wg::smem_u32(sV) +
+                              at(16 * kk + lane % 16, warp * DW / 8 + 2 * dg + lane / 16, ROW), bv);
+                mma16816(acc[2 * dg], a, bv[0], bv[1]);
+                mma16816(acc[2 * dg + 1], a, bv[2], bv[3]);
+            }
+        }
+        const int g = lane / 4, col = warp * DW + 2 * (lane % 4);
+#pragma unroll
+        for (int nt = 0; nt < DW / 8; ++nt) {
+            *reinterpret_cast<float2*>(sO + g * SP + col + 8 * nt) =
+                make_float2(acc[nt][0], acc[nt][1]);
+            *reinterpret_cast<float2*>(sO + (g + 8) * SP + col + 8 * nt) =
+                make_float2(acc[nt][2], acc[nt][3]);
+        }
+    } else {
+        // thread: dims 4 (tid % (HD/4)) .. +3 of rows r0, r0 + 1, ...
+        constexpr int DC = HD / 4, RPT = ROWS * DC / NT;  // rows a thread
+        const int cc = tid % DC, r0 = tid / DC * RPT;
+        if (r0 < TG) {
+            float acc[RPT][4] = {};
+            for (int i = 0; i < CHUNK; ++i) {
+                const float4 v4 = *reinterpret_cast<const float4*>(sV + at(i, cc, ROW));
+#pragma unroll
+                for (int r = 0; r < RPT; ++r) {
+                    const float pr = *reinterpret_cast<const float*>(sQ + elem(r0 + r, i, ROW, 4));
+                    acc[r][0] += pr * v4.x; acc[r][1] += pr * v4.y;
+                    acc[r][2] += pr * v4.z; acc[r][3] += pr * v4.w;
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < RPT; ++r)
+                *reinterpret_cast<float4*>(sO + (r0 + r) * SP + 4 * cc) =
+                    make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        }
+    }
+    __syncthreads();
+
+    // ---- 5. write the output, or a partial and merge -----------------------
+    auto out_at = [&](int r, int d) {
+        return out + ((size_t)(b * T_ + r / G) * H + kv * G + r % G) * HD + d;
+    };
+    if (n_live == 1) {
+        for (int i = tid; i < TG * HD / 4; i += NT) {
+            const int r = i / (HD / 4), d = i % (HD / 4) * 4;
+            const float4 o = *reinterpret_cast<const float4*>(sO + r * SP + d);
+            const float inv = 1.f / fmaxf(sL[r], 1e-30f);
+            put4(out_at(r, d), o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+        }
+        return;
+    }
+    const size_t bk = (size_t)b * KV + kv;
+    const size_t pbase = (bk * p.n_chunks + c) * TG;
+    if (tid < TG) { p.part_m[pbase + tid] = sM[tid]; p.part_l[pbase + tid] = sL[tid]; }
+    for (int i = tid; i < TG * HD / 4; i += NT) {
+        const int r = i / (HD / 4), d = i % (HD / 4) * 4;
+        *reinterpret_cast<float4*>(p.part_acc + (pbase + r) * HD + d) =
+            *reinterpret_cast<const float4*>(sO + r * SP + d);
+    }
+    // the block's partial is written: the last of the (b, kv)'s blocks to
+    // take a ticket merges (acq_rel: it sees every earlier block's partial)
+    __syncthreads();
+    int* last = reinterpret_cast<int*>(smem + LY::FLAG);
+    if (tid == 0) {
+        *last = ticket_add(p.ticket + bk) == n_live - 1;
+        if (*last) p.ticket[bk] = 0;  // ready for the next launch
+    }
+    __syncthreads();
+    if (!*last) return;
+    // Each thread merges its four output dims of one row over the live
+    // chunks, in chunk order, MERGE chunks' loads in flight at a time, with
+    // a running max (one pass).
+    constexpr int MERGE = 8;
+    const size_t cbase = bk * p.n_chunks;
+    for (int i = tid; i < TG * HD / 4; i += NT) {
+        const int r = i / (HD / 4), d = i % (HD / 4) * 4;
+        float mx = CRABML_NEG_INF, sum = 0.f;
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int cb = kr.c0; cb < kr.c1; cb += MERGE) {
+            float mc[MERGE], lc[MERGE];
+            float4 a[MERGE];
+#pragma unroll
+            for (int u = 0; u < MERGE; ++u) {  // past the last chunk: the last again, weight 0
+                const size_t pr = (cbase + min(cb + u, kr.c1 - 1)) * TG + r;
+                mc[u] = __ldcg(p.part_m + pr);
+                lc[u] = __ldcg(p.part_l + pr);
+                a[u] = __ldcg(reinterpret_cast<const float4*>(p.part_acc + pr * HD + d));
+            }
+            float m_new = mx;
+#pragma unroll
+            for (int u = 0; u < MERGE; ++u) m_new = fmaxf(m_new, mc[u]);
+            const float alpha = __expf(mx - m_new);
+            sum *= alpha; o.x *= alpha; o.y *= alpha; o.z *= alpha; o.w *= alpha;
+#pragma unroll
+            for (int u = 0; u < MERGE; ++u) {
+                const float f = cb + u < kr.c1 ? __expf(mc[u] - m_new) : 0.f;
+                sum += lc[u] * f;
+                o.x += a[u].x * f; o.y += a[u].y * f; o.z += a[u].z * f; o.w += a[u].w * f;
+            }
+            mx = m_new;
+        }
+        const float inv = 1.f / fmaxf(sum, 1e-30f);
+        put4(out_at(r, d), o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+    }
 }
 
 template <typename QT, typename KT, typename Addr>
-int dispatch_rows(const Params& p, const Addr& addr, int R, cudaStream_t s) {
-    if (R == 4) return launch<QT, KT, Addr, 4>(p, addr, s);
-    if (R == 8) return launch<QT, KT, Addr, 8>(p, addr, s);
-    if (R == 16) return launch<QT, KT, Addr, 16>(p, addr, s);
-    return (int)cudaErrorInvalidValue;
+int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
+    constexpr int HD = 128;
+    constexpr int bytes = Layout<QT, KT, HD>::BYTES;  // above 48 KB: opt in
+    const cudaError_t e = cudaFuncSetAttribute(chunk_kernel<QT, KT, Addr, HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    chunk_kernel<QT, KT, Addr, HD><<<dim3(p.KV, p.B, p.n_chunks), NT, bytes, stream>>>(p, addr);
+    return crabml_launch_status();
 }
 
 // qtype 0 = bfloat16, 1 = float32; quant 0 = cache in the q type, 1 = int8
 template <typename Addr>
-int dispatch(const Params& p, const Addr& addr, int qtype, int quant, int R, cudaStream_t s) {
+int dispatch(const Params& p, const Addr& addr, int qtype, int quant, cudaStream_t s) {
     if (qtype == 0)
-        return quant ? dispatch_rows<bf16, int8_t, Addr>(p, addr, R, s)
-                     : dispatch_rows<bf16, bf16, Addr>(p, addr, R, s);
-    return quant ? dispatch_rows<float, int8_t, Addr>(p, addr, R, s)
-                 : dispatch_rows<float, float, Addr>(p, addr, R, s);
+        return quant ? launch<bf16, int8_t>(p, addr, s) : launch<bf16, bf16>(p, addr, s);
+    return quant ? launch<float, int8_t>(p, addr, s) : launch<float, float>(p, addr, s);
 }
 
 }  // namespace decode_core

@@ -8,10 +8,10 @@
 // (launcher _run_fused_paged, pallas_call at :622): the step's keys arrive as
 // a separate block and are written into the pool after attention. Key j of
 // sequence b lives in page table[b, j / 128] at row j % 128. A page is 128
-// rows of 128 head dims for one kv head, contiguous, so a warp's row load
-// stays coalesced inside a page. No page is read beyond the first
-// ceil(keys / 128) entries of a table row: unused entries (0, the shared
-// scratch page) are never followed.
+// rows of 128 head dims for one kv head, contiguous: one block's chunk, one
+// table entry, read only when the chunk holds a cached key. No page is read
+// beyond the first ceil(keys / 128) entries of a table row: unused entries
+// (0, the shared scratch page) are never followed.
 #include "decode_core.cuh"
 
 // As decode_attention (csrc/decode_attention.cu), with k, v one layer of the
@@ -22,9 +22,10 @@ extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const
                                       const void* k_new, const void* v_new,
                                       const void* ks_new, const void* vs_new,
                                       const void* table, const void* pos, void* part_m,
-                                      void* part_l, void* part_acc, void* out, int B, int KV,
-                                      int max_pages, int T, int G, int nsplit, int R,
-                                      float scale, float softcap, int win, void* stream) {
+                                      void* part_l, void* part_acc, void* ticket, void* out,
+                                      int B, int KV, int max_pages, int T, int G, int n_chunks,
+                                      float scale, float softcap, int win, int pos_bias,
+                                      void* stream) {
     decode_core::Params p;
     p.q = q; p.k = k; p.v = v;
     p.ks = (const float*)ks; p.vs = (const float*)vs;
@@ -32,9 +33,10 @@ extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const
     p.ks_new = (const float*)ks_new; p.vs_new = (const float*)vs_new;
     p.pos = (const int*)pos;
     p.part_m = (float*)part_m; p.part_l = (float*)part_l; p.part_acc = (float*)part_acc;
+    p.ticket = (int*)ticket;
     p.out = out;
-    p.B = B; p.KV = KV; p.T = T; p.G = G; p.nsplit = nsplit;
-    p.scale = scale; p.softcap = softcap; p.win = win;
+    p.B = B; p.KV = KV; p.T = T; p.G = G; p.n_chunks = n_chunks;
+    p.scale = scale; p.softcap = softcap; p.win = win; p.pos_bias = pos_bias;
     decode_core::PagedAddr addr{(const int*)table, max_pages};
-    return decode_core::dispatch(p, addr, qtype, quant, R, (cudaStream_t)stream);
+    return decode_core::dispatch(p, addr, qtype, quant, (cudaStream_t)stream);
 }

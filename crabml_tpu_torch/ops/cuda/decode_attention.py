@@ -6,7 +6,9 @@ Counterpart of crabml_tpu/ops/pallas/decode_attention.py::decode_attention
 separate block and the caller writes them into the cache afterwards). Both
 become csrc/decode_attention.cu, the dense instantiation of
 csrc/decode_core.cuh (see its note for the bound and design). The paged forms
-are in paged_decode_attention.py and share the launcher below.
+are in paged_decode_attention.py and share the launcher below. `plan` is the
+launch's shape, from the cache's capacity alone; `block_keys` mirrors which
+keys (and which table column) each block of the grid reads.
 
 The cache is bfloat16 or float32 like q, or int8 with one float32 scale per
 (token, kv head) in k_scale / v_scale (B, KV, S, 1). `softcap` caps the
@@ -21,6 +23,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -28,26 +31,77 @@ from . import _build
 from .flash_attention import flash_attention_plain
 
 MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
+MAX_ROWS = 16  # query rows (T * q heads per kv head) of the kernel's tile
 HEAD_DIM = 128
-_SPLIT_BLOCKS = 264  # aim for two blocks per SM on the H100's 132 SMs
+CHUNK = 128  # keys a block takes: one page of the paged pool
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _row_tile(tg: int) -> int | None:
-    for r in (4, 8, 16):
-        if tg <= r:
-            return r
-    return None
-
-
 def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
     """Whether the decode kernels take a step of T new tokens: at most MAX_T
     tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
     128. Callers send every other attention to the flash kernel."""
-    return T <= MAX_T and H % KV == 0 and hd == HEAD_DIM and _row_tile(T * (H // KV)) is not None
+    return T <= MAX_T and H % KV == 0 and hd == HEAD_DIM and T * (H // KV) <= MAX_ROWS
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Shape of one decode-attention launch. Block (kv, b, c) of the grid
+    takes keys c*CHUNK .. c*CHUNK+CHUNK-1 of sequence b; `part_stats` and
+    `part_acc` are the float32 partials of sequences with more than one live
+    chunk, `tickets` the int32 counters that find each (b, kv)'s last block."""
+    grid: tuple[int, int, int]  # (KV, B, n_chunks)
+    n_chunks: int
+    part_stats: tuple[int, ...]  # (B, KV, n_chunks, T*G): row max; row sum alike
+    part_acc: tuple[int, ...]  # (B, KV, n_chunks, T*G, hd)
+    tickets: int
+
+
+def plan(B: int, KV: int, span: int, T: int, G: int, hd: int = HEAD_DIM) -> Plan:
+    """The launch for B sequences of at most `span` keys each (the cache's
+    capacity, plus T when the step's keys come in their own block). It reads
+    nothing on the device, so the launch never waits for the card and a CUDA
+    graph can capture it; blocks past a sequence's live keys exit at once."""
+    n = max(1, -(-span // CHUNK))
+    return Plan(grid=(KV, B, n), n_chunks=n, part_stats=(B, KV, n, T * G),
+                part_acc=(B, KV, n, T * G, hd), tickets=B * KV)
+
+
+def block_keys(c: int, pos: int, T: int, win: int, cap: int, fused: bool) -> dict:
+    """What block c of a sequence at `pos` reads, as csrc/decode_core.cuh's
+    `keys_of` and `chunk_kernel` decide it (this is their mirror, for the
+    tests): `cached` and `new` the key ranges [lo, hi) it loads from the cache
+    and from the step's block, `column` the table column it follows (None: no
+    table read), `live` whether it works, `zeros` whether it writes the zero
+    output of a sequence with no key. `cap`: keys the cache holds at most."""
+    n_keys = max(pos + T, 0)
+    n_cache = min(min(max(pos, 0), n_keys) if fused else n_keys, cap)
+    kend = min(n_keys, n_cache + T) if fused else n_cache
+    first = min(max(pos + 1 - win, 0), kend) if win > 0 else 0
+    c0, c1 = first // CHUNK, -(-kend // CHUNK)
+    lo, hi = max(c * CHUNK, first), min(c * CHUNK + CHUNK, kend)
+    live = c0 <= c < c1
+    return {
+        "live": live, "zeros": c1 <= c0 and c == 0,
+        "cached": (lo, min(hi, n_cache)) if live else (0, 0),
+        "new": (max(lo, n_cache), hi) if live and fused else (0, 0),
+        "column": c if live and c * CHUNK < n_cache else None,
+    }
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_buffer(n: int, device: torch.device) -> torch.Tensor:
+    """Persistent int32 counters, zero between launches: the kernel's last
+    block of each (b, kv) resets its own."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 def dequantize_kv(a: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
@@ -78,18 +132,18 @@ def decode_attention_plain(q, k_cache, v_cache, pos, scale: float, k_scale=None,
 
 
 def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_scale, news,
-           softcap: float, win: int, table=None, span: int) -> torch.Tensor:
+           softcap: float, win: int, table=None, span: int, pos_bias: int = 0) -> torch.Tensor:
     """Check the inputs, launch `entry` of csrc/<entry>.cu and count it under
     `count`. k, v: one layer, (B, KV, S, hd) dense or (n_pages, KV, 128, hd)
     with `table`; news = (k_new, v_new, ks_new, vs_new) or None; `span` the
-    most keys a sequence can hold (sizes the key split)."""
+    most keys a sequence can have (sizes the grid); the kernel reads
+    pos + pos_bias as each sequence's keys before the step."""
     B, T, H, hd = q.shape
     KV = k.shape[1]
     G = H // KV
     _build.require(decode_eligible(T, H, KV, hd),
-                   f"{count}: T={T} H={H} KV={KV} head_dim={hd} (need T<={MAX_T}, T*G<=16, "
-                   f"head_dim {HEAD_DIM})")
-    R = _row_tile(T * G)
+                   f"{count}: T={T} H={H} KV={KV} head_dim={hd} (need T<={MAX_T}, "
+                   f"T*G<={MAX_ROWS}, head_dim {HEAD_DIM})")
     quant = k.dtype == torch.int8
     _build.require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == v.dtype
                    and (quant or k.dtype == q.dtype),
@@ -130,15 +184,18 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
         _build.require(t.is_contiguous() and t.device == q.device,
                        f"{count}: cache, scales and table must be contiguous on q's device")
     q = q.contiguous()
+    for t in [q, *tensors[:2], *([] if news is None else new_t[:2])]:  # copied 16 bytes at a time
+        _build.require(t.data_ptr() % 16 == 0, f"{count}: q and cache rows must be 16-byte aligned")
     pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
-    nsplit = max(1, min(-(-_SPLIT_BLOCKS // (B * KV)), span // 32))
+    pl = plan(B, KV, span, T, G, hd)
     dev = q.device
-    part_m = torch.empty(B, KV, nsplit, R, dtype=torch.float32, device=dev)
+    part_m = torch.empty(pl.part_stats, dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(B, KV, nsplit, R, hd, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(pl.part_acc, dtype=torch.float32, device=dev)
+    ticket = _ticket_buffer(pl.tickets, dev)
     out = torch.empty_like(q)
-    argtypes = [_I, _I] + [_P] * 9 + ([_P] if table is not None else []) + [_P] * 5 \
-        + [_I] * 7 + [_F, _F, _I, _P]
+    argtypes = [_I, _I] + [_P] * 9 + ([_P] if table is not None else []) + [_P] * 6 \
+        + [_I] * 6 + [_F, _F, _I, _I, _P]
     lib, fn = _build.entry(entry, entry, *argtypes)
     args = [0 if q.dtype == torch.bfloat16 else 1, int(quant), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), k_scale.data_ptr() if quant else None,
@@ -146,8 +203,9 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     if table is not None:
         args.append(table.data_ptr())
     args += [pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-             out.data_ptr(), B, KV, table.shape[1] if table is not None else k.shape[2],
-             T, G, nsplit, R, float(scale), float(softcap), int(win), _build.stream_ptr(q)]
+             ticket.data_ptr(), out.data_ptr(), B, KV,
+             table.shape[1] if table is not None else k.shape[2], T, G, pl.n_chunks,
+             float(scale), float(softcap), int(win), int(pos_bias), _build.stream_ptr(q)]
     _build.launches[count] += 1
     err = fn(*args)
     _build.check(lib, err, count)
@@ -187,4 +245,4 @@ def decode_attention_fused(q, k_cache, v_cache, layer: int, pos, scale: float, k
                    f"decode_attention_fused: cache {tuple(k_cache.shape)} for q {tuple(q.shape)}")
     return launch("decode_attention", "decode_attention_fused", q, k_l, v_l, pos, scale,
                   k_scale=ks_l, v_scale=vs_l, news=(k_new, v_new, ks_new, vs_new),
-                  softcap=softcap, win=int(local_window or 0), span=k_l.shape[2])
+                  softcap=softcap, win=int(local_window or 0), span=k_l.shape[2] + q.shape[1])

@@ -20,9 +20,31 @@ from . import _build
 
 NEG_INF = -1e30
 ROWS_PER_BLOCK = 64  # tokens x q heads of one kv group per warpgroup (float32: per block)
+HEAD_DIMS = (64, 128)  # head dims the kernel takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def check_card_attention(cfg, device) -> None:
+    """Raise UnsupportedError, with the reason, when `device` is a card and
+    the attention of `cfg` (a ModelConfig) is one its kernels do not take.
+    Every prefill chunk of more than a few tokens, and every attention at a
+    head dim other than 128, goes to this kernel, which takes head dims
+    HEAD_DIMS and q heads per kv head dividing ROWS_PER_BLOCK. The Runner and
+    both engines call it before any weight is read; on the CPU every shape
+    runs on the plain versions."""
+    if torch.device(device).type != "cuda":
+        return
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    reasons = []
+    if hd not in HEAD_DIMS:
+        reasons.append(f"head dim {hd} (the flash kernel takes {' or '.join(map(str, HEAD_DIMS))})")
+    if H % KV or ROWS_PER_BLOCK % (H // KV):
+        reasons.append(f"{H} q heads over {KV} kv heads (q heads per kv head must divide "
+                       f"{ROWS_PER_BLOCK})")
+    _build.require(not reasons, "the card's attention kernels do not take this model: "
+                   + "; ".join(reasons) + "; pass device='cpu' to run it on the CPU")
 
 
 def flash_attention_plain(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0,
@@ -66,7 +88,7 @@ def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0
     KV, S = k_cache.shape[1], k_cache.shape[2]
     _build.require(H % KV == 0 and ROWS_PER_BLOCK % (H // KV) == 0,
                    f"flash_attention: H={H} KV={KV} (G must divide {ROWS_PER_BLOCK})")
-    _build.require(hd in (64, 128), f"flash_attention: head_dim {hd} (kernel takes 64, 128)")
+    _build.require(hd in HEAD_DIMS, f"flash_attention: head_dim {hd} (kernel takes 64, 128)")
     _build.require(q.dtype in (torch.bfloat16, torch.float32)
                    and k_cache.dtype == v_cache.dtype == q.dtype,
                    f"flash_attention: q {q.dtype}, cache {k_cache.dtype} "

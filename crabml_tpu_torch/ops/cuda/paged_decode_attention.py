@@ -24,9 +24,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import decode_attention_plain, launch
+from .decode_attention import CHUNK, decode_attention_plain, launch
 
-PAGE = 128  # tokens per page
+PAGE = CHUNK  # tokens per page: one block of the kernel
 
 
 def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -64,15 +64,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, scale: floa
     lengths (B,) keys per sequence, the step's T included -> (B, T, H*hd).
     Row t sees keys j <= lengths[b] - T + t; a sequence of length 0 gives 0."""
     T = q.shape[1]
-    pos = lengths.to(q.device) - T
     if not q.is_cuda:
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, pos, scale,
-                                            k_scale, v_scale, softcap, local_window)
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths - T,
+                                            scale, k_scale, v_scale, softcap, local_window)
     _check_pool("paged_decode_attention", q, k_pages, page_table)
-    return launch("paged_decode_attention", "paged_decode_attention", q, k_pages, v_pages, pos,
-                  scale, k_scale=k_scale, v_scale=v_scale, news=None, softcap=softcap,
+    return launch("paged_decode_attention", "paged_decode_attention", q, k_pages, v_pages,
+                  lengths, scale, k_scale=k_scale, v_scale=v_scale, news=None, softcap=softcap,
                   win=int(local_window or 0), table=page_table,
-                  span=page_table.shape[1] * PAGE)
+                  span=page_table.shape[1] * PAGE, pos_bias=-T)
 
 
 def paged_decode_attention_fused(q, k_pages, v_pages, table, layer: int, pos, scale: float,
@@ -94,4 +93,4 @@ def paged_decode_attention_fused(q, k_pages, v_pages, table, layer: int, pos, sc
     return launch("paged_decode_attention", "paged_decode_attention_fused", q, k_l, v_l, pos,
                   scale, k_scale=ks_l, v_scale=vs_l, news=(k_new, v_new, ks_new, vs_new),
                   softcap=softcap, win=int(local_window or 0), table=table,
-                  span=table.shape[1] * PAGE)
+                  span=table.shape[1] * PAGE + q.shape[1])

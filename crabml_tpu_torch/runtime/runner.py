@@ -28,6 +28,7 @@ from ..gguf.reader import GGUFFile
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.forward import KVCache, forward
 from ..models.weights import augment_w8_weights, load_weights
+from ..ops.cuda.flash_attention import check_card_attention
 from ..tokenizer import Tokenizer, Utf8Buf, tokenizer_from_gguf
 from ..utils import resolve_device
 from ..utils.metrics import Metrics
@@ -83,6 +84,7 @@ class Runner:
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
+        check_card_attention(self.cfg, self.device)
         self.seq_len = min(seq_len or self.cfg.seq_len, self.cfg.seq_len)
         self.compute_dtype = compute_dtype
         w8_budget = None  # None = off, -1 = every eligible tensor, > 0 = a byte budget

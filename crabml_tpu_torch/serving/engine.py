@@ -32,6 +32,7 @@ import torch
 
 from ..errors import ConfigError, UnsupportedError
 from ..models.forward import KVCache, forward
+from ..ops.cuda.flash_attention import check_card_attention
 from ..runtime.sampler import sample_batch
 from ..tokenizer import Utf8Buf
 from ..utils import resolve_device
@@ -164,6 +165,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         if weights is None or cfg is None:
             raise ConfigError("ServingEngine needs a runner, or weights and cfg")
+        check_card_attention(cfg, self.device)
         self.weights = weights
         self.cfg = cfg
         self.tokenizer = tokenizer

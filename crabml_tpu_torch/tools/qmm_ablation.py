@@ -24,6 +24,7 @@ import math
 import shutil
 import statistics
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -74,23 +75,25 @@ VARIANTS = {
 SHAPES = ((512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096))
 
 
-def build(names) -> dict:
-    """{variant: its C entry qmm_q4k_bf16}, built in parallel."""
-    root = _build.BUILD_DIR / "ablation"
+def build(variants: dict, source: str = "qmm_q4k.cu", entry: str = "qmm_q4k_bf16",
+          argtypes=(ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)) -> dict:
+    """{variant: its C entry}, each `variants[name]` = [(file, text, replacement)]
+    applied to a copy of csrc/<source> and the headers, built in parallel."""
+    root = _build.BUILD_DIR / "ablation" / Path(source).stem
     procs = {}
-    for name in names:
+    for name, edits in variants.items():
         d = root / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for src in [*_build.CSRC.glob("*.cuh"), _build.CSRC / "qmm_q4k.cu"]:
+        for src in [*_build.CSRC.glob("*.cuh"), _build.CSRC / source]:
             shutil.copy(src, d / src.name)
-        for fname, old, new in VARIANTS[name]:
+        for fname, old, new in edits:
             text = (d / fname).read_text()
             if old not in text:
                 raise RuntimeError(f"variant {name}: {fname} no longer holds the text it edits")
             (d / fname).write_text(text.replace(old, new))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
-               str(d / "qmm_q4k.cu")]
+               str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     entries = {}
@@ -98,8 +101,8 @@ def build(names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(root / name / "lib.so")).qmm_q4k_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(root / name / "lib.so")), entry)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         entries[name] = fn
     return entries

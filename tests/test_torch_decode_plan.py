@@ -1,0 +1,87 @@
+"""The decode-attention launch plan (ops/cuda/decode_attention.py::plan) and
+its mirror of what each block reads (block_keys, the host-side copy of
+csrc/decode_core.cuh's keys_of): the chunks cover every key a sequence can
+have, each key is read by one block, no block follows a table column past the
+table, and the plan is made without pos. Pure host code: runs on the CPU."""
+
+import inspect
+
+import pytest
+
+from crabml_tpu_torch.ops.cuda.decode_attention import CHUNK, block_keys, plan
+
+# (B, KV, span, T, G): the 7B main path's fused step (4,096 + 1), 8-slot
+# serving over 9 pages (+1, +4), a short prefill tail, 1-key and ragged spans
+_PLANS = [(1, 8, 4097, 1, 4), (8, 8, 1152 + 1, 1, 4), (8, 8, 1152 + 4, 4, 4), (2, 2, 256, 3, 4),
+          (1, 1, 1, 1, 1), (3, 4, 1000, 8, 2), (8, 8, 1152, 4, 4)]
+
+
+@pytest.mark.parametrize("B,KV,span,T,G", _PLANS)
+def test_plan_chunks_cover_the_span(B, KV, span, T, G):
+    p = plan(B, KV, span, T, G)
+    assert p.grid == (KV, B, p.n_chunks)
+    assert (p.n_chunks - 1) * CHUNK < span <= p.n_chunks * CHUNK  # every key, one chunk spare at most
+    assert p.part_stats == (B, KV, p.n_chunks, T * G)
+    assert p.part_acc == (B, KV, p.n_chunks, T * G, 128)
+    assert p.tickets == B * KV
+
+
+def test_plan_never_reads_pos():
+    """The plan is a function of shapes alone: no pos argument, the same plan
+    for the same shapes (so the launch never waits on the card, and a CUDA
+    graph can capture it)."""
+    assert "pos" not in inspect.signature(plan).parameters
+    assert plan(8, 8, 1153, 1, 4) == plan(8, 8, 1153, 1, 4)
+
+
+def _positions(cap, T, fused):
+    """Every prefix a cache of `cap` keys can hold before a step of T (and
+    the idle slot's -T of the paged form)."""
+    last = cap if fused else cap - T
+    return [-T, *range(0, last + 1)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("T", [1, 4, 8])
+@pytest.mark.parametrize("win", [0, 1, 100, 128, 300])
+def test_blocks_read_each_live_key_once(fused, T, win):
+    """For every prefix of a 3-page cache, the blocks of the plan read
+    exactly the keys some row sees (from the earliest row's window start to
+    the last new key), each once, from the cache below pos (fused) and from
+    the step's block from pos on; a sequence with no key has one block
+    writing zeros."""
+    cap = 3 * CHUNK
+    p = plan(1, 1, cap + (T if fused else 0), T, 4)
+    for pos in _positions(cap, T, fused):
+        n_keys = max(pos + T, 0)
+        first = max(pos + 1 - win, 0) if win else 0
+        seen, zeros = [], 0
+        for c in range(p.n_chunks):
+            blk = block_keys(c, pos, T, win, cap, fused)
+            zeros += blk["zeros"]
+            cached, new = range(*blk["cached"]), range(*blk["new"])
+            assert all(j < max(pos, 0) for j in cached) if fused else not new
+            assert all(j >= max(pos, 0) for j in new)
+            seen += [*cached, *new]
+        assert sorted(seen) == list(range(first if n_keys else 0, n_keys)), pos
+        assert len(seen) == len(set(seen))
+        assert zeros == (n_keys == 0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("max_pages", [1, 2, 9])
+@pytest.mark.parametrize("T", [1, 4])
+def test_blocks_never_follow_a_column_past_the_table(fused, max_pages, T):
+    """A block reads table column c only when its chunk holds a cached key,
+    and c < max_pages for every prefix the pool can hold, though the fused
+    plan has one chunk past the table for the step's keys."""
+    cap = max_pages * CHUNK
+    p = plan(8, 8, cap + (T if fused else 0), T, 4)
+    for pos in _positions(cap, T, fused):
+        for win in (0, 50):
+            for c in range(p.n_chunks):
+                blk = block_keys(c, pos, T, win, cap, fused)
+                col = blk["column"]
+                if col is not None:
+                    assert col == c < max_pages
+                    assert blk["cached"][0] < blk["cached"][1]

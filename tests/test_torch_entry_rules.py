@@ -1,0 +1,69 @@
+"""Entry-point rules of the port against the reference: a model whose
+attention the card's kernels do not take is refused at load, before any
+weight is read, with the reason; the CLI's defaults are the reference's."""
+
+from dataclasses import replace
+from pathlib import Path
+
+import pytest
+import torch
+
+from crabml_tpu.cli import build_parser as jax_parser
+from crabml_tpu_torch.cli import build_parser as torch_parser
+from crabml_tpu_torch.errors import UnsupportedError
+from crabml_tpu_torch.gguf.reader import GGUFFile
+from crabml_tpu_torch.models.config import config_from_gguf
+from crabml_tpu_torch.ops.cuda.flash_attention import check_card_attention
+
+MIXTRAL = Path(__file__).parent / "fixtures" / "mixtral-tiny-f32.gguf"
+
+
+def _cfg():
+    return config_from_gguf(GGUFFile(str(MIXTRAL)).metadata)
+
+
+def test_card_refuses_head_dims_its_kernels_do_not_take():
+    """The committed Mixtral fixture has head dim 16: refused on a card,
+    taken on the CPU. No card is needed to decide."""
+    cfg = _cfg()
+    assert cfg.head_dim == 16
+    with pytest.raises(UnsupportedError, match="head dim 16"):
+        check_card_attention(cfg, torch.device("cuda"))
+    check_card_attention(cfg, torch.device("cpu"))
+    check_card_attention(replace(cfg, head_dim_override=128), "cuda")  # 128 and 64 are taken
+    check_card_attention(replace(cfg, head_dim_override=64), "cuda")
+    with pytest.raises(UnsupportedError, match="q heads per kv head"):  # G = 3 does not divide 64
+        check_card_attention(replace(cfg, n_heads=3 * cfg.n_kv_heads, head_dim_override=128),
+                             "cuda")
+
+
+def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):
+    """On a card (faked: the device resolves to cuda) the Runner raises
+    before load_weights is called, and both engines before they make a
+    cache."""
+    from crabml_tpu_torch.runtime import runner as runner_mod
+    from crabml_tpu_torch.serving import engine as engine_mod
+    from crabml_tpu_torch.serving.paged import PagedServingEngine
+
+    def no_weights(*a, **k):
+        raise AssertionError("a weight was read")
+
+    monkeypatch.setattr(runner_mod, "resolve_device", lambda d=None: torch.device("cuda"))
+    monkeypatch.setattr(runner_mod, "load_weights", no_weights)
+    with pytest.raises(UnsupportedError, match="head dim 16"):
+        runner_mod.Runner(str(MIXTRAL))
+    monkeypatch.setattr(engine_mod, "resolve_device", lambda d=None: torch.device("cuda"))
+    monkeypatch.setattr(engine_mod.ServingEngine, "_reset_device_state", no_weights)
+    for cls in (engine_mod.ServingEngine, PagedServingEngine):
+        with pytest.raises(UnsupportedError, match="head dim 16"):
+            cls(weights={}, cfg=_cfg())
+
+
+def test_cli_defaults_match_the_reference():
+    """-p, -n and -t default as in crabml_tpu/cli.py, so one command line
+    generates the same number of tokens from the same prompt."""
+    jax_args = jax_parser().parse_args(["m.gguf"])
+    torch_args = torch_parser().parse_args(["m.gguf"])
+    for name in ("prompt", "steps", "temperature"):
+        assert getattr(torch_args, name) == getattr(jax_args, name), name
+    assert torch_args.steps == 300

@@ -356,16 +356,48 @@ def test_flash_attention_ignores_rows_past_the_prefix(cuda, window):
     assert _rel(got, want) <= 2.0 ** -7
 
 
+# prefixes that cross the kernel's chunk edges (128 keys, a page) and the
+# 16-key slices of its warps; every case adds the cache's last position
+_POS = (0, 1, 31, 32, 127, 128, 129, 255, 256, 1000)
+
+
+def _poison(cache, first, end):
+    """NaN in every row of a float cache (B, KV, S, d) before first[b] and from
+    end[b] on: rows the kernel must never read."""
+    for b, (lo, hi) in enumerate(zip(first, end)):
+        cache[b, :, :lo] = float("nan")
+        cache[b, :, hi:] = float("nan")
+
+
+def _poison_pool(pool, table, first, end):
+    """NaN in every row of a pool (n_pages, KV, PAGE, d) that no sequence's
+    keys first[b] <= j < end[b] map to through `table`: unused pages, page 0,
+    and the rows of a used page outside the keys."""
+    live = torch.zeros(pool.shape[0], PAGE, dtype=torch.bool)
+    tab = table.cpu()
+    for b, (lo, hi) in enumerate(zip(first, end)):
+        j = torch.arange(lo, hi)
+        live[tab[b, j // PAGE].long(), j % PAGE] = True
+    pool[~live.to(pool.device)[:, None, :, None].expand(-1, pool.shape[1], -1, pool.shape[3])] = \
+        float("nan")
+
+
 def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, window=0,
-                 pos=(0, 1, 127, 128, 300, 1000)):
+                 pos=None, poison=False):
     """One decode-attention form against its plain version on the card, at
-    ragged prefixes. form: dense | dense_fused | paged | paged_fused; kv: bf16
-    | f32 | int8 (q bf16). Returns (kernel out, plain out, count name)."""
+    ragged prefixes (_POS and the cache's last position unless `pos` is
+    given). form: dense | dense_fused | paged | paged_fused; kv: bf16 | f32 |
+    int8 (q bf16). With `poison`, every cache row or pool row past the live
+    keys (and before the window of a sequence's first row) is set to NaN
+    after the plain version ran (for int8: its scales). Returns (kernel out,
+    plain out, count name)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     qdt = torch.float32 if kv == "f32" else torch.bfloat16
-    B, KV, hd, n_slot_pages = len(pos), 2, 128, 9
+    KV, hd, n_slot_pages = 2, 128, 9
     S = n_slot_pages * PAGE
+    pos = tuple(pos or (*_POS, S - T))
+    B = len(pos)
     fused, paged = form.endswith("fused"), form.startswith("paged")
 
     def rand(*shape):
@@ -373,7 +405,7 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
 
     q = rand(B, T, KV * G, hd).to(qdt)
     posv = torch.tensor(pos, dtype=torch.int32, device=dev)
-    n_rows = 64 * PAGE if paged else B * S  # pool of 64 pages, or the dense cache
+    n_rows = 128 * PAGE if paged else B * S  # pool of 128 pages, or the dense cache
     k, v = rand(n_rows // PAGE, KV, PAGE, hd), rand(n_rows // PAGE, KV, PAGE, hd)
     kn, vn = rand(B, KV, T, hd), rand(B, KV, T, hd)
     ks = vs = ksn = vsn = None
@@ -382,17 +414,23 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
     else:
         k, v, kn, vn = (a.to(qdt) for a in (k, v, kn, vn))
     kw = dict(softcap=softcap, local_window=window)
+    # the cache's live rows: from the first row's window start to the keys it holds
+    first = [max(p + 1 - window, 0) if window else 0 for p in pos]
+    end = [p if fused else p + T for p in pos]
+    floats = (ks, vs) if kv == "int8" else (k, v)
     if paged:
-        perm = torch.randperm(63, generator=torch.Generator().manual_seed(seed))[: B * n_slot_pages]
-        table = (perm + 1).reshape(B, n_slot_pages).to(dev, torch.int32)
+        perm = torch.randperm(127, generator=torch.Generator().manual_seed(seed))
+        table = (perm[: B * n_slot_pages] + 1).reshape(B, n_slot_pages).to(dev, torch.int32)
         for b, p in enumerate(pos):  # unused entries are 0, the scratch page
             table[b, -(-(p + T) // PAGE):] = 0
         if fused:
+            want = paged_decode_attention_plain(q, k, v, table, posv, 0.09, ks, vs, softcap,
+                                                window, kn, vn, ksn, vsn)
+            for a in floats if poison else ():
+                _poison_pool(a, table, first, end)
             got = paged_decode_attention_fused(q, k[None], v[None], table, 0, posv, 0.09, kn, vn,
                                                None if ks is None else ks[None],
                                                None if vs is None else vs[None], ksn, vsn, **kw)
-            want = paged_decode_attention_plain(q, k, v, table, posv, 0.09, ks, vs, softcap,
-                                                window, kn, vn, ksn, vsn)
             return got, want, "paged_decode_attention_fused"
         # the pool holds the step's tokens: write them through the table first
         at = posv.long()[:, None] + torch.arange(T, device=dev)[None]
@@ -400,26 +438,33 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
         for pool, new in ((k, kn), (v, vn), (ks, ksn), (vs, vsn)):
             if pool is not None:
                 pool[pg, :, at % PAGE] = new.transpose(1, 2)
-        got = paged_decode_attention(q, k, v, table, posv + T, 0.09, ks, vs, **kw)
         want = paged_decode_attention_plain(q, k, v, table, posv, 0.09, ks, vs, softcap, window)
+        for a in floats if poison else ():
+            _poison_pool(a, table, first, end)
+        got = paged_decode_attention(q, k, v, table, posv + T, 0.09, ks, vs, **kw)
         return got, want, "paged_decode_attention"
     dense = [None if a is None else a.reshape(B, S // PAGE, KV, PAGE, -1).transpose(1, 2)
              .reshape(B, KV, S, -1).contiguous() for a in (k, v, ks, vs)]
     k, v, ks, vs = dense
+    floats = (ks, vs) if kv == "int8" else (k, v)
     if fused:
+        want = decode_attention_plain(q, k, v, posv, 0.09, ks, vs, softcap, window,
+                                      kn, vn, ksn, vsn)
+        for a in floats if poison else ():
+            _poison(a, first, end)
         got = decode_attention_fused(q, k[None], v[None], 0, posv, 0.09, kn, vn,
                                      None if ks is None else ks[None],
                                      None if vs is None else vs[None], ksn, vsn, **kw)
-        want = decode_attention_plain(q, k, v, posv, 0.09, ks, vs, softcap, window,
-                                      kn, vn, ksn, vsn)
         return got, want, "decode_attention_fused"
     at = posv.long()[:, None] + torch.arange(T, device=dev)[None]
     rows = torch.arange(B, device=dev)[:, None]
     for cache, new in ((k, kn), (v, vn), (ks, ksn), (vs, vsn)):
         if cache is not None:
             cache[rows, :, at] = new.transpose(1, 2)
-    got = decode_attention(q, k, v, posv, 0.09, ks, vs, **kw)
     want = decode_attention_plain(q, k, v, posv, 0.09, ks, vs, softcap, window)
+    for a in floats if poison else ():
+        _poison(a, first, end)
+    got = decode_attention(q, k, v, posv, 0.09, ks, vs, **kw)
     return got, want, "decode_attention"
 
 
@@ -433,10 +478,11 @@ _FORMS = ["dense", "dense_fused", "paged", "paged_fused"]
 def test_decode_forms_match_plain(cuda, form, kv, T, G, softcap, window):
     """Every form of the decode kernel (dense / paged, the step's keys in the
     cache or in their own block), every stored type, softcap and window, at
-    prefixes 0, 1, a page boundary and ~1,000 and a shuffled table. Tolerance
-    as above: 2^-7 of max|out| for a bfloat16 output (one rounding), 1e-4 for
-    float32 (fast exp, another order of sums). The int8 payload dequantizes
-    exactly on both sides."""
+    prefixes on both sides of every chunk edge, ~1,000 and the cache's last
+    position, and a shuffled table. Tolerance: 2^-7 of max|out| for a bfloat16
+    output (one rounding of the output; the probabilities enter the second
+    product as bfloat16), 1e-4 for float32 (fast exp, another order of sums).
+    The int8 payload dequantizes exactly on both sides."""
     before = dict(_build.launches)
     got, want, count = _decode_case(form, kv, T, G, seed=T * 10 + G, softcap=softcap,
                                     window=window)
@@ -455,6 +501,32 @@ def test_decode_forms_agree_over_seeds(cuda, form):
         assert _rel(got, want) <= 2.0 ** -7, f"seed {seed}"
 
 
+@pytest.mark.parametrize("window", [0, 200])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_ignore_rows_past_the_keys(cuda, form, kv, window):
+    """NaN in every cache row or pool row that no row may see: past the live
+    keys (for the fused forms, from the step's position on, since the step's
+    keys come from their own block), before the window of a sequence's first
+    row (window 200 starts inside a chunk for most prefixes), unused pages
+    and the scratch page; for int8 in the scales. None reaches the output.
+    Tolerances as above."""
+    got, want, _ = _decode_case(form, kv, 4, 4, seed=5, window=window, poison=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if kv == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_are_deterministic(cuda, form):
+    """Two calls on the same inputs give the same bits: the chunks of a
+    sequence merge in a fixed order, whichever block arrives last."""
+    one, _, _ = _decode_case(form, "bf16", 4, 4, seed=9, window=0)
+    two, _, _ = _decode_case(form, "bf16", 4, 4, seed=9, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
 def test_paged_length_zero_rows_give_zero(cuda):
     """A sequence of length 0 (an idle slot) reads no page and writes 0."""
     q = torch.randn(2, 1, 8, 128, device=cuda).to(torch.bfloat16)
@@ -463,6 +535,19 @@ def test_paged_length_zero_rows_give_zero(cuda):
     table = torch.tensor([[0, 0], [1, 0]], dtype=torch.int32, device=cuda)
     lengths = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
     out = paged_decode_attention(q, pool, pool, table, lengths, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out[1].float(), torch.ones_like(out[1]).float())
+
+
+def test_dense_zero_key_rows_give_zero(cuda):
+    """The dense form with no key before or at a row (pos = -T) reads no row
+    and writes 0; the other sequence of the batch is unaffected."""
+    q = torch.randn(2, 1, 8, 128, device=cuda).to(torch.bfloat16)
+    cache = torch.full((2, 2, 256, 128), float("nan"), device=cuda, dtype=torch.bfloat16)
+    cache[1, :, :3] = 1.0
+    pos = torch.tensor([-1, 2], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, cache, cache, pos, 0.09)
     torch.cuda.synchronize()
     assert torch.equal(out[0], torch.zeros_like(out[0]))
     torch.testing.assert_close(out[1].float(), torch.ones_like(out[1]).float())
