@@ -12,9 +12,11 @@ fails:
    the shapes of the 7B main path (the flash kernel at a first and a second
    512-token chunk, the second also with a softcap and with a sliding
    window, and at the ragged 189-token chunk; the Q4_K and W8 matmuls at
-   189, 512 and 1,024 rows) and of 8-slot serving (every form of the
-   decode-attention kernel: dense and paged, bfloat16 and int8, softcap,
-   window, the step's keys in the cache or in their own block) and of the
+   189, 512 and 1,024 rows; the int8-activation matmul at every 7B decode
+   projection at 1 and 8 rows, and at 16 rows) and of 8-slot serving
+   (every form of the decode-attention kernel: dense and paged, bfloat16 and
+   int8, softcap, window, the step's keys in the cache or in their own
+   block) and of the
    Mixtral path (the grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs
    over 8 experts, one of them empty and the segments ragged; the
    int8-activation matmul with a plane per row; the fused decode form at B=1
@@ -133,6 +135,19 @@ MOE_LAYERS = 8  # of Mixtral-8x7B's 32: with the W8 planes the full depth does n
 # every expert a prefill uses to float32 (one prompt of 40 tokens uses them all)
 MOE_TICK_LENGTHS = (1, 2, 3, 4, 5, 6, 8, 40)
 PROFILE_PROMPTS = (100, 200, 300, 400, 500, 600, 700, 800)  # the profiled ticks' contexts
+QKV_M = (HEADS + 2 * KV_HEADS) * HEAD_DIM
+# qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
+# every projection of the 7B decode step at one row and at the 8-slot tick's
+# 8 rows (qkv, wo, gate|up, down, lm_head), a 16-row tail, and Mixtral's
+# experts with a plane per row
+W4A8_SHAPES = (
+    [(1, m, k, False, seed) for m, k, seed in ((QKV_M, DIM, 3), (DIM, FFN, 4), (VOCAB, DIM, 5),
+                                               (DIM, DIM, 51), (2 * FFN, DIM, 52))]
+    + [(SERVING_SLOTS, m, k, False, 53 + i)
+       for i, (m, k) in enumerate(((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN),
+                                   (VOCAB, DIM)))]
+    + [(2 * SERVING_SLOTS, QKV_M, DIM, False, 58)]
+    + [(1, 2 * FFN, DIM, True, 44), (8, 2 * FFN, DIM, True, 45), (8, DIM, FFN, True, 46)])
 
 
 class CheckFailed(Exception):
@@ -172,23 +187,28 @@ class Timer:
     `iters` calls, with a 256 MB write before each so L2 is cold, as it is on
     the main path where every matmul reads other weights. A spin on the card
     holds it while the host enqueues every call, so no host delay falls
-    between two events."""
+    between two events. With `by_read` L2 is emptied by a sum over the same
+    256 MB instead: no dirty lines are left for the timed call to write back."""
 
     def __init__(self, torch, iters: int = 10):
         self.torch = torch
         self.iters = iters
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, by_read: bool = False) -> float:
         torch = self.torch
         fn()
         fn()
         torch.cuda.synchronize()
         events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                   for _ in range(self.iters)]
+        sums = torch.empty(self.iters, dtype=torch.int64, device="cuda")
         torch.cuda._sleep(HOLD_CYCLES)
-        for a, b in events:
-            self.flush.zero_()
+        for i, (a, b) in enumerate(events):
+            if by_read:
+                torch.sum(self.flush, dim=0, out=sums[i])
+            else:
+                self.flush.zero_()
             a.record()
             fn()
             b.record()
@@ -644,17 +664,15 @@ def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
     timer = Timer(torch)
-    qkv_m = (HEADS + 2 * KV_HEADS) * HEAD_DIM
     checks = {
         # the two 512-row chunks' shapes; the 189-row chunk that the main
         # path sends to qmm_q4k (245 padded rows < W8_MIN_ROWS); 1,024 rows
-        "qmm_q4k": [check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, qkv_m, DIM, 1),
+        "qmm_q4k": [check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, QKV_M, DIM, 1),
                     check_matmul(timer, "qmm_q4k", PREFILL_CHUNK, DIM, FFN, 2),
-                    check_matmul(timer, "qmm_q4k", RAGGED_CHUNK, qkv_m, DIM, 49),
-                    check_matmul(timer, "qmm_q4k", 2 * PREFILL_CHUNK, qkv_m, DIM, 50)],
-        "qmm_w4a8": [check_matmul(timer, "qmm_w4a8", 1, qkv_m, DIM, 3),
-                     check_matmul(timer, "qmm_w4a8", 1, DIM, FFN, 4),
-                     check_matmul(timer, "qmm_w4a8", 1, VOCAB, DIM, 5)],
+                    check_matmul(timer, "qmm_q4k", RAGGED_CHUNK, QKV_M, DIM, 49),
+                    check_matmul(timer, "qmm_q4k", 2 * PREFILL_CHUNK, QKV_M, DIM, 50)],
+        "qmm_w4a8": [check_matmul(timer, "qmm_w4a8", rows, m, k, seed)
+                     for rows, m, k, planes, seed in W4A8_SHAPES if not planes],
         # a first and a second 512-token chunk; the second with the softcap
         # and with a sliding window; the main path's ragged second chunk
         "flash_attention": [check_attention(timer, "flash_attention", PREFILL_CHUNK, 0, 7),
@@ -670,17 +688,16 @@ def phase_kernels() -> dict[str, list[dict]]:
     checks.update(decode_checks(timer))
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
-    checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, qkv_m, DIM, 40),
+    checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, QKV_M, DIM, 40),
                         check_w8(timer, PREFILL_CHUNK, DIM, FFN, 41),
-                        check_w8(timer, RAGGED_CHUNK, qkv_m, DIM, 47),
-                        check_w8(timer, 2 * PREFILL_CHUNK, qkv_m, DIM, 48)]
+                        check_w8(timer, RAGGED_CHUNK, QKV_M, DIM, 47),
+                        check_w8(timer, 2 * PREFILL_CHUNK, QKV_M, DIM, 48)]
     for name in ("qmm_q4k_grouped", "qmm_w8_grouped"):
         checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
                         check_grouped(timer, name, DIM, FFN, 43)]
         torch.cuda.empty_cache()
-    checks["qmm_w4a8"] += [check_w4a8_planes(timer, 1, 2 * FFN, DIM, 44),
-                           check_w4a8_planes(timer, 8, 2 * FFN, DIM, 45),
-                           check_w4a8_planes(timer, 8, DIM, FFN, 46)]
+    checks["qmm_w4a8"] += [check_w4a8_planes(timer, rows, m, k, seed)
+                           for rows, m, k, planes, seed in W4A8_SHAPES if planes]
     del timer
     torch.cuda.empty_cache()
     return checks

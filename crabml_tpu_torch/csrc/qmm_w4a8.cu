@@ -1,45 +1,90 @@
 // qmm_w4a8: int8 activations x 4-bit Q4_K weights for decode rows (<= 16).
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
-// _run_w4a8, pallas_call at :740) together with its jnp quantize_activation.
-// A first small kernel quantizes the bf16 activations per (row, 32-group) to
-// symmetric int8 xq with scale dx = amax/127 and bsum sx = dx*sum(xq), with
-// the same IEEE operations and half-to-even rounding as the plain version
-// (ops/cuda/gemm_quant.py::quantize_activation), so the int8 values agree
-// bit for bit. Per group g the matmul kernel then computes
+// _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
+// (:254). A first small kernel quantizes the bf16 activations per (row,
+// 32-group) to symmetric int8 xq with scale dx = amax/127 and bsum sx =
+// dx*sum(xq), with the same IEEE operations and half-to-even rounding as the
+// plain version (ops/cuda/gemm_quant.py::quantize_activation), so the int8
+// values agree bit for bit. Per group g the matmul kernel then computes
 //
 //   x.w|g = dsub_g * dx_g * (xq_g . val_g)  +  msub_g * sx_g
 //
-// with val the unsigned nibble 0..15, which __dp4a takes directly as a signed
-// byte; this is algebraically what the TPU kernel's -128 centring computes.
+// with val the unsigned nibble 0..15, a valid signed byte for the tensor
+// cores; this is algebraically what the TPU kernel's -128 centring computes.
+// The groups are summed in float32 and rounded once to the output dtype.
 //
-// Bound on the H100: device-memory bytes. At B=1 every weight byte is used
-// once for two integer operations, far below the ridge, so the kernel must
-// stream the packed planes at the card's 3.35 TB/s. Design: one warp per
-// output column sweeps k; each lane loads 16 consecutive packed bytes per
-// step (a warp reads 512 contiguous bytes), unpacks low and high nibbles with
-// two masks and issues eight dp4a per row. The m=4096 projections launch 4096
-// warps, enough to spread over all 132 SMs. The per-lane float sums reduce
-// across the warp once at the end; no atomics, so results are deterministic.
-// The result is written as float32 or as the bf16 compute dtype.
+// Bound on the H100: device-memory bytes. Every weight byte is used once for
+// 2 * rows integer operations, far below the ridge at 1-16 rows, so the
+// kernel must stream the packed planes (0.625 bytes a weight with the bf16
+// scales) at the card's 3.35 TB/s. The earlier design (a warp per output
+// column with __dp4a) read x again for every column: at 8 rows ~40 L1 loads
+// and 64 dp4a per 16 weight bytes, bound by the load and issue pipes, and 8
+// rows took 3.2x the time of one.
 //
-// Per-row planes (the MoE decode path): with plane_idx given, row b multiplies
-// weight plane plane_idx[b] of a stack (n_planes, N, K). This is the TPU
-// launcher's scalar-prefetched `layer` (gemm_quant.py:701-706) fed an expert
-// id, one id per row here. The rows then share no weights, so the launch puts
-// one row on each blockIdx.y and every warp streams its own row's plane; the
-// index is read on the device and the host never sees a routing value. The
-// bytes are the selected planes only: k/E of the experts at one row.
+// Design:
+//  * A block owns 16 output columns (the M of one mma tile) for all its rows.
+//    Rows are the mma's N: one n8 tile for 1-8 rows, two for 9-16. The grid
+//    is ceil(m/16) blocks (x one block row per row for the plane form).
+//  * Integer group dots on the tensor cores, mma.sync m16n8k32 s8 x s8 ->
+//    s32: one mma is one 32-element scale group for 16 columns x 8 rows,
+//    exact. The port's nibble order (byte j of a 64-element chunk holds
+//    element j low and 32+j high) feeds A with no permute: one 64-bit
+//    shared load per column and chunk gives a thread its 8 bytes, masked for
+//    the chunk's first group and shifted for its second. The k order inside a
+//    group is free, since the dot is exact: a thread's k slots tig*4..+3 and
+//    16+tig*4..+3 are the chunk's bytes tig*8..tig*8+7, and B (xq, row gid)
+//    takes the same 8 bytes, so both are one 64-bit load.
+//  * The 4 warps of a block split K by Q4_K superblocks (256 deep: the scale
+//    planes' 16-byte copies hold 8 groups), warp w taking superblocks w, w+4,
+//    ... Each warp streams its own superblocks through its own cp.async ring
+//    of STAGES stages in shared memory (no block barrier in the loop): per
+//    stage the 16 columns' nibbles (2 KB) and scales (512 B), and XR rows of
+//    xq, dx, sx (320 B a row; XR = 1, 8 or 16, the rows the block has; the
+//    mma's other rows are zeros in registers). x is thus read once for 16
+//    columns: rows/8 bytes of x for each weight byte (2*rows before). Four
+//    stages (three at 16 rows, where four would leave one block an SM): on
+//    the H100 deeper rings, up to a warp's whole k range, were no faster.
+//    Columns past m and rows past the real ones are zero-filled (source
+//    size 0), never read and never written. The shared layouts are
+//    XOR-swizzled by 16-byte piece so that the fragment loads are free of
+//    bank conflicts.
+//  * The epilogue of each group is acc += float(c) * (dsub*dx) + msub*sx in
+//    float32. The warps' partial sums are added through shared memory in
+//    warp order: no atomics, the result is the same at every call.
+//  * The quantizer is chained by programmatic dependent launch: it runs
+//    griddepcontrol.launch_dependents first, the matmul is launched with
+//    cudaLaunchAttributeProgrammaticStreamSerialization, and its warps issue
+//    their first weight stages before griddepcontrol.wait, the first point
+//    where they read xq / dx / sx. Both launches stay on the caller's stream,
+//    so a CUDA graph captures them.
+//  * Per-row planes (the MoE decode path): with plane_idx given, row b
+//    multiplies weight plane plane_idx[b] of a stack (n_planes, N, K). This
+//    is the TPU launcher's scalar-prefetched `layer` fed an expert id, one id
+//    per row here: the launch puts one row on each blockIdx.y with that row's
+//    plane as its base, and the index is read on the device. Rows that share
+//    an expert read its plane once each.
+// The grid and the rows of x a stage holds come from
+// ops/cuda/gemm_quant.py::w4a8_plan, which also mirrors the ring's depth and
+// each warp's superblocks; its w4a8_block_reads mirrors each block's copies
+// and stores, and the tier-1 tests check their coverage.
+// ptxas (sm_90a, CUDA 12.8): 96 registers at XR = 1, 140 at 8, 192 at 16,
+// no spills; 2 or 4 KB of static shared memory (the partial
+// sums) beside the rings' dynamic 45 KB (XR = 1), 80 KB (8) or 90 KB (16).
 #include "common.cuh"
+#include "wgmma.cuh"  // wg::smem_u32, cp_async16, cp_async_commit, cp_async_wait
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;  // quantizer: one warp per 32-element group
 
 // one warp per 32-element group, lane i holds element i of the group
 __global__ void __launch_bounds__(WARPS * 32)
 quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ dx,
                 float* __restrict__ sx, int K) {
+    // the matmul may start now: it reads xq / dx / sx only after its
+    // griddepcontrol.wait, which waits for this whole grid
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     const int G = K / 32;
     const int g = blockIdx.x * WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
     const int b = blockIdx.y;
@@ -59,114 +104,287 @@ quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __re
     }
 }
 
-template <int NB, typename OutT>
-__global__ void __launch_bounds__(WARPS * 32)
-qmm_w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
-                const float* __restrict__ sx, const uint8_t* __restrict__ qs,
-                const bf16* __restrict__ dsub, const bf16* __restrict__ msub,
-                OutT* __restrict__ out, const int* __restrict__ plane_idx, int B, int N,
-                int K) {
+constexpr int MM_WARPS = 4;  // K split four ways inside a block
+constexpr int COLS = 16;     // output columns of a block: the mma's M
+constexpr int SB = 256;      // k depth of one ring stage: one Q4_K superblock, 8 groups
+// one stage of a warp's ring: the weights of 16 columns, then the XR rows of
+// x that the block has (1, 8 or 16; rows past them are zeros in registers)
+constexpr int QS_BYTES = COLS * SB / 2;  // 2048: nibbles, 128 bytes a column
+constexpr int SC_BYTES = COLS * 8 * 2;   // 256: 8 bf16 scales a column (dsub; msub alike)
+// a warp's ring depth: four stages, three at 16 rows (where four would leave
+// one block an SM)
+__host__ __device__ constexpr int stages_of(int XR) { return XR <= 8 ? 4 : 3; }
+
+template <int XR> struct Stage {
+    static constexpr int QS = 0, DS = QS_BYTES, MS = DS + SC_BYTES, XQ = MS + SC_BYTES;
+    static constexpr int DX = XQ + XR * SB, SX = DX + XR * 32;  // int8 x; 8 float scales a row
+    static constexpr int BYTES = SX + XR * 32;
+};
+
+// 16-byte piece p of row r of a 128- or 256-byte row, XOR-swizzled: the
+// 64-bit fragment loads of 4 neighbouring rows then fall in distinct banks
+__device__ __forceinline__ int swz(int r, int p) { return p ^ ((r & 3) << 1); }
+// the 32-byte rows of dx / sx: rows r and r + 4 in other pieces
+__device__ __forceinline__ int swz_s(int r, int p) { return p ^ ((r >> 2) & 1); }
+
+template <typename T> __device__ __forceinline__ T lds(const uint8_t* ring, int off) {
+    return *reinterpret_cast<const T*>(ring + off);
+}
+
+// d (16x8 s32) = a (16x32 s8, row) * b (32x8 s8, col), starting from zero
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "r"(0));
+}
+
+// bf16 element g (0..7) of 8 packed in a uint4, as float
+__device__ __forceinline__ float bf16_at(const uint4& v, int g) {
+    const uint32_t w = g < 2 ? v.x : g < 4 ? v.y : g < 6 ? v.z : v.w;
+    return __uint_as_float((g & 1) ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+struct Args {
+    const int8_t* xq;
+    const float* dx;
+    const float* sx;
+    const uint8_t* qs;
+    const bf16* dsub;
+    const bf16* msub;
+    void* out;
+    const int* plane_idx;
+    int B, N, K;
+};
+
+template <int XR, typename OutT>
+__global__ void __launch_bounds__(MM_WARPS * 32)
+qmm_w4a8_kernel(const Args args) {
+    constexpr int NT = (XR + 7) / 8;  // mma n8 tiles
+    constexpr int STAGES = stages_of(XR);
+    using S = Stage<XR>;
+    extern __shared__ __align__(128) uint8_t ring[];
+    __shared__ float red[MM_WARPS][NT * 4][32];
+
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int col = blockIdx.x * WARPS + warp;
-    if (col >= N) return;
-    const int G = K / 32;
-    const int nseg = K / 32;  // 16-byte segments of packed nibbles per weight row
-    // blockIdx.y: the first of this block's B rows (0 unless rows have planes of their own)
+    const int gid = lane >> 2, tig = lane & 3;
+    const int N = args.N, K = args.K, G = K / 32, nsb = K / SB;
+    const int col0 = blockIdx.x * COLS;
+    // the plane form: one row on each blockIdx.y, that row's plane as base
     const int row0 = blockIdx.y;
-    const size_t wr = (size_t)(plane_idx ? plane_idx[row0] : 0) * N + col;  // weight row
-    xq += (size_t)row0 * K;
-    dx += (size_t)row0 * G;
-    sx += (size_t)row0 * G;
-    out += (size_t)row0 * N;
-    const uint8_t* wrow = qs + wr * (K / 2);
-    const bf16* drow = dsub + wr * G;
-    const bf16* mrow = msub + wr * G;
+    const int B = args.plane_idx ? 1 : args.B;
+    const size_t wrow0 = (size_t)(args.plane_idx ? args.plane_idx[row0] : 0) * N;
+    const uint8_t* qs = args.qs + wrow0 * (K / 2);
+    const bf16* dsub = args.dsub + wrow0 * G;
+    const bf16* msub = args.msub + wrow0 * G;
+    const int8_t* xq = args.xq + (size_t)row0 * K;
+    const float* dx = args.dx + (size_t)row0 * G;
+    const float* sx = args.sx + (size_t)row0 * G;
 
-    float acc[NB];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+    const int n_steps = warp < nsb ? (nsb - 1 - warp) / MM_WARPS + 1 : 0;
+    const uint32_t ring_u32 = wg::smem_u32(ring);
+    const int base = warp * STAGES * S::BYTES;  // this warp's ring, in bytes from `ring`
 
-#pragma unroll 4
-    for (int s = lane; s < nseg; s += 32) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(wrow + s * 16));
-        const int c = s >> 1, h = s & 1;  // 64-element chunk, half of its 32 bytes
-        const int glo = 2 * c, ghi = 2 * c + 1;
-        const float dlo = __bfloat162float(drow[glo]), dhi = __bfloat162float(drow[ghi]);
-        const float mlo = __bfloat162float(mrow[glo]), mhi = __bfloat162float(mrow[ghi]);
-        const int elo = c * 64 + h * 16;  // first element of the low-nibble run
-        const int wl0 = (int)(w.x & 0x0F0F0F0Fu), wl1 = (int)(w.y & 0x0F0F0F0Fu);
-        const int wl2 = (int)(w.z & 0x0F0F0F0Fu), wl3 = (int)(w.w & 0x0F0F0F0Fu);
-        const int wh0 = (int)((w.x >> 4) & 0x0F0F0F0Fu), wh1 = (int)((w.y >> 4) & 0x0F0F0F0Fu);
-        const int wh2 = (int)((w.z >> 4) & 0x0F0F0F0Fu), wh3 = (int)((w.w >> 4) & 0x0F0F0F0Fu);
+    // the 16 columns' nibbles and scales of the warp's step j into ring slot j % STAGES
+    auto load_w = [&](int j) {
+        const int sb = warp + j * MM_WARPS;
+        const uint32_t st = ring_u32 + base + (j % STAGES) * S::BYTES;
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-            if (b < B) {
-                const int8_t* xr = xq + (size_t)b * K;
-                const int4 xl = *reinterpret_cast<const int4*>(xr + elo);
-                const int4 xh = *reinterpret_cast<const int4*>(xr + elo + 32);
-                int slo = __dp4a(wl0, xl.x, 0);
-                slo = __dp4a(wl1, xl.y, slo);
-                slo = __dp4a(wl2, xl.z, slo);
-                slo = __dp4a(wl3, xl.w, slo);
-                int shi = __dp4a(wh0, xh.x, 0);
-                shi = __dp4a(wh1, xh.y, shi);
-                shi = __dp4a(wh2, xh.z, shi);
-                shi = __dp4a(wh3, xh.w, shi);
-                const float* dxr = dx + (size_t)b * G;
-                float a = (float)slo * (dxr[glo] * dlo) + (float)shi * (dxr[ghi] * dhi);
-                if (h == 0) {  // the group's min term, once per 64-element chunk
-                    const float* sxr = sx + (size_t)b * G;
-                    a += sxr[glo] * mlo + sxr[ghi] * mhi;
+        for (int i = 0; i < 4; ++i) {  // 16 columns x 8 pieces of 16 bytes
+            const int idx = i * 32 + lane, r = idx >> 3, p = idx & 7;
+            const bool ok = col0 + r < N;
+            const uint8_t* src =
+                qs + (size_t)(ok ? col0 + r : 0) * (K / 2) + sb * (SB / 2) + p * 16;
+            wg::cp_async16(st + S::QS + r * 128 + swz(r, p) * 16, src, ok);
+        }
+        const int r = lane & 15;
+        const bool ok = col0 + r < N;
+        const bf16* src = (lane < 16 ? dsub : msub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8;
+        wg::cp_async16(st + (lane < 16 ? S::DS : S::MS) + r * 16, src, ok);
+    };
+    // the rows' xq, dx, sx of step j
+    auto load_x = [&](int j) {
+        const int sb = warp + j * MM_WARPS;
+        const uint32_t st = ring_u32 + base + (j % STAGES) * S::BYTES;
+#pragma unroll
+        for (int i = 0; i < (XR * 16 + 31) / 32; ++i) {  // XR rows x 16 pieces
+            const int idx = i * 32 + lane, r = idx >> 4, p = idx & 15;
+            const bool ok = r < B;
+            const int8_t* src = xq + (size_t)(ok ? r : 0) * K + sb * SB + p * 16;
+            if (idx < XR * 16) wg::cp_async16(st + S::XQ + r * SB + swz(r, p) * 16, src, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < (XR * 4 + 31) / 32; ++i) {  // XR rows x 2 pieces, dx then sx
+            const int idx = i * 32 + lane, half = idx / (2 * XR), jj = idx % (2 * XR);
+            const int r = jj >> 1, p = jj & 1;
+            const bool ok = r < B;
+            const float* src = (half ? sx : dx) + (size_t)(ok ? r : 0) * G + sb * 8 + p * 4;
+            if (idx < XR * 4)
+                wg::cp_async16(st + (half ? S::SX : S::DX) + r * 32 + swz_s(r, p) * 16, src, ok);
+        }
+    };
+
+    float acc[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+
+    // the weights do not depend on the quantizer: start them before waiting for it
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j)
+        if (j < n_steps) load_w(j);
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+        if (j < n_steps) load_x(j);
+        wg::cp_async_commit();  // group j (group 0 also holds the prologue's weights)
+    }
+
+    for (int s = 0; s < n_steps; ++s) {
+        wg::cp_async_wait<STAGES - 2>();  // this lane's copies of step s have landed
+        __syncwarp();                      // ... and every lane's; slot (s-1) is free
+        const int nxt = s + STAGES - 1;
+        if (nxt < n_steps) {
+            load_w(nxt);
+            load_x(nxt);
+        }
+        wg::cp_async_commit();
+        const int st = base + (s % STAGES) * S::BYTES;
+        const uint4 dA = lds<uint4>(ring, st + S::DS + gid * 16);
+        const uint4 dB = lds<uint4>(ring, st + S::DS + (gid + 8) * 16);
+        const uint4 mA = lds<uint4>(ring, st + S::MS + gid * 16);
+        const uint4 mB = lds<uint4>(ring, st + S::MS + (gid + 8) * 16);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {  // 64-element chunks: groups 2c (low nibbles), 2c+1 (high)
+            // bytes tig*8..+7 of the chunk for columns gid and gid+8 (same swizzle)
+            const int qoff = c * 32 + tig * 8;
+            const int qa = st + S::QS + swz(gid, qoff >> 4) * 16 + (qoff & 15);
+            const uint2 wA = lds<uint2>(ring, qa + gid * 128);
+            const uint2 wB = lds<uint2>(ring, qa + (gid + 8) * 128);
+            float dxv[NT][2][2], sxv[NT][2][2];  // [tile][row tig*2 + i][group of the chunk]
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int r = t * 8 + tig * 2 + i;
+                    const int off = st + r * 32 + swz_s(r, c >> 1) * 16 + (c & 1) * 8;
+                    const bool ok = r < XR && (XR > 1 || i == 0);
+                    const uint2 d = ok ? lds<uint2>(ring, off + S::DX) : make_uint2(0, 0);
+                    const uint2 q = ok ? lds<uint2>(ring, off + S::SX) : make_uint2(0, 0);
+                    dxv[t][i][0] = __uint_as_float(d.x);
+                    dxv[t][i][1] = __uint_as_float(d.y);
+                    sxv[t][i][0] = __uint_as_float(q.x);
+                    sxv[t][i][1] = __uint_as_float(q.y);
                 }
-                acc[b] += a;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int sh = 4 * h;
+                const uint32_t a0 = (wA.x >> sh) & 0x0F0F0F0Fu, a1 = (wB.x >> sh) & 0x0F0F0F0Fu;
+                const uint32_t a2 = (wA.y >> sh) & 0x0F0F0F0Fu, a3 = (wB.y >> sh) & 0x0F0F0F0Fu;
+                const int g = 2 * c + h;
+                const float da = bf16_at(dA, g), db = bf16_at(dB, g);
+                const float ma = bf16_at(mA, g), mb = bf16_at(mB, g);
+#pragma unroll
+                for (int t = 0; t < NT; ++t) {
+                    const int r = t * 8 + gid;
+                    const int xoff = c * 64 + h * 32 + tig * 8;
+                    const int xa = st + S::XQ + r * SB + swz(r, xoff >> 4) * 16 + (xoff & 15);
+                    const uint2 xb = r < XR ? lds<uint2>(ring, xa) : make_uint2(0, 0);
+                    int d[4];
+                    mma_s8(d, a0, a1, a2, a3, xb.x, xb.y);
+                    // d: (column gid, rows tig*2, +1), (column gid+8, the same rows);
+                    // a single row has no odd row to sum
+                    acc[t][0] += (float)d[0] * (da * dxv[t][0][h]) + ma * sxv[t][0][h];
+                    acc[t][2] += (float)d[2] * (db * dxv[t][0][h]) + mb * sxv[t][0][h];
+                    if (XR > 1) {
+                        acc[t][1] += (float)d[1] * (da * dxv[t][1][h]) + ma * sxv[t][1][h];
+                        acc[t][3] += (float)d[3] * (db * dxv[t][1][h]) + mb * sxv[t][1][h];
+                    }
+                }
             }
         }
     }
+    wg::cp_async_wait<0>();
+
+    // the warps' partial sums, added in warp order
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-        const float v = warp_sum(acc[b]);
-        if (lane == 0 && b < B) out[(size_t)b * N + col] = from_f32<OutT>(v);
-    }
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[warp][t * 4 + e][lane] = acc[t][e];
+    __syncthreads();
+    if (warp != 0) return;
+    OutT* out = (OutT*)args.out + (size_t)row0 * N;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float v = red[0][t * 4 + e][lane];
+#pragma unroll
+            for (int w = 1; w < MM_WARPS; ++w) v += red[w][t * 4 + e][lane];
+            const int row = t * 8 + tig * 2 + (e & 1), col = col0 + gid + (e >> 1) * 8;
+            if (row < B && col < N) out[(size_t)row * N + col] = from_f32<OutT>(v);
+        }
 }
 
-template <int NB>
-void launch(const void* xq, const void* dx, const void* sx, const void* qs,
-            const void* dsub, const void* msub, void* out, int out_bf16,
-            const int* plane_idx, int rows_y, int B, int N, int K, cudaStream_t stream) {
-    const dim3 blocks((N + WARPS - 1) / WARPS, rows_y);
-    const int8_t* xqi = (const int8_t*)xq;
-    const float *dxf = (const float*)dx, *sxf = (const float*)sx;
-    const bf16 *db = (const bf16*)dsub, *mb = (const bf16*)msub;
-    if (out_bf16)
-        qmm_w4a8_kernel<NB, bf16><<<blocks, WARPS * 32, 0, stream>>>(
-            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (bf16*)out, plane_idx, B, N, K);
-    else
-        qmm_w4a8_kernel<NB, float><<<blocks, WARPS * 32, 0, stream>>>(
-            xqi, dxf, sxf, (const uint8_t*)qs, db, mb, (float*)out, plane_idx, B, N, K);
+template <int XR, typename OutT>
+int launch(const Args& a, int grid_x, int grid_y, cudaStream_t stream) {
+    auto kern = qmm_w4a8_kernel<XR, OutT>;
+    constexpr int smem = MM_WARPS * stages_of(XR) * Stage<XR>::BYTES;
+    // opt in to the ring's shared memory once per instantiation and card (not
+    // a stream operation; internal linkage, so no other library shares the flag)
+    static bool sized[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64 || !sized[dev]) {
+        const cudaError_t e =
+            cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        if (dev < 64) sized[dev] = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid_x, grid_y);
+    cfg.blockDim = dim3(MM_WARPS * 32);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+    return e != cudaSuccess ? (int)e : crabml_launch_status();
+}
+
+template <int XR>
+int launch_out(const Args& a, int out_bf16, int gx, int gy, cudaStream_t s) {
+    return out_bf16 ? launch<XR, bf16>(a, gx, gy, s) : launch<XR, float>(a, gx, gy, s);
 }
 
 }  // namespace
 
 // x (B, K) bf16; scratch xq (B, K) i8 and dx, sx (B, K/32) f32; qs (N, K/2)
 // u8; dsub, msub (N, K/32) bf16; out (B, N) f32, or bf16 when out_bf16 != 0.
-// 1 <= B <= 16, K % 256 == 0 (checked by the wrapper). plane_idx: null, or (B,)
-// i32 on the device, and then the weight planes are stacks (n_planes, N, ...)
-// of which row b multiplies plane plane_idx[b].
+// 1 <= B <= 16, K % 256 == 0, every pointer 16-byte aligned (checked by the
+// wrapper). plane_idx: null, or (B,) i32 on the device, and then the weight
+// planes are stacks (n_planes, N, ...) of which row b multiplies plane
+// plane_idx[b]. The grid and the rows of x a stage holds (1, 8 or 16) are
+// ops/cuda/gemm_quant.py::w4a8_plan's.
 extern "C" int qmm_w4a8_bf16(const void* x, void* xq, void* dx, void* sx,
                              const void* qs, const void* dsub, const void* msub,
                              void* out, int out_bf16, const void* plane_idx, int B, int N,
-                             int K, void* stream) {
+                             int K, int grid_x, int grid_y, int x_rows, void* stream) {
+    if (x_rows != 1 && x_rows != 8 && x_rows != 16) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     quantize_kernel<<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
         (const bf16*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
     const int err = crabml_launch_status();
     if (err) return err;
-    const int* pi = (const int*)plane_idx;
-    if (pi) launch<1>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, B, 1, N, K, s);
-    else if (B <= 1) launch<1>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
-    else if (B <= 2) launch<2>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
-    else if (B <= 4) launch<4>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
-    else if (B <= 8) launch<8>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
-    else launch<16>(xq, dx, sx, qs, dsub, msub, out, out_bf16, pi, 1, B, N, K, s);
-    return crabml_launch_status();
+    const Args a{(const int8_t*)xq, (const float*)dx, (const float*)sx, (const uint8_t*)qs,
+                 (const bf16*)dsub, (const bf16*)msub, out, (const int*)plane_idx, B, N, K};
+    if (x_rows == 1) return launch_out<1>(a, out_bf16, grid_x, grid_y, s);
+    if (x_rows == 8) return launch_out<8>(a, out_bf16, grid_x, grid_y, s);
+    return launch_out<16>(a, out_bf16, grid_x, grid_y, s);
 }

@@ -7,8 +7,9 @@ package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
 csrc/qmm_q4k.cu (launchers `_run` and `_run_grouped`), `_qmm_w4a8_kernel`
-becomes csrc/qmm_w4a8.cu and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
-(launchers `_run_w8` and `_run_grouped_w8`); each source holds its note on
+becomes csrc/qmm_w4a8.cu (its launch shape is `w4a8_plan`) and
+`_qmm_w8_kernel` becomes csrc/qmm_w8.cu (launchers `_run_w8` and
+`_run_grouped_w8`); each source holds its note on
 what bounds it on the H100 and how the design answers it. All take the port's
 own weight layout (quant/qtensor.py kernel planes), not the TPU's m-tiled one.
 
@@ -25,6 +26,8 @@ tensor it launches the kernel or raises. It never falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +41,9 @@ W8_MIN_ROWS = 256  # TPU-tuned as well: padded rows from which the W8 planes tak
 W8_KSC = 512  # k elements per W8 scale chunk
 ROW_PAD = 8  # the routing counts rows padded up to this (the JAX package's B_PAD)
 GROUP = 32  # Q4_K scale group: one dsub/msub per 32 elements
+W4A8_COLS = 16  # output columns of a qmm_w4a8 block: the M of one mma tile
+W4A8_WARPS = 4  # warps of a block; they split k by superblock
+W4A8_SB = 256  # k depth of one ring stage: a Q4_K superblock, 8 scale groups
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -185,7 +191,7 @@ def _lib_q4k_grouped():
 
 def _lib_w4a8():
     return _build.entry("qmm_w4a8", "qmm_w4a8_bf16", _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _P, _I, _I, _I, _P)
+                        _I, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
 def _lib_w8():
@@ -195,6 +201,65 @@ def _lib_w8():
 def _lib_w8_grouped():
     return _build.entry("qmm_w8", "qmm_w8_grouped_bf16", _P, _P, _P, _P, _I, _P, _I, _I, _I,
                         _I, _P)
+
+
+@dataclass(frozen=True)
+class W4A8Plan:
+    """Shape of one qmm_w4a8 matmul launch (csrc/qmm_w4a8.cu). Block (x, y)
+    owns output columns x*16 .. x*16+15, and row y alone in the plane form
+    (all rows otherwise); warp w of it takes the superblocks (256-deep k
+    steps) in `k_slices[w]` through its own ring of `stages` stages, each
+    holding the 16 columns' weights and `x_rows` rows of x. The kernel takes
+    `grid` and `x_rows`; `stages` and `smem_bytes` mirror the ring that the
+    source derives from `x_rows`, and `k_slices` its warps' loop."""
+    grid: tuple[int, int]  # (column tiles, row blocks)
+    x_rows: int  # rows of x a stage holds: 1, 8 or 16
+    n_tiles: int  # mma n8 tiles: x_rows over 8, rounded up
+    stages: int
+    k_slices: tuple[tuple[int, ...], ...]  # per warp, its superblocks in order
+    smem_bytes: int  # the rings of the block's warps (dynamic shared memory)
+    planes: bool  # one row a block, with that row's plane
+
+
+def w4a8_stage_bytes(x_rows: int) -> int:
+    """One ring stage: 16 columns' nibbles (2 KB) and dsub / msub (512 B),
+    then per row of x its int8 values (256 B) and dx / sx (64 B)."""
+    return W4A8_COLS * W4A8_SB // 2 + 2 * W4A8_COLS * 8 * 2 + x_rows * (W4A8_SB + 2 * 8 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def w4a8_plan(rows: int, m: int, k: int, planes: bool = False) -> W4A8Plan:
+    """The launch for `rows` (1..16) activation rows against an (m, k)
+    weight, or against a row's own plane of a stack when `planes`. A
+    function of the shapes alone: it reads nothing on the device, so a CUDA
+    graph can capture the launch. Memoized: the decode step asks for the
+    same few plans at every call.
+
+    Four ring stages (three at 16 rows, where four would leave one block
+    an SM), as csrc/qmm_w4a8.cu's `stages_of`."""
+    per_block = 1 if planes else rows
+    x_rows = 1 if per_block == 1 else 8 if per_block <= 8 else 16
+    n_tiles = -(-x_rows // 8)
+    stages = 4 if x_rows <= 8 else 3
+    nsb = k // W4A8_SB
+    return W4A8Plan(
+        grid=(-(-m // W4A8_COLS), rows if planes else 1), x_rows=x_rows, n_tiles=n_tiles,
+        stages=stages,
+        k_slices=tuple(tuple(range(w, nsb, W4A8_WARPS)) for w in range(W4A8_WARPS)),
+        smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows), planes=planes)
+
+
+def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int) -> dict:
+    """What block (bx, by) of `plan` reads and writes, as csrc/qmm_w4a8.cu's
+    copy predicates and store decide it (this is their mirror, for the
+    tests): `rows` the activation rows it loads and writes, `columns` the
+    weight rows, `groups` per warp the 32-element scale groups it sums."""
+    real = range(by, by + 1) if plan.planes else range(rows)
+    col0 = bx * W4A8_COLS
+    return {
+        "rows": real, "columns": range(col0, min(col0 + W4A8_COLS, m)),
+        "groups": [[sb * 8 + g for sb in ks for g in range(8)] for ks in plan.k_slices],
+    }
 
 
 def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False):
@@ -274,9 +339,11 @@ def qmm_q4k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Ten
 def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
              plane: torch.Tensor | None = None) -> torch.Tensor:
     """x2 (rows <= 16, k) @ W^T -> (rows, m): activations quantize to int8
-    per 32-group inside the launch, then the int8 x 4-bit kernel; float32
-    sums, rounded once to `out_dtype`. With `plane` (rows,) int32, `qt` is a
-    stack (E, m, k) and row b multiplies plane[b], read on the device."""
+    per 32-group in a first kernel, chained to the int8 x 4-bit kernel by
+    programmatic dependent launch; float32 sums, rounded once to
+    `out_dtype`. With `plane` (rows,) int32, `qt` is a stack (E, m, k) and
+    row b multiplies plane[b], read on the device. The launch is
+    `w4a8_plan`'s."""
     p = qt.planes
     if not x2.is_cuda:
         return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane).to(out_dtype)
@@ -288,6 +355,8 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
                        "plane: one int32 per row, on the activations' card")
     _build.require(1 <= rows <= W4A8_MAX_ROWS, f"qmm_w4a8 takes 1..{W4A8_MAX_ROWS} rows, got {rows}")
     _build.require(x2.dtype == torch.bfloat16, f"qmm_w4a8 takes bfloat16 activations, got {x2.dtype}")
+    _build.require(all(p[n].data_ptr() % 16 == 0 for n in ("qs", "dsub", "msub")),
+                   "qmm_w4a8 copies the weight planes 16 bytes at a time: align them to 16")
     out_bf16 = _out_bf16(out_dtype)
     x2 = _aligned(x2)
     dev = x2.device
@@ -295,11 +364,13 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     dx = torch.empty(rows, k // GROUP, dtype=torch.float32, device=dev)
     sx = torch.empty_like(dx)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=dev)
+    plan = w4a8_plan(rows, qt.m, k, planes=plane is not None)
     lib, fn = _lib_w4a8()
     _build.launches["qmm_w4a8"] += 1
     err = fn(x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr(), p["qs"].data_ptr(),
              p["dsub"].data_ptr(), p["msub"].data_ptr(), out.data_ptr(), out_bf16,
-             None if plane is None else plane.data_ptr(), rows, qt.m, k, _build.stream_ptr(x2))
+             None if plane is None else plane.data_ptr(), rows, qt.m, k, *plan.grid,
+             plan.x_rows, _build.stream_ptr(x2))
     _build.check(lib, err, "qmm_w4a8")
     return out
 

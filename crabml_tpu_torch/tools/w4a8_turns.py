@@ -1,0 +1,103 @@
+"""Time `qmm_w4a8` of two checkouts of the port in turns, on one card.
+
+    python -m crabml_tpu_torch.tools.w4a8_turns OTHER_ROOT    # needs one CUDA card
+
+OTHER_ROOT is another checkout of the repository (for example an earlier
+commit unpacked with `git archive` into a directory that git ignores). The
+turns run in the order other, this, this, other, each in a process of its
+own that imports `crabml_tpu_torch` from that checkout and builds its
+kernels there. Each turn times `qmm_w4a8` (bfloat16 out, as on the main
+path) on the inputs of this checkout's `chip_smoke.py` checks of it
+(`W4A8_SHAPES`), with its `Timer`: once with L2 emptied by a write before
+each launch, as `chip_smoke.py` times, and once by a read.
+
+Prints the card and its power limit, one JSON line a turn, then one JSON
+line a shape with each checkout's two times and the ratio of their means.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+THIS_ROOT = Path(__file__).resolve().parents[2]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", THIS_ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def label(cs, rows: int, m: int, k: int, planes: bool) -> str:
+    w = f"plane-per-row of ({cs.MOE_EXPERTS}x{m}x{k})^T" if planes else f"({m}x{k})^T"
+    return f"{rows}x{k} @ {w}"
+
+
+def child(root: str) -> dict:
+    """One turn: `qmm_w4a8` of checkout `root` at every shape."""
+    cs = _chip_smoke()
+    sys.path.insert(0, root)
+    import torch
+
+    import crabml_tpu_torch
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+
+    assert Path(crabml_tpu_torch.__file__).resolve().parents[1] == Path(root).resolve()
+    timer = cs.Timer(torch)
+    times, by_read = {}, {}
+    # the first shape twice: a process's first timing reads slow, the second counts
+    for rows, m, k, planes, seed in cs.W4A8_SHAPES[:1] + cs.W4A8_SHAPES:
+        qt = (cs.q4k_stack(cs.MOE_EXPERTS, m, k, seed, False) if planes
+              else cs.q4k_weight(m, k, seed, "cuda"))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+        plane = (torch.randint(0, cs.MOE_EXPERTS, (rows,), generator=g, device="cuda")
+                 .to(torch.int32) if planes else None)
+        fn = lambda: gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane)  # noqa: E731
+        key = label(cs, rows, m, k, planes)
+        times[key] = timer(fn)
+        by_read[key] = timer(fn, by_read=True)
+        del qt
+        torch.cuda.empty_cache()
+    return {"root": root, "ms": times, "ms_l2_emptied_by_read": by_read}
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        print(json.dumps(child(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    cs = _chip_smoke()
+    other = str(Path(sys.argv[1]).resolve())
+    print(f"gpu: {cs.gpu_tag()}", flush=True)
+    turns = []
+    for root in (other, str(THIS_ROOT), str(THIS_ROOT), other):
+        out = subprocess.run([sys.executable, __file__, "--child", root], capture_output=True,
+                             text=True, cwd=root)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return 1
+        turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(json.dumps(turns[-1]), flush=True)
+    for rows, m, k, planes, _ in cs.W4A8_SHAPES:
+        key = label(cs, rows, m, k, planes)
+        row = {"shape": key}
+        for what in ("ms", "ms_l2_emptied_by_read"):
+            o = [turns[0][what][key], turns[3][what][key]]
+            t = [turns[1][what][key], turns[2][what][key]]
+            row[what] = {"other": o, "this": t,
+                         "this_over_other": statistics.mean(t) / statistics.mean(o)}
+        print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -44,12 +44,14 @@ def test_qmm_q4k_plain_matches_pallas(weight):
     np.testing.assert_array_equal(gemm_quant.qmm_q4k(torch.from_numpy(x), qt).numpy(), got.numpy())
 
 
-def test_qmm_w4a8_plain_matches_pallas(weight):
+@pytest.mark.parametrize("rows", [1, 3, 8, 16])
+def test_qmm_w4a8_plain_matches_pallas(weight, rows):
     """Tolerance 1e-5 of max|out|: identical int8 activations and integer
     group dots; the TPU kernel's -128 centring and offset correction round
-    differently in float32 than the direct dsub*dx*dot + msub*sx."""
+    differently in float32 than the direct dsub*dx*dot + msub*sx. Rows: one,
+    the earlier 3, the 8-slot tick and the most the kernel takes."""
     jqt, qt = weight
-    x = np.random.default_rng(2).standard_normal((3, K)).astype(np.float32)
+    x = np.random.default_rng(2).standard_normal((rows, K)).astype(np.float32)
     want = np.asarray(jgemm.qmatmul_pallas(jnp.asarray(x), jqt, jnp.float32, act_quant=True))
     p = qt.planes
     got = gemm_quant.qmm_w4a8_plain(torch.from_numpy(x), p["qs"], p["dsub"], p["msub"])

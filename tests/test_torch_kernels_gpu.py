@@ -270,6 +270,91 @@ def test_qmm_w4a8_per_row_planes_match_plain(cuda, rows):
         assert torch.equal(gemm_quant.qmm_w4a8(x[b:b + 1], one), got[b:b + 1])
 
 
+
+def _w4a8_case(qt, x, plane=None):
+    """qmm_w4a8 against its plain version (1e-4 of max|out|: identical int8
+    activations and exact integer group dots, float32 group sums in another
+    order); two calls bit for bit; the bf16 output the float32 one rounded
+    once. Returns the float32 output."""
+    p = qt.planes
+    before = _build.launches["qmm_w4a8"]
+    got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
+    want = gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)
+    torch.cuda.synchronize()
+    assert _build.launches["qmm_w4a8"] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt, plane=plane), got)
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane), got.to(torch.bfloat16))
+    return got
+
+
+@pytest.mark.parametrize("rows", range(1, 17))
+def test_qmm_w4a8_every_row_count(cuda, rows):
+    """Every row count the kernel takes (one n8 tile up to 8 rows, two from
+    9), 300 columns (a ragged last 16-column tile) and k = 768 (three
+    superblocks for four warps: one warp has none)."""
+    _w4a8_case(_weight(300, 768, rows), torch.randn(rows, 768, device=cuda).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("m,k", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336),
+                                 (32000, 4096)])
+def test_qmm_w4a8_7b_shapes(cuda, rows, m, k):
+    """The 7B decode projections (qkv, wo, gate|up, down, lm_head) at one
+    row, the 8-slot tick's 8 and a 16-row tail."""
+    _w4a8_case(_weight(m, k, rows + m), torch.randn(rows, k, device=cuda).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows", [1, 9, 16])
+def test_qmm_w4a8_ragged_columns_deep_k(cuda, rows):
+    """m = 300 (not a multiple of 16) at k = 14,336: 14 superblocks a warp."""
+    _w4a8_case(_weight(300, 14336, rows), torch.randn(rows, 14336, device=cuda).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("rows,which", [(8, "repeated"), (8, "distinct"), (16, "mixed"),
+                                        (3, "repeated")])
+def test_qmm_w4a8_planes_repeated_and_distinct(cuda, rows, which):
+    """The plane form with every row on one expert, each on its own, and a
+    mix, at Mixtral's 8 experts with a ragged column count."""
+    qt = _stack(8, 336, 1024, rows)
+    plane = {"repeated": torch.full((rows,), 5), "distinct": torch.arange(rows) % 8,
+             "mixed": torch.tensor([0, 7, 7, 1, 0, 3, 3, 3, 2, 6, 6, 4, 5, 0, 1, 7][:rows])}[which]
+    plane = plane.to(device=cuda, dtype=torch.int32)
+    got = _w4a8_case(qt, torch.randn(rows, 1024, device=cuda).to(torch.bfloat16), plane)
+    if which == "repeated":  # one expert: the dense form of that plane, row by row
+        one = QTensor(qt.kind, qt.shape[1:], {n: t[5] for n, t in qt.planes.items()})
+        x = torch.randn(rows, 1024, device=cuda).to(torch.bfloat16)
+        for b in range(rows):
+            assert torch.equal(gemm_quant.qmm_w4a8(x[b:b + 1], one),
+                               gemm_quant.qmm_w4a8(x, qt, plane=plane)[b:b + 1])
+    assert got.shape == (rows, 336)
+
+
+@pytest.mark.parametrize("planes", [False, True])
+def test_qmm_w4a8_captures_in_a_cuda_graph(cuda, planes):
+    """The quantizer and the matmul chained by programmatic dependent launch
+    capture in a CUDA graph: a replay equals the eager call, and a replay
+    after x changes in place equals the eager call on the new x."""
+    rows, m, k = 8, 1024, 2048
+    qt = _stack(4, m, k, 3) if planes else _weight(m, k, 3)
+    plane = torch.tensor([0, 3, 3, 1, 2, 0, 1, 3], device=cuda, dtype=torch.int32) \
+        if planes else None
+    x = torch.randn(rows, k, device=cuda).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture: build, shared-memory attribute
+        gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane))
+        x.copy_(torch.randn(rows, k, device=cuda).to(torch.bfloat16))
+
 def test_moe_ffn_on_the_card_matches_its_plain_version(cuda):
     """moe_ffn through the kernels (bf16, W8 planes attached) against
     moe_ffn_plain on the same card, at 1, 8, 40 and 300 rows: int8

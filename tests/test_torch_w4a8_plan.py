@@ -1,0 +1,110 @@
+"""The launch plan of the int8-activation matmul (`qmm_w4a8`), on the CPU.
+
+`w4a8_plan` gives the grid, the n8 tiles, the ring's stages and each warp's
+superblocks; `w4a8_block_reads` mirrors what each block of csrc/qmm_w4a8.cu
+reads and writes. For the 7B and Mixtral decode shapes and ragged ones,
+every (row, output column, 32-group) is summed by exactly one warp of one
+block, no block reads a column at or past m or a row past the real ones, and
+the plan is a function of the shapes alone.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+
+from crabml_tpu_torch.ops.cuda import gemm_quant
+from crabml_tpu_torch.ops.cuda.gemm_quant import w4a8_block_reads, w4a8_plan
+
+DIM, FFN, VOCAB, QKV = 4096, 14336, 32000, 6144
+SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds
+SMEM_PER_BLOCK = 227 * 1024
+
+CASES = (
+    # the 7B decode projections: one row, the 8-slot tick, a 16-row tail
+    [(r, m, k, False) for r in (1, 8)
+     for m, k in ((QKV, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))]
+    + [(16, QKV, DIM, False)]
+    # Mixtral's experts by plane: gate|up and down
+    + [(1, 2 * FFN, DIM, True), (8, 2 * FFN, DIM, True), (16, 2 * FFN, DIM, True),
+       (8, DIM, FFN, True)]
+    # ragged: columns off the 16-wide tile, one superblock, fewer superblocks than warps
+    + [(r, m, k, p) for r in (1, 3, 8, 9, 16) for m, k in ((300, 768), (100, 256))
+       for p in (False, True)]
+)
+
+
+def _coverage(rows, m, k, planes):
+    plan = w4a8_plan(rows, m, k, planes)
+    G = k // 32
+    count = np.zeros((rows, m, G), dtype=np.int16)
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            r = w4a8_block_reads(plan, bx, by, rows, m)
+            assert r["columns"].stop <= m and r["columns"].start < m
+            assert r["rows"].stop <= rows and len(r["rows"]) <= 8 * plan.n_tiles
+            for groups in r["groups"]:
+                count[r["rows"].start:r["rows"].stop, r["columns"].start:r["columns"].stop,
+                      groups] += 1
+    return plan, count
+
+
+@pytest.mark.parametrize("rows,m,k,planes", CASES)
+def test_every_row_column_group_is_summed_once(rows, m, k, planes):
+    plan, count = _coverage(rows, m, k, planes)
+    assert (count == 1).all()
+    assert plan.grid == (-(-m // 16), rows if planes else 1)
+
+
+@pytest.mark.parametrize("rows,m,k,planes", CASES[:11] + CASES[-4:])
+def test_warps_take_disjoint_superblocks_in_order(rows, m, k, planes):
+    """Each warp walks its superblocks upward; together they are each of
+    k's superblocks once. A stage holds the block's rows of x (1, 8 or 16);
+    four stages (three at 16 rows) fit two blocks on an SM."""
+    plan = w4a8_plan(rows, m, k, planes)
+    flat = sorted(sb for ks in plan.k_slices for sb in ks)
+    assert flat == list(range(k // 256))
+    for ks in plan.k_slices:
+        assert list(ks) == sorted(ks)
+    per_block = 1 if planes else rows
+    assert plan.x_rows == (1 if per_block == 1 else 8 if per_block <= 8 else 16)
+    assert plan.n_tiles == -(-plan.x_rows // 8)
+    stage = 2048 + 512 + plan.x_rows * (256 + 64)  # nibbles, scales; x, dx, sx
+    assert plan.smem_bytes == 4 * plan.stages * stage
+    assert plan.stages == (4 if plan.x_rows <= 8 else 3)
+    reduction = 4 * 4 * plan.n_tiles * 32 * 4  # the warps' partial sums, static shared memory
+    assert plan.smem_bytes + reduction <= SMEM_PER_BLOCK
+    assert 2 * (plan.smem_bytes + reduction + 1024) <= SMEM_PER_SM  # 1 KB reserved a block
+
+
+def test_plan_is_a_function_of_shapes_alone():
+    """Same shapes, same plan; the plan takes ints only (no tensor, so no
+    value on the device is read), is immutable and hashable."""
+    assert list(inspect.signature(w4a8_plan).parameters) == ["rows", "m", "k", "planes"]
+    for rows, m, k, planes in CASES:
+        a, b = w4a8_plan(rows, m, k, planes), w4a8_plan(rows, m, k, planes)
+        assert a == b and hash(a) == hash(b)
+        assert a is b  # memoized: a decode step asks for the same plans every call
+    with pytest.raises(Exception):
+        a.stages = 5  # frozen
+
+
+@pytest.mark.parametrize("rows", [1, 8, 9, 16])
+def test_plane_form_holds_one_row_a_block(rows):
+    """With planes each block row y reads only activation row y, whatever
+    the row count; the dense form reads every row in each block."""
+    dense = w4a8_plan(rows, 300, 768)
+    plane = w4a8_plan(rows, 300, 768, planes=True)
+    assert plane.n_tiles == 1 and plane.x_rows == 1 and plane.grid[1] == rows
+    for y in range(rows):
+        assert w4a8_block_reads(plane, 3, y, rows, 300)["rows"] == range(y, y + 1)
+    assert w4a8_block_reads(dense, 3, 0, rows, 300)["rows"] == range(rows)
+    assert dense.n_tiles == (2 if rows > 8 else 1)
+
+
+def test_last_column_tile_stops_at_m():
+    """m = 300: the 19th tile holds columns 288..299 and reads no further."""
+    plan = w4a8_plan(8, 300, 768)
+    assert plan.grid[0] == 19
+    assert w4a8_block_reads(plan, 18, 0, 8, 300)["columns"] == range(288, 300)
+    assert gemm_quant.W4A8_COLS == 16 and gemm_quant.W4A8_SB == 256
