@@ -32,15 +32,20 @@ fails:
    slots at ragged positions, the card (kernels, bfloat16 and int8 pools)
    against the CPU (plain versions, float32).
 5. main: a synthetic 7B Q4_K GGUF, `Runner(path)` on the card in bfloat16,
-   a ~700-token prompt (two prefill chunks) and 128 greedy tokens, twice:
-   both runs must give the same tokens; then a profiled window of decode
-   steps (device time and launches per 7B decode token).
+   a ~700-token prompt (two prefill chunks) and 128 greedy tokens, twice,
+   each decode step a replay of the captured CUDA graph of the step: both
+   runs must give the same tokens; then the graphed decode at tick 1 and
+   tick 8 against the eager step (models.forward.decode_step called
+   directly, one token read a step) in turns, every run with the same
+   tokens, and a profiled window of each (device time, launches and idle
+   share per 7B decode token).
 6. serving, full width and depth: `PagedServingEngine(runner, n_slots=8,
    n_pages=256, seq_len=4096)`, 16 requests at once (8 share a 256-token
    prefix, 4 are sampled), drained; then a second engine with the same seed,
-   which must give the same tokens; a profiled window of 16 ticks; and the
-   HTTP daemon on 127.0.0.1 answering four completions (one streamed),
-   /health and /metrics.
+   which must give the same tokens; a profiled window of 16 ticks (and 16
+   more run as two step(8)); and the HTTP daemon on 127.0.0.1 answering four
+   completions (one streamed), /health and /metrics. Every tick is a replay
+   of the engine's captured graph.
 7. dense and int8, at 8 layers (an earlier-style path at smaller depth, so
    that the whole run stays well inside its time limit): `ServingEngine(
    n_slots=8, kv_dtype=int8)` and `PagedServingEngine(..., int8 pool)` on 8
@@ -49,7 +54,8 @@ fails:
    (8 experts, 2 per token) cut to 2 layers, with the W8 planes on the card.
 9. MoE: a synthetic Mixtral-8x7B Q4_K GGUF cut to 8 of 32 layers, context
    4096; `Runner(path)`, whose default must attach every W8 plane; the
-   ~700-token prompt and 128 greedy tokens, twice, identical; the same file
+   ~700-token prompt and 128 greedy tokens, twice through the graph and once
+   through the eager step, identical; the same file
    with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
    report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
@@ -57,7 +63,9 @@ The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each of the paths 5, 6, 7 and 9 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
-never launched there fails the run.
+never launched there fails the run. A replay of a captured graph counts the
+launches its capture recorded (ops/cuda/_build.py), so the graphed paths
+count as the eager ones did.
 
 The last three lines are `gpu: <name>, <power limit>` as nvidia-smi reports
 them, the `kernels` JSON object, and {"ok": true, "device": {...}}. Without a
@@ -839,7 +847,30 @@ def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
     return {"prefill_tok_s": rates, "w8_over_q4k": ratio, "wins": wins, "launches": launches_q4k}
 
 
-def _one_run(runner, prompt: str, launches) -> dict:
+def _eager_decode(runner, first: int, steps: int) -> list[int]:
+    """The decode step run eagerly, as the port ran it before the graph:
+    models.forward.decode_step and the Runner's sampler once a token, the
+    token read back to the host after each. Tokens after `first`."""
+    import torch
+
+    from crabml_tpu_torch.models.forward import decode_step
+
+    tok = torch.tensor([[first]], device=CARD)
+    out = []
+    for _ in range(steps):
+        pos = torch.tensor([runner.pos], dtype=torch.int32, device=CARD)
+        logits = decode_step(runner.weights, runner.cache, tok, pos, runner.cfg,
+                             runner.compute_dtype)
+        tok = runner.sampler.sample(logits, runner.generator)[:, None]
+        out.append(int(tok[0, 0]))
+        runner.pos += 1
+    return out
+
+
+def _one_run(runner, prompt: str, launches, mode=1) -> dict:
+    """Prefill `prompt` and decode DECODE_STEPS - 1 tokens: `mode` the tick
+    of Runner.generate (the captured graph, replayed) or "eager"
+    (_eager_decode)."""
     import torch
 
     runner.reset()
@@ -851,14 +882,22 @@ def _one_run(runner, prompt: str, launches) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     after_prefill = dict(launches)
-    pieces = list(runner.generate(first, steps=DECODE_STEPS))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    if mode == "eager":
+        tokens = [first] + _eager_decode(runner, first, DECODE_STEPS - 1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n_decoded, text = DECODE_STEPS - 1, None
+    else:
+        pieces = list(runner.generate(first, steps=DECODE_STEPS, tick=mode))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tokens, n_decoded, text = list(runner.generated), runner.metrics.counts["tokens"], \
+            "".join(pieces)
     n_prompt = runner.metrics.counts["prefill_tokens"]
-    n_decoded = runner.metrics.counts["tokens"]
     return {
-        "prompt_tokens": n_prompt, "generated": len(pieces), "decoded_steps": n_decoded,
-        "text": "".join(pieces), "tokens": list(runner.generated),
+        "mode": f"tick {mode}" if mode != "eager" else "eager",
+        "prompt_tokens": n_prompt, "generated": len(tokens), "decoded_steps": n_decoded,
+        "text": text, "tokens": tokens,
         "prefill_s": t1 - t0, "decode_s": t2 - t1,
         "prefill_tok_s": n_prompt / (t1 - t0), "decode_tok_s": n_decoded / (t2 - t1),
         "decode_ms_per_token": (t2 - t1) / n_decoded * 1e3,
@@ -868,10 +907,12 @@ def _one_run(runner, prompt: str, launches) -> dict:
     }
 
 
-def _profile_decode(runner, prompt: str, ms_per_token: float) -> dict:
+def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
     """Device time per decode token from a torch.profiler window of
-    PROFILE_STEPS tokens: kernel time by name, launches per token, and the
-    idle share of the card against the unprofiled ms per token."""
+    PROFILE_STEPS tokens (`mode` as in _one_run): kernel time by name,
+    launches per token, and the idle share of the card against the
+    unprofiled ms per token. Kernels replayed from a CUDA graph count like
+    launched ones."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -881,32 +922,95 @@ def _profile_decode(runner, prompt: str, ms_per_token: float) -> dict:
     runner.metrics.reset()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in runner.generate(first, steps=PROFILE_STEPS + 1):
-            pass
+        if mode == "eager":
+            _eager_decode(runner, first, PROFILE_STEPS)
+        else:
+            for _ in runner.generate(first, steps=PROFILE_STEPS + 1, tick=mode):
+                pass
         torch.cuda.synchronize()
-    steps = runner.metrics.counts["tokens"]
+    steps = PROFILE_STEPS
     by_name: dict[str, float] = {}
     n = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
+    what = "eager" if mode == "eager" else f"graphed, tick {mode}"
     if not by_name:
-        say("decode profile: the profiler saw no device time (not measured)")
-        return {"measured": False}
+        say(f"decode profile ({what}): the profiler saw no device time (not measured)")
+        return {"measured": False, "mode": what}
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
     busy = sum(by_name.values()) / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    span = (max(e.time_range.end for e in device) - device[0].time_range.start) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    calls = {k: sum(1 for e in device if e.name == k) for k, _ in top}
     rec = {
-        "measured": True, "steps": steps, "device_ms_per_token": busy,
-        "device_launches_per_token": n / steps,
+        "measured": True, "mode": what, "steps": steps, "device_ms_per_token": busy,
+        "device_launches_per_token": n / steps, "wall_ms_per_token": ms_per_token,
         "idle_share": 1.0 - busy / ms_per_token,
+        # first kernel's start to last kernel's end: busy + the gaps between kernels
+        "device_span_ms_per_token": span,
         "top_kernels_ms_per_token": {k[:80]: v / steps for k, v in top},
+        "top_kernels_calls_per_token": {k[:80]: c / steps for k, c in calls.items()},
+        "qmm_w4a8_us_by_shape": _w4a8_by_shape(device, runner.cfg),
     }
-    say(f"decode profile ({steps} tokens): device busy {busy:.3f} ms/token of "
-        f"{ms_per_token:.3f} ms/token unprofiled (idle share {rec['idle_share']:.3f}), "
-        f"{rec['device_launches_per_token']:.0f} device launches/token")
+    say(f"decode profile ({what}, {steps} tokens): device busy {busy:.3f} ms/token of "
+        f"{ms_per_token:.3f} ms/token unprofiled (idle share {rec['idle_share']:.3f}), span of "
+        f"the device's work {span:.3f} ms/token, {rec['device_launches_per_token']:.0f} device "
+        f"launches/token")
     for k, v in rec["top_kernels_ms_per_token"].items():
-        say(f"  {v:.4f} ms/token  {k}")
+        say(f"  {v:.4f} ms/token in {rec['top_kernels_calls_per_token'][k]:.0f} calls  {k}")
+    if rec["qmm_w4a8_us_by_shape"]:
+        say("  qmm_w4a8 inside the step, mean µs a call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec["qmm_w4a8_us_by_shape"].items()))
+    return rec
+
+
+def _w4a8_by_shape(device_events, cfg) -> dict:
+    """Mean µs of the int8-activation matmul kernel (and its quantizer) a
+    call, by shape, in a dense model's decode: each token calls it for qkv,
+    wo, gate|up and down in every layer and then for the lm_head, in that
+    order on one stream. Empty for a mixture of experts."""
+    if cfg.n_experts:
+        return {}
+    mm = [e for e in device_events if "::qmm_w4a8_kernel<" in e.name]
+    quant = [e for e in device_events if "::quantize_kernel(" in e.name]
+    per_token = 4 * cfg.n_layers + 1
+    if not mm or len(mm) % per_token:
+        return {}
+    names = ["qkv", "wo", "gate|up", "down"] * cfg.n_layers + ["lm_head"]
+    out: dict[str, list[float]] = {}
+    for i, e in enumerate(mm):
+        out.setdefault(names[i % per_token], []).append(e.time_range.elapsed_us())
+    rec = {k: statistics.mean(v) for k, v in out.items()}
+    if quant:
+        rec["quantizer"] = statistics.mean(e.time_range.elapsed_us() for e in quant)
+    return rec
+
+
+def _graph_against_eager(runner, prompt: str, graphed: dict, what: str) -> dict:
+    """The graphed decode against the eager step in turns (eager, tick 1,
+    tick 8, tick 8, tick 1, eager): the greedy tokens must be the same in
+    every run (the same kernels, a deterministic merge); wall ms/token of
+    each, and a profile of each mode."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+
+    runs = {"eager": [], 1: [], 8: []}
+    for mode in ("eager", 1, 8, 8, 1, "eager"):
+        r = _one_run(runner, prompt, _build.launches, mode)
+        if r["tokens"] != graphed["tokens"]:
+            fail(f"{what}: the {r['mode']} decode gave other tokens than the graphed run")
+        runs[mode].append(r["decode_ms_per_token"])
+    rec = {"wall_ms_per_token": {str(k): v for k, v in runs.items()}, "tokens_identical": True}
+    rec["profiles"] = {str(m): _profile_decode(runner, prompt, statistics.mean(runs[m]), m)
+                       for m in ("eager", 1, 8)}
+    say(f"{what} decode, in turns (ms/token): eager {runs['eager'][0]:.3f} / "
+        f"{runs['eager'][1]:.3f}, graphed tick 1 {runs[1][0]:.3f} / {runs[1][1]:.3f}, tick 8 "
+        f"{runs[8][0]:.3f} / {runs[8][1]:.3f}; greedy tokens identical in all six runs")
+    torch.cuda.synchronize()
     return rec
 
 
@@ -935,14 +1039,13 @@ def phase_main(tmp: Path):
         fail(f"prompt of {n_prompt} tokens is not two prefill chunks")
 
     _build.launches.clear()  # counts from here on are the main path's
-    first = _one_run(runner, prompt, _build.launches)
+    first = _one_run(runner, prompt, _build.launches)  # captures the decode step's graph
     launches = dict(_build.launches)
-    second = _one_run(runner, prompt, _build.launches)
-
-    profile = _profile_decode(runner, prompt, second["decode_ms_per_token"])
-
+    second = _one_run(runner, prompt, _build.launches)  # replays the cached graph
     if first["tokens"] != second["tokens"]:
         fail("the two greedy runs gave different tokens")
+    turns = _graph_against_eager(runner, prompt, first, "7B")
+    profile = turns["profiles"]["1"]
     if len(first["tokens"]) != DECODE_STEPS:
         fail(f"generated {len(first['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
     vocab = runner.cfg.vocab_size
@@ -968,15 +1071,17 @@ def phase_main(tmp: Path):
         "tokens_identical": True, "first_tokens": first["tokens"][:16],
         "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
         "max_memory_allocated": peak,
-        "launches": launches, "decode_profile": profile,
-        "launches_per_decode_token": {k: v / first["decoded_steps"]
-                                      for k, v in first["launches_decode"].items()},
+        "launches": launches, "decode_profile": profile, "graph_against_eager": turns,
+        # from the second run: the first also ran the step once eagerly to warm it up
+        "launches_per_decode_token": {k: v / second["decoded_steps"]
+                                      for k, v in second["launches_decode"].items()},
         "launches_per_prefill_chunk": {k: v / chunks
                                        for k, v in first["launches_prefill"].items()},
     }
     for i, r in enumerate((first, second)):
-        say(f"main path run {i + 1}: prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
-            f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); "
+        say(f"main path run {i + 1} (graphed, tick 1): prompt {r['prompt_tokens']} tokens in "
+            f"{chunks} chunks, prefill {r['prefill_tok_s']:.1f} tok/s "
+            f"({r['prefill_s'] * 1e3:.1f} ms); "
             f"decode {r['decoded_steps']} steps "
             f"{r['decode_tok_s']:.2f} tok/s = {r['decode_ms_per_token']:.3f} ms/token "
             f"(bound {bound_port:.3f} ms port layout, {bound_gguf:.3f} ms GGUF bytes)")
@@ -1038,7 +1143,7 @@ def phase_serving_forward(tmp: Path, model: str = "7b", seed: int = 13,
                                     table[b].tolist(), cfg, dt)
             cache.table.copy_(torch.from_numpy(table))
             out = paged_decode_step(w, cache, torch.from_numpy(step_tokens).to(dev),
-                                    torch.tensor(lengths, dtype=torch.int32), cfg, dt)
+                                    torch.tensor(lengths, dtype=torch.int32, device=dev), cfg, dt)
             logits[dev, kv] = out.float().cpu()
             del cache
         del w
@@ -1134,7 +1239,9 @@ def _drain(engine, reqs) -> dict:
 def _profile_ticks(engine, seed: int) -> dict:
     """Device time per decode tick with every slot active, from a
     torch.profiler window of PROFILE_STEPS ticks (the method of
-    _profile_decode), against the unprofiled time of as many ticks."""
+    _profile_decode), against the unprofiled time of as many ticks, one
+    step(1) a tick; and the time a tick when step(8) replays eight of them
+    before it reads the tokens."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1159,6 +1266,14 @@ def _profile_ticks(engine, seed: int) -> dict:
         engine.step()
     torch.cuda.synchronize()
     ms_per_tick = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    steps_before = engine.steps
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS // 8):
+        engine.step(8)  # 8 replays of the tick, then one read
+    torch.cuda.synchronize()
+    ms_per_tick_8 = (time.perf_counter() - t0) / (engine.steps - steps_before) * 1e3
+    if engine.steps - steps_before != PROFILE_STEPS:
+        fail(f"step(8) ran {engine.steps - steps_before} ticks in {PROFILE_STEPS // 8} steps")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
             engine.step()
@@ -1173,7 +1288,8 @@ def _profile_ticks(engine, seed: int) -> dict:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
-    rec = {"ms_per_tick": ms_per_tick, "slots": engine.n_slots, "positions": positions,
+    rec = {"ms_per_tick": ms_per_tick, "ms_per_tick_at_step_8": ms_per_tick_8,
+           "slots": engine.n_slots, "positions": positions,
            "tok_s_at_8_slots": engine.n_slots / ms_per_tick * 1e3}
     if not by_name:
         say("serving profile: the profiler saw no device time (not measured)")
@@ -1183,8 +1299,9 @@ def _profile_ticks(engine, seed: int) -> dict:
     rec.update(measured=True, device_ms_per_tick=busy, device_launches_per_tick=n / PROFILE_STEPS,
                idle_share=1.0 - busy / ms_per_tick,
                top_kernels_ms_per_tick={k[:80]: v / PROFILE_STEPS for k, v in top})
-    say(f"serving profile ({PROFILE_STEPS} ticks, 8 slots at positions {positions}): "
-        f"{ms_per_tick:.3f} ms/tick unprofiled = {rec['tok_s_at_8_slots']:.1f} tok/s, device busy "
+    say(f"serving profile ({PROFILE_STEPS} graphed ticks, 8 slots at positions {positions}): "
+        f"{ms_per_tick:.3f} ms/tick unprofiled = {rec['tok_s_at_8_slots']:.1f} tok/s "
+        f"({ms_per_tick_8:.3f} ms/tick at step(8)), device busy "
         f"{busy:.3f} ms/tick (idle share {rec['idle_share']:.3f}), "
         f"{rec['device_launches_per_tick']:.0f} device launches/tick")
     for k, v in rec["top_kernels_ms_per_tick"].items():
@@ -1454,6 +1571,9 @@ def phase_moe(tmp: Path) -> dict:
     second = _one_run(runner, prompt, _build.launches)
     if first["tokens"] != second["tokens"]:
         fail("MoE: the two greedy runs gave different tokens")
+    eager = _one_run(runner, prompt, _build.launches, "eager")
+    if eager["tokens"] != first["tokens"]:
+        fail("MoE: the eager decode gave other tokens than the graphed runs")
     if len(first["tokens"]) != DECODE_STEPS:
         fail(f"MoE: generated {len(first['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
     n = first["end_pos"]
@@ -1468,15 +1588,16 @@ def phase_moe(tmp: Path) -> dict:
     bound_port, bound_gguf = _decode_bound(runner, n)
     chunks = math.ceil(n_prompt / PREFILL_CHUNK)
     peak = torch.cuda.max_memory_allocated()
-    for i, r in enumerate((first, second)):
-        say(f"MoE path run {i + 1}: prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
-            f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
+    for i, r in enumerate((first, second, eager)):
+        say(f"MoE path run {i + 1} ({'graphed, tick 1' if i < 2 else 'eager'}): prompt "
+            f"{r['prompt_tokens']} tokens in {chunks} chunks, prefill "
+            f"{r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
             f"{r['decoded_steps']} steps {r['decode_tok_s']:.2f} tok/s = "
             f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
             f"{bound_gguf:.3f} ms GGUF bytes, the experts counted at 2 of 8)")
     say(f"MoE path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB, 128 greedy tokens identical in both "
-        f"runs, launches {launches}")
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, 128 greedy tokens identical in the "
+        f"two graphed runs and the eager one, launches {launches}")
 
     w8_q4k = _prefill_w8_against_q4k(path, runner, prompt, f"Mixtral ({MOE_LAYERS} layers)")
     if w8_q4k["launches"].get("qmm_q4k_grouped", 0) <= 0 or w8_q4k["launches"].get("qmm_w8", 0) \
@@ -1516,12 +1637,12 @@ def phase_moe(tmp: Path) -> dict:
         "layers": MOE_LAYERS, "synth_s": synth_s, "load_s": load_s, "load_w8_augment_s": w8_s,
         "prompt_tokens": n_prompt, "prefill_chunks": chunks,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
-                 for r in (first, second)],
+                 for r in (first, second, eager)],
         "tokens_identical": True, "first_tokens": first["tokens"][:16],
         "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
         "max_memory_allocated": peak, "launches": launches, "decode_profile": profile,
-        "launches_per_decode_token": {k: v / first["decoded_steps"]
-                                      for k, v in first["launches_decode"].items()},
+        "launches_per_decode_token": {k: v / second["decoded_steps"]
+                                      for k, v in second["launches_decode"].items()},
         "launches_per_prefill_chunk": {k: v / chunks
                                        for k, v in first["launches_prefill"].items()},
         "prefill_w8_against_q4k": w8_q4k, "serving": serving,

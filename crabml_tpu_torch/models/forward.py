@@ -4,23 +4,31 @@ torch.
 Counterpart of crabml_tpu/models/forward.py::forward (and KVCache). The JAX
 version scans stacked layers inside one jit and batches the cache writes of
 its fused decode path into one scatter after the scan, so that a donated cache
-is updated in place. None of that mechanics is needed here: PyTorch runs
-eagerly, so the port loops over per-layer weight dicts in Python and writes
-each layer's new k/v into the cache in place, one indexed write per tensor.
-The numbers are the same.
+is updated in place. The port loops over per-layer weight dicts in Python and
+writes each layer's new k/v into the cache in place, one indexed write per
+tensor. The numbers are the same.
 
 Per layer: rmsnorm -> fused q|k|v matmul -> rope -> cache write + attention
 -> wo -> rmsnorm -> fused gate|up -> silu(gate)*up -> down (or `moe_ffn`, the
 Mixtral router over stacked experts); then the final norm and the lm_head.
 `layer_body` holds everything but the cache traffic, so the paged steps
-(serving/paged.py) share it. Attention of a few new tokens
-(ops.cuda.decode_attention.decode_eligible) takes the decode kernel,
-everything else the flash kernel.
+(serving/paged.py) share it.
+
+`decode_step` is the T = 1 step of B sequences. It takes the positions on
+the device and reads nothing back to the host, no value and no data-dependent
+shape, so a CUDA graph captures it whole (runtime/generate.py replays it);
+it attends the step's k/v from their own block (decode_attention_fused) and
+writes them afterwards, as the JAX package's decode path does. `forward`
+takes the positions on the host, checks them against the cache and sends a
+single token to `decode_step`; a longer chunk is written first and attended
+over the cache with a causal bound per row, through the decode kernel when
+it is a few tokens (ops.cuda.decode_attention.decode_eligible) and through
+the flash kernel otherwise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -66,6 +74,8 @@ class KVCache:
     v: torch.Tensor
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
+    # the decode steps captured on this cache (runtime/generate.py::decode_loop)
+    graphs: dict = field(default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, seq_len: int | None = None,
@@ -274,28 +284,80 @@ def quantize_new(k: torch.Tensor, v: torch.Tensor, dtype):
     return k.to(dtype), v.to(dtype), None, None
 
 
+def _write_kv(cache: KVCache, l: int, rows, cols, kq, vq, ks, vs):
+    """The step's k/v (B, T, KV, hd) into layer l at (b, :, cols[b, t])."""
+    cache.k[l][rows, :, cols] = kq
+    cache.v[l][rows, :, cols] = vq
+    if ks is not None:
+        cache.k_scale[l][rows, :, cols] = ks
+        cache.v_scale[l][rows, :, cols] = vs
+
+
+def _layer_cache(cache: KVCache, l: int):
+    """Layer l's k, v and (int8) scales, the scales None for a float cache."""
+    if cache.quantized:
+        return cache.k[l], cache.v[l], cache.k_scale[l], cache.v_scale[l]
+    return cache.k[l], cache.v[l], None, None
+
+
+def decode_step(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig, compute_dtype=torch.float32) -> torch.Tensor:
+    """One decode step: tokens (B, 1) and pos (B,) int32, both on the weights'
+    device, pos[b] the keys sequence b holds. Writes the step's k/v at pos[b]
+    in place -> logits (B, V) float32. The caller checks pos[b] <
+    cache.seq_len on the host; nothing here reads the device."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    positions = pos[:, None]
+    cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
+    rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
+    fused = decode_eligible(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    softcap, window = cfg.attn_logit_softcap, cfg.sliding_window
+    kv_dtype = cache.k.dtype
+
+    x = embedding_lookup(weights["token_embed"], tokens, compute_dtype)
+    for l, lw in enumerate(weights["layers"]):
+        def kv_io(q, k, v):
+            kq, vq, ks, vs = quantize_new(k, v, kv_dtype)
+            if fused:
+                tr = [None if a is None else a.transpose(1, 2) for a in (kq, vq, ks, vs)]
+                attn = decode_attention_fused(
+                    q, cache.k, cache.v, l, pos, cfg.attn_scale, tr[0], tr[1],
+                    cache.k_scale, cache.v_scale, tr[2], tr[3], softcap, window)
+                _write_kv(cache, l, rows, cols, kq, vq, ks, vs)
+                return attn
+            # a head layout the decode kernel does not take: the flash kernel
+            # over the whole cache, masked by pos (no live length on the host)
+            _write_kv(cache, l, rows, cols, kq, vq, ks, vs)
+            k_l, v_l, ks_l, vs_l = _layer_cache(cache, l)
+            return flash_attention(q, dequantize_like(k_l, ks_l, q.dtype),
+                                   dequantize_like(v_l, vs_l, q.dtype), pos, cfg.attn_scale,
+                                   softcap, window)
+
+        x = layer_body(lw, x, cos, sin, cfg, kv_io)
+    return final_logits(weights, x, cfg)[:, 0]
+
+
 def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor,
             cfg: ModelConfig, compute_dtype=torch.float32) -> torch.Tensor:
     """tokens (B, T) on the weights' device; pos (B,) int on the CPU: valid
     cache length per sequence. Writes the new k/v into `cache` in place and
     returns logits (B, T, vocab) float32.
 
-    A decode step (T = 1) attends its token's k/v from their own block
-    (decode_attention_fused) and writes them afterwards, as the JAX package's
-    decode path does. A short chunk is written first and attended over the
-    cache with a causal bound per row (decode_attention), a longer one the
-    same way through the flash kernel."""
+    One token (T = 1) is a `decode_step`. A short chunk is written first and
+    attended over the cache with a causal bound per row (decode_attention), a
+    longer one the same way through the flash kernel."""
     B, T = tokens.shape
-    hd = cfg.head_dim
     starts = [int(p) for p in pos]
     if max(starts) + T > cache.seq_len:
         raise CacheError(f"pos {max(starts)} + {T} tokens overruns the cache ({cache.seq_len})")
     dev = tokens.device
     pos_dev = pos.to(device=dev, dtype=torch.int32)
+    if T == 1:
+        return decode_step(weights, cache, tokens, pos_dev, cfg, compute_dtype)[:, None]
     positions = pos_dev[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
     cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
-    use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, hd)
-    fused_kv = use_decode and T == 1
+    use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     softcap, window = cfg.attn_logit_softcap, cfg.sliding_window
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
     n_keys = max(starts) + T
@@ -303,28 +365,10 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
 
     x = embedding_lookup(weights["token_embed"], tokens, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
-        k_l, v_l = cache.k[l], cache.v[l]
-        ks_l = vs_l = None
-        if cache.quantized:
-            ks_l, vs_l = cache.k_scale[l], cache.v_scale[l]
-
-        def write(kq, vq, ks, vs):
-            k_l[rows, :, cols] = kq  # (B, T, KV, hd) at (b, :, pos[b] + t)
-            v_l[rows, :, cols] = vq
-            if ks is not None:
-                ks_l[rows, :, cols] = ks
-                vs_l[rows, :, cols] = vs
+        k_l, v_l, ks_l, vs_l = _layer_cache(cache, l)
 
         def kv_io(q, k, v):
-            kq, vq, ks, vs = quantize_new(k, v, kv_dtype)
-            if fused_kv:
-                tr = [None if a is None else a.transpose(1, 2) for a in (kq, vq, ks, vs)]
-                attn = decode_attention_fused(
-                    q, cache.k, cache.v, l, pos_dev, cfg.attn_scale, tr[0], tr[1],
-                    cache.k_scale, cache.v_scale, tr[2], tr[3], softcap, window)
-                write(kq, vq, ks, vs)
-                return attn
-            write(kq, vq, ks, vs)
+            _write_kv(cache, l, rows, cols, *quantize_new(k, v, kv_dtype))
             if use_decode:
                 return decode_attention(q, k_l, v_l, pos_dev, cfg.attn_scale, ks_l, vs_l,
                                         softcap, window)

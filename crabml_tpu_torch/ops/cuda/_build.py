@@ -13,12 +13,17 @@ Python passes every pointer and the stream as `c_void_p`; each C entry returns
 `cudaGetLastError()` and `check` raises when it is not 0.
 
 `launches` counts kernel launches by name. Each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. A wrapper called while a CUDA graph is
+captured launches nothing, so the capture runs inside `recording()`, which
+takes those counts back out of `launches` and keeps them as the graph's
+record; `replayed(record)` adds the record once for every replay. A graphed
+step replayed n times is counted as n eager steps.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -134,6 +139,28 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err:
         msg = lib.crabml_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA graph's capture: yields a Counter that, once the block
+    ends, holds the launches the wrappers counted inside it; `launches`
+    itself is left as it was before the block."""
+    before = launches.copy()
+    record: collections.Counter = collections.Counter()
+    try:
+        yield record
+    finally:
+        record.update({k: n - before.get(k, 0) for k, n in launches.items()
+                       if n != before.get(k, 0)})
+        launches.clear()
+        launches.update(before)
+
+
+def replayed(record: collections.Counter, times: int = 1):
+    """Count `times` replays of a graph whose capture recorded `record`."""
+    for k, n in record.items():
+        launches[k] += n * times
 
 
 def stream_ptr(t) -> int:

@@ -93,13 +93,22 @@ def block_keys(c: int, pos: int, T: int, win: int, cap: int, fused: bool) -> dic
 
 
 _tickets: dict[torch.device, torch.Tensor] = {}
+_retired_tickets: list[torch.Tensor] = []  # smaller buffers a captured graph may still use
 
 
 def _ticket_buffer(n: int, device: torch.device) -> torch.Tensor:
     """Persistent int32 counters, zero between launches: the kernel's last
-    block of each (b, kv) resets its own."""
+    block of each (b, kv) resets its own. The buffer is made outside any CUDA
+    graph's capture (the eager warm-up step makes it) so that it never lives
+    in a graph's memory pool; one that grows keeps the old one alive for the
+    graphs captured with it."""
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode attention: {n} ticket counters do not exist yet; "
+                               "run the step once eagerly before capturing it")
+        if buf is not None:
+            _retired_tickets.append(buf)
         buf = _tickets[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
     return buf
 
@@ -186,7 +195,7 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     q = q.contiguous()
     for t in [q, *tensors[:2], *([] if news is None else new_t[:2])]:  # copied 16 bytes at a time
         _build.require(t.data_ptr() % 16 == 0, f"{count}: q and cache rows must be 16-byte aligned")
-    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()  # no copy if already so
     pl = plan(B, KV, span, T, G, hd)
     dev = q.device
     part_m = torch.empty(pl.part_stats, dtype=torch.float32, device=dev)

@@ -9,19 +9,29 @@ the rotation are computed in float32 and cast back. The rope scalings
 models that use them.
 
 The forward computes the angles once per call (`rope_angles`) and rotates
-every layer's q and k with them (`rotate`).
+every layer's q and k with them (`rotate`). The frequencies are computed once
+per (rope_dim, base, device) and kept, so a captured decode step allocates
+and copies nothing for them.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def inv_freq(rope_dim: int, base: float, device: torch.device) -> torch.Tensor:
+    """base^(-2i/rope_dim) for i < rope_dim/2, float32 on `device`, computed
+    there (the same bits as before it was kept)."""
+    i = torch.arange(rope_dim // 2, dtype=torch.float32, device=device)
+    return torch.tensor(base, dtype=torch.float32) ** (-2.0 * i / rope_dim)
 
 
 def rope_angles(positions: torch.Tensor, rope_dim: int, base: float = 10000.0):
     """(B, T) positions -> cos, sin of shape (B, T, 1, rope_dim//2), float32."""
-    i = torch.arange(rope_dim // 2, dtype=torch.float32, device=positions.device)
-    inv_freq = torch.tensor(base, dtype=torch.float32) ** (-2.0 * i / rope_dim)
-    theta = positions.float()[..., None] * inv_freq
+    theta = positions.float()[..., None] * inv_freq(rope_dim, float(base), positions.device)
     return torch.cos(theta)[:, :, None], torch.sin(theta)[:, :, None]
 
 

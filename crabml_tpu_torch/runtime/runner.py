@@ -4,7 +4,9 @@ Counterpart of crabml_tpu/runtime/runner.py::Runner (prefill, generate,
 prefill_and_generate, reset). The JAX Runner pads prompts to power-of-two
 buckets to bound recompiles; the port runs eagerly and prefills the exact
 prompt length, still in chunks of at most MAX_PREFILL_CHUNK tokens so a long
-prompt never materializes a long activation.
+prompt never materializes a long activation. Decode goes through
+runtime/generate.py::decode_loop: on the card, one captured CUDA graph of the
+step, replayed.
 
 The Runner runs on `cuda` unless the caller passes `device="cpu"`; without a
 card and without that request it raises.
@@ -155,27 +157,38 @@ class Runner:
         self.metrics.count("prefill_tokens", len(tokens))
         return self.pos, tokens[-1], token
 
-    def generate(self, token: int, steps: int | None = None):
+    def generate(self, token: int, steps: int | None = None, tick: int | None = None):
         """Stream text pieces from `token` (sampled by prefill); stops at
-        EOS, at `steps` tokens or at the end of the cache."""
-        max_steps = self.seq_len - self.pos - 1
+        EOS, at `steps` tokens or at the end of the cache.
+
+        Each tick decodes `tick` tokens on the device (decode_loop: on the
+        card, one graph replay a token) and then checks them for EOS on the
+        host, as crabml_tpu's Runner.generate(tick=) / _generate_ticked do;
+        the text streams a tick at a time. On EOS at index j of a tick the
+        position goes back to just after it and the tick's later tokens are
+        dropped. Default: 1 (the JAX package takes 8 on a TPU only)."""
+        tick = max(1, tick or 1)
+        remaining = self.seq_len - self.pos - 1
         if steps is not None:
-            max_steps = min(max_steps, steps - 1)
+            remaining = min(remaining, steps - 1)
         self.generated = [token]
         yield self.tokenizer.decode(token, self._decode_buf)
-        loop = decode_loop(self.weights, self.cache, token, self.pos, max_steps, self.cfg,
-                           self.compute_dtype, self.sampler, self.generator)
-        while True:
+        current = token
+        while remaining > 0:
+            n = min(tick, remaining)
+            pos0 = self.pos
             with self.metrics.track("decode"):
-                new_token = next(loop, None)
-            if new_token is None:
-                return
-            self.pos += 1
-            self.metrics.count("tokens")
-            if new_token == self.tokenizer.eos_token:
-                return
-            self.generated.append(new_token)
-            yield self.tokenizer.decode(new_token, self._decode_buf)
+                toks = decode_loop(self.weights, self.cache, [current], [pos0], n, self.cfg,
+                                   self.compute_dtype, self.sampler, self.generator)[0].tolist()
+            for j, t in enumerate(toks):
+                self.pos = pos0 + j + 1  # positions beyond hold dropped in-tick writes
+                self.metrics.count("tokens")
+                if t == self.tokenizer.eos_token:
+                    return
+                self.generated.append(t)
+                yield self.tokenizer.decode(t, self._decode_buf)
+            current = toks[-1]
+            remaining -= n
 
     def prefill_and_generate(self, prompt: str, steps: int):
         _, _, token = self.prefill(prompt, bos=True)

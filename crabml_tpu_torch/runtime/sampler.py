@@ -6,6 +6,12 @@ min_p_filter, apply_repetition_penalty, apply_frequency_presence,
 sample_batch). The randomness comes from an explicit torch.Generator on the
 logits' device; it gives other numbers than jax.random from the same seed, so
 only greedy rows are comparable token for token between the two packages.
+
+Every function here is safe to capture in a CUDA graph: no value goes to the
+host and no Python number is copied to the device (a scalar parameter stays a
+scalar), and the draw is written out (`_draw`) because torch.multinomial
+checks its input on the host. A captured draw needs its generator
+registered with the graph (runtime/generate.py::StepGraph does it).
 """
 
 from __future__ import annotations
@@ -17,10 +23,22 @@ import torch
 LOGPROB_TOPK = 8  # top-k carried per sampled token when logprobs are requested
 
 
-def _per_row(x, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or (B,) parameter as a float32 (B, 1) column on like's device."""
-    t = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+def _per_row(x, like: torch.Tensor):
+    """A (B,) parameter as a float32 (B, 1) column on like's device; a Python
+    number stays a number."""
+    if not isinstance(x, torch.Tensor):
+        return float(x)
+    t = x.to(device=like.device, dtype=torch.float32)
     return (t if t.dim() else t[None])[:, None]
+
+
+def _draw(probs: torch.Tensor, generator) -> torch.Tensor:
+    """One token per row with probability probs (B, V) -> (B,) int64: the
+    argmax of probs / q with q ~ Exp(1), which is torch.multinomial's own
+    one-sample path (the same numbers from the same generator state) without
+    its checks on the host."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 def nucleus_filter(probs: torch.Tensor, topp) -> torch.Tensor:
@@ -32,8 +50,8 @@ def nucleus_filter(probs: torch.Tensor, topp) -> torch.Tensor:
     csum = torch.cumsum(sorted_p, dim=-1)
     keep = (csum - sorted_p) < t2
     cutoff = torch.where(keep, sorted_p, torch.ones_like(sorted_p)).amin(dim=-1, keepdim=True)
-    use = (t2 > 0.0) & (t2 < 1.0)
-    return torch.where(~use | (probs >= cutoff), probs, torch.zeros_like(probs))
+    off = (t2 <= 0.0) | (t2 >= 1.0)
+    return torch.where(off | (probs >= cutoff), probs, torch.zeros_like(probs))
 
 
 def min_p_filter(probs: torch.Tensor, minp) -> torch.Tensor:
@@ -41,7 +59,7 @@ def min_p_filter(probs: torch.Tensor, minp) -> torch.Tensor:
     minp * max_prob. `minp` scalar or (B,); 0 disables."""
     m2 = _per_row(minp, probs)
     cutoff = probs.amax(dim=-1, keepdim=True) * m2
-    return torch.where(~(m2 > 0.0) | (probs >= cutoff), probs, torch.zeros_like(probs))
+    return torch.where((m2 <= 0.0) | (probs >= cutoff), probs, torch.zeros_like(probs))
 
 
 def _window_counts(logits: torch.Tensor, recent_tokens: torch.Tensor) -> torch.Tensor:
@@ -102,7 +120,7 @@ def sample_batch(logits, generator, temperature, topp, minp=None, logit_bias=Non
         filtered = nucleus_filter(probs, topp)
         if minp is not None:
             filtered = min_p_filter(filtered, minp)
-        sampled = torch.multinomial(filtered, 1, generator=generator)[:, 0]
+        sampled = _draw(filtered, generator)
         nxt = torch.where(temperature <= 0.0, nxt, sampled)
     if not with_logprobs:
         return nxt
@@ -122,5 +140,4 @@ class Sampler:
         if self.temperature == 0.0:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
-        probs = nucleus_filter(probs, self.topp)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return _draw(nucleus_filter(probs, self.topp), generator)

@@ -6,12 +6,17 @@ batch: requests are admitted into free slots as they open, prompts prefill in
 bounded chunks between decode ticks, and one decode tick advances every slot.
 Idle and mid-prefill slots still step; the host ignores their token.
 
-What the JAX package does for its compiler is not copied: prompt chunks are
-forwarded at their exact length (no power-of-two padding), `step(multi)` runs
-its ticks as a host loop instead of one fused scan, and the per-slot state is
-plain numpy that is uploaded each tick. The per-tick host work stays free of
-device reads except the one fetch of the sampled tokens; logprobs are fetched
-only when a live request asked for them.
+Prompt chunks are forwarded at their exact length (no power-of-two padding).
+`step(multi)` is the counterpart of the JAX package's fused `_decode_scan`:
+the per-slot state is plain numpy on the host, copied into static device
+buffers (`_TickState`) once per step; then `multi` ticks run on the device,
+each sampling every slot, writing its tokens (and their logprobs) into an
+output ring and feeding them back, the penalties' recent window shifted in
+the tick; then the host reads the (B, multi) tokens once, the logprobs only
+when a live request asked for them, and delivers them in order. On the card
+the tick is one captured CUDA graph (runtime/generate.py::StepGraph), one per
+set of sampling processors in use, captured when first needed; on the CPU
+it runs eagerly.
 
 All device work happens on the thread that calls `step` (`run_forever` on the
 daemon's engine thread); other threads only touch the queues.
@@ -26,14 +31,16 @@ import threading
 import time
 import traceback
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..errors import ConfigError, UnsupportedError
-from ..models.forward import KVCache, forward
+from ..models.forward import KVCache, decode_step, forward
 from ..ops.cuda.flash_attention import check_card_attention
-from ..runtime.sampler import sample_batch
+from ..runtime.generate import RING, StepGraph
+from ..runtime.sampler import LOGPROB_TOPK, sample_batch
 from ..tokenizer import Utf8Buf
 from ..utils import resolve_device
 
@@ -45,12 +52,57 @@ def _prefill_slot(weights, cache: KVCache, tokens, slot: int, pos0: int, cfg, co
                    cfg, compute_dtype)
 
 
-def _decode_step(weights, cache: KVCache, tokens, pos, generator, sampling: dict, cfg,
-                 compute_dtype):
-    """One batched decode tick: forward every slot's current token, sample
-    per slot -> (next tokens (B,), logprob arrays)."""
-    logits = forward(weights, cache, tokens[:, None], pos, cfg, compute_dtype)
-    return sample_batch(logits[:, 0], generator, with_logprobs=True, **sampling)
+@dataclass(frozen=True)
+class Processors:
+    """Which sampling processors a tick runs: the key of its captured graph."""
+
+    sampled: bool  # some slot samples at a temperature (else argmax only)
+    minp: bool
+    repetition: bool
+    freq_pres: bool
+    bias: bool
+
+
+class _TickState:
+    """The tick's static device buffers: the host copies the slots' state in
+    before the ticks of a step, the ticks read and move them on, and write
+    their tokens and logprobs at the ring's counter."""
+
+    def __init__(self, n: int, window: int, device):
+        def f32(*shape, fill=0.0):
+            return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+        self.tok = torch.zeros(n, dtype=torch.long, device=device)
+        self.pos = torch.zeros(n, dtype=torch.int32, device=device)
+        self.temp, self.topp, self.minp = f32(n), f32(n, fill=1.0), f32(n)
+        self.rep_pen, self.freq_pen, self.pres_pen = f32(n, fill=1.0), f32(n), f32(n)
+        self.recent = torch.full((n, window), -1, dtype=torch.long, device=device)
+        self.count = torch.zeros(1, dtype=torch.long, device=device)
+        self.toks = torch.zeros(n, RING, dtype=torch.long, device=device)
+        self.tok_lp = f32(n, RING)
+        self.top_lp = f32(n, RING, LOGPROB_TOPK)
+        self.top_id = torch.zeros(n, RING, LOGPROB_TOPK, dtype=torch.long, device=device)
+
+
+def _sampling_kwargs(proc: Processors, p, bias) -> dict:
+    """sample_batch's keyword arguments for the processors in use, from `p`'s
+    device tensors temp, topp, minp, recent, rep_pen, freq_pen, pres_pen: a
+    processor that is off is None, so an all-greedy pool pays for an argmax
+    only."""
+    kw = {"temperature": None, "topp": None}
+    if proc.sampled:
+        kw["temperature"], kw["topp"] = p.temp, p.topp
+        if proc.minp:
+            kw["minp"] = p.minp
+    if proc.repetition or proc.freq_pres:
+        kw["recent_tokens"] = p.recent
+    if proc.repetition:
+        kw["repetition_penalty"] = p.rep_pen
+    if proc.freq_pres:
+        kw["frequency_penalty"], kw["presence_penalty"] = p.freq_pen, p.pres_pen
+    if proc.bias:
+        kw["logit_bias"] = bias
+    return kw
 
 
 @dataclass
@@ -221,6 +273,8 @@ class ServingEngine:
         self._prefilling: dict[int, tuple[list[int], int]] = {}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self._seed)
+        self._ticks = _TickState(n, self.REPEAT_WINDOW, self.device)
+        self._graphs: dict[Processors, StepGraph] = {}  # the captured ticks on the card
 
     def _bias(self) -> torch.Tensor:
         if self._bias_dev is None:
@@ -345,33 +399,24 @@ class ServingEngine:
                                        **self._sampling([slot]))
         self._deliver_first(slot, req, first, first_lp)
 
-    def _sampling(self, rows=None) -> dict:
-        """sample_batch's keyword arguments for slots `rows` (default: the
-        whole pool), from the host-side state. A parameter that no row uses
-        is passed as None, so an all-greedy pool pays for an argmax only."""
+    def _processors(self, rows=None) -> Processors:
+        """The processors that slots `rows` (default: the whole pool) use."""
         sel = slice(None) if rows is None else rows
-        dev = self.device
+        sampled = bool((self.temp[sel] > 0).any())
+        return Processors(
+            sampled=sampled, minp=sampled and bool((self.minp[sel] > 0).any()),
+            repetition=bool((self.rep_pen[sel] != 1.0).any()),
+            freq_pres=bool((self.freq_pen[sel] != 0).any() or (self.pres_pen[sel] != 0).any()),
+            bias=self._bias_dev is not None)
 
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)
-
-        kw = {"temperature": None, "topp": None}
-        if (self.temp[sel] > 0).any():
-            kw["temperature"], kw["topp"] = up(self.temp), up(self.topp)
-            if (self.minp[sel] > 0).any():
-                kw["minp"] = up(self.minp)
-        rep = (self.rep_pen[sel] != 1.0).any()
-        fp = (self.freq_pen[sel] != 0).any() or (self.pres_pen[sel] != 0).any()
-        if rep or fp:
-            kw["recent_tokens"] = up(self.recent)
-            if rep:
-                kw["repetition_penalty"] = up(self.rep_pen)
-            if fp:
-                kw["frequency_penalty"] = up(self.freq_pen)
-                kw["presence_penalty"] = up(self.pres_pen)
-        if self._bias_dev is not None:
-            kw["logit_bias"] = self._bias_dev[sel]
-        return kw
+    def _sampling(self, rows) -> dict:
+        """sample_batch's keyword arguments for the slots `rows` alone (a
+        first token sampled from prefill logits), uploaded from the host."""
+        p = SimpleNamespace(**{
+            n: torch.from_numpy(np.ascontiguousarray(getattr(self, n)[rows])).to(self.device)
+            for n in ("temp", "topp", "minp", "recent", "rep_pen", "freq_pen", "pres_pen")})
+        return _sampling_kwargs(self._processors(rows), p,
+                                None if self._bias_dev is None else self._bias_dev[rows])
 
     def _prefill_chunk_device(self, slot: int, chunk: list[int], filled: int) -> torch.Tensor:
         """Forward `chunk` into the slot's cache at position `filled`;
@@ -406,49 +451,95 @@ class ServingEngine:
         place; False when no active slot is left."""
         return True
 
-    def _tick_device(self):
-        """One decode tick over the slot pool -> (tokens (B,), logprobs)."""
-        tokens = torch.from_numpy(self.cur_tok).to(self.device)
-        return _decode_step(self.weights, self.cache, tokens, torch.from_numpy(self.pos),
-                            self._gen, self._sampling(), self.cfg, self.compute_dtype)
+    def _step_logits(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One decode step of the slot pool from device tok (B,) and pos (B,)
+        -> logits (B, V). PagedServingEngine reads its pool instead."""
+        return decode_step(self.weights, self.cache, tok[:, None], pos, self.cfg,
+                           self.compute_dtype)
+
+    def _tick(self, proc: Processors, generator):
+        """One tick on the static buffers: forward every slot, sample it with
+        the processors `proc`, write the tokens and logprobs into the ring at
+        the counter, shift the recent window, feed the tokens back."""
+        s = self._ticks
+        logits = self._step_logits(s.tok, s.pos)
+        nxt, lps = sample_batch(logits, generator, with_logprobs=True,
+                                **_sampling_kwargs(proc, s, self._bias_dev))
+        for ring, a in zip((s.toks, s.tok_lp, s.top_lp, s.top_id), (nxt, *lps)):
+            ring.index_copy_(1, s.count, a[:, None])
+        if proc.repetition or proc.freq_pres:
+            s.recent.copy_(torch.cat([s.recent[:, 1:], nxt[:, None]], dim=1))
+        s.tok.copy_(nxt)
+        s.pos.add_(1)
+        s.count.add_(1)
+
+    def _upload(self, proc: Processors):
+        """Copy the host's slot state into the static buffers."""
+        s = self._ticks
+        pairs = [(s.tok, self.cur_tok), (s.pos, self.pos)]
+        if proc.sampled:
+            pairs += [(s.temp, self.temp), (s.topp, self.topp), (s.minp, self.minp)]
+        if proc.repetition or proc.freq_pres:
+            pairs += [(s.recent, self.recent), (s.rep_pen, self.rep_pen),
+                      (s.freq_pen, self.freq_pen), (s.pres_pen, self.pres_pen)]
+        for dev, host in pairs:
+            dev.copy_(torch.from_numpy(host))
+
+    def _run_ticks(self, multi: int, logprobs: bool):
+        """`multi` ticks on the device, then one read: -> (tokens (B, multi),
+        (token logprob, top logprobs, top ids) or None when `logprobs` is
+        False) as numpy."""
+        s = self._ticks
+        proc = self._processors()
+        self._upload(proc)
+        graph = self._graphs.get(proc)
+        if graph is None and self.device.type == "cuda":
+            pool = next((g.pool() for g in self._graphs.values()), None)
+            graph = self._graphs[proc] = StepGraph(
+                lambda gen: self._tick(proc, gen), self.device, pool,
+                self._gen if proc.sampled else None)
+            self._upload(proc)  # the warm-up moved the buffers on
+        s.count.zero_()
+        if graph is not None:
+            graph.replay(multi)
+        else:  # the CPU: the same tick, eagerly
+            for _ in range(multi):
+                self._tick(proc, self._gen)
+        toks = s.toks[:, :multi].cpu().numpy()
+        if not logprobs:
+            return toks, None
+        return toks, tuple(a[:, :multi].cpu().numpy() for a in (s.tok_lp, s.top_lp, s.top_id))
 
     def step(self, multi: int = 1) -> int:
         """Admit pending requests, run one prefill chunk (if any request is
-        mid-admission), run `multi` decode ticks. Returns the number of
-        occupied slots afterwards."""
+        mid-admission), run `multi` decode ticks on the device and deliver
+        their tokens. Returns the number of occupied slots afterwards."""
         self._admit()
         self._prefill_tick()
         active = self._active()
         if not active:
             return self._occupied()
-        # cap the ticks so no slot's writes pass seq_len-1: over ALL slots,
-        # since a mid-prefill slot also gets a KV write per tick at its
-        # filled offset
-        multi = max(1, min(multi, self.seq_len - 1 - int(self.pos.max())))
+        # cap the ticks at the ring and so that no slot's writes pass
+        # seq_len-1: over ALL slots, since a mid-prefill slot also gets a KV
+        # write per tick at its filled offset
+        multi = max(1, min(multi, RING, self.seq_len - 1 - int(self.pos.max())))
         if not self._ready(active, multi):
             return self._occupied()
         snapshot = list(self.slots)  # which request owned each slot at the start
+        pos0 = self.pos.copy()
         if self._started is None:
             self._started = time.monotonic()
-        for _ in range(multi):
-            live = [i for i in active if self.slots[i] is snapshot[i]]
-            if not live:
-                break
-            nxt, lp = self._tick_device()
-            toks = nxt.cpu().numpy()  # the tick's one device read
-            # fetch the logprob arrays only when a live request asked
-            if any(snapshot[i].logprobs is not None for i in live):
-                tok_lp, top_lp, top_id = (a.cpu().numpy() for a in lp)
-            else:
-                tok_lp = top_lp = top_id = None
-            self.pos[live] += 1
-            self.steps += 1
-            self.tokens_generated += len(live)
-            for i in live:
-                self._deliver(
-                    i, int(toks[i]),
-                    logprob=None if tok_lp is None else float(tok_lp[i]),
-                    top=None if top_id is None else (top_id[i], top_lp[i]))
+        toks, lp = self._run_ticks(multi, any(snapshot[i].logprobs is not None for i in active))
+        self.pos[active] += multi
+        self.steps += multi
+        for j in range(multi):
+            for i in active:
+                if self.slots[i] is not snapshot[i]:
+                    continue  # finished (or replaced) earlier in this step
+                self.tokens_generated += 1
+                self._deliver(i, int(toks[i, j]), pos_after=int(pos0[i]) + j + 1,
+                              logprob=None if lp is None else float(lp[0][i, j]),
+                              top=None if lp is None else (lp[2][i, j], lp[1][i, j]))
         return self._occupied()
 
     def _deliver_first(self, slot: int, req: Request, first, first_lp):
@@ -461,10 +552,13 @@ class ServingEngine:
         else:
             self._deliver(slot, int(first[0]))
 
-    def _deliver(self, slot: int, token: int, logprob: float | None = None, top=None):
+    def _deliver(self, slot: int, token: int, pos_after: int | None = None,
+                 logprob: float | None = None, top=None):
         """Record a sampled token for slot; finish and free on EOS, a stop
-        string or a limit. `logprob`/`top` ((ids, logprobs) arrays) are
-        recorded aligned with output_tokens when the request asked."""
+        string or a limit. `pos_after`: the slot's position once the token's
+        step ran (default: self.pos[slot]). `logprob`/`top` ((ids, logprobs)
+        arrays) are recorded aligned with output_tokens when the request
+        asked."""
         req = self.slots[slot]
         if req.cancelled:
             self._finish(slot, "cancelled")
@@ -503,7 +597,8 @@ class ServingEngine:
         self.cur_tok[slot] = token
         self.recent[slot, :-1] = self.recent[slot, 1:]
         self.recent[slot, -1] = token
-        if len(req.output_tokens) >= req.max_tokens or self.pos[slot] >= self.seq_len - 1:
+        at = self.pos[slot] if pos_after is None else pos_after
+        if len(req.output_tokens) >= req.max_tokens or at >= self.seq_len - 1:
             self._finish(slot, "length")
 
     def _finish(self, slot: int, reason: str):

@@ -9,18 +9,19 @@ memory scales with the tokens in flight:
 - `PagedKVCache`: pools (L, n_pages, KV, PAGE, hd) x2 and a block table (B,
   max_pages) naming each sequence's pages. Page 0 is a scratch page that idle
   and mid-prefill slots write to; it is never allocated and never read.
-- `paged_decode_step`: one decode tick. Per layer the step's k/v are attended
-  from their own block through the block table
-  (ops.cuda.paged_decode_attention_fused) and then written into each
-  sequence's current page with one indexed write per tensor.
+- `paged_decode_step`: one decode tick, positions on the device, nothing read
+  on the host. Per layer the step's k/v are attended from their own block
+  through the block table (ops.cuda.paged_decode_attention_fused) and then
+  written into each sequence's current page with one indexed write per
+  tensor. The engine replays it as a CUDA graph (ServingEngine.step).
 - `paged_prefill_chunk`: one prompt chunk written straight into pool pages.
   A chunk of a few tokens (the recomputed last token after a prefix hit, a
   ragged tail: ops.cuda.decode_attention.decode_eligible) attends through the
   block table (ops.cuda.paged_decode_attention); a longer one gathers the
   slot's live pages dense and takes the flash kernel.
 - `PagedServingEngine`: continuous batching over the pool: admission
-  allocates the prompt's pages, each tick allocates a page when a sequence
-  crosses a boundary, finishing returns them; under pool pressure the youngest
+  allocates the prompt's pages, each step allocates the pages its ticks
+  reach before they run, finishing returns them; under pool pressure the youngest
   request is preempted and recomputed later instead of failing.
 - Prefix cache (on by default): each full prompt page registers under a
   position-chained token digest; a later prompt that starts with the same
@@ -53,7 +54,6 @@ from ..ops.cuda.paged_decode_attention import (PAGE, gather_pages, paged_decode_
                                                paged_decode_attention_fused)
 from ..ops.matmul import embedding_lookup
 from ..ops.rope import rope_angles
-from ..runtime.sampler import sample_batch
 from .engine import Request, ServingEngine
 
 
@@ -92,12 +92,15 @@ class PagedKVCache:
 
 def paged_decode_step(weights, cache: PagedKVCache, tokens, pos, cfg,
                       compute_dtype) -> torch.Tensor:
-    """One decode tick over the page pool. tokens (B,) on the device; pos
-    (B,) int on the CPU: tokens each sequence holds. Writes each sequence's
-    new k/v into page table[b, pos // PAGE] in place -> logits (B, V)."""
+    """One decode tick over the page pool. tokens (B,) and pos (B,) int32 on
+    the device, pos[b] the tokens sequence b holds. Writes each sequence's new
+    k/v into page table[b, pos // PAGE] in place -> logits (B, V). Like
+    models.forward.decode_step it reads nothing on the host, so a CUDA graph
+    captures it; the block table is updated in place between replays, and the
+    caller allocates every page a replay can reach before it."""
     B = tokens.shape[0]
     dev = tokens.device
-    pos_dev = pos.to(device=dev, dtype=torch.int32)
+    pos_dev = pos.to(device=dev, dtype=torch.int32)  # no copy for device int32
     cos, sin = rope_angles(pos_dev[:, None], cfg.effective_rope_dim, cfg.rope_base)
     pos_l = pos_dev.long()
     page_of = cache.table[torch.arange(B, device=dev), pos_l // PAGE].long()  # (B,)
@@ -412,11 +415,9 @@ class PagedServingEngine(ServingEngine):
             self._push_table()
         return bool(active)
 
-    def _tick_device(self):
-        tokens = torch.from_numpy(self.cur_tok).to(self.device)
-        logits = paged_decode_step(self.weights, self.cache, tokens, torch.from_numpy(self.pos),
-                                   self.cfg, self.compute_dtype)
-        return sample_batch(logits, self._gen, with_logprobs=True, **self._sampling())
+    def _step_logits(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return paged_decode_step(self.weights, self.cache, tok, pos, self.cfg,
+                                 self.compute_dtype)
 
     def _release_pages(self, slot: int):
         for pg in self._owned[slot]:

@@ -683,3 +683,236 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         paged_decode_attention(q, kv, kv, table, pos + 1, 0.125)  # int64 table
     with pytest.raises(UnsupportedError):  # pages of 64 rows
         paged_decode_attention(q, kv[:, :, :64], kv[:, :, :64], table.int(), pos + 1, 0.125)
+
+
+# -- the decode step as a CUDA graph (runtime/generate.py) --------------------
+
+def _captured(fn):
+    """fn() run once off the capture (build, shared-memory attributes, ticket
+    counters), then captured -> (graph, the captured call's output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_replay_in_a_cuda_graph(cuda, form, kv):
+    """Each decode-attention form captured once and replayed with the
+    positions (and the lengths of the unfused paged form) changed in place,
+    at two sets of positions: bit for bit the eager call's output. The grid
+    comes from the cache's capacity, so one graph serves every position."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, KV, G, hd, n_slot_pages = 4, 2, 4, 128, 9
+    S = n_slot_pages * PAGE
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    q = rand(B, 1, KV * G, hd).to(torch.bfloat16)
+    paged, fused = form.startswith("paged"), form.endswith("fused")
+    shape = (B * n_slot_pages + 1, KV, PAGE, hd) if paged else (B, KV, S, hd)
+    k, v, kn, vn = rand(*shape), rand(*shape), rand(B, KV, 1, hd), rand(B, KV, 1, hd)
+    ks = vs = ksn = vsn = None
+    if kv == "int8":
+        (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
+    else:
+        k, v, kn, vn = (a.to(torch.bfloat16) for a in (k, v, kn, vn))
+    perm = torch.randperm(B * n_slot_pages, generator=torch.Generator().manual_seed(4)) + 1
+    table = perm.reshape(B, n_slot_pages).to(cuda, torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32, device=cuda)
+    lengths = pos + 1
+
+    def s(a):
+        return None if a is None else a[None]
+
+    def call():
+        if form == "dense":
+            return decode_attention(q, k, v, pos, 0.09, ks, vs)
+        if form == "dense_fused":
+            return decode_attention_fused(q, k[None], v[None], 0, pos, 0.09, kn, vn, s(ks), s(vs),
+                                          ksn, vsn)
+        if form == "paged":
+            return paged_decode_attention(q, k, v, table, lengths, 0.09, ks, vs)
+        return paged_decode_attention_fused(q, k[None], v[None], table, 0, pos, 0.09, kn, vn,
+                                            s(ks), s(vs), ksn, vsn)
+
+    graph, out = _captured(call)
+    for at in ((0, 130, 511, 1000), (5, 777, S - 1, 3)):
+        pos.copy_(torch.tensor(at, dtype=torch.int32))
+        lengths.copy_(pos + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call()), at
+
+
+@pytest.fixture(scope="module")
+def two_layer_7b(tmp_path_factory):
+    """Mistral-7B widths cut to 2 layers, bfloat16 on the card, with a cache
+    prefilled by a 16-token prompt."""
+    from crabml_tpu_torch.gguf.reader import GGUFFile
+    from crabml_tpu_torch.models.config import config_from_gguf
+    from crabml_tpu_torch.models.weights import load_weights
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    path = build_synth_gguf(str(tmp_path_factory.mktemp("gguf") / "7b2.gguf"), "7b", seed=2,
+                            layers=2)
+    gf = GGUFFile(path)
+    cfg = config_from_gguf(gf.metadata)
+    w = load_weights(gf, cfg, "cuda", torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(3, cfg.vocab_size, (1, 16)))
+    return w, cfg, prompt.cuda()
+
+
+def _prefilled(w, cfg, prompt):
+    from crabml_tpu_torch.models.forward import KVCache, forward
+
+    cache = KVCache.create(cfg, 1, 512, torch.bfloat16, "cuda")
+    forward(w, cache, prompt, torch.tensor([0]), cfg, torch.bfloat16)
+    return cache
+
+
+def test_decode_step_graph_matches_eager_at_7b_width(cuda, two_layer_7b):
+    """decode_step + greedy sample at 7B widths (2 layers), captured once and
+    replayed 8 times, against the eager step on a second cache: the same
+    kernels in the same order, so bit for bit the same logits and tokens, and
+    the same cache rows."""
+    from crabml_tpu_torch.models.forward import decode_step
+    from crabml_tpu_torch.runtime.generate import StepGraph
+
+    w, cfg, prompt = two_layer_7b
+    eager_cache, graph_cache = _prefilled(w, cfg, prompt), _prefilled(w, cfg, prompt)
+    tok = torch.tensor([7], device=cuda)
+    pos = torch.tensor([16], dtype=torch.int32, device=cuda)
+    logits = torch.empty(1, cfg.vocab_size, device=cuda)
+
+    def step(_gen):
+        out = decode_step(w, graph_cache, tok[:, None], pos, cfg, torch.bfloat16)
+        logits.copy_(out)
+        tok.copy_(out.argmax(-1))
+        pos.add_(1)
+
+    graph = StepGraph(step, cuda)
+    tok.fill_(7)
+    pos.fill_(16)
+    t, p = torch.tensor([7], device=cuda), torch.tensor([16], dtype=torch.int32, device=cuda)
+    for i in range(8):
+        want = decode_step(w, eager_cache, t[:, None], p, cfg, torch.bfloat16)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want), i
+        t, p = want.argmax(-1), p + 1
+        assert torch.equal(tok, t), i
+    assert torch.equal(graph_cache.k[:, :, :, :24], eager_cache.k[:, :, :, :24])
+
+
+def test_sampled_graph_repeats_from_its_seed(cuda, two_layer_7b):
+    """decode_loop at temperature 0.9 through its captured graph, three runs
+    from one seed (a capture, a replay of the cached graph, a capture on
+    another cache): identical tokens. The generator is registered with the
+    graph, so each replay draws new numbers from it."""
+    from crabml_tpu_torch.runtime.generate import decode_loop
+    from crabml_tpu_torch.runtime.sampler import Sampler
+
+    w, cfg, prompt = two_layer_7b
+    gen = torch.Generator(device=cuda)
+    a, b = _prefilled(w, cfg, prompt), _prefilled(w, cfg, prompt)
+    runs = []
+    for cache in (a, a, b):
+        gen.manual_seed(5)
+        runs.append(decode_loop(w, cache, [7], [16], 12, cfg, torch.bfloat16,
+                                Sampler(temperature=0.9, topp=0.95), gen))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert len(set(runs[0][0].tolist())) > 1
+
+
+def test_replays_do_not_sync(cuda, two_layer_7b):
+    """The replay loop of a captured decode step under
+    torch.cuda.set_sync_debug_mode("error"): no replay waits for the card."""
+    from crabml_tpu_torch.runtime import generate
+    from crabml_tpu_torch.runtime.sampler import Sampler
+
+    w, cfg, prompt = two_layer_7b
+    cache = _prefilled(w, cfg, prompt)
+    got = generate._captured(w, cache, 1, cfg, torch.bfloat16, Sampler(), None,
+                             torch.tensor([7]), torch.tensor([16], dtype=torch.int32))
+    before = _build.launches["qmm_w4a8"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got.state.count.zero_()
+        got.graph.replay(8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert got.state.pos.item() == 24 and got.state.count.item() == 8
+    assert _build.launches["qmm_w4a8"] - before == 8 * got.graph.launches["qmm_w4a8"] > 0
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_engines_replay_their_ticks(cuda, two_layer_7b, paged):
+    """Both engines on the card, through their captured ticks: three
+    requests (greedy; greedy with a repetition penalty and logprobs; sampled)
+    give the same greedy tokens at step(1) and step(4), and a graph is
+    captured for each set of processors in use."""
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    w, cfg, _ = two_layer_7b
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in (20, 140, 9)]
+    outs = []
+    for multi in (1, 4):
+        kw = dict(weights=w, cfg=cfg, n_slots=4, seq_len=512, compute_dtype=torch.bfloat16)
+        eng = PagedServingEngine(n_pages=24, **kw) if paged else ServingEngine(**kw)
+        reqs = [eng.submit(Request(prompt="", prompt_tokens=p, max_tokens=10, **extra))
+                for p, extra in zip(prompts, ({}, dict(repetition_penalty=1.5, logprobs=2),
+                                              dict(temperature=0.8)))]
+        while any(eng.slots) or not eng.pending.empty():
+            eng.step(multi)
+        assert all(len(r.output_tokens) == 10 for r in reqs)
+        assert len(reqs[1].output_logprobs) == 10
+        assert len(eng._graphs) >= 2
+        outs.append([r.output_tokens for r in reqs[:2]])
+    assert outs[0] == outs[1]
+
+
+def test_no_collection_during_a_capture(cuda):
+    """The cyclic collector is off while a step is captured (a graph in a
+    garbage reference cycle collected then would free its memory pool, a
+    cudaFree that invalidates the capture) and on again after it."""
+    import gc
+
+    from crabml_tpu_torch.runtime.generate import StepGraph
+
+    x = torch.ones(4, device=cuda)
+    seen = []
+
+    def step(_gen):
+        seen.append(gc.isenabled())
+        x.add_(1.0)
+
+    StepGraph(step, cuda).replay(3)
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert x.tolist() == [5.0] * 4  # the warm-up and three replays
+
+
+def test_a_failed_capture_raises(cuda):
+    """A step that reads the card on the host cannot be captured: StepGraph
+    raises (there is no eager fallback), and the launch counts stay."""
+    from crabml_tpu_torch.runtime.generate import StepGraph
+
+    x = torch.ones(4, device=cuda)
+    before = dict(_build.launches)
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda _gen: x.add_(x.sum().item()), cuda)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == before
