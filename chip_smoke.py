@@ -59,9 +59,22 @@ fails:
    with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
    report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
+10. Q8_0 and Q6_K: phase 3 for each scheme (2 layers, card against CPU),
+   then the 7B widths with every matrix in Q8_0 at full depth (`7b-q8_0`,
+   ~7.7 GB) and in Q6_K cut to 8 of 32 layers (`7b-q6_k`): `Runner(path)`,
+   whose default must attach the W8 planes; the ~700-token prompt and 128
+   greedy tokens through the graph, equal to the eager step's; the same file
+   with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
+   the 16 requests through an 8-slot `PagedServingEngine`. The graphed
+   decode runs twice (the capture, then the cached graph) and once eagerly,
+   all with the same tokens, and a profiled window of the graphed step
+   follows. Phase 2 holds
+   each scheme's dequant kernel (512 and 189 rows of qkv, 512 of down) and
+   int8-activation form (every 7B decode projection at 1 and 8 rows)
+   against its plain version.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
-Each of the paths 5, 6, 7 and 9 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9 and 10 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -129,7 +142,17 @@ KERNEL_SOURCES = {
                         "crabml_tpu/ops/pallas/gemm_quant.py:836", "moe_q4k"),
     "qmm_w8_grouped": ("crabml_tpu_torch/csrc/qmm_w8.cu",
                        "crabml_tpu/ops/pallas/gemm_quant.py:870", "moe"),
+    "qmm_q8_0": ("crabml_tpu_torch/csrc/qmm_q8_0.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                 "7b-q8_0"),
+    "qmm_q6k": ("crabml_tpu_torch/csrc/qmm_q6k.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                "7b-q6_k"),
+    "qmm_w4a8_q8_0": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q8_0"),
+    "qmm_w4a8_q6k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                     "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q6_k"),
 }
+# the Q8_0 and Q6_K paths: (scheme, layers of the 7B shape's 32, seed)
+SCHEME_PATHS = (("q8_0", 32, 61), ("q6_k", 8, 62))
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
@@ -273,6 +296,58 @@ def check_matmul(timer, name: str, rows: int, m: int, k: int, seed: int) -> dict
         kernel(), tol, why,
         x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2,
         2.0 * rows * m * k, op_type)
+
+
+def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
+    """A random (m, k) weight of `scheme` (tools/synth_gguf.py's blocks) in
+    the port's kernel layout, bf16 scales."""
+    import numpy as np
+    import torch
+
+    from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+
+    kind, blocks = SCHEMES[scheme]
+    raw = blocks(np.random.default_rng(seed), m * k, 1.0 / math.sqrt(k))
+    return to_kernel_layout(to_planar(kind, raw, (m, k), device), torch.bfloat16)
+
+
+def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int,
+                        seed: int) -> tuple[str, dict]:
+    """The Q8_0 or Q6_K form of the dequant kernel (`form` "dequant") or of
+    the int8-activation kernel ("w4a8") against its plain version."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import dequantize
+
+    qt = scheme_weight(scheme, m, k, seed, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    p = qt.planes
+    planes = [p["qs"]] if scheme == "q8_0" else [p["ql"], p["qh"]]
+    if form == "dequant":
+        name = "qmm_q8_0" if scheme == "q8_0" else "qmm_q6k"
+        wrapper = getattr(gemm_quant, name)
+        plain_fn = getattr(gemm_quant, f"{name}_plain")
+        tol, why = 1e-4, "the same bf16 weights, float32 sums in another order"
+        op_type = "bf16"
+    else:
+        name = gemm_quant.W4A8_FORMS[qt.kind]
+        wrapper = gemm_quant.qmm_w4a8
+        plain_fn = getattr(gemm_quant, f"{name}_plain")
+        tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
+        op_type = "int8"
+    plain = lambda: plain_fn(x, *planes, p["dsub"])  # noqa: E731
+    kernel = lambda: wrapper(x, qt, torch.bfloat16)  # noqa: E731
+    w_bf16 = dequantize(qt, torch.bfloat16)
+    rec = _matmul_record(
+        timer, name, f"{rows}x{k} @ ({m}x{k})^T", kernel, plain,
+        lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)", wrapper(x, qt), plain(),
+        kernel(), tol, why,
+        x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2,
+        2.0 * rows * m * k, op_type)
+    return name, rec
 
 
 def _plane_bytes(qt, names, planes=None) -> int:
@@ -706,6 +781,19 @@ def phase_kernels() -> dict[str, list[dict]]:
         torch.cuda.empty_cache()
     checks["qmm_w4a8"] += [check_w4a8_planes(timer, rows, m, k, seed)
                            for rows, m, k, planes, seed in W4A8_SHAPES if planes]
+    # the Q8_0 and Q6_K forms: the dequant kernel at a 512-row chunk of qkv,
+    # the ragged 189-row chunk and a 512-row chunk of down; the int8-activation
+    # form at every 7B decode projection, at one row and at the 8-slot tick
+    for i, scheme in enumerate(("q8_0", "q6_k")):
+        for rows, m, k in ((PREFILL_CHUNK, QKV_M, DIM), (RAGGED_CHUNK, QKV_M, DIM),
+                           (PREFILL_CHUNK, DIM, FFN)):
+            name, rec = check_scheme_matmul(timer, scheme, "dequant", rows, m, k, 70 + i)
+            checks.setdefault(name, []).append(rec)
+        for rows in (1, SERVING_SLOTS):
+            for m, k in ((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM)):
+                name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, m, k, 72 + i)
+                checks.setdefault(name, []).append(rec)
+        torch.cuda.empty_cache()
     del timer
     torch.cuda.empty_cache()
     return checks
@@ -716,10 +804,11 @@ def phase_kernels() -> dict[str, list[dict]]:
 # ---------------------------------------------------------------------------
 
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
-                  w8: bool = False, min_share: float = 1.0) -> dict:
-    """`model` cut to 2 layers: a prompt of `n_prompt` tokens and one decode
-    step, the card (kernels, bfloat16, with the W8 prefill planes when `w8`)
-    against the CPU (plain versions, float32, Q4_K planes only)."""
+                  w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k") -> dict:
+    """`model` cut to 2 layers, every matrix in `scheme`: a prompt of
+    `n_prompt` tokens and one decode step, the card (kernels, bfloat16, with
+    the W8 prefill planes when `w8`) against the CPU (plain versions,
+    float32, the scheme's planes only)."""
     import numpy as np
     import torch
 
@@ -729,7 +818,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     from crabml_tpu_torch.models.weights import augment_w8_weights, load_weights
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / f"synth-{model}-2layers.gguf"), model, seed=seed, layers=2)
+    path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-2layers.gguf"), model, seed=seed,
+                            layers=2, scheme=scheme)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
@@ -771,7 +861,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                      "finite": finite, "last_argmax_agrees": top_agree}
         good = finite and share >= min_share
         ok &= good
-        say(f"forward {model} widths, 2 layers, {what}: rel err max {rel:.3e}, median token "
+        say(f"forward {model} widths, {scheme}, 2 layers, {what}: rel err max {rel:.3e}, "
+            f"median token "
             f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
             f"{finite} {'ok' if good else 'FAILED'}")
     rec["ok"] = ok
@@ -783,10 +874,18 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
+def _bytes_per_weight(kind) -> float:
+    """A GGUF block's bytes over its weights (Q4_K 144 / 256)."""
+    from crabml_tpu_torch.gguf.constants import GGML_BLOCK_SIZES
+
+    n, nbytes = GGML_BLOCK_SIZES[kind]
+    return nbytes / n
+
+
 def _decode_bound(runner, pos: int) -> tuple[float, float]:
-    """Least ms per decode token: the port's Q4_K weight planes (decode reads
-    no W8 plane), the embedding row and the live KV cache read once, over
-    3.35 TB/s; and the same with the GGUF's own Q4_K bytes (144 per 256
+    """Least ms per decode token: the port's weight planes (decode reads no
+    W8 plane), the embedding row and the live KV cache read once, over
+    3.35 TB/s; and the same with the GGUF's own bytes (Q4_K: 144 per 256
     weights) for the matmuls. Of a layer's experts a token reads the K it was
     routed to: K/E of the stacks' bytes, and the whole router."""
     w = runner.weights
@@ -796,11 +895,12 @@ def _decode_bound(runner, pos: int) -> tuple[float, float]:
     mats = [(w["output"], 1.0)] + [
         (lw[n], share.get(n, 1.0)) for lw in w["layers"]
         for n in ("wqkv", "wo", "wgu", "ffn_down", "wgu_exps", "ffn_down_exps") if n in lw]
-    port = sum(f * _plane_bytes(q, ("qs", "dsub", "msub")) for q, f in mats)
+    port = sum(f * _plane_bytes(q, [n for n in q.planes if n not in ("w8", "dw")])
+               for q, f in mats)
     port += sum(lw["ffn_gate_inp"].numel() * 2 for lw in w["layers"] if "ffn_gate_inp" in lw)
-    gguf = sum(f * math.prod(q.shape) // 256 * 144 for q, f in mats)
+    gguf = sum(f * math.prod(q.shape) * _bytes_per_weight(q.kind) for q, f in mats)
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * pos * cfg.head_dim * runner.cache.k.element_size()
-    row = DIM // 256 * 144
+    row = DIM * _bytes_per_weight(w["token_embed"].kind)
     return ((port + kv + row) / HBM_BYTES_PER_S * 1e3, (gguf + kv + row) / HBM_BYTES_PER_S * 1e3)
 
 
@@ -818,8 +918,9 @@ def _prefill_only(runner, prompt: str) -> float:
 
 def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
     """The same file loaded once more with prefill_w8=False: its prefill
-    against the W8 runner's, in turns inside this one run (W8, Q4_K, Q4_K,
-    W8), and the kernels the Q4_K prefill launched."""
+    against the W8 runner's, in turns inside this one run (W8, dequant,
+    dequant, W8), and the kernels the dequant-only prefill launched (the
+    scheme's dequant kernel: qmm_q4k for a Q4_K file)."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import _build
@@ -838,10 +939,11 @@ def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
     rates["w8"].append(_prefill_only(runner, prompt))
     ratio = statistics.mean(rates["w8"]) / statistics.mean(rates["q4k"])
     wins = "w8" if ratio >= 1.0 else "q4k"
-    say(f"{what} prefill, W8 planes against Q4_K only (tok/s, in turns): W8 "
-        f"{rates['w8'][0]:.1f} and {rates['w8'][1]:.1f}, Q4_K {rates['q4k'][0]:.1f} and "
-        f"{rates['q4k'][1]:.1f}: the {'W8 planes win' if wins == 'w8' else 'Q4_K-only route wins'}"
-        f" ({ratio:.3f}x of Q4_K only); matmul launches of one W8 and one Q4_K prefill {launches}")
+    say(f"{what} prefill, W8 planes against the dequant kernel only (tok/s, in turns): W8 "
+        f"{rates['w8'][0]:.1f} and {rates['w8'][1]:.1f}, dequant {rates['q4k'][0]:.1f} and "
+        f"{rates['q4k'][1]:.1f}: the {'W8 planes win' if wins == 'w8' else 'dequant route wins'}"
+        f" ({ratio:.3f}x of dequant only); matmul launches of one W8 and one dequant prefill "
+        f"{launches}")
     del plain
     torch.cuda.empty_cache()
     return {"prefill_tok_s": rates, "w8_over_q4k": ratio, "wins": wins, "launches": launches_q4k}
@@ -975,7 +1077,7 @@ def _w4a8_by_shape(device_events, cfg) -> dict:
     if cfg.n_experts:
         return {}
     mm = [e for e in device_events if "::qmm_w4a8_kernel<" in e.name]
-    quant = [e for e in device_events if "::quantize_kernel(" in e.name]
+    quant = [e for e in device_events if "::quantize_kernel<" in e.name]
     per_token = 4 * cfg.n_layers + 1
     if not mm or len(mm) % per_token:
         return {}
@@ -1650,6 +1752,118 @@ def phase_moe(tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the Q8_0 and Q6_K paths
+# ---------------------------------------------------------------------------
+
+def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
+    """The 7B widths with every matrix in `scheme`, `layers` of 32:
+    `Runner(path)` with its default prefill_w8, which must come out on, the
+    ~700-token prompt and 128 greedy tokens through the graph, equal to the
+    eager step's; the same file with prefill_w8=False, prefill only, in
+    turns; and the 16 requests through an 8-slot PagedServingEngine."""
+    import torch
+
+    from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES, build_synth_gguf
+
+    what = f"7b-{scheme}"
+    kind = SCHEMES[scheme][0]
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), "7b", seed=seed, layers=layers,
+                            scheme=scheme)
+    synth_s = time.perf_counter() - t0
+    say(f"synthetic 7B {kind.name} GGUF, {layers} of 32 layers: "
+        f"{os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(path)
+    lw = runner.weights["layers"][0]
+    mats = [lw[n] for n in ("wqkv", "wo", "wgu", "ffn_down")] + [runner.weights["output"]]
+    if not all(q.kind == kind and q.kernel_layout for q in mats):
+        fail(f"{what}: the matrices are not {kind.name} kernel planes")
+    if not runner.prefill_w8 or not all("w8" in q.planes for q in mats):
+        fail(f"{what}: the Runner's default left the W8 prefill planes off")
+    load_s = runner.metrics.times_ns["load"] / 1e9
+    w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    n_prompt = len(runner.tokenizer.encode(prompt, bos=True))
+
+    _build.launches.clear()  # counts from here on are this path's
+    capture = _one_run(runner, prompt, _build.launches)  # captures the decode step's graph
+    launches = dict(_build.launches)
+    graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
+    eager = _one_run(runner, prompt, _build.launches, "eager")
+    if not capture["tokens"] == graphed["tokens"] == eager["tokens"]:
+        fail(f"{what}: the graphed decode gave other tokens than the eager step")
+    if len(graphed["tokens"]) != DECODE_STEPS:
+        fail(f"{what}: generated {len(graphed['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
+    n = graphed["end_pos"]
+    if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
+                and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
+        fail(f"{what}: NaN or inf in the KV cache")
+    dequant = gemm_quant.DEQUANT_FORMS[kind]
+    for name in (dequant, gemm_quant.W4A8_FORMS[kind], "qmm_w8", "flash_attention",
+                 "decode_attention_fused"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} path")
+    if launches.get("qmm_q4k", 0) or launches.get("qmm_w4a8", 0):
+        fail(f"{what}: a Q4_K kernel was launched: {launches}")
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    chunks = math.ceil(n_prompt / PREFILL_CHUNK)
+    profile = _profile_decode(runner, prompt, graphed["decode_ms_per_token"])
+    for r, how in ((capture, "graphed, the run that captures"), (graphed, "graphed"),
+                   (eager, "eager")):
+        say(f"{what} path ({how}): prompt {r['prompt_tokens']} tokens in {chunks} "
+            f"chunks, prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); "
+            f"decode {r['decoded_steps']} steps {r['decode_tok_s']:.2f} tok/s = "
+            f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
+            f"{bound_gguf:.3f} ms GGUF bytes)")
+    say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), 128 greedy "
+        f"tokens of both graphed runs equal to the eager step's, launches {launches}")
+    w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
+    if w8_dequant["launches"].get(dequant, 0) <= 0 or w8_dequant["launches"].get("qmm_w8", 0):
+        fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
+
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
+                             seed=7)
+    pages_at_start = eng.pages_free()
+    reqs = _serving_requests(runner, seed=25)
+    _build.launches.clear()
+    serving = _drain(eng, reqs)
+    serving["launches"] = dict(_build.launches)
+    serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
+    _say_run(f"serving, 7B {kind.name}, {layers} layers, 8 slots, 256-page bfloat16 pool",
+             serving)
+    if eng.pages_free() != pages_at_start or any(eng._owned):
+        fail(f"{what} serving: pages_free {eng.pages_free()} after the run, "
+             f"{pages_at_start} before")
+    for name in (gemm_quant.W4A8_FORMS[kind], "paged_decode_attention_fused"):
+        if serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} serving path")
+    peak = torch.cuda.max_memory_allocated()
+    del eng, runner
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return {
+        "scheme": scheme, "layers": layers, "synth_s": synth_s, "load_s": load_s,
+        "load_w8_augment_s": w8_s, "prompt_tokens": n_prompt, "prefill_chunks": chunks,
+        "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
+                 for r in (capture, graphed, eager)],
+        "graph_equals_eager": True, "first_tokens": graphed["tokens"][:16],
+        "decode_profile": profile,
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+        "max_memory_allocated": peak, "launches": launches,
+        "launches_per_decode_token": {k: v / graphed["decoded_steps"]
+                                      for k, v in graphed["launches_decode"].items()},
+        "launches_per_prefill_chunk": {k: v / chunks
+                                       for k, v in graphed["launches_prefill"].items()},
+        "prefill_w8_against_dequant": w8_dequant, "serving": serving,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(checks: dict, paths: dict) -> dict:
     """`paths`: {driven path: its record}; each kernel reports the launches
@@ -1673,6 +1887,13 @@ def kernels_line(checks: dict, paths: dict) -> dict:
             "launches_per_moe_prefill_chunk":
                 paths["moe"]["launches_per_prefill_chunk"].get(name, 0),
         }
+        if path.startswith("7b-"):  # the Q8_0 and Q6_K forms: their own path's rates
+            entry["launches_per_decode_token"] = \
+                paths[path]["launches_per_decode_token"].get(name, 0)
+            entry["launches_per_prefill_chunk"] = \
+                paths[path]["launches_per_prefill_chunk"].get(name, 0)
+            entry["launches_per_serving_tick"] = \
+                paths[path]["serving"]["launches_per_tick"].get(name, 0)
         entry["all_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by", "max_abs_err")}
                                for r in recs]
@@ -1751,6 +1972,13 @@ def main() -> int:
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
         moe = report["moe"] = phase_moe(tmp)
+        schemes = {}
+        for i, (scheme, layers, seed) in enumerate(SCHEME_PATHS):
+            fwd = report[f"forward_{scheme}"] = phase_forward(tmp, seed=80 + i, scheme=scheme)
+            if not fwd["ok"]:
+                failures.append(f"{scheme} forward check")
+            schemes[f"7b-{scheme}"] = report[f"7b-{scheme}"] = phase_scheme(tmp, scheme, layers,
+                                                                           seed)
     except CheckFailed as e:
         failures.append(str(e))
     finally:
@@ -1764,7 +1992,7 @@ def main() -> int:
     print(f"gpu: {TAG}")
     print(json.dumps(kernels_line(checks, {
         "main": main_rec, "serving": serving["first"], "dense_int8": dense, "moe": moe,
-        "moe_q4k": moe["prefill_w8_against_q4k"]})))
+        "moe_q4k": moe["prefill_w8_against_q4k"], **schemes})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

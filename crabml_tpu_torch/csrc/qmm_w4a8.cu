@@ -1,4 +1,6 @@
-// qmm_w4a8: int8 activations x 4-bit Q4_K weights for decode rows (<= 16).
+// qmm_w4a8: int8 activations x integer weights for decode rows (<= 16): the
+// Q4_K form (4-bit weights, the headline's kernel), and the Q8_0 and Q6_K
+// forms described at the end of this note.
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
 // _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
@@ -64,6 +66,25 @@
 //    per row here: the launch puts one row on each blockIdx.y with that row's
 //    plane as its base, and the index is read on the device. Rows that share
 //    an expert read its plane once each.
+// The Q8_0 and Q6_K forms share the quantizer (at the scheme's group: 32, or
+// 16 for Q6_K, as the JAX package's scheme.gr), the ring, the warp split by
+// superblock and the epilogue; a scheme trait (Q4K, Q80, Q6K below) gives the
+// stage's layout and the step's integer dots:
+//  * Q8_0: a stage holds the 16 columns' int8 weights of the superblock (4 KB,
+//    256 bytes a column, the nibbles' swizzle) and 8 bf16 dsub a column; A is
+//    the weights as they are, one m16n8k32 a 32-group, and the epilogue is
+//    acc += c * (dsub * dx): no minimum, so no sx is staged.
+//  * Q6_K: a stage holds the superblock's ql (128 bytes a column) and qh (64)
+//    and 16 bf16 dsub a column, 3.5 KB. A is the 6-bit value 0..63, a valid
+//    signed byte: in ggml's order a thread's 32-bit ql word and qh word give
+//    four values of a 16-group with a shift, a mask and an OR, in the k order
+//    that B takes from the same 4 bytes of xq. A group is 16 deep, so one
+//    m16n8k16 s8 mma a group, and acc += c * (dsub * dx) + (-32 dsub) * sx
+//    (the offset as a minimum, exact in float32). ql rows are swizzled by the
+//    column modulo 8, qh rows by its half modulo 4: the 32-bit loads of a
+//    warp's eight columns fall in distinct banks.
+// A ring as deep as two blocks an SM allow, up to four stages (stages_of):
+// Q6_K at 16 rows has two.
 // The grid and the rows of x a stage holds come from
 // ops/cuda/gemm_quant.py::w4a8_plan, which also mirrors the ring's depth and
 // each warp's superblocks; its w4a8_block_reads mirrors each block's copies
@@ -76,29 +97,34 @@
 
 namespace {
 
-constexpr int WARPS = 8;  // quantizer: one warp per 32-element group
+constexpr int WARPS = 8;  // quantizer: one warp per 32 elements
 
-// one warp per 32-element group, lane i holds element i of the group
+// one warp per 32 elements, lane i holds element i; the scale group is GR
+// lanes (32, or 16 for Q6_K)
+template <int GR>
 __global__ void __launch_bounds__(WARPS * 32)
 quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ dx,
                 float* __restrict__ sx, int K) {
     // the matmul may start now: it reads xq / dx / sx only after its
     // griddepcontrol.wait, which waits for this whole grid
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    const int G = K / 32;
-    const int g = blockIdx.x * WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int W32 = K / 32, G = K / GR;
+    const int w32 = blockIdx.x * WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
     const int b = blockIdx.y;
-    if (g >= G) return;
-    const float v = __bfloat162float(x[(size_t)b * K + g * 32 + lane]);
+    if (w32 >= W32) return;
+    const float v = __bfloat162float(x[(size_t)b * K + w32 * 32 + lane]);
     float amax = fabsf(v);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    for (int o = GR / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     const float d = amax / 127.0f;
     const float inv = d > 0.0f ? 1.0f / fmaxf(d, 1e-30f) : 0.0f;
     const float qf = fminf(fmaxf(rintf(v * inv), -127.0f), 127.0f);
-    xq[(size_t)b * K + g * 32 + lane] = (int8_t)qf;
-    const float qsum = warp_sum(qf);  // integer-valued: exact in float32
-    if (lane == 0) {
+    xq[(size_t)b * K + w32 * 32 + lane] = (int8_t)qf;
+    float qsum = qf;  // integer-valued: exact in float32
+#pragma unroll
+    for (int o = GR / 2; o > 0; o >>= 1) qsum += __shfl_xor_sync(0xffffffffu, qsum, o);
+    if (lane % GR == 0) {
+        const int g = (w32 * 32 + lane) / GR;
         dx[(size_t)b * G + g] = d;
         sx[(size_t)b * G + g] = d * qsum;
     }
@@ -106,26 +132,60 @@ quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __re
 
 constexpr int MM_WARPS = 4;  // K split four ways inside a block
 constexpr int COLS = 16;     // output columns of a block: the mma's M
-constexpr int SB = 256;      // k depth of one ring stage: one Q4_K superblock, 8 groups
-// one stage of a warp's ring: the weights of 16 columns, then the XR rows of
-// x that the block has (1, 8 or 16; rows past them are zeros in registers)
-constexpr int QS_BYTES = COLS * SB / 2;  // 2048: nibbles, 128 bytes a column
-constexpr int SC_BYTES = COLS * 8 * 2;   // 256: 8 bf16 scales a column (dsub; msub alike)
-// a warp's ring depth: four stages, three at 16 rows (where four would leave
-// one block an SM)
-__host__ __device__ constexpr int stages_of(int XR) { return XR <= 8 ? 4 : 3; }
+constexpr int SB = 256;      // k depth of one ring stage: one superblock
+constexpr int SMEM_PER_SM = 228 * 1024;  // H100; 1 KB of it reserved a block
 
-template <int XR> struct Stage {
-    static constexpr int QS = 0, DS = QS_BYTES, MS = DS + SC_BYTES, XQ = MS + SC_BYTES;
-    static constexpr int DX = XQ + XR * SB, SX = DX + XR * 32;  // int8 x; 8 float scales a row
-    static constexpr int BYTES = SX + XR * 32;
+// The schemes: a stage holds the 16 columns' weights of a superblock
+// (W_BYTES) and their scales (S_BYTES), then XR rows of x, each its 256 int8
+// values and XS bytes of scales (dx, and sx where the scheme has a minimum).
+struct Q4K {
+    static constexpr int GR = 32, W_BYTES = COLS * SB / 2, S_BYTES = 2 * COLS * 8 * 2;
+    static constexpr bool SX = true;
+    static __host__ __device__ size_t q0_row(int K) { return K / 2; }
+    static __host__ __device__ size_t q1_row(int) { return 0; }
 };
+struct Q80 {
+    static constexpr int GR = 32, W_BYTES = COLS * SB, S_BYTES = COLS * 8 * 2;
+    static constexpr bool SX = false;
+    static __host__ __device__ size_t q0_row(int K) { return K; }
+    static __host__ __device__ size_t q1_row(int) { return 0; }
+};
+struct Q6K {
+    static constexpr int GR = 16, W_BYTES = COLS * SB * 3 / 4, S_BYTES = COLS * 16 * 2;
+    static constexpr int QH = COLS * SB / 2;  // the qh rows follow the ql rows
+    static constexpr bool SX = true;
+    static __host__ __device__ size_t q0_row(int K) { return K / 2; }
+    static __host__ __device__ size_t q1_row(int K) { return K / 4; }
+};
+
+template <class S, int XR> struct Stage {
+    static constexpr int NG = SB / S::GR;  // scale groups a superblock
+    static constexpr int XS = NG * 4 * (S::SX ? 2 : 1);
+    static constexpr int W = 0, DS = S::W_BYTES, MS = DS + S::S_BYTES / 2;
+    static constexpr int XQ = S::W_BYTES + S::S_BYTES;
+    static constexpr int DX = XQ + XR * SB, SX = DX + XR * NG * 4;  // int8 x; dx; sx
+    static constexpr int BYTES = XQ + XR * (SB + XS);
+};
+
+// a warp's ring depth: as many stages, up to four, as leave room for two
+// blocks an SM (their rings, partial sums and reserved kilobyte)
+template <class S, int XR> __host__ __device__ constexpr int stages_of() {
+    constexpr int red = MM_WARPS * 4 * ((XR + 7) / 8) * 32 * 4;
+    constexpr int bytes = Stage<S, XR>::BYTES;
+    return 2 * (MM_WARPS * 4 * bytes + red + 1024) <= SMEM_PER_SM   ? 4
+           : 2 * (MM_WARPS * 3 * bytes + red + 1024) <= SMEM_PER_SM ? 3
+                                                                     : 2;
+}
 
 // 16-byte piece p of row r of a 128- or 256-byte row, XOR-swizzled: the
 // 64-bit fragment loads of 4 neighbouring rows then fall in distinct banks
 __device__ __forceinline__ int swz(int r, int p) { return p ^ ((r & 3) << 1); }
 // the 32-byte rows of dx / sx: rows r and r + 4 in other pieces
 __device__ __forceinline__ int swz_s(int r, int p) { return p ^ ((r >> 2) & 1); }
+// Q6_K's 32-bit loads: 128-byte ql rows by the column modulo 8, 64-byte qh
+// rows by its half modulo 4
+__device__ __forceinline__ int swz_l(int r, int p) { return p ^ (r & 7); }
+__device__ __forceinline__ int swz_h(int r, int p) { return p ^ ((r >> 1) & 3); }
 
 template <typename T> __device__ __forceinline__ T lds(const uint8_t* ring, int off) {
     return *reinterpret_cast<const T*>(ring + off);
@@ -141,6 +201,15 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, ui
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "r"(0));
 }
 
+// d (16x8 s32) = a (16x16 s8, row) * b (16x8 s8, col), starting from zero
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+    asm(
+        "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0), "r"(0));
+}
+
 // bf16 element g (0..7) of 8 packed in a uint4, as float
 __device__ __forceinline__ float bf16_at(const uint4& v, int g) {
     const uint32_t w = g < 2 ? v.x : g < 4 ? v.y : g < 6 ? v.z : v.w;
@@ -151,32 +220,35 @@ struct Args {
     const int8_t* xq;
     const float* dx;
     const float* sx;
-    const uint8_t* qs;
+    const uint8_t* q0;  // Q4_K nibbles, Q8_0 int8, Q6_K ql
+    const uint8_t* q1;  // Q6_K qh
     const bf16* dsub;
-    const bf16* msub;
+    const bf16* msub;   // Q4_K only
     void* out;
     const int* plane_idx;
     int B, N, K;
 };
 
-template <int XR, typename OutT>
+template <class S, int XR, typename OutT>
 __global__ void __launch_bounds__(MM_WARPS * 32)
 qmm_w4a8_kernel(const Args args) {
     constexpr int NT = (XR + 7) / 8;  // mma n8 tiles
-    constexpr int STAGES = stages_of(XR);
-    using S = Stage<XR>;
+    constexpr int STAGES = stages_of<S, XR>();
+    using ST = Stage<S, XR>;
+    constexpr int NG = ST::NG;
     extern __shared__ __align__(128) uint8_t ring[];
     __shared__ float red[MM_WARPS][NT * 4][32];
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int gid = lane >> 2, tig = lane & 3;
-    const int N = args.N, K = args.K, G = K / 32, nsb = K / SB;
+    const int N = args.N, K = args.K, G = K / S::GR, nsb = K / SB;
     const int col0 = blockIdx.x * COLS;
     // the plane form: one row on each blockIdx.y, that row's plane as base
     const int row0 = blockIdx.y;
     const int B = args.plane_idx ? 1 : args.B;
     const size_t wrow0 = (size_t)(args.plane_idx ? args.plane_idx[row0] : 0) * N;
-    const uint8_t* qs = args.qs + wrow0 * (K / 2);
+    const uint8_t* q0 = args.q0 + wrow0 * S::q0_row(K);
+    const uint8_t* q1 = args.q1 + wrow0 * S::q1_row(K);
     const bf16* dsub = args.dsub + wrow0 * G;
     const bf16* msub = args.msub + wrow0 * G;
     const int8_t* xq = args.xq + (size_t)row0 * K;
@@ -185,44 +257,72 @@ qmm_w4a8_kernel(const Args args) {
 
     const int n_steps = warp < nsb ? (nsb - 1 - warp) / MM_WARPS + 1 : 0;
     const uint32_t ring_u32 = wg::smem_u32(ring);
-    const int base = warp * STAGES * S::BYTES;  // this warp's ring, in bytes from `ring`
+    const int base = warp * STAGES * ST::BYTES;  // this warp's ring, in bytes from `ring`
 
-    // the 16 columns' nibbles and scales of the warp's step j into ring slot j % STAGES
+    // the 16 columns' weights and scales of the warp's step j into ring slot j % STAGES
     auto load_w = [&](int j) {
         const int sb = warp + j * MM_WARPS;
-        const uint32_t st = ring_u32 + base + (j % STAGES) * S::BYTES;
+        const uint32_t st = ring_u32 + base + (j % STAGES) * ST::BYTES;
+        if constexpr (S::GR == 16) {  // Q6_K: ql, qh, 16 dsub a column
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {  // 16 columns x 8 pieces of 16 bytes
-            const int idx = i * 32 + lane, r = idx >> 3, p = idx & 7;
+            for (int i = 0; i < 4; ++i) {  // 16 columns x 8 pieces of ql
+                const int idx = i * 32 + lane, r = idx >> 3, p = idx & 7;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = q0 + (size_t)(ok ? col0 + r : 0) * (K / 2) + sb * (SB / 2) + p * 16;
+                wg::cp_async16(st + ST::W + r * 128 + swz_l(r, p) * 16, src, ok);
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {  // 16 columns x 4 pieces of qh
+                const int idx = i * 32 + lane, r = idx >> 2, p = idx & 3;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = q1 + (size_t)(ok ? col0 + r : 0) * (K / 4) + sb * (SB / 4) + p * 16;
+                wg::cp_async16(st + Q6K::QH + r * 64 + swz_h(r, p) * 16, src, ok);
+            }
+            const int r = lane >> 1, p = lane & 1;
             const bool ok = col0 + r < N;
-            const uint8_t* src =
-                qs + (size_t)(ok ? col0 + r : 0) * (K / 2) + sb * (SB / 2) + p * 16;
-            wg::cp_async16(st + S::QS + r * 128 + swz(r, p) * 16, src, ok);
+            const bf16* src = dsub + (size_t)(ok ? col0 + r : 0) * G + sb * NG + p * 8;
+            wg::cp_async16(st + ST::DS + r * 32 + p * 16, src, ok);
+        } else {
+            constexpr int ROWB = S::W_BYTES / COLS;  // 128 (Q4_K) or 256 (Q8_0) bytes a column
+            constexpr int PIECES = ROWB / 16;
+#pragma unroll
+            for (int i = 0; i < COLS * PIECES / 32; ++i) {  // 16 columns x PIECES pieces
+                const int idx = i * 32 + lane, r = idx / PIECES, p = idx % PIECES;
+                const bool ok = col0 + r < N;
+                const uint8_t* src =
+                    q0 + (size_t)(ok ? col0 + r : 0) * S::q0_row(K) + sb * ROWB + p * 16;
+                wg::cp_async16(st + ST::W + r * ROWB + swz(r, p) * 16, src, ok);
+            }
+            const int r = lane & 15;
+            const bool ok = col0 + r < N;
+            if (S::SX || lane < 16) {  // dsub (and msub for Q4_K): 8 a column
+                const bf16* src = (lane < 16 ? dsub : msub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8;
+                wg::cp_async16(st + (lane < 16 ? ST::DS : ST::MS) + r * 16, src, ok);
+            }
         }
-        const int r = lane & 15;
-        const bool ok = col0 + r < N;
-        const bf16* src = (lane < 16 ? dsub : msub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8;
-        wg::cp_async16(st + (lane < 16 ? S::DS : S::MS) + r * 16, src, ok);
     };
-    // the rows' xq, dx, sx of step j
+    // the rows' xq, dx (and sx) of step j
     auto load_x = [&](int j) {
         const int sb = warp + j * MM_WARPS;
-        const uint32_t st = ring_u32 + base + (j % STAGES) * S::BYTES;
+        const uint32_t st = ring_u32 + base + (j % STAGES) * ST::BYTES;
 #pragma unroll
         for (int i = 0; i < (XR * 16 + 31) / 32; ++i) {  // XR rows x 16 pieces
             const int idx = i * 32 + lane, r = idx >> 4, p = idx & 15;
             const bool ok = r < B;
             const int8_t* src = xq + (size_t)(ok ? r : 0) * K + sb * SB + p * 16;
-            if (idx < XR * 16) wg::cp_async16(st + S::XQ + r * SB + swz(r, p) * 16, src, ok);
+            if (idx < XR * 16) wg::cp_async16(st + ST::XQ + r * SB + swz(r, p) * 16, src, ok);
         }
+        constexpr int PX = NG / 4;  // 16-byte pieces of a row's dx (and of its sx)
+        constexpr int NA = S::SX ? 2 : 1;
 #pragma unroll
-        for (int i = 0; i < (XR * 4 + 31) / 32; ++i) {  // XR rows x 2 pieces, dx then sx
-            const int idx = i * 32 + lane, half = idx / (2 * XR), jj = idx % (2 * XR);
-            const int r = jj >> 1, p = jj & 1;
+        for (int i = 0; i < (XR * PX * NA + 31) / 32; ++i) {  // XR rows x PX pieces, dx then sx
+            const int idx = i * 32 + lane, half = idx / (PX * XR), jj = idx % (PX * XR);
+            const int r = jj / PX, p = jj % PX;
             const bool ok = r < B;
-            const float* src = (half ? sx : dx) + (size_t)(ok ? r : 0) * G + sb * 8 + p * 4;
-            if (idx < XR * 4)
-                wg::cp_async16(st + (half ? S::SX : S::DX) + r * 32 + swz_s(r, p) * 16, src, ok);
+            const float* src = (half ? sx : dx) + (size_t)(ok ? r : 0) * G + sb * NG + p * 4;
+            const int piece = PX == 2 ? swz_s(r, p) : p;
+            if (idx < XR * PX * NA)
+                wg::cp_async16(st + (half ? ST::SX : ST::DX) + r * NG * 4 + piece * 16, src, ok);
         }
     };
 
@@ -252,56 +352,158 @@ qmm_w4a8_kernel(const Args args) {
             load_x(nxt);
         }
         wg::cp_async_commit();
-        const int st = base + (s % STAGES) * S::BYTES;
-        const uint4 dA = lds<uint4>(ring, st + S::DS + gid * 16);
-        const uint4 dB = lds<uint4>(ring, st + S::DS + (gid + 8) * 16);
-        const uint4 mA = lds<uint4>(ring, st + S::MS + gid * 16);
-        const uint4 mB = lds<uint4>(ring, st + S::MS + (gid + 8) * 16);
+        const int st = base + (s % STAGES) * ST::BYTES;
+        if constexpr (S::GR == 16) {
+            // Q6_K: a 128-element half at a time; its 16-groups q = 0..7 take the
+            // ql word q % 4 (nibble q / 4) and the qh word q % 2 (bits 2 (q / 2))
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {  // 64-element chunks: groups 2c (low nibbles), 2c+1 (high)
-            // bytes tig*8..+7 of the chunk for columns gid and gid+8 (same swizzle)
-            const int qoff = c * 32 + tig * 8;
-            const int qa = st + S::QS + swz(gid, qoff >> 4) * 16 + (qoff & 15);
-            const uint2 wA = lds<uint2>(ring, qa + gid * 128);
-            const uint2 wB = lds<uint2>(ring, qa + (gid + 8) * 128);
-            float dxv[NT][2][2], sxv[NT][2][2];  // [tile][row tig*2 + i][group of the chunk]
+            for (int hh = 0; hh < 2; ++hh) {
+                uint32_t lw[2][4], hw[2][2];
 #pragma unroll
-            for (int t = 0; t < NT; ++t)
+                for (int c = 0; c < 2; ++c) {
+                    const int r = gid + 8 * c;
 #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const int r = t * 8 + tig * 2 + i;
-                    const int off = st + r * 32 + swz_s(r, c >> 1) * 16 + (c & 1) * 8;
-                    const bool ok = r < XR && (XR > 1 || i == 0);
-                    const uint2 d = ok ? lds<uint2>(ring, off + S::DX) : make_uint2(0, 0);
-                    const uint2 q = ok ? lds<uint2>(ring, off + S::SX) : make_uint2(0, 0);
-                    dxv[t][i][0] = __uint_as_float(d.x);
-                    dxv[t][i][1] = __uint_as_float(d.y);
-                    sxv[t][i][0] = __uint_as_float(q.x);
-                    sxv[t][i][1] = __uint_as_float(q.y);
+                    for (int j = 0; j < 4; ++j)
+                        lw[c][j] = lds<uint32_t>(ring, st + ST::W + r * 128 +
+                                                 swz_l(r, hh * 4 + j) * 16 + tig * 4);
+#pragma unroll
+                    for (int j = 0; j < 2; ++j)
+                        hw[c][j] = lds<uint32_t>(ring, st + Q6K::QH + r * 64 +
+                                                 swz_h(r, hh * 2 + j) * 16 + tig * 4);
+                }
+                const uint4 dA = lds<uint4>(ring, st + ST::DS + gid * 32 + hh * 16);
+                const uint4 dB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 32 + hh * 16);
+#pragma unroll
+                for (int qq = 0; qq < 2; ++qq) {  // groups 4 qq .. 4 qq + 3 of the half
+                    float dxv[NT][2][4], sxv[NT][2][4];  // [tile][row tig*2 + i][group]
+#pragma unroll
+                    for (int t = 0; t < NT; ++t)
+#pragma unroll
+                        for (int i = 0; i < 2; ++i) {
+                            const int r = t * 8 + tig * 2 + i;
+                            const int off = st + r * NG * 4 + (hh * 2 + qq) * 16;
+                            const bool ok = r < XR && (XR > 1 || i == 0);
+                            const uint4 d = ok ? lds<uint4>(ring, off + ST::DX) : make_uint4(0, 0, 0, 0);
+                            const uint4 q = ok ? lds<uint4>(ring, off + ST::SX) : make_uint4(0, 0, 0, 0);
+                            dxv[t][i][0] = __uint_as_float(d.x);
+                            dxv[t][i][1] = __uint_as_float(d.y);
+                            dxv[t][i][2] = __uint_as_float(d.z);
+                            dxv[t][i][3] = __uint_as_float(d.w);
+                            sxv[t][i][0] = __uint_as_float(q.x);
+                            sxv[t][i][1] = __uint_as_float(q.y);
+                            sxv[t][i][2] = __uint_as_float(q.z);
+                            sxv[t][i][3] = __uint_as_float(q.w);
+                        }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int q = 4 * qq + j, hs = 2 * (q >> 1);
+                        const uint32_t a0 = ((lw[0][j] >> (4 * qq)) & 0x0F0F0F0Fu) |
+                                            (((hw[0][j & 1] >> hs) & 0x03030303u) << 4);
+                        const uint32_t a1 = ((lw[1][j] >> (4 * qq)) & 0x0F0F0F0Fu) |
+                                            (((hw[1][j & 1] >> hs) & 0x03030303u) << 4);
+                        const float da = bf16_at(dA, q), db = bf16_at(dB, q);
+                        const float ma = -32.0f * da, mb = -32.0f * db;
+#pragma unroll
+                        for (int t = 0; t < NT; ++t) {
+                            const int r = t * 8 + gid;
+                            const int xoff = hh * 128 + q * 16 + tig * 4;
+                            const int xa = st + ST::XQ + r * SB + swz(r, xoff >> 4) * 16 + (xoff & 15);
+                            const uint32_t xb = r < XR ? lds<uint32_t>(ring, xa) : 0u;
+                            int d[4];
+                            mma_s8_k16(d, a0, a1, xb);
+                            acc[t][0] += (float)d[0] * (da * dxv[t][0][j]) + ma * sxv[t][0][j];
+                            acc[t][2] += (float)d[2] * (db * dxv[t][0][j]) + mb * sxv[t][0][j];
+                            if (XR > 1) {
+                                acc[t][1] += (float)d[1] * (da * dxv[t][1][j]) + ma * sxv[t][1][j];
+                                acc[t][3] += (float)d[3] * (db * dxv[t][1][j]) + mb * sxv[t][1][j];
+                            }
+                        }
+                    }
+                }
+            }
+        } else {
+            const uint4 dA = lds<uint4>(ring, st + ST::DS + gid * 16);
+            const uint4 dB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 16);
+            uint4 mA = make_uint4(0, 0, 0, 0), mB = mA;
+            if constexpr (S::SX) {
+                mA = lds<uint4>(ring, st + ST::MS + gid * 16);
+                mB = lds<uint4>(ring, st + ST::MS + (gid + 8) * 16);
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {  // 64-element chunks: groups 2c, 2c+1
+                float dxv[NT][2][2], sxv[NT][2][2];  // [tile][row tig*2 + i][group of the chunk]
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const int r = t * 8 + tig * 2 + i;
+                        const int off = st + r * 32 + swz_s(r, c >> 1) * 16 + (c & 1) * 8;
+                        const bool ok = r < XR && (XR > 1 || i == 0);
+                        const uint2 d = ok ? lds<uint2>(ring, off + ST::DX) : make_uint2(0, 0);
+                        uint2 q = make_uint2(0, 0);
+                        if constexpr (S::SX) q = ok ? lds<uint2>(ring, off + ST::SX) : make_uint2(0, 0);
+                        dxv[t][i][0] = __uint_as_float(d.x);
+                        dxv[t][i][1] = __uint_as_float(d.y);
+                        sxv[t][i][0] = __uint_as_float(q.x);
+                        sxv[t][i][1] = __uint_as_float(q.y);
+                    }
+                uint2 wA, wB;
+                if constexpr (S::GR == 32 && !S::SX) {  // Q8_0 reads per group below
+                    wA = wB = make_uint2(0, 0);
+                } else {
+                    // Q4_K: bytes tig*8..+7 of the chunk for columns gid and gid+8
+                    const int qoff = c * 32 + tig * 8;
+                    const int qa = st + ST::W + swz(gid, qoff >> 4) * 16 + (qoff & 15);
+                    wA = lds<uint2>(ring, qa + gid * 128);
+                    wB = lds<uint2>(ring, qa + (gid + 8) * 128);
                 }
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int sh = 4 * h;
-                const uint32_t a0 = (wA.x >> sh) & 0x0F0F0F0Fu, a1 = (wB.x >> sh) & 0x0F0F0F0Fu;
-                const uint32_t a2 = (wA.y >> sh) & 0x0F0F0F0Fu, a3 = (wB.y >> sh) & 0x0F0F0F0Fu;
-                const int g = 2 * c + h;
-                const float da = bf16_at(dA, g), db = bf16_at(dB, g);
-                const float ma = bf16_at(mA, g), mb = bf16_at(mB, g);
+                for (int h = 0; h < 2; ++h) {
+                    const int g = 2 * c + h;
+                    uint32_t a0, a1, a2, a3;
+                    if constexpr (S::SX) {  // Q4_K: the chunk's low nibbles, then its high
+                        const int sh = 4 * h;
+                        a0 = (wA.x >> sh) & 0x0F0F0F0Fu;
+                        a1 = (wB.x >> sh) & 0x0F0F0F0Fu;
+                        a2 = (wA.y >> sh) & 0x0F0F0F0Fu;
+                        a3 = (wB.y >> sh) & 0x0F0F0F0Fu;
+                    } else {  // Q8_0: bytes tig*8..+7 of group g for columns gid and gid+8
+                        const int qoff = g * 32 + tig * 8;
+                        const int qa = st + ST::W + swz(gid, qoff >> 4) * 16 + (qoff & 15);
+                        const uint2 vA = lds<uint2>(ring, qa + gid * 256);
+                        const uint2 vB = lds<uint2>(ring, qa + (gid + 8) * 256);
+                        a0 = vA.x;
+                        a1 = vB.x;
+                        a2 = vA.y;
+                        a3 = vB.y;
+                    }
+                    const float da = bf16_at(dA, g), db = bf16_at(dB, g);
+                    const float ma = bf16_at(mA, g), mb = bf16_at(mB, g);
 #pragma unroll
-                for (int t = 0; t < NT; ++t) {
-                    const int r = t * 8 + gid;
-                    const int xoff = c * 64 + h * 32 + tig * 8;
-                    const int xa = st + S::XQ + r * SB + swz(r, xoff >> 4) * 16 + (xoff & 15);
-                    const uint2 xb = r < XR ? lds<uint2>(ring, xa) : make_uint2(0, 0);
-                    int d[4];
-                    mma_s8(d, a0, a1, a2, a3, xb.x, xb.y);
-                    // d: (column gid, rows tig*2, +1), (column gid+8, the same rows);
-                    // a single row has no odd row to sum
-                    acc[t][0] += (float)d[0] * (da * dxv[t][0][h]) + ma * sxv[t][0][h];
-                    acc[t][2] += (float)d[2] * (db * dxv[t][0][h]) + mb * sxv[t][0][h];
-                    if (XR > 1) {
-                        acc[t][1] += (float)d[1] * (da * dxv[t][1][h]) + ma * sxv[t][1][h];
-                        acc[t][3] += (float)d[3] * (db * dxv[t][1][h]) + mb * sxv[t][1][h];
+                    for (int t = 0; t < NT; ++t) {
+                        const int r = t * 8 + gid;
+                        const int xoff = c * 64 + h * 32 + tig * 8;
+                        const int xa = st + ST::XQ + r * SB + swz(r, xoff >> 4) * 16 + (xoff & 15);
+                        const uint2 xb = r < XR ? lds<uint2>(ring, xa) : make_uint2(0, 0);
+                        int d[4];
+                        mma_s8(d, a0, a1, a2, a3, xb.x, xb.y);
+                        // d: (column gid, rows tig*2, +1), (column gid+8, the same rows);
+                        // a single row has no odd row to sum
+                        if constexpr (S::SX) {
+                            acc[t][0] += (float)d[0] * (da * dxv[t][0][h]) + ma * sxv[t][0][h];
+                            acc[t][2] += (float)d[2] * (db * dxv[t][0][h]) + mb * sxv[t][0][h];
+                            if (XR > 1) {
+                                acc[t][1] += (float)d[1] * (da * dxv[t][1][h]) + ma * sxv[t][1][h];
+                                acc[t][3] += (float)d[3] * (db * dxv[t][1][h]) + mb * sxv[t][1][h];
+                            }
+                        } else {
+                            acc[t][0] += (float)d[0] * (da * dxv[t][0][h]);
+                            acc[t][2] += (float)d[2] * (db * dxv[t][0][h]);
+                            if (XR > 1) {
+                                acc[t][1] += (float)d[1] * (da * dxv[t][1][h]);
+                                acc[t][3] += (float)d[3] * (db * dxv[t][1][h]);
+                            }
+                        }
                     }
                 }
             }
@@ -329,10 +531,10 @@ qmm_w4a8_kernel(const Args args) {
         }
 }
 
-template <int XR, typename OutT>
+template <class S, int XR, typename OutT>
 int launch(const Args& a, int grid_x, int grid_y, cudaStream_t stream) {
-    auto kern = qmm_w4a8_kernel<XR, OutT>;
-    constexpr int smem = MM_WARPS * stages_of(XR) * Stage<XR>::BYTES;
+    auto kern = qmm_w4a8_kernel<S, XR, OutT>;
+    constexpr int smem = MM_WARPS * stages_of<S, XR>() * Stage<S, XR>::BYTES;
     // opt in to the ring's shared memory once per instantiation and card (not
     // a stream operation; internal linkage, so no other library shares the flag)
     static bool sized[64] = {};
@@ -358,9 +560,28 @@ int launch(const Args& a, int grid_x, int grid_y, cudaStream_t stream) {
     return e != cudaSuccess ? (int)e : crabml_launch_status();
 }
 
-template <int XR>
+template <class S, int XR>
 int launch_out(const Args& a, int out_bf16, int gx, int gy, cudaStream_t s) {
-    return out_bf16 ? launch<XR, bf16>(a, gx, gy, s) : launch<XR, float>(a, gx, gy, s);
+    return out_bf16 ? launch<S, XR, bf16>(a, gx, gy, s) : launch<S, XR, float>(a, gx, gy, s);
+}
+
+// the quantizer at the scheme's group, chained to the scheme's matmul
+template <class S>
+int run(const void* x, void* xq, void* dx, void* sx, const void* q0, const void* q1,
+        const void* dsub, const void* msub, void* out, int out_bf16, const void* plane_idx,
+        int B, int N, int K, int grid_x, int grid_y, int x_rows, void* stream) {
+    if (x_rows != 1 && x_rows != 8 && x_rows != 16) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    quantize_kernel<S::GR><<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
+        (const bf16*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
+    const int err = crabml_launch_status();
+    if (err) return err;
+    const Args a{(const int8_t*)xq, (const float*)dx, (const float*)sx, (const uint8_t*)q0,
+                 (const uint8_t*)q1, (const bf16*)dsub, (const bf16*)msub, out,
+                 (const int*)plane_idx, B, N, K};
+    if (x_rows == 1) return launch_out<S, 1>(a, out_bf16, grid_x, grid_y, s);
+    if (x_rows == 8) return launch_out<S, 8>(a, out_bf16, grid_x, grid_y, s);
+    return launch_out<S, 16>(a, out_bf16, grid_x, grid_y, s);
 }
 
 }  // namespace
@@ -376,15 +597,25 @@ extern "C" int qmm_w4a8_bf16(const void* x, void* xq, void* dx, void* sx,
                              const void* qs, const void* dsub, const void* msub,
                              void* out, int out_bf16, const void* plane_idx, int B, int N,
                              int K, int grid_x, int grid_y, int x_rows, void* stream) {
-    if (x_rows != 1 && x_rows != 8 && x_rows != 16) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    quantize_kernel<<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
-        (const bf16*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
-    const int err = crabml_launch_status();
-    if (err) return err;
-    const Args a{(const int8_t*)xq, (const float*)dx, (const float*)sx, (const uint8_t*)qs,
-                 (const bf16*)dsub, (const bf16*)msub, out, (const int*)plane_idx, B, N, K};
-    if (x_rows == 1) return launch_out<1>(a, out_bf16, grid_x, grid_y, s);
-    if (x_rows == 8) return launch_out<8>(a, out_bf16, grid_x, grid_y, s);
-    return launch_out<16>(a, out_bf16, grid_x, grid_y, s);
+    return run<Q4K>(x, xq, dx, sx, qs, nullptr, dsub, msub, out, out_bf16, plane_idx, B, N, K,
+                    grid_x, grid_y, x_rows, stream);
+}
+
+// The Q8_0 form: qs (N, K) i8, dsub (N, K/32) bf16; scratch dx, sx (B,
+// K/32). Otherwise as qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q8_0_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                  const void* dsub, void* out, int out_bf16, int B, int N, int K,
+                                  int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q80>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
+                    grid_x, grid_y, x_rows, stream);
+}
+
+// The Q6_K form: ql (N, K/2) u8, qh (N, K/4) u8, dsub (N, K/16) bf16; scratch
+// dx, sx (B, K/16): the activations quantize per 16-group. Otherwise as
+// qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q6k_bf16(const void* x, void* xq, void* dx, void* sx, const void* ql,
+                                 const void* qh, const void* dsub, void* out, int out_bf16, int B,
+                                 int N, int K, int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q6K>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
+                    grid_x, grid_y, x_rows, stream);
 }

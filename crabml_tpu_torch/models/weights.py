@@ -15,10 +15,13 @@ A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 before the router product) and the stacked experts "wgu_exps" (E, 2*HD, D)
 and "ffn_down_exps" (E, D, HD).
 
-Q4_K matmul weights take the kernel planes of quant/qtensor.py, with scale
-planes in the compute dtype's width (bfloat16 scales under bfloat16 compute,
-as the JAX Runner does; float32 keeps them exact). q|k|v and gate|up fuse at
-load along the output axis, so a layer issues one matmul per group.
+Q4_K, Q8_0 and Q6_K matmul weights take the kernel planes of
+quant/qtensor.py, with scale planes in the compute dtype's width (bfloat16
+scales under bfloat16 compute, as the JAX Runner does; float32 keeps them
+exact). q|k|v and gate|up fuse at
+load along the output axis, so a layer issues one matmul per group (where the
+group's tensors share one kind). A mixture of experts takes Q4_K experts (or
+F32 / F16): the grouped kernels of the other kinds are not ported yet.
 `augment_w8_weights` attaches the W8 prefill planes within a byte budget.
 """
 
@@ -32,7 +35,7 @@ from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
 from ..quant.codecs import dequantize
 from ..ops.cuda.gemm_quant import W8_KSC, augment_w8, w8_eligible
-from ..quant.qtensor import QTensor, cat_rows, to_kernel_layout, to_planar
+from ..quant.qtensor import KERNEL_KINDS, QTensor, cat_rows, to_kernel_layout, to_planar
 from .config import ModelConfig
 
 _LAYER_TENSORS = {  # port name -> GGUF tensor name pattern
@@ -90,9 +93,15 @@ def _layer(mats: dict[str, QTensor], others: dict[str, torch.Tensor], scale_dtyp
     """Canonical per-layer planes -> kernel layout, with q|k|v and gate|up
     fused (the experts' gate|up expert by expert). `others`: the norms and,
     for a mixture of experts, the router."""
+    moe = "ffn_down_exps" in mats
+    if moe:
+        for n in _MOE_FFN:
+            if mats[n].kind in KERNEL_KINDS and mats[n].kind != GGMLType.Q4_K:
+                raise UnsupportedError(
+                    f"{mats[n].kind.name} experts: the port's mixture of experts takes Q4_K, "
+                    "F32 or F16 experts")
     mats = {n: to_kernel_layout(q, scale_dtype) for n, q in mats.items()}
     out = dict(others)
-    moe = "ffn_down_exps" in mats
     groups = ((("wq", "wk", "wv"), "wqkv"),
               (("ffn_gate_exps", "ffn_up_exps"), "wgu_exps") if moe
               else (("ffn_gate", "ffn_up"), "wgu"))

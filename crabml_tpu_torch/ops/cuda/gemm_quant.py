@@ -1,23 +1,27 @@
-"""Q4_K quantized matmuls: `qmm_q4k` (prefill rows), `qmm_w4a8` (decode
-rows), `qmm_w8` (prefill rows on the W8 planes) and the grouped forms
-`qmm_q4k_grouped` / `qmm_w8_grouped` (rows sorted by expert, each segment
-against its own expert's planes), with `quantize_activation`, the W8 planes
+"""Quantized matmuls: `qmm_q4k`, `qmm_q8_0`, `qmm_q6k` (prefill rows, one
+per weight scheme), `qmm_w4a8` (decode rows, every scheme), `qmm_w8`
+(prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
+`qmm_w8_grouped` (rows sorted by expert, each segment against its own
+expert's planes), with `quantize_activation`, the W8 planes
 (`w8_planes_from_weights`, `augment_w8`) and the row routing of the JAX
 package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
-csrc/qmm_q4k.cu (launchers `_run` and `_run_grouped`), `_qmm_w4a8_kernel`
-becomes csrc/qmm_w4a8.cu (its launch shape is `w4a8_plan`) and
-`_qmm_w8_kernel` becomes csrc/qmm_w8.cu (launchers `_run_w8` and
-`_run_grouped_w8`); each source holds its note on
+csrc/qmm_q4k.cu, csrc/qmm_q8_0.cu and csrc/qmm_q6k.cu, one weight source of
+the tile loop each (launchers `_run` and, for Q4_K, `_run_grouped`),
+`_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per scheme (its
+launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
+(launchers `_run_w8` and `_run_grouped_w8`); each source holds its note on
 what bounds it on the H100 and how the design answers it. All take the port's
 own weight layout (quant/qtensor.py kernel planes), not the TPU's m-tiled one.
+The int8-activation forms quantize x per scale group of the scheme, as the
+JAX package does (`scheme.gr`): 32 for Q4_K and Q8_0, 16 for Q6_K.
 
 Routing keeps the TPU's structure, by the row count padded up to a multiple
 of 8: at most `W4A8_MAX_ROWS` rows take the int8-activation kernel, at least
 `W8_MIN_ROWS` take the W8 kernel where the weight carries W8 planes, and
-everything between takes the bf16 dequant kernel. Both values were tuned on a
-TPU v5e and stand until the card's own sweep sets them.
+everything between takes the scheme's bf16 dequant kernel. Both values were
+tuned on a TPU v5e and stand until the card's own sweep sets them.
 
 On a CPU tensor each wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. It never falls back.
@@ -33,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ...gguf.constants import GGMLType
-from ...quant.qtensor import QTensor, dequantize, nibbles, plane_of
+from ...quant.qtensor import KERNEL_KINDS, QTensor, dequantize, nibbles, plane_of, q6k_values
 from . import _build
 
 W4A8_MAX_ROWS = 16  # TPU-tuned (v5e decode_loop sweep); to be set on the card
@@ -41,6 +45,7 @@ W8_MIN_ROWS = 256  # TPU-tuned as well: padded rows from which the W8 planes tak
 W8_KSC = 512  # k elements per W8 scale chunk
 ROW_PAD = 8  # the routing counts rows padded up to this (the JAX package's B_PAD)
 GROUP = 32  # Q4_K scale group: one dsub/msub per 32 elements
+SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16}  # elements a dsub
 W4A8_COLS = 16  # output columns of a qmm_w4a8 block: the M of one mma tile
 W4A8_WARPS = 4  # warps of a block; they split k by superblock
 W4A8_SB = 256  # k depth of one ring stage: a Q4_K superblock, 8 scale groups
@@ -49,14 +54,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def quantize_activation(x2: torch.Tensor):
-    """Per-(row, 32-group) symmetric int8 activations.
+def quantize_activation(x2: torch.Tensor, group: int = GROUP):
+    """Per-(row, `group`) symmetric int8 activations.
 
-    x2 (B, K) in the compute dtype -> xq i8 (B, K), dx f32 (B, K/32) scales,
-    sx f32 (B, K/32) = dx * sum(xq) per group. Rounds half to even
-    (torch.round), as jnp.round does in the JAX package."""
+    x2 (B, K) in the compute dtype -> xq i8 (B, K), dx f32 (B, K/group)
+    scales, sx f32 (B, K/group) = dx * sum(xq) per group. Rounds half to
+    even (torch.round), as jnp.round does in the JAX package."""
     B, K = x2.shape
-    xg = x2.float().reshape(B, K // GROUP, GROUP)
+    xg = x2.float().reshape(B, K // group, group)
     amax = xg.abs().amax(dim=-1)
     # divide by a tensor: on CUDA, PyTorch turns division by a Python scalar
     # into a multiply by its reciprocal, which rounds differently from the
@@ -77,27 +82,71 @@ def qmm_q4k_plain(x2, qs, dsub, msub) -> torch.Tensor:
     return x2.float() @ w.to(x2.dtype).float().t()
 
 
+def qmm_q8_0_plain(x2, qs, dsub) -> torch.Tensor:
+    """Plain version of qmm_q8_0: w = qs*dsub in float32 (exact: an int8
+    times a bf16 scale has at most 15 significant bits), rounded to x2's
+    dtype, then x2 @ w^T with float32 accumulation -> (rows, m) f32."""
+    m = qs.shape[0]
+    w = (qs.float().reshape(m, -1, 32) * dsub.float()[..., None]).reshape(m, -1)
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def qmm_q6k_plain(x2, ql, qh, dsub) -> torch.Tensor:
+    """Plain version of qmm_q6k: w = (val - 32)*dsub in float32 (exact with a
+    bf16 scale: at most 14 significant bits), rounded to x2's dtype, then
+    x2 @ w^T with float32 accumulation -> (rows, m) f32."""
+    m = ql.shape[0]
+    q = q6k_values(ql, qh).float() - 32
+    w = (q.reshape(m, -1, 16) * dsub.float()[..., None]).reshape(m, -1)
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def _w4a8_dense_plain(x2, vals, dsub, msub, group) -> torch.Tensor:
+    """quantize_activation at `group`, exact integer group dots of xq with
+    the integer weight values `vals` (m, k) (float32 holds them exactly:
+    |sum| < 2^24), then dsub*dx per group, plus msub*sx where the scheme has
+    a minimum -> (rows, m) f32."""
+    xq, dx, sx = quantize_activation(x2, group)
+    B, K = xq.shape
+    m = vals.shape[0]
+    G = K // group
+    v = vals.float().reshape(m, G, group).permute(1, 2, 0)  # (G, group, m)
+    xg = xq.float().reshape(B, G, group).permute(1, 0, 2)  # (G, B, group)
+    ig = torch.bmm(xg, v).permute(1, 2, 0)  # (B, m, G) integer dots
+    out = (ig * dx[:, None, :] * dsub.float()[None]).sum(-1)
+    return out if msub is None else out + sx @ msub.float().t()
+
+
+def qmm_w4a8_q8_0_plain(x2, qs, dsub) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q8_0 planes: the int8 weights as they
+    are, activations per 32-group, no minimum term -> (rows, m) f32."""
+    return _w4a8_dense_plain(x2, qs, dsub, None, 32)
+
+
+def qmm_w4a8_q6k_plain(x2, ql, qh, dsub) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q6_K planes: the 6-bit values 0..63,
+    activations per 16-group, and the offset as a minimum msub = -32*dsub
+    (exact) times sx -> (rows, m) f32."""
+    return _w4a8_dense_plain(x2, q6k_values(ql, qh), dsub, -32.0 * dsub.float(), 16)
+
+
 def qmm_w4a8_plain(x2, qs, dsub, msub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8: quantize_activation, exact integer group
     dots (float32 holds them exactly: |sum| < 2^24), then dsub*dx per group
     plus msub*sx -> (rows, m) f32. With `plane` (rows,) the planes are stacks
     (E, m, ...) and row b multiplies plane[b]: the planes are gathered per
     row, with no value read on the host."""
+    if plane is None:
+        return _w4a8_dense_plain(x2, nibbles(qs), dsub, msub, GROUP)
     xq, dx, sx = quantize_activation(x2)
     B, K = xq.shape
     m = qs.shape[-2]
     G = K // GROUP
-    if plane is not None:
-        plane = plane.long()
-        vals = nibbles(qs[plane]).float().reshape(B, m, G, GROUP)
-        ig = torch.einsum("bgi,bmgi->bmg", xq.float().reshape(B, G, GROUP), vals)
-        out = (ig * dx[:, None, :] * dsub[plane].float()).sum(-1)
-        return out + torch.einsum("bg,bmg->bm", sx, msub[plane].float())
-    vals = nibbles(qs).float().reshape(m, G, GROUP).permute(1, 2, 0)  # (G, 32, m)
-    xg = xq.float().reshape(B, G, GROUP).permute(1, 0, 2)  # (G, B, 32)
-    ig = torch.bmm(xg, vals).permute(1, 2, 0)  # (B, m, G) integer dots
-    out = (ig * dx[:, None, :] * dsub.float()[None]).sum(-1)
-    return out + sx @ msub.float().t()
+    plane = plane.long()
+    vals = nibbles(qs[plane]).float().reshape(B, m, G, GROUP)
+    ig = torch.einsum("bgi,bmgi->bmg", xq.float().reshape(B, G, GROUP), vals)
+    out = (ig * dx[:, None, :] * dsub[plane].float()).sum(-1)
+    return out + torch.einsum("bg,bmg->bm", sx, msub[plane].float())
 
 
 def w8_planes_from_weights(w: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -123,9 +172,10 @@ def w8_planes_from_weights(w: torch.Tensor) -> dict[str, torch.Tensor]:
 
 
 def w8_eligible(qt: QTensor) -> bool:
-    """Whether augment_w8 attaches planes: a Q4_K kernel-layout matmul whose
-    row count is a multiple of 256 (per expert for a stack)."""
-    return qt.kind == GGMLType.Q4_K and qt.kernel_layout and qt.m % 256 == 0
+    """Whether augment_w8 attaches planes: a kernel-layout matmul (Q4_K,
+    Q8_0 or Q6_K, as the JAX augment_w8 takes every scheme) whose row count
+    is a multiple of 256 (per expert for a stack)."""
+    return qt.kind in KERNEL_KINDS and qt.kernel_layout and qt.m % 256 == 0
 
 
 def augment_w8(qt: QTensor) -> QTensor:
@@ -194,6 +244,24 @@ def _lib_w4a8():
                         _I, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
+def _lib_q8_0():
+    return _build.entry("qmm_q8_0", "qmm_q8_0_bf16", _P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
+def _lib_q6k():
+    return _build.entry("qmm_q6k", "qmm_q6k_bf16", _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
+def _lib_w4a8_of(kind: GGMLType):
+    """The int8-activation entry of a scheme other than Q4_K: x, the
+    quantizer's scratch, the weight planes (two for Q6_K), out."""
+    if kind == GGMLType.Q8_0:
+        return _build.entry("qmm_w4a8", "qmm_w4a8_q8_0_bf16", _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _I, _P)
+    return _build.entry("qmm_w4a8", "qmm_w4a8_q6k_bf16", _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _I, _I, _I, _P)
+
+
 def _lib_w8():
     return _build.entry("qmm_w8", "qmm_w8_bf16", _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
@@ -219,65 +287,108 @@ class W4A8Plan:
     k_slices: tuple[tuple[int, ...], ...]  # per warp, its superblocks in order
     smem_bytes: int  # the rings of the block's warps (dynamic shared memory)
     planes: bool  # one row a block, with that row's plane
+    group: int  # k elements of a scale group: one mma k step (32, or 16 for Q6_K)
 
 
-def w4a8_stage_bytes(x_rows: int) -> int:
-    """One ring stage: 16 columns' nibbles (2 KB) and dsub / msub (512 B),
-    then per row of x its int8 values (256 B) and dx / sx (64 B)."""
-    return W4A8_COLS * W4A8_SB // 2 + 2 * W4A8_COLS * 8 * 2 + x_rows * (W4A8_SB + 2 * 8 * 4)
+# per scheme, one ring stage's bytes (csrc/qmm_w4a8.cu's scheme traits): the
+# 16 columns' weights of a superblock, their scales, and per row of x its
+# scales beside the 256 int8 values: dx and sx a group (dx alone for Q8_0)
+_W4A8_STAGE = {
+    GGMLType.Q4_K: (W4A8_COLS * W4A8_SB // 2, 2 * W4A8_COLS * 8 * 2, 2 * 8 * 4),
+    GGMLType.Q8_0: (W4A8_COLS * W4A8_SB, W4A8_COLS * 8 * 2, 8 * 4),
+    GGMLType.Q6_K: (W4A8_COLS * W4A8_SB * 3 // 4, W4A8_COLS * 16 * 2, 2 * 16 * 4),
+}
+_SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserved a block
+
+
+def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
+    """One ring stage: the 16 columns' weights of a superblock (Q4_K: 2 KB
+    of nibbles; Q8_0: 4 KB of int8; Q6_K: 3 KB of ql | qh) and their scales
+    (Q4_K: dsub and msub, 512 B; Q8_0: 256 B; Q6_K: 16 groups, 512 B), then
+    per row of x its int8 values (256 B) and scales."""
+    w, sc, xs = _W4A8_STAGE[kind]
+    return w + sc + x_rows * (W4A8_SB + xs)
+
+
+def w4a8_stages(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
+    """Ring depth, as csrc/qmm_w4a8.cu's `stages_of`: the most stages, up to
+    four, with which two blocks (the rings, the warps' partial sums and the
+    reserved kilobyte each) still share an SM."""
+    red = W4A8_WARPS * 4 * -(-x_rows // 8) * 32 * 4
+    for stages in (4, 3):
+        if 2 * (W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind) + red + 1024) \
+                <= _SMEM_PER_SM:
+            return stages
+    return 2
 
 
 @functools.lru_cache(maxsize=None)
-def w4a8_plan(rows: int, m: int, k: int, planes: bool = False) -> W4A8Plan:
+def w4a8_plan(rows: int, m: int, k: int, planes: bool = False,
+              kind: GGMLType = GGMLType.Q4_K) -> W4A8Plan:
     """The launch for `rows` (1..16) activation rows against an (m, k)
-    weight, or against a row's own plane of a stack when `planes`. A
-    function of the shapes alone: it reads nothing on the device, so a CUDA
-    graph can capture the launch. Memoized: the decode step asks for the
-    same few plans at every call.
-
-    Four ring stages (three at 16 rows, where four would leave one block
-    an SM), as csrc/qmm_w4a8.cu's `stages_of`."""
+    weight of scheme `kind`, or against a row's own plane of a stack when
+    `planes`. A function of the shapes alone: it reads nothing on the
+    device, so a CUDA graph can capture the launch. Memoized: the decode
+    step asks for the same few plans at every call."""
     per_block = 1 if planes else rows
     x_rows = 1 if per_block == 1 else 8 if per_block <= 8 else 16
     n_tiles = -(-x_rows // 8)
-    stages = 4 if x_rows <= 8 else 3
+    stages = w4a8_stages(x_rows, kind)
     nsb = k // W4A8_SB
     return W4A8Plan(
         grid=(-(-m // W4A8_COLS), rows if planes else 1), x_rows=x_rows, n_tiles=n_tiles,
         stages=stages,
         k_slices=tuple(tuple(range(w, nsb, W4A8_WARPS)) for w in range(W4A8_WARPS)),
-        smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows), planes=planes)
+        smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind), planes=planes,
+        group=SCHEME_GROUP[kind])
 
 
 def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int) -> dict:
     """What block (bx, by) of `plan` reads and writes, as csrc/qmm_w4a8.cu's
     copy predicates and store decide it (this is their mirror, for the
     tests): `rows` the activation rows it loads and writes, `columns` the
-    weight rows, `groups` per warp the 32-element scale groups it sums."""
+    weight rows, `groups` per warp the scale groups (`plan.group` elements
+    each) it sums."""
     real = range(by, by + 1) if plan.planes else range(rows)
     col0 = bx * W4A8_COLS
+    per = W4A8_SB // plan.group
     return {
         "rows": real, "columns": range(col0, min(col0 + W4A8_COLS, m)),
-        "groups": [[sb * 8 + g for sb in ks for g in range(8)] for ks in plan.k_slices],
+        "groups": [[sb * per + g for sb in ks for g in range(per)] for ks in plan.k_slices],
     }
 
 
-def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False):
+# per scheme, its kernel planes: name -> (k elements a plane element, dtype)
+_KERNEL_PLANES = {
+    GGMLType.Q4_K: {"qs": (2, torch.uint8), "dsub": (32, torch.bfloat16),
+                    "msub": (32, torch.bfloat16)},
+    GGMLType.Q8_0: {"qs": (1, torch.int8), "dsub": (32, torch.bfloat16)},
+    GGMLType.Q6_K: {"ql": (2, torch.uint8), "qh": (4, torch.uint8),
+                    "dsub": (16, torch.bfloat16)},
+}
+
+
+def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False,
+                  kind: GGMLType = GGMLType.Q4_K):
+    """Checks that `qt` holds `kind`'s kernel planes for a k-deep product;
+    returns them in the order the C entries take them."""
     p = qt.planes
-    _build.require(qt.kind == GGMLType.Q4_K and qt.kernel_layout,
-                   f"{qt.kind.name}: the CUDA matmuls take Q4_K kernel planes")
+    _build.require(qt.kind == kind and qt.kernel_layout,
+                   f"{qt.kind.name}: this matmul takes {kind.name} kernel planes")
     _build.require(qt.stacked == stacked,
                    f"weight of shape {qt.shape}: expected {'a stack of planes' if stacked else 'one plane'}")
     _build.require(qt.k == k and k % 256 == 0, f"k={k} vs weight {qt.shape}")
     lead = qt.shape[:-1]
-    _build.require(p["qs"].shape == (*lead, k // 2)
-                   and p["dsub"].shape == p["msub"].shape == (*lead, k // GROUP),
+    spec = _KERNEL_PLANES[kind]
+    _build.require(all(n in p and p[n].shape == (*lead, k // per) for n, (per, _) in spec.items()),
                    f"weight planes do not match the shape {qt.shape}")
-    _build.require(p["dsub"].dtype == torch.bfloat16 and p["msub"].dtype == torch.bfloat16,
-                   "the CUDA matmuls take bfloat16 scale planes")
-    for t in (p["qs"], p["dsub"], p["msub"]):
+    _build.require(all(p[n].dtype == dt for n, (_, dt) in spec.items()),
+                   "the CUDA matmuls take " + ", ".join(f"{dt} {n}" for n, (_, dt) in spec.items()))
+    planes = [p[n] for n in spec]
+    for t in planes:
         _build.require(t.device == device and t.is_contiguous(),
                        "weight planes must be contiguous on the activations' card")
+    return planes
 
 
 def _check_w8(qt: QTensor, k: int, device: torch.device, stacked: bool = False):
@@ -316,62 +427,114 @@ def _out_bf16(out_dtype: torch.dtype) -> int:
     return int(out_dtype == torch.bfloat16)
 
 
-def qmm_q4k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the dequant kernel; float32
-    sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q4k_plain(x2, p["qs"], p["dsub"], p["msub"]).to(out_dtype)
+def _dequant_matmul(name: str, lib_of, kind: GGMLType, x2: torch.Tensor, qt: QTensor,
+                    out_dtype) -> torch.Tensor:
+    """Launch the dequant kernel `name` of scheme `kind` on the card."""
     rows, k = x2.shape
-    _check_weight(qt, k, x2.device)
-    _build.require(x2.dtype == torch.bfloat16, f"qmm_q4k takes bfloat16 activations, got {x2.dtype}")
+    planes = _check_weight(qt, k, x2.device, kind=kind)
+    _build.require(x2.dtype == torch.bfloat16, f"{name} takes bfloat16 activations, got {x2.dtype}")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
+                   f"{name} copies the weight planes 16 bytes at a time: align them to 16")
     out_bf16 = _out_bf16(out_dtype)
     x2 = _aligned(x2)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=x2.device)
-    lib, fn = _lib_q4k()
-    _build.launches["qmm_q4k"] += 1
-    err = fn(x2.data_ptr(), p["qs"].data_ptr(), p["dsub"].data_ptr(), p["msub"].data_ptr(),
-             out.data_ptr(), out_bf16, rows, qt.m, k, _build.stream_ptr(x2))
-    _build.check(lib, err, "qmm_q4k")
+    lib, fn = lib_of()
+    _build.launches[name] += 1
+    err = fn(x2.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16, rows,
+             qt.m, k, _build.stream_ptr(x2))
+    _build.check(lib, err, name)
     return out
+
+
+def qmm_q4k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """x2 (rows, k) @ W^T -> (rows, m) through the Q4_K dequant kernel;
+    float32 sums, rounded once to `out_dtype`."""
+    p = qt.planes
+    if not x2.is_cuda:
+        return qmm_q4k_plain(x2, p["qs"], p["dsub"], p["msub"]).to(out_dtype)
+    return _dequant_matmul("qmm_q4k", _lib_q4k, GGMLType.Q4_K, x2, qt, out_dtype)
+
+
+def qmm_q8_0(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """x2 (rows, k) @ W^T -> (rows, m) through the Q8_0 dequant kernel;
+    float32 sums, rounded once to `out_dtype`."""
+    p = qt.planes
+    if not x2.is_cuda:
+        return qmm_q8_0_plain(x2, p["qs"], p["dsub"]).to(out_dtype)
+    return _dequant_matmul("qmm_q8_0", _lib_q8_0, GGMLType.Q8_0, x2, qt, out_dtype)
+
+
+def qmm_q6k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """x2 (rows, k) @ W^T -> (rows, m) through the Q6_K dequant kernel;
+    float32 sums, rounded once to `out_dtype`."""
+    p = qt.planes
+    if not x2.is_cuda:
+        return qmm_q6k_plain(x2, p["ql"], p["qh"], p["dsub"]).to(out_dtype)
+    return _dequant_matmul("qmm_q6k", _lib_q6k, GGMLType.Q6_K, x2, qt, out_dtype)
+
+
+# the int8-activation form of each scheme: its launch counter
+W4A8_FORMS = {GGMLType.Q4_K: "qmm_w4a8", GGMLType.Q8_0: "qmm_w4a8_q8_0",
+              GGMLType.Q6_K: "qmm_w4a8_q6k"}
+
+
+def _w4a8_plain(x2, qt: QTensor, plane):
+    p = qt.planes
+    if qt.kind == GGMLType.Q8_0:
+        return qmm_w4a8_q8_0_plain(x2, p["qs"], p["dsub"])
+    if qt.kind == GGMLType.Q6_K:
+        return qmm_w4a8_q6k_plain(x2, p["ql"], p["qh"], p["dsub"])
+    return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane)
 
 
 def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
              plane: torch.Tensor | None = None) -> torch.Tensor:
-    """x2 (rows <= 16, k) @ W^T -> (rows, m): activations quantize to int8
-    per 32-group in a first kernel, chained to the int8 x 4-bit kernel by
+    """x2 (rows <= 16, k) @ W^T -> (rows, m), W of any kernel-layout scheme:
+    activations quantize to int8 per scale group of the scheme (32, or 16
+    for Q6_K) in a first kernel, chained to the scheme's integer matmul by
     programmatic dependent launch; float32 sums, rounded once to
-    `out_dtype`. With `plane` (rows,) int32, `qt` is a stack (E, m, k) and
-    row b multiplies plane[b], read on the device. The launch is
-    `w4a8_plan`'s."""
-    p = qt.planes
+    `out_dtype`. With `plane` (rows,) int32 (Q4_K only), `qt` is a stack
+    (E, m, k) and row b multiplies plane[b], read on the device. The launch
+    is `w4a8_plan`'s; each scheme counts its launches under its
+    `W4A8_FORMS` name."""
+    kind = qt.kind
+    _build.require(plane is None or kind == GGMLType.Q4_K,
+                   "the plane-per-row form takes Q4_K planes only")
     if not x2.is_cuda:
-        return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane).to(out_dtype)
+        return _w4a8_plain(x2, qt, plane).to(out_dtype)
     rows, k = x2.shape
-    _check_weight(qt, k, x2.device, stacked=plane is not None)
+    _build.require(kind in W4A8_FORMS, f"{kind.name}: qmm_w4a8 takes Q4_K, Q8_0 or Q6_K planes")
+    planes = _check_weight(qt, k, x2.device, stacked=plane is not None, kind=kind)
     if plane is not None:
         _build.require(plane.dtype == torch.int32 and plane.shape == (rows,)
                        and plane.device == x2.device and plane.is_contiguous(),
                        "plane: one int32 per row, on the activations' card")
     _build.require(1 <= rows <= W4A8_MAX_ROWS, f"qmm_w4a8 takes 1..{W4A8_MAX_ROWS} rows, got {rows}")
     _build.require(x2.dtype == torch.bfloat16, f"qmm_w4a8 takes bfloat16 activations, got {x2.dtype}")
-    _build.require(all(p[n].data_ptr() % 16 == 0 for n in ("qs", "dsub", "msub")),
+    _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
                    "qmm_w4a8 copies the weight planes 16 bytes at a time: align them to 16")
     out_bf16 = _out_bf16(out_dtype)
     x2 = _aligned(x2)
     dev = x2.device
     xq = torch.empty(rows, k, dtype=torch.int8, device=dev)
-    dx = torch.empty(rows, k // GROUP, dtype=torch.float32, device=dev)
+    dx = torch.empty(rows, k // SCHEME_GROUP[kind], dtype=torch.float32, device=dev)
     sx = torch.empty_like(dx)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=dev)
-    plan = w4a8_plan(rows, qt.m, k, planes=plane is not None)
-    lib, fn = _lib_w4a8()
-    _build.launches["qmm_w4a8"] += 1
-    err = fn(x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr(), p["qs"].data_ptr(),
-             p["dsub"].data_ptr(), p["msub"].data_ptr(), out.data_ptr(), out_bf16,
-             None if plane is None else plane.data_ptr(), rows, qt.m, k, *plan.grid,
-             plan.x_rows, _build.stream_ptr(x2))
-    _build.check(lib, err, "qmm_w4a8")
+    plan = w4a8_plan(rows, qt.m, k, planes=plane is not None, kind=kind)
+    name = W4A8_FORMS[kind]
+    scratch = (x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr())
+    if kind == GGMLType.Q4_K:
+        lib, fn = _lib_w4a8()
+        _build.launches[name] += 1
+        err = fn(*scratch, *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
+                 None if plane is None else plane.data_ptr(), rows, qt.m, k, *plan.grid,
+                 plan.x_rows, _build.stream_ptr(x2))
+    else:
+        lib, fn = _lib_w4a8_of(kind)
+        _build.launches[name] += 1
+        err = fn(*scratch, *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16, rows,
+                 qt.m, k, *plan.grid, plan.x_rows, _build.stream_ptr(x2))
+    _build.check(lib, err, name)
     return out
 
 
@@ -459,32 +622,42 @@ def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
     return qmm_q4k_grouped(xs, qt, offsets, xs.dtype)
 
 
-def route(rows: int, has_w8: bool) -> str:
+# the dequant kernel of each scheme
+DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k"}
+
+
+def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
     """The kernel the JAX package's qmatmul_pallas picks under its `w4a8`
     backend: by the row count padded up to a multiple of 8, so the W8 planes
-    take over from 249 real rows."""
+    take over from 249 real rows. Returns the wrapper's name: qmm_w4a8
+    (every scheme), qmm_w8, or the scheme's dequant kernel."""
     padded = -(-rows // ROW_PAD) * ROW_PAD
     if padded <= W4A8_MAX_ROWS:
         return "qmm_w4a8"
     if has_w8 and padded >= W8_MIN_ROWS:
         return "qmm_w8"
-    return "qmm_q4k"
+    return DEQUANT_FORMS[kind]
 
 
-def qmatmul_q4k(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x (..., k) @ W^T -> (..., m) in x's dtype, routed by row count and by
-    whether `qt` carries W8 planes (`route`). The kernels write x's dtype
+def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (..., k) @ W^T -> (..., m) in x's dtype for a kernel-layout weight
+    (Q4_K, Q8_0 or Q6_K), routed by row count, by whether `qt` carries W8
+    planes and by its scheme (`route`). The kernels write x's dtype
     themselves, so no cast follows them.
 
     Activations quantize from x already in the compute dtype, as the JAX
     package's qmatmul_pallas does (gemm_quant.py:941,959)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qt.k)
-    kernel = route(x2.shape[0], "w8" in qt.planes)
+    kernel = route(x2.shape[0], "w8" in qt.planes, qt.kind)
     if kernel == "qmm_w4a8":
         out = qmm_w4a8(x2, qt, x.dtype)
     elif kernel == "qmm_w8":
         out = qmm_w8(x2, qt, x.dtype)
+    elif kernel == "qmm_q8_0":
+        out = qmm_q8_0(x2, qt, x.dtype)
+    elif kernel == "qmm_q6k":
+        out = qmm_q6k(x2, qt, x.dtype)
     else:
         out = qmm_q4k(x2, qt, x.dtype)
     return out.reshape(*lead, qt.m)

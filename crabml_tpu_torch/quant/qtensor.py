@@ -14,6 +14,15 @@ experts with a leading expert axis on every plane, as named torch planes:
   superblock scales folded into `dsub = d*sc` and `msub = -dmin*mn`, one per
   32 elements, so w = val*dsub + msub. Rows stay in natural order: the CUDA
   kernels index them directly.
+- Q8_0, canonical planes: `qs` i8 (m, k) and `d` f32 (m, k/32); kernel
+  planes `qs` unchanged and `dsub` = d, one per 32, so w = qs*dsub.
+- Q6_K, canonical planes: `ql` u8 (m, k/2) and `qh` u8 (m, k/4) in ggml
+  order, `sc` i8 (m, k/16), `d` f32 (m, k/256); kernel planes `ql`, `qh`
+  unchanged and `dsub` = d*sc, one per 16, so w = (val - 32)*dsub. The bit
+  order is per 128-element half, not per 64-element chunk: byte j of the
+  half's 64 `ql` bytes holds element j in its low nibble and j + 64 in its
+  high nibble, and bits 2s, 2s + 1 of byte j of its 32 `qh` bytes are the
+  top two bits of element 32s + j (`q6k_values`).
 - W8 prefill planes, optional beside the kernel planes (attached by
   ops/cuda/gemm_quant.py::augment_w8): `w8` i8 (m, kpad8), k contiguous and
   zero-padded to a multiple of 512, and `dw` f32 (m, kpad8/512), one scale per
@@ -33,6 +42,10 @@ import torch
 
 from ..errors import UnsupportedError
 from ..gguf.constants import GGMLType, GGML_BLOCK_SIZES, QK_K
+
+
+# the kinds that have kernel planes and CUDA matmuls
+KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K)
 
 
 @dataclass
@@ -82,6 +95,20 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
     if typ in (GGMLType.F32, GGMLType.F16):
         dt = torch.float32 if typ == GGMLType.F32 else torch.float16
         planes = {"w": _u8(raw, device).view(dt).reshape(m, k)}
+    elif typ == GGMLType.Q8_0:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 34)
+        planes = {
+            "qs": b[:, 2:34].contiguous().view(torch.int8).reshape(m, k),
+            "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32),
+        }
+    elif typ == GGMLType.Q6_K:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 210)
+        planes = {
+            "ql": b[:, 0:128].reshape(m, k // 2),
+            "qh": b[:, 128:192].reshape(m, k // 4),
+            "sc": b[:, 192:208].contiguous().view(torch.int8).reshape(m, k // 16),
+            "d": b[:, 208:210].contiguous().view(torch.float16).float().reshape(m, k // QK_K),
+        }
     elif typ == GGMLType.Q4_K:
         b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 144)
         dd = b[:, 0:4].contiguous().view(torch.float16).float()  # (nb, 2): d, dmin
@@ -95,7 +122,7 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
         }
     else:
         raise UnsupportedError(
-            f"{typ.name} weights: this port handles F32, F16 and Q4_K")
+            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_K and Q6_K")
     if len(shape) != 3:
         return QTensor(typ, (m, k), planes)
     E = int(shape[0])
@@ -110,6 +137,17 @@ def nibbles(qs: torch.Tensor) -> torch.Tensor:
     return torch.cat([q & 0xF, q >> 4], dim=-1).reshape(*lead, -1)
 
 
+def q6k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/2) ql and (..., m, k/4) qh in ggml's Q6_K order -> (..., m, k)
+    values 0..63 (u8), 32 above the signed weight."""
+    lead = ql.shape[:-1]
+    lo = ql.reshape(*lead, -1, 1, 64)
+    lo = torch.cat([lo & 0xF, lo >> 4], dim=-2)  # (..., halves, 2, 64)
+    hi = qh.reshape(*lead, -1, 1, 32)
+    hi = torch.cat([(hi >> s) & 3 for s in (0, 2, 4, 6)], dim=-2)  # (..., halves, 4, 32)
+    return (lo.reshape(*lead, -1, 128) | (hi.reshape(*lead, -1, 128) << 4)).reshape(*lead, -1)
+
+
 def _folded_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(dsub, -msub) in float32 from canonical planes: d*sc and dmin*mn."""
     p = qt.planes
@@ -118,11 +156,28 @@ def _folded_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
     return dl, ml
 
 
+def _dsub(qt: QTensor, per: int) -> torch.Tensor:
+    """The float32 scale of every `per`-element group: dsub as stored in
+    kernel planes, else folded from the canonical d (times sc for Q6_K)."""
+    p = qt.planes
+    if qt.kernel_layout:
+        return p["dsub"].float()
+    if "sc" not in p:
+        return p["d"]
+    return p["d"].repeat_interleave(QK_K // per, dim=-1) * p["sc"].float()
+
+
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Planes -> dense `qt.shape` in `dtype`, computed in float32."""
     p = qt.planes
     if "w" in p:
         return p["w"].to(dtype)
+    if qt.kind == GGMLType.Q8_0:
+        w = p["qs"].float().reshape(*qt.shape[:-1], qt.k // 32, 32) * _dsub(qt, 32)[..., None]
+        return w.reshape(qt.shape).to(dtype)
+    if qt.kind == GGMLType.Q6_K:
+        q = (q6k_values(p["ql"], p["qh"]).float() - 32).reshape(*qt.shape[:-1], qt.k // 16, 16)
+        return (q * _dsub(qt, 16)[..., None]).reshape(qt.shape).to(dtype)
     q = nibbles(p["qs"]).float().reshape(*qt.shape[:-1], qt.k // 32, 32)
     if qt.kernel_layout:
         w = q * p["dsub"].float()[..., None] + p["msub"].float()[..., None]
@@ -133,10 +188,19 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
-    """Canonical Q4_K planes -> kernel planes {qs, dsub, msub}; other kinds
-    are returned as they are (they take the dense matmul)."""
-    if qt.kind != GGMLType.Q4_K or qt.kernel_layout:
+    """Canonical planes -> kernel planes: {qs, dsub, msub} for Q4_K, {qs,
+    dsub} for Q8_0, {ql, qh, dsub} for Q6_K, the float32 scale rounded once
+    to `scale_dtype`. F32 and F16 are returned as they are (they take the
+    dense matmul)."""
+    if qt.kind not in KERNEL_KINDS or qt.kernel_layout:
         return qt
+    p = qt.planes
+    if qt.kind == GGMLType.Q8_0:
+        return QTensor(qt.kind, qt.shape, {"qs": p["qs"].contiguous(),
+                                           "dsub": _dsub(qt, 32).to(scale_dtype)})
+    if qt.kind == GGMLType.Q6_K:
+        return QTensor(qt.kind, qt.shape, {"ql": p["ql"].contiguous(), "qh": p["qh"].contiguous(),
+                                           "dsub": _dsub(qt, 16).to(scale_dtype)})
     dl, ml = _folded_scales(qt)
     return QTensor(qt.kind, qt.shape, {
         "qs": qt.planes["qs"].contiguous(),

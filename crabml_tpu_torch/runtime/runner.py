@@ -11,9 +11,9 @@ step, replayed.
 The Runner runs on `cuda` unless the caller passes `device="cpu"`; without a
 card and without that request it raises.
 
-`prefill_w8` decides on the W8 prefill planes (int8 weights beside the Q4_K
-planes, 8 more bits a weight of device memory; chunks of 249 rows or more then
-take the W8 kernels): True attaches them all, False none, and None, the
+`prefill_w8` decides on the W8 prefill planes (int8 weights beside the Q4_K,
+Q8_0 or Q6_K planes, 8 more bits a weight of device memory; chunks of 249 rows
+or more then take the W8 kernels): True attaches them all, False none, and None, the
 default, attaches what fits the card's free memory (`_auto_w8_budget`), which
 on the CPU is nothing.
 """
@@ -49,7 +49,7 @@ def _auto_w8_budget(gf: GGUFFile, cfg: ModelConfig, seq_len: int, kv_itemsize: i
 
     Only on a card, where prefill throughput matters, and only for files over
     1 GiB: on the CPU and for small test models prefill stays on the exact
-    Q4_K dequant path. The budget is the card's memory less 2 GiB of slack
+    dequant path of the weights' scheme. The budget is the card's memory less 2 GiB of slack
     (activations, serving page pools), the file's bytes and the Runner's KV
     cache. The planes' cost counts every matrix of the file but the embedding,
     the experts' 3-D tensors included."""

@@ -1,14 +1,25 @@
-"""Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K
-weights) in seconds.
+"""Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K,
+Q8_0 or Q6_K weights) in seconds.
 
 No multi-GB checkpoint ships with the repo, so the port's main path runs on a
-byte-valid GGUF v3 made from a seed. Each Q4_K block (256 weights, 144 bytes)
-gets random `scales` and `qs` bytes, and explicit finite f16 `d` and `dmin`:
-random bytes there would give f16 NaN or inf. With 6-bit scales sc, mn and
-nibbles q uniform, w = d*sc*q - dmin*mn has a standard deviation of about
-255*d when dmin = 7.5*d, so d = sigma/255 gives weights of standard
-deviation sigma = 1/sqrt(k) (0.02 for the embedding and the output), which
-keeps activations finite through every layer. Norm weights are f32 ones and
+byte-valid GGUF v3 made from a seed. Every block gets random quant bytes and
+an explicit finite f16 `d` (random bytes there would give f16 NaN or inf),
+sized so that the weights have a standard deviation of about sigma =
+1/sqrt(k) (0.02 for the embedding and the output), which keeps activations
+finite through every layer:
+
+- Q4_K (256 weights, 144 bytes): random `scales` and `qs`; with 6-bit sc, mn
+  and nibbles q uniform, w = d*sc*q - dmin*mn has a standard deviation of
+  about 255*d when dmin = 7.5*d, so d = sigma/255.
+- Q8_0 (32 weights, 34 bytes): random int8 `qs` in -127..127 (ggml's range),
+  standard deviation ~73.3, so d = sigma/73.3.
+- Q6_K (256 weights, 210 bytes): random `ql`, `qh` and int8 `scales`; the
+  6-bit value less 32 has a standard deviation of ~18.5 and the scale an rms
+  of ~73.9, so d = sigma/1367.
+
+`lm_head` writes `output.weight` in another scheme than the rest: Q6_K beside
+Q4_K layers is what llama.cpp's Q4_K_S and Q4_K_M files carry
+(`llama_tensor_get_type` puts the output in Q6_K). Norm weights are f32 ones and
 the tokenizer is a llama-SPM vocab of specials, byte tokens and synthetic
 pieces. No element is quantized one at a time: the file is random bytes
 patched per block, written tensor by tensor.
@@ -21,6 +32,8 @@ standard normal), and `llama.expert_count` / `llama.expert_used_count`.
 
 Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --lm-head q6_k
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
 """
 
@@ -65,16 +78,45 @@ def q4k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     return blocks
 
 
+def q8_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 34) u8 Q8_0 blocks with random int8 values in
+    -127..127 and a fixed f16 d = sigma/73.3."""
+    blocks = np.frombuffer(rng.bytes(n // 32 * 34), np.uint8).reshape(-1, 34).copy()
+    q = blocks[:, 2:34].view(np.int8)
+    q[q == -128] = -127
+    blocks[:, 0:2] = np.array([sigma / 73.3], np.float16).view(np.uint8)
+    return blocks
+
+
+def q6k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/256, 210) u8 Q6_K blocks with random ql, qh and int8
+    scales and a fixed f16 d = sigma/1367."""
+    blocks = np.frombuffer(rng.bytes(n // 256 * 210), np.uint8).reshape(-1, 210).copy()
+    blocks[:, 208:210] = np.array([sigma / 1367.0], np.float16).view(np.uint8)
+    return blocks
+
+
+SCHEMES = {  # --scheme -> (GGML type, block writer)
+    "q4_k": (GGMLType.Q4_K, q4k_blocks),
+    "q8_0": (GGMLType.Q8_0, q8_0_blocks),
+    "q6_k": (GGMLType.Q6_K, q6k_blocks),
+}
+
+
 def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | None = None,
-                     verbose: bool = False) -> str:
+                     verbose: bool = False, scheme: str = "q4_k",
+                     lm_head: str | None = None) -> str:
     """Write the synthetic GGUF of shape `model` (optionally with fewer
-    layers) to `path`."""
+    layers) to `path`, every matrix in `scheme` but `output.weight`, which
+    is in `lm_head` (default: `scheme`)."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
+    lm_head = lm_head or scheme
     w = GGUFWriter()
     meta = {
         "general.architecture": "llama",
-        "general.name": f"synthetic-{model}-q4_k",
+        "general.name": f"synthetic-{model}-{scheme}"
+                        + (f"-{lm_head}-output" if lm_head != scheme else ""),
         "llama.context_length": ctx,
         "llama.embedding_length": dim,
         "llama.feed_forward_length": hidden,
@@ -98,15 +140,15 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     w.add_metadata("tokenizer.ggml.eos_token_id", 2)
 
     kv_dim = kv_heads * (dim // heads)
-    q4k = GGMLType.Q4_K
     counter = [0]
 
-    def add(name, shape, sigma=None):
+    def add(name, shape, sigma=None, kind=scheme):
         counter[0] += 1
         rng = np.random.default_rng([seed, counter[0]])
         n = int(np.prod(shape))
         s = sigma if sigma is not None else 1.0 / np.sqrt(shape[-1])
-        w.add_tensor(name, q4k, shape, lambda rng=rng, n=n, s=s: q4k_blocks(rng, n, s))
+        typ, blocks = SCHEMES[kind]
+        w.add_tensor(name, typ, shape, lambda rng=rng, n=n, s=s: blocks(rng, n, s))
 
     def ones(name, n):
         w.add_tensor(name, GGMLType.F32, (n,), np.ones(n, np.float32))
@@ -132,7 +174,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         ones(f"blk.{l}.attn_norm.weight", dim)
         ones(f"blk.{l}.ffn_norm.weight", dim)
     ones("output_norm.weight", dim)
-    add("output.weight", (vocab, dim), sigma=0.02)
+    add("output.weight", (vocab, dim), sigma=0.02, kind=lm_head)
 
     t0 = time.perf_counter()
     w.write(path)
@@ -150,8 +192,14 @@ def main(argv=None):
     ap.add_argument("--model", default="7b", choices=list(MODEL_SHAPES))
     ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheme", default="q4_k", choices=list(SCHEMES),
+                    help="the quant scheme of every matrix")
+    ap.add_argument("--lm-head", default=None, choices=list(SCHEMES),
+                    help="the scheme of output.weight (default: --scheme); q6_k beside "
+                         "q4_k layers is llama.cpp's Q4_K_M / Q4_K_S lm_head")
     args = ap.parse_args(argv)
-    build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True)
+    build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True,
+                     scheme=args.scheme, lm_head=args.lm_head)
 
 
 if __name__ == "__main__":

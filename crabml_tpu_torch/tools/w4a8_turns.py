@@ -9,7 +9,9 @@ own that imports `crabml_tpu_torch` from that checkout and builds its
 kernels there. Each turn times `qmm_w4a8` (bfloat16 out, as on the main
 path) on the inputs of this checkout's `chip_smoke.py` checks of it
 (`W4A8_SHAPES`), with its `Timer`: once with L2 emptied by a write before
-each launch, as `chip_smoke.py` times, and once by a read.
+each launch, as `chip_smoke.py` times, and once by a read. Each turn also
+hashes the float32 outputs at those shapes and `q4k_hashes`'s: the run fails
+when this checkout's numbers differ from the other's.
 
 Prints the card and its power limit, one JSON line a turn, then one JSON
 line a shape with each checkout's two times and the ratio of their means.
@@ -39,6 +41,32 @@ def label(cs, rows: int, m: int, k: int, planes: bool) -> str:
     return f"{rows}x{k} @ {w}"
 
 
+def q4k_hashes() -> dict:
+    """{rows: sha256 of the Q4_K qmm_w4a8's float32 output} at 1, 8 and 16
+    rows of the 7B qkv shape, inputs from numpy seeds (so the same on every
+    machine): tests/test_torch_kernels_gpu.py holds them as computed before
+    the Q8_0 and Q6_K forms joined the source."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
+    from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
+
+    out = {}
+    for rows in (1, 8, 16):
+        blocks = q4k_blocks(np.random.default_rng(rows), 6144 * 4096, 1 / 64)
+        qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (6144, 4096), "cuda"),
+                              torch.bfloat16)
+        x = np.random.default_rng(100 + rows).standard_normal((rows, 4096)).astype(np.float32)
+        got = gemm_quant.qmm_w4a8(torch.from_numpy(x).cuda().to(torch.bfloat16), qt)
+        out[str(rows)] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
 def child(root: str) -> dict:
     """One turn: `qmm_w4a8` of checkout `root` at every shape."""
     cs = _chip_smoke()
@@ -50,7 +78,9 @@ def child(root: str) -> dict:
 
     assert Path(crabml_tpu_torch.__file__).resolve().parents[1] == Path(root).resolve()
     timer = cs.Timer(torch)
-    times, by_read = {}, {}
+    import hashlib
+
+    times, by_read, hashes = {}, {}, {}
     # the first shape twice: a process's first timing reads slow, the second counts
     for rows, m, k, planes, seed in cs.W4A8_SHAPES[:1] + cs.W4A8_SHAPES:
         qt = (cs.q4k_stack(cs.MOE_EXPERTS, m, k, seed, False) if planes
@@ -63,9 +93,12 @@ def child(root: str) -> dict:
         key = label(cs, rows, m, k, planes)
         times[key] = timer(fn)
         by_read[key] = timer(fn, by_read=True)
+        out32 = gemm_quant.qmm_w4a8(x, qt, torch.float32, plane)
+        hashes[key] = hashlib.sha256(out32.cpu().numpy().tobytes()).hexdigest()
         del qt
         torch.cuda.empty_cache()
-    return {"root": root, "ms": times, "ms_l2_emptied_by_read": by_read}
+    return {"root": root, "ms": times, "ms_l2_emptied_by_read": by_read,
+            "sha256": hashes, "q4k_hashes": q4k_hashes()}
 
 
 def main() -> int:
@@ -87,6 +120,9 @@ def main() -> int:
             return 1
         turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(turns[-1]), flush=True)
+    same = all(t["sha256"] == turns[0]["sha256"] and t["q4k_hashes"] == turns[0]["q4k_hashes"]
+               for t in turns)
+    print(json.dumps({"outputs_identical": same, "q4k_hashes": turns[0]["q4k_hashes"]}))
     for rows, m, k, planes, _ in cs.W4A8_SHAPES:
         key = label(cs, rows, m, k, planes)
         row = {"shape": key}
@@ -96,7 +132,7 @@ def main() -> int:
             row[what] = {"other": o, "this": t,
                          "this_over_other": statistics.mean(t) / statistics.mean(o)}
         print(json.dumps(row))
-    return 0
+    return 0 if same else 1
 
 
 if __name__ == "__main__":

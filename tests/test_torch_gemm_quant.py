@@ -68,7 +68,7 @@ def test_qmatmul_routes_by_rows(weight, monkeypatch, rows):
                         torch.zeros(x2.shape[0], q.m, dtype=dt))
     monkeypatch.setattr(gemm_quant, "qmm_q4k", lambda x2, q, dt: called.append("q4k") or
                         torch.zeros(x2.shape[0], q.m, dtype=dt))
-    out = gemm_quant.qmatmul_q4k(torch.zeros(1, rows, K, dtype=torch.bfloat16), qt)
+    out = gemm_quant.qmatmul_quant(torch.zeros(1, rows, K, dtype=torch.bfloat16), qt)
     assert out.shape == (1, rows, M) and out.dtype == torch.bfloat16
     assert called == ["w4a8" if rows <= gemm_quant.W4A8_MAX_ROWS else "q4k"]
 

@@ -916,3 +916,203 @@ def test_a_failed_capture_raises(cuda):
         StepGraph(lambda _gen: x.add_(x.sum().item()), cuda)
     torch.cuda.synchronize()
     assert dict(_build.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the Q8_0 and Q6_K forms: the dequant kernels (qmm_q8_0.cu, qmm_q6k.cu) and
+# the int8-activation forms of qmm_w4a8.cu
+# ---------------------------------------------------------------------------
+
+SCHEME_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K],
+                                       ids=["q8_0", "q6_k"])
+
+
+def _x(rows, k, seed):
+    """bf16 activations from a generator of their own: an earlier test's
+    failed capture may leave the default generator unusable."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def _scheme_weight(kind, m, k, seed):
+    """A random (m, k) weight of `kind` (synth_gguf's blocks), kernel planes, bf16 scales."""
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+
+    _, blocks = next(v for v in SCHEMES.values() if v[0] == kind)
+    raw = blocks(np.random.default_rng(seed), m * k, 1.0 / math.sqrt(k))
+    return to_kernel_layout(to_planar(kind, raw, (m, k), "cuda"), torch.bfloat16)
+
+
+def _dequant_of(kind):
+    if kind == GGMLType.Q8_0:
+        return "qmm_q8_0", lambda x, p: gemm_quant.qmm_q8_0_plain(x, p["qs"], p["dsub"])
+    return "qmm_q6k", lambda x, p: gemm_quant.qmm_q6k_plain(x, p["ql"], p["qh"], p["dsub"])
+
+
+def _w4a8_plain_of(kind):
+    if kind == GGMLType.Q8_0:
+        return lambda x, p: gemm_quant.qmm_w4a8_q8_0_plain(x, p["qs"], p["dsub"])
+    return lambda x, p: gemm_quant.qmm_w4a8_q6k_plain(x, p["ql"], p["qh"], p["dsub"])
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("rows,m,k", [(17, 384, 512), (100, 320, 1024), (513, 256, 256),
+                                       (1, 512, 1024), (7, 256, 256), (189, 512, 1536),
+                                       (512, 768, 512), (1000, 256, 2048), (37, 320, 512),
+                                       (130, 200, 1024), (189, 256, 14336)])
+def test_scheme_dequant_matmul_matches_plain(cuda, kind, rows, m, k):
+    """Tolerance 1e-4 of max|out|: the same bf16 weights (the product of an
+    int8, or of a 6-bit value less 32, and a bf16 scale is exact before its
+    one rounding), float32 sums in another order. Rows from 1 to 1,000 (every
+    width of the tile loop, ragged last tiles), columns off the 128-wide tile
+    (320, 384) and off the 8-wide store (200), k from one superblock to
+    14,336. The bf16 output is the float32 output rounded once."""
+    qt = _scheme_weight(kind, m, k, rows)
+    x = _x(rows, k, m)
+    name, plain = _dequant_of(kind)
+    kernel = getattr(gemm_quant, name)
+    before = _build.launches[name]
+    got = kernel(x, qt)
+    want = plain(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(kernel(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+
+
+@SCHEME_KINDS
+def test_scheme_dequant_converts_every_value_exactly(cuda, kind):
+    """Every value (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K) at every
+    byte and bit position of a superblock, each row and scale group with a
+    scale of its own, one hot row of x at a time: the kernel's conversion,
+    its fragment order (Q6_K's per-half nibble and qh-bit order included)
+    and its choice of scale group return the plain version's bf16 weights
+    exactly."""
+    m, k = 256, 512
+    n = torch.arange(m, device=cuda)[:, None]
+    if kind == GGMLType.Q8_0:
+        j = torch.arange(k, device=cuda)[None, :]
+        planes = {"qs": ((n + 7 * j) % 255 - 127).to(torch.int8)}
+        gr = 32
+    else:
+        j2, j4 = torch.arange(k // 2, device=cuda)[None, :], torch.arange(k // 4, device=cuda)[None, :]
+        planes = {"ql": ((n + j2) % 256).to(torch.uint8),
+                  "qh": ((3 * n + 7 * j4 + 1) % 256).to(torch.uint8)}
+        gr = 16
+    grp = torch.arange(k // gr, device=cuda)[None, :]
+    planes["dsub"] = (0.01 * (1 + (16 * n + grp) % 61 / 64) * (1 - 2 * (grp % 3 == 2))).to(
+        torch.bfloat16)
+    assert (planes["dsub"][:, 1:] != planes["dsub"][:, :-1]).all()
+    qt = QTensor(kind, (m, k), planes)
+    name, plain = _dequant_of(kind)
+    w = dequantize(qt, torch.bfloat16)
+    x = torch.eye(k, device=cuda, dtype=torch.bfloat16)
+    got = getattr(gemm_quant, name)(x, qt)
+    want = plain(x, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(want, w.t().float())
+    assert torch.equal(got, want)
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("rows,m,k", [(1, 300, 768), (3, 512, 256), (8, 256, 1024),
+                                       (9, 336, 512), (16, 256, 1024), (16, 128, 14336),
+                                       (1, 6144, 4096), (8, 4096, 14336)])
+def test_scheme_w4a8_matches_plain(cuda, kind, rows, m, k):
+    """Tolerance 1e-4 of max|out|: identical int8 activations (per 16-group
+    for Q6_K), exact integer group dots, float32 group sums in another order.
+    Every plan: 1, 8 and 16 rows a stage; columns off the 16-wide tile."""
+    qt = _scheme_weight(kind, m, k, rows + m)
+    x = _x(rows, k, m)
+    name = gemm_quant.W4A8_FORMS[kind]
+    before = _build.launches[name]
+    got = gemm_quant.qmm_w4a8(x, qt)
+    want = _w4a8_plain_of(kind)(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt), got)  # the same at every call
+
+
+@SCHEME_KINDS
+def test_scheme_w4a8_agrees_over_seeds(cuda, kind):
+    """30 random activations at 1..16 rows: the kernel's quantizer (at 16
+    for Q6_K) rounds every int8 value as the plain one does."""
+    qt = _scheme_weight(kind, 256, 1024, 16)
+    g = torch.Generator(device=cuda)
+    for seed in range(30):
+        rows = seed % 16 + 1
+        x = torch.randn(rows, 1024, generator=g.manual_seed(seed), device=cuda).to(torch.bfloat16)
+        got = gemm_quant.qmm_w4a8(x, qt)
+        want = _w4a8_plain_of(kind)(x, qt.planes)
+        assert _rel(got, want) <= 1e-4, f"seed {seed}"
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("form", ["dequant", "w4a8"])
+def test_scheme_forms_replay_in_a_cuda_graph(cuda, kind, form):
+    """Each new form captures in a CUDA graph (the int8-activation form with
+    its chained quantizer): a replay equals the eager call bit for bit, and
+    after x changes in place equals the eager call on the new x."""
+    rows, m, k = (8, 1024, 2048) if form == "w4a8" else (100, 512, 1024)
+    qt = _scheme_weight(kind, m, k, 3)
+    fn = gemm_quant.qmm_w4a8 if form == "w4a8" else getattr(gemm_quant, _dequant_of(kind)[0])
+    x = _x(rows, k, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture: build, shared-memory attribute
+        fn(x, qt, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, qt, torch.bfloat16)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(x, qt, torch.bfloat16))
+        x.copy_(_x(rows, k, 2))
+
+
+def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
+    """Shapes and planes the new forms do not take raise on a CUDA tensor:
+    k off the 256-deep superblock (a Q8_0 row of 288), float32 scales, a
+    Q6_K weight given to the Q8_0 kernel, 17 rows to qmm_w4a8, a plane per
+    row (the new schemes' plane form is not ported)."""
+    x = torch.zeros(32, 288, device=cuda, dtype=torch.bfloat16)
+    raw = np.zeros((256, 288 // 32, 34), np.uint8)
+    q8 = to_kernel_layout(to_planar(GGMLType.Q8_0, raw, (256, 288), "cuda"), torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0(x, q8)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:1], q8)
+    q6 = _scheme_weight(GGMLType.Q6_K, 256, 512, 1)
+    x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0(x, q6)
+    f32 = QTensor(GGMLType.Q6_K, q6.shape, {**q6.planes, "dsub": q6.planes["dsub"].float()})
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q6k(x, f32)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:17], q6)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:2], q6, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+# qmm_w4a8's Q4_K outputs at 1, 8 and 16 rows of the 7B qkv shape (sha256 of
+# the float32 bytes, tools/w4a8_turns.py::q4k_hashes) as the source before the
+# Q8_0 and Q6_K forms computed them on an H100: adding the forms left the
+# Q4_K numbers as they were, bit for bit.
+Q4K_W4A8_HASHES = {
+    "1": "b3e5e14ab44d4eb156b06c49e16c076626a3012033a0dae45199b9ade9c7f16a",
+    "8": "b42456e44a9862ec932e95aedcb8ef70e7a0486a9b401694295d712fe7dcfccd",
+    "16": "b4a7e54fc4d9e52b788d89617270e350ee37d0f13fd941773e489bdc7d4a1189",
+}
+
+
+def test_q4k_w4a8_numbers_unchanged(cuda):
+    from crabml_tpu_torch.tools.w4a8_turns import q4k_hashes
+
+    assert q4k_hashes() == Q4K_W4A8_HASHES

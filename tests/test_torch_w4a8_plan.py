@@ -13,6 +13,7 @@ import inspect
 import numpy as np
 import pytest
 
+from crabml_tpu_torch.gguf.constants import GGMLType
 from crabml_tpu_torch.ops.cuda import gemm_quant
 from crabml_tpu_torch.ops.cuda.gemm_quant import w4a8_block_reads, w4a8_plan
 
@@ -34,9 +35,9 @@ CASES = (
 )
 
 
-def _coverage(rows, m, k, planes):
-    plan = w4a8_plan(rows, m, k, planes)
-    G = k // 32
+def _coverage(rows, m, k, planes, kind=GGMLType.Q4_K):
+    plan = w4a8_plan(rows, m, k, planes, kind)
+    G = k // plan.group
     count = np.zeros((rows, m, G), dtype=np.int16)
     for bx in range(plan.grid[0]):
         for by in range(plan.grid[1]):
@@ -79,8 +80,9 @@ def test_warps_take_disjoint_superblocks_in_order(rows, m, k, planes):
 
 def test_plan_is_a_function_of_shapes_alone():
     """Same shapes, same plan; the plan takes ints only (no tensor, so no
-    value on the device is read), is immutable and hashable."""
-    assert list(inspect.signature(w4a8_plan).parameters) == ["rows", "m", "k", "planes"]
+    value on the device is read; the scheme is an int enum), is immutable
+    and hashable."""
+    assert list(inspect.signature(w4a8_plan).parameters) == ["rows", "m", "k", "planes", "kind"]
     for rows, m, k, planes in CASES:
         a, b = w4a8_plan(rows, m, k, planes), w4a8_plan(rows, m, k, planes)
         assert a == b and hash(a) == hash(b)
@@ -108,3 +110,44 @@ def test_last_column_tile_stops_at_m():
     assert plan.grid[0] == 19
     assert w4a8_block_reads(plan, 18, 0, 8, 300)["columns"] == range(288, 300)
     assert gemm_quant.W4A8_COLS == 16 and gemm_quant.W4A8_SB == 256
+
+
+# the Q8_0 and Q6_K forms: dense only, at the 7B decode shapes and ragged ones
+SCHEME_CASES = (
+    [(r, m, k) for r in (1, 8, 16)
+     for m, k in ((QKV, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))]
+    + [(r, m, k) for r in (1, 3, 9) for m, k in ((300, 768), (100, 256))])
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K], ids=["q8_0", "q6_k"])
+@pytest.mark.parametrize("rows,m,k", SCHEME_CASES)
+def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
+    """As for Q4_K, with the scheme's scale group: 32 elements for Q8_0, 16
+    for Q6_K (16 groups a superblock, one k16 integer mma each)."""
+    plan, count = _coverage(rows, m, k, False, kind)
+    assert plan.group == (16 if kind == GGMLType.Q6_K else 32)
+    assert count.shape[2] == k // plan.group and (count == 1).all()
+    assert plan.grid == (-(-m // 16), 1)
+
+
+@pytest.mark.parametrize("kind,stage", [
+    (GGMLType.Q4_K, lambda xr: 2048 + 512 + xr * (256 + 64)),  # nibbles, dsub | msub; x, dx, sx
+    (GGMLType.Q8_0, lambda xr: 4096 + 256 + xr * (256 + 32)),  # int8, dsub; x, dx
+    (GGMLType.Q6_K, lambda xr: 3072 + 512 + xr * (256 + 128)),  # ql | qh, 16 dsub; x, dx, sx
+], ids=["q4_k", "q8_0", "q6_k"])
+@pytest.mark.parametrize("x_rows", [1, 8, 16])
+def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
+    """A ring stage holds a superblock of the 16 columns: Q8_0 4 KB of int8
+    weights and 8 bf16 scales a column, Q6_K 3 KB of ql | qh and 16 scale
+    groups a column. The ring is as deep as two blocks an SM allow, up to
+    four stages: Q4_K keeps its four stages (three at 16 rows)."""
+    plan = w4a8_plan(x_rows, DIM, FFN, False, kind)
+    assert plan.x_rows == x_rows
+    assert gemm_quant.w4a8_stage_bytes(x_rows, kind) == stage(x_rows)
+    assert plan.smem_bytes == 4 * plan.stages * stage(x_rows)
+    reduction = 4 * 4 * plan.n_tiles * 32 * 4
+    assert 2 * (plan.smem_bytes + reduction + 1024) <= SMEM_PER_SM
+    deeper = 4 * (plan.stages + 1) * stage(x_rows)
+    assert plan.stages == 4 or 2 * (deeper + reduction + 1024) > SMEM_PER_SM
+    if kind == GGMLType.Q4_K:
+        assert plan.stages == (4 if x_rows <= 8 else 3)

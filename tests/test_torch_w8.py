@@ -85,7 +85,7 @@ def test_qmm_w8_plain_matches_pallas(rows, k):
     # the wrapper takes the plain version for a CPU tensor, and the router takes the wrapper
     np.testing.assert_array_equal(gemm_quant.qmm_w8(torch.from_numpy(x), qt).numpy(), got.numpy())
     np.testing.assert_array_equal(
-        gemm_quant.qmatmul_q4k(torch.from_numpy(x), qt).numpy(), got.numpy())
+        gemm_quant.qmatmul_quant(torch.from_numpy(x), qt).numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("rows", [16, 17, 248, 249])
@@ -111,7 +111,7 @@ def test_routing_picks_the_kernel_jax_picks(monkeypatch, rows, has_w8):
             called.append(_n), _o(*a, **k))[1])
     x = np.random.default_rng(rows).standard_normal((rows, 512)).astype(np.float32)
     want = np.asarray(jgemm.qmatmul_pallas(jnp.asarray(x), jqt, jnp.float32, act_quant=True))
-    got = gemm_quant.qmatmul_q4k(torch.from_numpy(x), qt).numpy()
+    got = gemm_quant.qmatmul_quant(torch.from_numpy(x), qt).numpy()
     same = {"_run": "qmm_q4k", "_run_w4a8": "qmm_w4a8", "_run_w8": "qmm_w8"}
     assert [same[n] for n in jcalled] == called == [gemm_quant.route(rows, has_w8)]
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
