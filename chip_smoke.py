@@ -59,9 +59,13 @@ fails:
    with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
    report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
-10. Q8_0 and Q6_K: phase 3 for each scheme (2 layers, card against CPU),
-   then the 7B widths with every matrix in Q8_0 at full depth (`7b-q8_0`,
-   ~7.7 GB) and in Q6_K cut to 8 of 32 layers (`7b-q6_k`): `Runner(path)`,
+10. Q8_0, Q6_K, Q5_K and Q4_0, and llama.cpp's mixed _K_M layout: phase 3
+   for each scheme and for a 2-layer Q4_K_M file (2 layers, card against
+   CPU), then the 7B widths with every matrix in Q8_0 at full depth
+   (`7b-q8_0`, ~7.7 GB), in Q6_K cut to 8 of 32 layers (`7b-q6_k`), as a
+   Q5_K_M file at full depth (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down
+   in Q6_K in 16 of the 32 layers, a Q6_K output, ~5.5 GB) and in Q4_0 cut
+   to 8 layers (`7b-q4_0`): `Runner(path)`,
    whose default must attach the W8 planes; the ~700-token prompt and 128
    greedy tokens through the graph, equal to the eager step's; the same file
    with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
@@ -70,8 +74,8 @@ fails:
    all with the same tokens, and a profiled window of the graphed step
    follows. Phase 2 holds
    each scheme's dequant kernel (512 and 189 rows of qkv, 512 of down) and
-   int8-activation form (every 7B decode projection at 1 and 8 rows)
-   against its plain version.
+   int8-activation form (every 7B decode projection at 1 and 8 rows, and 16
+   rows of qkv) against its plain version.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each of the paths 5, 6, 7, 9 and 10 is driven with the kernels' launch counters
@@ -150,9 +154,22 @@ KERNEL_SOURCES = {
                       "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q8_0"),
     "qmm_w4a8_q6k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q6_k"),
+    "qmm_q5k": ("crabml_tpu_torch/csrc/qmm_q5k.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                "7b-q5_k_m"),
+    "qmm_q4_0": ("crabml_tpu_torch/csrc/qmm_q4_0.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                 "7b-q4_0"),
+    "qmm_w4a8_q5k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                     "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q5_k_m"),
+    "qmm_w4a8_q4_0": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q4_0"),
 }
-# the Q8_0 and Q6_K paths: (scheme, layers of the 7B shape's 32, seed)
-SCHEME_PATHS = (("q8_0", 32, 61), ("q6_k", 8, 62))
+# the paths of the other schemes: (name, scheme, layers of the 7B shape's 32,
+# seed, mix); 7b-q5_k_m is llama.cpp's Q5_K_M layout (tools/synth_gguf.py --mix
+# k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output)
+SCHEME_PATHS = (("7b-q8_0", "q8_0", 32, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
+                ("7b-q5_k_m", "q5_k", 32, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None))
+# the schemes of phase kernels' checks and of the 2-layer forward checks
+KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0")
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
@@ -314,8 +331,9 @@ def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
 
 def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int,
                         seed: int) -> tuple[str, dict]:
-    """The Q8_0 or Q6_K form of the dequant kernel (`form` "dequant") or of
-    the int8-activation kernel ("w4a8") against its plain version."""
+    """The Q8_0, Q6_K, Q5_K or Q4_0 form of the dequant kernel (`form`
+    "dequant") or of the int8-activation kernel ("w4a8") against its plain
+    version."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
@@ -325,20 +343,19 @@ def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
     p = qt.planes
-    planes = [p["qs"]] if scheme == "q8_0" else [p["ql"], p["qh"]]
+    planes = [p[n] for n in gemm_quant._KERNEL_PLANES[qt.kind]]  # the plain versions' order
     if form == "dequant":
-        name = "qmm_q8_0" if scheme == "q8_0" else "qmm_q6k"
+        name = gemm_quant.DEQUANT_FORMS[qt.kind]
         wrapper = getattr(gemm_quant, name)
-        plain_fn = getattr(gemm_quant, f"{name}_plain")
         tol, why = 1e-4, "the same bf16 weights, float32 sums in another order"
         op_type = "bf16"
     else:
         name = gemm_quant.W4A8_FORMS[qt.kind]
         wrapper = gemm_quant.qmm_w4a8
-        plain_fn = getattr(gemm_quant, f"{name}_plain")
         tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
         op_type = "int8"
-    plain = lambda: plain_fn(x, *planes, p["dsub"])  # noqa: E731
+    plain_fn = getattr(gemm_quant, f"{name}_plain")
+    plain = lambda: plain_fn(x, *planes)  # noqa: E731
     kernel = lambda: wrapper(x, qt, torch.bfloat16)  # noqa: E731
     w_bf16 = dequantize(qt, torch.bfloat16)
     rec = _matmul_record(
@@ -781,18 +798,23 @@ def phase_kernels() -> dict[str, list[dict]]:
         torch.cuda.empty_cache()
     checks["qmm_w4a8"] += [check_w4a8_planes(timer, rows, m, k, seed)
                            for rows, m, k, planes, seed in W4A8_SHAPES if planes]
-    # the Q8_0 and Q6_K forms: the dequant kernel at a 512-row chunk of qkv,
+    # the other schemes' forms: the dequant kernel at a 512-row chunk of qkv,
     # the ragged 189-row chunk and a 512-row chunk of down; the int8-activation
-    # form at every 7B decode projection, at one row and at the 8-slot tick
-    for i, scheme in enumerate(("q8_0", "q6_k")):
+    # form at every 7B decode projection, at one row and at the 8-slot tick,
+    # and the 16-row qkv tail
+    for i, scheme in enumerate(KERNEL_SCHEMES):
+        seed = 70 + 4 * i
         for rows, m, k in ((PREFILL_CHUNK, QKV_M, DIM), (RAGGED_CHUNK, QKV_M, DIM),
                            (PREFILL_CHUNK, DIM, FFN)):
-            name, rec = check_scheme_matmul(timer, scheme, "dequant", rows, m, k, 70 + i)
+            name, rec = check_scheme_matmul(timer, scheme, "dequant", rows, m, k, seed)
             checks.setdefault(name, []).append(rec)
         for rows in (1, SERVING_SLOTS):
             for m, k in ((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM)):
-                name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, m, k, 72 + i)
+                name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, m, k, seed + 2)
                 checks.setdefault(name, []).append(rec)
+        name, rec = check_scheme_matmul(timer, scheme, "w4a8", 2 * SERVING_SLOTS, QKV_M, DIM,
+                                        seed + 3)
+        checks[name].append(rec)
         torch.cuda.empty_cache()
     del timer
     torch.cuda.empty_cache()
@@ -804,11 +826,13 @@ def phase_kernels() -> dict[str, list[dict]]:
 # ---------------------------------------------------------------------------
 
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
-                  w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k") -> dict:
-    """`model` cut to 2 layers, every matrix in `scheme`: a prompt of
-    `n_prompt` tokens and one decode step, the card (kernels, bfloat16, with
-    the W8 prefill planes when `w8`) against the CPU (plain versions,
-    float32, the scheme's planes only)."""
+                  w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
+                  mix: str | None = None) -> dict:
+    """`model` cut to 2 layers, every matrix in `scheme` (with `mix` "k_m",
+    llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
+    Q6_K): a prompt of `n_prompt` tokens and one decode step, the card
+    (kernels, bfloat16, with the W8 prefill planes when `w8`) against the CPU
+    (plain versions, float32, the scheme's planes only)."""
     import numpy as np
     import torch
 
@@ -818,8 +842,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     from crabml_tpu_torch.models.weights import augment_w8_weights, load_weights
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-2layers.gguf"), model, seed=seed,
-                            layers=2, scheme=scheme)
+    path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-{mix}-2layers.gguf"), model,
+                            seed=seed, layers=2, scheme=scheme, mix=mix)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
@@ -861,7 +885,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                      "finite": finite, "last_argmax_agrees": top_agree}
         good = finite and share >= min_share
         ok &= good
-        say(f"forward {model} widths, {scheme}, 2 layers, {what}: rel err max {rel:.3e}, "
+        say(f"forward {model} widths, {scheme}{' ' + mix if mix else ''}, 2 layers, {what}: "
+            f"rel err max {rel:.3e}, "
             f"median token "
             f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
             f"{finite} {'ok' if good else 'FAILED'}")
@@ -886,15 +911,19 @@ def _decode_bound(runner, pos: int) -> tuple[float, float]:
     """Least ms per decode token: the port's weight planes (decode reads no
     W8 plane), the embedding row and the live KV cache read once, over
     3.35 TB/s; and the same with the GGUF's own bytes (Q4_K: 144 per 256
-    weights) for the matmuls. Of a layer's experts a token reads the K it was
-    routed to: K/E of the stacks' bytes, and the whole router."""
+    weights) for the matmuls. Every matrix of every layer counts, fused or
+    not (a _K_M file keeps q, k and v apart where attn_v is Q6_K). Of a
+    layer's experts a token reads the K it was routed to: K/E of the stacks'
+    bytes, and the whole router."""
+    from crabml_tpu_torch.quant.qtensor import QTensor
+
     w = runner.weights
     cfg = runner.cfg
-    share = {"wgu_exps": cfg.n_experts_used / max(cfg.n_experts, 1),
-             "ffn_down_exps": cfg.n_experts_used / max(cfg.n_experts, 1)}
+    used = cfg.n_experts_used / max(cfg.n_experts, 1)
+    share = {n: used for n in ("wgu_exps", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps")}
     mats = [(w["output"], 1.0)] + [
-        (lw[n], share.get(n, 1.0)) for lw in w["layers"]
-        for n in ("wqkv", "wo", "wgu", "ffn_down", "wgu_exps", "ffn_down_exps") if n in lw]
+        (q, share.get(n, 1.0)) for lw in w["layers"] for n, q in lw.items()
+        if isinstance(q, QTensor)]
     port = sum(f * _plane_bytes(q, [n for n in q.planes if n not in ("w8", "dw")])
                for q, f in mats)
     port += sum(lw["ffn_gate_inp"].numel() * 2 for lw in w["layers"] if "ffn_gate_inp" in lw)
@@ -1752,15 +1781,18 @@ def phase_moe(tmp: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the Q8_0 and Q6_K paths
+# phase 10: the other schemes' paths (Q8_0, Q6_K, Q5_K_M, Q4_0)
 # ---------------------------------------------------------------------------
 
-def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
-    """The 7B widths with every matrix in `scheme`, `layers` of 32:
-    `Runner(path)` with its default prefill_w8, which must come out on, the
-    ~700-token prompt and 128 greedy tokens through the graph, equal to the
-    eager step's; the same file with prefill_w8=False, prefill only, in
-    turns; and the 16 requests through an 8-slot PagedServingEngine."""
+def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
+                 mix: str | None = None) -> dict:
+    """The 7B widths with every matrix in `scheme` (with `mix` "k_m",
+    llama.cpp's _K_M layout over it: attn_v and ffn_down of half the layers
+    and the output in Q6_K), `layers` of 32: `Runner(path)` with its default
+    prefill_w8, which must come out on, the ~700-token prompt and 128 greedy
+    tokens through the graph, equal to the eager step's; the same file with
+    prefill_w8=False, prefill only, in turns; and the 16 requests through an
+    8-slot PagedServingEngine."""
     import torch
 
     from crabml_tpu_torch.gguf.constants import GGMLType
@@ -1769,22 +1801,23 @@ def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
     from crabml_tpu_torch.serving import PagedServingEngine
     from crabml_tpu_torch.tools.synth_gguf import SCHEMES, build_synth_gguf
 
-    what = f"7b-{scheme}"
     kind = SCHEMES[scheme][0]
+    kinds = {kind, GGMLType.Q6_K} if mix else {kind}  # the kinds of the path's matmuls
     t0 = time.perf_counter()
     path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), "7b", seed=seed, layers=layers,
-                            scheme=scheme)
+                            scheme=scheme, mix=mix)
     synth_s = time.perf_counter() - t0
-    say(f"synthetic 7B {kind.name} GGUF, {layers} of 32 layers: "
-        f"{os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+    say(f"synthetic 7B {kind.name}{' ' + mix + ' mix' if mix else ''} GGUF, {layers} of 32 "
+        f"layers: {os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     runner = Runner(path)
-    lw = runner.weights["layers"][0]
-    mats = [lw[n] for n in ("wqkv", "wo", "wgu", "ffn_down")] + [runner.weights["output"]]
-    if not all(q.kind == kind and q.kernel_layout for q in mats):
-        fail(f"{what}: the matrices are not {kind.name} kernel planes")
+    mats = [q for lw in runner.weights["layers"] for q in lw.values() if hasattr(q, "planes")]
+    mats.append(runner.weights["output"])
+    if {q.kind for q in mats} != kinds or not all(q.kernel_layout for q in mats):
+        fail(f"{what}: the matrices are not {sorted(k.name for k in kinds)} kernel planes")
     if not runner.prefill_w8 or not all("w8" in q.planes for q in mats):
         fail(f"{what}: the Runner's default left the W8 prefill planes off")
+    unfused = sum("wqkv" not in lw for lw in runner.weights["layers"])
     load_s = runner.metrics.times_ns["load"] / 1e9
     w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
     prompt = PROMPT_SENTENCE * PROMPT_REPEATS
@@ -1804,11 +1837,12 @@ def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
                 and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
         fail(f"{what}: NaN or inf in the KV cache")
     dequant = gemm_quant.DEQUANT_FORMS[kind]
-    for name in (dequant, gemm_quant.W4A8_FORMS[kind], "qmm_w8", "flash_attention",
-                 "decode_attention_fused"):
+    for name in ([gemm_quant.DEQUANT_FORMS[k] for k in kinds]
+                 + [gemm_quant.W4A8_FORMS[k] for k in kinds]
+                 + ["qmm_w8", "flash_attention", "decode_attention_fused"]):
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} path")
-    if launches.get("qmm_q4k", 0) or launches.get("qmm_w4a8", 0):
+    if GGMLType.Q4_K not in kinds and (launches.get("qmm_q4k", 0) or launches.get("qmm_w4a8", 0)):
         fail(f"{what}: a Q4_K kernel was launched: {launches}")
     bound_port, bound_gguf = _decode_bound(runner, n)
     chunks = math.ceil(n_prompt / PREFILL_CHUNK)
@@ -1820,8 +1854,9 @@ def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
             f"decode {r['decoded_steps']} steps {r['decode_tok_s']:.2f} tok/s = "
             f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
             f"{bound_gguf:.3f} ms GGUF bytes)")
-    say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), 128 greedy "
-        f"tokens of both graphed runs equal to the eager step's, launches {launches}")
+    say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), {unfused} "
+        f"layers with q, k, v apart, 128 greedy tokens of both graphed runs equal to the eager "
+        f"step's, launches {launches}")
     w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
     if w8_dequant["launches"].get(dequant, 0) <= 0 or w8_dequant["launches"].get("qmm_w8", 0):
         fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
@@ -1834,8 +1869,7 @@ def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
     serving = _drain(eng, reqs)
     serving["launches"] = dict(_build.launches)
     serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
-    _say_run(f"serving, 7B {kind.name}, {layers} layers, 8 slots, 256-page bfloat16 pool",
-             serving)
+    _say_run(f"serving, {what}, {layers} layers, 8 slots, 256-page bfloat16 pool", serving)
     if eng.pages_free() != pages_at_start or any(eng._owned):
         fail(f"{what} serving: pages_free {eng.pages_free()} after the run, "
              f"{pages_at_start} before")
@@ -1847,7 +1881,8 @@ def phase_scheme(tmp: Path, scheme: str, layers: int, seed: int) -> dict:
     os.remove(path)
     torch.cuda.empty_cache()
     return {
-        "scheme": scheme, "layers": layers, "synth_s": synth_s, "load_s": load_s,
+        "scheme": scheme, "mix": mix, "layers": layers, "unfused_qkv_layers": unfused,
+        "synth_s": synth_s, "load_s": load_s,
         "load_w8_augment_s": w8_s, "prompt_tokens": n_prompt, "prefill_chunks": chunks,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
                  for r in (capture, graphed, eager)],
@@ -1972,13 +2007,16 @@ def main() -> int:
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
         moe = report["moe"] = phase_moe(tmp)
-        schemes = {}
-        for i, (scheme, layers, seed) in enumerate(SCHEME_PATHS):
+        for i, scheme in enumerate(KERNEL_SCHEMES):
             fwd = report[f"forward_{scheme}"] = phase_forward(tmp, seed=80 + i, scheme=scheme)
             if not fwd["ok"]:
                 failures.append(f"{scheme} forward check")
-            schemes[f"7b-{scheme}"] = report[f"7b-{scheme}"] = phase_scheme(tmp, scheme, layers,
-                                                                           seed)
+        fwd = report["forward_q4_k_m"] = phase_forward(tmp, seed=85, scheme="q4_k", mix="k_m")
+        if not fwd["ok"]:
+            failures.append("q4_k k_m forward check")
+        schemes = {}
+        for what, scheme, layers, seed, mix in SCHEME_PATHS:
+            schemes[what] = report[what] = phase_scheme(tmp, what, scheme, layers, seed, mix)
     except CheckFailed as e:
         failures.append(str(e))
     finally:

@@ -24,8 +24,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
     ap.add_argument("--prefill-w8", dest="prefill_w8", action="store_true", default=None,
-                    help="attach the W8 prefill planes (int8 weights beside the Q4_K, "
-                         "Q8_0 or Q6_K planes: 8 more bits a weight of device memory). Default: "
+                    help="attach the W8 prefill planes (int8 weights beside the quantized "
+                         "planes: 8 more bits a weight of device memory). Default: "
                          "what fits the card's free memory; never on the CPU.")
     ap.add_argument("--no-prefill-w8", dest="prefill_w8", action="store_false",
                     help="leave the W8 prefill planes out")

@@ -1,6 +1,6 @@
 // qmm_w4a8: int8 activations x integer weights for decode rows (<= 16): the
-// Q4_K form (4-bit weights, the headline's kernel), and the Q8_0 and Q6_K
-// forms described at the end of this note.
+// Q4_K form (4-bit weights, the headline's kernel), and the Q8_0, Q6_K, Q5_K
+// and Q4_0 forms described at the end of this note.
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
 // _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
@@ -83,6 +83,18 @@
 //    (the offset as a minimum, exact in float32). ql rows are swizzled by the
 //    column modulo 8, qh rows by its half modulo 4: the 32-bit loads of a
 //    warp's eight columns fall in distinct banks.
+//  * Q5_K and Q4_0 are instances of one trait of 4-bit values in the port's
+//    per-64 nibble order (Nib64; Q4_0's nibbles are reordered into it at
+//    load, quant/qtensor.py), so A is built as Q4_K builds it. Q5_K adds a
+//    fifth bit: bit b of byte l of a superblock's 32 qh bytes is the top bit
+//    of element 32 b + l, so for group g the thread's 8 bytes tig*8..+7 of
+//    the nibbles take bit g of qh bytes tig*8..+7, one 64-bit load a column
+//    and stage (qh rows of 32 bytes after the nibble rows, 2.5 KB of weights
+//    a stage), and the values 0..31 are still valid signed bytes. Q4_0 has
+//    no minimum plane: one bf16 dsub a group (256 B a stage) and the offset
+//    as a minimum, acc += c * (dsub * dx) + (-8 dsub) * sx, exact in float32
+//    as Q6_K's -32. Q4_1 (a minimum plane), Q5_0 (a qh plane, offset 16) and
+//    Q5_1 (both) are further instances once their planes are reordered.
 // A ring as deep as two blocks an SM allow, up to four stages (stages_of):
 // Q6_K at 16 rows has two.
 // The grid and the rows of x a stage holds come from
@@ -138,18 +150,36 @@ constexpr int SMEM_PER_SM = 228 * 1024;  // H100; 1 KB of it reserved a block
 // The schemes: a stage holds the 16 columns' weights of a superblock
 // (W_BYTES) and their scales (S_BYTES), then XR rows of x, each its 256 int8
 // values and XS bytes of scales (dx, and sx where the scheme has a minimum).
+// ROWB: bytes a column of the first weight plane per superblock; MSUB: a
+// minimum plane beside dsub; HAS_QH: a Q5_K fifth-bit plane; OFF: the value
+// offset of a scheme without a minimum plane.
 struct Q4K {
     static constexpr int GR = 32, W_BYTES = COLS * SB / 2, S_BYTES = 2 * COLS * 8 * 2;
-    static constexpr bool SX = true;
+    static constexpr int ROWB = SB / 2, OFF = 0;
+    static constexpr bool SX = true, MSUB = true, HAS_QH = false;
     static __host__ __device__ size_t q0_row(int K) { return K / 2; }
     static __host__ __device__ size_t q1_row(int) { return 0; }
 };
 struct Q80 {
     static constexpr int GR = 32, W_BYTES = COLS * SB, S_BYTES = COLS * 8 * 2;
-    static constexpr bool SX = false;
+    static constexpr int ROWB = SB, OFF = 0;
+    static constexpr bool SX = false, MSUB = false, HAS_QH = false;
     static __host__ __device__ size_t q0_row(int K) { return K; }
     static __host__ __device__ size_t q1_row(int) { return 0; }
 };
+// 4-bit values in the per-64 nibble order, with a fifth-bit plane (QH_) and
+// a minimum plane (MIN_) or the offset OFF_
+template <bool QH_, bool MIN_, int OFF_> struct Nib64 {
+    static constexpr int GR = 32, ROWB = SB / 2, OFF = OFF_;
+    static constexpr int QH_ROWS = COLS * SB / 2;  // the qh rows follow the nibble rows
+    static constexpr int W_BYTES = COLS * SB / 2 + (QH_ ? COLS * SB / 8 : 0);
+    static constexpr int S_BYTES = (MIN_ ? 2 : 1) * COLS * 8 * 2;
+    static constexpr bool SX = true, MSUB = MIN_, HAS_QH = QH_;
+    static __host__ __device__ size_t q0_row(int K) { return K / 2; }
+    static __host__ __device__ size_t q1_row(int K) { return QH_ ? K / 8 : 0; }
+};
+using Q5K = Nib64<true, true, 0>;
+using Q40 = Nib64<false, false, 8>;
 struct Q6K {
     static constexpr int GR = 16, W_BYTES = COLS * SB * 3 / 4, S_BYTES = COLS * 16 * 2;
     static constexpr int QH = COLS * SB / 2;  // the qh rows follow the ql rows
@@ -220,10 +250,10 @@ struct Args {
     const int8_t* xq;
     const float* dx;
     const float* sx;
-    const uint8_t* q0;  // Q4_K nibbles, Q8_0 int8, Q6_K ql
-    const uint8_t* q1;  // Q6_K qh
+    const uint8_t* q0;  // Q4_K, Q5_K and Q4_0 nibbles, Q8_0 int8, Q6_K ql
+    const uint8_t* q1;  // Q6_K and Q5_K qh
     const bf16* dsub;
-    const bf16* msub;   // Q4_K only
+    const bf16* msub;   // Q4_K and Q5_K only
     void* out;
     const int* plane_idx;
     int B, N, K;
@@ -283,7 +313,7 @@ qmm_w4a8_kernel(const Args args) {
             const bf16* src = dsub + (size_t)(ok ? col0 + r : 0) * G + sb * NG + p * 8;
             wg::cp_async16(st + ST::DS + r * 32 + p * 16, src, ok);
         } else {
-            constexpr int ROWB = S::W_BYTES / COLS;  // 128 (Q4_K) or 256 (Q8_0) bytes a column
+            constexpr int ROWB = S::ROWB;  // 128 (nibbles) or 256 (Q8_0) bytes a column
             constexpr int PIECES = ROWB / 16;
 #pragma unroll
             for (int i = 0; i < COLS * PIECES / 32; ++i) {  // 16 columns x PIECES pieces
@@ -293,9 +323,15 @@ qmm_w4a8_kernel(const Args args) {
                     q0 + (size_t)(ok ? col0 + r : 0) * S::q0_row(K) + sb * ROWB + p * 16;
                 wg::cp_async16(st + ST::W + r * ROWB + swz(r, p) * 16, src, ok);
             }
+            if constexpr (S::HAS_QH) {  // Q5_K: 16 columns x 2 pieces of qh, one a lane
+                const int r = lane >> 1, p = lane & 1;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = q1 + (size_t)(ok ? col0 + r : 0) * (K / 8) + sb * (SB / 8) + p * 16;
+                wg::cp_async16(st + S::QH_ROWS + r * 32 + swz_s(r, p) * 16, src, ok);
+            }
             const int r = lane & 15;
             const bool ok = col0 + r < N;
-            if (S::SX || lane < 16) {  // dsub (and msub for Q4_K): 8 a column
+            if (S::MSUB || lane < 16) {  // dsub (and msub where the scheme has one): 8 a column
                 const bf16* src = (lane < 16 ? dsub : msub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8;
                 wg::cp_async16(st + (lane < 16 ? ST::DS : ST::MS) + r * 16, src, ok);
             }
@@ -425,9 +461,15 @@ qmm_w4a8_kernel(const Args args) {
             const uint4 dA = lds<uint4>(ring, st + ST::DS + gid * 16);
             const uint4 dB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 16);
             uint4 mA = make_uint4(0, 0, 0, 0), mB = mA;
-            if constexpr (S::SX) {
+            if constexpr (S::MSUB) {
                 mA = lds<uint4>(ring, st + ST::MS + gid * 16);
                 mB = lds<uint4>(ring, st + ST::MS + (gid + 8) * 16);
+            }
+            uint2 hA = make_uint2(0, 0), hB = hA;
+            if constexpr (S::HAS_QH) {  // Q5_K: qh bytes tig*8..+7 of columns gid and gid+8
+                const int qo = swz_s(gid, tig >> 1) * 16 + (tig & 1) * 8;  // gid + 8 alike
+                hA = lds<uint2>(ring, st + S::QH_ROWS + gid * 32 + qo);
+                hB = lds<uint2>(ring, st + S::QH_ROWS + (gid + 8) * 32 + qo);
             }
 #pragma unroll
             for (int c = 0; c < 4; ++c) {  // 64-element chunks: groups 2c, 2c+1
@@ -467,6 +509,12 @@ qmm_w4a8_kernel(const Args args) {
                         a1 = (wB.x >> sh) & 0x0F0F0F0Fu;
                         a2 = (wA.y >> sh) & 0x0F0F0F0Fu;
                         a3 = (wB.y >> sh) & 0x0F0F0F0Fu;
+                        if constexpr (S::HAS_QH) {  // Q5_K: bit g of the same bytes' qh, at bit 4
+                            a0 |= ((hA.x >> g) & 0x01010101u) << 4;
+                            a1 |= ((hB.x >> g) & 0x01010101u) << 4;
+                            a2 |= ((hA.y >> g) & 0x01010101u) << 4;
+                            a3 |= ((hB.y >> g) & 0x01010101u) << 4;
+                        }
                     } else {  // Q8_0: bytes tig*8..+7 of group g for columns gid and gid+8
                         const int qoff = g * 32 + tig * 8;
                         const int qa = st + ST::W + swz(gid, qoff >> 4) * 16 + (qoff & 15);
@@ -478,7 +526,9 @@ qmm_w4a8_kernel(const Args args) {
                         a3 = vB.y;
                     }
                     const float da = bf16_at(dA, g), db = bf16_at(dB, g);
-                    const float ma = bf16_at(mA, g), mb = bf16_at(mB, g);
+                    // the minimum, or the offset as one (exact: a bf16 times 8)
+                    const float ma = S::MSUB ? bf16_at(mA, g) : (float)-S::OFF * da;
+                    const float mb = S::MSUB ? bf16_at(mB, g) : (float)-S::OFF * db;
 #pragma unroll
                     for (int t = 0; t < NT; ++t) {
                         const int r = t * 8 + gid;
@@ -617,5 +667,24 @@ extern "C" int qmm_w4a8_q6k_bf16(const void* x, void* xq, void* dx, void* sx, co
                                  const void* qh, const void* dsub, void* out, int out_bf16, int B,
                                  int N, int K, int grid_x, int grid_y, int x_rows, void* stream) {
     return run<Q6K>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
+                    grid_x, grid_y, x_rows, stream);
+}
+
+// The Q5_K form: qs (N, K/2) u8 as Q4_K's, qh (N, K/8) u8 in ggml's order,
+// dsub, msub (N, K/32) bf16. Otherwise as qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q5k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* qh, const void* dsub, const void* msub, void* out,
+                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
+                                 int x_rows, void* stream) {
+    return run<Q5K>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, nullptr, B, N, K, grid_x,
+                    grid_y, x_rows, stream);
+}
+
+// The Q4_0 form: qs (N, K/2) u8 in the per-64 order, dsub (N, K/32) bf16.
+// Otherwise as qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q4_0_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                  const void* dsub, void* out, int out_bf16, int B, int N, int K,
+                                  int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
                     grid_x, grid_y, x_rows, stream);
 }

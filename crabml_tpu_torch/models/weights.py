@@ -15,13 +15,15 @@ A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 before the router product) and the stacked experts "wgu_exps" (E, 2*HD, D)
 and "ffn_down_exps" (E, D, HD).
 
-Q4_K, Q8_0 and Q6_K matmul weights take the kernel planes of
+Q4_K, Q5_K, Q6_K, Q8_0 and Q4_0 matmul weights take the kernel planes of
 quant/qtensor.py, with scale planes in the compute dtype's width (bfloat16
 scales under bfloat16 compute, as the JAX Runner does; float32 keeps them
 exact). q|k|v and gate|up fuse at
-load along the output axis, so a layer issues one matmul per group (where the
-group's tensors share one kind). A mixture of experts takes Q4_K experts (or
-F32 / F16): the grouped kernels of the other kinds are not ported yet.
+load along the output axis, so a layer issues one matmul per group where the
+group's tensors share one kind; in llama.cpp's mixed _K_M files a layer whose
+attn_v is Q6_K keeps q, k and v apart, so the layers of one file need not
+hold the same names. A mixture of experts takes Q4_K experts (or F32 / F16):
+the grouped kernels of the other kinds are not ported yet.
 `augment_w8_weights` attaches the W8 prefill planes within a byte budget.
 """
 
@@ -137,11 +139,13 @@ def augment_w8_weights(weights: dict, budget_bytes: int | None = None) -> dict:
     `budget_bytes` caps what is added: tensors augment largest first until
     the budget runs out, and the rest prefill through the Q4_K dequant
     kernel, since the matmul dispatch keys on each tensor's planes. A tensor
-    name counts with all its layers, as the JAX package's layer-stacked
-    tensors do: either every layer's "wgu" gains planes or none. None = all."""
+    name counts with all the layers that hold it, as the JAX package's
+    layer-stacked tensors do: either every layer's "wgu" gains planes or
+    none. None = all."""
     layers = [dict(lw) for lw in weights["layers"]]
-    names = [n for n, v in layers[0].items() if isinstance(v, QTensor) and w8_eligible(v)]
-    cands = [(n, sum(w8_plane_bytes(lw[n]) for lw in layers)) for n in names]
+    names = list(dict.fromkeys(n for lw in layers for n, v in lw.items()
+                               if isinstance(v, QTensor) and w8_eligible(v)))
+    cands = [(n, sum(w8_plane_bytes(lw[n]) for lw in layers if n in lw)) for n in names]
     if w8_eligible(weights["output"]):
         cands.append(("output", w8_plane_bytes(weights["output"])))
     cands.sort(key=lambda nc: -nc[1])  # stable: ties keep the layer dict's order
@@ -155,7 +159,8 @@ def augment_w8_weights(weights: dict, budget_bytes: int | None = None) -> dict:
             out["output"] = augment_w8(weights["output"])
         else:
             for lw in layers:
-                lw[name] = augment_w8(lw[name])
+                if name in lw:
+                    lw[name] = augment_w8(lw[name])
     out["layers"] = layers
     return out
 

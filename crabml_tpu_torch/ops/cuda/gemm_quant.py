@@ -1,13 +1,14 @@
-"""Quantized matmuls: `qmm_q4k`, `qmm_q8_0`, `qmm_q6k` (prefill rows, one
-per weight scheme), `qmm_w4a8` (decode rows, every scheme), `qmm_w8`
-(prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
+"""Quantized matmuls: `qmm_q4k`, `qmm_q5k`, `qmm_q6k`, `qmm_q8_0`,
+`qmm_q4_0` (prefill rows, one per weight scheme), `qmm_w4a8` (decode rows,
+every scheme), `qmm_w8` (prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
 `qmm_w8_grouped` (rows sorted by expert, each segment against its own
 expert's planes), with `quantize_activation`, the W8 planes
 (`w8_planes_from_weights`, `augment_w8`) and the row routing of the JAX
 package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
-csrc/qmm_q4k.cu, csrc/qmm_q8_0.cu and csrc/qmm_q6k.cu, one weight source of
+csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu and
+csrc/qmm_q4_0.cu, one weight source of
 the tile loop each (launchers `_run` and, for Q4_K, `_run_grouped`),
 `_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per scheme (its
 launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
@@ -15,7 +16,7 @@ launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
 what bounds it on the H100 and how the design answers it. All take the port's
 own weight layout (quant/qtensor.py kernel planes), not the TPU's m-tiled one.
 The int8-activation forms quantize x per scale group of the scheme, as the
-JAX package does (`scheme.gr`): 32 for Q4_K and Q8_0, 16 for Q6_K.
+JAX package does (`scheme.gr`): 32 for every scheme but Q6_K, 16 for Q6_K.
 
 Routing keeps the TPU's structure, by the row count padded up to a multiple
 of 8: at most `W4A8_MAX_ROWS` rows take the int8-activation kernel, at least
@@ -37,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ...gguf.constants import GGMLType
-from ...quant.qtensor import KERNEL_KINDS, QTensor, dequantize, nibbles, plane_of, q6k_values
+from ...quant.qtensor import (KERNEL_KINDS, QTensor, dequantize, nibbles, plane_of, q5k_values,
+                               q6k_values)
 from . import _build
 
 W4A8_MAX_ROWS = 16  # TPU-tuned (v5e decode_loop sweep); to be set on the card
@@ -45,7 +47,8 @@ W8_MIN_ROWS = 256  # TPU-tuned as well: padded rows from which the W8 planes tak
 W8_KSC = 512  # k elements per W8 scale chunk
 ROW_PAD = 8  # the routing counts rows padded up to this (the JAX package's B_PAD)
 GROUP = 32  # Q4_K scale group: one dsub/msub per 32 elements
-SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16}  # elements a dsub
+SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16,  # elements a dsub
+                GGMLType.Q5_K: 32, GGMLType.Q4_0: 32}
 W4A8_COLS = 16  # output columns of a qmm_w4a8 block: the M of one mma tile
 W4A8_WARPS = 4  # warps of a block; they split k by superblock
 W4A8_SB = 256  # k depth of one ring stage: a Q4_K superblock, 8 scale groups
@@ -79,6 +82,24 @@ def qmm_q4k_plain(x2, qs, dsub, msub) -> torch.Tensor:
     m = qs.shape[0]
     w = (nibbles(qs).float().reshape(m, -1, GROUP) * dsub.float()[..., None]
          + msub.float()[..., None]).reshape(m, -1)
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def qmm_q5k_plain(x2, qs, qh, dsub, msub) -> torch.Tensor:
+    """Plain version of qmm_q5k: Q4_K's, with the 5-bit values 0..31."""
+    m = qs.shape[0]
+    w = (q5k_values(qs, qh).float().reshape(m, -1, GROUP) * dsub.float()[..., None]
+         + msub.float()[..., None]).reshape(m, -1)
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def qmm_q4_0_plain(x2, qs, dsub) -> torch.Tensor:
+    """Plain version of qmm_q4_0: w = (val - 8)*dsub in float32 (exact with a
+    bf16 scale: at most 12 significant bits; `qs` in the kernel planes'
+    per-64 order), rounded to x2's dtype, then x2 @ w^T with float32
+    accumulation -> (rows, m) f32."""
+    m = qs.shape[0]
+    w = ((nibbles(qs).float() - 8).reshape(m, -1, 32) * dsub.float()[..., None]).reshape(m, -1)
     return x2.float() @ w.to(x2.dtype).float().t()
 
 
@@ -130,6 +151,19 @@ def qmm_w4a8_q6k_plain(x2, ql, qh, dsub) -> torch.Tensor:
     return _w4a8_dense_plain(x2, q6k_values(ql, qh), dsub, -32.0 * dsub.float(), 16)
 
 
+def qmm_w4a8_q5k_plain(x2, qs, qh, dsub, msub) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q5_K planes: Q4_K's with the 5-bit
+    values 0..31 -> (rows, m) f32."""
+    return _w4a8_dense_plain(x2, q5k_values(qs, qh), dsub, msub, 32)
+
+
+def qmm_w4a8_q4_0_plain(x2, qs, dsub) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q4_0 planes: the nibbles 0..15,
+    activations per 32-group, and the offset as a minimum msub = -8*dsub
+    (exact) times sx -> (rows, m) f32."""
+    return _w4a8_dense_plain(x2, nibbles(qs), dsub, -8.0 * dsub.float(), 32)
+
+
 def qmm_w4a8_plain(x2, qs, dsub, msub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8: quantize_activation, exact integer group
     dots (float32 holds them exactly: |sum| < 2^24), then dsub*dx per group
@@ -172,8 +206,8 @@ def w8_planes_from_weights(w: torch.Tensor) -> dict[str, torch.Tensor]:
 
 
 def w8_eligible(qt: QTensor) -> bool:
-    """Whether augment_w8 attaches planes: a kernel-layout matmul (Q4_K,
-    Q8_0 or Q6_K, as the JAX augment_w8 takes every scheme) whose row count
+    """Whether augment_w8 attaches planes: a kernel-layout matmul (of any
+    kernel kind, as the JAX augment_w8 takes every scheme) whose row count
     is a multiple of 256 (per expert for a stack)."""
     return qt.kind in KERNEL_KINDS and qt.kernel_layout and qt.m % 256 == 0
 
@@ -252,14 +286,21 @@ def _lib_q6k():
     return _build.entry("qmm_q6k", "qmm_q6k_bf16", _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
 
 
+def _lib_q5k():
+    return _build.entry("qmm_q5k", "qmm_q5k_bf16", _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
+def _lib_q4_0():
+    return _build.entry("qmm_q4_0", "qmm_q4_0_bf16", _P, _P, _P, _P, _I, _I, _I, _I, _P)
+
+
 def _lib_w4a8_of(kind: GGMLType):
-    """The int8-activation entry of a scheme other than Q4_K: x, the
-    quantizer's scratch, the weight planes (two for Q6_K), out."""
-    if kind == GGMLType.Q8_0:
-        return _build.entry("qmm_w4a8", "qmm_w4a8_q8_0_bf16", _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, _I, _I, _P)
-    return _build.entry("qmm_w4a8", "qmm_w4a8_q6k_bf16", _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                        _I, _I, _I, _I, _I, _I, _P)
+    """The int8-activation entry of a scheme other than Q4_K
+    (qmm_w4a8_<scheme>_bf16): x, the quantizer's scratch, the weight planes
+    in _KERNEL_PLANES order, out."""
+    entry = f"{W4A8_FORMS[kind]}_bf16"
+    return _build.entry("qmm_w4a8", entry, *[_P] * (4 + len(_KERNEL_PLANES[kind]) + 1), _I, _I,
+                        _I, _I, _I, _I, _I, _P)
 
 
 def _lib_w8():
@@ -297,15 +338,19 @@ _W4A8_STAGE = {
     GGMLType.Q4_K: (W4A8_COLS * W4A8_SB // 2, 2 * W4A8_COLS * 8 * 2, 2 * 8 * 4),
     GGMLType.Q8_0: (W4A8_COLS * W4A8_SB, W4A8_COLS * 8 * 2, 8 * 4),
     GGMLType.Q6_K: (W4A8_COLS * W4A8_SB * 3 // 4, W4A8_COLS * 16 * 2, 2 * 16 * 4),
+    GGMLType.Q5_K: (W4A8_COLS * W4A8_SB // 2 + W4A8_COLS * W4A8_SB // 8, 2 * W4A8_COLS * 8 * 2,
+                    2 * 8 * 4),
+    GGMLType.Q4_0: (W4A8_COLS * W4A8_SB // 2, W4A8_COLS * 8 * 2, 2 * 8 * 4),
 }
 _SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserved a block
 
 
 def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
-    """One ring stage: the 16 columns' weights of a superblock (Q4_K: 2 KB
-    of nibbles; Q8_0: 4 KB of int8; Q6_K: 3 KB of ql | qh) and their scales
-    (Q4_K: dsub and msub, 512 B; Q8_0: 256 B; Q6_K: 16 groups, 512 B), then
-    per row of x its int8 values (256 B) and scales."""
+    """One ring stage: the 16 columns' weights of a superblock (Q4_K and
+    Q4_0: 2 KB of nibbles; Q5_K: 2.5 KB of nibbles | qh; Q8_0: 4 KB of int8;
+    Q6_K: 3 KB of ql | qh) and their scales (Q4_K and Q5_K: dsub and msub,
+    512 B; Q8_0 and Q4_0: 256 B; Q6_K: 16 groups, 512 B), then per row of x
+    its int8 values (256 B) and scales."""
     w, sc, xs = _W4A8_STAGE[kind]
     return w + sc + x_rows * (W4A8_SB + xs)
 
@@ -365,6 +410,9 @@ _KERNEL_PLANES = {
     GGMLType.Q8_0: {"qs": (1, torch.int8), "dsub": (32, torch.bfloat16)},
     GGMLType.Q6_K: {"ql": (2, torch.uint8), "qh": (4, torch.uint8),
                     "dsub": (16, torch.bfloat16)},
+    GGMLType.Q5_K: {"qs": (2, torch.uint8), "qh": (8, torch.uint8), "dsub": (32, torch.bfloat16),
+                    "msub": (32, torch.bfloat16)},
+    GGMLType.Q4_0: {"qs": (2, torch.uint8), "dsub": (32, torch.bfloat16)},
 }
 
 
@@ -473,9 +521,28 @@ def qmm_q6k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Ten
     return _dequant_matmul("qmm_q6k", _lib_q6k, GGMLType.Q6_K, x2, qt, out_dtype)
 
 
+def qmm_q5k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """x2 (rows, k) @ W^T -> (rows, m) through the Q5_K dequant kernel;
+    float32 sums, rounded once to `out_dtype`."""
+    p = qt.planes
+    if not x2.is_cuda:
+        return qmm_q5k_plain(x2, p["qs"], p["qh"], p["dsub"], p["msub"]).to(out_dtype)
+    return _dequant_matmul("qmm_q5k", _lib_q5k, GGMLType.Q5_K, x2, qt, out_dtype)
+
+
+def qmm_q4_0(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+    """x2 (rows, k) @ W^T -> (rows, m) through the Q4_0 dequant kernel;
+    float32 sums, rounded once to `out_dtype`."""
+    p = qt.planes
+    if not x2.is_cuda:
+        return qmm_q4_0_plain(x2, p["qs"], p["dsub"]).to(out_dtype)
+    return _dequant_matmul("qmm_q4_0", _lib_q4_0, GGMLType.Q4_0, x2, qt, out_dtype)
+
+
 # the int8-activation form of each scheme: its launch counter
 W4A8_FORMS = {GGMLType.Q4_K: "qmm_w4a8", GGMLType.Q8_0: "qmm_w4a8_q8_0",
-              GGMLType.Q6_K: "qmm_w4a8_q6k"}
+              GGMLType.Q6_K: "qmm_w4a8_q6k", GGMLType.Q5_K: "qmm_w4a8_q5k",
+              GGMLType.Q4_0: "qmm_w4a8_q4_0"}
 
 
 def _w4a8_plain(x2, qt: QTensor, plane):
@@ -484,6 +551,10 @@ def _w4a8_plain(x2, qt: QTensor, plane):
         return qmm_w4a8_q8_0_plain(x2, p["qs"], p["dsub"])
     if qt.kind == GGMLType.Q6_K:
         return qmm_w4a8_q6k_plain(x2, p["ql"], p["qh"], p["dsub"])
+    if qt.kind == GGMLType.Q5_K:
+        return qmm_w4a8_q5k_plain(x2, p["qs"], p["qh"], p["dsub"], p["msub"])
+    if qt.kind == GGMLType.Q4_0:
+        return qmm_w4a8_q4_0_plain(x2, p["qs"], p["dsub"])
     return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane)
 
 
@@ -503,7 +574,8 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     if not x2.is_cuda:
         return _w4a8_plain(x2, qt, plane).to(out_dtype)
     rows, k = x2.shape
-    _build.require(kind in W4A8_FORMS, f"{kind.name}: qmm_w4a8 takes Q4_K, Q8_0 or Q6_K planes")
+    _build.require(kind in W4A8_FORMS,
+                   f"{kind.name}: qmm_w4a8 takes Q4_K, Q5_K, Q6_K, Q8_0 or Q4_0 planes")
     planes = _check_weight(qt, k, x2.device, stacked=plane is not None, kind=kind)
     if plane is not None:
         _build.require(plane.dtype == torch.int32 and plane.shape == (rows,)
@@ -623,7 +695,8 @@ def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
 
 
 # the dequant kernel of each scheme
-DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k"}
+DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k",
+                 GGMLType.Q5_K: "qmm_q5k", GGMLType.Q4_0: "qmm_q4_0"}
 
 
 def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
@@ -641,7 +714,7 @@ def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
 
 def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x (..., k) @ W^T -> (..., m) in x's dtype for a kernel-layout weight
-    (Q4_K, Q8_0 or Q6_K), routed by row count, by whether `qt` carries W8
+    (Q4_K, Q5_K, Q6_K, Q8_0 or Q4_0), routed by row count, by whether `qt` carries W8
     planes and by its scheme (`route`). The kernels write x's dtype
     themselves, so no cast follows them.
 
@@ -658,6 +731,10 @@ def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
         out = qmm_q8_0(x2, qt, x.dtype)
     elif kernel == "qmm_q6k":
         out = qmm_q6k(x2, qt, x.dtype)
+    elif kernel == "qmm_q5k":
+        out = qmm_q5k(x2, qt, x.dtype)
+    elif kernel == "qmm_q4_0":
+        out = qmm_q4_0(x2, qt, x.dtype)
     else:
         out = qmm_q4k(x2, qt, x.dtype)
     return out.reshape(*lead, qt.m)

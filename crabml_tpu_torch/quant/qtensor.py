@@ -23,6 +23,17 @@ experts with a leading expert axis on every plane, as named torch planes:
   half's 64 `ql` bytes holds element j in its low nibble and j + 64 in its
   high nibble, and bits 2s, 2s + 1 of byte j of its 32 `qh` bytes are the
   top two bits of element 32s + j (`q6k_values`).
+- Q5_K, canonical planes: Q4_K's (`qs` in the same per-64 nibble order,
+  `sc`, `mn`, `d`, `dmin`) and `qh` u8 (m, k/8) in ggml order: bit b of
+  byte l of a superblock's 32 `qh` bytes is the top bit of element 32b + l
+  (`q5k_values`). Kernel planes `qs`, `qh` unchanged and Q4_K's `dsub` =
+  d*sc, `msub` = -dmin*mn, one per 32, so w = val*dsub + msub, val 0..31.
+- Q4_0, canonical planes: `qs` u8 (m, k/2) in ggml's per-32 order (byte j of
+  a 32-element block holds element j in its low nibble and j + 16 in its
+  high nibble) and `d` f32 (m, k/32). Kernel planes: `qs` reordered at load
+  into Q4_K's per-64 order (byte j of a 64-element chunk holds element j low
+  and j + 32 high), so both CUDA kernels unpack it as they unpack Q4_K, and
+  `dsub` = d, one per 32, so w = (val - 8)*dsub.
 - W8 prefill planes, optional beside the kernel planes (attached by
   ops/cuda/gemm_quant.py::augment_w8): `w8` i8 (m, kpad8), k contiguous and
   zero-padded to a multiple of 512, and `dw` f32 (m, kpad8/512), one scale per
@@ -45,7 +56,7 @@ from ..gguf.constants import GGMLType, GGML_BLOCK_SIZES, QK_K
 
 
 # the kinds that have kernel planes and CUDA matmuls
-KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K)
+KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0)
 
 
 @dataclass
@@ -109,20 +120,28 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
             "sc": b[:, 192:208].contiguous().view(torch.int8).reshape(m, k // 16),
             "d": b[:, 208:210].contiguous().view(torch.float16).float().reshape(m, k // QK_K),
         }
-    elif typ == GGMLType.Q4_K:
-        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 144)
+    elif typ == GGMLType.Q4_0:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 18)
+        planes = {
+            "qs": b[:, 2:18].reshape(m, k // 2),
+            "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32),
+        }
+    elif typ in (GGMLType.Q4_K, GGMLType.Q5_K):
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 144) or (nb, 176)
         dd = b[:, 0:4].contiguous().view(torch.float16).float()  # (nb, 2): d, dmin
         sc, mn = _k4_scale_min(b[:, 4:16])
         planes = {
-            "qs": b[:, 16:144].reshape(m, k // 2),
+            "qs": b[:, -128:].reshape(m, k // 2),
             "sc": sc.reshape(m, k // 32),
             "mn": mn.reshape(m, k // 32),
             "d": dd[:, 0].reshape(m, k // QK_K).contiguous(),
             "dmin": dd[:, 1].reshape(m, k // QK_K).contiguous(),
         }
+        if typ == GGMLType.Q5_K:
+            planes["qh"] = b[:, 16:48].reshape(m, k // 8)
     else:
         raise UnsupportedError(
-            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_K and Q6_K")
+            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_0, Q4_K, Q5_K and Q6_K")
     if len(shape) != 3:
         return QTensor(typ, (m, k), planes)
     E = int(shape[0])
@@ -135,6 +154,31 @@ def nibbles(qs: torch.Tensor) -> torch.Tensor:
     lead = qs.shape[:-1]
     q = qs.reshape(*lead, -1, 32)
     return torch.cat([q & 0xF, q >> 4], dim=-1).reshape(*lead, -1)
+
+
+def q5k_values(qs: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/2) qs in 64-chunk nibble order and (..., m, k/8) qh in
+    ggml's Q5_K order -> (..., m, k) values 0..31 (u8)."""
+    lead = qh.shape[:-1]
+    h = qh.reshape(*lead, -1, 1, 32)
+    hi = torch.cat([(h >> b) & 1 for b in range(8)], dim=-2)  # (..., superblocks, 8, 32)
+    return nibbles(qs) | (hi.reshape(*lead, -1) << 4)
+
+
+def q4_0_values(qs: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/2) qs in ggml's per-32 Q4_0 order -> (..., m, k) values
+    0..15 (u8), 8 above the signed weight."""
+    lead = qs.shape[:-1]
+    q = qs.reshape(*lead, -1, 16)
+    return torch.cat([q & 0xF, q >> 4], dim=-1).reshape(*lead, -1)
+
+
+def nibble_pack(vals: torch.Tensor) -> torch.Tensor:
+    """(..., m, k) values 0..15 -> (..., m, k/2) u8 in 64-chunk nibble
+    order, the inverse of `nibbles`."""
+    lead = vals.shape[:-1]
+    v = vals.to(torch.uint8).reshape(*lead, -1, 2, 32)
+    return (v[..., 0, :] | (v[..., 1, :] << 4)).reshape(*lead, -1)
 
 
 def q6k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
@@ -178,7 +222,12 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     if qt.kind == GGMLType.Q6_K:
         q = (q6k_values(p["ql"], p["qh"]).float() - 32).reshape(*qt.shape[:-1], qt.k // 16, 16)
         return (q * _dsub(qt, 16)[..., None]).reshape(qt.shape).to(dtype)
-    q = nibbles(p["qs"]).float().reshape(*qt.shape[:-1], qt.k // 32, 32)
+    if qt.kind == GGMLType.Q4_0:
+        vals = nibbles(p["qs"]) if qt.kernel_layout else q4_0_values(p["qs"])
+        q = (vals.float() - 8).reshape(*qt.shape[:-1], qt.k // 32, 32)
+        return (q * _dsub(qt, 32)[..., None]).reshape(qt.shape).to(dtype)
+    vals = q5k_values(p["qs"], p["qh"]) if qt.kind == GGMLType.Q5_K else nibbles(p["qs"])
+    q = vals.float().reshape(*qt.shape[:-1], qt.k // 32, 32)
     if qt.kernel_layout:
         w = q * p["dsub"].float()[..., None] + p["msub"].float()[..., None]
     else:
@@ -189,24 +238,30 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
     """Canonical planes -> kernel planes: {qs, dsub, msub} for Q4_K, {qs,
-    dsub} for Q8_0, {ql, qh, dsub} for Q6_K, the float32 scale rounded once
-    to `scale_dtype`. F32 and F16 are returned as they are (they take the
-    dense matmul)."""
+    qh, dsub, msub} for Q5_K, {qs, dsub} for Q8_0 and Q4_0 (Q4_0's nibbles
+    reordered into the per-64 order), {ql, qh, dsub} for Q6_K, the float32
+    scale rounded once to `scale_dtype`. F32 and F16 are returned as they
+    are (they take the dense matmul)."""
     if qt.kind not in KERNEL_KINDS or qt.kernel_layout:
         return qt
     p = qt.planes
     if qt.kind == GGMLType.Q8_0:
         return QTensor(qt.kind, qt.shape, {"qs": p["qs"].contiguous(),
                                            "dsub": _dsub(qt, 32).to(scale_dtype)})
+    if qt.kind == GGMLType.Q4_0:
+        if qt.k % 64:
+            raise UnsupportedError(f"Q4_0 weight of shape {qt.shape}: rows of 64-element chunks only")
+        return QTensor(qt.kind, qt.shape, {"qs": nibble_pack(q4_0_values(p["qs"])),
+                                           "dsub": _dsub(qt, 32).to(scale_dtype)})
     if qt.kind == GGMLType.Q6_K:
         return QTensor(qt.kind, qt.shape, {"ql": p["ql"].contiguous(), "qh": p["qh"].contiguous(),
                                            "dsub": _dsub(qt, 16).to(scale_dtype)})
     dl, ml = _folded_scales(qt)
-    return QTensor(qt.kind, qt.shape, {
-        "qs": qt.planes["qs"].contiguous(),
-        "dsub": dl.to(scale_dtype),
-        "msub": (-ml).to(scale_dtype),
-    })
+    planes = {"qs": p["qs"].contiguous()}
+    if qt.kind == GGMLType.Q5_K:
+        planes["qh"] = p["qh"].contiguous()
+    return QTensor(qt.kind, qt.shape, {**planes, "dsub": dl.to(scale_dtype),
+                                       "msub": (-ml).to(scale_dtype)})
 
 
 def cat_rows(qts: list[QTensor]) -> QTensor:

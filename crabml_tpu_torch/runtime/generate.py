@@ -48,7 +48,14 @@ class StepGraph:
     Python's cyclic collector is off during the capture: a graph that became
     garbage in a reference cycle (its step refers back to its owner) would,
     if collected then, free its memory pool, and that cudaFree invalidates
-    the capture under way. It is collected later, outside any capture."""
+    the capture under way. It is collected later, outside any capture.
+
+    A capture that fails raises, but first leaves the card's random numbers
+    usable: torch puts the default CUDA generator and every generator
+    registered with a graph into capture mode when the capture begins and
+    takes them out of it only when the capture ends well, so a failed one
+    would leave them refusing every later draw. `_release_generators` ends
+    that mode and the failed graph is dropped."""
 
     def __init__(self, step, device: torch.device, pool=None,
                  generator: torch.Generator | None = None):
@@ -67,6 +74,10 @@ class StepGraph:
             with _build.recording() as self.launches, \
                     torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 step(generator)
+        except BaseException:
+            del self.graph
+            _release_generators(device, generator)
+            raise
         finally:
             if collecting:
                 gc.enable()
@@ -78,6 +89,20 @@ class StepGraph:
         for _ in range(times):
             self.graph.replay()
         _build.replayed(self.launches, times)
+
+
+def _release_generators(device: torch.device, generator: torch.Generator | None):
+    """Take the default CUDA generator of `device` and `generator` out of the
+    capture mode a failed capture left them in. Only a capture that ends
+    well does that in torch (CUDAGraph::capture_end), so one is made here:
+    an empty graph with the same generators registered, captured on its own
+    stream and dropped."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.device(device), torch.cuda.graph(graph):
+        torch.zeros(1, device=device)  # a graph with no node draws a warning
+    torch.cuda.synchronize(device)
 
 
 @dataclass

@@ -11,8 +11,8 @@ step, replayed.
 The Runner runs on `cuda` unless the caller passes `device="cpu"`; without a
 card and without that request it raises.
 
-`prefill_w8` decides on the W8 prefill planes (int8 weights beside the Q4_K,
-Q8_0 or Q6_K planes, 8 more bits a weight of device memory; chunks of 249 rows
+`prefill_w8` decides on the W8 prefill planes (int8 weights beside the
+quantized planes, 8 more bits a weight of device memory; chunks of 249 rows
 or more then take the W8 kernels): True attaches them all, False none, and None, the
 default, attaches what fits the card's free memory (`_auto_w8_budget`), which
 on the CPU is nothing.

@@ -1,5 +1,6 @@
 """Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K,
-Q8_0 or Q6_K weights) in seconds.
+Q5_K, Q6_K, Q8_0 or Q4_0 weights, or llama.cpp's mixed _K_M layout) in
+seconds.
 
 No multi-GB checkpoint ships with the repo, so the port's main path runs on a
 byte-valid GGUF v3 made from a seed. Every block gets random quant bytes and
@@ -16,10 +17,25 @@ finite through every layer:
 - Q6_K (256 weights, 210 bytes): random `ql`, `qh` and int8 `scales`; the
   6-bit value less 32 has a standard deviation of ~18.5 and the scale an rms
   of ~73.9, so d = sigma/1367.
+- Q5_K (256 weights, 176 bytes): random `scales`, `qh` and `qs`; with 6-bit
+  sc, mn and 5-bit q uniform, w = d*sc*q - dmin*mn has a standard deviation
+  of about 527*d when dmin = 15.5*d (the mean of q), so d = sigma/527.
+- Q4_0 (32 weights, 18 bytes): random nibbles; q - 8 has a standard
+  deviation of ~4.64, so d = sigma/4.64.
 
 `lm_head` writes `output.weight` in another scheme than the rest: Q6_K beside
 Q4_K layers is what llama.cpp's Q4_K_S and Q4_K_M files carry
-(`llama_tensor_get_type` puts the output in Q6_K). Norm weights are f32 ones and
+(`llama_tensor_get_type` puts the output in Q6_K).
+
+`mix="k_m"` (`--mix k_m`) writes llama.cpp's _K_M layout over the `scheme`
+layers, as `llama_tensor_get_type` in llama.cpp's src/llama-quant.cpp does for
+LLAMA_FTYPE_MOSTLY_Q4_K_M and Q5_K_M: `attn_v` and `ffn_down` are Q6_K in
+layer i of n where `use_more_bits(i, n)` holds, i < n/8 or i >= 7n/8 or
+(i - n/8) % 3 == 2 (integer division; n the file's depth, after --layers),
+and `output.weight` is Q6_K. So `--scheme q4_k --mix k_m` is a Q4_K_M file
+and `--scheme q5_k --mix k_m` a Q5_K_M file. A mixture-of-experts shape
+refuses the mix (llama.cpp would make its experts Q6_K, which the port's
+mixture of experts does not take). Norm weights are f32 ones and
 the tokenizer is a llama-SPM vocab of specials, byte tokens and synthetic
 pieces. No element is quantized one at a time: the file is random bytes
 patched per block, written tensor by tensor.
@@ -34,6 +50,7 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --lm-head q6_k
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q5_k --mix k_m
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
 """
 
@@ -96,27 +113,56 @@ def q6k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     return blocks
 
 
+def q5k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/256, 176) u8 Q5_K blocks with random scales, qh and
+    nibbles and fixed f16 d = sigma/527, dmin = 15.5*d."""
+    blocks = np.frombuffer(rng.bytes(n // 256 * 176), np.uint8).reshape(-1, 176).copy()
+    d = np.float16(sigma / 527.0)
+    blocks[:, 0:4] = np.array([d, np.float16(15.5 * float(d))], np.float16).view(np.uint8)
+    return blocks
+
+
+def q4_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 18) u8 Q4_0 blocks with random nibbles and a fixed
+    f16 d = sigma/4.64."""
+    blocks = np.frombuffer(rng.bytes(n // 32 * 18), np.uint8).reshape(-1, 18).copy()
+    blocks[:, 0:2] = np.array([sigma / 4.64], np.float16).view(np.uint8)
+    return blocks
+
+
 SCHEMES = {  # --scheme -> (GGML type, block writer)
     "q4_k": (GGMLType.Q4_K, q4k_blocks),
     "q8_0": (GGMLType.Q8_0, q8_0_blocks),
     "q6_k": (GGMLType.Q6_K, q6k_blocks),
+    "q5_k": (GGMLType.Q5_K, q5k_blocks),
+    "q4_0": (GGMLType.Q4_0, q4_0_blocks),
 }
+MIXES = ("k_m",)
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp's use_more_bits(i_layer, n_layers) (src/llama-quant.cpp):
+    the layers whose attn_v and ffn_down a _K_M file keeps in Q6_K."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
 
 
 def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | None = None,
                      verbose: bool = False, scheme: str = "q4_k",
-                     lm_head: str | None = None) -> str:
+                     lm_head: str | None = None, mix: str | None = None) -> str:
     """Write the synthetic GGUF of shape `model` (optionally with fewer
     layers) to `path`, every matrix in `scheme` but `output.weight`, which
-    is in `lm_head` (default: `scheme`)."""
+    is in `lm_head` (default: `scheme`, or Q6_K with a mix), and, with `mix`
+    "k_m", the attn_v and ffn_down of the `use_more_bits` layers in Q6_K."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
-    lm_head = lm_head or scheme
+    if mix is not None and (mix not in MIXES or experts):
+        raise ValueError(f"mix {mix!r}: only 'k_m', and on a dense shape")
+    lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
     meta = {
         "general.architecture": "llama",
-        "general.name": f"synthetic-{model}-{scheme}"
-                        + (f"-{lm_head}-output" if lm_head != scheme else ""),
+        "general.name": f"synthetic-{model}-{scheme}" + (f"-{mix}" if mix else "")
+                        + (f"-{lm_head}-output" if lm_head != scheme and not mix else ""),
         "llama.context_length": ctx,
         "llama.embedding_length": dim,
         "llama.feed_forward_length": hidden,
@@ -155,9 +201,10 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
 
     add("token_embd.weight", (vocab, dim), sigma=0.02)
     for l in range(n_layers):
+        more = "q6_k" if mix and use_more_bits(l, n_layers) else scheme
         add(f"blk.{l}.attn_q.weight", (dim, dim))
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim))
-        add(f"blk.{l}.attn_v.weight", (kv_dim, dim))
+        add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=more)
         add(f"blk.{l}.attn_output.weight", (dim, dim))
         if experts:
             counter[0] += 1
@@ -170,7 +217,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         else:
             add(f"blk.{l}.ffn_gate.weight", (hidden, dim))
             add(f"blk.{l}.ffn_up.weight", (hidden, dim))
-            add(f"blk.{l}.ffn_down.weight", (dim, hidden))
+            add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=more)
         ones(f"blk.{l}.attn_norm.weight", dim)
         ones(f"blk.{l}.ffn_norm.weight", dim)
     ones("output_norm.weight", dim)
@@ -195,11 +242,14 @@ def main(argv=None):
     ap.add_argument("--scheme", default="q4_k", choices=list(SCHEMES),
                     help="the quant scheme of every matrix")
     ap.add_argument("--lm-head", default=None, choices=list(SCHEMES),
-                    help="the scheme of output.weight (default: --scheme); q6_k beside "
-                         "q4_k layers is llama.cpp's Q4_K_M / Q4_K_S lm_head")
+                    help="the scheme of output.weight (default: --scheme, q6_k with --mix); "
+                         "q6_k beside q4_k layers is llama.cpp's Q4_K_M / Q4_K_S lm_head")
+    ap.add_argument("--mix", default=None, choices=list(MIXES),
+                    help="k_m: llama.cpp's _K_M layout over the --scheme layers (attn_v and "
+                         "ffn_down in Q6_K where use_more_bits holds, a Q6_K output)")
     args = ap.parse_args(argv)
     build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True,
-                     scheme=args.scheme, lm_head=args.lm_head)
+                     scheme=args.scheme, lm_head=args.lm_head, mix=args.mix)
 
 
 if __name__ == "__main__":

@@ -918,13 +918,43 @@ def test_a_failed_capture_raises(cuda):
     assert dict(_build.launches) == before
 
 
+def test_random_numbers_work_after_a_failed_capture(cuda):
+    """A failed capture leaves the card's default generator and the
+    generator registered with the failed graph usable: both draw after it,
+    a later capture with that generator replays, and the default generator
+    still draws what its seed gives."""
+    from crabml_tpu_torch.runtime.generate import StepGraph
+
+    x = torch.ones(4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with pytest.raises(RuntimeError):
+        StepGraph(lambda g: x.add_(torch.rand(4, device=cuda, generator=g).sum().item()), cuda,
+                  generator=gen)
+    torch.manual_seed(3)
+    a = torch.rand(8, device=cuda)
+    torch.manual_seed(3)
+    assert torch.equal(torch.rand(8, device=cuda), a)
+    assert torch.isfinite(torch.randn(8, device=cuda, generator=gen)).all()
+    out = torch.zeros(4, device=cuda)
+    graph = StepGraph(lambda g: out.copy_(torch.rand(4, device=cuda, generator=g)), cuda,
+                      generator=gen)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(out, first)  # each replay draws fresh numbers
+    assert torch.isfinite(torch.rand(8, device=cuda)).all()
+
+
 # ---------------------------------------------------------------------------
-# the Q8_0 and Q6_K forms: the dequant kernels (qmm_q8_0.cu, qmm_q6k.cu) and
-# the int8-activation forms of qmm_w4a8.cu
+# the Q8_0, Q6_K, Q5_K and Q4_0 forms: the dequant kernels (qmm_q8_0.cu,
+# qmm_q6k.cu, qmm_q5k.cu, qmm_q4_0.cu) and the int8-activation forms of
+# qmm_w4a8.cu
 # ---------------------------------------------------------------------------
 
-SCHEME_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K],
-                                       ids=["q8_0", "q6_k"])
+SCHEME_KINDS = pytest.mark.parametrize(
+    "kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0],
+    ids=["q8_0", "q6_k", "q5_k", "q4_0"])
 
 
 def _x(rows, k, seed):
@@ -943,16 +973,47 @@ def _scheme_weight(kind, m, k, seed):
     return to_kernel_layout(to_planar(kind, raw, (m, k), "cuda"), torch.bfloat16)
 
 
+def _plain_of(kind, name):
+    """The plain version of the form `name`, on a planes dict."""
+    plain = getattr(gemm_quant, f"{name}_plain")
+    return lambda x, p: plain(x, *(p[n] for n in gemm_quant._KERNEL_PLANES[kind]))
+
+
 def _dequant_of(kind):
-    if kind == GGMLType.Q8_0:
-        return "qmm_q8_0", lambda x, p: gemm_quant.qmm_q8_0_plain(x, p["qs"], p["dsub"])
-    return "qmm_q6k", lambda x, p: gemm_quant.qmm_q6k_plain(x, p["ql"], p["qh"], p["dsub"])
+    name = gemm_quant.DEQUANT_FORMS[kind]
+    return name, _plain_of(kind, name)
 
 
 def _w4a8_plain_of(kind):
+    return _plain_of(kind, gemm_quant.W4A8_FORMS[kind])
+
+
+def _every_value_planes(kind, m, k, device):
+    """Kernel planes of an (m, k) weight of `kind` in which every value
+    (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K, 5-bit 0..31 for Q5_K,
+    nibbles for Q4_0) stands at every k position in some row, each row and
+    scale group with a scale (and Q5_K a minimum) of its own."""
+    n = torch.arange(m, device=device)[:, None]
+    j2, j4, j8 = (torch.arange(k // d, device=device)[None, :] for d in (2, 4, 8))
     if kind == GGMLType.Q8_0:
-        return lambda x, p: gemm_quant.qmm_w4a8_q8_0_plain(x, p["qs"], p["dsub"])
-    return lambda x, p: gemm_quant.qmm_w4a8_q6k_plain(x, p["ql"], p["qh"], p["dsub"])
+        j = torch.arange(k, device=device)[None, :]
+        planes = {"qs": ((n + 7 * j) % 255 - 127).to(torch.int8)}
+    elif kind == GGMLType.Q6_K:
+        planes = {"ql": ((n + j2) % 256).to(torch.uint8),
+                  "qh": ((3 * n + 7 * j4 + 1) % 256).to(torch.uint8)}
+    else:
+        planes = {"qs": ((n + j2) % 256).to(torch.uint8)}
+        if kind == GGMLType.Q5_K:  # even qh bits follow the row's high nibble, odd its low one
+            planes["qh"] = ((((n >> 4) & 1) * 0x55 | (n & 1) * 0xAA) ^ ((7 * j8 + 1) % 256)).to(
+                torch.uint8)
+    gr = gemm_quant.SCHEME_GROUP[kind]
+    grp = torch.arange(k // gr, device=device)[None, :]
+    planes["dsub"] = (0.01 * (1 + (16 * n + grp) % 61 / 64) * (1 - 2 * (grp % 3 == 2))).to(
+        torch.bfloat16)
+    assert (planes["dsub"][:, 1:] != planes["dsub"][:, :-1]).all()
+    if kind == GGMLType.Q5_K:
+        planes["msub"] = (-0.003 * (1 + (5 * n + 3 * grp) % 37 / 64)).to(torch.bfloat16)
+    return planes
 
 
 @SCHEME_KINDS
@@ -983,27 +1044,14 @@ def test_scheme_dequant_matmul_matches_plain(cuda, kind, rows, m, k):
 
 @SCHEME_KINDS
 def test_scheme_dequant_converts_every_value_exactly(cuda, kind):
-    """Every value (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K) at every
-    byte and bit position of a superblock, each row and scale group with a
-    scale of its own, one hot row of x at a time: the kernel's conversion,
-    its fragment order (Q6_K's per-half nibble and qh-bit order included)
-    and its choice of scale group return the plain version's bf16 weights
-    exactly."""
+    """Every value (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K, 5-bit
+    0..31 for Q5_K, nibbles for Q4_0) at every byte and bit position of a
+    superblock, each row and scale group with a scale of its own, one hot
+    row of x at a time: the kernel's conversion, its fragment order (Q6_K's
+    per-half and Q5_K's per-superblock qh-bit orders included) and its
+    choice of scale group return the plain version's bf16 weights exactly."""
     m, k = 256, 512
-    n = torch.arange(m, device=cuda)[:, None]
-    if kind == GGMLType.Q8_0:
-        j = torch.arange(k, device=cuda)[None, :]
-        planes = {"qs": ((n + 7 * j) % 255 - 127).to(torch.int8)}
-        gr = 32
-    else:
-        j2, j4 = torch.arange(k // 2, device=cuda)[None, :], torch.arange(k // 4, device=cuda)[None, :]
-        planes = {"ql": ((n + j2) % 256).to(torch.uint8),
-                  "qh": ((3 * n + 7 * j4 + 1) % 256).to(torch.uint8)}
-        gr = 16
-    grp = torch.arange(k // gr, device=cuda)[None, :]
-    planes["dsub"] = (0.01 * (1 + (16 * n + grp) % 61 / 64) * (1 - 2 * (grp % 3 == 2))).to(
-        torch.bfloat16)
-    assert (planes["dsub"][:, 1:] != planes["dsub"][:, :-1]).all()
+    planes = _every_value_planes(kind, m, k, cuda)
     qt = QTensor(kind, (m, k), planes)
     name, plain = _dequant_of(kind)
     w = dequantize(qt, torch.bfloat16)
@@ -1035,6 +1083,24 @@ def test_scheme_w4a8_matches_plain(cuda, kind, rows, m, k):
     assert _rel(got, want) <= 1e-4
     assert torch.equal(gemm_quant.qmm_w4a8(x, qt, torch.bfloat16), got.to(torch.bfloat16))
     assert torch.equal(gemm_quant.qmm_w4a8(x, qt), got)  # the same at every call
+
+
+@SCHEME_KINDS
+def test_scheme_w4a8_takes_every_value(cuda, kind):
+    """The int8-activation form on the planes of the one-hot sweep above,
+    16 one-hot rows of x a call: every value at every k position reaches
+    its column with its own scale (and minimum, or offset). Tolerance 1e-4
+    of max|out| per row block (the kernel's float32 epilogue rounds in
+    another order than the plain version's); one step of a value is ~1e-2."""
+    m, k = 256, 512
+    qt = QTensor(kind, (m, k), _every_value_planes(kind, m, k, cuda))
+    eye = torch.eye(k, device=cuda, dtype=torch.bfloat16)
+    plain = _w4a8_plain_of(kind)
+    for r0 in range(0, k, 16):
+        x = eye[r0:r0 + 16]
+        got = gemm_quant.qmm_w4a8(x, qt)
+        want = plain(x, qt.planes)
+        assert _rel(got, want) <= 1e-4, f"rows {r0}..{r0 + 15}"
 
 
 @SCHEME_KINDS
@@ -1099,6 +1165,26 @@ def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
         gemm_quant.qmm_w4a8(x[:17], q6)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(x[:2], q6, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q4_0], ids=["q5_k", "q4_0"])
+def test_q5k_q4_0_wrappers_raise_rather_than_fall_back(cuda, kind):
+    """The Q5_K and Q4_0 forms raise on a CUDA tensor where they do not
+    take the input: float32 scales, the weight given to another scheme's
+    dequant kernel, 17 rows to qmm_w4a8, a plane per row (their plane form
+    is not ported)."""
+    qt = _scheme_weight(kind, 256, 512, 1)
+    x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
+    name = gemm_quant.DEQUANT_FORMS[kind]
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k(x, qt)
+    f32 = QTensor(kind, qt.shape, {**qt.planes, "dsub": qt.planes["dsub"].float()})
+    with pytest.raises(UnsupportedError):
+        getattr(gemm_quant, name)(x, f32)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:17], qt)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:2], qt, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
 
 
 # qmm_w4a8's Q4_K outputs at 1, 8 and 16 rows of the 7B qkv shape (sha256 of

@@ -1,9 +1,11 @@
-"""Port parity for the Q8_0 and Q6_K weights: the planes against the codec,
-each plain matmul against the JAX Pallas kernel of the same scheme
-(interpret mode on the CPU), the 2-layer forward under backend `w4a8`, and
-greedy Runner tokens from one GGUF; the 2-layer forward of Q4_K layers with
-a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its Runner check is
-tests/test_torch_schemes_lm_head.py)."""
+"""Port parity for the Q8_0, Q6_K, Q5_K and Q4_0 weights: the planes
+against the codec, each plain matmul against the JAX Pallas kernel of the
+same scheme (interpret mode on the CPU), the 2-layer forward under backend
+`w4a8`, and greedy Runner tokens from one GGUF; the 2-layer forward of Q4_K
+layers with a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its Runner
+check is tests/test_torch_schemes_lm_head.py); a llama.cpp _K_M file, whose
+layers differ in kind, against the JAX forward on its float32 twin; and the
+mixture of experts' refusal of experts other than Q4_K."""
 
 import jax
 import jax.numpy as jnp
@@ -12,32 +14,46 @@ import pytest
 import torch
 
 from crabml_tpu.gguf.constants import GGMLType as JGGMLType
+from crabml_tpu.gguf.reader import GGUFFile as JGGUFFile
+from crabml_tpu.models.config import config_from_gguf as jconfig_from_gguf
 from crabml_tpu.models.forward import KVCache as JKVCache
 from crabml_tpu.models.forward import forward as jforward
 from crabml_tpu.models.synthetic import make_weights, tiny_config, write_synthetic_gguf
 from crabml_tpu.models.weights import fuse_weights, repack_weights
+from crabml_tpu.models.weights import load_weights as jload_weights
 from crabml_tpu.ops import matmul as jmm
 from crabml_tpu.ops.pallas import gemm_quant as jgemm
 from crabml_tpu.quant.codecs import quantize as jquantize
 from crabml_tpu.quant.planar import to_planar as jto_planar
 from crabml_tpu.runtime.runner import Runner as JRunner
+from crabml_tpu_torch.errors import UnsupportedError
 from crabml_tpu_torch.gguf.constants import GGMLType
 from crabml_tpu_torch.gguf.reader import GGUFFile
-from crabml_tpu_torch.models.config import ModelConfig
+from crabml_tpu_torch.gguf.writer import GGUFWriter
+from crabml_tpu_torch.models.config import ModelConfig, config_from_gguf
 from crabml_tpu_torch.models.forward import KVCache, forward
-from crabml_tpu_torch.models.weights import from_jax_weights, load_weights
+from crabml_tpu_torch.models.weights import _layer, from_jax_weights, load_weights
 from crabml_tpu_torch.ops.cuda import gemm_quant
 from crabml_tpu_torch.quant import codecs
 from crabml_tpu_torch.quant.qtensor import dequantize, to_kernel_layout, to_planar
 from crabml_tpu_torch.runtime.runner import Runner
 
-SCHEMES = pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K], ids=["q8_0", "q6_k"])
+KINDS = (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0)
+SCHEMES = pytest.mark.parametrize("kind", KINDS, ids=["q8_0", "q6_k", "q5_k", "q4_0"])
 M, K = 512, 1024
 # tests/test_torch_model.py's widths: head dim 128 and a 128-aligned cache
 CFG = dict(embedding_dim=512, hidden_dim=512, n_heads=4, n_kv_heads=2, n_layers=2,
            vocab_size=512, seq_len=256)
 PREFILL = 32
 PROMPT = "tok7 tok99 tok3 tok250 tok17"
+# the kinds whose JAX decode step is compared run op by op (jax.disable_jit):
+# jitted, it moves off its own op-by-op logits on the Q6_K model. On the
+# Q4_0 model the op-by-op run is the one that moves: a Q4_0 embedding row
+# makes layer 0's int8 activations land on exact ties (x/dx = 63.5 where
+# an element is 4 and amax 8 steps of d), which a one-ulp difference in the
+# op-by-op run breaks the other way (9.2e-3 in the logits); the jitted run
+# and the port break them alike.
+OP_BY_OP_DECODE = {GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q4_K}
 
 
 @pytest.fixture
@@ -53,20 +69,22 @@ def w4a8_backend():
 def fast_q6k(monkeypatch):
     """The JAX package's random models quantize each matrix with the
     codec, whose Q6_K encoder loops over blocks in Python (minutes for a
-    tiny model). Here its Q6_K matrices are random blocks instead (the
-    port's synthetic writer, seeded from the values): valid Q6_K bytes that
-    both packages read alike."""
+    tiny model) and whose Q5_K encoder takes seconds a matrix. Here their
+    Q6_K and Q5_K matrices are random blocks instead (the port's synthetic
+    writer, seeded from the values): valid bytes that both packages read
+    alike."""
     import crabml_tpu.models.synthetic as jsynth
 
-    from crabml_tpu_torch.tools.synth_gguf import q6k_blocks
+    from crabml_tpu_torch.tools.synth_gguf import q5k_blocks, q6k_blocks
 
     encode = jsynth.quantize
+    fast = {JGGMLType.Q6_K: q6k_blocks, JGGMLType.Q5_K: q5k_blocks}
 
     def quantize(typ, x):
-        if typ != JGGMLType.Q6_K:
+        if typ not in fast:
             return encode(typ, x)
         rng = np.random.default_rng(np.frombuffer(x.tobytes()[:32], np.uint32))
-        return q6k_blocks(rng, x.size, float(x.std())).tobytes()
+        return fast[typ](rng, x.size, float(x.std())).tobytes()
 
     monkeypatch.setattr(jsynth, "quantize", quantize)
 
@@ -88,7 +106,7 @@ def _blocks(kind, shape, seed):
 def weights():
     """{kind: (JAX kernel-layout QTensor, port kernel planes)} from the same bytes."""
     out = {}
-    for kind in (GGMLType.Q8_0, GGMLType.Q6_K):
+    for kind in KINDS:
         raw = _raw(kind, (M, K), 7)
         jqt = jgemm.repack(jto_planar(JGGMLType(int(kind)), raw, (M, K)))
         out[kind] = jqt, to_kernel_layout(to_planar(kind, raw, (M, K)))
@@ -97,6 +115,11 @@ def weights():
 
 def _rel(got, want):
     return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _kernel_planes(qt):
+    """The kernel planes in the order the plain versions take them."""
+    return [qt.planes[n] for n in gemm_quant._KERNEL_PLANES[qt.kind]]
 
 
 @SCHEMES
@@ -109,7 +132,8 @@ def test_planes_dequantize_bit_exact(kind):
     assert qt.shape == (3, 256, 512)
     np.testing.assert_array_equal(dequantize(qt).numpy(), want)
     np.testing.assert_array_equal(dequantize(to_kernel_layout(qt)).numpy(), want)
-    names = {GGMLType.Q8_0: {"qs", "dsub"}, GGMLType.Q6_K: {"ql", "qh", "dsub"}}[kind]
+    names = {GGMLType.Q8_0: {"qs", "dsub"}, GGMLType.Q6_K: {"ql", "qh", "dsub"},
+             GGMLType.Q5_K: {"qs", "qh", "dsub", "msub"}, GGMLType.Q4_0: {"qs", "dsub"}}[kind]
     assert set(to_kernel_layout(qt).planes) == names
 
 
@@ -120,14 +144,10 @@ def test_dequant_plain_matches_pallas(weights, kind):
     jqt, qt = weights[kind]
     x = np.random.default_rng(1).standard_normal((32, K)).astype(np.float32)
     want = np.asarray(jgemm.qmatmul_pallas(jnp.asarray(x), jqt, jnp.float32, act_quant=False))
-    p = qt.planes
     xt = torch.from_numpy(x)
-    if kind == GGMLType.Q8_0:
-        got = gemm_quant.qmm_q8_0_plain(xt, p["qs"], p["dsub"])
-        wrapper = gemm_quant.qmm_q8_0
-    else:
-        got = gemm_quant.qmm_q6k_plain(xt, p["ql"], p["qh"], p["dsub"])
-        wrapper = gemm_quant.qmm_q6k
+    name = gemm_quant.DEQUANT_FORMS[kind]
+    got = getattr(gemm_quant, f"{name}_plain")(xt, *_kernel_planes(qt))
+    wrapper = getattr(gemm_quant, name)
     assert _rel(got.numpy(), want) <= 2e-5
     # the wrapper takes the plain version for a CPU tensor, and so does the router
     np.testing.assert_array_equal(wrapper(xt, qt).numpy(), got.numpy())
@@ -138,18 +158,16 @@ def test_dequant_plain_matches_pallas(weights, kind):
 @pytest.mark.parametrize("rows", [1, 8])
 def test_w4a8_plain_matches_pallas(weights, kind, rows):
     """Tolerance 1e-5 of max|out|: the same int8 activations (per 16-group
-    for Q6_K, 32 for Q8_0, as the JAX kernel's scheme.gr) and exact integer
-    group dots; the TPU kernel's -128 centring and offset correction round
-    differently in float32 than dsub*dx*dot - 32*dsub*sx."""
+    for Q6_K, 32 for the others, as the JAX kernel's scheme.gr) and exact
+    integer group dots; the TPU kernel's -128 centring and offset or minimum
+    correction round differently in float32 than dsub*dx*dot + msub*sx
+    (msub = -32*dsub for Q6_K, -8*dsub for Q4_0)."""
     jqt, qt = weights[kind]
     x = np.random.default_rng(2 + rows).standard_normal((rows, K)).astype(np.float32)
     want = np.asarray(jgemm.qmatmul_pallas(jnp.asarray(x), jqt, jnp.float32, act_quant=True))
-    p = qt.planes
     xt = torch.from_numpy(x)
-    if kind == GGMLType.Q8_0:
-        got = gemm_quant.qmm_w4a8_q8_0_plain(xt, p["qs"], p["dsub"])
-    else:
-        got = gemm_quant.qmm_w4a8_q6k_plain(xt, p["ql"], p["qh"], p["dsub"])
+    plain = getattr(gemm_quant, f"{gemm_quant.W4A8_FORMS[kind]}_plain")
+    got = plain(xt, *_kernel_planes(qt))
     assert _rel(got.numpy(), want) <= 1e-5
     np.testing.assert_array_equal(gemm_quant.qmm_w4a8(xt, qt).numpy(), got.numpy())
     np.testing.assert_array_equal(gemm_quant.qmatmul_quant(xt, qt).numpy(), got.numpy())
@@ -191,7 +209,7 @@ def _forward_matches(kind, lm_head):
     jcache = JKVCache.create(jcfg, 1, jcfg.seq_len)
     cache = KVCache.create(cfg, 1, jcfg.seq_len)
     for toks, p in ((tokens[:, :PREFILL], 0), (tokens[:, PREFILL:], PREFILL)):
-        with jax.disable_jit(p > 0):
+        with jax.disable_jit(p > 0 and kind in OP_BY_OP_DECODE):
             want, jcache = jforward(jk, jcache, jnp.asarray(toks, jnp.int32),
                                     jnp.asarray([p], jnp.int32), jcfg, jnp.float32)
         got = forward(pw, cache, torch.from_numpy(toks), torch.tensor([p]), cfg, torch.float32)
@@ -212,10 +230,12 @@ def _tokens_match(path):
 def test_forward_matches_jax_w4a8(kind, w4a8_backend, fast_q6k):
     """Tolerance 2e-4 (tests/test_model.py:41), float32 on both sides: 32
     prefill rows take the scheme's dequant kernel, the decode step its
-    int8-activation form. The JAX decode step runs op by op (disable_jit):
-    on the Q6_K model its jitted logits differ from its own op-by-op ones
-    by 1.4e-2, while each of its jitted matmuls alone equals the eager call;
-    the port agrees with the op-by-op run to 1e-6."""
+    int8-activation form. The JAX decode step runs op by op (disable_jit)
+    for Q8_0 and Q6_K: on the Q6_K model its jitted logits differ from its
+    own op-by-op ones by 1.4e-2, while each of its jitted matmuls alone
+    equals the eager call; the port agrees with the op-by-op run to 1e-6.
+    For Q5_K and Q4_0 it runs jitted (OP_BY_OP_DECODE: the Q4_0 model's
+    exact int8 ties)."""
     _forward_matches(kind, kind)
 
 
@@ -236,19 +256,115 @@ def test_forward_q4k_with_q6k_lm_head_matches_jax(w4a8_backend):
 
 def test_synth_gguf_writes_each_scheme(tmp_path):
     """tools/synth_gguf.py: every matrix in the scheme, the lm_head in its
-    own; weights of standard deviation ~1/sqrt(k); the file loads."""
-    from crabml_tpu_torch.models.config import config_from_gguf
+    own; with --mix k_m, attn_v and ffn_down in Q6_K where llama.cpp's
+    use_more_bits holds (layer 1 of 2) and a Q6_K output; weights of standard
+    deviation ~1/sqrt(k); the file loads (q|k|v and gate|up left apart in
+    the mixed layer)."""
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    for scheme, lm_head, kind, head in (("q8_0", None, GGMLType.Q8_0, GGMLType.Q8_0),
-                                        ("q6_k", None, GGMLType.Q6_K, GGMLType.Q6_K),
-                                        ("q4_k", "q6_k", GGMLType.Q4_K, GGMLType.Q6_K)):
-        path = build_synth_gguf(str(tmp_path / f"{scheme}.gguf"), "tiny", seed=1,
-                                scheme=scheme, lm_head=lm_head)
+    for scheme, lm_head, mix, kind, head in (
+            ("q8_0", None, None, GGMLType.Q8_0, GGMLType.Q8_0),
+            ("q6_k", None, None, GGMLType.Q6_K, GGMLType.Q6_K),
+            ("q4_k", "q6_k", None, GGMLType.Q4_K, GGMLType.Q6_K),
+            ("q5_k", None, None, GGMLType.Q5_K, GGMLType.Q5_K),
+            ("q4_0", None, None, GGMLType.Q4_0, GGMLType.Q4_0),
+            ("q4_k", None, "k_m", GGMLType.Q4_K, GGMLType.Q6_K),
+            ("q5_k", None, "k_m", GGMLType.Q5_K, GGMLType.Q6_K)):
+        path = build_synth_gguf(str(tmp_path / f"{scheme}-{mix}.gguf"), "tiny", seed=1,
+                                scheme=scheme, lm_head=lm_head, mix=mix)
         gf = GGUFFile(path)
-        assert gf.get_tensor_info("blk.0.ffn_down.weight").typ == kind
+        more = GGMLType.Q6_K if mix else kind
+        for name, want in (("blk.0.ffn_down", kind), ("blk.0.attn_v", kind),
+                           ("blk.1.ffn_down", more), ("blk.1.attn_v", more),
+                           ("blk.1.attn_q", kind), ("blk.1.ffn_up", kind)):
+            assert gf.get_tensor_info(f"{name}.weight").typ == want, (scheme, mix, name)
         assert gf.get_tensor_info("output.weight").typ == head
         w = load_weights(gf, config_from_gguf(gf.metadata))
         down = dequantize(w["layers"][0]["ffn_down"])
         assert 0.9 < down.std().item() * np.sqrt(down.shape[1]) < 1.1
         assert w["output"].kind == head and w["output"].kernel_layout
+        l1 = w["layers"][1]
+        assert ("wqkv" in l1) == (mix is None) and ("wgu" in l1)
+        assert all(q.kernel_layout for q in l1.values() if hasattr(q, "planes"))
+
+
+def _f32_twin(src: str, dst: str):
+    """Copy a GGUF with every tensor dequantized to F32 (the codec's values)."""
+    gf = GGUFFile(src)
+    w = GGUFWriter()
+    for k, v in gf.metadata.as_dict().items():
+        w.add_metadata(k, v, gf.metadata.value_type(k))
+    for ti in gf.tensor_infos:
+        vals = codecs.dequantize(ti.typ, ti.to_numpy(), ti.n_elems).astype(np.float32)
+        w.add_tensor(ti.name, GGMLType.F32, ti.shape, vals)
+    w.write(dst)
+
+
+def test_mixed_k_m_forward_matches_jax_f32_twin(tmp_path):
+    """A 2-layer Q4_K_M file (`--scheme q4_k --mix k_m`: layer 1's attn_v and
+    ffn_down and the output in Q6_K) through the port, 32 prompt rows (the
+    dequant route, unfused q, k, v in layer 1), float32 with float32 scales,
+    against the JAX forward on the file's F32 twin (the JAX package cannot
+    stack layers of different kinds). Tolerance 2e-4 (tests/test_model.py:41):
+    the port's float32 weights are the codec's values exactly, so only the
+    order of float32 sums differs."""
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    path = build_synth_gguf(str(tmp_path / "q4_k_m.gguf"), "tiny", seed=6, scheme="q4_k",
+                            mix="k_m")
+    twin = str(tmp_path / "q4_k_m-f32.gguf")
+    _f32_twin(path, twin)
+    gf = GGUFFile(path)
+    cfg = config_from_gguf(gf.metadata)
+    w = load_weights(gf, cfg)
+    assert {n for n in w["layers"][1]} >= {"wq", "wk", "wv"} and "wqkv" in w["layers"][0]
+    assert w["layers"][1]["wv"].kind == GGMLType.Q6_K
+    jgf = JGGUFFile(twin)
+    jcfg = jconfig_from_gguf(jgf.metadata)
+    jw = jload_weights(jgf, jcfg)
+    tokens = np.random.default_rng(2).integers(3, cfg.vocab_size, (1, PREFILL))
+    want, _ = jforward(jw, JKVCache.create(jcfg, 1, 256), jnp.asarray(tokens, jnp.int32),
+                       jnp.asarray([0], jnp.int32), jcfg, jnp.float32)
+    got = forward(w, KVCache.create(cfg, 1, 256), torch.from_numpy(tokens), torch.tensor([0]),
+                  cfg, torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_w8_planes_attach_to_a_mixed_file(tmp_path):
+    """augment_w8_weights on a Q4_K_M file, whose layers hold different
+    names (layer 0 a fused wqkv, layer 1 wq, wk, wv apart): each eligible
+    matrix of each layer gains its W8 planes (256-row multiples: wq, not the
+    128-row wk / wv), and a layer without a name is left alone."""
+    from crabml_tpu_torch.models.weights import augment_w8_weights
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    path = build_synth_gguf(str(tmp_path / "q4_k_m.gguf"), "tiny", seed=6, scheme="q4_k",
+                            mix="k_m")
+    gf = GGUFFile(path)
+    w = augment_w8_weights(load_weights(gf, config_from_gguf(gf.metadata)))
+    l0, l1 = w["layers"]
+    assert "wqkv" in l0 and "wq" not in l0 and "wqkv" not in l1
+    assert all("w8" in l0[n].planes for n in ("wqkv", "wo", "wgu", "ffn_down"))
+    assert all("w8" in l1[n].planes for n in ("wq", "wo", "wgu", "ffn_down"))
+    assert not any("w8" in l1[n].planes for n in ("wk", "wv"))
+    assert "w8" in w["output"].planes
+
+
+@SCHEMES
+def test_moe_refuses_experts_other_than_q4k(kind):
+    """A mixture of experts takes Q4_K experts only (the grouped kernels and
+    the plane-per-row form of the other schemes are not ported): a layer of
+    another kind's experts raises at load."""
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES as SYNTH
+
+    _, blocks = next(v for v in SYNTH.values() if v[0] == kind)
+
+    def mat(shape, seed):
+        raw = blocks(np.random.default_rng(seed), int(np.prod(shape)), 0.05)
+        return to_planar(kind, raw, shape)
+
+    mats = {"wq": mat((256, 256), 1), "wk": mat((128, 256), 2), "wv": mat((128, 256), 3),
+            "wo": mat((256, 256), 4), "ffn_gate_exps": mat((4, 512, 256), 5),
+            "ffn_up_exps": mat((4, 512, 256), 6), "ffn_down_exps": mat((4, 256, 512), 7)}
+    with pytest.raises(UnsupportedError, match="experts"):
+        _layer(mats, {}, torch.float32)

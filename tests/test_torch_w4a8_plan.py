@@ -112,18 +112,20 @@ def test_last_column_tile_stops_at_m():
     assert gemm_quant.W4A8_COLS == 16 and gemm_quant.W4A8_SB == 256
 
 
-# the Q8_0 and Q6_K forms: dense only, at the 7B decode shapes and ragged ones
+# the Q8_0, Q6_K, Q5_K and Q4_0 forms: dense only, at the 7B decode shapes and ragged ones
 SCHEME_CASES = (
     [(r, m, k) for r in (1, 8, 16)
      for m, k in ((QKV, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))]
     + [(r, m, k) for r in (1, 3, 9) for m, k in ((300, 768), (100, 256))])
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K], ids=["q8_0", "q6_k"])
+@pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0],
+                         ids=["q8_0", "q6_k", "q5_k", "q4_0"])
 @pytest.mark.parametrize("rows,m,k", SCHEME_CASES)
 def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
-    """As for Q4_K, with the scheme's scale group: 32 elements for Q8_0, 16
-    for Q6_K (16 groups a superblock, one k16 integer mma each)."""
+    """As for Q4_K, with the scheme's scale group: 32 elements for Q8_0,
+    Q5_K and Q4_0, 16 for Q6_K (16 groups a superblock, one k16 integer mma
+    each)."""
     plan, count = _coverage(rows, m, k, False, kind)
     assert plan.group == (16 if kind == GGMLType.Q6_K else 32)
     assert count.shape[2] == k // plan.group and (count == 1).all()
@@ -134,12 +136,16 @@ def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
     (GGMLType.Q4_K, lambda xr: 2048 + 512 + xr * (256 + 64)),  # nibbles, dsub | msub; x, dx, sx
     (GGMLType.Q8_0, lambda xr: 4096 + 256 + xr * (256 + 32)),  # int8, dsub; x, dx
     (GGMLType.Q6_K, lambda xr: 3072 + 512 + xr * (256 + 128)),  # ql | qh, 16 dsub; x, dx, sx
-], ids=["q4_k", "q8_0", "q6_k"])
+    (GGMLType.Q5_K, lambda xr: 2560 + 512 + xr * (256 + 64)),  # nibbles | qh, dsub | msub
+    (GGMLType.Q4_0, lambda xr: 2048 + 256 + xr * (256 + 64)),  # nibbles, dsub; x, dx, sx
+], ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0"])
 @pytest.mark.parametrize("x_rows", [1, 8, 16])
 def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
     """A ring stage holds a superblock of the 16 columns: Q8_0 4 KB of int8
     weights and 8 bf16 scales a column, Q6_K 3 KB of ql | qh and 16 scale
-    groups a column. The ring is as deep as two blocks an SM allow, up to
+    groups a column, Q5_K 2.5 KB of nibbles | qh and Q4_K's scales, Q4_0
+    2 KB of nibbles and 8 scales a column (its offset needs sx, no minimum
+    plane). The ring is as deep as two blocks an SM allow, up to
     four stages: Q4_K keeps its four stages (three at 16 rows)."""
     plan = w4a8_plan(x_rows, DIM, FFN, False, kind)
     assert plan.x_rows == x_rows
