@@ -59,23 +59,28 @@ fails:
    with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
    report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
-10. Q8_0, Q6_K, Q5_K and Q4_0, and llama.cpp's mixed _K_M layout: phase 3
-   for each scheme and for a 2-layer Q4_K_M file (2 layers, card against
-   CPU), then the 7B widths with every matrix in Q8_0 at full depth
+10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K, and llama.cpp's mixed layouts:
+   phase 3 for each scheme and for a 2-layer Q4_K_M file (2 layers, card
+   against CPU), then the 7B widths with every matrix in Q8_0 at full depth
    (`7b-q8_0`, ~7.7 GB), in Q6_K cut to 8 of 32 layers (`7b-q6_k`), as a
    Q5_K_M file at full depth (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down
-   in Q6_K in 16 of the 32 layers, a Q6_K output, ~5.5 GB) and in Q4_0 cut
-   to 8 layers (`7b-q4_0`): `Runner(path)`,
-   whose default must attach the W8 planes; the ~700-token prompt and 128
+   in Q6_K in 16 of the 32 layers, a Q6_K output, ~5.5 GB), in Q4_0 cut to 8
+   layers (`7b-q4_0`), as a Q3_K_M file at full depth (`7b-q3_k_m`: Q3_K q,
+   k and gate|up, Q5_K / Q4_K attn_v and ffn_down, Q4_K attn_output, a Q6_K
+   output, ~3.5 GB) and as a llama.cpp Q2_K file cut to 8 layers
+   (`7b-q2_k`: Q2_K q, k and gate|up, Q4_K attn_v, Q3_K attn_output and
+   ffn_down, a Q6_K output): `Runner(path)`, whose default must attach the
+   W8 planes (a file under the default's 1 GiB floor, 7b-q2_k's, asks for
+   them); the ~700-token prompt and 128
    greedy tokens through the graph, equal to the eager step's; the same file
    with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
    the 16 requests through an 8-slot `PagedServingEngine`. The graphed
    decode runs twice (the capture, then the cached graph) and once eagerly,
    all with the same tokens, and a profiled window of the graphed step
-   follows. Phase 2 holds
-   each scheme's dequant kernel (512 and 189 rows of qkv, 512 of down) and
-   int8-activation form (every 7B decode projection at 1 and 8 rows, and 16
-   rows of qkv) against its plain version.
+   follows, with the int8-activation matmul's time by form and shape. Phase
+   2 holds each scheme's dequant kernel (512 and 189 rows of qkv, 512 of
+   down) and int8-activation form (every 7B decode projection at 1 and 8
+   rows, and 16 rows of qkv) against its plain version.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each of the paths 5, 6, 7, 9 and 10 is driven with the kernels' launch counters
@@ -162,14 +167,25 @@ KERNEL_SOURCES = {
                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q5_k_m"),
     "qmm_w4a8_q4_0": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
                       "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q4_0"),
+    "qmm_q3k": ("crabml_tpu_torch/csrc/qmm_q3k.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                "7b-q3_k_m"),
+    "qmm_q2k": ("crabml_tpu_torch/csrc/qmm_q2k.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                "7b-q2_k"),
+    "qmm_w4a8_q3k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                     "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q3_k_m"),
+    "qmm_w4a8_q2k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                     "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q2_k"),
 }
 # the paths of the other schemes: (name, scheme, layers of the 7B shape's 32,
 # seed, mix); 7b-q5_k_m is llama.cpp's Q5_K_M layout (tools/synth_gguf.py --mix
-# k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output)
+# k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output),
+# 7b-q3_k_m its Q3_K_M layout (--scheme q3_k --mix k_m) and 7b-q2_k its Q2_K
+# file type (--mix q2_k)
 SCHEME_PATHS = (("7b-q8_0", "q8_0", 32, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
-                ("7b-q5_k_m", "q5_k", 32, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None))
+                ("7b-q5_k_m", "q5_k", 32, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None),
+                ("7b-q3_k_m", "q3_k", 32, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"))
 # the schemes of phase kernels' checks and of the 2-layer forward checks
-KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0")
+KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k")
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
@@ -331,7 +347,7 @@ def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
 
 def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int,
                         seed: int) -> tuple[str, dict]:
-    """The Q8_0, Q6_K, Q5_K or Q4_0 form of the dequant kernel (`form`
+    """A scheme's form (KERNEL_SCHEMES) of the dequant kernel (`form`
     "dequant") or of the int8-activation kernel ("w4a8") against its plain
     version."""
     import torch
@@ -1048,6 +1064,7 @@ def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    w4a8_calls = _w4a8_calls(runner)
     runner.reset()
     _, _, first = runner.prefill(prompt)
     runner.metrics.reset()
@@ -1084,7 +1101,7 @@ def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
         "device_span_ms_per_token": span,
         "top_kernels_ms_per_token": {k[:80]: v / steps for k, v in top},
         "top_kernels_calls_per_token": {k[:80]: c / steps for k, c in calls.items()},
-        "qmm_w4a8_us_by_shape": _w4a8_by_shape(device, runner.cfg),
+        "qmm_w4a8_us_by_shape": _w4a8_by_shape(device, runner.cfg, w4a8_calls),
     }
     say(f"decode profile ({what}, {steps} tokens): device busy {busy:.3f} ms/token of "
         f"{ms_per_token:.3f} ms/token unprofiled (idle share {rec['idle_share']:.3f}), span of "
@@ -1098,25 +1115,65 @@ def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
     return rec
 
 
-def _w4a8_by_shape(device_events, cfg) -> dict:
-    """Mean µs of the int8-activation matmul kernel (and its quantizer) a
-    call, by shape, in a dense model's decode: each token calls it for qkv,
-    wo, gate|up and down in every layer and then for the lm_head, in that
-    order on one stream. Empty for a mixture of experts."""
-    if cfg.n_experts:
+def _w4a8_calls(runner) -> list[str]:
+    """The int8-activation matmuls of one decode step in launch order, each
+    as "<form> <rows>x<m>x<k>": gemm_quant.qmm_w4a8 wrapped around one eager
+    step at the runner's position (the captured graph replays the same
+    launches in the same order). Its kernels count among the launches like
+    any eager step's."""
+    import torch
+
+    from crabml_tpu_torch.models.forward import decode_step
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+
+    calls = []
+    wrapped = gemm_quant.qmm_w4a8
+
+    def logged(x2, qt, out_dtype=torch.float32, plane=None):
+        calls.append(f"{gemm_quant.W4A8_FORMS[qt.kind]} {x2.shape[0]}x{qt.m}x{qt.k}")
+        return wrapped(x2, qt, out_dtype, plane)
+
+    gemm_quant.qmm_w4a8 = logged
+    try:
+        pos = torch.tensor([runner.pos], dtype=torch.int32, device=CARD)
+        decode_step(runner.weights, runner.cache, torch.ones((1, 1), dtype=torch.long, device=CARD),
+                    pos, runner.cfg, runner.compute_dtype)
+    finally:
+        gemm_quant.qmm_w4a8 = wrapped
+    return calls
+
+
+def _w4a8_by_shape(device_events, cfg, calls: list[str]) -> dict:
+    """Mean µs of the int8-activation matmul kernel a call, by form and
+    shape (a key of `calls`, one step's calls in launch order), and of its
+    quantizer, in a dense model's decode. The window's matmul kernels are
+    its steps' calls in turn, but the window may cut calls at either end: of
+    the alignments that leave the cut calls at the ends, the one is taken
+    under which each key's calls share one kernel and their times spread
+    least, and a cut call is missing from its key's mean ("calls_cut" says
+    how many). Empty for a mixture of experts."""
+    if cfg.n_experts or not calls:
         return {}
     mm = [e for e in device_events if "::qmm_w4a8_kernel<" in e.name]
     quant = [e for e in device_events if "::quantize_kernel<" in e.name]
-    per_token = 4 * cfg.n_layers + 1
-    if not mm or len(mm) % per_token:
+    cut = -len(mm) % len(calls)
+    best = None
+    for start in range(cut + 1):  # calls cut before the window's first kernel
+        by_key: dict[str, list] = {}
+        for i, e in enumerate(mm):
+            by_key.setdefault(calls[(i + start) % len(calls)], []).append(e)
+        if any(len({e.name for e in v}) > 1 for v in by_key.values()):
+            continue
+        us = {k: [e.time_range.elapsed_us() for e in v] for k, v in by_key.items()}
+        spread = sum((t / statistics.mean(v) - 1) ** 2 for v in us.values() for t in v)
+        if best is None or spread < best[0]:
+            best = (spread, us)
+    if best is None:
         return {}
-    names = ["qkv", "wo", "gate|up", "down"] * cfg.n_layers + ["lm_head"]
-    out: dict[str, list[float]] = {}
-    for i, e in enumerate(mm):
-        out.setdefault(names[i % per_token], []).append(e.time_range.elapsed_us())
-    rec = {k: statistics.mean(v) for k, v in out.items()}
+    rec = {k: statistics.mean(v) for k, v in best[1].items()}
     if quant:
         rec["quantizer"] = statistics.mean(e.time_range.elapsed_us() for e in quant)
+    rec["calls_cut"] = cut
     return rec
 
 
@@ -1786,37 +1843,46 @@ def phase_moe(tmp: Path) -> dict:
 
 def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
                  mix: str | None = None) -> dict:
-    """The 7B widths with every matrix in `scheme` (with `mix` "k_m",
-    llama.cpp's _K_M layout over it: attn_v and ffn_down of half the layers
-    and the output in Q6_K), `layers` of 32: `Runner(path)` with its default
-    prefill_w8, which must come out on, the ~700-token prompt and 128 greedy
-    tokens through the graph, equal to the eager step's; the same file with
-    prefill_w8=False, prefill only, in turns; and the 16 requests through an
-    8-slot PagedServingEngine."""
+    """The 7B widths with every matrix in `scheme` (with a `mix`, one of
+    llama.cpp's mixed layouts over it, tools/synth_gguf.py), `layers` of 32:
+    `Runner(path)` with its default prefill_w8, which must come out on (a
+    file under the default's 1 GiB floor asks for the planes), the ~700-token
+    prompt and 128 greedy tokens through the graph, equal to the eager
+    step's; the same file with prefill_w8=False, prefill only, in turns; and
+    the 16 requests through an 8-slot PagedServingEngine."""
     import torch
 
     from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.ops.cuda import _build, gemm_quant
     from crabml_tpu_torch.runtime.runner import Runner
     from crabml_tpu_torch.serving import PagedServingEngine
     from crabml_tpu_torch.tools.synth_gguf import SCHEMES, build_synth_gguf
 
     kind = SCHEMES[scheme][0]
-    kinds = {kind, GGMLType.Q6_K} if mix else {kind}  # the kinds of the path's matmuls
     t0 = time.perf_counter()
     path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), "7b", seed=seed, layers=layers,
                             scheme=scheme, mix=mix)
     synth_s = time.perf_counter() - t0
+    # the kinds of the path's matmuls: the file's 2-D tensors but the embedding
+    kinds = {ti.typ for ti in GGUFFile(path).tensor_infos
+             if len(ti.shape) == 2 and ti.name != "token_embd.weight"}
+    size = os.path.getsize(path)
     say(f"synthetic 7B {kind.name}{' ' + mix + ' mix' if mix else ''} GGUF, {layers} of 32 "
-        f"layers: {os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+        f"layers: {size / 1e9:.3f} GB in {synth_s:.2f} s, matrices in "
+        f"{sorted(k.name for k in kinds)}")
     torch.cuda.reset_peak_memory_stats()
-    runner = Runner(path)
+    # the Runner's default attaches the W8 planes to files of 1 GiB and more
+    # (runtime/runner.py::_auto_w8_budget); a smaller file asks for them
+    w8_default = size >= 1 << 30
+    runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
     mats = [q for lw in runner.weights["layers"] for q in lw.values() if hasattr(q, "planes")]
     mats.append(runner.weights["output"])
     if {q.kind for q in mats} != kinds or not all(q.kernel_layout for q in mats):
         fail(f"{what}: the matrices are not {sorted(k.name for k in kinds)} kernel planes")
     if not runner.prefill_w8 or not all("w8" in q.planes for q in mats):
-        fail(f"{what}: the Runner's default left the W8 prefill planes off")
+        fail(f"{what}: the Runner left the W8 prefill planes off "
+             f"({'by default' if w8_default else 'with prefill_w8=True'})")
     unfused = sum("wqkv" not in lw for lw in runner.weights["layers"])
     load_s = runner.metrics.times_ns["load"] / 1e9
     w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
@@ -1882,6 +1948,8 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
     torch.cuda.empty_cache()
     return {
         "scheme": scheme, "mix": mix, "layers": layers, "unfused_qkv_layers": unfused,
+        "kinds": sorted(k.name for k in kinds), "gguf_bytes": size,
+        "w8": "the Runner's default" if w8_default else "prefill_w8=True (under 1 GiB)",
         "synth_s": synth_s, "load_s": load_s,
         "load_w8_augment_s": w8_s, "prompt_tokens": n_prompt, "prefill_chunks": chunks,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}

@@ -1,0 +1,29 @@
+// qmm_q3k: fused Q3_K dequant + matmul for prefill rows (out = x @ W^T).
+//
+// Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q3_K
+// scheme: w = bf16((val - 4) * dsub) per 16-element scale group, dsub = d * sc
+// formed from the superblock's float32 d and the group's signed 6-bit scale,
+// with val the 3-bit value 0..7 (two bits in qs, the third in hb), f32
+// accumulation. The entry qmm_q3k_bf16 stands for the launcher _run
+// (pallas_call at :680). The grouped (expert-sorted) form is not ported for
+// this scheme.
+//
+// Bound on the H100: operations at the main path's 512-row prefill chunks (2 x
+// 512 x 4096 x 4096 against 8 MB of planes for q; the card's ridge is ~295
+// bf16 operations per byte). The tile loop is qmm_pipe.cuh's (wgmma with the
+// weights as the register A operand, the x tile as B in swizzled shared
+// memory, a six-stage cp.async ring, two wgmma groups in flight); its Q3_K
+// weight source, staged a superblock at a time, is qmm_k16.cuh's, where the
+// design is set out.
+#include "qmm_k16.cuh"
+
+// x (M, K) bf16; qs (N, K/4) u8; hb (N, K/8) u8; sc (N, K/16) i8; d (N,
+// K/256) f32; out (M, N) f32, or bf16 when out_bf16 != 0. K % 256 == 0; the
+// wrapper checks shapes and alignment.
+extern "C" int qmm_q3k_bf16(const void* x, const void* qs, const void* hb, const void* sc,
+                            const void* d, void* out, int out_bf16, int M, int N, int K,
+                            void* stream) {
+    const qk16::Source<true> w{(const uint8_t*)qs, (const uint8_t*)hb, (const uint8_t*)sc,
+                               (const float*)d, nullptr};
+    return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}

@@ -1,6 +1,6 @@
 // qmm_w4a8: int8 activations x integer weights for decode rows (<= 16): the
-// Q4_K form (4-bit weights, the headline's kernel), and the Q8_0, Q6_K, Q5_K
-// and Q4_0 forms described at the end of this note.
+// Q4_K form (4-bit weights, the headline's kernel), and the Q8_0, Q6_K, Q5_K,
+// Q4_0, Q3_K and Q2_K forms described at the end of this note.
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
 // _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
@@ -95,6 +95,18 @@
 //    as a minimum, acc += c * (dsub * dx) + (-8 dsub) * sx, exact in float32
 //    as Q6_K's -32. Q4_1 (a minimum plane), Q5_0 (a qh plane, offset 16) and
 //    Q5_1 (both) are further instances once their planes are reordered.
+//  * Q3_K and Q2_K are instances of one trait of 2-bit values with the
+//    superblock's scales as ggml keeps them (K16): per 16-group one m16n8k16
+//    s8 mma, as Q6_K. Their 2-bit qs plane has the order of Q6_K's qh (a
+//    thread's 32-bit word q % 2 of its column's half gives four values of
+//    group q at shift 2 (q / 2), in the k order that B takes from the same 4
+//    bytes of xq), 64 bytes a column and stage with Q6_K's qh swizzle. Q3_K's
+//    third bits are Q5_K's qh order (bit 4 hh + q / 2 of the same bytes of
+//    the superblock's 32 hb bytes), OR-ed in at bit 2: values 0..7. A stage
+//    holds the 16 scale bytes of each column and its float32 d (and Q2_K's
+//    dmin), 320 / 384 B, and the group's scale is formed in float32, exactly:
+//    dsub = d * sc and, for Q2_K, msub = -dmin * mn; for Q3_K the offset is
+//    the minimum -4 * dsub, exact. Then acc += c * (dsub * dx) + msub * sx.
 // A ring as deep as two blocks an SM allow, up to four stages (stages_of):
 // Q6_K at 16 rows has two.
 // The grid and the rows of x a stage holds come from
@@ -188,6 +200,24 @@ struct Q6K {
     static __host__ __device__ size_t q1_row(int K) { return K / 4; }
 };
 
+// 2-bit values in ggml's order with a scale byte per 16 elements and float32
+// superblock scales: Q3_K (a third-bit plane, the signed sc, offset 4) and
+// Q2_K (the scm byte of sc and mn, a dmin). The qs rows, then Q3_K's hb rows;
+// the scales region holds the 16 columns' scale bytes, then d, then dmin.
+template <bool Q3_> struct K16 {
+    static constexpr bool Q3 = Q3_;
+    static constexpr int GR = 16, HB = COLS * SB / 4;
+    static constexpr int W_BYTES = COLS * SB / 4 + (Q3_ ? COLS * SB / 8 : 0);
+    static constexpr int S_BYTES = COLS * 16 + (Q3_ ? 1 : 2) * COLS * 4;
+    static constexpr bool SX = true;
+    static __host__ __device__ size_t q0_row(int K) { return K / 4; }
+    static __host__ __device__ size_t q1_row(int K) { return Q3_ ? K / 8 : K / 16; }
+};
+using Q3K = K16<true>;
+using Q2K = K16<false>;
+template <class S> constexpr bool is_k16 = false;
+template <bool Q3> constexpr bool is_k16<K16<Q3>> = true;
+
 template <class S, int XR> struct Stage {
     static constexpr int NG = SB / S::GR;  // scale groups a superblock
     static constexpr int XS = NG * 4 * (S::SX ? 2 : 1);
@@ -240,6 +270,12 @@ __device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1
         : "r"(a0), "r"(a1), "r"(b0), "r"(0));
 }
 
+// byte g (0..15) of a uint4
+__device__ __forceinline__ uint32_t byte_at(const uint4& v, int g) {
+    const uint32_t w = g < 4 ? v.x : g < 8 ? v.y : g < 12 ? v.z : v.w;
+    return (w >> (8 * (g & 3))) & 0xFFu;
+}
+
 // bf16 element g (0..7) of 8 packed in a uint4, as float
 __device__ __forceinline__ float bf16_at(const uint4& v, int g) {
     const uint32_t w = g < 2 ? v.x : g < 4 ? v.y : g < 6 ? v.z : v.w;
@@ -251,12 +287,15 @@ struct Args {
     const float* dx;
     const float* sx;
     const uint8_t* q0;  // Q4_K, Q5_K and Q4_0 nibbles, Q8_0 int8, Q6_K ql
-    const uint8_t* q1;  // Q6_K and Q5_K qh
+    const uint8_t* q1;  // Q6_K and Q5_K qh, Q3_K hb, Q2_K scm
     const bf16* dsub;
     const bf16* msub;   // Q4_K and Q5_K only
     void* out;
     const int* plane_idx;
     int B, N, K;
+    const int8_t* sc;   // Q3_K
+    const float* d;     // Q3_K and Q2_K, per superblock
+    const float* dmin;  // Q2_K
 };
 
 template <class S, int XR, typename OutT>
@@ -293,7 +332,34 @@ qmm_w4a8_kernel(const Args args) {
     auto load_w = [&](int j) {
         const int sb = warp + j * MM_WARPS;
         const uint32_t st = ring_u32 + base + (j % STAGES) * ST::BYTES;
-        if constexpr (S::GR == 16) {  // Q6_K: ql, qh, 16 dsub a column
+        if constexpr (is_k16<S>) {  // Q3_K, Q2_K: qs (hb), 16 scale bytes, d (dmin) a column
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {  // 16 columns x 4 pieces of qs
+                const int idx = i * 32 + lane, r = idx >> 2, p = idx & 3;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = q0 + (size_t)(ok ? col0 + r : 0) * (K / 4) + sb * (SB / 4) + p * 16;
+                wg::cp_async16(st + ST::W + r * 64 + swz_h(r, p) * 16, src, ok);
+            }
+            const int r = lane & 15;
+            const bool ok = col0 + r < N;
+            const size_t col = ok ? col0 + r : 0;
+            if constexpr (S::Q3) {  // 16 columns x 2 pieces of hb, one a lane
+                const int rh = lane >> 1, p = lane & 1;
+                const bool okh = col0 + rh < N;
+                const uint8_t* src = q1 + (size_t)(okh ? col0 + rh : 0) * (K / 8) + sb * (SB / 8) + p * 16;
+                wg::cp_async16(st + S::HB + rh * 32 + swz_s(rh, p) * 16, src, okh);
+                if (lane < 16)
+                    wg::cp_async16(st + ST::DS + r * 16,
+                                   reinterpret_cast<const uint8_t*>(args.sc) + col * (K / 16) + sb * 16, ok);
+                else
+                    wg::cp_async4(st + ST::DS + COLS * 16 + r * 4, args.d + col * nsb + sb, ok);
+            } else {
+                if (lane < 16)
+                    wg::cp_async16(st + ST::DS + r * 16, q1 + col * (K / 16) + sb * 16, ok);
+                wg::cp_async4(st + ST::DS + COLS * 16 + (lane >> 4) * COLS * 4 + r * 4,
+                              (lane < 16 ? args.d : args.dmin) + col * nsb + sb, ok);
+            }
+        } else if constexpr (S::GR == 16) {  // Q6_K: ql, qh, 16 dsub a column
 #pragma unroll
             for (int i = 0; i < 4; ++i) {  // 16 columns x 8 pieces of ql
                 const int idx = i * 32 + lane, r = idx >> 3, p = idx & 7;
@@ -389,7 +455,99 @@ qmm_w4a8_kernel(const Args args) {
         }
         wg::cp_async_commit();
         const int st = base + (s % STAGES) * ST::BYTES;
-        if constexpr (S::GR == 16) {
+        if constexpr (is_k16<S>) {
+            // Q3_K, Q2_K: a 128-element half at a time; its 16-groups q = 0..7 take
+            // the qs word q % 2 at shift 2 (q / 2) (and Q3_K's hb word q % 2 at bit
+            // 4 hh + q / 2), the scale byte 8 hh + q
+            const uint4 sA = lds<uint4>(ring, st + ST::DS + gid * 16);
+            const uint4 sB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 16);
+            const float dA = lds<float>(ring, st + ST::DS + COLS * 16 + gid * 4);
+            const float dB = lds<float>(ring, st + ST::DS + COLS * 16 + (gid + 8) * 4);
+            float nA = 0.0f, nB = 0.0f;  // Q2_K's dmin
+            uint32_t hw[2][2] = {{0u, 0u}, {0u, 0u}};
+            if constexpr (S::Q3) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const int r = gid + 8 * c;
+                        hw[c][j] = lds<uint32_t>(ring, st + S::HB + r * 32 + swz_s(r, j) * 16 + tig * 4);
+                    }
+            } else {
+                nA = lds<float>(ring, st + ST::DS + COLS * 20 + gid * 4);
+                nB = lds<float>(ring, st + ST::DS + COLS * 20 + (gid + 8) * 4);
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                uint32_t qw[2][2];
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const int r = gid + 8 * c;
+                        qw[c][j] = lds<uint32_t>(ring, st + ST::W + r * 64 + swz_h(r, hh * 2 + j) * 16 + tig * 4);
+                    }
+#pragma unroll
+                for (int qq = 0; qq < 2; ++qq) {  // groups 4 qq .. 4 qq + 3 of the half
+                    float dxv[NT][2][4], sxv[NT][2][4];  // [tile][row tig*2 + i][group]
+#pragma unroll
+                    for (int t = 0; t < NT; ++t)
+#pragma unroll
+                        for (int i = 0; i < 2; ++i) {
+                            const int r = t * 8 + tig * 2 + i;
+                            const int off = st + r * NG * 4 + (hh * 2 + qq) * 16;
+                            const bool ok = r < XR && (XR > 1 || i == 0);
+                            const uint4 d = ok ? lds<uint4>(ring, off + ST::DX) : make_uint4(0, 0, 0, 0);
+                            const uint4 q = ok ? lds<uint4>(ring, off + ST::SX) : make_uint4(0, 0, 0, 0);
+                            dxv[t][i][0] = __uint_as_float(d.x);
+                            dxv[t][i][1] = __uint_as_float(d.y);
+                            dxv[t][i][2] = __uint_as_float(d.z);
+                            dxv[t][i][3] = __uint_as_float(d.w);
+                            sxv[t][i][0] = __uint_as_float(q.x);
+                            sxv[t][i][1] = __uint_as_float(q.y);
+                            sxv[t][i][2] = __uint_as_float(q.z);
+                            sxv[t][i][3] = __uint_as_float(q.w);
+                        }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int q = 4 * qq + j, g = 8 * hh + q, hs = 2 * (q >> 1);
+                        uint32_t a0 = (qw[0][q & 1] >> hs) & 0x03030303u;
+                        uint32_t a1 = (qw[1][q & 1] >> hs) & 0x03030303u;
+                        const uint32_t cA = byte_at(sA, g), cB = byte_at(sB, g);
+                        float da, db, ma, mb;
+                        if constexpr (S::Q3) {
+                            const int hbit = 4 * hh + (q >> 1);
+                            a0 |= ((hw[0][q & 1] >> hbit) & 0x01010101u) << 2;
+                            a1 |= ((hw[1][q & 1] >> hbit) & 0x01010101u) << 2;
+                            da = dA * (float)(int8_t)cA;
+                            db = dB * (float)(int8_t)cB;
+                            ma = -4.0f * da;  // the offset as a minimum, exact
+                            mb = -4.0f * db;
+                        } else {
+                            da = dA * (float)(cA & 0xFu);
+                            db = dB * (float)(cB & 0xFu);
+                            ma = -(nA * (float)(cA >> 4));
+                            mb = -(nB * (float)(cB >> 4));
+                        }
+#pragma unroll
+                        for (int t = 0; t < NT; ++t) {
+                            const int r = t * 8 + gid;
+                            const int xoff = hh * 128 + q * 16 + tig * 4;
+                            const int xa = st + ST::XQ + r * SB + swz(r, xoff >> 4) * 16 + (xoff & 15);
+                            const uint32_t xb = r < XR ? lds<uint32_t>(ring, xa) : 0u;
+                            int d[4];
+                            mma_s8_k16(d, a0, a1, xb);
+                            acc[t][0] += (float)d[0] * (da * dxv[t][0][j]) + ma * sxv[t][0][j];
+                            acc[t][2] += (float)d[2] * (db * dxv[t][0][j]) + mb * sxv[t][0][j];
+                            if (XR > 1) {
+                                acc[t][1] += (float)d[1] * (da * dxv[t][1][j]) + ma * sxv[t][1][j];
+                                acc[t][3] += (float)d[3] * (db * dxv[t][1][j]) + mb * sxv[t][1][j];
+                            }
+                        }
+                    }
+                }
+            }
+        } else if constexpr (S::GR == 16) {
             // Q6_K: a 128-element half at a time; its 16-groups q = 0..7 take the
             // ql word q % 4 (nibble q / 4) and the qh word q % 2 (bits 2 (q / 2))
 #pragma unroll
@@ -619,7 +777,8 @@ int launch_out(const Args& a, int out_bf16, int gx, int gy, cudaStream_t s) {
 template <class S>
 int run(const void* x, void* xq, void* dx, void* sx, const void* q0, const void* q1,
         const void* dsub, const void* msub, void* out, int out_bf16, const void* plane_idx,
-        int B, int N, int K, int grid_x, int grid_y, int x_rows, void* stream) {
+        int B, int N, int K, int grid_x, int grid_y, int x_rows, void* stream,
+        const void* sc = nullptr, const void* d = nullptr, const void* dmin = nullptr) {
     if (x_rows != 1 && x_rows != 8 && x_rows != 16) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     quantize_kernel<S::GR><<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
@@ -628,7 +787,8 @@ int run(const void* x, void* xq, void* dx, void* sx, const void* q0, const void*
     if (err) return err;
     const Args a{(const int8_t*)xq, (const float*)dx, (const float*)sx, (const uint8_t*)q0,
                  (const uint8_t*)q1, (const bf16*)dsub, (const bf16*)msub, out,
-                 (const int*)plane_idx, B, N, K};
+                 (const int*)plane_idx, B, N, K, (const int8_t*)sc, (const float*)d,
+                 (const float*)dmin};
     if (x_rows == 1) return launch_out<S, 1>(a, out_bf16, grid_x, grid_y, s);
     if (x_rows == 8) return launch_out<S, 8>(a, out_bf16, grid_x, grid_y, s);
     return launch_out<S, 16>(a, out_bf16, grid_x, grid_y, s);
@@ -687,4 +847,25 @@ extern "C" int qmm_w4a8_q4_0_bf16(const void* x, void* xq, void* dx, void* sx, c
                                   int grid_x, int grid_y, int x_rows, void* stream) {
     return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
                     grid_x, grid_y, x_rows, stream);
+}
+
+// The Q3_K form: qs (N, K/4) u8, hb (N, K/8) u8, sc (N, K/16) i8, d (N,
+// K/256) f32; scratch dx, sx (B, K/16): the activations quantize per
+// 16-group. Otherwise as qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q3k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* hb, const void* sc, const void* d, void* out,
+                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
+                                 int x_rows, void* stream) {
+    return run<Q3K>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, out_bf16, nullptr, B, N, K,
+                    grid_x, grid_y, x_rows, stream, sc, d, nullptr);
+}
+
+// The Q2_K form: qs (N, K/4) u8, scm (N, K/16) u8, d, dmin (N, K/256) f32;
+// scratch dx, sx (B, K/16). Otherwise as qmm_w4a8_bf16, without planes.
+extern "C" int qmm_w4a8_q2k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* scm, const void* d, const void* dmin, void* out,
+                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
+                                 int x_rows, void* stream) {
+    return run<Q2K>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, out_bf16, nullptr, B, N, K,
+                    grid_x, grid_y, x_rows, stream, nullptr, d, dmin);
 }

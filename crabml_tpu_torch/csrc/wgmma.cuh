@@ -75,6 +75,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool p
                  "r"(bytes)
                  : "memory");
 }
+// 4 bytes global -> shared, asynchronously (through L1); zeros when `pred` is false.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
+    const int bytes = pred ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -15,15 +15,17 @@ A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 before the router product) and the stacked experts "wgu_exps" (E, 2*HD, D)
 and "ffn_down_exps" (E, D, HD).
 
-Q4_K, Q5_K, Q6_K, Q8_0 and Q4_0 matmul weights take the kernel planes of
-quant/qtensor.py, with scale planes in the compute dtype's width (bfloat16
-scales under bfloat16 compute, as the JAX Runner does; float32 keeps them
-exact). q|k|v and gate|up fuse at
+Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q3_K and Q2_K matmul weights take the kernel
+planes of quant/qtensor.py, with folded scale planes in the compute dtype's
+width (bfloat16 scales under bfloat16 compute, as the JAX Runner does; float32
+keeps them exact; Q3_K and Q2_K keep ggml's scale bytes and float32 d, exact
+either way). q|k|v and gate|up fuse at
 load along the output axis, so a layer issues one matmul per group where the
-group's tensors share one kind; in llama.cpp's mixed _K_M files a layer whose
-attn_v is Q6_K keeps q, k and v apart, so the layers of one file need not
-hold the same names. A mixture of experts takes Q4_K experts (or F32 / F16):
-the grouped kernels of the other kinds are not ported yet.
+group's tensors share one kind; in llama.cpp's mixed files (_K_M, Q2_K) a
+layer whose attn_v is in another type than attn_q keeps q, k and v apart, so
+the layers of one file need not hold the same names. A mixture of experts
+takes Q4_K experts (or F32 / F16): the grouped kernels of the other kinds are
+not ported yet.
 `augment_w8_weights` attaches the W8 prefill planes within a byte budget.
 """
 

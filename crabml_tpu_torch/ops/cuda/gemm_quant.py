@@ -1,14 +1,15 @@
 """Quantized matmuls: `qmm_q4k`, `qmm_q5k`, `qmm_q6k`, `qmm_q8_0`,
-`qmm_q4_0` (prefill rows, one per weight scheme), `qmm_w4a8` (decode rows,
-every scheme), `qmm_w8` (prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
+`qmm_q4_0`, `qmm_q3k`, `qmm_q2k` (prefill rows, one per weight scheme,
+made by `_dequant_form`), `qmm_w4a8` (decode rows, every scheme), `qmm_w8`
+(prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
 `qmm_w8_grouped` (rows sorted by expert, each segment against its own
 expert's planes), with `quantize_activation`, the W8 planes
 (`w8_planes_from_weights`, `augment_w8`) and the row routing of the JAX
 package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
-csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu and
-csrc/qmm_q4_0.cu, one weight source of
+csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu,
+csrc/qmm_q4_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one weight source of
 the tile loop each (launchers `_run` and, for Q4_K, `_run_grouped`),
 `_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per scheme (its
 launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
@@ -16,7 +17,7 @@ launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
 what bounds it on the H100 and how the design answers it. All take the port's
 own weight layout (quant/qtensor.py kernel planes), not the TPU's m-tiled one.
 The int8-activation forms quantize x per scale group of the scheme, as the
-JAX package does (`scheme.gr`): 32 for every scheme but Q6_K, 16 for Q6_K.
+JAX package does (`scheme.gr`): 16 for Q6_K, Q3_K and Q2_K, 32 for the others.
 
 Routing keeps the TPU's structure, by the row count padded up to a multiple
 of 8: at most `W4A8_MAX_ROWS` rows take the int8-activation kernel, at least
@@ -38,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ...gguf.constants import GGMLType
-from ...quant.qtensor import (KERNEL_KINDS, QTensor, dequantize, nibbles, plane_of, q5k_values,
-                               q6k_values)
+from ...quant.qtensor import (KERNEL_KINDS, QTensor, dequantize, k16_scales, nibbles, plane_of,
+                               q2_values, q3k_values, q5k_values, q6k_values)
 from . import _build
 
 W4A8_MAX_ROWS = 16  # TPU-tuned (v5e decode_loop sweep); to be set on the card
@@ -47,8 +48,8 @@ W8_MIN_ROWS = 256  # TPU-tuned as well: padded rows from which the W8 planes tak
 W8_KSC = 512  # k elements per W8 scale chunk
 ROW_PAD = 8  # the routing counts rows padded up to this (the JAX package's B_PAD)
 GROUP = 32  # Q4_K scale group: one dsub/msub per 32 elements
-SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16,  # elements a dsub
-                GGMLType.Q5_K: 32, GGMLType.Q4_0: 32}
+SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16,  # elements a scale
+                GGMLType.Q5_K: 32, GGMLType.Q4_0: 32, GGMLType.Q3_K: 16, GGMLType.Q2_K: 16}
 W4A8_COLS = 16  # output columns of a qmm_w4a8 block: the M of one mma tile
 W4A8_WARPS = 4  # warps of a block; they split k by superblock
 W4A8_SB = 256  # k depth of one ring stage: a Q4_K superblock, 8 scale groups
@@ -122,6 +123,25 @@ def qmm_q6k_plain(x2, ql, qh, dsub) -> torch.Tensor:
     return x2.float() @ w.to(x2.dtype).float().t()
 
 
+def qmm_q2k_plain(x2, qs, scm, d, dmin) -> torch.Tensor:
+    """Plain version of qmm_q2k: w = val*dsub + msub in float32, dsub = d*sc
+    and msub = -dmin*mn per 16 elements (both exact, and so is val*dsub),
+    rounded to x2's dtype, then x2 @ w^T with float32 accumulation -> (rows,
+    m) f32."""
+    w = dequantize(QTensor(GGMLType.Q2_K, (qs.shape[0], qs.shape[1] * 4),
+                           {"qs": qs, "scm": scm, "d": d, "dmin": dmin}))
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def qmm_q3k_plain(x2, qs, hb, sc, d) -> torch.Tensor:
+    """Plain version of qmm_q3k: w = (val - 4)*d*sc in float32 (exact: at most
+    20 significant bits), rounded to x2's dtype, then x2 @ w^T with float32
+    accumulation -> (rows, m) f32."""
+    w = dequantize(QTensor(GGMLType.Q3_K, (qs.shape[0], qs.shape[1] * 4),
+                           {"qs": qs, "hb": hb, "sc": sc, "d": d}))
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
 def _w4a8_dense_plain(x2, vals, dsub, msub, group) -> torch.Tensor:
     """quantize_activation at `group`, exact integer group dots of xq with
     the integer weight values `vals` (m, k) (float32 holds them exactly:
@@ -162,6 +182,22 @@ def qmm_w4a8_q4_0_plain(x2, qs, dsub) -> torch.Tensor:
     activations per 32-group, and the offset as a minimum msub = -8*dsub
     (exact) times sx -> (rows, m) f32."""
     return _w4a8_dense_plain(x2, nibbles(qs), dsub, -8.0 * dsub.float(), 32)
+
+
+def qmm_w4a8_q2k_plain(x2, qs, scm, d, dmin) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q2_K planes: the 2-bit values 0..3,
+    activations per 16-group, dsub = d*sc and the minimum msub = -dmin*mn
+    (exact) times sx -> (rows, m) f32."""
+    dsub, msub = k16_scales(GGMLType.Q2_K, {"scm": scm, "d": d, "dmin": dmin})
+    return _w4a8_dense_plain(x2, q2_values(qs), dsub, msub, 16)
+
+
+def qmm_w4a8_q3k_plain(x2, qs, hb, sc, d) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q3_K planes: the 3-bit values 0..7,
+    activations per 16-group, dsub = d*sc (signed) and the offset as a
+    minimum msub = -4*dsub (exact) times sx -> (rows, m) f32."""
+    dsub, _ = k16_scales(GGMLType.Q3_K, {"sc": sc, "d": d})
+    return _w4a8_dense_plain(x2, q3k_values(qs, hb), dsub, -4.0 * dsub, 16)
 
 
 def qmm_w4a8_plain(x2, qs, dsub, msub, plane=None) -> torch.Tensor:
@@ -264,10 +300,6 @@ def qmm_w8_grouped_plain(xs, w8, dw, offsets) -> torch.Tensor:
     return _grouped_plain(xs, offsets, lambda r, e: qmm_w8_plain(r, w8[e], dw[e]))
 
 
-def _lib_q4k():
-    return _build.entry("qmm_q4k", "qmm_q4k_bf16", _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-
-
 def _lib_q4k_grouped():
     return _build.entry("qmm_q4k", "qmm_q4k_grouped_bf16", _P, _P, _P, _P, _P, _I, _P, _I,
                         _I, _I, _I, _P)
@@ -278,20 +310,12 @@ def _lib_w4a8():
                         _I, _P, _I, _I, _I, _I, _I, _I, _P)
 
 
-def _lib_q8_0():
-    return _build.entry("qmm_q8_0", "qmm_q8_0_bf16", _P, _P, _P, _P, _I, _I, _I, _I, _P)
-
-
-def _lib_q6k():
-    return _build.entry("qmm_q6k", "qmm_q6k_bf16", _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-
-
-def _lib_q5k():
-    return _build.entry("qmm_q5k", "qmm_q5k_bf16", _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-
-
-def _lib_q4_0():
-    return _build.entry("qmm_q4_0", "qmm_q4_0_bf16", _P, _P, _P, _P, _I, _I, _I, _I, _P)
+def _lib_dequant(kind: GGMLType):
+    """The dense dequant entry of a scheme (<form>_bf16 in csrc/<form>.cu): x,
+    the weight planes in _KERNEL_PLANES order, out."""
+    name = DEQUANT_FORMS[kind]
+    return _build.entry(name, f"{name}_bf16", *[_P] * (2 + len(_KERNEL_PLANES[kind])), _I, _I,
+                        _I, _I, _P)
 
 
 def _lib_w4a8_of(kind: GGMLType):
@@ -328,7 +352,7 @@ class W4A8Plan:
     k_slices: tuple[tuple[int, ...], ...]  # per warp, its superblocks in order
     smem_bytes: int  # the rings of the block's warps (dynamic shared memory)
     planes: bool  # one row a block, with that row's plane
-    group: int  # k elements of a scale group: one mma k step (32, or 16 for Q6_K)
+    group: int  # k elements of a scale group: one mma k step (32, or 16: Q6_K, Q3_K, Q2_K)
 
 
 # per scheme, one ring stage's bytes (csrc/qmm_w4a8.cu's scheme traits): the
@@ -341,6 +365,9 @@ _W4A8_STAGE = {
     GGMLType.Q5_K: (W4A8_COLS * W4A8_SB // 2 + W4A8_COLS * W4A8_SB // 8, 2 * W4A8_COLS * 8 * 2,
                     2 * 8 * 4),
     GGMLType.Q4_0: (W4A8_COLS * W4A8_SB // 2, W4A8_COLS * 8 * 2, 2 * 8 * 4),
+    GGMLType.Q3_K: (W4A8_COLS * W4A8_SB // 4 + W4A8_COLS * W4A8_SB // 8, W4A8_COLS * (16 + 4),
+                    2 * 16 * 4),
+    GGMLType.Q2_K: (W4A8_COLS * W4A8_SB // 4, W4A8_COLS * (16 + 2 * 4), 2 * 16 * 4),
 }
 _SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserved a block
 
@@ -348,8 +375,10 @@ _SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserve
 def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
     """One ring stage: the 16 columns' weights of a superblock (Q4_K and
     Q4_0: 2 KB of nibbles; Q5_K: 2.5 KB of nibbles | qh; Q8_0: 4 KB of int8;
-    Q6_K: 3 KB of ql | qh) and their scales (Q4_K and Q5_K: dsub and msub,
-    512 B; Q8_0 and Q4_0: 256 B; Q6_K: 16 groups, 512 B), then per row of x
+    Q6_K: 3 KB of ql | qh; Q3_K: 1.5 KB of qs | hb; Q2_K: 1 KB of qs) and
+    their scales (Q4_K and Q5_K: dsub and msub, 512 B; Q8_0 and Q4_0: 256 B;
+    Q6_K: 16 groups, 512 B; Q3_K: 16 sc bytes and a float32 d a column, 320
+    B; Q2_K: 16 scm bytes and float32 d and dmin, 384 B), then per row of x
     its int8 values (256 B) and scales."""
     w, sc, xs = _W4A8_STAGE[kind]
     return w + sc + x_rows * (W4A8_SB + xs)
@@ -413,6 +442,10 @@ _KERNEL_PLANES = {
     GGMLType.Q5_K: {"qs": (2, torch.uint8), "qh": (8, torch.uint8), "dsub": (32, torch.bfloat16),
                     "msub": (32, torch.bfloat16)},
     GGMLType.Q4_0: {"qs": (2, torch.uint8), "dsub": (32, torch.bfloat16)},
+    GGMLType.Q3_K: {"qs": (4, torch.uint8), "hb": (8, torch.uint8), "sc": (16, torch.int8),
+                    "d": (256, torch.float32)},
+    GGMLType.Q2_K: {"qs": (4, torch.uint8), "scm": (16, torch.uint8), "d": (256, torch.float32),
+                    "dmin": (256, torch.float32)},
 }
 
 
@@ -475,9 +508,9 @@ def _out_bf16(out_dtype: torch.dtype) -> int:
     return int(out_dtype == torch.bfloat16)
 
 
-def _dequant_matmul(name: str, lib_of, kind: GGMLType, x2: torch.Tensor, qt: QTensor,
-                    out_dtype) -> torch.Tensor:
-    """Launch the dequant kernel `name` of scheme `kind` on the card."""
+def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
+    """Launch the dense dequant kernel of scheme `kind` on the card."""
+    name = DEQUANT_FORMS[kind]
     rows, k = x2.shape
     planes = _check_weight(qt, k, x2.device, kind=kind)
     _build.require(x2.dtype == torch.bfloat16, f"{name} takes bfloat16 activations, got {x2.dtype}")
@@ -486,7 +519,7 @@ def _dequant_matmul(name: str, lib_of, kind: GGMLType, x2: torch.Tensor, qt: QTe
     out_bf16 = _out_bf16(out_dtype)
     x2 = _aligned(x2)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=x2.device)
-    lib, fn = lib_of()
+    lib, fn = _lib_dequant(kind)
     _build.launches[name] += 1
     err = fn(x2.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16, rows,
              qt.m, k, _build.stream_ptr(x2))
@@ -494,76 +527,62 @@ def _dequant_matmul(name: str, lib_of, kind: GGMLType, x2: torch.Tensor, qt: QTe
     return out
 
 
-def qmm_q4k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the Q4_K dequant kernel;
-    float32 sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q4k_plain(x2, p["qs"], p["dsub"], p["msub"]).to(out_dtype)
-    return _dequant_matmul("qmm_q4k", _lib_q4k, GGMLType.Q4_K, x2, qt, out_dtype)
+# the dequant kernel of each scheme: its wrapper, launch counter and source
+DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k",
+                 GGMLType.Q5_K: "qmm_q5k", GGMLType.Q4_0: "qmm_q4_0", GGMLType.Q3_K: "qmm_q3k",
+                 GGMLType.Q2_K: "qmm_q2k"}
 
 
-def qmm_q8_0(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the Q8_0 dequant kernel;
-    float32 sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q8_0_plain(x2, p["qs"], p["dsub"]).to(out_dtype)
-    return _dequant_matmul("qmm_q8_0", _lib_q8_0, GGMLType.Q8_0, x2, qt, out_dtype)
+def _dequant_form(kind: GGMLType):
+    """The wrapper of `kind`'s dequant kernel, named as DEQUANT_FORMS says:
+    (x2 (rows, k), qt, out_dtype=float32) -> x2 @ W^T (rows, m), float32 sums
+    rounded once to `out_dtype`. On a CPU tensor it computes the plain
+    version (`<name>_plain`, on the planes in _KERNEL_PLANES order)."""
+    name = DEQUANT_FORMS[kind]
+
+    def wrapper(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+        if not x2.is_cuda:
+            plain = globals()[f"{name}_plain"]
+            return plain(x2, *(qt.planes[n] for n in _KERNEL_PLANES[kind])).to(out_dtype)
+        return _dequant_matmul(kind, x2, qt, out_dtype)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"x2 (rows, k) @ W^T -> (rows, m) through the {kind.name} dequant kernel; "
+                       "float32 sums, rounded once to `out_dtype`.")
+    return wrapper
 
 
-def qmm_q6k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the Q6_K dequant kernel;
-    float32 sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q6k_plain(x2, p["ql"], p["qh"], p["dsub"]).to(out_dtype)
-    return _dequant_matmul("qmm_q6k", _lib_q6k, GGMLType.Q6_K, x2, qt, out_dtype)
+qmm_q4k = _dequant_form(GGMLType.Q4_K)
+qmm_q8_0 = _dequant_form(GGMLType.Q8_0)
+qmm_q6k = _dequant_form(GGMLType.Q6_K)
+qmm_q5k = _dequant_form(GGMLType.Q5_K)
+qmm_q4_0 = _dequant_form(GGMLType.Q4_0)
+qmm_q3k = _dequant_form(GGMLType.Q3_K)
+qmm_q2k = _dequant_form(GGMLType.Q2_K)
 
 
-def qmm_q5k(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the Q5_K dequant kernel;
-    float32 sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q5k_plain(x2, p["qs"], p["qh"], p["dsub"], p["msub"]).to(out_dtype)
-    return _dequant_matmul("qmm_q5k", _lib_q5k, GGMLType.Q5_K, x2, qt, out_dtype)
-
-
-def qmm_q4_0(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
-    """x2 (rows, k) @ W^T -> (rows, m) through the Q4_0 dequant kernel;
-    float32 sums, rounded once to `out_dtype`."""
-    p = qt.planes
-    if not x2.is_cuda:
-        return qmm_q4_0_plain(x2, p["qs"], p["dsub"]).to(out_dtype)
-    return _dequant_matmul("qmm_q4_0", _lib_q4_0, GGMLType.Q4_0, x2, qt, out_dtype)
-
-
-# the int8-activation form of each scheme: its launch counter
+# the int8-activation form of each scheme: its launch counter, and with
+# "_plain" its plain version (taking the planes in _KERNEL_PLANES order)
 W4A8_FORMS = {GGMLType.Q4_K: "qmm_w4a8", GGMLType.Q8_0: "qmm_w4a8_q8_0",
               GGMLType.Q6_K: "qmm_w4a8_q6k", GGMLType.Q5_K: "qmm_w4a8_q5k",
-              GGMLType.Q4_0: "qmm_w4a8_q4_0"}
+              GGMLType.Q4_0: "qmm_w4a8_q4_0", GGMLType.Q3_K: "qmm_w4a8_q3k",
+              GGMLType.Q2_K: "qmm_w4a8_q2k"}
 
 
 def _w4a8_plain(x2, qt: QTensor, plane):
     p = qt.planes
-    if qt.kind == GGMLType.Q8_0:
-        return qmm_w4a8_q8_0_plain(x2, p["qs"], p["dsub"])
-    if qt.kind == GGMLType.Q6_K:
-        return qmm_w4a8_q6k_plain(x2, p["ql"], p["qh"], p["dsub"])
-    if qt.kind == GGMLType.Q5_K:
-        return qmm_w4a8_q5k_plain(x2, p["qs"], p["qh"], p["dsub"], p["msub"])
-    if qt.kind == GGMLType.Q4_0:
-        return qmm_w4a8_q4_0_plain(x2, p["qs"], p["dsub"])
-    return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane)
+    if plane is not None:
+        return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane)
+    plain = globals()[f"{W4A8_FORMS[qt.kind]}_plain"]
+    return plain(x2, *(p[n] for n in _KERNEL_PLANES[qt.kind]))
 
 
 def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
              plane: torch.Tensor | None = None) -> torch.Tensor:
     """x2 (rows <= 16, k) @ W^T -> (rows, m), W of any kernel-layout scheme:
     activations quantize to int8 per scale group of the scheme (32, or 16
-    for Q6_K) in a first kernel, chained to the scheme's integer matmul by
-    programmatic dependent launch; float32 sums, rounded once to
+    for Q6_K, Q3_K and Q2_K) in a first kernel, chained to the scheme's
+    integer matmul by programmatic dependent launch; float32 sums, rounded once to
     `out_dtype`. With `plane` (rows,) int32 (Q4_K only), `qt` is a stack
     (E, m, k) and row b multiplies plane[b], read on the device. The launch
     is `w4a8_plan`'s; each scheme counts its launches under its
@@ -575,7 +594,8 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
         return _w4a8_plain(x2, qt, plane).to(out_dtype)
     rows, k = x2.shape
     _build.require(kind in W4A8_FORMS,
-                   f"{kind.name}: qmm_w4a8 takes Q4_K, Q5_K, Q6_K, Q8_0 or Q4_0 planes")
+                   f"{kind.name}: qmm_w4a8 takes "
+                   + ", ".join(f.name for f in W4A8_FORMS) + " planes")
     planes = _check_weight(qt, k, x2.device, stacked=plane is not None, kind=kind)
     if plane is not None:
         _build.require(plane.dtype == torch.int32 and plane.shape == (rows,)
@@ -694,11 +714,6 @@ def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
     return qmm_q4k_grouped(xs, qt, offsets, xs.dtype)
 
 
-# the dequant kernel of each scheme
-DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k",
-                 GGMLType.Q5_K: "qmm_q5k", GGMLType.Q4_0: "qmm_q4_0"}
-
-
 def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
     """The kernel the JAX package's qmatmul_pallas picks under its `w4a8`
     backend: by the row count padded up to a multiple of 8, so the W8 planes
@@ -714,7 +729,7 @@ def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
 
 def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x (..., k) @ W^T -> (..., m) in x's dtype for a kernel-layout weight
-    (Q4_K, Q5_K, Q6_K, Q8_0 or Q4_0), routed by row count, by whether `qt` carries W8
+    (any of KERNEL_KINDS), routed by row count, by whether `qt` carries W8
     planes and by its scheme (`route`). The kernels write x's dtype
     themselves, so no cast follows them.
 
@@ -722,19 +737,5 @@ def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     package's qmatmul_pallas does (gemm_quant.py:941,959)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qt.k)
-    kernel = route(x2.shape[0], "w8" in qt.planes, qt.kind)
-    if kernel == "qmm_w4a8":
-        out = qmm_w4a8(x2, qt, x.dtype)
-    elif kernel == "qmm_w8":
-        out = qmm_w8(x2, qt, x.dtype)
-    elif kernel == "qmm_q8_0":
-        out = qmm_q8_0(x2, qt, x.dtype)
-    elif kernel == "qmm_q6k":
-        out = qmm_q6k(x2, qt, x.dtype)
-    elif kernel == "qmm_q5k":
-        out = qmm_q5k(x2, qt, x.dtype)
-    elif kernel == "qmm_q4_0":
-        out = qmm_q4_0(x2, qt, x.dtype)
-    else:
-        out = qmm_q4k(x2, qt, x.dtype)
-    return out.reshape(*lead, qt.m)
+    wrapper = globals()[route(x2.shape[0], "w8" in qt.planes, qt.kind)]
+    return wrapper(x2, qt, x.dtype).reshape(*lead, qt.m)

@@ -1,11 +1,11 @@
 """Quantized matmul dispatch and the embedding gather.
 
 Counterpart of crabml_tpu/ops/matmul.py under its headline backend `w4a8`:
-Q4_K, Q5_K, Q6_K, Q8_0 and Q4_0 weights in kernel layout go to the CUDA
-matmuls (ops/cuda/gemm_quant.py routes by row count, by scheme and by whether
-the weight carries W8 prefill planes), and F32/F16 weights, which the JAX
+Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q3_K and Q2_K weights in kernel layout go to
+the CUDA matmuls (ops/cuda/gemm_quant.py routes by row count, by scheme and
+by whether the weight carries W8 prefill planes), and F32/F16 weights, which the JAX
 package leaves to XLA's dense product, take torch.matmul. Dispatch is per
-weight, so the mixed kinds of a llama.cpp _K_M file need nothing here.
+weight, so the mixed kinds of a llama.cpp _K_M or Q2_K file need nothing here.
 """
 
 from __future__ import annotations

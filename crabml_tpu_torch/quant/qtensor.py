@@ -34,6 +34,19 @@ experts with a leading expert axis on every plane, as named torch planes:
   into Q4_K's per-64 order (byte j of a 64-element chunk holds element j low
   and j + 32 high), so both CUDA kernels unpack it as they unpack Q4_K, and
   `dsub` = d, one per 32, so w = (val - 8)*dsub.
+- Q2_K, canonical planes: `qs` u8 (m, k/4), the 2-bit values in Q6_K's
+  `qh` order (bits 2s, 2s + 1 of byte j of a 128-element half's 32 bytes are
+  element 32s + j, `q2_values`), `sc`, `mn` u8 (m, k/16) (the two 4-bit
+  fields of ggml's scale byte), `d`, `dmin` f32 (m, k/256). Kernel planes:
+  `qs` unchanged, `scm` u8 (m, k/16), ggml's own byte (sc in the low nibble,
+  mn in the high one), and `d`, `dmin` f32 unchanged: the kernels form the
+  group scale d*sc and minimum -dmin*mn in float32, exactly (an f16 value
+  times a 4-bit one), so w = val*dsub + msub, val 0..3.
+- Q3_K, canonical planes: `qs` u8 (m, k/4) in Q2_K's order, `hb` u8 (m, k/8)
+  in Q5_K's `qh` order (bit b of byte l of a superblock's 32 bytes is the
+  third bit of element 32b + l, `q3k_values`), `sc` i8 (m, k/16) with ggml's
+  -32 applied, `d` f32 (m, k/256). The kernel planes are these planes as
+  they are: w = (val - 4)*d*sc, val 0..7, the scale formed in float32.
 - W8 prefill planes, optional beside the kernel planes (attached by
   ops/cuda/gemm_quant.py::augment_w8): `w8` i8 (m, kpad8), k contiguous and
   zero-padded to a multiple of 512, and `dw` f32 (m, kpad8/512), one scale per
@@ -56,7 +69,8 @@ from ..gguf.constants import GGMLType, GGML_BLOCK_SIZES, QK_K
 
 
 # the kinds that have kernel planes and CUDA matmuls
-KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0)
+KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
+                GGMLType.Q2_K, GGMLType.Q3_K)
 
 
 @dataclass
@@ -82,7 +96,8 @@ class QTensor:
 
     @property
     def kernel_layout(self) -> bool:
-        return "dsub" in self.planes
+        """Whether the planes are the CUDA kernels' (Q3_K's canonical planes are)."""
+        return "dsub" in self.planes or "scm" in self.planes or self.kind == GGMLType.Q3_K
 
 
 def _u8(raw, device) -> torch.Tensor:
@@ -96,6 +111,16 @@ def _k4_scale_min(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sc = torch.cat([q[:, 0:4] & 63, (q[:, 8:12] & 0xF) | ((q[:, 0:4] >> 6) << 4)], 1)
     mn = torch.cat([q[:, 4:8] & 63, (q[:, 8:12] >> 4) | ((q[:, 4:8] >> 6) << 4)], 1)
     return sc, mn
+
+
+def _q3k_scales(s: torch.Tensor) -> torch.Tensor:
+    """Q3_K's 12-byte scale field (nb, 12) u8 -> its 16 6-bit scales less 32,
+    (nb, 16) i8: scale j takes its low four bits from byte j (j < 8) or the
+    high nibble of byte j - 8, and its top two from bits 2 (j // 4) of byte
+    8 + j % 4 (quant/codecs.py::_q3k_scales)."""
+    lo = torch.cat([s[:, 0:8] & 0xF, s[:, 0:8] >> 4], 1)
+    hi = torch.cat([(s[:, 8:12] >> sh) & 3 for sh in (0, 2, 4, 6)], 1)
+    return ((lo | (hi << 4)).to(torch.int16) - 32).to(torch.int8)
 
 
 def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
@@ -126,6 +151,27 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
             "qs": b[:, 2:18].reshape(m, k // 2),
             "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32),
         }
+    elif typ in (GGMLType.Q2_K, GGMLType.Q3_K) and k % QK_K:
+        raise UnsupportedError(
+            f"{typ.name} weight of shape {tuple(shape)}: rows of 256-element superblocks only")
+    elif typ == GGMLType.Q2_K:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 84)
+        dd = b[:, 80:84].contiguous().view(torch.float16).float()  # (nb, 2): d, dmin
+        planes = {
+            "qs": b[:, 16:80].reshape(m, k // 4),
+            "sc": (b[:, 0:16] & 0xF).reshape(m, k // 16),
+            "mn": (b[:, 0:16] >> 4).reshape(m, k // 16),
+            "d": dd[:, 0].reshape(m, k // QK_K).contiguous(),
+            "dmin": dd[:, 1].reshape(m, k // QK_K).contiguous(),
+        }
+    elif typ == GGMLType.Q3_K:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 110)
+        planes = {
+            "qs": b[:, 32:96].reshape(m, k // 4),
+            "hb": b[:, 0:32].reshape(m, k // 8),
+            "sc": _q3k_scales(b[:, 96:108]).reshape(m, k // 16),
+            "d": b[:, 108:110].contiguous().view(torch.float16).float().reshape(m, k // QK_K),
+        }
     elif typ in (GGMLType.Q4_K, GGMLType.Q5_K):
         b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 144) or (nb, 176)
         dd = b[:, 0:4].contiguous().view(torch.float16).float()  # (nb, 2): d, dmin
@@ -141,7 +187,8 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
             planes["qh"] = b[:, 16:48].reshape(m, k // 8)
     else:
         raise UnsupportedError(
-            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_0, Q4_K, Q5_K and Q6_K")
+            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_0, Q2_K, Q3_K, Q4_K, Q5_K "
+            "and Q6_K")
     if len(shape) != 3:
         return QTensor(typ, (m, k), planes)
     E = int(shape[0])
@@ -156,13 +203,33 @@ def nibbles(qs: torch.Tensor) -> torch.Tensor:
     return torch.cat([q & 0xF, q >> 4], dim=-1).reshape(*lead, -1)
 
 
+def _bit_plane(qh: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/8) u8 in ggml's Q5_K qh order (bit b of byte l of a
+    superblock's 32 bytes belongs to element 32b + l) -> (..., m, k) bits."""
+    lead = qh.shape[:-1]
+    h = qh.reshape(*lead, -1, 1, 32)
+    return torch.cat([(h >> b) & 1 for b in range(8)], dim=-2).reshape(*lead, -1)
+
+
 def q5k_values(qs: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     """(..., m, k/2) qs in 64-chunk nibble order and (..., m, k/8) qh in
     ggml's Q5_K order -> (..., m, k) values 0..31 (u8)."""
-    lead = qh.shape[:-1]
-    h = qh.reshape(*lead, -1, 1, 32)
-    hi = torch.cat([(h >> b) & 1 for b in range(8)], dim=-2)  # (..., superblocks, 8, 32)
-    return nibbles(qs) | (hi.reshape(*lead, -1) << 4)
+    return nibbles(qs) | (_bit_plane(qh) << 4)
+
+
+def q2_values(qs: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/4) u8 in ggml's 2-bit order (byte l of a 128-element half's
+    32 bytes holds elements l, l + 32, l + 64, l + 96 at shifts 0, 2, 4, 6:
+    Q2_K's and Q3_K's qs, Q6_K's qh) -> (..., m, k) values 0..3 (u8)."""
+    lead = qs.shape[:-1]
+    q = qs.reshape(*lead, -1, 1, 32)
+    return torch.cat([(q >> s) & 3 for s in (0, 2, 4, 6)], dim=-2).reshape(*lead, -1)
+
+
+def q3k_values(qs: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/4) qs in the 2-bit order and (..., m, k/8) hb in the Q5_K
+    qh order -> (..., m, k) values 0..7 (u8), 4 above the signed weight."""
+    return q2_values(qs) | (_bit_plane(hb) << 2)
 
 
 def q4_0_values(qs: torch.Tensor) -> torch.Tensor:
@@ -186,10 +253,8 @@ def q6k_values(ql: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
     values 0..63 (u8), 32 above the signed weight."""
     lead = ql.shape[:-1]
     lo = ql.reshape(*lead, -1, 1, 64)
-    lo = torch.cat([lo & 0xF, lo >> 4], dim=-2)  # (..., halves, 2, 64)
-    hi = qh.reshape(*lead, -1, 1, 32)
-    hi = torch.cat([(hi >> s) & 3 for s in (0, 2, 4, 6)], dim=-2)  # (..., halves, 4, 32)
-    return (lo.reshape(*lead, -1, 128) | (hi.reshape(*lead, -1, 128) << 4)).reshape(*lead, -1)
+    lo = torch.cat([lo & 0xF, lo >> 4], dim=-2).reshape(*lead, -1)  # per half: 2 x 64
+    return lo | (q2_values(qh) << 4)
 
 
 def _folded_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -211,6 +276,17 @@ def _dsub(qt: QTensor, per: int) -> torch.Tensor:
     return p["d"].repeat_interleave(QK_K // per, dim=-1) * p["sc"].float()
 
 
+def k16_scales(kind: GGMLType, p: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Q2_K / Q3_K, canonical or kernel planes `p` -> (dsub, msub) in float32,
+    one per 16 elements: d*sc and -dmin*mn for Q2_K, d*sc and None for Q3_K
+    (its offset is the caller's). Both products are exact."""
+    d = p["d"].repeat_interleave(QK_K // 16, dim=-1)
+    if kind == GGMLType.Q3_K:
+        return d * p["sc"].float(), None
+    sc, mn = (p["scm"] & 0xF, p["scm"] >> 4) if "scm" in p else (p["sc"], p["mn"])
+    return d * sc.float(), -(p["dmin"].repeat_interleave(QK_K // 16, dim=-1) * mn.float())
+
+
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Planes -> dense `qt.shape` in `dtype`, computed in float32."""
     p = qt.planes
@@ -226,6 +302,15 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         vals = nibbles(p["qs"]) if qt.kernel_layout else q4_0_values(p["qs"])
         q = (vals.float() - 8).reshape(*qt.shape[:-1], qt.k // 32, 32)
         return (q * _dsub(qt, 32)[..., None]).reshape(qt.shape).to(dtype)
+    if qt.kind in (GGMLType.Q2_K, GGMLType.Q3_K):
+        dl, ml = k16_scales(qt.kind, p)
+        if ml is None:  # Q3_K: (val - 4) * d*sc
+            q = q3k_values(p["qs"], p["hb"]).float() - 4
+            w = q.reshape(*qt.shape[:-1], qt.k // 16, 16) * dl[..., None]
+        else:
+            q = q2_values(p["qs"]).float().reshape(*qt.shape[:-1], qt.k // 16, 16)
+            w = q * dl[..., None] + ml[..., None]
+        return w.reshape(qt.shape).to(dtype)
     vals = q5k_values(p["qs"], p["qh"]) if qt.kind == GGMLType.Q5_K else nibbles(p["qs"])
     q = vals.float().reshape(*qt.shape[:-1], qt.k // 32, 32)
     if qt.kernel_layout:
@@ -240,11 +325,22 @@ def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
     """Canonical planes -> kernel planes: {qs, dsub, msub} for Q4_K, {qs,
     qh, dsub, msub} for Q5_K, {qs, dsub} for Q8_0 and Q4_0 (Q4_0's nibbles
     reordered into the per-64 order), {ql, qh, dsub} for Q6_K, the float32
-    scale rounded once to `scale_dtype`. F32 and F16 are returned as they
-    are (they take the dense matmul)."""
+    scale rounded once to `scale_dtype`; {qs, scm, d, dmin} for Q2_K and Q3_K's
+    own planes, whose scales stay exact whatever `scale_dtype`. F32 and F16
+    are returned as they are (they take the dense matmul)."""
+    p = qt.planes
+    if qt.kind == GGMLType.Q3_K or (qt.kind == GGMLType.Q2_K and not qt.kernel_layout):
+        if qt.k % QK_K:
+            raise UnsupportedError(
+                f"{qt.kind.name} weight of shape {qt.shape}: rows of 256-element superblocks only")
+        if qt.kind == GGMLType.Q3_K:
+            planes = {n: p[n].contiguous() for n in ("qs", "hb", "sc", "d")}
+        else:
+            planes = {"qs": p["qs"].contiguous(), "scm": p["sc"] | (p["mn"] << 4),
+                      "d": p["d"].contiguous(), "dmin": p["dmin"].contiguous()}
+        return QTensor(qt.kind, qt.shape, planes)
     if qt.kind not in KERNEL_KINDS or qt.kernel_layout:
         return qt
-    p = qt.planes
     if qt.kind == GGMLType.Q8_0:
         return QTensor(qt.kind, qt.shape, {"qs": p["qs"].contiguous(),
                                            "dsub": _dsub(qt, 32).to(scale_dtype)})

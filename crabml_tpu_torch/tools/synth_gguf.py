@@ -1,6 +1,6 @@
 """Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K,
-Q5_K, Q6_K, Q8_0 or Q4_0 weights, or llama.cpp's mixed _K_M layout) in
-seconds.
+Q5_K, Q6_K, Q8_0, Q4_0, Q3_K or Q2_K weights, or llama.cpp's mixed _K_M and
+Q2_K layouts) in seconds.
 
 No multi-GB checkpoint ships with the repo, so the port's main path runs on a
 byte-valid GGUF v3 made from a seed. Every block gets random quant bytes and
@@ -22,20 +22,43 @@ finite through every layer:
   of about 527*d when dmin = 15.5*d (the mean of q), so d = sigma/527.
 - Q4_0 (32 weights, 18 bytes): random nibbles; q - 8 has a standard
   deviation of ~4.64, so d = sigma/4.64.
+- Q2_K (256 weights, 84 bytes): random `scales` and `qs`; with 4-bit sc, mn
+  and 2-bit q uniform, w = d*sc*q - dmin*mn has a mean of zero when dmin =
+  1.5*d (E[sc*q] = 11.25, E[mn] = 7.5) and then a standard deviation of
+  about 13.87*d, so d = sigma/13.87.
+- Q3_K (256 weights, 110 bytes): random `hmask`, `qs` and `scales`; the
+  3-bit value less 4 (-4..3) has an rms of ~2.35 and the 6-bit scale less
+  32 (-32..31) an rms of ~18.5, so d = sigma/43.34.
 
 `lm_head` writes `output.weight` in another scheme than the rest: Q6_K beside
 Q4_K layers is what llama.cpp's Q4_K_S and Q4_K_M files carry
 (`llama_tensor_get_type` puts the output in Q6_K).
 
-`mix="k_m"` (`--mix k_m`) writes llama.cpp's _K_M layout over the `scheme`
-layers, as `llama_tensor_get_type` in llama.cpp's src/llama-quant.cpp does for
-LLAMA_FTYPE_MOSTLY_Q4_K_M and Q5_K_M: `attn_v` and `ffn_down` are Q6_K in
-layer i of n where `use_more_bits(i, n)` holds, i < n/8 or i >= 7n/8 or
-(i - n/8) % 3 == 2 (integer division; n the file's depth, after --layers),
-and `output.weight` is Q6_K. So `--scheme q4_k --mix k_m` is a Q4_K_M file
-and `--scheme q5_k --mix k_m` a Q5_K_M file. A mixture-of-experts shape
-refuses the mix (llama.cpp would make its experts Q6_K, which the port's
-mixture of experts does not take). Norm weights are f32 ones and
+`mix` writes one of llama.cpp's mixed file types over the `scheme` layers,
+as `llama_tensor_get_type` in llama.cpp's src/llama-quant.cpp picks each
+tensor's type (`mix_kind`; i is the layer of n, n the file's depth after
+--layers, integer division; `output.weight` is Q6_K in every mix):
+
+- `k_m` over q4_k or q5_k (LLAMA_FTYPE_MOSTLY_Q4_K_M, Q5_K_M): `attn_v` and
+  `ffn_down` are Q6_K in layer i where `use_more_bits(i, n)` holds, i < n/8
+  or i >= 7n/8 or (i - n/8) % 3 == 2; the rest are in `scheme`.
+- `k_m` over q3_k (LLAMA_FTYPE_MOSTLY_Q3_K_M): `attn_q`, `attn_k`,
+  `ffn_gate`, `ffn_up` and `token_embd` are Q3_K; `attn_v` is Q5_K in layers
+  0 and 1 (`i_attention_wv < 2`) and Q4_K after; `attn_output` is Q4_K;
+  `ffn_down` is Q5_K where i < n/16 and Q4_K in every other layer (the
+  rule's `arch != FALCON || use_more_bits(i, n)` holds for every llama).
+- `q2_k` over q2_k (LLAMA_FTYPE_MOSTLY_Q2_K): `attn_q`, `attn_k`,
+  `ffn_gate`, `ffn_up` and `token_embd` are Q2_K; `attn_v` is Q4_K where
+  n_heads / n_kv_heads >= 4 (`n_gqa() >= 4`) and Q3_K otherwise;
+  `attn_output` and `ffn_down` are Q3_K.
+
+So `--scheme q4_k --mix k_m` is a Q4_K_M file, `--scheme q5_k --mix k_m` a
+Q5_K_M one, `--scheme q3_k --mix k_m` a Q3_K_M one and `--scheme q2_k --mix
+q2_k` a Q2_K one; each keeps q, k and v in other types in some layer, so
+the port leaves them apart there. This is a reading of that rule, held by the
+tests to the table above. A mixture-of-experts shape refuses a mix
+(llama.cpp would give its experts other types, which the port's mixture of
+experts does not take). Norm weights are f32 ones and
 the tokenizer is a llama-SPM vocab of specials, byte tokens and synthetic
 pieces. No element is quantized one at a time: the file is random bytes
 patched per block, written tensor by tensor.
@@ -51,6 +74,8 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --lm-head q6_k
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q5_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q3_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q2_k --mix q2_k
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
 """
 
@@ -130,20 +155,59 @@ def q4_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     return blocks
 
 
+def q2k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/256, 84) u8 Q2_K blocks with random scales and 2-bit
+    values and fixed f16 d = sigma/13.87, dmin = 1.5*d."""
+    blocks = np.frombuffer(rng.bytes(n // 256 * 84), np.uint8).reshape(-1, 84).copy()
+    d = np.float16(sigma / 13.87)
+    blocks[:, 80:84] = np.array([d, np.float16(1.5 * float(d))], np.float16).view(np.uint8)
+    return blocks
+
+
+def q3k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/256, 110) u8 Q3_K blocks with random hmask, 2-bit
+    values and 6-bit scales and a fixed f16 d = sigma/43.34."""
+    blocks = np.frombuffer(rng.bytes(n // 256 * 110), np.uint8).reshape(-1, 110).copy()
+    blocks[:, 108:110] = np.array([sigma / 43.34], np.float16).view(np.uint8)
+    return blocks
+
+
 SCHEMES = {  # --scheme -> (GGML type, block writer)
     "q4_k": (GGMLType.Q4_K, q4k_blocks),
     "q8_0": (GGMLType.Q8_0, q8_0_blocks),
     "q6_k": (GGMLType.Q6_K, q6k_blocks),
     "q5_k": (GGMLType.Q5_K, q5k_blocks),
     "q4_0": (GGMLType.Q4_0, q4_0_blocks),
+    "q3_k": (GGMLType.Q3_K, q3k_blocks),
+    "q2_k": (GGMLType.Q2_K, q2k_blocks),
 }
-MIXES = ("k_m",)
+MIXES = ("k_m", "q2_k")
 
 
 def use_more_bits(i: int, n: int) -> bool:
     """llama.cpp's use_more_bits(i_layer, n_layers) (src/llama-quant.cpp):
-    the layers whose attn_v and ffn_down a _K_M file keeps in Q6_K."""
+    the layers whose attn_v and ffn_down a Q4_K_M / Q5_K_M file keeps in Q6_K."""
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int) -> str:
+    """The scheme of `tensor` (attn_q, attn_k, attn_v, attn_output, ffn_gate,
+    ffn_up, ffn_down; token_embd and output take i = -1) of layer i of n
+    under `mix` (the module docstring's table); `gqa` = n_heads / n_kv_heads.
+    The output's own rule is the caller's."""
+    if mix == "q2_k":
+        if tensor == "attn_v":
+            return "q4_k" if gqa >= 4 else "q3_k"
+        return "q3_k" if tensor in ("attn_output", "ffn_down") else scheme
+    if mix == "k_m" and scheme == "q3_k":
+        if tensor == "attn_v":
+            return "q5_k" if i < 2 else "q4_k"
+        if tensor == "ffn_down":
+            return "q5_k" if i < n // 16 else "q4_k"
+        return "q4_k" if tensor == "attn_output" else scheme
+    if mix == "k_m" and tensor in ("attn_v", "ffn_down") and use_more_bits(i, n):
+        return "q6_k"
+    return scheme
 
 
 def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | None = None,
@@ -151,12 +215,13 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
                      lm_head: str | None = None, mix: str | None = None) -> str:
     """Write the synthetic GGUF of shape `model` (optionally with fewer
     layers) to `path`, every matrix in `scheme` but `output.weight`, which
-    is in `lm_head` (default: `scheme`, or Q6_K with a mix), and, with `mix`
-    "k_m", the attn_v and ffn_down of the `use_more_bits` layers in Q6_K."""
+    is in `lm_head` (default: `scheme`, or Q6_K with a mix), and, with a
+    `mix`, each layer tensor in the type `mix_kind` gives it."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
-    if mix is not None and (mix not in MIXES or experts):
-        raise ValueError(f"mix {mix!r}: only 'k_m', and on a dense shape")
+    if mix is not None and (mix not in MIXES or experts or (mix == "q2_k") != (scheme == "q2_k")):
+        raise ValueError(f"mix {mix!r} over scheme {scheme!r}: 'k_m', or 'q2_k' over q2_k, and "
+                         "on a dense shape")
     lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
     meta = {
@@ -201,11 +266,13 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
 
     add("token_embd.weight", (vocab, dim), sigma=0.02)
     for l in range(n_layers):
-        more = "q6_k" if mix and use_more_bits(l, n_layers) else scheme
-        add(f"blk.{l}.attn_q.weight", (dim, dim))
-        add(f"blk.{l}.attn_k.weight", (kv_dim, dim))
-        add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=more)
-        add(f"blk.{l}.attn_output.weight", (dim, dim))
+        def kind(tensor, l=l):
+            return mix_kind(tensor, l, n_layers, scheme, mix, heads // kv_heads)
+
+        add(f"blk.{l}.attn_q.weight", (dim, dim), kind=kind("attn_q"))
+        add(f"blk.{l}.attn_k.weight", (kv_dim, dim), kind=kind("attn_k"))
+        add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=kind("attn_v"))
+        add(f"blk.{l}.attn_output.weight", (dim, dim), kind=kind("attn_output"))
         if experts:
             counter[0] += 1
             router = np.random.default_rng([seed, counter[0]]).standard_normal((experts, dim))
@@ -215,9 +282,9 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             add(f"blk.{l}.ffn_up_exps.weight", (experts, hidden, dim))
             add(f"blk.{l}.ffn_down_exps.weight", (experts, dim, hidden))
         else:
-            add(f"blk.{l}.ffn_gate.weight", (hidden, dim))
-            add(f"blk.{l}.ffn_up.weight", (hidden, dim))
-            add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=more)
+            add(f"blk.{l}.ffn_gate.weight", (hidden, dim), kind=kind("ffn_gate"))
+            add(f"blk.{l}.ffn_up.weight", (hidden, dim), kind=kind("ffn_up"))
+            add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=kind("ffn_down"))
         ones(f"blk.{l}.attn_norm.weight", dim)
         ones(f"blk.{l}.ffn_norm.weight", dim)
     ones("output_norm.weight", dim)
@@ -245,8 +312,10 @@ def main(argv=None):
                     help="the scheme of output.weight (default: --scheme, q6_k with --mix); "
                          "q6_k beside q4_k layers is llama.cpp's Q4_K_M / Q4_K_S lm_head")
     ap.add_argument("--mix", default=None, choices=list(MIXES),
-                    help="k_m: llama.cpp's _K_M layout over the --scheme layers (attn_v and "
-                         "ffn_down in Q6_K where use_more_bits holds, a Q6_K output)")
+                    help="k_m: llama.cpp's _K_M layout over the --scheme layers (Q4_K_M and "
+                         "Q5_K_M: attn_v and ffn_down in Q6_K where use_more_bits holds; Q3_K_M "
+                         "over q3_k); q2_k: llama.cpp's Q2_K file type (with --scheme q2_k); "
+                         "a Q6_K output")
     args = ap.parse_args(argv)
     build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True,
                      scheme=args.scheme, lm_head=args.lm_head, mix=args.mix)

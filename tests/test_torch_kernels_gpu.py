@@ -947,14 +947,16 @@ def test_random_numbers_work_after_a_failed_capture(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the Q8_0, Q6_K, Q5_K and Q4_0 forms: the dequant kernels (qmm_q8_0.cu,
-# qmm_q6k.cu, qmm_q5k.cu, qmm_q4_0.cu) and the int8-activation forms of
-# qmm_w4a8.cu
+# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K forms: the dequant kernels
+# (qmm_q8_0.cu, qmm_q6k.cu, qmm_q5k.cu, qmm_q4_0.cu, qmm_q3k.cu, qmm_q2k.cu)
+# and the int8-activation forms of qmm_w4a8.cu
 # ---------------------------------------------------------------------------
 
 SCHEME_KINDS = pytest.mark.parametrize(
-    "kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0],
-    ids=["q8_0", "q6_k", "q5_k", "q4_0"])
+    "kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
+             GGMLType.Q2_K],
+    ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+K16_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q3_K, GGMLType.Q2_K], ids=["q3_k", "q2_k"])
 
 
 def _x(rows, k, seed):
@@ -991,10 +993,25 @@ def _w4a8_plain_of(kind):
 def _every_value_planes(kind, m, k, device):
     """Kernel planes of an (m, k) weight of `kind` in which every value
     (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K, 5-bit 0..31 for Q5_K,
-    nibbles for Q4_0) stands at every k position in some row, each row and
-    scale group with a scale (and Q5_K a minimum) of its own."""
+    nibbles for Q4_0, 3-bit 0..7 for Q3_K, 2-bit for Q2_K) stands at every k
+    position in some row, each row and scale group with a scale (and Q5_K and
+    Q2_K a minimum) of its own."""
     n = torch.arange(m, device=device)[:, None]
     j2, j4, j8 = (torch.arange(k // d, device=device)[None, :] for d in (2, 4, 8))
+    if kind in (GGMLType.Q3_K, GGMLType.Q2_K):
+        grp = torch.arange(k // 16, device=device)[None, :]
+        sbi = torch.arange(k // 256, device=device)[None, :]
+        planes = {"qs": ((n + j4) % 256).to(torch.uint8),
+                  "d": (0.01 * (1 + (n + sbi) % 5 / 8)).half().float()}
+        if kind == GGMLType.Q3_K:  # signed scales, never 0
+            v = (16 * n + grp) % 60 - 30
+            planes["hb"] = ((3 * n + 7 * j8 + 1) % 256).to(torch.uint8)
+            planes["sc"] = (v + (v >= 0).long()).to(torch.int8)
+            assert (planes["sc"][:, 1:] != planes["sc"][:, :-1]).all()
+        else:
+            planes["scm"] = ((1 + (n + grp) % 15) | ((3 * n + 5 * grp) % 16) << 4).to(torch.uint8)
+            planes["dmin"] = (0.005 * (1 + (2 * n + sbi) % 3 / 4)).half().float()
+        return planes
     if kind == GGMLType.Q8_0:
         j = torch.arange(k, device=device)[None, :]
         planes = {"qs": ((n + 7 * j) % 255 - 127).to(torch.int8)}
@@ -1165,6 +1182,64 @@ def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
         gemm_quant.qmm_w4a8(x[:17], q6)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(x[:2], q6, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+@K16_KINDS
+def test_k16_wrappers_raise_rather_than_fall_back(cuda, kind):
+    """The Q3_K and Q2_K forms raise on a CUDA tensor where they do not take
+    the input: a bfloat16 d plane, the weight given to another scheme's
+    dequant kernel, 17 rows to qmm_w4a8, a plane per row; and a row that is
+    not whole superblocks raises at load."""
+    qt = _scheme_weight(kind, 256, 512, 1)
+    x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
+    name = gemm_quant.DEQUANT_FORMS[kind]
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q6k(x, qt)
+    bf16 = QTensor(kind, qt.shape, {**qt.planes, "d": qt.planes["d"].to(torch.bfloat16)})
+    with pytest.raises(UnsupportedError):
+        getattr(gemm_quant, name)(x, bf16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:1], bf16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:17], qt)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:2], qt, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(UnsupportedError, match="superblocks"):
+        to_planar(kind, np.zeros(256 * 288 // 256 * 128, np.uint8), (256, 288), "cuda")
+
+
+# the 7B shapes of the card's 7b-q3_k_m and 7b-q2_k paths: the dequant forms
+# at a 512-row and the ragged 189-row chunk of q and of gate|up, a 512-row
+# chunk of down; the int8-activation forms at every decode projection
+# (q, k|v, wo, gate|up, down, lm_head) at 1 and 8 rows, and 16 rows of q
+_7B_DEQUANT = [(512, 4096, 4096), (189, 4096, 4096), (512, 28672, 4096), (189, 28672, 4096),
+               (512, 4096, 14336)]
+_7B_W4A8 = [(rows, m, k) for rows in (1, 8)
+            for m, k in ((4096, 4096), (1024, 4096), (28672, 4096), (4096, 14336), (32000, 4096))]
+_7B_W4A8 += [(16, 4096, 4096)]
+
+
+@K16_KINDS
+@pytest.mark.parametrize("form,rows,m,k", [("dequant", *s) for s in _7B_DEQUANT]
+                         + [("w4a8", *s) for s in _7B_W4A8])
+def test_k16_forms_at_7b_shapes(cuda, kind, form, rows, m, k):
+    """The four new kernels against their plain versions at the 7B shapes,
+    tolerance 1e-4 of max|out| (the same bf16 weights or int8 activations,
+    float32 sums in another order), each call counted once."""
+    qt = _scheme_weight(kind, m, k, rows + 7 * m)
+    x = _x(rows, k, k + rows)
+    if form == "dequant":
+        name, plain = _dequant_of(kind)
+        fn = getattr(gemm_quant, name)
+    else:
+        name, plain, fn = gemm_quant.W4A8_FORMS[kind], _w4a8_plain_of(kind), gemm_quant.qmm_w4a8
+    before = _build.launches[name]
+    got = fn(x, qt)
+    want = plain(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q4_0], ids=["q5_k", "q4_0"])

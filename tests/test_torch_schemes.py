@@ -1,11 +1,12 @@
-"""Port parity for the Q8_0, Q6_K, Q5_K and Q4_0 weights: the planes
-against the codec, each plain matmul against the JAX Pallas kernel of the
-same scheme (interpret mode on the CPU), the 2-layer forward under backend
-`w4a8`, and greedy Runner tokens from one GGUF; the 2-layer forward of Q4_K
-layers with a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its Runner
-check is tests/test_torch_schemes_lm_head.py); a llama.cpp _K_M file, whose
-layers differ in kind, against the JAX forward on its float32 twin; and the
-mixture of experts' refusal of experts other than Q4_K."""
+"""Port parity for the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K weights: the
+planes against the codec, each plain matmul against the JAX Pallas kernel of
+the same scheme (interpret mode on the CPU), the 2-layer forward under
+backend `w4a8`, and greedy Runner tokens from one GGUF; the 2-layer forward
+of Q4_K layers with a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its
+Runner check is tests/test_torch_schemes_lm_head.py); llama.cpp's mixed
+Q4_K_M, Q3_K_M and Q2_K files, whose layers differ in kind, against the JAX
+forward on their float32 twins; and the mixture of experts' refusal of
+experts other than Q4_K."""
 
 import jax
 import jax.numpy as jnp
@@ -38,8 +39,10 @@ from crabml_tpu_torch.quant import codecs
 from crabml_tpu_torch.quant.qtensor import dequantize, to_kernel_layout, to_planar
 from crabml_tpu_torch.runtime.runner import Runner
 
-KINDS = (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0)
-SCHEMES = pytest.mark.parametrize("kind", KINDS, ids=["q8_0", "q6_k", "q5_k", "q4_0"])
+KINDS = (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
+         GGMLType.Q2_K)
+SCHEMES = pytest.mark.parametrize("kind", KINDS,
+                                  ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
 M, K = 512, 1024
 # tests/test_torch_model.py's widths: head dim 128 and a 128-aligned cache
 CFG = dict(embedding_dim=512, hidden_dim=512, n_heads=4, n_kv_heads=2, n_layers=2,
@@ -54,6 +57,18 @@ PROMPT = "tok7 tok99 tok3 tok250 tok17"
 # op-by-op run breaks the other way (9.2e-3 in the logits); the jitted run
 # and the port break them alike.
 OP_BY_OP_DECODE = {GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q4_K}
+# the kinds whose 2-layer models take norm weights drawn at random, as a
+# checkpoint's are, instead of the random models' ones: with unit norms a
+# Q3_K embedding row puts layer 0's int8 activations on exact ties (x/dx =
+# 63.5 where a value is 2 and its group's largest 4: one scale per 16 for
+# both), which one ulp of rms_norm's float32 sum (torch and XLA sum in other
+# orders) flips: 41 of 512 values of the tested token
+# (test_q3k_unit_norms_put_int8_activations_on_ties). The port then differs
+# from every JAX decode by 1.4e-2, and the JAX package's own jitted,
+# op-by-op and unfused-attention decodes differ from one another (by up to
+# 2e-3 on the Q2_K model). With random norms the port agrees with the jitted
+# and the op-by-op JAX decode alike, to 6e-6.
+RANDOM_NORMS = {GGMLType.Q3_K, GGMLType.Q2_K}
 
 
 @pytest.fixture
@@ -68,17 +83,18 @@ def w4a8_backend():
 @pytest.fixture
 def fast_q6k(monkeypatch):
     """The JAX package's random models quantize each matrix with the
-    codec, whose Q6_K encoder loops over blocks in Python (minutes for a
-    tiny model) and whose Q5_K encoder takes seconds a matrix. Here their
-    Q6_K and Q5_K matrices are random blocks instead (the port's synthetic
-    writer, seeded from the values): valid bytes that both packages read
-    alike."""
+    codec, whose Q6_K, Q3_K and Q2_K encoders loop over blocks in Python
+    (minutes for a tiny model) and whose Q5_K encoder takes seconds a matrix.
+    Here their matrices in those kinds are random blocks instead (the port's
+    synthetic writer, seeded from the values): valid bytes that both
+    packages read alike."""
     import crabml_tpu.models.synthetic as jsynth
 
-    from crabml_tpu_torch.tools.synth_gguf import q5k_blocks, q6k_blocks
+    from crabml_tpu_torch.tools.synth_gguf import q2k_blocks, q3k_blocks, q5k_blocks, q6k_blocks
 
     encode = jsynth.quantize
-    fast = {JGGMLType.Q6_K: q6k_blocks, JGGMLType.Q5_K: q5k_blocks}
+    fast = {JGGMLType.Q6_K: q6k_blocks, JGGMLType.Q5_K: q5k_blocks,
+            JGGMLType.Q3_K: q3k_blocks, JGGMLType.Q2_K: q2k_blocks}
 
     def quantize(typ, x):
         if typ not in fast:
@@ -90,6 +106,11 @@ def fast_q6k(monkeypatch):
 
 
 def _raw(kind, shape, seed):
+    """A matrix of `shape` in `kind`: normal weights through the codec, or
+    random blocks (`_blocks`) for the kinds whose encoder is slow beyond Q6_K
+    and Q5_K's tiny sizes."""
+    if kind in (GGMLType.Q3_K, GGMLType.Q2_K):
+        return _blocks(kind, shape, seed)
     w = (np.random.default_rng(seed).standard_normal(shape) * 0.05).astype(np.float32)
     return jquantize(JGGMLType(int(kind)), w)
 
@@ -133,7 +154,9 @@ def test_planes_dequantize_bit_exact(kind):
     np.testing.assert_array_equal(dequantize(qt).numpy(), want)
     np.testing.assert_array_equal(dequantize(to_kernel_layout(qt)).numpy(), want)
     names = {GGMLType.Q8_0: {"qs", "dsub"}, GGMLType.Q6_K: {"ql", "qh", "dsub"},
-             GGMLType.Q5_K: {"qs", "qh", "dsub", "msub"}, GGMLType.Q4_0: {"qs", "dsub"}}[kind]
+             GGMLType.Q5_K: {"qs", "qh", "dsub", "msub"}, GGMLType.Q4_0: {"qs", "dsub"},
+             GGMLType.Q3_K: {"qs", "hb", "sc", "d"},
+             GGMLType.Q2_K: {"qs", "scm", "d", "dmin"}}[kind]
     assert set(to_kernel_layout(qt).planes) == names
 
 
@@ -189,12 +212,18 @@ def _port_cfg(jcfg) -> ModelConfig:
 
 
 def _jax_weights(kind, lm_head):
-    """make_weights in `kind`, the output matrix in `lm_head`."""
+    """make_weights in `kind`, the output matrix in `lm_head`; the norms
+    drawn from U(0.5, 1.5) for the RANDOM_NORMS kinds."""
     jcfg = tiny_config(**CFG)
     jw = make_weights(jcfg, JGGMLType(int(kind)), seed=5)
     if lm_head != kind:
         shape = (jcfg.vocab_size, jcfg.embedding_dim)
         jw["output"] = jto_planar(JGGMLType(int(lm_head)), _blocks(lm_head, shape, 9), shape)
+    if kind in RANDOM_NORMS:
+        rng = np.random.default_rng(11)
+        for n in ("attn_norm", "ffn_norm"):
+            jw["layers"][n] = rng.uniform(0.5, 1.5, np.shape(jw["layers"][n])).astype(np.float32)
+        jw["final_norm"] = rng.uniform(0.5, 1.5, np.shape(jw["final_norm"])).astype(np.float32)
     return jcfg, jw
 
 
@@ -234,9 +263,43 @@ def test_forward_matches_jax_w4a8(kind, w4a8_backend, fast_q6k):
     for Q8_0 and Q6_K: on the Q6_K model its jitted logits differ from its
     own op-by-op ones by 1.4e-2, while each of its jitted matmuls alone
     equals the eager call; the port agrees with the op-by-op run to 1e-6.
-    For Q5_K and Q4_0 it runs jitted (OP_BY_OP_DECODE: the Q4_0 model's
-    exact int8 ties)."""
+    For Q5_K, Q4_0, Q3_K and Q2_K it runs jitted (OP_BY_OP_DECODE: the Q4_0
+    model's exact int8 ties); the Q3_K and Q2_K models have random norm
+    weights (RANDOM_NORMS)."""
     _forward_matches(kind, kind)
+
+
+def test_q3k_unit_norms_put_int8_activations_on_ties(fast_q6k):
+    """Why RANDOM_NORMS: with the random model's unit norms, the decode
+    step's first int8 activations of a Q3_K model (attn_norm of an embedding
+    row, quantized per 16) lie on exact ties, and every value on which the
+    port and the JAX package's op-by-op run differ is such a tie, one step
+    apart: the ulp by which torch's and XLA's float32 rms_norm differ picks
+    the side."""
+    from crabml_tpu.ops.norm import rms_norm as jrms_norm
+
+    from crabml_tpu_torch.ops.matmul import embedding_lookup
+    from crabml_tpu_torch.ops.norm import rms_norm
+
+    jcfg = tiny_config(**CFG)
+    jw = make_weights(jcfg, JGGMLType.Q3_K, seed=5)
+    pw = from_jax_weights(jw)
+    tok = np.random.default_rng(0).integers(3, jcfg.vocab_size, (1, PREFILL + 1))[:, -1:]
+    x = embedding_lookup(pw["token_embed"], torch.from_numpy(tok), torch.float32)
+    norm = pw["layers"][0]["attn_norm"]
+    h = rms_norm(x, norm, jcfg.rms_norm_eps).reshape(1, -1)
+    with jax.disable_jit():
+        hj = np.asarray(jrms_norm(jnp.asarray(x.numpy()), jnp.asarray(norm.numpy()),
+                                  jcfg.rms_norm_eps)).reshape(1, -1)
+    assert np.abs(h.numpy() - hj).max() <= 2.5e-7  # the two norms differ by ulps
+    xq, dx, _ = gemm_quant.quantize_activation(h, 16)
+    xqj, _, _ = jgemm.quantize_activation(jnp.asarray(hj), 16, 512)
+    ratio = (h.reshape(1, -1, 16) / dx[..., None]).reshape(1, -1)
+    tie = (ratio - ratio.floor() - 0.5).abs() <= 1e-5
+    differ = xq.numpy() != np.asarray(xqj)
+    assert tie.sum() >= 32 and differ.any()
+    assert (tie.numpy() | ~differ).all()
+    assert np.abs(xq.numpy().astype(int) - np.asarray(xqj).astype(int)).max() == 1
 
 
 @SCHEMES
@@ -254,30 +317,46 @@ def test_forward_q4k_with_q6k_lm_head_matches_jax(w4a8_backend):
     _forward_matches(GGMLType.Q4_K, GGMLType.Q6_K)
 
 
+Q4, Q5, Q6 = GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K
+Q3, Q2 = GGMLType.Q3_K, GGMLType.Q2_K
+# llama.cpp's mixed layouts on the 2-layer tiny shape (2 heads, 1 kv head):
+# the tensors whose type differs from the file's scheme
+K_M_TINY = {"blk.1.ffn_down": Q6, "blk.1.attn_v": Q6}  # use_more_bits(1, 2)
+Q3_K_M_TINY = {"blk.0.attn_v": Q5, "blk.1.attn_v": Q5, "blk.0.attn_output": Q4,
+               "blk.1.attn_output": Q4, "blk.0.ffn_down": Q4, "blk.1.ffn_down": Q4}
+Q2_K_TINY = {"blk.0.attn_v": Q3, "blk.1.attn_v": Q3, "blk.0.attn_output": Q3,
+             "blk.1.attn_output": Q3, "blk.0.ffn_down": Q3, "blk.1.ffn_down": Q3}
+
+
 def test_synth_gguf_writes_each_scheme(tmp_path):
     """tools/synth_gguf.py: every matrix in the scheme, the lm_head in its
-    own; with --mix k_m, attn_v and ffn_down in Q6_K where llama.cpp's
-    use_more_bits holds (layer 1 of 2) and a Q6_K output; weights of standard
-    deviation ~1/sqrt(k); the file loads (q|k|v and gate|up left apart in
-    the mixed layer)."""
+    own; with a mix the types of llama.cpp's layout (Q4_K_M / Q5_K_M: attn_v
+    and ffn_down in Q6_K where use_more_bits holds, layer 1 of 2; Q3_K_M and
+    Q2_K: the tables above) and a Q6_K output; weights of standard deviation
+    ~1/sqrt(k); the file loads (q|k|v and gate|up left apart in the mixed
+    layer)."""
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    for scheme, lm_head, mix, kind, head in (
-            ("q8_0", None, None, GGMLType.Q8_0, GGMLType.Q8_0),
-            ("q6_k", None, None, GGMLType.Q6_K, GGMLType.Q6_K),
-            ("q4_k", "q6_k", None, GGMLType.Q4_K, GGMLType.Q6_K),
-            ("q5_k", None, None, GGMLType.Q5_K, GGMLType.Q5_K),
-            ("q4_0", None, None, GGMLType.Q4_0, GGMLType.Q4_0),
-            ("q4_k", None, "k_m", GGMLType.Q4_K, GGMLType.Q6_K),
-            ("q5_k", None, "k_m", GGMLType.Q5_K, GGMLType.Q6_K)):
+    for scheme, lm_head, mix, kind, head, other in (
+            ("q8_0", None, None, GGMLType.Q8_0, GGMLType.Q8_0, {}),
+            ("q6_k", None, None, GGMLType.Q6_K, GGMLType.Q6_K, {}),
+            ("q4_k", "q6_k", None, GGMLType.Q4_K, GGMLType.Q6_K, {}),
+            ("q5_k", None, None, GGMLType.Q5_K, GGMLType.Q5_K, {}),
+            ("q4_0", None, None, GGMLType.Q4_0, GGMLType.Q4_0, {}),
+            ("q3_k", None, None, Q3, Q3, {}),
+            ("q2_k", None, None, Q2, Q2, {}),
+            ("q4_k", None, "k_m", GGMLType.Q4_K, GGMLType.Q6_K, K_M_TINY),
+            ("q5_k", None, "k_m", GGMLType.Q5_K, GGMLType.Q6_K, K_M_TINY),
+            ("q3_k", None, "k_m", Q3, Q6, Q3_K_M_TINY),
+            ("q2_k", None, "q2_k", Q2, Q6, Q2_K_TINY)):
         path = build_synth_gguf(str(tmp_path / f"{scheme}-{mix}.gguf"), "tiny", seed=1,
                                 scheme=scheme, lm_head=lm_head, mix=mix)
         gf = GGUFFile(path)
-        more = GGMLType.Q6_K if mix else kind
-        for name, want in (("blk.0.ffn_down", kind), ("blk.0.attn_v", kind),
-                           ("blk.1.ffn_down", more), ("blk.1.attn_v", more),
-                           ("blk.1.attn_q", kind), ("blk.1.ffn_up", kind)):
+        for name in (f"blk.{l}.{t}" for l in (0, 1) for t in
+                     ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_up", "ffn_down")):
+            want = other.get(name, kind)
             assert gf.get_tensor_info(f"{name}.weight").typ == want, (scheme, mix, name)
+        assert gf.get_tensor_info("token_embd.weight").typ == kind
         assert gf.get_tensor_info("output.weight").typ == head
         w = load_weights(gf, config_from_gguf(gf.metadata))
         down = dequantize(w["layers"][0]["ffn_down"])
@@ -300,25 +379,25 @@ def _f32_twin(src: str, dst: str):
     w.write(dst)
 
 
-def test_mixed_k_m_forward_matches_jax_f32_twin(tmp_path):
-    """A 2-layer Q4_K_M file (`--scheme q4_k --mix k_m`: layer 1's attn_v and
-    ffn_down and the output in Q6_K) through the port, 32 prompt rows (the
-    dequant route, unfused q, k, v in layer 1), float32 with float32 scales,
-    against the JAX forward on the file's F32 twin (the JAX package cannot
-    stack layers of different kinds). Tolerance 2e-4 (tests/test_model.py:41):
-    the port's float32 weights are the codec's values exactly, so only the
-    order of float32 sums differs."""
+def _mixed_forward_matches(tmp_path, name, scheme, mix, seed, kinds):
+    """The 2-layer file `--scheme scheme --mix mix` through the port, 32
+    prompt rows (the dequant route), float32 with float32 scales, against the
+    JAX forward on the file's F32 twin (the JAX package cannot stack layers
+    of different kinds), tolerance 2e-4 (tests/test_model.py:41): the port's
+    float32 weights are the codec's values exactly, so only the order of
+    float32 sums differs. `kinds`: per layer, each port matrix's kind.
+    Returns the loaded weights."""
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp_path / "q4_k_m.gguf"), "tiny", seed=6, scheme="q4_k",
-                            mix="k_m")
-    twin = str(tmp_path / "q4_k_m-f32.gguf")
+    path = build_synth_gguf(str(tmp_path / f"{name}.gguf"), "tiny", seed=seed, scheme=scheme,
+                            mix=mix)
+    twin = str(tmp_path / f"{name}-f32.gguf")
     _f32_twin(path, twin)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     w = load_weights(gf, cfg)
-    assert {n for n in w["layers"][1]} >= {"wq", "wk", "wv"} and "wqkv" in w["layers"][0]
-    assert w["layers"][1]["wv"].kind == GGMLType.Q6_K
+    for lw, want in zip(w["layers"], kinds):
+        assert {n: lw[n].kind for n in want} == want
     jgf = JGGUFFile(twin)
     jcfg = jconfig_from_gguf(jgf.metadata)
     jw = jload_weights(jgf, jcfg)
@@ -328,6 +407,66 @@ def test_mixed_k_m_forward_matches_jax_f32_twin(tmp_path):
     got = forward(w, KVCache.create(cfg, 1, 256), torch.from_numpy(tokens), torch.tensor([0]),
                   cfg, torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    return w
+
+
+def test_mixed_k_m_forward_matches_jax_f32_twin(tmp_path):
+    """A 2-layer Q4_K_M file (`--scheme q4_k --mix k_m`: layer 1's attn_v and
+    ffn_down and the output in Q6_K; q, k, v apart in layer 1) against the
+    JAX forward on its F32 twin (`_mixed_forward_matches`)."""
+    w = _mixed_forward_matches(tmp_path, "q4_k_m", "q4_k", "k_m", 6,
+                               [{"wqkv": Q4, "ffn_down": Q4},
+                                {"wq": Q4, "wk": Q4, "wv": Q6, "ffn_down": Q6}])
+    assert {n for n in w["layers"][1]} >= {"wq", "wk", "wv"} and "wqkv" in w["layers"][0]
+    assert w["output"].kind == Q6
+
+
+def test_mixed_q3_k_m_forward_matches_jax_f32_twin(tmp_path):
+    """A 2-layer Q3_K_M file (`--scheme q3_k --mix k_m`: Q3_K q, k, gate|up
+    and embedding, Q5_K attn_v in layers 0 and 1, Q4_K attn_output and (n/16
+    = 0) ffn_down, a Q6_K output; q, k, v apart in both layers) against the
+    JAX forward on its F32 twin (`_mixed_forward_matches`)."""
+    w = _mixed_forward_matches(tmp_path, "q3_k_m", "q3_k", "k_m", 7,
+                               [{"wq": Q3, "wk": Q3, "wv": Q5, "wo": Q4, "wgu": Q3,
+                                 "ffn_down": Q4}] * 2)
+    assert w["token_embed"].kind == Q3 and w["output"].kind == Q6
+
+
+def test_mixed_q2_k_forward_matches_jax_f32_twin(tmp_path):
+    """A 2-layer llama.cpp Q2_K file (`--scheme q2_k --mix q2_k`: Q2_K q, k,
+    gate|up and embedding, Q3_K attn_v (2 heads a kv head, under 4),
+    attn_output and ffn_down, a Q6_K output; q, k, v apart in both layers)
+    against the JAX forward on its F32 twin (`_mixed_forward_matches`)."""
+    w = _mixed_forward_matches(tmp_path, "q2_k", "q2_k", "q2_k", 8,
+                               [{"wq": Q2, "wk": Q2, "wv": Q3, "wo": Q3, "wgu": Q2,
+                                 "ffn_down": Q3}] * 2)
+    assert w["token_embed"].kind == Q2 and w["output"].kind == Q6
+
+
+@pytest.mark.parametrize("mix,scheme", [("k_m", "q3_k"), ("q2_k", "q2_k"), ("k_m", "q5_k")])
+def test_mix_kind_at_7b_depth(mix, scheme):
+    """synth_gguf.mix_kind at the 7B shape (32 layers, 32 heads over 8 kv
+    heads), the depth of the card's 7b-q3_k_m and 7b-q5_k_m paths and the 8
+    layers of 7b-q2_k: Q3_K_M's attn_v is Q5_K in layers 0 and 1, its
+    ffn_down Q5_K below n/16 = 2; Q2_K's attn_v is Q4_K (n_gqa 4); Q5_K_M's
+    use_more_bits layers (16 of 32) take Q6_K."""
+    from crabml_tpu_torch.tools.synth_gguf import mix_kind
+
+    n = 8 if mix == "q2_k" else 32
+    got = {t: [mix_kind(t, i, n, scheme, mix, 4) for i in range(n)]
+           for t in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+                     "ffn_down")}
+    if mix == "q2_k":
+        want = {"attn_v": ["q4_k"] * n, "attn_output": ["q3_k"] * n, "ffn_down": ["q3_k"] * n}
+    elif scheme == "q3_k":
+        want = {"attn_v": ["q5_k"] * 2 + ["q4_k"] * 30, "attn_output": ["q4_k"] * n,
+                "ffn_down": ["q5_k"] * 2 + ["q4_k"] * 30}
+    else:
+        more = ["q6_k" if i < 4 or i >= 28 or (i - 4) % 3 == 2 else "q5_k" for i in range(n)]
+        want = {"attn_v": more, "attn_output": ["q5_k"] * n, "ffn_down": more}
+        assert more.count("q6_k") == 16
+    for t, kinds in got.items():
+        assert kinds == want.get(t, [scheme] * n), t
 
 
 def test_w8_planes_attach_to_a_mixed_file(tmp_path):

@@ -112,22 +112,25 @@ def test_last_column_tile_stops_at_m():
     assert gemm_quant.W4A8_COLS == 16 and gemm_quant.W4A8_SB == 256
 
 
-# the Q8_0, Q6_K, Q5_K and Q4_0 forms: dense only, at the 7B decode shapes and ragged ones
+# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K forms: dense only, at the 7B
+# decode shapes and ragged ones
 SCHEME_CASES = (
     [(r, m, k) for r in (1, 8, 16)
      for m, k in ((QKV, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))]
     + [(r, m, k) for r in (1, 3, 9) for m, k in ((300, 768), (100, 256))])
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0],
-                         ids=["q8_0", "q6_k", "q5_k", "q4_0"])
+@pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
+                                  GGMLType.Q3_K, GGMLType.Q2_K],
+                         ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
 @pytest.mark.parametrize("rows,m,k", SCHEME_CASES)
 def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
     """As for Q4_K, with the scheme's scale group: 32 elements for Q8_0,
-    Q5_K and Q4_0, 16 for Q6_K (16 groups a superblock, one k16 integer mma
-    each)."""
+    Q5_K and Q4_0, 16 for Q6_K, Q3_K and Q2_K (16 groups a superblock, one
+    k16 integer mma each)."""
     plan, count = _coverage(rows, m, k, False, kind)
-    assert plan.group == (16 if kind == GGMLType.Q6_K else 32)
+    k16 = (GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K)
+    assert plan.group == (16 if kind in k16 else 32)
     assert count.shape[2] == k // plan.group and (count == 1).all()
     assert plan.grid == (-(-m // 16), 1)
 
@@ -138,15 +141,20 @@ def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
     (GGMLType.Q6_K, lambda xr: 3072 + 512 + xr * (256 + 128)),  # ql | qh, 16 dsub; x, dx, sx
     (GGMLType.Q5_K, lambda xr: 2560 + 512 + xr * (256 + 64)),  # nibbles | qh, dsub | msub
     (GGMLType.Q4_0, lambda xr: 2048 + 256 + xr * (256 + 64)),  # nibbles, dsub; x, dx, sx
-], ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0"])
+    # qs | hb, 16 sc bytes and a float32 d a column; x, 16 dx and sx
+    (GGMLType.Q3_K, lambda xr: 1536 + 320 + xr * (256 + 128)),
+    (GGMLType.Q2_K, lambda xr: 1024 + 384 + xr * (256 + 128)),  # qs, 16 scm, d and dmin
+], ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
 @pytest.mark.parametrize("x_rows", [1, 8, 16])
 def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
     """A ring stage holds a superblock of the 16 columns: Q8_0 4 KB of int8
     weights and 8 bf16 scales a column, Q6_K 3 KB of ql | qh and 16 scale
     groups a column, Q5_K 2.5 KB of nibbles | qh and Q4_K's scales, Q4_0
     2 KB of nibbles and 8 scales a column (its offset needs sx, no minimum
-    plane). The ring is as deep as two blocks an SM allow, up to
-    four stages: Q4_K keeps its four stages (three at 16 rows)."""
+    plane), Q3_K 1.5 KB of qs | hb, Q2_K 1 KB of qs, each with 16 scale
+    bytes and a float32 d (Q2_K also dmin) a column. The ring is as deep as
+    two blocks an SM allow, up to four stages: Q4_K keeps its four stages
+    (three at 16 rows)."""
     plan = w4a8_plan(x_rows, DIM, FFN, False, kind)
     assert plan.x_rows == x_rows
     assert gemm_quant.w4a8_stage_bytes(x_rows, kind) == stage(x_rows)
