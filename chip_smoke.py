@@ -20,7 +20,10 @@ fails:
    Mixtral path (the grouped Q4_K and W8 matmuls on 1,024 (row, slot) pairs
    over 8 experts, one of them empty and the segments ragged; the
    int8-activation matmul with a plane per row; the fused decode form at B=1
-   also at pos 4000 of the 4,096-token cache), with the tolerance printed;
+   also at pos 4000 of the 4,096-token cache) and the experts' forms of the
+   Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K schemes (each grouped dequant form
+   on the same 1,024 pairs, each plane form at 1 and 8 rows, on gate|up and
+   down stacks of 8 distinct experts), with the tolerance printed;
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -52,26 +55,34 @@ fails:
    requests each, twice each: done and deterministic.
 8. MoE forward and MoE paged tick: phases 3 and 4 at the Mixtral-8x7B widths
    (8 experts, 2 per token) cut to 2 layers, with the W8 planes on the card.
-9. MoE: a synthetic Mixtral-8x7B Q4_K GGUF cut to 8 of 32 layers, context
-   4096; `Runner(path)`, whose default must attach every W8 plane; the
+9. MoE: a synthetic Mixtral-8x7B GGUF in llama.cpp's Q4_K_M layout for 8
+   experts (`mixtral-q4_k_m`: Q4_K q and gate|up experts, Q8_0 k and v, Q5_K
+   attn_output, the down experts in Q6_K in layers 0, 3, 6 and 7, Q4_K in the
+   others, a Q6_K output) cut to 8 of 32 layers, context 4096;
+   `Runner(path)`, whose default must attach every W8 plane; the
    ~700-token prompt and 128 greedy tokens, twice through the graph and once
    through the eager step, identical; the same file
-   with `prefill_w8=False`, prefill only, in turns with the W8 runner (the
-   report says which route wins); then
+   with `prefill_w8=False`, prefill only (the grouped Q4_K and Q6_K forms),
+   in turns with the W8 runner (the report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
+   Then Mixtral-8x7B widths at 2 layers in llama.cpp's Q5_K_M and Q2_K
+   8-expert layouts and in uniform Q8_0 and Q4_0 (`mixtral-q5_k_m`,
+   `mixtral-q2_k`, `mixtral-q8_0`, `mixtral-q4_0`): phase 3 on the file
+   (both sides bfloat16, the card without W8 planes), `Runner(path)` with
+   the W8 planes, 32 greedy tokens through the graph equal to the eager
+   step's, and the prefill without W8 planes (each kind's grouped form).
 10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K, and llama.cpp's mixed layouts:
    phase 3 for each scheme and for a 2-layer Q4_K_M file (2 layers, card
-   against CPU), then the 7B widths with every matrix in Q8_0 at full depth
-   (`7b-q8_0`, ~7.7 GB), in Q6_K cut to 8 of 32 layers (`7b-q6_k`), as a
-   Q5_K_M file at full depth (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down
-   in Q6_K in 16 of the 32 layers, a Q6_K output, ~5.5 GB), in Q4_0 cut to 8
-   layers (`7b-q4_0`), as a Q3_K_M file at full depth (`7b-q3_k_m`: Q3_K q,
-   k and gate|up, Q5_K / Q4_K attn_v and ffn_down, Q4_K attn_output, a Q6_K
-   output, ~3.5 GB) and as a llama.cpp Q2_K file cut to 8 layers
+   against CPU), then the 7B widths, each cut to 8 of 32 layers, with every
+   matrix in Q8_0 (`7b-q8_0`), in Q6_K (`7b-q6_k`), as a Q5_K_M file
+   (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down in Q6_K where
+   use_more_bits holds, a Q6_K output), in Q4_0 (`7b-q4_0`), as a Q3_K_M
+   file (`7b-q3_k_m`: Q3_K q, k and gate|up, Q5_K / Q4_K attn_v and
+   ffn_down, Q4_K attn_output, a Q6_K output) and as a llama.cpp Q2_K file
    (`7b-q2_k`: Q2_K q, k and gate|up, Q4_K attn_v, Q3_K attn_output and
    ffn_down, a Q6_K output): `Runner(path)`, whose default must attach the
-   W8 planes (a file under the default's 1 GiB floor, 7b-q2_k's, asks for
-   them); the ~700-token prompt and 128
+   W8 planes (a file under the default's 1 GiB floor asks for them); the
+   ~700-token prompt and 128
    greedy tokens through the graph, equal to the eager step's; the same file
    with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
    the 16 requests through an 8-slot `PagedServingEngine`. The graphed
@@ -83,6 +94,7 @@ fails:
    rows, and 16 rows of qkv) against its plain version.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
+Each phase prints its seconds, and the report keeps them (`phase_s`).
 Each of the paths 5, 6, 7, 9 and 10 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
@@ -148,7 +160,7 @@ KERNEL_SOURCES = {
     "qmm_w8": ("crabml_tpu_torch/csrc/qmm_w8.cu", "crabml_tpu/ops/pallas/gemm_quant.py:540",
                "main"),
     "qmm_q4k_grouped": ("crabml_tpu_torch/csrc/qmm_q4k.cu",
-                        "crabml_tpu/ops/pallas/gemm_quant.py:836", "moe_q4k"),
+                        "crabml_tpu/ops/pallas/gemm_quant.py:836", "moe-dequant"),
     "qmm_w8_grouped": ("crabml_tpu_torch/csrc/qmm_w8.cu",
                        "crabml_tpu/ops/pallas/gemm_quant.py:870", "moe"),
     "qmm_q8_0": ("crabml_tpu_torch/csrc/qmm_q8_0.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
@@ -176,14 +188,47 @@ KERNEL_SOURCES = {
     "qmm_w4a8_q2k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q2_k"),
 }
+# the experts' forms: the grouped dequant kernel of each scheme (the
+# second entry of its source, launched by the prefill of the Runner without
+# W8 planes), and the plane-per-row form of qmm_w4a8 for each (Q4_K's
+# counted apart from its dense form since then), on the Mixtral path of each
+# kind: the main MoE path's Q4_K_M file holds Q4_K and Q6_K experts
+MOE_PATH_OF = {"q4_k": "moe", "q6_k": "moe", "q5_k": "mixtral-q5_k_m", "q3_k": "mixtral-q2_k",
+               "q2_k": "mixtral-q2_k", "q8_0": "mixtral-q8_0", "q4_0": "mixtral-q4_0"}
+_FORM = {"q4_k": "q4k", "q8_0": "q8_0", "q6_k": "q6k", "q5_k": "q5k", "q4_0": "q4_0",
+         "q3_k": "q3k", "q2_k": "q2k"}
+
+
+def _expert_forms() -> dict:
+    out = {}
+    for scheme, path in MOE_PATH_OF.items():
+        form = _FORM[scheme]
+        if scheme != "q4_k":  # qmm_q4k_grouped is above
+            out[f"qmm_{form}_grouped"] = (f"crabml_tpu_torch/csrc/qmm_{form}.cu",
+                                          "crabml_tpu/ops/pallas/gemm_quant.py:836",
+                                          f"{path}-dequant")
+        out["qmm_w4a8" + ("" if scheme == "q4_k" else f"_{form}") + ".planes"] = (
+            "crabml_tpu_torch/csrc/qmm_w4a8.cu", "crabml_tpu/ops/pallas/gemm_quant.py:190", path)
+    return out
+
+
+KERNEL_SOURCES.update(_expert_forms())
+# the Mixtral paths of the other layouts, 2 of 32 layers each: (name, scheme,
+# mix, seed): llama.cpp's Q5_K_M (Q5_K experts, Q6_K down in layer 1) and Q2_K
+# (Q2_K gate|up, Q3_K down) 8-expert layouts, uniform Q8_0 and Q4_0
+MOE_SCHEME_PATHS = (("mixtral-q5_k_m", "q5_k", "k_m", 91), ("mixtral-q2_k", "q2_k", "q2_k", 92),
+                    ("mixtral-q8_0", "q8_0", None, 93), ("mixtral-q4_0", "q4_0", None, 94))
+MOE_SCHEME_LAYERS = 2
+MOE_SCHEME_STEPS = 32
 # the paths of the other schemes: (name, scheme, layers of the 7B shape's 32,
 # seed, mix); 7b-q5_k_m is llama.cpp's Q5_K_M layout (tools/synth_gguf.py --mix
 # k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output),
 # 7b-q3_k_m its Q3_K_M layout (--scheme q3_k --mix k_m) and 7b-q2_k its Q2_K
 # file type (--mix q2_k)
-SCHEME_PATHS = (("7b-q8_0", "q8_0", 32, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
-                ("7b-q5_k_m", "q5_k", 32, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None),
-                ("7b-q3_k_m", "q3_k", 32, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"))
+# (all six at 8 layers, to pay for the Mixtral paths of the experts' forms)
+SCHEME_PATHS = (("7b-q8_0", "q8_0", 8, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
+                ("7b-q5_k_m", "q5_k", 8, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None),
+                ("7b-q3_k_m", "q3_k", 8, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"))
 # the schemes of phase kernels' checks and of the 2-layer forward checks
 KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k")
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
@@ -211,7 +256,8 @@ W4A8_SHAPES = (
        for i, (m, k) in enumerate(((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN),
                                    (VOCAB, DIM)))]
     + [(2 * SERVING_SLOTS, QKV_M, DIM, False, 58)]
-    + [(1, 2 * FFN, DIM, True, 44), (8, 2 * FFN, DIM, True, 45), (8, DIM, FFN, True, 46)])
+    + [(1, 2 * FFN, DIM, True, 44), (8, 2 * FFN, DIM, True, 45), (8, DIM, FFN, True, 46),
+       (1, DIM, FFN, True, 59)])
 
 
 class CheckFailed(Exception):
@@ -450,23 +496,30 @@ MOE_EXPERTS, MOE_USED = 8, 2
 GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
 
 
-def q4k_stack(E: int, m: int, k: int, seed: int, w8: bool):
-    """A random stack (E, m, k) of Q4_K experts in kernel layout, bf16 scales."""
+def scheme_stack(scheme: str, E: int, m: int, k: int, seed: int, w8: bool = False):
+    """A random stack (E, m, k) of distinct `scheme` experts (tools/
+    synth_gguf.py's blocks) in kernel layout, bf16 scales."""
     import numpy as np
     import torch
 
-    from crabml_tpu_torch.gguf.constants import GGMLType
     from crabml_tpu_torch.ops.cuda.gemm_quant import augment_w8
     from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
-    from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
 
-    blocks = q4k_blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
-    qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (E, m, k), "cuda"), torch.bfloat16)
+    kind, blocks = SCHEMES[scheme]
+    raw = blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
+    qt = to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"), torch.bfloat16)
     return augment_w8(qt) if w8 else qt
 
 
-def check_grouped(timer, name: str, m: int, k: int, seed: int) -> dict:
-    """qmm_q4k_grouped / qmm_w8_grouped on 1,024 sorted pairs. The bound
+def q4k_stack(E: int, m: int, k: int, seed: int, w8: bool):
+    """A random stack (E, m, k) of Q4_K experts in kernel layout, bf16 scales."""
+    return scheme_stack("q4_k", E, m, k, seed, w8)
+
+
+def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
+    """qmm_w8_grouped, or a scheme's grouped dequant form (qmm_q4k_grouped,
+    qmm_q6k_grouped, ... on the stack `qt`), on 1,024 sorted pairs. The bound
     counts the planes of the experts that have rows, read once."""
     import numpy as np
     import torch
@@ -475,7 +528,8 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int) -> dict:
     from crabml_tpu_torch.quant.qtensor import dequantize
 
     w8 = name == "qmm_w8_grouped"
-    qt = q4k_stack(MOE_EXPERTS, m, k, seed, w8)
+    if qt is None:
+        qt = q4k_stack(MOE_EXPERTS, m, k, seed, w8)
     rows = sum(GROUPED_COUNTS)
     cuts = np.concatenate([[0], np.cumsum(GROUPED_COUNTS)])
     offsets = torch.tensor(cuts, dtype=torch.int32, device="cuda")
@@ -487,9 +541,10 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int) -> dict:
         plain = lambda: gemm_quant.qmm_w8_grouped_plain(xs, p["w8"], p["dw"], offsets)  # noqa: E731
         names, why = ("w8", "dw"), "same int8 planes, float32 sums in another order"
     else:
-        plain = lambda: gemm_quant.qmm_q4k_grouped_plain(  # noqa: E731
-            xs, p["qs"], p["dsub"], p["msub"], offsets)
-        names, why = ("qs", "dsub", "msub"), "float32 sums in another order"
+        names = tuple(gemm_quant._KERNEL_PLANES[qt.kind])
+        plain_fn = getattr(gemm_quant, f"{name}_plain")
+        plain = lambda: plain_fn(xs, *(p[n] for n in names), offsets)  # noqa: E731
+        why = "the same bf16 weights, float32 sums in another order"
     w_bf16 = dequantize(qt, torch.bfloat16)
     segs = [(e, int(lo), int(hi)) for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])) if hi > lo]
 
@@ -507,34 +562,44 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int) -> dict:
     return rec
 
 
-def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int) -> dict:
-    """qmm_w4a8 with a plane per row (the MoE decode form): the bound counts
-    each distinct selected plane once."""
+# the experts of the plane-per-row checks: never expert 0 (a form that read
+# expert 0's planes, or one of its scale planes, would pass on it), 6 distinct of 8
+PLANE_ROWS = (6, 1, 3, 3, 7, 2, 5, 1)
+
+
+def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int, qt=None) -> tuple[str, dict]:
+    """qmm_w4a8 with a plane per row (the MoE decode form) on a random Q4_K
+    stack, or on the stack `qt` of any scheme: the bound counts each distinct
+    selected plane once. Returns the form's counter name and its record."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
     from crabml_tpu_torch.quant.qtensor import dequantize
 
-    qt = q4k_stack(MOE_EXPERTS, m, k, seed, False)
+    if qt is None:
+        qt = q4k_stack(MOE_EXPERTS, m, k, seed, False)
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
-    plane = torch.randint(0, MOE_EXPERTS, (rows,), generator=g, device="cuda").to(torch.int32)
+    plane = torch.tensor(PLANE_ROWS[:rows], device="cuda", dtype=torch.int32)
     p = qt.planes
-    distinct = sorted(set(plane.tolist()))
+    names = tuple(gemm_quant._KERNEL_PLANES[qt.kind])
+    form = gemm_quant.W4A8_FORMS[qt.kind]
+    plain_fn = getattr(gemm_quant, f"{form}_plain")
+    distinct = sorted(set(PLANE_ROWS[:rows]))
     w_rows = dequantize(qt, torch.bfloat16)[plane.long()].transpose(1, 2).contiguous()
-    plain = lambda: gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)  # noqa: E731
+    plain = lambda: plain_fn(x, *(p[n] for n in names), plane=plane)  # noqa: E731
     rec = _matmul_record(
-        timer, "qmm_w4a8", f"{rows}x{k} @ plane-per-row of ({MOE_EXPERTS}x{m}x{k})^T, "
+        timer, f"{form}.planes", f"{rows}x{k} @ plane-per-row of ({MOE_EXPERTS}x{m}x{k})^T, "
         f"{len(distinct)} distinct planes",
         lambda: gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane), plain,
         lambda: torch.bmm(x[:, None], w_rows), "torch.bmm(bf16, planes gathered beforehand)",
         gemm_quant.qmm_w4a8(x, qt, plane=plane), plain(),
         gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane),
         1e-4, "same int8 activations, float32 group sums in another order",
-        x.numel() * 2 + _plane_bytes(qt, ("qs", "dsub", "msub"), distinct) + rows * m * 2,
+        x.numel() * 2 + _plane_bytes(qt, names, distinct) + rows * m * 2,
         2.0 * rows * m * k, "int8")
     del w_rows
-    return rec
+    return f"{form}.planes", rec
 
 
 def _sdpa(q, k_cache, v_cache, pos: int, T: int, window: int = 0):
@@ -812,8 +877,25 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
                         check_grouped(timer, name, DIM, FFN, 43)]
         torch.cuda.empty_cache()
-    checks["qmm_w4a8"] += [check_w4a8_planes(timer, rows, m, k, seed)
-                           for rows, m, k, planes, seed in W4A8_SHAPES if planes]
+    for rows, m, k, planes, seed in W4A8_SHAPES:
+        if planes:
+            name, rec = check_w4a8_planes(timer, rows, m, k, seed)
+            checks.setdefault(name, []).append(rec)
+    # the other schemes' experts' forms at the Mixtral shapes: the grouped
+    # dequant form on the 1,024 pairs of a 512-token chunk, and the plane
+    # form at 1 and 8 rows (the decode step and the 8-slot tick), on the
+    # experts' gate|up and down stacks, 8 distinct random experts each
+    for i, scheme in enumerate(KERNEL_SCHEMES):
+        for m, k in ((2 * FFN, DIM), (DIM, FFN)):
+            seed = 100 + 4 * i + (m == DIM)
+            qt = scheme_stack(scheme, MOE_EXPERTS, m, k, seed)
+            name = f"qmm_{_FORM[scheme]}_grouped"
+            checks.setdefault(name, []).append(check_grouped(timer, name, m, k, seed, qt))
+            for rows in (1, SERVING_SLOTS):
+                name, rec = check_w4a8_planes(timer, rows, m, k, seed + rows, qt)
+                checks.setdefault(name, []).append(rec)
+            del qt
+            torch.cuda.empty_cache()
     # the other schemes' forms: the dequant kernel at a 512-row chunk of qkv,
     # the ragged 189-row chunk and a 512-row chunk of down; the int8-activation
     # form at every 7B decode projection, at one row and at the 8-slot tick,
@@ -843,12 +925,14 @@ def phase_kernels() -> dict[str, list[dict]]:
 
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
-                  mix: str | None = None) -> dict:
+                  mix: str | None = None, path: str | None = None,
+                  cpu_dtype=None) -> dict:
     """`model` cut to 2 layers, every matrix in `scheme` (with `mix` "k_m",
     llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
     Q6_K): a prompt of `n_prompt` tokens and one decode step, the card
     (kernels, bfloat16, with the W8 prefill planes when `w8`) against the CPU
-    (plain versions, float32, the scheme's planes only)."""
+    (plain versions, float32 unless `cpu_dtype` says otherwise, the scheme's
+    planes only). `path`: such a 2-layer file written already (kept)."""
     import numpy as np
     import torch
 
@@ -858,13 +942,16 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     from crabml_tpu_torch.models.weights import augment_w8_weights, load_weights
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-{mix}-2layers.gguf"), model,
-                            seed=seed, layers=2, scheme=scheme, mix=mix)
+    own = path is None
+    if own:
+        path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-{mix}-2layers.gguf"), model,
+                                seed=seed, layers=2, scheme=scheme, mix=mix)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
     runs = {}
-    for dev, dt in ((CARD, torch.bfloat16), ("cpu", torch.float32)):
+    cpu_dtype = cpu_dtype or torch.float32
+    for dev, dt in ((CARD, torch.bfloat16), ("cpu", cpu_dtype)):
         w = load_weights(gf, cfg, dev, dt)
         if w8 and dev == CARD:
             w = augment_w8_weights(w)
@@ -884,11 +971,12 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     # another expert on the card than in float32, and its logits then differ
     # as between two models. So the error is taken token by token, and
     # `min_share` of the tokens must meet the tolerance (all of them for a
-    # dense model).
+    # dense model). With a bfloat16 CPU side the two differ only in the order
+    # of float32 sums: the kernels against their plain versions.
     tol = 5e-2
+    against = "bfloat16 on both" if cpu_dtype == torch.bfloat16 else "bfloat16 against float32"
     rec = {"tolerance": f"max|card - cpu| <= {tol} * max|cpu| for {min_share:.0%} of the tokens "
-                        "(bfloat16 against float32"
-                        + ("; W8 planes on the card only)" if w8 else ")")}
+                        f"({against}" + ("; W8 planes on the card only)" if w8 else ")")}
     ok = True
     for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step")):
         card, cpu = runs[CARD][i], runs["cpu"][i]
@@ -907,7 +995,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
             f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
             f"{finite} {'ok' if good else 'FAILED'}")
     rec["ok"] = ok
-    os.remove(path)
+    if own:
+        os.remove(path)
     return rec
 
 
@@ -1014,9 +1103,9 @@ def _eager_decode(runner, first: int, steps: int) -> list[int]:
     return out
 
 
-def _one_run(runner, prompt: str, launches, mode=1) -> dict:
-    """Prefill `prompt` and decode DECODE_STEPS - 1 tokens: `mode` the tick
-    of Runner.generate (the captured graph, replayed) or "eager"
+def _one_run(runner, prompt: str, launches, mode=1, steps: int = DECODE_STEPS) -> dict:
+    """Prefill `prompt` and decode `steps` - 1 tokens: `mode` the tick of
+    Runner.generate (the captured graph, replayed) or "eager"
     (_eager_decode)."""
     import torch
 
@@ -1030,12 +1119,12 @@ def _one_run(runner, prompt: str, launches, mode=1) -> dict:
     t1 = time.perf_counter()
     after_prefill = dict(launches)
     if mode == "eager":
-        tokens = [first] + _eager_decode(runner, first, DECODE_STEPS - 1)
+        tokens = [first] + _eager_decode(runner, first, steps - 1)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        n_decoded, text = DECODE_STEPS - 1, None
+        n_decoded, text = steps - 1, None
     else:
-        pieces = list(runner.generate(first, steps=DECODE_STEPS, tick=mode))
+        pieces = list(runner.generate(first, steps=steps, tick=mode))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         tokens, n_decoded, text = list(runner.generated), runner.metrics.counts["tokens"], \
@@ -1719,24 +1808,29 @@ def phase_dense_int8(tmp: Path) -> dict:
 
 def phase_moe(tmp: Path) -> dict:
     """Mixtral-8x7B widths (hidden 4096, intermediate 14336, 32/8 heads, 8
-    experts, 2 per token, vocab 32000, rope theta 1e6), the depth cut to
-    MOE_LAYERS of 32 and the context to 4096: `Runner(path)` with its default
-    prefill_w8, which must come out on, a ~700-token prompt and 128 greedy
-    tokens twice; the same file with prefill_w8=False, prefill only; and a
-    drain of 16 requests through an 8-slot PagedServingEngine, twice."""
+    experts, 2 per token, vocab 32000, rope theta 1e6) in llama.cpp's Q4_K_M
+    layout for 8 experts (`mixtral-q4_k_m`: Q4_K q and gate|up experts, Q8_0
+    k and v, Q5_K attn_output, the down experts in Q6_K where use_more_bits
+    holds, layers 0, 3, 6 and 7 of 8, Q4_K elsewhere, a Q6_K output), the
+    depth cut to MOE_LAYERS of 32 and the context to 4096: `Runner(path)`
+    with its default prefill_w8, which must come out on, a ~700-token prompt
+    and 128 greedy tokens twice; the same file with prefill_w8=False,
+    prefill only (the grouped Q4_K and Q6_K forms); and a drain of 16
+    requests through an 8-slot PagedServingEngine, twice."""
     import torch
 
+    from crabml_tpu_torch.gguf.constants import GGMLType
     from crabml_tpu_torch.ops.cuda import _build
     from crabml_tpu_torch.runtime.runner import Runner
     from crabml_tpu_torch.serving import PagedServingEngine
-    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf, mix_kind
 
     t0 = time.perf_counter()
-    path = build_synth_gguf(str(tmp / "synth-mixtral.gguf"), "mixtral-8x7b", seed=3,
-                            layers=MOE_LAYERS)
+    path = build_synth_gguf(str(tmp / "synth-mixtral-q4_k_m.gguf"), "mixtral-8x7b", seed=3,
+                            layers=MOE_LAYERS, scheme="q4_k", mix="k_m")
     synth_s = time.perf_counter() - t0
-    say(f"synthetic Mixtral-8x7B Q4_K GGUF, {MOE_LAYERS} of 32 layers, context 4096: "
-        f"{os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+    say(f"synthetic Mixtral-8x7B Q4_K_M GGUF (llama.cpp's 8-expert layout), {MOE_LAYERS} of 32 "
+        f"layers, context 4096: {os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     runner = Runner(path)
     cfg = runner.cfg
@@ -1744,9 +1838,16 @@ def phase_moe(tmp: Path) -> dict:
         fail(f"not the Mixtral-8x7B widths: {cfg}")
     if not runner.prefill_w8:
         fail("the Mixtral Runner's default left the W8 prefill planes off")
-    lw = runner.weights["layers"][0]
-    if not all("w8" in lw[n].planes for n in ("wqkv", "wo", "wgu_exps", "ffn_down_exps")) \
-            or "w8" not in runner.weights["output"].planes:
+    layers = runner.weights["layers"]
+    down = [lw["ffn_down_exps"].kind for lw in layers]
+    want = [GGMLType[mix_kind("ffn_down", i, MOE_LAYERS, "q4_k", "k_m", HEADS // KV_HEADS,
+                              MOE_EXPERTS).upper()] for i in range(MOE_LAYERS)]
+    kinds = {n: q.kind.name for n, q in layers[0].items() if hasattr(q, "planes")}
+    if down != want or kinds != {"wq": "Q4_K", "wk": "Q8_0", "wv": "Q8_0", "wo": "Q5_K",
+                                 "wgu_exps": "Q4_K", "ffn_down_exps": down[0].name}:
+        fail(f"mixtral-q4_k_m: layer 0 holds {kinds}, the down experts {down}")
+    mats = [q for lw in layers for q in lw.values() if hasattr(q, "planes")]
+    if not all("w8" in q.planes for q in mats) or "w8" not in runner.weights["output"].planes:
         fail("the W8 planes are not fully on")
     load_s = runner.metrics.times_ns["load"] / 1e9
     w8_s = runner.metrics.times_ns["load.w8_augment"] / 1e9
@@ -1768,7 +1869,8 @@ def phase_moe(tmp: Path) -> dict:
     if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
                 and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
         fail("MoE: NaN or inf in the KV cache")
-    for name in ("qmm_w8", "qmm_w8_grouped", "qmm_w4a8", "qmm_q4k", "flash_attention",
+    for name in ("qmm_w8", "qmm_w8_grouped", "qmm_w4a8", "qmm_w4a8.planes", "qmm_w4a8_q6k.planes",
+                 "qmm_w4a8_q8_0", "qmm_w4a8_q5k", "qmm_q4k", "flash_attention",
                  "decode_attention_fused"):
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the MoE path")
@@ -1788,9 +1890,10 @@ def phase_moe(tmp: Path) -> dict:
         f"two graphed runs and the eager one, launches {launches}")
 
     w8_q4k = _prefill_w8_against_q4k(path, runner, prompt, f"Mixtral ({MOE_LAYERS} layers)")
-    if w8_q4k["launches"].get("qmm_q4k_grouped", 0) <= 0 or w8_q4k["launches"].get("qmm_w8", 0) \
-            or w8_q4k["launches"].get("qmm_w8_grouped", 0):
-        fail(f"the Q4_K-only MoE prefill launched {w8_q4k['launches']}")
+    if w8_q4k["launches"].get("qmm_q4k_grouped", 0) <= 0 \
+            or w8_q4k["launches"].get("qmm_q6k_grouped", 0) <= 0 \
+            or w8_q4k["launches"].get("qmm_w8", 0) or w8_q4k["launches"].get("qmm_w8_grouped", 0):
+        fail(f"the dequant-only MoE prefill launched {w8_q4k['launches']}")
 
     def engine():
         return PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES,
@@ -1806,7 +1909,8 @@ def phase_moe(tmp: Path) -> dict:
              serving)
     if eng.pages_free() != pages_at_start or any(eng._owned):
         fail(f"MoE serving: pages_free {eng.pages_free()} after the run, {pages_at_start} before")
-    for name in ("qmm_w4a8", "qmm_w8_grouped", "paged_decode_attention_fused"):
+    for name in ("qmm_w4a8", "qmm_w4a8.planes", "qmm_w4a8_q6k.planes", "qmm_w8_grouped",
+                 "paged_decode_attention_fused"):
         if serving["launches"].get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the MoE serving path")
     tokens = [list(r.output_tokens) for r in reqs]
@@ -1822,6 +1926,7 @@ def phase_moe(tmp: Path) -> dict:
     os.remove(path)
     torch.cuda.empty_cache()
     return {
+        "file": "mixtral-q4_k_m", "down_expert_kinds": [k.name for k in down],
         "layers": MOE_LAYERS, "synth_s": synth_s, "load_s": load_s, "load_w8_augment_s": w8_s,
         "prompt_tokens": n_prompt, "prefill_chunks": chunks,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
@@ -1834,6 +1939,98 @@ def phase_moe(tmp: Path) -> dict:
         "launches_per_prefill_chunk": {k: v / chunks
                                        for k, v in first["launches_prefill"].items()},
         "prefill_w8_against_q4k": w8_q4k, "serving": serving,
+    }
+
+
+def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: int) -> dict:
+    """Mixtral-8x7B widths cut to MOE_SCHEME_LAYERS of 32 layers, every
+    matrix in `scheme` (with a `mix`, llama.cpp's 8-expert layout over it):
+    the card-against-CPU forward on the file (phase 3, both sides bfloat16;
+    the card without W8 planes, so its prefill takes the grouped dequant
+    forms and its decode step the plane forms); `Runner(path)` with the W8 planes (its default,
+    or asked for under the default's 1 GiB floor), the ~700-token prompt and
+    MOE_SCHEME_STEPS greedy tokens through the graph (the capture, then the
+    cached graph) and the eager step, all identical; the same file with
+    prefill_w8=False, prefill only, in turns (the grouped dequant forms of
+    the file's expert kinds, and no W8 kernel)."""
+    import torch
+
+    from crabml_tpu_torch.gguf.reader import GGUFFile
+    from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), "mixtral-8x7b", seed=seed,
+                            layers=MOE_SCHEME_LAYERS, scheme=scheme, mix=mix)
+    synth_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    experts = sorted({ti.typ for ti in GGUFFile(path).tensor_infos if len(ti.shape) == 3},
+                     key=lambda k: k.name)
+    say(f"synthetic Mixtral-8x7B {scheme}{' ' + mix + ' mix' if mix else ''} GGUF, "
+        f"{MOE_SCHEME_LAYERS} of 32 layers: {size / 1e9:.3f} GB in {synth_s:.2f} s, experts in "
+        f"{[k.name for k in experts]}")
+    # against the plain versions in bfloat16: on these files bfloat16 itself
+    # moves 28-31% of the prompt's tokens more than 5e-2 off float32, on the
+    # CPU as on the card (measured on an H100: the plain versions in bfloat16
+    # against float32 on the Q8_0 and Q5_K_M files), where the kernels meet
+    # the plain bfloat16 run on 98-100% of them
+    fwd = phase_forward(tmp, "mixtral-8x7b", seed=seed, n_prompt=100, min_share=0.9,
+                        scheme=scheme, mix=mix, path=path, cpu_dtype=torch.bfloat16)
+    w8_default = size >= 1 << 30
+    runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
+    mats = [q for lw in runner.weights["layers"] for q in lw.values() if hasattr(q, "planes")]
+    if not runner.prefill_w8 or not all("w8" in q.planes for q in mats):
+        fail(f"{what}: the Runner left the W8 prefill planes off")
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    _build.launches.clear()  # counts from here on are this path's
+    capture = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
+    launches = dict(_build.launches)
+    graphed = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
+    eager = _one_run(runner, prompt, _build.launches, "eager", MOE_SCHEME_STEPS)
+    if not capture["tokens"] == graphed["tokens"] == eager["tokens"]:
+        fail(f"{what}: the graphed decode gave other tokens than the eager step")
+    if len(graphed["tokens"]) != MOE_SCHEME_STEPS:
+        fail(f"{what}: generated {len(graphed['tokens'])} tokens, expected {MOE_SCHEME_STEPS}")
+    planes = [gemm_quant.W4A8_FORMS[k] + ".planes" for k in experts]
+    for name in planes + ["qmm_w8_grouped", "qmm_w8", "flash_attention",
+                          "decode_attention_fused"]:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} path")
+    n = graphed["end_pos"]
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    for r, how in ((capture, "graphed, the run that captures"), (graphed, "graphed"),
+                   (eager, "eager")):
+        say(f"{what} path ({how}): prompt {r['prompt_tokens']} tokens, prefill "
+            f"{r['prefill_tok_s']:.1f} tok/s; decode {r['decoded_steps']} steps "
+            f"{r['decode_tok_s']:.2f} tok/s = {r['decode_ms_per_token']:.3f} ms/token (bound "
+            f"{bound_port:.3f} ms port layout, {bound_gguf:.3f} ms GGUF bytes)")
+    say(f"{what} path: {MOE_SCHEME_STEPS} greedy tokens of both graphed runs equal to the eager "
+        f"step's, launches {launches}")
+    w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
+    grouped = [gemm_quant.GROUPED_FORMS[k] for k in experts]
+    if any(w8_dequant["launches"].get(g, 0) <= 0 for g in grouped) \
+            or w8_dequant["launches"].get("qmm_w8", 0) \
+            or w8_dequant["launches"].get("qmm_w8_grouped", 0):
+        fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
+    chunks = math.ceil(capture["prompt_tokens"] / PREFILL_CHUNK)
+    del runner
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return {
+        "scheme": scheme, "mix": mix, "layers": MOE_SCHEME_LAYERS, "gguf_bytes": size,
+        "expert_kinds": [k.name for k in experts], "synth_s": synth_s, "forward": fwd,
+        "w8": "the Runner's default" if w8_default else "prefill_w8=True (under 1 GiB)",
+        "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
+                 for r in (capture, graphed, eager)],
+        "graph_equals_eager": True, "first_tokens": graphed["tokens"][:16],
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+        "launches": launches,
+        "launches_per_decode_token": {k: v / graphed["decoded_steps"]
+                                      for k, v in graphed["launches_decode"].items()},
+        "launches_per_prefill_chunk": {k: v / chunks
+                                       for k, v in graphed["launches_prefill"].items()},
+        "prefill_w8_against_dequant": w8_dequant,
     }
 
 
@@ -1976,9 +2173,10 @@ def kernels_line(checks: dict, paths: dict) -> dict:
         recs = checks[name]
         head = recs[0]
         main = paths["main"]
+        own = paths[path]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths[path]["launches"][name], "launches_on": path,
+            "launches": own["launches"].get(name, 0), "launches_on": path,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1990,18 +2188,19 @@ def kernels_line(checks: dict, paths: dict) -> dict:
             "launches_per_moe_prefill_chunk":
                 paths["moe"]["launches_per_prefill_chunk"].get(name, 0),
         }
-        if path.startswith("7b-"):  # the Q8_0 and Q6_K forms: their own path's rates
-            entry["launches_per_decode_token"] = \
-                paths[path]["launches_per_decode_token"].get(name, 0)
-            entry["launches_per_prefill_chunk"] = \
-                paths[path]["launches_per_prefill_chunk"].get(name, 0)
+        if "launches_per_decode_token" in own and path != "main":  # the path's own rates
+            entry["launches_per_decode_token"] = own["launches_per_decode_token"].get(name, 0)
+            entry["launches_per_prefill_chunk"] = own["launches_per_prefill_chunk"].get(name, 0)
             entry["launches_per_serving_tick"] = \
-                paths[path]["serving"]["launches_per_tick"].get(name, 0)
+                own.get("serving", {}).get("launches_per_tick", {}).get(name, 0)
         entry["all_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by", "max_abs_err")}
                                for r in recs]
         out.append(entry)
     return {"kernels": out}
+
+
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -2048,43 +2247,62 @@ def main() -> int:
 
     report = {"device": torch.cuda.get_device_name(0), "gpu": TAG, "build_s": build_s,
               "torch": torch.__version__, "cuda": torch.version.cuda}
+    phase_s = report["phase_s"] = {"build": build_s}
+
+    def timed(what: str, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[what] = time.perf_counter() - t
+        say(f"phase {what}: {phase_s[what]:.1f} s")
+        return out
+
     failures = []
     tmp = Path(tempfile.mkdtemp(prefix="crabml_chip_smoke_"))
     try:
-        checks = report["kernels"] = phase_kernels()
+        checks = report["kernels"] = timed("kernels", phase_kernels)
         failures += [f"{n} {r['shape']}" for n, rs in checks.items() for r in rs if not r["ok"]]
-        report["forward"] = phase_forward(tmp)
+        report["forward"] = timed("forward", phase_forward, tmp)
         if not report["forward"]["ok"]:
             failures.append("forward check")
-        report["serving_forward"] = phase_serving_forward(tmp)
+        report["serving_forward"] = timed("serving_forward", phase_serving_forward, tmp)
         if not report["serving_forward"]["ok"]:
             failures.append("serving forward check")
-        main_rec, runner, gguf = phase_main(tmp)
+        main_rec, runner, gguf = timed("main", phase_main, tmp)
         report["main"] = main_rec
-        serving = report["serving"] = phase_serving(runner)
+        serving = report["serving"] = timed("serving", phase_serving, runner)
         del runner
         os.remove(gguf)
         torch.cuda.empty_cache()
-        dense = report["dense_int8"] = phase_dense_int8(tmp)
-        report["moe_forward"] = phase_forward(tmp, "mixtral-8x7b", seed=16, n_prompt=300, w8=True,
-                                              min_share=0.9)
+        dense = report["dense_int8"] = timed("dense_int8", phase_dense_int8, tmp)
+        report["moe_forward"] = timed("moe_forward", phase_forward, tmp, "mixtral-8x7b", seed=16,
+                                      n_prompt=300, w8=True, min_share=0.9)
         if not report["moe_forward"]["ok"]:
             failures.append("MoE forward check")
-        report["moe_serving_forward"] = phase_serving_forward(
-            tmp, "mixtral-8x7b", seed=18, lengths=MOE_TICK_LENGTHS, kvs=("compute",), w8=True)
+        report["moe_serving_forward"] = timed(
+            "moe_serving_forward", phase_serving_forward, tmp, "mixtral-8x7b", seed=18,
+            lengths=MOE_TICK_LENGTHS, kvs=("compute",), w8=True)
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
-        moe = report["moe"] = phase_moe(tmp)
+        moe = report["moe"] = timed("moe", phase_moe, tmp)
+        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"]}
+        for what, scheme, mix, seed in MOE_SCHEME_PATHS:
+            rec = report[what] = timed(what, phase_moe_scheme, tmp, what, scheme, mix, seed)
+            if not rec["forward"]["ok"]:
+                failures.append(f"{what} forward check")
+            paths[what] = rec
+            paths[f"{what}-dequant"] = rec["prefill_w8_against_dequant"]
         for i, scheme in enumerate(KERNEL_SCHEMES):
-            fwd = report[f"forward_{scheme}"] = phase_forward(tmp, seed=80 + i, scheme=scheme)
+            fwd = report[f"forward_{scheme}"] = timed(f"forward_{scheme}", phase_forward, tmp,
+                                                      seed=80 + i, scheme=scheme)
             if not fwd["ok"]:
                 failures.append(f"{scheme} forward check")
-        fwd = report["forward_q4_k_m"] = phase_forward(tmp, seed=85, scheme="q4_k", mix="k_m")
+        fwd = report["forward_q4_k_m"] = timed("forward_q4_k_m", phase_forward, tmp, seed=85,
+                                               scheme="q4_k", mix="k_m")
         if not fwd["ok"]:
             failures.append("q4_k k_m forward check")
-        schemes = {}
         for what, scheme, layers, seed, mix in SCHEME_PATHS:
-            schemes[what] = report[what] = phase_scheme(tmp, what, scheme, layers, seed, mix)
+            paths[what] = report[what] = timed(what, phase_scheme, tmp, what, scheme, layers,
+                                               seed, mix)
     except CheckFailed as e:
         failures.append(str(e))
     finally:
@@ -2096,9 +2314,10 @@ def main() -> int:
             say(f"FAILED: {f}")
         return 1
     print(f"gpu: {TAG}")
+    say(f"the script: {time.perf_counter() - T0:.1f} s, by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps(kernels_line(checks, {
-        "main": main_rec, "serving": serving["first"], "dense_int8": dense, "moe": moe,
-        "moe_q4k": moe["prefill_w8_against_q4k"], **schemes})))
+        "main": main_rec, "serving": serving["first"], "dense_int8": dense, **paths})))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -65,7 +65,16 @@ template <bool Q3> struct Source {
     const float* d;      // (N, K / 256)
     const float* dmin;   // (N, K / 256), Q2_K
 
-    __device__ __forceinline__ void select_plane(int, int, int) {}
+    // every plane of a stack: the values, the scale bytes and the per-superblock
+    // floats (hb for Q3_K, dmin for Q2_K; the other is null and stays so)
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        const size_t rows = (size_t)plane * N;
+        qs += rows * (K / 4);
+        if (Q3) hb += rows * (K / 8);
+        sc += rows * (K / 16);
+        d += rows * (K / 256);
+        if (!Q3) dmin += rows * (K / 256);
+    }
 
     // The thread's 16-byte pieces: e = tid + 256 i, row e / PIECES, piece e %
     // PIECES of the row (0-3 qs, then 4-5 hb for Q3_K, then the scale bytes).

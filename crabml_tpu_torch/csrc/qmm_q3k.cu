@@ -4,9 +4,10 @@
 // scheme: w = bf16((val - 4) * dsub) per 16-element scale group, dsub = d * sc
 // formed from the superblock's float32 d and the group's signed 6-bit scale,
 // with val the 3-bit value 0..7 (two bits in qs, the third in hb), f32
-// accumulation. The entry qmm_q3k_bf16 stands for the launcher _run
-// (pallas_call at :680). The grouped (expert-sorted) form is not ported for
-// this scheme.
+// accumulation. The dense entry qmm_q3k_bf16 stands for the launcher _run
+// (pallas_call at :680), the grouped entry qmm_q3k_grouped_bf16 for
+// _run_grouped (:836), where rows sorted by expert multiply their own
+// expert's plane.
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks (2 x
 // 512 x 4096 x 4096 against 8 MB of planes for q; the card's ridge is ~295
@@ -26,4 +27,18 @@ extern "C" int qmm_q3k_bf16(const void* x, const void* qs, const void* hb, const
     const qk16::Source<true> w{(const uint8_t*)qs, (const uint8_t*)hb, (const uint8_t*)sc,
                                (const float*)d, nullptr};
     return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// qs (n_planes, N, K/4), hb (n_planes, N, K/8), sc (n_planes, N, K/16), d
+// (n_planes, N, K/256).
+extern "C" int qmm_q3k_grouped_bf16(const void* x, const void* qs, const void* hb,
+                                    const void* sc, const void* d, void* out, int out_bf16,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    const qk16::Source<true> w{(const uint8_t*)qs, (const uint8_t*)hb, (const uint8_t*)sc,
+                               (const float*)d, nullptr};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

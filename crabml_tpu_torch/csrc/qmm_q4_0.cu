@@ -2,9 +2,10 @@
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q4_0
 // scheme: w = bf16((val - 8) * dsub) per 32-element block, with val the
-// nibble 0..15, f32 accumulation. The entry qmm_q4_0_bf16 stands for the
-// launcher _run (pallas_call at :680). The grouped (expert-sorted) form is
-// not ported for this scheme.
+// nibble 0..15, f32 accumulation. The dense entry qmm_q4_0_bf16 stands for
+// the launcher _run (pallas_call at :680), the grouped entry
+// qmm_q4_0_grouped_bf16 for _run_grouped (:836),
+// where rows sorted by expert multiply their own expert's plane.
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks
 // (2 x 512 x 6144 x 4096 against 14 MB of planes for the fused q|k|v; the
@@ -50,7 +51,10 @@ struct Q40Source {
     const uint8_t* qs;  // (N, K / 2), per-64 nibble order
     const bf16* dsub;   // (N, K / 32)
 
-    __device__ __forceinline__ void select_plane(int, int, int) {}
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        qs += (size_t)plane * N * (K / 2);
+        dsub += (size_t)plane * N * (K / 32);
+    }
 
     // 16-byte chunk c (0, 1) of the 32-byte row r (qmm_q4k.cu's swizzle)
     static __device__ __forceinline__ uint32_t chunk(int r, int c) {
@@ -130,4 +134,15 @@ extern "C" int qmm_q4_0_bf16(const void* x, const void* qs, const void* dsub, vo
                              int out_bf16, int M, int N, int K, void* stream) {
     const Q40Source w{(const uint8_t*)qs, (const bf16*)dsub};
     return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// qs (n_planes, N, K/2) in the per-64 order, dsub (n_planes, N, K/32).
+extern "C" int qmm_q4_0_grouped_bf16(const void* x, const void* qs, const void* dsub, void* out,
+                                     int out_bf16, const void* offsets, int n_planes, int M,
+                                     int N, int K, void* stream) {
+    const Q40Source w{(const uint8_t*)qs, (const bf16*)dsub};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

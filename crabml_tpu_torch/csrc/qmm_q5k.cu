@@ -2,9 +2,10 @@
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q5_K
 // scheme: w = bf16(val * dsub + msub) per 32-element scale group, with val
-// the 5-bit value 0..31, f32 accumulation. The entry qmm_q5k_bf16 stands for
-// the launcher _run (pallas_call at :680). The grouped (expert-sorted) form
-// is not ported for this scheme.
+// the 5-bit value 0..31, f32 accumulation. The dense entry qmm_q5k_bf16
+// stands for the launcher _run (pallas_call at :680), the grouped entry
+// qmm_q5k_grouped_bf16 for _run_grouped (:836),
+// where rows sorted by expert multiply their own expert's plane.
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks
 // (2 x 512 x 6144 x 4096 against 19 MB of planes for the fused q|k|v; the
@@ -60,7 +61,12 @@ struct Q5KSource {
     const bf16* dsub;   // (N, K / 32)
     const bf16* msub;
 
-    __device__ __forceinline__ void select_plane(int, int, int) {}
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        qs += (size_t)plane * N * (K / 2);
+        qh += (size_t)plane * N * (K / 8);
+        dsub += (size_t)plane * N * (K / 32);
+        msub += (size_t)plane * N * (K / 32);
+    }
 
     // 16-byte chunk c (0, 1) of the 32-byte row r
     static __device__ __forceinline__ uint32_t chunk(int r, int c) {
@@ -157,4 +163,17 @@ extern "C" int qmm_q5k_bf16(const void* x, const void* qs, const void* qh, const
     const Q5KSource w{(const uint8_t*)qs, (const uint8_t*)qh, (const bf16*)dsub,
                       (const bf16*)msub};
     return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// qs (n_planes, N, K/2), qh (n_planes, N, K/8), dsub, msub (n_planes, N, K/32).
+extern "C" int qmm_q5k_grouped_bf16(const void* x, const void* qs, const void* qh,
+                                    const void* dsub, const void* msub, void* out, int out_bf16,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    const Q5KSource w{(const uint8_t*)qs, (const uint8_t*)qh, (const bf16*)dsub,
+                      (const bf16*)msub};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

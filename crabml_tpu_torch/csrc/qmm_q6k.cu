@@ -2,9 +2,10 @@
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q6_K
 // scheme: w = bf16((val - 32) * dsub) per 16-element scale group, with val
-// the 6-bit value 0..63, f32 accumulation. The entry qmm_q6k_bf16 stands for
-// the launcher _run (pallas_call at :680). The grouped (expert-sorted) form
-// is not ported for this scheme.
+// the 6-bit value 0..63, f32 accumulation. The dense entry qmm_q6k_bf16
+// stands for the launcher _run (pallas_call at :680), the grouped entry
+// qmm_q6k_grouped_bf16 for _run_grouped (:836): rows sorted by expert, each
+// segment against its own expert's plane.
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks
 // (2 x 512 x 6144 x 4096 against 23 MB of planes for the fused q|k|v; the
@@ -61,7 +62,11 @@ struct Q6KSource {
     const uint8_t* qh;  // (N, K / 4)
     const bf16* dsub;   // (N, K / 16)
 
-    __device__ __forceinline__ void select_plane(int, int, int) {}
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        ql += (size_t)plane * N * (K / 2);
+        qh += (size_t)plane * N * (K / 4);
+        dsub += (size_t)plane * N * (K / 16);
+    }
 
     // The thread's pieces: e = tid + 256 i, row e / 7, piece e % 7 of the row
     // (0-3 ql, 4-5 qh, 6 dsub). A half at depth k0 begins k0 / 2 bytes into a
@@ -153,4 +158,16 @@ extern "C" int qmm_q6k_bf16(const void* x, const void* ql, const void* qh, const
                             void* out, int out_bf16, int M, int N, int K, void* stream) {
     const Q6KSource w{(const uint8_t*)ql, (const uint8_t*)qh, (const bf16*)dsub};
     return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// ql (n_planes, N, K/2), qh (n_planes, N, K/4), dsub (n_planes, N, K/16).
+extern "C" int qmm_q6k_grouped_bf16(const void* x, const void* ql, const void* qh,
+                                    const void* dsub, void* out, int out_bf16,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    const Q6KSource w{(const uint8_t*)ql, (const uint8_t*)qh, (const bf16*)dsub};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

@@ -2,8 +2,10 @@
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel for the Q8_0
 // scheme: w = bf16(qs * dsub) per 32-element scale group, f32 accumulation.
-// The entry qmm_q8_0_bf16 stands for the launcher _run (pallas_call at :680).
-// The grouped (expert-sorted) form is not ported for this scheme.
+// The dense entry qmm_q8_0_bf16 stands for the launcher _run (pallas_call at
+// :680), the grouped entry qmm_q8_0_grouped_bf16 for _run_grouped (:836),
+// where rows sorted by expert multiply their own expert's plane (as
+// qmm_q4k.cu's: the same tile loop, select_plane offsets every plane).
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks
 // (2 x 512 x 6144 x 4096 against 26 MB of planes for the fused q|k|v; the
@@ -49,7 +51,10 @@ struct Q80Source {
     const int8_t* qs;  // (N, K)
     const bf16* dsub;  // (N, K / 32)
 
-    __device__ __forceinline__ void select_plane(int, int, int) {}
+    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
+        qs += (size_t)plane * N * K;
+        dsub += (size_t)plane * N * (K / 32);
+    }
 
     // 16-byte chunk c (0..3) of tile row r: rows 2 apart in other banks
     static __device__ __forceinline__ uint32_t chunk(int r, int c) {
@@ -138,4 +143,15 @@ extern "C" int qmm_q8_0_bf16(const void* x, const void* qs, const void* dsub, vo
                              int out_bf16, int M, int N, int K, void* stream) {
     const Q80Source w{(const int8_t*)qs, (const bf16*)dsub};
     return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+}
+
+// The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
+// on the device with each plane's first row (offsets[n_planes] == M), planes
+// qs (n_planes, N, K) i8, dsub (n_planes, N, K/32) bf16.
+extern "C" int qmm_q8_0_grouped_bf16(const void* x, const void* qs, const void* dsub, void* out,
+                                     int out_bf16, const void* offsets, int n_planes, int M,
+                                     int N, int K, void* stream) {
+    const Q80Source w{(const int8_t*)qs, (const bf16*)dsub};
+    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
+                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
 }

@@ -60,12 +60,14 @@
 //    their first weight stages before griddepcontrol.wait, the first point
 //    where they read xq / dx / sx. Both launches stay on the caller's stream,
 //    so a CUDA graph captures them.
-//  * Per-row planes (the MoE decode path): with plane_idx given, row b
-//    multiplies weight plane plane_idx[b] of a stack (n_planes, N, K). This
-//    is the TPU launcher's scalar-prefetched `layer` fed an expert id, one id
-//    per row here: the launch puts one row on each blockIdx.y with that row's
-//    plane as its base, and the index is read on the device. Rows that share
-//    an expert read its plane once each.
+//  * Per-row planes (the MoE decode path), every scheme: with plane_idx
+//    given, row b multiplies weight plane plane_idx[b] of a stack (n_planes,
+//    N, K). This is the TPU launcher's scalar-prefetched `layer` fed an
+//    expert id, one id per row here: the launch puts one row on each
+//    blockIdx.y with that row's plane as its base (wrow0, the plane's first
+//    weight row, offsets every plane the trait reads: the values, dsub and
+//    msub, and K16's scale bytes, d and dmin), and the index is read on the
+//    device. Rows that share an expert read its plane once each.
 // The Q8_0 and Q6_K forms share the quantizer (at the scheme's group: 32, or
 // 16 for Q6_K, as the JAX package's scheme.gr), the ring, the warp split by
 // superblock and the epilogue; a scheme trait (Q4K, Q80, Q6K below) gives the
@@ -350,14 +352,14 @@ qmm_w4a8_kernel(const Args args) {
                 wg::cp_async16(st + S::HB + rh * 32 + swz_s(rh, p) * 16, src, okh);
                 if (lane < 16)
                     wg::cp_async16(st + ST::DS + r * 16,
-                                   reinterpret_cast<const uint8_t*>(args.sc) + col * (K / 16) + sb * 16, ok);
+                                   reinterpret_cast<const uint8_t*>(args.sc) + (wrow0 + col) * (K / 16) + sb * 16, ok);
                 else
-                    wg::cp_async4(st + ST::DS + COLS * 16 + r * 4, args.d + col * nsb + sb, ok);
+                    wg::cp_async4(st + ST::DS + COLS * 16 + r * 4, args.d + (wrow0 + col) * nsb + sb, ok);
             } else {
                 if (lane < 16)
                     wg::cp_async16(st + ST::DS + r * 16, q1 + col * (K / 16) + sb * 16, ok);
                 wg::cp_async4(st + ST::DS + COLS * 16 + (lane >> 4) * COLS * 4 + r * 4,
-                              (lane < 16 ? args.d : args.dmin) + col * nsb + sb, ok);
+                              (lane < 16 ? args.d : args.dmin) + (wrow0 + col) * nsb + sb, ok);
             }
         } else if constexpr (S::GR == 16) {  // Q6_K: ql, qh, 16 dsub a column
 #pragma unroll
@@ -812,60 +814,66 @@ extern "C" int qmm_w4a8_bf16(const void* x, void* xq, void* dx, void* sx,
 }
 
 // The Q8_0 form: qs (N, K) i8, dsub (N, K/32) bf16; scratch dx, sx (B,
-// K/32). Otherwise as qmm_w4a8_bf16, without planes.
+// K/32). Otherwise as qmm_w4a8_bf16, plane_idx and stacks (n_planes, N, ...)
+// too.
 extern "C" int qmm_w4a8_q8_0_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
-                                  const void* dsub, void* out, int out_bf16, int B, int N, int K,
-                                  int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q80>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
-                    grid_x, grid_y, x_rows, stream);
+                                  const void* dsub, void* out, int out_bf16,
+                                  const void* plane_idx, int B, int N, int K, int grid_x,
+                                  int grid_y, int x_rows, void* stream) {
+    return run<Q80>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx, B, N,
+                    K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q6_K form: ql (N, K/2) u8, qh (N, K/4) u8, dsub (N, K/16) bf16; scratch
 // dx, sx (B, K/16): the activations quantize per 16-group. Otherwise as
-// qmm_w4a8_bf16, without planes.
+// qmm_w4a8_bf16, plane_idx and stacks too.
 extern "C" int qmm_w4a8_q6k_bf16(const void* x, void* xq, void* dx, void* sx, const void* ql,
-                                 const void* qh, const void* dsub, void* out, int out_bf16, int B,
-                                 int N, int K, int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q6K>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
+                                 const void* qh, const void* dsub, void* out, int out_bf16,
+                                 const void* plane_idx, int B, int N, int K, int grid_x,
+                                 int grid_y, int x_rows, void* stream) {
+    return run<Q6K>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, plane_idx, B, N, K,
                     grid_x, grid_y, x_rows, stream);
 }
 
 // The Q5_K form: qs (N, K/2) u8 as Q4_K's, qh (N, K/8) u8 in ggml's order,
-// dsub, msub (N, K/32) bf16. Otherwise as qmm_w4a8_bf16, without planes.
+// dsub, msub (N, K/32) bf16. Otherwise as qmm_w4a8_bf16, plane_idx and stacks
+// too.
 extern "C" int qmm_w4a8_q5k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
                                  const void* qh, const void* dsub, const void* msub, void* out,
-                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
-                                 int x_rows, void* stream) {
-    return run<Q5K>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, nullptr, B, N, K, grid_x,
+                                 int out_bf16, const void* plane_idx, int B, int N, int K,
+                                 int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q5K>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, plane_idx, B, N, K, grid_x,
                     grid_y, x_rows, stream);
 }
 
 // The Q4_0 form: qs (N, K/2) u8 in the per-64 order, dsub (N, K/32) bf16.
-// Otherwise as qmm_w4a8_bf16, without planes.
+// Otherwise as qmm_w4a8_bf16, plane_idx and stacks too.
 extern "C" int qmm_w4a8_q4_0_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
-                                  const void* dsub, void* out, int out_bf16, int B, int N, int K,
-                                  int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, nullptr, B, N, K,
-                    grid_x, grid_y, x_rows, stream);
+                                  const void* dsub, void* out, int out_bf16,
+                                  const void* plane_idx, int B, int N, int K, int grid_x,
+                                  int grid_y, int x_rows, void* stream) {
+    return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx, B, N,
+                    K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q3_K form: qs (N, K/4) u8, hb (N, K/8) u8, sc (N, K/16) i8, d (N,
 // K/256) f32; scratch dx, sx (B, K/16): the activations quantize per
-// 16-group. Otherwise as qmm_w4a8_bf16, without planes.
+// 16-group. Otherwise as qmm_w4a8_bf16, plane_idx and stacks too.
 extern "C" int qmm_w4a8_q3k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
                                  const void* hb, const void* sc, const void* d, void* out,
-                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
-                                 int x_rows, void* stream) {
-    return run<Q3K>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, out_bf16, nullptr, B, N, K,
+                                 int out_bf16, const void* plane_idx, int B, int N, int K,
+                                 int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q3K>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, out_bf16, plane_idx, B, N, K,
                     grid_x, grid_y, x_rows, stream, sc, d, nullptr);
 }
 
 // The Q2_K form: qs (N, K/4) u8, scm (N, K/16) u8, d, dmin (N, K/256) f32;
-// scratch dx, sx (B, K/16). Otherwise as qmm_w4a8_bf16, without planes.
+// scratch dx, sx (B, K/16). Otherwise as qmm_w4a8_bf16, plane_idx and stacks
+// too.
 extern "C" int qmm_w4a8_q2k_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
                                  const void* scm, const void* d, const void* dmin, void* out,
-                                 int out_bf16, int B, int N, int K, int grid_x, int grid_y,
-                                 int x_rows, void* stream) {
-    return run<Q2K>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, out_bf16, nullptr, B, N, K,
+                                 int out_bf16, const void* plane_idx, int B, int N, int K,
+                                 int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q2K>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, out_bf16, plane_idx, B, N, K,
                     grid_x, grid_y, x_rows, stream, nullptr, d, dmin);
 }

@@ -156,7 +156,9 @@ def _moe_decode_rows(lw: dict, h: torch.Tensor, topi, topw) -> torch.Tensor:
     """At most W4A8_MAX_ROWS rows: for each slot j of the top-k, one int8-
     activation matmul per stack with row b on plane topi[b, j], which the
     kernel reads on the device. No routing value reaches the host, and only
-    the selected experts' planes are read.
+    the selected experts' planes are read. Each stack takes the form of its
+    own scheme and quantizes its activations at that scheme's group, so
+    gate|up and down may differ in kind (Q4_K beside Q6_K in a Q4_K_M file).
 
     The JAX package has three regimes here (a gather by a traced plane index
     at one row, lax.cond per expert, an all-experts mix); they exist to keep
@@ -186,8 +188,9 @@ def _moe_grouped(lw: dict, h: torch.Tensor, topi, topw, cfg: ModelConfig) -> tor
 
     From _GROUPED_MIN_ROWS rows on the JAX package runs its grouped kernels,
     on the W8 planes where they are attached; below, its all-experts mix
-    through the dequant kernel, which gives the numbers of the Q4_K grouped
-    kernel here row by row (an unselected expert's weight is exactly 0)."""
+    through the dequant kernel, which gives the numbers of the grouped
+    dequant kernel here row by row (an unselected expert's weight is exactly
+    0). Each stack takes the grouped kernel of its own scheme."""
     R, K, E = h.shape[0], cfg.n_experts_used, cfg.n_experts
     expert, order = torch.sort(topi.reshape(-1), stable=True)  # (R*K,) pairs by expert
     offsets = torch.searchsorted(
@@ -233,8 +236,9 @@ def moe_ffn(lw: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The Mixtral FFN on x (..., D): softmax over the top-k of the router's
     logits, each selected expert down(silu(gate(x)) * up(x)), weighted after
     the down matmul in the compute dtype and summed there. Counterpart of
-    crabml_tpu/models/forward.py::moe_ffn. Experts without kernel planes
-    (F32 / F16 files) take the plain version, as such weights take
+    crabml_tpu/models/forward.py::moe_ffn. Stacks of every kernel scheme
+    take that scheme's kernels, each stack its own. Experts without kernel
+    planes (F32 / F16 files) take the plain version, as such weights take
     torch.matmul everywhere else."""
     if not all(qt.kernel_layout for qt in _expert_stacks(lw)):
         return moe_ffn_plain(lw, x, cfg)

@@ -24,8 +24,10 @@ load along the output axis, so a layer issues one matmul per group where the
 group's tensors share one kind; in llama.cpp's mixed files (_K_M, Q2_K) a
 layer whose attn_v is in another type than attn_q keeps q, k and v apart, so
 the layers of one file need not hold the same names. A mixture of experts
-takes Q4_K experts (or F32 / F16): the grouped kernels of the other kinds are
-not ported yet.
+takes experts of any of these kinds (or F32 / F16), each stack in its own:
+gate|up fuse expert by expert where both stacks share a kind, and down may
+differ from them (llama.cpp's Q4_K_M Mixtral keeps ffn_down_exps in Q6_K in
+its use_more_bits layers), so each stack takes its own kind's kernels.
 `augment_w8_weights` attaches the W8 prefill planes within a byte budget.
 """
 
@@ -39,7 +41,7 @@ from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
 from ..quant.codecs import dequantize
 from ..ops.cuda.gemm_quant import W8_KSC, augment_w8, w8_eligible
-from ..quant.qtensor import KERNEL_KINDS, QTensor, cat_rows, to_kernel_layout, to_planar
+from ..quant.qtensor import QTensor, cat_rows, to_kernel_layout, to_planar
 from .config import ModelConfig
 
 _LAYER_TENSORS = {  # port name -> GGUF tensor name pattern
@@ -98,12 +100,6 @@ def _layer(mats: dict[str, QTensor], others: dict[str, torch.Tensor], scale_dtyp
     fused (the experts' gate|up expert by expert). `others`: the norms and,
     for a mixture of experts, the router."""
     moe = "ffn_down_exps" in mats
-    if moe:
-        for n in _MOE_FFN:
-            if mats[n].kind in KERNEL_KINDS and mats[n].kind != GGMLType.Q4_K:
-                raise UnsupportedError(
-                    f"{mats[n].kind.name} experts: the port's mixture of experts takes Q4_K, "
-                    "F32 or F16 experts")
     mats = {n: to_kernel_layout(q, scale_dtype) for n, q in mats.items()}
     out = dict(others)
     groups = ((("wq", "wk", "wv"), "wqkv"),

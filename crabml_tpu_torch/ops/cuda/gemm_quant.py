@@ -1,17 +1,19 @@
 """Quantized matmuls: `qmm_q4k`, `qmm_q5k`, `qmm_q6k`, `qmm_q8_0`,
 `qmm_q4_0`, `qmm_q3k`, `qmm_q2k` (prefill rows, one per weight scheme,
-made by `_dequant_form`), `qmm_w4a8` (decode rows, every scheme), `qmm_w8`
-(prefill rows on the W8 planes) and the grouped forms `qmm_q4k_grouped` /
-`qmm_w8_grouped` (rows sorted by expert, each segment against its own
-expert's planes), with `quantize_activation`, the W8 planes
+made by `_dequant_form`), their grouped forms `qmm_<scheme>_grouped` (rows
+sorted by expert, each segment against its own expert's planes, made by
+`_grouped_form`), `qmm_w4a8` (decode rows, every scheme, with a plane per
+row for a stack of experts), `qmm_w8` (prefill rows on the W8 planes) and
+its grouped form `qmm_w8_grouped`, with `quantize_activation`, the W8 planes
 (`w8_planes_from_weights`, `augment_w8`) and the row routing of the JAX
 package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
 csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu,
 csrc/qmm_q4_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one weight source of
-the tile loop each (launchers `_run` and, for Q4_K, `_run_grouped`),
-`_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per scheme (its
+the tile loop each, with a dense and a grouped entry (launchers `_run` and
+`_run_grouped`), `_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per
+scheme, each with its plane-per-row form (`_run_w4a8` with `stacked`; its
 launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
 (launchers `_run_w8` and `_run_grouped_w8`); each source holds its note on
 what bounds it on the H100 and how the design answers it. All take the port's
@@ -144,13 +146,24 @@ def qmm_q3k_plain(x2, qs, hb, sc, d) -> torch.Tensor:
 
 def _w4a8_dense_plain(x2, vals, dsub, msub, group) -> torch.Tensor:
     """quantize_activation at `group`, exact integer group dots of xq with
-    the integer weight values `vals` (m, k) (float32 holds them exactly:
-    |sum| < 2^24), then dsub*dx per group, plus msub*sx where the scheme has
-    a minimum -> (rows, m) f32."""
+    the integer weight values `vals` (float32 holds the dots exactly: |sum| <
+    2^24), then dsub*dx per group, plus msub*sx where the scheme has a
+    minimum -> (rows, m) f32. `vals` (m, k) and its scales are one plane for
+    every row, or (rows, m, k) and (rows, m, groups) a plane per row (the
+    plane form, gathered by `_rows`)."""
     xq, dx, sx = quantize_activation(x2, group)
     B, K = xq.shape
-    m = vals.shape[0]
+    m = vals.shape[-2]
     G = K // group
+    if vals.dim() == 3:
+        # group by group, so that only one group's values exist as float32
+        # at a time (a whole stack of rows' planes would be gigabytes)
+        xg = xq.float().reshape(B, G, group, 1)
+        igt = torch.empty(B, G, m, dtype=torch.float32, device=x2.device)
+        for g in range(G):
+            igt[:, g] = torch.bmm(vals[:, :, g * group:(g + 1) * group].float(), xg[:, g])[..., 0]
+        out = (igt.permute(0, 2, 1) * dx[:, None, :] * dsub.float()).sum(-1)
+        return out if msub is None else out + torch.einsum("bg,bmg->bm", sx, msub.float())
     v = vals.float().reshape(m, G, group).permute(1, 2, 0)  # (G, group, m)
     xg = xq.float().reshape(B, G, group).permute(1, 0, 2)  # (G, B, group)
     ig = torch.bmm(xg, v).permute(1, 2, 0)  # (B, m, G) integer dots
@@ -158,65 +171,71 @@ def _w4a8_dense_plain(x2, vals, dsub, msub, group) -> torch.Tensor:
     return out if msub is None else out + sx @ msub.float().t()
 
 
-def qmm_w4a8_q8_0_plain(x2, qs, dsub) -> torch.Tensor:
+def _rows(plane, *planes):
+    """The planes as they are, or with `plane` (rows,) each stack (E, m, ...)
+    gathered to its row's plane (rows, m, ...), by a device-side index: no
+    value is read on the host."""
+    if plane is None:
+        return planes
+    idx = plane.long()
+    return tuple(p[idx] for p in planes)
+
+
+def qmm_w4a8_q8_0_plain(x2, qs, dsub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q8_0 planes: the int8 weights as they
-    are, activations per 32-group, no minimum term -> (rows, m) f32."""
+    are, activations per 32-group, no minimum term -> (rows, m) f32. With
+    `plane` (rows,) the planes are stacks (E, m, ...) and row b multiplies
+    plane[b] (as for every form below)."""
+    qs, dsub = _rows(plane, qs, dsub)
     return _w4a8_dense_plain(x2, qs, dsub, None, 32)
 
 
-def qmm_w4a8_q6k_plain(x2, ql, qh, dsub) -> torch.Tensor:
+def qmm_w4a8_q6k_plain(x2, ql, qh, dsub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q6_K planes: the 6-bit values 0..63,
     activations per 16-group, and the offset as a minimum msub = -32*dsub
     (exact) times sx -> (rows, m) f32."""
+    ql, qh, dsub = _rows(plane, ql, qh, dsub)
     return _w4a8_dense_plain(x2, q6k_values(ql, qh), dsub, -32.0 * dsub.float(), 16)
 
 
-def qmm_w4a8_q5k_plain(x2, qs, qh, dsub, msub) -> torch.Tensor:
+def qmm_w4a8_q5k_plain(x2, qs, qh, dsub, msub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q5_K planes: Q4_K's with the 5-bit
     values 0..31 -> (rows, m) f32."""
+    qs, qh, dsub, msub = _rows(plane, qs, qh, dsub, msub)
     return _w4a8_dense_plain(x2, q5k_values(qs, qh), dsub, msub, 32)
 
 
-def qmm_w4a8_q4_0_plain(x2, qs, dsub) -> torch.Tensor:
+def qmm_w4a8_q4_0_plain(x2, qs, dsub, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q4_0 planes: the nibbles 0..15,
     activations per 32-group, and the offset as a minimum msub = -8*dsub
     (exact) times sx -> (rows, m) f32."""
+    qs, dsub = _rows(plane, qs, dsub)
     return _w4a8_dense_plain(x2, nibbles(qs), dsub, -8.0 * dsub.float(), 32)
 
 
-def qmm_w4a8_q2k_plain(x2, qs, scm, d, dmin) -> torch.Tensor:
+def qmm_w4a8_q2k_plain(x2, qs, scm, d, dmin, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q2_K planes: the 2-bit values 0..3,
     activations per 16-group, dsub = d*sc and the minimum msub = -dmin*mn
     (exact) times sx -> (rows, m) f32."""
+    qs, scm, d, dmin = _rows(plane, qs, scm, d, dmin)
     dsub, msub = k16_scales(GGMLType.Q2_K, {"scm": scm, "d": d, "dmin": dmin})
     return _w4a8_dense_plain(x2, q2_values(qs), dsub, msub, 16)
 
 
-def qmm_w4a8_q3k_plain(x2, qs, hb, sc, d) -> torch.Tensor:
+def qmm_w4a8_q3k_plain(x2, qs, hb, sc, d, plane=None) -> torch.Tensor:
     """Plain version of qmm_w4a8 on Q3_K planes: the 3-bit values 0..7,
     activations per 16-group, dsub = d*sc (signed) and the offset as a
     minimum msub = -4*dsub (exact) times sx -> (rows, m) f32."""
+    qs, hb, sc, d = _rows(plane, qs, hb, sc, d)
     dsub, _ = k16_scales(GGMLType.Q3_K, {"sc": sc, "d": d})
     return _w4a8_dense_plain(x2, q3k_values(qs, hb), dsub, -4.0 * dsub, 16)
 
 
 def qmm_w4a8_plain(x2, qs, dsub, msub, plane=None) -> torch.Tensor:
-    """Plain version of qmm_w4a8: quantize_activation, exact integer group
-    dots (float32 holds them exactly: |sum| < 2^24), then dsub*dx per group
-    plus msub*sx -> (rows, m) f32. With `plane` (rows,) the planes are stacks
-    (E, m, ...) and row b multiplies plane[b]: the planes are gathered per
-    row, with no value read on the host."""
-    if plane is None:
-        return _w4a8_dense_plain(x2, nibbles(qs), dsub, msub, GROUP)
-    xq, dx, sx = quantize_activation(x2)
-    B, K = xq.shape
-    m = qs.shape[-2]
-    G = K // GROUP
-    plane = plane.long()
-    vals = nibbles(qs[plane]).float().reshape(B, m, G, GROUP)
-    ig = torch.einsum("bgi,bmgi->bmg", xq.float().reshape(B, G, GROUP), vals)
-    out = (ig * dx[:, None, :] * dsub[plane].float()).sum(-1)
-    return out + torch.einsum("bg,bmg->bm", sx, msub[plane].float())
+    """Plain version of qmm_w4a8 (Q4_K): quantize_activation, exact integer
+    group dots, then dsub*dx per group plus msub*sx -> (rows, m) f32."""
+    qs, dsub, msub = _rows(plane, qs, dsub, msub)
+    return _w4a8_dense_plain(x2, nibbles(qs), dsub, msub, GROUP)
 
 
 def w8_planes_from_weights(w: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -300,31 +319,58 @@ def qmm_w8_grouped_plain(xs, w8, dw, offsets) -> torch.Tensor:
     return _grouped_plain(xs, offsets, lambda r, e: qmm_w8_plain(r, w8[e], dw[e]))
 
 
-def _lib_q4k_grouped():
-    return _build.entry("qmm_q4k", "qmm_q4k_grouped_bf16", _P, _P, _P, _P, _P, _I, _P, _I,
-                        _I, _I, _I, _P)
+def qmm_q8_0_grouped_plain(xs, qs, dsub, offsets) -> torch.Tensor:
+    """Plain version of qmm_q8_0_grouped: qmm_q8_0_plain per segment."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_q8_0_plain(r, qs[e], dsub[e]))
 
 
-def _lib_w4a8():
-    return _build.entry("qmm_w4a8", "qmm_w4a8_bf16", _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _P, _I, _I, _I, _I, _I, _I, _P)
+def qmm_q6k_grouped_plain(xs, ql, qh, dsub, offsets) -> torch.Tensor:
+    """Plain version of qmm_q6k_grouped: qmm_q6k_plain per segment."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_q6k_plain(r, ql[e], qh[e], dsub[e]))
 
 
-def _lib_dequant(kind: GGMLType):
-    """The dense dequant entry of a scheme (<form>_bf16 in csrc/<form>.cu): x,
-    the weight planes in _KERNEL_PLANES order, out."""
+def qmm_q5k_grouped_plain(xs, qs, qh, dsub, msub, offsets) -> torch.Tensor:
+    """Plain version of qmm_q5k_grouped: qmm_q5k_plain per segment."""
+    return _grouped_plain(xs, offsets,
+                          lambda r, e: qmm_q5k_plain(r, qs[e], qh[e], dsub[e], msub[e]))
+
+
+def qmm_q4_0_grouped_plain(xs, qs, dsub, offsets) -> torch.Tensor:
+    """Plain version of qmm_q4_0_grouped: qmm_q4_0_plain per segment."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_q4_0_plain(r, qs[e], dsub[e]))
+
+
+def qmm_q3k_grouped_plain(xs, qs, hb, sc, d, offsets) -> torch.Tensor:
+    """Plain version of qmm_q3k_grouped: qmm_q3k_plain per segment."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_q3k_plain(r, qs[e], hb[e], sc[e], d[e]))
+
+
+def qmm_q2k_grouped_plain(xs, qs, scm, d, dmin, offsets) -> torch.Tensor:
+    """Plain version of qmm_q2k_grouped: qmm_q2k_plain per segment."""
+    return _grouped_plain(xs, offsets,
+                          lambda r, e: qmm_q2k_plain(r, qs[e], scm[e], d[e], dmin[e]))
+
+
+def _lib_dequant(kind: GGMLType, grouped: bool = False):
+    """The dequant entry of a scheme in csrc/<form>.cu: <form>_bf16 (x, the
+    weight planes in _KERNEL_PLANES order, out, out_bf16, M, N, K, stream),
+    or with `grouped` <form>_grouped_bf16 (the same with offsets and the
+    plane count after out_bf16)."""
     name = DEQUANT_FORMS[kind]
-    return _build.entry(name, f"{name}_bf16", *[_P] * (2 + len(_KERNEL_PLANES[kind])), _I, _I,
-                        _I, _I, _P)
+    planes = [_P] * (2 + len(_KERNEL_PLANES[kind]))
+    if grouped:
+        return _build.entry(name, f"{name}_grouped_bf16", *planes, _I, _P, _I, _I, _I, _I, _P)
+    return _build.entry(name, f"{name}_bf16", *planes, _I, _I, _I, _I, _P)
 
 
-def _lib_w4a8_of(kind: GGMLType):
-    """The int8-activation entry of a scheme other than Q4_K
-    (qmm_w4a8_<scheme>_bf16): x, the quantizer's scratch, the weight planes
-    in _KERNEL_PLANES order, out."""
+def _lib_w4a8(kind: GGMLType):
+    """The int8-activation entry of a scheme (qmm_w4a8_bf16 for Q4_K,
+    qmm_w4a8_<scheme>_bf16 for the others): x, the quantizer's scratch, the
+    weight planes in _KERNEL_PLANES order, out, out_bf16, plane_idx, B, N,
+    K, the grid, x_rows, stream."""
     entry = f"{W4A8_FORMS[kind]}_bf16"
-    return _build.entry("qmm_w4a8", entry, *[_P] * (4 + len(_KERNEL_PLANES[kind]) + 1), _I, _I,
-                        _I, _I, _I, _I, _I, _P)
+    return _build.entry("qmm_w4a8", entry, *[_P] * (4 + len(_KERNEL_PLANES[kind]) + 1), _I, _P,
+                        _I, _I, _I, _I, _I, _I, _P)
 
 
 def _lib_w8():
@@ -417,17 +463,24 @@ def w4a8_plan(rows: int, m: int, k: int, planes: bool = False,
         group=SCHEME_GROUP[kind])
 
 
-def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int) -> dict:
+def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int,
+                     plane_idx: tuple[int, ...] | None = None) -> dict:
     """What block (bx, by) of `plan` reads and writes, as csrc/qmm_w4a8.cu's
     copy predicates and store decide it (this is their mirror, for the
     tests): `rows` the activation rows it loads and writes, `columns` the
-    weight rows, `groups` per warp the scale groups (`plan.group` elements
-    each) it sums."""
+    weight rows of its plane, `stack_rows` the same rows counted through the
+    stack (plane * m + column: every plane a scheme reads, scales included,
+    is read at these rows of a stack (E, m, ...); with `plane_idx` the plane
+    form's row `by` takes plane plane_idx[by]), `groups` per warp the scale
+    groups (`plan.group` elements each) it sums."""
     real = range(by, by + 1) if plan.planes else range(rows)
     col0 = bx * W4A8_COLS
+    columns = range(col0, min(col0 + W4A8_COLS, m))
+    wrow0 = plane_idx[by] * m if plan.planes and plane_idx is not None else 0
     per = W4A8_SB // plan.group
     return {
-        "rows": real, "columns": range(col0, min(col0 + W4A8_COLS, m)),
+        "rows": real, "columns": columns,
+        "stack_rows": range(wrow0 + columns.start, wrow0 + columns.stop),
         "groups": [[sb * per + g for sb in ks for g in range(per)] for ks in plan.k_slices],
     }
 
@@ -569,29 +622,21 @@ W4A8_FORMS = {GGMLType.Q4_K: "qmm_w4a8", GGMLType.Q8_0: "qmm_w4a8_q8_0",
               GGMLType.Q2_K: "qmm_w4a8_q2k"}
 
 
-def _w4a8_plain(x2, qt: QTensor, plane):
-    p = qt.planes
-    if plane is not None:
-        return qmm_w4a8_plain(x2, p["qs"], p["dsub"], p["msub"], plane)
-    plain = globals()[f"{W4A8_FORMS[qt.kind]}_plain"]
-    return plain(x2, *(p[n] for n in _KERNEL_PLANES[qt.kind]))
-
-
 def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
              plane: torch.Tensor | None = None) -> torch.Tensor:
     """x2 (rows <= 16, k) @ W^T -> (rows, m), W of any kernel-layout scheme:
     activations quantize to int8 per scale group of the scheme (32, or 16
     for Q6_K, Q3_K and Q2_K) in a first kernel, chained to the scheme's
     integer matmul by programmatic dependent launch; float32 sums, rounded once to
-    `out_dtype`. With `plane` (rows,) int32 (Q4_K only), `qt` is a stack
-    (E, m, k) and row b multiplies plane[b], read on the device. The launch
-    is `w4a8_plan`'s; each scheme counts its launches under its
-    `W4A8_FORMS` name."""
+    `out_dtype`. With `plane` (rows,) int32, `qt` is a stack (E, m, k) and
+    row b multiplies plane[b], read on the device. The launch is
+    `w4a8_plan`'s; each scheme counts its launches under its `W4A8_FORMS`
+    name, and those of the plane form under that name + ".planes"."""
     kind = qt.kind
-    _build.require(plane is None or kind == GGMLType.Q4_K,
-                   "the plane-per-row form takes Q4_K planes only")
     if not x2.is_cuda:
-        return _w4a8_plain(x2, qt, plane).to(out_dtype)
+        plain = globals()[f"{W4A8_FORMS[kind]}_plain"]
+        return plain(x2, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
+                     plane=plane).to(out_dtype)
     rows, k = x2.shape
     _build.require(kind in W4A8_FORMS,
                    f"{kind.name}: qmm_w4a8 takes "
@@ -613,19 +658,13 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     sx = torch.empty_like(dx)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=dev)
     plan = w4a8_plan(rows, qt.m, k, planes=plane is not None, kind=kind)
-    name = W4A8_FORMS[kind]
-    scratch = (x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr())
-    if kind == GGMLType.Q4_K:
-        lib, fn = _lib_w4a8()
-        _build.launches[name] += 1
-        err = fn(*scratch, *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
-                 None if plane is None else plane.data_ptr(), rows, qt.m, k, *plan.grid,
-                 plan.x_rows, _build.stream_ptr(x2))
-    else:
-        lib, fn = _lib_w4a8_of(kind)
-        _build.launches[name] += 1
-        err = fn(*scratch, *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16, rows,
-                 qt.m, k, *plan.grid, plan.x_rows, _build.stream_ptr(x2))
+    name = W4A8_FORMS[kind] + ("" if plane is None else ".planes")
+    lib, fn = _lib_w4a8(kind)
+    _build.launches[name] += 1
+    err = fn(x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr(),
+             *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
+             None if plane is None else plane.data_ptr(), rows, qt.m, k, *plan.grid,
+             plan.x_rows, _build.stream_ptr(x2))
     _build.check(lib, err, name)
     return out
 
@@ -655,30 +694,56 @@ def qmm_w8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tens
     return out
 
 
-def qmm_q4k_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
-                    out_dtype=torch.float32) -> torch.Tensor:
-    """Grouped qmm_q4k: xs (rows, k) sorted by plane, `qt` a stack (E, m, k),
-    offsets (E + 1,) int32 with each plane's first row (offsets[E] == rows).
-    Rows [offsets[e], offsets[e+1]) multiply plane e -> (rows, m). The kernel
-    reads the offsets on the device; a segment may be empty or ragged."""
-    p = qt.planes
-    if not xs.is_cuda:
-        return qmm_q4k_grouped_plain(xs, p["qs"], p["dsub"], p["msub"], offsets).to(out_dtype)
-    rows, k = xs.shape
-    _check_weight(qt, k, xs.device, stacked=True)
-    _check_offsets(offsets, qt, xs.device)
-    _build.require(xs.dtype == torch.bfloat16,
-                   f"qmm_q4k_grouped takes bfloat16 activations, got {xs.dtype}")
-    out_bf16 = _out_bf16(out_dtype)
-    xs = _aligned(xs)
-    out = torch.empty(rows, qt.m, dtype=out_dtype, device=xs.device)
-    lib, fn = _lib_q4k_grouped()
-    _build.launches["qmm_q4k_grouped"] += 1
-    err = fn(xs.data_ptr(), p["qs"].data_ptr(), p["dsub"].data_ptr(), p["msub"].data_ptr(),
-             out.data_ptr(), out_bf16, offsets.data_ptr(), qt.shape[0], rows, qt.m, k,
-             _build.stream_ptr(xs))
-    _build.check(lib, err, "qmm_q4k_grouped")
-    return out
+# the grouped dequant kernel of each scheme: its wrapper, launch counter and,
+# with "_plain", its plain version
+GROUPED_FORMS = {kind: f"{name}_grouped" for kind, name in DEQUANT_FORMS.items()}
+
+
+def _grouped_form(kind: GGMLType):
+    """The wrapper of `kind`'s grouped dequant kernel, named as GROUPED_FORMS
+    says: (xs (rows, k) sorted by plane, qt a stack (E, m, k), offsets (E +
+    1,) int32 with each plane's first row (offsets[E] == rows), out_dtype)
+    -> (rows, m): rows [offsets[e], offsets[e+1]) multiply plane e. The
+    kernel reads the offsets on the device; a segment may be empty or
+    ragged. On a CPU tensor it computes the plain version."""
+    name = GROUPED_FORMS[kind]
+
+    def wrapper(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
+                out_dtype=torch.float32) -> torch.Tensor:
+        if not xs.is_cuda:
+            plain = globals()[f"{name}_plain"]
+            return plain(xs, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
+                         offsets).to(out_dtype)
+        rows, k = xs.shape
+        planes = _check_weight(qt, k, xs.device, stacked=True, kind=kind)
+        _check_offsets(offsets, qt, xs.device)
+        _build.require(xs.dtype == torch.bfloat16,
+                       f"{name} takes bfloat16 activations, got {xs.dtype}")
+        _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
+                       f"{name} copies the weight planes 16 bytes at a time: align them to 16")
+        out_bf16 = _out_bf16(out_dtype)
+        xs = _aligned(xs)
+        out = torch.empty(rows, qt.m, dtype=out_dtype, device=xs.device)
+        lib, fn = _lib_dequant(kind, grouped=True)
+        _build.launches[name] += 1
+        err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
+                 offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
+        _build.check(lib, err, name)
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"Grouped {DEQUANT_FORMS[kind]}: xs sorted by plane, each segment "
+                       f"[offsets[e], offsets[e+1]) against plane e of a {kind.name} stack.")
+    return wrapper
+
+
+qmm_q4k_grouped = _grouped_form(GGMLType.Q4_K)
+qmm_q8_0_grouped = _grouped_form(GGMLType.Q8_0)
+qmm_q6k_grouped = _grouped_form(GGMLType.Q6_K)
+qmm_q5k_grouped = _grouped_form(GGMLType.Q5_K)
+qmm_q4_0_grouped = _grouped_form(GGMLType.Q4_0)
+qmm_q3k_grouped = _grouped_form(GGMLType.Q3_K)
+qmm_q2k_grouped = _grouped_form(GGMLType.Q2_K)
 
 
 def qmm_w8_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
@@ -706,12 +771,13 @@ def qmm_w8_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
 def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
                     w8: bool) -> torch.Tensor:
     """Grouped matmul over expert-sorted rows in xs's dtype: through the W8
-    planes when `w8` and the stack carries them, else through the Q4_K
-    dequant kernel. (The JAX package's qmatmul_grouped tests its padded row
-    count against W8_MIN_ROWS; the caller decides here, see models/forward.py.)"""
+    planes when `w8` and the stack carries them, else through the grouped
+    dequant kernel of the stack's scheme. (The JAX package's qmatmul_grouped
+    tests its padded row count against W8_MIN_ROWS; the caller decides here,
+    see models/forward.py.)"""
     if w8 and "w8" in qt.planes:
         return qmm_w8_grouped(xs, qt, offsets, xs.dtype)
-    return qmm_q4k_grouped(xs, qt, offsets, xs.dtype)
+    return globals()[GROUPED_FORMS[qt.kind]](xs, qt, offsets, xs.dtype)
 
 
 def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:

@@ -55,10 +55,26 @@ tensor's type (`mix_kind`; i is the layer of n, n the file's depth after
 So `--scheme q4_k --mix k_m` is a Q4_K_M file, `--scheme q5_k --mix k_m` a
 Q5_K_M one, `--scheme q3_k --mix k_m` a Q3_K_M one and `--scheme q2_k --mix
 q2_k` a Q2_K one; each keeps q, k and v in other types in some layer, so
-the port leaves them apart there. This is a reading of that rule, held by the
-tests to the table above. A mixture-of-experts shape refuses a mix
-(llama.cpp would give its experts other types, which the port's mixture of
-experts does not take). Norm weights are f32 ones and
+the port leaves them apart there.
+
+On a mixture-of-experts shape the experts' stacks take the rule of their
+dense names by their own layer (llama.cpp matches `ffn_down` in
+`ffn_down_exps` and reads the layer from the tensor's name): `ffn_gate_exps`
+and `ffn_up_exps` are in `scheme`, `ffn_down_exps` as `ffn_down` above. A
+model of 8 experts (Mixtral-8x7B; `n_expert == 8` in llama.cpp) has two
+overrides that come after each mix's own rule:
+
+- `attn_k` and `attn_v` are Q8_0 in every layer;
+- `attn_output` is Q5_K under Q4_K_M, Q3_K_M and Q2_K (the 8-expert branch
+  of its rule, in place of the dense one); Q5_K_M keeps its base Q5_K.
+
+So an 8-expert Q4_K_M file holds Q4_K q, gate|up and embedding, Q8_0 k and
+v, Q5_K attn_output and ffn_down_exps in Q6_K where use_more_bits holds (Q4_K
+elsewhere); a Q2_K file Q2_K q, gate|up and embedding, Q8_0 k and v, Q5_K
+attn_output and Q3_K ffn_down_exps. Other expert counts take the dense
+rules. This is a reading of that rule, held by the tests to the tables
+above. `--scheme` alone writes every matrix, the experts too, in the scheme,
+on a mixture-of-experts shape as on a dense one. Norm weights are f32 ones and
 the tokenizer is a llama-SPM vocab of specials, byte tokens and synthetic
 pieces. No element is quantized one at a time: the file is random bytes
 patched per block, written tensor by tensor.
@@ -77,6 +93,8 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q3_k --mix k_m
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q2_k --mix q2_k
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8 \
+        --scheme q4_k --mix k_m
 """
 
 from __future__ import annotations
@@ -99,6 +117,10 @@ MODEL_SHAPES = {
     # the `mixtral` shape of crabml_tpu/tools/synth_gguf.py
     "mixtral": (2048, 5632, 16, 16, 8, 32000, 4096, 8, 2, 10000.0),
     "tiny-moe": (256, 512, 2, 2, 1, 512, 512, 4, 2, 10000.0),  # head dim 128
+    # tiny-moe's widths with Mixtral's 8 experts, 2 used (llama.cpp's 8-expert rule applies),
+    # and 2 kv heads: k and v, Q8_0 in the 8-expert mixes, then have 256 rows, a multiple
+    # of the JAX package's 256-row kernel tile, so both packages take their int8 kernels
+    "tiny-moe8": (256, 512, 2, 2, 2, 512, 512, 8, 2, 10000.0),
 }
 
 
@@ -190,11 +212,18 @@ def use_more_bits(i: int, n: int) -> bool:
     return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
 
 
-def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int) -> str:
+def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int,
+             experts: int = 0) -> str:
     """The scheme of `tensor` (attn_q, attn_k, attn_v, attn_output, ffn_gate,
-    ffn_up, ffn_down; token_embd and output take i = -1) of layer i of n
-    under `mix` (the module docstring's table); `gqa` = n_heads / n_kv_heads.
-    The output's own rule is the caller's."""
+    ffn_up, ffn_down, the experts' stacks under the last three names;
+    token_embd and output take i = -1) of layer i of n under `mix` (the
+    module docstring's tables) in a model of `experts` experts (0: dense);
+    `gqa` = n_heads / n_kv_heads. The output's own rule is the caller's."""
+    if mix is not None and experts == 8:
+        if tensor in ("attn_k", "attn_v"):
+            return "q8_0"
+        if tensor == "attn_output":
+            return "q5_k"
     if mix == "q2_k":
         if tensor == "attn_v":
             return "q4_k" if gqa >= 4 else "q3_k"
@@ -219,9 +248,8 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     `mix`, each layer tensor in the type `mix_kind` gives it."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
-    if mix is not None and (mix not in MIXES or experts or (mix == "q2_k") != (scheme == "q2_k")):
-        raise ValueError(f"mix {mix!r} over scheme {scheme!r}: 'k_m', or 'q2_k' over q2_k, and "
-                         "on a dense shape")
+    if mix is not None and (mix not in MIXES or (mix == "q2_k") != (scheme == "q2_k")):
+        raise ValueError(f"mix {mix!r} over scheme {scheme!r}: 'k_m', or 'q2_k' over q2_k")
     lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
     meta = {
@@ -267,7 +295,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     add("token_embd.weight", (vocab, dim), sigma=0.02)
     for l in range(n_layers):
         def kind(tensor, l=l):
-            return mix_kind(tensor, l, n_layers, scheme, mix, heads // kv_heads)
+            return mix_kind(tensor, l, n_layers, scheme, mix, heads // kv_heads, experts)
 
         add(f"blk.{l}.attn_q.weight", (dim, dim), kind=kind("attn_q"))
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim), kind=kind("attn_k"))
@@ -278,9 +306,9 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             router = np.random.default_rng([seed, counter[0]]).standard_normal((experts, dim))
             w.add_tensor(f"blk.{l}.ffn_gate_inp.weight", GGMLType.F32, (experts, dim),
                          (router / np.sqrt(dim)).astype(np.float32))
-            add(f"blk.{l}.ffn_gate_exps.weight", (experts, hidden, dim))
-            add(f"blk.{l}.ffn_up_exps.weight", (experts, hidden, dim))
-            add(f"blk.{l}.ffn_down_exps.weight", (experts, dim, hidden))
+            add(f"blk.{l}.ffn_gate_exps.weight", (experts, hidden, dim), kind=kind("ffn_gate"))
+            add(f"blk.{l}.ffn_up_exps.weight", (experts, hidden, dim), kind=kind("ffn_up"))
+            add(f"blk.{l}.ffn_down_exps.weight", (experts, dim, hidden), kind=kind("ffn_down"))
         else:
             add(f"blk.{l}.ffn_gate.weight", (hidden, dim), kind=kind("ffn_gate"))
             add(f"blk.{l}.ffn_up.weight", (hidden, dim), kind=kind("ffn_up"))
@@ -315,7 +343,8 @@ def main(argv=None):
                     help="k_m: llama.cpp's _K_M layout over the --scheme layers (Q4_K_M and "
                          "Q5_K_M: attn_v and ffn_down in Q6_K where use_more_bits holds; Q3_K_M "
                          "over q3_k); q2_k: llama.cpp's Q2_K file type (with --scheme q2_k); "
-                         "a Q6_K output")
+                         "a Q6_K output; with 8 experts Q8_0 attn_k / attn_v and (not Q5_K_M) a "
+                         "Q5_K attn_output")
     args = ap.parse_args(argv)
     build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True,
                      scheme=args.scheme, lm_head=args.lm_head, mix=args.mix)

@@ -1,4 +1,5 @@
-"""Time `qmm_w4a8` of two checkouts of the port in turns, on one card.
+"""Time `qmm_w4a8` and `qmm_q4k_grouped` of two checkouts of the port in
+turns, on one card.
 
     python -m crabml_tpu_torch.tools.w4a8_turns OTHER_ROOT    # needs one CUDA card
 
@@ -8,10 +9,12 @@ turns run in the order other, this, this, other, each in a process of its
 own that imports `crabml_tpu_torch` from that checkout and builds its
 kernels there. Each turn times `qmm_w4a8` (bfloat16 out, as on the main
 path) on the inputs of this checkout's `chip_smoke.py` checks of it
-(`W4A8_SHAPES`), with its `Timer`: once with L2 emptied by a write before
-each launch, as `chip_smoke.py` times, and once by a read. Each turn also
-hashes the float32 outputs at those shapes and `q4k_hashes`'s: the run fails
-when this checkout's numbers differ from the other's.
+(`W4A8_SHAPES`: the dense form and the plane-per-row form of Q4_K), and
+`qmm_q4k_grouped` on its grouped checks' 1,024 pairs at the experts'
+gate|up and down shapes, with its `Timer`: once with L2 emptied by a write
+before each launch, as `chip_smoke.py` times, and once by a read. Each turn
+also hashes the float32 outputs at those shapes and `q4k_hashes`'s: the run
+fails when this checkout's numbers differ from the other's.
 
 Prints the card and its power limit, one JSON line a turn, then one JSON
 line a shape with each checkout's two times and the ratio of their means.
@@ -20,6 +23,7 @@ line a shape with each checkout's two times and the ratio of their means.
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import statistics
 import subprocess
@@ -39,6 +43,13 @@ def _chip_smoke():
 def label(cs, rows: int, m: int, k: int, planes: bool) -> str:
     w = f"plane-per-row of ({cs.MOE_EXPERTS}x{m}x{k})^T" if planes else f"({m}x{k})^T"
     return f"{rows}x{k} @ {w}"
+
+
+def grouped_shapes(cs) -> list[tuple[str, int, int, int]]:
+    """(label, m, k, seed) of the qmm_q4k_grouped cases: chip_smoke.py's."""
+    rows = sum(cs.GROUPED_COUNTS)
+    return [(f"grouped {rows} pairs x{k} @ ({cs.MOE_EXPERTS}x{m}x{k})^T", m, k, seed)
+            for m, k, seed in ((2 * cs.FFN, cs.DIM, 42), (cs.DIM, cs.FFN, 43))]
 
 
 def q4k_hashes() -> dict:
@@ -97,6 +108,19 @@ def child(root: str) -> dict:
         hashes[key] = hashlib.sha256(out32.cpu().numpy().tobytes()).hexdigest()
         del qt
         torch.cuda.empty_cache()
+    for key, m, k, seed in grouped_shapes(cs):
+        qt = cs.q4k_stack(cs.MOE_EXPERTS, m, k, seed, False)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        xs = torch.randn(sum(cs.GROUPED_COUNTS), k, generator=g, device="cuda").to(torch.bfloat16)
+        off = torch.tensor([0, *itertools.accumulate(cs.GROUPED_COUNTS)], dtype=torch.int32,
+                           device="cuda")
+        fn = lambda: gemm_quant.qmm_q4k_grouped(xs, qt, off, torch.bfloat16)  # noqa: E731
+        times[key] = timer(fn)
+        by_read[key] = timer(fn, by_read=True)
+        out32 = gemm_quant.qmm_q4k_grouped(xs, qt, off, torch.float32)
+        hashes[key] = hashlib.sha256(out32.cpu().numpy().tobytes()).hexdigest()
+        del qt
+        torch.cuda.empty_cache()
     return {"root": root, "ms": times, "ms_l2_emptied_by_read": by_read,
             "sha256": hashes, "q4k_hashes": q4k_hashes()}
 
@@ -123,8 +147,8 @@ def main() -> int:
     same = all(t["sha256"] == turns[0]["sha256"] and t["q4k_hashes"] == turns[0]["q4k_hashes"]
                for t in turns)
     print(json.dumps({"outputs_identical": same, "q4k_hashes": turns[0]["q4k_hashes"]}))
-    for rows, m, k, planes, _ in cs.W4A8_SHAPES:
-        key = label(cs, rows, m, k, planes)
+    keys = [label(cs, rows, m, k, planes) for rows, m, k, planes, _ in cs.W4A8_SHAPES]
+    for key in keys + [key for key, *_ in grouped_shapes(cs)]:
         row = {"shape": key}
         for what in ("ms", "ms_l2_emptied_by_read"):
             o = [turns[0][what][key], turns[3][what][key]]

@@ -51,6 +51,17 @@ STEPS = 6
 PROMPT = "tok7 tok99 tok3 tok250 tok17"
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the suite runs in several worker
+    processes at once, and torch's thread pool in each of them, spinning on
+    small tensors, slows the Runner and engine tests here a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def w4a8_backend():
     jmm.set_backend("w4a8")

@@ -20,7 +20,8 @@ from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_att
 from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
                                                               paged_decode_attention_fused,
                                                               paged_decode_attention_plain)
-from crabml_tpu_torch.quant.qtensor import QTensor, dequantize, to_kernel_layout, to_planar
+from crabml_tpu_torch.quant.qtensor import (QTensor, dequantize, plane_of, to_kernel_layout,
+                                             to_planar)
 from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
 
 pytestmark = pytest.mark.gpu
@@ -258,12 +259,12 @@ def test_qmm_w4a8_per_row_planes_match_plain(cuda, rows):
     qt = _stack(4, 320, 1024, rows)
     x = torch.randn(rows, 1024, device=cuda).to(torch.bfloat16)
     plane = torch.randint(0, 4, (rows,), device=cuda, dtype=torch.int32)
-    before = _build.launches["qmm_w4a8"]
+    before = _build.launches["qmm_w4a8.planes"]
     got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
     p = qt.planes
     want = gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)
     torch.cuda.synchronize()
-    assert _build.launches["qmm_w4a8"] == before + 1
+    assert _build.launches["qmm_w4a8.planes"] == before + 1
     assert _rel(got, want) <= 1e-4
     for b, e in enumerate(plane.tolist()):
         one = QTensor(qt.kind, qt.shape[1:], {n: t[e] for n, t in p.items()})
@@ -277,11 +278,12 @@ def _w4a8_case(qt, x, plane=None):
     order); two calls bit for bit; the bf16 output the float32 one rounded
     once. Returns the float32 output."""
     p = qt.planes
-    before = _build.launches["qmm_w4a8"]
+    name = "qmm_w4a8" if plane is None else "qmm_w4a8.planes"  # the plane form counts apart
+    before = _build.launches[name]
     got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
     want = gemm_quant.qmm_w4a8_plain(x, p["qs"], p["dsub"], p["msub"], plane)
     torch.cuda.synchronize()
-    assert _build.launches["qmm_w4a8"] == before + 1
+    assert _build.launches[name] == before + 1
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
     assert torch.equal(gemm_quant.qmm_w4a8(x, qt, plane=plane), got)
@@ -1163,7 +1165,7 @@ def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
     """Shapes and planes the new forms do not take raise on a CUDA tensor:
     k off the 256-deep superblock (a Q8_0 row of 288), float32 scales, a
     Q6_K weight given to the Q8_0 kernel, 17 rows to qmm_w4a8, a plane per
-    row (the new schemes' plane form is not ported)."""
+    row on one weight (the plane form takes a stack)."""
     x = torch.zeros(32, 288, device=cuda, dtype=torch.bfloat16)
     raw = np.zeros((256, 288 // 32, 34), np.uint8)
     q8 = to_kernel_layout(to_planar(GGMLType.Q8_0, raw, (256, 288), "cuda"), torch.bfloat16)
@@ -1180,7 +1182,7 @@ def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
         gemm_quant.qmm_q6k(x, f32)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(x[:17], q6)
-    with pytest.raises(UnsupportedError):
+    with pytest.raises(UnsupportedError, match="stack"):
         gemm_quant.qmm_w4a8(x[:2], q6, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
 
 
@@ -1188,8 +1190,9 @@ def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
 def test_k16_wrappers_raise_rather_than_fall_back(cuda, kind):
     """The Q3_K and Q2_K forms raise on a CUDA tensor where they do not take
     the input: a bfloat16 d plane, the weight given to another scheme's
-    dequant kernel, 17 rows to qmm_w4a8, a plane per row; and a row that is
-    not whole superblocks raises at load."""
+    dequant kernel, 17 rows to qmm_w4a8, a plane per row on one weight (the
+    plane form takes a stack); and a row that is not whole superblocks raises
+    at load."""
     qt = _scheme_weight(kind, 256, 512, 1)
     x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
     name = gemm_quant.DEQUANT_FORMS[kind]
@@ -1202,7 +1205,7 @@ def test_k16_wrappers_raise_rather_than_fall_back(cuda, kind):
         gemm_quant.qmm_w4a8(x[:1], bf16)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(x[:17], qt)
-    with pytest.raises(UnsupportedError):
+    with pytest.raises(UnsupportedError, match="stack"):
         gemm_quant.qmm_w4a8(x[:2], qt, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
     with pytest.raises(UnsupportedError, match="superblocks"):
         to_planar(kind, np.zeros(256 * 288 // 256 * 128, np.uint8), (256, 288), "cuda")
@@ -1246,8 +1249,8 @@ def test_k16_forms_at_7b_shapes(cuda, kind, form, rows, m, k):
 def test_q5k_q4_0_wrappers_raise_rather_than_fall_back(cuda, kind):
     """The Q5_K and Q4_0 forms raise on a CUDA tensor where they do not
     take the input: float32 scales, the weight given to another scheme's
-    dequant kernel, 17 rows to qmm_w4a8, a plane per row (their plane form
-    is not ported)."""
+    dequant kernel, 17 rows to qmm_w4a8, a plane per row on one weight (the
+    plane form takes a stack)."""
     qt = _scheme_weight(kind, 256, 512, 1)
     x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
     name = gemm_quant.DEQUANT_FORMS[kind]
@@ -1258,7 +1261,7 @@ def test_q5k_q4_0_wrappers_raise_rather_than_fall_back(cuda, kind):
         getattr(gemm_quant, name)(x, f32)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(x[:17], qt)
-    with pytest.raises(UnsupportedError):
+    with pytest.raises(UnsupportedError, match="stack"):
         gemm_quant.qmm_w4a8(x[:2], qt, plane=torch.zeros(2, dtype=torch.int32, device=cuda))
 
 
@@ -1277,3 +1280,182 @@ def test_q4k_w4a8_numbers_unchanged(cuda):
     from crabml_tpu_torch.tools.w4a8_turns import q4k_hashes
 
     assert q4k_hashes() == Q4K_W4A8_HASHES
+
+
+# ---------------------------------------------------------------------------
+# the experts' forms of the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K schemes: the
+# grouped dequant kernels (the second entry of each source) and the
+# plane-per-row form of qmm_w4a8.cu. Every stack holds distinct random
+# experts, and rows go to experts above 0: a kernel that read expert 0's
+# planes, or one of its scale planes, would fail.
+# ---------------------------------------------------------------------------
+
+def _scheme_stack(kind, E, m, k, seed):
+    """E random (m, k) weights of `kind`, distinct, as one stack (E, m, k)."""
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+
+    _, blocks = next(v for v in SCHEMES.values() if v[0] == kind)
+    raw = blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
+    qt = to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"), torch.bfloat16)
+    assert not torch.equal(dequantize(plane_of(qt, 0)), dequantize(plane_of(qt, E - 1)))
+    return qt
+
+
+def _grouped_case(kind, qt, xs, off):
+    """The grouped form against its plain version (1e-4 of max|out|: the same
+    bf16 weights, float32 sums in another order), counted once; every row
+    written (finite), the bf16 output the float32 one rounded once; and each
+    segment equal to the dense kernel on its own plane, bit for bit."""
+    name = gemm_quant.GROUPED_FORMS[kind]
+    fn = getattr(gemm_quant, name)
+    plain = getattr(gemm_quant, f"{name}_plain")
+    before = _build.launches[name]
+    got = fn(xs, qt, off)
+    want = plain(xs, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]), off)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(fn(xs, qt, off, torch.bfloat16), got.to(torch.bfloat16))
+    dense = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[kind])
+    cuts = off.tolist()
+    for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+        if hi > lo:
+            assert torch.equal(dense(xs[lo:hi], plane_of(qt, e)), got[lo:hi]), e
+    return got
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("counts", [(0, 13, 40, 64), (0, 0, 130, 1), (0, 300, 0, 0),
+                                    (1, 37, 0, 129), (128, 128, 8, 9), (0, 65, 63, 0, 7, 1, 0, 200)])
+def test_scheme_grouped_matches_plain(cuda, kind, counts):
+    """The grouped forms at empty segments (expert 0 empty in most cases),
+    segments shorter than a tile, one row over a tile and exact tiles, a
+    1-row and a 37-row segment, every row on one expert above 0, and 8
+    experts; 320 columns (off the 128-wide tile) and k = 768."""
+    E, m, k = len(counts), 320, 768
+    qt = _scheme_stack(kind, E, m, k, sum(counts) + E)
+    _grouped_case(kind, qt, _x(sum(counts), k, 5), _offsets(counts))
+
+
+_MIXTRAL_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)  # chip_smoke.py's GROUPED_COUNTS
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("m,k", [(2 * 14336, 4096), (4096, 14336)], ids=["gate_up", "down"])
+def test_scheme_grouped_at_mixtral_shapes(cuda, kind, m, k):
+    """The 1,024 (row, slot) pairs of a 512-token Mixtral chunk over 8
+    experts (expert 0 empty, ragged segments) at the experts' gate|up and
+    down shapes."""
+    qt = _scheme_stack(kind, 8, m, k, m + k)
+    _grouped_case(kind, qt, _x(sum(_MIXTRAL_COUNTS), k, 7), _offsets(_MIXTRAL_COUNTS))
+
+
+def _planes_case(kind, qt, x, plane):
+    """The plane form against its plain version (1e-4 of max|out|), counted
+    under `<form>.planes` once; two calls bit for bit; bf16 out the float32
+    out rounded once; and each row equal to the dense form of its own plane
+    (quantization is per row), bit for bit."""
+    name = gemm_quant.W4A8_FORMS[kind]
+    plain = getattr(gemm_quant, f"{name}_plain")
+    before = _build.launches[f"{name}.planes"]
+    got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
+    want = plain(x, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]), plane=plane)
+    torch.cuda.synchronize()
+    assert _build.launches[f"{name}.planes"] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt, plane=plane), got)
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane), got.to(torch.bfloat16))
+    for b, e in enumerate(plane.tolist()):
+        assert torch.equal(gemm_quant.qmm_w4a8(x[b:b + 1], plane_of(qt, e)), got[b:b + 1]), b
+    return got
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("rows,which", [(1, "last"), (2, "distinct"), (8, "distinct"),
+                                        (8, "repeated"), (16, "mixed"), (3, "repeated")])
+def test_scheme_w4a8_planes_match_plain(cuda, kind, rows, which):
+    """The plane form of every scheme: every row on one expert above 0, each
+    on its own, and a mix, over 8 experts with 336 columns (a ragged last
+    16-column tile) and k = 1,024."""
+    qt = _scheme_stack(kind, 8, 336, 1024, rows + 11)
+    plane = {"last": torch.tensor([7]), "repeated": torch.full((rows,), 5),
+             "distinct": torch.arange(1, rows + 1) % 8,
+             "mixed": torch.tensor([3, 7, 7, 1, 0, 3, 3, 3, 2, 6, 6, 4, 5, 0, 1, 7])}[which]
+    _planes_case(kind, qt, _x(rows, 1024, rows), plane.to(device=cuda, dtype=torch.int32))
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("rows,m,k", [(1, 2 * 14336, 4096), (8, 2 * 14336, 4096),
+                                       (1, 4096, 14336), (8, 4096, 14336)])
+def test_scheme_w4a8_planes_at_mixtral_shapes(cuda, kind, rows, m, k):
+    """The MoE decode step's matmuls: 1 and 8 rows of the experts' gate|up
+    and down, a plane per row over 8 experts, expert 0 unused."""
+    qt = _scheme_stack(kind, 8, m, k, m + rows)
+    plane = torch.tensor([6, 1, 3, 3, 7, 2, 5, 1][:rows], device=cuda, dtype=torch.int32)
+    _planes_case(kind, qt, _x(rows, k, m), plane)
+
+
+@SCHEME_KINDS
+@pytest.mark.parametrize("form", ["grouped", "planes"])
+def test_scheme_expert_forms_replay_in_a_cuda_graph(cuda, kind, form):
+    """Both experts' forms capture in a CUDA graph: a replay equals the eager
+    call bit for bit, and after x changes in place (and, for the plane form,
+    the plane index) equals the eager call on the new inputs."""
+    qt = _scheme_stack(kind, 4, 512, 1024, 9)
+    if form == "grouped":
+        rows, off = 150, _offsets((0, 70, 1, 79))
+        fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[kind])
+        call = lambda: fn(x, qt, off, torch.bfloat16)  # noqa: E731
+    else:
+        rows = 8
+        plane = torch.tensor([1, 3, 3, 2, 1, 1, 3, 2], device=cuda, dtype=torch.int32)
+        call = lambda: gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane)  # noqa: E731
+    x = _x(rows, 1024, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture: build, shared-memory attribute
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        x.copy_(_x(rows, 1024, 2))
+        if form == "planes":
+            plane.copy_(plane.flip(0))
+
+
+@SCHEME_KINDS
+def test_scheme_expert_wrappers_raise_rather_than_fall_back(cuda, kind):
+    """The experts' forms raise on a CUDA tensor where they do not take the
+    input: one weight for a stack (grouped), offsets of another length or
+    dtype, another scheme's stack, float32 activations; a plane index of
+    another dtype or length, a stack for the dense form."""
+    qt = _scheme_stack(kind, 4, 256, 512, 3)
+    one = plane_of(qt, 1)
+    other = _scheme_stack(GGMLType.Q4_K, 4, 256, 512, 4)
+    fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[kind])
+    xs = _x(40, 512, 3)
+    off = _offsets((0, 10, 30, 0))
+    with pytest.raises(UnsupportedError):
+        fn(xs, one, off[:2])
+    with pytest.raises(UnsupportedError):
+        fn(xs, qt, off[:4])
+    with pytest.raises(UnsupportedError):
+        fn(xs, qt, off.long())
+    with pytest.raises(UnsupportedError):
+        fn(xs, other, off)
+    with pytest.raises(UnsupportedError):
+        fn(xs.float(), qt, off)
+    plane = torch.tensor([1, 2], device=cuda, dtype=torch.int32)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(xs[:2], qt, plane=plane.long())
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(xs[:2], qt, plane=plane[:1])
+    with pytest.raises(UnsupportedError, match="one plane"):
+        gemm_quant.qmm_w4a8(xs[:2], qt)

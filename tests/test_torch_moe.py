@@ -42,6 +42,17 @@ from crabml_tpu_torch.serving import PagedServingEngine, ServingEngine
 from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the suite runs in several worker
+    processes at once, and torch's thread pool in each of them, spinning on
+    small tensors, slows the Runner and engine tests here a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def w4a8_backend():
     jmm.set_backend("w4a8")

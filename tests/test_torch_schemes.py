@@ -1,12 +1,13 @@
 """Port parity for the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K weights: the
 planes against the codec, each plain matmul against the JAX Pallas kernel of
-the same scheme (interpret mode on the CPU), the 2-layer forward under
-backend `w4a8`, and greedy Runner tokens from one GGUF; the 2-layer forward
-of Q4_K layers with a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its
-Runner check is tests/test_torch_schemes_lm_head.py); llama.cpp's mixed
-Q4_K_M, Q3_K_M and Q2_K files, whose layers differ in kind, against the JAX
-forward on their float32 twins; and the mixture of experts' refusal of
-experts other than Q4_K."""
+the same scheme (interpret mode on the CPU) and the 2-layer forward under
+backend `w4a8` (greedy Runner tokens from one GGUF:
+tests/test_torch_schemes_runner.py); the 2-layer forward of Q4_K layers with
+a Q6_K lm_head, as llama.cpp's Q4_K_M files carry it (its Runner check is
+tests/test_torch_schemes_lm_head.py); and llama.cpp's mixed Q4_K_M, Q3_K_M
+and Q2_K files, whose layers differ in kind, against the JAX forward on
+their float32 twins. The experts of these schemes:
+tests/test_torch_moe_schemes.py."""
 
 import jax
 import jax.numpy as jnp
@@ -19,25 +20,22 @@ from crabml_tpu.gguf.reader import GGUFFile as JGGUFFile
 from crabml_tpu.models.config import config_from_gguf as jconfig_from_gguf
 from crabml_tpu.models.forward import KVCache as JKVCache
 from crabml_tpu.models.forward import forward as jforward
-from crabml_tpu.models.synthetic import make_weights, tiny_config, write_synthetic_gguf
+from crabml_tpu.models.synthetic import make_weights, tiny_config
 from crabml_tpu.models.weights import fuse_weights, repack_weights
 from crabml_tpu.models.weights import load_weights as jload_weights
 from crabml_tpu.ops import matmul as jmm
 from crabml_tpu.ops.pallas import gemm_quant as jgemm
 from crabml_tpu.quant.codecs import quantize as jquantize
 from crabml_tpu.quant.planar import to_planar as jto_planar
-from crabml_tpu.runtime.runner import Runner as JRunner
-from crabml_tpu_torch.errors import UnsupportedError
 from crabml_tpu_torch.gguf.constants import GGMLType
 from crabml_tpu_torch.gguf.reader import GGUFFile
 from crabml_tpu_torch.gguf.writer import GGUFWriter
 from crabml_tpu_torch.models.config import ModelConfig, config_from_gguf
 from crabml_tpu_torch.models.forward import KVCache, forward
-from crabml_tpu_torch.models.weights import _layer, from_jax_weights, load_weights
+from crabml_tpu_torch.models.weights import from_jax_weights, load_weights
 from crabml_tpu_torch.ops.cuda import gemm_quant
 from crabml_tpu_torch.quant import codecs
 from crabml_tpu_torch.quant.qtensor import dequantize, to_kernel_layout, to_planar
-from crabml_tpu_torch.runtime.runner import Runner
 
 KINDS = (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
          GGMLType.Q2_K)
@@ -48,7 +46,6 @@ M, K = 512, 1024
 CFG = dict(embedding_dim=512, hidden_dim=512, n_heads=4, n_kv_heads=2, n_layers=2,
            vocab_size=512, seq_len=256)
 PREFILL = 32
-PROMPT = "tok7 tok99 tok3 tok250 tok17"
 # the kinds whose JAX decode step is compared run op by op (jax.disable_jit):
 # jitted, it moves off its own op-by-op logits on the Q6_K model. On the
 # Q4_0 model the op-by-op run is the one that moves: a Q4_0 embedding row
@@ -245,16 +242,6 @@ def _forward_matches(kind, lm_head):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
-def _tokens_match(path):
-    jr = JRunner(path, backend="w4a8", compute_dtype=jnp.float32)
-    want = "".join(jr.prefill_and_generate(PROMPT, 16))
-    r = Runner(path, compute_dtype=torch.float32, device="cpu")
-    got = "".join(r.prefill_and_generate(PROMPT, 16))
-    assert r.metrics.counts["tokens"] == 15  # prefill samples the first
-    assert got == want
-    return r
-
-
 @SCHEMES
 def test_forward_matches_jax_w4a8(kind, w4a8_backend, fast_q6k):
     """Tolerance 2e-4 (tests/test_model.py:41), float32 on both sides: 32
@@ -300,17 +287,6 @@ def test_q3k_unit_norms_put_int8_activations_on_ties(fast_q6k):
     assert tie.sum() >= 32 and differ.any()
     assert (tie.numpy() | ~differ).all()
     assert np.abs(xq.numpy().astype(int) - np.asarray(xqj).astype(int)).max() == 1
-
-
-@SCHEMES
-def test_runner_greedy_tokens_match_jax(tmp_path, kind, w4a8_backend, fast_q6k):
-    """16 greedy tokens of one GGUF written by the JAX package, identical
-    from both packages (float32 compute, backend w4a8 on the JAX side)."""
-    path = str(tmp_path / f"tiny_{kind.name}.gguf")
-    write_synthetic_gguf(path, tiny_config(**CFG), JGGMLType(int(kind)), seed=3)
-    r = _tokens_match(path)
-    lw = r.weights["layers"][0]
-    assert all(lw[n].kind == kind and lw[n].kernel_layout for n in ("wqkv", "wo", "wgu"))
 
 
 def test_forward_q4k_with_q6k_lm_head_matches_jax(w4a8_backend):
@@ -487,23 +463,3 @@ def test_w8_planes_attach_to_a_mixed_file(tmp_path):
     assert all("w8" in l1[n].planes for n in ("wq", "wo", "wgu", "ffn_down"))
     assert not any("w8" in l1[n].planes for n in ("wk", "wv"))
     assert "w8" in w["output"].planes
-
-
-@SCHEMES
-def test_moe_refuses_experts_other_than_q4k(kind):
-    """A mixture of experts takes Q4_K experts only (the grouped kernels and
-    the plane-per-row form of the other schemes are not ported): a layer of
-    another kind's experts raises at load."""
-    from crabml_tpu_torch.tools.synth_gguf import SCHEMES as SYNTH
-
-    _, blocks = next(v for v in SYNTH.values() if v[0] == kind)
-
-    def mat(shape, seed):
-        raw = blocks(np.random.default_rng(seed), int(np.prod(shape)), 0.05)
-        return to_planar(kind, raw, shape)
-
-    mats = {"wq": mat((256, 256), 1), "wk": mat((128, 256), 2), "wv": mat((128, 256), 3),
-            "wo": mat((256, 256), 4), "ffn_gate_exps": mat((4, 512, 256), 5),
-            "ffn_up_exps": mat((4, 512, 256), 6), "ffn_down_exps": mat((4, 256, 512), 7)}
-    with pytest.raises(UnsupportedError, match="experts"):
-        _layer(mats, {}, torch.float32)

@@ -27,6 +27,17 @@ CFG = dict(embedding_dim=512, hidden_dim=512, n_heads=4, n_kv_heads=2, n_layers=
 PROMPTS = ["tok7 tok99 tok3 tok250 tok17", "tok5 tok5 tok81", "tok300 tok12 tok44 tok9"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test on one torch thread: the suite runs in several worker
+    processes at once, and torch's thread pool in each of them, spinning on
+    small tensors, slows the Runner and engine tests here a hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def w4a8_backend():
     jmm.set_backend("w4a8")

@@ -165,3 +165,52 @@ def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
     assert plan.stages == 4 or 2 * (deeper + reduction + 1024) > SMEM_PER_SM
     if kind == GGMLType.Q4_K:
         assert plan.stages == (4 if x_rows <= 8 else 3)
+
+
+ALL_KINDS = pytest.mark.parametrize(
+    "kind", [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
+             GGMLType.Q3_K, GGMLType.Q2_K],
+    ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+# the plane form: Mixtral's experts (gate|up, down) at the decode step's row
+# (every block row holds one row, so more rows repeat it), and ragged shapes
+# up to a 16-row tail
+PLANE_CASES = ([(1, 2 * FFN, DIM), (1, DIM, FFN)]
+               + [(r, m, k) for r in (1, 3, 9, 16) for m, k in ((300, 768), (100, 256))])
+
+
+@ALL_KINDS
+@pytest.mark.parametrize("rows,m,k", PLANE_CASES)
+def test_plane_form_sums_every_row_column_group_once_per_scheme(rows, m, k, kind):
+    """The plane form of every scheme: one block row per activation row,
+    one row of x a stage (x_rows 1, the ring of the dense one-row plan), and
+    every (row, column, scale group) summed by exactly one warp of one
+    block."""
+    plan, count = _coverage(rows, m, k, True, kind)
+    assert (count == 1).all()
+    assert plan.grid == (-(-m // 16), rows) and plan.x_rows == 1 and plan.n_tiles == 1
+    dense = w4a8_plan(1, m, k, False, kind)
+    assert (plan.stages, plan.smem_bytes, plan.group) == (dense.stages, dense.smem_bytes,
+                                                          dense.group)
+
+
+@ALL_KINDS
+@pytest.mark.parametrize("rows", [1, 5, 8, 16])
+def test_plane_form_reads_its_rows_plane_only(rows, kind):
+    """Row y's blocks read the stack's rows plane_idx[y] * m .. + m - 1 (the
+    kernel's wrow0 + column, at which every plane of the scheme is read:
+    values, dsub and msub, and Q3_K's / Q2_K's scale bytes, d and dmin),
+    each exactly once, and no other plane's: experts above 0, repeated and
+    distinct."""
+    E, m, k = 8, 300, 768
+    plane_idx = tuple((3 * y + 5) % 7 + 1 for y in range(rows))  # experts 1..7
+    plan = w4a8_plan(rows, m, k, True, kind)
+    for y in range(rows):
+        read = np.zeros(E * m, dtype=np.int16)
+        for bx in range(plan.grid[0]):
+            r = w4a8_block_reads(plan, bx, y, rows, m, plane_idx)
+            read[r["stack_rows"].start:r["stack_rows"].stop] += 1
+        e = plane_idx[y]
+        assert (read[e * m:(e + 1) * m] == 1).all()
+        assert read.sum() == m
+    dense = w4a8_block_reads(w4a8_plan(rows, m, k, False, kind), 2, 0, rows, m, plane_idx)
+    assert dense["stack_rows"] == dense["columns"]  # one plane: the dense form ignores plane_idx
