@@ -21,9 +21,14 @@ fails:
    over 8 experts, one of them empty and the segments ragged; the
    int8-activation matmul with a plane per row; the fused decode form at B=1
    also at pos 4000 of the 4,096-token cache) and the experts' forms of the
-   Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K schemes (each grouped dequant form
-   on the same 1,024 pairs, each plane form at 1 and 8 rows, on gate|up and
-   down stacks of 8 distinct experts), with the tolerance printed;
+   Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K and Q5_0 schemes (each grouped dequant
+   form on the same 1,024 pairs, each plane form at 1 and 8 rows, on gate|up
+   and down stacks of 8 distinct experts), and the Q4_K, Q5_K and Q8_0 forms
+   on planes converted from Q4_1, Q5_1 and Q8_1 blocks (dense, int8
+   activations at 1, 8 and 16 rows, grouped, planes on experts 1-7), with
+   the tolerance printed (the schemes' weights and stacks give each block
+   a scale, and minimum, of its own, and every plane of each expert
+   differs from expert 0's: `check_varied`);
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -67,28 +72,37 @@ fails:
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
    Then Mixtral-8x7B widths at 2 layers in llama.cpp's Q5_K_M and Q2_K
    8-expert layouts and in uniform Q8_0 and Q4_0 (`mixtral-q5_k_m`,
-   `mixtral-q2_k`, `mixtral-q8_0`, `mixtral-q4_0`): phase 3 on the file
-   (both sides bfloat16, the card without W8 planes), `Runner(path)` with
-   the W8 planes, 32 greedy tokens through the graph equal to the eager
-   step's, and the prefill without W8 planes (each kind's grouped form).
-10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K, and llama.cpp's mixed layouts:
-   phase 3 for each scheme and for a 2-layer Q4_K_M file (2 layers, card
-   against CPU), then the 7B widths, each cut to 8 of 32 layers, with every
+   `mixtral-q2_k`, `mixtral-q8_0`, `mixtral-q4_0`), and llama.cpp's Q5_0
+   file type for 8 experts (`mixtral-q5_0`: Q5_0 experts, q and attn_output,
+   Q8_0 k and v, a Q6_K output): phase 3 on the file (both sides bfloat16,
+   the card without W8 planes), `Runner(path)` with the W8 planes, 32 greedy
+   tokens through the graph equal to the eager step's (`mixtral-q5_0` with a
+   profiled window: the plane form's time by shape), and the prefill without
+   W8 planes (each kind's grouped form).
+10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K, Q5_0, Q4_1, Q5_1 and Q8_1, and
+   llama.cpp's mixed and legacy layouts: phase 3 for each scheme and for a
+   2-layer Q4_K_M file (2 layers, card against CPU), then the 7B widths,
+   each cut to 8 of 32 layers, with every
    matrix in Q8_0 (`7b-q8_0`), in Q6_K (`7b-q6_k`), as a Q5_K_M file
    (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down in Q6_K where
    use_more_bits holds, a Q6_K output), in Q4_0 (`7b-q4_0`), as a Q3_K_M
    file (`7b-q3_k_m`: Q3_K q, k and gate|up, Q5_K / Q4_K attn_v and
-   ffn_down, Q4_K attn_output, a Q6_K output) and as a llama.cpp Q2_K file
+   ffn_down, Q4_K attn_output, a Q6_K output), as a llama.cpp Q2_K file
    (`7b-q2_k`: Q2_K q, k and gate|up, Q4_K attn_v, Q3_K attn_output and
-   ffn_down, a Q6_K output): `Runner(path)`, whose default must attach the
+   ffn_down, a Q6_K output), as a Q5_0 file made with an importance matrix
+   (`7b-q5_0`: Q5_0 matrices, layer 0's ffn_down in Q5_1, a Q6_K output) and
+   as a Q4_1 file (`7b-q4_1`: Q4_1 matrices on the Q4_K forms, a Q6_K
+   output): `Runner(path)`, whose default must attach the
    W8 planes (a file under the default's 1 GiB floor asks for them); the
    ~700-token prompt and 128
    greedy tokens through the graph, equal to the eager step's; the same file
    with `prefill_w8=False`, prefill only, in turns with the W8 runner; then
    the 16 requests through an 8-slot `PagedServingEngine`. The graphed
    decode runs twice (the capture, then the cached graph) and once eagerly,
-   all with the same tokens, and a profiled window of the graphed step
-   follows, with the int8-activation matmul's time by form and shape. Phase
+   all with the same tokens, and no matmul of the path may take torch.matmul
+   on dequantized weights (ops/matmul.py::dense_matmul, counted); a profiled
+   window of the graphed step follows, with the int8-activation matmul's
+   time by form and shape. Phase
    2 holds each scheme's dequant kernel (512 and 189 rows of qkv, 512 of
    down) and int8-activation form (every 7B decode projection at 1 and 8
    rows, and 16 rows of qkv) against its plain version.
@@ -129,7 +143,10 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core rates, per second
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: each timed launch finds it cold
-HOLD_CYCLES = 100_000_000  # ~50 ms of spinning at the H100's ~2 GHz clock
+# the spin that holds the card while the host queues ten timed calls: at
+# least 10.1 ms at the H100's 1.98 GHz top clock, ten times what a kernel's
+# ten calls take to queue (Timer reports the longest queueing)
+HOLD_CYCLES, SPIN_HZ = 20_000_000, 1.98e9
 
 # main-path shapes of the repo's 7b configuration (Mistral-7B widths)
 DIM, FFN, HEADS, KV_HEADS, HEAD_DIM, VOCAB, CTX = 4096, 14336, 32, 8, 128, 32000, 4096
@@ -187,6 +204,10 @@ KERNEL_SOURCES = {
                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q3_k_m"),
     "qmm_w4a8_q2k": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q2_k"),
+    "qmm_q5_0": ("crabml_tpu_torch/csrc/qmm_q5_0.cu", "crabml_tpu/ops/pallas/gemm_quant.py:123",
+                 "7b-q5_0"),
+    "qmm_w4a8_q5_0": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
+                      "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q5_0"),
 }
 # the experts' forms: the grouped dequant kernel of each scheme (the
 # second entry of its source, launched by the prefill of the Runner without
@@ -194,9 +215,10 @@ KERNEL_SOURCES = {
 # counted apart from its dense form since then), on the Mixtral path of each
 # kind: the main MoE path's Q4_K_M file holds Q4_K and Q6_K experts
 MOE_PATH_OF = {"q4_k": "moe", "q6_k": "moe", "q5_k": "mixtral-q5_k_m", "q3_k": "mixtral-q2_k",
-               "q2_k": "mixtral-q2_k", "q8_0": "mixtral-q8_0", "q4_0": "mixtral-q4_0"}
+               "q2_k": "mixtral-q2_k", "q8_0": "mixtral-q8_0", "q4_0": "mixtral-q4_0",
+               "q5_0": "mixtral-q5_0"}
 _FORM = {"q4_k": "q4k", "q8_0": "q8_0", "q6_k": "q6k", "q5_k": "q5k", "q4_0": "q4_0",
-         "q3_k": "q3k", "q2_k": "q2k"}
+         "q3_k": "q3k", "q2_k": "q2k", "q5_0": "q5_0"}
 
 
 def _expert_forms() -> dict:
@@ -215,22 +237,36 @@ def _expert_forms() -> dict:
 KERNEL_SOURCES.update(_expert_forms())
 # the Mixtral paths of the other layouts, 2 of 32 layers each: (name, scheme,
 # mix, seed): llama.cpp's Q5_K_M (Q5_K experts, Q6_K down in layer 1) and Q2_K
-# (Q2_K gate|up, Q3_K down) 8-expert layouts, uniform Q8_0 and Q4_0
+# (Q2_K gate|up, Q3_K down) 8-expert layouts, uniform Q8_0 and Q4_0, and
+# llama.cpp's Q5_0 file type for 8 experts (Q5_0 experts, Q8_0 k and v)
 MOE_SCHEME_PATHS = (("mixtral-q5_k_m", "q5_k", "k_m", 91), ("mixtral-q2_k", "q2_k", "q2_k", 92),
-                    ("mixtral-q8_0", "q8_0", None, 93), ("mixtral-q4_0", "q4_0", None, 94))
+                    ("mixtral-q8_0", "q8_0", None, 93), ("mixtral-q4_0", "q4_0", None, 94),
+                    ("mixtral-q5_0", "q5_0", "legacy", 95))
 MOE_SCHEME_LAYERS = 2
 MOE_SCHEME_STEPS = 32
+# the 2-layer Mixtral paths whose graphed step is profiled (the plane form's
+# time by shape; the main MoE path profiles Q4_K's and Q6_K's): a profile
+# costs ~8 s a path
+MOE_PROFILED = ("mixtral-q5_0",)
 # the paths of the other schemes: (name, scheme, layers of the 7B shape's 32,
 # seed, mix); 7b-q5_k_m is llama.cpp's Q5_K_M layout (tools/synth_gguf.py --mix
 # k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output),
 # 7b-q3_k_m its Q3_K_M layout (--scheme q3_k --mix k_m) and 7b-q2_k its Q2_K
 # file type (--mix q2_k)
-# (all six at 8 layers, to pay for the Mixtral paths of the experts' forms)
+# (all six at 8 layers, to pay for the Mixtral paths of the experts' forms);
+# 7b-q5_0 is llama.cpp's Q5_0 file type made with an importance matrix (--mix
+# imatrix: Q5_0 matrices, layer 0's ffn_down in Q5_1, a Q6_K output) and
+# 7b-q4_1 its Q4_1 file type (--mix legacy: Q4_1 matrices, a Q6_K output)
 SCHEME_PATHS = (("7b-q8_0", "q8_0", 8, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
                 ("7b-q5_k_m", "q5_k", 8, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None),
-                ("7b-q3_k_m", "q3_k", 8, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"))
-# the schemes of phase kernels' checks and of the 2-layer forward checks
-KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k")
+                ("7b-q3_k_m", "q3_k", 8, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"),
+                ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 8, 68, "legacy"))
+# the schemes of phase kernels' checks (each with forms of its own) and of
+# the 2-layer forward checks (with the schemes that run the Q4_K, Q5_K and
+# Q8_0 forms, REUSED_SCHEMES, whose kernel checks are those forms on their
+# planes)
+KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0")
+REUSED_SCHEMES = ("q4_1", "q5_1", "q8_1")
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
@@ -297,13 +333,18 @@ class Timer:
     `iters` calls, with a 256 MB write before each so L2 is cold, as it is on
     the main path where every matmul reads other weights. A spin on the card
     holds it while the host enqueues every call, so no host delay falls
-    between two events. With `by_read` L2 is emptied by a sum over the same
-    256 MB instead: no dirty lines are left for the timed call to write back."""
+    between two events. A callable of many small launches (a plain version)
+    can fill the launch queue during the spin and then waits on the card;
+    `max_queue_ms` and `outlasted` (timings whose queueing outlasted the
+    spin) say how often that happened. With `by_read` L2 is emptied by a sum
+    over the same 256 MB instead: no dirty lines are left for the timed call
+    to write back."""
 
     def __init__(self, torch, iters: int = 10):
         self.torch = torch
         self.iters = iters
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        self.max_queue_ms, self.outlasted = 0.0, 0
 
     def __call__(self, fn, by_read: bool = False) -> float:
         torch = self.torch
@@ -314,6 +355,7 @@ class Timer:
                   for _ in range(self.iters)]
         sums = torch.empty(self.iters, dtype=torch.int64, device="cuda")
         torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
         for i, (a, b) in enumerate(events):
             if by_read:
                 torch.sum(self.flush, dim=0, out=sums[i])
@@ -322,7 +364,10 @@ class Timer:
             a.record()
             fn()
             b.record()
+        queued = time.perf_counter() - t0
         torch.cuda.synchronize()
+        self.max_queue_ms = max(self.max_queue_ms, queued * 1e3)
+        self.outlasted += queued * SPIN_HZ >= HOLD_CYCLES
         return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
@@ -378,41 +423,71 @@ def check_matmul(timer, name: str, rows: int, m: int, k: int, seed: int) -> dict
 
 
 def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
-    """A random (m, k) weight of `scheme` (tools/synth_gguf.py's blocks) in
-    the port's kernel layout, bf16 scales."""
+    """A random (m, k) weight of `scheme` (tools/synth_gguf.py's blocks, each
+    block's scales varied) in the port's kernel layout, bf16 scales."""
     import numpy as np
     import torch
 
     from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
-    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES, vary_scales
 
     kind, blocks = SCHEMES[scheme]
-    raw = blocks(np.random.default_rng(seed), m * k, 1.0 / math.sqrt(k))
-    return to_kernel_layout(to_planar(kind, raw, (m, k), device), torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    raw = vary_scales(kind, blocks(rng, m * k, 1.0 / math.sqrt(k)), rng)
+    return check_varied(to_kernel_layout(to_planar(kind, raw, (m, k), device), torch.bfloat16))
+
+
+def check_varied(qt):
+    """`qt`, after failing unless every plane of it varies where a form could
+    read the wrong part: of a stack, each plane of every expert differs from
+    expert 0's, values and scales alike; of one weight, no plane holds one
+    value throughout. Then a form that read another row's, block's or
+    expert's scales (or values) gives other numbers than its plain version."""
+    import torch
+
+    for n, t in qt.planes.items():
+        if len(qt.shape) == 3:
+            same = [e for e in range(1, t.shape[0]) if torch.equal(t[0], t[e])]
+            if same:
+                fail(f"{qt.kind.name} stack: plane {n} of experts {same} equals expert 0's")
+        elif bool((t == t.reshape(-1)[0]).all()):
+            fail(f"{qt.kind.name} weight: plane {n} holds one value throughout")
+    return qt
+
+
+def _on_planes(qt) -> str:
+    """The label of a check on another kind's planes than its form's own
+    (Q4_1 weights on the Q4_K forms): "Q4_1 planes: ", else nothing."""
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND
+
+    return "" if FORM_KIND[qt.kind] == qt.kind else f"{qt.kind.name} planes: "
 
 
 def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int,
-                        seed: int) -> tuple[str, dict]:
-    """A scheme's form (KERNEL_SCHEMES) of the dequant kernel (`form`
+                        seed: int, qt=None) -> tuple[str, dict]:
+    """A scheme's form (KERNEL_SCHEMES, or the form that a REUSED_SCHEMES
+    kind runs, on that kind's planes) of the dequant kernel (`form`
     "dequant") or of the int8-activation kernel ("w4a8") against its plain
-    version."""
+    version, on `qt` or on scheme_weight(scheme, m, k, seed)."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
-    from crabml_tpu_torch.quant.qtensor import dequantize
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND, dequantize
 
-    qt = scheme_weight(scheme, m, k, seed, "cuda")
+    if qt is None:
+        qt = scheme_weight(scheme, m, k, seed, "cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
     p = qt.planes
-    planes = [p[n] for n in gemm_quant._KERNEL_PLANES[qt.kind]]  # the plain versions' order
+    # in the plain versions' order
+    planes = [p[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[qt.kind]]]
     if form == "dequant":
-        name = gemm_quant.DEQUANT_FORMS[qt.kind]
+        name = gemm_quant.DEQUANT_FORMS[FORM_KIND[qt.kind]]
         wrapper = getattr(gemm_quant, name)
         tol, why = 1e-4, "the same bf16 weights, float32 sums in another order"
         op_type = "bf16"
     else:
-        name = gemm_quant.W4A8_FORMS[qt.kind]
+        name = gemm_quant.W4A8_FORMS[FORM_KIND[qt.kind]]
         wrapper = gemm_quant.qmm_w4a8
         tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
         op_type = "int8"
@@ -421,7 +496,7 @@ def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int
     kernel = lambda: wrapper(x, qt, torch.bfloat16)  # noqa: E731
     w_bf16 = dequantize(qt, torch.bfloat16)
     rec = _matmul_record(
-        timer, name, f"{rows}x{k} @ ({m}x{k})^T", kernel, plain,
+        timer, name, f"{_on_planes(qt)}{rows}x{k} @ ({m}x{k})^T", kernel, plain,
         lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)", wrapper(x, qt), plain(),
         kernel(), tol, why,
         x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2,
@@ -498,17 +573,19 @@ GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
 
 def scheme_stack(scheme: str, E: int, m: int, k: int, seed: int, w8: bool = False):
     """A random stack (E, m, k) of distinct `scheme` experts (tools/
-    synth_gguf.py's blocks) in kernel layout, bf16 scales."""
+    synth_gguf.py's blocks, each block's scales varied) in kernel layout,
+    bf16 scales."""
     import numpy as np
     import torch
 
     from crabml_tpu_torch.ops.cuda.gemm_quant import augment_w8
     from crabml_tpu_torch.quant.qtensor import to_kernel_layout, to_planar
-    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES, vary_scales
 
     kind, blocks = SCHEMES[scheme]
-    raw = blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
-    qt = to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"), torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    raw = vary_scales(kind, blocks(rng, E * m * k, 1.0 / math.sqrt(k)), rng)
+    qt = check_varied(to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"), torch.bfloat16))
     return augment_w8(qt) if w8 else qt
 
 
@@ -525,7 +602,7 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
-    from crabml_tpu_torch.quant.qtensor import dequantize
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND, dequantize
 
     w8 = name == "qmm_w8_grouped"
     if qt is None:
@@ -541,7 +618,7 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
         plain = lambda: gemm_quant.qmm_w8_grouped_plain(xs, p["w8"], p["dw"], offsets)  # noqa: E731
         names, why = ("w8", "dw"), "same int8 planes, float32 sums in another order"
     else:
-        names = tuple(gemm_quant._KERNEL_PLANES[qt.kind])
+        names = tuple(gemm_quant._KERNEL_PLANES[FORM_KIND[qt.kind]])
         plain_fn = getattr(gemm_quant, f"{name}_plain")
         plain = lambda: plain_fn(xs, *(p[n] for n in names), offsets)  # noqa: E731
         why = "the same bf16 weights, float32 sums in another order"
@@ -553,7 +630,8 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
 
     used = [e for e, _, _ in segs]
     rec = _matmul_record(
-        timer, name, f"{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T",
+        timer, name,
+        f"{_on_planes(qt)}{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T",
         lambda: wrapper(xs, qt, offsets, torch.bfloat16), plain, library,
         "torch.matmul(bf16) per segment", wrapper(xs, qt, offsets), plain(),
         wrapper(xs, qt, offsets, torch.bfloat16), 1e-4, why,
@@ -574,7 +652,7 @@ def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int, qt=None) -> t
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
-    from crabml_tpu_torch.quant.qtensor import dequantize
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND, dequantize
 
     if qt is None:
         qt = q4k_stack(MOE_EXPERTS, m, k, seed, False)
@@ -582,15 +660,15 @@ def check_w4a8_planes(timer, rows: int, m: int, k: int, seed: int, qt=None) -> t
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
     plane = torch.tensor(PLANE_ROWS[:rows], device="cuda", dtype=torch.int32)
     p = qt.planes
-    names = tuple(gemm_quant._KERNEL_PLANES[qt.kind])
-    form = gemm_quant.W4A8_FORMS[qt.kind]
+    names = tuple(gemm_quant._KERNEL_PLANES[FORM_KIND[qt.kind]])
+    form = gemm_quant.W4A8_FORMS[FORM_KIND[qt.kind]]
     plain_fn = getattr(gemm_quant, f"{form}_plain")
     distinct = sorted(set(PLANE_ROWS[:rows]))
     w_rows = dequantize(qt, torch.bfloat16)[plane.long()].transpose(1, 2).contiguous()
     plain = lambda: plain_fn(x, *(p[n] for n in names), plane=plane)  # noqa: E731
     rec = _matmul_record(
-        timer, f"{form}.planes", f"{rows}x{k} @ plane-per-row of ({MOE_EXPERTS}x{m}x{k})^T, "
-        f"{len(distinct)} distinct planes",
+        timer, f"{form}.planes", f"{_on_planes(qt)}{rows}x{k} @ plane-per-row of "
+        f"({MOE_EXPERTS}x{m}x{k})^T, {len(distinct)} distinct planes",
         lambda: gemm_quant.qmm_w4a8(x, qt, torch.bfloat16, plane), plain,
         lambda: torch.bmm(x[:, None], w_rows), "torch.bmm(bf16, planes gathered beforehand)",
         gemm_quant.qmm_w4a8(x, qt, plane=plane), plain(),
@@ -844,6 +922,9 @@ def decode_checks(timer) -> dict[str, list[dict]]:
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND
+
     timer = Timer(torch)
     checks = {
         # the two 512-row chunks' shapes; the 189-row chunk that the main
@@ -906,14 +987,40 @@ def phase_kernels() -> dict[str, list[dict]]:
                            (PREFILL_CHUNK, DIM, FFN)):
             name, rec = check_scheme_matmul(timer, scheme, "dequant", rows, m, k, seed)
             checks.setdefault(name, []).append(rec)
+        # one weight a shape for both row counts
+        decode = {(m, k): scheme_weight(scheme, m, k, seed + 2, "cuda")
+                  for m, k in ((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))}
         for rows in (1, SERVING_SLOTS):
-            for m, k in ((QKV_M, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM)):
-                name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, m, k, seed + 2)
+            for (m, k), qt in decode.items():
+                name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, m, k, seed + 2, qt)
                 checks.setdefault(name, []).append(rec)
+        del decode
         name, rec = check_scheme_matmul(timer, scheme, "w4a8", 2 * SERVING_SLOTS, QKV_M, DIM,
                                         seed + 3)
         checks[name].append(rec)
         torch.cuda.empty_cache()
+    # the kinds that run the Q4_K, Q5_K and Q8_0 forms, on planes converted from
+    # their own blocks: the dequant form at a 512-row chunk of qkv, the
+    # int8-activation form at 1, 8 and 16 rows of it, the grouped form on the
+    # 1,024 pairs of gate|up and the plane form at 1 and 8 rows on experts 1-7
+    for i, scheme in enumerate(REUSED_SCHEMES):
+        seed = 130 + 4 * i
+        name, rec = check_scheme_matmul(timer, scheme, "dequant", PREFILL_CHUNK, QKV_M, DIM, seed)
+        checks[name].append(rec)
+        for rows in (1, SERVING_SLOTS, 2 * SERVING_SLOTS):
+            name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, QKV_M, DIM, seed + 1)
+            checks[name].append(rec)
+        qt = scheme_stack(scheme, MOE_EXPERTS, 2 * FFN, DIM, seed + 2)
+        name = gemm_quant.GROUPED_FORMS[FORM_KIND[qt.kind]]
+        checks[name].append(check_grouped(timer, name, 2 * FFN, DIM, seed + 2, qt))
+        for rows in (1, SERVING_SLOTS):
+            name, rec = check_w4a8_planes(timer, rows, 2 * FFN, DIM, seed + 3, qt)
+            checks[name].append(rec)
+        del qt
+        torch.cuda.empty_cache()
+    say(f"timer: the longest queueing of {timer.iters} timed calls {timer.max_queue_ms:.2f} ms "
+        f"(the spin: {HOLD_CYCLES / SPIN_HZ * 1e3:.1f} ms or more); {timer.outlasted} timings "
+        "queued for longer than the spin")
     del timer
     torch.cuda.empty_cache()
     return checks
@@ -926,13 +1033,15 @@ def phase_kernels() -> dict[str, list[dict]]:
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
                   mix: str | None = None, path: str | None = None,
-                  cpu_dtype=None) -> dict:
+                  cpu_dtype=None, card_weights=None) -> dict:
     """`model` cut to 2 layers, every matrix in `scheme` (with `mix` "k_m",
     llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
     Q6_K): a prompt of `n_prompt` tokens and one decode step, the card
     (kernels, bfloat16, with the W8 prefill planes when `w8`) against the CPU
     (plain versions, float32 unless `cpu_dtype` says otherwise, the scheme's
-    planes only). `path`: such a 2-layer file written already (kept)."""
+    planes only). `path`: such a 2-layer file written already (kept);
+    `card_weights`: its weights loaded on the card already, bfloat16 without
+    W8 planes (a Runner's with prefill_w8=False)."""
     import numpy as np
     import torch
 
@@ -952,7 +1061,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     runs = {}
     cpu_dtype = cpu_dtype or torch.float32
     for dev, dt in ((CARD, torch.bfloat16), ("cpu", cpu_dtype)):
-        w = load_weights(gf, cfg, dev, dt)
+        w = card_weights if dev == CARD and card_weights is not None \
+            else load_weights(gf, cfg, dev, dt)
         if w8 and dev == CARD:
             w = augment_w8_weights(w)
         cache = KVCache.create(cfg, 1, 512, dt, dev)
@@ -1050,17 +1160,18 @@ def _prefill_only(runner, prompt: str) -> float:
     return len(runner.tokenizer.encode(prompt, bos=True)) / (time.perf_counter() - t0)
 
 
-def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str) -> dict:
-    """The same file loaded once more with prefill_w8=False: its prefill
-    against the W8 runner's, in turns inside this one run (W8, dequant,
-    dequant, W8), and the kernels the dequant-only prefill launched (the
-    scheme's dequant kernel: qmm_q4k for a Q4_K file)."""
+def _prefill_w8_against_q4k(path: str, runner, prompt: str, what: str, plain=None) -> dict:
+    """The same file loaded once more with prefill_w8=False (or `plain`, such
+    a Runner already loaded): its prefill against the W8 runner's, in turns
+    inside this one run (W8, dequant, dequant, W8), and the kernels the
+    dequant-only prefill launched (the scheme's dequant kernel: qmm_q4k for a
+    Q4_K file)."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import _build
     from crabml_tpu_torch.runtime.runner import Runner
 
-    plain = Runner(path, prefill_w8=False)
+    plain = plain or Runner(path, prefill_w8=False)
     if plain.prefill_w8 or not runner.prefill_w8:
         fail(f"{what}: prefill_w8 is {runner.prefill_w8} by default and {plain.prefill_w8} when off")
     _prefill_only(plain, prompt)  # warm
@@ -1190,7 +1301,7 @@ def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
         "device_span_ms_per_token": span,
         "top_kernels_ms_per_token": {k[:80]: v / steps for k, v in top},
         "top_kernels_calls_per_token": {k[:80]: c / steps for k, c in calls.items()},
-        "qmm_w4a8_us_by_shape": _w4a8_by_shape(device, runner.cfg, w4a8_calls),
+        "qmm_w4a8_us_by_shape": _w4a8_by_shape(device, w4a8_calls),
     }
     say(f"decode profile ({what}, {steps} tokens): device busy {busy:.3f} ms/token of "
         f"{ms_per_token:.3f} ms/token unprofiled (idle share {rec['idle_share']:.3f}), span of "
@@ -1206,42 +1317,48 @@ def _profile_decode(runner, prompt: str, ms_per_token: float, mode=1) -> dict:
 
 def _w4a8_calls(runner) -> list[str]:
     """The int8-activation matmuls of one decode step in launch order, each
-    as "<form> <rows>x<m>x<k>": gemm_quant.qmm_w4a8 wrapped around one eager
+    as "<form> <rows>x<m>x<k>" ("<form>.planes <rows>x<m>x<k>" for the plane
+    form of a mixture of experts): qmm_w4a8 wrapped, where the dense matmuls
+    (gemm_quant) and the experts (models.forward) call it, around one eager
     step at the runner's position (the captured graph replays the same
     launches in the same order). Its kernels count among the launches like
     any eager step's."""
     import torch
 
-    from crabml_tpu_torch.models.forward import decode_step
+    from crabml_tpu_torch.models import forward as fwd
     from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND
 
     calls = []
     wrapped = gemm_quant.qmm_w4a8
 
     def logged(x2, qt, out_dtype=torch.float32, plane=None):
-        calls.append(f"{gemm_quant.W4A8_FORMS[qt.kind]} {x2.shape[0]}x{qt.m}x{qt.k}")
+        form = gemm_quant.W4A8_FORMS[FORM_KIND[qt.kind]] + ("" if plane is None else ".planes")
+        calls.append(f"{form} {x2.shape[0]}x{qt.m}x{qt.k}")
         return wrapped(x2, qt, out_dtype, plane)
 
-    gemm_quant.qmm_w4a8 = logged
+    gemm_quant.qmm_w4a8 = fwd.qmm_w4a8 = logged
     try:
         pos = torch.tensor([runner.pos], dtype=torch.int32, device=CARD)
-        decode_step(runner.weights, runner.cache, torch.ones((1, 1), dtype=torch.long, device=CARD),
-                    pos, runner.cfg, runner.compute_dtype)
+        fwd.decode_step(runner.weights, runner.cache,
+                        torch.ones((1, 1), dtype=torch.long, device=CARD), pos, runner.cfg,
+                        runner.compute_dtype)
     finally:
-        gemm_quant.qmm_w4a8 = wrapped
+        gemm_quant.qmm_w4a8 = fwd.qmm_w4a8 = wrapped
     return calls
 
 
-def _w4a8_by_shape(device_events, cfg, calls: list[str]) -> dict:
+def _w4a8_by_shape(device_events, calls: list[str]) -> dict:
     """Mean µs of the int8-activation matmul kernel a call, by form and
     shape (a key of `calls`, one step's calls in launch order), and of its
-    quantizer, in a dense model's decode. The window's matmul kernels are
+    quantizer, in a decode step. The window's matmul kernels are
     its steps' calls in turn, but the window may cut calls at either end: of
     the alignments that leave the cut calls at the ends, the one is taken
     under which each key's calls share one kernel and their times spread
     least, and a cut call is missing from its key's mean ("calls_cut" says
-    how many). Empty for a mixture of experts."""
-    if cfg.n_experts or not calls:
+    how many). A mixture of experts' plane calls are keyed apart from the
+    dense ones ("<form>.planes ...")."""
+    if not calls:
         return {}
     mm = [e for e in device_events if "::qmm_w4a8_kernel<" in e.name]
     quant = [e for e in device_events if "::quantize_kernel<" in e.name]
@@ -1264,6 +1381,31 @@ def _w4a8_by_shape(device_events, cfg, calls: list[str]) -> dict:
         rec["quantizer"] = statistics.mean(e.time_range.elapsed_us() for e in quant)
     rec["calls_cut"] = cut
     return rec
+
+
+class DenseMatmuls:
+    """Around a path's runs: every product that took torch.matmul on a
+    dequantized weight (ops/matmul.py::dense_matmul: a matrix's, or an
+    expert stack's through models/forward.py's moe_ffn_plain) instead of a
+    kernel, as "<kind> <shape>"; `calls` must stay empty where every matrix
+    is quantized."""
+
+    def __enter__(self):
+        from crabml_tpu_torch.ops import matmul as mm
+
+        self.calls, self.orig = [], mm.dense_matmul
+
+        def counted(x, qt):
+            self.calls.append(f"{qt.kind.name} {tuple(qt.shape)}")
+            return self.orig(x, qt)
+
+        mm.dense_matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        from crabml_tpu_torch.ops import matmul as mm
+
+        mm.dense_matmul = self.orig
 
 
 def _graph_against_eager(runner, prompt: str, graphed: dict, what: str) -> dict:
@@ -1957,6 +2099,7 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
 
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND
     from crabml_tpu_torch.runtime.runner import Runner
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
@@ -1975,24 +2118,31 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
     # CPU as on the card (measured on an H100: the plain versions in bfloat16
     # against float32 on the Q8_0 and Q5_K_M files), where the kernels meet
     # the plain bfloat16 run on 98-100% of them
+    plain = Runner(path, prefill_w8=False)  # the card side here, the dequant prefill below
     fwd = phase_forward(tmp, "mixtral-8x7b", seed=seed, n_prompt=100, min_share=0.9,
-                        scheme=scheme, mix=mix, path=path, cpu_dtype=torch.bfloat16)
+                        scheme=scheme, mix=mix, path=path, cpu_dtype=torch.bfloat16,
+                        card_weights=plain.weights)
     w8_default = size >= 1 << 30
     runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
     mats = [q for lw in runner.weights["layers"] for q in lw.values() if hasattr(q, "planes")]
     if not runner.prefill_w8 or not all("w8" in q.planes for q in mats):
         fail(f"{what}: the Runner left the W8 prefill planes off")
+    kinds = sorted({q.kind.name for q in mats} | {runner.weights["output"].kind.name})
     prompt = PROMPT_SENTENCE * PROMPT_REPEATS
     _build.launches.clear()  # counts from here on are this path's
-    capture = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
-    launches = dict(_build.launches)
-    graphed = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
-    eager = _one_run(runner, prompt, _build.launches, "eager", MOE_SCHEME_STEPS)
+    with DenseMatmuls() as dense:
+        capture = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
+        launches = dict(_build.launches)
+        graphed = _one_run(runner, prompt, _build.launches, 1, MOE_SCHEME_STEPS)
+        eager = _one_run(runner, prompt, _build.launches, "eager", MOE_SCHEME_STEPS)
+    if dense.calls:
+        fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights: "
+             f"{sorted(set(dense.calls))}")
     if not capture["tokens"] == graphed["tokens"] == eager["tokens"]:
         fail(f"{what}: the graphed decode gave other tokens than the eager step")
     if len(graphed["tokens"]) != MOE_SCHEME_STEPS:
         fail(f"{what}: generated {len(graphed['tokens'])} tokens, expected {MOE_SCHEME_STEPS}")
-    planes = [gemm_quant.W4A8_FORMS[k] + ".planes" for k in experts]
+    planes = [gemm_quant.W4A8_FORMS[FORM_KIND[k]] + ".planes" for k in experts]
     for name in planes + ["qmm_w8_grouped", "qmm_w8", "flash_attention",
                           "decode_attention_fused"]:
         if launches.get(name, 0) <= 0:
@@ -2005,21 +2155,24 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
             f"{r['prefill_tok_s']:.1f} tok/s; decode {r['decoded_steps']} steps "
             f"{r['decode_tok_s']:.2f} tok/s = {r['decode_ms_per_token']:.3f} ms/token (bound "
             f"{bound_port:.3f} ms port layout, {bound_gguf:.3f} ms GGUF bytes)")
-    say(f"{what} path: {MOE_SCHEME_STEPS} greedy tokens of both graphed runs equal to the eager "
-        f"step's, launches {launches}")
-    w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
-    grouped = [gemm_quant.GROUPED_FORMS[k] for k in experts]
+    say(f"{what} path: matrices in {kinds}, {MOE_SCHEME_STEPS} greedy tokens of both graphed "
+        f"runs equal to the eager step's, no matmul through torch.matmul, launches {launches}")
+    profile = (_profile_decode(runner, prompt, graphed["decode_ms_per_token"])
+               if what in MOE_PROFILED else None)
+    w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what, plain)
+    grouped = [gemm_quant.GROUPED_FORMS[FORM_KIND[k]] for k in experts]
     if any(w8_dequant["launches"].get(g, 0) <= 0 for g in grouped) \
             or w8_dequant["launches"].get("qmm_w8", 0) \
             or w8_dequant["launches"].get("qmm_w8_grouped", 0):
         fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
     chunks = math.ceil(capture["prompt_tokens"] / PREFILL_CHUNK)
-    del runner
+    del runner, plain
     os.remove(path)
     torch.cuda.empty_cache()
     return {
         "scheme": scheme, "mix": mix, "layers": MOE_SCHEME_LAYERS, "gguf_bytes": size,
-        "expert_kinds": [k.name for k in experts], "synth_s": synth_s, "forward": fwd,
+        "expert_kinds": [k.name for k in experts], "kinds": kinds, "synth_s": synth_s,
+        "forward": fwd, "dense_matmuls": len(dense.calls), "decode_profile": profile,
         "w8": "the Runner's default" if w8_default else "prefill_w8=True (under 1 GiB)",
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
                  for r in (capture, graphed, eager)],
@@ -2052,6 +2205,7 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
     from crabml_tpu_torch.gguf.constants import GGMLType
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND
     from crabml_tpu_torch.runtime.runner import Runner
     from crabml_tpu_torch.serving import PagedServingEngine
     from crabml_tpu_torch.tools.synth_gguf import SCHEMES, build_synth_gguf
@@ -2087,10 +2241,14 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
     n_prompt = len(runner.tokenizer.encode(prompt, bos=True))
 
     _build.launches.clear()  # counts from here on are this path's
-    capture = _one_run(runner, prompt, _build.launches)  # captures the decode step's graph
-    launches = dict(_build.launches)
-    graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
-    eager = _one_run(runner, prompt, _build.launches, "eager")
+    with DenseMatmuls() as dense:
+        capture = _one_run(runner, prompt, _build.launches)  # captures the decode step's graph
+        launches = dict(_build.launches)
+        graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
+        eager = _one_run(runner, prompt, _build.launches, "eager")
+    if dense.calls:
+        fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights: "
+             f"{sorted(set(dense.calls))}")
     if not capture["tokens"] == graphed["tokens"] == eager["tokens"]:
         fail(f"{what}: the graphed decode gave other tokens than the eager step")
     if len(graphed["tokens"]) != DECODE_STEPS:
@@ -2099,14 +2257,15 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
     if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
                 and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
         fail(f"{what}: NaN or inf in the KV cache")
-    dequant = gemm_quant.DEQUANT_FORMS[kind]
-    for name in ([gemm_quant.DEQUANT_FORMS[k] for k in kinds]
-                 + [gemm_quant.W4A8_FORMS[k] for k in kinds]
+    dequant = gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]]
+    for name in ([gemm_quant.DEQUANT_FORMS[FORM_KIND[k]] for k in kinds]
+                 + [gemm_quant.W4A8_FORMS[FORM_KIND[k]] for k in kinds]
                  + ["qmm_w8", "flash_attention", "decode_attention_fused"]):
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} path")
-    if GGMLType.Q4_K not in kinds and (launches.get("qmm_q4k", 0) or launches.get("qmm_w4a8", 0)):
-        fail(f"{what}: a Q4_K kernel was launched: {launches}")
+    if all(FORM_KIND[k] != GGMLType.Q4_K for k in kinds) \
+            and (launches.get("qmm_q4k", 0) or launches.get("qmm_w4a8", 0)):
+        fail(f"{what}: a Q4_K form was launched, and no matrix runs it: {launches}")
     bound_port, bound_gguf = _decode_bound(runner, n)
     chunks = math.ceil(n_prompt / PREFILL_CHUNK)
     profile = _profile_decode(runner, prompt, graphed["decode_ms_per_token"])
@@ -2119,7 +2278,7 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
             f"{bound_gguf:.3f} ms GGUF bytes)")
     say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), {unfused} "
         f"layers with q, k, v apart, 128 greedy tokens of both graphed runs equal to the eager "
-        f"step's, launches {launches}")
+        f"step's, no matmul through torch.matmul, launches {launches}")
     w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
     if w8_dequant["launches"].get(dequant, 0) <= 0 or w8_dequant["launches"].get("qmm_w8", 0):
         fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
@@ -2136,7 +2295,7 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
     if eng.pages_free() != pages_at_start or any(eng._owned):
         fail(f"{what} serving: pages_free {eng.pages_free()} after the run, "
              f"{pages_at_start} before")
-    for name in (gemm_quant.W4A8_FORMS[kind], "paged_decode_attention_fused"):
+    for name in (gemm_quant.W4A8_FORMS[FORM_KIND[kind]], "paged_decode_attention_fused"):
         if serving["launches"].get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} serving path")
     peak = torch.cuda.max_memory_allocated()
@@ -2154,7 +2313,7 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
         "graph_equals_eager": True, "first_tokens": graphed["tokens"][:16],
         "decode_profile": profile,
         "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
-        "max_memory_allocated": peak, "launches": launches,
+        "max_memory_allocated": peak, "launches": launches, "dense_matmuls": len(dense.calls),
         "launches_per_decode_token": {k: v / graphed["decoded_steps"]
                                       for k, v in graphed["launches_decode"].items()},
         "launches_per_prefill_chunk": {k: v / chunks
@@ -2193,6 +2352,8 @@ def kernels_line(checks: dict, paths: dict) -> dict:
             entry["launches_per_prefill_chunk"] = own["launches_per_prefill_chunk"].get(name, 0)
             entry["launches_per_serving_tick"] = \
                 own.get("serving", {}).get("launches_per_tick", {}).get(name, 0)
+        entry["launches_by_path"] = {p: rec["launches"][name] for p, rec in paths.items()
+                                     if rec.get("launches", {}).get(name)}
         entry["all_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                                     "bound_ms", "bound_by", "max_abs_err")}
                                for r in recs]
@@ -2291,7 +2452,7 @@ def main() -> int:
                 failures.append(f"{what} forward check")
             paths[what] = rec
             paths[f"{what}-dequant"] = rec["prefill_w8_against_dequant"]
-        for i, scheme in enumerate(KERNEL_SCHEMES):
+        for i, scheme in enumerate(KERNEL_SCHEMES + REUSED_SCHEMES):
             fwd = report[f"forward_{scheme}"] = timed(f"forward_{scheme}", phase_forward, tmp,
                                                       seed=80 + i, scheme=scheme)
             if not fwd["ok"]:

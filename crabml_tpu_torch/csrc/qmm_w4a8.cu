@@ -1,6 +1,6 @@
 // qmm_w4a8: int8 activations x integer weights for decode rows (<= 16): the
 // Q4_K form (4-bit weights, the headline's kernel), and the Q8_0, Q6_K, Q5_K,
-// Q4_0, Q3_K and Q2_K forms described at the end of this note.
+// Q4_0, Q5_0, Q3_K and Q2_K forms described at the end of this note.
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
 // _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
@@ -95,8 +95,12 @@
 //    a stage), and the values 0..31 are still valid signed bytes. Q4_0 has
 //    no minimum plane: one bf16 dsub a group (256 B a stage) and the offset
 //    as a minimum, acc += c * (dsub * dx) + (-8 dsub) * sx, exact in float32
-//    as Q6_K's -32. Q4_1 (a minimum plane), Q5_0 (a qh plane, offset 16) and
-//    Q5_1 (both) are further instances once their planes are reordered.
+//    as Q6_K's -32. Q5_0 is the third instance (Q50): Q5_K's qh plane with
+//    Q4_0's one dsub a group and the offset 16, acc += c * (dsub * dx) +
+//    (-16 dsub) * sx, as exact (its planes are reordered at load into these
+//    orders). Q4_1 and Q5_1 need no instance: reordered so, their planes are
+//    Q4_K's and Q5_K's (dsub = d, msub = m), and the Q4K and Q5K forms run
+//    them as they are; Q8_1's are Q8_0's.
 //  * Q3_K and Q2_K are instances of one trait of 2-bit values with the
 //    superblock's scales as ggml keeps them (K16): per 16-group one m16n8k16
 //    s8 mma, as Q6_K. Their 2-bit qs plane has the order of Q6_K's qh (a
@@ -194,6 +198,7 @@ template <bool QH_, bool MIN_, int OFF_> struct Nib64 {
 };
 using Q5K = Nib64<true, true, 0>;
 using Q40 = Nib64<false, false, 8>;
+using Q50 = Nib64<true, false, 16>;
 struct Q6K {
     static constexpr int GR = 16, W_BYTES = COLS * SB * 3 / 4, S_BYTES = COLS * 16 * 2;
     static constexpr int QH = COLS * SB / 2;  // the qh rows follow the ql rows
@@ -288,8 +293,8 @@ struct Args {
     const int8_t* xq;
     const float* dx;
     const float* sx;
-    const uint8_t* q0;  // Q4_K, Q5_K and Q4_0 nibbles, Q8_0 int8, Q6_K ql
-    const uint8_t* q1;  // Q6_K and Q5_K qh, Q3_K hb, Q2_K scm
+    const uint8_t* q0;  // Q4_K, Q5_K, Q4_0 and Q5_0 nibbles, Q8_0 int8, Q6_K ql
+    const uint8_t* q1;  // Q6_K, Q5_K and Q5_0 qh, Q3_K hb, Q2_K scm
     const bf16* dsub;
     const bf16* msub;   // Q4_K and Q5_K only
     void* out;
@@ -391,7 +396,7 @@ qmm_w4a8_kernel(const Args args) {
                     q0 + (size_t)(ok ? col0 + r : 0) * S::q0_row(K) + sb * ROWB + p * 16;
                 wg::cp_async16(st + ST::W + r * ROWB + swz(r, p) * 16, src, ok);
             }
-            if constexpr (S::HAS_QH) {  // Q5_K: 16 columns x 2 pieces of qh, one a lane
+            if constexpr (S::HAS_QH) {  // Q5_K, Q5_0: 16 columns x 2 pieces of qh, one a lane
                 const int r = lane >> 1, p = lane & 1;
                 const bool ok = col0 + r < N;
                 const uint8_t* src = q1 + (size_t)(ok ? col0 + r : 0) * (K / 8) + sb * (SB / 8) + p * 16;
@@ -854,6 +859,17 @@ extern "C" int qmm_w4a8_q4_0_bf16(const void* x, void* xq, void* dx, void* sx, c
                                   int grid_y, int x_rows, void* stream) {
     return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx, B, N,
                     K, grid_x, grid_y, x_rows, stream);
+}
+
+// The Q5_0 form: qs (N, K/2) u8 in the per-64 order, qh (N, K/8) u8 in Q5_K's
+// order, dsub (N, K/32) bf16. Otherwise as qmm_w4a8_bf16, plane_idx and stacks
+// too.
+extern "C" int qmm_w4a8_q5_0_bf16(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                  const void* qh, const void* dsub, void* out, int out_bf16,
+                                  const void* plane_idx, int B, int N, int K, int grid_x,
+                                  int grid_y, int x_rows, void* stream) {
+    return run<Q50>(x, xq, dx, sx, qs, qh, dsub, nullptr, out, out_bf16, plane_idx, B, N, K,
+                    grid_x, grid_y, x_rows, stream);
 }
 
 // The Q3_K form: qs (N, K/4) u8, hb (N, K/8) u8, sc (N, K/16) i8, d (N,

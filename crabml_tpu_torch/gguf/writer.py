@@ -164,11 +164,13 @@ class GGUFWriter:
             f.write(b"\x00" * (data_start - len(header)))
             for name, _, typ, nbytes, packed in self._tensors:
                 data = packed() if callable(packed) else packed
-                data = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
-                if len(data) != nbytes:
+                # an array is written from its own buffer (no bytes copy)
+                data = (np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+                        if isinstance(data, np.ndarray) else np.frombuffer(bytes(data), np.uint8))
+                if data.nbytes != nbytes:
                     raise ValueError(
                         f"tensor {name}: expected {nbytes} packed bytes for "
-                        f"{typ.name}, got {len(data)}"
+                        f"{typ.name}, got {data.nbytes}"
                     )
-                f.write(data)
+                f.write(memoryview(data))
                 f.write(b"\x00" * ((nbytes + align - 1) // align * align - nbytes))

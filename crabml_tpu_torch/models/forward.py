@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..errors import CacheError, UnsupportedError
+from ..ops import matmul as ops_matmul
 from ..ops.cuda.decode_attention import (decode_attention, decode_attention_fused,
                                          decode_eligible)
 from ..ops.cuda.flash_attention import flash_attention
@@ -40,7 +41,7 @@ from ..ops.cuda.gemm_quant import W4A8_MAX_ROWS, qmatmul_grouped, qmm_w4a8
 from ..ops.matmul import embedding_lookup, qmatmul
 from ..ops.norm import rms_norm
 from ..ops.rope import rope_angles, rotate
-from ..quant.qtensor import QTensor, dequantize
+from ..quant.qtensor import QTensor
 from .config import ModelConfig
 
 KV_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
@@ -214,18 +215,15 @@ def _expert_stacks(lw: dict) -> list[QTensor]:
 
 def moe_ffn_plain(lw: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Plain version of moe_ffn, for any weight kind: every expert computes
-    every row through a dense product and the results mix by routing weight,
-    0 for an unselected expert (the JAX package's _moe_all_experts)."""
+    every row through a dense product (ops/matmul.py's dense_matmul, looked
+    up there at each call) and the results mix by routing weight, 0 for an
+    unselected expert (the JAX package's _moe_all_experts)."""
     h = x.reshape(-1, x.shape[-1])
     topi, topw = moe_route(lw, h, cfg)
     route = torch.zeros(h.shape[0], cfg.n_experts, dtype=torch.float32, device=h.device)
     route.scatter_(1, topi, topw)
-
-    def dense(a, qt):  # (R, k) or (E, R, k) @ (E, m, k)^T -> (E, R, m)
-        return torch.matmul(a, dequantize(qt, h.dtype).transpose(1, 2))
-
-    mid = _expert_gate_up(lw, lambda qt: dense(h, qt))
-    y = dense(mid, lw["ffn_down_exps"]) * route.t().to(h.dtype)[..., None]
+    mid = _expert_gate_up(lw, lambda qt: ops_matmul.dense_matmul(h, qt))
+    y = ops_matmul.dense_matmul(mid, lw["ffn_down_exps"]) * route.t().to(h.dtype)[..., None]
     out = y[0]
     for e in range(1, cfg.n_experts):
         out = out + y[e]

@@ -15,13 +15,15 @@ A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 before the router product) and the stacked experts "wgu_exps" (E, 2*HD, D)
 and "ffn_down_exps" (E, D, HD).
 
-Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q3_K and Q2_K matmul weights take the kernel
-planes of quant/qtensor.py, with folded scale planes in the compute dtype's
-width (bfloat16 scales under bfloat16 compute, as the JAX Runner does; float32
-keeps them exact; Q3_K and Q2_K keep ggml's scale bytes and float32 d, exact
-either way). q|k|v and gate|up fuse at
-load along the output axis, so a layer issues one matmul per group where the
-group's tensors share one kind; in llama.cpp's mixed files (_K_M, Q2_K) a
+Q4_K, Q5_K, Q6_K, Q8_0, Q4_0, Q3_K, Q2_K, Q5_0, Q4_1, Q5_1 and Q8_1 matmul
+weights take the kernel planes of quant/qtensor.py (Q4_1's, Q5_1's and
+Q8_1's are Q4_K's, Q5_K's and Q8_0's, each weight keeping its own kind),
+with folded scale planes in the compute dtype's width (bfloat16 scales under
+bfloat16 compute, as the JAX Runner does; float32 keeps them exact; Q3_K and
+Q2_K keep ggml's scale bytes and float32 d, exact either way). q|k|v and
+gate|up fuse at load along the output axis, so a layer issues one matmul per
+group where the group's tensors share one kind; in llama.cpp's mixed files
+(_K_M, Q2_K; an imatrix Q4_0 file's Q4_1 ffn_down fuses with nothing) a
 layer whose attn_v is in another type than attn_q keeps q, k and v apart, so
 the layers of one file need not hold the same names. A mixture of experts
 takes experts of any of these kinds (or F32 / F16), each stack in its own:
@@ -207,7 +209,10 @@ def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -
     crabml_tpu.models.synthetic.make_weights return, arrays as numpy).
 
     Each QTensor is read by attribute (.kind, .shape, .planes) without
-    importing its class; layer-stacked planes split per layer. The result
+    importing its class; layer-stacked planes split per layer. Every kind of
+    the JAX package's planar layout whose planes the port reads carries
+    across, dense and stacked: the canonical plane names and contents are
+    the same (Q4_1's, Q5_0's, Q5_1's and Q8_1's too). The result
     computes from the same numbers in the port's own layout."""
     sdt = _scale_dtype(compute_dtype)
 

@@ -1,25 +1,34 @@
 """Quantized matmuls: `qmm_q4k`, `qmm_q5k`, `qmm_q6k`, `qmm_q8_0`,
-`qmm_q4_0`, `qmm_q3k`, `qmm_q2k` (prefill rows, one per weight scheme,
-made by `_dequant_form`), their grouped forms `qmm_<scheme>_grouped` (rows
-sorted by expert, each segment against its own expert's planes, made by
-`_grouped_form`), `qmm_w4a8` (decode rows, every scheme, with a plane per
-row for a stack of experts), `qmm_w8` (prefill rows on the W8 planes) and
-its grouped form `qmm_w8_grouped`, with `quantize_activation`, the W8 planes
-(`w8_planes_from_weights`, `augment_w8`) and the row routing of the JAX
-package.
+`qmm_q4_0`, `qmm_q5_0`, `qmm_q3k`, `qmm_q2k` (prefill rows, one per weight
+scheme, made by `_dequant_form`), their grouped forms
+`qmm_<scheme>_grouped` (rows sorted by expert, each segment against its own
+expert's planes, made by `_grouped_form`), `qmm_w4a8` (decode rows, every
+scheme, with a plane per row for a stack of experts), `qmm_w8` (prefill rows
+on the W8 planes) and its grouped form `qmm_w8_grouped`, with
+`quantize_activation`, the W8 planes (`w8_planes_from_weights`,
+`augment_w8`) and the row routing of the JAX package.
 
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
 csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu,
-csrc/qmm_q4_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one weight source of
-the tile loop each, with a dense and a grouped entry (launchers `_run` and
-`_run_grouped`), `_qmm_w4a8_kernel` becomes csrc/qmm_w4a8.cu with a form per
-scheme, each with its plane-per-row form (`_run_w4a8` with `stacked`; its
-launch shape is `w4a8_plan`) and `_qmm_w8_kernel` becomes csrc/qmm_w8.cu
-(launchers `_run_w8` and `_run_grouped_w8`); each source holds its note on
-what bounds it on the H100 and how the design answers it. All take the port's
-own weight layout (quant/qtensor.py kernel planes), not the TPU's m-tiled one.
+csrc/qmm_q4_0.cu, csrc/qmm_q5_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one
+weight source of the tile loop each, with a dense and a grouped entry
+(launchers `_run` and `_run_grouped`), `_qmm_w4a8_kernel` becomes
+csrc/qmm_w4a8.cu with a form per scheme, each with its plane-per-row form
+(`_run_w4a8` with `stacked`; its launch shape is `w4a8_plan`) and
+`_qmm_w8_kernel` becomes csrc/qmm_w8.cu (launchers `_run_w8` and
+`_run_grouped_w8`); each source holds its note on what bounds it on the H100
+and how the design answers it. All take the port's own weight layout
+(quant/qtensor.py kernel planes), not the TPU's m-tiled one.
 The int8-activation forms quantize x per scale group of the scheme, as the
 JAX package does (`scheme.gr`): 16 for Q6_K, Q3_K and Q2_K, 32 for the others.
+
+The eleven schemes of the JAX package take eight sets of forms: Q4_1, Q5_1
+and Q8_1 weights have, in kernel layout, exactly the planes of Q4_K, Q5_K
+and Q8_0 (quant/qtensor.py), and those forms compute exactly their
+functions, so each runs the forms of its `FORM_KIND`, counted under their
+names. Every table below is keyed by the form's own kind; the entry points
+(the wrappers, `qmatmul_grouped`, `route`, `w4a8_plan`) take a weight of any
+kind to its form through FORM_KIND.
 
 Routing keeps the TPU's structure, by the row count padded up to a multiple
 of 8: at most `W4A8_MAX_ROWS` rows take the int8-activation kernel, at least
@@ -41,8 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from ...gguf.constants import GGMLType
-from ...quant.qtensor import (KERNEL_KINDS, QTensor, dequantize, k16_scales, nibbles, plane_of,
-                               q2_values, q3k_values, q5k_values, q6k_values)
+from ...quant.qtensor import (FORM_KIND, KERNEL_KINDS, QTensor, dequantize, k16_scales, nibbles,
+                               plane_of, q2_values, q3k_values, q5k_values, q6k_values)
 from . import _build
 
 W4A8_MAX_ROWS = 16  # TPU-tuned (v5e decode_loop sweep); to be set on the card
@@ -50,8 +59,9 @@ W8_MIN_ROWS = 256  # TPU-tuned as well: padded rows from which the W8 planes tak
 W8_KSC = 512  # k elements per W8 scale chunk
 ROW_PAD = 8  # the routing counts rows padded up to this (the JAX package's B_PAD)
 GROUP = 32  # Q4_K scale group: one dsub/msub per 32 elements
-SCHEME_GROUP = {GGMLType.Q4_K: 32, GGMLType.Q8_0: 32, GGMLType.Q6_K: 16,  # elements a scale
-                GGMLType.Q5_K: 32, GGMLType.Q4_0: 32, GGMLType.Q3_K: 16, GGMLType.Q2_K: 16}
+# elements a scale of each form: 16 for the per-16 schemes, 32 for the others
+SCHEME_GROUP = {k: 16 if k in (GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K) else 32
+                for k in KERNEL_KINDS if FORM_KIND[k] == k}
 W4A8_COLS = 16  # output columns of a qmm_w4a8 block: the M of one mma tile
 W4A8_WARPS = 4  # warps of a block; they split k by superblock
 W4A8_SB = 256  # k depth of one ring stage: a Q4_K superblock, 8 scale groups
@@ -103,6 +113,17 @@ def qmm_q4_0_plain(x2, qs, dsub) -> torch.Tensor:
     accumulation -> (rows, m) f32."""
     m = qs.shape[0]
     w = ((nibbles(qs).float() - 8).reshape(m, -1, 32) * dsub.float()[..., None]).reshape(m, -1)
+    return x2.float() @ w.to(x2.dtype).float().t()
+
+
+def qmm_q5_0_plain(x2, qs, qh, dsub) -> torch.Tensor:
+    """Plain version of qmm_q5_0: w = (val - 16)*dsub in float32 (exact with
+    a bf16 scale: at most 13 significant bits; `qs` in the per-64 order and
+    `qh` in Q5_K's, val 0..31), rounded to x2's dtype, then x2 @ w^T with
+    float32 accumulation -> (rows, m) f32."""
+    m = qs.shape[0]
+    w = ((q5k_values(qs, qh).float() - 16).reshape(m, -1, 32)
+         * dsub.float()[..., None]).reshape(m, -1)
     return x2.float() @ w.to(x2.dtype).float().t()
 
 
@@ -211,6 +232,14 @@ def qmm_w4a8_q4_0_plain(x2, qs, dsub, plane=None) -> torch.Tensor:
     (exact) times sx -> (rows, m) f32."""
     qs, dsub = _rows(plane, qs, dsub)
     return _w4a8_dense_plain(x2, nibbles(qs), dsub, -8.0 * dsub.float(), 32)
+
+
+def qmm_w4a8_q5_0_plain(x2, qs, qh, dsub, plane=None) -> torch.Tensor:
+    """Plain version of qmm_w4a8 on Q5_0 planes: the 5-bit values 0..31,
+    activations per 32-group, and the offset as a minimum msub = -16*dsub
+    (exact) times sx -> (rows, m) f32."""
+    qs, qh, dsub = _rows(plane, qs, qh, dsub)
+    return _w4a8_dense_plain(x2, q5k_values(qs, qh), dsub, -16.0 * dsub.float(), 32)
 
 
 def qmm_w4a8_q2k_plain(x2, qs, scm, d, dmin, plane=None) -> torch.Tensor:
@@ -335,6 +364,11 @@ def qmm_q5k_grouped_plain(xs, qs, qh, dsub, msub, offsets) -> torch.Tensor:
                           lambda r, e: qmm_q5k_plain(r, qs[e], qh[e], dsub[e], msub[e]))
 
 
+def qmm_q5_0_grouped_plain(xs, qs, qh, dsub, offsets) -> torch.Tensor:
+    """Plain version of qmm_q5_0_grouped: qmm_q5_0_plain per segment."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_q5_0_plain(r, qs[e], qh[e], dsub[e]))
+
+
 def qmm_q4_0_grouped_plain(xs, qs, dsub, offsets) -> torch.Tensor:
     """Plain version of qmm_q4_0_grouped: qmm_q4_0_plain per segment."""
     return _grouped_plain(xs, offsets, lambda r, e: qmm_q4_0_plain(r, qs[e], dsub[e]))
@@ -414,19 +448,22 @@ _W4A8_STAGE = {
     GGMLType.Q3_K: (W4A8_COLS * W4A8_SB // 4 + W4A8_COLS * W4A8_SB // 8, W4A8_COLS * (16 + 4),
                     2 * 16 * 4),
     GGMLType.Q2_K: (W4A8_COLS * W4A8_SB // 4, W4A8_COLS * (16 + 2 * 4), 2 * 16 * 4),
+    GGMLType.Q5_0: (W4A8_COLS * W4A8_SB // 2 + W4A8_COLS * W4A8_SB // 8, W4A8_COLS * 8 * 2,
+                    2 * 8 * 4),
 }
 _SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserved a block
 
 
 def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
     """One ring stage: the 16 columns' weights of a superblock (Q4_K and
-    Q4_0: 2 KB of nibbles; Q5_K: 2.5 KB of nibbles | qh; Q8_0: 4 KB of int8;
-    Q6_K: 3 KB of ql | qh; Q3_K: 1.5 KB of qs | hb; Q2_K: 1 KB of qs) and
-    their scales (Q4_K and Q5_K: dsub and msub, 512 B; Q8_0 and Q4_0: 256 B;
-    Q6_K: 16 groups, 512 B; Q3_K: 16 sc bytes and a float32 d a column, 320
-    B; Q2_K: 16 scm bytes and float32 d and dmin, 384 B), then per row of x
-    its int8 values (256 B) and scales."""
-    w, sc, xs = _W4A8_STAGE[kind]
+    Q4_0: 2 KB of nibbles; Q5_K and Q5_0: 2.5 KB of nibbles | qh; Q8_0: 4 KB
+    of int8; Q6_K: 3 KB of ql | qh; Q3_K: 1.5 KB of qs | hb; Q2_K: 1 KB of
+    qs) and their scales (Q4_K and Q5_K: dsub and msub, 512 B; Q8_0, Q4_0
+    and Q5_0: 256 B; Q6_K: 16 groups, 512 B; Q3_K: 16 sc bytes and a float32
+    d a column, 320 B; Q2_K: 16 scm bytes and float32 d and dmin, 384 B),
+    then per row of x its int8 values (256 B) and scales; a kind that runs
+    another's form (FORM_KIND) has that form's stage."""
+    w, sc, xs = _W4A8_STAGE[FORM_KIND[kind]]
     return w + sc + x_rows * (W4A8_SB + xs)
 
 
@@ -449,7 +486,8 @@ def w4a8_plan(rows: int, m: int, k: int, planes: bool = False,
     weight of scheme `kind`, or against a row's own plane of a stack when
     `planes`. A function of the shapes alone: it reads nothing on the
     device, so a CUDA graph can capture the launch. Memoized: the decode
-    step asks for the same few plans at every call."""
+    step asks for the same few plans at every call. A kind that runs
+    another's form (FORM_KIND) has that form's plan."""
     per_block = 1 if planes else rows
     x_rows = 1 if per_block == 1 else 8 if per_block <= 8 else 16
     n_tiles = -(-x_rows // 8)
@@ -460,7 +498,7 @@ def w4a8_plan(rows: int, m: int, k: int, planes: bool = False,
         stages=stages,
         k_slices=tuple(tuple(range(w, nsb, W4A8_WARPS)) for w in range(W4A8_WARPS)),
         smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind), planes=planes,
-        group=SCHEME_GROUP[kind])
+        group=SCHEME_GROUP[FORM_KIND[kind]])
 
 
 def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int,
@@ -499,21 +537,23 @@ _KERNEL_PLANES = {
                     "d": (256, torch.float32)},
     GGMLType.Q2_K: {"qs": (4, torch.uint8), "scm": (16, torch.uint8), "d": (256, torch.float32),
                     "dmin": (256, torch.float32)},
+    GGMLType.Q5_0: {"qs": (2, torch.uint8), "qh": (8, torch.uint8), "dsub": (32, torch.bfloat16)},
 }
 
 
 def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False,
-                  kind: GGMLType = GGMLType.Q4_K):
-    """Checks that `qt` holds `kind`'s kernel planes for a k-deep product;
-    returns them in the order the C entries take them."""
+                  form: GGMLType = GGMLType.Q4_K):
+    """Checks that `qt` holds the kernel planes of the form `form` (a weight
+    of any kind that runs it: Q4_1 weights run Q4_K's forms) for a k-deep
+    product; returns them in the order the C entries take them."""
     p = qt.planes
-    _build.require(qt.kind == kind and qt.kernel_layout,
-                   f"{qt.kind.name}: this matmul takes {kind.name} kernel planes")
+    _build.require(FORM_KIND.get(qt.kind) == form and qt.kernel_layout,
+                   f"{qt.kind.name}: this matmul takes {form.name} kernel planes")
     _build.require(qt.stacked == stacked,
                    f"weight of shape {qt.shape}: expected {'a stack of planes' if stacked else 'one plane'}")
     _build.require(qt.k == k and k % 256 == 0, f"k={k} vs weight {qt.shape}")
     lead = qt.shape[:-1]
-    spec = _KERNEL_PLANES[kind]
+    spec = _KERNEL_PLANES[form]
     _build.require(all(n in p and p[n].shape == (*lead, k // per) for n, (per, _) in spec.items()),
                    f"weight planes do not match the shape {qt.shape}")
     _build.require(all(p[n].dtype == dt for n, (_, dt) in spec.items()),
@@ -565,7 +605,7 @@ def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) ->
     """Launch the dense dequant kernel of scheme `kind` on the card."""
     name = DEQUANT_FORMS[kind]
     rows, k = x2.shape
-    planes = _check_weight(qt, k, x2.device, kind=kind)
+    planes = _check_weight(qt, k, x2.device, form=kind)
     _build.require(x2.dtype == torch.bfloat16, f"{name} takes bfloat16 activations, got {x2.dtype}")
     _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
                    f"{name} copies the weight planes 16 bytes at a time: align them to 16")
@@ -580,17 +620,18 @@ def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) ->
     return out
 
 
-# the dequant kernel of each scheme: its wrapper, launch counter and source
+# the dequant kernel of each form: its wrapper, launch counter and source
 DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k",
                  GGMLType.Q5_K: "qmm_q5k", GGMLType.Q4_0: "qmm_q4_0", GGMLType.Q3_K: "qmm_q3k",
-                 GGMLType.Q2_K: "qmm_q2k"}
+                 GGMLType.Q2_K: "qmm_q2k", GGMLType.Q5_0: "qmm_q5_0"}
 
 
 def _dequant_form(kind: GGMLType):
     """The wrapper of `kind`'s dequant kernel, named as DEQUANT_FORMS says:
     (x2 (rows, k), qt, out_dtype=float32) -> x2 @ W^T (rows, m), float32 sums
-    rounded once to `out_dtype`. On a CPU tensor it computes the plain
-    version (`<name>_plain`, on the planes in _KERNEL_PLANES order)."""
+    rounded once to `out_dtype`, for a weight of any kind whose FORM_KIND is
+    `kind`. On a CPU tensor it computes the plain version (`<name>_plain`,
+    on the planes in _KERNEL_PLANES order)."""
     name = DEQUANT_FORMS[kind]
 
     def wrapper(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
@@ -610,16 +651,17 @@ qmm_q8_0 = _dequant_form(GGMLType.Q8_0)
 qmm_q6k = _dequant_form(GGMLType.Q6_K)
 qmm_q5k = _dequant_form(GGMLType.Q5_K)
 qmm_q4_0 = _dequant_form(GGMLType.Q4_0)
+qmm_q5_0 = _dequant_form(GGMLType.Q5_0)
 qmm_q3k = _dequant_form(GGMLType.Q3_K)
 qmm_q2k = _dequant_form(GGMLType.Q2_K)
 
 
-# the int8-activation form of each scheme: its launch counter, and with
+# the int8-activation form of each form kind: its launch counter, and with
 # "_plain" its plain version (taking the planes in _KERNEL_PLANES order)
 W4A8_FORMS = {GGMLType.Q4_K: "qmm_w4a8", GGMLType.Q8_0: "qmm_w4a8_q8_0",
               GGMLType.Q6_K: "qmm_w4a8_q6k", GGMLType.Q5_K: "qmm_w4a8_q5k",
               GGMLType.Q4_0: "qmm_w4a8_q4_0", GGMLType.Q3_K: "qmm_w4a8_q3k",
-              GGMLType.Q2_K: "qmm_w4a8_q2k"}
+              GGMLType.Q2_K: "qmm_w4a8_q2k", GGMLType.Q5_0: "qmm_w4a8_q5_0"}
 
 
 def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
@@ -630,18 +672,18 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     integer matmul by programmatic dependent launch; float32 sums, rounded once to
     `out_dtype`. With `plane` (rows,) int32, `qt` is a stack (E, m, k) and
     row b multiplies plane[b], read on the device. The launch is
-    `w4a8_plan`'s; each scheme counts its launches under its `W4A8_FORMS`
+    `w4a8_plan`'s; each form counts its launches under its `W4A8_FORMS`
     name, and those of the plane form under that name + ".planes"."""
-    kind = qt.kind
+    kind = FORM_KIND.get(qt.kind)
     if not x2.is_cuda:
         plain = globals()[f"{W4A8_FORMS[kind]}_plain"]
         return plain(x2, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
                      plane=plane).to(out_dtype)
     rows, k = x2.shape
     _build.require(kind in W4A8_FORMS,
-                   f"{kind.name}: qmm_w4a8 takes "
-                   + ", ".join(f.name for f in W4A8_FORMS) + " planes")
-    planes = _check_weight(qt, k, x2.device, stacked=plane is not None, kind=kind)
+                   f"{qt.kind.name}: qmm_w4a8 takes "
+                   + ", ".join(f.name for f in FORM_KIND) + " planes")
+    planes = _check_weight(qt, k, x2.device, stacked=plane is not None, form=kind)
     if plane is not None:
         _build.require(plane.dtype == torch.int32 and plane.shape == (rows,)
                        and plane.device == x2.device and plane.is_contiguous(),
@@ -694,7 +736,7 @@ def qmm_w8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tens
     return out
 
 
-# the grouped dequant kernel of each scheme: its wrapper, launch counter and,
+# the grouped dequant kernel of each form: its wrapper, launch counter and,
 # with "_plain", its plain version
 GROUPED_FORMS = {kind: f"{name}_grouped" for kind, name in DEQUANT_FORMS.items()}
 
@@ -715,7 +757,7 @@ def _grouped_form(kind: GGMLType):
             return plain(xs, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
                          offsets).to(out_dtype)
         rows, k = xs.shape
-        planes = _check_weight(qt, k, xs.device, stacked=True, kind=kind)
+        planes = _check_weight(qt, k, xs.device, stacked=True, form=kind)
         _check_offsets(offsets, qt, xs.device)
         _build.require(xs.dtype == torch.bfloat16,
                        f"{name} takes bfloat16 activations, got {xs.dtype}")
@@ -742,6 +784,7 @@ qmm_q8_0_grouped = _grouped_form(GGMLType.Q8_0)
 qmm_q6k_grouped = _grouped_form(GGMLType.Q6_K)
 qmm_q5k_grouped = _grouped_form(GGMLType.Q5_K)
 qmm_q4_0_grouped = _grouped_form(GGMLType.Q4_0)
+qmm_q5_0_grouped = _grouped_form(GGMLType.Q5_0)
 qmm_q3k_grouped = _grouped_form(GGMLType.Q3_K)
 qmm_q2k_grouped = _grouped_form(GGMLType.Q2_K)
 
@@ -777,7 +820,7 @@ def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
     see models/forward.py.)"""
     if w8 and "w8" in qt.planes:
         return qmm_w8_grouped(xs, qt, offsets, xs.dtype)
-    return globals()[GROUPED_FORMS[qt.kind]](xs, qt, offsets, xs.dtype)
+    return globals()[GROUPED_FORMS[FORM_KIND[qt.kind]]](xs, qt, offsets, xs.dtype)
 
 
 def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
@@ -790,7 +833,7 @@ def route(rows: int, has_w8: bool, kind: GGMLType = GGMLType.Q4_K) -> str:
         return "qmm_w4a8"
     if has_w8 and padded >= W8_MIN_ROWS:
         return "qmm_w8"
-    return DEQUANT_FORMS[kind]
+    return DEQUANT_FORMS[FORM_KIND[kind]]
 
 
 def qmatmul_quant(x: torch.Tensor, qt: QTensor) -> torch.Tensor:

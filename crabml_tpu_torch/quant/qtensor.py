@@ -34,6 +34,19 @@ experts with a leading expert axis on every plane, as named torch planes:
   into Q4_K's per-64 order (byte j of a 64-element chunk holds element j low
   and j + 32 high), so both CUDA kernels unpack it as they unpack Q4_K, and
   `dsub` = d, one per 32, so w = (val - 8)*dsub.
+- Q4_1, canonical planes: Q4_0's `qs` and `d`, and `mn` f32 (m, k/32), the
+  block's float minimum m, so w = val*d + m. Kernel planes: Q4_K's, `qs`
+  reordered into the per-64 order as Q4_0's, `dsub` = d and `msub` = m, so
+  both CUDA kernels run it as Q4_K (the same function: val*dsub + msub).
+- Q5_0, canonical planes: `qs` and `d` as Q4_0's and `qh` u8 (m, k/8), each
+  block's little-endian u32 of fifth bits (bit j of the k-long bit string is
+  the top bit of element j). Kernel planes: `qs` in the per-64 order, `qh`
+  moved into Q5_K's per-superblock order (`qh_to_q5k_order`) and `dsub` = d,
+  so w = (val - 16)*dsub, val 0..31.
+- Q5_1, canonical planes: Q5_0's and `mn`; kernel planes Q5_K's (`qs`,
+  `qh`, `dsub` = d, `msub` = m), so both kernels run it as Q5_K.
+- Q8_1, canonical planes: Q8_0's (`qs` i8 after ggml's d and s, `d`; the
+  block sum s is not needed); kernel planes Q8_0's, and Q8_0's kernels.
 - Q2_K, canonical planes: `qs` u8 (m, k/4), the 2-bit values in Q6_K's
   `qh` order (bits 2s, 2s + 1 of byte j of a 128-element half's 32 bytes are
   element 32s + j, `q2_values`), `sc`, `mn` u8 (m, k/16) (the two 4-bit
@@ -70,7 +83,18 @@ from ..gguf.constants import GGMLType, GGML_BLOCK_SIZES, QK_K
 
 # the kinds that have kernel planes and CUDA matmuls
 KERNEL_KINDS = (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
-                GGMLType.Q2_K, GGMLType.Q3_K)
+                GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1,
+                GGMLType.Q8_1)
+# the kind whose kernel planes and CUDA forms each kind runs: Q4_1, Q5_1 and
+# Q8_1 have exactly Q4_K's, Q5_K's and Q8_0's planes in kernel layout, and
+# those forms compute exactly their functions
+FORM_KIND = {k: k for k in KERNEL_KINDS} | {GGMLType.Q4_1: GGMLType.Q4_K,
+                                            GGMLType.Q5_1: GGMLType.Q5_K,
+                                            GGMLType.Q8_1: GGMLType.Q8_0}
+# ggml's 32-element blocks of nibbles (Q5's with a fifth-bit word): their
+# per-32 orders are reordered at load, and their offsets (or float minimum m)
+LEGACY_KINDS = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
+_LEGACY_OFFSET = {GGMLType.Q4_0: 8, GGMLType.Q5_0: 16}
 
 
 @dataclass
@@ -131,10 +155,10 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
     if typ in (GGMLType.F32, GGMLType.F16):
         dt = torch.float32 if typ == GGMLType.F32 else torch.float16
         planes = {"w": _u8(raw, device).view(dt).reshape(m, k)}
-    elif typ == GGMLType.Q8_0:
-        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 34)
+    elif typ in (GGMLType.Q8_0, GGMLType.Q8_1):
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 34) or (nb, 36)
         planes = {
-            "qs": b[:, 2:34].contiguous().view(torch.int8).reshape(m, k),
+            "qs": b[:, -32:].contiguous().view(torch.int8).reshape(m, k),
             "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32),
         }
     elif typ == GGMLType.Q6_K:
@@ -145,12 +169,14 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
             "sc": b[:, 192:208].contiguous().view(torch.int8).reshape(m, k // 16),
             "d": b[:, 208:210].contiguous().view(torch.float16).float().reshape(m, k // QK_K),
         }
-    elif typ == GGMLType.Q4_0:
-        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 18)
-        planes = {
-            "qs": b[:, 2:18].reshape(m, k // 2),
-            "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32),
-        }
+    elif typ in LEGACY_KINDS:
+        b = _u8(raw, device).reshape(-1, GGML_BLOCK_SIZES[typ][1])  # (nb, 18 / 20 / 22 / 24)
+        planes = {"qs": b[:, -16:].reshape(m, k // 2),
+                  "d": b[:, 0:2].contiguous().view(torch.float16).float().reshape(m, k // 32)}
+        if typ in (GGMLType.Q4_1, GGMLType.Q5_1):  # the float minimum m follows d
+            planes["mn"] = b[:, 2:4].contiguous().view(torch.float16).float().reshape(m, k // 32)
+        if typ in (GGMLType.Q5_0, GGMLType.Q5_1):  # the four qh bytes precede the nibbles
+            planes["qh"] = b[:, -20:-16].reshape(m, k // 8)
     elif typ in (GGMLType.Q2_K, GGMLType.Q3_K) and k % QK_K:
         raise UnsupportedError(
             f"{typ.name} weight of shape {tuple(shape)}: rows of 256-element superblocks only")
@@ -187,8 +213,8 @@ def to_planar(typ: GGMLType, raw, shape, device="cpu") -> QTensor:
             planes["qh"] = b[:, 16:48].reshape(m, k // 8)
     else:
         raise UnsupportedError(
-            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q4_0, Q2_K, Q3_K, Q4_K, Q5_K "
-            "and Q6_K")
+            f"{typ.name} weights: this port handles F32, F16, Q8_0, Q8_1, Q4_0, Q4_1, Q5_0, Q5_1, "
+            "Q2_K, Q3_K, Q4_K, Q5_K and Q6_K")
     if len(shape) != 3:
         return QTensor(typ, (m, k), planes)
     E = int(shape[0])
@@ -238,6 +264,33 @@ def q4_0_values(qs: torch.Tensor) -> torch.Tensor:
     lead = qs.shape[:-1]
     q = qs.reshape(*lead, -1, 16)
     return torch.cat([q & 0xF, q >> 4], dim=-1).reshape(*lead, -1)
+
+
+def _le_bits(qh: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/8) u8, a little-endian bit string (Q5_0's and Q5_1's qh:
+    bit j of byte i is element 8i + j) -> (..., m, k) bits."""
+    lead = qh.shape[:-1]
+    return torch.stack([(qh >> b) & 1 for b in range(8)], dim=-1).reshape(*lead, -1)
+
+
+def q5_0_values(qs: torch.Tensor, qh: torch.Tensor) -> torch.Tensor:
+    """(..., m, k/2) qs in ggml's per-32 order and (..., m, k/8) qh as ggml
+    keeps it (Q5_0 and Q5_1) -> (..., m, k) values 0..31 (u8); Q5_0's are 16
+    above the signed weight."""
+    return q4_0_values(qs) | (_le_bits(qh) << 4)
+
+
+def qh_to_q5k_order(qh: torch.Tensor) -> torch.Tensor:
+    """Q5_0's / Q5_1's (..., m, k/8) qh (a little-endian bit string) ->
+    the same bits in Q5_K's per-superblock order (bit b of byte l of a
+    superblock's 32 bytes is element 32b + l), the inverse of `_bit_plane`;
+    k % 256 == 0."""
+    lead = qh.shape[:-1]
+    bits = _le_bits(qh).reshape(*lead, -1, 8, 32)  # (.., superblock, b, l)
+    out = torch.zeros(*lead, bits.shape[-3], 32, dtype=torch.uint8, device=qh.device)
+    for b in range(8):
+        out |= bits[..., b, :] << b
+    return out.reshape(*lead, -1)
 
 
 def nibble_pack(vals: torch.Tensor) -> torch.Tensor:
@@ -292,16 +345,26 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     p = qt.planes
     if "w" in p:
         return p["w"].to(dtype)
-    if qt.kind == GGMLType.Q8_0:
+    if qt.kind in (GGMLType.Q8_0, GGMLType.Q8_1):
         w = p["qs"].float().reshape(*qt.shape[:-1], qt.k // 32, 32) * _dsub(qt, 32)[..., None]
         return w.reshape(qt.shape).to(dtype)
     if qt.kind == GGMLType.Q6_K:
         q = (q6k_values(p["ql"], p["qh"]).float() - 32).reshape(*qt.shape[:-1], qt.k // 16, 16)
         return (q * _dsub(qt, 16)[..., None]).reshape(qt.shape).to(dtype)
-    if qt.kind == GGMLType.Q4_0:
-        vals = nibbles(p["qs"]) if qt.kernel_layout else q4_0_values(p["qs"])
-        q = (vals.float() - 8).reshape(*qt.shape[:-1], qt.k // 32, 32)
-        return (q * _dsub(qt, 32)[..., None]).reshape(qt.shape).to(dtype)
+    if qt.kind in LEGACY_KINDS:
+        if qt.kernel_layout:
+            vals = nibbles(p["qs"]) if "qh" not in p else q5k_values(p["qs"], p["qh"])
+            d, mn = p["dsub"].float(), p.get("msub")
+        else:
+            vals = q4_0_values(p["qs"]) if "qh" not in p else q5_0_values(p["qs"], p["qh"])
+            d, mn = p["d"], p.get("mn")
+        q = vals.float().reshape(*qt.shape[:-1], qt.k // 32, 32)
+        if mn is None:  # Q4_0, Q5_0: (val - offset) * d
+            q = q - _LEGACY_OFFSET[qt.kind]
+            return (q * d[..., None]).reshape(qt.shape).to(dtype)
+        # Q4_1, Q5_1: q*d + m as two roundings, as the codec computes it
+        w = q * d[..., None]
+        return (w + mn.float()[..., None]).reshape(qt.shape).to(dtype)
     if qt.kind in (GGMLType.Q2_K, GGMLType.Q3_K):
         dl, ml = k16_scales(qt.kind, p)
         if ml is None:  # Q3_K: (val - 4) * d*sc
@@ -322,12 +385,14 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
-    """Canonical planes -> kernel planes: {qs, dsub, msub} for Q4_K, {qs,
-    qh, dsub, msub} for Q5_K, {qs, dsub} for Q8_0 and Q4_0 (Q4_0's nibbles
-    reordered into the per-64 order), {ql, qh, dsub} for Q6_K, the float32
-    scale rounded once to `scale_dtype`; {qs, scm, d, dmin} for Q2_K and Q3_K's
-    own planes, whose scales stay exact whatever `scale_dtype`. F32 and F16
-    are returned as they are (they take the dense matmul)."""
+    """Canonical planes -> kernel planes: {qs, dsub, msub} for Q4_K and
+    Q4_1, {qs, qh, dsub, msub} for Q5_K and Q5_1, {qs, qh, dsub} for Q5_0,
+    {qs, dsub} for Q8_0, Q8_1 and Q4_0 (the legacy kinds' nibbles reordered
+    into the per-64 order, their qh into Q5_K's), {ql, qh, dsub} for Q6_K,
+    the float32 scale rounded once to `scale_dtype`; {qs, scm, d, dmin} for
+    Q2_K and Q3_K's own planes, whose scales stay exact whatever
+    `scale_dtype`. F32 and F16 are returned as they are (they take the dense
+    matmul)."""
     p = qt.planes
     if qt.kind == GGMLType.Q3_K or (qt.kind == GGMLType.Q2_K and not qt.kernel_layout):
         if qt.k % QK_K:
@@ -341,14 +406,24 @@ def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
         return QTensor(qt.kind, qt.shape, planes)
     if qt.kind not in KERNEL_KINDS or qt.kernel_layout:
         return qt
-    if qt.kind == GGMLType.Q8_0:
+    if qt.kind in (GGMLType.Q8_0, GGMLType.Q8_1):
         return QTensor(qt.kind, qt.shape, {"qs": p["qs"].contiguous(),
                                            "dsub": _dsub(qt, 32).to(scale_dtype)})
-    if qt.kind == GGMLType.Q4_0:
+    if qt.kind in LEGACY_KINDS:
+        if "qh" in p and qt.k % QK_K:
+            raise UnsupportedError(
+                f"{qt.kind.name} weight of shape {qt.shape}: rows of 256-element superblocks "
+                "only (the fifth bits move into Q5_K's per-superblock order)")
         if qt.k % 64:
-            raise UnsupportedError(f"Q4_0 weight of shape {qt.shape}: rows of 64-element chunks only")
-        return QTensor(qt.kind, qt.shape, {"qs": nibble_pack(q4_0_values(p["qs"])),
-                                           "dsub": _dsub(qt, 32).to(scale_dtype)})
+            raise UnsupportedError(
+                f"{qt.kind.name} weight of shape {qt.shape}: rows of 64-element chunks only")
+        planes = {"qs": nibble_pack(q4_0_values(p["qs"]))}
+        if "qh" in p:
+            planes["qh"] = qh_to_q5k_order(p["qh"])
+        planes["dsub"] = p["d"].to(scale_dtype)
+        if "mn" in p:
+            planes["msub"] = p["mn"].to(scale_dtype)
+        return QTensor(qt.kind, qt.shape, planes)
     if qt.kind == GGMLType.Q6_K:
         return QTensor(qt.kind, qt.shape, {"ql": p["ql"].contiguous(), "qh": p["qh"].contiguous(),
                                            "dsub": _dsub(qt, 16).to(scale_dtype)})

@@ -13,6 +13,13 @@ qmm_q4k_plain is printed beside it.
 
     python -m crabml_tpu_torch.tools.qmm_ablation    # needs one CUDA card
 
+With the argument `q5_0` it times csrc/qmm_q5_0.cu's two exact conversions
+instead, at the same shapes on Q5_0 planes: as committed (the bf16 pair 128
++ val, one HSUB2 of 144 and one HMUL2 by the scale pair) and with an FFMA a
+weight ((128 + val) * d + (-144 d) in float32, exact, then rounded to bf16
+in pairs, as the Q4_K and Q5_K sources convert); both give the plain
+version's numbers bit for bit.
+
 Prints the card and its power limit, then one JSON line a shape.
 """
 
@@ -24,6 +31,7 @@ import math
 import shutil
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -32,7 +40,7 @@ import torch
 from ..gguf.constants import GGMLType
 from ..ops.cuda import _build, gemm_quant
 from ..quant.qtensor import to_kernel_layout, to_planar
-from .synth_gguf import q4k_blocks
+from .synth_gguf import q4k_blocks, q5_0_blocks
 
 _MMA = """            wg::Mma<NX>::template rs<0>(acc, use[kk], wg::desc128(smem_s + slot * SB + kk * 32),
                                         !(first && kk == 0));"""
@@ -70,6 +78,21 @@ VARIANTS = {
     "stages_5": [("qmm_pipe.cuh", _STAGES, "constexpr int STAGES = 5;")],
     "stages_8": [("qmm_pipe.cuh", _STAGES, "constexpr int STAGES = 8;")],
 }
+_Q50_CONV = """                const __nv_bfloat162 wl =
+                    __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo), b2), dl);
+                const __nv_bfloat162 wh =
+                    __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi), b2), dh);
+                a[m >> 1][2 * (m & 1) + h] = *reinterpret_cast<const uint32_t*>(&wl);
+                a[2 + (m >> 1)][2 * (m & 1) + h] = *reinterpret_cast<const uint32_t*>(&wh);"""
+_Q50_FFMA = """                const float fl = __uint_as_float(dp << 16);
+                const float fh = __uint_as_float(dp & 0xFFFF0000u);
+                a[m >> 1][2 * (m & 1) + h] = wg::pack_bf16(
+                    __fmaf_rn(__uint_as_float(lo << 16), fl, -144.0f * fl),
+                    __fmaf_rn(__uint_as_float(lo & 0xFFFF0000u), fl, -144.0f * fl));
+                a[2 + (m >> 1)][2 * (m & 1) + h] = wg::pack_bf16(
+                    __fmaf_rn(__uint_as_float(hi << 16), fh, -144.0f * fh),
+                    __fmaf_rn(__uint_as_float(hi & 0xFFFF0000u), fh, -144.0f * fh));"""
+Q50_VARIANTS = {"committed": [], "ffma": [("qmm_q5_0.cu", _Q50_CONV, _Q50_FFMA)]}
 # (rows, columns, k): the fused q|k|v and the down projection of a 512-row
 # chunk, and the 189-row chunk
 SHAPES = ((512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096))
@@ -125,33 +148,43 @@ def device_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["q5_0"]):
+        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0]")
+        return 2
     if not torch.cuda.is_available():
         print("qmm_ablation: needs a CUDA card")
         return 1
     tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"gpu: {tag}")
-    entries = build(VARIANTS)
+    q50 = argv == ["q5_0"]
+    kind, blocks_of, names = ((GGMLType.Q5_0, q5_0_blocks, ("qs", "qh", "dsub")) if q50 else
+                              (GGMLType.Q4_K, q4k_blocks, ("qs", "dsub", "msub")))
+    entries = (build(Q50_VARIANTS, "qmm_q5_0.cu", "qmm_q5_0_bf16") if q50 else build(VARIANTS))
+    plain = gemm_quant.qmm_q5_0_plain if q50 else gemm_quant.qmm_q4k_plain
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for rows, m, k in SHAPES:
-        blocks = q4k_blocks(np.random.default_rng(m + k), m * k, 1.0 / math.sqrt(k))
-        qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (m, k), "cuda"), torch.bfloat16)
-        p = qt.planes
+        blocks = blocks_of(np.random.default_rng(m + k), m * k, 1.0 / math.sqrt(k))
+        qt = to_kernel_layout(to_planar(kind, blocks, (m, k), "cuda"), torch.bfloat16)
+        planes = [qt.planes[n] for n in names]
         x = torch.randn(rows, k, device="cuda").to(torch.bfloat16)
-        want = gemm_quant.qmm_q4k_plain(x, p["qs"], p["dsub"], p["msub"])
+        want = plain(x, *planes)
         out = torch.empty(rows, m, dtype=torch.bfloat16, device="cuda")
-        line = {"shape": f"{rows}x{k} @ ({m}x{k})^T"}
+        line = {"shape": f"{rows}x{k} @ ({m}x{k})^T", "scheme": kind.name}
         for name, fn in entries.items():
             def launch(fn=fn):
-                err = fn(x.data_ptr(), p["qs"].data_ptr(), p["dsub"].data_ptr(),
-                         p["msub"].data_ptr(), out.data_ptr(), 1, rows, m, k,
-                         _build.stream_ptr(x))
+                err = fn(x.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), 1, rows,
+                         m, k, _build.stream_ptr(x))
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             ms = device_ms(launch, flush)
             rel = ((out.float() - want).abs().max() / want.abs().max()).item()
             line[name] = {"ms": ms, "rel_err": rel}
+            if q50:  # the same bf16 weights through the same loop: the same output
+                first = out.clone() if name == "committed" else first
+                line[name]["equals_committed"] = torch.equal(out, first)
         print(json.dumps(line), flush=True)
     return 0
 

@@ -1,6 +1,6 @@
 """Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K,
-Q5_K, Q6_K, Q8_0, Q4_0, Q3_K or Q2_K weights, or llama.cpp's mixed _K_M and
-Q2_K layouts) in seconds.
+Q5_K, Q6_K, Q8_0, Q4_0, Q3_K, Q2_K, Q4_1, Q5_0, Q5_1 or Q8_1 weights, or
+llama.cpp's mixed _K_M, Q2_K and legacy layouts) in seconds.
 
 No multi-GB checkpoint ships with the repo, so the port's main path runs on a
 byte-valid GGUF v3 made from a seed. Every block gets random quant bytes and
@@ -29,6 +29,14 @@ finite through every layer:
 - Q3_K (256 weights, 110 bytes): random `hmask`, `qs` and `scales`; the
   3-bit value less 4 (-4..3) has an rms of ~2.35 and the 6-bit scale less
   32 (-32..31) an rms of ~18.5, so d = sigma/43.34.
+- Q4_1 (32 weights, 20 bytes): random nibbles, m = -7.5*d (the nibbles'
+  mean), so w = d*q + m has a standard deviation of ~4.61*d: d = sigma/4.61.
+- Q5_0 (32 weights, 22 bytes): random `qh` and nibbles; q - 16 (-16..15) has
+  a standard deviation of ~9.23, so d = sigma/9.23.
+- Q5_1 (32 weights, 24 bytes): random `qh` and nibbles, m = -15.5*d: w has a
+  standard deviation of ~9.23*d, so d = sigma/9.23.
+- Q8_1 (32 weights, 36 bytes): Q8_0's values and d, and ggml's block sum
+  s = f16(d * sum(qs)).
 
 `lm_head` writes `output.weight` in another scheme than the rest: Q6_K beside
 Q4_K layers is what llama.cpp's Q4_K_S and Q4_K_M files carry
@@ -51,6 +59,12 @@ tensor's type (`mix_kind`; i is the layer of n, n the file's depth after
   `ffn_gate`, `ffn_up` and `token_embd` are Q2_K; `attn_v` is Q4_K where
   n_heads / n_kv_heads >= 4 (`n_gqa() >= 4`) and Q3_K otherwise;
   `attn_output` and `ffn_down` are Q3_K.
+- `legacy` over q4_0, q4_1, q5_0 or q5_1 (LLAMA_FTYPE_MOSTLY_Q4_0, Q4_1,
+  Q5_0, Q5_1): every matrix and `token_embd` in `scheme`.
+- `imatrix` over q4_0 or q5_0 (the same file types quantized with an
+  importance matrix): `legacy`, and `ffn_down` in Q4_1 (over q4_0) or Q5_1
+  (over q5_0) where i < n/8 (`has_imatrix && i_layer < n_layer/8`, the
+  guard of the first few ffn_down layers).
 
 So `--scheme q4_k --mix k_m` is a Q4_K_M file, `--scheme q5_k --mix k_m` a
 Q5_K_M one, `--scheme q3_k --mix k_m` a Q3_K_M one and `--scheme q2_k --mix
@@ -64,9 +78,11 @@ and `ffn_up_exps` are in `scheme`, `ffn_down_exps` as `ffn_down` above. A
 model of 8 experts (Mixtral-8x7B; `n_expert == 8` in llama.cpp) has two
 overrides that come after each mix's own rule:
 
-- `attn_k` and `attn_v` are Q8_0 in every layer;
+- `attn_k` and `attn_v` are Q8_0 in every layer, under every mix;
 - `attn_output` is Q5_K under Q4_K_M, Q3_K_M and Q2_K (the 8-expert branch
-  of its rule, in place of the dense one); Q5_K_M keeps its base Q5_K.
+  of its rule, in place of the dense one, which names K-quant file types
+  only); Q5_K_M keeps its base Q5_K, and `legacy` and `imatrix` their
+  scheme.
 
 So an 8-expert Q4_K_M file holds Q4_K q, gate|up and embedding, Q8_0 k and
 v, Q5_K attn_output and ffn_down_exps in Q6_K where use_more_bits holds (Q4_K
@@ -95,6 +111,8 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model mixtral-8x7b --layers 8 \
         --scheme q4_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q5_0 --mix imatrix
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q4_1 --mix legacy
 """
 
 from __future__ import annotations
@@ -133,10 +151,22 @@ def synth_tokenizer(vocab: int):
     return tokens[:vocab], scores[:vocab]
 
 
+def random_blocks(rng: np.random.Generator, count: int, size: int) -> np.ndarray:
+    """(count, size) u8, writable: the bytes of rng.bytes(count * size) from
+    np.random.default_rng's PCG64, drawn ~4x faster. Generator.bytes takes
+    its 64-bit outputs in little-endian order, so whole outputs are those
+    bytes; with a half output cached, or a byte count that is not whole
+    outputs, it is rng.bytes itself."""
+    n = count * size
+    if n % 8 or rng.bit_generator.state["has_uint32"]:
+        return np.frombuffer(rng.bytes(n), np.uint8).reshape(count, size).copy()
+    return rng.bit_generator.random_raw(n // 8).view(np.uint8).reshape(count, size)
+
+
 def q4k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/256, 144) u8 Q4_K blocks with random scales and
     nibbles and fixed f16 d = sigma/255, dmin = 7.5*d."""
-    blocks = np.frombuffer(rng.bytes(n // 256 * 144), np.uint8).reshape(-1, 144).copy()
+    blocks = random_blocks(rng, n // 256, 144)
     d = np.float16(sigma / 255.0)
     blocks[:, 0:4] = np.array([d, np.float16(7.5 * float(d))], np.float16).view(np.uint8)
     return blocks
@@ -145,9 +175,9 @@ def q4k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q8_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/32, 34) u8 Q8_0 blocks with random int8 values in
     -127..127 and a fixed f16 d = sigma/73.3."""
-    blocks = np.frombuffer(rng.bytes(n // 32 * 34), np.uint8).reshape(-1, 34).copy()
+    blocks = random_blocks(rng, n // 32, 34)
     q = blocks[:, 2:34].view(np.int8)
-    q[q == -128] = -127
+    np.maximum(q, -127, out=q)
     blocks[:, 0:2] = np.array([sigma / 73.3], np.float16).view(np.uint8)
     return blocks
 
@@ -155,7 +185,7 @@ def q8_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q6k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/256, 210) u8 Q6_K blocks with random ql, qh and int8
     scales and a fixed f16 d = sigma/1367."""
-    blocks = np.frombuffer(rng.bytes(n // 256 * 210), np.uint8).reshape(-1, 210).copy()
+    blocks = random_blocks(rng, n // 256, 210)
     blocks[:, 208:210] = np.array([sigma / 1367.0], np.float16).view(np.uint8)
     return blocks
 
@@ -163,7 +193,7 @@ def q6k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q5k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/256, 176) u8 Q5_K blocks with random scales, qh and
     nibbles and fixed f16 d = sigma/527, dmin = 15.5*d."""
-    blocks = np.frombuffer(rng.bytes(n // 256 * 176), np.uint8).reshape(-1, 176).copy()
+    blocks = random_blocks(rng, n // 256, 176)
     d = np.float16(sigma / 527.0)
     blocks[:, 0:4] = np.array([d, np.float16(15.5 * float(d))], np.float16).view(np.uint8)
     return blocks
@@ -172,7 +202,7 @@ def q5k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q4_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/32, 18) u8 Q4_0 blocks with random nibbles and a fixed
     f16 d = sigma/4.64."""
-    blocks = np.frombuffer(rng.bytes(n // 32 * 18), np.uint8).reshape(-1, 18).copy()
+    blocks = random_blocks(rng, n // 32, 18)
     blocks[:, 0:2] = np.array([sigma / 4.64], np.float16).view(np.uint8)
     return blocks
 
@@ -180,7 +210,7 @@ def q4_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q2k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/256, 84) u8 Q2_K blocks with random scales and 2-bit
     values and fixed f16 d = sigma/13.87, dmin = 1.5*d."""
-    blocks = np.frombuffer(rng.bytes(n // 256 * 84), np.uint8).reshape(-1, 84).copy()
+    blocks = random_blocks(rng, n // 256, 84)
     d = np.float16(sigma / 13.87)
     blocks[:, 80:84] = np.array([d, np.float16(1.5 * float(d))], np.float16).view(np.uint8)
     return blocks
@@ -189,8 +219,47 @@ def q2k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
 def q3k_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/256, 110) u8 Q3_K blocks with random hmask, 2-bit
     values and 6-bit scales and a fixed f16 d = sigma/43.34."""
-    blocks = np.frombuffer(rng.bytes(n // 256 * 110), np.uint8).reshape(-1, 110).copy()
+    blocks = random_blocks(rng, n // 256, 110)
     blocks[:, 108:110] = np.array([sigma / 43.34], np.float16).view(np.uint8)
+    return blocks
+
+
+def q4_1_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 20) u8 Q4_1 blocks with random nibbles and fixed
+    f16 d = sigma/4.61, m = -7.5*d."""
+    blocks = random_blocks(rng, n // 32, 20)
+    d = np.float16(sigma / 4.61)
+    blocks[:, 0:4] = np.array([d, np.float16(-7.5 * float(d))], np.float16).view(np.uint8)
+    return blocks
+
+
+def q5_0_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 22) u8 Q5_0 blocks with random qh and nibbles and
+    a fixed f16 d = sigma/9.23."""
+    blocks = random_blocks(rng, n // 32, 22)
+    blocks[:, 0:2] = np.array([sigma / 9.23], np.float16).view(np.uint8)
+    return blocks
+
+
+def q5_1_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 24) u8 Q5_1 blocks with random qh and nibbles and
+    fixed f16 d = sigma/9.23, m = -15.5*d."""
+    blocks = random_blocks(rng, n // 32, 24)
+    d = np.float16(sigma / 9.23)
+    blocks[:, 0:4] = np.array([d, np.float16(-15.5 * float(d))], np.float16).view(np.uint8)
+    return blocks
+
+
+def q8_1_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n/32, 36) u8 Q8_1 blocks: Q8_0's random values and d,
+    and the block sum s = f16(d * sum(qs))."""
+    blocks = np.empty((n // 32, 36), np.uint8)
+    q8 = q8_0_blocks(rng, n, sigma)
+    blocks[:, 0:2] = q8[:, 0:2]
+    blocks[:, 4:36] = q8[:, 2:34]
+    d = float(q8[0, 0:2].view(np.float16)[0])
+    s = d * q8[:, 2:34].view(np.int8).sum(axis=1, dtype=np.int64)
+    blocks[:, 2:4] = s.astype(np.float16).view(np.uint8).reshape(-1, 2)
     return blocks
 
 
@@ -202,8 +271,41 @@ SCHEMES = {  # --scheme -> (GGML type, block writer)
     "q4_0": (GGMLType.Q4_0, q4_0_blocks),
     "q3_k": (GGMLType.Q3_K, q3k_blocks),
     "q2_k": (GGMLType.Q2_K, q2k_blocks),
+    "q4_1": (GGMLType.Q4_1, q4_1_blocks),
+    "q5_0": (GGMLType.Q5_0, q5_0_blocks),
+    "q5_1": (GGMLType.Q5_1, q5_1_blocks),
+    "q8_1": (GGMLType.Q8_1, q8_1_blocks),
 }
-MIXES = ("k_m", "q2_k")
+# the byte offsets in each block of its f16 scale and minimum fields (d, and
+# dmin or m), for vary_scales
+SCALE_FIELDS = {
+    GGMLType.Q4_K: (0, 2), GGMLType.Q8_0: (0,), GGMLType.Q6_K: (208,), GGMLType.Q5_K: (0, 2),
+    GGMLType.Q4_0: (0,), GGMLType.Q3_K: (108,), GGMLType.Q2_K: (80, 82),
+    GGMLType.Q4_1: (0, 2), GGMLType.Q5_0: (0,), GGMLType.Q5_1: (0, 2), GGMLType.Q8_1: (0,),
+}
+
+
+def vary_scales(kind: GGMLType, blocks: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """The writers' `blocks` of `kind` with each f16 scale and minimum field
+    of every block times a random factor of its own in [0.5, 2] (Q8_1's s
+    made again from the new d), in place. The writers give every block one d
+    (and m), so a kernel that read another block's, row's or expert's scale
+    would give the same numbers on their blocks; on these it cannot."""
+    for off in SCALE_FIELDS[kind]:
+        f = blocks[:, off:off + 2].copy().view(np.float16).astype(np.float32)
+        f *= np.exp2(rng.uniform(-1.0, 1.0, f.shape)).astype(np.float32)
+        blocks[:, off:off + 2] = f.astype(np.float16).view(np.uint8)
+    if kind == GGMLType.Q8_1:
+        d = blocks[:, 0:2].copy().view(np.float16)[:, 0].astype(np.float64)
+        s = d * blocks[:, 4:36].view(np.int8).sum(axis=1, dtype=np.int64)
+        blocks[:, 2:4] = s.astype(np.float16).view(np.uint8).reshape(-1, 2)
+    return blocks
+
+
+# --mix -> the --scheme values it takes (the module docstring's tables)
+MIXES = {"k_m": ("q4_k", "q5_k", "q3_k"), "q2_k": ("q2_k",),
+         "legacy": ("q4_0", "q4_1", "q5_0", "q5_1"), "imatrix": ("q4_0", "q5_0")}
+IMATRIX_DOWN = {"q4_0": "q4_1", "q5_0": "q5_1"}  # ffn_down of the first n/8 layers
 
 
 def use_more_bits(i: int, n: int) -> bool:
@@ -222,8 +324,10 @@ def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int
     if mix is not None and experts == 8:
         if tensor in ("attn_k", "attn_v"):
             return "q8_0"
-        if tensor == "attn_output":
+        if tensor == "attn_output" and mix in ("k_m", "q2_k"):
             return "q5_k"
+    if mix == "imatrix" and tensor == "ffn_down" and i < n // 8:
+        return IMATRIX_DOWN[scheme]
     if mix == "q2_k":
         if tensor == "attn_v":
             return "q4_k" if gqa >= 4 else "q3_k"
@@ -248,8 +352,9 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     `mix`, each layer tensor in the type `mix_kind` gives it."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
-    if mix is not None and (mix not in MIXES or (mix == "q2_k") != (scheme == "q2_k")):
-        raise ValueError(f"mix {mix!r} over scheme {scheme!r}: 'k_m', or 'q2_k' over q2_k")
+    if mix is not None and scheme not in MIXES.get(mix, ()):
+        raise ValueError(f"mix {mix!r} over scheme {scheme!r}: "
+                         + "; ".join(f"{m!r} over {', '.join(s)}" for m, s in MIXES.items()))
     lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
     meta = {
@@ -343,8 +448,10 @@ def main(argv=None):
                     help="k_m: llama.cpp's _K_M layout over the --scheme layers (Q4_K_M and "
                          "Q5_K_M: attn_v and ffn_down in Q6_K where use_more_bits holds; Q3_K_M "
                          "over q3_k); q2_k: llama.cpp's Q2_K file type (with --scheme q2_k); "
-                         "a Q6_K output; with 8 experts Q8_0 attn_k / attn_v and (not Q5_K_M) a "
-                         "Q5_K attn_output")
+                         "legacy: llama.cpp's Q4_0, Q4_1, Q5_0 or Q5_1 file type; imatrix: a "
+                         "Q4_0 or Q5_0 file made with an importance matrix (ffn_down in Q4_1 / "
+                         "Q5_1 below n/8); a Q6_K output; with 8 experts Q8_0 attn_k / attn_v "
+                         "and (k_m but Q5_K_M, q2_k) a Q5_K attn_output")
     args = ap.parse_args(argv)
     build_synth_gguf(args.out, args.model, args.seed, args.layers, verbose=True,
                      scheme=args.scheme, lm_head=args.lm_head, mix=args.mix)

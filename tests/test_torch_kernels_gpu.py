@@ -20,8 +20,8 @@ from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_att
 from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
                                                               paged_decode_attention_fused,
                                                               paged_decode_attention_plain)
-from crabml_tpu_torch.quant.qtensor import (QTensor, dequantize, plane_of, to_kernel_layout,
-                                             to_planar)
+from crabml_tpu_torch.quant.qtensor import (FORM_KIND, QTensor, dequantize, plane_of,
+                                             to_kernel_layout, to_planar)
 from crabml_tpu_torch.tools.synth_gguf import q4k_blocks
 
 pytestmark = pytest.mark.gpu
@@ -949,15 +949,23 @@ def test_random_numbers_work_after_a_failed_capture(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K forms: the dequant kernels
-# (qmm_q8_0.cu, qmm_q6k.cu, qmm_q5k.cu, qmm_q4_0.cu, qmm_q3k.cu, qmm_q2k.cu)
-# and the int8-activation forms of qmm_w4a8.cu
+# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K and Q5_0 forms: the dequant kernels
+# (qmm_q8_0.cu, qmm_q6k.cu, qmm_q5k.cu, qmm_q4_0.cu, qmm_q3k.cu, qmm_q2k.cu,
+# qmm_q5_0.cu) and the int8-activation forms of qmm_w4a8.cu; and the Q4_1,
+# Q5_1 and Q8_1 weights, which run the Q4_K, Q5_K and Q8_0 forms on planes
+# converted from their own blocks
 # ---------------------------------------------------------------------------
 
 SCHEME_KINDS = pytest.mark.parametrize(
     "kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
-             GGMLType.Q2_K],
-    ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+             GGMLType.Q2_K, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1, GGMLType.Q8_1],
+    ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0", "q4_1", "q5_1", "q8_1"])
+# the every-value cases: each kind with a form of its own, and Q4_1 for Q4_K's
+# planes (Q5_1's and Q8_1's are exactly Q5_K's and Q8_0's cases)
+EVERY_VALUE_KINDS = pytest.mark.parametrize(
+    "kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
+             GGMLType.Q2_K, GGMLType.Q5_0, GGMLType.Q4_1],
+    ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0", "q4_1"])
 K16_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q3_K, GGMLType.Q2_K], ids=["q3_k", "q2_k"])
 
 
@@ -968,36 +976,47 @@ def _x(rows, k, seed):
     return torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
 
 
-def _scheme_weight(kind, m, k, seed):
-    """A random (m, k) weight of `kind` (synth_gguf's blocks), kernel planes, bf16 scales."""
-    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+def _scheme_raw(kind, n, k, seed):
+    """Random blocks of `kind` for n weights (synth_gguf's), each block's
+    scales varied: the writer gives every block one d."""
+    from crabml_tpu_torch.tools.synth_gguf import SCHEMES, vary_scales
 
     _, blocks = next(v for v in SCHEMES.values() if v[0] == kind)
-    raw = blocks(np.random.default_rng(seed), m * k, 1.0 / math.sqrt(k))
-    return to_kernel_layout(to_planar(kind, raw, (m, k), "cuda"), torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    return vary_scales(kind, blocks(rng, n, 1.0 / math.sqrt(k)), rng)
+
+
+def _scheme_weight(kind, m, k, seed):
+    """A random (m, k) weight of `kind`, kernel planes, bf16 scales."""
+    qt = to_kernel_layout(to_planar(kind, _scheme_raw(kind, m * k, k, seed), (m, k), "cuda"),
+                          torch.bfloat16)
+    for n, t in qt.planes.items():
+        assert not (t == t.reshape(-1)[0]).all(), n
+    return qt
 
 
 def _plain_of(kind, name):
     """The plain version of the form `name`, on a planes dict."""
     plain = getattr(gemm_quant, f"{name}_plain")
-    return lambda x, p: plain(x, *(p[n] for n in gemm_quant._KERNEL_PLANES[kind]))
+    return lambda x, p: plain(x, *(p[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]))
 
 
 def _dequant_of(kind):
-    name = gemm_quant.DEQUANT_FORMS[kind]
+    name = gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]]
     return name, _plain_of(kind, name)
 
 
 def _w4a8_plain_of(kind):
-    return _plain_of(kind, gemm_quant.W4A8_FORMS[kind])
+    return _plain_of(kind, gemm_quant.W4A8_FORMS[FORM_KIND[kind]])
 
 
 def _every_value_planes(kind, m, k, device):
     """Kernel planes of an (m, k) weight of `kind` in which every value
-    (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K, 5-bit 0..31 for Q5_K,
-    nibbles for Q4_0, 3-bit 0..7 for Q3_K, 2-bit for Q2_K) stands at every k
-    position in some row, each row and scale group with a scale (and Q5_K and
-    Q2_K a minimum) of its own."""
+    (int8 -127..127 for Q8_0 and Q8_1, 6-bit 0..63 for Q6_K, 5-bit 0..31 for
+    Q5_K, Q5_0 and Q5_1, nibbles for Q4_0 and Q4_1, 3-bit 0..7 for Q3_K,
+    2-bit for Q2_K) stands at every k position in some row, each row and
+    scale group with a scale (and Q5_K, Q5_1, Q4_1 and Q2_K a minimum) of its
+    own."""
     n = torch.arange(m, device=device)[:, None]
     j2, j4, j8 = (torch.arange(k // d, device=device)[None, :] for d in (2, 4, 8))
     if kind in (GGMLType.Q3_K, GGMLType.Q2_K):
@@ -1014,23 +1033,25 @@ def _every_value_planes(kind, m, k, device):
             planes["scm"] = ((1 + (n + grp) % 15) | ((3 * n + 5 * grp) % 16) << 4).to(torch.uint8)
             planes["dmin"] = (0.005 * (1 + (2 * n + sbi) % 3 / 4)).half().float()
         return planes
-    if kind == GGMLType.Q8_0:
+    form = FORM_KIND[kind]
+    if form == GGMLType.Q8_0:
         j = torch.arange(k, device=device)[None, :]
         planes = {"qs": ((n + 7 * j) % 255 - 127).to(torch.int8)}
-    elif kind == GGMLType.Q6_K:
+    elif form == GGMLType.Q6_K:
         planes = {"ql": ((n + j2) % 256).to(torch.uint8),
                   "qh": ((3 * n + 7 * j4 + 1) % 256).to(torch.uint8)}
     else:
         planes = {"qs": ((n + j2) % 256).to(torch.uint8)}
-        if kind == GGMLType.Q5_K:  # even qh bits follow the row's high nibble, odd its low one
+        if form in (GGMLType.Q5_K, GGMLType.Q5_0):  # even qh bits follow the row's high
+            # nibble, odd its low one
             planes["qh"] = ((((n >> 4) & 1) * 0x55 | (n & 1) * 0xAA) ^ ((7 * j8 + 1) % 256)).to(
                 torch.uint8)
-    gr = gemm_quant.SCHEME_GROUP[kind]
+    gr = gemm_quant.SCHEME_GROUP[FORM_KIND[kind]]
     grp = torch.arange(k // gr, device=device)[None, :]
     planes["dsub"] = (0.01 * (1 + (16 * n + grp) % 61 / 64) * (1 - 2 * (grp % 3 == 2))).to(
         torch.bfloat16)
     assert (planes["dsub"][:, 1:] != planes["dsub"][:, :-1]).all()
-    if kind == GGMLType.Q5_K:
+    if form in (GGMLType.Q5_K, GGMLType.Q4_K):
         planes["msub"] = (-0.003 * (1 + (5 * n + 3 * grp) % 37 / 64)).to(torch.bfloat16)
     return planes
 
@@ -1061,7 +1082,7 @@ def test_scheme_dequant_matmul_matches_plain(cuda, kind, rows, m, k):
     assert torch.equal(kernel(x, qt, torch.bfloat16), got.to(torch.bfloat16))
 
 
-@SCHEME_KINDS
+@EVERY_VALUE_KINDS
 def test_scheme_dequant_converts_every_value_exactly(cuda, kind):
     """Every value (int8 -127..127 for Q8_0, 6-bit 0..63 for Q6_K, 5-bit
     0..31 for Q5_K, nibbles for Q4_0) at every byte and bit position of a
@@ -1092,7 +1113,7 @@ def test_scheme_w4a8_matches_plain(cuda, kind, rows, m, k):
     Every plan: 1, 8 and 16 rows a stage; columns off the 16-wide tile."""
     qt = _scheme_weight(kind, m, k, rows + m)
     x = _x(rows, k, m)
-    name = gemm_quant.W4A8_FORMS[kind]
+    name = gemm_quant.W4A8_FORMS[FORM_KIND[kind]]
     before = _build.launches[name]
     got = gemm_quant.qmm_w4a8(x, qt)
     want = _w4a8_plain_of(kind)(x, qt.planes)
@@ -1104,7 +1125,7 @@ def test_scheme_w4a8_matches_plain(cuda, kind, rows, m, k):
     assert torch.equal(gemm_quant.qmm_w4a8(x, qt), got)  # the same at every call
 
 
-@SCHEME_KINDS
+@EVERY_VALUE_KINDS
 def test_scheme_w4a8_takes_every_value(cuda, kind):
     """The int8-activation form on the planes of the one-hot sweep above,
     16 one-hot rows of x a call: every value at every k position reaches
@@ -1195,7 +1216,7 @@ def test_k16_wrappers_raise_rather_than_fall_back(cuda, kind):
     at load."""
     qt = _scheme_weight(kind, 256, 512, 1)
     x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
-    name = gemm_quant.DEQUANT_FORMS[kind]
+    name = gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]]
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_q6k(x, qt)
     bf16 = QTensor(kind, qt.shape, {**qt.planes, "d": qt.planes["d"].to(torch.bfloat16)})
@@ -1235,7 +1256,8 @@ def test_k16_forms_at_7b_shapes(cuda, kind, form, rows, m, k):
         name, plain = _dequant_of(kind)
         fn = getattr(gemm_quant, name)
     else:
-        name, plain, fn = gemm_quant.W4A8_FORMS[kind], _w4a8_plain_of(kind), gemm_quant.qmm_w4a8
+        name, plain = gemm_quant.W4A8_FORMS[FORM_KIND[kind]], _w4a8_plain_of(kind)
+        fn = gemm_quant.qmm_w4a8
     before = _build.launches[name]
     got = fn(x, qt)
     want = plain(x, qt.planes)
@@ -1245,15 +1267,16 @@ def test_k16_forms_at_7b_shapes(cuda, kind, form, rows, m, k):
     assert _rel(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q4_0], ids=["q5_k", "q4_0"])
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q5_0],
+                         ids=["q5_k", "q4_0", "q5_0"])
 def test_q5k_q4_0_wrappers_raise_rather_than_fall_back(cuda, kind):
-    """The Q5_K and Q4_0 forms raise on a CUDA tensor where they do not
-    take the input: float32 scales, the weight given to another scheme's
+    """The Q5_K, Q4_0 and Q5_0 forms raise on a CUDA tensor where they do
+    not take the input: float32 scales, the weight given to another scheme's
     dequant kernel, 17 rows to qmm_w4a8, a plane per row on one weight (the
     plane form takes a stack)."""
     qt = _scheme_weight(kind, 256, 512, 1)
     x = torch.zeros(32, 512, device=cuda, dtype=torch.bfloat16)
-    name = gemm_quant.DEQUANT_FORMS[kind]
+    name = gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]]
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_q4k(x, qt)
     f32 = QTensor(kind, qt.shape, {**qt.planes, "dsub": qt.planes["dsub"].float()})
@@ -1290,15 +1313,32 @@ def test_q4k_w4a8_numbers_unchanged(cuda):
 # planes, or one of its scale planes, would fail.
 # ---------------------------------------------------------------------------
 
+def _distinct_experts(qt):
+    """Every plane of each expert of the stack `qt` differs from expert 0's,
+    the scales as well as the values."""
+    for n, t in qt.planes.items():
+        for e in range(1, t.shape[0]):
+            assert not torch.equal(t[0], t[e]), (n, e)
+    return qt
+
+
 def _scheme_stack(kind, E, m, k, seed):
     """E random (m, k) weights of `kind`, distinct, as one stack (E, m, k)."""
-    from crabml_tpu_torch.tools.synth_gguf import SCHEMES
+    raw = _scheme_raw(kind, E * m * k, k, seed)
+    return _distinct_experts(to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"),
+                                              torch.bfloat16))
 
-    _, blocks = next(v for v in SCHEMES.values() if v[0] == kind)
-    raw = blocks(np.random.default_rng(seed), E * m * k, 1.0 / math.sqrt(k))
-    qt = to_kernel_layout(to_planar(kind, raw, (E, m, k), "cuda"), torch.bfloat16)
-    assert not torch.equal(dequantize(plane_of(qt, 0)), dequantize(plane_of(qt, E - 1)))
-    return qt
+
+def _every_value_stack(kind, E, m, k):
+    """A stack of E experts from `_every_value_planes`: expert e's planes are
+    those rolled by 37 e rows, and its float planes (scales, minimums) also
+    times 1 + e/8. Every value stands at every position in some row of each
+    expert, and no plane of one expert is another's."""
+    base = _every_value_planes(kind, m, k, "cuda")
+    planes = {n: torch.stack([(t.roll(37 * e, 0).float() * (1 + e / 8)).to(t.dtype)
+                              if t.is_floating_point() else t.roll(37 * e, 0)
+                              for e in range(E)]) for n, t in base.items()}
+    return _distinct_experts(QTensor(kind, (E, m, k), planes))
 
 
 def _grouped_case(kind, qt, xs, off):
@@ -1306,18 +1346,18 @@ def _grouped_case(kind, qt, xs, off):
     bf16 weights, float32 sums in another order), counted once; every row
     written (finite), the bf16 output the float32 one rounded once; and each
     segment equal to the dense kernel on its own plane, bit for bit."""
-    name = gemm_quant.GROUPED_FORMS[kind]
+    name = gemm_quant.GROUPED_FORMS[FORM_KIND[kind]]
     fn = getattr(gemm_quant, name)
     plain = getattr(gemm_quant, f"{name}_plain")
     before = _build.launches[name]
     got = fn(xs, qt, off)
-    want = plain(xs, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]), off)
+    want = plain(xs, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]), off)
     torch.cuda.synchronize()
     assert _build.launches[name] == before + 1
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= 1e-4
     assert torch.equal(fn(xs, qt, off, torch.bfloat16), got.to(torch.bfloat16))
-    dense = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[kind])
+    dense = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]])
     cuts = off.tolist()
     for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
         if hi > lo:
@@ -1356,11 +1396,12 @@ def _planes_case(kind, qt, x, plane):
     under `<form>.planes` once; two calls bit for bit; bf16 out the float32
     out rounded once; and each row equal to the dense form of its own plane
     (quantization is per row), bit for bit."""
-    name = gemm_quant.W4A8_FORMS[kind]
+    name = gemm_quant.W4A8_FORMS[FORM_KIND[kind]]
     plain = getattr(gemm_quant, f"{name}_plain")
     before = _build.launches[f"{name}.planes"]
     got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
-    want = plain(x, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]), plane=plane)
+    names = gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]
+    want = plain(x, *(qt.planes[n] for n in names), plane=plane)
     torch.cuda.synchronize()
     assert _build.launches[f"{name}.planes"] == before + 1
     assert torch.isfinite(got).all()
@@ -1397,6 +1438,21 @@ def test_scheme_w4a8_planes_at_mixtral_shapes(cuda, kind, rows, m, k):
     _planes_case(kind, qt, _x(rows, k, m), plane)
 
 
+@EVERY_VALUE_KINDS
+def test_scheme_expert_forms_take_every_value_of_each_expert(cuda, kind):
+    """Both experts' forms on a stack of every-value planes in which each
+    expert has scales (and minimums) of its own: a form that offset the
+    values but read another expert's scale plane, or the reverse, gives
+    other numbers than its plain version and than the dense form on the
+    expert's own planes (the cases' bit-for-bit row checks)."""
+    E, m, k = 4, 256, 512
+    qt = _every_value_stack(kind, E, m, k)
+    counts = (40, 0, 100, 116)
+    _grouped_case(kind, qt, _x(sum(counts), k, 13), _offsets(counts))
+    plane = torch.tensor([3, 1, 2, 3, 1, 2, 2, 3, 0, 1], device=cuda, dtype=torch.int32)
+    _planes_case(kind, qt, _x(len(plane), k, 14), plane)
+
+
 @SCHEME_KINDS
 @pytest.mark.parametrize("form", ["grouped", "planes"])
 def test_scheme_expert_forms_replay_in_a_cuda_graph(cuda, kind, form):
@@ -1406,7 +1462,7 @@ def test_scheme_expert_forms_replay_in_a_cuda_graph(cuda, kind, form):
     qt = _scheme_stack(kind, 4, 512, 1024, 9)
     if form == "grouped":
         rows, off = 150, _offsets((0, 70, 1, 79))
-        fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[kind])
+        fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[FORM_KIND[kind]])
         call = lambda: fn(x, qt, off, torch.bfloat16)  # noqa: E731
     else:
         rows = 8
@@ -1438,8 +1494,9 @@ def test_scheme_expert_wrappers_raise_rather_than_fall_back(cuda, kind):
     another dtype or length, a stack for the dense form."""
     qt = _scheme_stack(kind, 4, 256, 512, 3)
     one = plane_of(qt, 1)
-    other = _scheme_stack(GGMLType.Q4_K, 4, 256, 512, 4)
-    fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[kind])
+    other = _scheme_stack(GGMLType.Q6_K if FORM_KIND[kind] == GGMLType.Q4_K else GGMLType.Q4_K,
+                          4, 256, 512, 4)
+    fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[FORM_KIND[kind]])
     xs = _x(40, 512, 3)
     off = _offsets((0, 10, 30, 0))
     with pytest.raises(UnsupportedError):

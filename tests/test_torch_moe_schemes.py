@@ -43,7 +43,7 @@ from crabml_tpu_torch.quant.qtensor import QTensor, dequantize, plane_of, to_ker
     to_planar
 from crabml_tpu_torch.runtime.runner import Runner
 from crabml_tpu_torch.serving import PagedServingEngine, ServingEngine
-from crabml_tpu_torch.tools.synth_gguf import SCHEMES as SYNTH
+from crabml_tpu_torch.tools.synth_gguf import SCHEMES as SYNTH, vary_scales
 from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf, mix_kind
 
 KINDS = (GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.Q3_K,
@@ -76,9 +76,11 @@ def w4a8_backend():
 
 
 def _blocks(kind, E, m, k, seed):
-    """Random valid blocks of `kind` for E distinct (m, k) experts: (E, bytes)."""
+    """Random valid blocks of `kind` for E distinct (m, k) experts, each
+    block's scales varied (the writer gives every block one d): (E, bytes)."""
     _, blocks = next(v for v in SYNTH.values() if v[0] == kind)
-    return blocks(np.random.default_rng(seed), E * m * k, 0.05).reshape(E, -1)
+    rng = np.random.default_rng(seed)
+    return vary_scales(kind, blocks(rng, E * m * k, 0.05), rng).reshape(E, -1)
 
 
 def _pair(kind, seed):
@@ -92,7 +94,8 @@ def _pair(kind, seed):
                    {n: jnp.stack([jnp.asarray(s.planes[n]) for s in singles])
                     for n in singles[0].planes})
     st = to_kernel_layout(to_planar(kind, raw.tobytes(), (E, M, K)), torch.float32)
-    assert not torch.equal(dequantize(plane_of(st, 0)), dequantize(plane_of(st, E - 1)))
+    for n, t in st.planes.items():  # the scales as well as the values
+        assert not any(torch.equal(t[0], t[e]) for e in range(1, E)), n
     return jst, st
 
 

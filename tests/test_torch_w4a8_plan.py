@@ -112,8 +112,8 @@ def test_last_column_tile_stops_at_m():
     assert gemm_quant.W4A8_COLS == 16 and gemm_quant.W4A8_SB == 256
 
 
-# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K and Q2_K forms: dense only, at the 7B
-# decode shapes and ragged ones
+# the Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K and Q5_0 forms: dense only, at the
+# 7B decode shapes and ragged ones
 SCHEME_CASES = (
     [(r, m, k) for r in (1, 8, 16)
      for m, k in ((QKV, DIM), (DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))]
@@ -121,13 +121,13 @@ SCHEME_CASES = (
 
 
 @pytest.mark.parametrize("kind", [GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
-                                  GGMLType.Q3_K, GGMLType.Q2_K],
-                         ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+                                  GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.Q5_0],
+                         ids=["q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0"])
 @pytest.mark.parametrize("rows,m,k", SCHEME_CASES)
 def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
     """As for Q4_K, with the scheme's scale group: 32 elements for Q8_0,
-    Q5_K and Q4_0, 16 for Q6_K, Q3_K and Q2_K (16 groups a superblock, one
-    k16 integer mma each)."""
+    Q5_K, Q4_0 and Q5_0, 16 for Q6_K, Q3_K and Q2_K (16 groups a superblock,
+    one k16 integer mma each)."""
     plan, count = _coverage(rows, m, k, False, kind)
     k16 = (GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K)
     assert plan.group == (16 if kind in k16 else 32)
@@ -144,14 +144,21 @@ def test_every_row_column_group_is_summed_once_per_scheme(rows, m, k, kind):
     # qs | hb, 16 sc bytes and a float32 d a column; x, 16 dx and sx
     (GGMLType.Q3_K, lambda xr: 1536 + 320 + xr * (256 + 128)),
     (GGMLType.Q2_K, lambda xr: 1024 + 384 + xr * (256 + 128)),  # qs, 16 scm, d and dmin
-], ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+    (GGMLType.Q5_0, lambda xr: 2560 + 256 + xr * (256 + 64)),  # nibbles | qh, dsub; x, dx, sx
+    # the kinds that run another kind's form: that form's stage
+    (GGMLType.Q4_1, lambda xr: 2048 + 512 + xr * (256 + 64)),
+    (GGMLType.Q5_1, lambda xr: 2560 + 512 + xr * (256 + 64)),
+    (GGMLType.Q8_1, lambda xr: 4096 + 256 + xr * (256 + 32)),
+], ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0", "q4_1", "q5_1", "q8_1"])
 @pytest.mark.parametrize("x_rows", [1, 8, 16])
 def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
     """A ring stage holds a superblock of the 16 columns: Q8_0 4 KB of int8
     weights and 8 bf16 scales a column, Q6_K 3 KB of ql | qh and 16 scale
     groups a column, Q5_K 2.5 KB of nibbles | qh and Q4_K's scales, Q4_0
     2 KB of nibbles and 8 scales a column (its offset needs sx, no minimum
-    plane), Q3_K 1.5 KB of qs | hb, Q2_K 1 KB of qs, each with 16 scale
+    plane), Q5_0 Q5_K's nibbles | qh and Q4_0's scales, Q4_1, Q5_1 and Q8_1
+    the stages of the Q4_K, Q5_K and Q8_0 forms they run, Q3_K 1.5 KB of qs
+    | hb, Q2_K 1 KB of qs, each with 16 scale
     bytes and a float32 d (Q2_K also dmin) a column. The ring is as deep as
     two blocks an SM allow, up to four stages: Q4_K keeps its four stages
     (three at 16 rows)."""
@@ -169,8 +176,8 @@ def test_stage_sizes_and_ring_depth_per_scheme(kind, stage, x_rows):
 
 ALL_KINDS = pytest.mark.parametrize(
     "kind", [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
-             GGMLType.Q3_K, GGMLType.Q2_K],
-    ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k"])
+             GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.Q5_0],
+    ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0"])
 # the plane form: Mixtral's experts (gate|up, down) at the decode step's row
 # (every block row holds one row, so more rows repeat it), and ragged shapes
 # up to a 16-row tail
