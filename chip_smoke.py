@@ -29,6 +29,12 @@ fails:
    the tolerance printed (the schemes' weights and stacks give each block
    a scale, and minimum, of its own, and every plane of each expert
    differs from expert 0's: `check_varied`);
+   and (PR 15) every attention form at gemma2's head dim 256 (16 / 8 heads,
+   an 8,192-row cache: flash at 512-token chunks at pos 0 and 512, at 189
+   tokens, and at pos 4,096 with the window of 4,096 and the softcap 50; the
+   fused dense form at pos 4,700, plain and with window and softcap; the
+   unfused one at the path's 4-token tail; the paged forms at the 8-slot
+   serving shape, bfloat16 and int8),
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -36,7 +42,7 @@ fails:
 3. forward: the 7B shape cut to 2 layers, the same weights loaded twice:
    the card (kernels, bfloat16) against the CPU (plain versions, float32)
    for a 16-token prompt and one decode step.
-4. serving forward: the same 2-layer model, one paged decode tick over 8
+4. serving forward: the same model at 1 layer, one paged decode tick over 8
    slots at ragged positions, the card (kernels, bfloat16 and int8 pools)
    against the CPU (plain versions, float32).
 5. main: a synthetic 7B Q4_K GGUF, `Runner(path)` on the card in bfloat16,
@@ -59,7 +65,8 @@ fails:
    n_slots=8, kv_dtype=int8)` and `PagedServingEngine(..., int8 pool)` on 8
    requests each, twice each: done and deterministic.
 8. MoE forward and MoE paged tick: phases 3 and 4 at the Mixtral-8x7B widths
-   (8 experts, 2 per token) cut to 2 layers, with the W8 planes on the card.
+   (8 experts, 2 per token) cut to 2 layers (the tick to 1), with the W8
+   planes on the card.
 9. MoE: a synthetic Mixtral-8x7B GGUF in llama.cpp's Q4_K_M layout for 8
    experts (`mixtral-q4_k_m`: Q4_K q and gate|up experts, Q8_0 k and v, Q5_K
    attn_output, the down experts in Q6_K in layers 0, 3, 6 and 7, Q4_K in the
@@ -106,10 +113,21 @@ fails:
    2 holds each scheme's dequant kernel (512 and 189 rows of qkv, 512 of
    down) and int8-activation form (every 7B decode projection at 1 and 8
    rows, and 16 rows of qkv) against its plain version.
+11. gemma2 (PR 15): Gemma-2-9B's widths (hidden 3584, 16 q / 8 kv heads of
+   head dim 256, so 4,096 q rows; vocab 256000, context 8192; the window of
+   4,096 on even layers, softcaps 50 / 30, GELU, post-norms, a tied Q6_K
+   embedding) in llama.cpp's Q4_K_M layout at 8 of 42 layers (`gemma2-9b`):
+   `Runner(path)` with its default W8 planes, a 4,612-token prompt (nine
+   512-token chunks, past the window, and a 4-token tail through the
+   unfused decode form), 128 greedy tokens graphed at tick 1 (twice) and
+   tick 8 and eagerly, identical; a profiled window; prefill with and
+   without W8 planes in turns; the 16-request paged drain (pages returned,
+   a prefix hit); no matmul through torch.matmul; then the 2-layer forward
+   on a gemma2 file, card bfloat16 against CPU float32 (`forward_gemma2`).
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9 and 10 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10 and 11 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -275,12 +293,25 @@ SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 UNIQUE_LENGTHS = (64, 100, 150, 230, 320, 450, 600, 700)
 SHARED_TAILS = (30, 1, 4, 8, 60, 100, 200, 444)
 DENSE_LAYERS = 8
+# the paged tick's card-against-CPU checks (the 7B's and Mixtral's): one layer
+# covers every kernel and the block table; the CPU side, which gathers each
+# decode row's expert planes and dequantizes them, took 37 and 51 s at 2 (PR 15)
+SERVING_FORWARD_LAYERS = 1
 MOE_LAYERS = 8  # of Mixtral-8x7B's 32: with the W8 planes the full depth does not fit beside the pools
 # the MoE paged tick's contexts: short, because the CPU reference dequantizes
 # every expert a prefill uses to float32 (one prompt of 40 tokens uses them all)
 MOE_TICK_LENGTHS = (1, 2, 3, 4, 5, 6, 8, 40)
 PROFILE_PROMPTS = (100, 200, 300, 400, 500, 600, 700, 800)  # the profiled ticks' contexts
 QKV_M = (HEADS + 2 * KV_HEADS) * HEAD_DIM
+# the gemma2 path: google/gemma-2-9b's widths (tools/synth_gguf.py "gemma2-9b": 16 q / 8 kv
+# heads of head dim 256 over a 3584-wide embedding, vocab 256000, context 8192, window 4096
+# on even layers, softcaps 50 / 30) in llama.cpp's Q4_K_M layout, 8 of its 42 layers
+G2_DIM, G2_HEADS, G2_KV, G2_HD, G2_VOCAB, G2_CTX = 3584, 16, 8, 256, 256000, 8192
+G2_WINDOW, G2_SOFTCAP, G2_LAYERS = 4096, 50.0, 8
+G2_ATTN = (G2_HEADS, G2_KV, G2_HD, G2_CTX)  # the attention checks' dims
+# its prompt: nine 512-token chunks past the window and a 4-token tail, which
+# takes the unfused decode form (4 tokens x 2 q heads a kv head: 8 rows)
+G2_PROMPT_TOKENS = 9 * PREFILL_CHUNK + 4
 # qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
 # every projection of the 7B decode step at one row and at the 8-slot tick's
 # 8 rows (qkv, wo, gate|up, down, lm_head), a 16-row tail, and Mixtral's
@@ -699,25 +730,30 @@ def _sdpa(q, k_cache, v_cache, pos: int, T: int, window: int = 0):
 
 
 def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: float = 0.0,
-                    window: int = 0) -> dict:
+                    window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM, CTX)) -> dict:
+    """One sequence (B=1) of T new tokens at `pos` through `name` (the flash
+    kernel, or a dense decode form), `dims` = (q heads, kv heads, head dim,
+    cache rows): the 7B's by default, G2_ATTN for gemma2."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import decode_attention as da
     from crabml_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, S = 1, CTX
-    q = torch.randn(B, T, HEADS, HEAD_DIM, generator=g, device="cuda").to(torch.bfloat16)
-    kc = torch.randn(B, KV_HEADS, S, HEAD_DIM, generator=g, device="cuda").to(torch.bfloat16)
-    vc = torch.randn(B, KV_HEADS, S, HEAD_DIM, generator=g, device="cuda").to(torch.bfloat16)
+    H, KV, hd, S = dims
+    B = 1
+    q = torch.randn(B, T, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(torch.bfloat16)
     posv = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    scale = 1.0 / math.sqrt(HEAD_DIM)
+    scale = 1.0 / math.sqrt(hd)
+    kw = dict(softcap=softcap, local_window=window)
     if name == "decode_attention_fused":  # the step's keys from their own block
         kn, vn = (c[:, :, pos : pos + T].contiguous() for c in (kc, vc))
         kernel = lambda: da.decode_attention_fused(  # noqa: E731
-            q, kc[None], vc[None], 0, posv, scale, kn, vn)
+            q, kc[None], vc[None], 0, posv, scale, kn, vn, **kw)
     elif name == "decode_attention":
-        kernel = lambda: da.decode_attention(q, kc, vc, posv, scale)  # noqa: E731
+        kernel = lambda: da.decode_attention(q, kc, vc, posv, scale, **kw)  # noqa: E731
     else:
         kernel = lambda: fa.flash_attention(q, kc, vc, posv, scale, softcap, window)  # noqa: E731
     plain = lambda: fa.flash_attention_plain(q, kc, vc, posv, scale, softcap, window)  # noqa: E731
@@ -737,13 +773,13 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
     # live (query, key) pairs
     first_key = max(0, pos - window + 1) if window else 0
     n_keys = pos + T - first_key
-    qo_bytes = 2 * B * T * HEADS * HEAD_DIM * 2  # q read and out written, bf16
-    kv_bytes = 2 * B * KV_HEADS * n_keys * HEAD_DIM * 2  # live keys and values
+    qo_bytes = 2 * B * T * H * hd * 2  # q read and out written, bf16
+    kv_bytes = 2 * B * KV * n_keys * hd * 2  # live keys and values
     pairs = sum(min(pos + t + 1, window or pos + t + 1) for t in range(T))  # per head
-    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * HEADS * HEAD_DIM * pairs, "bf16")
+    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * H * hd * pairs, "bf16")
     form = (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else "")
     rec = {
-        "shape": f"B={B} T={T} pos={pos} H={HEADS} KV={KV_HEADS} hd={HEAD_DIM} S={S}{form}",
+        "shape": f"B={B} T={T} pos={pos} H={H} KV={KV} hd={hd} S={S}{form}",
         "max_abs_err": err, "max_abs_ref": ref,
         "tolerance": "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
         "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
@@ -758,10 +794,11 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
 
 
 def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: float = 0.0,
-                      window: int = 0) -> tuple[str, dict]:
+                      window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM)) -> tuple[str, dict]:
     """One form of the decode-attention kernel at the serving shape: 8
-    sequences, 32 q / 8 kv heads, head dim 128, prefixes ragged from 1 to
-    ~1,000 tokens. form: dense | dense_fused | paged | paged_fused (fused: the
+    sequences, `dims` = (q heads, kv heads, head dim) (the 7B's 32 / 8 / 128
+    by default; gemma2's 16 / 8 / 256), prefixes ragged from 1 to ~1,000
+    tokens. form: dense | dense_fused | paged | paged_fused (fused: the
     step's keys come in their own block); kv: bf16 | int8. The paged forms
     read a 256-page pool through a shuffled block table."""
     import torch
@@ -773,7 +810,8 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, KV, hd, PAGE = SERVING_SLOTS, KV_HEADS, HEAD_DIM, pa.PAGE
+    H, KV, hd = dims
+    B, PAGE = SERVING_SLOTS, pa.PAGE
     prefix = [1, 37, 128, 255, 400, 640, 900, 1000]
     max_pages = 9  # room for 1000 + 8 tokens
     S = max_pages * PAGE
@@ -783,7 +821,7 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    q = rand(B, T, HEADS, hd).to(torch.bfloat16)
+    q = rand(B, T, H, hd).to(torch.bfloat16)
     posv = torch.tensor(prefix, dtype=torch.int32, device=dev)
     n_pool = SERVING_PAGES if paged else B * max_pages
     k, v = rand(n_pool, KV, PAGE, hd), rand(n_pool, KV, PAGE, hd)
@@ -875,10 +913,10 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     row_bytes = hd * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
     live = sum(p + T - (max(p + 1 - window, 0) if window else 0) for p in prefix)
     pairs = sum(min(p + t + 1, window) if window else p + t + 1 for p in prefix for t in range(T))
-    nbytes = 2 * B * T * HEADS * hd * 2 + 2 * KV * live * row_bytes
-    b_ms, b_by = bound_ms(nbytes, 4.0 * HEADS * hd * pairs, "bf16")
+    nbytes = 2 * B * T * H * hd * 2 + 2 * KV * live * row_bytes
+    b_ms, b_by = bound_ms(nbytes, 4.0 * H * hd * pairs, "bf16")
     rec = {
-        "shape": f"{form} {kv} B={B} T={T} prefixes {prefix[0]}..{prefix[-1]} H={HEADS} "
+        "shape": f"{form} {kv} B={B} T={T} prefixes {prefix[0]}..{prefix[-1]} H={H} "
                  f"KV={KV} hd={hd}" + (f" pool={SERVING_PAGES} pages, shuffled table" if paged
                                        else f" S={S}")
                  + (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else ""),
@@ -919,6 +957,40 @@ def decode_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def g2_attention_checks(timer) -> dict[str, list[dict]]:
+    """Every attention form at gemma2's head dim 256 (16 q / 8 kv heads,
+    Gemma-2-9B's 8,192-row cache): the flash kernel at a first and a second
+    512-token chunk, the 189-token ragged chunk, and a 512-token chunk at pos
+    4,096 with the window of 4,096 (its first 4,096 - 511 keys dropped per
+    row, whole tiles skipped) and the softcap 50; the fused dense form at B=1
+    T=1 at pos 4,700, plain and with window and softcap; the unfused dense
+    form at the path's 4-token tail; the paged forms at the 8-slot serving
+    shape, bfloat16 and int8 (the fused bfloat16 one also with window and
+    softcap)."""
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    for T, pos, seed, cap, win in ((PREFILL_CHUNK, 0, 150, 0.0, 0),
+                                   (PREFILL_CHUNK, PREFILL_CHUNK, 151, 0.0, 0),
+                                   (RAGGED_CHUNK, PREFILL_CHUNK, 152, 0.0, 0),
+                                   (PREFILL_CHUNK, G2_WINDOW, 153, G2_SOFTCAP, G2_WINDOW)):
+        add("flash_attention", check_attention(timer, "flash_attention", T, pos, seed, cap, win,
+                                               dims=G2_ATTN))
+    for seed, cap, win in ((154, 0.0, 0), (155, G2_SOFTCAP, G2_WINDOW)):
+        add("decode_attention_fused", check_attention(timer, "decode_attention_fused", 1, 4700,
+                                                      seed, cap, win, dims=G2_ATTN))
+    add("decode_attention", check_attention(timer, "decode_attention", 4, 9 * PREFILL_CHUNK, 156,
+                                            0.0, G2_WINDOW, dims=G2_ATTN))
+    for i, (form, kv, cap, win) in enumerate((
+            ("paged_fused", "bf16", 0.0, 0), ("paged_fused", "int8", 0.0, 0),
+            ("paged_fused", "bf16", G2_SOFTCAP, 256), ("paged", "bf16", 0.0, 0),
+            ("paged", "int8", 0.0, 0))):
+        add(*check_decode_form(timer, form, kv, 1, 157 + i, cap, win, dims=G2_ATTN[:3]))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -948,6 +1020,8 @@ def phase_kernels() -> dict[str, list[dict]]:
                                             PREFILL_CHUNK, 11)],
     }
     checks.update(decode_checks(timer))
+    for name, recs in g2_attention_checks(timer).items():  # head dim 256, after the 7B's
+        checks[name] += recs
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
     checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, QKV_M, DIM, 40),
@@ -1129,7 +1203,10 @@ def _decode_bound(runner, pos: int) -> tuple[float, float]:
     weights) for the matmuls. Every matrix of every layer counts, fused or
     not (a _K_M file keeps q, k and v apart where attn_v is Q6_K). Of a
     layer's experts a token reads the K it was routed to: K/E of the stacks'
-    bytes, and the whole router."""
+    bytes, and the whole router. A layer with a sliding window reads the
+    last `window` keys of the cache (gemma2's even layers), every other
+    layer all `pos`."""
+    from crabml_tpu_torch.models.forward import layer_window
     from crabml_tpu_torch.quant.qtensor import QTensor
 
     w = runner.weights
@@ -1143,8 +1220,9 @@ def _decode_bound(runner, pos: int) -> tuple[float, float]:
                for q, f in mats)
     port += sum(lw["ffn_gate_inp"].numel() * 2 for lw in w["layers"] if "ffn_gate_inp" in lw)
     gguf = sum(f * math.prod(q.shape) * _bytes_per_weight(q.kind) for q, f in mats)
-    kv = 2 * cfg.n_layers * cfg.n_kv_heads * pos * cfg.head_dim * runner.cache.k.element_size()
-    row = DIM * _bytes_per_weight(w["token_embed"].kind)
+    keys = sum(min(pos, layer_window(cfg, l) or pos) for l in range(cfg.n_layers))
+    kv = 2 * keys * cfg.n_kv_heads * cfg.head_dim * runner.cache.k.element_size()
+    row = cfg.embedding_dim * _bytes_per_weight(w["token_embed"].kind)
     return ((port + kv + row) / HBM_BYTES_PER_S * 1e3, (gguf + kv + row) / HBM_BYTES_PER_S * 1e3)
 
 
@@ -1516,14 +1594,15 @@ def phase_main(tmp: Path):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: one paged decode tick at full width, 2 layers, card against CPU
+# phase 4: one paged decode tick at full width, 1 layer, card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_serving_forward(tmp: Path, model: str = "7b", seed: int = 13,
                           lengths=(1, 17, 77, 128, 130, 200, 256, 300),  # ragged, two on a page boundary
                           kvs=("compute", "int8"), w8: bool = False) -> dict:
-    """`model` cut to 2 layers: one paged decode tick over 8 slots prefilled
-    to `lengths`, the card against the CPU as in phase_forward."""
+    """`model` cut to SERVING_FORWARD_LAYERS layers: one paged decode tick
+    over 8 slots prefilled to `lengths`, the card against the CPU as in
+    phase_forward."""
     import numpy as np
     import torch
 
@@ -1535,8 +1614,8 @@ def phase_serving_forward(tmp: Path, model: str = "7b", seed: int = 13,
                                                 paged_prefill_chunk)
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / f"synth-{model}-2layers-paged.gguf"), model, seed=seed,
-                            layers=2)
+    path = build_synth_gguf(str(tmp / f"synth-{model}-paged.gguf"), model, seed=seed,
+                            layers=SERVING_FORWARD_LAYERS)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     rng = np.random.default_rng(seed + 1)
@@ -1583,7 +1662,8 @@ def phase_serving_forward(tmp: Path, model: str = "7b", seed: int = 13,
         good = finite and rel <= tol and card.shape == (len(lengths), cfg.vocab_size)
         ok &= good
         rec[kv] = {"rel_err": rel, "finite": finite}
-        say(f"paged decode tick, {model} widths, 2 layers, 8 slots at {lengths}, "
+        say(f"paged decode tick, {model} widths, {SERVING_FORWARD_LAYERS} layer(s), 8 slots at "
+            f"{lengths}, "
             f"{'int8' if kv == 'int8' else 'bfloat16'} pool: rel err {rel:.3e} "
             f"({rec['tolerance']}), finite {finite} {'ok' if good else 'FAILED'}")
     rec["ok"] = ok
@@ -2323,6 +2403,161 @@ def phase_scheme(tmp: Path, what: str, scheme: str, layers: int, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: gemma2 at the widths of Gemma-2-9B
+# ---------------------------------------------------------------------------
+
+def _g2_prompt(tokenizer) -> str:
+    """A prompt of exactly G2_PROMPT_TOKENS tokens, BOS included: the story
+    sentence repeated, cut to the longest prefix of at most that many tokens,
+    then padded with single-byte tokens (the synthetic vocab spells text in
+    bytes)."""
+    def n(text):
+        return len(tokenizer.encode(text, bos=True))
+
+    text = PROMPT_SENTENCE * (G2_PROMPT_TOKENS // 8)
+    lo, hi = 0, len(text)  # the longest prefix of <= G2_PROMPT_TOKENS tokens
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if n(text[:mid]) <= G2_PROMPT_TOKENS else (lo, mid - 1)
+    text = text[:lo].rstrip()
+    while n(text) < G2_PROMPT_TOKENS:
+        text += "a"
+    if n(text) != G2_PROMPT_TOKENS:
+        fail(f"gemma2 prompt: {n(text)} tokens, wanted {G2_PROMPT_TOKENS}")
+    return text
+
+
+def phase_gemma2(tmp: Path) -> dict:
+    """Gemma-2-9B's widths (hidden 3584, intermediate 14336, 16 q / 8 kv heads
+    of head dim 256, vocab 256000, context 8192; window 4096 on even layers,
+    softcaps 50 / 30, GELU, post-norms, a tied embedding) in llama.cpp's
+    Q4_K_M layout (attn_v and ffn_down Q6_K where use_more_bits holds, the
+    embedding and lm_head Q6_K), 8 of 42 layers: `Runner(path)` with its
+    default W8 planes, a 4,612-token prompt (nine 512-token chunks through
+    flash, past the 4,096 window, and a 4-token tail through the unfused
+    decode form) and 128 greedy tokens graphed at tick 1 (the capture, then
+    the cached graph), at tick 8 and eagerly, all the same; a profiled window
+    of the graphed step; the prefill with and without W8 planes in turns;
+    and the 16 requests through an 8-slot PagedServingEngine (pages
+    returned, a prefix hit). No matmul may take torch.matmul."""
+    import torch
+
+    from crabml_tpu_torch.gguf.reader import GGUFFile
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    what = "gemma2-9b"
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / "synth-gemma2-9b.gguf"), "gemma2-9b", seed=140,
+                            layers=G2_LAYERS, scheme="q4_k", mix="k_m")
+    synth_s = time.perf_counter() - t0
+    kinds = sorted({ti.typ.name for ti in GGUFFile(path).tensor_infos if len(ti.shape) == 2})
+    size = os.path.getsize(path)
+    say(f"synthetic Gemma-2-9B Q4_K_M GGUF, {G2_LAYERS} of 42 layers: {size / 1e9:.3f} GB in "
+        f"{synth_s:.2f} s, matrices in {kinds}")
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(path)  # the defaults: cuda, bfloat16, the model's 8,192-token context
+    cfg = runner.cfg
+    got = (cfg.architecture, cfg.head_dim, cfg.n_heads * cfg.head_dim, cfg.embedding_dim,
+           cfg.sliding_window, cfg.alternating_window, cfg.attn_logit_softcap,
+           cfg.final_logit_softcap, cfg.attn_scale)
+    if got != ("gemma2", G2_HD, G2_HEADS * G2_HD, G2_DIM, G2_WINDOW, True, G2_SOFTCAP, 30.0,
+               1.0 / 16):
+        fail(f"{what}: config {got}")
+    if not runner.prefill_w8:
+        fail(f"{what}: the Runner's default left the W8 prefill planes off")
+    load_s = runner.metrics.times_ns["load"] / 1e9
+    w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
+    prompt = _g2_prompt(runner.tokenizer)
+
+    _build.launches.clear()  # counts from here on are this path's
+    with DenseMatmuls() as dense:
+        capture = _one_run(runner, prompt, _build.launches)  # captures the decode step's graph
+        launches = dict(_build.launches)
+        graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
+        tick8 = _one_run(runner, prompt, _build.launches, 8)
+        eager = _one_run(runner, prompt, _build.launches, "eager")
+    if dense.calls:
+        fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights: "
+             f"{sorted(set(dense.calls))}")
+    if not capture["tokens"] == graphed["tokens"] == tick8["tokens"] == eager["tokens"]:
+        fail(f"{what}: the graphed decode (tick 1, tick 8) and the eager step gave other tokens")
+    if len(graphed["tokens"]) != DECODE_STEPS:
+        fail(f"{what}: generated {len(graphed['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
+    n = graphed["end_pos"]
+    if graphed["prompt_tokens"] != G2_PROMPT_TOKENS or n <= G2_WINDOW:
+        fail(f"{what}: prompt {graphed['prompt_tokens']} tokens, end {n}: the window not crossed")
+    if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
+                and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
+        fail(f"{what}: NaN or inf in the KV cache")
+    for name in ("flash_attention", "decode_attention", "decode_attention_fused", "qmm_w8",
+                 "qmm_w4a8", "qmm_w4a8_q6k"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} path")
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    profile = _profile_decode(runner, prompt, graphed["decode_ms_per_token"])
+    chunks = math.ceil(G2_PROMPT_TOKENS / PREFILL_CHUNK)
+    for r, how in ((capture, "graphed, the run that captures"), (graphed, "graphed"),
+                   (tick8, "graphed, tick 8"), (eager, "eager")):
+        say(f"{what} path ({how}): prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
+            f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
+            f"{r['decoded_steps']} steps to pos {r['end_pos']} {r['decode_tok_s']:.2f} tok/s = "
+            f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
+            f"{bound_gguf:.3f} ms GGUF bytes, the window's KV included)")
+    say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), 128 greedy "
+        f"tokens of the graphed runs at tick 1 and 8 equal to the eager step's, no matmul "
+        f"through torch.matmul, launches {launches}")
+    w8_dequant = _prefill_w8_against_q4k(path, runner, prompt, what)
+    if w8_dequant["launches"].get("qmm_q4k", 0) <= 0 or w8_dequant["launches"].get("qmm_q6k", 0) \
+            <= 0 or w8_dequant["launches"].get("qmm_w8", 0):
+        fail(f"{what}: the dequant-only prefill launched {w8_dequant['launches']}")
+
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
+                             seed=7)
+    pages_at_start = eng.pages_free()
+    reqs = _serving_requests(runner, seed=26)
+    _build.launches.clear()
+    with DenseMatmuls() as dense_serving:
+        serving = _drain(eng, reqs)
+    serving["launches"] = dict(_build.launches)
+    serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
+    _say_run(f"serving, {what}, {G2_LAYERS} layers, 8 slots, 256-page bfloat16 pool", serving)
+    if eng.pages_free() != pages_at_start or any(eng._owned):
+        fail(f"{what} serving: pages_free {eng.pages_free()} after the run, "
+             f"{pages_at_start} before")
+    if eng.prefix_hits < 1 or dense_serving.calls:
+        fail(f"{what} serving: {eng.prefix_hits} prefix hits, {len(dense_serving.calls)} "
+             "matmuls through torch.matmul")
+    for name in ("paged_decode_attention_fused", "paged_decode_attention", "flash_attention",
+                 "qmm_w4a8"):
+        if serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} serving path")
+    serving.update(prefix_hits=eng.prefix_hits, prefix_tokens_reused=eng.prefix_tokens_reused)
+    peak = torch.cuda.max_memory_allocated()
+    del eng, runner
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return {
+        "layers": G2_LAYERS, "kinds": kinds, "gguf_bytes": size, "synth_s": synth_s,
+        "load_s": load_s, "load_w8_augment_s": w8_s, "prompt_tokens": G2_PROMPT_TOKENS,
+        "prefill_chunks": chunks, "end_pos": n,
+        "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
+                 for r in (capture, graphed, tick8, eager)],
+        "graph_equals_eager": True, "first_tokens": graphed["tokens"][:16],
+        "decode_profile": profile,
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+        "max_memory_allocated": peak, "launches": launches, "dense_matmuls": len(dense.calls),
+        "launches_per_decode_token": {k: v / graphed["decoded_steps"]
+                                      for k, v in graphed["launches_decode"].items()},
+        "launches_per_prefill_chunk": {k: v / chunks
+                                       for k, v in graphed["launches_prefill"].items()},
+        "prefill_w8_against_dequant": w8_dequant, "serving": serving,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 def kernels_line(checks: dict, paths: dict) -> dict:
     """`paths`: {driven path: its record}; each kernel reports the launches
@@ -2435,6 +2670,13 @@ def main() -> int:
         os.remove(gguf)
         torch.cuda.empty_cache()
         dense = report["dense_int8"] = timed("dense_int8", phase_dense_int8, tmp)
+        g2 = report["gemma2-9b"] = timed("gemma2-9b", phase_gemma2, tmp)
+        g2_paths = {"gemma2-9b": g2, "gemma2-9b-dequant": g2["prefill_w8_against_dequant"],
+                    "gemma2-9b-serving": g2["serving"]}
+        report["forward_gemma2"] = timed("forward_gemma2", phase_forward, tmp, "gemma2-9b",
+                                         seed=141, scheme="q4_k", mix="k_m")
+        if not report["forward_gemma2"]["ok"]:
+            failures.append("gemma2 forward check")
         report["moe_forward"] = timed("moe_forward", phase_forward, tmp, "mixtral-8x7b", seed=16,
                                       n_prompt=300, w8=True, min_share=0.9)
         if not report["moe_forward"]["ok"]:
@@ -2445,7 +2687,7 @@ def main() -> int:
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
         moe = report["moe"] = timed("moe", phase_moe, tmp)
-        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"]}
+        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"], **g2_paths}
         for what, scheme, mix, seed in MOE_SCHEME_PATHS:
             rec = report[what] = timed(what, phase_moe_scheme, tmp, what, scheme, mix, seed)
             if not rec["forward"]["ok"]:

@@ -10,13 +10,13 @@
 // own base pointer, which is a view in PyTorch.
 #include "decode_core.cuh"
 
-// q, out (B, T, KV*G, 128) bfloat16 (qtype 0) or float32 (1). k, v one layer
-// of the cache (B, KV, S, 128) in the q type (quant 0) or int8 (quant 1, with
-// ks, vs (B, KV, S) float32). k_new, v_new (B, KV, T, 128) in the stored type
-// and ks_new, vs_new (B, KV, T), or null when the cache holds the step's keys.
-// pos (B,) i32 = keys that precede the step, less pos_bias (0, or -T when
-// the caller holds each sequence's length with the step). part_m, part_l (B, KV, n_chunks,
-// T*G) and part_acc (B, KV, n_chunks, T*G, 128) float32 scratch; ticket (B*KV)
+// q, out (B, T, KV*G, hd) bfloat16 (qtype 0) or float32 (1); hd 128, or 256
+// in bfloat16. k, v one layer of the cache (B, KV, S, hd) in the q type (quant
+// 0) or int8 (quant 1, with ks, vs (B, KV, S) float32). k_new, v_new (B, KV,
+// T, hd) in the stored type and ks_new, vs_new (B, KV, T), or null when the
+// cache holds the step's keys. pos (B,) i32 = keys that precede the step,
+// less pos_bias (0, or -T when the caller holds each sequence's length with
+// the step). part_m, part_l (B, KV, n_chunks, T*G) and part_acc (B, KV, n_chunks, T*G, hd) float32 scratch; ticket (B*KV)
 // int32, zero before the launch and zero after it. The grid is (KV, B,
 // n_chunks) with n_chunks * 128 >= the most keys a sequence can have.
 extern "C" int decode_attention(int qtype, int quant, const void* q, const void* k,
@@ -24,7 +24,7 @@ extern "C" int decode_attention(int qtype, int quant, const void* q, const void*
                                 const void* k_new, const void* v_new, const void* ks_new,
                                 const void* vs_new, const void* pos, void* part_m,
                                 void* part_l, void* part_acc, void* ticket, void* out, int B,
-                                int KV, int S, int T, int G, int n_chunks, float scale,
+                                int KV, int S, int T, int G, int n_chunks, int hd, float scale,
                                 float softcap, int win, int pos_bias, void* stream) {
     decode_core::Params p;
     p.q = q; p.k = k; p.v = v;
@@ -38,5 +38,5 @@ extern "C" int decode_attention(int qtype, int quant, const void* q, const void*
     p.B = B; p.KV = KV; p.T = T; p.G = G; p.n_chunks = n_chunks;
     p.scale = scale; p.softcap = softcap; p.win = win; p.pos_bias = pos_bias;
     decode_core::DenseAddr addr{S};
-    return decode_core::dispatch(p, addr, qtype, quant, (cudaStream_t)stream);
+    return decode_core::dispatch(p, addr, qtype, quant, hd, (cudaStream_t)stream);
 }

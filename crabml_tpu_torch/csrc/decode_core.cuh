@@ -55,6 +55,9 @@
 //      resets the ticket. One launch, no atomics on values: deterministic.
 // Tiles are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8),
 // so ldmatrix and the row-wise float4 reads are free of bank conflicts.
+// Head dims 128 and 256 (bfloat16; float32 at 128 only, `dispatch`): at 256 a
+// block's tiles take ~154 KB (~218 KB with int8's staging area), each warp
+// holds 32 output dims, and a chunk's partial is twice as wide.
 // Masked scores take -1e30 and weight 0, as in the JAX package; a row with
 // no visible key gives 0.
 #pragma once
@@ -506,10 +509,10 @@ chunk_kernel(Params p, Addr addr) {
     }
 }
 
-template <typename QT, typename KT, typename Addr>
+template <typename QT, typename KT, typename Addr, int HD>
 int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
-    constexpr int HD = 128;
     constexpr int bytes = Layout<QT, KT, HD>::BYTES;  // above 48 KB: opt in
+    static_assert(bytes <= 232448, "a block's tiles must fit its shared memory");
     const cudaError_t e = cudaFuncSetAttribute(chunk_kernel<QT, KT, Addr, HD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
@@ -517,12 +520,20 @@ int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
     return crabml_launch_status();
 }
 
-// qtype 0 = bfloat16, 1 = float32; quant 0 = cache in the q type, 1 = int8
+// qtype 0 = bfloat16, 1 = float32; quant 0 = cache in the q type, 1 = int8;
+// hd 128 or 256. float32 takes head dim 128 only: its Q, K and V tiles at 256
+// (~272 KB) pass the 227 KB a block may have.
 template <typename Addr>
-int dispatch(const Params& p, const Addr& addr, int qtype, int quant, cudaStream_t s) {
+int dispatch(const Params& p, const Addr& addr, int qtype, int quant, int hd, cudaStream_t s) {
+    if (hd == 256 && qtype == 0)
+        return quant ? launch<bf16, int8_t, Addr, 256>(p, addr, s)
+                     : launch<bf16, bf16, Addr, 256>(p, addr, s);
+    if (hd != 128) return (int)cudaErrorInvalidValue;
     if (qtype == 0)
-        return quant ? launch<bf16, int8_t>(p, addr, s) : launch<bf16, bf16>(p, addr, s);
-    return quant ? launch<float, int8_t>(p, addr, s) : launch<float, float>(p, addr, s);
+        return quant ? launch<bf16, int8_t, Addr, 128>(p, addr, s)
+                     : launch<bf16, bf16, Addr, 128>(p, addr, s);
+    return quant ? launch<float, int8_t, Addr, 128>(p, addr, s)
+                 : launch<float, float, Addr, 128>(p, addr, s);
 }
 
 }  // namespace decode_core

@@ -22,8 +22,14 @@
 // 64-key tiles, so a tile is read once for 128 rows. K and V tiles stay bf16
 // in shared memory in the 128-byte-swizzled layout wgmma reads, in a ring of
 // three stages filled by cp.async two tiles ahead (keys past the block's
-// causal bound are zero-filled, so an unwritten cache row never reaches the
-// arithmetic); one __syncthreads a tile. S = Q K^T reads Q (loaded once,
+// causal bound or before its first row's window are zero-filled, so a row no
+// query sees never reaches the arithmetic); one __syncthreads a tile. At head dim 256 a tile is 32 KB and
+// three stages beside the two Q tiles would pass the 227 KB a block may
+// have, so the ring has two stages there, filled one tile ahead
+// (stages_of). The split stays two warpgroups of 64 rows: a thread then holds
+// 128 output accumulators (64 rows x 256 dims over 128 threads) beside the
+// 32 scores and the 16 registers of P, within the 255 a thread of a
+// one-block-per-SM launch may have. S = Q K^T reads Q (loaded once,
 // unscaled) and K from shared memory; the f32 scores are scaled, capped,
 // masked and exponentiated in registers (exp2 with log2 e folded into the
 // scale), rounded to bf16 and fed to the second wgmma as its register A
@@ -47,10 +53,15 @@ constexpr int BC = 64;  // keys per tile
 constexpr int NT = 256; // threads of a block, both kernels
 constexpr float LOG2E = 1.4426950408889634f;
 
-// First key tile a block visits: with a window, tiles whose last key lies
-// outside the window of the block's first row are skipped.
+// The first key any row of a block sees (that of its first row's window),
+// and the first key tile it visits: tiles whose last key lies before it are
+// skipped, and keys before it in the first tile are zero-filled, not loaded
+// (a probability of 0 times a NaN of a stale row would still be NaN).
+__device__ __forceinline__ int first_seen(int first_row_pos, int window) {
+    return window > 0 ? max(0, first_row_pos - window + 1) : 0;
+}
 __device__ __forceinline__ int first_tile(int first_row_pos, int window) {
-    return window > 0 ? max(0, first_row_pos - window + 1) / BC : 0;
+    return first_seen(first_row_pos, window) / BC;
 }
 
 // ---------------------------------------------------------------------------
@@ -97,6 +108,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         rfirst[i] = window > 0 ? rbound[i] - window + 1 : 0;
     }
     const int last_key = p0 + min(t0 + bq, T_) - 1;  // causal bound of the block
+    const int first_key = first_seen(p0 + t0, window);
     const int n_tiles = last_key / BC + 1;
 
     for (int kt = first_tile(p0 + t0, window); kt < n_tiles; ++kt) {
@@ -106,7 +118,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
             const int c = i / HD, d = i % HD;
             const int j = k0 + c;
             float kvv = 0.f, vvv = 0.f;
-            if (j <= last_key) {
+            if (j <= last_key && j >= first_key) {
                 kvv = to_f32(k[(head + j) * HD + d]);
                 vvv = to_f32(v[(head + j) * HD + d]);
             }
@@ -197,11 +209,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
-           int KV, int S, int T_, int G, float scale, float softcap, int window,
-           cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (BR * (HD + 1) + BC * (HD + 1) + BC * HD + BR * (BC + 1));
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
+               int KV, int S, int T_, int G, float scale, float softcap, int window,
+               cudaStream_t stream) {
+    using T = float;
+    constexpr size_t smem =
+        sizeof(float) * (BR * (HD + 1) + BC * (HD + 1) + BC * HD + BR * (BC + 1));
+    static_assert(smem <= 232448, "the float32 tiles must fit a block's shared memory");
     cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -218,7 +233,10 @@ int launch(const void* q, const void* k, const void* v, const void* pos, void* o
 // ---------------------------------------------------------------------------
 
 constexpr int NWG = NT / 128;  // warpgroups of a block, 64 stacked rows each
-constexpr int STAGES = 3;      // K/V tiles in flight (loads run two tiles ahead)
+
+// K/V tiles in the ring; loads run stages - 1 tiles ahead. Three up to head
+// dim 128; two at 256, where three would not fit beside the Q tiles.
+template <int HD> __host__ __device__ constexpr int stages_of() { return HD <= 128 ? 3 : 2; }
 
 __device__ __forceinline__ float fast_exp2(float x) {
     float y;
@@ -243,6 +261,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
                 int KV, int S, int T_, int G, float scale, float softcap, int window) {
     using TL = Tile<HD>;
+    constexpr int STAGES = stages_of<HD>(), AHEAD = STAGES - 1;
     extern __shared__ uint8_t smem_raw[];
     // 1,024-byte alignment of every tile: [NWG] Q tiles, then STAGES x (K, V)
     const uint32_t base = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -261,6 +280,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t head = ((size_t)b * KV + kv) * S;
 
     const int last_key = p0 + min(t0_blk + NWG * bq, T_) - 1;  // causal bound of the block
+    const int first_key = first_seen(p0 + t0_blk, window);
     const int kt_begin = first_tile(p0 + t0_blk, window);
     const int n_tiles = last_key / BC + 1 - kt_begin;
 
@@ -278,16 +298,16 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = tid; e < 64 * TL::CHUNKS; e += NT) {
             const int r = e / TL::CHUNKS, c = e % TL::CHUNKS;
             const int j = k0 + r;
-            const bool ok = j <= last_key;
+            const bool ok = j <= last_key && j >= first_key;
             const size_t at = (head + (ok ? j : 0)) * HD + c * 8;
             wg::cp_async16(ks + TL::offset(r, c), k + at, ok);
             wg::cp_async16(vs + TL::offset(r, c), v + at, ok);
         }
     };
-    load_tile(0);
-    wg::cp_async_commit();
-    if (n_tiles > 1) load_tile(1);
-    wg::cp_async_commit();
+    for (int t = 0; t < AHEAD; ++t) {  // one commit group a tile, Q with the first
+        if (t == 0 || t < n_tiles) load_tile(t);
+        wg::cp_async_commit();
+    }
 
     // this thread's two rows of the warpgroup's 64: r_lo = 16 warp + rw, r_lo + 8
     int row_pos[2], row_first[2];
@@ -313,10 +333,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint64_t q_desc = wg::desc128(q_s + wgi * TL::BYTES);
 
     for (int i = 0; i < n_tiles; ++i) {
-        wg::cp_async_wait<1>();  // tile i has landed (this thread's part)
+        wg::cp_async_wait<AHEAD - 1>();  // tile i has landed (this thread's part)
         wg::fence_async_proxy();
         __syncthreads();  // everyone's part has, and tile i - 1 is no longer read
-        if (i + 2 < n_tiles) load_tile(i + 2);
+        if (i + AHEAD < n_tiles) load_tile(i + AHEAD);  // into tile i - 1's stage
         wg::cp_async_commit();
 
         const int k0 = (kt_begin + i) * BC;
@@ -428,7 +448,8 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
               int KV, int S, int T_, int G, float scale, float softcap, int window,
               cudaStream_t stream) {
-    const size_t smem = (NWG + 2 * STAGES) * Tile<HD>::BYTES + 1024;
+    constexpr size_t smem = (NWG + 2 * stages_of<HD>()) * Tile<HD>::BYTES + 1024;
+    static_assert(smem <= 232448, "the ring and the Q tiles must fit a block's shared memory");
     cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -444,19 +465,23 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G must
-// divide 64; hd is 64 or 128. dtype 0 = bfloat16, 1 = float32. softcap 0 = no
-// cap; window 0 = every earlier key.
+// divide 64; hd is 64, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
+// = no cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
                                int G, int hd, float scale, float softcap, int window,
                                void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 0)
-        return hd == 128
-            ? launch_tc<128>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
-            : launch_tc<64>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s);
-    return hd == 128
-        ? launch<float, 128>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
-        : launch<float, 64>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s);
+#define CRABML_FLASH(L, HD) L<HD>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
+    if (dtype == 0) {
+        if (hd == 64) return CRABML_FLASH(launch_tc, 64);
+        if (hd == 128) return CRABML_FLASH(launch_tc, 128);
+        if (hd == 256) return CRABML_FLASH(launch_tc, 256);
+    } else {
+        if (hd == 64) return CRABML_FLASH(launch_f32, 64);
+        if (hd == 128) return CRABML_FLASH(launch_f32, 128);
+        if (hd == 256) return CRABML_FLASH(launch_f32, 256);
+    }
+#undef CRABML_FLASH
+    return (int)cudaErrorInvalidValue;
 }

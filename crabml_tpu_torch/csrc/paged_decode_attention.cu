@@ -8,14 +8,14 @@
 // (launcher _run_fused_paged, pallas_call at :622): the step's keys arrive as
 // a separate block and are written into the pool after attention. Key j of
 // sequence b lives in page table[b, j / 128] at row j % 128. A page is 128
-// rows of 128 head dims for one kv head, contiguous: one block's chunk, one
+// rows of hd head dims for one kv head, contiguous: one block's chunk, one
 // table entry, read only when the chunk holds a cached key. No page is read
 // beyond the first ceil(keys / 128) entries of a table row: unused entries
 // (0, the shared scratch page) are never followed.
 #include "decode_core.cuh"
 
 // As decode_attention (csrc/decode_attention.cu), with k, v one layer of the
-// pool (n_pages, KV, 128, 128), ks, vs (n_pages, KV, 128) float32 for int8,
+// pool (n_pages, KV, 128, hd), ks, vs (n_pages, KV, 128) float32 for int8,
 // and table (B, max_pages) i32.
 extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const void* k,
                                       const void* v, const void* ks, const void* vs,
@@ -23,9 +23,9 @@ extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const
                                       const void* ks_new, const void* vs_new,
                                       const void* table, const void* pos, void* part_m,
                                       void* part_l, void* part_acc, void* ticket, void* out,
-                                      int B, int KV, int max_pages, int T, int G, int n_chunks,
-                                      float scale, float softcap, int win, int pos_bias,
-                                      void* stream) {
+                                      int B, int KV, int max_pages, int T, int G,
+                                      int n_chunks, int hd, float scale, float softcap,
+                                      int win, int pos_bias, void* stream) {
     decode_core::Params p;
     p.q = q; p.k = k; p.v = v;
     p.ks = (const float*)ks; p.vs = (const float*)vs;
@@ -38,5 +38,5 @@ extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const
     p.B = B; p.KV = KV; p.T = T; p.G = G; p.n_chunks = n_chunks;
     p.scale = scale; p.softcap = softcap; p.win = win; p.pos_bias = pos_bias;
     decode_core::PagedAddr addr{(const int*)table, max_pages};
-    return decode_core::dispatch(p, addr, qtype, quant, (cudaStream_t)stream);
+    return decode_core::dispatch(p, addr, qtype, quant, hd, (cudaStream_t)stream);
 }

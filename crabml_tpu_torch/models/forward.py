@@ -1,5 +1,5 @@
-"""The transformer forward pass for llama, dense or mixture of experts, in
-torch.
+"""The transformer forward pass for llama, dense or mixture of experts, and
+gemma2, in torch.
 
 Counterpart of crabml_tpu/models/forward.py::forward (and KVCache). The JAX
 version scans stacked layers inside one jit and batches the cache writes of
@@ -9,10 +9,15 @@ writes each layer's new k/v into the cache in place, one indexed write per
 tensor. The numbers are the same.
 
 Per layer: rmsnorm -> fused q|k|v matmul -> rope -> cache write + attention
--> wo -> rmsnorm -> fused gate|up -> silu(gate)*up -> down (or `moe_ffn`, the
+-> wo -> rmsnorm -> fused gate|up -> act(gate)*up -> down (or `moe_ffn`, the
 Mixtral router over stacked experts); then the final norm and the lm_head.
 `layer_body` holds everything but the cache traffic, so the paged steps
-(serving/paged.py) share it.
+(serving/paged.py) share it. gemma2 adds, as the JAX package does: the
+embedding scaled by sqrt(dim) rounded to the compute dtype (`embed`), an
+rmsnorm on wo's and on down's outputs before each residual add, GELU (tanh)
+for SiLU, the attention softcap and a sliding window on even layers only
+(`layer_window`), and a softcap on the float32 logits (`final_logits`); its
+q heads are H * head_dim wide, not the embedding width.
 
 `decode_step` is the T = 1 step of B sequences. It takes the positions on
 the device and reads nothing back to the host, no value and no data-dependent
@@ -127,6 +132,34 @@ def _project_gate_up(lw: dict, h: torch.Tensor):
 
 def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return gate * torch.sigmoid(gate) * up
+
+
+def _act_mul(act: str, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """act(gate) * up: GELU with the tanh approximation for gemma2 (what its
+    checkpoints train with; crabml_tpu/models/forward.py::_activation), else
+    SiLU (models.weights.check_supported admits no other activation)."""
+    if act == "gelu":
+        return torch.nn.functional.gelu(gate, approximate="tanh") * up
+    return _silu_mul(gate, up)
+
+
+def layer_window(cfg: ModelConfig, l: int) -> int:
+    """The sliding window of layer l (0 = every earlier key): gemma2 slides
+    on even layers only (alternating_window), every other model on all."""
+    if cfg.alternating_window and l % 2:
+        return 0
+    return cfg.sliding_window
+
+
+def embed(weights: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """The token rows in `dtype`, times sqrt(dim) where the model scales its
+    embedding (gemma): the factor is rounded to `dtype` first, as the JAX
+    package rounds it (in bfloat16 sqrt(3584) is 59.75)."""
+    x = embedding_lookup(weights["token_embed"], tokens, dtype)
+    if cfg.scale_embedding:
+        d = torch.tensor(float(cfg.embedding_dim), dtype=torch.float32)
+        x = x * float(torch.sqrt(d).to(dtype))
+    return x
 
 
 def _expert_gate_up(lw: dict, matmul) -> torch.Tensor:
@@ -257,23 +290,38 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     returns (B, T, H*hd)."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    D, kvd = H * hd, KV * hd
-    h = rms_norm(x, lw["attn_norm"], cfg.rms_norm_eps)
+    qd, kvd = H * hd, KV * hd  # qd is the embedding width unless the head dim is decoupled
+    eps = cfg.rms_norm_eps
+    h = rms_norm(x, lw["attn_norm"], eps)
     qkv = _project_qkv(lw, h)
     # q and k heads are adjacent in the fused output: one rotation
-    qk = rotate(qkv[..., : D + kvd].reshape(B, T, H + KV, hd), cos, sin, cfg.rope_mode)
-    v = qkv[..., D + kvd:].reshape(B, T, KV, hd)
+    qk = rotate(qkv[..., : qd + kvd].reshape(B, T, H + KV, hd), cos, sin, cfg.rope_mode)
+    v = qkv[..., qd + kvd:].reshape(B, T, KV, hd)
     attn = kv_io(qk[:, :, :H], qk[:, :, H:], v)
-    x = x + qmatmul(attn.to(x.dtype), lw["wo"])
-    h = rms_norm(x, lw["ffn_norm"], cfg.rms_norm_eps)
+    attn_out = qmatmul(attn.to(x.dtype), lw["wo"])
+    if cfg.post_norms:  # gemma2: the block's output is normed before the residual add
+        attn_out = rms_norm(attn_out, lw["post_attn_norm"], eps)
+    x = x + attn_out
+    h = rms_norm(x, lw["ffn_norm"], eps)
     if cfg.n_experts:
         return x + moe_ffn(lw, h, cfg)
-    return x + qmatmul(_silu_mul(*_project_gate_up(lw, h)), lw["ffn_down"])
+    down = qmatmul(_act_mul(cfg.act, *_project_gate_up(lw, h)), lw["ffn_down"])
+    if cfg.post_norms:
+        down = rms_norm(down, lw["post_ffn_norm"], eps)
+    return x + down
 
 
 def final_logits(weights: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, lm_head, float32 logits; capped as cap * tanh(l / cap)
+    where the model has a final softcap (gemma2). The division is by a
+    tensor: on CUDA a division by a Python scalar becomes a multiply by its
+    reciprocal, which rounds otherwise than the JAX package's division."""
     x = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)
-    return qmatmul(x, weights["output"]).float()
+    logits = qmatmul(x, weights["output"]).float()
+    if cfg.final_logit_softcap:
+        cap = logits.new_full((), cfg.final_logit_softcap)
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def quantize_new(k: torch.Tensor, v: torch.Tensor, dtype):
@@ -314,11 +362,13 @@ def decode_step(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.
     cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
     fused = decode_eligible(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    softcap, window = cfg.attn_logit_softcap, cfg.sliding_window
+    softcap = cfg.attn_logit_softcap
     kv_dtype = cache.k.dtype
 
-    x = embedding_lookup(weights["token_embed"], tokens, compute_dtype)
+    x = embed(weights, tokens, cfg, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
+        window = layer_window(cfg, l)
+
         def kv_io(q, k, v):
             kq, vq, ks, vs = quantize_new(k, v, kv_dtype)
             if fused:
@@ -360,14 +410,15 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
     positions = pos_dev[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
     cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
     use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    softcap, window = cfg.attn_logit_softcap, cfg.sliding_window
+    softcap = cfg.attn_logit_softcap
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
     n_keys = max(starts) + T
     kv_dtype = cache.k.dtype
 
-    x = embedding_lookup(weights["token_embed"], tokens, compute_dtype)
+    x = embed(weights, tokens, cfg, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
         k_l, v_l, ks_l, vs_l = _layer_cache(cache, l)
+        window = layer_window(cfg, l)
 
         def kv_io(q, k, v):
             _write_kv(cache, l, rows, cols, *quantize_new(k, v, kv_dtype))

@@ -1,5 +1,5 @@
 """GGUF -> torch weights for llama, dense or with a Mixtral mixture of
-experts, and weights carried over from the JAX package.
+experts, and gemma2, and weights carried over from the JAX package.
 
 Counterpart of crabml_tpu/models/weights.py. The port keeps per-layer dicts
 of tensors (no layer stacking: the forward loops over layers in Python):
@@ -9,6 +9,10 @@ of tensors (no layer stacking: the forward loops over layers in Python):
      embedding gets its own copy in kernel layout),
      "layers": [{"attn_norm", "ffn_norm": (D,) f32,
                  "wqkv", "wo", "wgu", "ffn_down": QTensor}, ...]}
+
+A gemma2 layer also holds "post_attn_norm" and "post_ffn_norm" (D,) f32; its
+q projection is n_heads * head_dim wide (4096 rows of a 3584 embedding in
+Gemma-2-9B), and it has no output.weight: the lm_head is the embedding.
 
 A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 "ffn_gate_inp" (E, D) in the compute dtype (the JAX forward casts it down
@@ -69,26 +73,31 @@ _ROUTER_TENSOR = "blk.{}.ffn_gate_inp.weight"
 def _layer_tensors(cfg: ModelConfig) -> dict[str, str]:
     return {**_LAYER_TENSORS, **(_MOE_FFN if cfg.n_experts else _DENSE_FFN)}
 _LAYER_NORMS = {"attn_norm": "blk.{}.attn_norm.weight", "ffn_norm": "blk.{}.ffn_norm.weight"}
+_POST_NORMS = {"post_attn_norm": "blk.{}.post_attention_norm.weight",  # gemma2
+               "post_ffn_norm": "blk.{}.post_ffw_norm.weight"}
+_ARCHITECTURES = ("llama", "gemma2")
+
+
+def _layer_norms(cfg: ModelConfig) -> dict[str, str]:
+    return {**_LAYER_NORMS, **(_POST_NORMS if cfg.post_norms else {})}
 
 
 def check_supported(cfg: ModelConfig):
     """The port runs the llama architecture, dense or with a Mixtral mixture
-    of experts (softmax over the top-k of n_experts SiLU-gated experts); every
-    other feature raises."""
+    of experts (softmax over the top-k of n_experts SiLU-gated experts), and
+    gemma2 (softcaps, a sliding window on even layers, post-norms, a head
+    dim decoupled from the embedding width); every other architecture, and
+    rope scaling, raises."""
     unsupported = [
         name for name, on in (
-            (f"architecture {cfg.architecture!r}", cfg.architecture != "llama"),
+            (f"architecture {cfg.architecture!r}", cfg.architecture not in _ARCHITECTURES),
             (f"rope scaling {cfg.rope_scaling_type!r}", cfg.rope_scaling_type != "none"),
-            ("attention logit softcap", bool(cfg.attn_logit_softcap)),
-            ("final logit softcap", bool(cfg.final_logit_softcap)),
-            ("sliding window", bool(cfg.sliding_window)),
-            ("decoupled head dim", cfg.head_dim_override is not None),
         ) if on
     ]
     if unsupported:
         raise UnsupportedError(
-            "not ported yet: " + ", ".join(unsupported)
-            + " (the port runs llama-architecture models, dense or mixture of experts)")
+            "not ported yet: " + ", ".join(unsupported) + " (the port runs "
+            "llama-architecture models, dense or mixture of experts, and gemma2)")
 
 
 def _fuse(parts: list[QTensor]) -> QTensor | None:
@@ -189,7 +198,7 @@ def load_weights(gf: GGUFFile, cfg: ModelConfig, device="cpu",
     layers = []
     for l in range(cfg.n_layers):
         mats = {n: q(f.format(l)) for n, f in _layer_tensors(cfg).items()}
-        others = {n: dense(f.format(l)) for n, f in _LAYER_NORMS.items()}
+        others = {n: dense(f.format(l)) for n, f in _layer_norms(cfg).items()}
         if cfg.n_experts:
             others[_ROUTER] = dense(_ROUTER_TENSOR.format(l)).to(compute_dtype)
         layers.append(_layer(mats, others, sdt))
@@ -237,7 +246,7 @@ def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -
     for l in range(L):
         mats = {n: qt(lw[n], l) for n in _LAYER_TENSORS}
         mats.update({n: qt(lw[n], l, E) for n in (_MOE_FFN if moe else _DENSE_FFN)})
-        others = {n: plane(lw[n][l]).float() for n in _LAYER_NORMS}
+        others = {n: plane(lw[n][l]).float() for n in (*_LAYER_NORMS, *_POST_NORMS) if n in lw}
         if moe:
             others[_ROUTER] = plane(lw[_ROUTER][l]).to(compute_dtype)
         layers.append(_layer(mats, others, sdt))

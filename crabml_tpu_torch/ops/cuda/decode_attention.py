@@ -11,7 +11,8 @@ launch's shape, from the cache's capacity alone; `block_keys` mirrors which
 keys (and which table column) each block of the grid reads.
 
 The cache is bfloat16 or float32 like q, or int8 with one float32 scale per
-(token, kv head) in k_scale / v_scale (B, KV, S, 1). `softcap` caps the
+(token, kv head) in k_scale / v_scale (B, KV, S, 1). The head dim is 128 or
+256; float32 q takes 128 only (HEAD_DIMS, F32_HEAD_DIMS). `softcap` caps the
 scores as cap*tanh(s/cap) before masking; `local_window` > 0 lets a token see
 only the last `local_window` keys up to itself, and keys before the window
 are never read.
@@ -32,7 +33,8 @@ from .flash_attention import flash_attention_plain
 
 MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
 MAX_ROWS = 16  # query rows (T * q heads per kv head) of the kernel's tile
-HEAD_DIM = 128
+HEAD_DIMS = (128, 256)  # head dims the kernel takes in bfloat16
+F32_HEAD_DIMS = (128,)  # and in float32: at 256 its float32 tiles pass a block's shared memory
 CHUNK = 128  # keys a block takes: one page of the paged pool
 
 _P = ctypes.c_void_p
@@ -43,8 +45,10 @@ _F = ctypes.c_float
 def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
     """Whether the decode kernels take a step of T new tokens: at most MAX_T
     tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
-    128. Callers send every other attention to the flash kernel."""
-    return T <= MAX_T and H % KV == 0 and hd == HEAD_DIM and T * (H // KV) <= MAX_ROWS
+    128 or 256 (float32 compute at 256 is refused at load on the card:
+    flash_attention.check_card_attention). Callers send every other attention
+    to the flash kernel."""
+    return T <= MAX_T and H % KV == 0 and hd in HEAD_DIMS and T * (H // KV) <= MAX_ROWS
 
 
 @dataclass(frozen=True)
@@ -60,7 +64,7 @@ class Plan:
     tickets: int
 
 
-def plan(B: int, KV: int, span: int, T: int, G: int, hd: int = HEAD_DIM) -> Plan:
+def plan(B: int, KV: int, span: int, T: int, G: int, hd: int = 128) -> Plan:
     """The launch for B sequences of at most `span` keys each (the cache's
     capacity, plus T when the step's keys come in their own block). It reads
     nothing on the device, so the launch never waits for the card and a CUDA
@@ -152,12 +156,15 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     G = H // KV
     _build.require(decode_eligible(T, H, KV, hd),
                    f"{count}: T={T} H={H} KV={KV} head_dim={hd} (need T<={MAX_T}, "
-                   f"T*G<={MAX_ROWS}, head_dim {HEAD_DIM})")
+                   f"T*G<={MAX_ROWS}, head_dim in {HEAD_DIMS})")
     quant = k.dtype == torch.int8
     _build.require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == v.dtype
                    and (quant or k.dtype == q.dtype),
                    f"{count}: q {q.dtype}, cache {k.dtype}/{v.dtype} "
                    "(q bf16 or f32; cache in q's dtype or int8)")
+    _build.require(q.dtype == torch.bfloat16 or hd in F32_HEAD_DIMS,
+                   f"{count}: float32 at head dim {hd} (the kernel takes float32 at "
+                   f"{F32_HEAD_DIMS} only; bfloat16 at {HEAD_DIMS})")
     _build.require(quant == (k_scale is not None) == (v_scale is not None),
                    f"{count}: an int8 cache needs k_scale and v_scale, a float cache none")
     _build.require(k.shape == v.shape and k.shape[3] == hd,
@@ -204,7 +211,7 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     ticket = _ticket_buffer(pl.tickets, dev)
     out = torch.empty_like(q)
     argtypes = [_I, _I] + [_P] * 9 + ([_P] if table is not None else []) + [_P] * 6 \
-        + [_I] * 6 + [_F, _F, _I, _I, _P]
+        + [_I] * 7 + [_F, _F, _I, _I, _P]
     lib, fn = _build.entry(entry, entry, *argtypes)
     args = [0 if q.dtype == torch.bfloat16 else 1, int(quant), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), k_scale.data_ptr() if quant else None,
@@ -213,7 +220,7 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
         args.append(table.data_ptr())
     args += [pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
              ticket.data_ptr(), out.data_ptr(), B, KV,
-             table.shape[1] if table is not None else k.shape[2], T, G, pl.n_chunks,
+             table.shape[1] if table is not None else k.shape[2], T, G, pl.n_chunks, hd,
              float(scale), float(softcap), int(win), int(pos_bias), _build.stream_ptr(q)]
     _build.launches[count] += 1
     err = fn(*args)

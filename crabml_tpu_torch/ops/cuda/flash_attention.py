@@ -20,26 +20,34 @@ from . import _build
 
 NEG_INF = -1e30
 ROWS_PER_BLOCK = 64  # tokens x q heads of one kv group per warpgroup (float32: per block)
-HEAD_DIMS = (64, 128)  # head dims the kernel takes
+HEAD_DIMS = (64, 128, 256)  # head dims the kernel takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def check_card_attention(cfg, device) -> None:
+def check_card_attention(cfg, device, dtype=None) -> None:
     """Raise UnsupportedError, with the reason, when `device` is a card and
-    the attention of `cfg` (a ModelConfig) is one its kernels do not take.
-    Every prefill chunk of more than a few tokens, and every attention at a
-    head dim other than 128, goes to this kernel, which takes head dims
-    HEAD_DIMS and q heads per kv head dividing ROWS_PER_BLOCK. The Runner and
-    both engines call it before any weight is read; on the CPU every shape
-    runs on the plain versions."""
+    the attention of `cfg` (a ModelConfig) in compute `dtype` is one its
+    kernels do not take. Every prefill chunk of more than a few tokens, and
+    every attention at a head dim the decode kernels do not take, goes to
+    this kernel, which takes head dims HEAD_DIMS and q heads per kv head
+    dividing ROWS_PER_BLOCK; the decode kernels take float32 at head dim 128
+    only (decode_attention.F32_HEAD_DIMS), so a float32 model at 256 is
+    refused here rather than at its first decode step. The Runner and both
+    engines call it before any weight is read; on the CPU every shape runs
+    on the plain versions."""
+    from .decode_attention import F32_HEAD_DIMS, HEAD_DIMS as DECODE_HEAD_DIMS
+
     if torch.device(device).type != "cuda":
         return
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     reasons = []
     if hd not in HEAD_DIMS:
         reasons.append(f"head dim {hd} (the flash kernel takes {' or '.join(map(str, HEAD_DIMS))})")
+    elif dtype == torch.float32 and hd in DECODE_HEAD_DIMS and hd not in F32_HEAD_DIMS:
+        reasons.append(f"head dim {hd} in float32 (the decode kernels take it in bfloat16 "
+                       "only: pass compute_dtype=torch.bfloat16)")
     if H % KV or ROWS_PER_BLOCK % (H // KV):
         reasons.append(f"{H} q heads over {KV} kv heads (q heads per kv head must divide "
                        f"{ROWS_PER_BLOCK})")
@@ -88,7 +96,7 @@ def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0
     KV, S = k_cache.shape[1], k_cache.shape[2]
     _build.require(H % KV == 0 and ROWS_PER_BLOCK % (H // KV) == 0,
                    f"flash_attention: H={H} KV={KV} (G must divide {ROWS_PER_BLOCK})")
-    _build.require(hd in HEAD_DIMS, f"flash_attention: head_dim {hd} (kernel takes 64, 128)")
+    _build.require(hd in HEAD_DIMS, f"flash_attention: head_dim {hd} (kernel takes {HEAD_DIMS})")
     _build.require(q.dtype in (torch.bfloat16, torch.float32)
                    and k_cache.dtype == v_cache.dtype == q.dtype,
                    f"flash_attention: q {q.dtype}, cache {k_cache.dtype} "

@@ -86,7 +86,7 @@ class Runner:
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
-        check_card_attention(self.cfg, self.device)
+        check_card_attention(self.cfg, self.device, compute_dtype)
         self.seq_len = min(seq_len or self.cfg.seq_len, self.cfg.seq_len)
         self.compute_dtype = compute_dtype
         w8_budget = None  # None = off, -1 = every eligible tensor, > 0 = a byte budget

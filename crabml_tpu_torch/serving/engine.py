@@ -207,7 +207,7 @@ class ServingEngine:
                  repeat_window: int | None = None, device=None):
         if kv_lane_pad:
             raise UnsupportedError("kv_lane_pad is not ported: the decode kernels take "
-                                   "head dim 128 only")
+                                   "head dims 128 and 256 as they are")
         if repeat_window is not None:
             self.REPEAT_WINDOW = max(1, int(repeat_window))
         if runner is not None:
@@ -217,7 +217,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         if weights is None or cfg is None:
             raise ConfigError("ServingEngine needs a runner, or weights and cfg")
-        check_card_attention(cfg, self.device)
+        check_card_attention(cfg, self.device, compute_dtype)
         self.weights = weights
         self.cfg = cfg
         self.tokenizer = tokenizer

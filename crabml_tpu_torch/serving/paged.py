@@ -46,13 +46,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.forward import (KVCache, dequantize_like, final_logits, forward, layer_body,
-                              quantize_new)
+from ..models.forward import (KVCache, dequantize_like, embed, final_logits, forward,
+                              layer_body, layer_window, quantize_new)
 from ..ops.cuda.decode_attention import decode_eligible
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.cuda.paged_decode_attention import (PAGE, gather_pages, paged_decode_attention,
                                                paged_decode_attention_fused)
-from ..ops.matmul import embedding_lookup
 from ..ops.rope import rope_angles
 from .engine import Request, ServingEngine
 
@@ -107,14 +106,14 @@ def paged_decode_step(weights, cache: PagedKVCache, tokens, pos, cfg,
     off = pos_l % PAGE
     kv_dtype = cache.k.dtype
 
-    x = embedding_lookup(weights["token_embed"], tokens[:, None], compute_dtype)
+    x = embed(weights, tokens[:, None], cfg, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
         def kv_io(q, k, v):
             kq, vq, ks, vs = quantize_new(k.transpose(1, 2), v.transpose(1, 2), kv_dtype)
             out = paged_decode_attention_fused(
                 q, cache.k, cache.v, cache.table, l, pos_dev, cfg.attn_scale, kq, vq,
                 cache.k_scale, cache.v_scale, ks, vs, cfg.attn_logit_softcap,
-                cfg.sliding_window)
+                layer_window(cfg, l))
             cache.k[l][page_of, :, off] = kq[:, :, 0]  # (B, KV, hd) at (page, :, row)
             cache.v[l][page_of, :, off] = vq[:, :, 0]
             if ks is not None:
@@ -145,9 +144,10 @@ def paged_prefill_chunk(weights, cache: PagedKVCache, tokens, filled: int, slot_
     through_table = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     kv_dtype = cache.k.dtype
 
-    x = embedding_lookup(weights["token_embed"], tokens, compute_dtype)
+    x = embed(weights, tokens, cfg, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
         k_l, v_l = cache.k[l], cache.v[l]
+        window = layer_window(cfg, l)
         ks_l = vs_l = None
         if cache.quantized:
             ks_l, vs_l = cache.k_scale[l], cache.v_scale[l]
@@ -162,14 +162,14 @@ def paged_prefill_chunk(weights, cache: PagedKVCache, tokens, filled: int, slot_
             if through_table:
                 return paged_decode_attention(
                     q, k_l, v_l, ctx, lengths, cfg.attn_scale, ks_l, vs_l,
-                    cfg.attn_logit_softcap, cfg.sliding_window)
+                    cfg.attn_logit_softcap, window)
             # attend over this slot's live pages, the chunk's own included
             kd = dequantize_like(gather_pages(k_l, ctx),
                                  None if ks_l is None else gather_pages(ks_l, ctx), q.dtype)
             vd = dequantize_like(gather_pages(v_l, ctx),
                                  None if vs_l is None else gather_pages(vs_l, ctx), q.dtype)
             return flash_attention(q, kd, vd, pos_dev, cfg.attn_scale,
-                                   cfg.attn_logit_softcap, cfg.sliding_window)
+                                   cfg.attn_logit_softcap, window)
 
         x = layer_body(lw, x, cos, sin, cfg, kv_io)
     return final_logits(weights, x, cfg)

@@ -1,4 +1,4 @@
-"""Write a full-size synthetic GGUF (llama or Mixtral shape, random Q4_K,
+"""Write a full-size synthetic GGUF (llama, Mixtral or gemma2 shape, random Q4_K,
 Q5_K, Q6_K, Q8_0, Q4_0, Q3_K, Q2_K, Q4_1, Q5_0, Q5_1 or Q8_1 weights, or
 llama.cpp's mixed _K_M, Q2_K and legacy layouts) in seconds.
 
@@ -101,6 +101,17 @@ the experts as 3-D tensors `ffn_{gate,up}_exps` (E, hidden, dim) and
 (normal, standard deviation 1/sqrt(dim), so the router's logits spread like a
 standard normal), and `llama.expert_count` / `llama.expert_used_count`.
 
+A gemma2 shape (`gemma2-9b`: google/gemma-2-9b's config.json; `tiny-gemma2`)
+writes what llama.cpp writes for Gemma 2 (`GEMMA2`): the gemma2.* metadata
+with `attention.key_length` (head dim 256, so n_heads x 256 = 4096 q rows of
+a 3584-wide embedding), both softcaps and the sliding window; per layer
+`post_attention_norm` and `post_ffw_norm` beside the two pre-norms; and no
+`output.weight`: the model is tied, so under a mix `token_embd` takes the
+output's type (Q6_K), as llama_tensor_get_type does when a model has no
+output tensor (`mix_kind(..., tied=True)`). Its norm weights are random in
+[0.5, 1.5]: unit norms put int8 activations on exact ties that torch and
+XLA break differently (tests/test_torch_schemes.py, RANDOM_NORMS).
+
 Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
@@ -113,6 +124,8 @@ Usage:
         --scheme q4_k --mix k_m
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q5_0 --mix imatrix
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q4_1 --mix legacy
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model gemma2-9b --layers 8 \
+        --scheme q4_k --mix k_m
 """
 
 from __future__ import annotations
@@ -139,6 +152,16 @@ MODEL_SHAPES = {
     # and 2 kv heads: k and v, Q8_0 in the 8-expert mixes, then have 256 rows, a multiple
     # of the JAX package's 256-row kernel tile, so both packages take their int8 kernels
     "tiny-moe8": (256, 512, 2, 2, 2, 512, 512, 8, 2, 10000.0),
+    # google/gemma-2-9b config.json (head_dim 256, 42 layers, vocab 256000, ctx 8192)
+    "gemma2-9b": (3584, 14336, 42, 16, 8, 256000, 8192, 0, 0, 10000.0),
+    # head dim 256 beside a 256-wide embedding: 2 q heads are 512 wide
+    "tiny-gemma2": (256, 512, 2, 2, 1, 512, 512, 0, 0, 10000.0),
+}
+# the gemma2 shapes' own metadata: head dim (attention.key_length), softcaps,
+# the sliding window on even layers (gemma-2-9b: 4096 of its 8192)
+GEMMA2 = {
+    "gemma2-9b": dict(head_dim=256, attn_softcap=50.0, final_softcap=30.0, window=4096),
+    "tiny-gemma2": dict(head_dim=256, attn_softcap=50.0, final_softcap=30.0, window=24),
 }
 
 
@@ -315,12 +338,16 @@ def use_more_bits(i: int, n: int) -> bool:
 
 
 def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int,
-             experts: int = 0) -> str:
+             experts: int = 0, tied: bool = False) -> str:
     """The scheme of `tensor` (attn_q, attn_k, attn_v, attn_output, ffn_gate,
     ffn_up, ffn_down, the experts' stacks under the last three names;
     token_embd and output take i = -1) of layer i of n under `mix` (the
     module docstring's tables) in a model of `experts` experts (0: dense);
-    `gqa` = n_heads / n_kv_heads. The output's own rule is the caller's."""
+    `gqa` = n_heads / n_kv_heads. The output's own rule is the caller's; a
+    `tied` model (no output.weight) gives its token_embd the output's Q6_K
+    under every mix."""
+    if mix is not None and tied and tensor == "token_embd":
+        return "q6_k"
     if mix is not None and experts == 8:
         if tensor in ("attn_k", "attn_v"):
             return "q8_0"
@@ -352,26 +379,37 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     `mix`, each layer tensor in the type `mix_kind` gives it."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
+    gemma = GEMMA2.get(model)
+    arch = "gemma2" if gemma else "llama"
+    hd = gemma["head_dim"] if gemma else dim // heads
     if mix is not None and scheme not in MIXES.get(mix, ()):
         raise ValueError(f"mix {mix!r} over scheme {scheme!r}: "
                          + "; ".join(f"{m!r} over {', '.join(s)}" for m, s in MIXES.items()))
     lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
     meta = {
-        "general.architecture": "llama",
+        "general.architecture": arch,
         "general.name": f"synthetic-{model}-{scheme}" + (f"-{mix}" if mix else "")
                         + (f"-{lm_head}-output" if lm_head != scheme and not mix else ""),
-        "llama.context_length": ctx,
-        "llama.embedding_length": dim,
-        "llama.feed_forward_length": hidden,
-        "llama.block_count": n_layers,
-        "llama.attention.head_count": heads,
-        "llama.attention.head_count_kv": kv_heads,
-        "llama.attention.layer_norm_rms_epsilon": 1e-5,
-        "llama.rope.dimension_count": dim // heads,
-        "llama.rope.freq_base": rope,
+        f"{arch}.context_length": ctx,
+        f"{arch}.embedding_length": dim,
+        f"{arch}.feed_forward_length": hidden,
+        f"{arch}.block_count": n_layers,
+        f"{arch}.attention.head_count": heads,
+        f"{arch}.attention.head_count_kv": kv_heads,
+        f"{arch}.attention.layer_norm_rms_epsilon": 1e-6 if gemma else 1e-5,
+        # gemma2 files carry no rope.dimension_count: the rope spans the head dim
+        **({} if gemma else {"llama.rope.dimension_count": hd}),
+        f"{arch}.rope.freq_base": rope,
         "tokenizer.ggml.model": "llama",
     }
+    if gemma:
+        meta.update({
+            "gemma2.attention.key_length": hd, "gemma2.attention.value_length": hd,
+            "gemma2.attn_logit_softcapping": gemma["attn_softcap"],
+            "gemma2.final_logit_softcapping": gemma["final_softcap"],
+            "gemma2.attention.sliding_window": gemma["window"],
+        })
     if experts:
         meta["llama.expert_count"] = experts
         meta["llama.expert_used_count"] = used
@@ -383,7 +421,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     w.add_metadata("tokenizer.ggml.bos_token_id", 1)
     w.add_metadata("tokenizer.ggml.eos_token_id", 2)
 
-    kv_dim = kv_heads * (dim // heads)
+    q_dim, kv_dim = heads * hd, kv_heads * hd
     counter = [0]
 
     def add(name, shape, sigma=None, kind=scheme):
@@ -394,18 +432,24 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         typ, blocks = SCHEMES[kind]
         w.add_tensor(name, typ, shape, lambda rng=rng, n=n, s=s: blocks(rng, n, s))
 
-    def ones(name, n):
-        w.add_tensor(name, GGMLType.F32, (n,), np.ones(n, np.float32))
+    def norm(name, n):  # gemma2: random in [0.5, 1.5]; llama: ones (its files' bytes as before)
+        a = np.ones(n)
+        if gemma:
+            counter[0] += 1
+            a = np.random.default_rng([seed, counter[0]]).uniform(0.5, 1.5, n)
+        w.add_tensor(name, GGMLType.F32, (n,), a.astype(np.float32))
 
-    add("token_embd.weight", (vocab, dim), sigma=0.02)
+    embd = mix_kind("token_embd", -1, n_layers, scheme, mix, heads // kv_heads, experts,
+                    tied=bool(gemma))
+    add("token_embd.weight", (vocab, dim), sigma=0.02, kind=embd)
     for l in range(n_layers):
         def kind(tensor, l=l):
             return mix_kind(tensor, l, n_layers, scheme, mix, heads // kv_heads, experts)
 
-        add(f"blk.{l}.attn_q.weight", (dim, dim), kind=kind("attn_q"))
+        add(f"blk.{l}.attn_q.weight", (q_dim, dim), kind=kind("attn_q"))
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim), kind=kind("attn_k"))
         add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=kind("attn_v"))
-        add(f"blk.{l}.attn_output.weight", (dim, dim), kind=kind("attn_output"))
+        add(f"blk.{l}.attn_output.weight", (dim, q_dim), kind=kind("attn_output"))
         if experts:
             counter[0] += 1
             router = np.random.default_rng([seed, counter[0]]).standard_normal((experts, dim))
@@ -418,10 +462,14 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             add(f"blk.{l}.ffn_gate.weight", (hidden, dim), kind=kind("ffn_gate"))
             add(f"blk.{l}.ffn_up.weight", (hidden, dim), kind=kind("ffn_up"))
             add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=kind("ffn_down"))
-        ones(f"blk.{l}.attn_norm.weight", dim)
-        ones(f"blk.{l}.ffn_norm.weight", dim)
-    ones("output_norm.weight", dim)
-    add("output.weight", (vocab, dim), sigma=0.02, kind=lm_head)
+        norm(f"blk.{l}.attn_norm.weight", dim)
+        norm(f"blk.{l}.ffn_norm.weight", dim)
+        if gemma:
+            norm(f"blk.{l}.post_attention_norm.weight", dim)
+            norm(f"blk.{l}.post_ffw_norm.weight", dim)
+    norm("output_norm.weight", dim)
+    if not gemma:  # gemma2 is tied: the lm_head is token_embd
+        add("output.weight", (vocab, dim), sigma=0.02, kind=lm_head)
 
     t0 = time.perf_counter()
     w.write(path)

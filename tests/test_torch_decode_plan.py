@@ -26,6 +26,23 @@ def test_plan_chunks_cover_the_span(B, KV, span, T, G):
     assert p.tickets == B * KV
 
 
+# (B, KV, span, T, G) at head dim 256: Gemma-2-9B's fused step at B=1 (8,192
+# keys + 1), its 8-slot serving tick, a 4-token tail, and 2 q heads a kv head
+_PLANS_256 = [(1, 8, 8192 + 1, 1, 2), (8, 8, 1152 + 1, 1, 2), (8, 8, 1152 + 4, 4, 2),
+              (2, 1, 300, 8, 2)]
+
+
+@pytest.mark.parametrize("B,KV,span,T,G", _PLANS_256)
+def test_plan_at_head_dim_256(B, KV, span, T, G):
+    """The grid does not depend on the head dim (a block a 128-key chunk at
+    256 as at 128); only each chunk's partial output is twice as wide."""
+    p = plan(B, KV, span, T, G, 256)
+    q = plan(B, KV, span, T, G, 128)
+    assert p.grid == q.grid and p.part_stats == q.part_stats and p.tickets == q.tickets
+    assert p.part_acc == (B, KV, p.n_chunks, T * G, 256)
+    assert (p.n_chunks - 1) * CHUNK < span <= p.n_chunks * CHUNK
+
+
 def test_plan_never_reads_pos():
     """The plan is a function of shapes alone: no pos argument, the same plan
     for the same shapes (so the launch never waits on the card, and a CUDA

@@ -37,6 +37,24 @@ def test_card_refuses_head_dims_its_kernels_do_not_take():
                              "cuda")
 
 
+def test_card_takes_head_dim_256_and_refuses_96():
+    """Gemma-2's head dim 256 runs on the card in bfloat16 (flash and every
+    decode form); 96 (phi3) and 80 (phi2) are still refused with the reason,
+    and so is 256 in float32, whose decode tiles pass a block's shared
+    memory. No card is needed to decide."""
+    cfg = _cfg()
+    hd256 = replace(cfg, head_dim_override=256)
+    check_card_attention(hd256, "cuda")
+    check_card_attention(hd256, "cuda", torch.bfloat16)
+    check_card_attention(replace(cfg, head_dim_override=128), "cuda", torch.float32)
+    with pytest.raises(UnsupportedError, match="head dim 256 in float32"):
+        check_card_attention(hd256, "cuda", torch.float32)
+    check_card_attention(hd256, "cpu", torch.float32)
+    for hd in (96, 80):
+        with pytest.raises(UnsupportedError, match=f"head dim {hd} "):
+            check_card_attention(replace(cfg, head_dim_override=hd), "cuda", torch.bfloat16)
+
+
 def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):
     """On a card (faked: the device resolves to cuda) the Runner raises
     before load_weights is called, and both engines before they make a

@@ -470,18 +470,19 @@ def _poison_pool(pool, table, first, end):
 
 
 def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, window=0,
-                 pos=None, poison=False):
+                 pos=None, poison=False, hd=128, n_slot_pages=9):
     """One decode-attention form against its plain version on the card, at
     ragged prefixes (_POS and the cache's last position unless `pos` is
     given). form: dense | dense_fused | paged | paged_fused; kv: bf16 | f32 |
     int8 (q bf16). With `poison`, every cache row or pool row past the live
     keys (and before the window of a sequence's first row) is set to NaN
-    after the plain version ran (for int8: its scales). Returns (kernel out,
-    plain out, count name)."""
+    after the plain version ran (for int8: its scales). A sequence holds at
+    most `n_slot_pages` pages of keys. Returns (kernel out, plain out, count
+    name)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     qdt = torch.float32 if kv == "f32" else torch.bfloat16
-    KV, hd, n_slot_pages = 2, 128, 9
+    KV = 2
     S = n_slot_pages * PAGE
     pos = tuple(pos or (*_POS, S - T))
     B = len(pos)
@@ -492,7 +493,8 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
 
     q = rand(B, T, KV * G, hd).to(qdt)
     posv = torch.tensor(pos, dtype=torch.int32, device=dev)
-    n_rows = 128 * PAGE if paged else B * S  # pool of 128 pages, or the dense cache
+    n_pool = max(128, B * n_slot_pages + 1)  # pool pages: room for every slot's
+    n_rows = n_pool * PAGE if paged else B * S  # pool, or the dense cache
     k, v = rand(n_rows // PAGE, KV, PAGE, hd), rand(n_rows // PAGE, KV, PAGE, hd)
     kn, vn = rand(B, KV, T, hd), rand(B, KV, T, hd)
     ks = vs = ksn = vsn = None
@@ -506,7 +508,7 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
     end = [p if fused else p + T for p in pos]
     floats = (ks, vs) if kv == "int8" else (k, v)
     if paged:
-        perm = torch.randperm(127, generator=torch.Generator().manual_seed(seed))
+        perm = torch.randperm(n_pool - 1, generator=torch.Generator().manual_seed(seed))
         table = (perm[: B * n_slot_pages] + 1).reshape(B, n_slot_pages).to(dev, torch.int32)
         for b, p in enumerate(pos):  # unused entries are 0, the scratch page
             table[b, -(-(p + T) // PAGE):] = 0
@@ -687,6 +689,110 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         paged_decode_attention(q, kv[:, :, :64], kv[:, :, :64], table.int(), pos + 1, 0.125)
 
 
+# -- head dim 256 (gemma2) ----------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,G,pos0,softcap,window", [
+    (100, 2, 0, 0.0, 0), (189, 2, 37, 50.0, 0), (512, 2, 0, 50.0, 200), (129, 1, 300, 0.0, 64),
+    (65, 4, 5, 30.0, 0), (257, 8, 100, 50.0, 31), (9, 2, 383, 50.0, 300)])
+def test_flash_attention_hd256_matches_plain(cuda, dtype, T, G, pos0, softcap, window):
+    """Head dim 256: the bfloat16 kernel's two-stage ring (a 32 KB tile a
+    stage) and its 128 output accumulators a thread, the float32 kernel's
+    wider tiles. Ragged T, offsets inside and at the edge of a key tile, 1 to
+    8 q heads a kv head, Gemma-2's softcap 50 and windows that skip key tiles
+    (200 and 64 keys behind rows 300 and more). Tolerances as at 128."""
+    B, KV, S, hd = 2, 2, 1024, 256
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([pos0, pos0 // 2], dtype=torch.int32, device=cuda)
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, 1 / 16, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, 1 / 16, softcap, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, flash_attention(q, k, v, pos, 1 / 16, softcap, window))
+
+
+@pytest.mark.parametrize("window", [0, 4096, 200])
+def test_flash_attention_hd256_ignores_rows_past_the_prefix(cuda, window):
+    """Gemma-2-9B's 16 / 8 heads at head dim 256: a 512-token chunk at pos
+    4,096 (the window of 4,096 drops the first tiles of every row), rows past
+    pos + T and before the first row's window NaN."""
+    B, T, KV, G, S, hd, p0 = 1, 512, 8, 2, 4608, 256, 4096
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([p0], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, 1 / 16, 50.0, window)
+    k[:, :, p0 + T:], v[:, :, p0 + T:] = float("nan"), float("nan")
+    if window:
+        k[:, :, :p0 + 1 - window], v[:, :, :p0 + 1 - window] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, 1 / 16, 50.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 2.0 ** -7
+
+
+_POS_256 = (0, 1, 127, 128, 129, 4095, 4096, 4097)
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 0), (0.0, 4096), (50.0, 100)])
+@pytest.mark.parametrize("T,G", [(1, 2), (4, 2), (8, 2), (2, 8)])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd256_match_plain(cuda, form, kv, T, G, softcap, window):
+    """Every decode form at head dim 256 (each warp 32 output dims, partials
+    twice as wide), bfloat16 and int8 caches, prefixes on both sides of a
+    chunk edge and of Gemma-2's 4,096-key window, and the cache's last
+    position (33 pages a sequence); every row no query may see is NaN.
+    Tolerances as at 128."""
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, G, seed=T * 10 + G + 7, softcap=softcap,
+                                    window=window, pos=(*_POS_256, 33 * PAGE - T), poison=True,
+                                    hd=256, n_slot_pages=33)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert got.shape[-1] == (2 * G) * 256
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd256_are_deterministic(cuda, form):
+    """Two calls at head dim 256 give the same bits (the chunks merge in
+    chunk order, whichever block arrives last)."""
+    one, _, _ = _decode_case(form, "int8", 4, 2, seed=3, window=100, hd=256,
+                             pos=(0, 129, 700, 1000))
+    two, _, _ = _decode_case(form, "int8", 4, 2, seed=3, window=100, hd=256,
+                             pos=(0, 129, 700, 1000))
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+def test_decode_forms_refuse_float32_at_hd256(cuda):
+    """float32 q at head dim 256 is refused before launch (its tiles pass a
+    block's shared memory); bfloat16 q over the same shapes runs."""
+    q = torch.zeros(1, 1, 4, 256, device=cuda)
+    kv = torch.zeros(1, 2, 128, 256, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = dict(_build.launches)
+    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
+        decode_attention(q, kv, kv, pos, 1 / 16)
+    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
+        decode_attention_fused(q, kv[None], kv[None], 0, pos, 1 / 16, kv[:, :, :1], kv[:, :, :1])
+    table = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
+        paged_decode_attention(q, kv, kv, table, pos + 1, 1 / 16)
+    assert dict(_build.launches) == before
+    out = decode_attention(q.to(torch.bfloat16), kv.to(torch.bfloat16), kv.to(torch.bfloat16),
+                           pos, 1 / 16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 # -- the decode step as a CUDA graph (runtime/generate.py) --------------------
 
 def _captured(fn):
@@ -710,8 +816,20 @@ def test_decode_forms_replay_in_a_cuda_graph(cuda, form, kv):
     positions (and the lengths of the unfused paged form) changed in place,
     at two sets of positions: bit for bit the eager call's output. The grid
     comes from the cache's capacity, so one graph serves every position."""
+    _replay_case(cuda, form, kv, 128, 4)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd256_replay_in_a_cuda_graph(cuda, form, kv):
+    """The same at head dim 256 with Gemma-2's 2 q heads a kv head, the
+    softcap 50 and a window of 300 keys."""
+    _replay_case(cuda, form, kv, 256, 2, softcap=50.0, window=300)
+
+
+def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0):
     g = torch.Generator(device=cuda).manual_seed(4)
-    B, KV, G, hd, n_slot_pages = 4, 2, 4, 128, 9
+    B, KV, n_slot_pages = 4, 2, 9
     S = n_slot_pages * PAGE
 
     def rand(*shape):
@@ -734,16 +852,18 @@ def test_decode_forms_replay_in_a_cuda_graph(cuda, form, kv):
     def s(a):
         return None if a is None else a[None]
 
+    kw = dict(softcap=softcap, local_window=window)
+
     def call():
         if form == "dense":
-            return decode_attention(q, k, v, pos, 0.09, ks, vs)
+            return decode_attention(q, k, v, pos, 0.09, ks, vs, **kw)
         if form == "dense_fused":
             return decode_attention_fused(q, k[None], v[None], 0, pos, 0.09, kn, vn, s(ks), s(vs),
-                                          ksn, vsn)
+                                          ksn, vsn, **kw)
         if form == "paged":
-            return paged_decode_attention(q, k, v, table, lengths, 0.09, ks, vs)
+            return paged_decode_attention(q, k, v, table, lengths, 0.09, ks, vs, **kw)
         return paged_decode_attention_fused(q, k[None], v[None], table, 0, pos, 0.09, kn, vn,
-                                            s(ks), s(vs), ksn, vsn)
+                                            s(ks), s(vs), ksn, vsn, **kw)
 
     graph, out = _captured(call)
     for at in ((0, 130, 511, 1000), (5, 777, S - 1, 3)):
