@@ -34,7 +34,10 @@ fails:
    tokens, and at pos 4,096 with the window of 4,096 and the softcap 50; the
    fused dense form at pos 4,700, plain and with window and softcap; the
    unfused one at the path's 4-token tail; the paged forms at the 8-slot
-   serving shape, bfloat16 and int8),
+   serving shape, bfloat16 and int8), and every attention form at
+   Qwen2-7B's 28 q heads over 4 kv heads (7 a kv head: flash at 512-token
+   chunks at pos 0 and 512 and at 189 tokens; the fused dense form at pos
+   1000, the unfused one at T=2; the paged forms at the serving shape),
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -77,7 +80,7 @@ fails:
    with `prefill_w8=False`, prefill only (the grouped Q4_K and Q6_K forms),
    in turns with the W8 runner (the report says which route wins); then
    16 requests through an 8-slot `PagedServingEngine`, twice, identical.
-   Then Mixtral-8x7B widths at 2 layers in llama.cpp's Q5_K_M and Q2_K
+   Then Mixtral-8x7B widths at 1 layer in llama.cpp's Q5_K_M and Q2_K
    8-expert layouts and in uniform Q8_0 and Q4_0 (`mixtral-q5_k_m`,
    `mixtral-q2_k`, `mixtral-q8_0`, `mixtral-q4_0`), and llama.cpp's Q5_0
    file type for 8 experts (`mixtral-q5_0`: Q5_0 experts, q and attn_output,
@@ -122,12 +125,27 @@ fails:
    unfused decode form), 128 greedy tokens graphed at tick 1 (twice) and
    tick 8 and eagerly, identical; a profiled window; prefill with and
    without W8 planes in turns; the 16-request paged drain (pages returned,
-   a prefix hit); no matmul through torch.matmul; then the 2-layer forward
-   on a gemma2 file, card bfloat16 against CPU float32 (`forward_gemma2`).
+   a prefix hit); the dense `ServingEngine` on the prompt and a short
+   request, prefilling in the Runner's 512-token chunks, whose 32 greedy
+   tokens are the Runner's; no matmul through torch.matmul; then the 2-layer
+   forward on a gemma2 file, card bfloat16 against CPU float32
+   (`forward_gemma2`).
+12. qwen2 and the other families: Qwen2-7B's widths (hidden 3584,
+   intermediate 18944, 28 q heads over 4 kv heads of head dim 128, q / k / v
+   biases, vocab 152064, rope theta 1e6, context cut to 4096) in llama.cpp's
+   Q4_K_M layout at 8 of 28 layers (`qwen2-7b`): phase 11's runs on the
+   ~700-token prompt, whose 512- and 189-token chunks take flash at 7 q
+   heads a kv head, the 16-request drain on the decode forms at 7 query rows,
+   the dense engine against the Runner, and its 2-layer forward
+   (`forward_qwen2`); then Qwen3-8B and Gemma-7B at their published widths
+   at 2 layers (phase 3: `forward_qwen3-8b`,
+   `forward_gemma-7b`), and Llama-3.1-8B at 2 layers with its rope_freqs
+   divisors (`llama31-8b`: phase 3, then 32 greedy tokens through the
+   captured step equal to the eager step's).
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10 and 11 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10, 11 and 12 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -173,6 +191,7 @@ RAGGED_CHUNK = 189  # the ~700-token prompt's second chunk
 PROMPT_SENTENCE = "Once upon a time there was a cat. "
 PROMPT_REPEATS = 14  # ~700 tokens with the synthetic vocab: two prefill chunks
 DECODE_STEPS = 128
+DENSE_ENGINE_TOKENS = 32  # a family's dense-engine request, held to the Runner's tokens
 PROFILE_STEPS = 16
 
 # name -> (source, the TPU kernel it replaces, the driven path that must launch it)
@@ -253,16 +272,17 @@ def _expert_forms() -> dict:
 
 
 KERNEL_SOURCES.update(_expert_forms())
-# the Mixtral paths of the other layouts, 2 of 32 layers each: (name, scheme,
-# mix, seed): llama.cpp's Q5_K_M (Q5_K experts, Q6_K down in layer 1) and Q2_K
-# (Q2_K gate|up, Q3_K down) 8-expert layouts, uniform Q8_0 and Q4_0, and
-# llama.cpp's Q5_0 file type for 8 experts (Q5_0 experts, Q8_0 k and v)
+# the Mixtral paths of the other layouts, 1 of 32 layers each (cut from 2 for the
+# script's time: one layer runs every form of the file's kinds): (name, scheme,
+# mix, seed): llama.cpp's Q5_K_M (Q5_K gate|up, Q6_K down: use_more_bits holds in
+# layer 0 of 1) and Q2_K (Q2_K gate|up, Q3_K down) 8-expert layouts, uniform Q8_0
+# and Q4_0, and llama.cpp's Q5_0 file type for 8 experts (Q5_0 experts, Q8_0 k and v)
 MOE_SCHEME_PATHS = (("mixtral-q5_k_m", "q5_k", "k_m", 91), ("mixtral-q2_k", "q2_k", "q2_k", 92),
                     ("mixtral-q8_0", "q8_0", None, 93), ("mixtral-q4_0", "q4_0", None, 94),
                     ("mixtral-q5_0", "q5_0", "legacy", 95))
-MOE_SCHEME_LAYERS = 2
+MOE_SCHEME_LAYERS = 1
 MOE_SCHEME_STEPS = 32
-# the 2-layer Mixtral paths whose graphed step is profiled (the plane form's
+# the short Mixtral paths whose graphed step is profiled (the plane form's
 # time by shape; the main MoE path profiles Q4_K's and Q6_K's): a profile
 # costs ~8 s a path
 MOE_PROFILED = ("mixtral-q5_0",)
@@ -312,6 +332,21 @@ G2_ATTN = (G2_HEADS, G2_KV, G2_HD, G2_CTX)  # the attention checks' dims
 # its prompt: nine 512-token chunks past the window and a 4-token tail, which
 # takes the unfused decode form (4 tokens x 2 q heads a kv head: 8 rows)
 G2_PROMPT_TOKENS = 9 * PREFILL_CHUNK + 4
+G2_KERNELS = ("flash_attention", "decode_attention", "decode_attention_fused", "qmm_w8",
+              "qmm_w4a8", "qmm_w4a8_q6k")
+# the qwen2 path: Qwen/Qwen2-7B's widths (tools/synth_gguf.py "qwen2-7b": 28 q heads
+# over 4 kv heads, so 7 a kv head, at head dim 128; hidden 3584, intermediate 18944, vocab
+# 152064, rope theta 1e6, q / k / v biases), the context cut to 4096, in llama.cpp's Q4_K_M
+# layout, 8 of its 28 layers; its ~700-token prompt's chunks of 512 and 189 tokens take flash
+# at G = 7, its decode step and the drain's ticks the decode forms at 7 query rows
+Q2_DIM, Q2_HEADS, Q2_KV, Q2_LAYERS = 3584, 28, 4, 8
+Q2_ATTN = (Q2_HEADS, Q2_KV, HEAD_DIM, CTX)
+Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8", "qmm_w4a8_q6k")
+# the other families at their published widths, 2 layers each (phase_forward); Llama-3.1-8B
+# also decodes FAMILY_STEPS greedy tokens graphed against eager (its rope divisors)
+FAMILY_FORWARDS = (("qwen3-8b", 171), ("gemma-7b", 172))
+Q3_VOCAB = 151936  # Qwen3-8B's lm_head rows
+FAMILY_STEPS = 32
 # qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
 # every projection of the 7B decode step at one row and at the 8-slot tick's
 # 8 rows (qkv, wo, gate|up, down, lm_head), a 16-row tail, and Mixtral's
@@ -991,6 +1026,32 @@ def g2_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def q2_attention_checks(timer) -> dict[str, list[dict]]:
+    """Every attention form at Qwen2-7B's 28 q heads over 4 kv heads (G = 7,
+    head dim 128, a 4,096-row cache): flash, whose warpgroups then hold 9
+    tokens of 7 heads and one padding row, at a first and a second 512-token
+    chunk and the 189-token ragged chunk; the fused dense form at B=1 T=1 at
+    pos 1000 (7 query rows) and the unfused one at T=2 (14); the paged forms
+    at the 8-slot serving shape, bfloat16 and int8."""
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    for T, pos, seed in ((PREFILL_CHUNK, 0, 180), (PREFILL_CHUNK, PREFILL_CHUNK, 181),
+                         (RAGGED_CHUNK, PREFILL_CHUNK, 182)):
+        add("flash_attention", check_attention(timer, "flash_attention", T, pos, seed,
+                                               dims=Q2_ATTN))
+    add("decode_attention_fused", check_attention(timer, "decode_attention_fused", 1, 1000, 183,
+                                                  dims=Q2_ATTN))
+    add("decode_attention", check_attention(timer, "decode_attention", 2, 1000, 184,
+                                            dims=Q2_ATTN))
+    for i, (form, kv) in enumerate((("paged_fused", "bf16"), ("paged_fused", "int8"),
+                                    ("paged", "bf16"), ("paged", "int8"))):
+        add(*check_decode_form(timer, form, kv, 1, 185 + i, dims=Q2_ATTN[:3]))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1019,8 +1080,14 @@ def phase_kernels() -> dict[str, list[dict]]:
                             check_attention(timer, "flash_attention", RAGGED_CHUNK,
                                             PREFILL_CHUNK, 11)],
     }
+    # Qwen3-8B's lm_head, 151,936 rows (593.5 x 256: no W8 planes), at the ragged
+    # chunk through the dequant kernel and at one decode row
+    checks["qmm_q4k"].append(check_matmul(timer, "qmm_q4k", RAGGED_CHUNK, Q3_VOCAB, DIM, 190))
+    checks["qmm_w4a8"].append(check_matmul(timer, "qmm_w4a8", 1, Q3_VOCAB, DIM, 191))
     checks.update(decode_checks(timer))
     for name, recs in g2_attention_checks(timer).items():  # head dim 256, after the 7B's
+        checks[name] += recs
+    for name, recs in q2_attention_checks(timer).items():  # G = 7, after those
         checks[name] += recs
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
@@ -1108,12 +1175,13 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
                   mix: str | None = None, path: str | None = None,
                   cpu_dtype=None, card_weights=None) -> dict:
-    """`model` cut to 2 layers, every matrix in `scheme` (with `mix` "k_m",
+    """`model` cut to 2 layers (or the layers of the file at `path`), every
+    matrix in `scheme` (with `mix` "k_m",
     llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
     Q6_K): a prompt of `n_prompt` tokens and one decode step, the card
     (kernels, bfloat16, with the W8 prefill planes when `w8`) against the CPU
     (plain versions, float32 unless `cpu_dtype` says otherwise, the scheme's
-    planes only). `path`: such a 2-layer file written already (kept);
+    planes only). `path`: such a file written already (kept);
     `card_weights`: its weights loaded on the card already, bfloat16 without
     W8 planes (a Runner's with prefill_w8=False)."""
     import numpy as np
@@ -1173,7 +1241,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                      "finite": finite, "last_argmax_agrees": top_agree}
         good = finite and share >= min_share
         ok &= good
-        say(f"forward {model} widths, {scheme}{' ' + mix if mix else ''}, 2 layers, {what}: "
+        say(f"forward {model} widths, {scheme}{' ' + mix if mix else ''}, {cfg.n_layers} "
+            f"layer(s), {what}: "
             f"rel err max {rel:.3e}, "
             f"median token "
             f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
@@ -2427,50 +2496,72 @@ def _g2_prompt(tokenizer) -> str:
     return text
 
 
-def phase_gemma2(tmp: Path) -> dict:
-    """Gemma-2-9B's widths (hidden 3584, intermediate 14336, 16 q / 8 kv heads
-    of head dim 256, vocab 256000, context 8192; window 4096 on even layers,
-    softcaps 50 / 30, GELU, post-norms, a tied embedding) in llama.cpp's
-    Q4_K_M layout (attn_v and ffn_down Q6_K where use_more_bits holds, the
-    embedding and lm_head Q6_K), 8 of 42 layers: `Runner(path)` with its
-    default W8 planes, a 4,612-token prompt (nine 512-token chunks through
-    flash, past the 4,096 window, and a 4-token tail through the unfused
-    decode form) and 128 greedy tokens graphed at tick 1 (the capture, then
-    the cached graph), at tick 8 and eagerly, all the same; a profiled window
-    of the graphed step; the prefill with and without W8 planes in turns;
-    and the 16 requests through an 8-slot PagedServingEngine (pages
-    returned, a prefix hit). No matmul may take torch.matmul."""
-    import torch
-
-    from crabml_tpu_torch.gguf.reader import GGUFFile
-    from crabml_tpu_torch.ops.cuda import _build
-    from crabml_tpu_torch.runtime.runner import Runner
-    from crabml_tpu_torch.serving import PagedServingEngine
-    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
-
-    what = "gemma2-9b"
-    t0 = time.perf_counter()
-    path = build_synth_gguf(str(tmp / "synth-gemma2-9b.gguf"), "gemma2-9b", seed=140,
-                            layers=G2_LAYERS, scheme="q4_k", mix="k_m")
-    synth_s = time.perf_counter() - t0
-    kinds = sorted({ti.typ.name for ti in GGUFFile(path).tensor_infos if len(ti.shape) == 2})
-    size = os.path.getsize(path)
-    say(f"synthetic Gemma-2-9B Q4_K_M GGUF, {G2_LAYERS} of 42 layers: {size / 1e9:.3f} GB in "
-        f"{synth_s:.2f} s, matrices in {kinds}")
-    torch.cuda.reset_peak_memory_stats()
-    runner = Runner(path)  # the defaults: cuda, bfloat16, the model's 8,192-token context
+def _g2_check(runner, graphed: dict):
+    """gemma2-9b's config, and a prompt that crossed the window."""
     cfg = runner.cfg
     got = (cfg.architecture, cfg.head_dim, cfg.n_heads * cfg.head_dim, cfg.embedding_dim,
            cfg.sliding_window, cfg.alternating_window, cfg.attn_logit_softcap,
            cfg.final_logit_softcap, cfg.attn_scale)
     if got != ("gemma2", G2_HD, G2_HEADS * G2_HD, G2_DIM, G2_WINDOW, True, G2_SOFTCAP, 30.0,
                1.0 / 16):
-        fail(f"{what}: config {got}")
+        fail(f"gemma2-9b: config {got}")
+    if graphed["prompt_tokens"] != G2_PROMPT_TOKENS or graphed["end_pos"] <= G2_WINDOW:
+        fail(f"gemma2-9b: prompt {graphed['prompt_tokens']} tokens, end {graphed['end_pos']}: "
+             "the window not crossed")
+
+
+def _q2_check(runner, graphed: dict):
+    """qwen2-7b's config (7 q heads a kv head, the biases loaded), and a
+    prompt of two chunks, each through flash at G = 7."""
+    cfg = runner.cfg
+    got = (cfg.architecture, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.embedding_dim,
+           cfg.rope_base, all(lw["bqkv"].shape == ((Q2_HEADS + 2 * Q2_KV) * HEAD_DIM,)
+                              for lw in runner.weights["layers"]))
+    if got != ("qwen2", Q2_HEADS, Q2_KV, HEAD_DIM, Q2_DIM, 1e6, True):
+        fail(f"qwen2-7b: config {got}")
+    if not PREFILL_CHUNK < graphed["prompt_tokens"] <= 2 * PREFILL_CHUNK:
+        fail(f"qwen2-7b: prompt of {graphed['prompt_tokens']} tokens is not two prefill chunks")
+
+
+def phase_family(tmp: Path, what: str, layers: int, seed: int, prompt_of, check,
+                 kernels: tuple[str, ...], serving_seed: int) -> dict:
+    """The synthetic `what` (tools/synth_gguf.py's shape of that name) in
+    llama.cpp's Q4_K_M layout (attn_v and ffn_down Q6_K where use_more_bits
+    holds, a Q6_K output or tied embedding), `layers` of its depth:
+    `Runner(path)` with its default W8 planes, the prompt
+    `prompt_of(tokenizer)` and 128 greedy tokens graphed at tick 1 (the
+    capture, then the cached graph), at tick 8 and eagerly, all the same; a
+    profiled window of the graphed step; the prefill with and without W8
+    planes in turns; the 16 requests through an 8-slot
+    PagedServingEngine (pages returned, a prefix hit; the requests drawn from
+    `serving_seed`); and the dense ServingEngine, prefilling in 512-token
+    chunks, on the prompt and a short request, whose greedy tokens are the
+    Runner's. `check(runner, the graphed run)` holds the model's
+    config and prompt; `kernels` must each be launched by the runs. No
+    matmul may take torch.matmul."""
+    import torch
+
+    from crabml_tpu_torch.gguf.reader import GGUFFile
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import MODEL_SHAPES, build_synth_gguf
+
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), what, seed=seed, layers=layers,
+                            scheme="q4_k", mix="k_m")
+    synth_s = time.perf_counter() - t0
+    kinds = sorted({ti.typ.name for ti in GGUFFile(path).tensor_infos if len(ti.shape) == 2})
+    size = os.path.getsize(path)
+    say(f"synthetic {what} Q4_K_M GGUF, {layers} of {MODEL_SHAPES[what][2]} layers: "
+        f"{size / 1e9:.3f} GB in {synth_s:.2f} s, matrices in {kinds}")
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(path)  # the defaults: cuda, bfloat16, the model's context
     if not runner.prefill_w8:
         fail(f"{what}: the Runner's default left the W8 prefill planes off")
     load_s = runner.metrics.times_ns["load"] / 1e9
     w8_s = runner.metrics.times_ns.get("load.w8_augment", 0) / 1e9
-    prompt = _g2_prompt(runner.tokenizer)
+    prompt = prompt_of(runner.tokenizer)
 
     _build.launches.clear()  # counts from here on are this path's
     with DenseMatmuls() as dense:
@@ -2486,26 +2577,24 @@ def phase_gemma2(tmp: Path) -> dict:
         fail(f"{what}: the graphed decode (tick 1, tick 8) and the eager step gave other tokens")
     if len(graphed["tokens"]) != DECODE_STEPS:
         fail(f"{what}: generated {len(graphed['tokens'])} tokens, expected {DECODE_STEPS} (EOS?)")
+    check(runner, graphed)
     n = graphed["end_pos"]
-    if graphed["prompt_tokens"] != G2_PROMPT_TOKENS or n <= G2_WINDOW:
-        fail(f"{what}: prompt {graphed['prompt_tokens']} tokens, end {n}: the window not crossed")
     if not bool(torch.isfinite(runner.cache.k[:, :, :, :n]).all()
                 and torch.isfinite(runner.cache.v[:, :, :, :n]).all()):
         fail(f"{what}: NaN or inf in the KV cache")
-    for name in ("flash_attention", "decode_attention", "decode_attention_fused", "qmm_w8",
-                 "qmm_w4a8", "qmm_w4a8_q6k"):
+    for name in kernels:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} path")
     bound_port, bound_gguf = _decode_bound(runner, n)
     profile = _profile_decode(runner, prompt, graphed["decode_ms_per_token"])
-    chunks = math.ceil(G2_PROMPT_TOKENS / PREFILL_CHUNK)
+    chunks = math.ceil(graphed["prompt_tokens"] / PREFILL_CHUNK)
     for r, how in ((capture, "graphed, the run that captures"), (graphed, "graphed"),
                    (tick8, "graphed, tick 8"), (eager, "eager")):
         say(f"{what} path ({how}): prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
             f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
             f"{r['decoded_steps']} steps to pos {r['end_pos']} {r['decode_tok_s']:.2f} tok/s = "
             f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
-            f"{bound_gguf:.3f} ms GGUF bytes, the window's KV included)")
+            f"{bound_gguf:.3f} ms GGUF bytes, the live KV included)")
     say(f"{what} path: load {load_s:.2f} s ({w8_s:.2f} s of it the W8 planes), 128 greedy "
         f"tokens of the graphed runs at tick 1 and 8 equal to the eager step's, no matmul "
         f"through torch.matmul, launches {launches}")
@@ -2517,13 +2606,13 @@ def phase_gemma2(tmp: Path) -> dict:
     eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
                              seed=7)
     pages_at_start = eng.pages_free()
-    reqs = _serving_requests(runner, seed=26)
+    reqs = _serving_requests(runner, seed=serving_seed)
     _build.launches.clear()
     with DenseMatmuls() as dense_serving:
         serving = _drain(eng, reqs)
     serving["launches"] = dict(_build.launches)
     serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
-    _say_run(f"serving, {what}, {G2_LAYERS} layers, 8 slots, 256-page bfloat16 pool", serving)
+    _say_run(f"serving, {what}, {layers} layers, 8 slots, 256-page bfloat16 pool", serving)
     if eng.pages_free() != pages_at_start or any(eng._owned):
         fail(f"{what} serving: pages_free {eng.pages_free()} after the run, "
              f"{pages_at_start} before")
@@ -2535,13 +2624,35 @@ def phase_gemma2(tmp: Path) -> dict:
         if serving["launches"].get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} serving path")
     serving.update(prefix_hits=eng.prefix_hits, prefix_tokens_reused=eng.prefix_tokens_reused)
+    del eng
+
+    # the dense engine on the same runner, prefilling in the Runner's chunks:
+    # the Runner's prompt beside a short one gives the Runner's greedy tokens
+    dense_eng = ServingEngine(runner, n_slots=2, seq_len=runner.seq_len,
+                              prefill_chunk=PREFILL_CHUNK, seed=7)
+    same = Request(prompt=prompt, max_tokens=DENSE_ENGINE_TOKENS)
+    short = Request(prompt="", max_tokens=DENSE_ENGINE_TOKENS,
+                    prompt_tokens=_serving_requests(runner, seed=serving_seed)[0].prompt_tokens)
+    _build.launches.clear()
+    with DenseMatmuls() as dense_engine_mm:
+        dense_serving = _drain(dense_eng, [same, short])
+    dense_serving["launches"] = dict(_build.launches)
+    _say_run(f"dense serving, {what}, {layers} layers, 2 slots", dense_serving)
+    if same.output_tokens != graphed["tokens"][:DENSE_ENGINE_TOKENS] or dense_engine_mm.calls:
+        fail(f"{what} dense serving: {same.output_tokens[:8]}... against the Runner's "
+             f"{graphed['tokens'][:8]}..., {len(dense_engine_mm.calls)} matmuls through "
+             "torch.matmul")
+    for name in ("decode_attention_fused", "flash_attention", "qmm_w4a8"):
+        if dense_serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} dense serving path")
+    dense_serving["tokens_equal_runner"] = True
     peak = torch.cuda.max_memory_allocated()
-    del eng, runner
+    del dense_eng, runner
     os.remove(path)
     torch.cuda.empty_cache()
     return {
-        "layers": G2_LAYERS, "kinds": kinds, "gguf_bytes": size, "synth_s": synth_s,
-        "load_s": load_s, "load_w8_augment_s": w8_s, "prompt_tokens": G2_PROMPT_TOKENS,
+        "layers": layers, "kinds": kinds, "gguf_bytes": size, "synth_s": synth_s,
+        "load_s": load_s, "load_w8_augment_s": w8_s, "prompt_tokens": graphed["prompt_tokens"],
         "prefill_chunks": chunks, "end_pos": n,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
                  for r in (capture, graphed, tick8, eager)],
@@ -2554,7 +2665,46 @@ def phase_gemma2(tmp: Path) -> dict:
         "launches_per_prefill_chunk": {k: v / chunks
                                        for k, v in graphed["launches_prefill"].items()},
         "prefill_w8_against_dequant": w8_dequant, "serving": serving,
+        "dense_serving": dense_serving,
     }
+
+
+def phase_graphed_forward(tmp: Path, model: str, seed: int) -> dict:
+    """`model` at 2 layers: phase_forward (card against CPU), then
+    `Runner(path)` on the card, FAMILY_STEPS greedy tokens of the prompt
+    through the captured step, equal to the eager step's (llama31-8b: the
+    captured step reads the rope divisors from the device)."""
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    path = build_synth_gguf(str(tmp / f"synth-{model}-2layers.gguf"), model, seed=seed, layers=2)
+    rec = {"forward": phase_forward(tmp, model, seed=seed, path=path)}
+    runner = Runner(path)
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    _build.launches.clear()  # counts from here on are this path's
+    graphed = _one_run(runner, prompt, _build.launches, steps=FAMILY_STEPS)
+    launches = dict(_build.launches)
+    eager = _one_run(runner, prompt, _build.launches, "eager", steps=FAMILY_STEPS)
+    if graphed["tokens"] != eager["tokens"] or len(graphed["tokens"]) != FAMILY_STEPS:
+        fail(f"{model}: the graphed decode gave other tokens than the eager step")
+    for name in ("flash_attention", "decode_attention_fused", "qmm_w4a8", "qmm_q4k"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {model} path")
+    say(f"{model}, 2 layers: {FAMILY_STEPS} greedy tokens through the captured step equal to "
+        f"the eager step's; graphed {graphed['decode_ms_per_token']:.3f} ms/token, eager "
+        f"{eager['decode_ms_per_token']:.3f}; launches {launches}")
+    del runner
+    os.remove(path)
+    rec.update(launches=launches, graph_equals_eager=True,
+               decode_ms_per_token={"graphed": graphed["decode_ms_per_token"],
+                                    "eager": eager["decode_ms_per_token"]},
+               launches_per_decode_token={k: v / graphed["decoded_steps"]
+                                          for k, v in graphed["launches_decode"].items()},
+               launches_per_prefill_chunk={
+                   k: v / math.ceil(graphed["prompt_tokens"] / PREFILL_CHUNK)
+                   for k, v in graphed["launches_prefill"].items()})
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2670,13 +2820,31 @@ def main() -> int:
         os.remove(gguf)
         torch.cuda.empty_cache()
         dense = report["dense_int8"] = timed("dense_int8", phase_dense_int8, tmp)
-        g2 = report["gemma2-9b"] = timed("gemma2-9b", phase_gemma2, tmp)
-        g2_paths = {"gemma2-9b": g2, "gemma2-9b-dequant": g2["prefill_w8_against_dequant"],
-                    "gemma2-9b-serving": g2["serving"]}
+        g2 = report["gemma2-9b"] = timed("gemma2-9b", phase_family, tmp, "gemma2-9b",
+                                         G2_LAYERS, 140, _g2_prompt, _g2_check, G2_KERNELS, 26)
         report["forward_gemma2"] = timed("forward_gemma2", phase_forward, tmp, "gemma2-9b",
                                          seed=141, scheme="q4_k", mix="k_m")
-        if not report["forward_gemma2"]["ok"]:
-            failures.append("gemma2 forward check")
+        q2 = report["qwen2-7b"] = timed(
+            "qwen2-7b", phase_family, tmp, "qwen2-7b", Q2_LAYERS, 160,
+            lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _q2_check, Q2_KERNELS, 27)
+        report["forward_qwen2"] = timed("forward_qwen2", phase_forward, tmp, "qwen2-7b",
+                                        seed=161, scheme="q4_k", mix="k_m")
+        for model, seed in FAMILY_FORWARDS:
+            report[f"forward_{model}"] = timed(f"forward_{model}", phase_forward, tmp, model,
+                                               seed=seed)
+        l31 = report["llama31-8b"] = timed("llama31-8b", phase_graphed_forward, tmp,
+                                           "llama31-8b", 173)
+        for name, rec in (("gemma2", report["forward_gemma2"]), ("qwen2", report["forward_qwen2"]),
+                          *((m, report[f"forward_{m}"]) for m, _ in FAMILY_FORWARDS),
+                          ("llama31-8b", l31["forward"])):
+            if not rec["ok"]:
+                failures.append(f"{name} forward check")
+        family_paths = {}
+        for what, rec in (("gemma2-9b", g2), ("qwen2-7b", q2)):
+            family_paths.update({what: rec, f"{what}-dequant": rec["prefill_w8_against_dequant"],
+                                 f"{what}-serving": rec["serving"],
+                                 f"{what}-dense-serving": rec["dense_serving"]})
+        family_paths["llama31-8b"] = l31
         report["moe_forward"] = timed("moe_forward", phase_forward, tmp, "mixtral-8x7b", seed=16,
                                       n_prompt=300, w8=True, min_share=0.9)
         if not report["moe_forward"]["ok"]:
@@ -2687,7 +2855,7 @@ def main() -> int:
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
         moe = report["moe"] = timed("moe", phase_moe, tmp)
-        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"], **g2_paths}
+        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"], **family_paths}
         for what, scheme, mix, seed in MOE_SCHEME_PATHS:
             rec = report[what] = timed(what, phase_moe_scheme, tmp, what, scheme, mix, seed)
             if not rec["forward"]["ok"]:

@@ -18,9 +18,13 @@
 //
 // bfloat16 entry (flash_tc_kernel): both products run on the tensor cores with
 // wgmma (bf16 in, f32 accumulators in registers). A block is two warpgroups;
-// each owns 64 stacked rows (64 / G tokens x G heads) and both walk the same
-// 64-key tiles, so a tile is read once for 128 rows. K and V tiles stay bf16
-// in shared memory in the 128-byte-swizzled layout wgmma reads, in a ring of
+// each owns 64 stacked rows (64 / G tokens x G heads, rounded down) and both
+// walk the same 64-key tiles, so a tile is read once for 128 rows. Where G
+// does not divide 64 (Qwen2-7B's 7 q heads a kv head: 9 tokens, 63 rows) the
+// last 64 % G rows are padding: their queries load as zeros, so their scores
+// are 0 and their softmax stays finite, and their output is never stored.
+// K and V tiles stay bf16 in shared memory in the 128-byte-swizzled layout
+// wgmma reads, in a ring of
 // three stages filled by cp.async two tiles ahead (keys past the block's
 // causal bound or before its first row's window are zero-filled, so a row no
 // query sees never reaches the arithmetic); one __syncthreads a tile. At head dim 256 a tile is 32 KB and
@@ -40,9 +44,9 @@
 //
 // float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
 // would round the inputs to TF32 or bf16 where the TPU kernel asks for full
-// precision. A block owns 64 rows; Q, K and V tiles are staged in shared
-// memory as float32; each of the 256 threads computes a 4x4 block of scores
-// and a 4x(hd/16) block of the output.
+// precision. A block owns 64 rows, padded as above; Q, K and V tiles are
+// staged in shared memory as float32; each of the 256 threads computes a 4x4
+// block of scores and a 4x(hd/16) block of the output.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -79,19 +83,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     float* Vs = Ks + BC * (HD + 1);      // [BC][HD]
     float* Ps = Vs + BC * HD;            // [BR][BC + 1]
 
-    const int bq = BR / G;  // tokens per block
+    const int bq = BR / G;  // tokens per block; rows from bq * G on are padding
     const int t0 = blockIdx.x * bq, kv = blockIdx.y, b = blockIdx.z;
     const int H = KV * G;
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     const int p0 = pos[b];
     const size_t head = ((size_t)b * KV + kv) * S;
 
-    // Q tile: row r = g * bq + (t - t0), pre-scaled; rows past T are zero
+    // Q tile: row r = g * bq + (t - t0), pre-scaled; rows past T and padding are zero
     for (int i = tid; i < BR * HD; i += NT) {
         const int r = i / HD, d = i % HD;
         const int g = r / bq, t = t0 + r % bq;
         float val = 0.f;
-        if (t < T_) val = to_f32(q[((size_t)(b * T_ + t) * H + kv * G + g) * HD + d]) * scale;
+        if (t < T_ && g < G)
+            val = to_f32(q[((size_t)(b * T_ + t) * H + kv * G + g) * HD + d]) * scale;
         Qs[r * (HD + 1) + d] = val;
     }
 
@@ -201,7 +206,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
         const int g = r / bq, t = t0 + r % bq;
-        if (t >= T_) continue;
+        if (t >= T_ || g >= G) continue;
         const float inv = 1.f / fmaxf(l[i], 1e-30f);
         T* o = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD;
 #pragma unroll
@@ -271,7 +276,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int tid = threadIdx.x;
     const int wgi = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
     const int qd = lane % 4, rw = lane / 4;
-    const int bq = BR / G;  // tokens per warpgroup
+    const int bq = BR / G;  // tokens per warpgroup; rows from bq * G on are padding
     const int kv = blockIdx.y, b = blockIdx.z;
     const int H = KV * G;
     const int p0 = pos[b];
@@ -284,12 +289,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kt_begin = first_tile(p0 + t0_blk, window);
     const int n_tiles = last_key / BC + 1 - kt_begin;
 
-    // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T are zeros
+    // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T and padding are zeros
     for (int i = tid; i < NWG * 64 * TL::CHUNKS; i += NT) {
         const int w = i / (64 * TL::CHUNKS), r = i / TL::CHUNKS % 64, c = i % TL::CHUNKS;
         const int g = r / bq, t = t0_blk + w * bq + r % bq;
-        const bool ok = t < T_;
-        const bf16* src = q + ((size_t)(b * T_ + (ok ? t : 0)) * H + kv * G + g) * HD + c * 8;
+        const bool ok = t < T_ && g < G;
+        const bf16* src =
+            q + ((size_t)(b * T_ + (ok ? t : 0)) * H + kv * G + (ok ? g : 0)) * HD + c * 8;
         wg::cp_async16(q_s + w * TL::BYTES + TL::offset(r, c), src, ok);
     }
     auto load_tile = [&](int i) {  // key tile kt_begin + i into stage i % STAGES
@@ -432,7 +438,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         const int r = 16 * warp + rw + 8 * h;
         const int g = r / bq, t = t0 + r % bq;
-        if (t >= T_) continue;
+        if (t >= T_ || g >= G) continue;
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
         bf16* dst = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + 2 * qd;
 #pragma unroll
@@ -464,8 +470,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
 }  // namespace
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
-// i32 = cache offset of each sequence's first new token (pos + T <= S). G must
-// divide 64; hd is 64, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
+// i32 = cache offset of each sequence's first new token (pos + T <= S). G is 1
+// to 64; hd is 64, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
 // = no cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,

@@ -118,6 +118,14 @@ class ModelConfig:
         return 1.0
 
     @property
+    def rope_pos_scale(self) -> float:
+        """What positions multiply by before the angles: 1/factor under
+        "linear" rope scaling, else 1."""
+        if self.rope_scaling_type == "linear":
+            return 1.0 / self.rope_scaling_factor
+        return 1.0
+
+    @property
     def attn_scale(self) -> float:
         if self.query_scale is not None:
             return self.query_scale

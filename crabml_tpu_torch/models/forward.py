@@ -1,5 +1,5 @@
-"""The transformer forward pass for llama, dense or mixture of experts, and
-gemma2, in torch.
+"""The transformer forward pass for llama (dense or mixture of experts),
+qwen2, qwen3, gemma and gemma2, in torch.
 
 Counterpart of crabml_tpu/models/forward.py::forward (and KVCache). The JAX
 version scans stacked layers inside one jit and batches the cache writes of
@@ -17,7 +17,13 @@ embedding scaled by sqrt(dim) rounded to the compute dtype (`embed`), an
 rmsnorm on wo's and on down's outputs before each residual add, GELU (tanh)
 for SiLU, the attention softcap and a sliding window on even layers only
 (`layer_window`), and a softcap on the float32 logits (`final_logits`); its
-q heads are H * head_dim wide, not the embedding width.
+q heads are H * head_dim wide, not the embedding width. gemma takes the
+scale and GELU alone. qwen2 adds its q, k and v biases to the projection in
+the compute dtype, and qwen3 RMS-norms each q and k head before the
+rotation, as crabml_tpu/models/forward.py does. Every model's angles come
+from `rope_tables`: the frequencies kept with the weights (divided by
+Llama-3.1's rope_freqs or YaRN's divisors), linear scaling's position
+scale and YaRN's magnitude.
 
 `decode_step` is the T = 1 step of B sequences. It takes the positions on
 the device and reads nothing back to the host, no value and no data-dependent
@@ -119,9 +125,12 @@ class KVCache:
 
 
 def _project_qkv(lw: dict, h: torch.Tensor):
+    """q|k|v of h, plus qwen2's biases (in the compute dtype, as loaded)."""
     if "wqkv" in lw:
-        return qmatmul(h, lw["wqkv"])
-    return torch.cat([qmatmul(h, lw[n]) for n in ("wq", "wk", "wv")], dim=-1)
+        qkv = qmatmul(h, lw["wqkv"])
+    else:
+        qkv = torch.cat([qmatmul(h, lw[n]) for n in ("wq", "wk", "wv")], dim=-1)
+    return qkv + lw["bqkv"] if "bqkv" in lw else qkv
 
 
 def _project_gate_up(lw: dict, h: torch.Tensor):
@@ -294,8 +303,11 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     eps = cfg.rms_norm_eps
     h = rms_norm(x, lw["attn_norm"], eps)
     qkv = _project_qkv(lw, h)
-    # q and k heads are adjacent in the fused output: one rotation
-    qk = rotate(qkv[..., : qd + kvd].reshape(B, T, H + KV, hd), cos, sin, cfg.rope_mode)
+    # q and k heads are adjacent in the fused output: one norm (qwen3), one rotation
+    qk = qkv[..., : qd + kvd].reshape(B, T, H + KV, hd)
+    if "qk_norm" in lw:
+        qk = rms_norm(qk, lw["qk_norm"], eps)
+    qk = rotate(qk, cos, sin, cfg.rope_mode)
     v = qkv[..., qd + kvd:].reshape(B, T, KV, hd)
     attn = kv_io(qk[:, :, :H], qk[:, :, H:], v)
     attn_out = qmatmul(attn.to(x.dtype), lw["wo"])
@@ -309,6 +321,13 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     if cfg.post_norms:
         down = rms_norm(down, lw["post_ffn_norm"], eps)
     return x + down
+
+
+def rope_tables(weights: dict, positions: torch.Tensor, cfg: ModelConfig):
+    """cos, sin of `positions` (B, T) for every layer of a step: the
+    frequencies kept with the weights ("rope_inv_freq", models.weights), the
+    positions times 1/factor under linear scaling, and YaRN's mscale on both."""
+    return rope_angles(positions, weights["rope_inv_freq"], cfg.rope_pos_scale, cfg.rope_mscale)
 
 
 def final_logits(weights: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -359,7 +378,7 @@ def decode_step(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.
     B = tokens.shape[0]
     dev = tokens.device
     positions = pos[:, None]
-    cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
+    cos, sin = rope_tables(weights, positions, cfg)
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
     fused = decode_eligible(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     softcap = cfg.attn_logit_softcap
@@ -408,7 +427,7 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
     if T == 1:
         return decode_step(weights, cache, tokens, pos_dev, cfg, compute_dtype)[:, None]
     positions = pos_dev[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
-    cos, sin = rope_angles(positions, cfg.effective_rope_dim, cfg.rope_base)
+    cos, sin = rope_tables(weights, positions, cfg)
     use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     softcap = cfg.attn_logit_softcap
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()

@@ -1,5 +1,6 @@
-"""GGUF -> torch weights for llama, dense or with a Mixtral mixture of
-experts, and gemma2, and weights carried over from the JAX package.
+"""GGUF -> torch weights for llama (dense, with a Mixtral mixture of experts,
+or Llama-3.1's rope divisors), qwen2, qwen3, gemma and gemma2, and weights
+carried over from the JAX package.
 
 Counterpart of crabml_tpu/models/weights.py. The port keeps per-layer dicts
 of tensors (no layer stacking: the forward loops over layers in Python):
@@ -12,7 +13,18 @@ of tensors (no layer stacking: the forward loops over layers in Python):
 
 A gemma2 layer also holds "post_attn_norm" and "post_ffn_norm" (D,) f32; its
 q projection is n_heads * head_dim wide (4096 rows of a 3584 embedding in
-Gemma-2-9B), and it has no output.weight: the lm_head is the embedding.
+Gemma-2-9B), and it has no output.weight: the lm_head is the embedding. gemma
+is tied the same way, without post-norms, softcaps or window. A qwen2 layer
+holds its q, k and v biases as one "bqkv" (q rows + 2 kv rows,) in the
+compute dtype, fused whether or not the matrices fuse (the add is per
+element); a qwen3 layer its per-head q and k RMS weights as one "qk_norm"
+(n_heads + n_kv_heads, head_dim) f32, the q weight on the q heads' rows and
+the k weight on the kv heads', so that one norm serves the fused q|k.
+
+"rope_inv_freq" (rope_dim/2,) f32 holds the rope frequencies divided by the
+file's `rope_freqs.weight` (Llama-3.1) or by YaRN's divisors, synthesized at
+load for a "yarn" file without that tensor, as the JAX package does
+(ops.rope.scaled_inv_freq); the forward reads them from the device.
 
 A mixture-of-experts layer holds, in place of "wgu" and "ffn_down", the router
 "ffn_gate_inp" (E, D) in the compute dtype (the JAX forward casts it down
@@ -47,6 +59,7 @@ from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFFile
 from ..quant.codecs import dequantize
 from ..ops.cuda.gemm_quant import W8_KSC, augment_w8, w8_eligible
+from ..ops.rope import scaled_inv_freq, yarn_freq_factors
 from ..quant.qtensor import QTensor, cat_rows, to_kernel_layout, to_planar
 from .config import ModelConfig
 
@@ -75,7 +88,9 @@ def _layer_tensors(cfg: ModelConfig) -> dict[str, str]:
 _LAYER_NORMS = {"attn_norm": "blk.{}.attn_norm.weight", "ffn_norm": "blk.{}.ffn_norm.weight"}
 _POST_NORMS = {"post_attn_norm": "blk.{}.post_attention_norm.weight",  # gemma2
                "post_ffn_norm": "blk.{}.post_ffw_norm.weight"}
-_ARCHITECTURES = ("llama", "gemma2")
+_QKV_BIASES = ("blk.{}.attn_q.bias", "blk.{}.attn_k.bias", "blk.{}.attn_v.bias")  # qwen2
+_QK_NORMS = ("blk.{}.attn_q_norm.weight", "blk.{}.attn_k_norm.weight")  # qwen3
+_ARCHITECTURES = ("llama", "qwen2", "qwen3", "gemma", "gemma2")
 
 
 def _layer_norms(cfg: ModelConfig) -> dict[str, str]:
@@ -83,21 +98,43 @@ def _layer_norms(cfg: ModelConfig) -> dict[str, str]:
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs the llama architecture, dense or with a Mixtral mixture
-    of experts (softmax over the top-k of n_experts SiLU-gated experts), and
-    gemma2 (softcaps, a sliding window on even layers, post-norms, a head
-    dim decoupled from the embedding width); every other architecture, and
-    rope scaling, raises."""
-    unsupported = [
-        name for name, on in (
-            (f"architecture {cfg.architecture!r}", cfg.architecture not in _ARCHITECTURES),
-            (f"rope scaling {cfg.rope_scaling_type!r}", cfg.rope_scaling_type != "none"),
-        ) if on
-    ]
-    if unsupported:
+    """The port runs llama (dense or with a Mixtral mixture of experts:
+    softmax over the top-k of n_experts SiLU-gated experts), qwen2 (q, k and
+    v biases), qwen3 (per-head q and k norms), gemma and gemma2 (softcaps, a
+    sliding window on even layers, post-norms), each with a head dim that
+    may be decoupled from the embedding width and any rope scaling a GGUF
+    names (linear, YaRN, or Llama-3.1's rope_freqs tensor); phi2 and phi3
+    raise."""
+    if cfg.architecture not in _ARCHITECTURES:
         raise UnsupportedError(
-            "not ported yet: " + ", ".join(unsupported) + " (the port runs "
-            "llama-architecture models, dense or mixture of experts, and gemma2)")
+            f"not ported yet: architecture {cfg.architecture!r} (the port runs "
+            + ", ".join(_ARCHITECTURES) + ")")
+
+
+def _attn_extras(heads: tuple[int, int], biases: list[torch.Tensor] | None,
+                 qk_norms: list[torch.Tensor] | None, compute_dtype) -> dict:
+    """qwen2's q, k and v biases as one "bqkv" in the compute dtype (the JAX
+    package adds them in it), and qwen3's q and k norm weights (head_dim,)
+    as one "qk_norm" (n_heads + n_kv_heads, head_dim) f32; `heads` =
+    (n_heads, n_kv_heads)."""
+    out = {}
+    if biases is not None:
+        out["bqkv"] = torch.cat(biases).to(compute_dtype)
+    if qk_norms is not None:
+        qn, kn = (w.float().reshape(1, -1) for w in qk_norms)
+        out["qk_norm"] = torch.cat([qn.expand(heads[0], -1), kn.expand(heads[1], -1)])
+    return out
+
+
+def _rope_inv_freq(cfg: ModelConfig, rope_freqs: torch.Tensor | None, device) -> torch.Tensor:
+    """The model's rope frequencies: divided by the file's rope_freqs, or by
+    YaRN's divisors where a "yarn" file has none (as
+    crabml_tpu/models/weights.py synthesizes them at load)."""
+    if rope_freqs is None and cfg.rope_scaling_type == "yarn":
+        rope_freqs = torch.from_numpy(yarn_freq_factors(
+            cfg.effective_rope_dim, cfg.rope_base, cfg.rope_scaling_factor,
+            cfg.rope_scaling_orig_ctx or cfg.seq_len))
+    return scaled_inv_freq(cfg.effective_rope_dim, cfg.rope_base, rope_freqs, device)
 
 
 def _fuse(parts: list[QTensor]) -> QTensor | None:
@@ -176,9 +213,10 @@ def augment_w8_weights(weights: dict, budget_bytes: int | None = None) -> dict:
 
 def load_weights(gf: GGUFFile, cfg: ModelConfig, device="cpu",
                  compute_dtype=torch.float32) -> dict:
-    """Read a llama GGUF (dense, or Mixtral's experts as 3-D tensors and an
-    F32 router) into port weights on `device`. Each tensor's packed bytes
-    move to the device once and split into planes there."""
+    """Read a GGUF of a ported family (a llama one dense, or Mixtral's experts
+    as 3-D tensors and an F32 router) into port weights on `device`. Each
+    tensor's packed bytes move to the device once and split into planes
+    there."""
     check_supported(cfg)
     sdt = _scale_dtype(compute_dtype)
 
@@ -201,18 +239,25 @@ def load_weights(gf: GGUFFile, cfg: ModelConfig, device="cpu",
         others = {n: dense(f.format(l)) for n, f in _layer_norms(cfg).items()}
         if cfg.n_experts:
             others[_ROUTER] = dense(_ROUTER_TENSOR.format(l)).to(compute_dtype)
+        others.update(_attn_extras(
+            (cfg.n_heads, cfg.n_kv_heads),
+            [dense(f.format(l)) for f in _QKV_BIASES] if cfg.qkv_bias else None,
+            [dense(f.format(l)) for f in _QK_NORMS] if cfg.qk_norm else None, compute_dtype))
         layers.append(_layer(mats, others, sdt))
     embed = q("token_embd.weight")
     out = q("output.weight") if "output.weight" in gf else embed
+    rope_freqs = dense("rope_freqs.weight") if "rope_freqs.weight" in gf else None
     return {
         "token_embed": embed,
         "final_norm": dense("output_norm.weight"),
         "output": to_kernel_layout(out, sdt),
+        "rope_inv_freq": _rope_inv_freq(cfg, rope_freqs, device),
         "layers": layers,
     }
 
 
-def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -> dict:
+def from_jax_weights(weights: dict, cfg: ModelConfig, device="cpu",
+                     compute_dtype=torch.float32) -> dict:
     """Port weights from the JAX package's planar weight dict (what
     crabml_tpu.models.weights.load_weights(..., layout="planar") or
     crabml_tpu.models.synthetic.make_weights return, arrays as numpy).
@@ -222,7 +267,9 @@ def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -
     the JAX package's planar layout whose planes the port reads carries
     across, dense and stacked: the canonical plane names and contents are
     the same (Q4_1's, Q5_0's, Q5_1's and Q8_1's too). The result
-    computes from the same numbers in the port's own layout."""
+    computes from the same numbers in the port's own layout. qwen2's biases
+    and qwen3's q and k norms carry across; `cfg` gives the rope frequencies,
+    divided by the JAX weights' "rope_freqs" where they carry them."""
     sdt = _scale_dtype(compute_dtype)
 
     def plane(a):
@@ -241,6 +288,10 @@ def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -
     lw = weights["layers"]
     L = lw["attn_norm"].shape[0]
     moe = _ROUTER in lw
+    heads = None
+    if "q_norm" in lw:  # the q and kv heads, from the q and k rows
+        hd = lw["q_norm"].shape[-1]
+        heads = (lw["wq"].shape[1] // hd, lw["wk"].shape[1] // hd)
     E = lw[_ROUTER].shape[1] if moe else 0
     layers = []
     for l in range(L):
@@ -249,12 +300,21 @@ def from_jax_weights(weights: dict, device="cpu", compute_dtype=torch.float32) -
         others = {n: plane(lw[n][l]).float() for n in (*_LAYER_NORMS, *_POST_NORMS) if n in lw}
         if moe:
             others[_ROUTER] = plane(lw[_ROUTER][l]).to(compute_dtype)
+        others.update(_attn_extras(
+            heads,
+            [plane(lw[n][l]) for n in ("bq", "bk", "bv")] if "bq" in lw else None,
+            [plane(lw[n][l]) for n in ("q_norm", "k_norm")] if "q_norm" in lw else None,
+            compute_dtype))
         layers.append(_layer(mats, others, sdt))
     embed = qt(weights["token_embed"])
     out = weights.get("output")
-    return {
+    port = {
         "token_embed": embed,
         "final_norm": plane(weights["final_norm"]).float(),
         "output": to_kernel_layout(qt(out) if out is not None else embed, sdt),
         "layers": layers,
     }
+    rope_freqs = weights.get("rope_freqs")
+    port["rope_inv_freq"] = _rope_inv_freq(
+        cfg, None if rope_freqs is None else plane(rope_freqs).float(), device)
+    return port

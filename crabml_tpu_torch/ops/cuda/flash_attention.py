@@ -19,7 +19,10 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-ROWS_PER_BLOCK = 64  # tokens x q heads of one kv group per warpgroup (float32: per block)
+# rows of a warpgroup (float32: of a block): 64 // G tokens x G q heads of one kv
+# group, so at most 64 q heads a kv head; where G does not divide 64 the last
+# 64 % G rows are padding (G = 7: 9 tokens, 63 live rows)
+ROWS_PER_BLOCK = 64
 HEAD_DIMS = (64, 128, 256)  # head dims the kernel takes
 
 _P = ctypes.c_void_p
@@ -31,8 +34,9 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     the attention of `cfg` (a ModelConfig) in compute `dtype` is one its
     kernels do not take. Every prefill chunk of more than a few tokens, and
     every attention at a head dim the decode kernels do not take, goes to
-    this kernel, which takes head dims HEAD_DIMS and q heads per kv head
-    dividing ROWS_PER_BLOCK; the decode kernels take float32 at head dim 128
+    this kernel, which takes head dims HEAD_DIMS and up to ROWS_PER_BLOCK q
+    heads per kv head (any count that divides the q heads: Qwen2-7B's 28
+    over 4 is 7); the decode kernels take float32 at head dim 128
     only (decode_attention.F32_HEAD_DIMS), so a float32 model at 256 is
     refused here rather than at its first decode step. The Runner and both
     engines call it before any weight is read; on the CPU every shape runs
@@ -48,9 +52,11 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     elif dtype == torch.float32 and hd in DECODE_HEAD_DIMS and hd not in F32_HEAD_DIMS:
         reasons.append(f"head dim {hd} in float32 (the decode kernels take it in bfloat16 "
                        "only: pass compute_dtype=torch.bfloat16)")
-    if H % KV or ROWS_PER_BLOCK % (H // KV):
-        reasons.append(f"{H} q heads over {KV} kv heads (q heads per kv head must divide "
-                       f"{ROWS_PER_BLOCK})")
+    if H % KV:
+        reasons.append(f"{H} q heads over {KV} kv heads (the kv heads must divide the q heads)")
+    elif H // KV > ROWS_PER_BLOCK:
+        reasons.append(f"{H} q heads over {KV} kv heads (at most {ROWS_PER_BLOCK} q heads per "
+                       "kv head)")
     _build.require(not reasons, "the card's attention kernels do not take this model: "
                    + "; ".join(reasons) + "; pass device='cpu' to run it on the CPU")
 
@@ -94,8 +100,9 @@ def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0
                    f"flash_attention: softcap {softcap} and window {window} must not be negative")
     B, T, H, hd = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
-    _build.require(H % KV == 0 and ROWS_PER_BLOCK % (H // KV) == 0,
-                   f"flash_attention: H={H} KV={KV} (G must divide {ROWS_PER_BLOCK})")
+    _build.require(H % KV == 0 and H // KV <= ROWS_PER_BLOCK,
+                   f"flash_attention: H={H} KV={KV} (KV must divide H, G at most "
+                   f"{ROWS_PER_BLOCK})")
     _build.require(hd in HEAD_DIMS, f"flash_attention: head_dim {hd} (kernel takes {HEAD_DIMS})")
     _build.require(q.dtype in (torch.bfloat16, torch.float32)
                    and k_cache.dtype == v_cache.dtype == q.dtype,

@@ -47,12 +47,11 @@ import numpy as np
 import torch
 
 from ..models.forward import (KVCache, dequantize_like, embed, final_logits, forward,
-                              layer_body, layer_window, quantize_new)
+                              layer_body, layer_window, quantize_new, rope_tables)
 from ..ops.cuda.decode_attention import decode_eligible
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.cuda.paged_decode_attention import (PAGE, gather_pages, paged_decode_attention,
                                                paged_decode_attention_fused)
-from ..ops.rope import rope_angles
 from .engine import Request, ServingEngine
 
 
@@ -100,7 +99,7 @@ def paged_decode_step(weights, cache: PagedKVCache, tokens, pos, cfg,
     B = tokens.shape[0]
     dev = tokens.device
     pos_dev = pos.to(device=dev, dtype=torch.int32)  # no copy for device int32
-    cos, sin = rope_angles(pos_dev[:, None], cfg.effective_rope_dim, cfg.rope_base)
+    cos, sin = rope_tables(weights, pos_dev[:, None], cfg)
     pos_l = pos_dev.long()
     page_of = cache.table[torch.arange(B, device=dev), pos_l // PAGE].long()  # (B,)
     off = pos_l % PAGE
@@ -138,7 +137,7 @@ def paged_prefill_chunk(weights, cache: PagedKVCache, tokens, filled: int, slot_
     ctx = torch.tensor([slot_pages[:n_ctx]], dtype=torch.int32, device=dev)  # (1, n_ctx)
     at = torch.arange(filled, filled + T, device=dev)
     page_of, off = ctx[0].long()[at // PAGE], at % PAGE  # (T,) each
-    cos, sin = rope_angles(at[None].to(torch.int32), cfg.effective_rope_dim, cfg.rope_base)
+    cos, sin = rope_tables(weights, at[None].to(torch.int32), cfg)
     lengths = torch.tensor([filled + T], dtype=torch.int32, device=dev)
     pos_dev = lengths - T
     through_table = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)

@@ -1,4 +1,5 @@
-"""Write a full-size synthetic GGUF (llama, Mixtral or gemma2 shape, random Q4_K,
+"""Write a full-size synthetic GGUF (llama, Llama-3.1, Mixtral, qwen2, qwen3, gemma or
+gemma2 shape, random Q4_K,
 Q5_K, Q6_K, Q8_0, Q4_0, Q3_K, Q2_K, Q4_1, Q5_0, Q5_1 or Q8_1 weights, or
 llama.cpp's mixed _K_M, Q2_K and legacy layouts) in seconds.
 
@@ -112,6 +113,22 @@ output tensor (`mix_kind(..., tied=True)`). Its norm weights are random in
 [0.5, 1.5]: unit norms put int8 activations on exact ties that torch and
 XLA break differently (tests/test_torch_schemes.py, RANDOM_NORMS).
 
+The other families (`FAMILIES`) write what llama.cpp writes for them, at the
+widths of each model's config.json: `qwen2-7b` (Qwen/Qwen2-7B: 28 q heads
+over 4 kv heads, so 7 a kv head; `tiny-qwen2` the same 7 at head dim 128)
+with F32 `attn_q.bias`, `attn_k.bias` and `attn_v.bias` (normal, standard
+deviation 0.5); `qwen3-8b` (Qwen/Qwen3-8B) with `attention.key_length` and
+the per-head `attn_q_norm` / `attn_k_norm` weights; `gemma-7b`
+(google/gemma-7b: 16 heads of head dim 256 over a 3072-wide embedding,
+tied, no post-norms, softcaps or window); and `llama31-8b`
+(meta-llama/Llama-3.1-8B) with the `rope_freqs.weight` divisors that
+llama.cpp's converter computes from its rope_scaling (type llama3, factor 8,
+low / high frequency factors 1 / 4, original context 8192;
+`llama3_freq_factors`) and no `rope.scaling.type`, as llama.cpp's own
+files carry them. Their norm weights are random in [0.5, 1.5] as gemma2's;
+the contexts are cut (Qwen2-7B's and Qwen3-8B's to 4096, Llama-3.1-8B's to
+8192).
+
 Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
@@ -125,6 +142,8 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q5_0 --mix imatrix
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q4_1 --mix legacy
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model gemma2-9b --layers 8 \
+        --scheme q4_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model qwen2-7b --layers 8 \
         --scheme q4_k --mix k_m
 """
 
@@ -156,13 +175,55 @@ MODEL_SHAPES = {
     "gemma2-9b": (3584, 14336, 42, 16, 8, 256000, 8192, 0, 0, 10000.0),
     # head dim 256 beside a 256-wide embedding: 2 q heads are 512 wide
     "tiny-gemma2": (256, 512, 2, 2, 1, 512, 512, 0, 0, 10000.0),
+    # Qwen/Qwen2-7B config.json (28 layers, 28 / 4 heads, vocab 152064), the context cut to 4096
+    "qwen2-7b": (3584, 18944, 28, 28, 4, 152064, 4096, 0, 0, 1e6),
+    # 7 q heads a kv head at head dim 128 beside a 256-wide embedding: 1792 q rows
+    "tiny-qwen2": (256, 512, 2, 14, 2, 512, 512, 0, 0, 1e6),
+    # Qwen/Qwen3-8B config.json (36 layers, head_dim 128, vocab 151936), the context cut to 4096
+    "qwen3-8b": (4096, 12288, 36, 32, 8, 151936, 4096, 0, 0, 1e6),
+    # google/gemma-7b config.json (28 layers, 16 / 16 heads of head_dim 256, vocab 256000)
+    "gemma-7b": (3072, 24576, 28, 16, 16, 256000, 8192, 0, 0, 10000.0),
+    # meta-llama/Llama-3.1-8B config.json (vocab 128256, rope_theta 500000), context cut to 8192
+    "llama31-8b": (4096, 14336, 32, 32, 8, 128256, 8192, 0, 0, 500000.0),
 }
-# the gemma2 shapes' own metadata: head dim (attention.key_length), softcaps,
-# the sliding window on even layers (gemma-2-9b: 4096 of its 8192)
-GEMMA2 = {
-    "gemma2-9b": dict(head_dim=256, attn_softcap=50.0, final_softcap=30.0, window=4096),
-    "tiny-gemma2": dict(head_dim=256, attn_softcap=50.0, final_softcap=30.0, window=24),
+# each family's own metadata beside its shape (a shape not named here is llama):
+# the architecture; the head dim where it is decoupled (attention.key_length);
+# the rms epsilon; a tied output; gemma2's softcaps and its sliding window on
+# even layers (gemma-2-9b: 4096 of its 8192); Llama-3.1's rope_scaling (factor,
+# low and high frequency factors, original context), written as rope_freqs
+_GEMMA2 = dict(arch="gemma2", head_dim=256, eps=1e-6, tied=True, attn_softcap=50.0,
+               final_softcap=30.0)
+FAMILIES = {
+    "gemma2-9b": dict(_GEMMA2, window=4096),
+    "tiny-gemma2": dict(_GEMMA2, window=24),
+    "qwen2-7b": dict(arch="qwen2", eps=1e-6),
+    "tiny-qwen2": dict(arch="qwen2", head_dim=128, eps=1e-6),
+    "qwen3-8b": dict(arch="qwen3", head_dim=128, eps=1e-6),
+    "gemma-7b": dict(arch="gemma", head_dim=256, eps=1e-6, tied=True),
+    "llama31-8b": dict(arch="llama", eps=1e-5, llama3_rope=(8.0, 1.0, 4.0, 8192)),
 }
+QKV_BIAS_SIGMA = 0.5  # qwen2's random q, k and v biases
+
+
+def llama3_freq_factors(rope_dim: int, base: float, factor: float, low_freq_factor: float,
+                        high_freq_factor: float, orig_ctx: int) -> np.ndarray:
+    """The `rope_freqs.weight` divisors that llama.cpp's converter writes for
+    a Llama-3.1 checkpoint (rope_scaling type "llama3"): 1 where a
+    frequency's wavelength is under orig_ctx / high_freq_factor, `factor`
+    where it is over orig_ctx / low_freq_factor, and between them the
+    reciprocal of a smooth blend. (rope_dim/2,) float32."""
+    freqs = 1.0 / (base ** (np.arange(0, rope_dim, 2, dtype=np.float32) / rope_dim))
+    out = []
+    for f in freqs:
+        wavelen = 2 * np.pi / f
+        if wavelen < orig_ctx / high_freq_factor:
+            out.append(1.0)
+        elif wavelen > orig_ctx / low_freq_factor:
+            out.append(factor)
+        else:
+            smooth = (orig_ctx / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+            out.append(1.0 / ((1.0 - smooth) / factor + smooth))
+    return np.asarray(out, np.float32)
 
 
 def synth_tokenizer(vocab: int):
@@ -379,9 +440,10 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
     `mix`, each layer tensor in the type `mix_kind` gives it."""
     dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
     n_layers = layers or n_layers
-    gemma = GEMMA2.get(model)
-    arch = "gemma2" if gemma else "llama"
-    hd = gemma["head_dim"] if gemma else dim // heads
+    fam = FAMILIES.get(model, {})
+    arch = fam.get("arch", "llama")
+    hd = fam.get("head_dim", dim // heads)
+    tied = fam.get("tied", False)
     if mix is not None and scheme not in MIXES.get(mix, ()):
         raise ValueError(f"mix {mix!r} over scheme {scheme!r}: "
                          + "; ".join(f"{m!r} over {', '.join(s)}" for m, s in MIXES.items()))
@@ -397,18 +459,19 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         f"{arch}.block_count": n_layers,
         f"{arch}.attention.head_count": heads,
         f"{arch}.attention.head_count_kv": kv_heads,
-        f"{arch}.attention.layer_norm_rms_epsilon": 1e-6 if gemma else 1e-5,
-        # gemma2 files carry no rope.dimension_count: the rope spans the head dim
-        **({} if gemma else {"llama.rope.dimension_count": hd}),
+        f"{arch}.attention.layer_norm_rms_epsilon": fam.get("eps", 1e-5),
+        # only llama files carry rope.dimension_count: elsewhere the rope spans the head dim
+        **({"llama.rope.dimension_count": hd} if arch == "llama" else {}),
         f"{arch}.rope.freq_base": rope,
         "tokenizer.ggml.model": "llama",
     }
-    if gemma:
+    if "head_dim" in fam:
+        meta.update({f"{arch}.attention.key_length": hd, f"{arch}.attention.value_length": hd})
+    if arch == "gemma2":
         meta.update({
-            "gemma2.attention.key_length": hd, "gemma2.attention.value_length": hd,
-            "gemma2.attn_logit_softcapping": gemma["attn_softcap"],
-            "gemma2.final_logit_softcapping": gemma["final_softcap"],
-            "gemma2.attention.sliding_window": gemma["window"],
+            "gemma2.attn_logit_softcapping": fam["attn_softcap"],
+            "gemma2.final_logit_softcapping": fam["final_softcap"],
+            "gemma2.attention.sliding_window": fam["window"],
         })
     if experts:
         meta["llama.expert_count"] = experts
@@ -432,15 +495,20 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         typ, blocks = SCHEMES[kind]
         w.add_tensor(name, typ, shape, lambda rng=rng, n=n, s=s: blocks(rng, n, s))
 
-    def norm(name, n):  # gemma2: random in [0.5, 1.5]; llama: ones (its files' bytes as before)
+    def norm(name, n):  # random in [0.5, 1.5]; llama: ones (its files' bytes as before)
         a = np.ones(n)
-        if gemma:
+        if arch != "llama":
             counter[0] += 1
             a = np.random.default_rng([seed, counter[0]]).uniform(0.5, 1.5, n)
         w.add_tensor(name, GGMLType.F32, (n,), a.astype(np.float32))
 
+    def bias(name, n):  # qwen2
+        counter[0] += 1
+        a = np.random.default_rng([seed, counter[0]]).standard_normal(n) * QKV_BIAS_SIGMA
+        w.add_tensor(name, GGMLType.F32, (n,), a.astype(np.float32))
+
     embd = mix_kind("token_embd", -1, n_layers, scheme, mix, heads // kv_heads, experts,
-                    tied=bool(gemma))
+                    tied=tied)
     add("token_embd.weight", (vocab, dim), sigma=0.02, kind=embd)
     for l in range(n_layers):
         def kind(tensor, l=l):
@@ -449,6 +517,12 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         add(f"blk.{l}.attn_q.weight", (q_dim, dim), kind=kind("attn_q"))
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim), kind=kind("attn_k"))
         add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=kind("attn_v"))
+        if arch == "qwen2":
+            for t, n in (("q", q_dim), ("k", kv_dim), ("v", kv_dim)):
+                bias(f"blk.{l}.attn_{t}.bias", n)
+        if arch == "qwen3":
+            norm(f"blk.{l}.attn_q_norm.weight", hd)
+            norm(f"blk.{l}.attn_k_norm.weight", hd)
         add(f"blk.{l}.attn_output.weight", (dim, q_dim), kind=kind("attn_output"))
         if experts:
             counter[0] += 1
@@ -464,11 +538,14 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=kind("ffn_down"))
         norm(f"blk.{l}.attn_norm.weight", dim)
         norm(f"blk.{l}.ffn_norm.weight", dim)
-        if gemma:
+        if arch == "gemma2":
             norm(f"blk.{l}.post_attention_norm.weight", dim)
             norm(f"blk.{l}.post_ffw_norm.weight", dim)
     norm("output_norm.weight", dim)
-    if not gemma:  # gemma2 is tied: the lm_head is token_embd
+    if "llama3_rope" in fam:
+        w.add_tensor("rope_freqs.weight", GGMLType.F32, (hd // 2,),
+                     llama3_freq_factors(hd, rope, *fam["llama3_rope"]))
+    if not tied:  # gemma and gemma2 are tied: the lm_head is token_embd
         add("output.weight", (vocab, dim), sigma=0.02, kind=lm_head)
 
     t0 = time.perf_counter()

@@ -77,7 +77,7 @@ def tiny():
     jcfg = tiny_config(**CFG)
     jw = make_weights(jcfg, JGGMLType.Q4_K, seed=5)
     cfg = ModelConfig(**{f: getattr(jcfg, f) for f in ModelConfig.__dataclass_fields__})
-    return repack_weights(fuse_weights(jw, jcfg), jcfg), jcfg, from_jax_weights(jw), cfg
+    return repack_weights(fuse_weights(jw, jcfg), jcfg), jcfg, from_jax_weights(jw, cfg), cfg
 
 
 @pytest.fixture(scope="module")

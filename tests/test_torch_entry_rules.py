@@ -24,7 +24,9 @@ def _cfg():
 
 def test_card_refuses_head_dims_its_kernels_do_not_take():
     """The committed Mixtral fixture has head dim 16: refused on a card,
-    taken on the CPU. No card is needed to decide."""
+    taken on the CPU. Any count of q heads per kv head up to 64 is taken; a
+    kv head count that does not divide the q heads, or more than 64 q heads
+    a kv head, is refused with the reason. No card is needed to decide."""
     cfg = _cfg()
     assert cfg.head_dim == 16
     with pytest.raises(UnsupportedError, match="head dim 16"):
@@ -32,8 +34,14 @@ def test_card_refuses_head_dims_its_kernels_do_not_take():
     check_card_attention(cfg, torch.device("cpu"))
     check_card_attention(replace(cfg, head_dim_override=128), "cuda")  # 128 and 64 are taken
     check_card_attention(replace(cfg, head_dim_override=64), "cuda")
-    with pytest.raises(UnsupportedError, match="q heads per kv head"):  # G = 3 does not divide 64
-        check_card_attention(replace(cfg, n_heads=3 * cfg.n_kv_heads, head_dim_override=128),
+    for G in (3, 7, 64):  # any q heads per kv head up to 64 (Qwen2-7B: 7)
+        check_card_attention(replace(cfg, n_heads=G * cfg.n_kv_heads, head_dim_override=128),
+                             "cuda")
+    with pytest.raises(UnsupportedError, match="kv heads must divide the q heads"):
+        check_card_attention(replace(cfg, n_heads=3 * cfg.n_kv_heads + 1, head_dim_override=128),
+                             "cuda")
+    with pytest.raises(UnsupportedError, match="at most 64 q heads per kv head"):
+        check_card_attention(replace(cfg, n_heads=65 * cfg.n_kv_heads, head_dim_override=128),
                              "cuda")
 
 

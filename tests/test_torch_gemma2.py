@@ -39,7 +39,7 @@ from crabml_tpu_torch.models.forward import KVCache, embed, forward, layer_windo
 from crabml_tpu_torch.models.weights import check_supported, from_jax_weights, load_weights
 from crabml_tpu_torch.ops.cuda.decode_attention import (decode_attention, decode_attention_fused,
                                                         decode_eligible)
-from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention
+from crabml_tpu_torch.ops.cuda.flash_attention import check_card_attention, flash_attention
 from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
                                                               paged_decode_attention_fused)
 from crabml_tpu_torch.runtime.runner import Runner
@@ -211,12 +211,13 @@ def test_decode_eligible_at_hd256():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("path", ["prompt", "decode"])
-@pytest.mark.parametrize("family", ["gemma2", "mixtral"])
+@pytest.mark.parametrize("family", ["gemma2", "mixtral", "qwen3"])
 def test_family_golden(family, path):
     """The port's forward against transformers' logits at the JAX test's
     5e-4: the whole 16-token prompt at once, or 15 tokens then the last
     through the T = 1 decode step. gemma2's fixture has window 8 and softcaps
-    50 / 30, so the window drops keys on layer 0 and not on layer 1."""
+    50 / 30, so the window drops keys on layer 0 and not on layer 1; qwen3's
+    norms each q and k head before the rotation."""
     gold = np.load(os.path.join(FIXDIR, f"{family}-tiny-golden.npz"))
     tokens = gold["tokens"].tolist()
     gf = GGUFFile(os.path.join(FIXDIR, f"{family}-tiny-f32.gguf"))
@@ -281,10 +282,14 @@ def test_tiny_gemma2_config(tiny_gemma2):
     lw = w["layers"][0]
     assert lw["wqkv"].shape == (512 + 2 * HD, 256) and lw["wo"].shape == (256, 512)
     assert lw["post_attn_norm"].shape == lw["post_ffn_norm"].shape == (256,)
-    with pytest.raises(UnsupportedError, match="rope scaling"):
-        check_supported(replace(cfg, rope_scaling_type="linear"))
-    with pytest.raises(UnsupportedError, match="architecture 'qwen3'"):
-        check_supported(replace(cfg, architecture="qwen3"))
+    for arch in ("phi2", "phi3"):  # still to port; qwen2, qwen3, gemma and rope scaling load
+        with pytest.raises(UnsupportedError, match=f"architecture '{arch}'"):
+            check_supported(replace(cfg, architecture=arch))
+    for arch in ("qwen2", "qwen3", "gemma"):
+        check_supported(replace(cfg, architecture=arch, rope_scaling_type="linear"))
+    for hd in (80, 96):  # phi2's and phi3's head dims: refused on a card
+        with pytest.raises(UnsupportedError, match=f"head dim {hd} "):
+            check_card_attention(replace(cfg, head_dim_override=hd), "cuda", torch.bfloat16)
 
 
 def test_tiny_gemma2_forward_matches_jax_w4a8(tiny_gemma2, w4a8_backend):
@@ -383,9 +388,9 @@ def test_from_jax_weights_carries_the_post_norms():
     path = os.path.join(FIXDIR, "gemma2-tiny-f32.gguf")
     jgf = JGGUFFile(path)
     jw = jload_weights(jgf, jconfig_from_gguf(jgf.metadata), layout="planar")
-    w = from_jax_weights(jw)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
+    w = from_jax_weights(jw, cfg)
     direct = load_weights(gf, cfg)
     for lw, dw, l in zip(w["layers"], direct["layers"], range(cfg.n_layers)):
         for n in ("post_attn_norm", "post_ffn_norm"):

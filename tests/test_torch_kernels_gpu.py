@@ -670,8 +670,8 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention(q, kv, kv, pos, 0.125, window=-1)
     with pytest.raises(UnsupportedError):
         flash_attention(q, kv.to(torch.bfloat16), kv.to(torch.bfloat16), pos, 0.125)  # mixed
-    with pytest.raises(UnsupportedError):  # 3 q heads a kv head do not divide 64 rows
-        flash_attention(torch.zeros(1, 1, 6, 128, device=cuda), kv, kv, pos, 0.125)
+    with pytest.raises(UnsupportedError):  # 65 q heads a kv head: more than a block's 64 rows
+        flash_attention(torch.zeros(1, 1, 130, 128, device=cuda), kv, kv, pos, 0.125)
     with pytest.raises(UnsupportedError):
         flash_attention(torch.zeros(1, 1, 4, 96, device=cuda),
                         torch.zeros(1, 2, 128, 96, device=cuda),
@@ -791,6 +791,77 @@ def test_decode_forms_refuse_float32_at_hd256(cuda):
                            pos, 1 / 16)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# -- any count of q heads a kv head up to 64 (qwen2: 7) ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G,T,pos0,softcap,window", [
+    (3, 100, 0, 0.0, 0), (5, 189, 37, 50.0, 0), (6, 129, 300, 0.0, 64), (7, 512, 0, 30.0, 200),
+    (7, 189, 512, 0.0, 0), (12, 65, 5, 50.0, 31)])
+def test_flash_attention_any_group_matches_plain(cuda, dtype, hd, G, T, pos0, softcap, window):
+    """G q heads a kv head that do not divide a warpgroup's 64 rows: 64 // G
+    tokens of G heads and 64 % G padding rows (G = 7: 9 tokens, one padding
+    row; 12: 5 tokens, four). Ragged T, offsets inside and at the edge of a
+    key tile, softcaps and windows that skip key tiles, head dims 64, 128 and
+    256. Tolerances as above; a second call gives the same bits."""
+    B, KV, S = 2, 2, 1024
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([pos0, pos0 // 2], dtype=torch.int32, device=cuda)
+    scale = 1 / math.sqrt(hd)
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, scale, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, scale, softcap, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, flash_attention(q, k, v, pos, scale, softcap, window))
+
+
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_attention_g7_ignores_rows_past_the_prefix(cuda, window):
+    """Qwen2-7B's 28 / 4 heads: a 189-token chunk at pos 512, every cache row
+    past pos + T NaN. Neither they nor the padding rows reach the output."""
+    B, T, KV, G, S, hd = 1, 189, 4, 7, 1024, 128
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([512], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, 0.09, 0.0, window)
+    k[:, :, 512 + T:], v[:, :, 512 + T:] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, 0.09, 0.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 70)])
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_g7_match_plain(cuda, form, kv, T, softcap, window):
+    """Every decode form at 7 q heads a kv head, T * G = 7 and 14 of the
+    tile's 16 rows, at the prefixes above and the cache's last position;
+    every row no query may see is NaN. Tolerances as above."""
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, 7, seed=70 + T, softcap=softcap,
+                                    window=window, poison=True)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert got.shape[-1] == 2 * 7 * 128
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if kv == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_g7_replay_in_a_cuda_graph(cuda, form):
+    """The graph replays of the decode forms at G = 7, bit for bit the eager
+    call's output."""
+    _replay_case(cuda, form, "bf16", 128, 7)
 
 
 # -- the decode step as a CUDA graph (runtime/generate.py) --------------------

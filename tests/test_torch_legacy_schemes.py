@@ -228,7 +228,7 @@ def test_from_jax_weights_carries_each_kind(kind):
     (wq | wk | wv fused as one)."""
     jcfg = tiny_config(**CFG)
     jw = make_weights(jcfg, JGGMLType(int(kind)), seed=4)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, _port_cfg(jcfg))
     assert pw["token_embed"].kind == kind and not pw["token_embed"].kernel_layout
     assert pw["output"].kind == kind and pw["output"].kernel_layout
     for l, lw in enumerate(pw["layers"]):
@@ -301,7 +301,7 @@ def test_forward_matches_jax_w4a8(kind, w4a8_backend):
     tolerance 1e-5 of max|out| (test_w4a8_plain_matches_pallas's)."""
     jcfg, jw, jk = _jax_model(kind)
     cfg = _port_cfg(jcfg)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, cfg)
     assert pw["layers"][0]["wqkv"].kind == kind
     names = {id(q): (l, n) for l, lw in enumerate(pw["layers"]) for n, q in lw.items()
              if hasattr(q, "planes")}
@@ -336,7 +336,7 @@ def test_q4_1_decode_lm_head_input_on_a_rounding_edge(w4a8_backend):
     1e-5), and the port's logits differ from both by more than 2e-4."""
     jcfg, jw, jk = _jax_model(Q41)
     cfg = _port_cfg(jcfg)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, cfg)
     tokens = np.random.default_rng(0).integers(3, jcfg.vocab_size, (1, PREFILL + 1))
     cache = KVCache.create(cfg, 1, jcfg.seq_len)
     forward(pw, cache, torch.from_numpy(tokens[:, :PREFILL]), torch.tensor([0]), cfg,

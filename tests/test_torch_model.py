@@ -47,7 +47,7 @@ def test_forward_matches_jax_w4a8(w4a8_backend):
     jw = make_weights(jcfg, JGGMLType.Q4_K, seed=5)
     jk = repack_weights(fuse_weights(jw, jcfg), jcfg)
     cfg = _port_cfg(jcfg)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, cfg)
     assert "wqkv" in pw["layers"][0] and "wgu" in pw["layers"][0]
 
     tokens = np.random.default_rng(0).integers(3, jcfg.vocab_size, (1, PREFILL + 1))

@@ -324,8 +324,9 @@ def test_from_jax_weights_carries_router_and_experts(tiny_moe):
     jgf = JGGUFFile(tiny_moe)
     jw = jload_weights(jgf, jconfig_from_gguf(jgf.metadata))
     gf = GGUFFile(tiny_moe)
-    want = load_weights(gf, config_from_gguf(gf.metadata))
-    got = from_jax_weights(jw)
+    cfg = config_from_gguf(gf.metadata)
+    want = load_weights(gf, cfg)
+    got = from_jax_weights(jw, cfg)
     for lg, lw in zip(got["layers"], want["layers"]):
         assert set(lg) == set(lw)
         for n, v in lw.items():

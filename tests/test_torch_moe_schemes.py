@@ -490,9 +490,10 @@ def test_moe_planes_carry_across_from_jax(tmp_path):
     path = build_synth_gguf(str(tmp_path / "q2_k.gguf"), "tiny-moe8", seed=8, scheme="q2_k",
                             mix="q2_k")
     jgf = JGGUFFile(path)
-    got = from_jax_weights(jload_weights(jgf, jconfig_from_gguf(jgf.metadata)))
     gf = GGUFFile(path)
-    want = load_weights(gf, config_from_gguf(gf.metadata))
+    cfg = config_from_gguf(gf.metadata)
+    got = from_jax_weights(jload_weights(jgf, jconfig_from_gguf(jgf.metadata)), cfg)
+    want = load_weights(gf, cfg)
     for lg, lw in zip(got["layers"], want["layers"]):
         assert set(lg) == set(lw)
         for n, v in lw.items():

@@ -228,7 +228,7 @@ def _forward_matches(kind, lm_head):
     jcfg, jw = _jax_weights(kind, lm_head)
     jk = repack_weights(fuse_weights(jw, jcfg), jcfg)
     cfg = _port_cfg(jcfg)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, cfg)
     assert pw["layers"][0]["wqkv"].kind == kind and pw["output"].kind == lm_head
     assert pw["output"].kernel_layout
     tokens = np.random.default_rng(0).integers(3, jcfg.vocab_size, (1, PREFILL + 1))
@@ -270,7 +270,7 @@ def test_q3k_unit_norms_put_int8_activations_on_ties(fast_q6k):
 
     jcfg = tiny_config(**CFG)
     jw = make_weights(jcfg, JGGMLType.Q3_K, seed=5)
-    pw = from_jax_weights(jw)
+    pw = from_jax_weights(jw, _port_cfg(jcfg))
     tok = np.random.default_rng(0).integers(3, jcfg.vocab_size, (1, PREFILL + 1))[:, -1:]
     x = embedding_lookup(pw["token_embed"], torch.from_numpy(tok), torch.float32)
     norm = pw["layers"][0]["attn_norm"]
