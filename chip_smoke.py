@@ -38,6 +38,14 @@ fails:
    Qwen2-7B's 28 q heads over 4 kv heads (7 a kv head: flash at 512-token
    chunks at pos 0 and 512 and at 189 tokens; the fused dense form at pos
    1000, the unfused one at T=2; the paged forms at the serving shape),
+   and (PR 17) every attention form at Phi-3-mini's head dim 96 and phi-2's
+   80 (32 / 32 heads: flash in bfloat16 and float32 at 512-token chunks at
+   pos 0 and 512 and at 189 tokens; the fused and unfused dense forms at B=1
+   T=1 at pos 1000; the four forms at the serving shape, bfloat16 and int8;
+   flash and the fused form at head dim 128 with phi-2's heads, against
+   which the kernels' zero-padding of hd 80 to 128 lanes is costed),
+   and the Q6_K dequant and int8-activation forms at Phi-3-mini's
+   32,064-row lm_head (189 rows and 1 row: 250.5 weight tiles of 128),
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -142,10 +150,19 @@ fails:
    `forward_gemma-7b`), and Llama-3.1-8B at 2 layers with its rope_freqs
    divisors (`llama31-8b`: phase 3, then 32 greedy tokens through the
    captured step equal to the eager step's).
+13. phi3 and phi2 (PR 17): Phi-3-mini-4k-instruct's widths (hidden 3072,
+   intermediate 8192, 32 / 32 heads of head dim 96, vocab 32064, context
+   4096; fused attn_qkv, Q5_K under Q4_K_M, and gate|up) at its full 32
+   layers (`phi3-mini`) and phi-2's (hidden 2560, intermediate 10240, 32
+   heads of head dim 80, the rotary over 32 of them, vocab 51200, context
+   2048, LayerNorm, the parallel residual and every bias) at 8 of 32 layers
+   (`phi2`), both in llama.cpp's Q4_K_M layout: phase 11's runs on the
+   ~700-token prompt (flash at head dims 96 and 80, the decode forms at
+   both), the drain, the dense engine, and each family's 2-layer forward.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10, 11 and 12 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10, 11, 12 and 13 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -177,7 +194,8 @@ CARD = "cuda"
 OUT_DIR = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core rates, per second
+# dense tensor-core rates, and float32 on the CUDA cores, per second
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: each timed launch finds it cold
 # the spin that holds the card while the host queues ten timed calls: at
 # least 10.1 ms at the H100's 1.98 GHz top clock, ten times what a kernel's
@@ -345,6 +363,18 @@ Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
 # the other families at their published widths, 2 layers each (phase_forward); Llama-3.1-8B
 # also decodes FAMILY_STEPS greedy tokens graphed against eager (its rope divisors)
 FAMILY_FORWARDS = (("qwen3-8b", 171), ("gemma-7b", 172))
+# the phi paths (tools/synth_gguf.py "phi3-mini": microsoft/Phi-3-mini-4k-instruct, 32 / 32
+# heads of head dim 96 over a 3072-wide embedding, intermediate 8192, vocab 32064, context
+# 4096, at its full 32 layers; "phi2": microsoft/phi-2, 32 heads of head dim 80 over 2560, the
+# rotary over 32 dims, intermediate 10240, vocab 51200, context 2048, at 8 of 32 layers), both
+# in llama.cpp's Q4_K_M layout (attn_qkv Q5_K); the ~700-token prompt's chunks take flash at
+# head dims 96 and 80, the decode step and the drain's ticks the decode forms at them
+P3_DIM, P3_HEADS, P3_HD, P3_VOCAB, P3_LAYERS = 3072, 32, 96, 32064, 32
+P2_DIM, P2_HEADS, P2_HD, P2_ROPE, P2_VOCAB, P2_CTX, P2_LAYERS = 2560, 32, 80, 32, 51200, 2048, 8
+PHI_ATTN = {"phi3-mini": (P3_HEADS, P3_HEADS, P3_HD, CTX),
+            "phi2": (P2_HEADS, P2_HEADS, P2_HD, P2_CTX)}
+PHI_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
+               "qmm_w4a8_q5k", "qmm_w4a8_q6k")
 Q3_VOCAB = 151936  # Qwen3-8B's lm_head rows
 FAMILY_STEPS = 32
 # qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
@@ -765,10 +795,12 @@ def _sdpa(q, k_cache, v_cache, pos: int, T: int, window: int = 0):
 
 
 def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: float = 0.0,
-                    window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM, CTX)) -> dict:
+                    window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM, CTX),
+                    dtype: str = "bf16") -> dict:
     """One sequence (B=1) of T new tokens at `pos` through `name` (the flash
     kernel, or a dense decode form), `dims` = (q heads, kv heads, head dim,
-    cache rows): the 7B's by default, G2_ATTN for gemma2."""
+    cache rows): the 7B's by default, G2_ATTN for gemma2; q and the cache in
+    `dtype`, bf16 or f32."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import decode_attention as da
@@ -777,9 +809,10 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
     g = torch.Generator(device="cuda").manual_seed(seed)
     H, KV, hd, S = dims
     B = 1
-    q = torch.randn(B, T, H, hd, generator=g, device="cuda").to(torch.bfloat16)
-    kc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(torch.bfloat16)
-    vc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(torch.bfloat16)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q = torch.randn(B, T, H, hd, generator=g, device="cuda").to(tdt)
+    kc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(tdt)
+    vc = torch.randn(B, KV, S, hd, generator=g, device="cuda").to(tdt)
     posv = torch.tensor([pos], dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(hd)
     kw = dict(softcap=softcap, local_window=window)
@@ -801,22 +834,27 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
     # float32 softmax on both sides; each output rounds to bfloat16 once,
     # so the two may differ by one bf16 unit (2^-8 relative) of the value.
     # The flash kernel also rounds the probabilities to bfloat16 for its
-    # second product: errors of 2^-9 a key that average out over a row
-    tol = 2.0 ** -7
+    # second product: errors of 2^-9 a key that average out over a row.
+    # float32: the kernel's fast exp and its other order of sums
+    tol = 1e-4 if dtype == "f32" else 2.0 ** -7
     ok = math.isfinite(err) and err <= tol * ref
     # what this run's mask needs: the keys some row sees, read once, and the
     # live (query, key) pairs
     first_key = max(0, pos - window + 1) if window else 0
     n_keys = pos + T - first_key
-    qo_bytes = 2 * B * T * H * hd * 2  # q read and out written, bf16
-    kv_bytes = 2 * B * KV * n_keys * hd * 2  # live keys and values
+    size = q.element_size()
+    qo_bytes = 2 * B * T * H * hd * size  # q read and out written
+    kv_bytes = 2 * B * KV * n_keys * hd * size  # live keys and values
     pairs = sum(min(pos + t + 1, window or pos + t + 1) for t in range(T))  # per head
-    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * H * hd * pairs, "bf16")
+    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * H * hd * pairs, dtype)
     form = (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else "")
     rec = {
-        "shape": f"B={B} T={T} pos={pos} H={H} KV={KV} hd={hd} S={S}{form}",
+        "shape": f"B={B} T={T} pos={pos} H={H} KV={KV} hd={hd} S={S}{form}"
+                 + (" float32" if dtype == "f32" else ""),
         "max_abs_err": err, "max_abs_ref": ref,
-        "tolerance": "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
+        "tolerance": "max_abs_err <= 1e-4 * max|ref| (fast exp, another order of sums)"
+                     if dtype == "f32" else
+                     "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
         "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
         "library_ms": timer(library) if library else None,
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1052,6 +1090,44 @@ def q2_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def phi_attention_checks(timer) -> dict[str, list[dict]]:
+    """Every attention form at Phi-3-mini's head dim 96 and phi-2's 80 (32 q
+    heads over 32 kv heads; a 4,096- and a 2,048-row cache), on the 128
+    kernels' tiles: flash in bfloat16 and in float32 at a first and a second
+    512-token chunk and the 189-token ragged chunk; the fused and unfused
+    dense forms at B=1 T=1 at pos 1000; the four forms at the 8-slot serving
+    shape, bfloat16 and int8. Then flash at the three chunks and the fused
+    dense form at pos 1000 at head dim 128 with phi-2's heads, against
+    which the kernels' zero-padding of hd 80 to 128 lanes is costed."""
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    for i, (what, dims) in enumerate(PHI_ATTN.items()):
+        seed = 200 + 20 * i
+        for dtype in ("bf16", "f32"):
+            for j, (T, pos) in enumerate(((PREFILL_CHUNK, 0), (PREFILL_CHUNK, PREFILL_CHUNK),
+                                          (RAGGED_CHUNK, PREFILL_CHUNK))):
+                add("flash_attention", check_attention(timer, "flash_attention", T, pos,
+                                                       seed + j, dims=dims, dtype=dtype))
+        for j, name in enumerate(("decode_attention_fused", "decode_attention")):
+            add(name, check_attention(timer, name, 1, 1000, seed + 3 + j, dims=dims))
+        for j, (form, kv) in enumerate((("paged_fused", "bf16"), ("paged_fused", "int8"),
+                                        ("paged", "bf16"), ("paged", "int8"),
+                                        ("dense_fused", "bf16"), ("dense_fused", "int8"),
+                                        ("dense", "bf16"), ("dense", "int8"))):
+            add(*check_decode_form(timer, form, kv, 1, seed + 5 + j, dims=dims[:3]))
+    padded = (P2_HEADS, P2_HEADS, 128, P2_CTX)
+    for j, (T, pos) in enumerate(((PREFILL_CHUNK, 0), (PREFILL_CHUNK, PREFILL_CHUNK),
+                                  (RAGGED_CHUNK, PREFILL_CHUNK))):
+        add("flash_attention", check_attention(timer, "flash_attention", T, pos, 245 + j,
+                                               dims=padded))
+    add("decode_attention_fused", check_attention(timer, "decode_attention_fused", 1, 1000, 248,
+                                                  dims=padded))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1088,6 +1164,8 @@ def phase_kernels() -> dict[str, list[dict]]:
     for name, recs in g2_attention_checks(timer).items():  # head dim 256, after the 7B's
         checks[name] += recs
     for name, recs in q2_attention_checks(timer).items():  # G = 7, after those
+        checks[name] += recs
+    for name, recs in phi_attention_checks(timer).items():  # head dims 96 and 80, after those
         checks[name] += recs
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
@@ -1159,6 +1237,13 @@ def phase_kernels() -> dict[str, list[dict]]:
             checks[name].append(rec)
         del qt
         torch.cuda.empty_cache()
+    # Phi-3-mini's lm_head, 32,064 rows (250.5 weight tiles of 128: the last
+    # tile half empty; no W8 planes at 64 mod 256) in Q6_K, at the ragged
+    # 189-row chunk through the dequant kernel and at one decode row
+    for form, rows, seed in (("dequant", RAGGED_CHUNK, 240), ("w4a8", 1, 241)):
+        name, rec = check_scheme_matmul(timer, "q6_k", form, rows, P3_VOCAB, P3_DIM, seed)
+        checks[name].append(rec)
+    torch.cuda.empty_cache()
     say(f"timer: the longest queueing of {timer.iters} timed calls {timer.max_queue_ms:.2f} ms "
         f"(the spin: {HOLD_CYCLES / SPIN_HZ * 1e3:.1f} ms or more); {timer.outlasted} timings "
         "queued for longer than the spin")
@@ -2523,12 +2608,45 @@ def _q2_check(runner, graphed: dict):
         fail(f"qwen2-7b: prompt of {graphed['prompt_tokens']} tokens is not two prefill chunks")
 
 
+def _p3_check(runner, graphed: dict):
+    """phi3-mini's config (32 / 32 heads of head dim 96, the file's fused
+    q|k|v and gate|up kept whole, q|k|v in Q5_K), and a prompt of two
+    chunks, each through flash at head dim 96."""
+    cfg = runner.cfg
+    lw = runner.weights["layers"][0]
+    got = (cfg.architecture, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.embedding_dim,
+           cfg.vocab_size, "wgu" in lw and "wq" not in lw, lw["wqkv"].kind.name)
+    if got != ("phi3", P3_HEADS, P3_HEADS, P3_HD, P3_DIM, P3_VOCAB, True, "Q5_K"):
+        fail(f"phi3-mini: config {got}")
+    if not PREFILL_CHUNK < graphed["prompt_tokens"] <= 2 * PREFILL_CHUNK:
+        fail(f"phi3-mini: prompt of {graphed['prompt_tokens']} tokens is not two prefill chunks")
+
+
+def _p2_check(runner, graphed: dict):
+    """phi2's config (32 heads of head dim 80, the rotary over 32, LayerNorm,
+    the parallel residual, a gateless FFN, every bias loaded), and a prompt
+    of two chunks through flash at head dim 80."""
+    cfg = runner.cfg
+    w = runner.weights
+    biases = ("bqkv", "bo", "ffn_up_b", "ffn_down_b", "attn_norm_b")
+    got = (cfg.architecture, cfg.n_heads, cfg.head_dim, cfg.effective_rope_dim,
+           cfg.embedding_dim, cfg.full_layer_norm, cfg.parallel_residual, cfg.no_ffn_gate,
+           all(all(n in lw for n in biases) for lw in w["layers"]),
+           "output_b" in w and "final_norm_b" in w, tuple(w["rope_inv_freq"].shape))
+    if got != ("phi2", P2_HEADS, P2_HD, P2_ROPE, P2_DIM, True, True, True, True, True,
+               (P2_ROPE // 2,)):
+        fail(f"phi2: config {got}")
+    if not PREFILL_CHUNK < graphed["prompt_tokens"] <= 2 * PREFILL_CHUNK:
+        fail(f"phi2: prompt of {graphed['prompt_tokens']} tokens is not two prefill chunks")
+
+
 def phase_family(tmp: Path, what: str, layers: int, seed: int, prompt_of, check,
                  kernels: tuple[str, ...], serving_seed: int) -> dict:
     """The synthetic `what` (tools/synth_gguf.py's shape of that name) in
     llama.cpp's Q4_K_M layout (attn_v and ffn_down Q6_K where use_more_bits
     holds, a Q6_K output or tied embedding), `layers` of its depth:
-    `Runner(path)` with its default W8 planes, the prompt
+    `Runner(path)` with its default W8 planes (asked for under its 1 GiB
+    floor), the prompt
     `prompt_of(tokenizer)` and 128 greedy tokens graphed at tick 1 (the
     capture, then the cached graph), at tick 8 and eagerly, all the same; a
     profiled window of the graphed step; the prefill with and without W8
@@ -2556,7 +2674,10 @@ def phase_family(tmp: Path, what: str, layers: int, seed: int, prompt_of, check,
     say(f"synthetic {what} Q4_K_M GGUF, {layers} of {MODEL_SHAPES[what][2]} layers: "
         f"{size / 1e9:.3f} GB in {synth_s:.2f} s, matrices in {kinds}")
     torch.cuda.reset_peak_memory_stats()
-    runner = Runner(path)  # the defaults: cuda, bfloat16, the model's context
+    # the defaults: cuda, bfloat16, the model's context; a file under the
+    # default's 1 GiB floor for the W8 planes (phi2 at 8 layers) asks for them
+    w8_default = size >= 1 << 30
+    runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
     if not runner.prefill_w8:
         fail(f"{what}: the Runner's default left the W8 prefill planes off")
     load_s = runner.metrics.times_ns["load"] / 1e9
@@ -2652,6 +2773,7 @@ def phase_family(tmp: Path, what: str, layers: int, seed: int, prompt_of, check,
     torch.cuda.empty_cache()
     return {
         "layers": layers, "kinds": kinds, "gguf_bytes": size, "synth_s": synth_s,
+        "w8": "the Runner's default" if w8_default else "prefill_w8=True (under 1 GiB)",
         "load_s": load_s, "load_w8_augment_s": w8_s, "prompt_tokens": graphed["prompt_tokens"],
         "prefill_chunks": chunks, "end_pos": n,
         "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
@@ -2832,15 +2954,26 @@ def main() -> int:
         for model, seed in FAMILY_FORWARDS:
             report[f"forward_{model}"] = timed(f"forward_{model}", phase_forward, tmp, model,
                                                seed=seed)
+        p3 = report["phi3-mini"] = timed(
+            "phi3-mini", phase_family, tmp, "phi3-mini", P3_LAYERS, 200,
+            lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _p3_check, PHI_KERNELS, 28)
+        report["forward_phi3"] = timed("forward_phi3", phase_forward, tmp, "phi3-mini",
+                                       seed=201, scheme="q4_k", mix="k_m")
+        p2 = report["phi2"] = timed(
+            "phi2", phase_family, tmp, "phi2", P2_LAYERS, 210,
+            lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _p2_check, PHI_KERNELS, 29)
+        report["forward_phi2"] = timed("forward_phi2", phase_forward, tmp, "phi2", seed=211,
+                                       scheme="q4_k", mix="k_m")
         l31 = report["llama31-8b"] = timed("llama31-8b", phase_graphed_forward, tmp,
                                            "llama31-8b", 173)
         for name, rec in (("gemma2", report["forward_gemma2"]), ("qwen2", report["forward_qwen2"]),
                           *((m, report[f"forward_{m}"]) for m, _ in FAMILY_FORWARDS),
-                          ("llama31-8b", l31["forward"])):
+                          ("llama31-8b", l31["forward"]), ("phi3", report["forward_phi3"]),
+                          ("phi2", report["forward_phi2"])):
             if not rec["ok"]:
                 failures.append(f"{name} forward check")
         family_paths = {}
-        for what, rec in (("gemma2-9b", g2), ("qwen2-7b", q2)):
+        for what, rec in (("gemma2-9b", g2), ("qwen2-7b", q2), ("phi3-mini", p3), ("phi2", p2)):
             family_paths.update({what: rec, f"{what}-dequant": rec["prefill_w8_against_dequant"],
                                  f"{what}-serving": rec["serving"],
                                  f"{what}-dense-serving": rec["dense_serving"]})

@@ -29,6 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "what fits the card's free memory; never on the CPU.")
     ap.add_argument("--no-prefill-w8", dest="prefill_w8", action="store_false",
                     help="leave the W8 prefill planes out")
+    ap.add_argument("--kv-lane-pad", action="store_true",
+                    help="accepted as the JAX package's CLI takes it, and changes nothing: "
+                         "the attention kernels take head dims 80 and 96 as they are")
     return ap
 
 
@@ -43,7 +46,7 @@ def main(argv=None) -> int:
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     runner = Runner(args.model, compute_dtype=dtype,
                     sampler=Sampler(temperature=args.temperature), device=args.device,
-                    prefill_w8=args.prefill_w8)
+                    prefill_w8=args.prefill_w8, kv_lane_pad=args.kv_lane_pad)
     t0 = time.perf_counter()
     print(args.prompt, end="", flush=True)
     for piece in runner.prefill_and_generate(args.prompt, args.steps):

@@ -10,8 +10,8 @@
 // own base pointer, which is a view in PyTorch.
 #include "decode_core.cuh"
 
-// q, out (B, T, KV*G, hd) bfloat16 (qtype 0) or float32 (1); hd 128, or 256
-// in bfloat16. k, v one layer of the cache (B, KV, S, hd) in the q type (quant
+// q, out (B, T, KV*G, hd) bfloat16 (qtype 0) or float32 (1); hd 80, 96 or 128,
+// or 256 in bfloat16. k, v one layer of the cache (B, KV, S, hd) in the q type (quant
 // 0) or int8 (quant 1, with ks, vs (B, KV, S) float32). k_new, v_new (B, KV,
 // T, hd) in the stored type and ks_new, vs_new (B, KV, T), or null when the
 // cache holds the step's keys. pos (B,) i32 = keys that precede the step,

@@ -57,7 +57,17 @@
 // so ldmatrix and the row-wise float4 reads are free of bank conflicts.
 // Head dims 128 and 256 (bfloat16; float32 at 128 only, `dispatch`): at 256 a
 // block's tiles take ~154 KB (~218 KB with int8's staging area), each warp
-// holds 32 output dims, and a chunk's partial is twice as wide.
+// holds 32 output dims, and a chunk's partial is twice as wide. Head dims 80
+// and 96 (phi2, phi3; bfloat16 and float32) run on the 128 kernel's tiles:
+// a tile row in shared memory is HP = 128 elements wide (Layout), while q,
+// the cache, the step's block, int8's staging area, the output and the
+// partials keep their HD stride. Only HD's chunks of a row are copied; the
+// score product takes HD / 16 k steps (float32: HD / 4 four-wide steps), so
+// it never reads a lane past HD, and the warps (float32: the threads) whose
+// output dims lie past HD skip the second product. P, a row of 128 keys,
+// fits the padded row as it does at 128. The bytes read are HD's; the
+// arithmetic of the 128 kernel runs on 1 / (1.33 at 96, 1.6 at 80) live
+// lanes.
 // Masked scores take -1e30 and weight 0, as in the JAX package; a row with
 // no visible key gives 0.
 #pragma once
@@ -136,12 +146,18 @@ __device__ __forceinline__ Keys keys_of(const Params& p, int b, int cap) {
     return r;
 }
 
+// A tile row's width in shared memory: HD rounded up to a multiple of 128
+// (80 and 96 take 128), so that a row of P (128 keys) fits it and the
+// 16-byte chunks of a row are a multiple of 8 for the swizzle.
+template <int HD> __host__ __device__ constexpr int tile_width() { return (HD + 127) / 128 * 128; }
+
 // Shared memory of one block, in bytes. CT = the compute type (the q type);
-// a tile row is HD elements of CT.
+// a tile row is HP = tile_width<HD>() elements of CT.
 template <typename QT, typename KT, int HD>
 struct Layout {
-    static constexpr int ROW = HD * (int)sizeof(QT);
-    static constexpr int SP = HD + 8;                         // f32 pitch of S and O
+    static constexpr int HP = tile_width<HD>();
+    static constexpr int ROW = HP * (int)sizeof(QT);
+    static constexpr int SP = HP + 8;                         // f32 pitch of S and O
     static constexpr int Q = 0;                               // [ROWS][HD] CT; then P
     static constexpr int K = Q + ROWS * ROW;                  // [CHUNK][HD] CT; then O
     static constexpr int V = K + CHUNK * ROW;                 // [CHUNK][HD] CT
@@ -215,8 +231,9 @@ chunk_kernel(Params p, Addr addr) {
     constexpr bool QUANT = sizeof(KT) == 1;
     constexpr bool TC = sizeof(CT) == 2;  // tensor cores for bfloat16, FFMA for float32
     constexpr int ROW = LY::ROW, SP = LY::SP;
-    static_assert(HD % (16 * NW) == 0 || !TC, "HD / NW output dims a warp, in 16s");
-    static_assert(HD % 32 == 0 && NT == 2 * CHUNK, "a thread a key and tensor");
+    constexpr int HP = LY::HP;
+    static_assert(HP % (16 * NW) == 0 || !TC, "HP / NW output dims a warp, in 16s");
+    static_assert(HD % 16 == 0 && NT == 2 * CHUNK, "a thread a key and tensor");
 
     const int kv = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -255,7 +272,7 @@ chunk_kernel(Params p, Addr addr) {
         return cached ? (long long)(row0 + i) : (long long)(new0 + j);
     };
     {
-        constexpr int QC = HD * (int)sizeof(QT) / 16;  // 16-byte chunks of a q row
+        constexpr int QC = HD * (int)sizeof(QT) / 16;  // 16-byte chunks of a q row (HD's)
         const QT* q = (const QT*)p.q;
         for (int i = tid; i < ROWS * QC; i += NT) {
             const int r = i / QC, cc = i % QC, t = r / G, g = r % G;
@@ -395,34 +412,37 @@ chunk_kernel(Params p, Addr addr) {
     // ---- 4. O = P V --------------------------------------------------------
     float* sO = reinterpret_cast<float*>(sK);  // K is dead
     if constexpr (TC) {
-        constexpr int DW = HD / NW;  // output dims of a warp, in 16s
-        float acc[DW / 8][4] = {};
+        constexpr int DW = HP / NW;  // output dims of a warp, in 16s
+        if (warp * DW < HD) {  // warps past HD: V's padding, never stored
+            float acc[DW / 8][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < CHUNK / 16; ++kk) {
-            uint32_t a[4];
-            ldsm_x4(wg::smem_u32(sQ) + at(lane % 16, 2 * kk + lane / 16, ROW), a);
+            for (int kk = 0; kk < CHUNK / 16; ++kk) {
+                uint32_t a[4];
+                ldsm_x4(wg::smem_u32(sQ) + at(lane % 16, 2 * kk + lane / 16, ROW), a);
 #pragma unroll
-            for (int dg = 0; dg < DW / 16; ++dg) {
-                uint32_t bv[4];
-                ldsm_x4_t(wg::smem_u32(sV) +
-                              at(16 * kk + lane % 16, warp * DW / 8 + 2 * dg + lane / 16, ROW), bv);
-                mma16816(acc[2 * dg], a, bv[0], bv[1]);
-                mma16816(acc[2 * dg + 1], a, bv[2], bv[3]);
+                for (int dg = 0; dg < DW / 16; ++dg) {
+                    uint32_t bv[4];
+                    ldsm_x4_t(wg::smem_u32(sV) + at(16 * kk + lane % 16,
+                                                     warp * DW / 8 + 2 * dg + lane / 16, ROW),
+                              bv);
+                    mma16816(acc[2 * dg], a, bv[0], bv[1]);
+                    mma16816(acc[2 * dg + 1], a, bv[2], bv[3]);
+                }
+            }
+            const int g = lane / 4, col = warp * DW + 2 * (lane % 4);
+#pragma unroll
+            for (int nt = 0; nt < DW / 8; ++nt) {
+                *reinterpret_cast<float2*>(sO + g * SP + col + 8 * nt) =
+                    make_float2(acc[nt][0], acc[nt][1]);
+                *reinterpret_cast<float2*>(sO + (g + 8) * SP + col + 8 * nt) =
+                    make_float2(acc[nt][2], acc[nt][3]);
             }
         }
-        const int g = lane / 4, col = warp * DW + 2 * (lane % 4);
-#pragma unroll
-        for (int nt = 0; nt < DW / 8; ++nt) {
-            *reinterpret_cast<float2*>(sO + g * SP + col + 8 * nt) =
-                make_float2(acc[nt][0], acc[nt][1]);
-            *reinterpret_cast<float2*>(sO + (g + 8) * SP + col + 8 * nt) =
-                make_float2(acc[nt][2], acc[nt][3]);
-        }
     } else {
-        // thread: dims 4 (tid % (HD/4)) .. +3 of rows r0, r0 + 1, ...
-        constexpr int DC = HD / 4, RPT = ROWS * DC / NT;  // rows a thread
+        // thread: dims 4 (tid % (HP/4)) .. +3 of rows r0, r0 + 1, ...
+        constexpr int DC = HP / 4, RPT = ROWS * DC / NT;  // rows a thread
         const int cc = tid % DC, r0 = tid / DC * RPT;
-        if (r0 < TG) {
+        if (r0 < TG && 4 * cc < HD) {
             float acc[RPT][4] = {};
             for (int i = 0; i < CHUNK; ++i) {
                 const float4 v4 = *reinterpret_cast<const float4*>(sV + at(i, cc, ROW));
@@ -520,20 +540,27 @@ int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
     return crabml_launch_status();
 }
 
+template <typename Addr, int HD>
+int dispatch_hd(const Params& p, const Addr& addr, int qtype, int quant, cudaStream_t s) {
+    if (qtype == 0)
+        return quant ? launch<bf16, int8_t, Addr, HD>(p, addr, s)
+                     : launch<bf16, bf16, Addr, HD>(p, addr, s);
+    return quant ? launch<float, int8_t, Addr, HD>(p, addr, s)
+                 : launch<float, float, Addr, HD>(p, addr, s);
+}
+
 // qtype 0 = bfloat16, 1 = float32; quant 0 = cache in the q type, 1 = int8;
-// hd 128 or 256. float32 takes head dim 128 only: its Q, K and V tiles at 256
-// (~272 KB) pass the 227 KB a block may have.
+// hd 80, 96, 128 or 256. float32 takes 80, 96 and 128: its Q, K and V tiles at
+// 256 (~272 KB) pass the 227 KB a block may have.
 template <typename Addr>
 int dispatch(const Params& p, const Addr& addr, int qtype, int quant, int hd, cudaStream_t s) {
     if (hd == 256 && qtype == 0)
         return quant ? launch<bf16, int8_t, Addr, 256>(p, addr, s)
                      : launch<bf16, bf16, Addr, 256>(p, addr, s);
-    if (hd != 128) return (int)cudaErrorInvalidValue;
-    if (qtype == 0)
-        return quant ? launch<bf16, int8_t, Addr, 128>(p, addr, s)
-                     : launch<bf16, bf16, Addr, 128>(p, addr, s);
-    return quant ? launch<float, int8_t, Addr, 128>(p, addr, s)
-                 : launch<float, float, Addr, 128>(p, addr, s);
+    if (hd == 80) return dispatch_hd<Addr, 80>(p, addr, qtype, quant, s);
+    if (hd == 96) return dispatch_hd<Addr, 96>(p, addr, qtype, quant, s);
+    if (hd == 128) return dispatch_hd<Addr, 128>(p, addr, qtype, quant, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace decode_core

@@ -42,6 +42,16 @@
 // of the head dimension per instruction. Only tiles that cross the diagonal
 // or the window's edge pay for the mask.
 //
+// Head dims 80 and 96 (phi2, phi3) take the 128 kernel's tiles: a tile row
+// in shared memory is HP = 128 elements wide (tile_width) while q, k, v and
+// out keep their HD stride in global memory, so only HD / 8 chunks of a row
+// are copied. The score product takes HD / 16 k steps, so it never reads a
+// lane past HD; V's lanes past HD are never written, and the output lanes
+// they give are never stored. The swizzles, the ring, the warpgroups and the
+// accumulators are the 128 kernel's; the product of P and V costs 128 / HD of
+// its own work (1.33x at 96, 1.6x at 80), while the bytes read stay HD's. A
+// native width (wgmma n96 and a 64-byte swizzle) would save that.
+//
 // float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
 // would round the inputs to TF32 or bf16 where the TPU kernel asks for full
 // precision. A block owns 64 rows, padded as above; Q, K and V tiles are
@@ -242,6 +252,9 @@ constexpr int NWG = NT / 128;  // warpgroups of a block, 64 stacked rows each
 // K/V tiles in the ring; loads run stages - 1 tiles ahead. Three up to head
 // dim 128; two at 256, where three would not fit beside the Q tiles.
 template <int HD> __host__ __device__ constexpr int stages_of() { return HD <= 128 ? 3 : 2; }
+// A tile row's width in shared memory: HD rounded up to whole 64-element
+// swizzle blocks (80 and 96 take 128).
+template <int HD> __host__ __device__ constexpr int tile_width() { return (HD + 63) / 64 * 64; }
 
 __device__ __forceinline__ float fast_exp2(float x) {
     float y;
@@ -265,8 +278,10 @@ __global__ void __launch_bounds__(NT, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
                 int KV, int S, int T_, int G, float scale, float softcap, int window) {
-    using TL = Tile<HD>;
-    constexpr int STAGES = stages_of<HD>(), AHEAD = STAGES - 1;
+    constexpr int HP = tile_width<HD>();
+    using TL = Tile<HP>;
+    constexpr int LIVE = HD / 8;  // 16-byte chunks of a row in global memory
+    constexpr int STAGES = stages_of<HP>(), AHEAD = STAGES - 1;
     extern __shared__ uint8_t smem_raw[];
     // 1,024-byte alignment of every tile: [NWG] Q tiles, then STAGES x (K, V)
     const uint32_t base = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -290,8 +305,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int n_tiles = last_key / BC + 1 - kt_begin;
 
     // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T and padding are zeros
-    for (int i = tid; i < NWG * 64 * TL::CHUNKS; i += NT) {
-        const int w = i / (64 * TL::CHUNKS), r = i / TL::CHUNKS % 64, c = i % TL::CHUNKS;
+    for (int i = tid; i < NWG * 64 * LIVE; i += NT) {
+        const int w = i / (64 * LIVE), r = i / LIVE % 64, c = i % LIVE;
         const int g = r / bq, t = t0_blk + w * bq + r % bq;
         const bool ok = t < T_ && g < G;
         const bf16* src =
@@ -301,8 +316,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     auto load_tile = [&](int i) {  // key tile kt_begin + i into stage i % STAGES
         const int k0 = (kt_begin + i) * BC;
         const uint32_t ks = kv_s + (i % STAGES) * 2 * TL::BYTES, vs = ks + TL::BYTES;
-        for (int e = tid; e < 64 * TL::CHUNKS; e += NT) {
-            const int r = e / TL::CHUNKS, c = e % TL::CHUNKS;
+        for (int e = tid; e < 64 * LIVE; e += NT) {
+            const int r = e / LIVE, c = e % LIVE;
             const int j = k0 + r;
             const bool ok = j <= last_key && j >= first_key;
             const size_t at = (head + (ok ? j : 0)) * HD + c * 8;
@@ -330,9 +345,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float cap2 = softcap * LOG2E;
 
     float m[2] = {CRABML_NEG_INF, CRABML_NEG_INF}, l[2] = {0.f, 0.f};
-    float o[HD / 64][32];
+    constexpr int NB = HP / 64;  // 64-wide blocks of the output
+    float o[NB][32];
 #pragma unroll
-    for (int nb = 0; nb < HD / 64; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
 
@@ -402,7 +418,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];  // summed over the quad at the end
 #pragma unroll
-        for (int nb = 0; nb < HD / 64; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int e = 0; e < 32; ++e) o[nb][e] *= alpha[(e >> 1) & 1];
 
@@ -415,19 +431,19 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 p[kk][a] = wg::pack_bf16(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
 
 #pragma unroll
-        for (int nb = 0; nb < HD / 64; ++nb) wg::pin(o[nb]);
+        for (int nb = 0; nb < NB; ++nb) wg::pin(o[nb]);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wg::pin(p[kk]);
         wg::fence();
 #pragma unroll
-        for (int nb = 0; nb < HD / 64; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
                 wg::Mma<64>::rs<1>(o[nb], p[kk], wg::desc128(vs + nb * 8192 + kk * 2048), 1);
         wg::commit();
         wg::wait<0>();
 #pragma unroll
-        for (int nb = 0; nb < HD / 64; ++nb) wg::pin(o[nb]);
+        for (int nb = 0; nb < NB; ++nb) wg::pin(o[nb]);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wg::pin(p[kk]);
     }
@@ -442,11 +458,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
         bf16* dst = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + 2 * qd;
 #pragma unroll
-        for (int nb = 0; nb < HD / 64; ++nb)
+        for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int j = 0; j < 8; ++j)
-                *reinterpret_cast<uint32_t*>(dst + nb * 64 + 8 * j) = wg::pack_bf16(
-                    o[nb][4 * j + 2 * h] * inv, o[nb][4 * j + 2 * h + 1] * inv);
+                if (nb * 64 + 8 * j < HD)  // lanes past HD: V's padding
+                    *reinterpret_cast<uint32_t*>(dst + nb * 64 + 8 * j) = wg::pack_bf16(
+                        o[nb][4 * j + 2 * h] * inv, o[nb][4 * j + 2 * h + 1] * inv);
     }
 }
 
@@ -454,7 +471,8 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
               int KV, int S, int T_, int G, float scale, float softcap, int window,
               cudaStream_t stream) {
-    constexpr size_t smem = (NWG + 2 * stages_of<HD>()) * Tile<HD>::BYTES + 1024;
+    constexpr int HP = tile_width<HD>();
+    constexpr size_t smem = (NWG + 2 * stages_of<HP>()) * Tile<HP>::BYTES + 1024;
     static_assert(smem <= 232448, "the ring and the Q tiles must fit a block's shared memory");
     cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -471,7 +489,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G is 1
-// to 64; hd is 64, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
+// to 64; hd is 64, 80, 96, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
 // = no cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
@@ -481,10 +499,14 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
 #define CRABML_FLASH(L, HD) L<HD>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
     if (dtype == 0) {
         if (hd == 64) return CRABML_FLASH(launch_tc, 64);
+        if (hd == 80) return CRABML_FLASH(launch_tc, 80);
+        if (hd == 96) return CRABML_FLASH(launch_tc, 96);
         if (hd == 128) return CRABML_FLASH(launch_tc, 128);
         if (hd == 256) return CRABML_FLASH(launch_tc, 256);
     } else {
         if (hd == 64) return CRABML_FLASH(launch_f32, 64);
+        if (hd == 80) return CRABML_FLASH(launch_f32, 80);
+        if (hd == 96) return CRABML_FLASH(launch_f32, 96);
         if (hd == 128) return CRABML_FLASH(launch_f32, 128);
         if (hd == 256) return CRABML_FLASH(launch_f32, 256);
     }

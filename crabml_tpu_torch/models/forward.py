@@ -1,5 +1,5 @@
 """The transformer forward pass for llama (dense or mixture of experts),
-qwen2, qwen3, gemma and gemma2, in torch.
+qwen2, qwen3, gemma, gemma2, phi3 and phi2, in torch.
 
 Counterpart of crabml_tpu/models/forward.py::forward (and KVCache). The JAX
 version scans stacked layers inside one jit and batches the cache writes of
@@ -23,7 +23,16 @@ the compute dtype, and qwen3 RMS-norms each q and k head before the
 rotation, as crabml_tpu/models/forward.py does. Every model's angles come
 from `rope_tables`: the frequencies kept with the weights (divided by
 Llama-3.1's rope_freqs or YaRN's divisors), linear scaling's position
-scale and YaRN's magnitude.
+scale and YaRN's magnitude. phi3 is llama's layer on its file's fused
+q|k|v and gate|up. phi2 takes, as crabml_tpu/models/forward.py does: a
+LayerNorm with a bias for both norms; the q|k|v bias, wo's bias after wo;
+the parallel residual (the FFN reads the attention's normed input and the
+layer returns (x + attn) + ffn); a gateless FFN, GELU(tanh)(up + b_up) @ down
++ b_down; and the lm_head's bias, added in the compute dtype before the
+logits go to float32. Its rotary spans 32 of the head's 80 dims; `rotate`
+passes the rest through. The cache holds the model's own head dim, 80
+and 96 included: the attention kernels take them as they are, so the JAX
+package's kv_lane_pad (a cache 128 wide) has no counterpart here.
 
 `decode_step` is the T = 1 step of B sequences. It takes the positions on
 the device and reads nothing back to the host, no value and no data-dependent
@@ -50,7 +59,7 @@ from ..ops.cuda.decode_attention import (decode_attention, decode_attention_fuse
 from ..ops.cuda.flash_attention import flash_attention
 from ..ops.cuda.gemm_quant import W4A8_MAX_ROWS, qmatmul_grouped, qmm_w4a8
 from ..ops.matmul import embedding_lookup, qmatmul
-from ..ops.norm import rms_norm
+from ..ops.norm import layer_norm, rms_norm
 from ..ops.rope import rope_angles, rotate
 from ..quant.qtensor import QTensor
 from .config import ModelConfig
@@ -139,6 +148,30 @@ def _project_gate_up(lw: dict, h: torch.Tensor):
     return qmatmul(h, lw["ffn_gate"]), qmatmul(h, lw["ffn_up"])
 
 
+def _norm(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    """phi2's LayerNorm with its bias b, or the RMS norm (b None)."""
+    if cfg.full_layer_norm:
+        return layer_norm(x, w, cfg.rms_norm_eps, b)
+    return rms_norm(x, w, cfg.rms_norm_eps)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def _ffn(lw: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN: act(gate) * up -> down, or phi2's gateless
+    GELU(up + b_up) @ down + b_down, each bias in the compute dtype
+    (crabml_tpu/models/forward.py::project_ffn)."""
+    if cfg.no_ffn_gate:
+        up = qmatmul(h, lw["ffn_up"])
+        if "ffn_up_b" in lw:
+            up = up + lw["ffn_up_b"]
+        down = qmatmul(_gelu(up), lw["ffn_down"])
+        return down + lw["ffn_down_b"] if "ffn_down_b" in lw else down
+    return qmatmul(_act_mul(cfg.act, *_project_gate_up(lw, h)), lw["ffn_down"])
+
+
 def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return gate * torch.sigmoid(gate) * up
 
@@ -148,7 +181,7 @@ def _act_mul(act: str, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     checkpoints train with; crabml_tpu/models/forward.py::_activation), else
     SiLU (models.weights.check_supported admits no other activation)."""
     if act == "gelu":
-        return torch.nn.functional.gelu(gate, approximate="tanh") * up
+        return _gelu(gate) * up
     return _silu_mul(gate, up)
 
 
@@ -301,7 +334,7 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qd, kvd = H * hd, KV * hd  # qd is the embedding width unless the head dim is decoupled
     eps = cfg.rms_norm_eps
-    h = rms_norm(x, lw["attn_norm"], eps)
+    h = _norm(cfg, x, lw["attn_norm"], lw.get("attn_norm_b"))
     qkv = _project_qkv(lw, h)
     # q and k heads are adjacent in the fused output: one norm (qwen3), one rotation
     qk = qkv[..., : qd + kvd].reshape(B, T, H + KV, hd)
@@ -311,13 +344,17 @@ def layer_body(lw: dict, x: torch.Tensor, cos, sin, cfg: ModelConfig, kv_io) -> 
     v = qkv[..., qd + kvd:].reshape(B, T, KV, hd)
     attn = kv_io(qk[:, :, :H], qk[:, :, H:], v)
     attn_out = qmatmul(attn.to(x.dtype), lw["wo"])
+    if "bo" in lw:
+        attn_out = attn_out + lw["bo"]
     if cfg.post_norms:  # gemma2: the block's output is normed before the residual add
         attn_out = rms_norm(attn_out, lw["post_attn_norm"], eps)
+    if cfg.parallel_residual:  # phi2: the FFN reads the attention's normed input
+        return x + attn_out + _ffn(lw, h, cfg)
     x = x + attn_out
     h = rms_norm(x, lw["ffn_norm"], eps)
     if cfg.n_experts:
         return x + moe_ffn(lw, h, cfg)
-    down = qmatmul(_act_mul(cfg.act, *_project_gate_up(lw, h)), lw["ffn_down"])
+    down = _ffn(lw, h, cfg)
     if cfg.post_norms:
         down = rms_norm(down, lw["post_ffn_norm"], eps)
     return x + down
@@ -331,12 +368,17 @@ def rope_tables(weights: dict, positions: torch.Tensor, cfg: ModelConfig):
 
 
 def final_logits(weights: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm, lm_head, float32 logits; capped as cap * tanh(l / cap)
-    where the model has a final softcap (gemma2). The division is by a
-    tensor: on CUDA a division by a Python scalar becomes a multiply by its
-    reciprocal, which rounds otherwise than the JAX package's division."""
-    x = rms_norm(x, weights["final_norm"], cfg.rms_norm_eps)
-    logits = qmatmul(x, weights["output"]).float()
+    """Final norm (phi2: LayerNorm with its bias), lm_head (phi2: plus its
+    bias, in the compute dtype, as the JAX package adds it before the cast),
+    float32 logits; capped as cap * tanh(l / cap) where the model has a
+    final softcap (gemma2). The division is by a tensor: on CUDA a division
+    by a Python scalar becomes a multiply by its reciprocal, which rounds
+    otherwise than the JAX package's division."""
+    x = _norm(cfg, x, weights["final_norm"], weights.get("final_norm_b"))
+    logits = qmatmul(x, weights["output"])
+    if "output_b" in weights:
+        logits = logits + weights["output_b"]
+    logits = logits.float()
     if cfg.final_logit_softcap:
         cap = logits.new_full((), cfg.final_logit_softcap)
         logits = cap * torch.tanh(logits / cap)

@@ -1,6 +1,6 @@
 """GGUF -> torch weights for llama (dense, with a Mixtral mixture of experts,
-or Llama-3.1's rope divisors), qwen2, qwen3, gemma and gemma2, and weights
-carried over from the JAX package.
+or Llama-3.1's rope divisors), qwen2, qwen3, gemma, gemma2, phi3 and phi2,
+and weights carried over from the JAX package.
 
 Counterpart of crabml_tpu/models/weights.py. The port keeps per-layer dicts
 of tensors (no layer stacking: the forward loops over layers in Python):
@@ -20,6 +20,17 @@ compute dtype, fused whether or not the matrices fuse (the add is per
 element); a qwen3 layer its per-head q and k RMS weights as one "qk_norm"
 (n_heads + n_kv_heads, head_dim) f32, the q weight on the q heads' rows and
 the k weight on the kv heads', so that one norm serves the fused q|k.
+
+A phi3 file holds q|k|v as one `attn_qkv.weight` (rows [q | k | v]) and
+gate|up as one `ffn_up.weight` (rows [gate | up]): they are the port's "wqkv"
+and "wgu" as they stand, so they load as one tensor each (the JAX package
+splits them and fuses them again). A phi2 layer holds "wqkv" with its bias
+"bqkv" (attn_qkv.bias), "wo" with "bo", a gateless "ffn_up" with "ffn_up_b"
+and "ffn_down" with "ffn_down_b" (every bias in the compute dtype, as the JAX
+package adds them), and "attn_norm" with its LayerNorm bias "attn_norm_b"
+(f32); it has no ffn_norm (the FFN reads the attention's normed input). Its
+weights dict adds "final_norm_b" (f32) and the lm_head's bias "output_b" in
+the compute dtype.
 
 "rope_inv_freq" (rope_dim/2,) f32 holds the rope frequencies divided by the
 file's `rope_freqs.weight` (Llama-3.1) or by YaRN's divisors, synthesized at
@@ -83,17 +94,34 @@ _ROUTER = "ffn_gate_inp"
 _ROUTER_TENSOR = "blk.{}.ffn_gate_inp.weight"
 
 
+_PHI3 = {"wqkv": "blk.{}.attn_qkv.weight", "wo": "blk.{}.attn_output.weight",
+         "wgu": "blk.{}.ffn_up.weight", "ffn_down": "blk.{}.ffn_down.weight"}
+_PHI2 = {"wqkv": "blk.{}.attn_qkv.weight", "wo": "blk.{}.attn_output.weight",
+         "ffn_up": "blk.{}.ffn_up.weight", "ffn_down": "blk.{}.ffn_down.weight"}
+# phi2's biases beside bqkv, added in the compute dtype
+_PHI2_BIASES = {"bo": "blk.{}.attn_output.bias", "ffn_up_b": "blk.{}.ffn_up.bias",
+                "ffn_down_b": "blk.{}.ffn_down.bias"}
+
+
 def _layer_tensors(cfg: ModelConfig) -> dict[str, str]:
+    if cfg.architecture == "phi3":
+        return _PHI3
+    if cfg.architecture == "phi2":
+        return _PHI2
     return {**_LAYER_TENSORS, **(_MOE_FFN if cfg.n_experts else _DENSE_FFN)}
 _LAYER_NORMS = {"attn_norm": "blk.{}.attn_norm.weight", "ffn_norm": "blk.{}.ffn_norm.weight"}
+_PHI2_NORMS = {"attn_norm": "blk.{}.attn_norm.weight", "attn_norm_b": "blk.{}.attn_norm.bias"}
 _POST_NORMS = {"post_attn_norm": "blk.{}.post_attention_norm.weight",  # gemma2
                "post_ffn_norm": "blk.{}.post_ffw_norm.weight"}
 _QKV_BIASES = ("blk.{}.attn_q.bias", "blk.{}.attn_k.bias", "blk.{}.attn_v.bias")  # qwen2
+_FUSED_QKV_BIAS = ("blk.{}.attn_qkv.bias",)  # phi2
 _QK_NORMS = ("blk.{}.attn_q_norm.weight", "blk.{}.attn_k_norm.weight")  # qwen3
-_ARCHITECTURES = ("llama", "qwen2", "qwen3", "gemma", "gemma2")
+_ARCHITECTURES = ("llama", "qwen2", "qwen3", "gemma", "gemma2", "phi3", "phi2")
 
 
 def _layer_norms(cfg: ModelConfig) -> dict[str, str]:
+    if cfg.full_layer_norm:
+        return _PHI2_NORMS
     return {**_LAYER_NORMS, **(_POST_NORMS if cfg.post_norms else {})}
 
 
@@ -103,8 +131,10 @@ def check_supported(cfg: ModelConfig):
     v biases), qwen3 (per-head q and k norms), gemma and gemma2 (softcaps, a
     sliding window on even layers, post-norms), each with a head dim that
     may be decoupled from the embedding width and any rope scaling a GGUF
-    names (linear, YaRN, or Llama-3.1's rope_freqs tensor); phi2 and phi3
-    raise."""
+    names (linear, YaRN, or Llama-3.1's rope_freqs tensor), phi3 (fused
+    q|k|v and gate|up) and phi2 (LayerNorm with biases, the parallel
+    residual, a gateless GELU FFN, biases on every matmul, a partial rotary);
+    any other architecture raises."""
     if cfg.architecture not in _ARCHITECTURES:
         raise UnsupportedError(
             f"not ported yet: architecture {cfg.architecture!r} (the port runs "
@@ -113,8 +143,9 @@ def check_supported(cfg: ModelConfig):
 
 def _attn_extras(heads: tuple[int, int], biases: list[torch.Tensor] | None,
                  qk_norms: list[torch.Tensor] | None, compute_dtype) -> dict:
-    """qwen2's q, k and v biases as one "bqkv" in the compute dtype (the JAX
-    package adds them in it), and qwen3's q and k norm weights (head_dim,)
+    """qwen2's q, k and v biases (or phi2's one attn_qkv.bias) as one "bqkv"
+    in the compute dtype (the JAX package adds them in it), and qwen3's q and
+    k norm weights (head_dim,)
     as one "qk_norm" (n_heads + n_kv_heads, head_dim) f32; `heads` =
     (n_heads, n_kv_heads)."""
     out = {}
@@ -145,22 +176,27 @@ def _fuse(parts: list[QTensor]) -> QTensor | None:
 
 def _layer(mats: dict[str, QTensor], others: dict[str, torch.Tensor], scale_dtype) -> dict:
     """Canonical per-layer planes -> kernel layout, with q|k|v and gate|up
-    fused (the experts' gate|up expert by expert). `others`: the norms and,
-    for a mixture of experts, the router."""
+    fused where the layer holds them apart (the experts' gate|up expert by
+    expert); a file's own fused tensors (phi's "wqkv", phi3's "wgu") and
+    phi2's gateless "ffn_up" pass as they are. `others`: the norms, biases
+    and, for a mixture of experts, the router."""
     moe = "ffn_down_exps" in mats
     mats = {n: to_kernel_layout(q, scale_dtype) for n, q in mats.items()}
     out = dict(others)
     groups = ((("wq", "wk", "wv"), "wqkv"),
               (("ffn_gate_exps", "ffn_up_exps"), "wgu_exps") if moe
               else (("ffn_gate", "ffn_up"), "wgu"))
+    grouped = set()
     for group, fused in groups:
+        if not all(n in mats for n in group):
+            continue
+        grouped.update(group)
         f = _fuse([mats[n] for n in group])
         if f is not None:
             out[fused] = f
         else:
             out.update({n: mats[n] for n in group})
-    for n in ("wo", "ffn_down_exps" if moe else "ffn_down"):
-        out[n] = mats[n]
+    out.update({n: q for n, q in mats.items() if n not in grouped})
     return out
 
 
@@ -233,27 +269,36 @@ def load_weights(gf: GGUFFile, cfg: ModelConfig, device="cpu",
         a = dequantize(info.typ, info.to_numpy(), info.n_elems).reshape(info.shape)
         return torch.from_numpy(np.array(a, np.float32)).to(device)
 
+    qkv_biases = _FUSED_QKV_BIAS if cfg.fused_qkv else _QKV_BIASES
     layers = []
     for l in range(cfg.n_layers):
         mats = {n: q(f.format(l)) for n, f in _layer_tensors(cfg).items()}
         others = {n: dense(f.format(l)) for n, f in _layer_norms(cfg).items()}
         if cfg.n_experts:
             others[_ROUTER] = dense(_ROUTER_TENSOR.format(l)).to(compute_dtype)
+        if cfg.ffn_bias:
+            others.update({n: dense(f.format(l)).to(compute_dtype)
+                           for n, f in _PHI2_BIASES.items()})
         others.update(_attn_extras(
             (cfg.n_heads, cfg.n_kv_heads),
-            [dense(f.format(l)) for f in _QKV_BIASES] if cfg.qkv_bias else None,
+            [dense(f.format(l)) for f in qkv_biases] if cfg.qkv_bias else None,
             [dense(f.format(l)) for f in _QK_NORMS] if cfg.qk_norm else None, compute_dtype))
         layers.append(_layer(mats, others, sdt))
     embed = q("token_embd.weight")
     out = q("output.weight") if "output.weight" in gf else embed
     rope_freqs = dense("rope_freqs.weight") if "rope_freqs.weight" in gf else None
-    return {
+    weights = {
         "token_embed": embed,
         "final_norm": dense("output_norm.weight"),
         "output": to_kernel_layout(out, sdt),
         "rope_inv_freq": _rope_inv_freq(cfg, rope_freqs, device),
         "layers": layers,
     }
+    if "output_norm.bias" in gf:  # phi2's final LayerNorm
+        weights["final_norm_b"] = dense("output_norm.bias")
+    if "output.bias" in gf:  # phi2's lm_head
+        weights["output_b"] = dense("output.bias").to(compute_dtype)
+    return weights
 
 
 def from_jax_weights(weights: dict, cfg: ModelConfig, device="cpu",
@@ -269,7 +314,10 @@ def from_jax_weights(weights: dict, cfg: ModelConfig, device="cpu",
     the same (Q4_1's, Q5_0's, Q5_1's and Q8_1's too). The result
     computes from the same numbers in the port's own layout. qwen2's biases
     and qwen3's q and k norms carry across; `cfg` gives the rope frequencies,
-    divided by the JAX weights' "rope_freqs" where they carry them."""
+    divided by the JAX weights' "rope_freqs" where they carry them. phi3's
+    q, k, v and gate, up planes, which the JAX package splits at load, join
+    again as "wqkv" and "wgu"; phi2's biases and its LayerNorm's carry
+    across."""
     sdt = _scale_dtype(compute_dtype)
 
     def plane(a):
@@ -296,8 +344,10 @@ def from_jax_weights(weights: dict, cfg: ModelConfig, device="cpu",
     layers = []
     for l in range(L):
         mats = {n: qt(lw[n], l) for n in _LAYER_TENSORS}
-        mats.update({n: qt(lw[n], l, E) for n in (_MOE_FFN if moe else _DENSE_FFN)})
-        others = {n: plane(lw[n][l]).float() for n in (*_LAYER_NORMS, *_POST_NORMS) if n in lw}
+        mats.update({n: qt(lw[n], l, E) for n in (_MOE_FFN if moe else _DENSE_FFN) if n in lw})
+        others = {n: plane(lw[n][l]).float()
+                  for n in (*_LAYER_NORMS, *_PHI2_NORMS, *_POST_NORMS) if n in lw}
+        others.update({n: plane(lw[n][l]).to(compute_dtype) for n in _PHI2_BIASES if n in lw})
         if moe:
             others[_ROUTER] = plane(lw[_ROUTER][l]).to(compute_dtype)
         others.update(_attn_extras(
@@ -314,6 +364,10 @@ def from_jax_weights(weights: dict, cfg: ModelConfig, device="cpu",
         "output": to_kernel_layout(qt(out) if out is not None else embed, sdt),
         "layers": layers,
     }
+    if weights.get("final_norm_b") is not None:
+        port["final_norm_b"] = plane(weights["final_norm_b"]).float()
+    if weights.get("output_b") is not None:
+        port["output_b"] = plane(weights["output_b"]).to(compute_dtype)
     rope_freqs = weights.get("rope_freqs")
     port["rope_inv_freq"] = _rope_inv_freq(
         cfg, None if rope_freqs is None else plane(rope_freqs).float(), device)

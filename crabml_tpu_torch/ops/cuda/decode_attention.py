@@ -11,8 +11,10 @@ launch's shape, from the cache's capacity alone; `block_keys` mirrors which
 keys (and which table column) each block of the grid reads.
 
 The cache is bfloat16 or float32 like q, or int8 with one float32 scale per
-(token, kv head) in k_scale / v_scale (B, KV, S, 1). The head dim is 128 or
-256; float32 q takes 128 only (HEAD_DIMS, F32_HEAD_DIMS). `softcap` caps the
+(token, kv head) in k_scale / v_scale (B, KV, S, 1). The head dim is 80, 96,
+128 or 256; float32 q takes 80, 96 and 128 (HEAD_DIMS, F32_HEAD_DIMS). At 80
+and 96 (phi2, phi3) the kernel runs on the 128 kernel's shared-memory tiles
+and the cache, q, the output and the partials keep their own width. `softcap` caps the
 scores as cap*tanh(s/cap) before masking; `local_window` > 0 lets a token see
 only the last `local_window` keys up to itself, and keys before the window
 are never read.
@@ -33,8 +35,9 @@ from .flash_attention import flash_attention_plain
 
 MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
 MAX_ROWS = 16  # query rows (T * q heads per kv head) of the kernel's tile
-HEAD_DIMS = (128, 256)  # head dims the kernel takes in bfloat16
-F32_HEAD_DIMS = (128,)  # and in float32: at 256 its float32 tiles pass a block's shared memory
+HEAD_DIMS = (80, 96, 128, 256)  # head dims the kernel takes in bfloat16
+# and in float32: at 256 its float32 tiles pass a block's shared memory
+F32_HEAD_DIMS = (80, 96, 128)
 CHUNK = 128  # keys a block takes: one page of the paged pool
 
 _P = ctypes.c_void_p
@@ -45,7 +48,7 @@ _F = ctypes.c_float
 def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
     """Whether the decode kernels take a step of T new tokens: at most MAX_T
     tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
-    128 or 256 (float32 compute at 256 is refused at load on the card:
+    80, 96, 128 or 256 (float32 compute at 256 is refused at load on the card:
     flash_attention.check_card_attention). Callers send every other attention
     to the flash kernel."""
     return T <= MAX_T and H % KV == 0 and hd in HEAD_DIMS and T * (H // KV) <= MAX_ROWS

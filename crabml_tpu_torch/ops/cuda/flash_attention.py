@@ -23,7 +23,7 @@ NEG_INF = -1e30
 # group, so at most 64 q heads a kv head; where G does not divide 64 the last
 # 64 % G rows are padding (G = 7: 9 tokens, 63 live rows)
 ROWS_PER_BLOCK = 64
-HEAD_DIMS = (64, 128, 256)  # head dims the kernel takes
+HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims the kernel takes (80, 96 on 128-wide tiles)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,8 +36,8 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     every attention at a head dim the decode kernels do not take, goes to
     this kernel, which takes head dims HEAD_DIMS and up to ROWS_PER_BLOCK q
     heads per kv head (any count that divides the q heads: Qwen2-7B's 28
-    over 4 is 7); the decode kernels take float32 at head dim 128
-    only (decode_attention.F32_HEAD_DIMS), so a float32 model at 256 is
+    over 4 is 7); the decode kernels take float32 at head dims 80, 96 and
+    128 only (decode_attention.F32_HEAD_DIMS), so a float32 model at 256 is
     refused here rather than at its first decode step. The Runner and both
     engines call it before any weight is read; on the CPU every shape runs
     on the plain versions."""

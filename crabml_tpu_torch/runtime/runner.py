@@ -82,7 +82,7 @@ class Runner:
     def __init__(self, model: str | GGUFFile, seq_len: int | None = None,
                  compute_dtype=torch.bfloat16,
                  sampler: Sampler | None = None, seed: int = 0, device=None,
-                 prefill_w8: bool | None = None):
+                 prefill_w8: bool | None = None, kv_lane_pad: bool = False):
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
@@ -110,6 +110,10 @@ class Runner:
                     self.weights = augment_w8_weights(
                         self.weights, None if w8_budget == -1 else w8_budget)
                     self._sync()
+        # kv_lane_pad is the JAX Runner's argument and changes nothing here: the
+        # attention kernels take head dims 80 and 96 as they are, and the cache
+        # holds the model's head dim
+        del kv_lane_pad
         self.cache = KVCache.create(self.cfg, 1, self.seq_len, compute_dtype, self.device)
         self.pos = 0
         self.generated: list[int] = []  # token ids of the current generation

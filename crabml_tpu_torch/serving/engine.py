@@ -36,7 +36,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..errors import ConfigError, UnsupportedError
+from ..errors import ConfigError
 from ..models.forward import KVCache, decode_step, forward
 from ..ops.cuda.flash_attention import check_card_attention
 from ..runtime.generate import RING, StepGraph
@@ -205,9 +205,7 @@ class ServingEngine:
                  kv_dtype=None, seed: int = 0, tick_tokens: int = 1,
                  prefill_chunk: int | None = 256, kv_lane_pad: bool = False,
                  repeat_window: int | None = None, device=None):
-        if kv_lane_pad:
-            raise UnsupportedError("kv_lane_pad is not ported: the decode kernels take "
-                                   "head dims 128 and 256 as they are")
+        del kv_lane_pad  # the JAX engine's argument; changes nothing here (Runner's note)
         if repeat_window is not None:
             self.REPEAT_WINDOW = max(1, int(repeat_window))
         if runner is not None:

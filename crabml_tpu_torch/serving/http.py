@@ -307,6 +307,9 @@ def engine_from_args(argv=None):
                     help="repetition/frequency/presence penalty window (default 64)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
+    ap.add_argument("--kv-lane-pad", action="store_true",
+                    help="accepted as the JAX package's daemon takes it, and changes nothing: "
+                         "the attention kernels take head dims 80 and 96 as they are")
     args = ap.parse_args(argv)
 
     import torch
@@ -314,7 +317,8 @@ def engine_from_args(argv=None):
     from ..runtime.runner import Runner
 
     dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    runner = Runner(args.model, seq_len=args.seq_len, compute_dtype=dt, device=args.device)
+    runner = Runner(args.model, seq_len=args.seq_len, compute_dtype=dt, device=args.device,
+                    kv_lane_pad=args.kv_lane_pad)
     kw = dict(n_slots=args.slots, seq_len=args.seq_len, tick_tokens=args.tick_tokens,
               repeat_window=args.repeat_window,
               kv_dtype=torch.int8 if args.kv_dtype == "int8" else None)

@@ -38,8 +38,8 @@ _WAIT_K = "    wg::cp_async_wait<1>();  // Q and K (this thread's copies)\n"
 _MERGE = "    __syncthreads();\n    int* last"
 _MMA_S = ("            mma16816(acc[0], a, bq[0], bq[1]);\n"
           "            mma16816(acc[1], a, bq[2], bq[3]);")
-_MMA_O = ("                mma16816(acc[2 * dg], a, bv[0], bv[1]);\n"
-          "                mma16816(acc[2 * dg + 1], a, bv[2], bv[3]);")
+_MMA_O = ("                    mma16816(acc[2 * dg], a, bv[0], bv[1]);\n"
+          "                    mma16816(acc[2 * dg + 1], a, bv[2], bv[3]);")
 _CORE = "decode_core.cuh"
 
 # name -> [(file, text, replacement)]
@@ -52,8 +52,8 @@ VARIANTS = {
     "no_tensor_cores": [
         (_CORE, _MMA_S, "            acc[0][0] += __uint_as_float(a[0] ^ bq[0] ^ bq[1]);\n"
                         "            acc[1][0] += __uint_as_float(a[1] ^ bq[2] ^ bq[3]);"),
-        (_CORE, _MMA_O, "                acc[2 * dg][0] += __uint_as_float(a[0] ^ bv[0] ^ bv[1]);\n"
-                        "                acc[2 * dg + 1][0] += "
+        (_CORE, _MMA_O, "                    acc[2 * dg][0] += __uint_as_float(a[0] ^ bv[0] ^ bv[1]);\n"
+                        "                    acc[2 * dg + 1][0] += "
                         "__uint_as_float(a[1] ^ bv[2] ^ bv[3]);")],
     "one_copy_group": [(_CORE, _WAIT_K, "    wg::cp_async_wait<0>();\n")],
     "chunk_64": [(_CORE, "constexpr int CHUNK = 128;", "constexpr int CHUNK = 64;"),

@@ -1,5 +1,5 @@
-"""Write a full-size synthetic GGUF (llama, Llama-3.1, Mixtral, qwen2, qwen3, gemma or
-gemma2 shape, random Q4_K,
+"""Write a full-size synthetic GGUF (llama, Llama-3.1, Mixtral, qwen2, qwen3, gemma,
+gemma2, phi3 or phi2 shape, random Q4_K,
 Q5_K, Q6_K, Q8_0, Q4_0, Q3_K, Q2_K, Q4_1, Q5_0, Q5_1 or Q8_1 weights, or
 llama.cpp's mixed _K_M, Q2_K and legacy layouts) in seconds.
 
@@ -129,6 +129,23 @@ files carry them. Their norm weights are random in [0.5, 1.5] as gemma2's;
 the contexts are cut (Qwen2-7B's and Qwen3-8B's to 4096, Llama-3.1-8B's to
 8192).
 
+The phi shapes write what llama.cpp writes for them. `phi3-mini`
+(microsoft/Phi-3-mini-4k-instruct's config.json: 3072 / 8192, 32 layers, 32
+heads of head dim 96 over 32 kv heads, vocab 32064, context 4096; `tiny-phi3`
+8 q heads of 96 over 4 kv heads and vocab 576, a multiple of 64 and not of
+128 as Phi-3's) holds q|k|v as one `attn_qkv.weight` (rows [q | k | v]) and
+gate|up as one `ffn_up.weight` (rows [gate | up]), and `rope.dimension_count`
+96. `phi2` (microsoft/phi-2: 2560 / 10240, 32 layers, 32 heads of head dim
+80, vocab 51200, context 2048; `tiny-phi2` 16 heads of 80) holds the fused
+`attn_qkv.weight` with `attn_qkv.bias`, `attn_output.weight` / `.bias`, a
+gateless `ffn_up.weight` / `.bias`, `ffn_down.weight` / `.bias`, a LayerNorm
+`attn_norm.weight` / `.bias` a layer and no ffn_norm, `output_norm.bias` and
+`output.bias` (every bias F32, normal with standard deviation 0.1), and
+`phi2.rope.dimension_count` 32 (the rotary spans 32 of the head's 80 dims)
+and `phi2.attention.layer_norm_epsilon`. Under `k_m` a fused `attn_qkv` takes
+llama.cpp's own rule: Q5_K over q4_k (Q4_K_M), Q6_K over q5_k (Q5_K_M), Q4_K
+over q3_k (Q3_K_M); `ffn_down` the use_more_bits rule as for llama.
+
 Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --seed 0
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model 7b --scheme q8_0
@@ -144,6 +161,9 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model gemma2-9b --layers 8 \
         --scheme q4_k --mix k_m
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model qwen2-7b --layers 8 \
+        --scheme q4_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model phi3-mini --scheme q4_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model phi2 --layers 8 \
         --scheme q4_k --mix k_m
 """
 
@@ -185,6 +205,14 @@ MODEL_SHAPES = {
     "gemma-7b": (3072, 24576, 28, 16, 16, 256000, 8192, 0, 0, 10000.0),
     # meta-llama/Llama-3.1-8B config.json (vocab 128256, rope_theta 500000), context cut to 8192
     "llama31-8b": (4096, 14336, 32, 32, 8, 128256, 8192, 0, 0, 500000.0),
+    # microsoft/Phi-3-mini-4k-instruct config.json (head dim 96, vocab 32064, ctx 4096)
+    "phi3-mini": (3072, 8192, 32, 32, 32, 32064, 4096, 0, 0, 10000.0),
+    # 8 q heads of 96 over 4 kv heads (G = 2); vocab 576 = 4.5 x 128, as 32064 = 250.5 x 128
+    "tiny-phi3": (768, 512, 2, 8, 4, 576, 512, 0, 0, 10000.0),
+    # microsoft/phi-2 config.json (head dim 80, rotary 32 of it, vocab 51200, ctx 2048)
+    "phi2": (2560, 10240, 32, 32, 32, 51200, 2048, 0, 0, 10000.0),
+    # 16 heads of 80: the embedding a multiple of 256, as K-quant rows need
+    "tiny-phi2": (1280, 512, 2, 16, 16, 512, 512, 0, 0, 10000.0),
 }
 # each family's own metadata beside its shape (a shape not named here is llama):
 # the architecture; the head dim where it is decoupled (attention.key_length);
@@ -201,8 +229,13 @@ FAMILIES = {
     "qwen3-8b": dict(arch="qwen3", head_dim=128, eps=1e-6),
     "gemma-7b": dict(arch="gemma", head_dim=256, eps=1e-6, tied=True),
     "llama31-8b": dict(arch="llama", eps=1e-5, llama3_rope=(8.0, 1.0, 4.0, 8192)),
+    "phi3-mini": dict(arch="phi3", eps=1e-5, rope_dim=96),
+    "tiny-phi3": dict(arch="phi3", eps=1e-5, rope_dim=96),
+    "phi2": dict(arch="phi2", eps=1e-5, rope_dim=32),
+    "tiny-phi2": dict(arch="phi2", eps=1e-5, rope_dim=32),
 }
 QKV_BIAS_SIGMA = 0.5  # qwen2's random q, k and v biases
+PHI2_BIAS_SIGMA = 0.1  # phi2's random biases
 
 
 def llama3_freq_factors(rope_dim: int, base: float, factor: float, low_freq_factor: float,
@@ -404,7 +437,8 @@ def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int
     ffn_up, ffn_down, the experts' stacks under the last three names;
     token_embd and output take i = -1) of layer i of n under `mix` (the
     module docstring's tables) in a model of `experts` experts (0: dense);
-    `gqa` = n_heads / n_kv_heads. The output's own rule is the caller's; a
+    `gqa` = n_heads / n_kv_heads; a fused `attn_qkv` (phi2, phi3) takes
+    llama.cpp's attn_qkv rule. The output's own rule is the caller's; a
     `tied` model (no output.weight) gives its token_embd the output's Q6_K
     under every mix."""
     if mix is not None and tied and tensor == "token_embd":
@@ -416,6 +450,8 @@ def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int
             return "q5_k"
     if mix == "imatrix" and tensor == "ffn_down" and i < n // 8:
         return IMATRIX_DOWN[scheme]
+    if mix == "k_m" and tensor == "attn_qkv":  # Q4_K_M, Q5_K_M, Q3_K_M
+        return {"q4_k": "q5_k", "q5_k": "q6_k", "q3_k": "q4_k"}[scheme]
     if mix == "q2_k":
         if tensor == "attn_v":
             return "q4_k" if gqa >= 4 else "q3_k"
@@ -449,6 +485,7 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
                          + "; ".join(f"{m!r} over {', '.join(s)}" for m, s in MIXES.items()))
     lm_head = lm_head or ("q6_k" if mix else scheme)
     w = GGUFWriter()
+    eps_key = "layer_norm_epsilon" if arch == "phi2" else "layer_norm_rms_epsilon"
     meta = {
         "general.architecture": arch,
         "general.name": f"synthetic-{model}-{scheme}" + (f"-{mix}" if mix else "")
@@ -459,9 +496,10 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         f"{arch}.block_count": n_layers,
         f"{arch}.attention.head_count": heads,
         f"{arch}.attention.head_count_kv": kv_heads,
-        f"{arch}.attention.layer_norm_rms_epsilon": fam.get("eps", 1e-5),
-        # only llama files carry rope.dimension_count: elsewhere the rope spans the head dim
-        **({"llama.rope.dimension_count": hd} if arch == "llama" else {}),
+        f"{arch}.attention.{eps_key}": fam.get("eps", 1e-5),
+        # llama and phi files carry rope.dimension_count: elsewhere the rope spans the head dim
+        **({f"{arch}.rope.dimension_count": fam.get("rope_dim", hd)}
+           if arch in ("llama", "phi3", "phi2") else {}),
         f"{arch}.rope.freq_base": rope,
         "tokenizer.ggml.model": "llama",
     }
@@ -502,10 +540,26 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             a = np.random.default_rng([seed, counter[0]]).uniform(0.5, 1.5, n)
         w.add_tensor(name, GGMLType.F32, (n,), a.astype(np.float32))
 
-    def bias(name, n):  # qwen2
+    def bias(name, n, sigma=QKV_BIAS_SIGMA):  # qwen2, phi2
         counter[0] += 1
-        a = np.random.default_rng([seed, counter[0]]).standard_normal(n) * QKV_BIAS_SIGMA
+        a = np.random.default_rng([seed, counter[0]]).standard_normal(n) * sigma
         w.add_tensor(name, GGMLType.F32, (n,), a.astype(np.float32))
+
+    def phi_layer(l, kind):
+        """phi3's and phi2's tensors of layer l, as llama.cpp names them."""
+        phi2 = arch == "phi2"
+        add(f"blk.{l}.attn_qkv.weight", (q_dim + 2 * kv_dim, dim), kind=kind("attn_qkv"))
+        add(f"blk.{l}.attn_output.weight", (dim, q_dim), kind=kind("attn_output"))
+        # phi3's ffn_up holds gate|up: 2 x hidden rows
+        add(f"blk.{l}.ffn_up.weight", ((1 if phi2 else 2) * hidden, dim), kind=kind("ffn_up"))
+        add(f"blk.{l}.ffn_down.weight", (dim, hidden), kind=kind("ffn_down"))
+        norm(f"blk.{l}.attn_norm.weight", dim)
+        if not phi2:
+            norm(f"blk.{l}.ffn_norm.weight", dim)
+            return
+        for name, n in (("attn_qkv", q_dim + 2 * kv_dim), ("attn_output", dim),
+                        ("ffn_up", hidden), ("ffn_down", dim), ("attn_norm", dim)):
+            bias(f"blk.{l}.{name}.bias", n, PHI2_BIAS_SIGMA)
 
     embd = mix_kind("token_embd", -1, n_layers, scheme, mix, heads // kv_heads, experts,
                     tied=tied)
@@ -514,6 +568,9 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         def kind(tensor, l=l):
             return mix_kind(tensor, l, n_layers, scheme, mix, heads // kv_heads, experts)
 
+        if arch in ("phi3", "phi2"):
+            phi_layer(l, kind)
+            continue
         add(f"blk.{l}.attn_q.weight", (q_dim, dim), kind=kind("attn_q"))
         add(f"blk.{l}.attn_k.weight", (kv_dim, dim), kind=kind("attn_k"))
         add(f"blk.{l}.attn_v.weight", (kv_dim, dim), kind=kind("attn_v"))
@@ -542,11 +599,15 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
             norm(f"blk.{l}.post_attention_norm.weight", dim)
             norm(f"blk.{l}.post_ffw_norm.weight", dim)
     norm("output_norm.weight", dim)
+    if arch == "phi2":
+        bias("output_norm.bias", dim, PHI2_BIAS_SIGMA)
     if "llama3_rope" in fam:
         w.add_tensor("rope_freqs.weight", GGMLType.F32, (hd // 2,),
                      llama3_freq_factors(hd, rope, *fam["llama3_rope"]))
     if not tied:  # gemma and gemma2 are tied: the lm_head is token_embd
         add("output.weight", (vocab, dim), sigma=0.02, kind=lm_head)
+    if arch == "phi2":
+        bias("output.bias", vocab, PHI2_BIAS_SIGMA)
 
     t0 = time.perf_counter()
     w.write(path)

@@ -190,6 +190,7 @@ def test_decode_kernels_take_at_most_sixteen_query_rows():
 
     assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 128)] == [1, 2, 3, 4]
     assert [T for T in range(1, 10) if decode_eligible(T, 8, 8, 128)] == list(range(1, 9))
-    assert not decode_eligible(1, 32, 8, 64) and not decode_eligible(1, 32, 8, 96)
+    assert not decode_eligible(1, 32, 8, 64) and not decode_eligible(1, 32, 8, 48)
+    assert decode_eligible(1, 32, 8, 96) and decode_eligible(1, 32, 8, 80)  # phi3, phi2
     assert decode_eligible(1, 32, 8, 256)  # gemma2's head dim takes them too
     assert not decode_eligible(1, 24, 1, 128)  # 24 rows

@@ -102,3 +102,22 @@ def test_blocks_never_follow_a_column_past_the_table(fused, max_pages, T):
                 if col is not None:
                     assert col == c < max_pages
                     assert blk["cached"][0] < blk["cached"][1]
+
+
+@pytest.mark.parametrize("tool,table", [("decode_ablation", "VARIANTS"),
+                                        ("qmm_ablation", "VARIANTS"),
+                                        ("qmm_ablation", "Q50_VARIANTS")])
+def test_ablation_variants_find_the_text_they_edit(tool, table):
+    """Each variant of the ablation tools (tools/decode_ablation.py,
+    tools/qmm_ablation.py) edits a copy of a CUDA source by replacing a
+    piece of its text; on the card a variant whose text is gone raises at
+    build. Every piece is still in the committed sources."""
+    import importlib
+    from pathlib import Path
+
+    mod = importlib.import_module(f"crabml_tpu_torch.tools.{tool}")
+    csrc = Path(mod.__file__).resolve().parents[1] / "csrc"
+    edits = [e for variant in getattr(mod, table).values() for e in variant]
+    assert edits
+    for fname, text, _ in edits:
+        assert text in (csrc / fname).read_text(), (fname, text)

@@ -47,9 +47,11 @@ def test_card_refuses_head_dims_its_kernels_do_not_take():
 
 def test_card_takes_head_dim_256_and_refuses_96():
     """Gemma-2's head dim 256 runs on the card in bfloat16 (flash and every
-    decode form); 96 (phi3) and 80 (phi2) are still refused with the reason,
-    and so is 256 in float32, whose decode tiles pass a block's shared
-    memory. No card is needed to decide."""
+    decode form); so do 96 (phi3) and 80 (phi2), in bfloat16 and float32, on
+    the 128 kernels' tiles; 256 in float32, whose decode tiles pass a block's
+    shared memory, is refused with the reason, and so is 48, which no kernel
+    takes. No card is needed to decide. (The name is the test's from before
+    96 and 80 were ported.)"""
     cfg = _cfg()
     hd256 = replace(cfg, head_dim_override=256)
     check_card_attention(hd256, "cuda")
@@ -59,8 +61,10 @@ def test_card_takes_head_dim_256_and_refuses_96():
         check_card_attention(hd256, "cuda", torch.float32)
     check_card_attention(hd256, "cpu", torch.float32)
     for hd in (96, 80):
-        with pytest.raises(UnsupportedError, match=f"head dim {hd} "):
-            check_card_attention(replace(cfg, head_dim_override=hd), "cuda", torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_card_attention(replace(cfg, head_dim_override=hd), "cuda", dtype)
+    with pytest.raises(UnsupportedError, match="head dim 48 "):
+        check_card_attention(replace(cfg, head_dim_override=48), "cuda", torch.bfloat16)
 
 
 def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):

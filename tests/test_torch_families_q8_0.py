@@ -7,74 +7,19 @@ steps goes one way in one package and the other way in the other. Each step
 is held to JAX's logits at 2e-4, or, where it misses, to the cause: rerun
 with JAX's int8 codes in place of the port's, it matches."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from crabml_tpu.models.forward import KVCache as JKVCache
 from crabml_tpu.models.forward import forward as jforward
-from crabml_tpu.ops.pallas import gemm_quant as jgemm
 from crabml_tpu_torch.gguf.reader import GGUFFile
 from crabml_tpu_torch.models.config import config_from_gguf
-from crabml_tpu_torch.models.forward import KVCache, forward
+from crabml_tpu_torch.models.forward import KVCache
 from crabml_tpu_torch.models.weights import load_weights
-from crabml_tpu_torch.ops.cuda import gemm_quant as pgq
 # one_torch_thread (autouse) and w4a8_backend are fixtures, used by import
-from torch_families_common import (CHUNKS, TOL, VARIANTS, family_file, jax_weights,
-                                   one_torch_thread, w4a8_backend)
-
-
-def _jax_codes(jw, jcache, toks, lo, jcfg):
-    """The int8 activation codes of each int8-activation matmul of a JAX
-    step, in call order, from an op-by-op run (the jitted step's values
-    cannot be read inside it), and that run's logits."""
-    codes, plain = [], jgemm.qmatmul_pallas
-
-    def logged(x, qt, *a, **kw):
-        if kw.get("act_quant"):
-            x2 = np.asarray(x, np.float32).reshape(-1, x.shape[-1])
-            if x2.shape[0] <= 16:  # the w4a8 route (<= W4A8_MAX_ROWS rows)
-                codes.append(np.asarray(jgemm.quantize_activation(
-                    jnp.asarray(x2), 32, x2.shape[1])[0]))
-        return plain(x, qt, *a, **kw)
-
-    jgemm.qmatmul_pallas = logged
-    try:
-        with jax.disable_jit():
-            logits, _ = jforward(jw, jcache, jnp.asarray(toks, jnp.int32),
-                                 jnp.asarray([lo], jnp.int32), jcfg, jnp.float32)
-    finally:
-        jgemm.qmatmul_pallas = plain
-    return codes, np.asarray(logits)
-
-
-def _port_step(w, cfg, cache, toks, lo, codes=None):
-    """The port's step; with `codes`, each int8-activation matmul takes the
-    i-th array of codes in place of its own. -> (logits, per matmul: the
-    positions where the codes differ, the port's x / dx there, the port's
-    codes there, the codes taken)."""
-    plain, seen = pgq.quantize_activation, []
-
-    def quantize(x2, group=pgq.GROUP):
-        xq, dx, sx = plain(x2, group)
-        if codes is None:
-            seen.append(None)
-            return xq, dx, sx
-        want = torch.from_numpy(np.array(codes[len(seen)]))
-        at = (xq != want).nonzero(as_tuple=True)
-        ratio = x2.float()[at].abs() / dx[at[0], at[1] // group]
-        seen.append((at, ratio, xq[at], want[at]))
-        return want, dx, dx * want.float().reshape(dx.shape + (group,)).sum(-1)
-
-    pgq.quantize_activation = quantize
-    try:
-        logits = forward(w, cache, torch.from_numpy(toks), torch.tensor([lo]), cfg,
-                         torch.float32)
-    finally:
-        pgq.quantize_activation = plain
-    return logits.numpy(), seen
+from torch_families_common import (CHUNKS, TOL, VARIANTS, family_file, jax_codes, jax_weights,
+                                   one_torch_thread, port_step, w4a8_backend)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
@@ -100,17 +45,17 @@ def test_q8_0_steps_match_jax_or_differ_by_rounding_edges(tmp_path_factory, w4a8
     for lo, hi in CHUNKS:
         toks = tokens[:, lo:hi]
         before = KVCache(cache.k.clone(), cache.v.clone())
-        got, quantized = _port_step(w, cfg, cache, toks, lo)
+        got, quantized = port_step(w, cfg, cache, toks, lo)
         want, after = jforward(jw, jcache, jnp.asarray(toks, jnp.int32),
                                jnp.asarray([lo], jnp.int32), jcfg, jnp.float32)
         want = np.asarray(want)
         if np.abs(got - want).max() > TOL:
             assert hi - lo <= 16 and quantized, (lo, hi)  # an int8-activation step
-            codes, op_by_op = _jax_codes(jw, jcache, toks, lo, jcfg)
+            codes, op_by_op = jax_codes(jw, jcache, toks, lo, jcfg)
             np.testing.assert_allclose(op_by_op, want, rtol=0, atol=1e-5)
             assert len(codes) == len(quantized)
             cache = before
-            got, swapped = _port_step(w, cfg, cache, toks, lo, codes)
+            got, swapped = port_step(w, cfg, cache, toks, lo, codes)
             np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
             assert sum(len(s[1]) for s in swapped) >= 1
             for at, ratio, mine, theirs in swapped:

@@ -200,10 +200,12 @@ def test_decode_forms_match_pallas_at_hd256(form, quant):
 def test_decode_eligible_at_hd256():
     """Head dim 256 takes the decode kernels (gemma2's decode step goes to
     the fused form, not to flash over the whole cache), with the same 16-row
-    limit as 128; 64 and 96 do not."""
+    limit as 128; 64 does not, and 96 and 80 do since phi3 and phi2 were
+    ported."""
     assert [T for T in range(1, 10) if decode_eligible(T, 16, 8, 256)] == list(range(1, 9))
     assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 256)] == [1, 2, 3, 4]
-    assert not decode_eligible(1, 16, 8, 64) and not decode_eligible(1, 16, 8, 96)
+    assert not decode_eligible(1, 16, 8, 64)
+    assert decode_eligible(1, 16, 8, 96) and decode_eligible(1, 16, 8, 80)
 
 
 # ---------------------------------------------------------------------------
@@ -282,14 +284,12 @@ def test_tiny_gemma2_config(tiny_gemma2):
     lw = w["layers"][0]
     assert lw["wqkv"].shape == (512 + 2 * HD, 256) and lw["wo"].shape == (256, 512)
     assert lw["post_attn_norm"].shape == lw["post_ffn_norm"].shape == (256,)
-    for arch in ("phi2", "phi3"):  # still to port; qwen2, qwen3, gemma and rope scaling load
-        with pytest.raises(UnsupportedError, match=f"architecture '{arch}'"):
-            check_supported(replace(cfg, architecture=arch))
-    for arch in ("qwen2", "qwen3", "gemma"):
+    with pytest.raises(UnsupportedError, match="architecture 'falcon'"):
+        check_supported(replace(cfg, architecture="falcon"))
+    for arch in ("qwen2", "qwen3", "gemma", "phi2", "phi3"):  # every family loads
         check_supported(replace(cfg, architecture=arch, rope_scaling_type="linear"))
-    for hd in (80, 96):  # phi2's and phi3's head dims: refused on a card
-        with pytest.raises(UnsupportedError, match=f"head dim {hd} "):
-            check_card_attention(replace(cfg, head_dim_override=hd), "cuda", torch.bfloat16)
+    for hd in (80, 96):  # phi2's and phi3's head dims: taken on a card since they were ported
+        check_card_attention(replace(cfg, head_dim_override=hd), "cuda", torch.bfloat16)
 
 
 def test_tiny_gemma2_forward_matches_jax_w4a8(tiny_gemma2, w4a8_backend):

@@ -673,9 +673,9 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(UnsupportedError):  # 65 q heads a kv head: more than a block's 64 rows
         flash_attention(torch.zeros(1, 1, 130, 128, device=cuda), kv, kv, pos, 0.125)
     with pytest.raises(UnsupportedError):
-        flash_attention(torch.zeros(1, 1, 4, 96, device=cuda),
-                        torch.zeros(1, 2, 128, 96, device=cuda),
-                        torch.zeros(1, 2, 128, 96, device=cuda), pos, 0.125)  # head dim 96
+        flash_attention(torch.zeros(1, 1, 4, 48, device=cuda),
+                        torch.zeros(1, 2, 128, 48, device=cuda),
+                        torch.zeros(1, 2, 128, 48, device=cuda), pos, 0.125)  # head dim 48
     with pytest.raises(UnsupportedError):
         decode_attention(q, kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)  # no scales
     with pytest.raises(UnsupportedError):
@@ -791,6 +791,98 @@ def test_decode_forms_refuse_float32_at_hd256(cuda):
                            pos, 1 / 16)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# -- head dims 96 and 80 (phi3, phi2) ------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("T,G,pos0,softcap,window", [
+    (100, 1, 0, 0.0, 0), (189, 1, 512, 0.0, 0), (512, 1, 0, 50.0, 200), (129, 2, 300, 0.0, 64),
+    (65, 4, 5, 30.0, 0), (257, 7, 100, 0.0, 31), (9, 2, 383, 50.0, 300)])
+def test_flash_attention_hd96_matches_plain(cuda, dtype, hd, T, G, pos0, softcap, window):
+    """Head dims 96 and 80 on the 128 kernel's tiles (a tile row 128 wide in
+    shared memory, HD / 16 k steps for the scores, V's padding lanes never
+    stored), and the float32 kernel at its own width: ragged T, Phi-3's 189
+    tokens at pos 512, 1 to 7 q heads a kv head, softcaps and windows that
+    skip key tiles. Tolerances as at 128; two calls give the same bits."""
+    B, KV, S = 2, 2, 1024
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([pos0, pos0 // 2], dtype=torch.int32, device=cuda)
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, hd ** -0.5, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, softcap, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert got.shape == (B, T, KV * G * hd)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, flash_attention(q, k, v, pos, hd ** -0.5, softcap, window))
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_attention_hd96_ignores_rows_past_the_prefix(cuda, hd, window):
+    """Phi-3-mini's 32 / 32 heads: the 189-token chunk at pos 512, cache rows
+    past pos + T and before the first row's window NaN. A store past a
+    head's hd lanes would land on the next head's first lanes."""
+    B, T, KV, G, S, p0 = 1, 189, 32, 1, 1024, 512
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([p0], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, 0.0, window)
+    k[:, :, p0 + T:], v[:, :, p0 + T:] = float("nan"), float("nan")
+    if window:
+        k[:, :, :p0 + 1 - window], v[:, :, :p0 + 1 - window] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, hd ** -0.5, 0.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 0), (0.0, 100), (30.0, 70)])
+@pytest.mark.parametrize("T,G", [(1, 1), (4, 2), (8, 1), (2, 7)])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd96_match_plain(cuda, form, kv, T, G, softcap, window, hd):
+    """Every decode form at head dims 96 and 80 (the 128 kernel's tiles,
+    partials at the true width), every stored type, the softcap and the
+    window, at prefixes on both sides of every chunk edge, ~1,000 and the
+    cache's last position; every row no query may see is NaN. Tolerances as
+    at 128."""
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, G, seed=T * 10 + G + hd, softcap=softcap,
+                                    window=window, poison=True, hd=hd)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert got.shape[-1] == (2 * G) * hd
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if kv == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd96_are_deterministic(cuda, form, hd):
+    """Two calls at head dims 96 and 80 give the same bits."""
+    one, _, _ = _decode_case(form, "int8", 4, 2, seed=3, window=100, hd=hd,
+                             pos=(0, 129, 700, 1000))
+    two, _, _ = _decode_case(form, "int8", 4, 2, seed=3, window=100, hd=hd,
+                             pos=(0, 129, 700, 1000))
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_hd96_replay_in_a_cuda_graph(cuda, form, kv, hd):
+    """The graph replays at head dims 96 and 80, one q head a kv head (Phi-3,
+    Phi-2), bit for bit the eager call's output."""
+    _replay_case(cuda, form, kv, hd, 1)
 
 
 # -- any count of q heads a kv head up to 64 (qwen2: 7) ------------------------
