@@ -152,17 +152,39 @@ fails:
    captured step equal to the eager step's).
 13. phi3 and phi2 (PR 17): Phi-3-mini-4k-instruct's widths (hidden 3072,
    intermediate 8192, 32 / 32 heads of head dim 96, vocab 32064, context
-   4096; fused attn_qkv, Q5_K under Q4_K_M, and gate|up) at its full 32
-   layers (`phi3-mini`) and phi-2's (hidden 2560, intermediate 10240, 32
-   heads of head dim 80, the rotary over 32 of them, vocab 51200, context
+   4096; fused attn_qkv, Q5_K under Q4_K_M, and gate|up) at 8 of its 32
+   layers (`phi3-mini`; its full depth until the float32 paths joined) and
+   phi-2's (hidden 2560, intermediate 10240, 32 heads of head dim 80, the
+   rotary over 32 of them, vocab 51200, context
    2048, LayerNorm, the parallel residual and every bias) at 8 of 32 layers
    (`phi2`), both in llama.cpp's Q4_K_M layout: phase 11's runs on the
    ~700-token prompt (flash at head dims 96 and 80, the decode forms at
    both), the drain, the dense engine, and each family's 2-layer forward.
+14. float32: the 7B Q4_K file of phase 5 at its 32 layers in float32
+   (`7b-f32`): `Runner(compute_dtype=torch.float32, kv_dtype=torch.bfloat16,
+   prefill_w8=False)`, the ~700-token prompt (its 512- and 189-row chunks
+   through the float32 dequant form) and 128 greedy tokens graphed at tick 1
+   and tick 8 and eagerly, identical, and a profiled window; the 16-request
+   drain of an 8-slot PagedServingEngine with a float32 pool (pages back) and
+   the HTTP daemon over it; the dense ServingEngine, whose greedy tokens are
+   the Runner's; then the same with `kv_dtype=torch.int8, prefill_w8=True`
+   (the 512-row chunk on the W8 planes, x rounded to bfloat16); then the CLI
+   in a subprocess (`--dtype f32 --kv-dtype bf16 --seq-len 2048 --seed 1
+   -v`). Gemma-2-9B's widths at 2 layers in float32 (`gemma2-9b-f32`): the
+   4,612-token prompt and 128 tokens as above, over a bfloat16 cache, so
+   that decode runs float32 q over a bfloat16 cache at head dim 256 and the
+   256,000-row Q6_K lm_head takes the float32 forms. The 2-layer forwards of
+   the 7B, of gemma2 and of each scheme with forms of its own (phases 3, 10,
+   11) also run the card in float32 against the CPU's float32, on a 40-token
+   prompt (the dequant forms), each scheme's float32 forms counted there.
+   Phase 2 holds each float32 form (the dequant form at 512 and 189 rows,
+   the int8-activation form at 1, 8 and 16 rows) and the decode forms in
+   float32 at head dim 256 and over a cache of another dtype against their
+   plain versions.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10, 11, 12 and 13 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10, 11, 12, 13 and 14 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -290,6 +312,25 @@ def _expert_forms() -> dict:
 
 
 KERNEL_SOURCES.update(_expert_forms())
+# the float32 forms: each form's dequant kernel in csrc/qmm_f32.cu and its
+# int8-activation form on float32 x and scale planes, on the float32 path of
+# its kind: Q4_K's the 7B one, Q6_K's the gemma2 one (its lm_head and Q6_K
+# layers), the others the 2-layer float32 forward of their scheme
+F32_PATH_OF = {"q4_k": "7b-f32", "q6_k": "gemma2-9b-f32"}
+
+
+def _f32_forms() -> dict:
+    out = {}
+    for scheme, form in _FORM.items():
+        path = F32_PATH_OF.get(scheme, f"forward_{scheme}")
+        out[f"qmm_{form}_f32"] = ("crabml_tpu_torch/csrc/qmm_f32.cu",
+                                  "crabml_tpu/ops/pallas/gemm_quant.py:123", path)
+        out["qmm_w4a8" + ("" if scheme == "q4_k" else f"_{form}") + ".f32"] = (
+            "crabml_tpu_torch/csrc/qmm_w4a8.cu", "crabml_tpu/ops/pallas/gemm_quant.py:190", path)
+    return out
+
+
+KERNEL_SOURCES.update(_f32_forms())
 # the Mixtral paths of the other layouts, 1 of 32 layers each (cut from 2 for the
 # script's time: one layer runs every form of the file's kinds): (name, scheme,
 # mix, seed): llama.cpp's Q5_K_M (Q5_K gate|up, Q6_K down: use_more_bits holds in
@@ -331,6 +372,18 @@ SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 UNIQUE_LENGTHS = (64, 100, 150, 230, 320, 450, 600, 700)
 SHARED_TAILS = (30, 1, 4, 8, 60, 100, 200, 444)
 DENSE_LAYERS = 8
+# the card's float32 forward against the CPU's, of max|logit|: the prompt
+# through the dequant forms, the same exact float32 weights on both sides,
+# float32 sums in another order (1e-4); the decode step through the
+# int8-activation forms, whose codes come from activations that differ in the
+# order of float32 sums only, so a value on a rounding edge takes the next
+# code on one side and moves a 2-layer model's logits as far as the
+# bfloat16 forward's gate allows (5e-2; on an H100, 1.67e-2 at most, on the
+# Q8_0 file, and 6.4e-7 where no code moved)
+F32_FORWARD_TOL = {"prefill": 1e-4, "decode step": 5e-2}
+# the prompt of the 2-layer forwards that run the card in float32: more than
+# 16 tokens, so that its chunk takes the dequant form
+F32_FORWARD_PROMPT = 40
 # the paged tick's card-against-CPU checks (the 7B's and Mixtral's): one layer
 # covers every kernel and the block table; the CPU side, which gathers each
 # decode row's expert planes and dequantizes them, took 37 and 51 s at 2 (PR 15)
@@ -365,11 +418,11 @@ Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
 FAMILY_FORWARDS = (("qwen3-8b", 171), ("gemma-7b", 172))
 # the phi paths (tools/synth_gguf.py "phi3-mini": microsoft/Phi-3-mini-4k-instruct, 32 / 32
 # heads of head dim 96 over a 3072-wide embedding, intermediate 8192, vocab 32064, context
-# 4096, at its full 32 layers; "phi2": microsoft/phi-2, 32 heads of head dim 80 over 2560, the
+# 4096, at 8 of its 32 layers; "phi2": microsoft/phi-2, 32 heads of head dim 80 over 2560, the
 # rotary over 32 dims, intermediate 10240, vocab 51200, context 2048, at 8 of 32 layers), both
 # in llama.cpp's Q4_K_M layout (attn_qkv Q5_K); the ~700-token prompt's chunks take flash at
 # head dims 96 and 80, the decode step and the drain's ticks the decode forms at them
-P3_DIM, P3_HEADS, P3_HD, P3_VOCAB, P3_LAYERS = 3072, 32, 96, 32064, 32
+P3_DIM, P3_HEADS, P3_HD, P3_VOCAB, P3_LAYERS = 3072, 32, 96, 32064, 8
 P2_DIM, P2_HEADS, P2_HD, P2_ROPE, P2_VOCAB, P2_CTX, P2_LAYERS = 2560, 32, 80, 32, 51200, 2048, 8
 PHI_ATTN = {"phi3-mini": (P3_HEADS, P3_HEADS, P3_HD, CTX),
             "phi2": (P2_HEADS, P2_HEADS, P2_HD, P2_CTX)}
@@ -518,9 +571,10 @@ def check_matmul(timer, name: str, rows: int, m: int, k: int, seed: int) -> dict
         2.0 * rows * m * k, op_type)
 
 
-def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
+def scheme_weight(scheme: str, m: int, k: int, seed: int, device, scale_dtype=None):
     """A random (m, k) weight of `scheme` (tools/synth_gguf.py's blocks, each
-    block's scales varied) in the port's kernel layout, bf16 scales."""
+    block's scales varied) in the port's kernel layout, bf16 scales (or
+    `scale_dtype`'s: float32 under float32 compute)."""
     import numpy as np
     import torch
 
@@ -530,7 +584,8 @@ def scheme_weight(scheme: str, m: int, k: int, seed: int, device):
     kind, blocks = SCHEMES[scheme]
     rng = np.random.default_rng(seed)
     raw = vary_scales(kind, blocks(rng, m * k, 1.0 / math.sqrt(k)), rng)
-    return check_varied(to_kernel_layout(to_planar(kind, raw, (m, k), device), torch.bfloat16))
+    return check_varied(to_kernel_layout(to_planar(kind, raw, (m, k), device),
+                                         scale_dtype or torch.bfloat16))
 
 
 def check_varied(qt):
@@ -600,6 +655,49 @@ def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int
     return name, rec
 
 
+def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, seed: int,
+                     qt=None) -> tuple[str, dict]:
+    """A scheme's float32 form under float32 compute, on float32 x and a
+    weight with float32 scale planes (`qt`, or scheme_weight's): the dequant
+    form of csrc/qmm_f32.cu (`form` "dequant") or the int8-activation form
+    ("w4a8"), against its plain version; the library yardstick is
+    torch.matmul in float32 (TF32 off) on the dequantized weight. Only float32
+    comes out."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import gemm_quant
+    from crabml_tpu_torch.quant.qtensor import FORM_KIND, dequantize
+
+    if qt is None:
+        qt = scheme_weight(scheme, m, k, seed, "cuda", torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g, device="cuda")
+    kind = FORM_KIND[qt.kind]
+    planes = [qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]]
+    if form == "dequant":
+        name = gemm_quant.DEQUANT_F32_FORMS[kind]
+        wrapper = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[kind])
+        plain_fn = getattr(gemm_quant, f"{gemm_quant.DEQUANT_FORMS[kind]}_plain")
+        # the same exact float32 weights: only the order of float32 sums differs
+        tol, why, op_type = 1e-5, "the same float32 weights, float32 sums in another order", "f32"
+    else:
+        name = gemm_quant.W4A8_FORMS[kind] + ".f32"
+        wrapper = gemm_quant.qmm_w4a8
+        plain_fn = getattr(gemm_quant, f"{gemm_quant.W4A8_FORMS[kind]}_plain")
+        tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
+        op_type = "int8"
+    kernel = lambda: wrapper(x, qt)  # noqa: E731
+    plain = lambda: plain_fn(x, *planes)  # noqa: E731
+    w32 = dequantize(qt)
+    rec = _matmul_record(
+        timer, name, f"{_on_planes(qt)}{rows}x{k} @ ({m}x{k})^T float32", kernel, plain,
+        lambda: torch.matmul(x, w32.t()), "torch.matmul(f32, TF32 off)", kernel(), plain(), None,
+        tol, why,
+        x.numel() * 4 + sum(t.numel() * t.element_size() for t in qt.planes.values())
+        + rows * m * 4, 2.0 * rows * m * k, op_type)
+    return name, rec
+
+
 def _plane_bytes(qt, names, planes=None) -> int:
     """Bytes of the named planes of `qt`; of a stack, only the experts in `planes`."""
     total = 0
@@ -619,13 +717,15 @@ def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, 
     torch.cuda.synchronize()
     err = (got32 - want).abs().max().item()
     ref = want.abs().max().item()
-    rounded_once = torch.equal(got_bf16, got32.to(torch.bfloat16))
+    # the float32 forms write float32 only (got_bf16 None)
+    rounded_once = got_bf16 is None or torch.equal(got_bf16, got32.to(torch.bfloat16))
     ok = math.isfinite(err) and err <= tol * ref and rounded_once
     b_ms, b_by = bound_ms(nbytes, ops, op_type)
     rec = {
         "shape": shape, "max_abs_err": err, "max_abs_ref": ref,
-        "tolerance": f"float32 out: max_abs_err <= {tol} * max|ref| ({why}); "
-                     "bfloat16 out (timed): equal to the float32 out rounded once",
+        "tolerance": f"float32 out: max_abs_err <= {tol} * max|ref| ({why})"
+                     + ("" if got_bf16 is None else
+                        "; bfloat16 out (timed): equal to the float32 out rounded once"),
         "bf16_out_rounded_once": rounded_once, "ok": ok,
         "ms": timer(kernel), "plain_ms": timer(plain), "library_ms": timer(library),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -867,13 +967,16 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
 
 
 def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: float = 0.0,
-                      window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM)) -> tuple[str, dict]:
+                      window: int = 0, dims=(HEADS, KV_HEADS, HEAD_DIM),
+                      q_dtype: str = "bf16") -> tuple[str, dict]:
     """One form of the decode-attention kernel at the serving shape: 8
     sequences, `dims` = (q heads, kv heads, head dim) (the 7B's 32 / 8 / 128
     by default; gemma2's 16 / 8 / 256), prefixes ragged from 1 to ~1,000
     tokens. form: dense | dense_fused | paged | paged_fused (fused: the
-    step's keys come in their own block); kv: bf16 | int8. The paged forms
-    read a 256-page pool through a shuffled block table."""
+    step's keys come in their own block); kv: bf16 | f32 | int8; q in
+    `q_dtype` (bf16 | f32: float32 compute, and with another cache dtype the
+    mixed forms). The paged forms read a 256-page pool through a shuffled
+    block table."""
     import torch
     import torch.nn.functional as F
 
@@ -894,7 +997,8 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    q = rand(B, T, H, hd).to(torch.bfloat16)
+    qdt = torch.float32 if q_dtype == "f32" else torch.bfloat16
+    q = rand(B, T, H, hd).to(qdt)
     posv = torch.tensor(prefix, dtype=torch.int32, device=dev)
     n_pool = SERVING_PAGES if paged else B * max_pages
     k, v = rand(n_pool, KV, PAGE, hd), rand(n_pool, KV, PAGE, hd)
@@ -903,7 +1007,8 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     if kv == "int8":
         (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
     else:
-        k, v, kn, vn = (a.to(torch.bfloat16) for a in (k, v, kn, vn))
+        kdt = torch.float32 if kv == "f32" else torch.bfloat16
+        k, v, kn, vn = (a.to(kdt) for a in (k, v, kn, vn))
     perm = torch.randperm(SERVING_PAGES - 1, generator=torch.Generator().manual_seed(seed))
     table = (perm[: B * max_pages] + 1).reshape(B, max_pages).to(dev, torch.int32)
     for b, p in enumerate(prefix):  # unused entries are 0, the scratch page
@@ -965,7 +1070,7 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
             rows = torch.arange(B, device=dev)[:, None]
             kd[rows, :, at] = da.dequantize_kv(kn, ksn).transpose(1, 2)
             vd[rows, :, at] = da.dequantize_kv(vn, vsn).transpose(1, 2)
-        kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+        kd, vd = kd.to(qdt), vd.to(qdt)
         col = torch.arange(n_max, device=dev)[None, None, :]
         mask = col <= at[:, :, None]
         if window:
@@ -979,22 +1084,28 @@ def check_decode_form(timer, form: str, kv: str, T: int, seed: int, softcap: flo
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
-    tol = 2.0 ** -7  # one bfloat16 rounding of the output; int8 dequantizes exactly on both sides
+    # bfloat16 out: one bfloat16 rounding of the output (int8 dequantizes exactly on
+    # both sides); float32 out: the kernel's fast exp and its other order of sums
+    tol = 1e-4 if q_dtype == "f32" else 2.0 ** -7
     ok = math.isfinite(err) and err <= tol * ref
     # the bytes this run's data needs: q and out, and each live key and value
     # (from the earliest row's window start on) with its scale, read once
-    row_bytes = hd * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+    row_bytes = hd * {"int8": 1, "bf16": 2, "f32": 4}[kv] + (4 if kv == "int8" else 0)
     live = sum(p + T - (max(p + 1 - window, 0) if window else 0) for p in prefix)
     pairs = sum(min(p + t + 1, window) if window else p + t + 1 for p in prefix for t in range(T))
-    nbytes = 2 * B * T * H * hd * 2 + 2 * KV * live * row_bytes
-    b_ms, b_by = bound_ms(nbytes, 4.0 * H * hd * pairs, "bf16")
+    nbytes = 2 * B * T * H * hd * q.element_size() + 2 * KV * live * row_bytes
+    # bfloat16 on both sides takes the tensor cores; float32 anywhere, FFMA
+    op_type = "f32" if "f32" in (q_dtype, kv) else "bf16"
+    b_ms, b_by = bound_ms(nbytes, 4.0 * H * hd * pairs, op_type)
     rec = {
-        "shape": f"{form} {kv} B={B} T={T} prefixes {prefix[0]}..{prefix[-1]} H={H} "
-                 f"KV={KV} hd={hd}" + (f" pool={SERVING_PAGES} pages, shuffled table" if paged
+        "shape": f"{form} q {q_dtype} kv {kv} B={B} T={T} prefixes {prefix[0]}..{prefix[-1]} "
+                 f"H={H} KV={KV} hd={hd}" + (f" pool={SERVING_PAGES} pages, shuffled table" if paged
                                        else f" S={S}")
                  + (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else ""),
         "max_abs_err": err, "max_abs_ref": ref,
-        "tolerance": "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
+        "tolerance": "max_abs_err <= 1e-4 * max|ref| (fast exp, another order of sums)"
+                     if q_dtype == "f32" else
+                     "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
         "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
         "library_ms": timer(library) if library else None,
         "bound_ms": b_ms, "bound_by": b_by, "live_kv_bytes": 2 * KV * live * row_bytes,
@@ -1128,6 +1239,57 @@ def phi_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def f32_checks(timer) -> dict[str, list[dict]]:
+    """The float32 forms and the decode forms in float32 and over a cache of
+    another dtype. Each scheme's float32 dequant form at a 512-row and at the
+    ragged 189-row chunk of the 7B qkv (and Q4_K's at a 512-row chunk of
+    down), its float32 int8-activation form at 1, 8 and 16 rows of qkv, Q4_K's
+    also at every other 7B decode projection at one row; then the decode
+    forms with float32 q at gemma2's head dim 256 (one tile for K, then V)
+    over a float32, bfloat16 or int8 cache and at the 7B's 128 over a
+    bfloat16 or int8 one, bfloat16 q over a float32 cache, and the flash
+    kernel in float32 at head dim 256."""
+    import torch
+
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    for i, scheme in enumerate(("q4_k",) + KERNEL_SCHEMES):
+        seed = 300 + 4 * i
+        shapes = [(PREFILL_CHUNK, QKV_M, DIM), (RAGGED_CHUNK, QKV_M, DIM)]
+        if scheme == "q4_k":
+            shapes.append((PREFILL_CHUNK, DIM, FFN))
+        for rows, m, k in shapes:
+            add(*check_f32_matmul(timer, scheme, "dequant", rows, m, k, seed))
+        qt = scheme_weight(scheme, QKV_M, DIM, seed + 2, "cuda", torch.float32)
+        for rows in (1, SERVING_SLOTS, 2 * SERVING_SLOTS):
+            add(*check_f32_matmul(timer, scheme, "w4a8", rows, QKV_M, DIM, seed + 2, qt))
+        del qt
+        if scheme == "q4_k":
+            for j, (m, k) in enumerate(((DIM, DIM), (2 * FFN, DIM), (DIM, FFN), (VOCAB, DIM))):
+                add(*check_f32_matmul(timer, scheme, "w4a8", 1, m, k, seed + 3 + j))
+        torch.cuda.empty_cache()
+    # decode: gemma2's main-path step (B=1, pos 4,700, window and softcap) in float32
+    add("decode_attention_fused", check_attention(timer, "decode_attention_fused", 1, 4700, 320,
+                                                  G2_SOFTCAP, G2_WINDOW, dims=G2_ATTN,
+                                                  dtype="f32"))
+    add("flash_attention", check_attention(timer, "flash_attention", PREFILL_CHUNK, PREFILL_CHUNK,
+                                           321, G2_SOFTCAP, 0, dims=G2_ATTN, dtype="f32"))
+    for i, (form, q, kv, dims) in enumerate((
+            ("dense_fused", "f32", "f32", G2_ATTN[:3]), ("paged_fused", "f32", "f32", G2_ATTN[:3]),
+            ("paged", "f32", "f32", G2_ATTN[:3]), ("dense", "f32", "f32", G2_ATTN[:3]),
+            ("dense_fused", "f32", "bf16", G2_ATTN[:3]),
+            ("paged_fused", "f32", "int8", G2_ATTN[:3]),
+            ("dense_fused", "f32", "bf16", (HEADS, KV_HEADS, HEAD_DIM)),
+            ("paged_fused", "f32", "bf16", (HEADS, KV_HEADS, HEAD_DIM)),
+            ("dense_fused", "f32", "int8", (HEADS, KV_HEADS, HEAD_DIM)),
+            ("paged", "bf16", "f32", (HEADS, KV_HEADS, HEAD_DIM)))):
+        add(*check_decode_form(timer, form, kv, 1, 330 + i, dims=dims, q_dtype=q))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1167,6 +1329,8 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] += recs
     for name, recs in phi_attention_checks(timer).items():  # head dims 96 and 80, after those
         checks[name] += recs
+    for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
+        checks.setdefault(name, []).extend(recs)
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
     checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, QKV_M, DIM, 40),
@@ -1259,7 +1423,7 @@ def phase_kernels() -> dict[str, list[dict]]:
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
                   mix: str | None = None, path: str | None = None,
-                  cpu_dtype=None, card_weights=None) -> dict:
+                  cpu_dtype=None, card_weights=None, f32_card: bool = False) -> dict:
     """`model` cut to 2 layers (or the layers of the file at `path`), every
     matrix in `scheme` (with `mix` "k_m",
     llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
@@ -1268,7 +1432,10 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     (plain versions, float32 unless `cpu_dtype` says otherwise, the scheme's
     planes only). `path`: such a file written already (kept);
     `card_weights`: its weights loaded on the card already, bfloat16 without
-    W8 planes (a Runner's with prefill_w8=False)."""
+    W8 planes (a Runner's with prefill_w8=False). `f32_card`: the card also
+    runs the forward in float32 (float32 scale planes and cache, the float32
+    forms), held to the CPU's float32 at F32_FORWARD_TOL; the record's
+    "launches" are that run's."""
     import numpy as np
     import torch
 
@@ -1285,18 +1452,27 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
+    from crabml_tpu_torch.ops.cuda import _build
+
     runs = {}
     cpu_dtype = cpu_dtype or torch.float32
-    for dev, dt in ((CARD, torch.bfloat16), ("cpu", cpu_dtype)):
+    sides = [(CARD, torch.bfloat16), ("cpu", cpu_dtype)] + ([("f32", torch.float32)] * f32_card)
+    f32_launches = {}
+    for dev, dt in sides:
+        on = CARD if dev == "f32" else dev
         w = card_weights if dev == CARD and card_weights is not None \
-            else load_weights(gf, cfg, dev, dt)
+            else load_weights(gf, cfg, on, dt)
         if w8 and dev == CARD:
             w = augment_w8_weights(w)
-        cache = KVCache.create(cfg, 1, 512, dt, dev)
+        cache = KVCache.create(cfg, 1, 512, dt, on)
+        before = dict(_build.launches)
         outs = []
         for toks, p in ((tokens[:, :n_prompt], 0), (tokens[:, n_prompt:], n_prompt)):
-            logits = forward(w, cache, torch.from_numpy(toks).to(dev), torch.tensor([p]), cfg, dt)
+            logits = forward(w, cache, torch.from_numpy(toks).to(on), torch.tensor([p]), cfg, dt)
             outs.append(logits.float().cpu())
+        if dev == "f32":
+            f32_launches = {k: n - before.get(k, 0) for k, n in _build.launches.items()
+                            if n != before.get(k, 0)}
         runs[dev] = outs
         del w, cache
     torch.cuda.empty_cache()
@@ -1332,6 +1508,26 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
             f"median token "
             f"{median:.3e}, {share:.1%} of the tokens within ({rec['tolerance']}), finite "
             f"{finite} {'ok' if good else 'FAILED'}")
+    if f32_card:
+        # float32 on both sides: the same exact weights; the decode step's int8
+        # activations come from activations that differ in the order of sums only
+        f32 = rec["float32"] = {
+            "tolerance": f"max|card - cpu| <= {F32_FORWARD_TOL['prefill']} (prefill), "
+                         f"{F32_FORWARD_TOL['decode step']} (decode step) * max|cpu| (float32 on "
+                         "both; the decode step's int8 codes may round otherwise at an edge)",
+            "launches": f32_launches}
+        for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step")):
+            card, cpu = runs["f32"][i], runs["cpu"][i]
+            rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
+            good = bool(torch.isfinite(card).all()) \
+                and rel <= F32_FORWARD_TOL["decode step" if i else "prefill"]
+            f32[what] = {"rel_err": rel, "ok": good}
+            ok &= good
+            say(f"forward {model} widths, {scheme}{' ' + mix if mix else ''}, float32 on the "
+                f"card against the CPU, {what}: rel err {rel:.3e} ({f32['tolerance']}) "
+                f"{'ok' if good else 'FAILED'}")
+        rec["launches"] = f32_launches
+        say(f"forward {model} float32 launches: {f32_launches}")
     rec["ok"] = ok
     if own:
         os.remove(path)
@@ -2829,6 +3025,181 @@ def phase_graphed_forward(tmp: Path, model: str, seed: int) -> dict:
     return rec
 
 
+def _f32_runs(runner, prompt: str, what: str, kernels: tuple[str, ...]) -> dict:
+    """The float32 Runner's path: the prompt and DECODE_STEPS greedy tokens
+    graphed at tick 1 (the capture, then the cached graph), at tick 8 and
+    eagerly, all the same;
+    `kernels` each launched, no bfloat16 matmul form launched (no form whose
+    counter lacks "f32" but for qmm_w8, which takes float32 x rounded to
+    bfloat16), no matmul through torch.matmul, a finite cache."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+
+    _build.launches.clear()  # counts from here on are this path's
+    with DenseMatmuls() as dense:
+        capture = _one_run(runner, prompt, _build.launches)
+        launches = dict(_build.launches)
+        graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
+        tick8 = _one_run(runner, prompt, _build.launches, 8)
+        eager = _one_run(runner, prompt, _build.launches, "eager")
+    if dense.calls:
+        fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights")
+    if not capture["tokens"] == graphed["tokens"] == tick8["tokens"] == eager["tokens"]:
+        fail(f"{what}: the graphed decode (tick 1, tick 8) and the eager step gave other tokens")
+    if len(capture["tokens"]) != DECODE_STEPS:
+        fail(f"{what}: generated {len(capture['tokens'])} tokens, expected {DECODE_STEPS}")
+    n = capture["end_pos"]
+    if not bool(torch.isfinite(runner.cache.k[:, :, :, :n].float()).all()
+                and torch.isfinite(runner.cache.v[:, :, :, :n].float()).all()):
+        fail(f"{what}: NaN or inf in the KV cache")
+    for name in kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} path")
+    bf16_forms = sorted(k for k in launches if k.startswith("qmm") and "f32" not in k
+                        and k != "qmm_w8")
+    if bf16_forms:
+        fail(f"{what}: float32 compute launched bfloat16 matmul forms {bf16_forms}")
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    chunks = math.ceil(capture["prompt_tokens"] / PREFILL_CHUNK)
+    for r, how in ((capture, "graphed, the run that captures"), (graphed, "graphed"),
+                   (tick8, "graphed, tick 8"), (eager, "eager")):
+        say(f"{what} path ({how}): prompt {r['prompt_tokens']} tokens in {chunks} chunks, "
+            f"prefill {r['prefill_tok_s']:.1f} tok/s ({r['prefill_s'] * 1e3:.1f} ms); decode "
+            f"{r['decoded_steps']} steps to pos {r['end_pos']} {r['decode_tok_s']:.2f} tok/s = "
+            f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
+            f"{bound_gguf:.3f} ms GGUF bytes, the live KV included)")
+    say(f"{what} path: {DECODE_STEPS} greedy tokens of the graphed runs at tick 1 and 8 equal "
+        f"to the eager step's, KV cache {runner.cache.k.dtype}, launches {launches}")
+    return {
+        "kv_dtype": str(runner.cache.k.dtype), "prefill_w8": runner.prefill_w8,
+        "prompt_tokens": capture["prompt_tokens"], "end_pos": n, "launches": launches,
+        "runs": [{k: v for k, v in r.items() if k not in ("text", "tokens")}
+                 for r in (capture, graphed, tick8, eager)],
+        "graph_equals_eager": True, "tokens": capture["tokens"],
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+        "launches_per_decode_token": {k: v / capture["decoded_steps"]
+                                      for k, v in capture["launches_decode"].items()},
+        "launches_per_prefill_chunk": {k: v / chunks
+                                       for k, v in capture["launches_prefill"].items()},
+    }
+
+
+F32_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_q4k_f32", "qmm_w4a8.f32")
+
+
+def phase_7b_f32(path: str) -> dict:
+    """The 7B Q4_K file at its full 32 layers in float32 (`7b-f32`):
+    `Runner(compute_dtype=torch.float32, kv_dtype=torch.bfloat16,
+    prefill_w8=False)`, so that the 512- and 189-row chunks take the float32
+    dequant form (_f32_runs), a profiled window of the graphed step; the
+    16-request drain of an 8-slot PagedServingEngine with a float32 pool
+    (pages back), the dense ServingEngine (float32 cache) whose greedy
+    tokens are the Runner's, and the daemon over the paged engine; then
+    `Runner(..., kv_dtype=torch.int8, prefill_w8=True)`: _f32_runs again,
+    the 512-row chunk on the W8 planes (x rounded to bfloat16); then the
+    CLI in a subprocess with --dtype f32 --kv-dtype bf16."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(path, compute_dtype=torch.float32, kv_dtype=torch.bfloat16, prefill_w8=False)
+    load_s = runner.metrics.times_ns["load"] / 1e9
+    rec = _f32_runs(runner, prompt, "7b-f32", F32_KERNELS)
+    rec["load_s"] = load_s
+    rec["decode_profile"] = _profile_decode(runner, prompt,
+                                            rec["runs"][1]["decode_ms_per_token"])
+
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
+                             seed=7)
+    pages_at_start = eng.pages_free()
+    _build.launches.clear()
+    serving = _drain(eng, _serving_requests(runner, seed=30))
+    serving["launches"] = dict(_build.launches)
+    serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
+    _say_run("serving, 7b-f32, 8 slots, 256-page float32 pool", serving)
+    if eng.cache.k.dtype != torch.float32 or eng.pages_free() != pages_at_start \
+            or any(eng._owned):
+        fail(f"7b-f32 serving: pool {eng.cache.k.dtype}, pages_free {eng.pages_free()} after "
+             f"the run, {pages_at_start} before")
+    for name in ("paged_decode_attention_fused", "flash_attention", "qmm_w4a8.f32"):
+        if serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the 7b-f32 serving path")
+    serving["daemon"] = phase_daemon(eng)
+    rec["serving"] = serving
+    del eng
+
+    # the dense engine over the Runner's cache dtype, prefilling in its chunks:
+    # the Runner's prompt beside a short one gives the Runner's greedy tokens
+    dense_eng = ServingEngine(runner, n_slots=2, seq_len=runner.seq_len, kv_dtype=runner.kv_dtype,
+                              prefill_chunk=PREFILL_CHUNK, seed=7)
+    same = Request(prompt=prompt, max_tokens=DENSE_ENGINE_TOKENS)
+    short = Request(prompt="", max_tokens=DENSE_ENGINE_TOKENS,
+                    prompt_tokens=_serving_requests(runner, seed=30)[0].prompt_tokens)
+    _build.launches.clear()
+    dense_serving = _drain(dense_eng, [same, short])
+    dense_serving["launches"] = dict(_build.launches)
+    _say_run("dense serving, 7b-f32, 2 slots, bfloat16 cache", dense_serving)
+    if same.output_tokens != rec["tokens"][:DENSE_ENGINE_TOKENS]:
+        fail(f"7b-f32 dense serving: {same.output_tokens[:8]}... against the Runner's "
+             f"{rec['tokens'][:8]}...")
+    dense_serving["tokens_equal_runner"] = True
+    rec["dense_serving"] = dense_serving
+    del dense_eng, runner
+    torch.cuda.empty_cache()
+
+    runner = Runner(path, compute_dtype=torch.float32, kv_dtype=torch.int8, prefill_w8=True)
+    if not runner.prefill_w8 or runner.cache.k.dtype != torch.int8:
+        fail("7b-f32: Runner(kv_dtype=int8, prefill_w8=True) took neither")
+    int8 = rec["int8_w8"] = _f32_runs(runner, prompt, "7b-f32-int8",
+                                      ("qmm_w8", "qmm_q4k_f32", "qmm_w4a8.f32",
+                                       "decode_attention_fused", "flash_attention"))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del runner
+    torch.cuda.empty_cache()
+    say(f"7b-f32 with an int8 cache and the W8 planes: launches {int8['launches']}")
+
+    argv = [sys.executable, "-m", "crabml_tpu_torch.cli", path, "-p", PROMPT_SENTENCE * 4,
+            "-n", "32", "--dtype", "f32", "--kv-dtype", "bf16", "--seq-len", "2048", "--seed",
+            "1", "-v"]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    tail = out.stderr.strip().splitlines()[-12:]
+    if out.returncode != 0 or not re.search(r"\n\d+ tokens, [\d.]+ tokens/s", out.stderr) \
+            or "prefill_tokens" not in out.stderr or "== metadata ==" not in out.stderr:
+        fail(f"7b-f32 CLI: exit {out.returncode}, stderr ends {tail}")
+    say(f"7b-f32 CLI ({' '.join(argv[3:])}): exit 0 in {cli_s:.1f} s; " + " | ".join(tail[:2]))
+    rec["cli"] = {"argv": argv[3:], "s": cli_s, "stderr_tail": tail}
+    return rec
+
+
+def phase_gemma2_f32(path: str) -> dict:
+    """Gemma-2-9B's widths at 2 layers in float32 (`gemma2-9b-f32`):
+    `Runner(compute_dtype=torch.float32, kv_dtype=torch.bfloat16,
+    prefill_w8=False)` on the 4,612-token prompt past the window (flash in
+    float32 at head dim 256, the 256,000-row Q6_K lm_head through the float32
+    dequant form, the 4-token tail through the unfused decode form), then
+    the decode step over the bfloat16 cache at head dim 256 (float32 q over
+    a bfloat16 cache, one tile for K and then V) with the window and the
+    softcaps (_f32_runs)."""
+    import torch
+
+    from crabml_tpu_torch.runtime.runner import Runner
+
+    runner = Runner(path, compute_dtype=torch.float32, kv_dtype=torch.bfloat16, prefill_w8=False)
+    rec = _f32_runs(runner, _g2_prompt(runner.tokenizer), "gemma2-9b-f32",
+                    ("flash_attention", "decode_attention", "decode_attention_fused",
+                     "qmm_q4k_f32", "qmm_q6k_f32", "qmm_w4a8.f32", "qmm_w4a8_q6k.f32"))
+    del runner
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ---------------------------------------------------------------------------
 
 def kernels_line(checks: dict, paths: dict) -> dict:
@@ -2897,13 +3268,16 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     for name in libs:
         _build.library(name)
-    say(f"built {len(libs)} kernel libraries with nvcc for sm_90a in {build_s:.2f} s")
+    say(f"built {len(libs)} kernel libraries with nvcc for sm_90a in {build_s:.2f} s; by source "
+        + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(_build.build_seconds.items(),
+                                                        key=lambda kv: -kv[1])))
     OUT_DIR.mkdir(exist_ok=True)
     ptxas = {name: _build.build_log(name) for name in libs}
     (OUT_DIR / "ptxas.txt").write_text(
@@ -2914,6 +3288,7 @@ def main() -> int:
         say(f"ptxas {name}: {'; '.join(used)}" + (f"; SPILLS: {spills}" if spills else ""))
 
     report = {"device": torch.cuda.get_device_name(0), "gpu": TAG, "build_s": build_s,
+              "build_s_by_source": dict(_build.build_seconds),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     phase_s = report["phase_s"] = {"build": build_s}
 
@@ -2929,7 +3304,8 @@ def main() -> int:
     try:
         checks = report["kernels"] = timed("kernels", phase_kernels)
         failures += [f"{n} {r['shape']}" for n, rs in checks.items() for r in rs if not r["ok"]]
-        report["forward"] = timed("forward", phase_forward, tmp)
+        report["forward"] = timed("forward", phase_forward, tmp, n_prompt=F32_FORWARD_PROMPT,
+                                  f32_card=True)
         if not report["forward"]["ok"]:
             failures.append("forward check")
         report["serving_forward"] = timed("serving_forward", phase_serving_forward, tmp)
@@ -2939,13 +3315,19 @@ def main() -> int:
         report["main"] = main_rec
         serving = report["serving"] = timed("serving", phase_serving, runner)
         del runner
-        os.remove(gguf)
         torch.cuda.empty_cache()
+        f32_7b = report["7b-f32"] = timed("7b-f32", phase_7b_f32, gguf)
+        os.remove(gguf)
         dense = report["dense_int8"] = timed("dense_int8", phase_dense_int8, tmp)
         g2 = report["gemma2-9b"] = timed("gemma2-9b", phase_family, tmp, "gemma2-9b",
                                          G2_LAYERS, 140, _g2_prompt, _g2_check, G2_KERNELS, 26)
+        g2_path = build_synth_gguf(str(tmp / "synth-gemma2-9b-2layers.gguf"), "gemma2-9b",
+                                   seed=141, layers=2, scheme="q4_k", mix="k_m")
         report["forward_gemma2"] = timed("forward_gemma2", phase_forward, tmp, "gemma2-9b",
-                                         seed=141, scheme="q4_k", mix="k_m")
+                                         seed=141, path=g2_path, n_prompt=F32_FORWARD_PROMPT,
+                                         f32_card=True)
+        g2_f32 = report["gemma2-9b-f32"] = timed("gemma2-9b-f32", phase_gemma2_f32, g2_path)
+        os.remove(g2_path)
         q2 = report["qwen2-7b"] = timed(
             "qwen2-7b", phase_family, tmp, "qwen2-7b", Q2_LAYERS, 160,
             lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _q2_check, Q2_KERNELS, 27)
@@ -2978,6 +3360,10 @@ def main() -> int:
                                  f"{what}-serving": rec["serving"],
                                  f"{what}-dense-serving": rec["dense_serving"]})
         family_paths["llama31-8b"] = l31
+        family_paths.update({"7b-f32": f32_7b, "7b-f32-int8": f32_7b["int8_w8"],
+                             "7b-f32-serving": f32_7b["serving"],
+                             "7b-f32-dense-serving": f32_7b["dense_serving"],
+                             "gemma2-9b-f32": g2_f32})
         report["moe_forward"] = timed("moe_forward", phase_forward, tmp, "mixtral-8x7b", seed=16,
                                       n_prompt=300, w8=True, min_share=0.9)
         if not report["moe_forward"]["ok"]:
@@ -2996,10 +3382,15 @@ def main() -> int:
             paths[what] = rec
             paths[f"{what}-dequant"] = rec["prefill_w8_against_dequant"]
         for i, scheme in enumerate(KERNEL_SCHEMES + REUSED_SCHEMES):
-            fwd = report[f"forward_{scheme}"] = timed(f"forward_{scheme}", phase_forward, tmp,
-                                                      seed=80 + i, scheme=scheme)
+            # the schemes with forms of their own also run the card in float32
+            own = scheme in KERNEL_SCHEMES
+            fwd = report[f"forward_{scheme}"] = timed(
+                f"forward_{scheme}", phase_forward, tmp, seed=80 + i, scheme=scheme,
+                n_prompt=F32_FORWARD_PROMPT if own else 16, f32_card=own)
             if not fwd["ok"]:
                 failures.append(f"{scheme} forward check")
+            if own:
+                paths[f"forward_{scheme}"] = fwd
         fwd = report["forward_q4_k_m"] = timed("forward_q4_k_m", phase_forward, tmp, seed=85,
                                                scheme="q4_k", mix="k_m")
         if not fwd["ok"]:

@@ -2,7 +2,12 @@
 
   python -m crabml_tpu_torch.cli model.gguf -p "Once upon a time" -n 64
   python -m crabml_tpu_torch.cli model.gguf -p "..." -n 16 --device cpu
-  python -m crabml_tpu_torch.cli model.gguf -p "..." --no-prefill-w8
+  python -m crabml_tpu_torch.cli model.gguf -p "..." --dtype f32 --kv-dtype int8 -v
+
+The flags of crabml_tpu/cli.py's generation: --dtype, --kv-dtype,
+--probability (top-p), -v (the file's metadata before, the metrics table
+after), --seq-len, --seed and --mlock. --dtype defaults to bf16 on the card
+and f32 on the CPU; the JAX package's CLI defaults to f32 everywhere.
 
 Runs on `cuda` unless `--device` says otherwise; without a card it exits
 with an error rather than falling back to the CPU.
@@ -21,6 +26,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-p", "--prompt", default="Once upon a time")
     ap.add_argument("-n", "--steps", type=int, default=300)
     ap.add_argument("-t", "--temperature", type=float, default=0.0)
+    ap.add_argument("--probability", type=float, default=0.9, help="top-p")
+    ap.add_argument("-v", "--verbose", action="store_true",
+                    help="print the file's metadata before and the metrics table after")
+    ap.add_argument("--dtype", default=None, choices=["f32", "bf16"],
+                    help="compute dtype (default: bf16 on the card, f32 on the CPU)")
+    ap.add_argument("--kv-dtype", default=None, choices=["f32", "bf16", "int8"],
+                    help="KV cache dtype (default: the compute dtype)")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="KV cache length (default and most: the model's context)")
+    ap.add_argument("--seed", type=int, default=0, help="the sampler's seed")
+    ap.add_argument("--mlock", action="store_true",
+                    help="mlock(2) the weight mmap (best effort)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
     ap.add_argument("--prefill-w8", dest="prefill_w8", action="store_true", default=None,
@@ -40,13 +57,25 @@ def main(argv=None) -> int:
 
     import torch
 
+    from .gguf.reader import GGUFFile
     from .runtime.runner import Runner
     from .runtime.sampler import Sampler
+    from .utils import resolve_device
 
-    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
-    runner = Runner(args.model, compute_dtype=dtype,
-                    sampler=Sampler(temperature=args.temperature), device=args.device,
-                    prefill_w8=args.prefill_w8, kv_lane_pad=args.kv_lane_pad)
+    device = resolve_device(args.device)  # raises before the file is opened
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8, None: None}
+    dtype = dtypes[args.dtype] or (torch.float32 if device.type == "cpu" else torch.bfloat16)
+    gf = GGUFFile(args.model, mlock=args.mlock)
+    if args.verbose:
+        print("== metadata ==", file=sys.stderr)
+        for k, v in gf.metadata.as_dict().items():
+            s = str(v)
+            print(f"  {k}: {s[:80]}{'...' if len(s) > 80 else ''}", file=sys.stderr)
+    runner = Runner(gf, seq_len=args.seq_len, compute_dtype=dtype,
+                    kv_dtype=dtypes[args.kv_dtype],
+                    sampler=Sampler(temperature=args.temperature, topp=args.probability),
+                    seed=args.seed, device=device, prefill_w8=args.prefill_w8,
+                    kv_lane_pad=args.kv_lane_pad)
     t0 = time.perf_counter()
     print(args.prompt, end="", flush=True)
     for piece in runner.prefill_and_generate(args.prompt, args.steps):
@@ -59,6 +88,8 @@ def main(argv=None) -> int:
     print(f"\n{m.counts.get('tokens', 0)} tokens, {m.tokens_per_sec():.2f} tokens/s, "
           f"prefill {m.times_ns.get('prefill', 0) / 1e6:.0f} ms, total {wall:.2f} s "
           f"on {where}", file=sys.stderr)
+    if args.verbose:
+        print(m.table(), file=sys.stderr)
     return 0
 
 

@@ -16,6 +16,7 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }

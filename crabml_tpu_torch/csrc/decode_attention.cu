@@ -10,16 +10,16 @@
 // own base pointer, which is a view in PyTorch.
 #include "decode_core.cuh"
 
-// q, out (B, T, KV*G, hd) bfloat16 (qtype 0) or float32 (1); hd 80, 96 or 128,
-// or 256 in bfloat16. k, v one layer of the cache (B, KV, S, hd) in the q type (quant
-// 0) or int8 (quant 1, with ks, vs (B, KV, S) float32). k_new, v_new (B, KV,
+// q, out (B, T, KV*G, hd) bfloat16 (qtype 0) or float32 (1); hd 80, 96, 128 or
+// 256. k, v one layer of the cache (B, KV, S, hd) in bfloat16 (ktype 0), float32
+// (1) or int8 (2, with ks, vs (B, KV, S) float32), whatever q's type. k_new, v_new (B, KV,
 // T, hd) in the stored type and ks_new, vs_new (B, KV, T), or null when the
 // cache holds the step's keys. pos (B,) i32 = keys that precede the step,
 // less pos_bias (0, or -T when the caller holds each sequence's length with
 // the step). part_m, part_l (B, KV, n_chunks, T*G) and part_acc (B, KV, n_chunks, T*G, hd) float32 scratch; ticket (B*KV)
 // int32, zero before the launch and zero after it. The grid is (KV, B,
 // n_chunks) with n_chunks * 128 >= the most keys a sequence can have.
-extern "C" int decode_attention(int qtype, int quant, const void* q, const void* k,
+extern "C" int decode_attention(int qtype, int ktype, const void* q, const void* k,
                                 const void* v, const void* ks, const void* vs,
                                 const void* k_new, const void* v_new, const void* ks_new,
                                 const void* vs_new, const void* pos, void* part_m,
@@ -38,5 +38,5 @@ extern "C" int decode_attention(int qtype, int quant, const void* q, const void*
     p.B = B; p.KV = KV; p.T = T; p.G = G; p.n_chunks = n_chunks;
     p.scale = scale; p.softcap = softcap; p.win = win; p.pos_bias = pos_bias;
     decode_core::DenseAddr addr{S};
-    return decode_core::dispatch(p, addr, qtype, quant, hd, (cudaStream_t)stream);
+    return decode_core::dispatch(p, addr, qtype, ktype, hd, (cudaStream_t)stream);
 }

@@ -55,9 +55,9 @@
 //      resets the ticket. One launch, no atomics on values: deterministic.
 // Tiles are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8),
 // so ldmatrix and the row-wise float4 reads are free of bank conflicts.
-// Head dims 128 and 256 (bfloat16; float32 at 128 only, `dispatch`): at 256 a
-// block's tiles take ~154 KB (~218 KB with int8's staging area), each warp
-// holds 32 output dims, and a chunk's partial is twice as wide. Head dims 80
+// Head dims 128 and 256: at 256 a bfloat16 block's tiles take ~154 KB (~218
+// KB with int8's staging area), each warp holds 32 output dims, and a chunk's
+// partial is twice as wide. Head dims 80
 // and 96 (phi2, phi3; bfloat16 and float32) run on the 128 kernel's tiles:
 // a tile row in shared memory is HP = 128 elements wide (Layout), while q,
 // the cache, the step's block, int8's staging area, the output and the
@@ -68,9 +68,24 @@
 // fits the padded row as it does at 128. The bytes read are HD's; the
 // arithmetic of the 128 kernel runs on 1 / (1.33 at 96, 1.6 at 80) live
 // lanes.
+// The compute type CT is float32 when q or the cache is float32, else
+// bfloat16 (`compute_t`): q and a cache of different types, as the JAX
+// kernel takes them (it computes in float32 whenever either is float32), are
+// widened exactly as they are staged. A bfloat16 q under float32 is converted
+// on its way into the Q tile; a cache of another type than CT (int8, or
+// bfloat16 under float32) lands as stored in a staging area and is widened
+// there. Where K and V tiles of their own would pass a block's shared memory
+// (float32 at head dim 256: ~272 KB), one tile holds K and then V
+// (Layout::ONE_TILE): V's copy starts once the scores have read K (for a
+// staged cache, once K is widened, through the one staging area), so it
+// overlaps the softmax rather than the score product, and O goes where the
+// scores were. The chunk stays one page, so the grid, the partials and the
+// block table's reads are those of every other form.
 // Masked scores take -1e30 and weight 0, as in the JAX package; a row with
 // no visible key gives 0.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"  // wg::smem_u32, cp_async16, cp_async_commit, cp_async_wait
@@ -151,24 +166,42 @@ __device__ __forceinline__ Keys keys_of(const Params& p, int b, int cap) {
 // 16-byte chunks of a row are a multiple of 8 for the swizzle.
 template <int HD> __host__ __device__ constexpr int tile_width() { return (HD + 127) / 128 * 128; }
 
-// Shared memory of one block, in bytes. CT = the compute type (the q type);
-// a tile row is HP = tile_width<HD>() elements of CT.
-template <typename QT, typename KT, int HD>
+// The compute type: float32 when q or the cache is float32, else bfloat16
+// (the tensor cores' type; an int8 cache under a bfloat16 q).
+template <typename QT, typename KT>
+using compute_t =
+    std::conditional_t<std::is_same_v<QT, float> || std::is_same_v<KT, float>, float, bf16>;
+
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have (H100)
+
+// Shared memory of one block, in bytes. A tile row is HP = tile_width<HD>()
+// elements of the compute type CT.
+template <typename CT, typename KT, int HD>
 struct Layout {
     static constexpr int HP = tile_width<HD>();
-    static constexpr int ROW = HP * (int)sizeof(QT);
-    static constexpr int SP = HP + 8;                         // f32 pitch of S and O
-    static constexpr int Q = 0;                               // [ROWS][HD] CT; then P
-    static constexpr int K = Q + ROWS * ROW;                  // [CHUNK][HD] CT; then O
-    static constexpr int V = K + CHUNK * ROW;                 // [CHUNK][HD] CT
-    static constexpr int S = V + CHUNK * ROW;                 // [ROWS][SP] f32 scores
-    static constexpr int M = S + ROWS * SP * 4;               // [ROWS] row max
-    static constexpr int L = M + ROWS * 4;                    // [ROWS] row sum
-    static constexpr int KS = L + ROWS * 4;                   // [CHUNK] k scales (int8)
-    static constexpr int VS = KS + CHUNK * 4;                 // [CHUNK] v scales (int8)
-    static constexpr int FLAG = VS + CHUNK * 4;               // the merging block's flag
-    static constexpr int STAGE = FLAG + 16;                   // int8: [2][CHUNK][HD] as stored
-    static constexpr int BYTES = STAGE + (sizeof(KT) == 1 ? 2 * CHUNK * HD : 0);
+    static constexpr int ROW = HP * (int)sizeof(CT);
+    static constexpr int SP = HP + 8;                          // f32 pitch of S and O
+    // a cache of another type than CT lands as stored and is widened in place
+    static constexpr bool STAGED = sizeof(KT) != sizeof(CT);
+    static constexpr int STAGE_BYTES = CHUNK * HD * (int)sizeof(KT);  // one tensor's chunk
+    static constexpr int SMALL = ROWS * 4 * 2 + CHUNK * 4 * 2 + 16;   // M, L, KS, VS, FLAG
+    static constexpr int TWO_TILES = ROWS * ROW + 2 * CHUNK * ROW + ROWS * SP * 4 + SMALL +
+                                     (STAGED ? 2 * STAGE_BYTES : 0);
+    // K and V in one tile, in turn, where tiles of their own do not fit
+    static constexpr bool ONE_TILE = TWO_TILES > SMEM_LIMIT;
+    static constexpr int Q = 0;                                // [ROWS][HD] CT; then P
+    static constexpr int K = Q + ROWS * ROW;                   // [CHUNK][HD] CT; then O
+    static constexpr int V = ONE_TILE ? K : K + CHUNK * ROW;   // [CHUNK][HD] CT
+    static constexpr int S = V + CHUNK * ROW;                  // [ROWS][SP] f32 scores
+    static constexpr int M = S + ROWS * SP * 4;                // [ROWS] row max
+    static constexpr int L = M + ROWS * 4;                     // [ROWS] row sum
+    static constexpr int KS = L + ROWS * 4;                    // [CHUNK] k scales (int8)
+    static constexpr int VS = KS + CHUNK * 4;                  // [CHUNK] v scales (int8)
+    static constexpr int FLAG = VS + CHUNK * 4;                // the merging block's flag
+    static constexpr int STAGE = FLAG + 16;                    // [1 or 2][CHUNK][HD] as stored
+    static constexpr int BYTES = STAGE + (STAGED ? (ONE_TILE ? 1 : 2) * STAGE_BYTES : 0);
+    // O replaces K (dead after the scores), or S (dead after the softmax)
+    static constexpr int O = ONE_TILE ? S : K;
     static_assert(ROWS * SP * 4 <= CHUNK * ROW, "O must fit in the K tile it replaces");
 };
 
@@ -226,9 +259,10 @@ template <typename QT, typename KT, typename Addr, int HD>
 __global__ void __launch_bounds__(NT)
 chunk_kernel(Params p, Addr addr) {
     extern __shared__ __align__(128) uint8_t smem[];
-    using LY = Layout<QT, KT, HD>;
-    using CT = QT;
+    using CT = compute_t<QT, KT>;
+    using LY = Layout<CT, KT, HD>;
     constexpr bool QUANT = sizeof(KT) == 1;
+    constexpr bool STAGED = LY::STAGED, ONE_TILE = LY::ONE_TILE;
     constexpr bool TC = sizeof(CT) == 2;  // tensor cores for bfloat16, FFMA for float32
     constexpr int ROW = LY::ROW, SP = LY::SP;
     constexpr int HP = LY::HP;
@@ -271,15 +305,27 @@ chunk_kernel(Params p, Addr addr) {
         if (j < kr.first || j >= kr.kend) return -1;
         return cached ? (long long)(row0 + i) : (long long)(new0 + j);
     };
-    {
+    const QT* q = (const QT*)p.q;
+    if constexpr (std::is_same_v<QT, CT>) {
         constexpr int QC = HD * (int)sizeof(QT) / 16;  // 16-byte chunks of a q row (HD's)
-        const QT* q = (const QT*)p.q;
         for (int i = tid; i < ROWS * QC; i += NT) {
             const int r = i / QC, cc = i % QC, t = r / G, g = r % G;
             const bool ok = r < TG;
             const QT* src =
                 ok ? q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + cc * (16 / sizeof(QT)) : q;
             wg::cp_async16(wg::smem_u32(sQ + at(r, cc, ROW)), src, ok);
+        }
+    } else {  // a bfloat16 q under float32: widened on its way in, four values a step
+        for (int i = tid; i < ROWS * HD / 4; i += NT) {
+            const int r = i / (HD / 4), d = i % (HD / 4) * 4, t = r / G, g = r % G;
+            float x4[4] = {0.f, 0.f, 0.f, 0.f};
+            if (r < TG) {
+                const QT* src = q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + d;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) x4[u] = to_f32(src[u]);
+            }
+            put4(reinterpret_cast<CT*>(sQ + elem(r, d, ROW, sizeof(CT))), x4[0], x4[1], x4[2],
+                 x4[3]);
         }
     }
     constexpr int KC = HD * (int)sizeof(KT) / 16;  // 16-byte chunks of a stored row
@@ -290,18 +336,20 @@ chunk_kernel(Params p, Addr addr) {
             const long long row = src_row(r, cached);
             const KT* src =
                 row < 0 ? cache : (cached ? cache : fresh) + row * HD + cc * (16 / sizeof(KT));
-            // int8 lands unconverted in the staging area, row-major
-            const uint32_t dst = QUANT ? wg::smem_u32(tile) + r * HD + cc * 16
-                                       : wg::smem_u32(tile) + at(r, cc, ROW);
+            // a cache of another type lands unconverted in the staging area, row-major
+            const uint32_t dst = STAGED ? wg::smem_u32(tile) + r * HD * (int)sizeof(KT) + cc * 16
+                                        : wg::smem_u32(tile) + at(r, cc, ROW);
             wg::cp_async16(dst, src, row >= 0);
         }
     };
-    uint8_t* k8 = smem + LY::STAGE;
-    uint8_t* v8 = k8 + CHUNK * HD;
-    stage((const KT*)p.k, (const KT*)p.k_new, QUANT ? k8 : sK);
+    uint8_t* k_raw = smem + LY::STAGE;
+    uint8_t* v_raw = ONE_TILE ? k_raw : k_raw + LY::STAGE_BYTES;
+    stage((const KT*)p.k, (const KT*)p.k_new, STAGED ? k_raw : sK);
     wg::cp_async_commit();
-    stage((const KT*)p.v, (const KT*)p.v_new, QUANT ? v8 : sV);
-    wg::cp_async_commit();
+    if constexpr (!ONE_TILE) {
+        stage((const KT*)p.v, (const KT*)p.v_new, STAGED ? v_raw : sV);
+        wg::cp_async_commit();
+    }
     if constexpr (QUANT) {  // one scale a key and tensor: plain loads, in flight beside the copies
         const int i = tid % CHUNK;
         const bool is_v = tid >= CHUNK;
@@ -310,24 +358,33 @@ chunk_kernel(Params p, Addr addr) {
         const float* src = is_v ? (cached ? p.vs : p.vs_new) : (cached ? p.ks : p.ks_new);
         (is_v ? sVS : sKS)[i] = row < 0 ? 0.f : src[row];
     }
-    // int8 -> compute type, exactly: 16 values a step
-    auto widen = [&](const uint8_t* stage8, uint8_t* tile) {
-        for (int i = tid; i < CHUNK * HD / 16; i += NT) {
-            const int r = i / (HD / 16), e0 = i % (HD / 16) * 16;
-            const int4 raw = *reinterpret_cast<const int4*>(stage8 + r * HD + e0);
-            const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+    // the stored type -> compute type, exactly: 16 bytes a step
+    auto widen = [&](const uint8_t* raw, uint8_t* tile) {
+        constexpr int VPC = 16 / (int)sizeof(KT);  // values of a 16-byte piece
+        for (int i = tid; i < CHUNK * HD / VPC; i += NT) {
+            const int r = i / (HD / VPC), e0 = i % (HD / VPC) * VPC;
+            const int4 w = *reinterpret_cast<const int4*>(raw + (r * HD + e0) * (int)sizeof(KT));
+            const KT* x = reinterpret_cast<const KT*>(&w);
 #pragma unroll
-            for (int u = 0; u < 16; u += 4)
-                put4(reinterpret_cast<CT*>(tile + elem(r, e0 + u, ROW, sizeof(CT))), x[u],
-                     x[u + 1], x[u + 2], x[u + 3]);
+            for (int u = 0; u < VPC; u += 4)
+                put4(reinterpret_cast<CT*>(tile + elem(r, e0 + u, ROW, sizeof(CT))), to_f32(x[u]),
+                     to_f32(x[u + 1]), to_f32(x[u + 2]), to_f32(x[u + 3]));
         }
     };
 
-    wg::cp_async_wait<1>();  // Q and K (this thread's copies)
+    if constexpr (ONE_TILE) {
+        wg::cp_async_wait<0>();  // Q and K: V is not in flight yet
+    } else {
+        wg::cp_async_wait<1>();  // Q and K (this thread's copies)
+    }
     __syncthreads();
-    if constexpr (QUANT) {
-        widen(k8, sK);
+    if constexpr (STAGED) {
+        widen(k_raw, sK);
         __syncthreads();
+    }
+    if constexpr (ONE_TILE && STAGED) {  // K is widened: V's raw copy takes the staging area
+        stage((const KT*)p.v, (const KT*)p.v_new, v_raw);
+        wg::cp_async_commit();
     }
 
     // ---- 2. scores S = Q K^T ---------------------------------------------
@@ -369,6 +426,10 @@ chunk_kernel(Params p, Addr addr) {
         }
     }
     __syncthreads();
+    if constexpr (ONE_TILE && !STAGED) {  // the scores have read K: V takes its tile
+        stage((const KT*)p.v, (const KT*)p.v_new, sV);
+        wg::cp_async_commit();
+    }
 
     // ---- 3. softmax over the tile, one warp a row --------------------------
     // P (in the compute type, the v scale folded in) replaces Q
@@ -404,13 +465,13 @@ chunk_kernel(Params p, Addr addr) {
     }
     wg::cp_async_wait<0>();  // V
     __syncthreads();
-    if constexpr (QUANT) {
-        widen(v8, sV);
+    if constexpr (STAGED) {
+        widen(v_raw, sV);
         __syncthreads();
     }
 
     // ---- 4. O = P V --------------------------------------------------------
-    float* sO = reinterpret_cast<float*>(sK);  // K is dead
+    float* sO = reinterpret_cast<float*>(smem + LY::O);  // K or S is dead
     if constexpr (TC) {
         constexpr int DW = HP / NW;  // output dims of a warp, in 16s
         if (warp * DW < HD) {  // warps past HD: V's padding, never stored
@@ -531,8 +592,8 @@ chunk_kernel(Params p, Addr addr) {
 
 template <typename QT, typename KT, typename Addr, int HD>
 int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
-    constexpr int bytes = Layout<QT, KT, HD>::BYTES;  // above 48 KB: opt in
-    static_assert(bytes <= 232448, "a block's tiles must fit its shared memory");
+    constexpr int bytes = Layout<compute_t<QT, KT>, KT, HD>::BYTES;  // above 48 KB: opt in
+    static_assert(bytes <= SMEM_LIMIT, "a block's tiles must fit its shared memory");
     const cudaError_t e = cudaFuncSetAttribute(chunk_kernel<QT, KT, Addr, HD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
@@ -540,26 +601,29 @@ int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
     return crabml_launch_status();
 }
 
-template <typename Addr, int HD>
-int dispatch_hd(const Params& p, const Addr& addr, int qtype, int quant, cudaStream_t s) {
-    if (qtype == 0)
-        return quant ? launch<bf16, int8_t, Addr, HD>(p, addr, s)
-                     : launch<bf16, bf16, Addr, HD>(p, addr, s);
-    return quant ? launch<float, int8_t, Addr, HD>(p, addr, s)
-                 : launch<float, float, Addr, HD>(p, addr, s);
+template <typename Addr, typename QT, int HD>
+int dispatch_k(const Params& p, const Addr& addr, int ktype, cudaStream_t s) {
+    if (ktype == 0) return launch<QT, bf16, Addr, HD>(p, addr, s);
+    if (ktype == 1) return launch<QT, float, Addr, HD>(p, addr, s);
+    if (ktype == 2) return launch<QT, int8_t, Addr, HD>(p, addr, s);
+    return (int)cudaErrorInvalidValue;
 }
 
-// qtype 0 = bfloat16, 1 = float32; quant 0 = cache in the q type, 1 = int8;
-// hd 80, 96, 128 or 256. float32 takes 80, 96 and 128: its Q, K and V tiles at
-// 256 (~272 KB) pass the 227 KB a block may have.
+template <typename Addr, int HD>
+int dispatch_hd(const Params& p, const Addr& addr, int qtype, int ktype, cudaStream_t s) {
+    return qtype == 0 ? dispatch_k<Addr, bf16, HD>(p, addr, ktype, s)
+                      : dispatch_k<Addr, float, HD>(p, addr, ktype, s);
+}
+
+// qtype 0 = bfloat16, 1 = float32; ktype (the stored type) 0 = bfloat16,
+// 1 = float32, 2 = int8; hd 80, 96, 128 or 256: every pair at every head dim.
 template <typename Addr>
-int dispatch(const Params& p, const Addr& addr, int qtype, int quant, int hd, cudaStream_t s) {
-    if (hd == 256 && qtype == 0)
-        return quant ? launch<bf16, int8_t, Addr, 256>(p, addr, s)
-                     : launch<bf16, bf16, Addr, 256>(p, addr, s);
-    if (hd == 80) return dispatch_hd<Addr, 80>(p, addr, qtype, quant, s);
-    if (hd == 96) return dispatch_hd<Addr, 96>(p, addr, qtype, quant, s);
-    if (hd == 128) return dispatch_hd<Addr, 128>(p, addr, qtype, quant, s);
+int dispatch(const Params& p, const Addr& addr, int qtype, int ktype, int hd, cudaStream_t s) {
+    if (qtype != 0 && qtype != 1) return (int)cudaErrorInvalidValue;
+    if (hd == 80) return dispatch_hd<Addr, 80>(p, addr, qtype, ktype, s);
+    if (hd == 96) return dispatch_hd<Addr, 96>(p, addr, qtype, ktype, s);
+    if (hd == 128) return dispatch_hd<Addr, 128>(p, addr, qtype, ktype, s);
+    if (hd == 256) return dispatch_hd<Addr, 256>(p, addr, qtype, ktype, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,7 @@
 // As decode_attention (csrc/decode_attention.cu), with k, v one layer of the
 // pool (n_pages, KV, 128, hd), ks, vs (n_pages, KV, 128) float32 for int8,
 // and table (B, max_pages) i32.
-extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const void* k,
+extern "C" int paged_decode_attention(int qtype, int ktype, const void* q, const void* k,
                                       const void* v, const void* ks, const void* vs,
                                       const void* k_new, const void* v_new,
                                       const void* ks_new, const void* vs_new,
@@ -38,5 +38,5 @@ extern "C" int paged_decode_attention(int qtype, int quant, const void* q, const
     p.B = B; p.KV = KV; p.T = T; p.G = G; p.n_chunks = n_chunks;
     p.scale = scale; p.softcap = softcap; p.win = win; p.pos_bias = pos_bias;
     decode_core::PagedAddr addr{(const int*)table, max_pages};
-    return decode_core::dispatch(p, addr, qtype, quant, hd, (cudaStream_t)stream);
+    return decode_core::dispatch(p, addr, qtype, ktype, hd, (cudaStream_t)stream);
 }

@@ -4,7 +4,7 @@
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_w4a8_kernel (launcher
 // _run_w4a8, pallas_call at :740) together with its jnp quantize_activation
-// (:254). A first small kernel quantizes the bf16 activations per (row,
+// (:254). A first small kernel quantizes the bf16 (or float32) activations per (row,
 // 32-group) to symmetric int8 xq with scale dx = amax/127 and bsum sx =
 // dx*sum(xq), with the same IEEE operations and half-to-even rounding as the
 // plain version (ops/cuda/gemm_quant.py::quantize_activation), so the int8
@@ -113,6 +113,13 @@
 //    dmin), 320 / 384 B, and the group's scale is formed in float32, exactly:
 //    dsub = d * sc and, for Q2_K, msub = -dmin * mn; for Q3_K the offset is
 //    the minimum -4 * dsub, exact. Then acc += c * (dsub * dx) + msub * sx.
+// The float32 forms (`_f32` entries; under float32 compute): the quantizer
+// reads float32 x by the same operations, so the int8 codes are those of the
+// JAX package's quantize_activation on the same x, and each trait reads
+// float32 dsub / msub planes (the stage's scales twice as wide, two 16-byte
+// loads where bfloat16 takes one: Sc8), the plane-per-row forms with them;
+// Q3_K's and Q2_K's planes are the same under either compute dtype, so only
+// their quantizer differs. Float32 scale planes write float32 out.
 // A ring as deep as two blocks an SM allow, up to four stages (stages_of):
 // Q6_K at 16 rows has two.
 // The grid and the rows of x a stage holds come from
@@ -122,6 +129,8 @@
 // ptxas (sm_90a, CUDA 12.8): 96 registers at XR = 1, 140 at 8, 192 at 16,
 // no spills; 2 or 4 KB of static shared memory (the partial
 // sums) beside the rings' dynamic 45 KB (XR = 1), 80 KB (8) or 90 KB (16).
+#include <type_traits>
+
 #include "common.cuh"
 #include "wgmma.cuh"  // wg::smem_u32, cp_async16, cp_async_commit, cp_async_wait
 
@@ -131,9 +140,9 @@ constexpr int WARPS = 8;  // quantizer: one warp per 32 elements
 
 // one warp per 32 elements, lane i holds element i; the scale group is GR
 // lanes (32, or 16 for Q6_K)
-template <int GR>
+template <int GR, typename XT>
 __global__ void __launch_bounds__(WARPS * 32)
-quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ dx,
+quantize_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ dx,
                 float* __restrict__ sx, int K) {
     // the matmul may start now: it reads xq / dx / sx only after its
     // griddepcontrol.wait, which waits for this whole grid
@@ -142,7 +151,7 @@ quantize_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq, float* __re
     const int w32 = blockIdx.x * WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
     const int b = blockIdx.y;
     if (w32 >= W32) return;
-    const float v = __bfloat162float(x[(size_t)b * K + w32 * 32 + lane]);
+    const float v = to_f32(x[(size_t)b * K + w32 * 32 + lane]);
     float amax = fabsf(v);
 #pragma unroll
     for (int o = GR / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
@@ -171,15 +180,17 @@ constexpr int SMEM_PER_SM = 228 * 1024;  // H100; 1 KB of it reserved a block
 // ROWB: bytes a column of the first weight plane per superblock; MSUB: a
 // minimum plane beside dsub; HAS_QH: a Q5_K fifth-bit plane; OFF: the value
 // offset of a scheme without a minimum plane.
-struct Q4K {
-    static constexpr int GR = 32, W_BYTES = COLS * SB / 2, S_BYTES = 2 * COLS * 8 * 2;
+template <typename SC = bf16> struct Q4K {
+    using Sc = SC;
+    static constexpr int GR = 32, W_BYTES = COLS * SB / 2, S_BYTES = 2 * COLS * 8 * (int)sizeof(SC);
     static constexpr int ROWB = SB / 2, OFF = 0;
     static constexpr bool SX = true, MSUB = true, HAS_QH = false;
     static __host__ __device__ size_t q0_row(int K) { return K / 2; }
     static __host__ __device__ size_t q1_row(int) { return 0; }
 };
-struct Q80 {
-    static constexpr int GR = 32, W_BYTES = COLS * SB, S_BYTES = COLS * 8 * 2;
+template <typename SC = bf16> struct Q80 {
+    using Sc = SC;
+    static constexpr int GR = 32, W_BYTES = COLS * SB, S_BYTES = COLS * 8 * (int)sizeof(SC);
     static constexpr int ROWB = SB, OFF = 0;
     static constexpr bool SX = false, MSUB = false, HAS_QH = false;
     static __host__ __device__ size_t q0_row(int K) { return K; }
@@ -187,20 +198,23 @@ struct Q80 {
 };
 // 4-bit values in the per-64 nibble order, with a fifth-bit plane (QH_) and
 // a minimum plane (MIN_) or the offset OFF_
-template <bool QH_, bool MIN_, int OFF_> struct Nib64 {
+template <bool QH_, bool MIN_, int OFF_, typename SC = bf16> struct Nib64 {
+    using Sc = SC;
     static constexpr int GR = 32, ROWB = SB / 2, OFF = OFF_;
     static constexpr int QH_ROWS = COLS * SB / 2;  // the qh rows follow the nibble rows
     static constexpr int W_BYTES = COLS * SB / 2 + (QH_ ? COLS * SB / 8 : 0);
-    static constexpr int S_BYTES = (MIN_ ? 2 : 1) * COLS * 8 * 2;
+    static constexpr int S_BYTES = (MIN_ ? 2 : 1) * COLS * 8 * (int)sizeof(SC);
     static constexpr bool SX = true, MSUB = MIN_, HAS_QH = QH_;
     static __host__ __device__ size_t q0_row(int K) { return K / 2; }
     static __host__ __device__ size_t q1_row(int K) { return QH_ ? K / 8 : 0; }
 };
-using Q5K = Nib64<true, true, 0>;
-using Q40 = Nib64<false, false, 8>;
-using Q50 = Nib64<true, false, 16>;
-struct Q6K {
-    static constexpr int GR = 16, W_BYTES = COLS * SB * 3 / 4, S_BYTES = COLS * 16 * 2;
+template <typename SC = bf16> using Q5K = Nib64<true, true, 0, SC>;
+template <typename SC = bf16> using Q40 = Nib64<false, false, 8, SC>;
+template <typename SC = bf16> using Q50 = Nib64<true, false, 16, SC>;
+template <typename SC = bf16> struct Q6K {
+    using Sc = SC;
+    static constexpr int GR = 16, W_BYTES = COLS * SB * 3 / 4;
+    static constexpr int S_BYTES = COLS * 16 * (int)sizeof(SC);
     static constexpr int QH = COLS * SB / 2;  // the qh rows follow the ql rows
     static constexpr bool SX = true;
     static __host__ __device__ size_t q0_row(int K) { return K / 2; }
@@ -212,6 +226,7 @@ struct Q6K {
 // Q2_K (the scm byte of sc and mn, a dmin). The qs rows, then Q3_K's hb rows;
 // the scales region holds the 16 columns' scale bytes, then d, then dmin.
 template <bool Q3_> struct K16 {
+    using Sc = float;  // d and dmin; the scale bytes are the same under either compute dtype
     static constexpr bool Q3 = Q3_;
     static constexpr int GR = 16, HB = COLS * SB / 4;
     static constexpr int W_BYTES = COLS * SB / 4 + (Q3_ ? COLS * SB / 8 : 0);
@@ -289,14 +304,37 @@ __device__ __forceinline__ float bf16_at(const uint4& v, int g) {
     return __uint_as_float((g & 1) ? (w & 0xFFFF0000u) : (w << 16));
 }
 
+// eight scales of a column (8 * sizeof(SC) bytes of a stage) in registers:
+// one 16-byte load of bfloat16 scales, two of float32 ones
+template <typename SC> struct Sc8;
+template <> struct Sc8<bf16> {
+    uint4 v = make_uint4(0, 0, 0, 0);
+    __device__ __forceinline__ void load(const uint8_t* ring, int off) {
+        v = *reinterpret_cast<const uint4*>(ring + off);
+    }
+    __device__ __forceinline__ float operator[](int g) const { return bf16_at(v, g); }
+};
+template <> struct Sc8<float> {
+    uint4 v[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    __device__ __forceinline__ void load(const uint8_t* ring, int off) {
+        v[0] = *reinterpret_cast<const uint4*>(ring + off);
+        v[1] = *reinterpret_cast<const uint4*>(ring + off + 16);
+    }
+    __device__ __forceinline__ float operator[](int g) const {
+        const uint4& h = v[g >> 2];
+        const uint32_t w = (g & 3) == 0 ? h.x : (g & 3) == 1 ? h.y : (g & 3) == 2 ? h.z : h.w;
+        return __uint_as_float(w);
+    }
+};
+
 struct Args {
     const int8_t* xq;
     const float* dx;
     const float* sx;
     const uint8_t* q0;  // Q4_K, Q5_K, Q4_0 and Q5_0 nibbles, Q8_0 int8, Q6_K ql
     const uint8_t* q1;  // Q6_K, Q5_K and Q5_0 qh, Q3_K hb, Q2_K scm
-    const bf16* dsub;
-    const bf16* msub;   // Q4_K and Q5_K only
+    const void* dsub;   // bfloat16 or float32 (the trait's Sc)
+    const void* msub;   // Q4_K and Q5_K only
     void* out;
     const int* plane_idx;
     int B, N, K;
@@ -325,8 +363,10 @@ qmm_w4a8_kernel(const Args args) {
     const size_t wrow0 = (size_t)(args.plane_idx ? args.plane_idx[row0] : 0) * N;
     const uint8_t* q0 = args.q0 + wrow0 * S::q0_row(K);
     const uint8_t* q1 = args.q1 + wrow0 * S::q1_row(K);
-    const bf16* dsub = args.dsub + wrow0 * G;
-    const bf16* msub = args.msub + wrow0 * G;
+    using SC = typename S::Sc;
+    constexpr int SCB = (int)sizeof(SC);  // bytes a scale
+    const SC* dsub = (const SC*)args.dsub + wrow0 * G;
+    const SC* msub = (const SC*)args.msub + wrow0 * G;
     const int8_t* xq = args.xq + (size_t)row0 * K;
     const float* dx = args.dx + (size_t)row0 * G;
     const float* sx = args.sx + (size_t)row0 * G;
@@ -379,12 +419,17 @@ qmm_w4a8_kernel(const Args args) {
                 const int idx = i * 32 + lane, r = idx >> 2, p = idx & 3;
                 const bool ok = col0 + r < N;
                 const uint8_t* src = q1 + (size_t)(ok ? col0 + r : 0) * (K / 4) + sb * (SB / 4) + p * 16;
-                wg::cp_async16(st + Q6K::QH + r * 64 + swz_h(r, p) * 16, src, ok);
+                wg::cp_async16(st + S::QH + r * 64 + swz_h(r, p) * 16, src, ok);
             }
-            const int r = lane >> 1, p = lane & 1;
-            const bool ok = col0 + r < N;
-            const bf16* src = dsub + (size_t)(ok ? col0 + r : 0) * G + sb * NG + p * 8;
-            wg::cp_async16(st + ST::DS + r * 32 + p * 16, src, ok);
+            constexpr int PC = 16 * SCB / 16;  // 16-byte pieces of a column's 16 scales
+#pragma unroll
+            for (int i = 0; i < COLS * PC / 32; ++i) {
+                const int idx = i * 32 + lane, r = idx / PC, p = idx % PC;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = reinterpret_cast<const uint8_t*>(
+                    dsub + (size_t)(ok ? col0 + r : 0) * G + sb * NG) + p * 16;
+                wg::cp_async16(st + ST::DS + r * 16 * SCB + p * 16, src, ok);
+            }
         } else {
             constexpr int ROWB = S::ROWB;  // 128 (nibbles) or 256 (Q8_0) bytes a column
             constexpr int PIECES = ROWB / 16;
@@ -402,11 +447,17 @@ qmm_w4a8_kernel(const Args args) {
                 const uint8_t* src = q1 + (size_t)(ok ? col0 + r : 0) * (K / 8) + sb * (SB / 8) + p * 16;
                 wg::cp_async16(st + S::QH_ROWS + r * 32 + swz_s(r, p) * 16, src, ok);
             }
-            const int r = lane & 15;
-            const bool ok = col0 + r < N;
-            if (S::MSUB || lane < 16) {  // dsub (and msub where the scheme has one): 8 a column
-                const bf16* src = (lane < 16 ? dsub : msub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8;
-                wg::cp_async16(st + (lane < 16 ? ST::DS : ST::MS) + r * 16, src, ok);
+            // dsub (and msub where the scheme has one): 8 a column, in PC pieces
+            constexpr int PC = 8 * SCB / 16, NPL = S::MSUB ? 2 : 1;
+#pragma unroll
+            for (int i = 0; i < (NPL * COLS * PC + 31) / 32; ++i) {
+                const int idx = i * 32 + lane, pl = idx / (COLS * PC), r = idx % (COLS * PC) / PC,
+                          p = idx % PC;
+                const bool ok = col0 + r < N;
+                const uint8_t* src = reinterpret_cast<const uint8_t*>(
+                    (pl ? msub : dsub) + (size_t)(ok ? col0 + r : 0) * G + sb * 8) + p * 16;
+                if (idx < NPL * COLS * PC)
+                    wg::cp_async16(st + (pl ? ST::MS : ST::DS) + r * 8 * SCB + p * 16, src, ok);
             }
         }
     };
@@ -569,11 +620,12 @@ qmm_w4a8_kernel(const Args args) {
                                                  swz_l(r, hh * 4 + j) * 16 + tig * 4);
 #pragma unroll
                     for (int j = 0; j < 2; ++j)
-                        hw[c][j] = lds<uint32_t>(ring, st + Q6K::QH + r * 64 +
+                        hw[c][j] = lds<uint32_t>(ring, st + S::QH + r * 64 +
                                                  swz_h(r, hh * 2 + j) * 16 + tig * 4);
                 }
-                const uint4 dA = lds<uint4>(ring, st + ST::DS + gid * 32 + hh * 16);
-                const uint4 dB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 32 + hh * 16);
+                Sc8<SC> dA, dB;
+                dA.load(ring, st + ST::DS + gid * 16 * SCB + hh * 8 * SCB);
+                dB.load(ring, st + ST::DS + (gid + 8) * 16 * SCB + hh * 8 * SCB);
 #pragma unroll
                 for (int qq = 0; qq < 2; ++qq) {  // groups 4 qq .. 4 qq + 3 of the half
                     float dxv[NT][2][4], sxv[NT][2][4];  // [tile][row tig*2 + i][group]
@@ -602,7 +654,7 @@ qmm_w4a8_kernel(const Args args) {
                                             (((hw[0][j & 1] >> hs) & 0x03030303u) << 4);
                         const uint32_t a1 = ((lw[1][j] >> (4 * qq)) & 0x0F0F0F0Fu) |
                                             (((hw[1][j & 1] >> hs) & 0x03030303u) << 4);
-                        const float da = bf16_at(dA, q), db = bf16_at(dB, q);
+                        const float da = dA[q], db = dB[q];
                         const float ma = -32.0f * da, mb = -32.0f * db;
 #pragma unroll
                         for (int t = 0; t < NT; ++t) {
@@ -623,12 +675,12 @@ qmm_w4a8_kernel(const Args args) {
                 }
             }
         } else {
-            const uint4 dA = lds<uint4>(ring, st + ST::DS + gid * 16);
-            const uint4 dB = lds<uint4>(ring, st + ST::DS + (gid + 8) * 16);
-            uint4 mA = make_uint4(0, 0, 0, 0), mB = mA;
+            Sc8<SC> dA, dB, mA, mB;
+            dA.load(ring, st + ST::DS + gid * 8 * SCB);
+            dB.load(ring, st + ST::DS + (gid + 8) * 8 * SCB);
             if constexpr (S::MSUB) {
-                mA = lds<uint4>(ring, st + ST::MS + gid * 16);
-                mB = lds<uint4>(ring, st + ST::MS + (gid + 8) * 16);
+                mA.load(ring, st + ST::MS + gid * 8 * SCB);
+                mB.load(ring, st + ST::MS + (gid + 8) * 8 * SCB);
             }
             uint2 hA = make_uint2(0, 0), hB = hA;
             if constexpr (S::HAS_QH) {  // Q5_K: qh bytes tig*8..+7 of columns gid and gid+8
@@ -690,10 +742,10 @@ qmm_w4a8_kernel(const Args args) {
                         a2 = vA.y;
                         a3 = vB.y;
                     }
-                    const float da = bf16_at(dA, g), db = bf16_at(dB, g);
-                    // the minimum, or the offset as one (exact: a bf16 times 8)
-                    const float ma = S::MSUB ? bf16_at(mA, g) : (float)-S::OFF * da;
-                    const float mb = S::MSUB ? bf16_at(mB, g) : (float)-S::OFF * db;
+                    const float da = dA[g], db = dB[g];
+                    // the minimum, or the offset as one (exact: a power of two times the scale)
+                    const float ma = S::MSUB ? mA[g] : (float)-S::OFF * da;
+                    const float mb = S::MSUB ? mB[g] : (float)-S::OFF * db;
 #pragma unroll
                     for (int t = 0; t < NT; ++t) {
                         const int r = t * 8 + gid;
@@ -777,23 +829,28 @@ int launch(const Args& a, int grid_x, int grid_y, cudaStream_t stream) {
 
 template <class S, int XR>
 int launch_out(const Args& a, int out_bf16, int gx, int gy, cudaStream_t s) {
-    return out_bf16 ? launch<S, XR, bf16>(a, gx, gy, s) : launch<S, XR, float>(a, gx, gy, s);
+    if constexpr (std::is_same_v<typename S::Sc, float> && !is_k16<S>) {
+        // float32 scale planes come with float32 compute: float32 out only
+        return out_bf16 ? (int)cudaErrorInvalidValue : launch<S, XR, float>(a, gx, gy, s);
+    } else {
+        return out_bf16 ? launch<S, XR, bf16>(a, gx, gy, s) : launch<S, XR, float>(a, gx, gy, s);
+    }
 }
 
-// the quantizer at the scheme's group, chained to the scheme's matmul
-template <class S>
+// the quantizer at the scheme's group on x of type XT, chained to the scheme's matmul
+template <class S, typename XT>
 int run(const void* x, void* xq, void* dx, void* sx, const void* q0, const void* q1,
         const void* dsub, const void* msub, void* out, int out_bf16, const void* plane_idx,
         int B, int N, int K, int grid_x, int grid_y, int x_rows, void* stream,
         const void* sc = nullptr, const void* d = nullptr, const void* dmin = nullptr) {
     if (x_rows != 1 && x_rows != 8 && x_rows != 16) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    quantize_kernel<S::GR><<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
-        (const bf16*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
+    quantize_kernel<S::GR, XT><<<dim3((K / 32 + WARPS - 1) / WARPS, B), WARPS * 32, 0, s>>>(
+        (const XT*)x, (int8_t*)xq, (float*)dx, (float*)sx, K);
     const int err = crabml_launch_status();
     if (err) return err;
     const Args a{(const int8_t*)xq, (const float*)dx, (const float*)sx, (const uint8_t*)q0,
-                 (const uint8_t*)q1, (const bf16*)dsub, (const bf16*)msub, out,
+                 (const uint8_t*)q1, dsub, msub, out,
                  (const int*)plane_idx, B, N, K, (const int8_t*)sc, (const float*)d,
                  (const float*)dmin};
     if (x_rows == 1) return launch_out<S, 1>(a, out_bf16, grid_x, grid_y, s);
@@ -814,8 +871,8 @@ extern "C" int qmm_w4a8_bf16(const void* x, void* xq, void* dx, void* sx,
                              const void* qs, const void* dsub, const void* msub,
                              void* out, int out_bf16, const void* plane_idx, int B, int N,
                              int K, int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q4K>(x, xq, dx, sx, qs, nullptr, dsub, msub, out, out_bf16, plane_idx, B, N, K,
-                    grid_x, grid_y, x_rows, stream);
+    return run<Q4K<bf16>, bf16>(x, xq, dx, sx, qs, nullptr, dsub, msub, out, out_bf16, plane_idx, B,
+                                N, K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q8_0 form: qs (N, K) i8, dsub (N, K/32) bf16; scratch dx, sx (B,
@@ -825,8 +882,8 @@ extern "C" int qmm_w4a8_q8_0_bf16(const void* x, void* xq, void* dx, void* sx, c
                                   const void* dsub, void* out, int out_bf16,
                                   const void* plane_idx, int B, int N, int K, int grid_x,
                                   int grid_y, int x_rows, void* stream) {
-    return run<Q80>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx, B, N,
-                    K, grid_x, grid_y, x_rows, stream);
+    return run<Q80<bf16>, bf16>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx,
+                                B, N, K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q6_K form: ql (N, K/2) u8, qh (N, K/4) u8, dsub (N, K/16) bf16; scratch
@@ -836,8 +893,8 @@ extern "C" int qmm_w4a8_q6k_bf16(const void* x, void* xq, void* dx, void* sx, co
                                  const void* qh, const void* dsub, void* out, int out_bf16,
                                  const void* plane_idx, int B, int N, int K, int grid_x,
                                  int grid_y, int x_rows, void* stream) {
-    return run<Q6K>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, plane_idx, B, N, K,
-                    grid_x, grid_y, x_rows, stream);
+    return run<Q6K<bf16>, bf16>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16, plane_idx, B,
+                                N, K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q5_K form: qs (N, K/2) u8 as Q4_K's, qh (N, K/8) u8 in ggml's order,
@@ -847,8 +904,8 @@ extern "C" int qmm_w4a8_q5k_bf16(const void* x, void* xq, void* dx, void* sx, co
                                  const void* qh, const void* dsub, const void* msub, void* out,
                                  int out_bf16, const void* plane_idx, int B, int N, int K,
                                  int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q5K>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, plane_idx, B, N, K, grid_x,
-                    grid_y, x_rows, stream);
+    return run<Q5K<bf16>, bf16>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, plane_idx, B, N,
+                                K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q4_0 form: qs (N, K/2) u8 in the per-64 order, dsub (N, K/32) bf16.
@@ -857,8 +914,8 @@ extern "C" int qmm_w4a8_q4_0_bf16(const void* x, void* xq, void* dx, void* sx, c
                                   const void* dsub, void* out, int out_bf16,
                                   const void* plane_idx, int B, int N, int K, int grid_x,
                                   int grid_y, int x_rows, void* stream) {
-    return run<Q40>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx, B, N,
-                    K, grid_x, grid_y, x_rows, stream);
+    return run<Q40<bf16>, bf16>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16, plane_idx,
+                                B, N, K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q5_0 form: qs (N, K/2) u8 in the per-64 order, qh (N, K/8) u8 in Q5_K's
@@ -868,8 +925,8 @@ extern "C" int qmm_w4a8_q5_0_bf16(const void* x, void* xq, void* dx, void* sx, c
                                   const void* qh, const void* dsub, void* out, int out_bf16,
                                   const void* plane_idx, int B, int N, int K, int grid_x,
                                   int grid_y, int x_rows, void* stream) {
-    return run<Q50>(x, xq, dx, sx, qs, qh, dsub, nullptr, out, out_bf16, plane_idx, B, N, K,
-                    grid_x, grid_y, x_rows, stream);
+    return run<Q50<bf16>, bf16>(x, xq, dx, sx, qs, qh, dsub, nullptr, out, out_bf16, plane_idx, B,
+                                N, K, grid_x, grid_y, x_rows, stream);
 }
 
 // The Q3_K form: qs (N, K/4) u8, hb (N, K/8) u8, sc (N, K/16) i8, d (N,
@@ -879,8 +936,8 @@ extern "C" int qmm_w4a8_q3k_bf16(const void* x, void* xq, void* dx, void* sx, co
                                  const void* hb, const void* sc, const void* d, void* out,
                                  int out_bf16, const void* plane_idx, int B, int N, int K,
                                  int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q3K>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, out_bf16, plane_idx, B, N, K,
-                    grid_x, grid_y, x_rows, stream, sc, d, nullptr);
+    return run<Q3K, bf16>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, out_bf16, plane_idx, B, N,
+                          K, grid_x, grid_y, x_rows, stream, sc, d, nullptr);
 }
 
 // The Q2_K form: qs (N, K/4) u8, scm (N, K/16) u8, d, dmin (N, K/256) f32;
@@ -890,6 +947,71 @@ extern "C" int qmm_w4a8_q2k_bf16(const void* x, void* xq, void* dx, void* sx, co
                                  const void* scm, const void* d, const void* dmin, void* out,
                                  int out_bf16, const void* plane_idx, int B, int N, int K,
                                  int grid_x, int grid_y, int x_rows, void* stream) {
-    return run<Q2K>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, out_bf16, plane_idx, B, N, K,
-                    grid_x, grid_y, x_rows, stream, nullptr, d, dmin);
+    return run<Q2K, bf16>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, out_bf16, plane_idx, B, N,
+                          K, grid_x, grid_y, x_rows, stream, nullptr, d, dmin);
+}
+
+// The float32 forms, under float32 compute: x (B, K) float32, quantized by
+// the same operations as the bfloat16 forms' x (the plain version's
+// quantize_activation, bit for bit); every dsub / msub plane float32 (Q3_K's
+// and Q2_K's planes as in the bfloat16 forms); out (B, N) float32 only
+// (out_bf16 must be 0). Otherwise each as its bfloat16 form, plane_idx and
+// stacks too.
+extern "C" int qmm_w4a8_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                            const void* dsub, const void* msub, void* out, int out_bf16,
+                            const void* plane_idx, int B, int N, int K, int grid_x, int grid_y,
+                            int x_rows, void* stream) {
+    return run<Q4K<float>, float>(x, xq, dx, sx, qs, nullptr, dsub, msub, out, out_bf16,
+                                  plane_idx, B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q8_0_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* dsub, void* out, int out_bf16,
+                                 const void* plane_idx, int B, int N, int K, int grid_x,
+                                 int grid_y, int x_rows, void* stream) {
+    return run<Q80<float>, float>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16,
+                                  plane_idx, B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q6k_f32(const void* x, void* xq, void* dx, void* sx, const void* ql,
+                                const void* qh, const void* dsub, void* out, int out_bf16,
+                                const void* plane_idx, int B, int N, int K, int grid_x,
+                                int grid_y, int x_rows, void* stream) {
+    return run<Q6K<float>, float>(x, xq, dx, sx, ql, qh, dsub, nullptr, out, out_bf16,
+                                  plane_idx, B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q5k_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                const void* qh, const void* dsub, const void* msub, void* out,
+                                int out_bf16, const void* plane_idx, int B, int N, int K,
+                                int grid_x, int grid_y, int x_rows, void* stream) {
+    return run<Q5K<float>, float>(x, xq, dx, sx, qs, qh, dsub, msub, out, out_bf16, plane_idx,
+                                  B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q4_0_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* dsub, void* out, int out_bf16,
+                                 const void* plane_idx, int B, int N, int K, int grid_x,
+                                 int grid_y, int x_rows, void* stream) {
+    return run<Q40<float>, float>(x, xq, dx, sx, qs, nullptr, dsub, nullptr, out, out_bf16,
+                                  plane_idx, B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q5_0_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                 const void* qh, const void* dsub, void* out, int out_bf16,
+                                 const void* plane_idx, int B, int N, int K, int grid_x,
+                                 int grid_y, int x_rows, void* stream) {
+    return run<Q50<float>, float>(x, xq, dx, sx, qs, qh, dsub, nullptr, out, out_bf16,
+                                  plane_idx, B, N, K, grid_x, grid_y, x_rows, stream);
+}
+extern "C" int qmm_w4a8_q3k_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                const void* hb, const void* sc, const void* d, void* out,
+                                int out_bf16, const void* plane_idx, int B, int N, int K,
+                                int grid_x, int grid_y, int x_rows, void* stream) {
+    return out_bf16 ? (int)cudaErrorInvalidValue
+                    : run<Q3K, float>(x, xq, dx, sx, qs, hb, nullptr, nullptr, out, 0, plane_idx,
+                                      B, N, K, grid_x, grid_y, x_rows, stream, sc, d, nullptr);
+}
+extern "C" int qmm_w4a8_q2k_f32(const void* x, void* xq, void* dx, void* sx, const void* qs,
+                                const void* scm, const void* d, const void* dmin, void* out,
+                                int out_bf16, const void* plane_idx, int B, int N, int K,
+                                int grid_x, int grid_y, int x_rows, void* stream) {
+    return out_bf16 ? (int)cudaErrorInvalidValue
+                    : run<Q2K, float>(x, xq, dx, sx, qs, scm, nullptr, nullptr, out, 0, plane_idx,
+                                      B, N, K, grid_x, grid_y, x_rows, stream, nullptr, d, dmin);
 }

@@ -34,6 +34,13 @@ passes the rest through. The cache holds the model's own head dim, 80
 and 96 included: the attention kernels take them as they are, so the JAX
 package's kv_lane_pad (a cache 128 wide) has no counterpart here.
 
+The cache's dtype is its own (`KVCache.create`: float32, bfloat16 or int8,
+under either compute dtype): the step's k/v are rounded or quantized to it
+on the way in (`quantize_new`), the decode kernels take q and the cache in
+different dtypes, and a chunk attended through flash first converts the
+live view of a cache of another dtype to the compute dtype
+(`dequantize_like`), as the JAX package's flash wrapper does.
+
 `decode_step` is the T = 1 step of B sequences. It takes the positions on
 the device and reads nothing back to the host, no value and no data-dependent
 shape, so a CUDA graph captures it whole (runtime/generate.py replays it);
@@ -79,9 +86,12 @@ def q8_vec(a: torch.Tensor):
 
 
 def dequantize_like(a: torch.Tensor, scale: torch.Tensor | None, dtype) -> torch.Tensor:
-    """An int8 cache view times its scales, in the compute dtype (int8 values
-    are exact in bfloat16; only the scale multiply rounds)."""
-    return a if scale is None else a.to(dtype) * scale.to(dtype)
+    """A cache view in the compute dtype, for the flash kernel: an int8 one
+    times its scales (int8 values are exact in bfloat16; only the scale
+    multiply rounds), a float one of the other dtype cast to it, as the JAX
+    package's flash wrapper casts the cache to q's dtype
+    (crabml_tpu/ops/pallas/flash_attention.py:195)."""
+    return a.to(dtype) if scale is None else a.to(dtype) * scale.to(dtype)
 
 
 @dataclass
@@ -404,6 +414,11 @@ def _write_kv(cache: KVCache, l: int, rows, cols, kq, vq, ks, vs):
         cache.v_scale[l][rows, :, cols] = vs
 
 
+def _live(scale, n_keys: int):
+    """The first n_keys rows of an int8 cache's scales; None for a float cache."""
+    return None if scale is None else scale[:, :, :n_keys]
+
+
 def _layer_cache(cache: KVCache, l: int):
     """Layer l's k, v and (int8) scales, the scales None for a float cache."""
     if cache.quantized:
@@ -486,10 +501,10 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
             if use_decode:
                 return decode_attention(q, k_l, v_l, pos_dev, cfg.attn_scale, ks_l, vs_l,
                                         softcap, window)
-            if cache.quantized:  # dequantize only the live view, then attend over it
+            if cache.quantized or kv_dtype != q.dtype:  # convert only the live view
                 return flash_attention(
-                    q, dequantize_like(k_l[:, :, :n_keys], ks_l[:, :, :n_keys], q.dtype),
-                    dequantize_like(v_l[:, :, :n_keys], vs_l[:, :, :n_keys], q.dtype),
+                    q, dequantize_like(k_l[:, :, :n_keys], _live(ks_l, n_keys), q.dtype),
+                    dequantize_like(v_l[:, :, :n_keys], _live(vs_l, n_keys), q.dtype),
                     pos_dev, cfg.attn_scale, softcap, window)
             return flash_attention(q, k_l, v_l, pos_dev, cfg.attn_scale, softcap, window)
 

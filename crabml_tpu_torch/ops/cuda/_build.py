@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[2]
@@ -41,6 +42,7 @@ NVCC_FLAGS = (
 )
 
 launches: collections.Counter = collections.Counter()
+build_seconds: dict[str, float] = {}  # wall seconds of each source compiled in this process
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -73,8 +75,9 @@ def _library_path(src: Path) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, in parallel.
-    Returns {kernel source name: library path}. Raises with nvcc's output
-    when a build fails."""
+    Returns {kernel source name: library path}; `build_seconds` keeps each
+    compiled source's wall seconds. Raises with nvcc's output when a build
+    fails."""
     BUILD_DIR.mkdir(exist_ok=True)
     targets = {src.stem: (src, _library_path(src))
                for src in sorted(CSRC.glob("*.cu"))}
@@ -84,19 +87,23 @@ def build_all() -> dict[str, Path]:
         procs = {}
         for name, (src, lib) in todo.items():
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            log = open(lib.with_suffix(".log"), "w")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
+            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+                           tmp, lib, log, time.perf_counter())
         failed = []
-        for name, (proc, tmp, lib) in procs.items():
-            log, _ = proc.communicate()
-            lib.with_suffix(".log").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"== {name} (exit {proc.returncode}) ==\n{log}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        while procs:
+            for name in [n for n, p in procs.items() if p[0].poll() is not None]:
+                proc, tmp, lib, log, t0 = procs.pop(name)
+                build_seconds[name] = time.perf_counter() - t0
+                log.close()
+                if proc.returncode != 0:
+                    out = lib.with_suffix(".log").read_text()
+                    failed.append(f"== {name} (exit {proc.returncode}) ==\n{out}")
+                    tmp.unlink(missing_ok=True)
+                else:
+                    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {name: lib for name, (_, lib) in targets.items()}

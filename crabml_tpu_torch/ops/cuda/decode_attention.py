@@ -10,11 +10,13 @@ are in paged_decode_attention.py and share the launcher below. `plan` is the
 launch's shape, from the cache's capacity alone; `block_keys` mirrors which
 keys (and which table column) each block of the grid reads.
 
-The cache is bfloat16 or float32 like q, or int8 with one float32 scale per
-(token, kv head) in k_scale / v_scale (B, KV, S, 1). The head dim is 80, 96,
-128 or 256; float32 q takes 80, 96 and 128 (HEAD_DIMS, F32_HEAD_DIMS). At 80
-and 96 (phi2, phi3) the kernel runs on the 128 kernel's shared-memory tiles
-and the cache, q, the output and the partials keep their own width. `softcap` caps the
+q is bfloat16 or float32; the cache is bfloat16 or float32, in q's dtype or
+the other, or int8 with one float32 scale per (token, kv head) in k_scale /
+v_scale (B, KV, S, 1): the kernel computes in float32 when either is float32,
+as the JAX kernel does, and writes q's dtype. The head dim is 80, 96, 128 or
+256 (HEAD_DIMS) for every pair. At 80 and 96 (phi2, phi3) the kernel runs on
+the 128 kernel's shared-memory tiles and the cache, q, the output and the
+partials keep their own width. `softcap` caps the
 scores as cap*tanh(s/cap) before masking; `local_window` > 0 lets a token see
 only the last `local_window` keys up to itself, and keys before the window
 are never read.
@@ -35,9 +37,9 @@ from .flash_attention import flash_attention_plain
 
 MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
 MAX_ROWS = 16  # query rows (T * q heads per kv head) of the kernel's tile
-HEAD_DIMS = (80, 96, 128, 256)  # head dims the kernel takes in bfloat16
-# and in float32: at 256 its float32 tiles pass a block's shared memory
-F32_HEAD_DIMS = (80, 96, 128)
+HEAD_DIMS = (80, 96, 128, 256)  # head dims the kernel takes, in every dtype
+# the stored types, as csrc/decode_core.cuh's `dispatch` numbers them
+KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 CHUNK = 128  # keys a block takes: one page of the paged pool
 
 _P = ctypes.c_void_p
@@ -48,9 +50,8 @@ _F = ctypes.c_float
 def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
     """Whether the decode kernels take a step of T new tokens: at most MAX_T
     tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
-    80, 96, 128 or 256 (float32 compute at 256 is refused at load on the card:
-    flash_attention.check_card_attention). Callers send every other attention
-    to the flash kernel."""
+    80, 96, 128 or 256. Callers send every other attention to the flash
+    kernel."""
     return T <= MAX_T and H % KV == 0 and hd in HEAD_DIMS and T * (H // KV) <= MAX_ROWS
 
 
@@ -162,12 +163,9 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
                    f"T*G<={MAX_ROWS}, head_dim in {HEAD_DIMS})")
     quant = k.dtype == torch.int8
     _build.require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == v.dtype
-                   and (quant or k.dtype == q.dtype),
+                   and k.dtype in KV_TYPES,
                    f"{count}: q {q.dtype}, cache {k.dtype}/{v.dtype} "
-                   "(q bf16 or f32; cache in q's dtype or int8)")
-    _build.require(q.dtype == torch.bfloat16 or hd in F32_HEAD_DIMS,
-                   f"{count}: float32 at head dim {hd} (the kernel takes float32 at "
-                   f"{F32_HEAD_DIMS} only; bfloat16 at {HEAD_DIMS})")
+                   "(q bf16 or f32; cache bf16, f32 or int8)")
     _build.require(quant == (k_scale is not None) == (v_scale is not None),
                    f"{count}: an int8 cache needs k_scale and v_scale, a float cache none")
     _build.require(k.shape == v.shape and k.shape[3] == hd,
@@ -216,7 +214,7 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     argtypes = [_I, _I] + [_P] * 9 + ([_P] if table is not None else []) + [_P] * 6 \
         + [_I] * 7 + [_F, _F, _I, _I, _P]
     lib, fn = _build.entry(entry, entry, *argtypes)
-    args = [0 if q.dtype == torch.bfloat16 else 1, int(quant), q.data_ptr(), k.data_ptr(),
+    args = [0 if q.dtype == torch.bfloat16 else 1, KV_TYPES[k.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, *ptr_new]
     if table is not None:

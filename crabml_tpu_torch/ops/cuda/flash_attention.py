@@ -36,22 +36,17 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     every attention at a head dim the decode kernels do not take, goes to
     this kernel, which takes head dims HEAD_DIMS and up to ROWS_PER_BLOCK q
     heads per kv head (any count that divides the q heads: Qwen2-7B's 28
-    over 4 is 7); the decode kernels take float32 at head dims 80, 96 and
-    128 only (decode_attention.F32_HEAD_DIMS), so a float32 model at 256 is
-    refused here rather than at its first decode step. The Runner and both
-    engines call it before any weight is read; on the CPU every shape runs
-    on the plain versions."""
-    from .decode_attention import F32_HEAD_DIMS, HEAD_DIMS as DECODE_HEAD_DIMS
-
+    over 4 is 7); both take bfloat16 and float32 at each of their head dims,
+    over a cache of either (or int8). On the CPU every shape runs on the
+    plain versions. `check_card_model` calls it."""
     if torch.device(device).type != "cuda":
         return
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     reasons = []
     if hd not in HEAD_DIMS:
         reasons.append(f"head dim {hd} (the flash kernel takes {' or '.join(map(str, HEAD_DIMS))})")
-    elif dtype == torch.float32 and hd in DECODE_HEAD_DIMS and hd not in F32_HEAD_DIMS:
-        reasons.append(f"head dim {hd} in float32 (the decode kernels take it in bfloat16 "
-                       "only: pass compute_dtype=torch.bfloat16)")
+    if dtype not in (None, torch.bfloat16, torch.float32):
+        reasons.append(f"compute dtype {dtype} (the kernels take bfloat16 or float32)")
     if H % KV:
         reasons.append(f"{H} q heads over {KV} kv heads (the kv heads must divide the q heads)")
     elif H // KV > ROWS_PER_BLOCK:
@@ -59,6 +54,22 @@ def check_card_attention(cfg, device, dtype=None) -> None:
                        "kv head)")
     _build.require(not reasons, "the card's attention kernels do not take this model: "
                    + "; ".join(reasons) + "; pass device='cpu' to run it on the CPU")
+
+
+def check_card_model(cfg, device, dtype) -> None:
+    """What the card refuses of a model before any weight is read, with the
+    reason: its attention (`check_card_attention`), and in float32 a mixture
+    of experts, whose grouped matmuls take bfloat16 activations only (the
+    float32 forms of the grouped dequant kernel are not ported). The Runner
+    and both engines call it; it never falls back to a plain version, to
+    bfloat16 or to the CPU."""
+    check_card_attention(cfg, device, dtype)
+    if torch.device(device).type != "cuda":
+        return
+    _build.require(not (dtype == torch.float32 and cfg.n_experts),
+                   f"a mixture of experts ({cfg.n_experts} experts) in float32: the card's grouped "
+                   "matmuls take bfloat16 only; pass compute_dtype=torch.bfloat16, or "
+                   "device='cpu' to run it on the CPU")
 
 
 def flash_attention_plain(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0,

@@ -36,6 +36,16 @@ of 8: at most `W4A8_MAX_ROWS` rows take the int8-activation kernel, at least
 everything between takes the scheme's bf16 dequant kernel. Both values were
 tuned on a TPU v5e and stand until the card's own sweep sets them.
 
+Under float32 compute (x float32, the weights loaded with float32 dsub /
+msub planes) the dense dequant forms take csrc/qmm_f32.cu, an FFMA matmul
+on exactly dequantized float32 weights (the JAX kernel's out_dtype float32
+path, Precision.HIGHEST), counted as `<form>_f32`; qmm_w4a8 takes its `_f32`
+entries (float32 x into the quantizer, float32 scale planes), counted as
+`<form>[.planes].f32`; qmm_w8 rounds float32 x to bfloat16, as the JAX
+package does (gemm_quant.py:967). The grouped forms take bfloat16 only: the
+card refuses a float32 mixture of experts at load
+(flash_attention.check_card_model).
+
 On a CPU tensor each wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. It never falls back.
 """
@@ -385,6 +395,13 @@ def qmm_q2k_grouped_plain(xs, qs, scm, d, dmin, offsets) -> torch.Tensor:
                           lambda r, e: qmm_q2k_plain(r, qs[e], scm[e], d[e], dmin[e]))
 
 
+def _lib_dequant_f32(kind: GGMLType):
+    """The float32 entry of a scheme in csrc/qmm_f32.cu: qmm_<form>_f32 (x,
+    the weight planes in _KERNEL_PLANES order, out, M, N, K, stream)."""
+    return _build.entry("qmm_f32", DEQUANT_F32_FORMS[kind],
+                        *[_P] * (2 + len(_KERNEL_PLANES[kind])), _I, _I, _I, _P)
+
+
 def _lib_dequant(kind: GGMLType, grouped: bool = False):
     """The dequant entry of a scheme in csrc/<form>.cu: <form>_bf16 (x, the
     weight planes in _KERNEL_PLANES order, out, out_bf16, M, N, K, stream),
@@ -397,12 +414,13 @@ def _lib_dequant(kind: GGMLType, grouped: bool = False):
     return _build.entry(name, f"{name}_bf16", *planes, _I, _I, _I, _I, _P)
 
 
-def _lib_w4a8(kind: GGMLType):
+def _lib_w4a8(kind: GGMLType, f32: bool = False):
     """The int8-activation entry of a scheme (qmm_w4a8_bf16 for Q4_K,
-    qmm_w4a8_<scheme>_bf16 for the others): x, the quantizer's scratch, the
-    weight planes in _KERNEL_PLANES order, out, out_bf16, plane_idx, B, N,
-    K, the grid, x_rows, stream."""
-    entry = f"{W4A8_FORMS[kind]}_bf16"
+    qmm_w4a8_<scheme>_bf16 for the others; `f32`: the `_f32` entry, float32
+    x and scale planes): x, the quantizer's scratch, the weight planes in
+    _KERNEL_PLANES order, out, out_bf16, plane_idx, B, N, K, the grid,
+    x_rows, stream."""
+    entry = f"{W4A8_FORMS[kind]}_{'f32' if f32 else 'bf16'}"
     return _build.entry("qmm_w4a8", entry, *[_P] * (4 + len(_KERNEL_PLANES[kind]) + 1), _I, _P,
                         _I, _I, _I, _I, _I, _I, _P)
 
@@ -454,7 +472,7 @@ _W4A8_STAGE = {
 _SMEM_PER_SM = 228 * 1024  # H100: shared memory an SM holds, 1 KB of it reserved a block
 
 
-def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
+def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K, f32: bool = False) -> int:
     """One ring stage: the 16 columns' weights of a superblock (Q4_K and
     Q4_0: 2 KB of nibbles; Q5_K and Q5_0: 2.5 KB of nibbles | qh; Q8_0: 4 KB
     of int8; Q6_K: 3 KB of ql | qh; Q3_K: 1.5 KB of qs | hb; Q2_K: 1 KB of
@@ -462,18 +480,23 @@ def w4a8_stage_bytes(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
     and Q5_0: 256 B; Q6_K: 16 groups, 512 B; Q3_K: 16 sc bytes and a float32
     d a column, 320 B; Q2_K: 16 scm bytes and float32 d and dmin, 384 B),
     then per row of x its int8 values (256 B) and scales; a kind that runs
-    another's form (FORM_KIND) has that form's stage."""
-    w, sc, xs = _W4A8_STAGE[FORM_KIND[kind]]
+    another's form (FORM_KIND) has that form's stage. `f32`: the float32
+    form, whose dsub / msub are twice as wide (Q3_K's and Q2_K's scales
+    are the same either way)."""
+    form = FORM_KIND[kind]
+    w, sc, xs = _W4A8_STAGE[form]
+    if f32 and form not in (GGMLType.Q3_K, GGMLType.Q2_K):
+        sc *= 2
     return w + sc + x_rows * (W4A8_SB + xs)
 
 
-def w4a8_stages(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
+def w4a8_stages(x_rows: int, kind: GGMLType = GGMLType.Q4_K, f32: bool = False) -> int:
     """Ring depth, as csrc/qmm_w4a8.cu's `stages_of`: the most stages, up to
     four, with which two blocks (the rings, the warps' partial sums and the
     reserved kilobyte each) still share an SM."""
     red = W4A8_WARPS * 4 * -(-x_rows // 8) * 32 * 4
     for stages in (4, 3):
-        if 2 * (W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind) + red + 1024) \
+        if 2 * (W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind, f32) + red + 1024) \
                 <= _SMEM_PER_SM:
             return stages
     return 2
@@ -481,23 +504,23 @@ def w4a8_stages(x_rows: int, kind: GGMLType = GGMLType.Q4_K) -> int:
 
 @functools.lru_cache(maxsize=None)
 def w4a8_plan(rows: int, m: int, k: int, planes: bool = False,
-              kind: GGMLType = GGMLType.Q4_K) -> W4A8Plan:
+              kind: GGMLType = GGMLType.Q4_K, f32: bool = False) -> W4A8Plan:
     """The launch for `rows` (1..16) activation rows against an (m, k)
     weight of scheme `kind`, or against a row's own plane of a stack when
-    `planes`. A function of the shapes alone: it reads nothing on the
-    device, so a CUDA graph can capture the launch. Memoized: the decode
-    step asks for the same few plans at every call. A kind that runs
-    another's form (FORM_KIND) has that form's plan."""
+    `planes`; `f32`: the float32 form. A function of the shapes alone: it
+    reads nothing on the device, so a CUDA graph can capture the launch.
+    Memoized: the decode step asks for the same few plans at every call. A
+    kind that runs another's form (FORM_KIND) has that form's plan."""
     per_block = 1 if planes else rows
     x_rows = 1 if per_block == 1 else 8 if per_block <= 8 else 16
     n_tiles = -(-x_rows // 8)
-    stages = w4a8_stages(x_rows, kind)
+    stages = w4a8_stages(x_rows, kind, f32)
     nsb = k // W4A8_SB
     return W4A8Plan(
         grid=(-(-m // W4A8_COLS), rows if planes else 1), x_rows=x_rows, n_tiles=n_tiles,
         stages=stages,
         k_slices=tuple(tuple(range(w, nsb, W4A8_WARPS)) for w in range(W4A8_WARPS)),
-        smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind), planes=planes,
+        smem_bytes=W4A8_WARPS * stages * w4a8_stage_bytes(x_rows, kind, f32), planes=planes,
         group=SCHEME_GROUP[FORM_KIND[kind]])
 
 
@@ -542,10 +565,11 @@ _KERNEL_PLANES = {
 
 
 def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False,
-                  form: GGMLType = GGMLType.Q4_K):
+                  form: GGMLType = GGMLType.Q4_K, scale_dtype=torch.bfloat16):
     """Checks that `qt` holds the kernel planes of the form `form` (a weight
     of any kind that runs it: Q4_1 weights run Q4_K's forms) for a k-deep
-    product; returns them in the order the C entries take them."""
+    product, its dsub / msub planes in `scale_dtype` (the float32 forms take
+    float32 ones); returns them in the order the C entries take them."""
     p = qt.planes
     _build.require(FORM_KIND.get(qt.kind) == form and qt.kernel_layout,
                    f"{qt.kind.name}: this matmul takes {form.name} kernel planes")
@@ -553,7 +577,8 @@ def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = Fal
                    f"weight of shape {qt.shape}: expected {'a stack of planes' if stacked else 'one plane'}")
     _build.require(qt.k == k and k % 256 == 0, f"k={k} vs weight {qt.shape}")
     lead = qt.shape[:-1]
-    spec = _KERNEL_PLANES[form]
+    spec = {n: (per, scale_dtype if n in ("dsub", "msub") else dt)
+            for n, (per, dt) in _KERNEL_PLANES[form].items()}
     _build.require(all(n in p and p[n].shape == (*lead, k // per) for n, (per, _) in spec.items()),
                    f"weight planes do not match the shape {qt.shape}")
     _build.require(all(p[n].dtype == dt for n, (_, dt) in spec.items()),
@@ -601,12 +626,34 @@ def _out_bf16(out_dtype: torch.dtype) -> int:
     return int(out_dtype == torch.bfloat16)
 
 
+def _dequant_matmul_f32(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
+    """Launch the float32 dequant kernel of scheme `kind` (csrc/qmm_f32.cu)."""
+    name = DEQUANT_F32_FORMS[kind]
+    rows, k = x2.shape
+    planes = _check_weight(qt, k, x2.device, form=kind, scale_dtype=torch.float32)
+    _build.require(out_dtype == torch.float32, f"{name} writes float32, not {out_dtype}")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
+                   f"{name} reads the weight planes 16 bytes at a time: align them to 16")
+    x2 = _aligned(x2)
+    out = torch.empty(rows, qt.m, dtype=torch.float32, device=x2.device)
+    lib, fn = _lib_dequant_f32(kind)
+    _build.launches[name] += 1
+    err = fn(x2.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), rows, qt.m, k,
+             _build.stream_ptr(x2))
+    _build.check(lib, err, name)
+    return out
+
+
 def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    """Launch the dense dequant kernel of scheme `kind` on the card."""
+    """Launch the dense dequant kernel of scheme `kind` on the card: the
+    float32 form for float32 x, else the bfloat16 one."""
+    if x2.dtype == torch.float32:
+        return _dequant_matmul_f32(kind, x2, qt, out_dtype)
     name = DEQUANT_FORMS[kind]
     rows, k = x2.shape
     planes = _check_weight(qt, k, x2.device, form=kind)
-    _build.require(x2.dtype == torch.bfloat16, f"{name} takes bfloat16 activations, got {x2.dtype}")
+    _build.require(x2.dtype == torch.bfloat16,
+                   f"{name} takes bfloat16 or float32 activations, got {x2.dtype}")
     _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
                    f"{name} copies the weight planes 16 bytes at a time: align them to 16")
     out_bf16 = _out_bf16(out_dtype)
@@ -624,14 +671,18 @@ def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) ->
 DEQUANT_FORMS = {GGMLType.Q4_K: "qmm_q4k", GGMLType.Q8_0: "qmm_q8_0", GGMLType.Q6_K: "qmm_q6k",
                  GGMLType.Q5_K: "qmm_q5k", GGMLType.Q4_0: "qmm_q4_0", GGMLType.Q3_K: "qmm_q3k",
                  GGMLType.Q2_K: "qmm_q2k", GGMLType.Q5_0: "qmm_q5_0"}
+# the float32 dequant kernel of each form (csrc/qmm_f32.cu): its entry and launch counter
+DEQUANT_F32_FORMS = {kind: f"{name}_f32" for kind, name in DEQUANT_FORMS.items()}
 
 
 def _dequant_form(kind: GGMLType):
     """The wrapper of `kind`'s dequant kernel, named as DEQUANT_FORMS says:
     (x2 (rows, k), qt, out_dtype=float32) -> x2 @ W^T (rows, m), float32 sums
     rounded once to `out_dtype`, for a weight of any kind whose FORM_KIND is
-    `kind`. On a CPU tensor it computes the plain version (`<name>_plain`,
-    on the planes in _KERNEL_PLANES order)."""
+    `kind`; float32 x (with float32 scale planes) takes the float32 form,
+    float32 out. On a CPU tensor it computes the plain version
+    (`<name>_plain`, on the planes in _KERNEL_PLANES order), which for
+    float32 x is the float32 form's."""
     name = DEQUANT_FORMS[kind]
 
     def wrapper(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
@@ -673,7 +724,9 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     `out_dtype`. With `plane` (rows,) int32, `qt` is a stack (E, m, k) and
     row b multiplies plane[b], read on the device. The launch is
     `w4a8_plan`'s; each form counts its launches under its `W4A8_FORMS`
-    name, and those of the plane form under that name + ".planes"."""
+    name, and those of the plane form under that name + ".planes". Float32
+    x takes the float32 form (the quantizer on float32 x, float32 dsub /
+    msub planes, float32 out), counted with ".f32" after that."""
     kind = FORM_KIND.get(qt.kind)
     if not x2.is_cuda:
         plain = globals()[f"{W4A8_FORMS[kind]}_plain"]
@@ -683,13 +736,18 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     _build.require(kind in W4A8_FORMS,
                    f"{qt.kind.name}: qmm_w4a8 takes "
                    + ", ".join(f.name for f in FORM_KIND) + " planes")
-    planes = _check_weight(qt, k, x2.device, stacked=plane is not None, form=kind)
+    _build.require(x2.dtype in (torch.bfloat16, torch.float32),
+                   f"qmm_w4a8 takes bfloat16 or float32 activations, got {x2.dtype}")
+    f32 = x2.dtype == torch.float32
+    planes = _check_weight(qt, k, x2.device, stacked=plane is not None, form=kind,
+                           scale_dtype=x2.dtype)
     if plane is not None:
         _build.require(plane.dtype == torch.int32 and plane.shape == (rows,)
                        and plane.device == x2.device and plane.is_contiguous(),
                        "plane: one int32 per row, on the activations' card")
     _build.require(1 <= rows <= W4A8_MAX_ROWS, f"qmm_w4a8 takes 1..{W4A8_MAX_ROWS} rows, got {rows}")
-    _build.require(x2.dtype == torch.bfloat16, f"qmm_w4a8 takes bfloat16 activations, got {x2.dtype}")
+    _build.require(not f32 or out_dtype == torch.float32,
+                   f"qmm_w4a8's float32 form writes float32, not {out_dtype}")
     _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
                    "qmm_w4a8 copies the weight planes 16 bytes at a time: align them to 16")
     out_bf16 = _out_bf16(out_dtype)
@@ -699,9 +757,9 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     dx = torch.empty(rows, k // SCHEME_GROUP[kind], dtype=torch.float32, device=dev)
     sx = torch.empty_like(dx)
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=dev)
-    plan = w4a8_plan(rows, qt.m, k, planes=plane is not None, kind=kind)
-    name = W4A8_FORMS[kind] + ("" if plane is None else ".planes")
-    lib, fn = _lib_w4a8(kind)
+    plan = w4a8_plan(rows, qt.m, k, planes=plane is not None, kind=kind, f32=f32)
+    name = W4A8_FORMS[kind] + ("" if plane is None else ".planes") + (".f32" if f32 else "")
+    lib, fn = _lib_w4a8(kind, f32)
     _build.launches[name] += 1
     err = fn(x2.data_ptr(), xq.data_ptr(), dx.data_ptr(), sx.data_ptr(),
              *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
@@ -718,13 +776,16 @@ def _pad_k(x2: torch.Tensor, kpad: int) -> torch.Tensor:
 def qmm_w8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
     """x2 (rows, k) @ W^T -> (rows, m) through the W8 planes of `qt`: per
     512-chunk the bf16 product in float32, times the chunk's scale; float32
-    sums, rounded once to `out_dtype`."""
+    sums, rounded once to `out_dtype`. Float32 x is rounded to bfloat16
+    first, as the JAX package rounds it (gemm_quant.py:967)."""
     p = qt.planes
     if not x2.is_cuda:
         return qmm_w8_plain(x2, p["w8"], p["dw"]).to(out_dtype)
     rows, k = x2.shape
     kpad = _check_w8(qt, k, x2.device)
-    _build.require(x2.dtype == torch.bfloat16, f"qmm_w8 takes bfloat16 activations, got {x2.dtype}")
+    _build.require(x2.dtype in (torch.bfloat16, torch.float32),
+                   f"qmm_w8 takes bfloat16 or float32 activations, got {x2.dtype}")
+    x2 = x2.to(torch.bfloat16)
     out_bf16 = _out_bf16(out_dtype)
     x2 = _aligned(_pad_k(x2, kpad))
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=x2.device)

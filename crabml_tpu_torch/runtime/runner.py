@@ -1,15 +1,21 @@
 """The model runner: chunked prefill and streaming decode on one device.
 
 Counterpart of crabml_tpu/runtime/runner.py::Runner (prefill, generate,
-prefill_and_generate, reset). The JAX Runner pads prompts to power-of-two
-buckets to bound recompiles; the port runs eagerly and prefills the exact
-prompt length, still in chunks of at most MAX_PREFILL_CHUNK tokens so a long
-prompt never materializes a long activation. Decode goes through
+prefill_and_generate, reset, kv_cache_len, save_session, load_session). The
+JAX Runner pads prompts to power-of-two buckets to bound recompiles; the port
+runs eagerly and prefills the exact prompt length, still in chunks of at
+most MAX_PREFILL_CHUNK tokens so a long prompt never materializes a long
+activation. Decode goes through
 runtime/generate.py::decode_loop: on the card, one captured CUDA graph of the
 step, replayed.
 
 The Runner runs on `cuda` unless the caller passes `device="cpu"`; without a
 card and without that request it raises.
+
+`compute_dtype` is bfloat16 (the default on the card) or float32, and
+`kv_dtype` the cache's: float32, bfloat16 or int8, under either compute
+dtype (default: the compute dtype), as the JAX Runner takes them. The
+default differs from the JAX package's, whose compute dtype is float32.
 
 `prefill_w8` decides on the W8 prefill planes (int8 weights beside the
 quantized planes, 8 more bits a weight of device memory; chunks of 249 rows
@@ -23,6 +29,7 @@ from __future__ import annotations
 import logging
 import os
 
+import numpy as np
 import torch
 
 from ..errors import CacheError
@@ -30,7 +37,7 @@ from ..gguf.reader import GGUFFile
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.forward import KVCache, forward
 from ..models.weights import augment_w8_weights, load_weights
-from ..ops.cuda.flash_attention import check_card_attention
+from ..ops.cuda.flash_attention import check_card_model
 from ..tokenizer import Tokenizer, Utf8Buf, tokenizer_from_gguf
 from ..utils import resolve_device
 from ..utils.metrics import Metrics
@@ -80,21 +87,22 @@ class Runner:
     MAX_PREFILL_CHUNK = 512  # bounds activation memory per forward
 
     def __init__(self, model: str | GGUFFile, seq_len: int | None = None,
-                 compute_dtype=torch.bfloat16,
+                 compute_dtype=torch.bfloat16, kv_dtype=None,
                  sampler: Sampler | None = None, seed: int = 0, device=None,
                  prefill_w8: bool | None = None, kv_lane_pad: bool = False):
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
-        check_card_attention(self.cfg, self.device, compute_dtype)
+        check_card_model(self.cfg, self.device, compute_dtype)
         self.seq_len = min(seq_len or self.cfg.seq_len, self.cfg.seq_len)
         self.compute_dtype = compute_dtype
+        self.kv_dtype = kv_dtype or compute_dtype
         w8_budget = None  # None = off, -1 = every eligible tensor, > 0 = a byte budget
         if prefill_w8 is True:
             w8_budget = -1
         elif prefill_w8 is None:
             w8_budget = _auto_w8_budget(gf, self.cfg, self.seq_len,
-                                        torch.empty(0, dtype=compute_dtype).element_size(),
+                                        torch.empty(0, dtype=self.kv_dtype).element_size(),
                                         self.device)
         self.prefill_w8 = w8_budget is not None
         self.tokenizer: Tokenizer = tokenizer_from_gguf(gf.metadata)
@@ -114,7 +122,7 @@ class Runner:
         # attention kernels take head dims 80 and 96 as they are, and the cache
         # holds the model's head dim
         del kv_lane_pad
-        self.cache = KVCache.create(self.cfg, 1, self.seq_len, compute_dtype, self.device)
+        self.cache = KVCache.create(self.cfg, 1, self.seq_len, self.kv_dtype, self.device)
         self.pos = 0
         self.generated: list[int] = []  # token ids of the current generation
         self._decode_buf = Utf8Buf()
@@ -127,6 +135,54 @@ class Runner:
         self.cache.k.zero_()
         self.cache.v.zero_()
         self.pos = 0
+        self.generated = []
+        self._decode_buf = Utf8Buf()
+
+    def kv_cache_len(self) -> int:
+        """Tokens the cache holds."""
+        return self.pos
+
+    def save_session(self, path: str):
+        """The KV cache and position to a .npz file in the JAX package's keys
+        and layout (crabml_tpu/runtime/runner.py::save_session): k, v (L, 1,
+        KV, S, hd), pos (1,) int32, model_name, and for an int8 cache its
+        float32 k_scale, v_scale (L, 1, KV, S, 1). A float32 or int8 cache is
+        written as it is; a bfloat16 one widened to float32 (exact; numpy has
+        no bfloat16), which either package loads into a bfloat16 cache."""
+        def host(t):
+            return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+        extra = {}
+        if self.cache.quantized:
+            extra = {"k_scale": host(self.cache.k_scale), "v_scale": host(self.cache.v_scale)}
+        np.savez(path, k=host(self.cache.k), v=host(self.cache.v),
+                 pos=np.asarray([self.pos], np.int32), model_name=self.cfg.model_name, **extra)
+
+    def load_session(self, path: str):
+        """A session of either package into this Runner's cache, in place (the
+        captured decode graphs stay valid). The cache's shape and whether it
+        is int8 must match the file's; float values convert to the cache's
+        dtype, and a JAX bfloat16 session, which numpy keeps as raw 2-byte
+        values, is read as bfloat16."""
+        data = np.load(path, allow_pickle=False)
+        if data["k"].shape != tuple(self.cache.k.shape):
+            raise CacheError(f"session cache shape {data['k'].shape} != runner "
+                             f"{tuple(self.cache.k.shape)} (seq_len/batch/model mismatch)")
+        if ("k_scale" in data) != self.cache.quantized:
+            raise CacheError(f"session cache is {'int8' if 'k_scale' in data else 'float'}, "
+                             f"the runner's {self.kv_dtype}: pass kv_dtype to match it")
+
+        def into(dst, a):
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+                if a.dtype.kind == "V" and a.dtype.itemsize == 2 else torch.from_numpy(a)
+            dst.copy_(t.to(dst.dtype))
+
+        into(self.cache.k, data["k"])
+        into(self.cache.v, data["v"])
+        if self.cache.quantized:
+            into(self.cache.k_scale, data["k_scale"])
+            into(self.cache.v_scale, data["v_scale"])
+        self.pos = int(data["pos"][0])
         self.generated = []
         self._decode_buf = Utf8Buf()
 

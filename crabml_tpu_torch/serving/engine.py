@@ -38,7 +38,7 @@ import torch
 
 from ..errors import ConfigError
 from ..models.forward import KVCache, decode_step, forward
-from ..ops.cuda.flash_attention import check_card_attention
+from ..ops.cuda.flash_attention import check_card_model
 from ..runtime.generate import RING, StepGraph
 from ..runtime.sampler import LOGPROB_TOPK, sample_batch
 from ..tokenizer import Utf8Buf
@@ -215,7 +215,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         if weights is None or cfg is None:
             raise ConfigError("ServingEngine needs a runner, or weights and cfg")
-        check_card_attention(cfg, self.device, compute_dtype)
+        check_card_model(cfg, self.device, compute_dtype)
         self.weights = weights
         self.cfg = cfg
         self.tokenizer = tokenizer

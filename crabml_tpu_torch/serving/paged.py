@@ -194,7 +194,7 @@ class PagedServingEngine(ServingEngine):
     blocks on demand (admission: ceil(prompt / PAGE) pages; decode: one page
     at each boundary crossing) and returned on completion. `n_pages` bounds
     the tokens in flight instead of slots x seq_len. The pool is stored in the
-    compute dtype unless `kv_dtype` says int8.
+    compute dtype unless `kv_dtype` names another (float32, bfloat16 or int8).
 
     The block table's source of truth is the host mirror `self._table`
     (pages are only ever assigned host-side); it is pushed to the device when

@@ -34,7 +34,7 @@ from ..ops.cuda import _build
 from ..ops.cuda.decode_attention import decode_attention_plain
 from .qmm_ablation import build, device_ms
 
-_WAIT_K = "    wg::cp_async_wait<1>();  // Q and K (this thread's copies)\n"
+_WAIT_K = "        wg::cp_async_wait<1>();  // Q and K (this thread's copies)\n"
 _MERGE = "    __syncthreads();\n    int* last"
 _MMA_S = ("            mma16816(acc[0], a, bq[0], bq[1]);\n"
           "            mma16816(acc[1], a, bq[2], bq[3]);")
@@ -66,7 +66,7 @@ SHAPES = ((1, 1, (1000,), 4096), (1, 1, (4000,), 4096),
           (8, 4, (1, 37, 128, 255, 400, 640, 900, 1000), 1152))
 HEADS, KV_HEADS, HD = 32, 8, 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-ARGTYPES = [_I, _I] + [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _P]
+ARGTYPES = [_I, _I] + [_P] * 15 + [_I] * 7 + [_F, _F, _I, _I, _P]
 
 
 def main() -> int:
@@ -103,7 +103,7 @@ def main() -> int:
                          kn.data_ptr(), vn.data_ptr(), None, None, pos.data_ptr(),
                          part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
                          ticket.data_ptr(), out.data_ptr(), B, KV_HEADS, S, T,
-                         HEADS // KV_HEADS, n, scale, 0.0, 0, 0, _build.stream_ptr(q))
+                         HEADS // KV_HEADS, n, HD, scale, 0.0, 0, 0, _build.stream_ptr(q))
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             ms = device_ms(launch, flush)

@@ -1,6 +1,8 @@
 """Named wall-time counters — the analogue of TensorMetrics
 (crabml-core/src/tensor/metrics.rs:5-30): context-manager guards accumulate
-nanoseconds into named counters."""
+nanoseconds into named counters; `table()` renders the reference's
+--verbose-style sorted cost table (crabml-cli/src/main.rs:188-205), as
+crabml_tpu/utils/metrics.py does."""
 
 from __future__ import annotations
 
@@ -29,6 +31,15 @@ class Metrics:
     def reset(self):
         self.times_ns.clear()
         self.counts.clear()
+
+    def table(self) -> str:
+        """The timers by time, longest first, in ms; then the plain counts."""
+        rows = sorted(self.times_ns.items(), key=lambda kv: -kv[1])
+        lines = [f"{k:24s} {v / 1e6:10.3f} ms" for k, v in rows]
+        for k, v in self.counts.items():
+            if not k.endswith("_calls"):
+                lines.append(f"{k:24s} {v:10d}")
+        return "\n".join(lines)
 
     def tokens_per_sec(self) -> float:
         toks = self.counts.get("tokens", 0)

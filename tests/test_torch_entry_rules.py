@@ -46,25 +46,26 @@ def test_card_refuses_head_dims_its_kernels_do_not_take():
 
 
 def test_card_takes_head_dim_256_and_refuses_96():
-    """Gemma-2's head dim 256 runs on the card in bfloat16 (flash and every
-    decode form); so do 96 (phi3) and 80 (phi2), in bfloat16 and float32, on
-    the 128 kernels' tiles; 256 in float32, whose decode tiles pass a block's
-    shared memory, is refused with the reason, and so is 48, which no kernel
-    takes. No card is needed to decide. (The name is the test's from before
-    96 and 80 were ported.)"""
+    """Gemma-2's head dim 256 runs on the card in bfloat16 and in float32
+    (flash and every decode form; float32 decode at 256 holds K and then V in
+    one tile); so do 96 (phi3) and 80 (phi2), on the 128 kernels' tiles; 48,
+    which no kernel takes, is refused with the reason, and so is a compute
+    dtype the kernels do not take. No card is needed to decide. (The name is
+    the test's from before 96, 80 and float32 at 256 were ported.)"""
     cfg = _cfg()
     hd256 = replace(cfg, head_dim_override=256)
     check_card_attention(hd256, "cuda")
-    check_card_attention(hd256, "cuda", torch.bfloat16)
-    check_card_attention(replace(cfg, head_dim_override=128), "cuda", torch.float32)
-    with pytest.raises(UnsupportedError, match="head dim 256 in float32"):
-        check_card_attention(hd256, "cuda", torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_card_attention(hd256, "cuda", dtype)
+        check_card_attention(replace(cfg, head_dim_override=128), "cuda", dtype)
     check_card_attention(hd256, "cpu", torch.float32)
     for hd in (96, 80):
         for dtype in (torch.bfloat16, torch.float32):
             check_card_attention(replace(cfg, head_dim_override=hd), "cuda", dtype)
     with pytest.raises(UnsupportedError, match="head dim 48 "):
         check_card_attention(replace(cfg, head_dim_override=48), "cuda", torch.bfloat16)
+    with pytest.raises(UnsupportedError, match="compute dtype torch.float16"):
+        check_card_attention(replace(cfg, head_dim_override=128), "cuda", torch.float16)
 
 
 def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):

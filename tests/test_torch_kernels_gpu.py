@@ -470,18 +470,20 @@ def _poison_pool(pool, table, first, end):
 
 
 def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, window=0,
-                 pos=None, poison=False, hd=128, n_slot_pages=9):
+                 pos=None, poison=False, hd=128, n_slot_pages=9, q_dtype=None):
     """One decode-attention form against its plain version on the card, at
     ragged prefixes (_POS and the cache's last position unless `pos` is
     given). form: dense | dense_fused | paged | paged_fused; kv: bf16 | f32 |
-    int8 (q bf16). With `poison`, every cache row or pool row past the live
+    int8; q in `q_dtype` (default: float32 over an f32 cache, else
+    bfloat16). With `poison`, every cache row or pool row past the live
     keys (and before the window of a sequence's first row) is set to NaN
     after the plain version ran (for int8: its scales). A sequence holds at
     most `n_slot_pages` pages of keys. Returns (kernel out, plain out, count
     name)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    qdt = torch.float32 if kv == "f32" else torch.bfloat16
+    qdt = q_dtype or (torch.float32 if kv == "f32" else torch.bfloat16)
+    kdt = torch.float32 if kv == "f32" else torch.bfloat16  # a float cache's dtype
     KV = 2
     S = n_slot_pages * PAGE
     pos = tuple(pos or (*_POS, S - T))
@@ -501,7 +503,7 @@ def _decode_case(form: str, kv: str, T: int, G: int, seed: int, softcap=0.0, win
     if kv == "int8":
         (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
     else:
-        k, v, kn, vn = (a.to(qdt) for a in (k, v, kn, vn))
+        k, v, kn, vn = (a.to(kdt) for a in (k, v, kn, vn))
     kw = dict(softcap=softcap, local_window=window)
     # the cache's live rows: from the first row's window start to the keys it holds
     first = [max(p + 1 - window, 0) if window else 0 for p in pos]
@@ -645,7 +647,7 @@ def test_dense_zero_key_rows_give_zero(cuda):
 def test_wrappers_raise_rather_than_fall_back(cuda):
     qt = _weight(256, 256, 1)
     with pytest.raises(UnsupportedError):
-        gemm_quant.qmm_q4k(torch.zeros(32, 256, device=cuda), qt)  # float32 x
+        gemm_quant.qmm_q4k(torch.zeros(32, 256, device=cuda), qt)  # float32 x, bf16 scales
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(torch.zeros(17, 256, device=cuda, dtype=torch.bfloat16), qt)
     x = torch.zeros(32, 256, device=cuda, dtype=torch.bfloat16)
@@ -679,7 +681,9 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(UnsupportedError):
         decode_attention(q, kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)  # no scales
     with pytest.raises(UnsupportedError):
-        decode_attention(q, kv.to(torch.bfloat16), kv.to(torch.bfloat16), pos, 0.125)  # mixed
+        decode_attention(q, kv.half(), kv.half(), pos, 0.125)  # a float16 cache
+    with pytest.raises(UnsupportedError):
+        decode_attention(q, kv, kv.to(torch.bfloat16), pos, 0.125)  # k and v of two dtypes
     with pytest.raises(UnsupportedError):
         decode_attention(q.to(torch.int8), kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)
     table = torch.zeros(1, 1, dtype=torch.int64, device=cuda)
@@ -770,27 +774,6 @@ def test_decode_forms_hd256_are_deterministic(cuda, form):
                              pos=(0, 129, 700, 1000))
     torch.cuda.synchronize()
     assert torch.equal(one, two)
-
-
-def test_decode_forms_refuse_float32_at_hd256(cuda):
-    """float32 q at head dim 256 is refused before launch (its tiles pass a
-    block's shared memory); bfloat16 q over the same shapes runs."""
-    q = torch.zeros(1, 1, 4, 256, device=cuda)
-    kv = torch.zeros(1, 2, 128, 256, device=cuda)
-    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
-    before = dict(_build.launches)
-    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
-        decode_attention(q, kv, kv, pos, 1 / 16)
-    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
-        decode_attention_fused(q, kv[None], kv[None], 0, pos, 1 / 16, kv[:, :, :1], kv[:, :, :1])
-    table = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
-    with pytest.raises(UnsupportedError, match="float32 at head dim 256"):
-        paged_decode_attention(q, kv, kv, table, pos + 1, 1 / 16)
-    assert dict(_build.launches) == before
-    out = decode_attention(q.to(torch.bfloat16), kv.to(torch.bfloat16), kv.to(torch.bfloat16),
-                           pos, 1 / 16)
-    torch.cuda.synchronize()
-    assert torch.equal(out, torch.zeros_like(out))
 
 
 # -- head dims 96 and 80 (phi3, phi2) ------------------------------------------
@@ -990,7 +973,7 @@ def test_decode_forms_hd256_replay_in_a_cuda_graph(cuda, form, kv):
     _replay_case(cuda, form, kv, 256, 2, softcap=50.0, window=300)
 
 
-def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0):
+def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0, q_dtype=torch.bfloat16):
     g = torch.Generator(device=cuda).manual_seed(4)
     B, KV, n_slot_pages = 4, 2, 9
     S = n_slot_pages * PAGE
@@ -998,7 +981,7 @@ def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0):
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=cuda)
 
-    q = rand(B, 1, KV * G, hd).to(torch.bfloat16)
+    q = rand(B, 1, KV * G, hd).to(q_dtype)
     paged, fused = form.startswith("paged"), form.endswith("fused")
     shape = (B * n_slot_pages + 1, KV, PAGE, hd) if paged else (B, KV, S, hd)
     k, v, kn, vn = rand(*shape), rand(*shape), rand(B, KV, 1, hd), rand(B, KV, 1, hd)
@@ -1006,7 +989,8 @@ def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0):
     if kv == "int8":
         (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
     else:
-        k, v, kn, vn = (a.to(torch.bfloat16) for a in (k, v, kn, vn))
+        kdt = torch.float32 if kv == "f32" else torch.bfloat16
+        k, v, kn, vn = (a.to(kdt) for a in (k, v, kn, vn))
     perm = torch.randperm(B * n_slot_pages, generator=torch.Generator().manual_seed(4)) + 1
     table = perm.reshape(B, n_slot_pages).to(cuda, torch.int32)
     pos = torch.zeros(B, dtype=torch.int32, device=cuda)
@@ -1799,3 +1783,212 @@ def test_scheme_expert_wrappers_raise_rather_than_fall_back(cuda, kind):
         gemm_quant.qmm_w4a8(xs[:2], qt, plane=plane[:1])
     with pytest.raises(UnsupportedError, match="one plane"):
         gemm_quant.qmm_w4a8(xs[:2], qt)
+
+
+# ---------------------------------------------------------------------------
+# float32 compute: the float32 dequant forms (csrc/qmm_f32.cu), the float32
+# int8-activation forms (float32 x and scale planes), and the decode forms in
+# float32 at head dim 256 and over a cache of another dtype
+# ---------------------------------------------------------------------------
+
+ALL_KINDS = pytest.mark.parametrize(
+    "kind", [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K, GGMLType.Q4_0,
+             GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1,
+             GGMLType.Q8_1],
+    ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0", "q4_1", "q5_1", "q8_1"])
+
+
+def _f32_weight(kind, m, k, seed):
+    """A random (m, k) weight of `kind`, kernel planes with float32 scales
+    (as the Runner loads them under float32 compute)."""
+    qt = to_kernel_layout(to_planar(kind, _scheme_raw(kind, m * k, k, seed), (m, k), "cuda"),
+                          torch.float32)
+    for n in ("dsub", "msub"):
+        assert n not in qt.planes or qt.planes[n].dtype == torch.float32
+    return qt
+
+
+def _f32_x(rows, k, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(rows, k, generator=g, device="cuda")
+
+
+@ALL_KINDS
+@pytest.mark.parametrize("rows,m,k", [(17, 384, 512), (100, 320, 1024), (513, 256, 256),
+                                       (1, 512, 1024), (189, 512, 1536), (512, 768, 512),
+                                       (64, 128, 256), (37, 200, 768), (189, 256, 14336)])
+def test_f32_dequant_matmul_matches_plain(cuda, kind, rows, m, k):
+    """The float32 dequant form of every kind: tolerance 1e-5 of max|out|
+    (the same float32 weights, float32 sums in another order than cuBLAS's
+    with TF32 off). Rows from 1 to 513 (ragged last 64-row tiles), columns off
+    the 128-wide tile (200, 320, 384), k from one superblock to 14,336."""
+    qt = _f32_weight(kind, m, k, rows + m)
+    x = _f32_x(rows, k, m)
+    name = gemm_quant.DEQUANT_F32_FORMS[FORM_KIND[kind]]
+    _, plain = _dequant_of(kind)
+    wrapper = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]])
+    before = _build.launches[name]
+    got = wrapper(x, qt)
+    want = plain(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(wrapper(x, qt), got)  # the same at every call
+
+
+@EVERY_VALUE_KINDS
+def test_f32_dequant_converts_every_value_exactly(cuda, kind):
+    """The one-hot sweep of the bfloat16 forms with float32 scales that use
+    the low mantissa bits bfloat16 drops: one hot row of x at a time returns
+    the exact float32 weights of `dequantize` (val*dsub + msub with two
+    roundings, as the plain versions compute them), bit for bit."""
+    m, k = 256, 512
+    planes = _every_value_planes(kind, m, k, cuda)
+    for n in ("dsub", "msub"):
+        if n in planes:
+            planes[n] = planes[n].float() * (1 + 2.0 ** -13)
+    qt = QTensor(kind, (m, k), planes)
+    wrapper = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]])
+    x = torch.eye(k, device=cuda)
+    got = wrapper(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dequantize(qt).t())
+
+
+@ALL_KINDS
+@pytest.mark.parametrize("rows,m,k", [(1, 300, 768), (3, 512, 256), (8, 256, 1024),
+                                       (9, 336, 512), (16, 256, 1024), (16, 128, 14336),
+                                       (1, 6144, 4096), (8, 4096, 14336)])
+def test_f32_w4a8_matches_plain(cuda, kind, rows, m, k):
+    """The float32 int8-activation form of every kind (float32 x into the
+    quantizer, float32 scale planes): tolerance 1e-4 of max|out| (identical
+    int8 activations, exact integer dots, float32 group sums in another
+    order); every plan (1, 8, 16 rows a stage); two calls bit for bit."""
+    qt = _f32_weight(kind, m, k, rows + m)
+    x = _f32_x(rows, k, m)
+    name = gemm_quant.W4A8_FORMS[FORM_KIND[kind]] + ".f32"
+    before = _build.launches[name]
+    got = gemm_quant.qmm_w4a8(x, qt)
+    want = _w4a8_plain_of(kind)(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt), got)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("kind", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q2_K],
+                         ids=["q4_k", "q6_k", "q2_k"])
+def test_f32_w4a8_plane_form_matches_plain(cuda, kind, rows):
+    """The plane-per-row form with float32 scale planes: each row on its
+    own expert of a 4-stack, some shared. Tolerance 1e-4 as above."""
+    qt = to_kernel_layout(to_planar(kind, _scheme_raw(kind, 4 * 512 * 1024, 1024, 7),
+                                    (4, 512, 1024), "cuda"), torch.float32)
+    plane = torch.tensor([(3 * r + 1) % 4 for r in range(rows)], device=cuda, dtype=torch.int32)
+    x = _f32_x(rows, 1024, 3)
+    name = gemm_quant.W4A8_FORMS[FORM_KIND[kind]] + ".planes.f32"
+    before = _build.launches[name]
+    got = gemm_quant.qmm_w4a8(x, qt, plane=plane)
+    plain = getattr(gemm_quant, gemm_quant.W4A8_FORMS[FORM_KIND[kind]] + "_plain")
+    want = plain(x, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]),
+                 plane=plane)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert _rel(got, want) <= 1e-4
+
+
+def test_f32_w4a8_int8_codes_equal_the_plain_quantizer(cuda):
+    """The float32 quantizer's int8 codes, read back through a Q8_0 identity
+    weight (w[n, n] = 1, dsub 1): out[r, n] = xq[r, n] * dx[r, group of n],
+    so out / dx rounds back to the code. Equal to quantize_activation's on
+    the same float32 x (the JAX package's, tests/test_torch_float32.py), a
+    row with a zero group included."""
+    k = 512
+    x = _f32_x(5, k, 11) * torch.linspace(0.1, 30, k, device=cuda)
+    x[2, 32:64] = 0
+    qt = QTensor(GGMLType.Q8_0, (k, k), {"qs": torch.eye(k, device=cuda).to(torch.int8),
+                                         "dsub": torch.ones(k, k // 32, device=cuda)})
+    got = gemm_quant.qmm_w4a8(x, qt)
+    xq, dx, _ = gemm_quant.quantize_activation(x)
+    scale = dx.repeat_interleave(32, dim=1)
+    codes = torch.where(scale > 0, torch.round(got / scale.clamp_min(1e-30)), torch.zeros_like(got))
+    torch.cuda.synchronize()
+    assert torch.equal(codes.to(torch.int8), xq)
+
+
+def test_f32_forms_raise_rather_than_fall_back(cuda):
+    """float32 x on bfloat16 scale planes, bfloat16 out of a float32 form,
+    and float16 x: each refused before any launch."""
+    bf = _weight(256, 512, 1)
+    f32 = _f32_weight(GGMLType.Q4_K, 256, 512, 1)
+    x = _f32_x(32, 512, 1)
+    before = dict(_build.launches)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k(x, bf)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k(x, f32, torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:4], bf)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:4], f32, torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_w4a8(x[:4].to(torch.bfloat16), f32)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q4k(x.half(), f32)
+    assert dict(_build.launches) == before
+
+
+def test_f32_qmm_w8_rounds_x_to_bfloat16(cuda):
+    """qmm_w8 on float32 x: the bfloat16 kernel on x rounded once, as the
+    JAX package rounds it; bit for bit the call on the rounded x."""
+    qt = _w8_weight(256, 1024, 3)
+    x = _f32_x(300, 1024, 3)
+    got = gemm_quant.qmm_w8(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gemm_quant.qmm_w8(x.to(torch.bfloat16), qt))
+
+
+_MIXED = [("f32", "f32"), ("f32", "bf16"), ("f32", "int8"), ("bf16", "f32")]
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 100)])
+@pytest.mark.parametrize("T,G", [(1, 2), (4, 2), (2, 8)])
+@pytest.mark.parametrize("hd", [256, 128, 96])
+@pytest.mark.parametrize("q,kv", _MIXED, ids=[f"{q}-{kv}" for q, kv in _MIXED])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_float32_and_mixed_match_plain(cuda, form, q, kv, hd, T, G, softcap,
+                                                    window):
+    """Every decode form with float32 q at head dim 256 (one tile for K and
+    then V), 128 and 96, over a float32, a bfloat16 or an int8 cache, and
+    bfloat16 q over a float32 cache (computed in float32, as the JAX kernel
+    does); prefixes on both sides of chunk edges and the cache's last
+    position; every row no query may see NaN. Tolerance 1e-4 of max|out|
+    for a float32 output (fast exp, another order of sums), 2^-7 for a
+    bfloat16 one (one rounding of the output)."""
+    qdt = torch.float32 if q == "f32" else torch.bfloat16
+    pages = 33 if hd == 256 else 9
+    pos = (*_POS_256, pages * PAGE - T) if hd == 256 else None
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, G, seed=hd + T * 10 + G, softcap=softcap,
+                                    window=window, pos=pos, poison=True, hd=hd,
+                                    n_slot_pages=pages, q_dtype=qdt)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert got.dtype == qdt and torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if q == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_float32_hd256_are_deterministic_and_replay(cuda, form, kv):
+    """Float32 q at head dim 256 over each cache: two calls give the same
+    bits, and a captured graph replays at other positions bit for bit."""
+    one, _, _ = _decode_case(form, kv, 4, 2, seed=3, window=100, hd=256, pos=(0, 129, 700, 1000),
+                             q_dtype=torch.float32)
+    two, _, _ = _decode_case(form, kv, 4, 2, seed=3, window=100, hd=256, pos=(0, 129, 700, 1000),
+                             q_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _replay_case(cuda, form, kv, 256, 2, softcap=50.0, window=300, q_dtype=torch.float32)

@@ -81,8 +81,9 @@ def test_warps_take_disjoint_superblocks_in_order(rows, m, k, planes):
 def test_plan_is_a_function_of_shapes_alone():
     """Same shapes, same plan; the plan takes ints only (no tensor, so no
     value on the device is read; the scheme is an int enum), is immutable
-    and hashable."""
-    assert list(inspect.signature(w4a8_plan).parameters) == ["rows", "m", "k", "planes", "kind"]
+    and hashable; `f32` (the float32 form) is a bool."""
+    assert list(inspect.signature(w4a8_plan).parameters) == ["rows", "m", "k", "planes", "kind",
+                                                            "f32"]
     for rows, m, k, planes in CASES:
         a, b = w4a8_plan(rows, m, k, planes), w4a8_plan(rows, m, k, planes)
         assert a == b and hash(a) == hash(b)
