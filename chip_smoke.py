@@ -100,7 +100,7 @@ fails:
 10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K, Q5_0, Q4_1, Q5_1 and Q8_1, and
    llama.cpp's mixed and legacy layouts: phase 3 for each scheme and for a
    2-layer Q4_K_M file (2 layers, card against CPU), then the 7B widths,
-   each cut to 8 of 32 layers, with every
+   each cut to 4 of 32 layers (the imatrix Q5_0 file to 8), with every
    matrix in Q8_0 (`7b-q8_0`), in Q6_K (`7b-q6_k`), as a Q5_K_M file
    (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down in Q6_K where
    use_more_bits holds, a Q6_K output), in Q4_0 (`7b-q4_0`), as a Q3_K_M
@@ -181,10 +181,29 @@ fails:
    the int8-activation form at 1, 8 and 16 rows) and the decode forms in
    float32 at head dim 256 and over a cache of another dtype against their
    plain versions.
+15. float32 mixtures of experts and head dim 16: each Mixtral file
+   of phase 9's other layouts also runs its forward on the card in float32
+   (the grouped float32 form of every expert kind, the float32 plane
+   forms) against a float32 CPU run, and reports how many of its tokens the
+   card's bfloat16 run keeps within 5e-2 of its float32 one. Then
+   `mixtral-q4_k_m-f32`: Mixtral-8x7B's widths in llama.cpp's 8-expert
+   Q4_K_M layout at 2 of 32 layers in float32 over a bfloat16 cache: the
+   card-against-CPU float32 forward; `Runner(compute_dtype=torch.float32,
+   kv_dtype=torch.bfloat16, prefill_w8=False)` on the ~700-token prompt
+   (the grouped float32 Q4_K and Q6_K forms) and 32 greedy tokens graphed
+   at tick 1 and 8 and eagerly, identical; the same file with the W8 planes
+   (the grouped W8 form on x rounded to bfloat16) in turns with it; the
+   16-request drain with a float32 pool, pages back. Then `hf_goldens`: the
+   four committed HF fixtures (tests/fixtures/, head dim 16) on the card in
+   float32 through the Runner, the 16-token prompt and the decode step
+   captured in a graph against transformers' logits at 5e-4, and both
+   engines' greedy tokens equal to the Runner's. Phase 2 holds the eight
+   grouped float32 forms at the Mixtral shapes and flash at head dim 16 in
+   both dtypes against their plain versions.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10, 11, 12, 13 and 14 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -331,6 +350,17 @@ def _f32_forms() -> dict:
 
 
 KERNEL_SOURCES.update(_f32_forms())
+# the float32 grouped forms (csrc/qmm_f32.cu's grouped entries, counted as
+# `<form>_grouped.f32`): Q4_K's and Q6_K's on the prefill of mixtral-q4_k_m-f32
+# without W8 planes, the others in the float32 forward on the card of their
+# Mixtral file (phase_moe_scheme's `<what>-forward`)
+F32_GROUPED_PATH_OF = {"q4_k": "mixtral-q4_k_m-f32", "q6_k": "mixtral-q4_k_m-f32",
+                       "q5_k": "mixtral-q5_k_m-forward", "q3_k": "mixtral-q2_k-forward",
+                       "q2_k": "mixtral-q2_k-forward", "q8_0": "mixtral-q8_0-forward",
+                       "q4_0": "mixtral-q4_0-forward", "q5_0": "mixtral-q5_0-forward"}
+KERNEL_SOURCES.update({f"qmm_{_FORM[scheme]}_grouped.f32": (
+    "crabml_tpu_torch/csrc/qmm_f32.cu", "crabml_tpu/ops/pallas/gemm_quant.py:836", path)
+    for scheme, path in F32_GROUPED_PATH_OF.items()})
 # the Mixtral paths of the other layouts, 1 of 32 layers each (cut from 2 for the
 # script's time: one layer runs every form of the file's kinds): (name, scheme,
 # mix, seed): llama.cpp's Q5_K_M (Q5_K gate|up, Q6_K down: use_more_bits holds in
@@ -350,14 +380,16 @@ MOE_PROFILED = ("mixtral-q5_0",)
 # k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output),
 # 7b-q3_k_m its Q3_K_M layout (--scheme q3_k --mix k_m) and 7b-q2_k its Q2_K
 # file type (--mix q2_k)
-# (all six at 8 layers, to pay for the Mixtral paths of the experts' forms);
+# (at 4 layers, 8 before the float32 Mixtral paths joined, for time; a
+# _K_M layout keeps Q6_K layers at 4: use_more_bits holds in layers 2 and 3);
 # 7b-q5_0 is llama.cpp's Q5_0 file type made with an importance matrix (--mix
-# imatrix: Q5_0 matrices, layer 0's ffn_down in Q5_1, a Q6_K output) and
-# 7b-q4_1 its Q4_1 file type (--mix legacy: Q4_1 matrices, a Q6_K output)
-SCHEME_PATHS = (("7b-q8_0", "q8_0", 8, 61, None), ("7b-q6_k", "q6_k", 8, 62, None),
-                ("7b-q5_k_m", "q5_k", 8, 63, "k_m"), ("7b-q4_0", "q4_0", 8, 64, None),
-                ("7b-q3_k_m", "q3_k", 8, 65, "k_m"), ("7b-q2_k", "q2_k", 8, 66, "q2_k"),
-                ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 8, 68, "legacy"))
+# imatrix: Q5_0 matrices, layer 0's ffn_down in Q5_1, a Q6_K output: 8 layers,
+# since the imatrix rule puts Q5_1 in layers i < n / 8) and 7b-q4_1 its Q4_1
+# file type (--mix legacy: Q4_1 matrices, a Q6_K output)
+SCHEME_PATHS = (("7b-q8_0", "q8_0", 4, 61, None), ("7b-q6_k", "q6_k", 4, 62, None),
+                ("7b-q5_k_m", "q5_k", 4, 63, "k_m"), ("7b-q4_0", "q4_0", 4, 64, None),
+                ("7b-q3_k_m", "q3_k", 4, 65, "k_m"), ("7b-q2_k", "q2_k", 4, 66, "q2_k"),
+                ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 4, 68, "legacy"))
 # the schemes of phase kernels' checks (each with forms of its own) and of
 # the 2-layer forward checks (with the schemes that run the Q4_K, Q5_K and
 # Q8_0 forms, REUSED_SCHEMES, whose kernel checks are those forms on their
@@ -429,6 +461,12 @@ PHI_ATTN = {"phi3-mini": (P3_HEADS, P3_HEADS, P3_HD, CTX),
 PHI_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
                "qmm_w4a8_q5k", "qmm_w4a8_q6k")
 Q3_VOCAB = 151936  # Qwen3-8B's lm_head rows
+# the committed HF fixtures (tests/fixtures/<family>-tiny-f32.gguf, transformers' logits in
+# <family>-tiny-golden.npz): 4 q heads over 2 kv heads of head dim 16, context 128
+HF_FAMILIES = ("gemma2", "qwen3", "phi3", "mixtral")
+HF_ATTN = (4, 2, 16, 128)
+HF_TOL = 5e-4  # tests/test_family_goldens.py's rtol = atol
+HF_STEPS = 8  # greedy tokens of each engine request, held to the Runner's
 FAMILY_STEPS = 32
 # qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
 # every projection of the 7B decode step at one row and at the 8-slot tick's
@@ -770,7 +808,7 @@ GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
 def scheme_stack(scheme: str, E: int, m: int, k: int, seed: int, w8: bool = False):
     """A random stack (E, m, k) of distinct `scheme` experts (tools/
     synth_gguf.py's blocks, each block's scales varied) in kernel layout,
-    bf16 scales."""
+    bf16 scales (`float32_scales` turns them to float32)."""
     import numpy as np
     import torch
 
@@ -790,10 +828,25 @@ def q4k_stack(E: int, m: int, k: int, seed: int, w8: bool):
     return scheme_stack("q4_k", E, m, k, seed, w8)
 
 
-def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
+def float32_scales(qt):
+    """`qt` with its dsub / msub planes in float32, as the Runner loads a
+    weight under float32 compute (the same values: a bfloat16 scale is exact
+    in float32)."""
+    from crabml_tpu_torch.quant.qtensor import QTensor
+
+    return QTensor(qt.kind, qt.shape, {n: t.float() if n in ("dsub", "msub") else t
+                                       for n, t in qt.planes.items()})
+
+
+def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None,
+                  f32: bool = False) -> dict:
     """qmm_w8_grouped, or a scheme's grouped dequant form (qmm_q4k_grouped,
     qmm_q6k_grouped, ... on the stack `qt`), on 1,024 sorted pairs. The bound
-    counts the planes of the experts that have rows, read once."""
+    counts the planes of the experts that have rows, read once. `f32`: the
+    float32 form (csrc/qmm_f32.cu) on float32 x and `qt` with float32 scale
+    planes, float32 out, held at check_f32_matmul's 1e-5 and bound by
+    operations at 67 TFLOP/s; the library yardstick is float32 torch.matmul
+    (TF32 off) per segment."""
     import numpy as np
     import torch
 
@@ -807,7 +860,9 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
     cuts = np.concatenate([[0], np.cumsum(GROUPED_COUNTS)])
     offsets = torch.tensor(cuts, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
-    xs = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    xs = torch.randn(rows, k, generator=g, device="cuda")
+    if not f32:
+        xs = xs.to(torch.bfloat16)
     p = qt.planes
     wrapper = getattr(gemm_quant, name)
     if w8:
@@ -817,22 +872,29 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None) -> dict:
         names = tuple(gemm_quant._KERNEL_PLANES[FORM_KIND[qt.kind]])
         plain_fn = getattr(gemm_quant, f"{name}_plain")
         plain = lambda: plain_fn(xs, *(p[n] for n in names), offsets)  # noqa: E731
-        why = "the same bf16 weights, float32 sums in another order"
-    w_bf16 = dequantize(qt, torch.bfloat16)
+        why = f"the same {'float32' if f32 else 'bf16'} weights, float32 sums in another order"
+    w = dequantize(qt) if f32 else dequantize(qt, torch.bfloat16)
     segs = [(e, int(lo), int(hi)) for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])) if hi > lo]
 
     def library():  # a loop of torch.matmul over the experts' segments
-        return torch.cat([torch.matmul(xs[lo:hi], w_bf16[e].t()) for e, lo, hi in segs])
+        return torch.cat([torch.matmul(xs[lo:hi], w[e].t()) for e, lo, hi in segs])
 
     used = [e for e, _, _ in segs]
-    rec = _matmul_record(
-        timer, name,
-        f"{_on_planes(qt)}{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T",
-        lambda: wrapper(xs, qt, offsets, torch.bfloat16), plain, library,
-        "torch.matmul(bf16) per segment", wrapper(xs, qt, offsets), plain(),
-        wrapper(xs, qt, offsets, torch.bfloat16), 1e-4, why,
-        xs.numel() * 2 + _plane_bytes(qt, names, used) + rows * m * 2, 2.0 * rows * m * k, "bf16")
-    del w_bf16
+    shape = f"{_on_planes(qt)}{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T"
+    if f32:
+        rec = _matmul_record(
+            timer, f"{name}.f32", shape + " float32", lambda: wrapper(xs, qt, offsets), plain,
+            library, "torch.matmul(f32, TF32 off) per segment", wrapper(xs, qt, offsets), plain(),
+            None, 1e-5, why, xs.numel() * 4 + _plane_bytes(qt, names, used) + rows * m * 4,
+            2.0 * rows * m * k, "f32")
+    else:
+        rec = _matmul_record(
+            timer, name, shape, lambda: wrapper(xs, qt, offsets, torch.bfloat16), plain, library,
+            "torch.matmul(bf16) per segment", wrapper(xs, qt, offsets), plain(),
+            wrapper(xs, qt, offsets, torch.bfloat16), 1e-4, why,
+            xs.numel() * 2 + _plane_bytes(qt, names, used) + rows * m * 2, 2.0 * rows * m * k,
+            "bf16")
+    del w
     return rec
 
 
@@ -1290,6 +1352,24 @@ def f32_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def hd16_attention_checks(timer) -> dict[str, list[dict]]:
+    """Flash at head dim 16 (the committed HF fixtures), in bfloat16 and in
+    float32: the fixtures' shapes (B=1, 4 q heads over 2 kv heads, their
+    128-row context: the 16-token prompt at pos 0 and the decode step's one
+    token at pos 15), and a 512-token chunk at pos 512 at the 7B's 32 / 8
+    heads, plain and with the window 256 and the softcap 50."""
+    checks: dict[str, list[dict]] = {"flash_attention": []}
+    for i, dtype in enumerate(("bf16", "f32")):
+        seed = 400 + 10 * i
+        for j, (T, pos, cap, win, dims) in enumerate((
+                (16, 0, 0.0, 0, HF_ATTN), (1, 15, 0.0, 0, HF_ATTN),
+                (PREFILL_CHUNK, PREFILL_CHUNK, 0.0, 0, (HEADS, KV_HEADS, 16, CTX)),
+                (PREFILL_CHUNK, PREFILL_CHUNK, 50.0, 256, (HEADS, KV_HEADS, 16, CTX)))):
+            checks["flash_attention"].append(check_attention(
+                timer, "flash_attention", T, pos, seed + j, cap, win, dims=dims, dtype=dtype))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1331,6 +1411,8 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] += recs
     for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
         checks.setdefault(name, []).extend(recs)
+    for name, recs in hd16_attention_checks(timer).items():  # head dim 16, after those
+        checks[name] += recs
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
     checks["qmm_w8"] = [check_w8(timer, PREFILL_CHUNK, QKV_M, DIM, 40),
@@ -1340,6 +1422,15 @@ def phase_kernels() -> dict[str, list[dict]]:
     for name in ("qmm_q4k_grouped", "qmm_w8_grouped"):
         checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
                         check_grouped(timer, name, DIM, FFN, 43)]
+        torch.cuda.empty_cache()
+    # the float32 grouped forms at the same shapes: Q4_K's here, the other
+    # schemes' beside their bfloat16 forms below, on the same stacks with
+    # their scale planes in float32
+    for m, k, seed in ((2 * FFN, DIM, 42), (DIM, FFN, 43)):
+        qt = float32_scales(q4k_stack(MOE_EXPERTS, m, k, seed, False))
+        checks.setdefault("qmm_q4k_grouped.f32", []).append(
+            check_grouped(timer, "qmm_q4k_grouped", m, k, seed, qt, f32=True))
+        del qt
         torch.cuda.empty_cache()
     for rows, m, k, planes, seed in W4A8_SHAPES:
         if planes:
@@ -1355,6 +1446,8 @@ def phase_kernels() -> dict[str, list[dict]]:
             qt = scheme_stack(scheme, MOE_EXPERTS, m, k, seed)
             name = f"qmm_{_FORM[scheme]}_grouped"
             checks.setdefault(name, []).append(check_grouped(timer, name, m, k, seed, qt))
+            checks.setdefault(f"{name}.f32", []).append(
+                check_grouped(timer, name, m, k, seed, float32_scales(qt), f32=True))
             for rows in (1, SERVING_SLOTS):
                 name, rec = check_w4a8_planes(timer, rows, m, k, seed + rows, qt)
                 checks.setdefault(name, []).append(rec)
@@ -1423,7 +1516,8 @@ def phase_kernels() -> dict[str, list[dict]]:
 def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 16,
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
                   mix: str | None = None, path: str | None = None,
-                  cpu_dtype=None, card_weights=None, f32_card: bool = False) -> dict:
+                  cpu_dtype=None, card_weights=None, f32_card: bool = False,
+                  bf16_card: bool = True) -> dict:
     """`model` cut to 2 layers (or the layers of the file at `path`), every
     matrix in `scheme` (with `mix` "k_m",
     llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
@@ -1434,8 +1528,11 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     `card_weights`: its weights loaded on the card already, bfloat16 without
     W8 planes (a Runner's with prefill_w8=False). `f32_card`: the card also
     runs the forward in float32 (float32 scale planes and cache, the float32
-    forms), held to the CPU's float32 at F32_FORWARD_TOL; the record's
-    "launches" are that run's."""
+    forms), held to the CPU's float32 at F32_FORWARD_TOL (a float32 CPU run
+    of its own where `cpu_dtype` is bfloat16), and the share of tokens of the
+    card's bfloat16 run within 5e-2 of its float32 one is reported; the
+    record's "launches" are that run's. `bf16_card` False: no bfloat16 card
+    run (then `f32_card`)."""
     import numpy as np
     import torch
 
@@ -1456,10 +1553,14 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
 
     runs = {}
     cpu_dtype = cpu_dtype or torch.float32
-    sides = [(CARD, torch.bfloat16), ("cpu", cpu_dtype)] + ([("f32", torch.float32)] * f32_card)
+    sides = ([(CARD, torch.bfloat16)] * bf16_card + [("cpu", cpu_dtype)]
+             + [("f32", torch.float32)] * f32_card
+             + [("cpu32", torch.float32)] * (f32_card and cpu_dtype != torch.float32))
     f32_launches = {}
+    ref32 = "cpu32" if cpu_dtype != torch.float32 else "cpu"  # the float32 CPU side
+    routes, kept = {}, None  # the decode step's routing per side; the float32 CPU model
     for dev, dt in sides:
-        on = CARD if dev == "f32" else dev
+        on = {"f32": CARD, "cpu32": "cpu"}.get(dev, dev)
         w = card_weights if dev == CARD and card_weights is not None \
             else load_weights(gf, cfg, on, dt)
         if w8 and dev == CARD:
@@ -1468,12 +1569,16 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
         before = dict(_build.launches)
         outs = []
         for toks, p in ((tokens[:, :n_prompt], 0), (tokens[:, n_prompt:], n_prompt)):
-            logits = forward(w, cache, torch.from_numpy(toks).to(on), torch.tensor([p]), cfg, dt)
+            with _routing() as routes[dev]:
+                logits = forward(w, cache, torch.from_numpy(toks).to(on), torch.tensor([p]), cfg,
+                                 dt)
             outs.append(logits.float().cpu())
         if dev == "f32":
             f32_launches = {k: n - before.get(k, 0) for k, n in _build.launches.items()
                             if n != before.get(k, 0)}
         runs[dev] = outs
+        if f32_card and cfg.n_experts and dev == ref32:
+            kept = (w, cache)
         del w, cache
     torch.cuda.empty_cache()
     # bfloat16 weights, activations and cache against float32 through two
@@ -1491,7 +1596,7 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
     rec = {"tolerance": f"max|card - cpu| <= {tol} * max|cpu| for {min_share:.0%} of the tokens "
                         f"({against}" + ("; W8 planes on the card only)" if w8 else ")")}
     ok = True
-    for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step")):
+    for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step") if bf16_card else ()):
         card, cpu = runs[CARD][i], runs["cpu"][i]
         finite = bool(torch.isfinite(card).all())
         per_token = (card - cpu).abs().amax(dim=-1).reshape(-1) / cpu.abs().max()
@@ -1517,21 +1622,111 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                          "both; the decode step's int8 codes may round otherwise at an edge)",
             "launches": f32_launches}
         for i, what in enumerate((f"prefill {n_prompt} tokens", "decode step")):
-            card, cpu = runs["f32"][i], runs["cpu"][i]
+            card, cpu = runs["f32"][i], runs[ref32][i]
             rel = ((card - cpu).abs().max() / cpu.abs().max()).item()
             good = bool(torch.isfinite(card).all()) \
                 and rel <= F32_FORWARD_TOL["decode step" if i else "prefill"]
             f32[what] = {"rel_err": rel, "ok": good}
+            if i and kept is not None and not good:
+                # a mixture of experts: the step taken with the card's experts where the
+                # CPU's own routing lies within a near tie (_rerouted)
+                f32[what]["rerouted"] = rr = _rerouted(kept, cfg, tokens[:, n_prompt:], n_prompt,
+                                                       routes["f32"], routes[ref32], card)
+                good = rr["ok"]
+                f32[what]["ok"] = good
+                say(f"forward {model} widths, {scheme}, float32 decode step: experts differ "
+                    f"in {rr['layers']}; {rr['why']}")
+            if bf16_card:  # how far bfloat16 itself moves this file's tokens, on the card
+                per = (runs[CARD][i] - card).abs().amax(dim=-1).reshape(-1) / card.abs().max()
+                f32[what]["card_bf16_share_within_5e-2"] = (per <= 5e-2).float().mean().item()
             ok &= good
             say(f"forward {model} widths, {scheme}{' ' + mix if mix else ''}, float32 on the "
                 f"card against the CPU, {what}: rel err {rel:.3e} ({f32['tolerance']}) "
-                f"{'ok' if good else 'FAILED'}")
+                f"{'ok' if good else 'FAILED'}"
+                + (" (held with the card's experts, above)" if "rerouted" in f32[what] else "")
+                + (f"; the card's bfloat16 run within 5e-2 of its float32 one on "
+                   f"{f32[what]['card_bf16_share_within_5e-2']:.1%} of the tokens"
+                   if bf16_card else ""))
         rec["launches"] = f32_launches
         say(f"forward {model} float32 launches: {f32_launches}")
     rec["ok"] = ok
     if own:
         os.remove(path)
     return rec
+
+
+class _routing:
+    """Records, as a list, each call of models.forward.moe_route in the
+    block: (the experts it chose (R, K), its float32 router logits (R, E))."""
+
+    def __enter__(self):
+        from crabml_tpu_torch.models import forward as fmod
+
+        self.orig, calls = fmod.moe_route, []
+
+        def recorded(lw, h, cfg):
+            topi, topw = self.orig(lw, h, cfg)
+            calls.append((topi, (h @ lw["ffn_gate_inp"].t()).float()))
+            return topi, topw
+
+        fmod.moe_route = recorded
+        return calls
+
+    def __exit__(self, *exc):
+        from crabml_tpu_torch.models import forward as fmod
+
+        fmod.moe_route = self.orig
+
+
+def _rerouted(kept, cfg, toks, pos: int, card_routes, cpu_routes, card) -> dict:
+    """A mixture of experts' float32 decode step off the CPU's by more than
+    F32_FORWARD_TOL: the step's int8 activation codes round otherwise at an
+    edge on the two sides, which moves the next layer's router
+    logits by up to ~1e-2, and where two experts' logits lie closer than
+    that the card may route the token to the other one, a discrete step.
+    Held to its cause: every layer whose experts differ must be such a near
+    tie (the CPU's logit of each expert only the card chose lies within the
+    two sides' largest router-logit difference of that layer below the
+    CPU's logit of each expert only it chose), and the CPU's step taken with
+    the card's experts in every layer (their weights from the CPU's own
+    logits) must be within the tolerance."""
+    import torch
+
+    from crabml_tpu_torch.models import forward as fmod
+
+    tol = F32_FORWARD_TOL["decode step"]
+    layers, ties = [], True
+    for l, ((ti_c, lg_c), (ti_p, lg_p)) in enumerate(zip(card_routes, cpu_routes)):
+        c, p = set(ti_c[0].tolist()), set(ti_p[0].tolist())
+        if c == p:
+            continue
+        diff = (lg_c.cpu() - lg_p).abs().max().item()
+        row = lg_p[0]
+        gap = min(row[e].item() for e in p - c) - max(row[e].item() for e in c - p)
+        layers.append({"layer": l, "card": sorted(c), "cpu": sorted(p), "cpu_logit_gap": gap,
+                       "router_logit_diff": diff})
+        ties &= gap <= diff
+    forced = iter([ti.cpu() for ti, _ in card_routes])
+
+    def route(lw, h, cfg):
+        topi = next(forced)
+        logits = (h @ lw["ffn_gate_inp"].t()).float()
+        return topi, torch.softmax(torch.gather(logits, 1, topi), dim=-1)
+
+    w, cache = kept
+    orig, fmod.moe_route = fmod.moe_route, route
+    try:
+        again = fmod.forward(w, cache, torch.from_numpy(toks), torch.tensor([pos]), cfg,
+                             torch.float32).float()
+    finally:
+        fmod.moe_route = orig
+    rel = ((card - again).abs().max() / again.abs().max()).item()
+    ok = bool(layers) and ties and rel <= tol
+    why = (f"each a near tie: {ties} ({[(d['cpu_logit_gap'], d['router_logit_diff']) for d in layers]}"
+           f" as (the CPU's logit gap, the router logits' card-vs-CPU difference)); the CPU's "
+           f"step with the card's experts: rel err {rel:.3e} (<= {tol}) {'ok' if ok else 'FAILED'}")
+    return {"layers": layers, "near_ties": ties, "rel_err_card_experts": rel, "ok": ok,
+            "why": why}
 
 
 # ---------------------------------------------------------------------------
@@ -2519,7 +2714,8 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
     matrix in `scheme` (with a `mix`, llama.cpp's 8-expert layout over it):
     the card-against-CPU forward on the file (phase 3, both sides bfloat16;
     the card without W8 planes, so its prefill takes the grouped dequant
-    forms and its decode step the plane forms); `Runner(path)` with the W8 planes (its default,
+    forms and its decode step the plane forms; and the card in float32
+    against the CPU in float32, the float32 forms); `Runner(path)` with the W8 planes (its default,
     or asked for under the default's 1 GiB floor), the ~700-token prompt and
     MOE_SCHEME_STEPS greedy tokens through the graph (the capture, then the
     cached graph) and the eager step, all identical; the same file with
@@ -2551,7 +2747,7 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
     plain = Runner(path, prefill_w8=False)  # the card side here, the dequant prefill below
     fwd = phase_forward(tmp, "mixtral-8x7b", seed=seed, n_prompt=100, min_share=0.9,
                         scheme=scheme, mix=mix, path=path, cpu_dtype=torch.bfloat16,
-                        card_weights=plain.weights)
+                        card_weights=plain.weights, f32_card=True)
     w8_default = size >= 1 << 30
     runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
     mats = [q for lw in runner.weights["layers"] for q in lw.values() if hasattr(q, "planes")]
@@ -3025,30 +3221,32 @@ def phase_graphed_forward(tmp: Path, model: str, seed: int) -> dict:
     return rec
 
 
-def _f32_runs(runner, prompt: str, what: str, kernels: tuple[str, ...]) -> dict:
-    """The float32 Runner's path: the prompt and DECODE_STEPS greedy tokens
+def _f32_runs(runner, prompt: str, what: str, kernels: tuple[str, ...],
+              steps: int = DECODE_STEPS) -> dict:
+    """The float32 Runner's path: the prompt and `steps` greedy tokens
     graphed at tick 1 (the capture, then the cached graph), at tick 8 and
     eagerly, all the same;
     `kernels` each launched, no bfloat16 matmul form launched (no form whose
-    counter lacks "f32" but for qmm_w8, which takes float32 x rounded to
-    bfloat16), no matmul through torch.matmul, a finite cache."""
+    counter lacks "f32" but for qmm_w8 and qmm_w8_grouped, which take
+    float32 x rounded to bfloat16), no matmul through torch.matmul, a finite
+    cache."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import _build
 
     _build.launches.clear()  # counts from here on are this path's
     with DenseMatmuls() as dense:
-        capture = _one_run(runner, prompt, _build.launches)
+        capture = _one_run(runner, prompt, _build.launches, steps=steps)
         launches = dict(_build.launches)
-        graphed = _one_run(runner, prompt, _build.launches)  # replays the cached graph
-        tick8 = _one_run(runner, prompt, _build.launches, 8)
-        eager = _one_run(runner, prompt, _build.launches, "eager")
+        graphed = _one_run(runner, prompt, _build.launches, steps=steps)  # the cached graph
+        tick8 = _one_run(runner, prompt, _build.launches, 8, steps)
+        eager = _one_run(runner, prompt, _build.launches, "eager", steps)
     if dense.calls:
         fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights")
     if not capture["tokens"] == graphed["tokens"] == tick8["tokens"] == eager["tokens"]:
         fail(f"{what}: the graphed decode (tick 1, tick 8) and the eager step gave other tokens")
-    if len(capture["tokens"]) != DECODE_STEPS:
-        fail(f"{what}: generated {len(capture['tokens'])} tokens, expected {DECODE_STEPS}")
+    if len(capture["tokens"]) != steps:
+        fail(f"{what}: generated {len(capture['tokens'])} tokens, expected {steps}")
     n = capture["end_pos"]
     if not bool(torch.isfinite(runner.cache.k[:, :, :, :n].float()).all()
                 and torch.isfinite(runner.cache.v[:, :, :, :n].float()).all()):
@@ -3057,7 +3255,7 @@ def _f32_runs(runner, prompt: str, what: str, kernels: tuple[str, ...]) -> dict:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the {what} path")
     bf16_forms = sorted(k for k in launches if k.startswith("qmm") and "f32" not in k
-                        and k != "qmm_w8")
+                        and k not in ("qmm_w8", "qmm_w8_grouped"))
     if bf16_forms:
         fail(f"{what}: float32 compute launched bfloat16 matmul forms {bf16_forms}")
     bound_port, bound_gguf = _decode_bound(runner, n)
@@ -3069,7 +3267,7 @@ def _f32_runs(runner, prompt: str, what: str, kernels: tuple[str, ...]) -> dict:
             f"{r['decoded_steps']} steps to pos {r['end_pos']} {r['decode_tok_s']:.2f} tok/s = "
             f"{r['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.3f} ms port layout, "
             f"{bound_gguf:.3f} ms GGUF bytes, the live KV included)")
-    say(f"{what} path: {DECODE_STEPS} greedy tokens of the graphed runs at tick 1 and 8 equal "
+    say(f"{what} path: {steps} greedy tokens of the graphed runs at tick 1 and 8 equal "
         f"to the eager step's, KV cache {runner.cache.k.dtype}, launches {launches}")
     return {
         "kv_dtype": str(runner.cache.k.dtype), "prefill_w8": runner.prefill_w8,
@@ -3198,6 +3396,187 @@ def phase_gemma2_f32(path: str) -> dict:
     del runner
     torch.cuda.empty_cache()
     return rec
+
+
+MOE_F32_LAYERS = 2  # of Mixtral-8x7B's 32: layer 0's down experts Q4_K, layer 1's Q6_K
+MOE_F32_STEPS = 32
+MOE_F32_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_q4k_grouped.f32",
+                   "qmm_q6k_grouped.f32", "qmm_w4a8.planes.f32", "qmm_w4a8_q6k.planes.f32",
+                   "qmm_q4k_f32", "qmm_q8_0_f32", "qmm_q5k_f32", "qmm_w4a8.f32",
+                   "qmm_w4a8_q8_0.f32", "qmm_w4a8_q5k.f32", "qmm_w4a8_q6k.f32")
+
+
+def phase_moe_f32(tmp: Path) -> dict:
+    """A float32 mixture of experts (`mixtral-q4_k_m-f32`): Mixtral-8x7B's
+    widths in llama.cpp's 8-expert Q4_K_M layout at MOE_F32_LAYERS of 32
+    layers, float32 compute over a bfloat16 cache. The card-against-CPU
+    float32 forward (phase_forward, float32 on both sides: 1e-4 on the
+    prefill, 5e-2 on the decode step); `Runner(compute_dtype=torch.float32,
+    kv_dtype=torch.bfloat16, prefill_w8=False)` on the ~700-token prompt
+    (its 512- and 189-token chunks through the grouped float32 forms of the
+    Q4_K and Q6_K experts) and MOE_F32_STEPS greedy tokens graphed at tick 1
+    and 8 and eagerly, identical (_f32_runs); the same file with
+    prefill_w8=True, whose prefill takes the grouped W8 form on x rounded to
+    bfloat16, in turns with the grouped float32 one; then the 16-request
+    drain of an 8-slot PagedServingEngine with a float32 pool, pages back."""
+    import torch
+
+    from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    what = "mixtral-q4_k_m-f32"
+    t0 = time.perf_counter()
+    path = build_synth_gguf(str(tmp / f"synth-{what}.gguf"), "mixtral-8x7b", seed=5,
+                            layers=MOE_F32_LAYERS, scheme="q4_k", mix="k_m")
+    synth_s = time.perf_counter() - t0
+    say(f"synthetic Mixtral-8x7B Q4_K_M GGUF, {MOE_F32_LAYERS} of 32 layers: "
+        f"{os.path.getsize(path) / 1e9:.3f} GB in {synth_s:.2f} s")
+    fwd = phase_forward(tmp, "mixtral-8x7b", seed=5, n_prompt=F32_FORWARD_PROMPT, path=path,
+                        f32_card=True, bf16_card=False)
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    runner = Runner(path, compute_dtype=torch.float32, kv_dtype=torch.bfloat16, prefill_w8=False)
+    layers = runner.weights["layers"]
+    down = [lw["ffn_down_exps"].kind for lw in layers]
+    if down != [GGMLType.Q4_K, GGMLType.Q6_K] or layers[0]["wgu_exps"].kind != GGMLType.Q4_K:
+        fail(f"{what}: gate|up {layers[0]['wgu_exps'].kind.name}, down {[k.name for k in down]}")
+    if any(t.dtype != torch.float32 for lw in layers for n in ("wgu_exps", "ffn_down_exps")
+           for pn, t in lw[n].planes.items() if pn in ("dsub", "msub")):
+        fail(f"{what}: an expert stack's scale planes are not float32")
+    load_s = runner.metrics.times_ns["load"] / 1e9  # before the runs reset the metrics
+    rec = _f32_runs(runner, prompt, what, MOE_F32_KERNELS, MOE_F32_STEPS)
+    rec.update(file=what, layers=MOE_F32_LAYERS, synth_s=synth_s, forward=fwd, load_s=load_s)
+
+    w8 = Runner(path, compute_dtype=torch.float32, kv_dtype=torch.bfloat16, prefill_w8=True)
+    _prefill_only(w8, prompt)  # warm
+    _build.launches.clear()
+    _prefill_only(w8, prompt)
+    w8_launches = {k: v for k, v in _build.launches.items() if k.startswith("qmm")}
+    if w8_launches.get("qmm_w8_grouped", 0) <= 0 or any(
+            k.startswith("qmm_") and k.endswith("_grouped.f32") for k in w8_launches):
+        fail(f"{what}: the W8 prefill launched {w8_launches}")
+    rec["prefill_w8_against_grouped_f32"] = _prefill_w8_against_q4k(path, w8, prompt, what,
+                                                                    runner)
+    rec["prefill_w8_launches"] = w8_launches
+    launches_f32 = rec["prefill_w8_against_grouped_f32"]["launches"]
+    if any(launches_f32.get(n, 0) <= 0 for n in ("qmm_q4k_grouped.f32", "qmm_q6k_grouped.f32")) \
+            or launches_f32.get("qmm_w8_grouped", 0):
+        fail(f"{what}: the prefill without W8 planes launched {launches_f32}")
+    del w8
+    torch.cuda.empty_cache()
+
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
+                             seed=7)
+    pages_at_start = eng.pages_free()
+    _build.launches.clear()
+    serving = _drain(eng, _serving_requests(runner, seed=31))
+    serving["launches"] = dict(_build.launches)
+    serving["launches_per_tick"] = {k: v / eng.steps for k, v in serving["launches"].items()}
+    _say_run(f"serving, {what}, 8 slots, 256-page float32 pool", serving)
+    if eng.cache.k.dtype != torch.float32 or eng.pages_free() != pages_at_start \
+            or any(eng._owned):
+        fail(f"{what} serving: pool {eng.cache.k.dtype}, pages_free {eng.pages_free()} after "
+             f"the run, {pages_at_start} before")
+    for name in ("paged_decode_attention_fused", "qmm_w4a8.planes.f32", "qmm_q4k_grouped.f32"):
+        if serving["launches"].get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} serving path")
+    rec["serving"] = serving
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del eng, runner
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hf_goldens() -> dict:
+    """The four committed HF fixtures (tests/fixtures/<family>-tiny-f32.gguf,
+    head dim 16, F32 weights; mixtral's a mixture of experts) on the card in
+    float32 through `Runner(path, compute_dtype=torch.float32)`: the golden's
+    16-token prompt at once (flash at hd 16) against transformers' logits
+    (<family>-tiny-golden.npz) at rtol = atol = HF_TOL; 15 tokens, then the
+    16th through the decode step captured in a CUDA graph (flash over the
+    cache, masked by pos on the device) against the last row; then the
+    Runner's greedy tokens on three prompts (graphed decode) equal to those
+    of a PagedServingEngine (its tick through flash over the pages gathered
+    through the block table) and of a ServingEngine, each of two slots."""
+    import numpy as np
+    import torch
+
+    from crabml_tpu_torch.models.forward import decode_step, forward
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.generate import StepGraph
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    fixtures = ROOT / "tests" / "fixtures"
+    prompts = ["hello world", "a b c d e f g h i j k l m n o p q r s t", "x"]
+    out = {"tolerance": f"rtol = atol = {HF_TOL} (tests/test_family_goldens.py)"}
+    _build.launches.clear()  # counts from here on are this path's
+    for family in HF_FAMILIES:
+        gold = np.load(fixtures / f"{family}-tiny-golden.npz")
+        tokens, want = gold["tokens"].tolist(), gold["logits"]
+        runner = Runner(str(fixtures / f"{family}-tiny-f32.gguf"), compute_dtype=torch.float32)
+        cfg = runner.cfg
+        if cfg.head_dim != 16 or runner.device.type != "cuda":
+            fail(f"{family}: head dim {cfg.head_dim} on {runner.device}")
+        runner.reset()
+        whole = forward(runner.weights, runner.cache, torch.tensor([tokens], device=CARD),
+                        torch.tensor([0]), cfg, torch.float32)[0].cpu().numpy()
+        runner.reset()
+        runner._forward_tokens(tokens[:-1])
+        tok = torch.tensor([[tokens[-1]]], device=CARD)
+        pos = torch.tensor([len(tokens) - 1], dtype=torch.int32, device=CARD)
+        last = torch.empty(1, cfg.vocab_size, device=CARD)
+        graph = StepGraph(lambda g: last.copy_(decode_step(runner.weights, runner.cache, tok, pos,
+                                                           cfg, torch.float32)),
+                          torch.device(CARD))
+        graph.replay()
+        torch.cuda.synchronize()
+        step = last[0].cpu().numpy()
+        rec = {}
+        for what, got, ref in (("prompt", whole, want), ("graphed decode step", step, want[-1])):
+            err = float(np.abs(got - ref).max())
+            ok = bool(np.isfinite(got).all() and np.allclose(got, ref, rtol=HF_TOL, atol=HF_TOL))
+            rec[what] = {"max_abs_err": err, "ok": ok}
+            say(f"hf golden {family} ({what}, float32 on the card): max|err| {err:.3e} against "
+                f"transformers' logits (max|ref| {np.abs(ref).max():.3f}; {out['tolerance']}) "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                fail(f"hf golden {family}: the {what} is off transformers' logits by {err:.3e}")
+        del graph
+        greedy = []
+        for p in prompts:
+            runner.reset()
+            _, _, first = runner.prefill(p)
+            list(runner.generate(first, HF_STEPS))
+            greedy.append(list(runner.generated))
+        for name, eng in (("paged", PagedServingEngine(runner, n_slots=2, n_pages=8,
+                                                       seq_len=runner.seq_len)),
+                          ("dense", ServingEngine(runner, n_slots=2, seq_len=runner.seq_len))):
+            reqs = [eng.submit(Request(prompt=p, max_tokens=HF_STEPS)) for p in prompts]
+            eng.drain(max_steps=1000)
+            got = [list(r.output_tokens) for r in reqs]
+            if got != greedy:
+                fail(f"hf golden {family}: the {name} engine gave {got}, the Runner {greedy}")
+            if name == "paged" and eng.cache.k.dtype != torch.float32:
+                fail(f"hf golden {family}: the paged pool is {eng.cache.k.dtype}")
+            del eng
+        rec["engines_equal_runner"] = True
+        out[family] = rec
+        del runner
+        torch.cuda.empty_cache()
+    out["launches"] = dict(_build.launches)
+    if out["launches"].get("flash_attention", 0) <= 0 or any(
+            n in out["launches"] for n in ("decode_attention", "decode_attention_fused",
+                                           "paged_decode_attention",
+                                           "paged_decode_attention_fused")):
+        fail(f"hf goldens: launches {out['launches']} (head dim 16 takes flash only)")
+    say(f"hf goldens: the four fixtures within {HF_TOL} of transformers' logits on the card, "
+        f"whole and through the graphed decode step; both engines' greedy tokens the Runner's; "
+        f"launches {out['launches']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3381,6 +3760,12 @@ def main() -> int:
                 failures.append(f"{what} forward check")
             paths[what] = rec
             paths[f"{what}-dequant"] = rec["prefill_w8_against_dequant"]
+            paths[f"{what}-forward"] = rec["forward"]  # its float32 run's launches
+        moe_f32 = report["mixtral-q4_k_m-f32"] = timed("mixtral-q4_k_m-f32", phase_moe_f32, tmp)
+        if not moe_f32["forward"]["ok"]:
+            failures.append("mixtral-q4_k_m-f32 forward check")
+        paths["mixtral-q4_k_m-f32"] = moe_f32
+        paths["hf_goldens"] = report["hf_goldens"] = timed("hf_goldens", phase_hf_goldens)
         for i, scheme in enumerate(KERNEL_SCHEMES + REUSED_SCHEMES):
             # the schemes with forms of their own also run the card in float32
             own = scheme in KERNEL_SCHEMES

@@ -52,6 +52,15 @@
 // its own work (1.33x at 96, 1.6x at 80), while the bytes read stay HD's. A
 // native width (wgmma n96 and a 64-byte swizzle) would save that.
 //
+// Head dim 16 (the committed HF fixtures' tiny models) takes the hd-64
+// kernel's tiles the same way: a tile row is 64 elements (one 128-byte
+// swizzle block), two of its eight 16-byte chunks are copied, the score
+// product is one k16 step, which reads only those two chunks, and the P V
+// product's n64 lanes past 16 are never stored. Chosen over a native k16 /
+// n16 form because it keeps one set of swizzles, descriptors and fragment
+// layouts for every head dim; its P V costs 4x hd 16's own work, which at
+// these models' sizes is a few microseconds.
+//
 // float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
 // would round the inputs to TF32 or bf16 where the TPU kernel asks for full
 // precision. A block owns 64 rows, padded as above; Q, K and V tiles are
@@ -489,7 +498,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G is 1
-// to 64; hd is 64, 80, 96, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
+// to 64; hd is 16, 64, 80, 96, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
 // = no cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
@@ -498,12 +507,14 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
     cudaStream_t s = (cudaStream_t)stream;
 #define CRABML_FLASH(L, HD) L<HD>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
     if (dtype == 0) {
+        if (hd == 16) return CRABML_FLASH(launch_tc, 16);
         if (hd == 64) return CRABML_FLASH(launch_tc, 64);
         if (hd == 80) return CRABML_FLASH(launch_tc, 80);
         if (hd == 96) return CRABML_FLASH(launch_tc, 96);
         if (hd == 128) return CRABML_FLASH(launch_tc, 128);
         if (hd == 256) return CRABML_FLASH(launch_tc, 256);
     } else {
+        if (hd == 16) return CRABML_FLASH(launch_f32, 16);
         if (hd == 64) return CRABML_FLASH(launch_f32, 64);
         if (hd == 80) return CRABML_FLASH(launch_f32, 80);
         if (hd == 96) return CRABML_FLASH(launch_f32, 96);

@@ -1,13 +1,15 @@
 // qmm_f32: float32 activations x exactly dequantized float32 weights, the
 // dense dequant matmul of every weight source (Q4_K, Q5_K, Q4_0, Q5_0, Q8_0,
 // Q6_K, Q3_K, Q2_K; Q4_1, Q5_1 and Q8_1 run the Q4_K, Q5_K and Q8_0 forms on
-// their planes) under float32 compute.
+// their planes) under float32 compute, dense and grouped.
 //
 // Replaces crabml_tpu/ops/pallas/gemm_quant.py::_qmm_kernel at out_dtype
-// float32 (launcher _run, pallas_call at :680, reached through :974): there
-// the weight tile is dequantized in float32, val*dsub + msub (:155-166), and
-// the product taken at Precision.HIGHEST, so every weight is exact float32
-// and so is every product. out[r, n] = sum_k x[r, k] * w[n, k], float32 sums.
+// float32 (launcher _run, pallas_call at :680, reached through :974; and the
+// grouped launcher _run_grouped, pallas_call at :836, reached through
+// qmatmul_grouped :911): there the weight tile is dequantized in float32,
+// val*dsub + msub (:155-166), and the product taken at Precision.HIGHEST, so
+// every weight is exact float32 and so is every product. out[r, n] = sum_k
+// x[r, k] * w[n, k], float32 sums; grouped, w is the plane of row r's segment.
 //
 // Bound on the H100: operations. A 512-row chunk does 2 * 512 flops for
 // each weight it reads (0.6 bytes with float32 scales): far above the CUDA
@@ -28,7 +30,18 @@
 // differs. One stage, no double buffering: the first kernel that is right.
 // Rows past the real ones and columns past N are zero-filled and never
 // stored; K % 256 == 0.
+//
+// Grouped (the float32 mixture of experts' prefill): rows sorted by expert,
+// offsets (n_planes + 1) on the device. The 64-row tiles are numbered through
+// the segments by qmm_pipe.cuh's find_tile, as the bfloat16 grouped entries
+// number their 128-row ones, so a tile never straddles two experts, a ragged
+// segment ends in a short tile and an empty one has none; the host reads no
+// count, so a CUDA graph can capture the launch. A stack's planes are
+// (n_planes, N, ...) and every plane is indexed by the weight row, so the
+// tile's expert e reads its weights at rows e * N + n: the offset that the
+// bfloat16 sources' select_plane adds to each plane pointer.
 #include "common.cuh"
+#include "qmm_pipe.cuh"
 
 namespace {
 
@@ -149,17 +162,22 @@ struct Q2K {  // w = val*(d*sc) + -(dmin*mn), val 0..3; scm holds sc low, mn hig
     }
 };
 
+// offsets == nullptr: dense, tile t covers rows [64 t, M) of the one plane
 template <class S>
 __global__ void __launch_bounds__(NT)
-qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ out, int M, int N) {
+qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ out,
+               const int* __restrict__ offsets, int n_planes, int M, int N) {
     __shared__ __align__(16) float xs[BK][BM + 4];  // x's tile, k-major
     __shared__ __align__(16) float ws[BK][BN + 4];  // the weights' tile, k-major
+    qpipe::Tile tile;
+    if (!qpipe::find_tile<BM>(offsets, n_planes, M, blockIdx.y, tile)) return;
     const int K = p.K;
     const int tid = threadIdx.x;
-    const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+    const int row0 = tile.m0, row_end = min(tile.m0 + BM, tile.m_end), col0 = blockIdx.x * BN;
     const int tr = tid / 16, tc = tid % 16;  // rows 4 tr.., columns 4 tc.. and 64 + 4 tc..
     const int wn = tid >> 1, wh = tid & 1;   // the weights this thread dequantizes: column wn, k half wh
     const bool wok = col0 + wn < N;
+    const size_t wrow = (size_t)tile.plane * N + col0 + wn;  // its row of the stack's planes
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -171,7 +189,8 @@ qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ 
         for (int h = 0; h < 2; ++h) {  // 64 rows x 8 float4: two a thread
             const int idx = tid + h * NT, r = idx / 8, c4 = idx % 8 * 4;
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (row0 + r < M) v = *reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * K + kb + c4);
+            if (row0 + r < row_end)
+                v = *reinterpret_cast<const float4*>(x + (size_t)(row0 + r) * K + kb + c4);
             xs[c4][r] = v.x;
             xs[c4 + 1][r] = v.y;
             xs[c4 + 2][r] = v.z;
@@ -179,7 +198,7 @@ qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ 
         }
         float w[16];
         if (wok) {
-            S::dequant16(p, (size_t)(col0 + wn), kb + 16 * wh, w);
+            S::dequant16(p, wrow, kb + 16 * wh, w);
         } else {
 #pragma unroll
             for (int i = 0; i < 16; ++i) w[i] = 0.f;
@@ -204,7 +223,7 @@ qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int r = row0 + 4 * tr + i;
-        if (r >= M) continue;
+        if (r >= row_end) continue;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
             const int c = col0 + (j < 4 ? 4 * tc + j : 64 + 4 * tc + j - 4);
@@ -213,11 +232,16 @@ qmm_f32_kernel(const float* __restrict__ x, const Planes p, float* __restrict__ 
     }
 }
 
+// dense with offsets == nullptr, else grouped over n_planes segments
 template <class S>
-int run(const void* x, const Planes& p, void* out, int M, int N, void* stream) {
-    if (p.K % 256 != 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    qmm_f32_kernel<S><<<grid, NT, 0, (cudaStream_t)stream>>>((const float*)x, p, (float*)out, M, N);
+int run(const void* x, const Planes& p, void* out, int M, int N, void* stream,
+        const void* offsets = nullptr, int n_planes = 1) {
+    if (p.K % 256 != 0 || M <= 0 || N <= 0 || n_planes <= 0) return (int)cudaErrorInvalidValue;
+    const int tiles = offsets == nullptr ? qpipe::dense_tiles(M, BM)
+                                         : qpipe::grouped_tiles(M, n_planes, BM);
+    const dim3 grid((N + BN - 1) / BN, tiles);
+    qmm_f32_kernel<S><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const float*)x, p, (float*)out, (const int*)offsets, n_planes, M, N);
     return crabml_launch_status();
 }
 
@@ -268,4 +292,58 @@ extern "C" int qmm_q3k_f32(const void* x, const void* qs, const void* hb, const 
 extern "C" int qmm_q2k_f32(const void* x, const void* qs, const void* scm, const void* d,
                            const void* dmin, void* out, int M, int N, int K, void* stream) {
     return run<Q2K>(x, planes(qs, scm, nullptr, nullptr, nullptr, d, dmin, K), out, M, N, stream);
+}
+
+// The grouped entries: x (M, K) float32 rows sorted by plane, offsets
+// (n_planes + 1) int32 on the device with each plane's first row
+// (offsets[n_planes] == M), the planes of the form as stacks (n_planes, N,
+// ...) in the same order as the dense entry's, every dsub / msub float32; out
+// (M, N) float32. Every row of out is written: each lies in one segment.
+extern "C" int qmm_q4k_grouped_f32(const void* x, const void* qs, const void* dsub,
+                                   const void* msub, void* out, const void* offsets, int n_planes,
+                                   int M, int N, int K, void* stream) {
+    return run<Q4K>(x, planes(qs, nullptr, dsub, msub, nullptr, nullptr, nullptr, K), out, M, N,
+                    stream, offsets, n_planes);
+}
+extern "C" int qmm_q5k_grouped_f32(const void* x, const void* qs, const void* qh, const void* dsub,
+                                   const void* msub, void* out, const void* offsets, int n_planes,
+                                   int M, int N, int K, void* stream) {
+    return run<Q5K>(x, planes(qs, qh, dsub, msub, nullptr, nullptr, nullptr, K), out, M, N, stream,
+                    offsets, n_planes);
+}
+extern "C" int qmm_q4_0_grouped_f32(const void* x, const void* qs, const void* dsub, void* out,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    return run<Q40>(x, planes(qs, nullptr, dsub, nullptr, nullptr, nullptr, nullptr, K), out, M, N,
+                    stream, offsets, n_planes);
+}
+extern "C" int qmm_q5_0_grouped_f32(const void* x, const void* qs, const void* qh,
+                                    const void* dsub, void* out, const void* offsets, int n_planes,
+                                    int M, int N, int K, void* stream) {
+    return run<Q50>(x, planes(qs, qh, dsub, nullptr, nullptr, nullptr, nullptr, K), out, M, N,
+                    stream, offsets, n_planes);
+}
+extern "C" int qmm_q8_0_grouped_f32(const void* x, const void* qs, const void* dsub, void* out,
+                                    const void* offsets, int n_planes, int M, int N, int K,
+                                    void* stream) {
+    return run<Q80>(x, planes(qs, nullptr, dsub, nullptr, nullptr, nullptr, nullptr, K), out, M, N,
+                    stream, offsets, n_planes);
+}
+extern "C" int qmm_q6k_grouped_f32(const void* x, const void* ql, const void* qh, const void* dsub,
+                                   void* out, const void* offsets, int n_planes, int M, int N,
+                                   int K, void* stream) {
+    return run<Q6K>(x, planes(ql, qh, dsub, nullptr, nullptr, nullptr, nullptr, K), out, M, N,
+                    stream, offsets, n_planes);
+}
+extern "C" int qmm_q3k_grouped_f32(const void* x, const void* qs, const void* hb, const void* sc,
+                                   const void* d, void* out, const void* offsets, int n_planes,
+                                   int M, int N, int K, void* stream) {
+    return run<Q3K>(x, planes(qs, hb, nullptr, nullptr, sc, d, nullptr, K), out, M, N, stream,
+                    offsets, n_planes);
+}
+extern "C" int qmm_q2k_grouped_f32(const void* x, const void* qs, const void* scm, const void* d,
+                                   const void* dmin, void* out, const void* offsets, int n_planes,
+                                   int M, int N, int K, void* stream) {
+    return run<Q2K>(x, planes(qs, scm, nullptr, nullptr, nullptr, d, dmin, K), out, M, N, stream,
+                    offsets, n_planes);
 }

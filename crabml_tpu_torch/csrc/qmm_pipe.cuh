@@ -79,21 +79,24 @@ struct Tile {
     int plane;  // weight plane of these rows
 };
 
-// The t-th tile, or false when there are fewer tiles (the grouped grid is
-// sized for the worst case). The whole block takes the same branch.
+// The t-th tile of ROWS rows, or false when there are fewer tiles (the
+// grouped grid is sized for the worst case). The whole block takes the same
+// branch. ROWS is BX here; csrc/qmm_f32.cu walks the same segments in tiles
+// of its own 64 rows.
+template <int ROWS = BX>
 __device__ __forceinline__ bool find_tile(const int* __restrict__ offsets, int n_planes, int M,
                                           int t, Tile& tile) {
     if (offsets == nullptr) {
-        tile.m0 = t * BX;
+        tile.m0 = t * ROWS;
         tile.m_end = M;
         tile.plane = 0;
         return tile.m0 < M;
     }
     for (int e = 0; e < n_planes; ++e) {
         const int lo = offsets[e], hi = offsets[e + 1];
-        const int nt = (hi - lo + BX - 1) / BX;
+        const int nt = (hi - lo + ROWS - 1) / ROWS;
         if (t < nt) {
-            tile.m0 = lo + t * BX;
+            tile.m0 = lo + t * ROWS;
             tile.m_end = hi;
             tile.plane = e;
             return true;
@@ -103,9 +106,11 @@ __device__ __forceinline__ bool find_tile(const int* __restrict__ offsets, int n
     return false;
 }
 
-static inline int dense_tiles(int M) { return (M + BX - 1) / BX; }
+static inline int dense_tiles(int M, int rows = BX) { return (M + rows - 1) / rows; }
 // Tiles a grouped launch must provide for: every segment may end in a short one.
-static inline int grouped_tiles(int M, int n_planes) { return dense_tiles(M) + n_planes; }
+static inline int grouped_tiles(int M, int n_planes, int rows = BX) {
+    return dense_tiles(M, rows) + n_planes;
+}
 
 template <class W> __host__ __device__ constexpr int stage_bytes() { return X_BYTES + W::TILE_BYTES; }
 template <class W> __host__ __device__ constexpr int smem_bytes() {

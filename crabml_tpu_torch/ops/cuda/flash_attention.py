@@ -23,7 +23,8 @@ NEG_INF = -1e30
 # group, so at most 64 q heads a kv head; where G does not divide 64 the last
 # 64 % G rows are padding (G = 7: 9 tokens, 63 live rows)
 ROWS_PER_BLOCK = 64
-HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims the kernel takes (80, 96 on 128-wide tiles)
+# head dims the kernel takes (16 on 64-wide tiles, 80 and 96 on 128-wide ones)
+HEAD_DIMS = (16, 64, 80, 96, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,11 +35,12 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     the attention of `cfg` (a ModelConfig) in compute `dtype` is one its
     kernels do not take. Every prefill chunk of more than a few tokens, and
     every attention at a head dim the decode kernels do not take, goes to
-    this kernel, which takes head dims HEAD_DIMS and up to ROWS_PER_BLOCK q
-    heads per kv head (any count that divides the q heads: Qwen2-7B's 28
-    over 4 is 7); both take bfloat16 and float32 at each of their head dims,
-    over a cache of either (or int8). On the CPU every shape runs on the
-    plain versions. `check_card_model` calls it."""
+    this kernel, which takes head dims HEAD_DIMS (16, the committed HF
+    fixtures', 64, 80, 96, 128 and 256) and up to ROWS_PER_BLOCK q heads per
+    kv head (any count that divides the q heads: Qwen2-7B's 28 over 4 is
+    7); both take bfloat16 and float32 at each of their head dims, over a
+    cache of either (or int8). On the CPU every shape runs on the plain
+    versions. `check_card_model` calls it."""
     if torch.device(device).type != "cuda":
         return
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -58,18 +60,11 @@ def check_card_attention(cfg, device, dtype=None) -> None:
 
 def check_card_model(cfg, device, dtype) -> None:
     """What the card refuses of a model before any weight is read, with the
-    reason: its attention (`check_card_attention`), and in float32 a mixture
-    of experts, whose grouped matmuls take bfloat16 activations only (the
-    float32 forms of the grouped dequant kernel are not ported). The Runner
-    and both engines call it; it never falls back to a plain version, to
-    bfloat16 or to the CPU."""
+    reason: its attention (`check_card_attention`). Every matmul form runs
+    in bfloat16 and in float32, a mixture of experts' grouped forms included.
+    The Runner and both engines call it; it never falls back to a plain
+    version, to bfloat16 or to the CPU."""
     check_card_attention(cfg, device, dtype)
-    if torch.device(device).type != "cuda":
-        return
-    _build.require(not (dtype == torch.float32 and cfg.n_experts),
-                   f"a mixture of experts ({cfg.n_experts} experts) in float32: the card's grouped "
-                   "matmuls take bfloat16 only; pass compute_dtype=torch.bfloat16, or "
-                   "device='cpu' to run it on the CPU")
 
 
 def flash_attention_plain(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0,

@@ -39,12 +39,12 @@ tuned on a TPU v5e and stand until the card's own sweep sets them.
 Under float32 compute (x float32, the weights loaded with float32 dsub /
 msub planes) the dense dequant forms take csrc/qmm_f32.cu, an FFMA matmul
 on exactly dequantized float32 weights (the JAX kernel's out_dtype float32
-path, Precision.HIGHEST), counted as `<form>_f32`; qmm_w4a8 takes its `_f32`
-entries (float32 x into the quantizer, float32 scale planes), counted as
-`<form>[.planes].f32`; qmm_w8 rounds float32 x to bfloat16, as the JAX
-package does (gemm_quant.py:967). The grouped forms take bfloat16 only: the
-card refuses a float32 mixture of experts at load
-(flash_attention.check_card_model).
+path, Precision.HIGHEST), counted as `<form>_f32`, and so do the grouped
+dequant forms (the grouped entries of the same source, counted as
+`<form>_grouped.f32`); qmm_w4a8 takes its `_f32` entries (float32 x into the
+quantizer, float32 scale planes), counted as `<form>[.planes].f32`; qmm_w8
+and qmm_w8_grouped round float32 x to bfloat16 and write float32, as the JAX
+package does (gemm_quant.py:967, :896-903).
 
 On a CPU tensor each wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. It never falls back.
@@ -395,11 +395,16 @@ def qmm_q2k_grouped_plain(xs, qs, scm, d, dmin, offsets) -> torch.Tensor:
                           lambda r, e: qmm_q2k_plain(r, qs[e], scm[e], d[e], dmin[e]))
 
 
-def _lib_dequant_f32(kind: GGMLType):
+def _lib_dequant_f32(kind: GGMLType, grouped: bool = False):
     """The float32 entry of a scheme in csrc/qmm_f32.cu: qmm_<form>_f32 (x,
-    the weight planes in _KERNEL_PLANES order, out, M, N, K, stream)."""
-    return _build.entry("qmm_f32", DEQUANT_F32_FORMS[kind],
-                        *[_P] * (2 + len(_KERNEL_PLANES[kind])), _I, _I, _I, _P)
+    the weight planes in _KERNEL_PLANES order, out, M, N, K, stream), or with
+    `grouped` qmm_<form>_grouped_f32 (the same with offsets and the plane
+    count after out)."""
+    planes = [_P] * (2 + len(_KERNEL_PLANES[kind]))
+    if grouped:
+        return _build.entry("qmm_f32", f"{GROUPED_FORMS[kind]}_f32", *planes, _P, _I, _I, _I, _I,
+                            _P)
+    return _build.entry("qmm_f32", DEQUANT_F32_FORMS[kind], *planes, _I, _I, _I, _P)
 
 
 def _lib_dequant(kind: GGMLType, grouped: bool = False):
@@ -808,7 +813,10 @@ def _grouped_form(kind: GGMLType):
     1,) int32 with each plane's first row (offsets[E] == rows), out_dtype)
     -> (rows, m): rows [offsets[e], offsets[e+1]) multiply plane e. The
     kernel reads the offsets on the device; a segment may be empty or
-    ragged. On a CPU tensor it computes the plain version."""
+    ragged. Float32 xs (with float32 scale planes) takes the float32 form
+    of csrc/qmm_f32.cu, float32 out, counted as `<name>.f32`. On a CPU
+    tensor it computes the plain version, which for float32 xs is the
+    float32 form's."""
     name = GROUPED_FORMS[kind]
 
     def wrapper(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
@@ -818,20 +826,29 @@ def _grouped_form(kind: GGMLType):
             return plain(xs, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
                          offsets).to(out_dtype)
         rows, k = xs.shape
-        planes = _check_weight(qt, k, xs.device, stacked=True, form=kind)
+        _build.require(xs.dtype in (torch.bfloat16, torch.float32),
+                       f"{name} takes bfloat16 or float32 activations, got {xs.dtype}")
+        f32 = xs.dtype == torch.float32
+        planes = _check_weight(qt, k, xs.device, stacked=True, form=kind, scale_dtype=xs.dtype)
         _check_offsets(offsets, qt, xs.device)
-        _build.require(xs.dtype == torch.bfloat16,
-                       f"{name} takes bfloat16 activations, got {xs.dtype}")
+        _build.require(not f32 or out_dtype == torch.float32,
+                       f"{name}'s float32 form writes float32, not {out_dtype}")
         _build.require(all(t.data_ptr() % 16 == 0 for t in planes),
                        f"{name} copies the weight planes 16 bytes at a time: align them to 16")
         out_bf16 = _out_bf16(out_dtype)
         xs = _aligned(xs)
         out = torch.empty(rows, qt.m, dtype=out_dtype, device=xs.device)
-        lib, fn = _lib_dequant(kind, grouped=True)
-        _build.launches[name] += 1
-        err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
-                 offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
-        _build.check(lib, err, name)
+        counter = f"{name}.f32" if f32 else name
+        _build.launches[counter] += 1
+        if f32:
+            lib, fn = _lib_dequant_f32(kind, grouped=True)
+            err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(),
+                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
+        else:
+            lib, fn = _lib_dequant(kind, grouped=True)
+            err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
+                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
+        _build.check(lib, err, counter)
         return out
 
     wrapper.__name__ = wrapper.__qualname__ = name
@@ -852,17 +869,19 @@ qmm_q2k_grouped = _grouped_form(GGMLType.Q2_K)
 
 def qmm_w8_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
                    out_dtype=torch.float32) -> torch.Tensor:
-    """Grouped qmm_w8: as qmm_q4k_grouped on the W8 planes of the stack."""
+    """Grouped qmm_w8: as qmm_q4k_grouped on the W8 planes of the stack.
+    Float32 xs is rounded to bfloat16 first, as the JAX package's
+    qmatmul_grouped rounds it (gemm_quant.py:896-903)."""
     p = qt.planes
     if not xs.is_cuda:
         return qmm_w8_grouped_plain(xs, p["w8"], p["dw"], offsets).to(out_dtype)
     rows, k = xs.shape
     kpad = _check_w8(qt, k, xs.device, stacked=True)
     _check_offsets(offsets, qt, xs.device)
-    _build.require(xs.dtype == torch.bfloat16,
-                   f"qmm_w8_grouped takes bfloat16 activations, got {xs.dtype}")
+    _build.require(xs.dtype in (torch.bfloat16, torch.float32),
+                   f"qmm_w8_grouped takes bfloat16 or float32 activations, got {xs.dtype}")
     out_bf16 = _out_bf16(out_dtype)
-    xs = _aligned(_pad_k(xs, kpad))
+    xs = _aligned(_pad_k(xs.to(torch.bfloat16), kpad))
     out = torch.empty(rows, qt.m, dtype=out_dtype, device=xs.device)
     lib, fn = _lib_w8_grouped()
     _build.launches["qmm_w8_grouped"] += 1
@@ -875,10 +894,11 @@ def qmm_w8_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
 def qmatmul_grouped(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
                     w8: bool) -> torch.Tensor:
     """Grouped matmul over expert-sorted rows in xs's dtype: through the W8
-    planes when `w8` and the stack carries them, else through the grouped
-    dequant kernel of the stack's scheme. (The JAX package's qmatmul_grouped
-    tests its padded row count against W8_MIN_ROWS; the caller decides here,
-    see models/forward.py.)"""
+    planes when `w8` and the stack carries them (float32 xs rounded to
+    bfloat16 there, float32 out), else through the grouped dequant kernel of
+    the stack's scheme, its float32 form for float32 xs. (The JAX package's
+    qmatmul_grouped tests its padded row count against W8_MIN_ROWS; the
+    caller decides here, see models/forward.py.)"""
     if w8 and "w8" in qt.planes:
         return qmm_w8_grouped(xs, qt, offsets, xs.dtype)
     return globals()[GROUPED_FORMS[FORM_KIND[qt.kind]]](xs, qt, offsets, xs.dtype)

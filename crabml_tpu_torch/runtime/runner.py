@@ -38,6 +38,8 @@ from ..models.config import ModelConfig, config_from_gguf
 from ..models.forward import KVCache, forward
 from ..models.weights import augment_w8_weights, load_weights
 from ..ops.cuda.flash_attention import check_card_model
+from ..ops.cuda.gemm_quant import _KERNEL_PLANES
+from ..quant.qtensor import FORM_KIND
 from ..tokenizer import Tokenizer, Utf8Buf, tokenizer_from_gguf
 from ..utils import resolve_device
 from ..utils.metrics import Metrics
@@ -48,8 +50,24 @@ from .sampler import Sampler
 log = logging.getLogger("crabml_tpu_torch")
 
 
+def _f32_scale_bytes(gf: GGUFFile) -> int:
+    """Device bytes that float32 compute adds to the loaded weights over the
+    file's: every matrix (expert stacks included) loads its dsub / msub
+    planes in float32 (models/weights.py::_scale_dtype), 2 bytes more a
+    scale than in bfloat16. Q3_K's and Q2_K's scales stay as they are, and
+    the embedding keeps its planar form."""
+    extra = 0
+    for ti in gf.tensor_infos:
+        form = FORM_KIND.get(ti.typ)
+        if form is None or len(ti.dimensions) < 2 or "token_embd" in ti.name:
+            continue
+        extra += sum(ti.n_elems // per * 2 for n, (per, _) in _KERNEL_PLANES[form].items()
+                     if n in ("dsub", "msub"))
+    return extra
+
+
 def _auto_w8_budget(gf: GGUFFile, cfg: ModelConfig, seq_len: int, kv_itemsize: int,
-                    device: torch.device) -> int | None:
+                    device: torch.device, compute_dtype=torch.bfloat16) -> int | None:
     """Whether the W8 prefill planes fit the card, decided before loading from
     the GGUF's header: None (off), -1 (all of them fit) or a byte budget for
     the largest tensors (models.weights.augment_w8_weights).
@@ -57,14 +75,18 @@ def _auto_w8_budget(gf: GGUFFile, cfg: ModelConfig, seq_len: int, kv_itemsize: i
     Only on a card, where prefill throughput matters, and only for files over
     1 GiB: on the CPU and for small test models prefill stays on the exact
     dequant path of the weights' scheme. The budget is the card's memory less 2 GiB of slack
-    (activations, serving page pools), the file's bytes and the Runner's KV
-    cache. The planes' cost counts every matrix of the file but the embedding,
-    the experts' 3-D tensors included."""
+    (activations, serving page pools), the file's bytes (under float32
+    compute with the scale planes at float32's size, `_f32_scale_bytes`)
+    and the Runner's KV cache. The planes' cost counts every matrix of the
+    file but the embedding, the experts' 3-D tensors included: int8 values
+    and float32 scales under either compute dtype."""
     if device.type != "cuda":
         return None
     wbytes = os.path.getsize(gf.path)
     if wbytes < (1 << 30):
         return None
+    if compute_dtype == torch.float32:
+        wbytes += _f32_scale_bytes(gf)
     full = sum(ti.n_elems for ti in gf.tensor_infos
                if len(ti.dimensions) >= 2 and "token_embd" not in ti.name)
     full = int(full * 1.008)  # one float32 scale per 512-chunk
@@ -103,7 +125,7 @@ class Runner:
         elif prefill_w8 is None:
             w8_budget = _auto_w8_budget(gf, self.cfg, self.seq_len,
                                         torch.empty(0, dtype=self.kv_dtype).element_size(),
-                                        self.device)
+                                        self.device, compute_dtype)
         self.prefill_w8 = w8_budget is not None
         self.tokenizer: Tokenizer = tokenizer_from_gguf(gf.metadata)
         self.sampler = sampler or Sampler()

@@ -13,7 +13,10 @@ memory scales with the tokens in flight:
   on the host. Per layer the step's k/v are attended from their own block
   through the block table (ops.cuda.paged_decode_attention_fused) and then
   written into each sequence's current page with one indexed write per
-  tensor. The engine replays it as a CUDA graph (ServingEngine.step).
+  tensor; at a head layout the decode kernels do not take (head dim 16)
+  they are written first and each sequence's pages, gathered through the
+  table, go to the flash kernel, as the JAX package's non-fused route does.
+  The engine replays it as a CUDA graph (ServingEngine.step).
 - `paged_prefill_chunk`: one prompt chunk written straight into pool pages.
   A chunk of a few tokens (the recomputed last token after a prefix hit, a
   ragged tail: ops.cuda.decode_attention.decode_eligible) attends through the
@@ -95,7 +98,11 @@ def paged_decode_step(weights, cache: PagedKVCache, tokens, pos, cfg,
     k/v into page table[b, pos // PAGE] in place -> logits (B, V). Like
     models.forward.decode_step it reads nothing on the host, so a CUDA graph
     captures it; the block table is updated in place between replays, and the
-    caller allocates every page a replay can reach before it."""
+    caller allocates every page a replay can reach before it. Where the
+    decode kernels do not take the heads (decode_eligible), the new k/v are
+    written first and the flash kernel attends over every page of the
+    table's row, masked by pos, as crabml_tpu/serving/paged.py's
+    _paged_attention_fallback does."""
     B = tokens.shape[0]
     dev = tokens.device
     pos_dev = pos.to(device=dev, dtype=torch.int32)  # no copy for device int32
@@ -104,20 +111,35 @@ def paged_decode_step(weights, cache: PagedKVCache, tokens, pos, cfg,
     page_of = cache.table[torch.arange(B, device=dev), pos_l // PAGE].long()  # (B,)
     off = pos_l % PAGE
     kv_dtype = cache.k.dtype
+    fused = decode_eligible(1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
     x = embed(weights, tokens[:, None], cfg, compute_dtype)
     for l, lw in enumerate(weights["layers"]):
-        def kv_io(q, k, v):
-            kq, vq, ks, vs = quantize_new(k.transpose(1, 2), v.transpose(1, 2), kv_dtype)
-            out = paged_decode_attention_fused(
-                q, cache.k, cache.v, cache.table, l, pos_dev, cfg.attn_scale, kq, vq,
-                cache.k_scale, cache.v_scale, ks, vs, cfg.attn_logit_softcap,
-                layer_window(cfg, l))
+        def write(kq, vq, ks, vs):
             cache.k[l][page_of, :, off] = kq[:, :, 0]  # (B, KV, hd) at (page, :, row)
             cache.v[l][page_of, :, off] = vq[:, :, 0]
             if ks is not None:
                 cache.k_scale[l][page_of, :, off] = ks[:, :, 0]
                 cache.v_scale[l][page_of, :, off] = vs[:, :, 0]
+
+        def kv_io(q, k, v):
+            kq, vq, ks, vs = quantize_new(k.transpose(1, 2), v.transpose(1, 2), kv_dtype)
+            window = layer_window(cfg, l)
+            if not fused:
+                write(kq, vq, ks, vs)
+
+                def gathered(pool, scale):  # this layer's pages of each sequence, dense
+                    return dequantize_like(
+                        gather_pages(pool[l], cache.table),
+                        None if scale is None else gather_pages(scale[l], cache.table), q.dtype)
+
+                return flash_attention(q, gathered(cache.k, cache.k_scale),
+                                       gathered(cache.v, cache.v_scale), pos_dev,
+                                       cfg.attn_scale, cfg.attn_logit_softcap, window)
+            out = paged_decode_attention_fused(
+                q, cache.k, cache.v, cache.table, l, pos_dev, cfg.attn_scale, kq, vq,
+                cache.k_scale, cache.v_scale, ks, vs, cfg.attn_logit_softcap, window)
+            write(kq, vq, ks, vs)
             return out
 
         x = layer_body(lw, x, cos, sin, cfg, kv_io)

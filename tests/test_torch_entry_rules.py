@@ -1,6 +1,7 @@
 """Entry-point rules of the port against the reference: a model whose
 attention the card's kernels do not take is refused at load, before any
-weight is read, with the reason; the CLI's defaults are the reference's."""
+weight is read, with the reason; the committed HF fixtures (head dim 16)
+are taken; the CLI's defaults are the reference's."""
 
 from dataclasses import replace
 from pathlib import Path
@@ -12,24 +13,44 @@ from crabml_tpu.cli import build_parser as jax_parser
 from crabml_tpu_torch.cli import build_parser as torch_parser
 from crabml_tpu_torch.errors import UnsupportedError
 from crabml_tpu_torch.gguf.reader import GGUFFile
+from crabml_tpu_torch.gguf.writer import GGUFWriter
 from crabml_tpu_torch.models.config import config_from_gguf
-from crabml_tpu_torch.ops.cuda.flash_attention import check_card_attention
+from crabml_tpu_torch.ops.cuda.flash_attention import check_card_attention, check_card_model
 
-MIXTRAL = Path(__file__).parent / "fixtures" / "mixtral-tiny-f32.gguf"
+FIXDIR = Path(__file__).parent / "fixtures"
+MIXTRAL = FIXDIR / "mixtral-tiny-f32.gguf"
 
 
 def _cfg():
     return config_from_gguf(GGUFFile(str(MIXTRAL)).metadata)
 
 
+def _hd32(tmp_path) -> str:
+    """The Mixtral fixture with 2 q heads over 1 kv head of its 64-wide
+    embedding: head dim 32, which no kernel takes. Its tensors are the
+    fixture's, never read: the refusal comes first."""
+    gf = GGUFFile(str(MIXTRAL))
+    w = GGUFWriter()
+    for k, v in gf.metadata.as_dict().items():
+        v = {"llama.attention.head_count": 2, "llama.attention.head_count_kv": 1}.get(k, v)
+        w.add_metadata(k, v, gf.metadata.value_type(k))
+    for ti in gf.tensor_infos:
+        w.add_tensor(ti.name, ti.typ, ti.shape, ti.to_numpy())
+    path = str(tmp_path / "hd32.gguf")
+    w.write(path)
+    assert config_from_gguf(GGUFFile(path).metadata).head_dim == 32
+    return path
+
+
 def test_card_refuses_head_dims_its_kernels_do_not_take():
-    """The committed Mixtral fixture has head dim 16: refused on a card,
-    taken on the CPU. Any count of q heads per kv head up to 64 is taken; a
-    kv head count that does not divide the q heads, or more than 64 q heads
-    a kv head, is refused with the reason. No card is needed to decide."""
-    cfg = _cfg()
-    assert cfg.head_dim == 16
-    with pytest.raises(UnsupportedError, match="head dim 16"):
+    """Head dim 32 (the Mixtral fixture's heads at another count) is refused
+    on a card, taken on the CPU. Any count of q heads per kv head up to 64
+    is taken; a kv head count that does not divide the q heads, or more
+    than 64 q heads a kv head, is refused with the reason. No card is needed
+    to decide."""
+    cfg = replace(_cfg(), head_dim_override=32)
+    assert cfg.head_dim == 32
+    with pytest.raises(UnsupportedError, match="head dim 32"):
         check_card_attention(cfg, torch.device("cuda"))
     check_card_attention(cfg, torch.device("cpu"))
     check_card_attention(replace(cfg, head_dim_override=128), "cuda")  # 128 and 64 are taken
@@ -68,10 +89,10 @@ def test_card_takes_head_dim_256_and_refuses_96():
         check_card_attention(replace(cfg, head_dim_override=128), "cuda", torch.float16)
 
 
-def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):
-    """On a card (faked: the device resolves to cuda) the Runner raises
-    before load_weights is called, and both engines before they make a
-    cache."""
+def test_runner_and_engines_refuse_before_reading_a_weight(tmp_path, monkeypatch):
+    """On a card (faked: the device resolves to cuda) the Runner raises on a
+    head-dim-32 file before load_weights is called, and both engines before
+    they make a cache."""
     from crabml_tpu_torch.runtime import runner as runner_mod
     from crabml_tpu_torch.serving import engine as engine_mod
     from crabml_tpu_torch.serving.paged import PagedServingEngine
@@ -79,15 +100,44 @@ def test_runner_and_engines_refuse_before_reading_a_weight(monkeypatch):
     def no_weights(*a, **k):
         raise AssertionError("a weight was read")
 
+    path = _hd32(tmp_path)
     monkeypatch.setattr(runner_mod, "resolve_device", lambda d=None: torch.device("cuda"))
     monkeypatch.setattr(runner_mod, "load_weights", no_weights)
-    with pytest.raises(UnsupportedError, match="head dim 16"):
-        runner_mod.Runner(str(MIXTRAL))
+    with pytest.raises(UnsupportedError, match="head dim 32"):
+        runner_mod.Runner(path)
     monkeypatch.setattr(engine_mod, "resolve_device", lambda d=None: torch.device("cuda"))
     monkeypatch.setattr(engine_mod.ServingEngine, "_reset_device_state", no_weights)
+    cfg = config_from_gguf(GGUFFile(path).metadata)
     for cls in (engine_mod.ServingEngine, PagedServingEngine):
-        with pytest.raises(UnsupportedError, match="head dim 16"):
-            cls(weights={}, cfg=_cfg())
+        with pytest.raises(UnsupportedError, match="head dim 32"):
+            cls(weights={}, cfg=cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("family", ["gemma2", "qwen3", "phi3", "mixtral"])
+def test_card_takes_the_hf_fixtures_at_head_dim_16(tmp_path, monkeypatch, family, dtype):
+    """The four committed HF fixtures (head dim 16, 4 q heads over 2 kv
+    heads; mixtral's a mixture of experts) pass the card's check in both
+    compute dtypes, the one the Runner makes before anything else; both
+    engines go on past it to make their caches."""
+    from crabml_tpu_torch.serving import engine as engine_mod
+    from crabml_tpu_torch.serving.paged import PagedServingEngine
+
+    class Loaded(Exception):
+        pass
+
+    def loads(*a, **k):
+        raise Loaded
+
+    path = str(FIXDIR / f"{family}-tiny-f32.gguf")
+    cfg = config_from_gguf(GGUFFile(path).metadata)
+    assert (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads) == (16, 4, 2)
+    check_card_model(cfg, "cuda", dtype)
+    monkeypatch.setattr(engine_mod, "resolve_device", lambda d=None: torch.device("cuda"))
+    monkeypatch.setattr(engine_mod.ServingEngine, "_reset_device_state", loads)
+    for cls in (engine_mod.ServingEngine, PagedServingEngine):
+        with pytest.raises(Loaded):
+            cls(weights={}, cfg=cfg, compute_dtype=dtype)
 
 
 def test_cli_defaults_match_the_reference():

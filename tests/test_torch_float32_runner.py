@@ -305,11 +305,13 @@ def _on_a_fake_card(monkeypatch):
     return runner_mod, engine_mod, Loaded
 
 
-@pytest.mark.parametrize("model", ["tiny", "tiny-gemma2", "tiny-phi2"])
+@pytest.mark.parametrize("model", ["tiny", "tiny-gemma2", "tiny-phi2", "tiny-moe"])
 def test_card_takes_float32_dense_models(tmp_path, monkeypatch, model):
-    """A dense model in float32 (head dim 128, 256 or 80) passes the card's
-    check, the one the Runner makes before anything else; both engines go
-    on past it to make their caches."""
+    """A model in float32 (head dim 128, 256 or 80; and since the grouped
+    float32 forms, a mixture of experts: tiny-moe) passes the card's check,
+    the one the Runner makes before anything else; both engines go on past
+    it to make their caches. (The name is the test's from before the
+    mixture of experts was taken.)"""
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.models.config import config_from_gguf
     from crabml_tpu_torch.ops.cuda.flash_attention import check_card_model
@@ -326,10 +328,11 @@ def test_card_takes_float32_dense_models(tmp_path, monkeypatch, model):
 
 
 def test_card_refuses_a_float32_mixture_of_experts(tmp_path, monkeypatch):
-    """A mixture of experts in float32 is refused on the card with the
-    reason (the grouped matmuls take bfloat16 only) before any weight is
-    read, by the Runner and both engines; in bfloat16 it passes the check;
-    on the CPU it is taken in float32."""
+    """A mixture of experts in float32 is taken on the card (its grouped
+    matmuls have float32 forms since csrc/qmm_f32.cu's grouped entries): the
+    Runner goes past the check to read its weights, and both engines to make
+    their caches; bfloat16 and the CPU take it as before. (The name is the
+    test's from when the card refused it.)"""
     from crabml_tpu_torch.gguf.reader import GGUFFile
     from crabml_tpu_torch.models.config import config_from_gguf
     from crabml_tpu_torch.ops.cuda.flash_attention import check_card_model
@@ -340,10 +343,13 @@ def test_card_refuses_a_float32_mixture_of_experts(tmp_path, monkeypatch):
     cfg = config_from_gguf(GGUFFile(path).metadata)
     assert cfg.n_experts == 4
     check_card_model(cfg, "cpu", torch.float32)
-    runner_mod, engine_mod, _ = _on_a_fake_card(monkeypatch)
-    with pytest.raises(UnsupportedError, match="mixture of experts.*bfloat16 only"):
-        runner_mod.Runner(path, compute_dtype=torch.float32)
     check_card_model(cfg, "cuda", torch.bfloat16)
+    check_card_model(cfg, "cuda", torch.float32)
+    runner_mod, engine_mod, Loaded = _on_a_fake_card(monkeypatch)
+    cpu_generator = torch.Generator  # the CPU build has no generator of a card
+    monkeypatch.setattr(torch, "Generator", lambda device=None: cpu_generator())
+    with pytest.raises(Loaded):
+        runner_mod.Runner(path, compute_dtype=torch.float32)
     for cls in (engine_mod.ServingEngine, PagedServingEngine):
-        with pytest.raises(UnsupportedError, match="mixture of experts"):
+        with pytest.raises(Loaded):
             cls(weights={}, cfg=cfg, compute_dtype=torch.float32)

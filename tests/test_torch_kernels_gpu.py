@@ -1757,7 +1757,9 @@ def test_scheme_expert_forms_replay_in_a_cuda_graph(cuda, kind, form):
 def test_scheme_expert_wrappers_raise_rather_than_fall_back(cuda, kind):
     """The experts' forms raise on a CUDA tensor where they do not take the
     input: one weight for a stack (grouped), offsets of another length or
-    dtype, another scheme's stack, float32 activations; a plane index of
+    dtype, another scheme's stack, float32 activations over bfloat16 scale
+    planes (Q3_K's and Q2_K's scales are the same in both dtypes, so their
+    float32 grouped form takes float32 activations); a plane index of
     another dtype or length, a stack for the dense form."""
     qt = _scheme_stack(kind, 4, 256, 512, 3)
     one = plane_of(qt, 1)
@@ -1774,8 +1776,13 @@ def test_scheme_expert_wrappers_raise_rather_than_fall_back(cuda, kind):
         fn(xs, qt, off.long())
     with pytest.raises(UnsupportedError):
         fn(xs, other, off)
-    with pytest.raises(UnsupportedError):
-        fn(xs.float(), qt, off)
+    if "dsub" in qt.planes:
+        with pytest.raises(UnsupportedError):
+            fn(xs.float(), qt, off)
+    else:
+        before = _build.launches[f"{gemm_quant.GROUPED_FORMS[FORM_KIND[kind]]}.f32"]
+        assert fn(xs.float(), qt, off).dtype == torch.float32
+        assert _build.launches[f"{gemm_quant.GROUPED_FORMS[FORM_KIND[kind]]}.f32"] == before + 1
     plane = torch.tensor([1, 2], device=cuda, dtype=torch.int32)
     with pytest.raises(UnsupportedError):
         gemm_quant.qmm_w4a8(xs[:2], qt, plane=plane.long())
@@ -1992,3 +1999,261 @@ def test_decode_forms_float32_hd256_are_deterministic_and_replay(cuda, form, kv)
     torch.cuda.synchronize()
     assert torch.equal(one, two)
     _replay_case(cuda, form, kv, 256, 2, softcap=50.0, window=300, q_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the float32 mixture of experts: the grouped float32 dequant forms
+# (csrc/qmm_f32.cu's grouped entries) and qmm_w8_grouped on float32 x; and
+# flash at head dim 16 (the committed HF fixtures)
+# ---------------------------------------------------------------------------
+
+def _f32_stack(kind, E, m, k, seed):
+    """E random distinct (m, k) experts of `kind` as one stack (E, m, k),
+    kernel planes with float32 scales (as the Runner loads them under
+    float32 compute)."""
+    return _distinct_experts(to_kernel_layout(
+        to_planar(kind, _scheme_raw(kind, E * m * k, k, seed), (E, m, k), "cuda"), torch.float32))
+
+
+def _f32_grouped_case(kind, qt, xs, off):
+    """The float32 grouped form against its plain version (1e-5 of max|out|:
+    the same float32 weights, float32 sums in another order), counted once
+    under `<form>_grouped.f32`; every row written; two calls bit for bit;
+    and each segment equal to the dense float32 form on its own plane, bit
+    for bit (the same tile loop, the same order of sums)."""
+    name = gemm_quant.GROUPED_FORMS[FORM_KIND[kind]]
+    fn = getattr(gemm_quant, name)
+    plain = getattr(gemm_quant, f"{name}_plain")
+    before = _build.launches[f"{name}.f32"]
+    got = fn(xs, qt, off)
+    want = plain(xs, *(qt.planes[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]), off)
+    torch.cuda.synchronize()
+    assert _build.launches[f"{name}.f32"] == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(fn(xs, qt, off), got)
+    dense = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]])
+    cuts = off.tolist()
+    for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+        if hi > lo:
+            assert torch.equal(dense(xs[lo:hi], plane_of(qt, e)), got[lo:hi]), e
+    return got
+
+
+@ALL_KINDS
+@pytest.mark.parametrize("counts", [(0, 13, 40, 64), (0, 0, 130, 1), (0, 300, 0, 0),
+                                    (1, 37, 0, 129), (64, 64, 8, 65), (0, 65, 63, 0, 7, 1, 0, 200)])
+def test_f32_grouped_matches_plain(cuda, kind, counts):
+    """The float32 grouped forms of every kind at empty segments (expert 0
+    empty in most cases), segments shorter than the 64-row tile, one row
+    over a tile and exact tiles, a 1-row and a 37-row segment, every row on
+    one expert above 0, and 8 experts; 320 columns (off the 128-wide tile)
+    and k = 768."""
+    E, m, k = len(counts), 320, 768
+    qt = _f32_stack(kind, E, m, k, sum(counts) + E)
+    _f32_grouped_case(kind, qt, _f32_x(sum(counts), k, 5), _offsets(counts))
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q5_K,
+                                  GGMLType.Q4_0, GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.Q5_0],
+                         ids=["q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0"])
+@pytest.mark.parametrize("m,k", [(2 * 14336, 4096), (4096, 14336)], ids=["gate_up", "down"])
+def test_f32_grouped_at_mixtral_shapes(cuda, kind, m, k):
+    """The 1,024 (row, slot) pairs of a 512-token Mixtral chunk over 8
+    experts (expert 0 empty, ragged segments) at the experts' gate|up and
+    down shapes, in float32."""
+    qt = _f32_stack(kind, 8, m, k, m + k)
+    _f32_grouped_case(kind, qt, _f32_x(sum(_MIXTRAL_COUNTS), k, 7), _offsets(_MIXTRAL_COUNTS))
+
+
+@EVERY_VALUE_KINDS
+def test_f32_grouped_takes_every_value_of_each_expert(cuda, kind):
+    """A stack of the every-value planes with float32 scales that use the
+    bits bfloat16 drops, each expert's own; one-hot rows of x on each
+    expert's segment return that expert's exact float32 weights, bit for
+    bit: a form that read another expert's values or scales, or rounded a
+    weight, would not."""
+    E, m, k = 4, 256, 512
+    qt = _every_value_stack(kind, E, m, k)
+    qt = QTensor(kind, qt.shape, {n: t.float() * (1 + 2.0 ** -13) if n in ("dsub", "msub") else t
+                                  for n, t in qt.planes.items()})
+    fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[FORM_KIND[kind]])
+    xs = torch.eye(k, device=cuda).repeat(E, 1)
+    got = fn(xs, qt, _offsets((k,) * E))
+    torch.cuda.synchronize()
+    for e in range(E):
+        assert torch.equal(got[e * k:(e + 1) * k], dequantize(plane_of(qt, e)).t()), e
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q2_K],
+                         ids=["q4_k", "q6_k", "q2_k"])
+def test_f32_grouped_replays_in_a_cuda_graph(cuda, kind):
+    """The float32 grouped form captures in a CUDA graph (it reads the
+    offsets on the device): a replay equals the eager call bit for bit, and
+    after x and the offsets change in place equals the eager call on them."""
+    qt = _f32_stack(kind, 4, 512, 1024, 9)
+    fn = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[FORM_KIND[kind]])
+    x = _f32_x(150, 1024, 1)
+    off = _offsets((0, 70, 1, 79))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, qt, off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, qt, off)
+    for new_x, new_off in ((2, (10, 60, 0, 80)), (3, (150, 0, 0, 0))):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(x, qt, off))
+        x.copy_(_f32_x(150, 1024, new_x))
+        off.copy_(_offsets(new_off))
+
+
+def test_f32_grouped_forms_raise_rather_than_fall_back(cuda):
+    """float32 x over a stack with bfloat16 scale planes, bfloat16 out of
+    the float32 form, float16 x, offsets of another length: each refused
+    before any launch."""
+    bf = _scheme_stack(GGMLType.Q8_0, 4, 256, 512, 3)
+    f32 = _f32_stack(GGMLType.Q8_0, 4, 256, 512, 3)
+    x = _f32_x(40, 512, 3)
+    off = _offsets((0, 10, 30, 0))
+    before = dict(_build.launches)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0_grouped(x, bf, off)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0_grouped(x, f32, off, torch.bfloat16)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0_grouped(x.half(), f32, off)
+    with pytest.raises(UnsupportedError):
+        gemm_quant.qmm_q8_0_grouped(x, f32, off[:4])
+    assert dict(_build.launches) == before
+
+
+def test_f32_qmm_w8_grouped_rounds_x_to_bfloat16(cuda):
+    """qmm_w8_grouped on float32 x: the bfloat16 kernel on x rounded once,
+    float32 out, as the JAX package's qmatmul_grouped runs its W8 route;
+    bit for bit the call on the rounded x; qmatmul_grouped routes float32
+    x there with W8 planes and to the float32 dequant form without."""
+    qt = gemm_quant.augment_w8(_f32_stack(GGMLType.Q4_K, 4, 256, 1024, 5))
+    x = _f32_x(300, 1024, 3)
+    off = _offsets((0, 120, 100, 80))
+    got = gemm_quant.qmm_w8_grouped(x, qt, off, torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gemm_quant.qmm_w8_grouped(x.to(torch.bfloat16), qt, off))
+    assert torch.equal(gemm_quant.qmatmul_grouped(x, qt, off, w8=True), got)
+    before = _build.launches["qmm_q4k_grouped.f32"]
+    gemm_quant.qmatmul_grouped(x, qt, off, w8=False)
+    assert _build.launches["qmm_q4k_grouped.f32"] == before + 1
+
+
+def test_moe_ffn_float32_on_the_card_matches_its_plain_version(cuda):
+    """moe_ffn in float32 on the card (a 4-expert Q4_K stack with float32
+    scales): 100 rows through the grouped float32 forms and 8 through the
+    plane forms' float32 entries, against the same function on the CPU
+    (the plain versions). Tolerance 1e-4 of max|out| for the grouped rows
+    (float32 weights on both sides, sums in another order) and 3e-2 for the
+    plane rows (int8 codes of float32 activations whose sums differ in
+    order may round apart at an edge)."""
+    from crabml_tpu_torch.models.config import ModelConfig
+    from crabml_tpu_torch.models.forward import moe_ffn
+
+    D, HD, E = 512, 1024, 4
+    cfg = ModelConfig(architecture="llama", model_name="m", embedding_dim=D, hidden_dim=HD,
+                      n_layers=1, n_heads=4, n_kv_heads=4, vocab_size=256, seq_len=256,
+                      rms_norm_eps=1e-5, n_experts=E, n_experts_used=2)
+    g = torch.Generator().manual_seed(3)
+    router = torch.randn(E, D, generator=g)
+    raw = {"wgu_exps": (_scheme_raw(GGMLType.Q4_K, E * 2 * HD * D, D, 4), (E, 2 * HD, D)),
+           "ffn_down_exps": (_scheme_raw(GGMLType.Q4_K, E * D * HD, HD, 5), (E, D, HD))}
+    lw_cpu, lw_card = ({"ffn_gate_inp": router.to(dev),
+                        **{n: to_kernel_layout(to_planar(GGMLType.Q4_K, b, shape, dev),
+                                               torch.float32) for n, (b, shape) in raw.items()}}
+                       for dev in ("cpu", cuda))
+    for rows, tol, name in ((100, 1e-4, "qmm_q4k_grouped.f32"), (8, 3e-2, "qmm_w4a8.planes.f32")):
+        x = torch.randn(rows, D, generator=g)
+        before = _build.launches[name]
+        got = moe_ffn(lw_card, x.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert _build.launches[name] > before
+        assert got.dtype == torch.float32
+        assert _rel(got.cpu(), moe_ffn(lw_cpu, x, cfg)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,G,pos0,softcap,window", [
+    (16, 2, 0, 0.0, 0), (16, 2, 0, 50.0, 8), (1, 2, 15, 0.0, 0), (1, 2, 15, 50.0, 8),
+    (100, 1, 0, 0.0, 0), (189, 4, 512, 0.0, 0), (512, 4, 512, 0.0, 256),
+    (512, 4, 512, 50.0, 256), (65, 7, 37, 30.0, 31), (9, 16, 300, 0.0, 0)])
+def test_flash_attention_hd16_matches_plain(cuda, dtype, T, G, pos0, softcap, window):
+    """Head dim 16 on the 64 kernel's tiles (two 16-byte chunks of a
+    64-element row copied, one k16 step for the scores, P V's lanes past 16
+    never stored) and in float32 at its own width: the HF fixtures' shapes
+    (16 tokens at pos 0, one at pos 15, 2 q heads a kv head, their window 8
+    and softcap 50), ragged T, a window that skips key tiles, G up to 16.
+    Tolerances as at the other head dims; two calls give the same bits."""
+    B, KV, S, hd = 2, 2, 1024, 16
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([pos0, pos0 // 2], dtype=torch.int32, device=cuda)
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, hd ** -0.5, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, softcap, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert got.shape == (B, T, KV * G * hd)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, flash_attention(q, k, v, pos, hd ** -0.5, softcap, window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 8, 200])
+def test_flash_attention_hd16_ignores_rows_past_the_prefix(cuda, dtype, window):
+    """Cache rows past pos + T and before the first row's window hold NaN:
+    masked keys that must not reach the output (a probability of 0 times a
+    NaN is NaN). 4 / 2 heads as the fixtures; a store past a head's 16
+    lanes would land on the next head's."""
+    B, T, KV, G, S, p0, hd = 1, 189, 2, 2, 1024, 512, 16
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([p0], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, 0.0, window)
+    k[:, :, p0 + T:], v[:, :, p0 + T:] = float("nan"), float("nan")
+    if window:
+        k[:, :, :p0 + 1 - window], v[:, :, :p0 + 1 - window] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, hd ** -0.5, 0.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_flash_attention_hd16_replays_in_a_cuda_graph(cuda):
+    """The decode step at hd 16 attends through flash over the whole cache
+    with pos on the device: a captured launch replays to the eager call's
+    bits, and after pos and the cache change in place to the eager call on
+    them."""
+    B, KV, G, S, hd = 3, 2, 2, 256, 16
+    q = torch.randn(B, 1, KV * G, hd, device=cuda)
+    k = torch.randn(B, KV, S, hd, device=cuda)
+    v = torch.randn(B, KV, S, hd, device=cuda)
+    pos = torch.tensor([15, 0, 200], dtype=torch.int32, device=cuda)
+    call = lambda: flash_attention(q, k, v, pos, 0.25, 50.0, 8)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        pos.add_(1)
+        k.mul_(1.5)
