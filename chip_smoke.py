@@ -92,15 +92,15 @@ fails:
    8-expert layouts and in uniform Q8_0 and Q4_0 (`mixtral-q5_k_m`,
    `mixtral-q2_k`, `mixtral-q8_0`, `mixtral-q4_0`), and llama.cpp's Q5_0
    file type for 8 experts (`mixtral-q5_0`: Q5_0 experts, q and attn_output,
-   Q8_0 k and v, a Q6_K output): phase 3 on the file (both sides bfloat16,
-   the card without W8 planes), `Runner(path)` with the W8 planes, 32 greedy
+   Q8_0 k and v, a Q6_K output): phase 3 on the file (a 40-token prompt;
+   both sides bfloat16, the card without W8 planes), `Runner(path)` with the W8 planes, 32 greedy
    tokens through the graph equal to the eager step's (`mixtral-q5_0` with a
    profiled window: the plane form's time by shape), and the prefill without
    W8 planes (each kind's grouped form).
 10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K, Q5_0, Q4_1, Q5_1 and Q8_1, and
    llama.cpp's mixed and legacy layouts: phase 3 for each scheme and for a
    2-layer Q4_K_M file (2 layers, card against CPU), then the 7B widths,
-   each cut to 4 of 32 layers (the imatrix Q5_0 file to 8), with every
+   each cut to 2 of 32 layers (the imatrix Q5_0 file to 8), with every
    matrix in Q8_0 (`7b-q8_0`), in Q6_K (`7b-q6_k`), as a Q5_K_M file
    (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down in Q6_K where
    use_more_bits holds, a Q6_K output), in Q4_0 (`7b-q4_0`), as a Q3_K_M
@@ -200,10 +200,27 @@ fails:
    engines' greedy tokens equal to the Runner's. Phase 2 holds the eight
    grouped float32 forms at the Mixtral shapes and flash at head dim 16 in
    both dtypes against their plain versions.
+16. speculative decoding, on phase 5's 7B file and Runner, K = 4:
+   the plain graphed run's ~700-token prompt and 128 greedy tokens, then
+   `Runner(path, speculative=4)` (prompt lookup), `Runner(path,
+   draft_model=<the 7B widths at 2 layers, another seed>)` and the target
+   as its own draft (its acceptance must be near all), each with its ms per
+   emitted token, tokens per round and share of drafts accepted beside the
+   plain run's, the decode kernels and not flash carrying every verify (T =
+   5 at G = 4: 20 query rows a kv head); phase 6's 16 requests through an
+   8-slot PagedServingEngine with speculative=4, and the dense
+   ServingEngine with speculative=4 at step(1) and step(8), against their
+   plain tokens. A token that differs from plain greedy decode (a verify
+   row and a decode step may sum in another order; the paged verify's 40
+   rows take the dequant matmul where the tick's 8 take int8 activations)
+   is held to a near tie (`_hold_to_tie`) and reported. Phase 2 holds every
+   decode form past 16 query rows against its plain version (the 7B
+   verify, T = 8 at G = 7, the 8-slot paged verify in bfloat16 and int8,
+   head dims 256 in both dtypes and 96).
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 is driven with the kernels' launch counters
+Each of the paths 5, 6, 7, 9, 10, 11, 12, 13, 14, 15 and 16 is driven with the kernels' launch counters
 set to 0 just before it and read just after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
@@ -370,6 +387,10 @@ MOE_SCHEME_PATHS = (("mixtral-q5_k_m", "q5_k", "k_m", 91), ("mixtral-q2_k", "q2_
                     ("mixtral-q8_0", "q8_0", None, 93), ("mixtral-q4_0", "q4_0", None, 94),
                     ("mixtral-q5_0", "q5_0", "legacy", 95))
 MOE_SCHEME_LAYERS = 1
+# the prompt of their card-against-CPU forwards: 40 tokens (80 (row, slot) pairs) take every
+# expert and the grouped forms; the CPU's all-experts mix in bfloat16 and float32 is the
+# slowest part of these paths
+MOE_SCHEME_PROMPT = 40
 MOE_SCHEME_STEPS = 32
 # the short Mixtral paths whose graphed step is profiled (the plane form's
 # time by shape; the main MoE path profiles Q4_K's and Q6_K's): a profile
@@ -380,16 +401,16 @@ MOE_PROFILED = ("mixtral-q5_0",)
 # k_m: attn_v and ffn_down in Q6_K in 16 of the 32 layers, a Q6_K output),
 # 7b-q3_k_m its Q3_K_M layout (--scheme q3_k --mix k_m) and 7b-q2_k its Q2_K
 # file type (--mix q2_k)
-# (at 4 layers, 8 before the float32 Mixtral paths joined, for time; a
-# _K_M layout keeps Q6_K layers at 4: use_more_bits holds in layers 2 and 3);
+# (at 2 layers, for time; a _K_M layout
+# keeps Q6_K layers at 2: use_more_bits holds in layer 1);
 # 7b-q5_0 is llama.cpp's Q5_0 file type made with an importance matrix (--mix
 # imatrix: Q5_0 matrices, layer 0's ffn_down in Q5_1, a Q6_K output: 8 layers,
 # since the imatrix rule puts Q5_1 in layers i < n / 8) and 7b-q4_1 its Q4_1
 # file type (--mix legacy: Q4_1 matrices, a Q6_K output)
-SCHEME_PATHS = (("7b-q8_0", "q8_0", 4, 61, None), ("7b-q6_k", "q6_k", 4, 62, None),
-                ("7b-q5_k_m", "q5_k", 4, 63, "k_m"), ("7b-q4_0", "q4_0", 4, 64, None),
-                ("7b-q3_k_m", "q3_k", 4, 65, "k_m"), ("7b-q2_k", "q2_k", 4, 66, "q2_k"),
-                ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 4, 68, "legacy"))
+SCHEME_PATHS = (("7b-q8_0", "q8_0", 2, 61, None), ("7b-q6_k", "q6_k", 2, 62, None),
+                ("7b-q5_k_m", "q5_k", 2, 63, "k_m"), ("7b-q4_0", "q4_0", 2, 64, None),
+                ("7b-q3_k_m", "q3_k", 2, 65, "k_m"), ("7b-q2_k", "q2_k", 2, 66, "q2_k"),
+                ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 2, 68, "legacy"))
 # the schemes of phase kernels' checks (each with forms of its own) and of
 # the 2-layer forward checks (with the schemes that run the Q4_K, Q5_K and
 # Q8_0 forms, REUSED_SCHEMES, whose kernel checks are those forms on their
@@ -397,6 +418,10 @@ SCHEME_PATHS = (("7b-q8_0", "q8_0", 4, 61, None), ("7b-q6_k", "q6_k", 4, 62, Non
 KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0")
 REUSED_SCHEMES = ("q4_1", "q5_1", "q8_1")
 SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
+# speculative decoding: the draft length (the JAX package's default, crabml_tpu/cli.py) and
+# the draft model's depth (the 7B widths at 2 layers, another seed)
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
+SPEC_DRAFT_STEPS = 64  # greedy tokens of the two-model runs (the lookup run takes DECODE_STEPS)
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
 # of at most 4 tokens (16 query rows a kv head) take the block-table kernel
@@ -1370,6 +1395,37 @@ def hd16_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def spec_attention_checks(timer) -> dict[str, list[dict]]:
+    """The decode forms past 16 query rows a kv head, at the speculative
+    verify's shapes (row tiles of 16): the 7B's K = 4 verify (B=1, T=5 at
+    G=4, 20 rows, at pos 1000 of the 4,096-row cache) in the unfused form
+    that models.forward.verify_step takes and in the fused one; Qwen2-7B's
+    widest (T=8 at G=7, 56 rows); the 8-slot paged verify (T=5) over a
+    bfloat16 and an int8 pool, and its fused form; T=5 at G=4 at head dim
+    256 (32 / 8 heads), in bfloat16 and in float32 (K and V in one tile),
+    and at head dim 96."""
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    T = SPEC_K + 1
+    for name, seed in (("decode_attention", 500), ("decode_attention_fused", 501)):
+        add(name, check_attention(timer, name, T, 1000, seed))
+    add("decode_attention", check_attention(timer, "decode_attention", 8, 1000, 502,
+                                            dims=Q2_ATTN))
+    for i, (form, kv, t, dims, q) in enumerate((
+            ("paged", "bf16", T, None, "bf16"), ("paged", "int8", T, None, "bf16"),
+            ("paged_fused", "bf16", T, None, "bf16"), ("paged", "bf16", 8, Q2_ATTN[:3], "bf16"),
+            ("dense", "bf16", T, (HEADS, KV_HEADS, 256), "bf16"),
+            ("dense", "f32", T, (HEADS, KV_HEADS, 256), "f32"),
+            ("dense_fused", "int8", T, (HEADS, KV_HEADS, 256), "bf16"),
+            ("dense", "bf16", T, (HEADS, KV_HEADS, 96), "bf16"))):
+        add(*check_decode_form(timer, form, kv, t, 510 + i, dims=dims or (HEADS, KV_HEADS,
+                                                                           HEAD_DIM), q_dtype=q))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1412,6 +1468,8 @@ def phase_kernels() -> dict[str, list[dict]]:
     for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
         checks.setdefault(name, []).extend(recs)
     for name, recs in hd16_attention_checks(timer).items():  # head dim 16, after those
+        checks[name] += recs
+    for name, recs in spec_attention_checks(timer).items():  # past 16 rows, after those
         checks[name] += recs
     # the W8 planes at a 512-row chunk, and the Mixtral forms: the experts'
     # fused gate|up (4096 -> 2 x 14336) and down (14336 -> 4096)
@@ -2500,7 +2558,195 @@ def phase_serving(runner) -> dict:
     del eng
     torch.cuda.empty_cache()
     return {"first": first, "second": second, "tokens_identical": True, "profile": profile,
-            "daemon": daemon}
+            "daemon": daemon, "tokens": tokens}
+
+
+def _hold_to_tie(weights, cfg, dtype, kv_dtype, prompt: list[int], plain: list[int],
+                 spec: list[int], i: int, copies: int) -> dict:
+    """Hold the first token i where a speculative run left plain greedy
+    decode to its cause, a near tie: the cache of `copies` copies of the
+    sequence (so that the verify's rows take the run's matmul route) is
+    prefilled with the prompt and plain[:i-1] in PREFILL_CHUNK chunks (the
+    tokens the run decoded one a step are taken as a prompt, whose matmul
+    route may differ: the hold's state is the run's to within that); then
+    the plain step's logits for token i and the
+    verify's (plain[i-1] and the speculative run's next K tokens as drafts)
+    at the same position are taken. It is a near tie when the step's logits
+    of the two tokens lie within the largest difference between the
+    verify's logits and the step's of each other: the verify may order
+    them otherwise. (On the paged drain the verify's 40 rows take the
+    dequant matmul in bfloat16 where the tick's 8 take int8 activations;
+    their logits differ by up to ~0.2 at 7B on an H100.)"""
+    import torch
+
+    from crabml_tpu_torch.models.forward import KVCache, decode_step, forward, verify_step
+
+    K = SPEC_K
+    ctx = list(prompt) + plain[: i - 1]
+    cache = KVCache.create(cfg, copies, len(ctx) + K + 1, kv_dtype, CARD)
+    toks = torch.tensor([ctx] * copies, device=CARD)
+    for c in range(0, len(ctx), PREFILL_CHUNK):
+        forward(weights, cache, toks[:, c:c + PREFILL_CHUNK], torch.full((copies,), c), cfg, dtype)
+    pos = torch.full((copies,), len(ctx), dtype=torch.int32, device=CARD)
+    cur = plain[i - 1]
+    step = decode_step(weights, cache, torch.full((copies, 1), cur, device=CARD), pos, cfg,
+                       dtype)[0].float()
+    drafts = (spec[i:i + K] + [0] * K)[:K]
+    seq = torch.tensor([[cur] + drafts] * copies, device=CARD)
+    verify = verify_step(weights, cache, seq, pos, cfg, dtype)[0, 0].float()
+    diff = (verify - step).abs().max().item()
+    gap = abs(step[plain[i]] - step[spec[i]]).item()
+    return {"index": i, "plain": plain[i], "speculative": spec[i],
+            "step_argmax": int(step.argmax()), "verify_argmax": int(verify.argmax()),
+            "step_logit_gap": gap, "verify_vs_step_max_diff": diff, "ok": gap <= diff}
+
+
+def _held(what: str, weights, cfg, dtype, kv_dtype, prompt, plain, spec, copies: int) -> dict:
+    """None when the speculative tokens are the plain ones; else the first
+    difference held to a near tie (_hold_to_tie), reported, and failed when
+    it is not one. Tokens after it follow another history and are not
+    compared."""
+    i = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b), None)
+    if i is None and len(spec) >= len(plain):
+        return None
+    if i is None or i == 0:
+        fail(f"{what}: {len(spec)} speculative tokens against {len(plain)} plain ones, "
+             f"first difference at {i}")
+    hold = _hold_to_tie(weights, cfg, dtype, kv_dtype, prompt, plain, spec, i, copies)
+    say(f"{what}: token {i} differs from plain greedy decode ({hold['speculative']} for "
+        f"{hold['plain']}): their step logits {hold['step_logit_gap']:.4f} apart, the verify's "
+        f"logits within {hold['verify_vs_step_max_diff']:.4f} of the step's (argmax step "
+        f"{hold['step_argmax']}, verify {hold['verify_argmax']}): "
+        f"{'a near tie' if hold['ok'] else 'NOT a near tie'}")
+    if not hold["ok"]:
+        fail(f"{what}: token {i} differs from plain greedy decode and is not a near tie: {hold}")
+    return hold
+
+
+def _spec_stats(r: dict, counts: dict) -> dict:
+    """ms per emitted token, tokens per round and the share of drafts
+    accepted, from a speculative run's record and its Runner's counters."""
+    rounds, toks = counts.get("spec_rounds", 0), counts.get("spec_tokens", 0)
+    return {"decode_ms_per_token": r["decode_ms_per_token"], "rounds": rounds,
+            "tokens_per_round": toks / rounds if rounds else 0.0,
+            "acceptance": (toks - rounds) / (SPEC_K * rounds) if rounds else 0.0,
+            "decoded_steps": r["decoded_steps"]}
+
+
+def phase_speculative(tmp: Path, runner, gguf: str, serving: dict) -> dict:
+    """Speculative decoding on the 7B file of phase 5, K = SPEC_K: the plain
+    graphed Runner's ~700-token prompt and 128 greedy tokens (the baseline),
+    then `Runner(path, speculative=4)` (prompt lookup), `Runner(path,
+    draft_model=<the 7B widths at 2 layers, another seed>)` and the target
+    as its own draft (every draft accepted), each against the plain tokens;
+    the decode kernels, not flash, carry each verify (T = 5 at G = 4). Then
+    the 16 requests of phase 6 through an 8-slot PagedServingEngine with
+    speculative=4, the greedy ones against phase 6's tokens, and the dense
+    ServingEngine with speculative=4 on the prompt and a short request at
+    step(1) (a verify a step) and step(8) (eight rounds a step), against
+    the Runner's tokens. A token that differs from plain greedy decode is
+    held to a near tie (_held) and reported."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    prompt = PROMPT_SENTENCE * PROMPT_REPEATS
+    prompt_ids = runner.tokenizer.encode(prompt, bos=True)
+    args = (runner.weights, runner.cfg, runner.compute_dtype, runner.kv_dtype, prompt_ids)
+    _build.launches.clear()  # counts from here on are the speculative path's
+    plain = _one_run(runner, prompt, _build.launches)  # the cached graph, tick 1
+    want = plain["tokens"]
+    draft = build_synth_gguf(str(tmp / "synth-7b-draft.gguf"), "7b", seed=3,
+                             layers=SPEC_DRAFT_LAYERS)
+    rec = {"k": SPEC_K, "draft_layers": SPEC_DRAFT_LAYERS,
+           "plain": {"decode_ms_per_token": plain["decode_ms_per_token"],
+                     "decoded_steps": plain["decoded_steps"]}}
+    for what, kw, steps in (("lookup", dict(speculative=SPEC_K), DECODE_STEPS),
+                            ("draft", dict(draft_model=draft), SPEC_DRAFT_STEPS),
+                            ("oracle", dict(draft_model=gguf), SPEC_DRAFT_STEPS)):
+        spec = Runner(gguf, **kw)
+        if spec.speculative != SPEC_K:
+            fail(f"speculative {what}: K = {spec.speculative}")
+        r = _one_run(spec, prompt, _build.launches, steps=steps)
+        stats = _spec_stats(r, spec.metrics.counts)
+        stats["held"] = _held(f"speculative {what}", *args, want[:steps], r["tokens"], 1)
+        dec = r["launches_decode"]
+        stats["launches_decode"] = dec
+        if dec.get("decode_attention", 0) <= 0 or dec.get("flash_attention", 0):
+            fail(f"speculative {what}: the verifies launched {dec}: the decode kernel must "
+                 "carry them, not flash")
+        if stats["rounds"] <= 0:
+            fail(f"speculative {what}: no speculative round ran")
+        say(f"speculative {what} (K={SPEC_K}): {stats['decoded_steps']} tokens, "
+            f"{stats['decode_ms_per_token']:.3f} ms/token (plain graphed "
+            f"{plain['decode_ms_per_token']:.3f}), {stats['rounds']} rounds, "
+            f"{stats['tokens_per_round']:.2f} tokens a round, drafts accepted "
+            f"{stats['acceptance']:.1%}, tokens {'= plain greedy' if not stats['held'] else 'held'}")
+        rec[what] = stats
+        del spec
+        torch.cuda.empty_cache()
+    if rec["oracle"]["acceptance"] < 0.9:
+        fail(f"speculative oracle: the target as its own draft accepted "
+             f"{rec['oracle']['acceptance']:.1%} of its drafts")
+    os.remove(draft)
+
+    # the paged engine on phase 6's requests; the greedy ones against its tokens
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=SERVING_PAGES, seq_len=CTX,
+                             seed=7, speculative=SPEC_K)
+    reqs = _serving_requests(runner, seed=21)
+    _build.launches.clear()
+    paged = _drain(eng, reqs)
+    paged["launches"] = dict(_build.launches)
+    paged.update(spec_ticks=eng.spec_ticks, spec_tokens=eng.spec_tokens)
+    _say_run(f"speculative serving (K={SPEC_K}), 7B, 8 slots, 256-page pool", paged)
+    held = []
+    for r, plain_toks in zip(reqs, serving["tokens"]):
+        if r.temperature == 0.0:
+            h = _held(f"speculative paged request {r.request_id}", *args[:4], r.prompt_tokens,
+                      plain_toks, list(r.output_tokens), SERVING_SLOTS)
+            held += [h] if h else []
+    paged["held"] = held
+    if eng.spec_ticks <= 0 or paged["launches"].get("paged_decode_attention", 0) <= 0:
+        fail(f"speculative paged serving: {eng.spec_ticks} verify steps, launches "
+             f"{paged['launches']}")
+    say(f"speculative paged serving: {eng.spec_ticks} verify steps gave {eng.spec_tokens} "
+        f"greedy tokens; greedy requests = plain but {len(held)} held to near ties")
+    rec["paged"] = paged
+    del eng
+
+    # the dense engine: a verify a step, then eight rounds a step
+    short = _serving_requests(runner, seed=21)[0].prompt_tokens
+    for multi in (1, 8):
+        eng = ServingEngine(runner, n_slots=2, seq_len=runner.seq_len,
+                            prefill_chunk=PREFILL_CHUNK, seed=7, speculative=SPEC_K)
+        same = Request(prompt=prompt, max_tokens=DENSE_ENGINE_TOKENS)
+        other = Request(prompt="", prompt_tokens=short, max_tokens=DENSE_ENGINE_TOKENS)
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in (same, other):
+            eng.submit(q)
+        while any(eng.slots) or not eng.pending.empty():
+            eng.step(multi)
+        torch.cuda.synchronize()
+        dense = {"wall_s": time.perf_counter() - t0, "launches": dict(_build.launches),
+                 "spec_ticks": eng.spec_ticks, "spec_tokens": eng.spec_tokens}
+        dense["held"] = _held(f"speculative dense engine step({multi})", *args, want[:32],
+                              list(same.output_tokens), 2)
+        if eng.spec_ticks <= 0 or dense["launches"].get("decode_attention", 0) <= 0:
+            fail(f"speculative dense engine step({multi}): {eng.spec_ticks} rounds, launches "
+                 f"{dense['launches']}")
+        say(f"speculative dense engine step({multi}): {eng.spec_ticks} rounds, "
+            f"{eng.spec_tokens} greedy tokens in {dense['wall_s']:.2f} s, the prompt's tokens "
+            f"{'= the Runner' if not dense['held'] else 'held'}")
+        rec[f"dense_step{multi}"] = dense
+        del eng
+    torch.cuda.empty_cache()
+    rec["launches"] = rec["paged"]["launches"]
+    return rec
 
 
 def phase_dense_int8(tmp: Path) -> dict:
@@ -2745,7 +2991,7 @@ def phase_moe_scheme(tmp: Path, what: str, scheme: str, mix: str | None, seed: i
     # against float32 on the Q8_0 and Q5_K_M files), where the kernels meet
     # the plain bfloat16 run on 98-100% of them
     plain = Runner(path, prefill_w8=False)  # the card side here, the dequant prefill below
-    fwd = phase_forward(tmp, "mixtral-8x7b", seed=seed, n_prompt=100, min_share=0.9,
+    fwd = phase_forward(tmp, "mixtral-8x7b", seed=seed, n_prompt=MOE_SCHEME_PROMPT, min_share=0.9,
                         scheme=scheme, mix=mix, path=path, cpu_dtype=torch.bfloat16,
                         card_weights=plain.weights, f32_card=True)
     w8_default = size >= 1 << 30
@@ -3693,6 +3939,8 @@ def main() -> int:
         main_rec, runner, gguf = timed("main", phase_main, tmp)
         report["main"] = main_rec
         serving = report["serving"] = timed("serving", phase_serving, runner)
+        spec = report["speculative"] = timed("speculative", phase_speculative, tmp, runner, gguf,
+                                             serving)
         del runner
         torch.cuda.empty_cache()
         f32_7b = report["7b-f32"] = timed("7b-f32", phase_7b_f32, gguf)
@@ -3753,7 +4001,8 @@ def main() -> int:
         if not report["moe_serving_forward"]["ok"]:
             failures.append("MoE serving forward check")
         moe = report["moe"] = timed("moe", phase_moe, tmp)
-        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"], **family_paths}
+        paths = {"moe": moe, "moe-dequant": moe["prefill_w8_against_q4k"], **family_paths,
+                 "speculative": spec, "speculative-dense": spec["dense_step1"]}
         for what, scheme, mix, seed in MOE_SCHEME_PATHS:
             rec = report[what] = timed(what, phase_moe_scheme, tmp, what, scheme, mix, seed)
             if not rec["forward"]["ok"]:

@@ -3,10 +3,13 @@
   python -m crabml_tpu_torch.cli model.gguf -p "Once upon a time" -n 64
   python -m crabml_tpu_torch.cli model.gguf -p "..." -n 16 --device cpu
   python -m crabml_tpu_torch.cli model.gguf -p "..." --dtype f32 --kv-dtype int8 -v
+  python -m crabml_tpu_torch.cli model.gguf -p "..." --speculative 4 --device cpu
+  python -m crabml_tpu_torch.cli model.gguf -p "..." --draft small.gguf
 
 The flags of crabml_tpu/cli.py's generation: --dtype, --kv-dtype,
 --probability (top-p), -v (the file's metadata before, the metrics table
-after), --seq-len, --seed and --mlock. --dtype defaults to bf16 on the card
+after), --seq-len, --seed, --mlock, and speculative decoding's --speculative
+K and --draft GGUF (greedy runs; the tokens are plain greedy decode's). --dtype defaults to bf16 on the card
 and f32 on the CPU; the JAX package's CLI defaults to f32 everywhere.
 
 Runs on `cuda` unless `--device` says otherwise; without a card it exits
@@ -35,6 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV cache dtype (default: the compute dtype)")
     ap.add_argument("--seq-len", type=int, default=None,
                     help="KV cache length (default and most: the model's context)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="prompt-lookup speculative decoding with draft length K (greedy "
+                         "runs): drafts from the sequence's own history, K + 1 tokens "
+                         "verified a step; the tokens are plain greedy decode's")
+    ap.add_argument("--draft", metavar="GGUF", default=None,
+                    help="two-model speculative decoding: a small draft GGUF of the same "
+                         "vocabulary; implies --speculative 4 unless it is given")
     ap.add_argument("--seed", type=int, default=0, help="the sampler's seed")
     ap.add_argument("--mlock", action="store_true",
                     help="mlock(2) the weight mmap (best effort)")
@@ -75,7 +85,8 @@ def main(argv=None) -> int:
                     kv_dtype=dtypes[args.kv_dtype],
                     sampler=Sampler(temperature=args.temperature, topp=args.probability),
                     seed=args.seed, device=device, prefill_w8=args.prefill_w8,
-                    kv_lane_pad=args.kv_lane_pad)
+                    kv_lane_pad=args.kv_lane_pad, speculative=args.speculative,
+                    draft_model=args.draft)
     t0 = time.perf_counter()
     print(args.prompt, end="", flush=True)
     for piece in runner.prefill_and_generate(args.prompt, args.steps):

@@ -1,4 +1,5 @@
-// decode_attention: GQA attention of T <= 8 new tokens over a dense KV cache.
+// decode_attention: GQA attention of T <= 8 new tokens, at any number of q
+// heads per kv head, over a dense KV cache.
 //
 // The dense instantiations of decode_core.cuh (see its note for the bound and
 // the design). Replaces crabml_tpu/ops/pallas/decode_attention.py::_kernel
@@ -16,9 +17,11 @@
 // T, hd) in the stored type and ks_new, vs_new (B, KV, T), or null when the
 // cache holds the step's keys. pos (B,) i32 = keys that precede the step,
 // less pos_bias (0, or -T when the caller holds each sequence's length with
-// the step). part_m, part_l (B, KV, n_chunks, T*G) and part_acc (B, KV, n_chunks, T*G, hd) float32 scratch; ticket (B*KV)
-// int32, zero before the launch and zero after it. The grid is (KV, B,
-// n_chunks) with n_chunks * 128 >= the most keys a sequence can have.
+// the step). With RT = ceil(T*G / 16) row tiles of TR = min(T*G, 16) rows:
+// part_m, part_l (B, KV*RT, n_chunks, TR) and part_acc (B, KV*RT, n_chunks,
+// TR, hd) float32 scratch; ticket (B*KV*RT) int32, zero before the launch and
+// zero after it. The grid is (KV*RT, B, n_chunks) with n_chunks * 128 >= the
+// most keys a sequence can have.
 extern "C" int decode_attention(int qtype, int ktype, const void* q, const void* k,
                                 const void* v, const void* ks, const void* vs,
                                 const void* k_new, const void* v_new, const void* ks_new,

@@ -1,6 +1,7 @@
 // decode_core: the one loop of every decode-attention kernel of the port.
 //
 // GQA attention of T <= 8 new tokens of each sequence over its cached keys,
+// at any number G of q heads per kv head (T*G query rows per kv head),
 // with four variations that the callers pick:
 //   - where key j of sequence b lives: a dense cache (B, KV, S, HD), or a
 //     page pool (n_pages, KV, 128, HD) reached through a block table
@@ -10,7 +11,8 @@
 //     probability;
 //   - softcap: s = cap * tanh(s / cap) before masking (0 = off);
 //   - win: a row at position p sees keys p - win < j <= p (0 = off); keys
-//     before the earliest row's window are never read;
+//     before the window of the earliest row of a block's row tile are never
+//     read;
 //   - an optional block of the step's own keys and values (B, KV, T, HD):
 //     when given, the cache holds pos[b] keys and keys pos[b]..pos[b]+T-1 come
 //     from the block; when null, the cache already holds them.
@@ -25,15 +27,27 @@
 // flops a byte, so the loop's job is to put enough bytes in flight and to
 // keep the arithmetic of each key from bounding the loop.
 //
-// Design. The work unit is one CHUNK of 128 keys of one (kv head, sequence):
-// in the paged form exactly one page, so a block reads one table entry. The
-// grid (KV, B, n_chunks) is planned on the host from the cache's capacity
-// alone (ops/cuda/decode_attention.py::plan); a block whose chunk holds no
-// key that a row of its sequence sees exits after reading pos. So a long
+// Design. The work unit is one CHUNK of 128 keys of one (kv head, sequence)
+// for one ROW TILE of at most 16 query rows: in the paged form exactly one
+// page, so a block reads one table entry. The T*G rows of a (kv head,
+// sequence) split into RT = ceil(T*G / 16) tiles (one tile up to T*G = 16,
+// four at the widest verify step, T = 8 at G = 7 or 8); tile i holds rows
+// 16i .. 16i+15. The grid (KV*RT, B, n_chunks), x = kv*RT + tile, is planned
+// on the host from the cache's capacity and the step's shape alone
+// (ops/cuda/decode_attention.py::plan); a block whose chunk holds no key
+// that a row of its tile sees exits after reading pos. So a long
 // sequence is spread over as many blocks as it has pages, and every working
 // block does the same <= 128 keys, whatever the batch's spread of lengths.
+// Each tile is a block of its own and reads the chunk's K and V again: the
+// tiles of one chunk are neighbours in x, so they run together and the
+// second read mostly finds the chunk in L2. A block that holds every row
+// (up to four m16 tiles) would read K and V once, but at head dim 256 a
+// 16-row block already takes ~154 KB of shared memory (~218 KB with int8's
+// staging area), of the 227 KB a block may have: the 16-row tile is kept
+// for every head dim and dtype, and the partials and tickets are per
+// (sequence, kv head, row tile).
 // A block of NW warps:
-//   1. copies the query rows (zero rows up to 16), the chunk's K and its V
+//   1. copies its tile's query rows (zero rows up to 16), the chunk's K and V
 //      into shared memory with 16-byte cp.async in two groups (K, then V, so
 //      V is in flight while the scores are computed). Keys that no row sees,
 //      before the window or past the live keys, are zero-filled, not loaded:
@@ -51,7 +65,7 @@
 //      HD / NW output dims;
 //   5. a sequence's only live chunk writes the output. Otherwise each chunk
 //      writes (max, sum, O) to a partial slot and takes a ticket; the last
-//      block of the (b, kv) to arrive merges the chunks in chunk order and
+//      block of the (b, kv, tile) to arrive merges the chunks in chunk order and
 //      resets the ticket. One launch, no atomics on values: deterministic.
 // Tiles are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8),
 // so ldmatrix and the row-wise float4 reads are free of bank conflicts.
@@ -94,7 +108,7 @@ namespace decode_core {
 
 constexpr int PAGE = 128;   // rows of a page of the paged pool
 constexpr int CHUNK = 128;  // keys a block takes: one page
-constexpr int ROWS = 16;    // query rows of a tile (T * G <= 16)
+constexpr int ROWS = 16;    // query rows of a row tile: rows 16i .. 16i+15 of T * G
 constexpr int NW = 8;       // warps of a block: 16 keys each
 constexpr int NT = NW * 32;
 constexpr int KPL = CHUNK / 32;  // keys a lane in the softmax
@@ -129,33 +143,33 @@ struct Params {
     const float* ks_new; // int8 with a new block: (B, KV, T)
     const float* vs_new;
     const int* pos;      // (B,) keys that precede the step's tokens, less pos_bias
-    float* part_m;       // (B, KV, n_chunks, T*G) each chunk's row max
-    float* part_l;       //                            and row sum
-    float* part_acc;     // (B, KV, n_chunks, T*G, HD) and unnormalized output
-    int* ticket;         // (B*KV) zero between launches
+    float* part_m;       // (B, KV*RT, n_chunks, TR) each chunk's row max
+    float* part_l;       //                              and row sum
+    float* part_acc;     // (B, KV*RT, n_chunks, TR, HD) and unnormalized output
+    int* ticket;         // (B*KV*RT) zero between launches
     void* out;           // (B, T, KV*G, HD) in the q type
-    int B, KV, T, G, n_chunks;
+    int B, KV, T, G, n_chunks;  // RT = ceil(T*G / ROWS) row tiles, TR = min(T*G, ROWS)
     float scale, softcap;
     int win, pos_bias;   // pos_bias: -T when pos holds each sequence's length
 };
 
-// The keys of sequence b that the step reads; host-side mirror:
-// ops/cuda/decode_attention.py::block_keys.
+// The keys of sequence b that the rows of a tile read, t0 the token of the
+// tile's earliest row; host-side mirror: ops/cuda/decode_attention.py::block_keys.
 //   cached keys: first <= j < n_cache, at the cache's rows
 //   new keys:    max(first, n_cache) <= j < kend, at row j - n_cache of the block
 //   live chunks: c0 <= c < c1
 struct Keys {
     int p0, n_cache, kend, first, c0, c1;
 };
-__device__ __forceinline__ Keys keys_of(const Params& p, int b, int cap) {
+__device__ __forceinline__ Keys keys_of(const Params& p, int b, int cap, int t0) {
     Keys r;
     r.p0 = p.pos[b] + p.pos_bias;
     const int n_keys = max(r.p0 + p.T, 0);
     const bool fused = p.k_new != nullptr;
     r.n_cache = min(fused ? min(max(r.p0, 0), n_keys) : n_keys, cap);
     r.kend = fused ? min(n_keys, r.n_cache + p.T) : r.n_cache;
-    // the earliest row sits at p0 and sees keys j > p0 - win
-    r.first = p.win > 0 ? min(max(r.p0 + 1 - p.win, 0), r.kend) : 0;
+    // the tile's earliest row sits at p0 + t0 and sees keys j > p0 + t0 - win
+    r.first = p.win > 0 ? min(max(r.p0 + t0 + 1 - p.win, 0), r.kend) : 0;
     r.c0 = r.first / CHUNK;
     r.c1 = (r.kend + CHUNK - 1) / CHUNK;
     return r;
@@ -269,17 +283,20 @@ chunk_kernel(Params p, Addr addr) {
     static_assert(HP % (16 * NW) == 0 || !TC, "HP / NW output dims a warp, in 16s");
     static_assert(HD % 16 == 0 && NT == 2 * CHUNK, "a thread a key and tensor");
 
-    const int kv = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+    const int TG = p.T * p.G, RT = (TG + ROWS - 1) / ROWS, TR = min(TG, ROWS);
+    const int kv = blockIdx.x / RT, tile = blockIdx.x % RT, b = blockIdx.y, c = blockIdx.z;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int KV = p.KV, T_ = p.T, G = p.G, TG = T_ * G, H = KV * G;
-    const Keys kr = keys_of(p, b, addr.cap());
+    const int KV = p.KV, T_ = p.T, G = p.G, H = KV * G;
+    // the tile's rows: r0t + r for r < NR (every row index below is the tile's)
+    const int r0t = tile * ROWS, NR = min(ROWS, TG - r0t);
+    const Keys kr = keys_of(p, b, addr.cap(), r0t / G);
     const int n_live = max(kr.c1 - kr.c0, 0);
     QT* out = (QT*)p.out;
 
     if (c < kr.c0 || c >= kr.c1) {
-        if (n_live == 0 && c == 0)  // no key at all: every row gives 0
-            for (int i = tid; i < TG * HD / 4; i += NT) {
-                const int r = i / (HD / 4), d = i % (HD / 4) * 4, t = r / G, g = r % G;
+        if (n_live == 0 && c == 0)  // no key at all: every row of the tile gives 0
+            for (int i = tid; i < NR * HD / 4; i += NT) {
+                const int r = r0t + i / (HD / 4), d = i % (HD / 4) * 4, t = r / G, g = r % G;
                 put4(out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + d, 0.f, 0.f, 0.f, 0.f);
             }
         return;
@@ -309,17 +326,17 @@ chunk_kernel(Params p, Addr addr) {
     if constexpr (std::is_same_v<QT, CT>) {
         constexpr int QC = HD * (int)sizeof(QT) / 16;  // 16-byte chunks of a q row (HD's)
         for (int i = tid; i < ROWS * QC; i += NT) {
-            const int r = i / QC, cc = i % QC, t = r / G, g = r % G;
-            const bool ok = r < TG;
+            const int r = i / QC, cc = i % QC, t = (r0t + r) / G, g = (r0t + r) % G;
+            const bool ok = r < NR;
             const QT* src =
                 ok ? q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + cc * (16 / sizeof(QT)) : q;
             wg::cp_async16(wg::smem_u32(sQ + at(r, cc, ROW)), src, ok);
         }
     } else {  // a bfloat16 q under float32: widened on its way in, four values a step
         for (int i = tid; i < ROWS * HD / 4; i += NT) {
-            const int r = i / (HD / 4), d = i % (HD / 4) * 4, t = r / G, g = r % G;
+            const int r = i / (HD / 4), d = i % (HD / 4) * 4, t = (r0t + r) / G, g = (r0t + r) % G;
             float x4[4] = {0.f, 0.f, 0.f, 0.f};
-            if (r < TG) {
+            if (r < NR) {
                 const QT* src = q + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + d;
 #pragma unroll
                 for (int u = 0; u < 4; ++u) x4[u] = to_f32(src[u]);
@@ -409,9 +426,9 @@ chunk_kernel(Params p, Addr addr) {
                 make_float2(acc[nt][2], acc[nt][3]);
         }
     } else {
-        // thread: key tid % 128 against 8 rows (rows 8..15 only when T*G > 8)
+        // thread: key tid % 128 against 8 rows (rows 8..15 only when the tile has more than 8)
         const int j = tid % CHUNK, r0 = tid / CHUNK * 8;
-        if (r0 < TG) {
+        if (r0 < NR) {
             float s[8] = {};
             for (int cc = 0; cc < HD / 4; ++cc) {
                 const float4 k4 = *reinterpret_cast<const float4*>(sK + at(j, cc, ROW));
@@ -434,8 +451,8 @@ chunk_kernel(Params p, Addr addr) {
     // ---- 3. softmax over the tile, one warp a row --------------------------
     // P (in the compute type, the v scale folded in) replaces Q
     const int back = p.win > 0 ? p.win : 0x3fffffff;
-    for (int r = warp; r < TG; r += NW) {
-        const int rpos = kr.p0 + r / G;  // the row's position
+    for (int r = warp; r < NR; r += NW) {
+        const int rpos = kr.p0 + (r0t + r) / G;  // the row's position
         float s[KPL];
         bool live[KPL];
         float mx = CRABML_NEG_INF;
@@ -503,7 +520,7 @@ chunk_kernel(Params p, Addr addr) {
         // thread: dims 4 (tid % (HP/4)) .. +3 of rows r0, r0 + 1, ...
         constexpr int DC = HP / 4, RPT = ROWS * DC / NT;  // rows a thread
         const int cc = tid % DC, r0 = tid / DC * RPT;
-        if (r0 < TG && 4 * cc < HD) {
+        if (r0 < NR && 4 * cc < HD) {
             float acc[RPT][4] = {};
             for (int i = 0; i < CHUNK; ++i) {
                 const float4 v4 = *reinterpret_cast<const float4*>(sV + at(i, cc, ROW));
@@ -523,11 +540,11 @@ chunk_kernel(Params p, Addr addr) {
     __syncthreads();
 
     // ---- 5. write the output, or a partial and merge -----------------------
-    auto out_at = [&](int r, int d) {
-        return out + ((size_t)(b * T_ + r / G) * H + kv * G + r % G) * HD + d;
+    auto out_at = [&](int r, int d) {  // r: a row of the tile
+        return out + ((size_t)(b * T_ + (r0t + r) / G) * H + kv * G + (r0t + r) % G) * HD + d;
     };
     if (n_live == 1) {
-        for (int i = tid; i < TG * HD / 4; i += NT) {
+        for (int i = tid; i < NR * HD / 4; i += NT) {
             const int r = i / (HD / 4), d = i % (HD / 4) * 4;
             const float4 o = *reinterpret_cast<const float4*>(sO + r * SP + d);
             const float inv = 1.f / fmaxf(sL[r], 1e-30f);
@@ -535,15 +552,15 @@ chunk_kernel(Params p, Addr addr) {
         }
         return;
     }
-    const size_t bk = (size_t)b * KV + kv;
-    const size_t pbase = (bk * p.n_chunks + c) * TG;
-    if (tid < TG) { p.part_m[pbase + tid] = sM[tid]; p.part_l[pbase + tid] = sL[tid]; }
-    for (int i = tid; i < TG * HD / 4; i += NT) {
+    const size_t bk = ((size_t)b * KV + kv) * RT + tile;  // the (b, kv, tile)'s partials and ticket
+    const size_t pbase = (bk * p.n_chunks + c) * TR;
+    if (tid < NR) { p.part_m[pbase + tid] = sM[tid]; p.part_l[pbase + tid] = sL[tid]; }
+    for (int i = tid; i < NR * HD / 4; i += NT) {
         const int r = i / (HD / 4), d = i % (HD / 4) * 4;
         *reinterpret_cast<float4*>(p.part_acc + (pbase + r) * HD + d) =
             *reinterpret_cast<const float4*>(sO + r * SP + d);
     }
-    // the block's partial is written: the last of the (b, kv)'s blocks to
+    // the block's partial is written: the last of the (b, kv, tile)'s blocks to
     // take a ticket merges (acq_rel: it sees every earlier block's partial)
     __syncthreads();
     int* last = reinterpret_cast<int*>(smem + LY::FLAG);
@@ -558,7 +575,7 @@ chunk_kernel(Params p, Addr addr) {
     // a running max (one pass).
     constexpr int MERGE = 8;
     const size_t cbase = bk * p.n_chunks;
-    for (int i = tid; i < TG * HD / 4; i += NT) {
+    for (int i = tid; i < NR * HD / 4; i += NT) {
         const int r = i / (HD / 4), d = i % (HD / 4) * 4;
         float mx = CRABML_NEG_INF, sum = 0.f;
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -567,7 +584,7 @@ chunk_kernel(Params p, Addr addr) {
             float4 a[MERGE];
 #pragma unroll
             for (int u = 0; u < MERGE; ++u) {  // past the last chunk: the last again, weight 0
-                const size_t pr = (cbase + min(cb + u, kr.c1 - 1)) * TG + r;
+                const size_t pr = (cbase + min(cb + u, kr.c1 - 1)) * TR + r;
                 mc[u] = __ldcg(p.part_m + pr);
                 lc[u] = __ldcg(p.part_l + pr);
                 a[u] = __ldcg(reinterpret_cast<const float4*>(p.part_acc + pr * HD + d));
@@ -597,7 +614,8 @@ int launch(const Params& p, const Addr& addr, cudaStream_t stream) {
     const cudaError_t e = cudaFuncSetAttribute(chunk_kernel<QT, KT, Addr, HD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    chunk_kernel<QT, KT, Addr, HD><<<dim3(p.KV, p.B, p.n_chunks), NT, bytes, stream>>>(p, addr);
+    const int RT = (p.T * p.G + ROWS - 1) / ROWS;
+    chunk_kernel<QT, KT, Addr, HD><<<dim3(p.KV * RT, p.B, p.n_chunks), NT, bytes, stream>>>(p, addr);
     return crabml_launch_status();
 }
 

@@ -1,5 +1,5 @@
-// paged_decode_attention: GQA attention of T <= 8 new tokens over a paged KV
-// pool, through a block table.
+// paged_decode_attention: GQA attention of T <= 8 new tokens, at any number of
+// q heads per kv head, over a paged KV pool, through a block table.
 //
 // The paged instantiations of decode_core.cuh (see its note for the bound and
 // the design). Replaces crabml_tpu/ops/pallas/decode_attention.py::_kernel

@@ -45,12 +45,18 @@ live view of a cache of another dtype to the compute dtype
 the device and reads nothing back to the host, no value and no data-dependent
 shape, so a CUDA graph captures it whole (runtime/generate.py replays it);
 it attends the step's k/v from their own block (decode_attention_fused) and
-writes them afterwards, as the JAX package's decode path does. `forward`
-takes the positions on the host, checks them against the cache and sends a
-single token to `decode_step`; a longer chunk is written first and attended
-over the cache with a causal bound per row, through the decode kernel when
-it is a few tokens (ops.cuda.decode_attention.decode_eligible) and through
-the flash kernel otherwise.
+writes them afterwards, as the JAX package's decode path does. `verify_step`
+is its twin for T <= 8 tokens a sequence (a speculative verify of K + 1
+tokens, runtime/speculative.py and the serving engines): also positions on
+the device and no host read; the step's k/v are written first and attended
+over the cache with a causal bound per row through the decode kernel (at any
+number of q heads per kv head), or, at a head dim the decode kernels do not
+take (16), through flash over the whole cache masked by pos, as
+`decode_step` does. `forward` takes the positions on the host, checks them
+against the cache and sends a single token to `decode_step` and a chunk the
+decode kernels take (ops.cuda.decode_attention.decode_eligible: T <= 8) to
+`verify_step`; a longer chunk is written first and attended over the live
+view of the cache through the flash kernel.
 """
 
 from __future__ import annotations
@@ -466,15 +472,53 @@ def decode_step(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.
     return final_logits(weights, x, cfg)[:, 0]
 
 
+def verify_step(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig, compute_dtype=torch.float32) -> torch.Tensor:
+    """T <= MAX_T tokens of B sequences: tokens (B, T) and pos (B,) int32, both
+    on the weights' device, pos[b] the keys sequence b holds. Writes the
+    tokens' k/v at pos[b] .. pos[b] + T - 1 in place and attends each row
+    over the cache up to its own position -> logits (B, T, V) float32. The
+    caller checks pos[b] + T <= cache.seq_len on the host; nothing here reads
+    the device. Counterpart of the JAX package's forward at T = K + 1 on its
+    decode kernel (crabml_tpu/models/forward.py:526-536, 644-651)."""
+    B, T = tokens.shape
+    dev = tokens.device
+    positions = pos[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
+    cos, sin = rope_tables(weights, positions, cfg)
+    use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    softcap = cfg.attn_logit_softcap
+    rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
+    kv_dtype = cache.k.dtype
+
+    x = embed(weights, tokens, cfg, compute_dtype)
+    for l, lw in enumerate(weights["layers"]):
+        k_l, v_l, ks_l, vs_l = _layer_cache(cache, l)
+        window = layer_window(cfg, l)
+
+        def kv_io(q, k, v):
+            _write_kv(cache, l, rows, cols, *quantize_new(k, v, kv_dtype))
+            if use_decode:
+                return decode_attention(q, k_l, v_l, pos, cfg.attn_scale, ks_l, vs_l,
+                                        softcap, window)
+            # a head dim the decode kernels do not take: the flash kernel over
+            # the whole cache, masked by pos (no live length on the host)
+            return flash_attention(q, dequantize_like(k_l, ks_l, q.dtype),
+                                   dequantize_like(v_l, vs_l, q.dtype), pos, cfg.attn_scale,
+                                   softcap, window)
+
+        x = layer_body(lw, x, cos, sin, cfg, kv_io)
+    return final_logits(weights, x, cfg)
+
+
 def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor,
             cfg: ModelConfig, compute_dtype=torch.float32) -> torch.Tensor:
     """tokens (B, T) on the weights' device; pos (B,) int on the CPU: valid
     cache length per sequence. Writes the new k/v into `cache` in place and
     returns logits (B, T, vocab) float32.
 
-    One token (T = 1) is a `decode_step`. A short chunk is written first and
-    attended over the cache with a causal bound per row (decode_attention), a
-    longer one the same way through the flash kernel."""
+    One token (T = 1) is a `decode_step`, a chunk the decode kernels take a
+    `verify_step`; a longer one is written first and attended over the live
+    view of the cache with a causal bound per row through the flash kernel."""
     B, T = tokens.shape
     starts = [int(p) for p in pos]
     if max(starts) + T > cache.seq_len:
@@ -483,9 +527,10 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
     pos_dev = pos.to(device=dev, dtype=torch.int32)
     if T == 1:
         return decode_step(weights, cache, tokens, pos_dev, cfg, compute_dtype)[:, None]
+    if decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
+        return verify_step(weights, cache, tokens, pos_dev, cfg, compute_dtype)
     positions = pos_dev[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
     cos, sin = rope_tables(weights, positions, cfg)
-    use_decode = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     softcap = cfg.attn_logit_softcap
     rows, cols = torch.arange(B, device=dev)[:, None], positions.long()
     n_keys = max(starts) + T
@@ -498,9 +543,6 @@ def forward(weights: dict, cache: KVCache, tokens: torch.Tensor, pos: torch.Tens
 
         def kv_io(q, k, v):
             _write_kv(cache, l, rows, cols, *quantize_new(k, v, kv_dtype))
-            if use_decode:
-                return decode_attention(q, k_l, v_l, pos_dev, cfg.attn_scale, ks_l, vs_l,
-                                        softcap, window)
             if cache.quantized or kv_dtype != q.dtype:  # convert only the live view
                 return flash_attention(
                     q, dequantize_like(k_l[:, :, :n_keys], _live(ks_l, n_keys), q.dtype),

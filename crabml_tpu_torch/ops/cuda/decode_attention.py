@@ -1,4 +1,5 @@
-"""Decode attention (T <= 8 new tokens) over one layer of the dense KV cache.
+"""Decode attention (T <= 8 new tokens, any number of q heads per kv head) over
+one layer of the dense KV cache.
 
 Counterpart of crabml_tpu/ops/pallas/decode_attention.py::decode_attention
 (kernel `_kernel`: the cache already holds the step's tokens) and
@@ -19,7 +20,9 @@ the 128 kernel's shared-memory tiles and the cache, q, the output and the
 partials keep their own width. `softcap` caps the
 scores as cap*tanh(s/cap) before masking; `local_window` > 0 lets a token see
 only the last `local_window` keys up to itself, and keys before the window
-are never read.
+are never read. The T * G query rows of a kv head (G q heads per kv head)
+run in row tiles of ROW_TILE: one tile up to 16 rows, four at a verify step
+of 8 tokens at G = 7 or 8 (csrc/decode_core.cuh's note says why).
 
 On a CPU tensor each wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -36,7 +39,7 @@ from . import _build
 from .flash_attention import flash_attention_plain
 
 MAX_T = 8  # widest q this path takes per step (decode, short prefill chunks)
-MAX_ROWS = 16  # query rows (T * q heads per kv head) of the kernel's tile
+ROW_TILE = 16  # query rows (of T * q heads per kv head) a block of the kernel takes
 HEAD_DIMS = (80, 96, 128, 256)  # head dims the kernel takes, in every dtype
 # the stored types, as csrc/decode_core.cuh's `dispatch` numbers them
 KV_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -49,22 +52,26 @@ _F = ctypes.c_float
 
 def decode_eligible(T: int, H: int, KV: int, hd: int) -> bool:
     """Whether the decode kernels take a step of T new tokens: at most MAX_T
-    tokens and 16 query rows (T * q heads per kv head) per kv head, head dim
-    80, 96, 128 or 256. Callers send every other attention to the flash
+    tokens at any number of q heads per kv head, head dim 80, 96, 128 or 256
+    (crabml_tpu/ops/pallas/decode_attention.py's rule, whose kernels take
+    multiples of 128). Callers send every other attention to the flash
     kernel."""
-    return T <= MAX_T and H % KV == 0 and hd in HEAD_DIMS and T * (H // KV) <= MAX_ROWS
+    return T <= MAX_T and H % KV == 0 and hd in HEAD_DIMS
 
 
 @dataclass(frozen=True)
 class Plan:
-    """Shape of one decode-attention launch. Block (kv, b, c) of the grid
-    takes keys c*CHUNK .. c*CHUNK+CHUNK-1 of sequence b; `part_stats` and
+    """Shape of one decode-attention launch. Block (kv * row_tiles + tile, b,
+    c) of the grid takes keys c*CHUNK .. c*CHUNK+CHUNK-1 of sequence b for
+    query rows tile*ROW_TILE .. +ROW_TILE-1 of kv head kv; `part_stats` and
     `part_acc` are the float32 partials of sequences with more than one live
-    chunk, `tickets` the int32 counters that find each (b, kv)'s last block."""
-    grid: tuple[int, int, int]  # (KV, B, n_chunks)
+    chunk, `tickets` the int32 counters that find each (b, kv, tile)'s last
+    block."""
+    grid: tuple[int, int, int]  # (KV * row_tiles, B, n_chunks)
     n_chunks: int
-    part_stats: tuple[int, ...]  # (B, KV, n_chunks, T*G): row max; row sum alike
-    part_acc: tuple[int, ...]  # (B, KV, n_chunks, T*G, hd)
+    row_tiles: int  # ceil(T*G / ROW_TILE)
+    part_stats: tuple[int, ...]  # (B, KV*row_tiles, n_chunks, min(T*G, ROW_TILE)): row max; sum
+    part_acc: tuple[int, ...]  # (B, KV*row_tiles, n_chunks, min(T*G, ROW_TILE), hd)
     tickets: int
 
 
@@ -74,21 +81,29 @@ def plan(B: int, KV: int, span: int, T: int, G: int, hd: int = 128) -> Plan:
     nothing on the device, so the launch never waits for the card and a CUDA
     graph can capture it; blocks past a sequence's live keys exit at once."""
     n = max(1, -(-span // CHUNK))
-    return Plan(grid=(KV, B, n), n_chunks=n, part_stats=(B, KV, n, T * G),
-                part_acc=(B, KV, n, T * G, hd), tickets=B * KV)
+    rt = -(-(T * G) // ROW_TILE)
+    tr = min(T * G, ROW_TILE)
+    return Plan(grid=(KV * rt, B, n), n_chunks=n, row_tiles=rt, part_stats=(B, KV * rt, n, tr),
+                part_acc=(B, KV * rt, n, tr, hd), tickets=B * KV * rt)
 
 
-def block_keys(c: int, pos: int, T: int, win: int, cap: int, fused: bool) -> dict:
-    """What block c of a sequence at `pos` reads, as csrc/decode_core.cuh's
-    `keys_of` and `chunk_kernel` decide it (this is their mirror, for the
-    tests): `cached` and `new` the key ranges [lo, hi) it loads from the cache
-    and from the step's block, `column` the table column it follows (None: no
-    table read), `live` whether it works, `zeros` whether it writes the zero
-    output of a sequence with no key. `cap`: keys the cache holds at most."""
+def tile_rows(tile: int, T: int, G: int) -> range:
+    """The query rows r = t*G + g of row tile `tile` of a step of T tokens."""
+    return range(tile * ROW_TILE, min(tile * ROW_TILE + ROW_TILE, T * G))
+
+
+def block_keys(c: int, pos: int, T: int, win: int, cap: int, fused: bool, t0: int = 0) -> dict:
+    """What block c of a sequence at `pos` reads for a row tile whose earliest
+    row is token t0 of the step, as csrc/decode_core.cuh's `keys_of` and
+    `chunk_kernel` decide it (this is their mirror, for the tests): `cached`
+    and `new` the key ranges [lo, hi) it loads from the cache and from the
+    step's block, `column` the table column it follows (None: no table read),
+    `live` whether it works, `zeros` whether it writes the zero output of a
+    sequence with no key. `cap`: keys the cache holds at most."""
     n_keys = max(pos + T, 0)
     n_cache = min(min(max(pos, 0), n_keys) if fused else n_keys, cap)
     kend = min(n_keys, n_cache + T) if fused else n_cache
-    first = min(max(pos + 1 - win, 0), kend) if win > 0 else 0
+    first = min(max(pos + t0 + 1 - win, 0), kend) if win > 0 else 0
     c0, c1 = first // CHUNK, -(-kend // CHUNK)
     lo, hi = max(c * CHUNK, first), min(c * CHUNK + CHUNK, kend)
     live = c0 <= c < c1
@@ -106,7 +121,7 @@ _retired_tickets: list[torch.Tensor] = []  # smaller buffers a captured graph ma
 
 def _ticket_buffer(n: int, device: torch.device) -> torch.Tensor:
     """Persistent int32 counters, zero between launches: the kernel's last
-    block of each (b, kv) resets its own. The buffer is made outside any CUDA
+    block of each (b, kv, row tile) resets its own. The buffer is made outside any CUDA
     graph's capture (the eager warm-up step makes it) so that it never lives
     in a graph's memory pool; one that grows keeps the old one alive for the
     graphs captured with it."""
@@ -160,7 +175,7 @@ def launch(entry: str, count: str, q, k, v, pos, scale: float, *, k_scale, v_sca
     G = H // KV
     _build.require(decode_eligible(T, H, KV, hd),
                    f"{count}: T={T} H={H} KV={KV} head_dim={hd} (need T<={MAX_T}, "
-                   f"T*G<={MAX_ROWS}, head_dim in {HEAD_DIMS})")
+                   f"H % KV == 0, head_dim in {HEAD_DIMS})")
     quant = k.dtype == torch.int8
     _build.require(q.dtype in (torch.bfloat16, torch.float32) and k.dtype == v.dtype
                    and k.dtype in KV_TYPES,

@@ -1,5 +1,5 @@
-"""Decode attention (T <= 8 new tokens) over a paged KV pool, through a block
-table.
+"""Decode attention (T <= 8 new tokens, any number of q heads per kv head) over
+a paged KV pool, through a block table.
 
 Counterpart of crabml_tpu/ops/pallas/decode_attention.py::
 paged_decode_attention (kernel `_kernel` with paged=True: the pool already

@@ -17,6 +17,14 @@ card and without that request it raises.
 dtype (default: the compute dtype), as the JAX Runner takes them. The
 default differs from the JAX package's, whose compute dtype is float32.
 
+`speculative` = K > 0 decodes greedy runs K + 1 tokens a verify
+(runtime/speculative.py): drafts from prompt lookup over the tokens the
+cache holds, or, with `draft_model` (a GGUF of the same vocabulary), from
+that model's own greedy chain; a draft model alone sets K = 4. The tokens
+are plain greedy decode's (a verify of K + 1 <= 16 rows takes the decode
+step's matmul route). Sampled runs decode plainly, and so does the end
+of the cache, as crabml_tpu/runtime/runner.py's _generate_speculative does.
+
 `prefill_w8` decides on the W8 prefill planes (int8 weights beside the
 quantized planes, 8 more bits a weight of device memory; chunks of 249 rows
 or more then take the W8 kernels): True attaches them all, False none, and None, the
@@ -32,7 +40,7 @@ import os
 import numpy as np
 import torch
 
-from ..errors import CacheError
+from ..errors import CacheError, UnsupportedError
 from ..gguf.reader import GGUFFile
 from ..models.config import ModelConfig, config_from_gguf
 from ..models.forward import KVCache, forward
@@ -45,6 +53,7 @@ from ..utils import resolve_device
 from ..utils.metrics import Metrics
 from .generate import decode_loop
 from .sampler import Sampler
+from .speculative import draft_model_loop, speculative_loop
 
 
 log = logging.getLogger("crabml_tpu_torch")
@@ -111,7 +120,8 @@ class Runner:
     def __init__(self, model: str | GGUFFile, seq_len: int | None = None,
                  compute_dtype=torch.bfloat16, kv_dtype=None,
                  sampler: Sampler | None = None, seed: int = 0, device=None,
-                 prefill_w8: bool | None = None, kv_lane_pad: bool = False):
+                 prefill_w8: bool | None = None, kv_lane_pad: bool = False,
+                 speculative: int = 0, draft_model: "str | GGUFFile | None" = None):
         self.device = resolve_device(device)
         gf = GGUFFile(model) if not isinstance(model, GGUFFile) else model
         self.cfg: ModelConfig = config_from_gguf(gf.metadata)
@@ -148,6 +158,21 @@ class Runner:
         self.pos = 0
         self.generated: list[int] = []  # token ids of the current generation
         self._decode_buf = Utf8Buf()
+        # the token consumed at each cache position, for the prompt-lookup
+        # drafts: a list that lost its tokens (reset, load_session) lowers
+        # acceptance, never correctness (runtime/speculative.py)
+        self._consumed: list[int] = []
+        self.speculative = speculative  # draft length K, 0 = off
+        self._draft: Runner | None = None
+        if draft_model is not None:
+            self._draft = Runner(draft_model, seq_len=self.seq_len, compute_dtype=compute_dtype,
+                                 kv_dtype=kv_dtype, device=self.device, prefill_w8=prefill_w8)
+            if self._draft.cfg.vocab_size != self.cfg.vocab_size:
+                raise UnsupportedError(
+                    f"draft model vocab {self._draft.cfg.vocab_size} != target vocab "
+                    f"{self.cfg.vocab_size}: speculative verify needs a shared tokenizer")
+            if self.speculative == 0:
+                self.speculative = 4
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -159,6 +184,9 @@ class Runner:
         self.pos = 0
         self.generated = []
         self._decode_buf = Utf8Buf()
+        self._consumed = []
+        if self._draft is not None:
+            self._draft.reset()
 
     def kv_cache_len(self) -> int:
         """Tokens the cache holds."""
@@ -207,6 +235,7 @@ class Runner:
         self.pos = int(data["pos"][0])
         self.generated = []
         self._decode_buf = Utf8Buf()
+        self._consumed = []  # the session file keeps no token history
 
     def _forward_tokens(self, token_ids: list[int]) -> torch.Tensor:
         """Forward `token_ids` at the current position in chunks; returns the
@@ -225,6 +254,7 @@ class Runner:
                              torch.tensor([self.pos], dtype=torch.int32), self.cfg,
                              self.compute_dtype)[:, -1]
             self.pos += len(chunk)
+            self._consumed.extend(chunk)
         return logits
 
     def prefill(self, prompt: str, bos: bool = True) -> tuple[int, int, int]:
@@ -234,7 +264,13 @@ class Runner:
         if not tokens:
             raise ValueError("expected at least 1 prompt token")
         with self.metrics.track("prefill"):
+            pos_before = self.pos
             logits = self._forward_tokens(tokens)
+            if self._draft is not None:
+                # the draft model consumes the prompt from the same position,
+                # so that its cache holds what the target's does
+                self._draft.pos = pos_before
+                self._draft._forward_tokens(tokens)
             token = int(self.sampler.sample(logits, self.generator)[0])
         self.metrics.count("prefill_tokens", len(tokens))
         return self.pos, tokens[-1], token
@@ -248,29 +284,89 @@ class Runner:
         host, as crabml_tpu's Runner.generate(tick=) / _generate_ticked do;
         the text streams a tick at a time. On EOS at index j of a tick the
         position goes back to just after it and the tick's later tokens are
-        dropped. Default: 1 (the JAX package takes 8 on a TPU only)."""
+        dropped. Default: 1 (the JAX package takes 8 on a TPU only).
+
+        With `speculative` > 0 a greedy run decodes by speculative rounds
+        instead (_generate_speculative)."""
         tick = max(1, tick or 1)
         remaining = self.seq_len - self.pos - 1
         if steps is not None:
             remaining = min(remaining, steps - 1)
         self.generated = [token]
         yield self.tokenizer.decode(token, self._decode_buf)
-        current = token
+        if self.speculative > 0 and self.sampler.temperature == 0.0:
+            yield from self._generate_speculative(token, remaining, self.speculative, tick)
+        else:
+            yield from self._generate_ticked(token, remaining, tick)
+
+    def _emit(self, toks: list[int], pos0: int, current: int):
+        """Deliver the tokens one dispatch decoded from `current` at pos0: the
+        position moves past each token as it is consumed, so on EOS it stays
+        just after it and positions beyond hold dropped writes. Yields the
+        text pieces; returns True at EOS."""
+        for j, t in enumerate(toks):
+            self.pos = pos0 + j + 1
+            self._consumed.append(current if j == 0 else toks[j - 1])
+            self.metrics.count("tokens")
+            if t == self.tokenizer.eos_token:
+                return True
+            self.generated.append(t)
+            yield self.tokenizer.decode(t, self._decode_buf)
+        return False
+
+    def _generate_ticked(self, current: int, remaining: int, tick: int):
         while remaining > 0:
             n = min(tick, remaining)
             pos0 = self.pos
             with self.metrics.track("decode"):
                 toks = decode_loop(self.weights, self.cache, [current], [pos0], n, self.cfg,
                                    self.compute_dtype, self.sampler, self.generator)[0].tolist()
-            for j, t in enumerate(toks):
-                self.pos = pos0 + j + 1  # positions beyond hold dropped in-tick writes
-                self.metrics.count("tokens")
-                if t == self.tokenizer.eos_token:
-                    return
-                self.generated.append(t)
-                yield self.tokenizer.decode(t, self._decode_buf)
+            if (yield from self._emit(toks, pos0, current)):
+                return
             current = toks[-1]
             remaining -= n
+
+    def _generate_speculative(self, current: int, remaining: int, draft: int, tick: int,
+                              rounds: int = 4):
+        """Greedy decode by speculative rounds: a dispatch runs `rounds`
+        rounds on the device (runtime/speculative.py: prompt lookup over the
+        consumed tokens, or the draft model's chain), each emitting 1 to
+        draft + 1 tokens, and the host reads them once. Near the end of the
+        cache, where a dispatch could pass it (S - 1 - pos < rounds *
+        (draft + 1)), the rest decodes by ticks, as the JAX Runner's
+        _generate_speculative does."""
+        S = self.seq_len
+        dev = self.device
+        while remaining > 0:
+            pos0 = self.pos
+            if S - 1 - pos0 < rounds * (draft + 1):
+                yield from self._generate_ticked(current, remaining, tick)
+                return
+            token = torch.tensor([current], dtype=torch.long, device=dev)
+            pos = torch.tensor([pos0], dtype=torch.int32, device=dev)
+            with self.metrics.track("decode"):
+                if self._draft is not None:
+                    d = self._draft
+                    outs, counts, _, _ = draft_model_loop(
+                        self.weights, self.cache, d.weights, d.cache, token, pos, rounds, draft,
+                        self.cfg, d.cfg, self.compute_dtype)
+                else:
+                    hist = torch.zeros(1, S, dtype=torch.long)
+                    n = min(len(self._consumed), pos0)
+                    if n:
+                        hist[0, pos0 - n:pos0] = torch.tensor(self._consumed[-n:])
+                    outs, counts, _, _, _ = speculative_loop(
+                        self.weights, self.cache, hist.to(dev), token, pos, rounds, draft,
+                        self.cfg, self.compute_dtype)
+                outs, counts = outs[:, 0].cpu().tolist(), counts[:, 0].cpu().tolist()
+            toks = [t for r in range(rounds) for t in outs[r][: counts[r]]]
+            self.metrics.count("spec_rounds", rounds)
+            self.metrics.count("spec_tokens", len(toks))
+            toks = toks[:remaining]  # at the steps cap the position stops after the last one
+            if (yield from self._emit(toks, pos0, current)):
+                return
+            current = toks[-1]
+            remaining -= len(toks)
 
     def prefill_and_generate(self, prompt: str, steps: int):
         _, _, token = self.prefill(prompt, bos=True)

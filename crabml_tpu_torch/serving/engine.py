@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over a pool of KV-cache slots.
 
 Counterpart of crabml_tpu/serving/engine.py (Request, LatencyHistogram,
-ServingEngine) without speculative decoding. A fixed pool of slots is the
+ServingEngine), speculative serving included. A fixed pool of slots is the
 batch: requests are admitted into free slots as they open, prompts prefill in
 bounded chunks between decode ticks, and one decode tick advances every slot.
 Idle and mid-prefill slots still step; the host ignores their token.
@@ -17,6 +17,29 @@ when a live request asked for them, and delivers them in order. On the card
 the tick is one captured CUDA graph (runtime/generate.py::StepGraph), one per
 set of sampling processors in use, captured when first needed; on the CPU
 it runs eagerly.
+
+Speculative serving (`speculative` = K > 0): a step verifies each slot's
+current token and K drafts in one forward of K + 1 tokens a slot
+(models.forward.verify_step, the decode kernels at T = K + 1; the paged
+engine writes and reads through its block table). Drafts come from prompt
+lookup over the request's tokens, or from a small draft model
+(`draft_runner`, or the Runner's `draft_model`) whose dense slot cache
+follows the target's positions: admission prefills it, a plain tick
+teacher-forces its tokens into it. A slot whose tokens can be speculated
+exactly (greedy, no penalty, bias or logprobs: `_spec_eligible`) takes the
+longest drafted prefix the verify's argmax agrees with and the verify's own
+next token; any other slot takes the sample of the verify's position 0,
+drawn with its own sampling state, so mixed traffic still speculates. With
+`spec_fused` and `step(multi)`, up to `multi` rounds run with the drafts
+made on the device and the host reads the tokens once (`_spec_scan`; the
+dense engine's default, as in the JAX package); otherwise one verify a step
+with drafts made on the host. Rounds run eagerly: no CUDA graph is captured
+for them yet. Speculation gives way to the plain tick when no active slot
+can speculate or a round could pass the end of the cache. A greedy
+request's tokens are plain greedy decode's wherever the verify's rows take
+the tick's matmul route; where they do not (on the card a verify of more
+than 16 rows takes the dequant kernel, the tick int8 activations), a near tie
+between two logits may go the other way.
 
 All device work happens on the thread that calls `step` (`run_forever` on the
 daemon's engine thread); other threads only touch the queues.
@@ -36,11 +59,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..errors import ConfigError
-from ..models.forward import KVCache, decode_step, forward
+from ..errors import ConfigError, UnsupportedError
+from ..models.forward import KVCache, decode_step, forward, verify_step
 from ..ops.cuda.flash_attention import check_card_model
 from ..runtime.generate import RING, StepGraph
 from ..runtime.sampler import LOGPROB_TOPK, sample_batch
+from ..runtime.speculative import accept, draft_chain, draft_tokens, write_history
 from ..tokenizer import Utf8Buf
 from ..utils import resolve_device
 
@@ -50,6 +74,68 @@ def _prefill_slot(weights, cache: KVCache, tokens, slot: int, pos0: int, cfg, co
     starting at `pos0`, writing that slot's cache in place -> logits (1, T, V)."""
     return forward(weights, cache.slot(slot), tokens, torch.tensor([pos0], dtype=torch.int32),
                    cfg, compute_dtype)
+
+
+def _lookup_draft(ctx, K: int) -> list[int]:
+    """Prompt-lookup drafting on the host (crabml_tpu/serving/engine.py's
+    _lookup_draft): the K tokens that followed the most recent earlier
+    occurrence of the context's last 2-gram, zero-padded; no match: K zeros
+    (the verify still emits its own next token)."""
+    c = np.asarray(ctx, np.int64)
+    if c.size >= 3:
+        hits = np.nonzero((c[:-2] == c[-2]) & (c[1:-1] == c[-1]))[0]
+        if hits.size:
+            i = int(hits[-1])
+            d = c[i + 2: i + 2 + K].tolist()
+            return d + [0] * (K - len(d))
+    return [0] * K
+
+
+def _accept_round(g, dr, nxt, token, active, eligible):
+    """One round's acceptance over the pool (crabml_tpu/serving/engine.py's
+    _accept_round): an eligible slot takes its longest drafted prefix that
+    the argmax g (B, K+1) agrees with and g's next token, any other active
+    slot the sample nxt of position 0; an inactive slot emits nothing and
+    keeps its token. -> (out (B, K+1) tokens to emit, count (B,), token)."""
+    n_acc = torch.where(eligible, accept(g, dr), 0)
+    count = torch.where(active, n_acc + 1, 0)
+    chosen = g.gather(1, n_acc[:, None])[:, 0]
+    token = torch.where(active, torch.where(eligible, chosen, nxt), token)
+    out = g.clone()
+    out[:, 0] = torch.where(eligible, g[:, 0], nxt)
+    return out, count, token
+
+
+def _spec_scan(verify, hist, token, pos, active, eligible, sampling, recent, generator,
+               chain, rounds: int, K: int, match_len: int = 2):
+    """`rounds` draft + verify rounds over the slot pool, on the device with
+    no host read (crabml_tpu/serving/engine.py::_spec_scan). verify(tokens
+    (B, K+1), pos (B,)) -> logits (B, K+1, V) writes the slots' k/v; drafts
+    come from `chain`(token, pos) -> (B, K) (the draft model) or, when it is
+    None, from the 2-gram lookup over hist (B, S). sampling(recent) -> the
+    sample_batch keywords of position 0, whose penalties read the `recent`
+    window (B, W), shifted by each round's token. -> (outs (R, B, K+1),
+    counts (R, B), (token logprobs (R, B), top logprobs, top ids))."""
+    outs, counts, lps = [], [], []
+    rec = recent
+    for _ in range(rounds):
+        if chain is not None:
+            dr = chain(token, pos)
+        else:
+            dr, hist = draft_tokens(hist, token, pos, K, match_len)
+        logits = verify(torch.cat([token[:, None], dr], dim=1), pos)
+        g = logits.argmax(dim=-1)
+        nxt, lp = sample_batch(logits[:, 0], generator, with_logprobs=True, **sampling(rec))
+        out, count, token = _accept_round(g, dr, nxt, token, active, eligible)
+        if chain is None:
+            write_history(hist, out, pos)
+        rec = torch.cat([rec[:, 1:], token[:, None]], dim=1)
+        pos = pos + count.to(torch.int32)
+        outs.append(out)
+        counts.append(count)
+        lps.append(lp)
+    return (torch.stack(outs), torch.stack(counts),
+            tuple(torch.stack(a) for a in zip(*lps)))
 
 
 @dataclass(frozen=True)
@@ -196,15 +282,22 @@ class ServingEngine:
 
     Frequency/presence penalties count only the most recent REPEAT_WINDOW
     output tokens, not the whole context as OpenAI's semantics do.
+
+    `speculative` = K > 0 turns on speculative serving (module note); a
+    Runner built with a `draft_model` lends its draft model and, unless K
+    is given, its K. `spec_fused` (default SPEC_FUSED_DEFAULT) lets
+    `step(multi)` run `multi` rounds with the drafts made on the device.
     """
 
     REPEAT_WINDOW = 64
+    SPEC_FUSED_DEFAULT = True  # the JAX package's dense default
 
     def __init__(self, runner=None, *, weights=None, cfg=None, tokenizer=None,
                  n_slots: int = 8, seq_len: int | None = None, compute_dtype=torch.float32,
                  kv_dtype=None, seed: int = 0, tick_tokens: int = 1,
                  prefill_chunk: int | None = 256, kv_lane_pad: bool = False,
-                 repeat_window: int | None = None, device=None):
+                 repeat_window: int | None = None, device=None, speculative: int = 0,
+                 draft_runner=None, spec_fused: bool | None = None):
         del kv_lane_pad  # the JAX engine's argument; changes nothing here (Runner's note)
         if repeat_window is not None:
             self.REPEAT_WINDOW = max(1, int(repeat_window))
@@ -212,6 +305,10 @@ class ServingEngine:
             weights, cfg, tokenizer = runner.weights, runner.cfg, runner.tokenizer
             compute_dtype = runner.compute_dtype
             device = runner.device if device is None else device
+            if draft_runner is None:
+                draft_runner = getattr(runner, "_draft", None)
+                if draft_runner is not None and not speculative:
+                    speculative = runner.speculative
         self.device = resolve_device(device)
         if weights is None or cfg is None:
             raise ConfigError("ServingEngine needs a runner, or weights and cfg")
@@ -245,6 +342,17 @@ class ServingEngine:
         self.ttft_hist = LatencyHistogram()  # submit -> first token
         self.e2e_hist = LatencyHistogram()  # submit -> finish
         self._started = None  # first-step timestamp (serving uptime)
+        self.speculative = max(0, int(speculative))  # draft length K, 0 = off
+        self.spec_fused = self.SPEC_FUSED_DEFAULT if spec_fused is None else spec_fused
+        self.spec_ticks = 0  # speculative rounds run
+        self.spec_tokens = 0  # tokens that greedy slots took from them
+        self._draft = None
+        if draft_runner is not None and self.speculative:
+            if draft_runner.cfg.vocab_size != cfg.vocab_size:
+                raise UnsupportedError(
+                    f"draft model vocab {draft_runner.cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: speculative verify needs a shared tokenizer")
+            self._draft = draft_runner
         self._reset_device_state()
 
     def _reset_device_state(self):
@@ -253,6 +361,10 @@ class ServingEngine:
         pools) rebuild it in _make_cache."""
         n = self.n_slots
         self.cache = self._make_cache()
+        # the draft model's slot cache (dense in both engines), its positions
+        # those of the target's slots
+        self._draft_cache = None if self._draft is None else KVCache.create(
+            self._draft.cfg, n, self.seq_len, self._draft.kv_dtype, self.device)
         self.pos = np.zeros(n, np.int32)
         self.cur_tok = np.zeros(n, np.int64)
         self.temp = np.zeros(n, np.float32)
@@ -420,8 +532,19 @@ class ServingEngine:
         """Forward `chunk` into the slot's cache at position `filled`;
         returns logits (1, len(chunk), V). Hook for PagedServingEngine."""
         tokens = torch.tensor([chunk], dtype=torch.long, device=self.device)
+        self._draft_prefill(slot, chunk, filled)
         return _prefill_slot(self.weights, self.cache, tokens, slot, filled, self.cfg,
                              self.compute_dtype)
+
+    def _draft_prefill(self, slot: int, chunk: list[int], filled: int):
+        """Two-model speculation: `chunk` into the draft model's slot cache at
+        `filled`, so that it holds the prompt as the target's does."""
+        if self._draft_cache is None:
+            return
+        d = self._draft
+        _prefill_slot(d.weights, self._draft_cache,
+                      torch.tensor([chunk], dtype=torch.long, device=self.device), slot, filled,
+                      d.cfg, d.compute_dtype)
 
     def _prefill_complete(self, slot: int):
         """Called once a slot's whole prompt is in cache (before its first
@@ -433,7 +556,7 @@ class ServingEngine:
         # claim the slot BEFORE device work: if prefill raises, run_forever's
         # recovery finds the request in self.slots and closes its stream
         self.slots[slot] = req
-        logits = self._prefill_chunk_device(slot, toks, 0)
+        logits = self._prefill_chunk_device(slot, toks, 0)  # the draft model's too
         self.prefill_tokens += len(toks)
         self.pos[slot] = len(toks)
         self._start_decoding(slot, toks, logits[:, len(toks) - 1])
@@ -520,14 +643,26 @@ class ServingEngine:
         # cap the ticks at the ring and so that no slot's writes pass
         # seq_len-1: over ALL slots, since a mid-prefill slot also gets a KV
         # write per tick at its filled offset
-        multi = max(1, min(multi, RING, self.seq_len - 1 - int(self.pos.max())))
-        if not self._ready(active, multi):
-            return self._occupied()
+        pmax = int(self.pos.max())
+        multi = max(1, min(multi, RING, self.seq_len - 1 - pmax))
         snapshot = list(self.slots)  # which request owned each slot at the start
         pos0 = self.pos.copy()
+        if self.speculative:
+            n = None
+            if multi > 1 and self.spec_fused:  # rounds on the device, drafts there too
+                n = self._spec_scan_tick(active, snapshot, pos0, pmax, multi)
+            if n is None and active:
+                n = self._spec_tick(active, snapshot, pos0, pmax)
+            if n is not None or not active:  # not active: the page hook preempted them all
+                return self._occupied()
+        if not self._ready(active, multi):
+            return self._occupied()
+        snapshot, pos0 = list(self.slots), self.pos.copy()  # after any preemption
         if self._started is None:
             self._started = time.monotonic()
+        cur = self.cur_tok.copy()
         toks, lp = self._run_ticks(multi, any(snapshot[i].logprobs is not None for i in active))
+        self._draft_sync(cur, toks, pos0)
         self.pos[active] += multi
         self.steps += multi
         for j in range(multi):
@@ -539,6 +674,193 @@ class ServingEngine:
                               logprob=None if lp is None else float(lp[0][i, j]),
                               top=None if lp is None else (lp[2][i, j], lp[1][i, j]))
         return self._occupied()
+
+    def _draft_sync(self, cur: np.ndarray, toks: np.ndarray, pos0: np.ndarray):
+        """Two-model speculation after a plain tick: the tokens every slot
+        consumed (cur, then the tick's tokens but the last) go through the
+        draft model at the slots' positions, so that its cache has no gap
+        where the target decoded without it."""
+        if self._draft_cache is None:
+            return
+        d = self._draft
+        inputs = np.concatenate([cur[:, None], toks[:, :-1]], axis=1)
+        forward(d.weights, self._draft_cache, torch.from_numpy(inputs).to(self.device),
+                torch.from_numpy(pos0), d.cfg, d.compute_dtype)
+
+    # -- speculative ticks ------------------------------------------------------
+
+    @staticmethod
+    def _spec_eligible(r: Request) -> bool:
+        """Whether a request's tokens can be speculated exactly: argmax
+        decoding (temperature 0, no penalty or bias, which change the
+        chosen token) and no logprobs (an accepted draft has no sampled
+        logprob)."""
+        return (r.temperature == 0.0 and not r.logit_bias and r.logprobs is None
+                and r.repetition_penalty == 1.0 and not r.frequency_penalty
+                and not r.presence_penalty)
+
+    def _verify_logits(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The verify forward of the pool: tokens (B, K+1) and pos (B,) on the
+        device -> logits (B, K+1, V), the slots' k/v written at pos ..
+        pos + K. PagedServingEngine verifies through its block table."""
+        return verify_step(self.weights, self.cache, tokens, pos, self.cfg, self.compute_dtype)
+
+    def _spec_tick(self, active, snapshot, pos0, pmax) -> int | None:
+        """One verify step with drafts made on the host (_make_drafts).
+        Returns the occupied-slot count, or None to leave the step to the
+        plain tick: no active slot can speculate, or the verify would pass
+        the end of the cache (pmax: the highest position of any slot, since
+        idle and mid-prefill slots write their K + 1 positions too)."""
+        K = self.speculative
+        if pmax + K + 1 > self.seq_len - 1:
+            return None
+        if not any(self._spec_eligible(snapshot[i]) for i in active):
+            return None
+        if not self._ready(active, K + 1):  # paged: every page the verify writes
+            return None
+        spec = [i for i in active if self._spec_eligible(snapshot[i])]
+        tokens_in = np.zeros((self.n_slots, K + 1), np.int64)
+        tokens_in[:, 0] = self.cur_tok
+        drafts = self._make_drafts(spec, snapshot, K)
+        tokens_in[spec, 1:] = drafts[spec]
+        if self._started is None:
+            self._started = time.monotonic()
+        logits = self._verify_logits(torch.from_numpy(tokens_in).to(self.device),
+                                     torch.from_numpy(self.pos).to(self.device))
+        nxt, lp = sample_batch(logits[:, 0], self._gen, with_logprobs=True,
+                               **self._sampling(np.arange(self.n_slots)))
+        out = logits.argmax(dim=-1).cpu().numpy()
+        nxt = nxt.cpu().numpy()
+        spec_set = set(spec)
+        acc = {}
+        for i in active:
+            m = 0
+            if i in spec_set:
+                while m < K and tokens_in[i, m + 1] == out[i, m]:
+                    m += 1
+            acc[i] = m
+        tok_lp = top_lp = top_id = None
+        if any(snapshot[i].logprobs is not None for i in active if i not in spec_set):
+            tok_lp, top_lp, top_id = (a.cpu().numpy() for a in lp)
+        for i in active:
+            self.pos[i] += acc[i] + 1
+        self.steps += 1
+        self.spec_ticks += 1
+        for j in range(K + 1):
+            for i in active:
+                if j > acc[i] or self.slots[i] is not snapshot[i]:
+                    continue  # the rejected tail, or finished earlier in this step
+                self.tokens_generated += 1
+                if i in spec_set:
+                    self.spec_tokens += 1
+                    self._deliver(i, int(out[i, j]), pos_after=int(pos0[i]) + j + 1)
+                else:  # j == 0: the sampled token
+                    self._deliver(i, int(nxt[i]), pos_after=int(pos0[i]) + 1,
+                                  logprob=None if tok_lp is None else float(tok_lp[i]),
+                                  top=None if top_id is None else (top_id[i], top_lp[i]))
+        return self._occupied()
+
+    def _spec_scan_tick(self, active, snapshot, pos0, pmax, multi: int) -> int | None:
+        """Up to `multi` rounds in one go with the drafts made on the device
+        (_spec_scan); the host reads the tokens once. None when fewer than 2
+        rounds fit before the end of the cache or the requests' budgets, or
+        no active slot can speculate: the single verify step is tried next."""
+        K = self.speculative
+        rounds = min(multi, (self.seq_len - 1 - pmax) // (K + 1))
+        # every round emits at least one token a slot: no more rounds than
+        # the largest remaining budget
+        rem = max(snapshot[i].max_tokens - len(snapshot[i].output_tokens) for i in active)
+        rounds = min(rounds, max(rem, 1))
+        if rounds < 2 or not any(self._spec_eligible(snapshot[i]) for i in active):
+            return None
+        if not self._ready(active, rounds * (K + 1)):
+            return None
+        spec = [i for i in active if self._spec_eligible(snapshot[i])]
+        B = self.n_slots
+        hist = np.zeros((B, self.seq_len), np.int64)
+        for i in active:
+            r = snapshot[i]
+            consumed = (list(self._trim_prompt(r)) + r.output_tokens[:-1])[: int(pos0[i])]
+            hist[i, : len(consumed)] = consumed
+        eligible = np.zeros(B, bool)
+        eligible[spec] = True
+        active_m = np.zeros(B, bool)
+        active_m[active] = True
+        if self._started is None:
+            self._started = time.monotonic()
+        outs, counts, lp = self._run_spec_scan(hist, active_m, eligible, rounds, K)
+        outs, counts = outs.cpu().numpy(), counts.cpu().numpy()
+        spec_set = set(spec)
+        tok_lp = top_lp = top_id = None
+        if any(snapshot[i].logprobs is not None for i in active if i not in spec_set):
+            tok_lp, top_lp, top_id = (a.cpu().numpy() for a in lp)
+        self.pos += counts.sum(axis=0).astype(np.int32)
+        self.steps += rounds
+        self.spec_ticks += rounds
+        off = dict.fromkeys(active, 0)
+        for r in range(rounds):
+            for i in active:
+                c = int(counts[r, i])
+                for j in range(c):
+                    if self.slots[i] is not snapshot[i]:
+                        break  # finished earlier in this step
+                    self.tokens_generated += 1
+                    at = int(pos0[i]) + off[i] + j + 1
+                    if i in spec_set:
+                        self.spec_tokens += 1
+                        self._deliver(i, int(outs[r, i, j]), pos_after=at)
+                    else:  # c == 1: the round's sampled token
+                        self._deliver(i, int(outs[r, i, 0]), pos_after=at,
+                                      logprob=None if tok_lp is None else float(tok_lp[r, i]),
+                                      top=None if top_id is None else (top_id[r, i],
+                                                                       top_lp[r, i]))
+                off[i] += c
+        return self._occupied()
+
+    def _make_drafts(self, spec, snapshot, K: int) -> np.ndarray:
+        """(n_slots, K) drafts: the draft model's greedy chain of K + 1 steps
+        (the last one writes the last draft's k/v, so a full accept leaves
+        no hole in its cache), else prompt lookup on the host for the
+        slots in `spec` (the others stay 0)."""
+        if self._draft_cache is not None:
+            d = self._draft
+            toks = draft_chain(d.weights, self._draft_cache,
+                               torch.from_numpy(self.cur_tok).to(self.device),
+                               torch.from_numpy(self.pos).to(self.device), K + 1, d.cfg,
+                               d.compute_dtype)
+            return toks[:, :K].cpu().numpy()
+        drafts = np.zeros((self.n_slots, K), np.int64)
+        for i in spec:
+            r = snapshot[i]
+            drafts[i] = _lookup_draft(list(r.prompt_tokens) + list(r.output_tokens), K)
+        return drafts
+
+    def _run_spec_scan(self, hist, active_m, eligible, rounds: int, K: int):
+        """The device half of the rounds (_spec_scan) through `_verify_logits`,
+        so that the paged engine's rounds go through its block table. ->
+        (outs (R, B, K+1), counts (R, B), logprob arrays) on the device."""
+        dev = self.device
+        proc = self._processors()
+        host = {n: torch.from_numpy(np.ascontiguousarray(getattr(self, n))).to(dev)
+                for n in ("temp", "topp", "minp", "rep_pen", "freq_pen", "pres_pen")}
+
+        def sampling(rec):
+            return _sampling_kwargs(proc, SimpleNamespace(recent=rec, **host), self._bias_dev)
+
+        chain = None
+        if self._draft_cache is not None:
+            d = self._draft
+
+            def chain(t, p):
+                return draft_chain(d.weights, self._draft_cache, t, p, K + 1, d.cfg,
+                                   d.compute_dtype)[:, :K]
+
+        return _spec_scan(self._verify_logits, torch.from_numpy(hist).to(dev),
+                          torch.from_numpy(self.cur_tok).to(dev),
+                          torch.from_numpy(self.pos).to(dev),
+                          torch.from_numpy(active_m).to(dev), torch.from_numpy(eligible).to(dev),
+                          sampling, torch.from_numpy(self.recent).to(dev), self._gen, chain,
+                          rounds, K)
 
     def _deliver_first(self, slot: int, req: Request, first, first_lp):
         """Deliver a slot's first sampled token (from prefill logits),

@@ -17,6 +17,7 @@ flight batch continuously onto the slot pool.
 
     python -m crabml_tpu_torch.serving.http model.gguf --paged
     python -m crabml_tpu_torch.serving.http model.gguf --device cpu --dtype f32
+    python -m crabml_tpu_torch.serving.http model.gguf --speculative 4 --draft small.gguf
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ def make_handler(engine: ServingEngine):
                 rows = [
                     ("crabml_slots_total", "gauge", engine.n_slots),
                     ("crabml_slots_busy", "gauge", sum(r is not None for r in engine.slots)),
+                    ("crabml_spec_ticks_total", "counter", engine.spec_ticks),
+                    ("crabml_spec_tokens_total", "counter", engine.spec_tokens),
                     ("crabml_requests_submitted_total", "counter", engine.requests_submitted),
                     ("crabml_requests_completed_total", "counter", engine.requests_completed),
                     ("crabml_decode_steps_total", "counter", engine.steps),
@@ -307,6 +310,13 @@ def engine_from_args(argv=None):
                     help="repetition/frequency/presence penalty window (default 64)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="speculative serving: verify K drafted tokens a slot a step (greedy "
+                         "requests take the drafts). Drafts come from prompt lookup, or from "
+                         "--draft's small model")
+    ap.add_argument("--draft", metavar="GGUF", default=None,
+                    help="small draft GGUF for two-model speculative serving (sets the draft "
+                         "length to 4 when --speculative is not given)")
     ap.add_argument("--kv-lane-pad", action="store_true",
                     help="accepted as the JAX package's daemon takes it, and changes nothing: "
                          "the attention kernels take head dims 80 and 96 as they are")
@@ -318,9 +328,9 @@ def engine_from_args(argv=None):
 
     dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     runner = Runner(args.model, seq_len=args.seq_len, compute_dtype=dt, device=args.device,
-                    kv_lane_pad=args.kv_lane_pad)
+                    kv_lane_pad=args.kv_lane_pad, draft_model=args.draft)
     kw = dict(n_slots=args.slots, seq_len=args.seq_len, tick_tokens=args.tick_tokens,
-              repeat_window=args.repeat_window,
+              repeat_window=args.repeat_window, speculative=args.speculative,
               kv_dtype=torch.int8 if args.kv_dtype == "int8" else None)
     if args.paged:
         from .paged import PagedServingEngine

@@ -1,8 +1,8 @@
 """Paged KV cache: block-pool serving memory with a prefix cache.
 
 Counterpart of crabml_tpu/serving/paged.py (PagedKVCache, paged_decode_step,
-paged_prefill_chunk, _scatter_prefill, PagedServingEngine) without
-speculative decoding. The slot-pool engine reserves seq_len cache rows per
+paged_prefill_chunk, paged_verify_step, _scatter_prefill,
+PagedServingEngine). The slot-pool engine reserves seq_len cache rows per
 slot; this one allocates KV memory in PAGE-token pages from a shared pool, so
 memory scales with the tokens in flight:
 
@@ -22,6 +22,11 @@ memory scales with the tokens in flight:
   ragged tail: ops.cuda.decode_attention.decode_eligible) attends through the
   block table (ops.cuda.paged_decode_attention); a longer one gathers the
   slot's live pages dense and takes the flash kernel.
+- `paged_verify_step`: the speculative verify, K + 1 tokens a slot written
+  through the block table and attended through it by the decode kernels
+  (ops.cuda.paged_decode_attention), every row with its causal bound; the
+  flash route at head dim 16. Positions on the device, nothing read on the
+  host.
 - `PagedServingEngine`: continuous batching over the pool: admission
   allocates the prompt's pages, each step allocates the pages its ticks
   reach before they run, finishing returns them; under pool pressure the youngest
@@ -33,6 +38,12 @@ memory scales with the tokens in flight:
   prompt, and the last prompt token is always recomputed so that sampling
   sees real logits. Finished requests' registered pages stay as evictable
   cache (LRU under pool pressure).
+- Speculative serving is ServingEngine's (serving/engine.py's note), its
+  verifies through `paged_verify_step`, the pages of a round's (or the
+  fused rounds') every position allocated before it; a draft model keeps a
+  dense slot cache beside the pool, and a prefix hit teacher-forces the
+  reused prefix through it. The fused rounds are off by default
+  (SPEC_FUSED_DEFAULT), as in the JAX package.
 
 The JAX package keeps its pools out of a layer scan and writes them after it
 so that a donated pool is updated in place, and pads chunks and page counts to
@@ -196,6 +207,57 @@ def paged_prefill_chunk(weights, cache: PagedKVCache, tokens, filled: int, slot_
     return final_logits(weights, x, cfg)
 
 
+def paged_verify_step(weights, cache: PagedKVCache, tokens, pos, cfg,
+                      compute_dtype) -> torch.Tensor:
+    """The speculative verify over the page pool: tokens (B, T <= 8) and pos
+    (B,) int32 on the device, pos[b] the tokens sequence b holds. Writes the
+    k/v of positions pos[b] .. pos[b] + T - 1 through the block table (the
+    caller allocated their pages; idle rows reach the scratch page) and
+    attends each row over its sequence's pages up to its own position ->
+    logits (B, T, V). Counterpart of crabml_tpu/serving/paged.py's
+    _paged_verify_fwd / paged_verify_step; nothing is read on the host."""
+    T = tokens.shape[1]
+    dev = tokens.device
+    pos_dev = pos.to(device=dev, dtype=torch.int32)
+    positions = pos_dev[:, None] + torch.arange(T, device=dev, dtype=torch.int32)[None]
+    cos, sin = rope_tables(weights, positions, cfg)
+    pl = positions.long()
+    page_of, off = cache.table.gather(1, pl // PAGE).long(), pl % PAGE  # (B, T) each
+    lengths = pos_dev + T
+    through_table = decode_eligible(T, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    kv_dtype = cache.k.dtype
+
+    x = embed(weights, tokens, cfg, compute_dtype)
+    for l, lw in enumerate(weights["layers"]):
+        k_l, v_l = cache.k[l], cache.v[l]
+        ks_l = vs_l = None
+        if cache.quantized:
+            ks_l, vs_l = cache.k_scale[l], cache.v_scale[l]
+        window = layer_window(cfg, l)
+
+        def kv_io(q, k, v):
+            kq, vq, ks, vs = quantize_new(k, v, kv_dtype)  # (B, T, KV, hd)
+            k_l[page_of, :, off] = kq
+            v_l[page_of, :, off] = vq
+            if ks is not None:
+                ks_l[page_of, :, off] = ks
+                vs_l[page_of, :, off] = vs
+            if through_table:
+                return paged_decode_attention(q, k_l, v_l, cache.table, lengths, cfg.attn_scale,
+                                              ks_l, vs_l, cfg.attn_logit_softcap, window)
+
+            def gathered(pool, scale):  # every page of each sequence's row, dense
+                return dequantize_like(gather_pages(pool, cache.table),
+                                       None if scale is None else gather_pages(scale, cache.table),
+                                       q.dtype)
+
+            return flash_attention(q, gathered(k_l, ks_l), gathered(v_l, vs_l), pos_dev,
+                                   cfg.attn_scale, cfg.attn_logit_softcap, window)
+
+        x = layer_body(lw, x, cos, sin, cfg, kv_io)
+    return final_logits(weights, x, cfg)
+
+
 def _scatter_prefill(cache: PagedKVCache, dense: KVCache, pages: list[int]):
     """Copy a dense (L, 1, KV, n*PAGE, hd) prefill cache into the pool pages
     `pages`, scales alongside (synchronous admission)."""
@@ -223,6 +285,10 @@ class PagedServingEngine(ServingEngine):
     it changes. A freed slot's row resets to the scratch page, so an idle
     slot can never write into a page that gets reallocated.
     """
+
+    # the JAX package measured its paged fused rounds slower than one verify
+    # a step (the pool carried through its rounds' scan); kept as its default
+    SPEC_FUSED_DEFAULT = False
 
     def __init__(self, runner=None, *, n_pages: int = 256, prefix_cache: bool = True, **kw):
         # 4 pages per chunk, written straight into the pool
@@ -366,12 +432,16 @@ class PagedServingEngine(ServingEngine):
             return
         # a prefix-cache hit starts the chunk loop at the first position that
         # was not reused: the reused pages' KV is already in the pool
-        self._prefilling[slot] = (toks, self._reuse.get(slot, 0))
+        reuse = self._reuse.get(slot, 0)
+        self._prefilling[slot] = (toks, reuse)
+        if reuse:  # the draft model has no pages to reuse: it takes the prefix now
+            self._draft_prefill(slot, toks[:reuse], 0)
         self.pos[slot] = 0  # the table row stays 0: the slot's decode-tick
         # writes land on the scratch page, never on owned pages
 
     def _prefill_chunk_device(self, slot: int, chunk: list[int], filled: int) -> torch.Tensor:
         tokens = torch.tensor([chunk], dtype=torch.long, device=self.device)
+        self._draft_prefill(slot, chunk, filled)
         return paged_prefill_chunk(self.weights, self.cache, tokens, filled, self._owned[slot],
                                    self.cfg, self.compute_dtype)
 
@@ -401,6 +471,7 @@ class PagedServingEngine(ServingEngine):
         logits = forward(self.weights, dense, tokens, torch.zeros(1, dtype=torch.int32),
                          self.cfg, self.compute_dtype)
         _scatter_prefill(self.cache, dense, pages)
+        self._draft_prefill(slot, toks, 0)
         self.prefill_tokens += len(toks)
         self._prefill_complete(slot)
         self.pos[slot] = len(toks)
@@ -438,6 +509,10 @@ class PagedServingEngine(ServingEngine):
 
     def _step_logits(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         return paged_decode_step(self.weights, self.cache, tok, pos, self.cfg,
+                                 self.compute_dtype)
+
+    def _verify_logits(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return paged_verify_step(self.weights, self.cache, tokens, pos, self.cfg,
                                  self.compute_dtype)
 
     def _release_pages(self, slot: int):

@@ -182,15 +182,19 @@ def test_decode_attention_forms_match_pallas(quant, T, softcap, window):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
-def test_decode_kernels_take_at_most_sixteen_query_rows():
-    """The decode kernels hold T * (q heads per kv head) <= 16 rows; callers
-    route every other step to the flash kernel. At 4 q heads per kv head (the
-    7B shape) a chunk of 5 to 8 tokens is not eligible."""
+def test_decode_kernels_take_up_to_eight_tokens_at_any_group():
+    """The decode kernels take T <= 8 new tokens at any number of q heads per
+    kv head, as the JAX package's decode kernels do
+    (crabml_tpu/ops/pallas/decode_attention.py::decode_eligible): past 16
+    query rows in row tiles of 16. At 4 q heads per kv head (the 7B shape) a
+    verify of 5 tokens (K = 4 drafts) is eligible; 9 tokens go to flash."""
+    from crabml_tpu.ops.pallas.decode_attention import MAX_T
     from crabml_tpu_torch.ops.cuda.decode_attention import decode_eligible
 
-    assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 128)] == [1, 2, 3, 4]
+    assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 128)] == list(range(1, MAX_T + 1))
     assert [T for T in range(1, 10) if decode_eligible(T, 8, 8, 128)] == list(range(1, 9))
     assert not decode_eligible(1, 32, 8, 64) and not decode_eligible(1, 32, 8, 48)
     assert decode_eligible(1, 32, 8, 96) and decode_eligible(1, 32, 8, 80)  # phi3, phi2
     assert decode_eligible(1, 32, 8, 256)  # gemma2's head dim takes them too
-    assert not decode_eligible(1, 24, 1, 128)  # 24 rows
+    assert decode_eligible(1, 24, 1, 128) and decode_eligible(8, 24, 1, 128)  # 24, 192 rows
+    assert not decode_eligible(1, 24, 5, 128)  # q heads not a multiple of the kv heads

@@ -199,11 +199,11 @@ def test_decode_forms_match_pallas_at_hd256(form, quant):
 
 def test_decode_eligible_at_hd256():
     """Head dim 256 takes the decode kernels (gemma2's decode step goes to
-    the fused form, not to flash over the whole cache), with the same 16-row
-    limit as 128; 64 does not, and 96 and 80 do since phi3 and phi2 were
-    ported."""
+    the fused form, not to flash over the whole cache), up to 8 tokens at any
+    group size as at 128; 64 does not, and 96 and 80 do since phi3 and phi2
+    were ported."""
     assert [T for T in range(1, 10) if decode_eligible(T, 16, 8, 256)] == list(range(1, 9))
-    assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 256)] == [1, 2, 3, 4]
+    assert [T for T in range(1, 10) if decode_eligible(T, 32, 8, 256)] == list(range(1, 9))
     assert not decode_eligible(1, 16, 8, 64)
     assert decode_eligible(1, 16, 8, 96) and decode_eligible(1, 16, 8, 80)
 

@@ -17,6 +17,7 @@ from crabml_tpu.ops.pallas.decode_attention import paged_decode_attention_fused 
 from crabml_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from crabml_tpu_torch.ops.cuda.decode_attention import (decode_attention, decode_attention_fused,
                                                         decode_eligible)
+from crabml_tpu_torch.models.forward import q8_vec
 from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention
 from crabml_tpu_torch.ops.cuda.paged_decode_attention import (PAGE, paged_decode_attention,
                                                               paged_decode_attention_fused)
@@ -61,10 +62,10 @@ def test_flash_plain_matches_pallas_at_any_group(G, pos0, softcap, window):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
-def test_decode_kernels_take_g7_up_to_two_tokens():
-    """At Qwen2-7B's 28 / 4 heads the decode kernels take T <= 2 (14 query
-    rows of 16); 3 to 8 tokens go to flash."""
-    assert [T for T in range(1, 10) if decode_eligible(T, 28, 4, 128)] == [1, 2]
+def test_decode_kernels_take_g7_up_to_eight_tokens():
+    """At Qwen2-7B's 28 / 4 heads the decode kernels take T <= 8 (up to 56
+    query rows, in four row tiles of 16); 9 tokens go to flash."""
+    assert [T for T in range(1, 10) if decode_eligible(T, 28, 4, 128)] == list(range(1, 9))
 
 
 FORMS = ["dense", "dense_fused", "paged", "paged_fused"]
@@ -77,9 +78,10 @@ def _case(seed: int, T: int, G: int, L=2, B=3, KV=2, S=384):
         ("kn", (B, KV, T, HD)), ("vn", (B, KV, T, HD)))}
 
 
-def _paged(c, prefix, T):
+def _paged(c, prefix, T, names=("k", "v")):
     """The dense cache's rows as a pool of 128-row pages behind a shuffled
-    table (unused entries 0, the scratch page): (k pool, v pool, table)."""
+    table (unused entries 0, the scratch page): (a pool for each of `names`,
+    in its own dtype and width, table)."""
     L, B, KV, S = c["k"].shape[:4]
     n = S // PAGE
     perm = np.random.default_rng(7).permutation(np.arange(1, B * n + 1)).reshape(B, n)
@@ -87,10 +89,11 @@ def _paged(c, prefix, T):
     for b, p in enumerate(prefix):
         table[b, :-(-(p + T) // PAGE)] = perm[b, :-(-(p + T) // PAGE)]
     pools = []
-    for a in (c["k"], c["v"]):
-        pool = np.zeros((L, B * n + 1, KV, PAGE, HD), np.float32)
-        rows = a.reshape(L, B, KV, n, PAGE, HD).transpose(0, 1, 3, 2, 4, 5)
-        pool[:, perm.reshape(-1)] = rows.reshape(L, B * n, KV, PAGE, HD)
+    for a in (c[name] for name in names):
+        d = a.shape[-1]
+        pool = np.zeros((L, B * n + 1, KV, PAGE, d), a.dtype)
+        rows = a.reshape(L, B, KV, n, PAGE, d).transpose(0, 1, 3, 2, 4, 5)
+        pool[:, perm.reshape(-1)] = rows.reshape(L, B * n, KV, PAGE, d)
         pools.append(pool)
     return (*pools, table)
 
@@ -136,5 +139,69 @@ def test_decode_forms_match_pallas_at_g7(form, T):
         want = j_decode(_j(c["q"]), _j(c["k"][layer]), _j(c["v"][layer]), _j(pos), scale, **kw)
         got = decode_attention(_t(c["q"]), _t(c["k"][layer]), _t(c["v"][layer]), _t(pos),
                                scale, softcap=softcap, local_window=window)
+    assert got.shape == (3, T, 2 * G * HD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("T,G", [(5, 4), (8, 7)])
+@pytest.mark.parametrize("form", FORMS)
+def test_decode_forms_match_pallas_past_sixteen_rows(form, T, G, kv):
+    """Every decode form past 16 query rows a kv head, the speculative
+    verify's shapes: the 7B's K = 4 verify (T = 5 at G = 4, 20 rows) and
+    Qwen2-7B's widest (T = 8 at G = 7, 56 rows), float32 and int8 storage
+    (payload and scales given to both packages as they are), the softcap 30
+    and a window of 100 keys, prefixes 0, a page edge and 300, against the
+    JAX kernels in interpret mode, which take any number of q heads a kv
+    head. Tolerance 2e-5 absolute (float32 math on both sides, int8
+    dequantized exactly; another order of sums)."""
+    softcap, window, scale, layer = 30.0, 100, 1.0 / np.sqrt(HD), 1
+    fused, paged = form.endswith("fused"), form.startswith("paged")
+    c = _case(90 + 4 * FORMS.index(form) + T + G, T, G)
+    prefix = (0, 128 if fused else 128 - T, 300)
+    pos = np.asarray(prefix, np.int32)
+    if not fused:  # the cache holds the step's tokens
+        for b, p in enumerate(prefix):
+            c["k"][layer, b, :, p:p + T] = c["kn"][b]
+            c["v"][layer, b, :, p:p + T] = c["vn"][b]
+    names = ("k", "v")
+    if kv == "int8":
+        for n in ("k", "v", "kn", "vn"):
+            qa, sa = q8_vec(torch.from_numpy(c[n]))
+            c[n], c[n + "_s"] = qa.numpy(), sa.numpy()
+        names = ("k", "v", "k_s", "v_s")
+    opt = lambda n: c.get(n)  # noqa: E731 - None for a float cache
+    jkw = dict(softcap=softcap, local_window=jnp.int32(window))
+    pkw = dict(softcap=softcap, local_window=window)
+    if paged:
+        k, v, *scales, table = _paged(c, prefix, T, names)
+        ks, vs = scales if scales else (None, None)
+        if fused:
+            want = j_paged_fused(_j(c["q"]), _j(k), _j(v), _j(table), jnp.int32(layer), _j(pos),
+                                 scale, _j(c["kn"]), _j(c["vn"]), _j(ks), _j(vs),
+                                 _j(opt("kn_s")), _j(opt("vn_s")), **jkw)
+            got = paged_decode_attention_fused(_t(c["q"]), _t(k), _t(v), _t(table), layer,
+                                               _t(pos), scale, _t(c["kn"]), _t(c["vn"]), _t(ks),
+                                               _t(vs), _t(opt("kn_s")), _t(opt("vn_s")), **pkw)
+        else:
+            sl = [None if a is None else a[layer] for a in (ks, vs)]
+            want = j_paged(_j(c["q"]), _j(k[layer]), _j(v[layer]), _j(table), _j(pos + T),
+                           scale, _j(sl[0]), _j(sl[1]), **jkw)
+            got = paged_decode_attention(_t(c["q"]), _t(k[layer]), _t(v[layer]), _t(table),
+                                         _t(pos + T), scale, _t(sl[0]), _t(sl[1]), **pkw)
+    elif fused:
+        want = j_decode_fused(_j(c["q"]), _j(c["k"]), _j(c["v"]), jnp.int32(layer), _j(pos),
+                              scale, _j(c["kn"]), _j(c["vn"]), _j(opt("k_s")), _j(opt("v_s")),
+                              _j(opt("kn_s")), _j(opt("vn_s")), **jkw)
+        got = decode_attention_fused(_t(c["q"]), _t(c["k"]), _t(c["v"]), layer, _t(pos), scale,
+                                     _t(c["kn"]), _t(c["vn"]), _t(opt("k_s")), _t(opt("v_s")),
+                                     _t(opt("kn_s")), _t(opt("vn_s")), **pkw)
+    else:
+        sl = [None if opt(n) is None else opt(n)[layer] for n in ("k_s", "v_s")]
+        want = j_decode(_j(c["q"]), _j(c["k"][layer]), _j(c["v"][layer]), _j(pos), scale,
+                        _j(sl[0]), _j(sl[1]), **jkw)
+        got = decode_attention(_t(c["q"]), _t(c["k"][layer]), _t(c["v"][layer]), _t(pos),
+                               scale, _t(sl[0]), _t(sl[1]), **pkw)
+    assert want is not None  # the JAX kernels take the shape
     assert got.shape == (3, T, 2 * G * HD)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-5)

@@ -939,6 +939,72 @@ def test_decode_forms_g7_replay_in_a_cuda_graph(cuda, form):
     _replay_case(cuda, form, "bf16", 128, 7)
 
 
+# -- past 16 query rows: the speculative verify's T * G (row tiles of 16) -----
+
+# (T, G): the 7B's K = 4 verify (20 rows, two tiles), Qwen2-7B's widest verify
+# (56 rows, four tiles, the last of 8), 3 tokens at G = 7 (21 rows: a tile of
+# 5), 8 tokens at G = 8 (64 rows), 17 rows at G = 1 being impossible (T <= 8)
+_WIDE = [(5, 4), (8, 7), (3, 7), (8, 8)]
+
+
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 70), (0.0, 300)])
+@pytest.mark.parametrize("T,G", _WIDE)
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_past_sixteen_rows_match_plain(cuda, form, kv, T, G, softcap, window):
+    """Every decode form at T * G > 16 query rows, where each row tile of 16
+    is a block of its own with partials and tickets of its own, every stored
+    type, softcap and window (a later tile's window starts later: keys before
+    it are never read), at the prefixes on both sides of every chunk edge and
+    the cache's last position; every row no query may see is NaN.
+    Tolerances as at 16 rows."""
+    before = dict(_build.launches)
+    got, want, count = _decode_case(form, kv, T, G, seed=100 + T * 10 + G, softcap=softcap,
+                                    window=window, poison=True)
+    torch.cuda.synchronize()
+    assert _build.launches[count] == before.get(count, 0) + 1
+    assert got.shape[-1] == 2 * G * 128
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (1e-4 if kv == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [80, 96, 256])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_past_sixteen_rows_at_every_head_dim(cuda, form, kv, hd, q_dtype):
+    """The 7B verify's 20 rows (T = 5, G = 4) at head dims 80, 96 and 256 in
+    every (q, cache) dtype pair, with softcap and window: float32 at 256
+    holds K and V in one tile (Layout::ONE_TILE), whose rows are still 16.
+    Tolerance: 1e-4 when q and the cache are float32, else 2^-7."""
+    pos = (0, 1, 127, 128, 129, 1000, 9 * PAGE - 5)
+    got, want, _ = _decode_case(form, kv, 5, 4, seed=hd + 7, softcap=30.0, window=200, pos=pos,
+                                poison=True, hd=hd, q_dtype=q_dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    exact32 = kv == "f32" and q_dtype == torch.float32
+    assert _rel(got, want) <= (1e-4 if exact32 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_past_sixteen_rows_are_deterministic(cuda, form):
+    """Two calls at 56 rows give the same bits: each tile's chunks merge in
+    chunk order, whichever block arrives last."""
+    one, _, _ = _decode_case(form, "int8", 8, 7, seed=3, window=100, pos=(0, 129, 700, 1000))
+    two, _, _ = _decode_case(form, "int8", 8, 7, seed=3, window=100, pos=(0, 129, 700, 1000))
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("T,G", [(5, 4), (8, 7)])
+@pytest.mark.parametrize("form", _FORMS)
+def test_decode_forms_past_sixteen_rows_replay_in_a_cuda_graph(cuda, form, T, G):
+    """The wide forms captured once and replayed at new positions, bit for
+    bit the eager call's output: the ticket buffer for the extra tiles is
+    made by the eager warm-up, outside the capture."""
+    _replay_case(cuda, form, "bf16", 128, G, window=300, T=T)
+
+
 # -- the decode step as a CUDA graph (runtime/generate.py) --------------------
 
 def _captured(fn):
@@ -973,7 +1039,7 @@ def test_decode_forms_hd256_replay_in_a_cuda_graph(cuda, form, kv):
     _replay_case(cuda, form, kv, 256, 2, softcap=50.0, window=300)
 
 
-def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0, q_dtype=torch.bfloat16):
+def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0, q_dtype=torch.bfloat16, T=1):
     g = torch.Generator(device=cuda).manual_seed(4)
     B, KV, n_slot_pages = 4, 2, 9
     S = n_slot_pages * PAGE
@@ -981,10 +1047,10 @@ def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0, q_dtype=torch.bfl
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=cuda)
 
-    q = rand(B, 1, KV * G, hd).to(q_dtype)
+    q = rand(B, T, KV * G, hd).to(q_dtype)
     paged, fused = form.startswith("paged"), form.endswith("fused")
     shape = (B * n_slot_pages + 1, KV, PAGE, hd) if paged else (B, KV, S, hd)
-    k, v, kn, vn = rand(*shape), rand(*shape), rand(B, KV, 1, hd), rand(B, KV, 1, hd)
+    k, v, kn, vn = rand(*shape), rand(*shape), rand(B, KV, T, hd), rand(B, KV, T, hd)
     ks = vs = ksn = vsn = None
     if kv == "int8":
         (k, ks), (v, vs), (kn, ksn), (vn, vsn) = (q8_vec(a) for a in (k, v, kn, vn))
@@ -1013,9 +1079,9 @@ def _replay_case(cuda, form, kv, hd, G, softcap=0.0, window=0, q_dtype=torch.bfl
                                             s(ks), s(vs), ksn, vsn, **kw)
 
     graph, out = _captured(call)
-    for at in ((0, 130, 511, 1000), (5, 777, S - 1, 3)):
+    for at in ((0, 130, 511, 1000), (5, 777, S - T, 3)):
         pos.copy_(torch.tensor(at, dtype=torch.int32))
-        lengths.copy_(pos + 1)
+        lengths.copy_(pos + T)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, call()), at
