@@ -80,8 +80,8 @@ fails:
    planes on the card.
 9. MoE: a synthetic Mixtral-8x7B GGUF in llama.cpp's Q4_K_M layout for 8
    experts (`mixtral-q4_k_m`: Q4_K q and gate|up experts, Q8_0 k and v, Q5_K
-   attn_output, the down experts in Q6_K in layers 0, 3, 6 and 7, Q4_K in the
-   others, a Q6_K output) cut to 8 of 32 layers, context 4096;
+   attn_output, the down experts in Q6_K in layers 2 and 3, Q4_K in 0 and 1,
+   a Q6_K output) cut to 4 of 32 layers, context 4096;
    `Runner(path)`, whose default must attach every W8 plane; the
    ~700-token prompt and 128 greedy tokens, twice through the graph and once
    through the eager step, identical; the same file
@@ -127,7 +127,7 @@ fails:
 11. gemma2 (PR 15): Gemma-2-9B's widths (hidden 3584, 16 q / 8 kv heads of
    head dim 256, so 4,096 q rows; vocab 256000, context 8192; the window of
    4,096 on even layers, softcaps 50 / 30, GELU, post-norms, a tied Q6_K
-   embedding) in llama.cpp's Q4_K_M layout at 8 of 42 layers (`gemma2-9b`):
+   embedding) in llama.cpp's Q4_K_M layout at 4 of 42 layers (`gemma2-9b`):
    `Runner(path)` with its default W8 planes, a 4,612-token prompt (nine
    512-token chunks, past the window, and a 4-token tail through the
    unfused decode form), 128 greedy tokens graphed at tick 1 (twice) and
@@ -141,7 +141,7 @@ fails:
 12. qwen2 and the other families: Qwen2-7B's widths (hidden 3584,
    intermediate 18944, 28 q heads over 4 kv heads of head dim 128, q / k / v
    biases, vocab 152064, rope theta 1e6, context cut to 4096) in llama.cpp's
-   Q4_K_M layout at 8 of 28 layers (`qwen2-7b`): phase 11's runs on the
+   Q4_K_M layout at 4 of 28 layers (`qwen2-7b`): phase 11's runs on the
    ~700-token prompt, whose 512- and 189-token chunks take flash at 7 q
    heads a kv head, the 16-request drain on the decode forms at 7 query rows,
    the dense engine against the Runner, and its 2-layer forward
@@ -152,11 +152,11 @@ fails:
    captured step equal to the eager step's).
 13. phi3 and phi2 (PR 17): Phi-3-mini-4k-instruct's widths (hidden 3072,
    intermediate 8192, 32 / 32 heads of head dim 96, vocab 32064, context
-   4096; fused attn_qkv, Q5_K under Q4_K_M, and gate|up) at 8 of its 32
-   layers (`phi3-mini`; its full depth until the float32 paths joined) and
+   4096; fused attn_qkv, Q5_K under Q4_K_M, and gate|up) at 4 of its 32
+   layers (`phi3-mini`) and
    phi-2's (hidden 2560, intermediate 10240, 32 heads of head dim 80, the
    rotary over 32 of them, vocab 51200, context
-   2048, LayerNorm, the parallel residual and every bias) at 8 of 32 layers
+   2048, LayerNorm, the parallel residual and every bias) at 4 of 32 layers
    (`phi2`), both in llama.cpp's Q4_K_M layout: phase 11's runs on the
    ~700-token prompt (flash at head dims 96 and 80, the decode forms at
    both), the drain, the dense engine, and each family's 2-layer forward.
@@ -217,11 +217,30 @@ fails:
    decode form past 16 query rows against its plain version (the 7B
    verify, T = 8 at G = 7, the 8-slot paged verify in bfloat16 and int8,
    head dims 256 in both dtypes and 96).
+17. stories: the reference's own models at their published widths,
+   full depth and vocabulary: stories15M (288 / 768, 6 layers of 6 heads of
+   head dim 48, vocab 32000, context 256) in F32, Q8_0 and Q4_0 (BASELINE.json's
+   configs #1 and #2; rows of 288 and 768, the legacy kinds' kernel planes
+   zero-padded to whole superblocks) and stories260K (64 / 172, 5 layers of 8
+   q heads of head dim 8 over 4 kv heads, vocab 512) in F32: each file's
+   forward against the CPU's (phase 3's gates, bfloat16 and float32);
+   `Runner(path)` in bfloat16 and in float32 on "captain america" for 100
+   greedy tokens, graphed twice and eagerly, identical, flash carrying every
+   attention (hd 48 and 8 are not decode head dims: no decode form may
+   launch) and the scheme's dequant and int8-activation forms every matmul of
+   a quantized file; both engines' greedy tokens equal to the Runner's, and a
+   16-request paged drain; the HTTP daemon on the stories260K file, three
+   POSTs at once, each text the Runner's; the CLI on the stories15M F32
+   file, its text the Runner's. Phase 2 holds flash at a head dim of each class below a tile
+   width (8, 24 with window and softcap, 48, 72, 104, 200, 248) in both
+   dtypes, and the Q8_0, Q4_0 and Q5_0 forms, qmm_w8 and Q8_0's float32
+   forms at stories15M's k = 288, against their plain versions.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
-Each of the paths 5, 6, 7, 9, 10, 11, 12, 13, 14, 15 and 16 is driven with the kernels' launch counters
-set to 0 just before it and read just after it; a kernel of a path that was
+Each of the paths 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16 and 17 is driven
+with the kernels' launch counters set to 0 just before it and read just
+after it; a kernel of a path that was
 never launched there fails the run. A replay of a captured graph counts the
 launches its capture recorded (ops/cuda/_build.py), so the graphed paths
 count as the eager ones did.
@@ -421,7 +440,7 @@ SERVING_SLOTS, SERVING_PAGES, SERVING_MAX_TOKENS = 8, 256, 64
 # speculative decoding: the draft length (the JAX package's default, crabml_tpu/cli.py) and
 # the draft model's depth (the 7B widths at 2 layers, another seed)
 SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
-SPEC_DRAFT_STEPS = 64  # greedy tokens of the two-model runs (the lookup run takes DECODE_STEPS)
+SPEC_DRAFT_STEPS = 32  # greedy tokens of the two-model runs (the lookup run takes DECODE_STEPS)
 SERVING_PREFIX = 256  # tokens that 8 of the 16 requests share
 # prompt lengths: unique prompts, and the tails after the shared prefix; tails
 # of at most 4 tokens (16 query rows a kv head) take the block-table kernel
@@ -445,17 +464,21 @@ F32_FORWARD_PROMPT = 40
 # covers every kernel and the block table; the CPU side, which gathers each
 # decode row's expert planes and dequantizes them, took 37 and 51 s at 2 (PR 15)
 SERVING_FORWARD_LAYERS = 1
-MOE_LAYERS = 8  # of Mixtral-8x7B's 32: with the W8 planes the full depth does not fit beside the pools
-# the MoE paged tick's contexts: short, because the CPU reference dequantizes
-# every expert a prefill uses to float32 (one prompt of 40 tokens uses them all)
-MOE_TICK_LENGTHS = (1, 2, 3, 4, 5, 6, 8, 40)
+# of Mixtral-8x7B's 32 (cut for the script's time): with the W8 planes the full depth does
+# not fit beside the pools; at 4, use_more_bits puts the down experts of layers 2 and 3 in
+# Q6_K, of 0 and 1 in Q4_K
+MOE_LAYERS = 4
+# the MoE paged tick's contexts, 4 slots (the CPU reference's plane-per-row product costs in
+# proportion): short, because the CPU reference dequantizes every expert a prefill uses to
+# float32 (one prompt of 40 tokens uses them all)
+MOE_TICK_LENGTHS = (1, 4, 8, 40)
 PROFILE_PROMPTS = (100, 200, 300, 400, 500, 600, 700, 800)  # the profiled ticks' contexts
 QKV_M = (HEADS + 2 * KV_HEADS) * HEAD_DIM
 # the gemma2 path: google/gemma-2-9b's widths (tools/synth_gguf.py "gemma2-9b": 16 q / 8 kv
 # heads of head dim 256 over a 3584-wide embedding, vocab 256000, context 8192, window 4096
-# on even layers, softcaps 50 / 30) in llama.cpp's Q4_K_M layout, 8 of its 42 layers
+# on even layers, softcaps 50 / 30) in llama.cpp's Q4_K_M layout, 4 of its 42 layers
 G2_DIM, G2_HEADS, G2_KV, G2_HD, G2_VOCAB, G2_CTX = 3584, 16, 8, 256, 256000, 8192
-G2_WINDOW, G2_SOFTCAP, G2_LAYERS = 4096, 50.0, 8
+G2_WINDOW, G2_SOFTCAP, G2_LAYERS = 4096, 50.0, 4
 G2_ATTN = (G2_HEADS, G2_KV, G2_HD, G2_CTX)  # the attention checks' dims
 # its prompt: nine 512-token chunks past the window and a 4-token tail, which
 # takes the unfused decode form (4 tokens x 2 q heads a kv head: 8 rows)
@@ -465,9 +488,10 @@ G2_KERNELS = ("flash_attention", "decode_attention", "decode_attention_fused", "
 # the qwen2 path: Qwen/Qwen2-7B's widths (tools/synth_gguf.py "qwen2-7b": 28 q heads
 # over 4 kv heads, so 7 a kv head, at head dim 128; hidden 3584, intermediate 18944, vocab
 # 152064, rope theta 1e6, q / k / v biases), the context cut to 4096, in llama.cpp's Q4_K_M
-# layout, 8 of its 28 layers; its ~700-token prompt's chunks of 512 and 189 tokens take flash
-# at G = 7, its decode step and the drain's ticks the decode forms at 7 query rows
-Q2_DIM, Q2_HEADS, Q2_KV, Q2_LAYERS = 3584, 28, 4, 8
+# layout, 4 of its 28 layers; its ~700-token prompt's chunks of 512 and 189
+# tokens take flash at G = 7, its decode step and the drain's ticks the decode forms at 7 query
+# rows
+Q2_DIM, Q2_HEADS, Q2_KV, Q2_LAYERS = 3584, 28, 4, 4
 Q2_ATTN = (Q2_HEADS, Q2_KV, HEAD_DIM, CTX)
 Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8", "qmm_w4a8_q6k")
 # the other families at their published widths, 2 layers each (phase_forward); Llama-3.1-8B
@@ -475,12 +499,12 @@ Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
 FAMILY_FORWARDS = (("qwen3-8b", 171), ("gemma-7b", 172))
 # the phi paths (tools/synth_gguf.py "phi3-mini": microsoft/Phi-3-mini-4k-instruct, 32 / 32
 # heads of head dim 96 over a 3072-wide embedding, intermediate 8192, vocab 32064, context
-# 4096, at 8 of its 32 layers; "phi2": microsoft/phi-2, 32 heads of head dim 80 over 2560, the
-# rotary over 32 dims, intermediate 10240, vocab 51200, context 2048, at 8 of 32 layers), both
+# 4096, at 4 of its 32 layers; "phi2": microsoft/phi-2, 32 heads of head dim 80 over 2560, the
+# rotary over 32 dims, intermediate 10240, vocab 51200, context 2048, at 4 of 32 layers), both
 # in llama.cpp's Q4_K_M layout (attn_qkv Q5_K); the ~700-token prompt's chunks take flash at
 # head dims 96 and 80, the decode step and the drain's ticks the decode forms at them
-P3_DIM, P3_HEADS, P3_HD, P3_VOCAB, P3_LAYERS = 3072, 32, 96, 32064, 8
-P2_DIM, P2_HEADS, P2_HD, P2_ROPE, P2_VOCAB, P2_CTX, P2_LAYERS = 2560, 32, 80, 32, 51200, 2048, 8
+P3_DIM, P3_HEADS, P3_HD, P3_VOCAB, P3_LAYERS = 3072, 32, 96, 32064, 4
+P2_DIM, P2_HEADS, P2_HD, P2_ROPE, P2_VOCAB, P2_CTX, P2_LAYERS = 2560, 32, 80, 32, 51200, 2048, 4
 PHI_ATTN = {"phi3-mini": (P3_HEADS, P3_HEADS, P3_HD, CTX),
             "phi2": (P2_HEADS, P2_HEADS, P2_HD, P2_CTX)}
 PHI_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8",
@@ -493,6 +517,22 @@ HF_ATTN = (4, 2, 16, 128)
 HF_TOL = 5e-4  # tests/test_family_goldens.py's rtol = atol
 HF_STEPS = 8  # greedy tokens of each engine request, held to the Runner's
 FAMILY_STEPS = 32
+# the reference's own models (crabml's testdata, karpathy's llama2.c checkpoints), at
+# their published widths, full depth and vocabulary (tools/synth_gguf.py): stories15M
+# (288 / 768, 6 layers of 6 heads of head dim 48, vocab 32000, context 256) in F32, Q8_0
+# and Q4_0 (BASELINE.json's configs #1 and #2: rows of 288 and 768, the legacy kinds'
+# planes padded to whole superblocks), and stories260K (64 / 172, 5 layers of 8 q heads
+# of head dim 8 over 4 kv heads, vocab 512, context 512) in F32: (model, scheme, seed)
+STORIES = (("stories15m", "f32", 301), ("stories15m", "q8_0", 302), ("stories15m", "q4_0", 303),
+           ("stories260k", "f32", 304))
+STORIES_PROMPT = "captain america"  # BASELINE.json's config #1
+STORIES_STEPS = 100
+STORIES_ENGINE_PROMPTS = (STORIES_PROMPT, "once upon a time there was a cat", "x")
+STORIES_ENGINE_TOKENS = 32
+STORIES_DRAIN_LENGTHS = (8, 16, 30, 50, 80, 100, 150, 190) * 2  # 16 requests, 64 tokens each
+S15_DIM, S15_FFN, S15_VOCAB, S15_CTX = 288, 768, 32000, 256
+S15_ATTN = (6, 6, 48, S15_CTX)
+S260_ATTN = (8, 4, 8, 512)
 # qmm_w4a8's checks (rows, m, k, planes, seed), also timed by tools/w4a8_turns.py:
 # every projection of the 7B decode step at one row and at the 8-slot tick's
 # 8 rows (qkv, wo, gate|up, down, lm_head), a 16-row tail, and Mixtral's
@@ -692,6 +732,7 @@ def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int
         qt = scheme_weight(scheme, m, k, seed, "cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    xp = _padded_x(x, qt)
     p = qt.planes
     # in the plain versions' order
     planes = [p[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[qt.kind]]]
@@ -706,14 +747,13 @@ def check_scheme_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int
         tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
         op_type = "int8"
     plain_fn = getattr(gemm_quant, f"{name}_plain")
-    plain = lambda: plain_fn(x, *planes)  # noqa: E731
+    plain = lambda: plain_fn(xp, *planes)  # noqa: E731
     kernel = lambda: wrapper(x, qt, torch.bfloat16)  # noqa: E731
     w_bf16 = dequantize(qt, torch.bfloat16)
     rec = _matmul_record(
         timer, name, f"{_on_planes(qt)}{rows}x{k} @ ({m}x{k})^T", kernel, plain,
         lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)", wrapper(x, qt), plain(),
-        kernel(), tol, why,
-        x.numel() * 2 + sum(t.numel() * t.element_size() for t in p.values()) + rows * m * 2,
+        kernel(), tol, why, x.numel() * 2 + _weight_bytes(qt) + rows * m * 2,
         2.0 * rows * m * k, op_type)
     return name, rec
 
@@ -735,6 +775,7 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
         qt = scheme_weight(scheme, m, k, seed, "cuda", torch.float32)
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda")
+    xp = _padded_x(x, qt)
     kind = FORM_KIND[qt.kind]
     planes = [qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]]
     if form == "dequant":
@@ -750,15 +791,30 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
         tol, why = 1e-4, "same int8 activations, float32 group sums in another order"
         op_type = "int8"
     kernel = lambda: wrapper(x, qt)  # noqa: E731
-    plain = lambda: plain_fn(x, *planes)  # noqa: E731
+    plain = lambda: plain_fn(xp, *planes)  # noqa: E731
     w32 = dequantize(qt)
     rec = _matmul_record(
         timer, name, f"{_on_planes(qt)}{rows}x{k} @ ({m}x{k})^T float32", kernel, plain,
         lambda: torch.matmul(x, w32.t()), "torch.matmul(f32, TF32 off)", kernel(), plain(), None,
-        tol, why,
-        x.numel() * 4 + sum(t.numel() * t.element_size() for t in qt.planes.values())
-        + rows * m * 4, 2.0 * rows * m * k, op_type)
+        tol, why, x.numel() * 4 + _weight_bytes(qt) + rows * m * 4, 2.0 * rows * m * k, op_type)
     return name, rec
+
+
+def _padded_x(x, qt):
+    """x (rows, k) zero-padded to the depth of `qt`'s kernel planes: a legacy
+    weight whose rows are not whole 256-element superblocks holds planes
+    padded with zero scales (quant/qtensor.py), which the plain versions take
+    as they are; the wrappers pad x themselves."""
+    import torch.nn.functional as F
+
+    return F.pad(x, (0, qt.plane_k - x.shape[1])) if qt.plane_k != x.shape[1] else x
+
+
+def _weight_bytes(qt) -> int:
+    """The bytes a product must read of `qt`'s planes: those of its k
+    columns, not of a padded tail (which the kernels read, at plane_k / k
+    the bytes: 1.78x at stories15M's k = 288)."""
+    return sum(t.numel() * t.element_size() for t in qt.planes.values()) * qt.k // qt.plane_k
 
 
 def _plane_bytes(qt, names, planes=None) -> int:
@@ -799,20 +855,23 @@ def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, 
     return rec
 
 
-def check_w8(timer, rows: int, m: int, k: int, seed: int) -> dict:
-    """qmm_w8 at a prefill chunk's rows of the 7B and Mixtral widths."""
+def check_w8(timer, rows: int, m: int, k: int, seed: int, qt=None) -> dict:
+    """qmm_w8 at a prefill chunk's rows of the 7B and Mixtral widths (on the
+    W8 planes of a Q4_K weight, or of `qt`)."""
     import torch
 
+    from crabml_tpu_torch.gguf.constants import GGMLType
     from crabml_tpu_torch.ops.cuda import gemm_quant
     from crabml_tpu_torch.quant.qtensor import dequantize
 
-    qt = gemm_quant.augment_w8(q4k_weight(m, k, seed, "cuda"))
+    qt = gemm_quant.augment_w8(qt if qt is not None else q4k_weight(m, k, seed, "cuda"))
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
     p = qt.planes
     w_bf16 = dequantize(qt, torch.bfloat16)
+    label = "" if qt.kind == GGMLType.Q4_K else f"W8 planes of a {qt.kind.name} weight: "
     return _matmul_record(
-        timer, "qmm_w8", f"{rows}x{k} @ ({m}x{k})^T",
+        timer, "qmm_w8", f"{label}{rows}x{k} @ ({m}x{k})^T",
         lambda: gemm_quant.qmm_w8(x, qt, torch.bfloat16),
         lambda: gemm_quant.qmm_w8_plain(x, p["w8"], p["dw"]),
         lambda: torch.matmul(x, w_bf16.t()), "torch.matmul(bf16)",
@@ -821,7 +880,8 @@ def check_w8(timer, rows: int, m: int, k: int, seed: int) -> dict:
         # the same int8 planes and bf16 x, exact products: only the order of
         # the float32 sums inside a 512-chunk differs
         1e-4, "same int8 planes, float32 sums in another order",
-        x.numel() * 2 + _plane_bytes(qt, ("w8", "dw")) + rows * m * 2, 2.0 * rows * m * k, "bf16")
+        x.numel() * 2 + _plane_bytes(qt, ("w8", "dw")) * k // p["w8"].shape[-1] + rows * m * 2,
+        2.0 * rows * m * k, "bf16")
 
 
 # the Mixtral prefill shape: a 512-token chunk is 1,024 (row, slot) pairs over
@@ -1426,6 +1486,45 @@ def spec_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def stories_checks(timer) -> dict[str, list[dict]]:
+    """The forms the TinyStories models take, in bfloat16 and float32: flash
+    at head dims that are not one of the tile widths, one of each class of
+    lanes a tile row holds past the head dim (8 and 48 on 64-wide tiles at
+    their models' shapes: a whole context as one prompt and the last decode
+    step, over the whole cache; 24 with the window 256 and the softcap 50,
+    72, 104, 200 and 248 at the 7B's 32 / 8 heads and a 512-token chunk at
+    pos 512); then, at stories15M's k = 288 (planes padded to 512 with zero
+    scales), the Q8_0, Q4_0 and Q5_0 dequant forms at a 256-token prompt of
+    gate|up (1,536 rows), their int8-activation forms at one decode row of
+    q|k|v (864 rows) and of the 32,000-row lm_head, qmm_w8 on a Q4_0
+    weight's W8 planes, and Q8_0's float32 forms."""
+    checks: dict[str, list[dict]] = {}
+
+    def add(name, rec):
+        checks.setdefault(name, []).append(rec)
+
+    for i, dtype in enumerate(("bf16", "f32")):
+        seed = 600 + 20 * i
+        for j, (T, pos, cap, win, dims) in enumerate((
+                (S15_CTX, 0, 0.0, 0, S15_ATTN), (1, S15_CTX - 1, 0.0, 0, S15_ATTN),
+                (S260_ATTN[3], 0, 0.0, 0, S260_ATTN), (1, S260_ATTN[3] - 1, 0.0, 0, S260_ATTN),
+                (PREFILL_CHUNK, PREFILL_CHUNK, 50.0, 256, (HEADS, KV_HEADS, 24, CTX)),
+                *((PREFILL_CHUNK, PREFILL_CHUNK, 0.0, 0, (HEADS, KV_HEADS, hd, CTX))
+                  for hd in (72, 104, 200, 248)))):
+            add("flash_attention", check_attention(timer, "flash_attention", T, pos, seed + j,
+                                                   cap, win, dims=dims, dtype=dtype))
+    for i, scheme in enumerate(("q8_0", "q4_0", "q5_0")):
+        seed = 640 + 4 * i
+        add(*check_scheme_matmul(timer, scheme, "dequant", S15_CTX, 2 * S15_FFN, S15_DIM, seed))
+        for m in (3 * S15_DIM, S15_VOCAB):
+            add(*check_scheme_matmul(timer, scheme, "w4a8", 1, m, S15_DIM, seed + 1))
+    add("qmm_w8", check_w8(timer, S15_CTX, 2 * S15_FFN, S15_DIM, 652,
+                           scheme_weight("q4_0", 2 * S15_FFN, S15_DIM, 652, "cuda")))
+    add(*check_f32_matmul(timer, "q8_0", "dequant", S15_CTX, 2 * S15_FFN, S15_DIM, 653))
+    add(*check_f32_matmul(timer, "q8_0", "w4a8", 1, 3 * S15_DIM, S15_DIM, 654))
+    return checks
+
+
 def phase_kernels() -> dict[str, list[dict]]:
     import torch
 
@@ -1558,6 +1657,9 @@ def phase_kernels() -> dict[str, list[dict]]:
     for form, rows, seed in (("dequant", RAGGED_CHUNK, 240), ("w4a8", 1, 241)):
         name, rec = check_scheme_matmul(timer, "q6_k", form, rows, P3_VOCAB, P3_DIM, seed)
         checks[name].append(rec)
+    torch.cuda.empty_cache()
+    for name, recs in stories_checks(timer).items():  # the TinyStories forms, after all others
+        checks.setdefault(name, []).extend(recs)
     torch.cuda.empty_cache()
     say(f"timer: the longest queueing of {timer.iters} timed calls {timer.max_queue_ms:.2f} ms "
         f"(the spin: {HOLD_CYCLES / SPIN_HZ * 1e3:.1f} ms or more); {timer.outlasted} timings "
@@ -3313,7 +3415,7 @@ def phase_family(tmp: Path, what: str, layers: int, seed: int, prompt_of, check,
         f"{size / 1e9:.3f} GB in {synth_s:.2f} s, matrices in {kinds}")
     torch.cuda.reset_peak_memory_stats()
     # the defaults: cuda, bfloat16, the model's context; a file under the
-    # default's 1 GiB floor for the W8 planes (phi2 at 8 layers) asks for them
+    # default's 1 GiB floor for the W8 planes (phi2 and phi3-mini at 4 layers) asks for them
     w8_default = size >= 1 << 30
     runner = Runner(path) if w8_default else Runner(path, prefill_w8=True)
     if not runner.prefill_w8:
@@ -3825,6 +3927,246 @@ def phase_hf_goldens() -> dict:
     return out
 
 
+# the kernels each TinyStories run must launch (prompt and decode): flash at every
+# attention (hd 48 and 8 are not decode head dims), and a quantized file's dequant form
+# (the prompt's 18 rows) and int8-activation form (every decode step), float32's own
+STORIES_FORMS = {"f32": (), "q8_0": ("qmm_q8_0", "qmm_w4a8_q8_0"),
+                 "q4_0": ("qmm_q4_0", "qmm_w4a8_q4_0")}
+STORIES_FORBIDDEN = ("decode_attention", "decode_attention_fused", "paged_decode_attention",
+                     "paged_decode_attention_fused")
+
+
+def _stories_forms(scheme: str, dtype) -> tuple[str, ...]:
+    import torch
+
+    forms = STORIES_FORMS[scheme]
+    if dtype == torch.float32 and forms:
+        forms = (forms[0] + "_f32", forms[1] + ".f32")
+    return ("flash_attention",) + forms
+
+
+def _stories_runs(runner, what: str, scheme: str) -> dict:
+    """STORIES_PROMPT and STORIES_STEPS greedy tokens graphed at tick 1 (the
+    capture, then the cached graph) and eagerly: the same tokens, a finite
+    cache, the path's kernels (STORIES_FORMS) launched, no decode-attention
+    form (the decode step attends through flash at these head dims), no
+    product of a quantized weight through torch.matmul."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+
+    _build.launches.clear()  # counts from here on are this run's
+    with DenseMatmuls() as dense:
+        capture = _one_run(runner, STORIES_PROMPT, _build.launches, steps=STORIES_STEPS)
+        launches = dict(_build.launches)
+        graphed = _one_run(runner, STORIES_PROMPT, _build.launches, steps=STORIES_STEPS)
+        eager = _one_run(runner, STORIES_PROMPT, _build.launches, "eager", STORIES_STEPS)
+    if scheme != "f32" and dense.calls:
+        fail(f"{what}: {len(dense.calls)} matmuls took torch.matmul on dequantized weights")
+    if not capture["tokens"] == graphed["tokens"] == eager["tokens"]:
+        fail(f"{what}: the graphed decode and the eager step gave other tokens")
+    if len(capture["tokens"]) != STORIES_STEPS:
+        fail(f"{what}: generated {len(capture['tokens'])} tokens, expected {STORIES_STEPS}")
+    n = capture["end_pos"]
+    if not bool(torch.isfinite(runner.cache.k[:, :, :, :n].float()).all()
+                and torch.isfinite(runner.cache.v[:, :, :, :n].float()).all()):
+        fail(f"{what}: NaN or inf in the KV cache")
+    for name in _stories_forms(scheme, runner.compute_dtype):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was never launched on the {what} path")
+    if any(launches.get(name) for name in STORIES_FORBIDDEN):
+        fail(f"{what}: a decode-attention form launched at head dim {runner.cfg.head_dim}")
+    bound_port, bound_gguf = _decode_bound(runner, n)
+    steps = capture["decoded_steps"]
+    rec = {
+        "prompt_tokens": capture["prompt_tokens"], "end_pos": n, "launches": launches,
+        "graph_equals_eager": True, "text": capture["text"],
+        "decode_ms_per_token": {"graphed (capture)": capture["decode_ms_per_token"],
+                                "graphed": graphed["decode_ms_per_token"],
+                                "eager": eager["decode_ms_per_token"]},
+        "prefill_ms": {"graphed": graphed["prefill_s"] * 1e3, "eager": eager["prefill_s"] * 1e3},
+        "launches_per_decode_token": {k: v / steps for k, v in capture["launches_decode"].items()},
+        "launches_prefill": capture["launches_prefill"],
+        "decode_bound_ms_port_layout": bound_port, "decode_bound_ms_gguf_bytes": bound_gguf,
+    }
+    say(f"{what} ({str(runner.compute_dtype)[6:]}): prompt {capture['prompt_tokens']} tokens, "
+        f"{STORIES_STEPS} greedy tokens graphed (capture / cached) and eager identical; decode "
+        f"{capture['decode_ms_per_token']:.3f} / {graphed['decode_ms_per_token']:.3f} / eager "
+        f"{eager['decode_ms_per_token']:.3f} ms/token (bound {bound_port:.4f} ms port layout, "
+        f"{bound_gguf:.4f} ms GGUF bytes); "
+        f"{sum(rec['launches_per_decode_token'].values()):.1f} kernel launches a token; "
+        f"launches {launches}")
+    return rec
+
+
+def _stories_engines(runner, what: str) -> dict:
+    """Both engines' greedy tokens (two slots) on STORIES_ENGINE_PROMPTS equal
+    the Runner's; then a 16-request drain through an 8-slot PagedServingEngine
+    (prompts of 8 to 190 tokens, 64 tokens each, greedy), pages back."""
+    import numpy as np
+
+    from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
+
+    greedy = []
+    eos = runner.tokenizer.eos_token
+    for p in STORIES_ENGINE_PROMPTS:
+        runner.reset()
+        _, _, first = runner.prefill(p)
+        list(runner.generate(first, STORIES_ENGINE_TOKENS))
+        # the Runner yields the token its prefill samples even when it is EOS, where an
+        # engine's request ends there with no token (later EOS ends both alike)
+        greedy.append([] if first == eos else list(runner.generated))
+    seq = runner.seq_len
+    for name, eng in (("paged", PagedServingEngine(runner, n_slots=2, n_pages=8, seq_len=seq)),
+                      ("dense", ServingEngine(runner, n_slots=2, seq_len=seq))):
+        reqs = [eng.submit(Request(prompt=p, max_tokens=STORIES_ENGINE_TOKENS))
+                for p in STORIES_ENGINE_PROMPTS]
+        eng.drain(max_steps=1000)
+        got = [list(r.output_tokens) for r in reqs]
+        if got != greedy:
+            fail(f"{what}: the {name} engine gave {got}, the Runner {greedy}")
+        del eng
+    rng = np.random.default_rng(7)
+    bos = runner.tokenizer.bos_token
+    reqs = [Request(prompt="", prompt_tokens=[bos] + rng.integers(
+        3, runner.cfg.vocab_size, n - 1).tolist(), max_tokens=64) for n in STORIES_DRAIN_LENGTHS]
+    eng = PagedServingEngine(runner, n_slots=SERVING_SLOTS, n_pages=4 * SERVING_SLOTS + 1,
+                             seq_len=seq)
+    free = eng.pages_free()
+    drain = _drain(eng, reqs)
+    if eng.pages_free() != free:
+        fail(f"{what}: the drain kept {free - eng.pages_free()} pages")
+    say(f"{what} engines: both engines' greedy tokens the Runner's; paged drain of "
+        f"{drain['requests']} requests at {SERVING_SLOTS} slots {drain['aggregate_tok_s']:.1f} "
+        f"tok/s, TTFT p50 {drain['ttft_s']['p50']:.3f} s, pages back")
+    return {"engines_equal_runner": True, "drain": drain}
+
+
+def _stories_daemon(path: str, runner, what: str) -> dict:
+    """The HTTP daemon (`serving/http.py`, paged, its default device and
+    dtype: the card, bfloat16) on `path`, 127.0.0.1 and a free port:
+    STORIES_ENGINE_PROMPTS POSTed at once to /v1/completions, greedy, each
+    text equal to the bfloat16 `runner`'s on the same prompt; then a clean
+    shutdown."""
+    import threading
+
+    from crabml_tpu_torch.serving import http as serving_http
+    from crabml_tpu_torch.tokenizer import Utf8Buf
+
+    n = STORIES_ENGINE_TOKENS
+    want = []
+    for p in STORIES_ENGINE_PROMPTS:
+        runner.reset()
+        _, _, first = runner.prefill(p)
+        list(runner.generate(first, n))
+        # a request ends on a first-sampled EOS with no token (_stories_engines)
+        tokens = [] if first == runner.tokenizer.eos_token else list(runner.generated)
+        buf = Utf8Buf()
+        want.append("".join(runner.tokenizer.decode(t, buf) for t in tokens))
+    argv = [path, "--paged", "--slots", "2", "--pages", "8", "--host", "127.0.0.1",
+            "--port", "0"]
+    engine, args = serving_http.engine_from_args(argv)
+    if engine.device.type != "cuda":
+        fail(f"{what} daemon: the engine is on {engine.device}")
+    server = serving_http.make_server(engine, args.host, args.port)
+    port = server.server_address[1]
+    thread = threading.Thread(target=serving_http.serve, args=(engine,),
+                              kwargs={"server": server}, daemon=True)
+    thread.start()
+    results: dict[int, tuple] = {}
+
+    def post(i):
+        results[i] = _http(port, "POST", "/v1/completions",
+                           {"prompt": STORIES_ENGINE_PROMPTS[i], "max_tokens": n})
+
+    try:
+        t0 = time.perf_counter()
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(len(want))]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        fail(f"{what} daemon: the server thread did not stop")
+    if len(results) != len(want):
+        fail(f"{what} daemon: a POST did not return")
+    for i, text in enumerate(want):
+        status, data = results[i]
+        if status != 200 or json.loads(data)["choices"][0]["text"] != text:
+            fail(f"{what} daemon: POST {i} answered {status} {data[:300]}, the Runner {text!r}")
+    del engine
+    say(f"{what} daemon on 127.0.0.1:{port}: {len(want)} POSTs to /v1/completions in "
+        f"{wall:.2f} s, each text the bfloat16 Runner's; shut down cleanly")
+    return {"argv": argv[1:], "wall_s": wall, "texts_equal_runner": True}
+
+
+def phase_stories(tmp: Path) -> dict:
+    """The TinyStories models (STORIES) at full depth on the card: each
+    file's forward against the CPU's (phase 3's gates: bfloat16 within 5e-2
+    of float32, float32 within F32_FORWARD_TOL); `Runner(path)` in bfloat16
+    and in float32 (the JAX package's default), each on STORIES_PROMPT for
+    STORIES_STEPS greedy tokens graphed and eagerly (_stories_runs); both
+    engines against the bfloat16 Runner and a paged drain
+    (_stories_engines); the daemon on the stories260K file (_stories_daemon);
+    the CLI once on the stories15M F32 file, whose text must be the bfloat16
+    Runner's."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.runtime.runner import Runner
+    from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
+
+    out = {}
+    total: dict[str, int] = {}
+    for model, scheme, seed in STORIES:
+        what = f"{model}-{scheme}"
+        path = build_synth_gguf(str(tmp / f"{what}.gguf"), model, seed=seed, scheme=scheme)
+        rec = out[what] = {"forward": phase_forward(tmp, model, seed=seed, path=path,
+                                                    n_prompt=F32_FORWARD_PROMPT, f32_card=True,
+                                                    scheme=scheme)}
+        if not rec["forward"]["ok"]:
+            fail(f"{what}: the card's forward is off the CPU's")
+        for dtype in (torch.bfloat16, torch.float32):
+            runner = Runner(path, compute_dtype=dtype)
+            if runner.device.type != "cuda":
+                fail(f"{what}: the Runner is on {runner.device}")
+            rec[str(dtype)[6:]] = runs = _stories_runs(runner, what, scheme)
+            for k, v in runs["launches"].items():
+                total[k] = total.get(k, 0) + v
+            if dtype == torch.bfloat16:
+                _build.launches.clear()
+                rec["engines"] = _stories_engines(runner, what)
+                if model == "stories260k":
+                    rec["daemon"] = _stories_daemon(path, runner, what)
+                if any(_build.launches.get(name) for name in STORIES_FORBIDDEN):
+                    fail(f"{what}: an engine's or the daemon's tick launched a "
+                         "decode-attention form")
+                for k, v in _build.launches.items():
+                    total[k] = total.get(k, 0) + v
+            del runner
+            torch.cuda.empty_cache()
+        if what == "stories15m-f32":
+            argv = [sys.executable, "-m", "crabml_tpu_torch.cli", path, "-p", STORIES_PROMPT,
+                    "-n", str(STORIES_STEPS), "-t", "0"]
+            t0 = time.perf_counter()
+            cli = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            want = STORIES_PROMPT + rec["bfloat16"]["text"] + "\n"
+            if cli.returncode != 0 or cli.stdout != want:
+                fail(f"{what} CLI: exit {cli.returncode}, stdout {cli.stdout[-200:]!r}, "
+                     f"stderr {cli.stderr[-400:]!r}")
+            rec["cli"] = {"argv": argv[3:], "s": time.perf_counter() - t0}
+            say(f"{what} CLI ({' '.join(argv[3:])}): exit 0 in {rec['cli']['s']:.1f} s, its text "
+                "the bfloat16 Runner's")
+        os.remove(path)
+    out["launches"] = total
+    say(f"stories: launches {total}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def kernels_line(checks: dict, paths: dict) -> dict:
@@ -4032,6 +4374,7 @@ def main() -> int:
         for what, scheme, layers, seed, mix in SCHEME_PATHS:
             paths[what] = report[what] = timed(what, phase_scheme, tmp, what, scheme, layers,
                                                seed, mix)
+        paths["stories"] = report["stories"] = timed("stories", phase_stories, tmp)
     except CheckFailed as e:
         failures.append(str(e))
     finally:

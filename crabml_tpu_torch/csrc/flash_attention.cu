@@ -42,30 +42,36 @@
 // of the head dimension per instruction. Only tiles that cross the diagonal
 // or the window's edge pay for the mask.
 //
-// Head dims 80 and 96 (phi2, phi3) take the 128 kernel's tiles: a tile row
-// in shared memory is HP = 128 elements wide (tile_width) while q, k, v and
-// out keep their HD stride in global memory, so only HD / 8 chunks of a row
-// are copied. The score product takes HD / 16 k steps, so it never reads a
-// lane past HD; V's lanes past HD are never written, and the output lanes
-// they give are never stored. The swizzles, the ring, the warpgroups and the
-// accumulators are the 128 kernel's; the product of P and V costs 128 / HD of
-// its own work (1.33x at 96, 1.6x at 80), while the bytes read stay HD's. A
-// native width (wgmma n96 and a 64-byte swizzle) would save that.
-//
-// Head dim 16 (the committed HF fixtures' tiny models) takes the hd-64
-// kernel's tiles the same way: a tile row is 64 elements (one 128-byte
-// swizzle block), two of its eight 16-byte chunks are copied, the score
-// product is one k16 step, which reads only those two chunks, and the P V
-// product's n64 lanes past 16 are never stored. Chosen over a native k16 /
-// n16 form because it keeps one set of swizzles, descriptors and fragment
-// layouts for every head dim; its P V costs 4x hd 16's own work, which at
-// these models' sizes is a few microseconds.
+// Every head dim that is a multiple of 8 up to 256 takes one of three tile
+// widths (tile_width): HP = 64 up to 64, 128 up to 128 (phi2's 80, phi3's
+// 96), 256 above (136-256: a 192-wide tile would save up to a quarter of the
+// P V work at 136-192, but no model in the repo has such a head dim, and one
+// width fewer keeps one set of swizzles and rings a width). The template
+// takes the width and the head dim: a constant for the head dims of the
+// repo's models before this form (16, 64, 80, 96, 128, 256: every count a
+// constant, only the head dim's 16-byte chunks of a row copied, since a
+// multiple of 16 never reads a lane past it), or 0, for every other multiple
+// of 8 (stories260K's 8, stories15M's 48, ...), which is then a launch
+// argument. (One runtime instance for all of them cost 8-18% at 16, 80 and
+// 96 on an H100.) q, k, v and out keep their hd stride in global memory, and
+// a tile row in shared memory is HP elements wide. In the runtime instance
+// the hd / 8 live chunks of a row are copied and the rest zero-filled
+// (cp.async of 0 bytes), so a lane past hd holds 0 in Q, K and V, never a
+// stale value that 0 times would leave NaN. The score product takes
+// ceil(hd / 16) k16 steps: where hd is an odd multiple of 8 (8, 24, 40, ...)
+// the last step reads 8 zero lanes of Q and K, which add nothing. The P V
+// product's output lanes past hd are never stored. The swizzles, the ring,
+// the warpgroups and the accumulators are the width's; the product of P and
+// V costs HP / hd of its own work (1.33x at 96, 1.6x at 80, 8x at 8), while
+// the bytes read stay hd's. A native width (wgmma n96 and a 64-byte swizzle)
+// would save that.
 //
 // float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
 // would round the inputs to TF32 or bf16 where the TPU kernel asks for full
 // precision. A block owns 64 rows, padded as above; Q, K and V tiles are
-// staged in shared memory as float32; each of the 256 threads computes a 4x4
-// block of scores and a 4x(hd/16) block of the output.
+// staged in shared memory as float32, HP = 16 * ceil(hd / 16) wide, the lanes
+// past hd zero; each of the 256 threads computes a 4x4 block of scores and a
+// 4x(HP/16) block of the output, and stores the lanes below hd.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -91,11 +97,12 @@ __device__ __forceinline__ int first_tile(int first_row_pos, int window) {
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int NO>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const int* __restrict__ pos, T* __restrict__ out, int KV, int S, int T_, int G,
-             float scale, float softcap, int window) {
+             int hd, float scale, float softcap, int window) {
+    constexpr int HD = 16 * NO;  // a tile row: hd lanes, then zeros
     extern __shared__ float smem[];
     float* Qs = smem;                    // [BR][HD + 1]
     float* Ks = Qs + BR * (HD + 1);      // [BC][HD + 1]
@@ -114,12 +121,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         const int r = i / HD, d = i % HD;
         const int g = r / bq, t = t0 + r % bq;
         float val = 0.f;
-        if (t < T_ && g < G)
-            val = to_f32(q[((size_t)(b * T_ + t) * H + kv * G + g) * HD + d]) * scale;
+        if (t < T_ && g < G && d < hd)
+            val = to_f32(q[((size_t)(b * T_ + t) * H + kv * G + g) * hd + d]) * scale;
         Qs[r * (HD + 1) + d] = val;
     }
 
-    constexpr int NO = HD / 16;  // output columns per thread
     float m[4], l[4], acc[4][NO];
     int rbound[4], rfirst[4];  // last and first visible key of each owned row
 #pragma unroll
@@ -142,9 +148,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
             const int c = i / HD, d = i % HD;
             const int j = k0 + c;
             float kvv = 0.f, vvv = 0.f;
-            if (j <= last_key && j >= first_key) {
-                kvv = to_f32(k[(head + j) * HD + d]);
-                vvv = to_f32(v[(head + j) * HD + d]);
+            if (j <= last_key && j >= first_key && d < hd) {
+                kvv = to_f32(k[(head + j) * hd + d]);
+                vvv = to_f32(v[(head + j) * hd + d]);
             }
             Ks[c * (HD + 1) + d] = kvv;
             Vs[c * HD + d] = vvv;
@@ -227,28 +233,30 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         const int g = r / bq, t = t0 + r % bq;
         if (t >= T_ || g >= G) continue;
         const float inv = 1.f / fmaxf(l[i], 1e-30f);
-        T* o = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD;
+        T* o = out + ((size_t)(b * T_ + t) * H + kv * G + g) * hd;
 #pragma unroll
-        for (int j = 0; j < NO; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+        for (int j = 0; j < NO; ++j)
+            if (tx + 16 * j < hd) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
     }
 }
 
-template <int HD>
+template <int NO>
 int launch_f32(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
-               int KV, int S, int T_, int G, float scale, float softcap, int window,
+               int KV, int S, int T_, int G, int hd, float scale, float softcap, int window,
                cudaStream_t stream) {
     using T = float;
+    constexpr int HD = 16 * NO;
     constexpr size_t smem =
         sizeof(float) * (BR * (HD + 1) + BC * (HD + 1) + BC * HD + BR * (BC + 1));
     static_assert(smem <= 232448, "the float32 tiles must fit a block's shared memory");
-    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, NO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int bq = BR / G;
     dim3 grid((T_ + bq - 1) / bq, KV, B);
-    flash_kernel<T, HD><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                    (const int*)pos, (T*)out, KV, S, T_, G, scale,
-                                                    softcap, window);
+    flash_kernel<T, NO><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                                    (const int*)pos, (T*)out, KV, S, T_, G, hd,
+                                                    scale, softcap, window);
     return crabml_launch_status();
 }
 
@@ -261,9 +269,11 @@ constexpr int NWG = NT / 128;  // warpgroups of a block, 64 stacked rows each
 // K/V tiles in the ring; loads run stages - 1 tiles ahead. Three up to head
 // dim 128; two at 256, where three would not fit beside the Q tiles.
 template <int HD> __host__ __device__ constexpr int stages_of() { return HD <= 128 ? 3 : 2; }
-// A tile row's width in shared memory: HD rounded up to whole 64-element
-// swizzle blocks (80 and 96 take 128).
-template <int HD> __host__ __device__ constexpr int tile_width() { return (HD + 63) / 64 * 64; }
+// A tile row's width in shared memory: 64 up to head dim 64, 128 up to 128,
+// else 256 (whole 64-element swizzle blocks; no 192-wide tile is built).
+__host__ __device__ constexpr int tile_width(int hd) {
+    return hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
     float y;
@@ -282,14 +292,20 @@ template <int HD> struct Tile {
     }
 };
 
-template <int HD>
+// HP: the tile width; HD: the head dim, a multiple of 16 up to HP, or 0: hd
+// is the launch argument `hd_arg`, a multiple of 8 below HP.
+template <int HP, int HD>
 __global__ void __launch_bounds__(NT, 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ pos, bf16* __restrict__ out,
-                int KV, int S, int T_, int G, float scale, float softcap, int window) {
-    constexpr int HP = tile_width<HD>();
+                int KV, int S, int T_, int G, int hd_arg, float scale, float softcap, int window) {
     using TL = Tile<HP>;
-    constexpr int LIVE = HD / 8;  // 16-byte chunks of a row in global memory
+    const int hd = HD ? HD : hd_arg;
+    const int live = hd / 8;  // 16-byte chunks of a row in global memory
+    // the chunks a row's copy covers: the live ones, or the whole tile row,
+    // those past hd zero-filled
+    constexpr int NCH = HD ? HD / 8 : TL::CHUNKS;
+    const int ksteps = (hd + 15) / 16;  // k16 steps of the score product
     constexpr int STAGES = stages_of<HP>(), AHEAD = STAGES - 1;
     extern __shared__ uint8_t smem_raw[];
     // 1,024-byte alignment of every tile: [NWG] Q tiles, then STAGES x (K, V)
@@ -313,23 +329,23 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kt_begin = first_tile(p0 + t0_blk, window);
     const int n_tiles = last_key / BC + 1 - kt_begin;
 
-    // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T and padding are zeros
-    for (int i = tid; i < NWG * 64 * LIVE; i += NT) {
-        const int w = i / (64 * LIVE), r = i / LIVE % 64, c = i % LIVE;
+    // Q: row r = g * bq + (t - t0) of warpgroup w; rows past T, padding rows
+    // and the lanes past hd are zeros
+    for (int i = tid; i < NWG * 64 * NCH; i += NT) {
+        const int w = i / (64 * NCH), r = i / NCH % 64, c = i % NCH;
         const int g = r / bq, t = t0_blk + w * bq + r % bq;
-        const bool ok = t < T_ && g < G;
-        const bf16* src =
-            q + ((size_t)(b * T_ + (ok ? t : 0)) * H + kv * G + (ok ? g : 0)) * HD + c * 8;
+        const bool ok = t < T_ && g < G && c < live;
+        const bf16* src = q + (ok ? ((size_t)(b * T_ + t) * H + kv * G + g) * hd + c * 8 : 0);
         wg::cp_async16(q_s + w * TL::BYTES + TL::offset(r, c), src, ok);
     }
     auto load_tile = [&](int i) {  // key tile kt_begin + i into stage i % STAGES
         const int k0 = (kt_begin + i) * BC;
         const uint32_t ks = kv_s + (i % STAGES) * 2 * TL::BYTES, vs = ks + TL::BYTES;
-        for (int e = tid; e < 64 * LIVE; e += NT) {
-            const int r = e / LIVE, c = e % LIVE;
+        for (int e = tid; e < 64 * NCH; e += NT) {
+            const int r = e / NCH, c = e % NCH;
             const int j = k0 + r;
-            const bool ok = j <= last_key && j >= first_key;
-            const size_t at = (head + (ok ? j : 0)) * HD + c * 8;
+            const bool ok = j <= last_key && j >= first_key && c < live;
+            const size_t at = ok ? (head + j) * hd + c * 8 : 0;
             wg::cp_async16(ks + TL::offset(r, c), k + at, ok);
             wg::cp_async16(vs + TL::offset(r, c), v + at, ok);
         }
@@ -379,7 +395,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float s[32];
         wg::fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < HP / 16; ++kk) {
+            if (kk >= ksteps) break;  // lanes past hd: zeros, nothing to add
             const uint32_t step = (kk / 4) * 8192 + (kk % 4) * 32;
             wg::Mma<64>::ss<0>(s, q_desc + (step >> 4), wg::desc128(ks + step), kk != 0);
         }
@@ -465,32 +482,31 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int g = r / bq, t = t0 + r % bq;
         if (t >= T_ || g >= G) continue;
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
-        bf16* dst = out + ((size_t)(b * T_ + t) * H + kv * G + g) * HD + 2 * qd;
+        bf16* dst = out + ((size_t)(b * T_ + t) * H + kv * G + g) * hd + 2 * qd;
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int j = 0; j < 8; ++j)
-                if (nb * 64 + 8 * j < HD)  // lanes past HD: V's padding
+                if (nb * 64 + 8 * j < hd)  // lanes past hd: V's zero padding
                     *reinterpret_cast<uint32_t*>(dst + nb * 64 + 8 * j) = wg::pack_bf16(
                         o[nb][4 * j + 2 * h] * inv, o[nb][4 * j + 2 * h + 1] * inv);
     }
 }
 
-template <int HD>
+template <int HP, int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
-              int KV, int S, int T_, int G, float scale, float softcap, int window,
+              int KV, int S, int T_, int G, int hd, float scale, float softcap, int window,
               cudaStream_t stream) {
-    constexpr int HP = tile_width<HD>();
     constexpr size_t smem = (NWG + 2 * stages_of<HP>()) * Tile<HP>::BYTES + 1024;
     static_assert(smem <= 232448, "the ring and the Q tiles must fit a block's shared memory");
-    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<HP, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     const int bq = NWG * (BR / G);  // tokens per block
     dim3 grid((T_ + bq - 1) / bq, KV, B);
-    flash_tc_kernel<HD><<<grid, NT, smem, stream>>>(
+    flash_tc_kernel<HP, HD><<<grid, NT, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)pos, (bf16*)out, KV, S, T_, G,
-        scale, softcap, window);
+        hd, scale, softcap, window);
     return crabml_launch_status();
 }
 
@@ -498,29 +514,48 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G is 1
-// to 64; hd is 16, 64, 80, 96, 128 or 256. dtype 0 = bfloat16, 1 = float32. softcap 0
-// = no cap; window 0 = every earlier key.
+// to 64; hd is any multiple of 8 up to 256. dtype 0 = bfloat16, 1 = float32.
+// softcap 0 = no cap; window 0 = every earlier key.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
                                int G, int hd, float scale, float softcap, int window,
                                void* stream) {
+    if (hd <= 0 || hd % 8 || hd > 256) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-#define CRABML_FLASH(L, HD) L<HD>(q, k, v, pos, out, B, KV, S, T, G, scale, softcap, window, s)
+#define CRABML_FLASH(L, ...) \
+    L<__VA_ARGS__>(q, k, v, pos, out, B, KV, S, T, G, hd, scale, softcap, window, s)
     if (dtype == 0) {
-        if (hd == 16) return CRABML_FLASH(launch_tc, 16);
-        if (hd == 64) return CRABML_FLASH(launch_tc, 64);
-        if (hd == 80) return CRABML_FLASH(launch_tc, 80);
-        if (hd == 96) return CRABML_FLASH(launch_tc, 96);
-        if (hd == 128) return CRABML_FLASH(launch_tc, 128);
-        if (hd == 256) return CRABML_FLASH(launch_tc, 256);
-    } else {
-        if (hd == 16) return CRABML_FLASH(launch_f32, 16);
-        if (hd == 64) return CRABML_FLASH(launch_f32, 64);
-        if (hd == 80) return CRABML_FLASH(launch_f32, 80);
-        if (hd == 96) return CRABML_FLASH(launch_f32, 96);
-        if (hd == 128) return CRABML_FLASH(launch_f32, 128);
-        if (hd == 256) return CRABML_FLASH(launch_f32, 256);
+        switch (hd) {  // the head dims with instances of their own: every count a constant
+            case 16: return CRABML_FLASH(launch_tc, 64, 16);
+            case 64: return CRABML_FLASH(launch_tc, 64, 64);
+            case 80: return CRABML_FLASH(launch_tc, 128, 80);
+            case 96: return CRABML_FLASH(launch_tc, 128, 96);
+            case 128: return CRABML_FLASH(launch_tc, 128, 128);
+            case 256: return CRABML_FLASH(launch_tc, 256, 256);
+        }
+        switch (tile_width(hd)) {
+            case 64: return CRABML_FLASH(launch_tc, 64, 0);
+            case 128: return CRABML_FLASH(launch_tc, 128, 0);
+            default: return CRABML_FLASH(launch_tc, 256, 0);
+        }
+    }
+    switch ((hd + 15) / 16) {  // output columns a thread
+        case 1: return CRABML_FLASH(launch_f32, 1);
+        case 2: return CRABML_FLASH(launch_f32, 2);
+        case 3: return CRABML_FLASH(launch_f32, 3);
+        case 4: return CRABML_FLASH(launch_f32, 4);
+        case 5: return CRABML_FLASH(launch_f32, 5);
+        case 6: return CRABML_FLASH(launch_f32, 6);
+        case 7: return CRABML_FLASH(launch_f32, 7);
+        case 8: return CRABML_FLASH(launch_f32, 8);
+        case 9: return CRABML_FLASH(launch_f32, 9);
+        case 10: return CRABML_FLASH(launch_f32, 10);
+        case 11: return CRABML_FLASH(launch_f32, 11);
+        case 12: return CRABML_FLASH(launch_f32, 12);
+        case 13: return CRABML_FLASH(launch_f32, 13);
+        case 14: return CRABML_FLASH(launch_f32, 14);
+        case 15: return CRABML_FLASH(launch_f32, 15);
+        default: return CRABML_FLASH(launch_f32, 16);
     }
 #undef CRABML_FLASH
-    return (int)cudaErrorInvalidValue;
 }

@@ -23,8 +23,11 @@ NEG_INF = -1e30
 # group, so at most 64 q heads a kv head; where G does not divide 64 the last
 # 64 % G rows are padding (G = 7: 9 tokens, 63 live rows)
 ROWS_PER_BLOCK = 64
-# head dims the kernel takes (16 on 64-wide tiles, 80 and 96 on 128-wide ones)
-HEAD_DIMS = (16, 64, 80, 96, 128, 256)
+# head dims the kernel takes: every multiple of 8 up to 256, on tiles
+# 64, 128 or 256 wide (the lanes past the head dim zero)
+# (the JAX kernel's rule, hd % 8 == 0, which goes on to 512)
+HEAD_DIMS = tuple(range(8, 257, 8))
+HEAD_DIM_RULE = "a multiple of 8 up to 256"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +38,9 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     the attention of `cfg` (a ModelConfig) in compute `dtype` is one its
     kernels do not take. Every prefill chunk of more than a few tokens, and
     every attention at a head dim the decode kernels do not take, goes to
-    this kernel, which takes head dims HEAD_DIMS (16, the committed HF
-    fixtures', 64, 80, 96, 128 and 256) and up to ROWS_PER_BLOCK q heads per
+    this kernel, which takes every head dim that is a multiple of 8 up to
+    256 (HEAD_DIMS: stories260K's 8, the HF fixtures' 16, stories15M's
+    48, phi2's 80, ...) and up to ROWS_PER_BLOCK q heads per
     kv head (any count that divides the q heads: Qwen2-7B's 28 over 4 is
     7); both take bfloat16 and float32 at each of their head dims, over a
     cache of either (or int8). On the CPU every shape runs on the plain
@@ -46,7 +50,7 @@ def check_card_attention(cfg, device, dtype=None) -> None:
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     reasons = []
     if hd not in HEAD_DIMS:
-        reasons.append(f"head dim {hd} (the flash kernel takes {' or '.join(map(str, HEAD_DIMS))})")
+        reasons.append(f"head dim {hd} (the flash kernel takes {HEAD_DIM_RULE})")
     if dtype not in (None, torch.bfloat16, torch.float32):
         reasons.append(f"compute dtype {dtype} (the kernels take bfloat16 or float32)")
     if H % KV:
@@ -109,7 +113,8 @@ def flash_attention(q, k_cache, v_cache, pos, scale: float, softcap: float = 0.0
     _build.require(H % KV == 0 and H // KV <= ROWS_PER_BLOCK,
                    f"flash_attention: H={H} KV={KV} (KV must divide H, G at most "
                    f"{ROWS_PER_BLOCK})")
-    _build.require(hd in HEAD_DIMS, f"flash_attention: head_dim {hd} (kernel takes {HEAD_DIMS})")
+    _build.require(hd in HEAD_DIMS,
+                   f"flash_attention: head_dim {hd} (the kernel takes {HEAD_DIM_RULE})")
     _build.require(q.dtype in (torch.bfloat16, torch.float32)
                    and k_cache.dtype == v_cache.dtype == q.dtype,
                    f"flash_attention: q {q.dtype}, cache {k_cache.dtype} "

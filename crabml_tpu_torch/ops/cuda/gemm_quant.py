@@ -46,6 +46,14 @@ quantizer, float32 scale planes), counted as `<form>[.planes].f32`; qmm_w8
 and qmm_w8_grouped round float32 x to bfloat16 and write float32, as the JAX
 package does (gemm_quant.py:967, :896-903).
 
+A legacy weight whose rows are not whole 256-element superblocks (k = 288 in
+stories15M) holds kernel planes zero-padded to `kernel_k(k)` with zero
+scales (quant/qtensor.py, the JAX package's `repack` rule). Each wrapper
+takes x of depth k or of the planes' depth and zero-pads it to the planes'
+(`_fit_k`; qmm_w8 to its W8 planes' depth), so every form runs on the
+padded planes as on any other and the tail adds nothing; the padded bytes
+are read.
+
 On a CPU tensor each wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. It never falls back.
 """
@@ -569,18 +577,29 @@ _KERNEL_PLANES = {
 }
 
 
+def _fit_k(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x2 (rows, k) zero-padded to the depth of `qt`'s kernel planes
+    (`plane_k`: past k where a legacy weight's rows end inside a superblock);
+    x2 of that depth passes as it is."""
+    _build.require(x2.shape[-1] in (qt.k, qt.plane_k),
+                   f"x of depth {x2.shape[-1]} for a weight of shape {qt.shape}")
+    return _pad_k(x2, qt.plane_k)
+
+
 def _check_weight(qt: QTensor, k: int, device: torch.device, stacked: bool = False,
                   form: GGMLType = GGMLType.Q4_K, scale_dtype=torch.bfloat16):
     """Checks that `qt` holds the kernel planes of the form `form` (a weight
     of any kind that runs it: Q4_1 weights run Q4_K's forms) for a k-deep
-    product, its dsub / msub planes in `scale_dtype` (the float32 forms take
-    float32 ones); returns them in the order the C entries take them."""
+    product (k = the planes' depth, whole superblocks: a padded legacy
+    weight's `plane_k`), its dsub / msub planes in `scale_dtype` (the
+    float32 forms take float32 ones); returns them in the order the C
+    entries take them."""
     p = qt.planes
     _build.require(FORM_KIND.get(qt.kind) == form and qt.kernel_layout,
                    f"{qt.kind.name}: this matmul takes {form.name} kernel planes")
     _build.require(qt.stacked == stacked,
                    f"weight of shape {qt.shape}: expected {'a stack of planes' if stacked else 'one plane'}")
-    _build.require(qt.k == k and k % 256 == 0, f"k={k} vs weight {qt.shape}")
+    _build.require(qt.plane_k == k and k % 256 == 0, f"k={k} vs weight {qt.shape}")
     lead = qt.shape[:-1]
     spec = {n: (per, scale_dtype if n in ("dsub", "msub") else dt)
             for n, (per, dt) in _KERNEL_PLANES[form].items()}
@@ -601,9 +620,9 @@ def _check_w8(qt: QTensor, k: int, device: torch.device, stacked: bool = False):
     _build.require("w8" in p and "dw" in p, "this weight carries no W8 planes")
     _build.require(qt.stacked == stacked,
                    f"weight of shape {qt.shape}: expected {'a stack of planes' if stacked else 'one plane'}")
-    kpad = -(-k // W8_KSC) * W8_KSC
+    kpad = -(-qt.k // W8_KSC) * W8_KSC
     lead = qt.shape[:-1]
-    _build.require(qt.k == k and p["w8"].shape == (*lead, kpad)
+    _build.require(k in (qt.k, qt.plane_k) and k <= kpad and p["w8"].shape == (*lead, kpad)
                    and p["dw"].shape == (*lead, kpad // W8_KSC),
                    f"W8 planes do not match k={k} and the shape {qt.shape}")
     _build.require(p["w8"].dtype == torch.int8 and p["dw"].dtype == torch.float32,
@@ -691,6 +710,7 @@ def _dequant_form(kind: GGMLType):
     name = DEQUANT_FORMS[kind]
 
     def wrapper(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32) -> torch.Tensor:
+        x2 = _fit_k(x2, qt)
         if not x2.is_cuda:
             plain = globals()[f"{name}_plain"]
             return plain(x2, *(qt.planes[n] for n in _KERNEL_PLANES[kind])).to(out_dtype)
@@ -733,6 +753,7 @@ def qmm_w4a8(x2: torch.Tensor, qt: QTensor, out_dtype=torch.float32,
     x takes the float32 form (the quantizer on float32 x, float32 dsub /
     msub planes, float32 out), counted with ".f32" after that."""
     kind = FORM_KIND.get(qt.kind)
+    x2 = _fit_k(x2, qt)
     if not x2.is_cuda:
         plain = globals()[f"{W4A8_FORMS[kind]}_plain"]
         return plain(x2, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),
@@ -821,6 +842,7 @@ def _grouped_form(kind: GGMLType):
 
     def wrapper(xs: torch.Tensor, qt: QTensor, offsets: torch.Tensor,
                 out_dtype=torch.float32) -> torch.Tensor:
+        xs = _fit_k(xs, qt)
         if not xs.is_cuda:
             plain = globals()[f"{name}_plain"]
             return plain(xs, *(qt.planes[n] for n in _KERNEL_PLANES[kind]),

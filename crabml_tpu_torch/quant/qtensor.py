@@ -60,6 +60,13 @@ experts with a leading expert axis on every plane, as named torch planes:
   third bit of element 32b + l, `q3k_values`), `sc` i8 (m, k/16) with ggml's
   -32 applied, `d` f32 (m, k/256). The kernel planes are these planes as
   they are: w = (val - 4)*d*sc, val 0..7, the scale formed in float32.
+- Rows that are not whole 256-element superblocks (a legacy kind's k is any
+  multiple of 32: stories15M's 288 and 768): the kernel
+  planes of Q8_0, Q8_1, Q4_0, Q4_1, Q5_0 and Q5_1 are zero-padded to
+  `kernel_k(k)`, the next multiple of 256, with zero values and zero scales
+  and minima, so the padded tail adds nothing to a product (the JAX
+  package's `repack` rule). The QTensor keeps its logical shape; `plane_k`
+  reads the planes' depth, and `dequantize` drops the tail.
 - W8 prefill planes, optional beside the kernel planes (attached by
   ops/cuda/gemm_quant.py::augment_w8): `w8` i8 (m, kpad8), k contiguous and
   zero-padded to a multiple of 512, and `dw` f32 (m, kpad8/512), one scale per
@@ -76,6 +83,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..errors import UnsupportedError
 from ..gguf.constants import GGMLType, GGML_BLOCK_SIZES, QK_K
@@ -95,6 +103,15 @@ FORM_KIND = {k: k for k in KERNEL_KINDS} | {GGMLType.Q4_1: GGMLType.Q4_K,
 # per-32 orders are reordered at load, and their offsets (or float minimum m)
 LEGACY_KINDS = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 _LEGACY_OFFSET = {GGMLType.Q4_0: 8, GGMLType.Q5_0: 16}
+# the kinds of 32-element blocks, whose rows may end inside a superblock: their
+# kernel planes are zero-padded to kernel_k(k)
+PADDED_KINDS = (GGMLType.Q8_0, GGMLType.Q8_1, *LEGACY_KINDS)
+
+
+def kernel_k(k: int) -> int:
+    """The depth of a weight's kernel planes: k rounded up to whole 256-element
+    superblocks (the k step of every CUDA matmul)."""
+    return -(-k // QK_K) * QK_K
 
 
 @dataclass
@@ -117,6 +134,14 @@ class QTensor:
     @property
     def stacked(self) -> bool:
         return len(self.shape) == 3
+
+    @property
+    def plane_k(self) -> int:
+        """The depth the planes hold: `kernel_k(k)` for kernel planes of a
+        PADDED_KINDS weight (zero-padded), else k."""
+        if self.kind in PADDED_KINDS and "dsub" in self.planes:
+            return self.planes["dsub"].shape[-1] * 32
+        return self.k
 
     @property
     def kernel_layout(self) -> bool:
@@ -341,7 +366,11 @@ def k16_scales(kind: GGMLType, p: dict) -> tuple[torch.Tensor, torch.Tensor | No
 
 
 def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-    """Planes -> dense `qt.shape` in `dtype`, computed in float32."""
+    """Planes -> dense `qt.shape` in `dtype`, computed in float32 (a padded
+    tail of kernel planes dropped)."""
+    if qt.plane_k != qt.k:
+        full = QTensor(qt.kind, (*qt.shape[:-1], qt.plane_k), qt.planes)
+        return dequantize(full, dtype)[..., :qt.k].contiguous()
     p = qt.planes
     if "w" in p:
         return p["w"].to(dtype)
@@ -392,7 +421,9 @@ def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
     the float32 scale rounded once to `scale_dtype`; {qs, scm, d, dmin} for
     Q2_K and Q3_K's own planes, whose scales stay exact whatever
     `scale_dtype`. F32 and F16 are returned as they are (they take the dense
-    matmul)."""
+    matmul). The PADDED_KINDS take any k that is a multiple of 32 (every
+    row a GGUF can hold in them): their planes are zero-padded to
+    `kernel_k(k)`, values, scales and minima, so the tail adds nothing."""
     p = qt.planes
     if qt.kind == GGMLType.Q3_K or (qt.kind == GGMLType.Q2_K and not qt.kernel_layout):
         if qt.k % QK_K:
@@ -406,23 +437,24 @@ def to_kernel_layout(qt: QTensor, scale_dtype=torch.float32) -> QTensor:
         return QTensor(qt.kind, qt.shape, planes)
     if qt.kind not in KERNEL_KINDS or qt.kernel_layout:
         return qt
-    if qt.kind in (GGMLType.Q8_0, GGMLType.Q8_1):
-        return QTensor(qt.kind, qt.shape, {"qs": p["qs"].contiguous(),
-                                           "dsub": _dsub(qt, 32).to(scale_dtype)})
-    if qt.kind in LEGACY_KINDS:
-        if "qh" in p and qt.k % QK_K:
+    if qt.kind in PADDED_KINDS:
+        if qt.k % 32:
             raise UnsupportedError(
-                f"{qt.kind.name} weight of shape {qt.shape}: rows of 256-element superblocks "
-                "only (the fifth bits move into Q5_K's per-superblock order)")
-        if qt.k % 64:
-            raise UnsupportedError(
-                f"{qt.kind.name} weight of shape {qt.shape}: rows of 64-element chunks only")
-        planes = {"qs": nibble_pack(q4_0_values(p["qs"]))}
+                f"{qt.kind.name} weight of shape {qt.shape}: rows of 32-element blocks only")
+        pad = kernel_k(qt.k) - qt.k
+
+        def padded(a, per):  # the last axis zero-padded to kernel_k(k) / per
+            return F.pad(a, (0, pad // per)).contiguous() if pad else a.contiguous()
+
+        if qt.kind in (GGMLType.Q8_0, GGMLType.Q8_1):
+            return QTensor(qt.kind, qt.shape, {"qs": padded(p["qs"], 1),
+                                               "dsub": padded(_dsub(qt, 32).to(scale_dtype), 32)})
+        planes = {"qs": nibble_pack(padded(q4_0_values(p["qs"]), 1))}
         if "qh" in p:
-            planes["qh"] = qh_to_q5k_order(p["qh"])
-        planes["dsub"] = p["d"].to(scale_dtype)
+            planes["qh"] = qh_to_q5k_order(padded(p["qh"], 8))
+        planes["dsub"] = padded(p["d"].to(scale_dtype), 32)
         if "mn" in p:
-            planes["msub"] = p["mn"].to(scale_dtype)
+            planes["msub"] = padded(p["mn"].to(scale_dtype), 32)
         return QTensor(qt.kind, qt.shape, planes)
     if qt.kind == GGMLType.Q6_K:
         return QTensor(qt.kind, qt.shape, {"ql": p["ql"].contiguous(), "qh": p["qh"].contiguous(),

@@ -38,6 +38,17 @@ finite through every layer:
   standard deviation of ~9.23*d, so d = sigma/9.23.
 - Q8_1 (32 weights, 36 bytes): Q8_0's values and d, and ggml's block sum
   s = f16(d * sum(qs)).
+- F32 and F16: normal values of standard deviation sigma (the reference's
+  TinyStories files are F32).
+
+The TinyStories shapes are the reference's own models (crabml's testdata:
+tinyllamas-stories-15m and -260k, karpathy's llama2.c checkpoints):
+`stories15m` (288 / 768, 6 layers, 6 heads of head dim 48, vocab 32000,
+context 256) in F32, Q8_0 or Q4_0, and `stories260k` (64 / 172, 5 layers, 8
+q heads of head dim 8 over 4 kv heads, vocab 512, context 512) in F32 or
+F16. Their rows are not whole 256-element superblocks, so no K-quant holds
+them, and FFN 172 is not whole 32-element blocks either: a scheme that
+cannot hold a row raises with the reason before anything is written.
 
 `lm_head` writes `output.weight` in another scheme than the rest: Q6_K beside
 Q4_K layers is what llama.cpp's Q4_K_S and Q4_K_M files carry
@@ -165,6 +176,9 @@ Usage:
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model phi3-mini --scheme q4_k --mix k_m
     python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model phi2 --layers 8 \
         --scheme q4_k --mix k_m
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model stories15m --scheme f32
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model stories15m --scheme q4_0
+    python -m crabml_tpu_torch.tools.synth_gguf out.gguf --model stories260k --scheme f32
 """
 
 from __future__ import annotations
@@ -174,7 +188,7 @@ import time
 
 import numpy as np
 
-from ..gguf.constants import GGMLType
+from ..gguf.constants import GGML_BLOCK_SIZES, GGMLType
 from ..gguf.writer import GGUFWriter
 
 MODEL_SHAPES = {
@@ -213,6 +227,11 @@ MODEL_SHAPES = {
     "phi2": (2560, 10240, 32, 32, 32, 51200, 2048, 0, 0, 10000.0),
     # 16 heads of 80: the embedding a multiple of 256, as K-quant rows need
     "tiny-phi2": (1280, 512, 2, 16, 16, 512, 512, 0, 0, 10000.0),
+    # the reference's own TinyStories models (karpathy's llama2.c, as GGUF in crabml's
+    # testdata): stories15M (6 heads of 48, rows of 288 and 768: no K-quant holds them) and
+    # stories260K (8 q heads of head dim 8 over 4 kv heads, FFN 172: F32 or F16 only)
+    "stories15m": (288, 768, 6, 6, 6, 32000, 256, 0, 0, 10000.0),
+    "stories260k": (64, 172, 5, 8, 4, 512, 512, 0, 0, 10000.0),
 }
 # each family's own metadata beside its shape (a shape not named here is llama):
 # the architecture; the head dim where it is decoupled (attention.key_length);
@@ -367,6 +386,16 @@ def q5_1_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     return blocks
 
 
+def f32_values(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n,) float32, normal with standard deviation sigma."""
+    return rng.standard_normal(n, np.float32) * np.float32(sigma)
+
+
+def f16_values(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
+    """n weights -> (n,) float16, normal with standard deviation sigma."""
+    return f32_values(rng, n, sigma).astype(np.float16)
+
+
 def q8_1_blocks(rng: np.random.Generator, n: int, sigma: float) -> np.ndarray:
     """n weights -> (n/32, 36) u8 Q8_1 blocks: Q8_0's random values and d,
     and the block sum s = f16(d * sum(qs))."""
@@ -393,6 +422,8 @@ SCHEMES = {  # --scheme -> (GGML type, block writer)
     "q5_1": (GGMLType.Q5_1, q5_1_blocks),
     "q8_1": (GGMLType.Q8_1, q8_1_blocks),
 }
+DENSE = {"f32": (GGMLType.F32, f32_values), "f16": (GGMLType.F16, f16_values)}
+WRITERS = {**SCHEMES, **DENSE}  # every --scheme and --lm-head
 # the byte offsets in each block of its f16 scale and minimum fields (d, and
 # dmin or m), for vary_scales
 SCALE_FIELDS = {
@@ -469,13 +500,17 @@ def mix_kind(tensor: str, i: int, n: int, scheme: str, mix: str | None, gqa: int
 
 def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | None = None,
                      verbose: bool = False, scheme: str = "q4_k",
-                     lm_head: str | None = None, mix: str | None = None) -> str:
+                     lm_head: str | None = None, mix: str | None = None,
+                     vocab: int | None = None) -> str:
     """Write the synthetic GGUF of shape `model` (optionally with fewer
-    layers) to `path`, every matrix in `scheme` but `output.weight`, which
-    is in `lm_head` (default: `scheme`, or Q6_K with a mix), and, with a
-    `mix`, each layer tensor in the type `mix_kind` gives it."""
-    dim, hidden, n_layers, heads, kv_heads, vocab, ctx, experts, used, rope = MODEL_SHAPES[model]
+    layers, or a smaller `vocab`) to `path`, every matrix in `scheme` but
+    `output.weight`, which is in `lm_head` (default: `scheme`, or Q6_K with
+    a mix), and, with a `mix`, each layer tensor in the type `mix_kind`
+    gives it."""
+    dim, hidden, n_layers, heads, kv_heads, n_vocab, ctx, experts, used, rope = \
+        MODEL_SHAPES[model]
     n_layers = layers or n_layers
+    vocab = vocab or n_vocab
     fam = FAMILIES.get(model, {})
     arch = fam.get("arch", "llama")
     hd = fam.get("head_dim", dim // heads)
@@ -530,7 +565,11 @@ def build_synth_gguf(path: str, model: str = "7b", seed: int = 0, layers: int | 
         rng = np.random.default_rng([seed, counter[0]])
         n = int(np.prod(shape))
         s = sigma if sigma is not None else 1.0 / np.sqrt(shape[-1])
-        typ, blocks = SCHEMES[kind]
+        typ, blocks = WRITERS[kind]
+        block = GGML_BLOCK_SIZES[typ][0]
+        if shape[-1] % block:  # before anything is written: no broken file
+            raise ValueError(f"{model} in {kind}: {name} has rows of {shape[-1]}, which "
+                             f"{typ.name}'s {block}-element blocks cannot hold")
         w.add_tensor(name, typ, shape, lambda rng=rng, n=n, s=s: blocks(rng, n, s))
 
     def norm(name, n):  # random in [0.5, 1.5]; llama: ones (its files' bytes as before)
@@ -625,9 +664,9 @@ def main(argv=None):
     ap.add_argument("--model", default="7b", choices=list(MODEL_SHAPES))
     ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--scheme", default="q4_k", choices=list(SCHEMES),
+    ap.add_argument("--scheme", default="q4_k", choices=list(WRITERS),
                     help="the quant scheme of every matrix")
-    ap.add_argument("--lm-head", default=None, choices=list(SCHEMES),
+    ap.add_argument("--lm-head", default=None, choices=list(WRITERS),
                     help="the scheme of output.weight (default: --scheme, q6_k with --mix); "
                          "q6_k beside q4_k layers is llama.cpp's Q4_K_M / Q4_K_S lm_head")
     ap.add_argument("--mix", default=None, choices=list(MIXES),

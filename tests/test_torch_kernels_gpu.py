@@ -674,10 +674,11 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         flash_attention(q, kv.to(torch.bfloat16), kv.to(torch.bfloat16), pos, 0.125)  # mixed
     with pytest.raises(UnsupportedError):  # 65 q heads a kv head: more than a block's 64 rows
         flash_attention(torch.zeros(1, 1, 130, 128, device=cuda), kv, kv, pos, 0.125)
-    with pytest.raises(UnsupportedError):
-        flash_attention(torch.zeros(1, 1, 4, 48, device=cuda),
-                        torch.zeros(1, 2, 128, 48, device=cuda),
-                        torch.zeros(1, 2, 128, 48, device=cuda), pos, 0.125)  # head dim 48
+    for hd in (12, 264):  # not a multiple of 8; past 256
+        with pytest.raises(UnsupportedError):
+            flash_attention(torch.zeros(1, 1, 4, hd, device=cuda),
+                            torch.zeros(1, 2, 128, hd, device=cuda),
+                            torch.zeros(1, 2, 128, hd, device=cuda), pos, 0.125)
     with pytest.raises(UnsupportedError):
         decode_attention(q, kv.to(torch.int8), kv.to(torch.int8), pos, 0.125)  # no scales
     with pytest.raises(UnsupportedError):
@@ -1516,11 +1517,13 @@ def test_scheme_forms_replay_in_a_cuda_graph(cuda, kind, form):
 
 
 def test_scheme_wrappers_raise_rather_than_fall_back(cuda):
-    """Shapes and planes the new forms do not take raise on a CUDA tensor:
-    k off the 256-deep superblock (a Q8_0 row of 288), float32 scales, a
-    Q6_K weight given to the Q8_0 kernel, 17 rows to qmm_w4a8, a plane per
-    row on one weight (the plane form takes a stack)."""
-    x = torch.zeros(32, 288, device=cuda, dtype=torch.bfloat16)
+    """Shapes and planes the new forms do not take raise on a CUDA tensor: x
+    of another depth than the weight's k or its padded planes' (a Q8_0 row
+    of 288, whose planes hold 512: 300 is neither; 288 itself is taken since
+    the planes are padded), float32 scales, a Q6_K weight given to the Q8_0
+    kernel, 17 rows to qmm_w4a8, a plane per row on one weight (the plane
+    form takes a stack)."""
+    x = torch.zeros(32, 300, device=cuda, dtype=torch.bfloat16)
     raw = np.zeros((256, 288 // 32, 34), np.uint8)
     q8 = to_kernel_layout(to_planar(GGMLType.Q8_0, raw, (256, 288), "cuda"), torch.bfloat16)
     with pytest.raises(UnsupportedError):
@@ -2323,3 +2326,218 @@ def test_flash_attention_hd16_replays_in_a_cuda_graph(cuda):
         assert torch.equal(out, call())
         pos.add_(1)
         k.mul_(1.5)
+
+
+# -- every head dim a multiple of 8 up to 256 (stories260K's 8, stories15M's 48) --
+# the head dims off the three full tile widths (64, 128, 256): each class of
+# lanes a tile row holds past hd (8 to 56 on 64, 72 to 120 on 128, 136 to 248
+# on 256), odd multiples of 8 (the score product's last k16 step half zeros)
+ANY_HD = [8, 24, 32, 40, 48, 56, 72, 88, 104, 112, 120, 136, 152, 176, 200, 216, 240, 248]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", ANY_HD)
+@pytest.mark.parametrize("T,G,pos0,softcap,window", [
+    (100, 1, 0, 0.0, 0), (129, 2, 300, 0.0, 64), (9, 2, 383, 50.0, 300), (65, 7, 5, 30.0, 0),
+    (1, 1, 255, 0.0, 0)])
+def test_flash_attention_any_head_dim_matches_plain(cuda, dtype, hd, T, G, pos0, softcap, window):
+    """Every class of head dim below its tile width: hd / 8 chunks of a row
+    copied and the rest zero-filled, ceil(hd / 16) k16 score steps, output
+    lanes past hd never stored; the float32 kernel at 16 * ceil(hd / 16)
+    lanes. Ragged T, 1 to 7 q heads a kv head, softcaps, a window that skips
+    key tiles, a decode step over the whole cache. Tolerances as at 128; two
+    calls give the same bits."""
+    B, KV, S = 2, 2, 512
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([pos0, pos0 // 2], dtype=torch.int32, device=cuda)
+    before = _build.launches["flash_attention"]
+    got = flash_attention(q, k, v, pos, hd ** -0.5, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, softcap, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert got.shape == (B, T, KV * G * hd)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(got, flash_attention(q, k, v, pos, hd ** -0.5, softcap, window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [8, 24, 48, 136, 248])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_attention_any_head_dim_ignores_rows_past_the_prefix(cuda, dtype, hd, window):
+    """Cache rows past pos + T and before the first row's window hold NaN:
+    masked keys that must not reach the output (a probability of 0 times a
+    NaN is NaN). A store past a head's hd lanes would land on the next
+    head's first lanes."""
+    B, T, KV, G, S, p0 = 1, 189, 2, 2, 1024, 300
+    q = torch.randn(B, T, KV * G, hd, device=cuda).to(dtype)
+    k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+    pos = torch.tensor([p0], dtype=torch.int32, device=cuda)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, 0.0, window)
+    k[:, :, p0 + T:], v[:, :, p0 + T:] = float("nan"), float("nan")
+    if window:
+        k[:, :, :p0 + 1 - window], v[:, :, :p0 + 1 - window] = float("nan"), float("nan")
+    got = flash_attention(q, k, v, pos, hd ** -0.5, 0.0, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("hd,G", [(8, 2), (48, 1)])
+def test_flash_attention_any_head_dim_replays_in_a_cuda_graph(cuda, hd, G):
+    """stories260K's and stories15M's decode step attends through flash over
+    the whole cache with pos on the device: a captured launch replays to
+    the eager call's bits, also after pos and the cache change in place."""
+    B, KV, S = 3, 2, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, 1, KV * G, hd, device=cuda).to(dtype)
+        k = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+        v = torch.randn(B, KV, S, hd, device=cuda).to(dtype)
+        pos = torch.tensor([15, 0, 200], dtype=torch.int32, device=cuda)
+        call = lambda: flash_attention(q, k, v, pos, hd ** -0.5)  # noqa: E731
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, call())
+            pos.add_(1)
+            k.mul_(1.5)
+
+
+# -- legacy rows off the 256-element superblock (stories15M's 288 and 768) ---------
+
+PADDED_KINDS = pytest.mark.parametrize(
+    "kind", [GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q5_0, GGMLType.Q4_1, GGMLType.Q5_1,
+             GGMLType.Q8_1], ids=["q8_0", "q4_0", "q5_0", "q4_1", "q5_1", "q8_1"])
+# stories15M's matrices: q|k|v (864, 288), wo (288, 288), gate|up (1536, 288),
+# down (288, 768), and a lm_head of 512 rows; 800 = 25 blocks of 32
+PADDED_SHAPES = [(864, 288), (288, 288), (1536, 288), (288, 768), (512, 800)]
+
+
+def _padded_weight(kind, m, k, seed, scale_dtype=torch.bfloat16):
+    qt = to_kernel_layout(to_planar(kind, _scheme_raw(kind, m * k, k, seed), (m, k), "cuda"),
+                          scale_dtype)
+    assert qt.k == k and qt.plane_k == -(-k // 256) * 256
+    return qt
+
+
+def _padded_x(x, qt):
+    return torch.nn.functional.pad(x, (0, qt.plane_k - qt.k))
+
+
+@PADDED_KINDS
+@pytest.mark.parametrize("m,k", PADDED_SHAPES)
+@pytest.mark.parametrize("rows", [17, 189])
+def test_padded_dequant_matmul_matches_plain(cuda, kind, m, k, rows):
+    """The dequant form on planes zero-padded to whole superblocks, x of the
+    weight's own depth (the wrapper pads it): tolerance 1e-4 of max|out|
+    against the plain version on padded x, and within 1e-4 of the product
+    with the dequantized weight of logical shape, so the padded tail adds
+    nothing."""
+    qt = _padded_weight(kind, m, k, rows + m)
+    x = _x(rows, k, m)
+    name, plain = _dequant_of(kind)
+    kernel = getattr(gemm_quant, name)
+    before = _build.launches[name]
+    got = kernel(x, qt)
+    want = plain(_padded_x(x, qt), qt.planes)
+    dense = x.float() @ dequantize(qt, torch.bfloat16).float().t()
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert got.shape == (rows, m) and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4 and _rel(got, dense) <= 1e-4
+    assert torch.equal(kernel(_padded_x(x, qt), qt), got)
+    assert torch.equal(gemm_quant.qmatmul_quant(x, qt), got.to(torch.bfloat16))
+
+
+@PADDED_KINDS
+@pytest.mark.parametrize("m,k", PADDED_SHAPES)
+@pytest.mark.parametrize("rows", [1, 8, 16])
+def test_padded_w4a8_matches_plain(cuda, kind, m, k, rows):
+    """The int8-activation form on padded planes: the quantizer gives the
+    all-zero groups of the padded x zero codes and a zero scale, the padded
+    weights have zero scales; tolerance 1e-4 of max|out| against the plain
+    version; two calls bit for bit."""
+    qt = _padded_weight(kind, m, k, rows + m)
+    x = _x(rows, k, m)
+    name = gemm_quant.W4A8_FORMS[FORM_KIND[kind]]
+    before = _build.launches[name]
+    got = gemm_quant.qmm_w4a8(x, qt)
+    want = _w4a8_plain_of(kind)(_padded_x(x, qt), qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert got.shape == (rows, m) and torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w4a8(x, qt), got)
+    assert torch.equal(gemm_quant.qmatmul_quant(x, qt), got.to(torch.bfloat16))
+
+
+@PADDED_KINDS
+@pytest.mark.parametrize("m,k", [(1536, 288), (288, 768)])
+@pytest.mark.parametrize("rows", [1, 16, 189])
+def test_padded_f32_forms_match_plain(cuda, kind, m, k, rows):
+    """The float32 forms (csrc/qmm_f32.cu at 189 rows, qmm_w4a8's _f32 entry
+    at 1 and 16) on padded planes with float32 scales: tolerances 1e-5 and
+    1e-4 of max|out| as at whole superblocks."""
+    qt = _padded_weight(kind, m, k, rows + m, torch.float32)
+    x = _f32_x(rows, k, m)
+    got = gemm_quant.qmatmul_quant(x, qt)
+    xp = _padded_x(x, qt)
+    if rows > gemm_quant.W4A8_MAX_ROWS:
+        want, tol = _dequant_of(kind)[1](xp, qt.planes), 1e-5
+    else:
+        want, tol = _w4a8_plain_of(kind)(xp, qt.planes), 1e-4
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rows, m) and torch.isfinite(got).all()
+    assert _rel(got, want) <= tol
+
+
+@PADDED_KINDS
+@pytest.mark.parametrize("m,k", [(1536, 288), (256, 768)])
+def test_padded_w8_matches_plain(cuda, kind, m, k):
+    """The W8 planes of a padded weight (made from its dequantized logical
+    weight, k padded to a multiple of 512) at 300 rows: x of the weight's
+    depth or of its padded planes' both take them; tolerance 1e-4."""
+    qt = gemm_quant.augment_w8(_padded_weight(kind, m, k, 3))
+    assert "w8" in qt.planes and qt.planes["w8"].shape == (m, -(-k // 512) * 512)
+    x = _x(300, k, 4)
+    before = _build.launches["qmm_w8"]
+    got = gemm_quant.qmm_w8(x, qt)
+    want = gemm_quant.qmm_w8_plain(x, qt.planes["w8"], qt.planes["dw"])
+    torch.cuda.synchronize()
+    assert _build.launches["qmm_w8"] == before + 1
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(gemm_quant.qmm_w8(_padded_x(x, qt), qt), got)
+    assert torch.equal(gemm_quant.qmatmul_quant(x, qt), got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q4_0, GGMLType.Q8_0], ids=["q4_0", "q8_0"])
+def test_padded_w4a8_replays_in_a_cuda_graph(cuda, kind):
+    """The decode step's padded matmul (the pad, the quantizer and the
+    matmul) captured in a CUDA graph replays to the eager call's bits, also
+    after x changes in place."""
+    qt = _padded_weight(kind, 1536, 288, 5)
+    x = _x(1, 288, 6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm_quant.qmatmul_quant(x, qt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gemm_quant.qmatmul_quant(x, qt)
+    for seed in (7, 8):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gemm_quant.qmatmul_quant(x, qt))
+        x.copy_(_x(1, 288, seed))

@@ -136,16 +136,25 @@ def test_kernel_planes_round_the_scales_once(kind):
 
 @pytest.mark.parametrize("kind", [Q50, Q51, Q41], ids=["q5_0", "q5_1", "q4_1"])
 def test_to_kernel_layout_raises_off_its_chunks(kind):
-    """Q5_0's and Q5_1's fifth bits move into Q5_K's per-superblock order, so
-    their rows must be whole 256-element superblocks (288 is 9 blocks of 32
-    but not); Q4_1's nibbles move into the per-64 order (96 is not)."""
+    """Rows that are not whole 256-element superblocks (288, 96: 9 and 3
+    blocks of 32) take kernel planes zero-padded to the next superblock,
+    values and scales, so the fifth bits still move into Q5_K's
+    per-superblock order and the nibbles into the per-64 order; they
+    dequantize to the codec's values, the padded tail dropped. A row that is
+    not whole 32-element blocks, which no GGUF of these kinds holds, is
+    refused. (The name is the test's from when such rows raised.)"""
     k = 96 if kind == Q41 else 288
+    want = jcodecs.dequantize(JGGMLType(int(kind)), _raw(kind, (8, k), 3)).reshape(8, k)
     qt = to_planar(kind, _raw(kind, (8, k), 3), (8, k))
-    np.testing.assert_array_equal(dequantize(qt).numpy(),
-                                  jcodecs.dequantize(JGGMLType(int(kind)),
-                                                     _raw(kind, (8, k), 3)).reshape(8, k))
-    with pytest.raises(UnsupportedError, match="superblocks" if kind != Q41 else "64-element"):
-        to_kernel_layout(qt)
+    np.testing.assert_array_equal(dequantize(qt).numpy(), want)
+    kt = to_kernel_layout(qt)
+    assert kt.shape == (8, k) and kt.plane_k == -(-k // 256) * 256
+    assert set(kt.planes) == KERNEL[kind]
+    assert not kt.planes["dsub"][:, k // 32:].any()
+    np.testing.assert_array_equal(dequantize(kt).numpy(), want)
+    bad = QTensor(kind, (8, 48), {n: p[:, :p.shape[1] * 48 // k] for n, p in qt.planes.items()})
+    with pytest.raises(UnsupportedError, match="32-element blocks"):
+        to_kernel_layout(bad)
 
 
 @pytest.fixture(scope="module")

@@ -204,6 +204,38 @@ def test_paged_engine_matches_the_jax_paged_engine(files, runner):
     assert [t for t, _, _ in got] == want
 
 
+# eight prompts of the vocabulary's pieces, for eight slots at once
+PROMPTS8 = [" ".join(f"tok{(31 * i + 7 * j) % 500 + 3}" for j in range(3 + i % 4))
+            for i in range(8)]
+
+
+def test_paged_engine_matches_the_jax_paged_engine_at_eight_slots(files, runner):
+    """Eight slots at once with speculative=4 (single verify steps, the JAX
+    default) over a float32 pool: each verify is 8 x 5 = 40 rows, past
+    W4A8_MAX_ROWS = 16, so both packages multiply it with the dequant matmul
+    where the plain tick's 8 rows take int8 activations. The port's
+    speculative tokens equal the JAX paged engine's for all eight requests
+    (24 tokens each): where a request leaves its package's plain decode,
+    the JAX package leaves it the same way."""
+    greedy = [dict(prompt=p, max_tokens=24) for p in PROMPTS8]
+    jmm.set_backend("w4a8")
+    try:
+        jr = JRunner(files["tiny"], backend="w4a8", compute_dtype=jnp.float32)
+        jeng = JPagedServingEngine(jr, n_slots=8, seq_len=256, n_pages=24,
+                                   kv_dtype=jnp.float32, speculative=K)
+        jreqs = [jeng.submit(JRequest(**kw)) for kw in greedy]
+        while any(jeng.slots) or not jeng.pending.empty():
+            jeng.step()
+        want = [list(map(int, q.output_tokens)) for q in jreqs]
+    finally:
+        jmm.set_backend("xla")
+    assert jeng.spec_ticks > 0
+    eng = PagedServingEngine(runner, n_slots=8, seq_len=256, n_pages=24, speculative=K)
+    got = _drain(eng, greedy)
+    assert eng.spec_ticks > 0
+    assert [t for t, _, _ in got] == want
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_daemon_speculative_and_draft(files, paged):
     """`--speculative 4` and `--draft GGUF` on the daemon's command line
