@@ -50,7 +50,9 @@ fails:
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the peak rate of their type, whichever is larger).
-3. forward: the 7B shape cut to 2 layers, the same weights loaded twice:
+3. forward: the 7B shape cut to 2 layers (the schemes', Qwen3-8B's,
+   Gemma-7B's and the Mixtral widths' forwards below to 1 since PR 22, for
+   time), the same weights loaded twice:
    the card (kernels, bfloat16) against the CPU (plain versions, float32)
    for a 16-token prompt and one decode step.
 4. serving forward: the same model at 1 layer, one paged decode tick over 8
@@ -76,7 +78,7 @@ fails:
    n_slots=8, kv_dtype=int8)` and `PagedServingEngine(..., int8 pool)` on 8
    requests each, twice each: done and deterministic.
 8. MoE forward and MoE paged tick: phases 3 and 4 at the Mixtral-8x7B widths
-   (8 experts, 2 per token) cut to 2 layers (the tick to 1), with the W8
+   (8 experts, 2 per token) cut to 1 layer (2 until PR 22), with the W8
    planes on the card.
 9. MoE: a synthetic Mixtral-8x7B GGUF in llama.cpp's Q4_K_M layout for 8
    experts (`mixtral-q4_k_m`: Q4_K q and gate|up experts, Q8_0 k and v, Q5_K
@@ -99,7 +101,7 @@ fails:
    W8 planes (each kind's grouped form).
 10. Q8_0, Q6_K, Q5_K, Q4_0, Q3_K, Q2_K, Q5_0, Q4_1, Q5_1 and Q8_1, and
    llama.cpp's mixed and legacy layouts: phase 3 for each scheme and for a
-   2-layer Q4_K_M file (2 layers, card against CPU), then the 7B widths,
+   Q4_K_M file (1 layer since PR 22, card against CPU), then the 7B widths,
    each cut to 2 of 32 layers (the imatrix Q5_0 file to 8), with every
    matrix in Q8_0 (`7b-q8_0`), in Q6_K (`7b-q6_k`), as a Q5_K_M file
    (`7b-q5_k_m`: Q5_K layers, attn_v and ffn_down in Q6_K where
@@ -146,7 +148,7 @@ fails:
    heads a kv head, the 16-request drain on the decode forms at 7 query rows,
    the dense engine against the Runner, and its 2-layer forward
    (`forward_qwen2`); then Qwen3-8B and Gemma-7B at their published widths
-   at 2 layers (phase 3: `forward_qwen3-8b`,
+   at 1 layer (2 until PR 22; phase 3: `forward_qwen3-8b`,
    `forward_gemma-7b`), and Llama-3.1-8B at 2 layers with its rope_freqs
    divisors (`llama31-8b`: phase 3, then 32 greedy tokens through the
    captured step equal to the eager step's).
@@ -173,14 +175,17 @@ fails:
    -v`). Gemma-2-9B's widths at 2 layers in float32 (`gemma2-9b-f32`): the
    4,612-token prompt and 128 tokens as above, over a bfloat16 cache, so
    that decode runs float32 q over a bfloat16 cache at head dim 256 and the
-   256,000-row Q6_K lm_head takes the float32 forms. The 2-layer forwards of
-   the 7B, of gemma2 and of each scheme with forms of its own (phases 3, 10,
-   11) also run the card in float32 against the CPU's float32, on a 40-token
+   256,000-row Q6_K lm_head takes the float32 forms. The forwards of the 7B
+   and of gemma2 (2 layers) and of each scheme with forms of its own (1
+   layer; phases 3, 10, 11) also run the card in float32 against the CPU's
+   float32, on a 40-token
    prompt (the dequant forms), each scheme's float32 forms counted there.
    Phase 2 holds each float32 form (the dequant form at 512 and 189 rows,
-   the int8-activation form at 1, 8 and 16 rows) and the decode forms in
-   float32 at head dim 256 and over a cache of another dtype against their
-   plain versions.
+   Q4_K's, Q6_K's and Q2_K's also at 1 and 17, each also against the
+   three-pass model of its TF32 arithmetic; the int8-activation form at 1, 8
+   and 16 rows), the decode forms in float32 at head dim 256 and over a
+   cache of another dtype, and flash in float32 at the 7B's head dim 128
+   against their plain versions.
 15. float32 mixtures of experts and head dim 16: each Mixtral file
    of phase 9's other layouts also runs its forward on the card in float32
    (the grouped float32 form of every expert kind, the float32 plane
@@ -198,8 +203,9 @@ fails:
    float32 through the Runner, the 16-token prompt and the decode step
    captured in a graph against transformers' logits at 5e-4, and both
    engines' greedy tokens equal to the Runner's. Phase 2 holds the eight
-   grouped float32 forms at the Mixtral shapes and flash at head dim 16 in
-   both dtypes against their plain versions.
+   grouped float32 forms at the Mixtral shapes (gate|up also on segments
+   with an empty and a one-row one; each also against its three-pass model)
+   and flash at head dim 16 in both dtypes against their plain versions.
 16. speculative decoding, on phase 5's 7B file and Runner, K = 4:
    the plain graphed run's ~700-token prompt and 128 greedy tokens, then
    `Runner(path, speculative=4)` (prompt lookup), `Runner(path,
@@ -271,8 +277,9 @@ CARD = "cuda"
 OUT_DIR = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-# dense tensor-core rates, and float32 on the CUDA cores, per second
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# dense tensor-core rates, and float32 on the CUDA cores, per second; a
+# float32 product in three TF32 passes (csrc/qmm_f32.cu) at a third of TF32's
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: each timed launch finds it cold
 # the spin that holds the card while the host queues ten timed calls: at
 # least 10.1 ms at the H100's 1.98 GHz top clock, ten times what a kernel's
@@ -370,7 +377,7 @@ KERNEL_SOURCES.update(_expert_forms())
 # the float32 forms: each form's dequant kernel in csrc/qmm_f32.cu and its
 # int8-activation form on float32 x and scale planes, on the float32 path of
 # its kind: Q4_K's the 7B one, Q6_K's the gemma2 one (its lm_head and Q6_K
-# layers), the others the 2-layer float32 forward of their scheme
+# layers), the others the float32 forward (phase_forward) of their scheme
 F32_PATH_OF = {"q4_k": "7b-f32", "q6_k": "gemma2-9b-f32"}
 
 
@@ -431,7 +438,7 @@ SCHEME_PATHS = (("7b-q8_0", "q8_0", 2, 61, None), ("7b-q6_k", "q6_k", 2, 62, Non
                 ("7b-q3_k_m", "q3_k", 2, 65, "k_m"), ("7b-q2_k", "q2_k", 2, 66, "q2_k"),
                 ("7b-q5_0", "q5_0", 8, 67, "imatrix"), ("7b-q4_1", "q4_1", 2, 68, "legacy"))
 # the schemes of phase kernels' checks (each with forms of its own) and of
-# the 2-layer forward checks (with the schemes that run the Q4_K, Q5_K and
+# the forward checks (with the schemes that run the Q4_K, Q5_K and
 # Q8_0 forms, REUSED_SCHEMES, whose kernel checks are those forms on their
 # planes)
 KERNEL_SCHEMES = ("q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0")
@@ -457,13 +464,18 @@ DENSE_LAYERS = 8
 # bfloat16 forward's gate allows (5e-2; on an H100, 1.67e-2 at most, on the
 # Q8_0 file, and 6.4e-7 where no code moved)
 F32_FORWARD_TOL = {"prefill": 1e-4, "decode step": 5e-2}
-# the prompt of the 2-layer forwards that run the card in float32: more than
+# the prompt of the forwards that run the card in float32: more than
 # 16 tokens, so that its chunk takes the dequant form
 F32_FORWARD_PROMPT = 40
 # the paged tick's card-against-CPU checks (the 7B's and Mixtral's): one layer
 # covers every kernel and the block table; the CPU side, which gathers each
 # decode row's expert planes and dequantizes them, took 37 and 51 s at 2 (PR 15)
 SERVING_FORWARD_LAYERS = 1
+# the card-against-CPU forwards of each scheme, of the q4_k_m mix, of Qwen3-8B and
+# Gemma-7B and of the Mixtral widths (W8 planes): 1 layer since PR 22 (2 before),
+# for the script's time; one layer runs every form of a layer (a _K_M mix keeps
+# its Q6_K layer: use_more_bits holds in layer 0 of 1)
+CUT_FORWARD_LAYERS = 1
 # of Mixtral-8x7B's 32 (cut for the script's time): with the W8 planes the full depth does
 # not fit beside the pools; at 4, use_more_bits puts the down experts of layers 2 and 3 in
 # Q6_K, of 0 and 1 in Q4_K
@@ -494,7 +506,7 @@ G2_KERNELS = ("flash_attention", "decode_attention", "decode_attention_fused", "
 Q2_DIM, Q2_HEADS, Q2_KV, Q2_LAYERS = 3584, 28, 4, 4
 Q2_ATTN = (Q2_HEADS, Q2_KV, HEAD_DIM, CTX)
 Q2_KERNELS = ("flash_attention", "decode_attention_fused", "qmm_w8", "qmm_w4a8", "qmm_w4a8_q6k")
-# the other families at their published widths, 2 layers each (phase_forward); Llama-3.1-8B
+# the other families at their published widths, 1 layer each (phase_forward); Llama-3.1-8B
 # also decodes FAMILY_STEPS greedy tokens graphed against eager (its rope divisors)
 FAMILY_FORWARDS = (("qwen3-8b", 171), ("gemma-7b", 172))
 # the phi paths (tools/synth_gguf.py "phi3-mini": microsoft/Phi-3-mini-4k-instruct, 32 / 32
@@ -765,7 +777,10 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
     form of csrc/qmm_f32.cu (`form` "dequant") or the int8-activation form
     ("w4a8"), against its plain version; the library yardstick is
     torch.matmul in float32 (TF32 off) on the dequantized weight. Only float32
-    comes out."""
+    comes out. The dequant form is also held against the three-pass model
+    of its arithmetic (`qmm_f32_split_plain`) at the same tolerance, and
+    bound by operations at TF32's rate over three (its FFMA bound, 67
+    TFLOP/s, reported beside)."""
     import torch
 
     from crabml_tpu_torch.ops.cuda import gemm_quant
@@ -782,8 +797,10 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
         name = gemm_quant.DEQUANT_F32_FORMS[kind]
         wrapper = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[kind])
         plain_fn = getattr(gemm_quant, f"{gemm_quant.DEQUANT_FORMS[kind]}_plain")
-        # the same exact float32 weights: only the order of float32 sums differs
-        tol, why, op_type = 1e-5, "the same float32 weights, float32 sums in another order", "f32"
+        # the same exact float32 weights in three TF32 passes: each product
+        # within ~3 * 2^-22 of the exact one, float32 sums in another order
+        tol, why, op_type = 1e-5, ("the same float32 weights, products in three TF32 passes, "
+                                   "float32 sums in another order"), "tf32x3"
     else:
         name = gemm_quant.W4A8_FORMS[kind] + ".f32"
         wrapper = gemm_quant.qmm_w4a8
@@ -793,11 +810,29 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
     kernel = lambda: wrapper(x, qt)  # noqa: E731
     plain = lambda: plain_fn(xp, *planes)  # noqa: E731
     w32 = dequantize(qt)
+    got = kernel()
+    extra = None if form != "dequant" else _split_model_record(
+        got, gemm_quant.qmm_f32_split_plain(x, w32), tol, 2.0 * rows * m * k)
     rec = _matmul_record(
         timer, name, f"{_on_planes(qt)}{rows}x{k} @ ({m}x{k})^T float32", kernel, plain,
-        lambda: torch.matmul(x, w32.t()), "torch.matmul(f32, TF32 off)", kernel(), plain(), None,
-        tol, why, x.numel() * 4 + _weight_bytes(qt) + rows * m * 4, 2.0 * rows * m * k, op_type)
+        lambda: torch.matmul(x, w32.t()), "torch.matmul(f32, TF32 off)", got, plain(), None,
+        tol, why, x.numel() * 4 + _weight_bytes(qt) + rows * m * 4, 2.0 * rows * m * k, op_type,
+        extra)
     return name, rec
+
+
+def _split_model_record(got, model, tol: float, ops: float) -> dict:
+    """The float32 dequant kernel against the three-pass model of its
+    arithmetic (`qmm_f32_split_plain`: the same TF32 parts, exact products,
+    float32 sums), held at `tol` of max|model|; and its FFMA bound."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got - model).abs().max().item()
+    ref = model.abs().max().item()
+    return {"split_model_max_abs_err": err,
+            "split_model_ok": math.isfinite(err) and err <= tol * ref,
+            "bound_ffma_ms": bound_ms(0, ops, "f32")[0]}
 
 
 def _padded_x(x, qt):
@@ -828,9 +863,10 @@ def _plane_bytes(qt, names, planes=None) -> int:
 
 
 def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, want, got_bf16,
-                   tol, why, nbytes, ops, op_type) -> dict:
+                   tol, why, nbytes, ops, op_type, extra: dict | None = None) -> dict:
     """Compare, time and report one matmul check (the shared tail of the
-    checks below)."""
+    checks below); `extra`: the float32 form's comparison with its
+    three-pass model (`_split_model_record`), which must hold too."""
     import torch
 
     torch.cuda.synchronize()
@@ -839,6 +875,7 @@ def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, 
     # the float32 forms write float32 only (got_bf16 None)
     rounded_once = got_bf16 is None or torch.equal(got_bf16, got32.to(torch.bfloat16))
     ok = math.isfinite(err) and err <= tol * ref and rounded_once
+    ok = ok and (extra is None or extra["split_model_ok"])
     b_ms, b_by = bound_ms(nbytes, ops, op_type)
     rec = {
         "shape": shape, "max_abs_err": err, "max_abs_ref": ref,
@@ -847,11 +884,14 @@ def _matmul_record(timer, name, shape, kernel, plain, library, lib_name, got32, 
                         "; bfloat16 out (timed): equal to the float32 out rounded once"),
         "bf16_out_rounded_once": rounded_once, "ok": ok,
         "ms": timer(kernel), "plain_ms": timer(plain), "library_ms": timer(library),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, **(extra or {}),
     }
+    model = "" if extra is None else (
+        f", three-pass model max_abs_err {extra['split_model_max_abs_err']:.3e}, "
+        f"FFMA bound {extra['bound_ffma_ms']:.4f} ms")
     say(f"{name} {shape}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, {rec['tolerance']}) "
         f"{'ok' if ok else 'FAILED'}; {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-        f"{lib_name} {rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{lib_name} {rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}){model}")
     return rec
 
 
@@ -888,6 +928,8 @@ def check_w8(timer, rows: int, m: int, k: int, seed: int, qt=None) -> dict:
 # 8 experts; a skewed routing with expert 0 empty and ragged segments
 MOE_EXPERTS, MOE_USED = 8, 2
 GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
+# the float32 grouped forms also on segments with an empty and a one-row one
+EDGE_COUNTS = (0, 1, 300, 37, 200, 128, 64, 294)
 
 
 def scheme_stack(scheme: str, E: int, m: int, k: int, seed: int, w8: bool = False):
@@ -924,14 +966,15 @@ def float32_scales(qt):
 
 
 def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None,
-                  f32: bool = False) -> dict:
+                  f32: bool = False, counts=GROUPED_COUNTS) -> dict:
     """qmm_w8_grouped, or a scheme's grouped dequant form (qmm_q4k_grouped,
-    qmm_q6k_grouped, ... on the stack `qt`), on 1,024 sorted pairs. The bound
-    counts the planes of the experts that have rows, read once. `f32`: the
-    float32 form (csrc/qmm_f32.cu) on float32 x and `qt` with float32 scale
-    planes, float32 out, held at check_f32_matmul's 1e-5 and bound by
-    operations at 67 TFLOP/s; the library yardstick is float32 torch.matmul
-    (TF32 off) per segment."""
+    qmm_q6k_grouped, ... on the stack `qt`), on 1,024 sorted pairs (segments
+    of `counts` rows). The bound counts the planes of the experts that have
+    rows, read once. `f32`: the float32 form (csrc/qmm_f32.cu) on float32 x
+    and `qt` with float32 scale planes, float32 out, held at
+    check_f32_matmul's 1e-5, also against its three-pass model, and bound by
+    operations at TF32's rate over three; the library yardstick is float32
+    torch.matmul (TF32 off) per segment."""
     import numpy as np
     import torch
 
@@ -941,8 +984,8 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None,
     w8 = name == "qmm_w8_grouped"
     if qt is None:
         qt = q4k_stack(MOE_EXPERTS, m, k, seed, w8)
-    rows = sum(GROUPED_COUNTS)
-    cuts = np.concatenate([[0], np.cumsum(GROUPED_COUNTS)])
+    rows = sum(counts)
+    cuts = np.concatenate([[0], np.cumsum(counts)])
     offsets = torch.tensor(cuts, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     xs = torch.randn(rows, k, generator=g, device="cuda")
@@ -965,13 +1008,17 @@ def check_grouped(timer, name: str, m: int, k: int, seed: int, qt=None,
         return torch.cat([torch.matmul(xs[lo:hi], w[e].t()) for e, lo, hi in segs])
 
     used = [e for e, _, _ in segs]
-    shape = f"{_on_planes(qt)}{rows} pairs {list(GROUPED_COUNTS)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T"
+    shape = f"{_on_planes(qt)}{rows} pairs {list(counts)} x{k} @ ({MOE_EXPERTS}x{m}x{k})^T"
     if f32:
+        got = wrapper(xs, qt, offsets)
+        extra = _split_model_record(
+            got, gemm_quant.qmm_f32_grouped_split_plain(xs, w, offsets), 1e-5, 2.0 * rows * m * k)
         rec = _matmul_record(
             timer, f"{name}.f32", shape + " float32", lambda: wrapper(xs, qt, offsets), plain,
-            library, "torch.matmul(f32, TF32 off) per segment", wrapper(xs, qt, offsets), plain(),
-            None, 1e-5, why, xs.numel() * 4 + _plane_bytes(qt, names, used) + rows * m * 4,
-            2.0 * rows * m * k, "f32")
+            library, "torch.matmul(f32, TF32 off) per segment", got, plain(), None, 1e-5,
+            why.replace("weights,", "weights, products in three TF32 passes,"),
+            xs.numel() * 4 + _plane_bytes(qt, names, used) + rows * m * 4, 2.0 * rows * m * k,
+            "tf32x3", extra)
     else:
         rec = _matmul_record(
             timer, name, shape, lambda: wrapper(xs, qt, offsets, torch.bfloat16), plain, library,
@@ -1390,12 +1437,15 @@ def f32_checks(timer) -> dict[str, list[dict]]:
     """The float32 forms and the decode forms in float32 and over a cache of
     another dtype. Each scheme's float32 dequant form at a 512-row and at the
     ragged 189-row chunk of the 7B qkv (and Q4_K's at a 512-row chunk of
-    down), its float32 int8-activation form at 1, 8 and 16 rows of qkv, Q4_K's
-    also at every other 7B decode projection at one row; then the decode
-    forms with float32 q at gemma2's head dim 256 (one tile for K, then V)
-    over a float32, bfloat16 or int8 cache and at the 7B's 128 over a
-    bfloat16 or int8 one, bfloat16 q over a float32 cache, and the flash
-    kernel in float32 at head dim 256."""
+    down; Q4_K's, Q6_K's and Q2_K's also at 1 and 17 rows of qkv), its float32
+    int8-activation form at 1, 8 and 16 rows of qkv, Q4_K's also at every
+    other 7B decode projection at one row; then the decode forms with float32
+    q at gemma2's head dim 256 (one tile for K, then V) over a float32,
+    bfloat16 or int8 cache and at the 7B's 128 over a bfloat16 or int8 one,
+    bfloat16 q over a float32 cache, and the flash kernel in float32 at head
+    dim 256 and at the 7B's 128 (the 7b-f32 path's prefill: 512-token chunks
+    at pos 0 and 512 and the 189-token chunk; the path converts the bfloat16
+    cache's live keys to float32 before the launch)."""
     import torch
 
     checks: dict[str, list[dict]] = {}
@@ -1408,6 +1458,8 @@ def f32_checks(timer) -> dict[str, list[dict]]:
         shapes = [(PREFILL_CHUNK, QKV_M, DIM), (RAGGED_CHUNK, QKV_M, DIM)]
         if scheme == "q4_k":
             shapes.append((PREFILL_CHUNK, DIM, FFN))
+        if scheme in ("q4_k", "q6_k", "q2_k"):
+            shapes += [(1, QKV_M, DIM), (17, QKV_M, DIM)]
         for rows, m, k in shapes:
             add(*check_f32_matmul(timer, scheme, "dequant", rows, m, k, seed))
         qt = scheme_weight(scheme, QKV_M, DIM, seed + 2, "cuda", torch.float32)
@@ -1424,6 +1476,10 @@ def f32_checks(timer) -> dict[str, list[dict]]:
                                                   dtype="f32"))
     add("flash_attention", check_attention(timer, "flash_attention", PREFILL_CHUNK, PREFILL_CHUNK,
                                            321, G2_SOFTCAP, 0, dims=G2_ATTN, dtype="f32"))
+    for i, (T, pos) in enumerate(((PREFILL_CHUNK, 0), (PREFILL_CHUNK, PREFILL_CHUNK),
+                                  (RAGGED_CHUNK, PREFILL_CHUNK))):
+        add("flash_attention", check_attention(timer, "flash_attention", T, pos, 322 + i,
+                                               dtype="f32"))
     for i, (form, q, kv, dims) in enumerate((
             ("dense_fused", "f32", "f32", G2_ATTN[:3]), ("paged_fused", "f32", "f32", G2_ATTN[:3]),
             ("paged", "f32", "f32", G2_ATTN[:3]), ("dense", "f32", "f32", G2_ATTN[:3]),
@@ -1587,6 +1643,9 @@ def phase_kernels() -> dict[str, list[dict]]:
         qt = float32_scales(q4k_stack(MOE_EXPERTS, m, k, seed, False))
         checks.setdefault("qmm_q4k_grouped.f32", []).append(
             check_grouped(timer, "qmm_q4k_grouped", m, k, seed, qt, f32=True))
+        if m == 2 * FFN:  # an empty and a one-row segment
+            checks["qmm_q4k_grouped.f32"].append(check_grouped(
+                timer, "qmm_q4k_grouped", m, k, seed, qt, f32=True, counts=EDGE_COUNTS))
         del qt
         torch.cuda.empty_cache()
     for rows, m, k, planes, seed in W4A8_SHAPES:
@@ -1605,6 +1664,9 @@ def phase_kernels() -> dict[str, list[dict]]:
             checks.setdefault(name, []).append(check_grouped(timer, name, m, k, seed, qt))
             checks.setdefault(f"{name}.f32", []).append(
                 check_grouped(timer, name, m, k, seed, float32_scales(qt), f32=True))
+            if m == 2 * FFN:  # an empty and a one-row segment
+                checks[f"{name}.f32"].append(check_grouped(
+                    timer, name, m, k, seed, float32_scales(qt), f32=True, counts=EDGE_COUNTS))
             for rows in (1, SERVING_SLOTS):
                 name, rec = check_w4a8_planes(timer, rows, m, k, seed + rows, qt)
                 checks.setdefault(name, []).append(rec)
@@ -1677,11 +1739,11 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
                   w8: bool = False, min_share: float = 1.0, scheme: str = "q4_k",
                   mix: str | None = None, path: str | None = None,
                   cpu_dtype=None, card_weights=None, f32_card: bool = False,
-                  bf16_card: bool = True) -> dict:
-    """`model` cut to 2 layers (or the layers of the file at `path`), every
-    matrix in `scheme` (with `mix` "k_m",
-    llama.cpp's _K_M layout: layer 1's attn_v and ffn_down and the output in
-    Q6_K): a prompt of `n_prompt` tokens and one decode step, the card
+                  bf16_card: bool = True, layers: int = 2) -> dict:
+    """`model` cut to `layers` layers (or the layers of the file at `path`),
+    every matrix in `scheme` (with `mix` "k_m", llama.cpp's _K_M layout: the
+    last layer's attn_v and ffn_down and the output in Q6_K): a prompt of
+    `n_prompt` tokens and one decode step, the card
     (kernels, bfloat16, with the W8 prefill planes when `w8`) against the CPU
     (plain versions, float32 unless `cpu_dtype` says otherwise, the scheme's
     planes only). `path`: such a file written already (kept);
@@ -1704,8 +1766,8 @@ def phase_forward(tmp: Path, model: str = "7b", seed: int = 11, n_prompt: int = 
 
     own = path is None
     if own:
-        path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-{mix}-2layers.gguf"), model,
-                                seed=seed, layers=2, scheme=scheme, mix=mix)
+        path = build_synth_gguf(str(tmp / f"synth-{model}-{scheme}-{mix}-{layers}layers.gguf"),
+                                model, seed=seed, layers=layers, scheme=scheme, mix=mix)
     gf = GGUFFile(path)
     cfg = config_from_gguf(gf.metadata)
     tokens = np.random.default_rng(seed + 1).integers(3, cfg.vocab_size, (1, n_prompt + 1))
@@ -4304,7 +4366,7 @@ def main() -> int:
                                         seed=161, scheme="q4_k", mix="k_m")
         for model, seed in FAMILY_FORWARDS:
             report[f"forward_{model}"] = timed(f"forward_{model}", phase_forward, tmp, model,
-                                               seed=seed)
+                                               seed=seed, layers=CUT_FORWARD_LAYERS)
         p3 = report["phi3-mini"] = timed(
             "phi3-mini", phase_family, tmp, "phi3-mini", P3_LAYERS, 200,
             lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _p3_check, PHI_KERNELS, 28)
@@ -4334,7 +4396,8 @@ def main() -> int:
                              "7b-f32-dense-serving": f32_7b["dense_serving"],
                              "gemma2-9b-f32": g2_f32})
         report["moe_forward"] = timed("moe_forward", phase_forward, tmp, "mixtral-8x7b", seed=16,
-                                      n_prompt=300, w8=True, min_share=0.9)
+                                      n_prompt=300, w8=True, min_share=0.9,
+                                      layers=CUT_FORWARD_LAYERS)
         if not report["moe_forward"]["ok"]:
             failures.append("MoE forward check")
         report["moe_serving_forward"] = timed(
@@ -4362,13 +4425,15 @@ def main() -> int:
             own = scheme in KERNEL_SCHEMES
             fwd = report[f"forward_{scheme}"] = timed(
                 f"forward_{scheme}", phase_forward, tmp, seed=80 + i, scheme=scheme,
-                n_prompt=F32_FORWARD_PROMPT if own else 16, f32_card=own)
+                n_prompt=F32_FORWARD_PROMPT if own else 16, f32_card=own,
+                layers=CUT_FORWARD_LAYERS)
             if not fwd["ok"]:
                 failures.append(f"{scheme} forward check")
             if own:
                 paths[f"forward_{scheme}"] = fwd
         fwd = report["forward_q4_k_m"] = timed("forward_q4_k_m", phase_forward, tmp, seed=85,
-                                               scheme="q4_k", mix="k_m")
+                                               scheme="q4_k", mix="k_m",
+                                               layers=CUT_FORWARD_LAYERS)
         if not fwd["ok"]:
             failures.append("q4_k k_m forward check")
         for what, scheme, layers, seed, mix in SCHEME_PATHS:

@@ -79,24 +79,23 @@ struct Tile {
     int plane;  // weight plane of these rows
 };
 
-// The t-th tile of ROWS rows, or false when there are fewer tiles (the
+// The t-th tile of `rows` rows, or false when there are fewer tiles (the
 // grouped grid is sized for the worst case). The whole block takes the same
-// branch. ROWS is BX here; csrc/qmm_f32.cu walks the same segments in tiles
-// of its own 64 rows.
-template <int ROWS = BX>
+// branch. The tile loop below cuts BX rows a tile; csrc/qmm_f32.cu cuts as
+// many as its launch plan says (ops/cuda/gemm_quant.py::qmm_f32_plan).
 __device__ __forceinline__ bool find_tile(const int* __restrict__ offsets, int n_planes, int M,
-                                          int t, Tile& tile) {
+                                          int t, Tile& tile, int rows) {
     if (offsets == nullptr) {
-        tile.m0 = t * ROWS;
+        tile.m0 = t * rows;
         tile.m_end = M;
         tile.plane = 0;
         return tile.m0 < M;
     }
     for (int e = 0; e < n_planes; ++e) {
         const int lo = offsets[e], hi = offsets[e + 1];
-        const int nt = (hi - lo + ROWS - 1) / ROWS;
+        const int nt = (hi - lo + rows - 1) / rows;
         if (t < nt) {
-            tile.m0 = lo + t * ROWS;
+            tile.m0 = lo + t * rows;
             tile.m_end = hi;
             tile.plane = e;
             return true;
@@ -281,7 +280,7 @@ kernel(const bf16* __restrict__ x, W w, void* __restrict__ out, int out_bf16,
        const int* __restrict__ offsets, int n_planes, int M, int N, int K) {
     extern __shared__ uint8_t smem_raw[];
     Tile tile;
-    if (!find_tile(offsets, n_planes, M, blockIdx.x, tile)) return;
+    if (!find_tile(offsets, n_planes, M, blockIdx.x, tile, BX)) return;
     const uint32_t raw_s = wg::smem_u32(smem_raw);
     const uint32_t smem_s = (raw_s + 1023u) & ~1023u;
     uint8_t* smem = smem_raw + (smem_s - raw_s);

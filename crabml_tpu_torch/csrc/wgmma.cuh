@@ -1,9 +1,10 @@
 // Warpgroup matrix multiply (wgmma) and asynchronous-copy helpers for sm_90a.
 //
 // Thin wrappers over the PTX that the tensor-core kernels of this directory
-// (flash_attention.cu, qmm_pipe.cuh) are written with. A warpgroup is four
-// consecutive warps; every wgmma here is m64 x N x k16 with bfloat16 inputs
-// and float32 accumulators held in registers.
+// (flash_attention.cu, qmm_pipe.cuh, qmm_f32.cu) are written with. A
+// warpgroup is four consecutive warps; every wgmma here is m64 x N x k16 with
+// bfloat16 inputs (`Mma`) or m64 x N x k8 with TF32 inputs (`Tf32`), and
+// float32 accumulators held in registers.
 //
 // Fragment layouts (thread t of the warpgroup, w = t / 32, r = t % 32 / 4,
 // q = t % 4):
@@ -11,7 +12,8 @@
 //   register A   a[2 g + h]      = A[16 w + r + 8 h][8 g + 2 q + {0, 1}]
 //                                  (two bf16, the lower k in the lower half)
 // so the accumulator of one product, rounded to bf16 pair by pair, is already
-// the A fragment of the next (the softmax's P in flash_attention.cu).
+// the A fragment of the next (the softmax's P in flash_attention.cu). A TF32
+// register A holds one value a register: a[2 g + h] = A[16 w + r + 8 h][4 g + q].
 //
 // Shared-memory operands use the 128-byte swizzle: a tile is rows of 128
 // bytes in groups of eight (1,024 bytes, the alignment of a tile), and the
@@ -19,7 +21,8 @@
 // bytes serve as a K-major operand (a row is one m or n index, 64 bf16 of k;
 // a k16 step advances the start address by 32 bytes) and as an MN-major one
 // (a row is one k index, 64 bf16 of n; a k16 step advances it by 16 rows;
-// `TRANS_B = 1`).
+// `TRANS_B = 1`). TF32 operands are K-major only: a row is 32 float32 of k,
+// and a k8 step advances the start address by 32 bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -213,6 +216,127 @@ template <> struct Mma<128> {
               "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
               "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+
+// v rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds every finite v): the float32 bit pattern with its
+// 13 low bits clear. Two integer operations: a conversion instruction issues
+// at a fraction of their rate.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+    return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo + e, |e| <= 2^-22 |v|: hi = tf32_rna(v), lo = tf32_rna(v - hi)
+// (v - hi is exact in float32). The tensor cores then read both as they are.
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(v);
+    lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+template <int N> struct Tf32;
+
+// m64n16k8: 8 accumulator registers a thread.
+template <> struct Tf32<16> {
+    // d (+)= A (registers, tf32) . B (shared, K-major, tf32)
+    static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
+// m64n32k8: 16 accumulator registers a thread.
+template <> struct Tf32<32> {
+    // d (+)= A (registers, tf32) . B (shared, K-major, tf32)
+    static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
+// m64n64k8: 32 accumulator registers a thread.
+template <> struct Tf32<64> {
+    // d (+)= A (registers, tf32) . B (shared, K-major, tf32)
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+              "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
+// m64n96k8: 48 accumulator registers a thread.
+template <> struct Tf32<96> {
+    // d (+)= A (registers, tf32) . B (shared, K-major, tf32)
+    static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+            "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+              "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+              "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+    }
+};
+
+// m64n128k8: 64 accumulator registers a thread.
+template <> struct Tf32<128> {
+    // d (+)= A (registers, tf32) . B (shared, K-major, tf32)
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+            "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+              "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+              "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+              "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+              "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+              "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
     }
 };
 

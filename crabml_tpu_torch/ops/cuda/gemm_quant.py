@@ -37,11 +37,13 @@ everything between takes the scheme's bf16 dequant kernel. Both values were
 tuned on a TPU v5e and stand until the card's own sweep sets them.
 
 Under float32 compute (x float32, the weights loaded with float32 dsub /
-msub planes) the dense dequant forms take csrc/qmm_f32.cu, an FFMA matmul
-on exactly dequantized float32 weights (the JAX kernel's out_dtype float32
-path, Precision.HIGHEST), counted as `<form>_f32`, and so do the grouped
-dequant forms (the grouped entries of the same source, counted as
-`<form>_grouped.f32`); qmm_w4a8 takes its `_f32` entries (float32 x into the
+msub planes) the dense dequant forms take csrc/qmm_f32.cu, a tensor-core
+matmul on exactly dequantized float32 weights in three TF32 passes (the JAX
+kernel's out_dtype float32 path, Precision.HIGHEST; `tf32_split` and
+`qmm_f32_split_plain` model its arithmetic, `qmm_f32_plan` its launch),
+counted as `<form>_f32`, and so do the grouped dequant forms (the grouped
+entries of the same source, counted as `<form>_grouped.f32`); qmm_w4a8
+takes its `_f32` entries (float32 x into the
 quantizer, float32 scale planes), counted as `<form>[.planes].f32`; qmm_w8
 and qmm_w8_grouped round float32 x to bfloat16 and write float32, as the JAX
 package does (gemm_quant.py:967, :896-903).
@@ -405,14 +407,14 @@ def qmm_q2k_grouped_plain(xs, qs, scm, d, dmin, offsets) -> torch.Tensor:
 
 def _lib_dequant_f32(kind: GGMLType, grouped: bool = False):
     """The float32 entry of a scheme in csrc/qmm_f32.cu: qmm_<form>_f32 (x,
-    the weight planes in _KERNEL_PLANES order, out, M, N, K, stream), or with
-    `grouped` qmm_<form>_grouped_f32 (the same with offsets and the plane
-    count after out)."""
+    the weight planes in _KERNEL_PLANES order, out, M, N, K, the plan's
+    tile_rows, stream), or with `grouped` qmm_<form>_grouped_f32 (the same
+    with offsets and the plane count after out)."""
     planes = [_P] * (2 + len(_KERNEL_PLANES[kind]))
     if grouped:
         return _build.entry("qmm_f32", f"{GROUPED_FORMS[kind]}_f32", *planes, _P, _I, _I, _I, _I,
-                            _P)
-    return _build.entry("qmm_f32", DEQUANT_F32_FORMS[kind], *planes, _I, _I, _I, _P)
+                            _I, _P)
+    return _build.entry("qmm_f32", DEQUANT_F32_FORMS[kind], *planes, _I, _I, _I, _I, _P)
 
 
 def _lib_dequant(kind: GGMLType, grouped: bool = False):
@@ -559,6 +561,125 @@ def w4a8_block_reads(plan: W4A8Plan, bx: int, by: int, rows: int, m: int,
     }
 
 
+H100_SMS = 132  # streaming multiprocessors of the H100
+F32_BW = 128  # weight rows (output columns) of a csrc/qmm_f32.cu block
+F32_TILE_ROWS = (128, 96, 64, 32, 16)  # the rows of x a tile may hold, widest first
+F32_STAGES = 3  # the x ring's depth (32-deep k steps)
+# What a block's k step costs beside its tile's own rows, in rows of x: the
+# weights' loads, conversion and split and the step's barrier do not shrink
+# with the tile. Fitted to the tile sweep of tools/qmm_ablation.py f32 on the
+# H100 (PERF.md): a block's time went as 125 + its wgmma width.
+F32_STEP_ROWS = 125
+
+
+@dataclass(frozen=True)
+class F32Plan:
+    """Shape of one csrc/qmm_f32.cu launch. Block (x, y) owns weight rows
+    y*128 .. y*128+127 and row tile x: `tile_rows` rows of x (dense: rows
+    x*tile_rows..; grouped: the x-th tile numbered through the segments,
+    `qmm_f32_tiles`). The kernel takes `tile_rows`; `grid`, `stages` and
+    `smem_bytes` mirror what the source derives (a slot of the ring holds a
+    128-row x tile's hi and lo parts, 32 float32 of k each; beside the ring
+    lie two 128 x 36 float32 weight exchange tiles and the 128 x 132 float32
+    total of the chunks' sums)."""
+    tile_rows: int
+    grid: tuple[int, int]  # (row tiles, weight tiles); grouped: row tiles for the worst case
+    blocks: int  # dense row tiles x weight tiles: the blocks a dense launch fills
+    stages: int
+    smem_bytes: int
+
+
+def f32_wgmma_width(rows: int) -> int:
+    """The wgmma N a csrc/qmm_f32.cu tile of `rows` rows takes: 16, 32, 64,
+    96 or 128, the least that holds them."""
+    return next(n for n in (16, 32, 64, 96, 128) if n >= rows)
+
+
+def f32_plan_cost(rows: int, m: int, tile: int) -> int:
+    """The time of a dense launch with `tile`-row tiles, in units of one
+    k step of one row: whole waves of blocks over the H100's SMs (one block
+    an SM: its registers), each as long as its widest tile's wgmma width plus
+    F32_STEP_ROWS."""
+    blocks = -(-rows // tile) * -(-m // F32_BW)
+    return -(-blocks // H100_SMS) * (F32_STEP_ROWS + f32_wgmma_width(min(tile, rows)))
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_f32_plan(rows: int, m: int, n_planes: int = 0) -> F32Plan:
+    """The launch for `rows` float32 activation rows against an m-row
+    weight (or, with `n_planes` > 0, a stack of that many): the tile in
+    F32_TILE_ROWS of least `f32_plan_cost` (every tile runs the same k
+    steps), the wider one of a tie. A function of the shapes alone: it reads
+    nothing on the device, so a CUDA graph can capture the launch. A grouped
+    launch sizes its grid for the worst case (each segment may end in a short
+    tile); its tile is chosen by the dense count."""
+    cols = -(-m // F32_BW)
+    tile = min(F32_TILE_ROWS, key=lambda t: (f32_plan_cost(rows, m, t), -t))
+    row_tiles = -(-rows // tile) + n_planes
+    smem = F32_STAGES * 2 * 128 * 32 * 4 + 2 * F32_BW * 36 * 4 + 128 * (F32_BW + 4) * 4 + 1024
+    return F32Plan(tile_rows=tile, grid=(row_tiles, cols), blocks=-(-rows // tile) * cols,
+                   stages=F32_STAGES, smem_bytes=smem)
+
+
+def qmm_f32_tiles(plan: F32Plan, rows: int, offsets=None) -> list:
+    """The rows each block row of `plan` takes, as csrc/qmm_f32.cu finds
+    them (qmm_pipe.cuh::find_tile, cut to the plan's tile): per blockIdx.x,
+    (first row, one past the last, plane), or None for a block with no tile
+    (the grouped grid is sized for the worst case). Dense when `offsets` is
+    None, else grouped over the segments of `offsets` (n_planes + 1 ints)."""
+    tr = plan.tile_rows
+    out = []
+    for t in range(plan.grid[0]):
+        if offsets is None:
+            found = (t * tr, rows, 0) if t * tr < rows else None
+        else:
+            found = None
+            for e in range(len(offsets) - 1):
+                lo, hi = int(offsets[e]), int(offsets[e + 1])
+                nt = -(-(hi - lo) // tr)
+                if t < nt:
+                    found = (lo + t * tr, hi, e)
+                    break
+                t -= nt
+        out.append(None if found is None else (found[0], min(found[1], found[0] + tr), found[2]))
+    return out
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of csrc/wgmma.cuh's tf32_split, used by tests and
+    chip_smoke.py: float32 x -> (hi, lo), hi = x rounded to TF32 (to nearest,
+    ties away from zero, as cvt.rna.tf32.f32 rounds finite values: the 13 low
+    bits clear), lo = x - hi (exact in float32) rounded the same way; |x - hi
+    - lo| <= 2^-22 |x| for normal x."""
+    def rna(v):  # on the magnitude's bits; infinities and NaNs pass as they are
+        bits = v.contiguous().view(torch.int32)
+        mag = bits & 0x7FFFFFFF
+        mag = torch.where(mag < 0x7F800000, (mag + 0x1000) & 0x7FFFE000, mag)
+        return ((bits & -0x80000000) | mag).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def qmm_f32_split_plain(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The arithmetic of csrc/qmm_f32.cu on the CPU, for tests and
+    chip_smoke.py: x2 (rows, k) float32 @ w^T for exact float32 weights w (m,
+    k), both split by `tf32_split`, in three passes: w_lo x_hi + w_hi x_lo +
+    w_hi x_hi (each TF32 product exact in float32, sums in float32); the
+    dropped w_lo x_lo is ~2^-22 of each product -> (rows, m) f32."""
+    xh, xl = tf32_split(x2)
+    wh, wl = tf32_split(w)
+    return xh @ wl.t() + xl @ wh.t() + xh @ wh.t()
+
+
+def qmm_f32_grouped_split_plain(xs: torch.Tensor, w: torch.Tensor,
+                                offsets: torch.Tensor) -> torch.Tensor:
+    """qmm_f32_split_plain per segment [offsets[e], offsets[e+1]) of the
+    sorted rows against plane e of the exact float32 stack w (E, m, k)."""
+    return _grouped_plain(xs, offsets, lambda r, e: qmm_f32_split_plain(r, w[e]))
+
+
 # per scheme, its kernel planes: name -> (k elements a plane element, dtype)
 _KERNEL_PLANES = {
     GGMLType.Q4_K: {"qs": (2, torch.uint8), "dsub": (32, torch.bfloat16),
@@ -663,7 +784,7 @@ def _dequant_matmul_f32(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype
     lib, fn = _lib_dequant_f32(kind)
     _build.launches[name] += 1
     err = fn(x2.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), rows, qt.m, k,
-             _build.stream_ptr(x2))
+             qmm_f32_plan(rows, qt.m).tile_rows, _build.stream_ptr(x2))
     _build.check(lib, err, name)
     return out
 
@@ -865,7 +986,8 @@ def _grouped_form(kind: GGMLType):
         if f32:
             lib, fn = _lib_dequant_f32(kind, grouped=True)
             err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(),
-                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
+                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k,
+                     qmm_f32_plan(rows, qt.m, qt.shape[0]).tile_rows, _build.stream_ptr(xs))
         else:
             lib, fn = _lib_dequant(kind, grouped=True)
             err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,

@@ -20,6 +20,15 @@ weight ((128 + val) * d + (-144 d) in float32, exact, then rounded to bf16
 in pairs, as the Q4_K and Q5_K sources convert); both give the plain
 version's numbers bit for bit.
 
+With the argument `f32` it times csrc/qmm_f32.cu's Q4_K form (float32 x,
+float32 scale planes) as committed and with one piece changed: the tensor
+cores' products removed, one TF32 pass (hi x hi) instead of three, the
+weights not loaded or converted, x not split (a variant without a piece
+computes wrong numbers on purpose), or the accumulator restarted every
+1,024 elements of k instead of 256; and the committed source at each tile
+height the plan could pick (128, 96, 64, 32, 16 rows of x), at the 7B's shapes
+and at 100 and 17 rows of q|k|v and 256 rows against a 1536 x 512 weight.
+
 Prints the card and its power limit, then one JSON line a shape.
 """
 
@@ -93,9 +102,31 @@ _Q50_FFMA = """                const float fl = __uint_as_float(dp << 16);
                     __fmaf_rn(__uint_as_float(hi << 16), fh, -144.0f * fh),
                     __fmaf_rn(__uint_as_float(hi & 0xFFFF0000u), fh, -144.0f * fh));"""
 Q50_VARIANTS = {"committed": [], "ffma": [("qmm_q5_0.cu", _Q50_CONV, _Q50_FFMA)]}
+_F32_MMA = """            wg::Tf32<NX>::rs(acc, ulo[s], wg::desc128(xs + 32 * s),
+                             !(it % CHUNK_STEPS == 0 && s == 0));
+            wg::Tf32<NX>::rs(acc, uhi[s], wg::desc128(xs + X_BYTES + 32 * s), 1);
+            wg::Tf32<NX>::rs(acc, uhi[s], wg::desc128(xs + 32 * s), 1);"""
+_F32_CONVERT = "        S::convert(raw, it * BK + 16 * wh, w);"
+F32_VARIANTS = {
+    "committed": [],
+    "no_tensor_cores": [("qmm_f32.cu", _F32_MMA, "            acc[s] += __uint_as_float("
+                         "ulo[s][0] ^ ulo[s][1] ^ uhi[s][2] ^ uhi[s][3]);")],
+    "one_pass": [("qmm_f32.cu", _F32_MMA,
+                  "            wg::Tf32<NX>::rs(acc, uhi[s], wg::desc128(xs + 32 * s),\n"
+                  "                             !(it % CHUNK_STEPS == 0 && s == 0));")],
+    "no_weights": [("qmm_f32.cu", _F32_CONVERT,
+                    "#pragma unroll\n        for (int i = 0; i < 16; ++i) w[i] = (float)(i + wh);")],
+    "no_x_split": [("qmm_f32.cu", "            split(it + 1);\n", ""),
+                   ("qmm_f32.cu", "    split(0);\n", "")],
+    "chunks_of_1024": [("qmm_f32.cu", "constexpr int CHUNK_STEPS = 256 / BK;",
+                        "constexpr int CHUNK_STEPS = 1024 / BK;")],
+}
+F32_TILES = (128, 96, 64, 32, 16)
+
 # (rows, columns, k): the fused q|k|v and the down projection of a 512-row
 # chunk, and the 189-row chunk
 SHAPES = ((512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096))
+F32_SHAPES = SHAPES + ((100, 6144, 4096), (17, 6144, 4096), (256, 1536, 512))
 
 
 def build(variants: dict, source: str = "qmm_q4k.cu", entry: str = "qmm_q4k_bf16",
@@ -148,10 +179,41 @@ def device_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def f32_main(flush: torch.Tensor) -> int:
+    """The `f32` mode: csrc/qmm_f32.cu's variants, and its tile heights."""
+    entries = build(F32_VARIANTS, "qmm_f32.cu", "qmm_q4k_f32",
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for rows, m, k in F32_SHAPES:
+        blocks = q4k_blocks(np.random.default_rng(m + k), m * k, 1.0 / math.sqrt(k))
+        qt = to_kernel_layout(to_planar(GGMLType.Q4_K, blocks, (m, k), "cuda"), torch.float32)
+        planes = [qt.planes[n] for n in ("qs", "dsub", "msub")]
+        x = torch.randn(rows, k, device="cuda")
+        want = gemm_quant.qmm_q4k_plain(x, *planes)
+        out = torch.empty(rows, m, dtype=torch.float32, device="cuda")
+        plan = gemm_quant.qmm_f32_plan(rows, m)
+        line = {"shape": f"{rows}x{k} @ ({m}x{k})^T", "scheme": "Q4_K float32",
+                "plan_tile_rows": plan.tile_rows}
+        runs = [(name, fn, plan.tile_rows) for name, fn in entries.items()]
+        runs += [(f"committed_tile_{t}", entries["committed"], t) for t in F32_TILES
+                 if t != plan.tile_rows]
+        for name, fn, tile in runs:
+            def launch(fn=fn, tile=tile):
+                err = fn(x.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), rows, m,
+                         k, tile, _build.stream_ptr(x))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+            ms = device_ms(launch, flush)
+            rel = ((out - want).abs().max() / want.abs().max()).item()
+            line[name] = {"ms": ms, "rel_err": rel}
+        print(json.dumps(line), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["q5_0"]):
-        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0]")
+    if argv not in ([], ["q5_0"], ["f32"]):
+        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0 | f32]")
         return 2
     if not torch.cuda.is_available():
         print("qmm_ablation: needs a CUDA card")
@@ -159,6 +221,8 @@ def main(argv=None) -> int:
     tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"gpu: {tag}")
+    if argv == ["f32"]:
+        return f32_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
     q50 = argv == ["q5_0"]
     kind, blocks_of, names = ((GGMLType.Q5_0, q5_0_blocks, ("qs", "qh", "dsub")) if q50 else
                               (GGMLType.Q4_K, q4k_blocks, ("qs", "dsub", "msub")))

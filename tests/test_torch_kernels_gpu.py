@@ -1918,7 +1918,9 @@ def test_f32_dequant_converts_every_value_exactly(cuda, kind):
     """The one-hot sweep of the bfloat16 forms with float32 scales that use
     the low mantissa bits bfloat16 drops: one hot row of x at a time returns
     the exact float32 weights of `dequantize` (val*dsub + msub with two
-    roundings, as the plain versions compute them), bit for bit."""
+    roundings, as the plain versions compute them) as the kernel's three
+    TF32 passes take them, hi + lo of `tf32_split` (x's hi is 1 and its lo
+    0), bit for bit."""
     m, k = 256, 512
     planes = _every_value_planes(kind, m, k, cuda)
     for n in ("dsub", "msub"):
@@ -1929,7 +1931,8 @@ def test_f32_dequant_converts_every_value_exactly(cuda, kind):
     x = torch.eye(k, device=cuda)
     got = wrapper(x, qt)
     torch.cuda.synchronize()
-    assert torch.equal(got, dequantize(qt).t())
+    hi, lo = gemm_quant.tf32_split(dequantize(qt))
+    assert torch.equal(got, (hi + lo).t())
 
 
 @ALL_KINDS
@@ -2139,9 +2142,9 @@ def test_f32_grouped_at_mixtral_shapes(cuda, kind, m, k):
 def test_f32_grouped_takes_every_value_of_each_expert(cuda, kind):
     """A stack of the every-value planes with float32 scales that use the
     bits bfloat16 drops, each expert's own; one-hot rows of x on each
-    expert's segment return that expert's exact float32 weights, bit for
-    bit: a form that read another expert's values or scales, or rounded a
-    weight, would not."""
+    expert's segment return that expert's exact float32 weights as the three
+    TF32 passes take them (hi + lo of `tf32_split`), bit for bit: a form
+    that read another expert's values or scales would not."""
     E, m, k = 4, 256, 512
     qt = _every_value_stack(kind, E, m, k)
     qt = QTensor(kind, qt.shape, {n: t.float() * (1 + 2.0 ** -13) if n in ("dsub", "msub") else t
@@ -2151,7 +2154,8 @@ def test_f32_grouped_takes_every_value_of_each_expert(cuda, kind):
     got = fn(xs, qt, _offsets((k,) * E))
     torch.cuda.synchronize()
     for e in range(E):
-        assert torch.equal(got[e * k:(e + 1) * k], dequantize(plane_of(qt, e)).t()), e
+        hi, lo = gemm_quant.tf32_split(dequantize(plane_of(qt, e)))
+        assert torch.equal(got[e * k:(e + 1) * k], (hi + lo).t()), e
 
 
 @pytest.mark.parametrize("kind", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q2_K],
