@@ -46,6 +46,10 @@ fails:
    which the kernels' zero-padding of hd 80 to 128 lanes is costed),
    and the Q6_K dequant and int8-activation forms at Phi-3-mini's
    32,064-row lm_head (189 rows and 1 row: 250.5 weight tiles of 128),
+   and the norm kernel (csrc/norm.cu: RMSNorm at the 7B's 1, 8 and 512 rows
+   in bfloat16 and float32 and at Qwen3-8B's per-head q|k norm, phi2's
+   LayerNorm at 1 and 512 rows), each also batch invariant (its first 1, 2
+   and 8 rows alone give the bits they have in the whole call),
    the kernel's time (CUDA events, L2 flushed before each launch), the plain
    version's, one PyTorch library call's computing the same function, and
    the least time the card could take (bytes over 3.35 TB/s or operations
@@ -241,6 +245,15 @@ fails:
    width (8, 24 with window and softcap, 48, 72, 104, 200, 248) in both
    dtypes, and the Q8_0, Q4_0 and Q5_0 forms, qmm_w8 and Q8_0's float32
    forms at stories15M's k = 288, against their plain versions.
+Float32 flash takes both products on the tensor cores in three TF32 passes:
+phase 2 holds each of its checks against the exact plain version and against
+the plain model of its arithmetic (`flash_attention_split_plain`), both at
+1e-4 of max|out|, bounds it at 495 / 3 TFLOP/s (the CUDA cores' FFMA bound
+beside it), adds the 7B's last chunk (T 512 at pos 3,584: 4,096 keys in a
+row's sums), gemma2's at pos 4,096 with its window of 4,096 and softcap 50
+over an 8,192-row cache, and Qwen2-7B's G = 7 at the ragged chunk, and checks
+the kernel's launch plan (`flash_f32_layout`) against
+ops/cuda/flash_attention.py's `flash_f32_plan` at every head dim.
 The 7B main path's prefill also runs both ways (phase 5), since the Runner's
 default now attaches the W8 planes there too.
 Each phase prints its seconds, and the report keeps them (`phase_s`).
@@ -347,6 +360,10 @@ KERNEL_SOURCES = {
                  "7b-q5_0"),
     "qmm_w4a8_q5_0": ("crabml_tpu_torch/csrc/qmm_w4a8.cu",
                       "crabml_tpu/ops/pallas/gemm_quant.py:190", "7b-q5_0"),
+    # no Pallas kernel: the JAX norms are plain jnp (csrc/norm.cu's note says why
+    # the port has a kernel of its own); every model's RMS norms, phi2's LayerNorm
+    "rms_norm": ("crabml_tpu_torch/csrc/norm.cu", "crabml_tpu/ops/norm.py:27", "main"),
+    "layer_norm": ("crabml_tpu_torch/csrc/norm.cu", "crabml_tpu/ops/norm.py:8", "phi2"),
 }
 # the experts' forms: the grouped dequant kernel of each scheme (the
 # second entry of its source, launched by the prefill of the Runner without
@@ -822,8 +839,9 @@ def check_f32_matmul(timer, scheme: str, form: str, rows: int, m: int, k: int, s
 
 
 def _split_model_record(got, model, tol: float, ops: float) -> dict:
-    """The float32 dequant kernel against the three-pass model of its
-    arithmetic (`qmm_f32_split_plain`: the same TF32 parts, exact products,
+    """A float32 tensor-core kernel (the dequant matmul, flash) against the
+    three-pass model of its arithmetic (`qmm_f32_split_plain`,
+    `flash_attention_split_plain`: the same TF32 parts, exact products,
     float32 sums), held at `tol` of max|model|; and its FFMA bound."""
     import torch
 
@@ -1140,23 +1158,35 @@ def check_attention(timer, name: str, T: int, pos: int, seed: int, softcap: floa
     qo_bytes = 2 * B * T * H * hd * size  # q read and out written
     kv_bytes = 2 * B * KV * n_keys * hd * size  # live keys and values
     pairs = sum(min(pos + t + 1, window or pos + t + 1) for t in range(T))  # per head
-    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, 4.0 * B * H * hd * pairs, dtype)
+    ops = 4.0 * B * H * hd * pairs
+    # float32 flash: both products in three TF32 passes on the tensor cores
+    tc_f32 = dtype == "f32" and name == "flash_attention"
+    b_ms, b_by = bound_ms(qo_bytes + kv_bytes, ops, "tf32x3" if tc_f32 else dtype)
     form = (f" softcap={softcap:g}" if softcap else "") + (f" window={window}" if window else "")
     rec = {
         "shape": f"B={B} T={T} pos={pos} H={H} KV={KV} hd={hd} S={S}{form}"
                  + (" float32" if dtype == "f32" else ""),
         "max_abs_err": err, "max_abs_ref": ref,
-        "tolerance": "max_abs_err <= 1e-4 * max|ref| (fast exp, another order of sums)"
+        "tolerance": ("max_abs_err <= 1e-4 * max|ref| (three TF32 passes: the dropped lo x lo "
+                      "terms, the tensor cores' accumulation, fast exp2)" if tc_f32 else
+                      "max_abs_err <= 1e-4 * max|ref| (fast exp, another order of sums)")
                      if dtype == "f32" else
                      "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)",
-        "ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
-        "library_ms": timer(library) if library else None,
-        "bound_ms": b_ms, "bound_by": b_by,
     }
+    if tc_f32:  # the kernel against the plain model of its arithmetic too, at the same gate
+        model = fa.flash_attention_split_plain(q, kc, vc, posv, scale, softcap, window)
+        rec.update(_split_model_record(got, model, tol, ops))
+        ok = ok and rec["split_model_ok"]
+        del model
+    rec.update({"ok": ok, "ms": timer(kernel), "plain_ms": timer(plain),
+                "library_ms": timer(library) if library else None,
+                "bound_ms": b_ms, "bound_by": b_by})
     lib = f"{rec['library_ms']:.4f} ms" if library else "none (no softcap in SDPA)"
+    split = (f"; against the three-pass model {rec['split_model_max_abs_err']:.3e}, FFMA bound "
+             f"{rec['bound_ffma_ms']:.4f} ms" if tc_f32 else "")
     say(f"{name} {rec['shape']}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
         f"{rec['tolerance']}) {'ok' if ok else 'FAILED'}; {rec['ms']:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, sdpa {lib}, bound {b_ms:.4f} ms ({b_by})")
+        f"plain {rec['plain_ms']:.4f} ms, sdpa {lib}, bound {b_ms:.4f} ms ({b_by}){split}")
     return rec
 
 
@@ -1433,6 +1463,115 @@ def phi_attention_checks(timer) -> dict[str, list[dict]]:
     return checks
 
 
+def check_norm(timer, kind: str, rows: int, n: int, dtype: str, seed: int,
+               qk_heads: int = 0) -> dict:
+    """csrc/norm.cu (`kind` "rms" or "layer") at `rows` rows of `n` in
+    `dtype` against its plain version, with qwen3's per-head weight
+    (qk_heads rows, x then (tokens, qk_heads, n)) where given; and batch
+    invariance: the first token alone, the first two and the first eight
+    give the bits they have in the whole call.
+
+    The library time is torch.nn.functional's rms_norm / layer_norm, the
+    same function (rms_norm with a bfloat16 x beside float32 weights takes
+    its unfused form, and warns so; layer_norm refuses that pair); none for
+    qwen3's per-head weight, which neither takes."""
+    import warnings
+
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import norm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = (torch.randn(rows, n, generator=g, device="cuda") * 3 + 0.5).to(tdt)
+    w = torch.randn(*((qk_heads, n) if qk_heads else (n,)), generator=g, device="cuda")
+    b = torch.randn(n, generator=g, device="cuda") if kind == "layer" else None
+    if qk_heads:
+        x = x.reshape(rows // qk_heads, qk_heads, n)
+    eps = 1e-5
+    F = torch.nn.functional
+    warnings.filterwarnings("ignore", message="Mismatch dtype between input and weight")
+    if kind == "rms":
+        run = lambda t: norm.rms_norm(t, w, eps)  # noqa: E731
+        plain = lambda: norm.rms_norm_plain(x, w, eps)  # noqa: E731
+        library = (lambda: F.rms_norm(x, (n,), w, eps)) if (  # noqa: E731
+            not qk_heads and hasattr(F, "rms_norm")) else None
+    else:
+        run = lambda t: norm.layer_norm(t, w, eps, b)  # noqa: E731
+        plain = lambda: norm.layer_norm_plain(x, w, eps, b)  # noqa: E731
+        library = (lambda: F.layer_norm(x, (n,), w, b, eps)) if dtype == "f32" else None
+    got, want = run(x), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    # float32: the same arithmetic, the row's sum in another order with the
+    # squares in fma; bfloat16: both round that float32 value once
+    tol = 2e-6 if dtype == "f32" else 2.0 ** -7
+    # the first 1, 2 and 8 rows (tokens of qk_heads rows) alone
+    invariant = all(torch.equal(run(x[:t]), got[:t]) for t in (1, 2, 8) if t <= x.shape[0])
+    ok = math.isfinite(err) and err <= tol * ref and invariant
+    size = x.element_size()
+    nbytes = 2 * rows * n * size + w.numel() * 4 + (n * 4 if b is not None else 0)
+    b_ms, b_by = bound_ms(nbytes, (7.0 if kind == "layer" else 5.0) * rows * n, "f32")
+    rec = {
+        "shape": f"{kind} rows={rows} n={n}" + (f" heads={qk_heads}" if qk_heads else "")
+                 + (" float32" if dtype == "f32" else " bfloat16"),
+        "max_abs_err": err, "max_abs_ref": ref, "batch_invariant": invariant,
+        "tolerance": ("max_abs_err <= 2e-6 * max|ref| (another order of the row's sum, fma)"
+                      if dtype == "f32" else
+                      "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)"),
+        "ok": ok, "ms": timer(lambda: run(x)), "plain_ms": timer(plain),
+        "library_ms": timer(library) if library else None, "bound_ms": b_ms, "bound_by": b_by,
+    }
+    lib = f"{rec['library_ms']:.4f} ms" if library else "none"
+    say(f"{kind}_norm {rec['shape']}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
+        f"{rec['tolerance']}), batch invariant {invariant}, {'ok' if ok else 'FAILED'}; "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library {lib}, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return rec
+
+
+def norm_checks(timer) -> dict[str, list[dict]]:
+    """The norm kernel at its paths' shapes: the 7B's decode row, the 8-slot
+    tick and a 512-row prefill chunk, in bfloat16 and float32; Qwen3-8B's
+    per-head q|k norm (40 heads of 128 over a 512-token chunk); phi2's
+    LayerNorm at 2560 (a row, a chunk)."""
+    recs = {"rms_norm": [], "layer_norm": []}
+    for i, dtype in enumerate(("bf16", "f32")):
+        for rows in (1, SERVING_SLOTS, PREFILL_CHUNK):
+            recs["rms_norm"].append(check_norm(timer, "rms", rows, DIM, dtype, 300 + i + rows))
+        recs["layer_norm"] += [check_norm(timer, "layer", rows, P2_DIM, dtype, 310 + i + rows)
+                               for rows in (1, PREFILL_CHUNK)]
+    recs["rms_norm"].append(check_norm(timer, "rms", PREFILL_CHUNK * 40, HEAD_DIM, "bf16", 320,
+                                       qk_heads=40))
+    return recs
+
+
+def check_f32_flash_plan() -> None:
+    """The float32 flash kernel's plan as csrc/flash_attention.cu compiles it
+    (its flash_f32_layout entry) is ops/cuda/flash_attention.py's
+    flash_f32_plan, at every head dim, with one warpgroup a block and with
+    two where the tile width takes them."""
+    import ctypes
+
+    from crabml_tpu_torch.ops.cuda import _build
+    from crabml_tpu_torch.ops.cuda import flash_attention as fa
+
+    fn = _build.library("flash_attention").flash_f32_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for hd in fa.HEAD_DIMS:
+        for T in (16, 4096):
+            plan = fa.flash_f32_plan(hd, T, 4, KV_HEADS)
+            got = (ctypes.c_int * 6)()
+            want = [plan.tile_width, plan.keys, plan.warpgroups, plan.stages, plan.smem_bytes,
+                    plan.rows_per_block]
+            if fn(hd, plan.warpgroups, got) != 0 or list(got) != want:
+                fail(f"flash_f32_layout at hd {hd}, {plan.warpgroups} warpgroups: {list(got)}, "
+                     f"flash_f32_plan {want}")
+    say(f"flash_f32_plan = the kernel's F32Plan at all {len(fa.HEAD_DIMS)} head dims")
+
+
 def f32_checks(timer) -> dict[str, list[dict]]:
     """The float32 forms and the decode forms in float32 and over a cache of
     another dtype. Each scheme's float32 dequant form at a 512-row and at the
@@ -1480,6 +1619,15 @@ def f32_checks(timer) -> dict[str, list[dict]]:
                                   (RAGGED_CHUNK, PREFILL_CHUNK))):
         add("flash_attention", check_attention(timer, "flash_attention", T, pos, 322 + i,
                                                dtype="f32"))
+    # the longest sums the float32 paths give one row: the 7B's last chunk
+    # (4,096 keys), gemma2's window of 4,096 at pos 4,096 with its softcap;
+    # and Qwen2-7B's G = 7 at the ragged chunk
+    add("flash_attention", check_attention(timer, "flash_attention", PREFILL_CHUNK,
+                                           CTX - PREFILL_CHUNK, 325, dtype="f32"))
+    add("flash_attention", check_attention(timer, "flash_attention", PREFILL_CHUNK, G2_WINDOW,
+                                           326, G2_SOFTCAP, G2_WINDOW, dims=G2_ATTN, dtype="f32"))
+    add("flash_attention", check_attention(timer, "flash_attention", RAGGED_CHUNK, PREFILL_CHUNK,
+                                           327, dims=Q2_ATTN, dtype="f32"))
     for i, (form, q, kv, dims) in enumerate((
             ("dense_fused", "f32", "f32", G2_ATTN[:3]), ("paged_fused", "f32", "f32", G2_ATTN[:3]),
             ("paged", "f32", "f32", G2_ATTN[:3]), ("dense", "f32", "f32", G2_ATTN[:3]),
@@ -1620,6 +1768,7 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] += recs
     for name, recs in phi_attention_checks(timer).items():  # head dims 96 and 80, after those
         checks[name] += recs
+    check_f32_flash_plan()
     for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
         checks.setdefault(name, []).extend(recs)
     for name, recs in hd16_attention_checks(timer).items():  # head dim 16, after those
@@ -1722,6 +1871,7 @@ def phase_kernels() -> dict[str, list[dict]]:
     torch.cuda.empty_cache()
     for name, recs in stories_checks(timer).items():  # the TinyStories forms, after all others
         checks.setdefault(name, []).extend(recs)
+    checks.update(norm_checks(timer))
     torch.cuda.empty_cache()
     say(f"timer: the longest queueing of {timer.iters} timed calls {timer.max_queue_ms:.2f} ms "
         f"(the spin: {HOLD_CYCLES / SPIN_HZ * 1e3:.1f} ms or more); {timer.outlasted} timings "
@@ -2915,7 +3065,7 @@ def phase_speculative(tmp: Path, runner, gguf: str, serving: dict) -> dict:
 
 def phase_dense_int8(tmp: Path) -> dict:
     """Phase 7: the dense engine with an int8 cache and the paged engine with
-    an int8 pool, at 8 layers of the 7B width."""
+    an int8 pool, at DENSE_LAYERS layers of the 7B width."""
     import numpy as np
     import torch
 
@@ -2924,7 +3074,8 @@ def phase_dense_int8(tmp: Path) -> dict:
     from crabml_tpu_torch.serving import PagedServingEngine, Request, ServingEngine
     from crabml_tpu_torch.tools.synth_gguf import build_synth_gguf
 
-    path = build_synth_gguf(str(tmp / "synth-7b-8layers.gguf"), "7b", seed=5, layers=DENSE_LAYERS)
+    path = build_synth_gguf(str(tmp / f"synth-7b-{DENSE_LAYERS}layers.gguf"), "7b", seed=5,
+                            layers=DENSE_LAYERS)
     runner = Runner(path, seq_len=2048)
     vocab = runner.cfg.vocab_size
 
@@ -4374,7 +4525,8 @@ def main() -> int:
                                        seed=201, scheme="q4_k", mix="k_m")
         p2 = report["phi2"] = timed(
             "phi2", phase_family, tmp, "phi2", P2_LAYERS, 210,
-            lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _p2_check, PHI_KERNELS, 29)
+            lambda tokenizer: PROMPT_SENTENCE * PROMPT_REPEATS, _p2_check,
+            PHI_KERNELS + ("layer_norm",), 29)
         report["forward_phi2"] = timed("forward_phi2", phase_forward, tmp, "phi2", seed=211,
                                        scheme="q4_k", mix="k_m")
         l31 = report["llama31-8b"] = timed("llama31-8b", phase_graphed_forward, tmp,

@@ -66,20 +66,18 @@
 // the bytes read stay hd's. A native width (wgmma n96 and a 64-byte swizzle)
 // would save that.
 //
-// float32 entry (flash_kernel): CUDA cores in float32, since tensor cores
-// would round the inputs to TF32 or bf16 where the TPU kernel asks for full
-// precision. A block owns 64 rows, padded as above; Q, K and V tiles are
-// staged in shared memory as float32, HP = 16 * ceil(hd / 16) wide, the lanes
-// past hd zero; each of the 256 threads computes a 4x4 block of scores and a
-// 4x(HP/16) block of the output, and stores the lanes below hd.
+// float32 entry (flash_f32_kernel, below the bfloat16 one): both products on
+// the tensor cores too, in three TF32 passes each (the TPU kernel takes them
+// at Precision.HIGHEST, which its matrix unit reaches in several bfloat16
+// passes); the design and its shared-memory plan are noted there.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int BR = 64;  // rows (tokens x heads) per warpgroup (f32 kernel: per block)
-constexpr int BC = 64;  // keys per tile
-constexpr int NT = 256; // threads of a block, both kernels
+constexpr int BR = 64;  // rows (tokens x heads) per warpgroup
+constexpr int BC = 64;  // keys per tile of the bfloat16 kernel
+constexpr int NT = 256; // threads of a block of the bfloat16 kernel
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The first key any row of a block sees (that of its first row's window),
@@ -91,173 +89,6 @@ __device__ __forceinline__ int first_seen(int first_row_pos, int window) {
 }
 __device__ __forceinline__ int first_tile(int first_row_pos, int window) {
     return first_seen(first_row_pos, window) / BC;
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-template <typename T, int NO>
-__global__ void __launch_bounds__(NT)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const int* __restrict__ pos, T* __restrict__ out, int KV, int S, int T_, int G,
-             int hd, float scale, float softcap, int window) {
-    constexpr int HD = 16 * NO;  // a tile row: hd lanes, then zeros
-    extern __shared__ float smem[];
-    float* Qs = smem;                    // [BR][HD + 1]
-    float* Ks = Qs + BR * (HD + 1);      // [BC][HD + 1]
-    float* Vs = Ks + BC * (HD + 1);      // [BC][HD]
-    float* Ps = Vs + BC * HD;            // [BR][BC + 1]
-
-    const int bq = BR / G;  // tokens per block; rows from bq * G on are padding
-    const int t0 = blockIdx.x * bq, kv = blockIdx.y, b = blockIdx.z;
-    const int H = KV * G;
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int p0 = pos[b];
-    const size_t head = ((size_t)b * KV + kv) * S;
-
-    // Q tile: row r = g * bq + (t - t0), pre-scaled; rows past T and padding are zero
-    for (int i = tid; i < BR * HD; i += NT) {
-        const int r = i / HD, d = i % HD;
-        const int g = r / bq, t = t0 + r % bq;
-        float val = 0.f;
-        if (t < T_ && g < G && d < hd)
-            val = to_f32(q[((size_t)(b * T_ + t) * H + kv * G + g) * hd + d]) * scale;
-        Qs[r * (HD + 1) + d] = val;
-    }
-
-    float m[4], l[4], acc[4][NO];
-    int rbound[4], rfirst[4];  // last and first visible key of each owned row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = CRABML_NEG_INF; l[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < NO; ++j) acc[i][j] = 0.f;
-        const int r = ty + 16 * i;
-        rbound[i] = p0 + t0 + r % bq;
-        rfirst[i] = window > 0 ? rbound[i] - window + 1 : 0;
-    }
-    const int last_key = p0 + min(t0 + bq, T_) - 1;  // causal bound of the block
-    const int first_key = first_seen(p0 + t0, window);
-    const int n_tiles = last_key / BC + 1;
-
-    for (int kt = first_tile(p0 + t0, window); kt < n_tiles; ++kt) {
-        const int k0 = kt * BC;
-        __syncthreads();  // previous tile's readers are done
-        for (int i = tid; i < BC * HD; i += NT) {
-            const int c = i / HD, d = i % HD;
-            const int j = k0 + c;
-            float kvv = 0.f, vvv = 0.f;
-            if (j <= last_key && j >= first_key && d < hd) {
-                kvv = to_f32(k[(head + j) * hd + d]);
-                vvv = to_f32(v[(head + j) * hd + d]);
-            }
-            Ks[c * (HD + 1) + d] = kvv;
-            Vs[c * HD + d] = vvv;
-        }
-        __syncthreads();
-
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < HD; ++d) {
-            float qv[4], kvr[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * (HD + 1) + d];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) kvr[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kvr[j];
-        }
-        if (softcap > 0.f) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = softcap * tanhf(s[i][j] / softcap);
-        }
-
-        // online softmax over this tile; a row's 16 owners share a half-warp
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float mx = CRABML_NEG_INF;
-            bool live[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int col = k0 + tx + 16 * j;
-                live[j] = col <= rbound[i] && col >= rfirst[i];
-                if (!live[j]) s[i][j] = CRABML_NEG_INF;
-                mx = fmaxf(mx, s[i][j]);
-            }
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-            const float m_new = fmaxf(m[i], mx);
-            const float alpha = __expf(m[i] - m_new);
-            float rs = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = live[j] ? __expf(s[i][j] - m_new) : 0.f;
-                Ps[(ty + 16 * i) * (BC + 1) + tx + 16 * j] = p;
-                rs += p;
-            }
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-            l[i] = l[i] * alpha + rs;
-            m[i] = m_new;
-#pragma unroll
-            for (int j = 0; j < NO; ++j) acc[i][j] *= alpha;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int c = 0; c < BC; ++c) {
-            float pv[4], vv[NO];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BC + 1) + c];
-#pragma unroll
-            for (int j = 0; j < NO; ++j) vv[j] = Vs[c * HD + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < NO; ++j) acc[i][j] += pv[i] * vv[j];
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int g = r / bq, t = t0 + r % bq;
-        if (t >= T_ || g >= G) continue;
-        const float inv = 1.f / fmaxf(l[i], 1e-30f);
-        T* o = out + ((size_t)(b * T_ + t) * H + kv * G + g) * hd;
-#pragma unroll
-        for (int j = 0; j < NO; ++j)
-            if (tx + 16 * j < hd) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
-    }
-}
-
-template <int NO>
-int launch_f32(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
-               int KV, int S, int T_, int G, int hd, float scale, float softcap, int window,
-               cudaStream_t stream) {
-    using T = float;
-    constexpr int HD = 16 * NO;
-    constexpr size_t smem =
-        sizeof(float) * (BR * (HD + 1) + BC * (HD + 1) + BC * HD + BR * (BC + 1));
-    static_assert(smem <= 232448, "the float32 tiles must fit a block's shared memory");
-    cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, NO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    const int bq = BR / G;
-    dim3 grid((T_ + bq - 1) / bq, KV, B);
-    flash_kernel<T, NO><<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                    (const int*)pos, (T*)out, KV, S, T_, G, hd,
-                                                    scale, softcap, window);
-    return crabml_launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -510,16 +341,441 @@ int launch_tc(const void* q, const void* k, const void* v, const void* pos, void
     return crabml_launch_status();
 }
 
+// ---------------------------------------------------------------------------
+// float32: three TF32 passes on wgmma
+// ---------------------------------------------------------------------------
+//
+// Bound on the H100: as the bfloat16 entry's, how well the blocks keep the
+// tensor cores fed; the work is six times that entry's (3 passes at half the
+// rate). Hopper has no float32 tensor-core product and the CUDA cores' float32
+// rate is 67 TFLOP/s, so each operand is split into two TF32 parts, v = hi +
+// lo (wg::tf32_split: |v - hi - lo| <= 2^-22 |v|), and each product is taken
+// as A_lo B_hi + A_hi B_lo + A_hi B_hi, the small terms first, into float32
+// accumulators (the dropped A_lo B_lo is ~2^-22 of a product): 495 / 3 =
+// 165 TFLOP/s. qmm_f32.cu does the same for the float32 matmul. Measured on
+// the H100 the kernel runs at about a quarter of that bound at the 7B's
+// 512-token chunks: the phases of a tile (split, S, softmax, P V) follow one
+// another between barriers, and removing any one of them saves 15-30%
+// (PERF.md).
+//
+// The rows and the visited key tiles are the bfloat16 entry's: a warpgroup
+// owns 64 stacked rows (64 / G tokens x G heads, padding rows where G does not
+// divide 64), key tiles run from the block's first window to its causal
+// bound, keys outside them are zero-filled, and only tiles that cross the
+// diagonal or the window's edge pay for the mask. Per tile of BC keys:
+//   - S = Q K^T: Q is the register A operand, read from a float32 Q tile that
+//     is staged once, [row][k % 4][k / 4] (padded so that a thread's float4
+//     of two k8 steps' fragments is read without bank conflicts), and split in
+//     registers; the fragments of QG k8 steps are issued as one commit group,
+//     double-buffered, so the splitting overlaps the previous group's wgmmas.
+//     K is the B operand, K-major (a row a key, 32 floats of the head dim in
+//     each 128-byte swizzled row), hi and lo tiles.
+//   - The key permutation: key t + 4u of each group of 8 is staged at K row
+//     2t + u (key_slot), so S's column 2t + u, which thread quad t holds in
+//     its accumulator pair, is key t + 4u: exactly the keys k = t and t + 4
+//     that a TF32 A fragment holds in each k8 step. The scores, once
+//     exponentiated and split, are P's A fragments in registers, in key
+//     order; P never goes to shared memory. The masks use the permuted keys.
+//   - O += P V: TF32 operands are K-major only, so V is staged as V^T (a row a
+//     head-dim lane, 32 keys in each 128-byte swizzled row), hi and lo.
+//     cp.async lands V's 16-byte chunks (4 lanes of one key) in K lo's area as
+//     a staging tile: chunk (key j, lanes 4c..4c+3) at slot (j % 32) ^ (c % 8)
+//     of a 512-byte run per (j / 32, c), so neither the copies nor the reads
+//     that follow conflict on a bank. Each thread then reads a chunk, splits
+//     it and stores its 4 lanes as 4 words of V^T hi and lo (the 32 lanes of
+//     a warp, 32 keys, fill one 128-byte row: no conflicts). After a barrier K
+//     is split in place: hi over the landed K, lo over the staging tile.
+//   - The online softmax in registers as the bfloat16 entry's: exp2, log2 e
+//     in the scale, the softcap, the quad's max; O rescaled in registers.
+// The products' float32 accumulation on the tensor cores is not IEEE
+// round-to-nearest (qmm_f32.cu); O carries up to 3 * 4,096 / 8 additions on
+// the paths' longest rows, and the kernel is held within 1e-4 of max|out| of
+// the exact plain version at 4,096 keys (chip_smoke.py).
+//
+// Shared memory per tile width HP and warpgroup count (F32Plan;
+// ops/cuda/flash_attention.py's flash_f32_plan mirrors it and picks the
+// warpgroups): the Q tile, then STAGES stages of four parts (K hi, K lo / V
+// staging, V^T hi, V^T lo), each BC x HP floats. BC is 64 keys up to HP 128,
+// 32 at 256; two stages where they fit in the 227 KB a block may have, else
+// one:
+//   HP  64: Q 25,600 a warpgroup, 2 stages of 65,536 bytes
+//   HP 128: Q 41,984 a warpgroup, 1 stage of 131,072
+//   HP 256: Q 74,752 (one warpgroup), 1 stage of 131,072
+// With two stages tile i + 1 is copied while tile i is split and multiplied;
+// with one, tile i + 1 is copied once S of tile i has read K, under the
+// softmax and P V. Two warpgroups share each tile below HP 256 unless one
+// warpgroup a block fills the card in one wave and two would not (the
+// 189-token chunk). A block is always two warpgroups: with one warpgroup of
+// rows, the other only copies and splits the tiles (8-10% faster on the H100
+// at HP 256, at the 189-token chunk and at head dim 48 than one warpgroup
+// alone; PERF.md).
+// Registers: a thread holds HP / 2 output accumulators, BC / 2 scores and 16
+// QG fragment registers (128 + 16 + 32 at HP 256).
+template <int HP, int WGS> struct F32Plan {
+    static constexpr int NWG = WGS;  // warpgroups with rows, 64 rows each
+    static constexpr int BC = HP <= 128 ? 64 : 32;  // keys a tile
+    static constexpr int NT = 256;  // with one warpgroup of rows, the other only copies and splits
+    static constexpr int QG = HP <= 128 ? 4 : 2;  // k8 steps of S a commit group
+    static constexpr int GP = HP / 4 + 8;         // a Q row's run of one k % 4, in floats
+    static constexpr int RP = 4 * GP + 4;         // a Q row, in floats
+    static constexpr int Q_BYTES = NWG * 64 * RP * 4;
+    static constexpr int PART = BC * HP * 4;  // K hi, K lo, V^T hi or V^T lo
+    static constexpr int STAGE = 4 * PART;
+    static constexpr int STAGES = Q_BYTES + 2 * STAGE + 1024 <= 232448 ? 2 : 1;
+    static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 1024;  // + slack to align
+    static constexpr int NPV = HP <= 128 ? HP : 128;  // wgmma width of P V
+    static_assert(Q_BYTES % 1024 == 0 && SMEM <= 232448, "a block's shared memory on the H100");
+};
+
+// K row of key j of a tile: key t + 4u of each group of 8 at row 2t + u
+__device__ __forceinline__ int key_slot(int j) {
+    return (j & ~7) | ((j & 3) << 1) | ((j >> 2) & 1);
+}
+
+template <int HP, int WGS>
+__global__ void __launch_bounds__(F32Plan<HP, WGS>::NT, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ pos, float* __restrict__ out,
+                 int KV, int S, int T_, int G, int hd, float scale, float softcap, int window) {
+    using P = F32Plan<HP, WGS>;
+    constexpr int NWG = P::NWG, KB = P::BC, TH = P::NT, STAGES = P::STAGES, QG = P::QG;
+    constexpr int NCH = HP / 4;  // 16-byte chunks of a tile row
+    constexpr int NS = KB / 2;   // scores a thread
+    constexpr int NPV = P::NPV, NB = HP / NPV;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw_s = wg::smem_u32(smem_raw);
+    const uint32_t base_s = (raw_s + 1023u) & ~1023u;
+    uint8_t* base = smem_raw + (base_s - raw_s);
+    float* qs = reinterpret_cast<float*>(base);
+    const uint32_t kv_s = base_s + P::Q_BYTES;  // stage i: K hi, K lo, V^T hi, V^T lo
+    uint8_t* kv_g = base + P::Q_BYTES;
+
+    const int tid = threadIdx.x;
+    const int wgi = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+    const int qd = lane % 4, rw = lane / 4;
+    const int bq = BR / G;  // tokens per warpgroup; rows from bq * G on are padding
+    const int kvh = blockIdx.y, b = blockIdx.z;
+    const int H = KV * G;
+    const int p0 = pos[b];
+    const int t0_blk = blockIdx.x * NWG * bq;
+    const int t0 = t0_blk + wgi * bq;  // this warpgroup's first token
+    const size_t head = ((size_t)b * KV + kvh) * S;
+
+    const int last_key = p0 + min(t0_blk + NWG * bq, T_) - 1;  // causal bound of the block
+    const int first_key = first_seen(p0 + t0_blk, window);
+    const int kt_begin = first_key / KB;
+    const int n_tiles = last_key / KB + 1 - kt_begin;
+
+    // Q: row r = g * bq + (t - t0) of warpgroup r / 64, element d at
+    // [r][d % 4][d / 4]; rows past T, padding rows and lanes past hd are zeros
+    for (int i = tid; i < NWG * 64 * NCH; i += TH) {
+        const int r = i / NCH, c = i % NCH;
+        const int g = r % 64 / bq, t = t0_blk + r / 64 * bq + r % 64 % bq;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t < T_ && g < G && 4 * c < hd)
+            x = *reinterpret_cast<const float4*>(
+                q + ((size_t)(b * T_ + t) * H + kvh * G + g) * hd + 4 * c);
+        float* dst = qs + r * P::RP + c;
+        dst[0] = x.x;
+        dst[P::GP] = x.y;
+        dst[2 * P::GP] = x.z;
+        dst[3 * P::GP] = x.w;
+    }
+
+    // byte offsets in a stage: K's chunk c of row `row`; V's staged chunk (key
+    // j, lanes 4c..); word (lane n, key j) of V^T
+    auto k_at = [](int row, int c) -> uint32_t {
+        return (uint32_t)((c >> 3) * (KB * 128)) + wg::swz128(row, c & 7);
+    };
+    auto v_staged_at = [](int j, int c) -> uint32_t {
+        return (uint32_t)((((j >> 5) * NCH + c) << 9) + (((j & 31) ^ (c & 7)) << 4));
+    };
+    auto vt_at = [](int n, int j) -> uint32_t {
+        return (uint32_t)((j >> 5) * (HP * 128)) + wg::swz128(n, (j & 31) >> 2) + (j & 3) * 4;
+    };
+    auto load_tile = [&](int i) {  // key tile kt_begin + i into stage i % STAGES
+        const int k0 = (kt_begin + i) * KB;
+        const uint32_t st = kv_s + (i % STAGES) * P::STAGE;
+        for (int e = tid; e < KB * NCH; e += TH) {
+            const int j = e / NCH, c = e % NCH;
+            const int key = k0 + j;
+            const bool ok = key <= last_key && key >= first_key && 4 * c < hd;
+            const size_t at = ok ? (head + key) * hd + 4 * c : 0;
+            wg::cp_async16(st + k_at(key_slot(j), c), k + at, ok);
+            wg::cp_async16(st + P::PART + v_staged_at(j, c), v + at, ok);
+        }
+    };
+    auto split_tile = [&](int i) {  // tile i's stage: V^T hi / lo, then K hi / lo in place
+        uint8_t* st = kv_g + (i % STAGES) * P::STAGE;
+        for (int e = tid; e < KB * NCH; e += TH) {
+            const int j = e % KB, c = e / KB;  // a warp's lanes: 32 keys of one chunk
+            const float4 x = *reinterpret_cast<const float4*>(st + P::PART + v_staged_at(j, c));
+            const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                uint32_t hi, lo;
+                wg::tf32_split(xs[u], hi, lo);
+                const uint32_t at = vt_at(4 * c + u, j);
+                *reinterpret_cast<uint32_t*>(st + 2 * P::PART + at) = hi;
+                *reinterpret_cast<uint32_t*>(st + 3 * P::PART + at) = lo;
+            }
+        }
+        __syncthreads();  // every thread has read V from the staging tile
+        for (int e = tid; e < KB * NCH; e += TH) {
+            const int j = e / NCH, c = e % NCH;
+            const uint32_t at = k_at(key_slot(j), c);
+            const float4 x = *reinterpret_cast<const float4*>(st + at);
+            uint4 hi, lo;
+            wg::tf32_split(x.x, hi.x, lo.x);
+            wg::tf32_split(x.y, hi.y, lo.y);
+            wg::tf32_split(x.z, hi.z, lo.z);
+            wg::tf32_split(x.w, hi.w, lo.w);
+            *reinterpret_cast<uint4*>(st + at) = hi;
+            *reinterpret_cast<uint4*>(st + P::PART + at) = lo;
+        }
+        wg::fence_async_proxy();
+    };
+    load_tile(0);
+    wg::cp_async_commit();
+
+    // this thread's two rows of the warpgroup's 64: r_lo = 16 warp + rw, r_lo + 8
+    int row_pos[2], row_first[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + rw + 8 * h;
+        row_pos[h] = p0 + t0 + r % bq;
+        row_first[h] = window > 0 ? row_pos[h] - window + 1 : 0;
+    }
+    const bool rows = wgi < NWG;  // else this warpgroup only copies and splits
+    const bool wg_idle = !rows || t0 >= T_;
+    const int wg_last = p0 + min(t0 + bq, T_) - 1;  // last key any row of the warpgroup sees
+    const int wg_first_row = p0 + t0;
+    const float sc2 = softcap > 0.f ? scale / softcap : scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+    const int ksteps = hd / 8;  // k8 steps of the score product
+    // this thread's Q runs: rows r_lo and r_lo + 8, k % 4 == qd
+    const float* qrow0 = qs + (wgi * 64 + 16 * warp + rw) * P::RP + qd * P::GP;
+    const float* qrow1 = qrow0 + 8 * P::RP;
+
+    float m[2] = {CRABML_NEG_INF, CRABML_NEG_INF}, l[2] = {0.f, 0.f};
+    float o[NB][NPV / 2];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < NPV / 2; ++i) o[nb][i] = 0.f;
+
+    for (int i = 0; i < n_tiles; ++i) {
+        wg::cp_async_wait<0>();  // tile i has landed (this thread's part)
+        __syncthreads();  // everyone's part has; every thread is past tile i - 1 (and Q is staged)
+        if (STAGES == 2 && i + 1 < n_tiles) load_tile(i + 1);  // into tile i - 1's stage
+        wg::cp_async_commit();
+        split_tile(i);
+        __syncthreads();  // tile i's hi and lo parts are written
+
+        const int k0 = (kt_begin + i) * KB;
+        const uint32_t st = kv_s + (i % STAGES) * P::STAGE;
+        // tiles above this warpgroup's diagonal or left of its window: nothing to add
+        const bool skip =
+            wg_idle || k0 > wg_last || (window > 0 && k0 + KB - 1 < wg_first_row - window + 1);
+        float s[NS];
+        if (!skip) {
+            // S = Q K^T: a commit group of QG k8 steps, its fragments split
+            // while the previous group runs
+            uint32_t fh[2][QG][4], fl[2][QG][4];
+#pragma unroll
+            for (int grp = 0; grp < HP / 8 / QG; ++grp) {
+                if (grp * QG >= ksteps) break;  // lanes past hd: nothing to add
+                uint32_t(&gh)[QG][4] = fh[grp & 1];
+                uint32_t(&gl)[QG][4] = fl[grp & 1];
+#pragma unroll
+                for (int x = 0; x < QG; x += 2) {
+                    // index 2 kk .. 2 kk + 3 of the run: steps kk and kk + 1, k = 4 g + qd
+                    const int kk = grp * QG + x;
+                    const float4 a = *reinterpret_cast<const float4*>(qrow0 + 2 * kk);
+                    const float4 c = *reinterpret_cast<const float4*>(qrow1 + 2 * kk);
+                    wg::tf32_split(a.x, gh[x][0], gl[x][0]);
+                    wg::tf32_split(c.x, gh[x][1], gl[x][1]);
+                    wg::tf32_split(a.y, gh[x][2], gl[x][2]);
+                    wg::tf32_split(c.y, gh[x][3], gl[x][3]);
+                    wg::tf32_split(a.z, gh[x + 1][0], gl[x + 1][0]);
+                    wg::tf32_split(c.z, gh[x + 1][1], gl[x + 1][1]);
+                    wg::tf32_split(a.w, gh[x + 1][2], gl[x + 1][2]);
+                    wg::tf32_split(c.w, gh[x + 1][3], gl[x + 1][3]);
+                }
+                wg::fence();
+#pragma unroll
+                for (int x = 0; x < QG; ++x) {
+                    const int kk = grp * QG + x;
+                    if (kk >= ksteps) break;
+                    const uint32_t kb = st + (kk >> 2) * (KB * 128) + (kk & 3) * 32;
+                    wg::Tf32<KB>::rs(s, gl[x], wg::desc128(kb), kk != 0);
+                    wg::Tf32<KB>::rs(s, gh[x], wg::desc128(kb + P::PART), 1);
+                    wg::Tf32<KB>::rs(s, gh[x], wg::desc128(kb), 1);
+                }
+                wg::commit();
+                wg::wait<1>();  // the previous group is done: its fragments are free
+#pragma unroll
+                for (int x = 0; x < QG; ++x) {
+                    wg::pin(fh[(grp + 1) & 1][x]);
+                    wg::pin(fl[(grp + 1) & 1][x]);
+                }
+            }
+            wg::wait<0>();
+            wg::pin(s);
+#pragma unroll
+            for (int x = 0; x < QG; ++x) {
+                wg::pin(fh[0][x]);
+                wg::pin(fl[0][x]);
+                wg::pin(fh[1][x]);
+                wg::pin(fl[1][x]);
+            }
+        }
+        if (STAGES == 1) {
+            __syncthreads();  // every S has read K: the stage takes tile i + 1's copies
+            if (i + 1 < n_tiles) load_tile(i + 1);
+            wg::cp_async_commit();
+        }
+        if (skip) continue;
+
+        // scores in the log2 domain: scale, cap, mask (score e is key
+        // k0 + 8 (e / 4) + qd + 4 (e % 2) of row h = (e / 2) % 2)
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+            float x = s[e] * sc2;
+            if (softcap > 0.f) x = cap2 * tanhf(x);
+            s[e] = x;
+        }
+        const bool masked = k0 + KB - 1 > wg_first_row ||
+                            (window > 0 && k0 < wg_last - window + 1);
+        if (masked) {
+#pragma unroll
+            for (int e = 0; e < NS; ++e) {
+                const int col = k0 + 8 * (e / 4) + qd + 4 * (e & 1), h = (e >> 1) & 1;
+                if (col > row_pos[h] || col < row_first[h]) s[e] = CRABML_NEG_INF;
+            }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float mx = CRABML_NEG_INF;
+#pragma unroll
+            for (int j = 0; j < NS / 4; ++j)
+                mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[h], mx);
+            alpha[h] = fast_exp2(m[h] - m_new);
+            m[h] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < NS; ++e) {
+            const int h = (e >> 1) & 1;
+            float p = fast_exp2(s[e] - m[h]);
+            if (masked && s[e] == CRABML_NEG_INF) p = 0.f;  // also where the whole row is dead
+            s[e] = p;
+            rs[h] += p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];  // summed over the quad at the end
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int e = 0; e < NPV / 2; ++e) o[nb][e] *= alpha[(e >> 1) & 1];
+
+        // P as the register A operand, split: k8 step j holds keys 8 j + qd
+        // (scores 4 j, 4 j + 2) and 8 j + qd + 4 (scores 4 j + 1, 4 j + 3)
+        uint32_t ph[KB / 8][4], pl[KB / 8][4];
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+            wg::tf32_split(s[4 * j], ph[j][0], pl[j][0]);
+            wg::tf32_split(s[4 * j + 2], ph[j][1], pl[j][1]);
+            wg::tf32_split(s[4 * j + 1], ph[j][2], pl[j][2]);
+            wg::tf32_split(s[4 * j + 3], ph[j][3], pl[j][3]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) wg::pin(o[nb]);
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+            wg::pin(ph[j]);
+            wg::pin(pl[j]);
+        }
+        wg::fence();
+        const uint32_t vt = st + 2 * P::PART;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int j = 0; j < KB / 8; ++j) {
+                const uint32_t vb = vt + (j >> 2) * (HP * 128) + nb * (128 * 128) + (j & 3) * 32;
+                wg::Tf32<NPV>::rs(o[nb], pl[j], wg::desc128(vb), 1);
+                wg::Tf32<NPV>::rs(o[nb], ph[j], wg::desc128(vb + P::PART), 1);
+                wg::Tf32<NPV>::rs(o[nb], ph[j], wg::desc128(vb), 1);
+            }
+        wg::commit();
+        wg::wait<0>();
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) wg::pin(o[nb]);
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+            wg::pin(ph[j]);
+            wg::pin(pl[j]);
+        }
+    }
+
+    if (!rows) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = 16 * warp + rw + 8 * h;
+        const int g = r / bq, t = t0 + r % bq;
+        if (t >= T_ || g >= G) continue;
+        const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        float* dst = out + ((size_t)(b * T_ + t) * H + kvh * G + g) * hd + 2 * qd;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int j = 0; j < NPV / 8; ++j)
+                if (nb * NPV + 8 * j < hd)  // lanes past hd: V's zero padding
+                    *reinterpret_cast<float2*>(dst + nb * NPV + 8 * j) = make_float2(
+                        o[nb][4 * j + 2 * h] * inv, o[nb][4 * j + 2 * h + 1] * inv);
+    }
+}
+
+template <int HP, int WGS>
+int launch_f32(const void* q, const void* k, const void* v, const void* pos, void* out, int B,
+               int KV, int S, int T_, int G, int hd, float scale, float softcap, int window,
+               cudaStream_t stream) {
+    using P = F32Plan<HP, WGS>;
+    cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<HP, WGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const int bq = P::NWG * (BR / G);  // tokens per block
+    dim3 grid((T_ + bq - 1) / bq, KV, B);
+    flash_f32_kernel<HP, WGS><<<grid, P::NT, P::SMEM, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const int*)pos, (float*)out, KV, S,
+        T_, G, hd, scale, softcap, window);
+    return crabml_launch_status();
+}
+
+template <int HP, int WGS> void f32_layout(int* plan) {
+    using P = F32Plan<HP, WGS>;
+    const int vals[6] = {HP, P::BC, P::NWG, P::STAGES, P::SMEM, P::NWG * 64};
+    for (int i = 0; i < 6; ++i) plan[i] = vals[i];
+}
+
 }  // namespace
 
 // q, out (B, T, KV*G, hd); k, v one layer of the cache (B, KV, S, hd); pos (B,)
 // i32 = cache offset of each sequence's first new token (pos + T <= S). G is 1
 // to 64; hd is any multiple of 8 up to 256. dtype 0 = bfloat16, 1 = float32.
-// softcap 0 = no cap; window 0 = every earlier key.
+// softcap 0 = no cap; window 0 = every earlier key. warpgroups: of a float32
+// block (flash_f32_plan: 1, or 2 up to head dim 128); the bfloat16 entry has
+// two and ignores it.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v,
                                const void* pos, void* out, int B, int KV, int S, int T,
                                int G, int hd, float scale, float softcap, int window,
-                               void* stream) {
+                               int warpgroups, void* stream) {
     if (hd <= 0 || hd % 8 || hd > 256) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
 #define CRABML_FLASH(L, ...) \
@@ -539,23 +795,30 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
             default: return CRABML_FLASH(launch_tc, 256, 0);
         }
     }
-    switch ((hd + 15) / 16) {  // output columns a thread
-        case 1: return CRABML_FLASH(launch_f32, 1);
-        case 2: return CRABML_FLASH(launch_f32, 2);
-        case 3: return CRABML_FLASH(launch_f32, 3);
-        case 4: return CRABML_FLASH(launch_f32, 4);
-        case 5: return CRABML_FLASH(launch_f32, 5);
-        case 6: return CRABML_FLASH(launch_f32, 6);
-        case 7: return CRABML_FLASH(launch_f32, 7);
-        case 8: return CRABML_FLASH(launch_f32, 8);
-        case 9: return CRABML_FLASH(launch_f32, 9);
-        case 10: return CRABML_FLASH(launch_f32, 10);
-        case 11: return CRABML_FLASH(launch_f32, 11);
-        case 12: return CRABML_FLASH(launch_f32, 12);
-        case 13: return CRABML_FLASH(launch_f32, 13);
-        case 14: return CRABML_FLASH(launch_f32, 14);
-        case 15: return CRABML_FLASH(launch_f32, 15);
-        default: return CRABML_FLASH(launch_f32, 16);
+    if (warpgroups != 1 && (warpgroups != 2 || hd > 128)) return (int)cudaErrorInvalidValue;
+    switch (tile_width(hd) + warpgroups) {
+        case 64 + 1: return CRABML_FLASH(launch_f32, 64, 1);
+        case 64 + 2: return CRABML_FLASH(launch_f32, 64, 2);
+        case 128 + 1: return CRABML_FLASH(launch_f32, 128, 1);
+        case 128 + 2: return CRABML_FLASH(launch_f32, 128, 2);
+        default: return CRABML_FLASH(launch_f32, 256, 1);
     }
 #undef CRABML_FLASH
+}
+
+// The float32 kernel's plan at head dim hd with `warpgroups` a block (1, or 2
+// below head dim 129; F32Plan): plan[0..5] = tile width, keys a tile,
+// warpgroups, stages, dynamic shared memory bytes, rows a block. Read by the
+// card's tests against ops/cuda/flash_attention.py::flash_f32_plan.
+extern "C" int flash_f32_layout(int hd, int warpgroups, int* plan) {
+    if (hd <= 0 || hd % 8 || hd > 256) return (int)cudaErrorInvalidValue;
+    if (warpgroups != 1 && (warpgroups != 2 || hd > 128)) return (int)cudaErrorInvalidValue;
+    switch (tile_width(hd) + warpgroups) {
+        case 64 + 1: f32_layout<64, 1>(plan); break;
+        case 64 + 2: f32_layout<64, 2>(plan); break;
+        case 128 + 1: f32_layout<128, 1>(plan); break;
+        case 128 + 2: f32_layout<128, 2>(plan); break;
+        default: f32_layout<256, 1>(plan); break;
+    }
+    return 0;
 }

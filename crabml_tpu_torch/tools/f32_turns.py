@@ -1,22 +1,32 @@
-"""Time the float32 dequant matmul (csrc/qmm_f32.cu) of two checkouts of the
-port in turns, on one card.
+"""Time the float32 tensor-core kernels of two checkouts of the port in turns,
+on one card: the float32 dequant matmul (csrc/qmm_f32.cu) and the float32
+entry of flash attention (csrc/flash_attention.cu).
 
     python -m crabml_tpu_torch.tools.f32_turns OTHER_ROOT    # needs one CUDA card
 
 OTHER_ROOT is another checkout of the repository (for example an earlier
 commit unpacked with `git archive` into a directory that git ignores). The
-inputs are made once, from numpy seeds, and saved; then the turns run in the
+inputs are made once, from numpy seeds, and saved (flash's q, k and v are
+made on the card from a torch seed in each turn); then the turns run in the
 order other, this, this, other, each in a process of its own that imports
 `crabml_tpu_torch` from that checkout and builds its kernels there. Each turn
 times, with `chip_smoke.py`'s `Timer` (L2 emptied by a write before each
-launch), the float32 dequant form of every scheme at 512 and 189 rows of the
-7B q|k|v (4096 -> 6144), Q4_K's at 512 rows of down (14336 -> 4096), the
-grouped Q4_K form on `chip_smoke.py`'s 1,024 (row, slot) pairs of the
-Mixtral gate|up stack (8 x 28672 x 4096), and Q8_0's at stories15M's 256 x
-288 @ (1536 x 288)^T (planes padded to k = 512); beside each, float32
-`torch.matmul` (TF32 off) on the dequantized weight, per segment where
-grouped. Each turn also holds every output against the exact plain version
-(max|out - plain| / max|plain|): the run fails when one exceeds 1e-5.
+launch):
+- the float32 dequant form of every scheme at 512 and 189 rows of the 7B
+  q|k|v (4096 -> 6144), Q4_K's at 512 rows of down (14336 -> 4096), the
+  grouped Q4_K form on `chip_smoke.py`'s 1,024 (row, slot) pairs of the
+  Mixtral gate|up stack (8 x 28672 x 4096), and Q8_0's at stories15M's 256 x
+  288 @ (1536 x 288)^T (planes padded to k = 512); beside each, float32
+  `torch.matmul` (TF32 off) on the dequantized weight, per segment where
+  grouped;
+- float32 flash at every float32 shape of `chip_smoke.py`'s checks (the
+  7B's chunks, its last at 4,096 keys, gemma2's head dim 256 with its
+  softcap and window, Qwen2-7B's G = 7, phi3's 96 and phi2's 80, the HF
+  fixtures' 16, the TinyStories models' 48 and 8, and head dims 24, 72, 104,
+  200 and 248); beside each, SDPA in float32 where there is no softcap.
+Each turn also holds every output against the exact plain version
+(max|out - plain| / max|plain|): the run fails when a matmul exceeds 1e-5 or
+flash 1e-4 (chip_smoke.py's gates).
 
 Prints the card and its power limit, one JSON line a turn, then one JSON
 line a shape with each checkout's two times, the ratio of their means and
@@ -35,7 +45,7 @@ import tempfile
 from pathlib import Path
 
 THIS_ROOT = Path(__file__).resolve().parents[2]
-TOL = 1e-5  # chip_smoke.py's gate on the float32 forms
+TOL = {"matmul": 1e-5, "flash": 1e-4}  # chip_smoke.py's gates on the float32 forms
 FORMS = ("q4_k", "q8_0", "q6_k", "q5_k", "q4_0", "q3_k", "q2_k", "q5_0")
 
 
@@ -92,7 +102,56 @@ def make_cases(cs) -> list[dict]:
                            f"({2 * cs.S15_FFN}x{cs.S15_DIM})^T (planes padded to 512)",
                   "w": _weight("q8_0", (2 * cs.S15_FFN, cs.S15_DIM), 924),
                   "x": x(cs.S15_CTX, cs.S15_DIM, 925)})
+    return cases + flash_cases(cs)
+
+
+def flash_cases(cs) -> list[dict]:
+    """Float32 flash: label, dims (q heads, kv heads, head dim, cache rows),
+    T, pos, softcap, window, and the seed of q, k and v."""
+    attn7b = (cs.HEADS, cs.KV_HEADS, cs.HEAD_DIM, cs.CTX)
+    chunk, ragged = cs.PREFILL_CHUNK, cs.RAGGED_CHUNK
+    shapes = [(attn7b, chunk, 0, 0.0, 0), (attn7b, chunk, chunk, 0.0, 0),
+              (attn7b, ragged, chunk, 0.0, 0), (attn7b, chunk, cs.CTX - chunk, 0.0, 0),
+              (cs.G2_ATTN, chunk, chunk, cs.G2_SOFTCAP, 0),
+              (cs.G2_ATTN, chunk, cs.G2_WINDOW, cs.G2_SOFTCAP, cs.G2_WINDOW),
+              (cs.Q2_ATTN, ragged, chunk, 0.0, 0)]
+    for hd in (cs.P3_HD, cs.P2_HD):
+        dims = (cs.P3_HEADS, cs.P3_HEADS, hd, cs.CTX)
+        shapes += [(dims, chunk, 0, 0.0, 0), (dims, chunk, chunk, 0.0, 0),
+                   (dims, ragged, chunk, 0.0, 0)]
+    hd16 = (cs.HEADS, cs.KV_HEADS, 16, cs.CTX)
+    shapes += [(cs.HF_ATTN, 16, 0, 0.0, 0), (cs.HF_ATTN, 1, 15, 0.0, 0),
+               (hd16, chunk, chunk, 0.0, 0), (hd16, chunk, chunk, 50.0, 256)]
+    for dims in (cs.S15_ATTN, cs.S260_ATTN):
+        shapes += [(dims, dims[3], 0, 0.0, 0), (dims, 1, dims[3] - 1, 0.0, 0)]
+    shapes.append(((cs.HEADS, cs.KV_HEADS, 24, cs.CTX), chunk, chunk, 50.0, 256))
+    for hd in (72, 104, 200, 248):
+        shapes.append(((cs.HEADS, cs.KV_HEADS, hd, cs.CTX), chunk, chunk, 0.0, 0))
+    cases = []
+    for i, (dims, T, pos, cap, win) in enumerate(shapes):
+        H, KV, hd, S = dims
+        form = (f" softcap {cap:g}" if cap else "") + (f" window {win}" if win else "")
+        cases.append({"label": f"flash f32 hd {hd}, {H} / {KV} heads, T {T} pos {pos}, "
+                               f"S {S}{form}",
+                      "flash": (dims, T, pos, cap, win), "seed": 930 + i})
     return cases
+
+
+def _flash_turn(cs, torch, case) -> tuple:
+    """(kernel, exact plain, SDPA or None) on one float32 flash case."""
+    from crabml_tpu_torch.ops.cuda import flash_attention as fa
+
+    (H, KV, hd, S), T, pos, cap, win = case["flash"]
+    g = torch.Generator(device="cuda").manual_seed(case["seed"])
+    q = torch.randn(1, T, H, hd, generator=g, device="cuda")
+    k = torch.randn(1, KV, S, hd, generator=g, device="cuda")
+    v = torch.randn(1, KV, S, hd, generator=g, device="cuda")
+    posv = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(hd)
+    fn = lambda: fa.flash_attention(q, k, v, posv, scale, cap, win)  # noqa: E731
+    want = fa.flash_attention_plain(q, k, v, posv, scale, cap, win)
+    lib = None if cap else (lambda: cs._sdpa(q, k, v, pos, T, win))  # noqa: E731
+    return fn, want, lib
 
 
 def child(root: str, cases_path: str) -> dict:
@@ -113,6 +172,17 @@ def child(root: str, cases_path: str) -> dict:
     times, library, errors = {}, {}, {}
     # the first case twice: a process's first timing reads slow, the second counts
     for case in cases[:1] + cases:
+        key = case["label"]
+        if "flash" in case:
+            fn, want, lib = _flash_turn(cs, torch, case)
+            got = fn()
+            torch.cuda.synchronize()
+            errors[key] = ((got - want).abs().max() / want.abs().max()).item()
+            times[key] = timer(fn)
+            library[key] = timer(lib) if lib else None
+            del got, want
+            torch.cuda.empty_cache()
+            continue
         w = case["w"]
         kind = GGMLType(w["kind"])
         qt = QTensor(kind, w["shape"], {n: t.cuda() for n, t in w["planes"].items()})
@@ -136,7 +206,6 @@ def child(root: str, cases_path: str) -> dict:
             lib = lambda: torch.matmul(xs, w32[:, :xs.shape[1]].t())  # noqa: E731
         got = fn()
         torch.cuda.synchronize()
-        key = case["label"]
         errors[key] = ((got - want).abs().max() / want.abs().max()).item()
         times[key] = timer(fn)
         library[key] = timer(lib)
@@ -163,6 +232,7 @@ def main() -> int:
         cases = make_cases(cs)
         torch.save(cases, cases_path)
         labels = [c["label"] for c in cases]
+        kinds = {c["label"]: "flash" if "flash" in c else "matmul" for c in cases}
         del cases
         for root in (other, str(THIS_ROOT), str(THIS_ROOT), other):
             out = subprocess.run([sys.executable, __file__, "--child", root, cases_path],
@@ -172,17 +242,19 @@ def main() -> int:
                 return 1
             turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
             print(json.dumps(turns[-1]), flush=True)
-    worst = max(e for t in turns for e in t["rel_err"].values())
+    worst = {kind: max(t["rel_err"][k] for t in turns for k in labels if kinds[k] == kind)
+             for kind in TOL}
     for key in labels:
         o = [turns[0]["ms"][key], turns[3]["ms"][key]]
         t = [turns[1]["ms"][key], turns[2]["ms"][key]]
+        lib = [tt["library_ms"][key] for tt in turns]
         print(json.dumps({"shape": key, "other_ms": o, "this_ms": t,
                           "this_over_other": statistics.mean(t) / statistics.mean(o),
-                          "library_ms": statistics.mean(tt["library_ms"][key] for tt in turns),
+                          "library_ms": None if None in lib else statistics.mean(lib),
                           "rel_err": {"other": turns[0]["rel_err"][key],
                                       "this": turns[1]["rel_err"][key]}}))
     print(json.dumps({"worst_rel_err": worst, "tolerance": TOL}))
-    return 0 if worst <= TOL else 1
+    return 0 if all(worst[kind] <= TOL[kind] for kind in TOL) else 1
 
 
 if __name__ == "__main__":

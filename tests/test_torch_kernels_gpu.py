@@ -2545,3 +2545,195 @@ def test_padded_w4a8_replays_in_a_cuda_graph(cuda, kind):
         torch.cuda.synchronize()
         assert torch.equal(out, gemm_quant.qmatmul_quant(x, qt))
         x.copy_(_x(1, 288, seed))
+
+
+def test_f32_tensor_core_flash_layout_matches_the_plan(cuda):
+    """The float32 flash kernel's plan (csrc/flash_attention.cu's F32Plan, read
+    through its flash_f32_layout entry) is ops/cuda/flash_attention.py's
+    flash_f32_plan at every head dim the card takes, which the CPU tests hold
+    to the shared-memory limit and the grid's rows."""
+    import ctypes
+
+    from crabml_tpu_torch.ops.cuda import flash_attention as fa
+
+    fn = _build.library("flash_attention").flash_f32_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for hd in fa.HEAD_DIMS:
+        for T in (16, 4096):  # one warpgroup a block, and two where the width allows
+            p = fa.flash_f32_plan(hd, T, 4, 8)
+            got = (ctypes.c_int * 6)()
+            assert fn(hd, p.warpgroups, got) == 0
+            assert list(got) == [p.tile_width, p.keys, p.warpgroups, p.stages, p.smem_bytes,
+                                 p.rows_per_block], (hd, T)
+        assert fn(hd, 2, got) != 0 if hd > 128 else fn(hd, 2, got) == 0
+
+
+@pytest.mark.parametrize("hd,G,T,pos0,softcap,window", [
+    (8, 2, 100, 37, 0.0, 0), (48, 1, 256, 0, 0.0, 0), (80, 1, 189, 5, 0.0, 0),
+    (128, 4, 189, 512, 0.0, 0), (128, 7, 130, 37, 0.0, 0), (200, 4, 65, 300, 30.0, 100),
+    (256, 2, 257, 37, 50.0, 100), (96, 64, 3, 12, 0.0, 0)])
+def test_f32_tensor_core_flash_matches_the_split_model(cuda, hd, G, T, pos0, softcap, window):
+    """The float32 kernel (three TF32 passes a product) within 1e-4 of
+    max|out| of the exact plain version and of the plain model of its
+    arithmetic (`flash_attention_split_plain`), at each tile width, G up to
+    64, ragged T, windows and softcaps; two calls give the same bits."""
+    from crabml_tpu_torch.ops.cuda.flash_attention import flash_attention_split_plain
+
+    B, KV, S = 2, 2, 768  # pos + T <= S
+    q = torch.randn(B, T, KV * G, hd, device=cuda)
+    k = torch.randn(B, KV, S, hd, device=cuda)
+    v = torch.randn(B, KV, S, hd, device=cuda)
+    pos = torch.tensor([0, pos0], dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, pos, hd ** -0.5, softcap, window)
+    want = flash_attention_plain(q, k, v, pos, hd ** -0.5, softcap, window)
+    model = flash_attention_split_plain(q, k, v, pos, hd ** -0.5, softcap, window)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-4
+    assert _rel(got, model) <= 1e-4
+    assert torch.equal(got, flash_attention(q, k, v, pos, hd ** -0.5, softcap, window))
+
+
+def test_f32_tensor_core_flash_holds_4096_keys(cuda):
+    """T 512 at pos 3,584 of a 4,096-row cache (the 7B's last chunk, 4 q heads
+    a kv head, hd 128): a row's sums run over up to 4,096 keys, through the
+    tensor cores' float32 accumulation; within 1e-4 of max|out| of the exact
+    plain version."""
+    q = torch.randn(1, 512, 8, 128, device=cuda)
+    k = torch.randn(1, 2, 4096, 128, device=cuda)
+    v = torch.randn(1, 2, 4096, 128, device=cuda)
+    pos = torch.tensor([3584], dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, pos, 128 ** -0.5)
+    want = flash_attention_plain(q, k, v, pos, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+
+
+def _norm_case(kind, rows, n, dtype, seed, qk_heads=0):
+    """x (rows, n) in `dtype`, its weight ((n,), or (qk_heads, n) for a qwen3
+    per-head norm) and phi2's bias, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((rows, n)) * 3 + 0.5).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((qk_heads, n) if qk_heads else n).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)) if kind == "layer" else None
+    to = lambda t: None if t is None else t.cuda()  # noqa: E731
+    return to(x).to(dtype), to(w), to(b)
+
+
+def _apply_norm(kind, x, w, b, plain=False):
+    from crabml_tpu_torch.ops.cuda import norm
+
+    if kind == "rms":
+        return (norm.rms_norm_plain if plain else norm.rms_norm)(x, w, 1e-5)
+    return (norm.layer_norm_plain if plain else norm.layer_norm)(x, w, 1e-5, b)
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4096, 2560, 288, 64, 10240])
+def test_norm_is_batch_invariant(cuda, kind, dtype, n):
+    """A row's norm has the same bits whatever else the call holds: alone
+    (B = 1, a decode step), in a batch of 2 and 8 (the engines' ticks) and
+    in a 512-row prefill chunk. torch's float32 mean reduces in an order
+    that depends on the row count; csrc/norm.cu sums a row in one order
+    (in registers up to 8,192 a row, from memory at 10,240)."""
+    x, w, b = _norm_case(kind, 512, n, dtype, n + (dtype == torch.bfloat16))
+    whole = _apply_norm(kind, x, w, b)
+    for B in (1, 2, 8):
+        for start in (0, 3, 511 - B + 1):
+            part = _apply_norm(kind, x[start:start + B].clone(), w, b)
+            assert torch.equal(part, whole[start:start + B]), (B, start)
+    # (B, T, D) as the forward passes it: T = 1 against T = 512
+    seq = _apply_norm(kind, x.reshape(1, 512, n), w, b)
+    assert torch.equal(seq.reshape(512, n), whole)
+    assert torch.equal(_apply_norm(kind, x[None, 5:6], w, b)[0], whole[5:6])
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(1, 4096), (8, 4096), (512, 4096), (189, 3584),
+                                    (17, 3072), (3, 2560), (40, 288), (7, 64), (2, 8),
+                                    (5, 10240)])
+def test_norm_matches_plain(cuda, kind, dtype, rows, n):
+    """The kernel against the plain version on the same inputs: float32
+    within 2e-6 of max|out| (the same arithmetic, the row's sum in another
+    order and the squares fused into fma: a relative change of the variance
+    of a few ulps, half as much in its root); a bfloat16 output within one
+    bfloat16 ulp (at most 2^-7 of the value) of the plain one, which rounds
+    the same float32 value up to those ulps, plus those ulps themselves
+    (2e-6 of max|out|), which decide the rounding of a LayerNorm output that
+    the bias nearly cancels."""
+    x, w, b = _norm_case(kind, rows, n, dtype, 7 * rows + n)
+    got = _apply_norm(kind, x, w, b)
+    want = _apply_norm(kind, x, w, b, plain=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert _rel(got, want) <= 2e-6
+    else:
+        diff = (got.float() - want.float()).abs()
+        ref = want.float().abs()
+        assert (diff <= ref * 2.0 ** -7 + 2e-6 * ref.max()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_takes_qwen3_per_head_weights(cuda, dtype):
+    """qwen3's fused q|k norm: x (B, T, H + KV, hd), a strided view of the
+    q|k|v projection, and one weight row a head (row r takes weight row
+    r % (H + KV)); against the plain version, and batch invariant."""
+    from crabml_tpu_torch.ops.cuda import norm
+
+    B, T, H, KV, hd = 2, 9, 8, 2, 128
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, (H + 2 * KV) * hd)).astype(np.float32))
+    qkv = qkv.cuda().to(dtype)
+    w = torch.from_numpy(rng.standard_normal((H + KV, hd)).astype(np.float32)).cuda()
+    qk = qkv[..., : (H + KV) * hd].reshape(B, T, H + KV, hd)
+    got = norm.rms_norm(qk, w, 1e-6)
+    want = norm.rms_norm_plain(qk, w, 1e-6)
+    assert got.shape == qk.shape
+    if dtype == torch.float32:
+        assert _rel(got, want) <= 2e-6
+    else:
+        ref = want.float().abs()
+        assert ((got.float() - want.float()).abs() <= ref * 2.0 ** -7 + 2e-6 * ref.max()).all()
+    assert torch.equal(norm.rms_norm(qk[1:, 4:5], w, 1e-6), got[1:, 4:5])
+
+
+def test_norm_counts_and_refuses(cuda):
+    """One launch a call, counted under its name; a weight that is not x's
+    trailing shape and a float16 x are refused, not sent to the plain
+    version."""
+    from crabml_tpu_torch.ops.cuda import norm
+
+    x = torch.randn(4, 256, device=cuda)
+    w = torch.randn(256, device=cuda)
+    before = dict(_build.launches)
+    norm.rms_norm(x, w, 1e-5)
+    norm.layer_norm(x, w, 1e-5, w)
+    assert _build.launches["rms_norm"] == before.get("rms_norm", 0) + 1
+    assert _build.launches["layer_norm"] == before.get("layer_norm", 0) + 1
+    with pytest.raises(UnsupportedError):
+        norm.rms_norm(x, torch.randn(128, device=cuda), 1e-5)
+    with pytest.raises(UnsupportedError):
+        norm.rms_norm(x.half(), w, 1e-5)
+
+
+def test_norm_replays_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph and replayed on new inputs, the kernel gives
+    the eager call's bits."""
+    from crabml_tpu_torch.ops.cuda import norm
+
+    x = torch.randn(2, 4096, device=cuda)
+    w = torch.randn(4096, device=cuda)
+    norm.rms_norm(x, w, 1e-5)  # builds and loads the library outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = norm.rms_norm(x, w, 1e-5)
+    for seed in range(3):
+        x.copy_(torch.from_numpy(np.random.default_rng(seed).standard_normal((2, 4096))
+                                 .astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, norm.rms_norm(x, w, 1e-5))
