@@ -942,6 +942,13 @@ def check_w8(timer, rows: int, m: int, k: int, seed: int, qt=None) -> dict:
         2.0 * rows * m * k, "bf16")
 
 
+# the dequant forms on csrc/qmm_ws.cuh also at the other row counts whose tile
+# heights its plan tells apart (qmm_ws_plan: 1,024 rows in 256-row tiles on
+# two waves, 37 rows in one 48-row tile, 17 in one 24-row tile) and at wo (189
+# rows: 64-row tiles), beside the shapes every scheme's form is held at
+WS_SHAPES = {s: ((2 * PREFILL_CHUNK, QKV_M, DIM), (37, QKV_M, DIM), (17, QKV_M, DIM),
+                 (RAGGED_CHUNK, DIM, DIM)) for s in ("q5_k", "q3_k")}
+
 # the Mixtral prefill shape: a 512-token chunk is 1,024 (row, slot) pairs over
 # 8 experts; a skewed routing with expert 0 empty and ragged segments
 MOE_EXPERTS, MOE_USED = 8, 2
@@ -1473,8 +1480,10 @@ def check_norm(timer, kind: str, rows: int, n: int, dtype: str, seed: int,
 
     The library time is torch.nn.functional's rms_norm / layer_norm, the
     same function (rms_norm with a bfloat16 x beside float32 weights takes
-    its unfused form, and warns so; layer_norm refuses that pair); none for
-    qwen3's per-head weight, which neither takes."""
+    its unfused form, and warns so); layer_norm refuses that pair, so on
+    bfloat16 x it takes the weights rounded to bfloat16; qwen3's per-head
+    weight (one row a head) is rms_norm without a weight and one multiply,
+    since rms_norm's weight spans the normalized shape only."""
     import warnings
 
     import torch
@@ -1494,12 +1503,15 @@ def check_norm(timer, kind: str, rows: int, n: int, dtype: str, seed: int,
     if kind == "rms":
         run = lambda t: norm.rms_norm(t, w, eps)  # noqa: E731
         plain = lambda: norm.rms_norm_plain(x, w, eps)  # noqa: E731
-        library = (lambda: F.rms_norm(x, (n,), w, eps)) if (  # noqa: E731
-            not qk_heads and hasattr(F, "rms_norm")) else None
+        if qk_heads:
+            library = lambda: F.rms_norm(x, (n,), eps=eps) * w  # noqa: E731
+        else:
+            library = lambda: F.rms_norm(x, (n,), w, eps)  # noqa: E731
     else:
         run = lambda t: norm.layer_norm(t, w, eps, b)  # noqa: E731
         plain = lambda: norm.layer_norm_plain(x, w, eps, b)  # noqa: E731
-        library = (lambda: F.layer_norm(x, (n,), w, b, eps)) if dtype == "f32" else None
+        wl, bl = w.to(tdt), b.to(tdt)
+        library = lambda: F.layer_norm(x, (n,), wl, bl, eps)  # noqa: E731
     got, want = run(x), plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -1521,9 +1533,9 @@ def check_norm(timer, kind: str, rows: int, n: int, dtype: str, seed: int,
                       if dtype == "f32" else
                       "max_abs_err <= 2^-7 * max|ref| (one bfloat16 rounding of the output)"),
         "ok": ok, "ms": timer(lambda: run(x)), "plain_ms": timer(plain),
-        "library_ms": timer(library) if library else None, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(library), "bound_ms": b_ms, "bound_by": b_by,
     }
-    lib = f"{rec['library_ms']:.4f} ms" if library else "none"
+    lib = f"{rec['library_ms']:.4f} ms"
     say(f"{kind}_norm {rec['shape']}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
         f"{rec['tolerance']}), batch invariant {invariant}, {'ok' if ok else 'FAILED'}; "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library {lib}, "
@@ -1570,6 +1582,27 @@ def check_f32_flash_plan() -> None:
                 fail(f"flash_f32_layout at hd {hd}, {plan.warpgroups} warpgroups: {list(got)}, "
                      f"flash_f32_plan {want}")
     say(f"flash_f32_plan = the kernel's F32Plan at all {len(fa.HEAD_DIMS)} head dims")
+
+
+def check_ws_plan() -> None:
+    """The rings of csrc/qmm_ws.cuh (qmm_q5k, qmm_q3k) as each source compiles
+    them (its <form>_ws_layout entry) are ops/cuda/gemm_quant.py's
+    qmm_ws_ring, at every tile height the plan may pick."""
+    import ctypes
+
+    from crabml_tpu_torch.gguf.constants import GGMLType
+    from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+
+    for kind, name in ((GGMLType.Q5_K, "qmm_q5k"), (GGMLType.Q3_K, "qmm_q3k")):
+        fn = getattr(_build.library(name), f"{name}_ws_layout")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for tile in gemm_quant.WS_TILE_ROWS:
+            got = (ctypes.c_int * 3)()
+            want = list(gemm_quant.qmm_ws_ring(kind, tile))
+            if fn(tile, got) != 0 or list(got) != want:
+                fail(f"{name}_ws_layout at {tile} rows: {list(got)}, qmm_ws_ring {want}")
+    say(f"qmm_ws_ring = the kernels' rings at all {len(gemm_quant.WS_TILE_ROWS)} tile heights")
 
 
 def f32_checks(timer) -> dict[str, list[dict]]:
@@ -1769,6 +1802,7 @@ def phase_kernels() -> dict[str, list[dict]]:
     for name, recs in phi_attention_checks(timer).items():  # head dims 96 and 80, after those
         checks[name] += recs
     check_f32_flash_plan()
+    check_ws_plan()
     for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
         checks.setdefault(name, []).extend(recs)
     for name, recs in hd16_attention_checks(timer).items():  # head dim 16, after those
@@ -1785,6 +1819,10 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] = [check_grouped(timer, name, 2 * FFN, DIM, 42),
                         check_grouped(timer, name, DIM, FFN, 43)]
         torch.cuda.empty_cache()
+    # the bf16 grouped dequant form also on an empty and a one-row segment
+    checks["qmm_q4k_grouped"].append(check_grouped(timer, "qmm_q4k_grouped", 2 * FFN, DIM, 42,
+                                                   counts=EDGE_COUNTS))
+    torch.cuda.empty_cache()
     # the float32 grouped forms at the same shapes: Q4_K's here, the other
     # schemes' beside their bfloat16 forms below, on the same stacks with
     # their scale planes in float32
@@ -1811,9 +1849,12 @@ def phase_kernels() -> dict[str, list[dict]]:
             qt = scheme_stack(scheme, MOE_EXPERTS, m, k, seed)
             name = f"qmm_{_FORM[scheme]}_grouped"
             checks.setdefault(name, []).append(check_grouped(timer, name, m, k, seed, qt))
+            if m == 2 * FFN:  # an empty and a one-row segment
+                checks[name].append(check_grouped(timer, name, m, k, seed, qt,
+                                                  counts=EDGE_COUNTS))
             checks.setdefault(f"{name}.f32", []).append(
                 check_grouped(timer, name, m, k, seed, float32_scales(qt), f32=True))
-            if m == 2 * FFN:  # an empty and a one-row segment
+            if m == 2 * FFN:
                 checks[f"{name}.f32"].append(check_grouped(
                     timer, name, m, k, seed, float32_scales(qt), f32=True, counts=EDGE_COUNTS))
             for rows in (1, SERVING_SLOTS):
@@ -1828,7 +1869,7 @@ def phase_kernels() -> dict[str, list[dict]]:
     for i, scheme in enumerate(KERNEL_SCHEMES):
         seed = 70 + 4 * i
         for rows, m, k in ((PREFILL_CHUNK, QKV_M, DIM), (RAGGED_CHUNK, QKV_M, DIM),
-                           (PREFILL_CHUNK, DIM, FFN)):
+                           (PREFILL_CHUNK, DIM, FFN)) + WS_SHAPES.get(scheme, ()):
             name, rec = check_scheme_matmul(timer, scheme, "dequant", rows, m, k, seed)
             checks.setdefault(name, []).append(rec)
         # one weight a shape for both row counts
@@ -1851,6 +1892,10 @@ def phase_kernels() -> dict[str, list[dict]]:
         seed = 130 + 4 * i
         name, rec = check_scheme_matmul(timer, scheme, "dequant", PREFILL_CHUNK, QKV_M, DIM, seed)
         checks[name].append(rec)
+        if scheme == "q5_1":  # csrc/qmm_ws.cuh's 96-row tiles on Q5_1 planes
+            name, rec = check_scheme_matmul(timer, scheme, "dequant", RAGGED_CHUNK, QKV_M, DIM,
+                                            seed)
+            checks[name].append(rec)
         for rows in (1, SERVING_SLOTS, 2 * SERVING_SLOTS):
             name, rec = check_scheme_matmul(timer, scheme, "w4a8", rows, QKV_M, DIM, seed + 1)
             checks[name].append(rec)

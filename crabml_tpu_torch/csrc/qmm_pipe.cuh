@@ -60,6 +60,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "qmm_tiles.cuh"
 #include "wgmma.cuh"
 
 namespace qpipe {
@@ -73,42 +74,13 @@ constexpr int AHEAD = STAGES - 1;  // a step's tiles are fetched this many steps
 constexpr int X_BYTES = BX * BK * 2;
 constexpr int LDC = BW + 4;  // row of the epilogue's staging tile, in floats
 
-struct Tile {
-    int m0;     // first row
-    int m_end;  // one past the last row this tile may touch
-    int plane;  // weight plane of these rows
-};
+using qtile::Tile;
+using qtile::find_tile;
 
-// The t-th tile of `rows` rows, or false when there are fewer tiles (the
-// grouped grid is sized for the worst case). The whole block takes the same
-// branch. The tile loop below cuts BX rows a tile; csrc/qmm_f32.cu cuts as
-// many as its launch plan says (ops/cuda/gemm_quant.py::qmm_f32_plan).
-__device__ __forceinline__ bool find_tile(const int* __restrict__ offsets, int n_planes, int M,
-                                          int t, Tile& tile, int rows) {
-    if (offsets == nullptr) {
-        tile.m0 = t * rows;
-        tile.m_end = M;
-        tile.plane = 0;
-        return tile.m0 < M;
-    }
-    for (int e = 0; e < n_planes; ++e) {
-        const int lo = offsets[e], hi = offsets[e + 1];
-        const int nt = (hi - lo + rows - 1) / rows;
-        if (t < nt) {
-            tile.m0 = lo + t * rows;
-            tile.m_end = hi;
-            tile.plane = e;
-            return true;
-        }
-        t -= nt;
-    }
-    return false;
-}
-
-static inline int dense_tiles(int M, int rows = BX) { return (M + rows - 1) / rows; }
+static inline int dense_tiles(int M, int rows = BX) { return qtile::dense_tiles(M, rows); }
 // Tiles a grouped launch must provide for: every segment may end in a short one.
 static inline int grouped_tiles(int M, int n_planes, int rows = BX) {
-    return dense_tiles(M, rows) + n_planes;
+    return qtile::grouped_tiles(M, n_planes, rows);
 }
 
 template <class W> __host__ __device__ constexpr int stage_bytes() { return X_BYTES + W::TILE_BYTES; }

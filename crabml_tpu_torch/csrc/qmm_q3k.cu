@@ -11,22 +11,35 @@
 //
 // Bound on the H100: operations at the main path's 512-row prefill chunks (2 x
 // 512 x 4096 x 4096 against 8 MB of planes for q; the card's ridge is ~295
-// bf16 operations per byte). The tile loop is qmm_pipe.cuh's (wgmma with the
-// weights as the register A operand, the x tile as B in swizzled shared
-// memory, a six-stage cp.async ring, two wgmma groups in flight); its Q3_K
-// weight source, staged a superblock at a time, is qmm_k16.cuh's, where the
-// design is set out.
+// bf16 operations per byte). The tile loop is qmm_ws.cuh's (warp-specialized:
+// a producer warpgroup's TMA copies into an mbarrier ring, two consumer
+// warpgroups converting the weights into wgmma's register A operand, x tiles
+// of up to 256 rows as its B operand); its Q3_K weight source, staged a
+// superblock at a time, is qmm_k16.cuh's `WsSource`, where the design is set
+// out. The launch (tile height, weight rows a block) is
+// ops/cuda/gemm_quant.py::qmm_ws_plan's.
 #include "qmm_k16.cuh"
 
+namespace {
+
+int run(const void* x, const void* qs, const void* hb, const void* sc, const void* d, void* out,
+        int out_bf16, const int* offsets, int n_planes, int M, int N, int K, int tile_rows,
+        void* stream) {
+    qk16::WsSource<true> w;
+    const int e = w.encode(qs, hb, sc, d, nullptr, n_planes * N, K);
+    if (e) return e;
+    return qws::launch(w, x, out, out_bf16, offsets, n_planes, M, N, K, tile_rows, stream);
+}
+
+}  // namespace
+
 // x (M, K) bf16; qs (N, K/4) u8; hb (N, K/8) u8; sc (N, K/16) i8; d (N,
-// K/256) f32; out (M, N) f32, or bf16 when out_bf16 != 0. K % 256 == 0; the
-// wrapper checks shapes and alignment.
+// K/256) f32; out (M, N) f32, or bf16 when out_bf16 != 0. K % 256 == 0;
+// tile_rows from qmm_ws_plan; the wrapper checks shapes and alignment.
 extern "C" int qmm_q3k_bf16(const void* x, const void* qs, const void* hb, const void* sc,
                             const void* d, void* out, int out_bf16, int M, int N, int K,
-                            void* stream) {
-    const qk16::Source<true> w{(const uint8_t*)qs, (const uint8_t*)hb, (const uint8_t*)sc,
-                               (const float*)d, nullptr};
-    return qpipe::launch(w, x, out, out_bf16, nullptr, 1, qpipe::dense_tiles(M), M, N, K, stream);
+                            int tile_rows, void* stream) {
+    return run(x, qs, hb, sc, d, out, out_bf16, nullptr, 1, M, N, K, tile_rows, stream);
 }
 
 // The grouped form: x (M, K) rows sorted by plane, offsets (n_planes + 1) i32
@@ -36,9 +49,13 @@ extern "C" int qmm_q3k_bf16(const void* x, const void* qs, const void* hb, const
 extern "C" int qmm_q3k_grouped_bf16(const void* x, const void* qs, const void* hb,
                                     const void* sc, const void* d, void* out, int out_bf16,
                                     const void* offsets, int n_planes, int M, int N, int K,
-                                    void* stream) {
-    const qk16::Source<true> w{(const uint8_t*)qs, (const uint8_t*)hb, (const uint8_t*)sc,
-                               (const float*)d, nullptr};
-    return qpipe::launch(w, x, out, out_bf16, (const int*)offsets, n_planes,
-                         qpipe::grouped_tiles(M, n_planes), M, N, K, stream);
+                                    int tile_rows, void* stream) {
+    return run(x, qs, hb, sc, d, out, out_bf16, (const int*)offsets, n_planes, M, N, K,
+               tile_rows, stream);
+}
+
+// The rings of a tile of tile_rows rows (qws::layout): stages, superblock
+// slots, shared memory in use.
+extern "C" int qmm_q3k_ws_layout(int tile_rows, int* out) {
+    return qws::layout<qk16::WsSource<true>>(tile_rows, out);
 }

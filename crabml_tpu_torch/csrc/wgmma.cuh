@@ -1,7 +1,7 @@
 // Warpgroup matrix multiply (wgmma) and asynchronous-copy helpers for sm_90a.
 //
 // Thin wrappers over the PTX that the tensor-core kernels of this directory
-// (flash_attention.cu, qmm_pipe.cuh, qmm_f32.cu) are written with. A
+// (flash_attention.cu, qmm_pipe.cuh, qmm_ws.cuh, qmm_f32.cu) are written with. A
 // warpgroup is four consecutive warps; every wgmma here is m64 x N x k16 with
 // bfloat16 inputs (`Mma`) or m64 x N x k8 with TF32 inputs (`Tf32`), and
 // float32 accumulators held in registers.
@@ -90,6 +90,57 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers (a uint64_t in shared memory, at shared address `bar`) and the
+// tensor memory accelerator (TMA), for warp-specialized loops (qmm_ws.cuh).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes the initialized barriers visible to the async proxy (TMA); a
+// __syncthreads follows before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival that also tells the barrier to wait for `bytes` of copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+// The barrier counts one arrival once every cp.async this thread has started
+// so far has landed (the arrival is not added to the expected count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// A 2-D box of the tensor map at `map` (a kernel parameter) at coordinates
+// (c0 innermost, c1) into shared memory at `dst`; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+        : "memory");
+}
+// Named barrier `id` (1..15) over `threads` threads of the block.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -219,6 +270,161 @@ template <> struct Mma<128> {
     }
 };
 
+
+// The widths below (24, 48, 96, 192, 256) serve csrc/qmm_ws.cuh, whose x tiles
+// hold up to 256 rows and whose ragged tiles take the least width that holds them.
+
+// m64n24k16: 12 accumulator registers a thread.
+template <> struct Mma<24> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[12], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+            "}, "
+            "{%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n48k16: 24 accumulator registers a thread.
+template <> struct Mma<48> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[24], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+            "%18, %19, %20, %21, %22, %23"
+            "}, "
+            "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n96k16: 48 accumulator registers a thread.
+template <> struct Mma<96> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+            "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+            "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+            "}, "
+            "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+              "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+              "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n192k16: 96 accumulator registers a thread.
+template <> struct Mma<192> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+            "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+            "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+            "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+            "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+            "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+            "}, "
+            "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+              "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+              "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+              "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+              "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+              "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+              "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+              "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+              "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+              "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
+
+// m64n256k16: 128 accumulator registers a thread.
+template <> struct Mma<256> {
+    // d (+)= A (registers) . B (shared, descriptor)
+    template <int TRANS_B>
+    static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+            "{"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+            "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+            "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+            "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+            "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+            "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+            "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+            "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+            "%126, %127"
+            "}, "
+            "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+              "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+              "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+              "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+              "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+              "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+              "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+              "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+              "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+              "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+              "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+              "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+              "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+              "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+              "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+              "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+              "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
+    }
+};
 
 // v rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, as
 // cvt.rna.tf32.f32 rounds every finite v): the float32 bit pattern with its

@@ -11,7 +11,9 @@ on the W8 planes) and its grouped form `qmm_w8_grouped`, with
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
 csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu,
 csrc/qmm_q4_0.cu, csrc/qmm_q5_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one
-weight source of the tile loop each, with a dense and a grouped entry
+weight source of a tile loop each (qmm_q5k and qmm_q3k on csrc/qmm_ws.cuh's
+warp-specialized loop, its launch shape `qmm_ws_plan`; the others on
+csrc/qmm_pipe.cuh), with a dense and a grouped entry
 (launchers `_run` and `_run_grouped`), `_qmm_w4a8_kernel` becomes
 csrc/qmm_w4a8.cu with a form per scheme, each with its plane-per-row form
 (`_run_w4a8` with `stacked`; its launch shape is `w4a8_plan`) and
@@ -421,12 +423,21 @@ def _lib_dequant(kind: GGMLType, grouped: bool = False):
     """The dequant entry of a scheme in csrc/<form>.cu: <form>_bf16 (x, the
     weight planes in _KERNEL_PLANES order, out, out_bf16, M, N, K, stream),
     or with `grouped` <form>_grouped_bf16 (the same with offsets and the
-    plane count after out_bf16)."""
+    plane count after out_bf16). The forms on csrc/qmm_ws.cuh (WS_FORMS)
+    take the plan's tile_rows before the stream."""
     name = DEQUANT_FORMS[kind]
     planes = [_P] * (2 + len(_KERNEL_PLANES[kind]))
+    plan = (_I,) if kind in WS_FORMS else ()
     if grouped:
-        return _build.entry(name, f"{name}_grouped_bf16", *planes, _I, _P, _I, _I, _I, _I, _P)
-    return _build.entry(name, f"{name}_bf16", *planes, _I, _I, _I, _I, _P)
+        return _build.entry(name, f"{name}_grouped_bf16", *planes, _I, _P, _I, _I, _I, _I, *plan,
+                            _P)
+    return _build.entry(name, f"{name}_bf16", *planes, _I, _I, _I, _I, *plan, _P)
+
+
+def _ws_args(kind: GGMLType, rows: int, m: int, n_planes: int = 0) -> tuple:
+    """The launch plan's argument of a form on csrc/qmm_ws.cuh (tile_rows),
+    or none for the forms on qmm_pipe.cuh."""
+    return (qmm_ws_plan(rows, m, n_planes).tile_rows,) if kind in WS_FORMS else ()
 
 
 def _lib_w4a8(kind: GGMLType, f32: bool = False):
@@ -623,13 +634,19 @@ def qmm_f32_plan(rows: int, m: int, n_planes: int = 0) -> F32Plan:
 
 def qmm_f32_tiles(plan: F32Plan, rows: int, offsets=None) -> list:
     """The rows each block row of `plan` takes, as csrc/qmm_f32.cu finds
-    them (qmm_pipe.cuh::find_tile, cut to the plan's tile): per blockIdx.x,
+    them (qmm_tiles.cuh::find_tile, cut to the plan's tile): per blockIdx.x,
     (first row, one past the last, plane), or None for a block with no tile
     (the grouped grid is sized for the worst case). Dense when `offsets` is
     None, else grouped over the segments of `offsets` (n_planes + 1 ints)."""
-    tr = plan.tile_rows
+    return _find_tiles(plan.tile_rows, plan.grid[0], rows, offsets)
+
+
+def _find_tiles(tr: int, count: int, rows: int, offsets=None) -> list:
+    """csrc/qmm_tiles.cuh::find_tile for blockIdx.x 0..count-1 and tiles of
+    `tr` rows, each cut to tr rows: (first row, one past the last, plane) or
+    None."""
     out = []
-    for t in range(plan.grid[0]):
+    for t in range(count):
         if offsets is None:
             found = (t * tr, rows, 0) if t * tr < rows else None
         else:
@@ -643,6 +660,107 @@ def qmm_f32_tiles(plan: F32Plan, rows: int, offsets=None) -> list:
                 t -= nt
         out.append(None if found is None else (found[0], min(found[1], found[0] + tr), found[2]))
     return out
+
+
+# csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k and qmm_q3k (dense and
+# grouped): a block is a producer and two consumer warpgroups, 128 weight rows
+# (64 a consumer) by a tile of up to 256 rows of x
+WS_FORMS = (GGMLType.Q5_K, GGMLType.Q3_K)
+WS_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)  # the wgmma widths of a tile
+WS_TILE_ROWS = (256, 192, 128, 96, 64, 48, 32, 24, 16, 8)  # tile heights a plan may pick
+WS_BW = 128  # weight rows a block
+WS_SMEM_MAX = 232_448  # the H100's shared memory a block
+# The cost model's two constants, in rows of x: what a k step costs beside its
+# tile's own rows (the weights' conversion and the slots' waits do not shrink
+# with the tile), and what each row tile of a column costs beyond the first
+# (its blocks convert the same weights again). Fitted to the tile sweep of
+# tools/qmm_ablation.py ws on the H100, 22 shapes of Q5_K and Q3_K (PERF.md):
+# the most shapes whose pick ran within 3% of their fastest, then the least
+# worst miss, then least squares of the log times.
+WS_STEP_ROWS = 192
+WS_TILE_COST = 24
+# per form: (bytes a step slot holds beside the x tile, bytes a superblock
+# slot), as each source declares them
+_WS_SLOTS = {GGMLType.Q5_K: (0, 128 * 192), GGMLType.Q3_K: (0, 15 * 1024)}
+WS_MAX_STAGES, WS_MAX_SB = 16, 6  # the barriers' room
+
+
+@dataclass(frozen=True)
+class WSPlan:
+    """Shape of one csrc/qmm_ws.cuh launch. Block (x, y) owns weight rows
+    y*128 .. y*128+127 and row tile x: `tile_rows` rows of x (dense: rows
+    x*tile_rows..; grouped: the x-th tile numbered through the segments,
+    `qmm_ws_tiles`). The kernel takes `tile_rows`."""
+    tile_rows: int
+    grid: tuple[int, int]  # (row tiles, weight tiles); grouped: row tiles for the worst case
+    blocks: int  # dense row tiles x weight tiles: the blocks a dense launch fills
+    width: int  # the wgmma N of a whole tile
+
+
+def ws_width(rows: int) -> int:
+    """The wgmma N a csrc/qmm_ws.cuh tile of `rows` rows takes: the least of
+    WS_WIDTHS that holds them."""
+    return next(n for n in WS_WIDTHS if n >= rows)
+
+
+def ws_plan_cost(rows: int, m: int, tile: int) -> int:
+    """The time of a dense launch with `tile`-row tiles, in units of one k
+    step of one row: whole waves of blocks over the H100's SMs (one block an
+    SM: its registers), each as long as its widest tile's wgmma width plus
+    WS_STEP_ROWS, and WS_TILE_COST for each row tile."""
+    tiles = -(-rows // tile)
+    waves = -(-(tiles * -(-m // WS_BW)) // H100_SMS)
+    return waves * (WS_STEP_ROWS + ws_width(min(tile, rows))) + WS_TILE_COST * tiles
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_ws_plan(rows: int, m: int, n_planes: int = 0) -> WSPlan:
+    """The launch for `rows` bf16 activation rows against an m-row weight
+    (or, with `n_planes` > 0, a stack of that many) on csrc/qmm_ws.cuh: the
+    tile height in WS_TILE_ROWS of least `ws_plan_cost`; of a tie, the one
+    whose tiles are widest (fewer conversions of each weight), then the lower
+    (a tile taller than the rows only makes the ring's slots larger). A
+    function of the shapes alone: it reads nothing on the device, so a CUDA
+    graph can capture the launch. A grouped launch sizes its grid for the
+    worst case (each segment may end in a short tile); its tile is chosen by
+    the dense count."""
+    tile = min(WS_TILE_ROWS,
+               key=lambda t: (ws_plan_cost(rows, m, t), -ws_width(min(t, rows)), t))
+    cols = -(-m // WS_BW)
+    return WSPlan(tile_rows=tile, grid=(-(-rows // tile) + n_planes, cols),
+                  blocks=-(-rows // tile) * cols, width=ws_width(min(tile, rows)))
+
+
+def qmm_ws_tiles(plan: WSPlan, rows: int, offsets=None) -> list:
+    """The rows each block row of `plan` takes, as csrc/qmm_ws.cuh finds them
+    (qmm_tiles.cuh::find_tile): per blockIdx.x, (first row, one past the
+    last, plane), or None (the grouped grid is sized for the worst case)."""
+    return _find_tiles(plan.tile_rows, plan.grid[0], rows, offsets)
+
+
+def qmm_ws_ring(kind: GGMLType, tile_rows: int) -> tuple[int, int, int]:
+    """(stages, superblock slots, shared memory bytes in use) of
+    csrc/qmm_ws.cuh's rings for the form of `kind` at a tile of `tile_rows`
+    rows, as qws::ring_shape derives them: the most stages, up to 16, of the
+    tile's x boxes (`ws_x_box` rows each) and the source's step bytes, beside
+    stages / 4 + 2 superblock slots (up to 6), within the block's shared
+    memory less 512 bytes of barriers and 1,024 of alignment. The block asks
+    for all of it."""
+    step, sb = _WS_SLOTS[FORM_KIND[kind]]
+    box = ws_x_box(tile_rows)
+    stage = -(-tile_rows // box) * box * 64 * 2 + step
+    room = WS_SMEM_MAX - 1024 - 512
+    for stages in range(WS_MAX_STAGES, 2, -1):
+        slots = min(WS_MAX_SB, stages // 4 + 2)
+        if stages * stage + slots * sb <= room:
+            break
+    return stages, slots, stages * stage + slots * sb + 512 + 1024
+
+
+def ws_x_box(tile_rows: int) -> int:
+    """The rows of x a TMA box holds at a tile of `tile_rows` rows
+    (qws::x_box): the tile's height up to 64."""
+    return min(tile_rows, 64)
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -807,7 +925,7 @@ def _dequant_matmul(kind: GGMLType, x2: torch.Tensor, qt: QTensor, out_dtype) ->
     lib, fn = _lib_dequant(kind)
     _build.launches[name] += 1
     err = fn(x2.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16, rows,
-             qt.m, k, _build.stream_ptr(x2))
+             qt.m, k, *_ws_args(kind, rows, qt.m), _build.stream_ptr(x2))
     _build.check(lib, err, name)
     return out
 
@@ -991,7 +1109,8 @@ def _grouped_form(kind: GGMLType):
         else:
             lib, fn = _lib_dequant(kind, grouped=True)
             err = fn(xs.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), out_bf16,
-                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k, _build.stream_ptr(xs))
+                     offsets.data_ptr(), qt.shape[0], rows, qt.m, k,
+                     *_ws_args(kind, rows, qt.m, qt.shape[0]), _build.stream_ptr(xs))
         _build.check(lib, err, counter)
         return out
 

@@ -29,6 +29,21 @@ computes wrong numbers on purpose), or the accumulator restarted every
 height the plan could pick (128, 96, 64, 32, 16 rows of x), at the 7B's shapes
 and at 100 and 17 rows of q|k|v and 256 rows against a 1536 x 512 weight.
 
+With the argument `ws` it times csrc/qmm_ws.cuh, the warp-specialized loop of
+qmm_q5k and qmm_q3k (and their grouped forms), as committed at the launch
+plan's tile (`qmm_ws_plan`) and with one piece changed: the tensor cores'
+products removed or the weights not converted (wrong numbers on purpose),
+one wgmma group in flight instead of two, a barrier over both consumer
+warpgroups at every k step (the coupling the producer split removes), a
+ring of at most 4 steps instead of 16, and Q3_K's scale bytes converted
+through the float bits of 2^23 + 128 + sc instead of I2F (exact either way);
+then the committed source at every tile
+height of WS_TILE_ROWS, the sweep the plan's cost model is fitted to. Shapes: 17, 24, 37, 189, 512 and 1,024 rows
+of the 7B q|k|v (4096 -> 6144), 189 and 512 rows of wo (4096 -> 4096) and of
+gate|up (4096 -> 28672), 512 rows of down (14336 -> 4096), and the grouped
+form on chip_smoke.py's 1,024 (row, slot) pairs of the Mixtral gate|up stack
+(8 x 28672 x 4096).
+
 Prints the card and its power limit, then one JSON line a shape.
 """
 
@@ -123,6 +138,48 @@ F32_VARIANTS = {
 }
 F32_TILES = (128, 96, 64, 32, 16)
 
+_WS_MMA = """            wg::Mma<NX>::template rs<0>(acc, use[kk], wg::desc128(xs + kk * 32),
+                                        !(it == 0 && kk == 0));"""
+_WS_WAIT = ("        wg::wait<1>();  // the previous step's products are done: its slot and "
+            "fragments are free")
+_Q5K_PACK = """                a[m >> 1][2 * (m & 1) + h] =
+                    wg::pack_bf16(__fmaf_rn(val_f32(__byte_perm(lo, 0x4B000000u, sel0)), dl, ml),
+                                  __fmaf_rn(val_f32(__byte_perm(lo, 0x4B000000u, sel1)), dl, ml));
+                a[2 + (m >> 1)][2 * (m & 1) + h] =
+                    wg::pack_bf16(__fmaf_rn(val_f32(__byte_perm(hi, 0x4B000000u, sel0)), dh, mh),
+                                  __fmaf_rn(val_f32(__byte_perm(hi, 0x4B000000u, sel1)), dh, mh));"""
+_K16_PACK = """                    a[kk][2 * hf + h] =
+                        Q3 ? wg::pack_bf16(__fmul_rn(v0, dl[kk]), __fmul_rn(v1, dl[kk]))
+                           : wg::pack_bf16(__fmaf_rn(v0, dl[kk], ml[kk]),
+                                           __fmaf_rn(v1, dl[kk], ml[kk]));"""
+_K16_SCALE = "                    dl[kk] = __fmul_rn(dd[h], (float)(int8_t)sb);"
+_WS_COMMON = {
+    "committed": [],
+    "no_tensor_cores": [("qmm_ws.cuh", _WS_MMA, "            acc[kk] += __uint_as_float("
+                         "use[kk][0] ^ use[kk][1] ^ use[kk][2] ^ use[kk][3]);")],
+    "one_group_in_flight": [("qmm_ws.cuh", _WS_WAIT, _WS_WAIT.replace("<1>", "<0>"))],
+    "consumer_barrier_every_step": [("qmm_ws.cuh", _WS_WAIT,
+                                     _WS_WAIT + "\n        wg::bar_sync(1, 256);")],
+    "ring_of_4": [("qmm_ws.cuh", "constexpr int MAX_STAGES = 16,", "constexpr int MAX_STAGES = 4,")],
+}
+# form -> (source, entry stem, its plane names, variants)
+WS_FORMS = {
+    "q5_k": ("qmm_q5k.cu", "qmm_q5k", ("qs", "qh", "dsub", "msub"), {
+        **_WS_COMMON,
+        "no_conversion": [("qmm_q5k.cu", _Q5K_PACK,
+                           "                a[m >> 1][2 * (m & 1) + h] = lo;\n"
+                           "                a[2 + (m >> 1)][2 * (m & 1) + h] = hi;")]}),
+    "q3_k": ("qmm_q3k.cu", "qmm_q3k", ("qs", "hb", "sc", "d"), {
+        **_WS_COMMON,
+        "no_conversion": [("qmm_k16.cuh", _K16_PACK, "                    a[kk][2 * hf + h] = v;")],
+        "float_bit_scales": [("qmm_k16.cuh", _K16_SCALE, """                    dl[kk] = __fmul_rn(dd[h],
+                                       __fsub_rn(__uint_as_float(0x4B000000u | (sb ^ 0x80u)),
+                                                 8388736.0f));""")]}),
+}
+WS_SHAPES = ((17, 6144, 4096), (24, 6144, 4096), (37, 6144, 4096), (189, 6144, 4096),
+             (512, 6144, 4096), (1024, 6144, 4096), (189, 4096, 4096), (512, 4096, 4096),
+             (189, 28672, 4096), (512, 28672, 4096), (512, 4096, 14336))
+
 # (rows, columns, k): the fused q|k|v and the down projection of a 512-row
 # chunk, and the 189-row chunk
 SHAPES = ((512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096))
@@ -210,10 +267,70 @@ def f32_main(flush: torch.Tensor) -> int:
     return 0
 
 
+def ws_main(flush: torch.Tensor) -> int:
+    """The `ws` mode: csrc/qmm_ws.cuh's variants, and its tile sweep."""
+    from .synth_gguf import SCHEMES
+
+    MOE_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)  # chip_smoke.py's GROUPED_COUNTS
+    for form, (source, stem, names, variants) in WS_FORMS.items():
+        args = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+        gargs = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_void_p) + (ctypes.c_int,) * 5 \
+            + (ctypes.c_void_p,)
+        dense = build(variants, source, f"{stem}_bf16", args)
+        grouped = build({"committed": []}, source, f"{stem}_grouped_bf16", gargs)["committed"]
+        kind, blocks = SCHEMES[form]
+        plain = getattr(gemm_quant, f"{stem}_plain")
+        shapes = [(r, m, k, None) for r, m, k in WS_SHAPES] + [(sum(MOE_COUNTS), 28672, 4096,
+                                                                MOE_COUNTS)]
+        for rows, m, k, counts in shapes:
+            E = 1 if counts is None else len(counts)
+            rng = np.random.default_rng(m + k + E)
+            raw = blocks(rng, E * m * k, 1.0 / math.sqrt(k))
+            shape = (m, k) if counts is None else (E, m, k)
+            qt = to_kernel_layout(to_planar(kind, raw, shape, "cuda"), torch.bfloat16)
+            planes = [qt.planes[n] for n in names]
+            x = torch.randn(rows, k, device="cuda").to(torch.bfloat16)
+            out = torch.empty(rows, m, dtype=torch.bfloat16, device="cuda")
+            if counts is None:
+                want = plain(x, *planes)
+                plan = gemm_quant.qmm_ws_plan(rows, m)
+                label = f"{rows}x{k} @ ({m}x{k})^T"
+            else:
+                off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                                   device="cuda")
+                want = getattr(gemm_quant, f"{stem}_grouped_plain")(x, *planes, off)
+                plan = gemm_quant.qmm_ws_plan(rows, m, E)
+                label = f"grouped {rows} pairs {list(counts)} x{k} @ ({E}x{m}x{k})^T"
+            line = {"shape": label, "scheme": kind.name, "plan_tile_rows": plan.tile_rows}
+            runs = [] if counts is not None else [(n, fn, plan.tile_rows)
+                                                  for n, fn in dense.items()]
+            runs += [(f"tile_{t}", None, t) for t in gemm_quant.WS_TILE_ROWS
+                     if t < rows or t == gemm_quant.ws_width(min(rows, 256))]
+            for name, fn, tile in runs:
+                def launch(fn=fn, tile=tile):
+                    if counts is None:
+                        err = (fn or dense["committed"])(
+                            x.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), 1,
+                            rows, m, k, tile, _build.stream_ptr(x))
+                    else:
+                        err = grouped(x.data_ptr(), *(t.data_ptr() for t in planes),
+                                      out.data_ptr(), 1, off.data_ptr(), E, rows, m, k, tile,
+                                      _build.stream_ptr(x))
+                    if err:
+                        raise RuntimeError(f"{name}: CUDA error {err}")
+                ms = device_ms(launch, flush)
+                rel = ((out.float() - want).abs().max() / want.abs().max()).item()
+                line[name] = {"ms": ms, "rel_err": rel}
+            print(json.dumps(line), flush=True)
+            del qt, planes, want
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["q5_0"], ["f32"]):
-        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0 | f32]")
+    if argv not in ([], ["q5_0"], ["f32"], ["ws"]):
+        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0 | f32 | ws]")
         return 2
     if not torch.cuda.is_available():
         print("qmm_ablation: needs a CUDA card")
@@ -223,6 +340,8 @@ def main(argv=None) -> int:
     print(f"gpu: {tag}")
     if argv == ["f32"]:
         return f32_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    if argv == ["ws"]:
+        return ws_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
     q50 = argv == ["q5_0"]
     kind, blocks_of, names = ((GGMLType.Q5_0, q5_0_blocks, ("qs", "qh", "dsub")) if q50 else
                               (GGMLType.Q4_K, q4k_blocks, ("qs", "dsub", "msub")))

@@ -2737,3 +2737,109 @@ def test_norm_replays_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, norm.rms_norm(x, w, 1e-5))
+
+
+# ---------------------------------------------------------------------------
+# csrc/qmm_ws.cuh: the warp-specialized loop of qmm_q5k and qmm_q3k (and the
+# Q5_1 weights that run qmm_q5k), at the shapes whose tile heights its launch
+# plan tells apart, every tile height it may pick, and rows whose sums do not
+# depend on the launch they share
+# ---------------------------------------------------------------------------
+
+WS_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
+                                   ids=["q5_k", "q3_k", "q5_1"])
+
+
+@WS_KINDS
+@pytest.mark.parametrize("rows,m,k", [(512, 6144, 4096), (512, 4096, 14336), (189, 6144, 4096),
+                                       (1024, 6144, 4096), (17, 6144, 4096), (37, 6144, 4096),
+                                       (189, 4096, 4096), (100, 320, 1280)])
+def test_ws_forms_at_the_plans_shapes(cuda, kind, rows, m, k):
+    """Tolerance 1e-4 of max|out|: the same bf16 weights, float32 sums in
+    another order; one launch counted; the bf16 output the float32 one
+    rounded once. The shapes are the 7B's q|k|v, wo and down at the rows
+    whose tile heights the plan tells apart (256, 128, 96, 64, 48 and 24 rows),
+    and a weight of 2.5 tiles at a depth of 5 superblocks."""
+    qt = _scheme_weight(kind, m, k, rows + m)
+    x = _x(rows, k, k + rows)
+    name, plain = _dequant_of(kind)
+    kernel = getattr(gemm_quant, name)
+    before = _build.launches[name]
+    got = kernel(x, qt)
+    want = plain(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+    assert torch.equal(kernel(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+
+
+def _ws_entry(kind):
+    """The dense C entry of a form on csrc/qmm_ws.cuh, taking any tile height."""
+    return gemm_quant._lib_dequant(FORM_KIND[kind])[1]
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+@pytest.mark.parametrize("tile", gemm_quant.WS_TILE_ROWS)
+def test_ws_every_tile_height(cuda, kind, tile):
+    """Every tile height the plan may pick, on 300 rows (whole tiles and a
+    ragged last one: every wgmma width the heights lead to) and 200 columns:
+    the plain version's numbers (1e-4 of max|out|), and the same bits as the
+    plan's own launch (a row's sums do not depend on its tile)."""
+    m, k, rows = 200, 512, 300
+    qt = _scheme_weight(kind, m, k, tile)
+    x = _x(rows, k, tile + 1)
+    name, plain = _dequant_of(kind)
+    planes = [qt.planes[n] for n in gemm_quant._KERNEL_PLANES[FORM_KIND[kind]]]
+    out = torch.empty(rows, m, dtype=torch.float32, device=cuda)
+    err = _ws_entry(kind)(x.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), 0, rows,
+                          m, k, tile, _build.stream_ptr(x))
+    assert err == 0
+    want = plain(x, qt.planes)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    assert torch.equal(out, getattr(gemm_quant, name)(x, qt))
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+def test_ws_rows_do_not_depend_on_their_launch(cuda, kind):
+    """A row's output is the same bits at 1, 17, 37, 189, 512 and 1,024 rows:
+    each output element is one wgmma chain over k in order, whatever tile
+    height the plan picks."""
+    m, k = 6144, 4096
+    qt = _scheme_weight(kind, m, k, 77)
+    x = _x(1024, k, 78)
+    fn = getattr(gemm_quant, gemm_quant.DEQUANT_FORMS[FORM_KIND[kind]])
+    full = fn(x, qt)
+    for rows in (1, 17, 37, 189, 512):
+        assert torch.equal(fn(x[:rows].contiguous(), qt), full[:rows]), rows
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
+                         ids=["q5_k", "q3_k", "q5_1"])
+@pytest.mark.parametrize("m,k", [(2 * 14336, 4096), (4096, 14336)], ids=["gate_up", "down"])
+def test_ws_grouped_on_edge_segments(cuda, kind, m, k):
+    """The grouped form at the Mixtral experts' shapes on segments with an
+    empty and a one-row one (chip_smoke.py's EDGE_COUNTS), each segment equal
+    to the dense form on its plane bit for bit."""
+    qt = _scheme_stack(kind, 8, m, k, m + k + 5)
+    counts = (0, 1, 300, 37, 200, 128, 64, 294)
+    _grouped_case(kind, qt, _x(sum(counts), k, 9), _offsets(counts))
+
+
+@pytest.mark.parametrize("kind,name", [(GGMLType.Q5_K, "qmm_q5k"), (GGMLType.Q3_K, "qmm_q3k")],
+                         ids=["q5_k", "q3_k"])
+def test_ws_rings_are_the_plans(cuda, kind, name):
+    """The rings each source compiles (its <form>_ws_layout entry) are
+    gemm_quant.qmm_ws_ring's at every tile height; an unknown height is
+    refused."""
+    import ctypes
+
+    fn = getattr(_build.library(name), f"{name}_ws_layout")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for tile in gemm_quant.WS_TILE_ROWS:
+        got = (ctypes.c_int * 3)()
+        assert fn(tile, got) == 0
+        assert list(got) == list(gemm_quant.qmm_ws_ring(kind, tile)), tile
+    assert fn(40, (ctypes.c_int * 3)()) != 0

@@ -1,0 +1,641 @@
+"""csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k and qmm_q3k, on the
+CPU: its launch plan (`qmm_ws_plan`: the tiles it numbers, the wgmma widths,
+the rings' shared memory, the tile heights the card ran fastest), a model of
+each consumer's fragment conversion held to the plain versions' weights bit
+for bit (the shared-memory layouts the TMA boxes leave, the A-fragment
+layout, the arithmetic), and the wrappers of both forms, dense and grouped,
+against the JAX package's Pallas kernel in interpret mode."""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from crabml_tpu.gguf.constants import GGMLType as JGGMLType
+from crabml_tpu.ops.pallas import gemm_quant as jgemm
+from crabml_tpu.quant.planar import QTensor as JQTensor
+from crabml_tpu.quant.planar import to_planar as jto_planar
+from crabml_tpu_torch.gguf.constants import GGMLType
+from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+from crabml_tpu_torch.quant.qtensor import QTensor, dequantize, to_kernel_layout, to_planar
+from crabml_tpu_torch.tools.synth_gguf import SCHEMES as SYNTH, vary_scales
+
+WS = gemm_quant
+H100_SMEM = 232_448
+# chip_smoke.py's expert segments: expert 0 empty, ragged ones; and with an
+# empty and a one-row segment
+GROUPED_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)
+EDGE_COUNTS = (0, 1, 300, 37, 200, 128, 64, 294)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+def _covered(tiles, rows):
+    seen = np.zeros(rows, np.int64)
+    for t in tiles:
+        if t is not None:
+            seen[t[0]:t[1]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 16, 17, 24, 25, 37, 64, 65, 100, 189, 256, 257,
+                                  512, 700, 1024, 1500])
+@pytest.mark.parametrize("m", [4096, 6144])
+def test_dense_tiles_cover_every_row_once(rows, m):
+    """Dense: consecutive tiles of at most tile_rows rows, each row once, no
+    block without a tile; the grid's weight tiles hold m; a tile's wgmma width
+    is the least of WS_WIDTHS that holds its rows."""
+    plan = WS.qmm_ws_plan(rows, m)
+    tiles = WS.qmm_ws_tiles(plan, rows)
+    assert None not in tiles
+    assert (_covered(tiles, rows) == 1).all()
+    assert all(hi - lo <= plan.tile_rows and e == 0 for lo, hi, e in tiles)
+    assert plan.grid == (len(tiles), -(-m // 128)) and plan.blocks == len(tiles) * plan.grid[1]
+    assert plan.width == WS.ws_width(min(plan.tile_rows, rows))
+    assert all(WS.ws_width(hi - lo) <= plan.width for lo, hi, _ in tiles)
+
+
+@pytest.mark.parametrize("counts", [GROUPED_COUNTS, EDGE_COUNTS, (0, 0, 0, 5), (1, 1, 1, 1),
+                                    (256, 0, 257, 1), (0,) * 7 + (1024,)],
+                         ids=["mixtral", "edge", "one", "ones", "ragged", "last"])
+def test_grouped_tiles_never_straddle_planes(counts):
+    """Grouped: every row of every segment in exactly one tile, each tile
+    inside one segment and taken against that segment's plane; an empty
+    segment has no tile, a one-row segment one; the grid (sized for the
+    worst case) leaves only blocks without a tile past the last."""
+    rows = sum(counts)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    plan = WS.qmm_ws_plan(rows, 28672, len(counts))
+    tiles = WS.qmm_ws_tiles(plan, rows, offsets)
+    real = [t for t in tiles if t is not None]
+    assert tiles[:len(real)] == real  # the blocks past the last tile find none
+    assert (_covered(real, rows) == 1).all()
+    for lo, hi, e in real:
+        assert offsets[e] <= lo < hi <= offsets[e + 1] and hi - lo <= plan.tile_rows
+    per = [sum(1 for t in real if t[2] == e) for e in range(len(counts))]
+    assert per == [-(-n // plan.tile_rows) for n in counts]
+    assert plan.grid[0] == -(-rows // plan.tile_rows) + len(counts) >= len(real)
+
+
+@settings(max_examples=40, deadline=None)
+@given(counts=st.lists(st.integers(0, 300), min_size=1, max_size=9),
+       m=st.sampled_from([4096, 6144, 14336, 28672]))
+def test_grouped_tiles_on_random_segments(counts, m):
+    """The same on random segments, empty ones included."""
+    rows = sum(counts)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    plan = WS.qmm_ws_plan(max(rows, 1), m, len(counts))
+    tiles = WS.qmm_ws_tiles(plan, rows, offsets)
+    real = [t for t in tiles if t is not None]
+    assert (_covered(real, rows) == 1).all()
+    assert all(offsets[e] <= lo < hi <= offsets[e + 1] for lo, hi, e in real)
+
+
+def _wgmma_widths():
+    text = (_build.CSRC / "wgmma.cuh").read_text()
+    return {int(n) for n in re.findall(r"struct Mma<(\d+)>", text)}
+
+
+@pytest.mark.parametrize("width", gemm_quant.WS_WIDTHS)
+def test_every_width_is_a_wgmma_n(width):
+    """wgmma takes N a multiple of 8 up to 256; every width the loop
+    instantiates has its Mma specialization in csrc/wgmma.cuh, and the loop's
+    dispatch (qmm_ws.cuh's QWS_CONSUME) names exactly WS_WIDTHS."""
+    assert width % 8 == 0 and 8 <= width <= 256
+    assert width in _wgmma_widths()
+    text = (_build.CSRC / "qmm_ws.cuh").read_text()
+    assert sorted(int(n) for n in re.findall(r"QWS_CONSUME\((\d+)\);", text)) == \
+        sorted(gemm_quant.WS_WIDTHS)
+    assert WS.ws_width(width) == width and WS.ws_width(width - 1) == width
+
+
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
+                         ids=["q5_k", "q3_k", "q5_1"])
+@pytest.mark.parametrize("tile", gemm_quant.WS_TILE_ROWS)
+def test_rings_fit_shared_memory(kind, tile):
+    """Every tile height's rings (x boxes of 64 rows, the source's step and
+    superblock slots, the barriers, the alignment) fit the H100's 227 KB a
+    block; at least 4 steps in flight (12 at 64 rows or fewer, up to the
+    barriers' room); enough superblock slots for the steps; x boxes of the
+    tile's height up to 64 rows; and the epilogue's staging tile fits in the
+    rings it reuses."""
+    stages, slots, smem = WS.qmm_ws_ring(kind, tile)
+    assert smem <= H100_SMEM
+    assert 4 <= stages <= WS.WS_MAX_STAGES and slots <= WS.WS_MAX_SB
+    assert slots >= min(WS.WS_MAX_SB, stages // 4 + 2)
+    if tile <= 64:
+        assert stages >= 12
+    assert WS.ws_x_box(tile) == min(tile, 64) and WS.ws_x_box(tile) % 8 == 0
+    # the epilogue's staging tile: the tile's width in rows of x by 128 + 4 floats
+    assert WS.ws_width(tile) * (128 + 4) * 4 <= smem - 512 - 1024
+
+
+def test_ring_constants_match_the_sources():
+    """The Python mirror of the rings reads the constants the CUDA sources
+    declare: the barriers' room, the block's shared memory, each source's
+    step and superblock bytes."""
+    ws = (_build.CSRC / "qmm_ws.cuh").read_text()
+    assert "constexpr int MAX_STAGES = %d, MAX_SB = %d;" % (WS.WS_MAX_STAGES, WS.WS_MAX_SB) in ws
+    assert "constexpr int SMEM_MAX = %d;" % H100_SMEM in ws
+    assert "constexpr int BARRIER_BYTES = 512;" in ws
+    q5k = (_build.CSRC / "qmm_q5k.cu").read_text()
+    assert "STEP_BYTES = 0;" in q5k and "SB_BYTES = MSUB + 128 * 16;" in q5k
+    assert "QS = 0, QH = 128 * 128, DSUB = QH + 128 * 32, MSUB = DSUB + 128 * 16;" in q5k
+    assert WS._WS_SLOTS[GGMLType.Q5_K] == (0, 128 * (128 + 32 + 16 + 16))
+    k16 = (_build.CSRC / "qmm_k16.cuh").read_text()
+    assert "SB_BYTES = ((Q3 ? D : DMIN) + 128 * 4 + 1023) / 1024 * 1024;" in k16
+    assert WS._WS_SLOTS[GGMLType.Q3_K] == (0, -(-(128 * (64 + 32 + 16 + 4)) // 1024) * 1024)
+
+
+# The tile sweep of tools/qmm_ablation.py ws on the card (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): device ms a launch, median of ten, L2 flushed
+# before each, at every tile height that holds at most the shape's rows (and
+# the first that holds them all)
+SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
+    (17, 6144, 4096): {
+        'Q5_K': {24: 0.0371, 16: 0.038, 8: 0.0665},
+        'Q3_K': {24: 0.0405, 16: 0.0485, 8: 0.0734},
+    },
+    (24, 6144, 4096): {
+        'Q5_K': {24: 0.0374, 16: 0.0382, 8: 0.0667},
+        'Q3_K': {24: 0.0404, 16: 0.0487, 8: 0.0737},
+    },
+    (37, 6144, 4096): {
+        'Q5_K': {48: 0.038, 32: 0.038, 24: 0.0381, 16: 0.0673, 8: 0.0676},
+        'Q3_K': {48: 0.0415, 32: 0.0478, 24: 0.0446, 16: 0.0741, 8: 0.074},
+    },
+    (189, 6144, 4096): {
+        'Q5_K': {
+            192: 0.0513, 128: 0.0459, 96: 0.0431, 64: 0.0706, 48: 0.0689, 32: 0.096, 24: 0.0965, 16:
+            0.1522, 8: 0.2759},
+        'Q3_K': {
+            192: 0.0546, 128: 0.0557, 96: 0.0458, 64: 0.0792, 48: 0.0766, 32: 0.1084, 24: 0.1087,
+            16: 0.1729, 8: 0.3097},
+    },
+    (512, 6144, 4096): {
+        'Q5_K': {
+            256: 0.0589, 192: 0.0919, 128: 0.0848, 96: 0.1094, 64: 0.1044, 48: 0.1312, 32: 0.1857,
+            24: 0.2476, 16: 0.3567, 8: 0.7181},
+        'Q3_K': {
+            256: 0.0636, 192: 0.1011, 128: 0.0911, 96: 0.1217, 64: 0.1168, 48: 0.1498, 32: 0.2108,
+            24: 0.2816, 16: 0.4052, 8: 0.8083},
+    },
+    (1024, 6144, 4096): {
+        'Q5_K': {
+            256: 0.1127, 192: 0.1325, 128: 0.1251, 96: 0.1516, 64: 0.1994, 48: 0.2531, 32: 0.3619,
+            24: 0.4755, 16: 0.6996, 8: 1.3999},
+        'Q3_K': {
+            256: 0.1209, 192: 0.1451, 128: 0.1354, 96: 0.167, 64: 0.226, 48: 0.2884, 32: 0.4134, 24:
+            0.5484, 16: 0.7909, 8: 1.565},
+    },
+    (189, 4096, 4096): {
+        'Q5_K': {
+            192: 0.0502, 128: 0.0449, 96: 0.0419, 64: 0.0388, 48: 0.0377, 32: 0.0661, 24: 0.0659,
+            16: 0.0946, 8: 0.1845},
+        'Q3_K': {
+            192: 0.0533, 128: 0.052, 96: 0.0448, 64: 0.0425, 48: 0.041, 32: 0.0733, 24: 0.0733, 16:
+            0.1055, 8: 0.2052},
+    },
+    (512, 4096, 4096): {
+        'Q5_K': {
+            256: 0.0567, 192: 0.051, 128: 0.0447, 96: 0.0781, 64: 0.0712, 48: 0.0982, 32: 0.1254,
+            24: 0.1809, 16: 0.2378, 8: 0.477},
+        'Q3_K': {
+            256: 0.061, 192: 0.0572, 128: 0.0487, 96: 0.0855, 64: 0.0785, 48: 0.1123, 32: 0.1412,
+            24: 0.2069, 16: 0.2676, 8: 0.5333},
+    },
+    (189, 28672, 4096): {
+        'Q5_K': {
+            192: 0.1039, 128: 0.1514, 96: 0.1518, 64: 0.1982, 48: 0.2224, 32: 0.3302, 24: 0.4148,
+            16: 0.6111, 8: 1.2164},
+        'Q3_K': {
+            192: 0.1087, 128: 0.1752, 96: 0.1642, 64: 0.2217, 48: 0.2502, 32: 0.3748, 24: 0.4777,
+            16: 0.6914, 8: 1.3599},
+    },
+    (512, 28672, 4096): {
+        'Q5_K': {
+            256: 0.2216, 192: 0.2584, 128: 0.2775, 96: 0.3805, 64: 0.453, 48: 0.5832, 32: 0.8235,
+            24: 1.1071, 16: 1.5837, 8: 3.2105},
+        'Q3_K': {
+            256: 0.2354, 192: 0.2807, 128: 0.3015, 96: 0.421, 64: 0.5112, 48: 0.6618, 32: 0.9363,
+            24: 1.2733, 16: 1.79, 8: 3.5939},
+    },
+    (512, 4096, 14336): {
+        'Q5_K': {
+            256: 0.1714, 192: 0.1533, 128: 0.1348, 96: 0.2408, 64: 0.2165, 48: 0.3076, 32: 0.401,
+            24: 0.5836, 16: 0.7788, 8: 1.5768},
+        'Q3_K': {
+            256: 0.1864, 192: 0.1671, 128: 0.1451, 96: 0.2613, 64: 0.2427, 48: 0.3507, 32: 0.4485,
+            24: 0.6677, 16: 0.8697, 8: 1.7382},
+    },
+    ('grouped', 28672, 4096): {
+        'Q5_K': {
+            256: 0.618, 192: 0.6912, 128: 0.7203, 96: 0.9664, 64: 1.0681, 48: 1.3956, 32: 1.8691,
+            24: 2.399, 16: 3.3755, 8: 6.5874},
+        'Q3_K': {
+            256: 0.6899, 192: 0.8076, 128: 0.8091, 96: 1.1266, 64: 1.2012, 48: 1.575, 32: 2.1111,
+            24: 2.7351, 16: 3.7992, 8: 7.4187},
+    },
+}
+
+
+@pytest.mark.parametrize("key", list(SWEEP), ids=[f"{k[0]}x{k[1]}x{k[2]}" for k in SWEEP])
+def test_plan_picks_a_tile_the_card_ran_near_the_fastest(key):
+    """At every shape of the card's sweep, for both forms, the plan's tile
+    height ran within 4% of the fastest height, and within 3% at all but one
+    of the 22 (grouped: the plan by the dense count)."""
+    rows, m, k = key if key[0] != "grouped" else (sum(GROUPED_COUNTS), key[1], key[2])
+    plan = WS.qmm_ws_plan(rows, m, 0 if key[0] != "grouped" else len(GROUPED_COUNTS))
+    for form, times in SWEEP[key].items():
+        picked = times.get(plan.tile_rows, times.get(WS.ws_width(min(rows, 256))))
+        assert picked <= 1.04 * min(times.values()), (form, plan.tile_rows, times)
+
+
+def _misses():
+    out = []
+    for key, forms in SWEEP.items():
+        if key[0] == "grouped":
+            continue
+        plan = WS.qmm_ws_plan(key[0], key[1])
+        out += [(key, f) for f, times in forms.items()
+                if times[plan.tile_rows] > 1.03 * min(times.values())]
+    return out
+
+
+def test_constants_fit_the_sweep():
+    """WS_STEP_ROWS and WS_TILE_COST pick within 3% of the fastest at 21 of
+    the 22 dense sweeps (the miss: Q3_K's 189 rows of wo, 64-row tiles where
+    48 ran 3.7% faster); a step constant 32 rows either side, or a tile
+    cost 8 either side, does no better."""
+    assert len(_misses()) == 1
+    for name, delta in (("WS_STEP_ROWS", 32), ("WS_TILE_COST", 8)):
+        keep = getattr(WS, name)
+        for v in (keep - delta, keep + delta):
+            setattr(WS, name, v)
+            WS.qmm_ws_plan.cache_clear()
+            try:
+                assert len(_misses()) >= 1
+            finally:
+                setattr(WS, name, keep)
+                WS.qmm_ws_plan.cache_clear()
+
+
+def test_plan_cost_counts_waves_and_widths():
+    """The cost: whole waves of blocks over 132 SMs times (the step's fixed
+    part + the tile's width), and a fixed part for each row tile; of a tie
+    the wider tiles, then the lower height (no taller slots than the rows
+    need)."""
+    S, G = WS.WS_STEP_ROWS, WS.WS_TILE_COST
+    assert WS.ws_plan_cost(512, 6144, 256) == S + 256 + 2 * G  # 96 blocks
+    assert WS.ws_plan_cost(512, 6144, 128) == 2 * (S + 128) + 4 * G  # 192 blocks
+    assert WS.ws_plan_cost(17, 6144, 256) == S + 24 + G
+    assert WS.qmm_ws_plan(17, 6144).tile_rows == 24  # one tile: no weight converted twice
+    assert WS.qmm_ws_plan(100, 6144).tile_rows == 64  # two tiles, still one wave
+    assert WS.qmm_ws_plan(3, 4096).tile_rows == 8
+
+
+def test_plan_is_a_function_of_the_shapes():
+    """The same plan object for the same shapes (memoized, nothing read on
+    the device), a grouped plan only adding worst-case tiles."""
+    assert WS.qmm_ws_plan(189, 6144) is WS.qmm_ws_plan(189, 6144)
+    dense, grouped = WS.qmm_ws_plan(1024, 28672), WS.qmm_ws_plan(1024, 28672, 8)
+    assert grouped.tile_rows == dense.tile_rows and grouped.grid[0] == dense.grid[0] + 8
+
+
+def test_only_the_ws_forms_take_a_plan():
+    """qmm_q5k and qmm_q3k (and the kinds that run them) pass the plan's
+    tile height; the forms still on qmm_pipe.cuh pass nothing."""
+    assert WS._ws_args(GGMLType.Q5_K, 189, 6144) == (WS.qmm_ws_plan(189, 6144).tile_rows,) == (96,)
+    assert WS._ws_args(GGMLType.Q3_K, 512, 6144, 8) == (256,)
+    for kind in (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q4_0, GGMLType.Q2_K,
+                 GGMLType.Q5_0):
+        assert WS._ws_args(kind, 189, 6144) == ()
+
+
+# ---------------------------------------------------------------------------
+# a model of the consumers' fragment conversion
+# ---------------------------------------------------------------------------
+
+T = np.arange(256)
+WARP, LANE = T % 128 // 32, T % 32
+QD = LANE % 4
+C_LO = 64 * (T // 128) + 16 * WARP + LANE // 4  # each thread's weight rows c_lo, c_lo + 8
+
+
+def _u32(buf, off):
+    """The little-endian 4-byte words of `buf` at byte offsets `off`."""
+    b = buf[off[..., None] + np.arange(4)].astype(np.uint32)
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def _prmt(x, y, sel):
+    """__byte_perm(x, y, sel): byte i of the result is byte sel >> 4i & 7 of {y:x}."""
+    x = np.asarray(x, np.int64)
+    y = np.broadcast_to(np.asarray(y, np.int64), x.shape)
+    both = np.stack([(x >> (8 * i)) & 0xFF for i in range(4)] +
+                    [(y >> (8 * i)) & 0xFF for i in range(4)], -1)
+    sel = np.broadcast_to(np.asarray(sel, np.int64), x.shape)
+    out = np.zeros(x.shape, np.int64)
+    for i in range(4):
+        pick = (sel >> (4 * i)) & 7
+        out |= np.take_along_axis(both, pick[..., None], -1)[..., 0] << (8 * i)
+    return out.astype(np.uint32)
+
+
+def _f32(u):
+    return np.asarray(u, np.uint32).view(np.float32)
+
+
+def _swz32(r, c):  # TMA's 32-byte swizzle on 32-byte rows: chunk c at c ^ ((r >> 2) & 1)
+    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4)
+
+
+def _swz64(r, c):  # the 64-byte swizzle on 64-byte rows: chunk c at c ^ ((r >> 1) & 3)
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+
+
+def _bf16_rn(f):
+    """float32 -> bf16 bits, round to nearest even (cvt.rn.bf16x2.f32 on finite values)."""
+    b = np.asarray(f, np.float32).view(np.uint32)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _fma(a, b, c):
+    """fma.rn.f32: exact in float64 for these operands, rounded once."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _scatter(W, it, a, row_of):
+    """Fragments a[thread, kk, j] (two bf16 each; j = 2 g + h: weight row c_lo
+    + 8 h, k = 16 kk + 8 g + 2 qd + {0, 1} of step it) into W (rows, k) bits."""
+    for kk in range(4):
+        for j in range(4):
+            g, h = j >> 1, j & 1
+            k = it * 64 + 16 * kk + 8 * g + 2 * QD
+            r = row_of(h)
+            W[r, k] = a[:, kk, j] & 0xFFFF
+            W[r, k + 1] = a[:, kk, j] >> 16
+
+
+def _box(plane, col0, width, swizzle):
+    """A TMA box of `width` bytes from column col0 of every row of a (128,
+    bytes) plane, laid out as the box's swizzle puts it in shared memory."""
+    out = np.zeros(128 * width, np.uint8)
+    r = np.arange(128)
+    for c in range(width // 16):
+        at = swizzle(r, c) if swizzle else r * width + 16 * c
+        out[at[:, None] + np.arange(16)] = plane[:, col0 + 16 * c: col0 + 16 * c + 16]
+    return out
+
+
+def _swz128(r, c):  # the 128-byte swizzle on 128-byte rows: chunk c at c ^ (r & 7)
+    return r * 128 + ((c ^ (r & 7)) << 4)
+
+
+def q5k_kernel_weights(qs, qh, dsub, msub, box_swizzle=True):
+    """The bf16 weights (bits, (128, K)) that csrc/qmm_q5k.cu's consumers put
+    in their A fragments: each superblock's nibble, qh, dsub and msub boxes
+    as TMA lays them (`box_swizzle`: in their swizzles, else row by row),
+    then Q5KSource::fragments."""
+    K = qs.shape[1] * 2
+    dsb = dsub.view(np.uint8).reshape(128, -1)
+    msb = msub.view(np.uint8).reshape(128, -1)
+    W = np.zeros((128, K), np.uint32)
+    b = 2 * (QD & 1)
+    sel0, sel1 = 0x7440 | b, 0x7440 | (b + 1)
+    for it in range(K // 64):
+        c, sb = it & 3, it // 4
+        slot = np.concatenate([_box(qs, sb * 128, 128, _swz128 if box_swizzle else None),
+                               _box(qh, sb * 32, 32, _swz32 if box_swizzle else None),
+                               _box(dsb, sb * 16, 16, None), _box(msb, sb * 16, 16, None)])
+        QH, DSUB, MSUB = 16384, 20480, 22528
+        a = np.zeros((256, 4, 4), np.uint32)
+        val = lambda u: _f32(u) - np.float32(8388608.0)  # noqa: E731
+        for h in range(2):
+            r = C_LO + 8 * h
+            dp, mp = _u32(slot, DSUB + 16 * r + 4 * c), _u32(slot, MSUB + 16 * r + 4 * c)
+            dl, ml = _f32(dp << 16), _f32(mp << 16)
+            dh, mh = _f32(dp & 0xFFFF0000), _f32(mp & 0xFFFF0000)
+            for m in range(4):
+                inner = (m & 1) * 8 + (QD >> 1) * 4
+                w = _u32(slot, _swz128(r, 2 * c + (m >> 1)) + inner).astype(np.int64)
+                t = _u32(slot, QH + _swz32(r, m >> 1) + inner).astype(np.int64) >> (2 * c)
+                lo = (w & 0x0F0F0F0F) | ((t << 4) & 0x10101010)
+                hi = ((w >> 4) & 0x0F0F0F0F) | ((t << 3) & 0x10101010)
+                for vals, kk, d_, m_ in ((lo, m >> 1, dl, ml), (hi, 2 + (m >> 1), dh, mh)):
+                    v0 = val(_prmt(vals, 0x4B000000, sel0))
+                    v1 = val(_prmt(vals, 0x4B000000, sel1))
+                    a[:, kk, 2 * (m & 1) + h] = (_bf16_rn(_fma(v0, d_, m_))
+                                                 | _bf16_rn(_fma(v1, d_, m_)) << 16)
+        _scatter(W, it, a, lambda h: C_LO + 8 * h)
+    return W
+
+
+def q3k_kernel_weights(qs, hb, sc, d):
+    """The same for csrc/qmm_q3k.cu (qmm_k16.cuh's WsSource<true> and Conv):
+    a superblock slot of the qs (64-byte swizzle), hb (32-byte swizzle) and
+    scale boxes and the d copied a float a row."""
+    K = qs.shape[1] * 4
+    W = np.zeros((128, K), np.uint32)
+    b = 2 * (QD & 1)
+    sel0, sel1 = 0x7440 | b, 0x7440 | (b + 1)
+    for it in range(K // 64):
+        c, sb = it & 3, it // 4
+        hh, p = c >> 1, c & 1
+        qs_box, hb_box = _box(qs, sb * 64, 64, _swz64), _box(hb, sb * 32, 32, _swz32)
+        sc_box = _box(sc.view(np.uint8), sb * 16, 16, None)
+        a = np.zeros((256, 4, 4), np.uint32)
+        for h in range(2):
+            r = C_LO + 8 * h
+            dd = d[r, sb].astype(np.float32)
+            scw = _u32(sc_box, 16 * r + 4 * c)
+            for kk in range(4):
+                sbyte = ((scw >> (8 * kk)) & 0xFF).astype(np.uint8).view(np.int8)
+                dl = (dd * sbyte.astype(np.float32)).astype(np.float32)
+                shift, bit = 2 * (2 * p + (kk >> 1)), 2 * c + (kk >> 1)
+                for hf in range(2):
+                    off = 16 * (kk & 1) + 8 * hf + 4 * (QD >> 1)
+                    qo = 32 * hh + off
+                    qw = _u32(qs_box, r * 64 + ((((qo >> 4) ^ (r >> 1)) & 3) << 4) + (qo & 15))
+                    hw = _u32(hb_box, r * 32 + ((((off >> 4) ^ (r >> 2)) & 1) << 4) + (off & 15))
+                    third = (hw >> (bit - 2)) if bit >= 2 else (hw << (2 - bit))
+                    v = ((qw >> shift) & 0x03030303) | (third & 0x04040404)
+                    v0 = _f32(_prmt(v, 0x4B000000, sel0)) - np.float32(8388612.0)
+                    v1 = _f32(_prmt(v, 0x4B000000, sel1)) - np.float32(8388612.0)
+                    a[:, kk, 2 * hf + h] = (_bf16_rn((v0 * dl).astype(np.float32))
+                                            | _bf16_rn((v1 * dl).astype(np.float32)) << 16)
+        _scatter(W, it, a, lambda h: C_LO + 8 * h)
+    return W
+
+
+def _bf16_bits(t):
+    """bf16 bits, -0 as +0: the plain versions' weights are read back through a
+    product with one-hot rows, which cannot tell the two zeros apart."""
+    b = t.to(torch.bfloat16).view(torch.int16).numpy().astype(np.uint16).astype(np.uint32)
+    return np.where(b == 0x8000, 0, b)
+
+
+def _zeros_as_plus(bits):
+    return np.where(bits == 0x8000, 0, bits)
+
+
+K_MODEL = 512  # two superblocks: every step of a superblock, and a second slot
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), scale=st.floats(1e-4, 4.0), shift=st.integers(0, 255))
+def test_q5k_fragments_equal_the_plain_weights(seed, scale, shift):
+    """Every nibble and every fifth bit at every byte and bit position of a
+    superblock (qs and qh bytes run through all 256 values row by row), a
+    random bf16 dsub and msub of its own per row and 32-group: the model of
+    the consumers' conversion gives qmm_q5k_plain's bf16 weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    r, j = np.arange(128)[:, None], np.arange(K_MODEL // 2)[None, :]
+    qs = ((r * 7 + j + shift) % 256).astype(np.uint8)
+    qh = ((r * 11 + 3 * np.arange(K_MODEL // 8)[None, :] + shift) % 256).astype(np.uint8)
+    g = (128, K_MODEL // 32)
+    dsub = torch.from_numpy((rng.uniform(0.1, 1, g) * scale
+                             * rng.choice([-1, 1], g)).astype(np.float32)).to(torch.bfloat16)
+    msub = torch.from_numpy((rng.uniform(-1, 1, g) * scale).astype(np.float32)).to(torch.bfloat16)
+    planes = [torch.from_numpy(qs), torch.from_numpy(qh), dsub, msub]
+    want = WS.qmm_q5k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *planes).t()
+    got = q5k_kernel_weights(qs, qh, dsub.view(torch.int16).numpy().view(np.uint16),
+                             msub.view(torch.int16).numpy().view(np.uint16))
+    np.testing.assert_array_equal(_zeros_as_plus(got), _bf16_bits(want))
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), shift=st.integers(0, 255))
+def test_q5_1_planes_through_q5k_fragments(seed, shift):
+    """Q5_1 weights run qmm_q5k on planes converted at load (each block's
+    float minimum as msub): random Q5_1 blocks, scales varied block by block,
+    through the same model give the plain version's weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    kind, blocks = SYNTH["q5_1"]
+    raw = vary_scales(kind, blocks(rng, 128 * K_MODEL, 0.05 + shift / 256), rng)
+    qt = to_kernel_layout(to_planar(kind, raw, (128, K_MODEL)), torch.bfloat16)
+    p = [qt.planes[n] for n in ("qs", "qh", "dsub", "msub")]
+    want = WS.qmm_q5k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *p).t()
+    got = q5k_kernel_weights(p[0].numpy(), p[1].numpy(),
+                             p[2].view(torch.int16).numpy().view(np.uint16),
+                             p[3].view(torch.int16).numpy().view(np.uint16))
+    np.testing.assert_array_equal(_zeros_as_plus(got), _bf16_bits(want))
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), shift=st.integers(0, 255))
+def test_q3k_fragments_equal_the_plain_weights(seed, shift):
+    """Every 2-bit and third-bit pattern at every byte position (qs and hb
+    bytes through all 256 values), every signed 6-bit scale, a random f16 d
+    per row and superblock: the model of the consumers' conversion gives
+    qmm_q3k_plain's bf16 weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(128)[:, None]
+    qs = ((r * 5 + np.arange(K_MODEL // 4)[None, :] + shift) % 256).astype(np.uint8)
+    hb = ((r * 13 + 7 * np.arange(K_MODEL // 8)[None, :] + shift) % 256).astype(np.uint8)
+    sc = ((r * 3 + np.arange(K_MODEL // 16)[None, :] + shift) % 64 - 32).astype(np.int8)
+    d = rng.uniform(1e-3, 0.1, (128, K_MODEL // 256)).astype(np.float16).astype(np.float32)
+    planes = [torch.from_numpy(x) for x in (qs, hb, sc, d)]
+    want = WS.qmm_q3k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *planes).t()
+    np.testing.assert_array_equal(_zeros_as_plus(q3k_kernel_weights(qs, hb, sc, d)),
+                                  _bf16_bits(want))
+
+
+def test_fragment_model_sees_a_wrong_layout():
+    """The model is not blind to the layouts: boxes laid out without the
+    swizzle that the reads assume give other weights than the plain
+    version's."""
+    rng = np.random.default_rng(3)
+    qs = rng.integers(0, 256, (128, K_MODEL // 2), dtype=np.uint8)
+    qh = rng.integers(0, 256, (128, K_MODEL // 8), dtype=np.uint8)
+    dsub = torch.from_numpy(rng.uniform(0.1, 1, (128, K_MODEL // 32)).astype(np.float32)
+                            ).to(torch.bfloat16)
+    msub = -dsub
+    planes = [torch.from_numpy(qs), torch.from_numpy(qh), dsub, msub]
+    want = _bf16_bits(WS.qmm_q5k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *planes).t())
+    bits = [dsub.view(torch.int16).numpy().view(np.uint16),
+            msub.view(torch.int16).numpy().view(np.uint16)]
+    np.testing.assert_array_equal(_zeros_as_plus(q5k_kernel_weights(qs, qh, *bits)), want)
+    plain_rows = _zeros_as_plus(q5k_kernel_weights(qs, qh, *bits, box_swizzle=False))
+    assert not np.array_equal(plain_rows, want)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers against the JAX package
+# ---------------------------------------------------------------------------
+
+M, K, E = 256, 512, 8
+FORMS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+
+
+def _raw(kind, n, seed):
+    _, blocks = next(v for v in SYNTH.values() if v[0] == kind)
+    rng = np.random.default_rng(seed)
+    return vary_scales(kind, blocks(rng, n, 0.05), rng)
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _planes(qt):
+    return [qt.planes[n] for n in WS._KERNEL_PLANES[qt.kind]]
+
+
+@FORMS
+@pytest.mark.parametrize("rows", [17, 24, 37, 189])
+def test_dense_form_matches_pallas(kind, rows):
+    """The wrapper (its plain version on a CPU tensor) at the row counts the
+    plan gives 16-, 24-, 96- and 128-row tiles, against the JAX package's
+    qmatmul_pallas (`_qmm_kernel`, interpret mode), seeded numpy inputs in
+    float32: tolerance 2e-5 of max|out| (both compute the weights in
+    float32, sums in another order)."""
+    raw = _raw(kind, M * K, 40 + rows)
+    jqt = jgemm.repack(jto_planar(JGGMLType(int(kind)), raw.tobytes(), (M, K)))
+    qt = to_kernel_layout(to_planar(kind, raw, (M, K)))
+    x = np.random.default_rng(rows).standard_normal((rows, K)).astype(np.float32)
+    want = np.asarray(jgemm.qmatmul_pallas(jnp.asarray(x), jqt, jnp.float32, act_quant=False))
+    name = WS.DEQUANT_FORMS[kind]
+    got = getattr(WS, name)(torch.from_numpy(x), qt)
+    assert got.shape == (rows, M)
+    assert _rel(got.numpy(), want) <= 2e-5
+    assert WS.route(rows, False, kind) == name  # the rows the prefill sends these forms
+
+
+@FORMS
+def test_grouped_form_matches_pallas_on_edge_segments(kind):
+    """The grouped wrapper on chip_smoke.py's segments with an empty and a
+    one-row one (EDGE_COUNTS, 1,024 rows over 8 distinct experts) against the
+    JAX package's qmatmul_grouped (`_run_grouped`, interpret mode), which
+    wants every segment padded to its tile and one expert a tile: tolerance
+    2e-5 of max|out| in float32."""
+    raw = _raw(kind, E * M * K, 60).reshape(E, -1)
+    singles = [jgemm.repack(jto_planar(JGGMLType(int(kind)), raw[e].tobytes(), (M, K)))
+               for e in range(E)]
+    jst = JQTensor(JGGMLType(int(kind)), (E, M, K),
+                   {n: jnp.stack([jnp.asarray(s.planes[n]) for s in singles])
+                    for n in singles[0].planes})
+    st_ = to_kernel_layout(to_planar(kind, raw.tobytes(), (E, M, K)))
+    counts, TB = EDGE_COUNTS, 64
+    xs = np.random.default_rng(61).standard_normal((sum(counts), K)).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    padded, tile_expert = [], []
+    for e, n in enumerate(counts):
+        seg = np.zeros((-(-n // TB) * TB, K), np.float32)
+        seg[:n] = xs[offsets[e]:offsets[e + 1]]
+        padded.append(seg)
+        tile_expert += [e] * (seg.shape[0] // TB)
+    starts = np.concatenate([[0], np.cumsum([p.shape[0] for p in padded])])
+    rows = np.concatenate([starts[e] + np.arange(n) for e, n in enumerate(counts)])
+    want = np.asarray(jgemm.qmatmul_grouped(
+        jnp.asarray(np.concatenate(padded)), jst, jnp.asarray(tile_expert, jnp.int32), TB,
+        jnp.float32))[rows]
+    got = getattr(WS, WS.GROUPED_FORMS[kind])(torch.from_numpy(xs), st_, torch.from_numpy(offsets))
+    assert got.shape == (sum(counts), M)
+    assert _rel(got.numpy(), want) <= 2e-5
