@@ -128,8 +128,11 @@ fails:
    window of the graphed step follows, with the int8-activation matmul's
    time by form and shape. Phase
    2 holds each scheme's dequant kernel (512 and 189 rows of qkv, 512 of
-   down) and int8-activation form (every 7B decode projection at 1 and 8
-   rows, and 16 rows of qkv) against its plain version.
+   down; the four forms on csrc/qmm_ws.cuh, Q5_K, Q6_K, Q3_K and Q2_K, also
+   1,024, 37 and 17 rows of qkv and 189 of wo, every tile height giving the
+   same bits and every grouped segment the dense launch's) and
+   int8-activation form (every 7B decode projection at 1 and 8 rows, and 16
+   rows of qkv) against its plain version.
 11. gemma2 (PR 15): Gemma-2-9B's widths (hidden 3584, 16 q / 8 kv heads of
    head dim 256, so 4,096 q rows; vocab 256000, context 8192; the window of
    4,096 on even layers, softcaps 50 / 30, GELU, post-norms, a tied Q6_K
@@ -947,7 +950,7 @@ def check_w8(timer, rows: int, m: int, k: int, seed: int, qt=None) -> dict:
 # two waves, 37 rows in one 48-row tile, 17 in one 24-row tile) and at wo (189
 # rows: 64-row tiles), beside the shapes every scheme's form is held at
 WS_SHAPES = {s: ((2 * PREFILL_CHUNK, QKV_M, DIM), (37, QKV_M, DIM), (17, QKV_M, DIM),
-                 (RAGGED_CHUNK, DIM, DIM)) for s in ("q5_k", "q3_k")}
+                 (RAGGED_CHUNK, DIM, DIM)) for s in ("q5_k", "q6_k", "q3_k", "q2_k")}
 
 # the Mixtral prefill shape: a 512-token chunk is 1,024 (row, slot) pairs over
 # 8 experts; a skewed routing with expert 0 empty and ragged segments
@@ -1585,15 +1588,16 @@ def check_f32_flash_plan() -> None:
 
 
 def check_ws_plan() -> None:
-    """The rings of csrc/qmm_ws.cuh (qmm_q5k, qmm_q3k) as each source compiles
-    them (its <form>_ws_layout entry) are ops/cuda/gemm_quant.py's
-    qmm_ws_ring, at every tile height the plan may pick."""
+    """The rings of csrc/qmm_ws.cuh (qmm_q5k, qmm_q6k, qmm_q3k, qmm_q2k) as
+    each source compiles them (its <form>_ws_layout entry) are
+    ops/cuda/gemm_quant.py's qmm_ws_ring, at every tile height the plan may
+    pick."""
     import ctypes
 
-    from crabml_tpu_torch.gguf.constants import GGMLType
     from crabml_tpu_torch.ops.cuda import _build, gemm_quant
 
-    for kind, name in ((GGMLType.Q5_K, "qmm_q5k"), (GGMLType.Q3_K, "qmm_q3k")):
+    for kind in gemm_quant.WS_FORMS:
+        name = gemm_quant.DEQUANT_FORMS[kind]
         fn = getattr(_build.library(name), f"{name}_ws_layout")
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -1602,7 +1606,58 @@ def check_ws_plan() -> None:
             want = list(gemm_quant.qmm_ws_ring(kind, tile))
             if fn(tile, got) != 0 or list(got) != want:
                 fail(f"{name}_ws_layout at {tile} rows: {list(got)}, qmm_ws_ring {want}")
-    say(f"qmm_ws_ring = the kernels' rings at all {len(gemm_quant.WS_TILE_ROWS)} tile heights")
+    say(f"qmm_ws_ring = the kernels' rings of {len(gemm_quant.WS_FORMS)} forms at all "
+        f"{len(gemm_quant.WS_TILE_ROWS)} tile heights")
+
+
+def check_ws_bits() -> None:
+    """Each form on csrc/qmm_ws.cuh gives the same bits whatever its launch:
+    300 rows of x against a 200-row weight at every tile height of
+    WS_TILE_ROWS through the C entry equal the plan's launch; its first 1,
+    17 and 37 rows alone equal those rows of it; and every segment of a
+    grouped launch on EDGE_COUNTS (an empty and a one-row segment; 8
+    distinct experts) equals the dense launch on its expert's plane. Each
+    output is one wgmma chain over k, whatever the tile."""
+    import torch
+
+    from crabml_tpu_torch.ops.cuda import _build, gemm_quant
+    from crabml_tpu_torch.quant.qtensor import plane_of
+
+    rows, m, k = 300, 200, 512
+    for i, kind in enumerate(gemm_quant.WS_FORMS):
+        name, scheme = gemm_quant.DEQUANT_FORMS[kind], kind.name.lower()
+        qt = scheme_weight(scheme, m, k, 300 + i, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(310 + i)
+        x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+        fn = getattr(gemm_quant, name)
+        ref = fn(x, qt)
+        entry = gemm_quant._lib_dequant(kind)[1]
+        planes = [qt.planes[n] for n in gemm_quant._KERNEL_PLANES[kind]]
+        for tile in gemm_quant.WS_TILE_ROWS:
+            out = torch.empty(rows, m, dtype=torch.float32, device="cuda")
+            err = entry(x.data_ptr(), *(t.data_ptr() for t in planes), out.data_ptr(), 0, rows,
+                        m, k, tile, _build.stream_ptr(x))
+            torch.cuda.synchronize()
+            if err != 0 or not torch.equal(out, ref):
+                fail(f"{name} at {tile}-row tiles: error {err}, or other bits than its plan's")
+        for r in (1, 17, 37):
+            if not torch.equal(fn(x[:r].contiguous(), qt), ref[:r]):
+                fail(f"{name}: {r} rows alone give other bits than in a launch of {rows}")
+        stack = scheme_stack(scheme, MOE_EXPERTS, m, k, 320 + i)
+        cuts = [0]
+        for n in EDGE_COUNTS:
+            cuts.append(cuts[-1] + n)
+        xs = torch.randn(cuts[-1], k, generator=g, device="cuda").to(torch.bfloat16)
+        got = getattr(gemm_quant, gemm_quant.GROUPED_FORMS[kind])(
+            xs, stack, torch.tensor(cuts, dtype=torch.int32, device="cuda"))
+        for e, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+            if hi > lo and not torch.equal(fn(xs[lo:hi], plane_of(stack, e)), got[lo:hi]):
+                fail(f"{name}_grouped: segment {e} ({hi - lo} rows) differs from the dense "
+                     "launch on its plane")
+        del qt, stack
+    torch.cuda.empty_cache()
+    say(f"qmm_ws forms bit-equal at every tile height, alone and per grouped segment: "
+        f"{', '.join(gemm_quant.DEQUANT_FORMS[k] for k in gemm_quant.WS_FORMS)}")
 
 
 def f32_checks(timer) -> dict[str, list[dict]]:
@@ -1803,6 +1858,7 @@ def phase_kernels() -> dict[str, list[dict]]:
         checks[name] += recs
     check_f32_flash_plan()
     check_ws_plan()
+    check_ws_bits()
     for name, recs in f32_checks(timer).items():  # float32, after the bfloat16 forms' checks
         checks.setdefault(name, []).extend(recs)
     for name, recs in hd16_attention_checks(timer).items():  # head dim 16, after those

@@ -1,7 +1,6 @@
-// The weight sources of the two schemes with 2-bit planes and a scale per 16
-// weights: Q2_K (qmm_q2k.cu, on qmm_pipe.cuh's loop: `Source`) and Q3_K
-// (qmm_q3k.cu, on qmm_ws.cuh's warp-specialized loop: `WsSource`). Both
-// convert by `Conv`; each loop sizes and fills its own rings.
+// The weight source of the two schemes with 2-bit planes and a scale per 16
+// weights, Q2_K (qmm_q2k.cu) and Q3_K (qmm_q3k.cu), on qmm_ws.cuh's
+// warp-specialized loop (`WsSource`), converting by `Conv`.
 //
 //   Q2_K: w = val * (d * sc) - dmin * mn,  val 0..3, sc and mn the two
 //         nibbles of ggml's scale byte (the `scm` plane), d and dmin float32
@@ -16,19 +15,11 @@
 // them, a byte per 16 weights and a float32 d (and dmin) per 256: the kernel
 // planes are 0.344 (Q2_K) and 0.453 (Q3_K) bytes a weight, where bf16 dsub
 // and msub per 16 would be 0.5. A 64-deep k step needs all 32 qs bytes of its
-// half, and the whole hb row of its superblock; so a superblock is staged
-// once, on its first step, for its four steps: per row its 64 qs bytes (and
-// 32 hb bytes), 16 scale bytes and d (and dmin), into a ring of its own beside
-// the x ring (`EXTRA_BYTES`; the x ring's weight tile is empty). Every weight
-// byte crosses from global memory once. A superblock is filled by the fetch of
-// its first step f, after the barrier of step f - AHEAD, while steps up to f - 1
-// may still be converted from the slot before: two slots (as qmm_q5k.cu's
-// superblock-staged qh). The 16-byte copies of a superblock (640 for Q2_K, 896
-// for Q3_K) are spread over the 256 threads, and its d (and dmin) are one
-// 4-byte copy a row each.
-//
-// Rows of 112 (Q2_K) or 144 (Q3_K) bytes, 16 times an odd number, put the
-// eight rows a warp reads at once in eight different banks, with no swizzle.
+// half, and the whole hb row of its superblock; so the producer copies a
+// superblock once, on its first step, for its four steps: per row its 64 qs
+// bytes (and 32 hb bytes) and 16 scale bytes, a TMA box each, and d (and
+// dmin) by the producer warp's lanes, into a superblock slot (11 KB for Q2_K,
+// 15 KB for Q3_K). Every weight byte crosses from global memory once.
 //
 // Conversion (`Conv`), exactly the plain version's numbers: per row and k16
 // step (one scale group) the thread forms dl = d * sc and, for Q2_K, ml =
@@ -44,7 +35,6 @@
 // cvt.rn.bf16x2.f32 rounds two weights to a fragment register.
 #pragma once
 
-#include "qmm_pipe.cuh"
 #include "qmm_ws.cuh"
 
 namespace qk16 {
@@ -110,117 +100,6 @@ template <bool Q3> struct Conv {
     }
 };
 
-// qmm_pipe.cuh's source: a superblock staged by all threads with cp.async.
-template <bool Q3> struct Source {
-    static constexpr int KSC = 0;         // the scales apply to the weights, not to partial sums
-    static constexpr int TILE_BYTES = 0;  // the weights live in the superblock ring below
-    // a row's superblock: qs 64 | hb 32 (Q3_K) | scale bytes 16 | d (| dmin) f32
-    static constexpr int HB = 64, SC = Q3 ? 96 : 64, D = SC + 16, DMIN = D + 4;
-    static constexpr int ROW = Q3 ? 144 : 112;
-    static constexpr int PIECES = Q3 ? 7 : 5;  // 16-byte copies a row: qs 4, hb 2, scales 1
-    static constexpr int FLOATS = Q3 ? 1 : 2;  // 4-byte copies a row: d, dmin
-    static constexpr int SB_STEPS = 4;         // k steps a superblock
-    static constexpr int SLOTS = (qpipe::AHEAD - 1 + SB_STEPS - 1) / SB_STEPS + 1;
-    static constexpr int SLOT_BYTES = qpipe::BW * ROW;
-    static constexpr int EXTRA_BYTES = SLOTS * SLOT_BYTES;
-    static constexpr int COPIES = qpipe::BW * PIECES;
-    static constexpr int PER = (COPIES + qpipe::NT - 1) / qpipe::NT;
-    static_assert(qpipe::BW * FLOATS <= qpipe::NT, "one 4-byte copy a thread at most");
-
-    const uint8_t* qs;   // (N, K / 4)
-    const uint8_t* hb;   // (N, K / 8), Q3_K
-    const uint8_t* sc;   // (N, K / 16): Q2_K's scm, Q3_K's sc
-    const float* d;      // (N, K / 256)
-    const float* dmin;   // (N, K / 256), Q2_K
-
-    // every plane of a stack: the values, the scale bytes and the per-superblock
-    // floats (hb for Q3_K, dmin for Q2_K; the other is null and stays so)
-    __device__ __forceinline__ void select_plane(int plane, int N, int K) {
-        const size_t rows = (size_t)plane * N;
-        qs += rows * (K / 4);
-        if (Q3) hb += rows * (K / 8);
-        sc += rows * (K / 16);
-        d += rows * (K / 256);
-        if (!Q3) dmin += rows * (K / 256);
-    }
-
-    // The thread's 16-byte pieces: e = tid + 256 i, row e / PIECES, piece e %
-    // PIECES of the row (0-3 qs, then 4-5 hb for Q3_K, then the scale bytes).
-    // A superblock at depth k0 begins k0 / 4 bytes into a row of qs, k0 / 8
-    // into hb, k0 / 16 into the scales: the shift of each piece. Its 4-byte
-    // copy: row tid / FLOATS, d or dmin.
-    struct Stager {
-        const uint8_t* src[PER];
-        uint32_t dst[PER];
-        uint8_t shift[PER];
-        bool ok[PER], live[PER];
-        const float* fsrc;
-        uint32_t fdst;
-        bool fok, flive;
-        __device__ __forceinline__ void start(uint32_t, int k0) const {
-            const int step = k0 / qpipe::BK;
-            if (step % SB_STEPS) return;  // the superblock was staged with its first step
-            const uint32_t slot = step / SB_STEPS % SLOTS * SLOT_BYTES;
-#pragma unroll
-            for (int i = 0; i < PER; ++i)
-                if (live[i]) wg::cp_async16(dst[i] + slot, src[i] + (k0 >> shift[i]), ok[i]);
-            if (flive) wg::cp_async4(fdst + slot, fsrc + k0 / 256, fok);
-        }
-    };
-    __device__ __forceinline__ Stager stager(int n0, int N, int K, int tid, uint32_t extra) const {
-        Stager s;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) {
-            const int e = tid + qpipe::NT * i;
-            s.live[i] = e < COPIES;
-            const int r = s.live[i] ? e / PIECES : 0, p = e % PIECES;
-            s.ok[i] = s.live[i] && n0 + r < N;
-            const size_t row = s.ok[i] ? n0 + r : 0;
-            if (p < 4) {
-                s.src[i] = qs + row * (K / 4) + p * 16;
-                s.shift[i] = 2;
-            } else if (Q3 && p < 6) {
-                s.src[i] = hb + row * (K / 8) + (p - 4) * 16;
-                s.shift[i] = 3;
-            } else {
-                s.src[i] = sc + row * (K / 16);
-                s.shift[i] = 4;
-            }
-            s.dst[i] = extra + (uint32_t)(r * ROW + p * 16);
-        }
-        const int r = tid / FLOATS, f = tid % FLOATS;
-        s.flive = r < qpipe::BW;
-        s.fok = s.flive && n0 + r < N;
-        s.fsrc = (f ? dmin : d) + (s.fok ? n0 + r : 0) * (size_t)(K / 256);
-        s.fdst = extra + (uint32_t)(r * ROW + D + 4 * f);
-        return s;
-    }
-
-    // Weight rows c_lo and c_lo + 8 of the superblock slot of step it.
-    __device__ __forceinline__ void fragments(uint32_t (&a)[4][4], const uint8_t*,
-                                              const uint8_t* extra, int it, int c_lo,
-                                              int qd) const {
-        const uint8_t* slot = extra + it / SB_STEPS % SLOTS * SLOT_BYTES;
-        const int c = it % SB_STEPS;
-        const uint8_t* r0 = slot + c_lo * ROW;
-        const uint8_t* r1 = r0 + 8 * ROW;
-        const float dd[2] = {*reinterpret_cast<const float*>(r0 + D),
-                             *reinterpret_cast<const float*>(r1 + D)};
-        const float dm[2] = {Q3 ? 0.0f : *reinterpret_cast<const float*>(r0 + DMIN),
-                             Q3 ? 0.0f : *reinterpret_cast<const float*>(r1 + DMIN)};
-        const uint32_t scw[2] = {*reinterpret_cast<const uint32_t*>(r0 + SC + 4 * c),
-                                 *reinterpret_cast<const uint32_t*>(r1 + SC + 4 * c)};
-        Conv<Q3>::fragments(
-            a, c, qd, dd, dm, scw,
-            [&](int h, int off) {
-                return *reinterpret_cast<const uint32_t*>((h ? r1 : r0) + off);
-            },
-            [&](int h, int off) {
-                return *reinterpret_cast<const uint32_t*>((h ? r1 : r0) + HB + off);
-            });
-    }
-};
-
 // qmm_ws.cuh's source: a superblock staged by the producer, its qs, hb and
 // scale bytes each a TMA box of their own plane (rows of 64, 32 and 16 bytes;
 // the first two in the 64- and 32-byte swizzles, so that the eight rows a
@@ -232,6 +111,7 @@ template <bool Q3> struct WsSource {
     static constexpr int QS = 0, HB = QS + 128 * 64, SC = HB + (Q3 ? 128 * 32 : 0),
                          D = SC + 128 * 16, DMIN = D + 128 * 4;
     static constexpr int SB_BYTES = ((Q3 ? D : DMIN) + 128 * 4 + 1023) / 1024 * 1024;
+    static constexpr int SB_STEPS = 4;
     // the TMA bytes, and each lane's cp.async of d (and dmin)
     static constexpr int SB_ARRIVALS = 33;
     static constexpr uint32_t STEP_TX = 0, SB_TX = (64 + (Q3 ? 32 : 0) + 16) * qws::W_ROWS;

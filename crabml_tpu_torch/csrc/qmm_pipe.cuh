@@ -1,7 +1,10 @@
 // The pipelined tensor-core tile loop of the quantized prefill matmuls
 // (out = x @ W^T), dense and grouped, written over a weight source `W`:
-// qmm_w8.cu (int8 planes with a scale per 512-deep chunk) and qmm_q4k.cu
-// (Q4_K nibbles with a scale and a minimum per 32 weights) run on it.
+// qmm_w8.cu (int8 planes with a scale per 512-deep chunk), qmm_q4k.cu (Q4_K
+// nibbles with a scale and a minimum per 32 weights), qmm_q8_0.cu,
+// qmm_q4_0.cu and qmm_q5_0.cu run on it; qmm_f32.cu takes its tile helpers.
+// The Q5_K, Q6_K, Q3_K and Q2_K sources run qmm_ws.cuh's warp-specialized
+// loop instead.
 //
 // A block computes a tile of the output *transposed*: out^T = W . x^T, 128
 // weight rows (output columns; 64 per warpgroup, two warpgroups) by up to 128

@@ -50,7 +50,7 @@ struct Q5KSource {
     // a superblock slot: nibbles (128 bytes a row) | qh (32) | dsub | msub (16 each)
     static constexpr int QS = 0, QH = 128 * 128, DSUB = QH + 128 * 32, MSUB = DSUB + 128 * 16;
     static constexpr int SB_BYTES = MSUB + 128 * 16;
-    static constexpr int SB_ARRIVALS = 1;
+    static constexpr int SB_STEPS = 4, SB_ARRIVALS = 1;
     static constexpr uint32_t STEP_TX = 0, SB_TX = (128 + 32 + 16 + 16) * qws::W_ROWS;
 
     CUtensorMap qs, qh, dsub, msub;

@@ -1,8 +1,8 @@
 // The warp-specialized tensor-core tile loop of the quantized prefill
 // matmuls (out = x @ W^T), dense and grouped, written over a weight source
-// `W`: qmm_q5k.cu (Q5_K, and Q5_1 on its planes) and qmm_q3k.cu (Q3_K,
-// qmm_k16.cuh's source) run on it; the other sources still run on
-// qmm_pipe.cuh.
+// `W`: qmm_q5k.cu (Q5_K, and Q5_1 on its planes), qmm_q6k.cu (Q6_K),
+// qmm_q3k.cu and qmm_q2k.cu (Q3_K and Q2_K, qmm_k16.cuh's source) run on it;
+// the other sources still run on qmm_pipe.cuh.
 //
 // A block computes a tile of the output *transposed*: out^T = W . x^T, for
 // 128 weight rows (output columns) and a tile of up to 256 rows of x.
@@ -20,11 +20,12 @@
 //     slots with the tensor memory accelerator (TMA): the x tile in boxes of
 //     64 rows (of the tile's height where that is less), as many as the
 //     tile's rows need, and the source's bytes of the step; and, on the
-//     first step of each 256-deep superblock, the source's per-superblock
-//     bytes into a ring of their own, where the warp's 32 lanes add what TMA
-//     cannot copy. The rings are as deep as shared memory allows for the
-//     tile's height (`ring_shape`): 4-5 steps of a 256-row tile, up to 16 of
-//     a tile of at most 64 rows, whose loads would otherwise wait on
+//     first step of each superblock (the source's unit of SB_STEPS steps: a
+//     256-deep superblock, or Q6_K's 128-element half), the source's bytes
+//     of that unit into a ring of their own, where the warp's 32 lanes add
+//     what TMA cannot copy. The rings are as deep as shared memory allows
+//     for the tile's height (`ring_shape`): 4-6 steps of a 256-row tile, up
+//     to 16 of a tile of at most 64 rows, whose loads would otherwise wait on
 //     memory's latency. Each slot has a "full" mbarrier, on which the copies
 //     complete, and an "empty" one, on which the consumers release it; the
 //     producer waits for a slot to be empty before it refills it.
@@ -59,6 +60,8 @@
 // A weight source provides
 //   STEP_BYTES, SB_BYTES   shared memory a slot of the step ring holds beside
 //                          the x tile (0 for none), and a superblock slot
+//   SB_STEPS               k steps a superblock slot holds: 4 (256 deep), or
+//                          2 (Q6_K's half, the unit of its bit order)
 //   SB_ARRIVALS            arrivals that complete a superblock slot: 1 (the
 //                          producer's, with its TMA bytes), 33 where the
 //                          producer warp's lanes also copy with cp.async
@@ -70,9 +73,9 @@
 //                          sb, by the producer warp's 32 lanes, each then
 //                          arriving on bar (`valid`: weight rows that exist)
 //   fragments(a, step, sb, c, row, qd)   the thread's A fragments of the four
-//                          k16 steps of the c-th step (0..3) of a superblock
-//                          (rows row, row + 8), from the step's and the
-//                          superblock's slots
+//                          k16 steps of the c-th step (0..3) of a 256-deep
+//                          superblock (rows row, row + 8), from the step's
+//                          slot and the superblock slot that holds the step
 // and on the host the tensor maps of its planes (`encode`, qws::map_2d).
 // The sources' scales apply to the weights while they convert: one set of
 // accumulators sums the whole of k.
@@ -98,7 +101,7 @@ constexpr int X_BOX = 64;        // rows of x a TMA box, at most
 __host__ __device__ __forceinline__ int x_box(int tile_rows) {
     return tile_rows < X_BOX ? tile_rows : X_BOX;
 }
-constexpr int SB_STEPS = 4;      // k steps a superblock
+constexpr int SB_STEPS = 4;      // k steps a 256-deep superblock: the k loop's unrolling
 constexpr int LDC = 128 + 4;     // row of the epilogue's staging tile, in floats
 constexpr int SMEM_MAX = 232448; // the H100's shared memory a block
 constexpr int BARRIER_BYTES = 512;
@@ -110,25 +113,27 @@ constexpr int WIDTHS[] = {8, 16, 24, 32, 48, 64, 96, 128, 192, 256};
 constexpr int MAX_STAGES = 16, MAX_SB = 6;  // the barriers' room
 
 // The rings for a tile of tile_rows rows: `stages` slots of the x tile's
-// boxes and the source's step bytes, and `sb_slots` superblock slots, enough
-// for the superblocks that `stages` steps span and one more on each side.
+// boxes and the source's step bytes, and `sb_slots` superblock slots (of
+// sb_steps steps each), enough for the superblocks that `stages` steps span
+// and one more on each side.
 struct RingShape {
     int stage_bytes, stages, sb_slots;
 };
 __host__ __device__ __forceinline__ RingShape ring_shape(int tile_rows, int step_bytes,
-                                                         int sb_bytes) {
+                                                         int sb_bytes, int sb_steps) {
     RingShape r;
     const int box = x_box(tile_rows);
     r.stage_bytes = (tile_rows + box - 1) / box * box * BK * 2 + step_bytes;
     const int room = SMEM_MAX - 1024 - BARRIER_BYTES;
     for (r.stages = MAX_STAGES; r.stages > 2; --r.stages) {
-        r.sb_slots = r.stages / SB_STEPS + 2 < MAX_SB ? r.stages / SB_STEPS + 2 : MAX_SB;
+        r.sb_slots = r.stages / sb_steps + 2 < MAX_SB ? r.stages / sb_steps + 2 : MAX_SB;
         if (r.stages * r.stage_bytes + r.sb_slots * sb_bytes <= room) break;
     }
     return r;
 }
 template <class W> __host__ __device__ __forceinline__ RingShape ring_shape(int tile_rows) {
-    return ring_shape(tile_rows, W::STEP_BYTES, W::SB_BYTES);
+    static_assert(SB_STEPS % W::SB_STEPS == 0, "a superblock slot holds 1, 2 or 4 steps");
+    return ring_shape(tile_rows, W::STEP_BYTES, W::SB_BYTES, W::SB_STEPS);
 }
 
 template <class W> struct Params {
@@ -163,14 +168,14 @@ __device__ __forceinline__ void produce(const Params<W>& p, const Ring& ring, in
     int s = 0, ph = 0, t = 0, tph = 0;
     for (int it = 0; it < KT; ++it) {
         if (it >= S) wg::mbar_wait(ring.empty(s), ph ^ 1);  // the slot's previous use is released
-        if ((it & (SB_STEPS - 1)) == 0) {
-            if (it >= SB_STEPS * SBS) wg::mbar_wait(ring.sb_empty(t), tph ^ 1);
+        if ((it & (W::SB_STEPS - 1)) == 0) {
+            if (it >= W::SB_STEPS * SBS) wg::mbar_wait(ring.sb_empty(t), tph ^ 1);
             const uint32_t bar = ring.sb_full(t), dst = ring.sb + t * W::SB_BYTES;
             if (lane == 0) {
                 wg::mbar_expect_tx(bar, W::SB_TX);
-                p.w.load_superblock(dst, bar, it / SB_STEPS, wrow);
+                p.w.load_superblock(dst, bar, it / W::SB_STEPS, wrow);
             }
-            p.w.copy_superblock(dst, bar, it / SB_STEPS, wrow, valid, lane);
+            p.w.copy_superblock(dst, bar, it / W::SB_STEPS, wrow, valid, lane);
             if (++t == SBS) t = 0, tph ^= 1;
         }
         if (lane == 0) {
@@ -203,18 +208,18 @@ __device__ __forceinline__ void consume(const W& w, const Ring& ring, uint8_t* s
     for (int i = 0; i < ND; ++i) acc[i] = 0.f;
 
     // Waits for the next step's slots and converts its weights into `a`
-    // (c: the step's place in its superblock, a constant where the loop below
-    // calls it); releases a superblock's slot after its last step.
+    // (c: the step's place in its 256-deep superblock, a constant where the
+    // loop below calls it); releases a superblock slot after its last step.
     int cs = 0, cph = 0, csb = 0, csph = 0;  // the next step's slot and parity; its superblock's
     auto convert = [&](int c, uint32_t (&a)[4][4]) {
         if constexpr (W::SB_BYTES > 0) {
-            if (c == 0) wg::mbar_wait(ring.sb_full(csb), csph);
+            if (c % W::SB_STEPS == 0) wg::mbar_wait(ring.sb_full(csb), csph);
         }
         wg::mbar_wait(ring.full(cs), cph);
         w.fragments(a, smem + (cs + 1) * SB - W::STEP_BYTES, sb_g + csb * W::SB_BYTES, c, c_lo,
                     qd);
         if constexpr (W::SB_BYTES > 0) {
-            if (c == SB_STEPS - 1) {
+            if (c % W::SB_STEPS == W::SB_STEPS - 1) {
                 __syncwarp();
                 if (lane == 0) wg::mbar_arrive(ring.sb_empty(csb));
                 if (++csb == SBS) csb = 0, csph ^= 1;

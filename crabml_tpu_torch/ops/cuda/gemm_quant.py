@@ -11,9 +11,9 @@ on the W8 planes) and its grouped form `qmm_w8_grouped`, with
 Counterpart of crabml_tpu/ops/pallas/gemm_quant.py: `_qmm_kernel` becomes
 csrc/qmm_q4k.cu, csrc/qmm_q5k.cu, csrc/qmm_q6k.cu, csrc/qmm_q8_0.cu,
 csrc/qmm_q4_0.cu, csrc/qmm_q5_0.cu, csrc/qmm_q3k.cu and csrc/qmm_q2k.cu, one
-weight source of a tile loop each (qmm_q5k and qmm_q3k on csrc/qmm_ws.cuh's
-warp-specialized loop, its launch shape `qmm_ws_plan`; the others on
-csrc/qmm_pipe.cuh), with a dense and a grouped entry
+weight source of a tile loop each (qmm_q5k, qmm_q6k, qmm_q3k and qmm_q2k on
+csrc/qmm_ws.cuh's warp-specialized loop, its launch shape `qmm_ws_plan`; the
+others on csrc/qmm_pipe.cuh), with a dense and a grouped entry
 (launchers `_run` and `_run_grouped`), `_qmm_w4a8_kernel` becomes
 csrc/qmm_w4a8.cu with a form per scheme, each with its plane-per-row form
 (`_run_w4a8` with `stacked`; its launch shape is `w4a8_plan`) and
@@ -662,10 +662,10 @@ def _find_tiles(tr: int, count: int, rows: int, offsets=None) -> list:
     return out
 
 
-# csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k and qmm_q3k (dense and
-# grouped): a block is a producer and two consumer warpgroups, 128 weight rows
-# (64 a consumer) by a tile of up to 256 rows of x
-WS_FORMS = (GGMLType.Q5_K, GGMLType.Q3_K)
+# csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k, qmm_q6k, qmm_q3k and
+# qmm_q2k (dense and grouped): a block is a producer and two consumer
+# warpgroups, 128 weight rows (64 a consumer) by a tile of up to 256 rows of x
+WS_FORMS = (GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K)
 WS_WIDTHS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)  # the wgmma widths of a tile
 WS_TILE_ROWS = (256, 192, 128, 96, 64, 48, 32, 24, 16, 8)  # tile heights a plan may pick
 WS_BW = 128  # weight rows a block
@@ -676,12 +676,18 @@ WS_SMEM_MAX = 232_448  # the H100's shared memory a block
 # (its blocks convert the same weights again). Fitted to the tile sweep of
 # tools/qmm_ablation.py ws on the H100, 22 shapes of Q5_K and Q3_K (PERF.md):
 # the most shapes whose pick ran within 3% of their fastest, then the least
-# worst miss, then least squares of the log times.
+# worst miss, then least squares of the log times. The sweep of Q6_K and Q2_K
+# at the same shapes keeps them: one pair serves the four forms, each pick
+# within 3% of the fastest but at 189 rows of wo (Q3_K 3.7%, Q6_K 3.2%).
 WS_STEP_ROWS = 192
 WS_TILE_COST = 24
 # per form: (bytes a step slot holds beside the x tile, bytes a superblock
 # slot), as each source declares them
-_WS_SLOTS = {GGMLType.Q5_K: (0, 128 * 192), GGMLType.Q3_K: (0, 15 * 1024)}
+_WS_SLOTS = {GGMLType.Q5_K: (0, 128 * 192), GGMLType.Q6_K: (0, 128 * 112),
+             GGMLType.Q3_K: (0, 15 * 1024), GGMLType.Q2_K: (0, 11 * 1024)}
+# per form: the k steps a superblock slot holds (SB_STEPS): a 256-deep
+# superblock, or Q6_K's 128-element half, the unit of its bit order
+_WS_SLOT_STEPS = {GGMLType.Q5_K: 4, GGMLType.Q6_K: 2, GGMLType.Q3_K: 4, GGMLType.Q2_K: 4}
 WS_MAX_STAGES, WS_MAX_SB = 16, 6  # the barriers' room
 
 
@@ -743,15 +749,16 @@ def qmm_ws_ring(kind: GGMLType, tile_rows: int) -> tuple[int, int, int]:
     csrc/qmm_ws.cuh's rings for the form of `kind` at a tile of `tile_rows`
     rows, as qws::ring_shape derives them: the most stages, up to 16, of the
     tile's x boxes (`ws_x_box` rows each) and the source's step bytes, beside
-    stages / 4 + 2 superblock slots (up to 6), within the block's shared
-    memory less 512 bytes of barriers and 1,024 of alignment. The block asks
-    for all of it."""
+    stages / SB_STEPS + 2 superblock slots (up to 6; SB_STEPS 4, Q6_K's 2),
+    within the block's shared memory less 512 bytes of barriers and 1,024 of
+    alignment. The block asks for all of it."""
     step, sb = _WS_SLOTS[FORM_KIND[kind]]
+    sb_steps = _WS_SLOT_STEPS[FORM_KIND[kind]]
     box = ws_x_box(tile_rows)
     stage = -(-tile_rows // box) * box * 64 * 2 + step
     room = WS_SMEM_MAX - 1024 - 512
     for stages in range(WS_MAX_STAGES, 2, -1):
-        slots = min(WS_MAX_SB, stages // 4 + 2)
+        slots = min(WS_MAX_SB, stages // sb_steps + 2)
         if stages * stage + slots * sb <= room:
             break
     return stages, slots, stages * stage + slots * sb + 512 + 1024

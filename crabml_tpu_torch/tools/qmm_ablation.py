@@ -30,7 +30,8 @@ height the plan could pick (128, 96, 64, 32, 16 rows of x), at the 7B's shapes
 and at 100 and 17 rows of q|k|v and 256 rows against a 1536 x 512 weight.
 
 With the argument `ws` it times csrc/qmm_ws.cuh, the warp-specialized loop of
-qmm_q5k and qmm_q3k (and their grouped forms), as committed at the launch
+qmm_q5k, qmm_q6k, qmm_q3k and qmm_q2k (and their grouped forms; `ws q6_k
+q2_k` times only the forms named), as committed at the launch
 plan's tile (`qmm_ws_plan`) and with one piece changed: the tensor cores'
 products removed or the weights not converted (wrong numbers on purpose),
 one wgmma group in flight instead of two, a barrier over both consumer
@@ -153,6 +154,9 @@ _K16_PACK = """                    a[kk][2 * hf + h] =
                            : wg::pack_bf16(__fmaf_rn(v0, dl[kk], ml[kk]),
                                            __fmaf_rn(v1, dl[kk], ml[kk]));"""
 _K16_SCALE = "                    dl[kk] = __fmul_rn(dd[h], (float)(int8_t)sb);"
+_Q6K_PACK = """                    const __nv_bfloat162 w =
+                        __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&full), b2), d2);
+                    a[kk][2 * hf + h] = *reinterpret_cast<const uint32_t*>(&w);"""
 _WS_COMMON = {
     "committed": [],
     "no_tensor_cores": [("qmm_ws.cuh", _WS_MMA, "            acc[kk] += __uint_as_float("
@@ -175,6 +179,12 @@ WS_FORMS = {
         "float_bit_scales": [("qmm_k16.cuh", _K16_SCALE, """                    dl[kk] = __fmul_rn(dd[h],
                                        __fsub_rn(__uint_as_float(0x4B000000u | (sb ^ 0x80u)),
                                                  8388736.0f));""")]}),
+    "q6_k": ("qmm_q6k.cu", "qmm_q6k", ("ql", "qh", "dsub"), {
+        **_WS_COMMON,
+        "no_conversion": [("qmm_q6k.cu", _Q6K_PACK, "                    a[kk][2 * hf + h] = v;")]}),
+    "q2_k": ("qmm_q2k.cu", "qmm_q2k", ("qs", "scm", "d", "dmin"), {
+        **_WS_COMMON,
+        "no_conversion": [("qmm_k16.cuh", _K16_PACK, "                    a[kk][2 * hf + h] = v;")]}),
 }
 WS_SHAPES = ((17, 6144, 4096), (24, 6144, 4096), (37, 6144, 4096), (189, 6144, 4096),
              (512, 6144, 4096), (1024, 6144, 4096), (189, 4096, 4096), (512, 4096, 4096),
@@ -267,15 +277,17 @@ def f32_main(flush: torch.Tensor) -> int:
     return 0
 
 
-def ws_main(flush: torch.Tensor) -> int:
-    """The `ws` mode: csrc/qmm_ws.cuh's variants, and its tile sweep."""
+def ws_main(flush: torch.Tensor, forms=tuple(WS_FORMS)) -> int:
+    """The `ws` mode: csrc/qmm_ws.cuh's variants, and its tile sweep, for
+    the forms named (WS_FORMS' keys)."""
     from .synth_gguf import SCHEMES
 
     MOE_COUNTS = (0, 300, 37, 200, 128, 64, 195, 100)  # chip_smoke.py's GROUPED_COUNTS
-    for form, (source, stem, names, variants) in WS_FORMS.items():
-        args = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-        gargs = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_void_p) + (ctypes.c_int,) * 5 \
-            + (ctypes.c_void_p,)
+    for form in forms:
+        source, stem, names, variants = WS_FORMS[form]
+        ptrs = (ctypes.c_void_p,) * (2 + len(names))  # x, the planes, out
+        args = ptrs + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+        gargs = ptrs + (ctypes.c_int, ctypes.c_void_p) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
         dense = build(variants, source, f"{stem}_bf16", args)
         grouped = build({"committed": []}, source, f"{stem}_grouped_bf16", gargs)["committed"]
         kind, blocks = SCHEMES[form]
@@ -329,8 +341,10 @@ def ws_main(flush: torch.Tensor) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["q5_0"], ["f32"], ["ws"]):
-        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0 | f32 | ws]")
+    ws = argv[:1] == ["ws"] and set(argv[1:]) <= set(WS_FORMS)
+    if argv not in ([], ["q5_0"], ["f32"]) and not ws:
+        print("usage: python -m crabml_tpu_torch.tools.qmm_ablation [q5_0 | f32 | ws [FORM ...]]"
+              f" (FORM: {' '.join(WS_FORMS)})")
         return 2
     if not torch.cuda.is_available():
         print("qmm_ablation: needs a CUDA card")
@@ -340,8 +354,9 @@ def main(argv=None) -> int:
     print(f"gpu: {tag}")
     if argv == ["f32"]:
         return f32_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
-    if argv == ["ws"]:
-        return ws_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    if ws:
+        return ws_main(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"),
+                       tuple(argv[1:]) or tuple(WS_FORMS))
     q50 = argv == ["q5_0"]
     kind, blocks_of, names = ((GGMLType.Q5_0, q5_0_blocks, ("qs", "qh", "dsub")) if q50 else
                               (GGMLType.Q4_K, q4k_blocks, ("qs", "dsub", "msub")))

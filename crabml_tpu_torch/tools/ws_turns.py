@@ -1,19 +1,21 @@
-"""Time qmm_q5k and qmm_q3k (csrc/qmm_ws.cuh since it came in), dense and
-grouped, and the prefill of two synthetic 7B files that run them, in two
-checkouts of the port in turns, on one card.
+"""Time the dequant forms on csrc/qmm_ws.cuh (qmm_q5k, qmm_q6k, qmm_q3k,
+qmm_q2k), dense and grouped, and the prefill of a synthetic 7B file that
+runs each, in two checkouts of the port in turns, on one card.
 
-    python -m crabml_tpu_torch.tools.ws_turns OTHER_ROOT    # needs one CUDA card
+    python -m crabml_tpu_torch.tools.ws_turns OTHER_ROOT [FORM ...]   # needs one CUDA card
 
 OTHER_ROOT is another checkout of the repository (for example an earlier
-commit unpacked with `git archive` into a directory that git ignores). The
-inputs are made once, from numpy seeds, and saved, and the two GGUF files
-(7B widths at LAYERS of 32 layers, llama.cpp's Q5_K_M and Q3_K_M layouts, from
-tools/synth_gguf.py) are written once; then the turns run in the order other,
+commit unpacked with `git archive` into a directory that git ignores). FORM
+is q5_k, q6_k, q3_k or q2_k (all four when none is named). The inputs are
+made once, from numpy seeds, and saved, and a GGUF file a form (7B widths at
+LAYERS of 32 layers, from tools/synth_gguf.py: llama.cpp's Q5_K_M and Q3_K_M
+layouts, every matrix Q6_K, and llama.cpp's Q2_K layout, where q, k and
+gate|up are Q2_K) is written once; then the turns run in the order other,
 this, this, other, each in a process of its own that imports
 `crabml_tpu_torch` from that checkout and builds its kernels there. Each turn
 times, with `chip_smoke.py`'s `Timer` (L2 emptied by a write before each
 launch):
-- qmm_q5k and qmm_q3k at 512, 189, 1,024, 37 and 17 rows of the 7B q|k|v
+- each form at 512, 189, 1,024, 37 and 17 rows of the 7B q|k|v
   (4096 -> 6144), 189 rows of wo (4096 -> 4096) and 512 rows of down
   (14336 -> 4096), bfloat16 out as the prefill writes it; beside each,
   `torch.matmul` on the dequantized bf16 weight;
@@ -26,7 +28,7 @@ W8 planes (the 189-row chunk on the scheme's dequant kernel) and without
 (both chunks there), the median of PREFILLS after a warm one, with the matmul
 launches of one prefill; and from a torch.profiler window over one more
 prefill, the card's busy time (the sum of its kernels' durations) and the
-part of it in the Q5_K and Q3_K dequant kernels: the host clock of a
+part of it in the four forms' dequant kernels: the host clock of a
 prefill spreads by tens of percent from one process to the next on a shared
 host, the device's times do not. Each turn also holds every kernel output against
 its plain version (max|out - plain| / max|plain|): the run fails past 1e-4
@@ -53,7 +55,13 @@ THIS_ROOT = Path(__file__).resolve().parents[2]
 TOL = 1e-4  # chip_smoke.py's gate on the bfloat16 dequant forms
 LAYERS = 8  # of the 7B's 32: the layers' matmuls, not the lm_head, take most of the time
 PREFILLS = 7  # timed prefills a route, after a warm one: the host clock spreads
-FILES = (("7b-q5_k_m", "q5_k", 163), ("7b-q3_k_m", "q3_k", 165))
+# form -> its file: (name, scheme, seed, llama.cpp layout)
+# (Q5_K and Q3_K first: their seeds are the ones their earlier timings used)
+FILES = {"q5_k": ("7b-q5_k_m", "q5_k", 163, "k_m"), "q3_k": ("7b-q3_k_m", "q3_k", 165, "k_m"),
+         "q6_k": ("7b-q6_k", "q6_k", 167, None), "q2_k": ("7b-q2_k", "q2_k", 169, "q2_k")}
+# the dequant kernels' sources on csrc/qmm_ws.cuh, as their kernels' names carry
+# them (and the parent's: qmm_pipe.cuh's Q6KSource and qk16::Source<false>)
+WS_SOURCES = ("Q5KSource", "Q6KSource", "Source<true>", "Source<false>")
 
 
 def _chip_smoke():
@@ -78,8 +86,8 @@ def _weight(scheme: str, shape: tuple, seed: int) -> dict:
     return {"kind": int(kind), "shape": shape, "planes": dict(qt.planes)}
 
 
-def make_cases(cs) -> list[dict]:
-    """The timed cases: label, weight, x (and offsets where grouped)."""
+def make_cases(cs, forms) -> list[dict]:
+    """The timed cases of `forms`: label, weight, x (and offsets where grouped)."""
     import numpy as np
     import torch
 
@@ -88,7 +96,8 @@ def make_cases(cs) -> list[dict]:
                                 .astype(np.float32)).to(torch.bfloat16)
 
     cases = []
-    for i, scheme in enumerate(("q5_k", "q3_k")):
+    for scheme in forms:
+        i = list(FILES).index(scheme)
         qkv = _weight(scheme, (cs.QKV_M, cs.DIM), 950 + i)
         for rows in (cs.PREFILL_CHUNK, cs.RAGGED_CHUNK, 2 * cs.PREFILL_CHUNK, 37, 17):
             cases.append({"label": f"{scheme} {rows}x{cs.DIM} @ ({cs.QKV_M}x{cs.DIM})^T",
@@ -146,9 +155,9 @@ def _kernel_turn(cs, torch, case, timer) -> tuple:
 
 
 def _device_ms(torch, fn) -> tuple[float, float]:
-    """(busy ms, ms of the Q5_K and Q3_K dequant kernels) of the card in one
+    """(busy ms, ms of the four forms' dequant kernels) of the card in one
     call of fn, from torch.profiler's kernel events (the kernels' names carry
-    their weight source: Q5KSource, and qk16's Source<true> or WsSource<true>)."""
+    their weight source: WS_SOURCES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,8 +166,7 @@ def _device_ms(torch, fn) -> tuple[float, float]:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
-    return ms(kernels), ms([e for e in kernels
-                            if "Q5KSource" in e.name or "Source<true>" in e.name])
+    return ms(kernels), ms([e for e in kernels if any(w in e.name for w in WS_SOURCES)])
 
 
 def _prefill_turn(cs, torch, path: str) -> dict:
@@ -222,7 +230,8 @@ def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--child":
         print(json.dumps(child(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))), flush=True)
         return 0
-    if len(sys.argv) != 2:
+    forms = tuple(sys.argv[2:]) or tuple(FILES)
+    if len(sys.argv) < 2 or not set(forms) <= set(FILES):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -238,13 +247,13 @@ def main() -> int:
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
         cases_path = str(Path(tmp) / "cases.pt")
-        cases = make_cases(cs)
+        cases = make_cases(cs, forms)
         torch.save(cases, cases_path)
         labels = [c["label"] for c in cases]
         del cases
         files = [build_synth_gguf(str(Path(tmp) / f"{what}.gguf"), "7b", seed=seed,
-                                  layers=LAYERS, scheme=scheme, mix="k_m")
-                 for what, scheme, seed in FILES]
+                                  layers=LAYERS, scheme=scheme, mix=mix)
+                 for what, scheme, seed, mix in (FILES[f] for f in forms)]
         for root in (other, str(THIS_ROOT), str(THIS_ROOT), other):
             out = subprocess.run([sys.executable, __file__, "--child", root, cases_path,
                                   json.dumps(files)], capture_output=True, text=True, cwd=root)

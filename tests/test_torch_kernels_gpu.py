@@ -2740,14 +2740,18 @@ def test_norm_replays_in_a_cuda_graph(cuda):
 
 
 # ---------------------------------------------------------------------------
-# csrc/qmm_ws.cuh: the warp-specialized loop of qmm_q5k and qmm_q3k (and the
-# Q5_1 weights that run qmm_q5k), at the shapes whose tile heights its launch
-# plan tells apart, every tile height it may pick, and rows whose sums do not
-# depend on the launch they share
+# csrc/qmm_ws.cuh: the warp-specialized loop of qmm_q5k, qmm_q6k, qmm_q3k and
+# qmm_q2k (and the Q5_1 weights that run qmm_q5k), at the shapes whose tile
+# heights its launch plan tells apart, every tile height it may pick, and rows
+# whose sums do not depend on the launch they share
 # ---------------------------------------------------------------------------
 
-WS_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
-                                   ids=["q5_k", "q3_k", "q5_1"])
+WS_KINDS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1,
+                                            GGMLType.Q6_K, GGMLType.Q2_K],
+                                   ids=["q5_k", "q3_k", "q5_1", "q6_k", "q2_k"])
+# the four forms on the loop, each once
+WS_FORMS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q6_K,
+                                            GGMLType.Q2_K], ids=["q5_k", "q3_k", "q6_k", "q2_k"])
 
 
 @WS_KINDS
@@ -2779,7 +2783,7 @@ def _ws_entry(kind):
     return gemm_quant._lib_dequant(FORM_KIND[kind])[1]
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+@WS_FORMS
 @pytest.mark.parametrize("tile", gemm_quant.WS_TILE_ROWS)
 def test_ws_every_tile_height(cuda, kind, tile):
     """Every tile height the plan may pick, on 300 rows (whole tiles and a
@@ -2801,7 +2805,7 @@ def test_ws_every_tile_height(cuda, kind, tile):
     assert torch.equal(out, getattr(gemm_quant, name)(x, qt))
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+@WS_FORMS
 def test_ws_rows_do_not_depend_on_their_launch(cuda, kind):
     """A row's output is the same bits at 1, 17, 37, 189, 512 and 1,024 rows:
     each output element is one wgmma chain over k in order, whatever tile
@@ -2815,8 +2819,7 @@ def test_ws_rows_do_not_depend_on_their_launch(cuda, kind):
         assert torch.equal(fn(x[:rows].contiguous(), qt), full[:rows]), rows
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
-                         ids=["q5_k", "q3_k", "q5_1"])
+@WS_KINDS
 @pytest.mark.parametrize("m,k", [(2 * 14336, 4096), (4096, 14336)], ids=["gate_up", "down"])
 def test_ws_grouped_on_edge_segments(cuda, kind, m, k):
     """The grouped form at the Mixtral experts' shapes on segments with an
@@ -2827,8 +2830,9 @@ def test_ws_grouped_on_edge_segments(cuda, kind, m, k):
     _grouped_case(kind, qt, _x(sum(counts), k, 9), _offsets(counts))
 
 
-@pytest.mark.parametrize("kind,name", [(GGMLType.Q5_K, "qmm_q5k"), (GGMLType.Q3_K, "qmm_q3k")],
-                         ids=["q5_k", "q3_k"])
+@pytest.mark.parametrize("kind,name", [(GGMLType.Q5_K, "qmm_q5k"), (GGMLType.Q3_K, "qmm_q3k"),
+                                       (GGMLType.Q6_K, "qmm_q6k"), (GGMLType.Q2_K, "qmm_q2k")],
+                         ids=["q5_k", "q3_k", "q6_k", "q2_k"])
 def test_ws_rings_are_the_plans(cuda, kind, name):
     """The rings each source compiles (its <form>_ws_layout entry) are
     gemm_quant.qmm_ws_ring's at every tile height; an unknown height is

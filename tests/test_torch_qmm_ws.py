@@ -1,10 +1,10 @@
-"""csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k and qmm_q3k, on the
-CPU: its launch plan (`qmm_ws_plan`: the tiles it numbers, the wgmma widths,
+"""csrc/qmm_ws.cuh, the warp-specialized loop of qmm_q5k, qmm_q6k, qmm_q3k and
+qmm_q2k, on the CPU: its launch plan (`qmm_ws_plan`: the tiles it numbers, the wgmma widths,
 the rings' shared memory, the tile heights the card ran fastest), a model of
 each consumer's fragment conversion held to the plain versions' weights bit
 for bit (the shared-memory layouts the TMA boxes leave, the A-fragment
-layout, the arithmetic), and the wrappers of both forms, dense and grouped,
-against the JAX package's Pallas kernel in interpret mode."""
+layout, the arithmetic), and the wrappers of the four forms, dense and
+grouped, against the JAX package's Pallas kernel in interpret mode."""
 
 import re
 
@@ -115,20 +115,22 @@ def test_every_width_is_a_wgmma_n(width):
     assert WS.ws_width(width) == width and WS.ws_width(width - 1) == width
 
 
-@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1],
-                         ids=["q5_k", "q3_k", "q5_1"])
+@pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q5_1, GGMLType.Q6_K,
+                                  GGMLType.Q2_K], ids=["q5_k", "q3_k", "q5_1", "q6_k", "q2_k"])
 @pytest.mark.parametrize("tile", gemm_quant.WS_TILE_ROWS)
 def test_rings_fit_shared_memory(kind, tile):
     """Every tile height's rings (x boxes of 64 rows, the source's step and
     superblock slots, the barriers, the alignment) fit the H100's 227 KB a
     block; at least 4 steps in flight (12 at 64 rows or fewer, up to the
-    barriers' room); enough superblock slots for the steps; x boxes of the
-    tile's height up to 64 rows; and the epilogue's staging tile fits in the
-    rings it reuses."""
+    barriers' room); enough superblock slots for the steps (a slot holds 4
+    steps, Q6_K's half 2); x boxes of the tile's height up to 64 rows; and
+    the epilogue's staging tile fits in the rings it reuses."""
     stages, slots, smem = WS.qmm_ws_ring(kind, tile)
     assert smem <= H100_SMEM
     assert 4 <= stages <= WS.WS_MAX_STAGES and slots <= WS.WS_MAX_SB
-    assert slots >= min(WS.WS_MAX_SB, stages // 4 + 2)
+    steps = WS._WS_SLOT_STEPS[gemm_quant.FORM_KIND[kind]]
+    assert steps == (2 if kind == GGMLType.Q6_K else 4)
+    assert slots >= min(WS.WS_MAX_SB, stages // steps + 2)
     if tile <= 64:
         assert stages >= 12
     assert WS.ws_x_box(tile) == min(tile, 64) and WS.ws_x_box(tile) % 8 == 0
@@ -151,6 +153,19 @@ def test_ring_constants_match_the_sources():
     k16 = (_build.CSRC / "qmm_k16.cuh").read_text()
     assert "SB_BYTES = ((Q3 ? D : DMIN) + 128 * 4 + 1023) / 1024 * 1024;" in k16
     assert WS._WS_SLOTS[GGMLType.Q3_K] == (0, -(-(128 * (64 + 32 + 16 + 4)) // 1024) * 1024)
+    # Q2_K: the same source without hb, with dmin
+    assert WS._WS_SLOTS[GGMLType.Q2_K] == (0, -(-(128 * (64 + 16 + 4 + 4)) // 1024) * 1024)
+    assert "qk16::WsSource<false> w;" in (_build.CSRC / "qmm_q2k.cu").read_text()
+    q6k = (_build.CSRC / "qmm_q6k.cu").read_text()
+    assert "QL = 0, QH = 128 * 64, DS = QH + 128 * 32;" in q6k
+    assert "SB_BYTES = DS + 128 * 16;" in q6k and "STEP_BYTES = 0;" in q6k
+    assert WS._WS_SLOTS[GGMLType.Q6_K] == (0, 128 * (64 + 32 + 16))
+    # the steps a superblock slot holds: Q6_K's half, the others' superblock
+    assert "SB_STEPS = 2, SB_ARRIVALS = 1;" in q6k and "SB_STEPS = 4, SB_ARRIVALS = 1;" in q5k
+    assert "static constexpr int SB_STEPS = 4;" in k16
+    assert WS._WS_SLOT_STEPS == {GGMLType.Q5_K: 4, GGMLType.Q6_K: 2, GGMLType.Q3_K: 4,
+                                 GGMLType.Q2_K: 4}
+    assert set(WS._WS_SLOTS) == set(WS._WS_SLOT_STEPS) == set(WS.WS_FORMS)
 
 
 # The tile sweep of tools/qmm_ablation.py ws on the card (NVIDIA H100 80GB
@@ -161,14 +176,20 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
     (17, 6144, 4096): {
         'Q5_K': {24: 0.0371, 16: 0.038, 8: 0.0665},
         'Q3_K': {24: 0.0405, 16: 0.0485, 8: 0.0734},
+        'Q6_K': {24: 0.033, 16: 0.0335, 8: 0.0583},
+        'Q2_K': {24: 0.0391, 16: 0.0446, 8: 0.0712},
     },
     (24, 6144, 4096): {
         'Q5_K': {24: 0.0374, 16: 0.0382, 8: 0.0667},
         'Q3_K': {24: 0.0404, 16: 0.0487, 8: 0.0737},
+        'Q6_K': {24: 0.0332, 16: 0.0331, 8: 0.0583},
+        'Q2_K': {24: 0.039, 16: 0.0447, 8: 0.0715},
     },
     (37, 6144, 4096): {
         'Q5_K': {48: 0.038, 32: 0.038, 24: 0.0381, 16: 0.0673, 8: 0.0676},
         'Q3_K': {48: 0.0415, 32: 0.0478, 24: 0.0446, 16: 0.0741, 8: 0.074},
+        'Q6_K': {48: 0.034, 32: 0.0337, 24: 0.0335, 16: 0.059, 8: 0.059},
+        'Q2_K': {48: 0.0408, 32: 0.0474, 24: 0.0448, 16: 0.0722, 8: 0.072},
     },
     (189, 6144, 4096): {
         'Q5_K': {
@@ -177,6 +198,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             192: 0.0546, 128: 0.0557, 96: 0.0458, 64: 0.0792, 48: 0.0766, 32: 0.1084, 24: 0.1087,
             16: 0.1729, 8: 0.3097},
+        'Q6_K': {
+            192: 0.0481, 128: 0.0422, 96: 0.0397, 64: 0.0634, 48: 0.0617, 32: 0.0866, 24: 0.0869,
+            16: 0.138, 8: 0.2399},
+        'Q2_K': {
+            192: 0.0537, 128: 0.0522, 96: 0.0447, 64: 0.0777, 48: 0.0753, 32: 0.1065, 24: 0.106, 16:
+            0.1712, 8: 0.3},
     },
     (512, 6144, 4096): {
         'Q5_K': {
@@ -185,6 +212,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.0636, 192: 0.1011, 128: 0.0911, 96: 0.1217, 64: 0.1168, 48: 0.1498, 32: 0.2108,
             24: 0.2816, 16: 0.4052, 8: 0.8083},
+        'Q6_K': {
+            256: 0.0544, 192: 0.0856, 128: 0.0789, 96: 0.0992, 64: 0.0934, 48: 0.1168, 32: 0.1679,
+            24: 0.2198, 16: 0.3215, 8: 0.6236},
+        'Q2_K': {
+            256: 0.0612, 192: 0.0979, 128: 0.0898, 96: 0.1176, 64: 0.114, 48: 0.1472, 32: 0.208, 24:
+            0.2715, 16: 0.4006, 8: 0.7838},
     },
     (1024, 6144, 4096): {
         'Q5_K': {
@@ -193,6 +226,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.1209, 192: 0.1451, 128: 0.1354, 96: 0.167, 64: 0.226, 48: 0.2884, 32: 0.4134, 24:
             0.5484, 16: 0.7909, 8: 1.565},
+        'Q6_K': {
+            256: 0.1058, 192: 0.1228, 128: 0.1155, 96: 0.1385, 64: 0.1795, 48: 0.227, 32: 0.3263,
+            24: 0.4317, 16: 0.6357, 8: 1.1981},
+        'Q2_K': {
+            256: 0.1166, 192: 0.1394, 128: 0.1318, 96: 0.1619, 64: 0.2191, 48: 0.2795, 32: 0.4038,
+            24: 0.5285, 16: 0.7848, 8: 1.5175},
     },
     (189, 4096, 4096): {
         'Q5_K': {
@@ -201,6 +240,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             192: 0.0533, 128: 0.052, 96: 0.0448, 64: 0.0425, 48: 0.041, 32: 0.0733, 24: 0.0733, 16:
             0.1055, 8: 0.2052},
+        'Q6_K': {
+            192: 0.0475, 128: 0.0415, 96: 0.0379, 64: 0.0351, 48: 0.034, 32: 0.0596, 24: 0.0592, 16:
+            0.0853, 8: 0.1619},
+        'Q2_K': {
+            192: 0.0528, 128: 0.0481, 96: 0.0439, 64: 0.0415, 48: 0.0404, 32: 0.0724, 24: 0.0716,
+            16: 0.1045, 8: 0.2007},
     },
     (512, 4096, 4096): {
         'Q5_K': {
@@ -209,6 +254,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.061, 192: 0.0572, 128: 0.0487, 96: 0.0855, 64: 0.0785, 48: 0.1123, 32: 0.1412,
             24: 0.2069, 16: 0.2676, 8: 0.5333},
+        'Q6_K': {
+            256: 0.0535, 192: 0.0486, 128: 0.0424, 96: 0.0709, 64: 0.0643, 48: 0.0892, 32: 0.1133,
+            24: 0.1652, 16: 0.2169, 8: 0.4188},
+        'Q2_K': {
+            256: 0.0596, 192: 0.0549, 128: 0.0478, 96: 0.0829, 64: 0.0776, 48: 0.1111, 32: 0.1389,
+            24: 0.2016, 16: 0.2671, 8: 0.5212},
     },
     (189, 28672, 4096): {
         'Q5_K': {
@@ -217,6 +268,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             192: 0.1087, 128: 0.1752, 96: 0.1642, 64: 0.2217, 48: 0.2502, 32: 0.3748, 24: 0.4777,
             16: 0.6914, 8: 1.3599},
+        'Q6_K': {
+            192: 0.0999, 128: 0.1386, 96: 0.1411, 64: 0.1793, 48: 0.2007, 32: 0.3, 24: 0.3792, 16:
+            0.5581, 8: 1.0599},
+        'Q2_K': {
+            192: 0.1068, 128: 0.1672, 96: 0.1621, 64: 0.2199, 48: 0.2484, 32: 0.3714, 24: 0.4656,
+            16: 0.6903, 8: 1.3303},
     },
     (512, 28672, 4096): {
         'Q5_K': {
@@ -225,6 +282,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.2354, 192: 0.2807, 128: 0.3015, 96: 0.421, 64: 0.5112, 48: 0.6618, 32: 0.9363,
             24: 1.2733, 16: 1.79, 8: 3.5939},
+        'Q6_K': {
+            256: 0.2064, 192: 0.2433, 128: 0.2597, 96: 0.3454, 64: 0.4047, 48: 0.5222, 32: 0.7424,
+            24: 1.0014, 16: 1.4277, 8: 2.7688},
+        'Q2_K': {
+            256: 0.228, 192: 0.2762, 128: 0.2983, 96: 0.4117, 64: 0.5024, 48: 0.6564, 32: 0.9284,
+            24: 1.2427, 16: 1.7761, 8: 3.4882},
     },
     (512, 4096, 14336): {
         'Q5_K': {
@@ -233,6 +296,12 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.1864, 192: 0.1671, 128: 0.1451, 96: 0.2613, 64: 0.2427, 48: 0.3507, 32: 0.4485,
             24: 0.6677, 16: 0.8697, 8: 1.7382},
+        'Q6_K': {
+            256: 0.1586, 192: 0.1435, 128: 0.1251, 96: 0.22, 64: 0.1934, 48: 0.2747, 32: 0.3602, 24:
+            0.5308, 16: 0.7064, 8: 1.3707},
+        'Q2_K': {
+            256: 0.184, 192: 0.1652, 128: 0.1473, 96: 0.2615, 64: 0.2438, 48: 0.3533, 32: 0.4534,
+            24: 0.662, 16: 0.8799, 8: 1.7176},
     },
     ('grouped', 28672, 4096): {
         'Q5_K': {
@@ -241,15 +310,21 @@ SWEEP = {  # (rows, m, k) -> {form: {tile height: ms}}
         'Q3_K': {
             256: 0.6899, 192: 0.8076, 128: 0.8091, 96: 1.1266, 64: 1.2012, 48: 1.575, 32: 2.1111,
             24: 2.7351, 16: 3.7992, 8: 7.4187},
+        'Q6_K': {
+            256: 0.5774, 192: 0.6346, 128: 0.6582, 96: 0.8554, 64: 0.9474, 48: 1.2397, 32: 1.6691,
+            24: 2.1384, 16: 3.0191, 8: 5.7382},
+        'Q2_K': {
+            256: 0.6589, 192: 0.7549, 128: 0.7823, 96: 1.0668, 64: 1.1765, 48: 1.5443, 32: 2.0765,
+            24: 2.6528, 16: 3.7638, 8: 7.2017},
     },
 }
 
 
 @pytest.mark.parametrize("key", list(SWEEP), ids=[f"{k[0]}x{k[1]}x{k[2]}" for k in SWEEP])
 def test_plan_picks_a_tile_the_card_ran_near_the_fastest(key):
-    """At every shape of the card's sweep, for both forms, the plan's tile
-    height ran within 4% of the fastest height, and within 3% at all but one
-    of the 22 (grouped: the plan by the dense count)."""
+    """At every shape of the card's sweep, for the four forms, the plan's
+    tile height ran within 4% of the fastest height, and within 3% at all
+    but two of the 44 (grouped: the plan by the dense count)."""
     rows, m, k = key if key[0] != "grouped" else (sum(GROUPED_COUNTS), key[1], key[2])
     plan = WS.qmm_ws_plan(rows, m, 0 if key[0] != "grouped" else len(GROUPED_COUNTS))
     for form, times in SWEEP[key].items():
@@ -269,18 +344,20 @@ def _misses():
 
 
 def test_constants_fit_the_sweep():
-    """WS_STEP_ROWS and WS_TILE_COST pick within 3% of the fastest at 21 of
-    the 22 dense sweeps (the miss: Q3_K's 189 rows of wo, 64-row tiles where
-    48 ran 3.7% faster); a step constant 32 rows either side, or a tile
-    cost 8 either side, does no better."""
-    assert len(_misses()) == 1
+    """WS_STEP_ROWS and WS_TILE_COST pick within 3% of the fastest at 42 of
+    the 44 dense sweeps of the four forms, missing at one shape, as they did
+    at 21 of Q5_K's and Q3_K's 22: 189 rows of wo, 64-row tiles where 48 ran
+    3.7% faster for Q3_K and 3.2% for Q6_K (Q5_K and Q2_K within 3%); a
+    step constant 32 rows either side, or a tile cost 8 either side, does
+    no better. Fitted on Q5_K and Q3_K, they serve Q6_K and Q2_K unchanged."""
+    assert len(_misses()) == 2 and {key for key, _ in _misses()} == {(189, 4096, 4096)}
     for name, delta in (("WS_STEP_ROWS", 32), ("WS_TILE_COST", 8)):
         keep = getattr(WS, name)
         for v in (keep - delta, keep + delta):
             setattr(WS, name, v)
             WS.qmm_ws_plan.cache_clear()
             try:
-                assert len(_misses()) >= 1
+                assert len(_misses()) >= 2
             finally:
                 setattr(WS, name, keep)
                 WS.qmm_ws_plan.cache_clear()
@@ -309,12 +386,15 @@ def test_plan_is_a_function_of_the_shapes():
 
 
 def test_only_the_ws_forms_take_a_plan():
-    """qmm_q5k and qmm_q3k (and the kinds that run them) pass the plan's
-    tile height; the forms still on qmm_pipe.cuh pass nothing."""
+    """qmm_q5k, qmm_q6k, qmm_q3k and qmm_q2k (and the kinds that run them)
+    pass the plan's tile height; the forms still on qmm_pipe.cuh pass
+    nothing."""
+    assert WS.WS_FORMS == (GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q3_K, GGMLType.Q2_K)
     assert WS._ws_args(GGMLType.Q5_K, 189, 6144) == (WS.qmm_ws_plan(189, 6144).tile_rows,) == (96,)
     assert WS._ws_args(GGMLType.Q3_K, 512, 6144, 8) == (256,)
-    for kind in (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q6_K, GGMLType.Q4_0, GGMLType.Q2_K,
-                 GGMLType.Q5_0):
+    assert WS._ws_args(GGMLType.Q6_K, 189, 32064) == (WS.qmm_ws_plan(189, 32064).tile_rows,)
+    assert WS._ws_args(GGMLType.Q2_K, 17, 6144) == (24,)
+    for kind in (GGMLType.Q4_K, GGMLType.Q8_0, GGMLType.Q4_0, GGMLType.Q5_0):
         assert WS._ws_args(kind, 189, 6144) == ()
 
 
@@ -437,18 +517,24 @@ def q5k_kernel_weights(qs, qh, dsub, msub, box_swizzle=True):
     return W
 
 
-def q3k_kernel_weights(qs, hb, sc, d):
+def q3k_kernel_weights(qs, hb, sc, d, dmin=None, box_swizzle=True):
     """The same for csrc/qmm_q3k.cu (qmm_k16.cuh's WsSource<true> and Conv):
     a superblock slot of the qs (64-byte swizzle), hb (32-byte swizzle) and
-    scale boxes and the d copied a float a row."""
+    scale boxes and the d copied a float a row. With hb None, csrc/qmm_q2k.cu
+    (WsSource<false>): no hb box, `sc` is the scm plane (scale nibble low,
+    minimum nibble high) and dmin is copied beside d; w = val * (d * sc) -
+    dmin * mn in one FFMA."""
+    q3 = hb is not None
     K = qs.shape[1] * 4
     W = np.zeros((128, K), np.uint32)
     b = 2 * (QD & 1)
     sel0, sel1 = 0x7440 | b, 0x7440 | (b + 1)
+    base = np.float32(8388612.0 if q3 else 8388608.0)  # 2^23 (+ Q3_K's offset 4)
     for it in range(K // 64):
         c, sb = it & 3, it // 4
         hh, p = c >> 1, c & 1
-        qs_box, hb_box = _box(qs, sb * 64, 64, _swz64), _box(hb, sb * 32, 32, _swz32)
+        qs_box = _box(qs, sb * 64, 64, _swz64 if box_swizzle else None)
+        hb_box = _box(hb, sb * 32, 32, _swz32 if box_swizzle else None) if q3 else None
         sc_box = _box(sc.view(np.uint8), sb * 16, 16, None)
         a = np.zeros((256, 4, 4), np.uint32)
         for h in range(2):
@@ -456,20 +542,70 @@ def q3k_kernel_weights(qs, hb, sc, d):
             dd = d[r, sb].astype(np.float32)
             scw = _u32(sc_box, 16 * r + 4 * c)
             for kk in range(4):
-                sbyte = ((scw >> (8 * kk)) & 0xFF).astype(np.uint8).view(np.int8)
-                dl = (dd * sbyte.astype(np.float32)).astype(np.float32)
+                sbyte = ((scw >> (8 * kk)) & 0xFF).astype(np.uint8)
+                if q3:
+                    dl = (dd * sbyte.view(np.int8).astype(np.float32)).astype(np.float32)
+                else:
+                    dl = (dd * (sbyte & 0xF).astype(np.float32)).astype(np.float32)
+                    ml = -(dmin[r, sb].astype(np.float32)
+                           * (sbyte >> 4).astype(np.float32)).astype(np.float32)
                 shift, bit = 2 * (2 * p + (kk >> 1)), 2 * c + (kk >> 1)
                 for hf in range(2):
                     off = 16 * (kk & 1) + 8 * hf + 4 * (QD >> 1)
                     qo = 32 * hh + off
                     qw = _u32(qs_box, r * 64 + ((((qo >> 4) ^ (r >> 1)) & 3) << 4) + (qo & 15))
-                    hw = _u32(hb_box, r * 32 + ((((off >> 4) ^ (r >> 2)) & 1) << 4) + (off & 15))
-                    third = (hw >> (bit - 2)) if bit >= 2 else (hw << (2 - bit))
-                    v = ((qw >> shift) & 0x03030303) | (third & 0x04040404)
-                    v0 = _f32(_prmt(v, 0x4B000000, sel0)) - np.float32(8388612.0)
-                    v1 = _f32(_prmt(v, 0x4B000000, sel1)) - np.float32(8388612.0)
-                    a[:, kk, 2 * hf + h] = (_bf16_rn((v0 * dl).astype(np.float32))
-                                            | _bf16_rn((v1 * dl).astype(np.float32)) << 16)
+                    v = (qw >> shift) & 0x03030303
+                    if q3:
+                        hw = _u32(hb_box,
+                                  r * 32 + ((((off >> 4) ^ (r >> 2)) & 1) << 4) + (off & 15))
+                        third = (hw >> (bit - 2)) if bit >= 2 else (hw << (2 - bit))
+                        v = v | (third & 0x04040404)
+                    v0 = _f32(_prmt(v, 0x4B000000, sel0)) - base
+                    v1 = _f32(_prmt(v, 0x4B000000, sel1)) - base
+                    if q3:
+                        w0, w1 = (v0 * dl).astype(np.float32), (v1 * dl).astype(np.float32)
+                    else:
+                        w0, w1 = _fma(v0, dl, ml), _fma(v1, dl, ml)
+                    a[:, kk, 2 * hf + h] = _bf16_rn(w0) | _bf16_rn(w1) << 16
+        _scatter(W, it, a, lambda h: C_LO + 8 * h)
+    return W
+
+
+def q6k_kernel_weights(ql, qh, dsub, box_swizzle=True):
+    """The same for csrc/qmm_q6k.cu (Q6KSource): a half slot per two steps of
+    the ql (64-byte swizzle), qh (32-byte swizzle) and dsub (bf16 bits, a
+    16-byte row) boxes; each weight PRMT'd under 0x43 (the bf16 128 + val),
+    then HSUB2 of 160 and HMUL2 by the group's scale, each rounded to bf16."""
+    K = ql.shape[1] * 2
+    dsb = dsub.view(np.uint8).reshape(128, -1)
+    W = np.zeros((128, K), np.uint32)
+    b = 2 * (QD & 1)
+    sel = 0x4040 | b | ((b + 1) << 8)
+    QH, DS = 128 * 64, 128 * 96
+    bf = lambda bits: _f32(bits.astype(np.uint32) << 16)  # noqa: E731
+    for it in range(K // 64):
+        hf, p = it // 2, it & 1
+        slot = np.concatenate([_box(ql, hf * 64, 64, _swz64 if box_swizzle else None),
+                               _box(qh, hf * 32, 32, _swz32 if box_swizzle else None),
+                               _box(dsb, hf * 16, 16, None)])
+        a = np.zeros((256, 4, 4), np.uint32)
+        for h in range(2):
+            r = C_LO + 8 * h
+            for kk in range(4):
+                dw = _u32(slot, DS + 16 * r + 8 * p + 4 * (kk >> 1))
+                d = bf((dw >> (16 * (kk & 1))) & 0xFFFF)
+                hs = 2 * (2 * p + (kk >> 1))
+                for g in range(2):
+                    off = 8 * g + 4 * (QD >> 1)
+                    lw = _u32(slot, _swz64(r, kk) + off).astype(np.int64)
+                    hw = _u32(slot, QH + _swz32(r, kk & 1) + off).astype(np.int64)
+                    v = ((lw >> (4 * p)) & 0x0F0F0F0F) | (((hw >> hs) & 0x03030303) << 4)
+                    full = _prmt(v, 0x43434343, sel)
+                    out = np.zeros(256, np.uint32)
+                    for half in range(2):
+                        diff = _bf16_rn(bf((full >> (16 * half)) & 0xFFFF) - np.float32(160))
+                        out |= _bf16_rn((bf(diff) * d).astype(np.float32)) << (16 * half)
+                    a[:, kk, 2 * g + h] = out
         _scatter(W, it, a, lambda h: C_LO + 8 * h)
     return W
 
@@ -547,10 +683,51 @@ def test_q3k_fragments_equal_the_plain_weights(seed, shift):
                                   _bf16_bits(want))
 
 
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), scale=st.floats(1e-4, 4.0), shift=st.integers(0, 255))
+def test_q6k_fragments_equal_the_plain_weights(seed, scale, shift):
+    """Every nibble and every pair of qh bits at every byte and bit position
+    of a half (ql and qh bytes through all 256 values row by row), a random
+    signed bf16 dsub of its own per row and 16-group: the model of the
+    consumers' conversion (the half slot's boxes in their swizzles, the
+    PRMT, HSUB2 and HMUL2 each rounded to bf16) gives qmm_q6k_plain's bf16
+    weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(128)[:, None]
+    ql = ((r * 7 + np.arange(K_MODEL // 2)[None, :] + shift) % 256).astype(np.uint8)
+    qh = ((r * 11 + 3 * np.arange(K_MODEL // 4)[None, :] + shift) % 256).astype(np.uint8)
+    g = (128, K_MODEL // 16)
+    dsub = torch.from_numpy((rng.uniform(0.1, 1, g) * scale
+                             * rng.choice([-1, 1], g)).astype(np.float32)).to(torch.bfloat16)
+    planes = [torch.from_numpy(ql), torch.from_numpy(qh), dsub]
+    want = WS.qmm_q6k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *planes).t()
+    got = q6k_kernel_weights(ql, qh, dsub.view(torch.int16).numpy().view(np.uint16))
+    np.testing.assert_array_equal(_zeros_as_plus(got), _bf16_bits(want))
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), shift=st.integers(0, 255))
+def test_q2k_fragments_equal_the_plain_weights(seed, shift):
+    """Every 2-bit pattern at every byte position (qs bytes through all 256
+    values), every scale byte (both nibbles), a random f16 d and dmin per row
+    and superblock: the K16 model run for Q2_K (no hb; scm, d, dmin) gives
+    qmm_q2k_plain's bf16 weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(128)[:, None]
+    qs = ((r * 5 + np.arange(K_MODEL // 4)[None, :] + shift) % 256).astype(np.uint8)
+    scm = ((r * 3 + 17 * np.arange(K_MODEL // 16)[None, :] + shift) % 256).astype(np.uint8)
+    d, dmin = (rng.uniform(1e-3, 0.1, (128, K_MODEL // 256)).astype(np.float16).astype(np.float32)
+               for _ in range(2))
+    planes = [torch.from_numpy(x) for x in (qs, scm, d, dmin)]
+    want = WS.qmm_q2k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16), *planes).t()
+    np.testing.assert_array_equal(_zeros_as_plus(q3k_kernel_weights(qs, None, scm, d, dmin)),
+                                  _bf16_bits(want))
+
+
 def test_fragment_model_sees_a_wrong_layout():
     """The model is not blind to the layouts: boxes laid out without the
     swizzle that the reads assume give other weights than the plain
-    version's."""
+    version's, for Q5_K, Q6_K and Q2_K (whose source is Q3_K's)."""
     rng = np.random.default_rng(3)
     qs = rng.integers(0, 256, (128, K_MODEL // 2), dtype=np.uint8)
     qh = rng.integers(0, 256, (128, K_MODEL // 8), dtype=np.uint8)
@@ -565,13 +742,34 @@ def test_fragment_model_sees_a_wrong_layout():
     plain_rows = _zeros_as_plus(q5k_kernel_weights(qs, qh, *bits, box_swizzle=False))
     assert not np.array_equal(plain_rows, want)
 
+    ql = rng.integers(0, 256, (128, K_MODEL // 2), dtype=np.uint8)
+    qh6 = rng.integers(0, 256, (128, K_MODEL // 4), dtype=np.uint8)
+    ds6 = torch.from_numpy(rng.uniform(0.1, 1, (128, K_MODEL // 16)).astype(np.float32)
+                           ).to(torch.bfloat16)
+    want = _bf16_bits(WS.qmm_q6k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16),
+                                       torch.from_numpy(ql), torch.from_numpy(qh6), ds6).t())
+    ds6 = ds6.view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(_zeros_as_plus(q6k_kernel_weights(ql, qh6, ds6)), want)
+    assert not np.array_equal(_zeros_as_plus(q6k_kernel_weights(ql, qh6, ds6, False)), want)
+
+    q2 = rng.integers(0, 256, (128, K_MODEL // 4), dtype=np.uint8)
+    scm = rng.integers(0, 256, (128, K_MODEL // 16), dtype=np.uint8)
+    d, dmin = (rng.uniform(1e-3, 0.1, (128, K_MODEL // 256)).astype(np.float32) for _ in range(2))
+    want = _bf16_bits(WS.qmm_q2k_plain(torch.eye(K_MODEL, dtype=torch.bfloat16),
+                                       *(torch.from_numpy(t) for t in (q2, scm, d, dmin))).t())
+    np.testing.assert_array_equal(_zeros_as_plus(q3k_kernel_weights(q2, None, scm, d, dmin)),
+                                  want)
+    assert not np.array_equal(
+        _zeros_as_plus(q3k_kernel_weights(q2, None, scm, d, dmin, box_swizzle=False)), want)
+
 
 # ---------------------------------------------------------------------------
 # the wrappers against the JAX package
 # ---------------------------------------------------------------------------
 
 M, K, E = 256, 512, 8
-FORMS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K], ids=["q5_k", "q3_k"])
+FORMS = pytest.mark.parametrize("kind", [GGMLType.Q5_K, GGMLType.Q3_K, GGMLType.Q6_K,
+                                         GGMLType.Q2_K], ids=["q5_k", "q3_k", "q6_k", "q2_k"])
 
 
 def _raw(kind, n, seed):
